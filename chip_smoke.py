@@ -9,7 +9,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
 1. card     name and power limit (nvidia-smi), CUDA must be available
 2. build    nvcc builds the kernels of csrc/ for sm_90a
 3. kernels  each of the 4 fused PMSM kernels against its plain PyTorch
-            version on the card, 16384 envs x 256 steps, same inputs/seed
+            version on the card, 16384 envs x 256 steps (the random
+            recorder at its main-path 1024 steps), same inputs/seed
 4. env      the main path: the port's VectorEnv (Finite-CC-PMSM-v0, const
             references, an action buffer, 16384 envs x 40 steps) against
             the buffer rollout and the buffer recorder
@@ -21,23 +22,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
 7. the card line, then {"ok": true, "device": {...}}
 
 Tolerances: buffer modes rtol 1e-5 / atol 1e-4 (A, rad), those of
-tests/test_pallas_rollout.py:52-58 (float32 RK4 with the kernel's fused
-multiply-adds against PyTorch's separately rounded ops).  Random modes:
+tests/test_pallas_rollout.py:52-58 (float32 RK4; the kernels are built
+with -fmad=false, so each op rounds as PyTorch's do).  Random modes:
 an env matches when all its outputs agree at rtol 1e-4 / atol 1e-4; at
 least 99.9% of envs must match (a constraint-threshold flip sends an env
 down another branch) and the mean reward must agree to 1e-4 relative.
 Angles are compared modulo 2 pi.
 
-Bounds (bound_ms): the larger of the bytes moved over 3.35 TB/s and, for
-each operation class, the operations over the card's rate: FP32 at
-67 TFLOP/s (H100 SXM data sheet), the special functions at 16 and INT32
-at 64 per SM and clock (CUDA C++ Programming Guide, compute capability
-9.0) at 132 SMs x 1.98 GHz.  The operations are those of the
-always-executed step plus the draws of each violation counted in the run's
-outputs.  Within 256 steps a sub-episode (at least 500 steps long) ends
-only by a violation, so the 256-step bounds are exact counts; the long
-runs' bounds (main_bound_ms) leave out the few sub-episode ends without a
-violation.
+Bounds (bound_ms): the larger of the bytes moved (each input read once,
+each output written once) over 3.35 TB/s and, for each issue pipe, the
+instructions one step always executes over the pipe's rate, at 132 SMs x
+1.98 GHz.  The counts come from the SASS of the library this run built
+(tools/sass_ops.py: FP32 operations at 256 per SM and clock, i.e.
+67 TFLOP/s; ALU and IMAD instructions at 64; MUFU and conversions at 16).
+They leave out the blocks a step runs only sometimes (reference
+regeneration, the reset draws of a violation, the slow paths of sqrtf and
+sincosf), so each bound is a lower bound; the build phase prints both
+counts.
 """
 
 from __future__ import annotations
@@ -58,26 +59,19 @@ T_RECORD = 1024
 SEED = 7
 
 # peak rates (see the module docstring)
-_CLOCK = 1.98e9
-RATE = {"fp32": 67e12, "sfu": 132 * 16 * _CLOCK, "int32": 132 * 64 * _CLOCK}
-HBM = 3.35e12
-# operations per env-step that every step executes (csrc/fused_pmsm.cu)
-OPS_RANDOM = {"fp32": 137, "sfu": 5, "int32": 83}
-OPS_BUFFER = {"fp32": 91, "sfu": 2, "int32": 5}
-# operations a random-mode step adds where its env violates the constraint:
-# the parameter and reset Philox calls, both references' new length and
-# sigma (2 exp) and their reset values
-OPS_VIOLATION = {"fp32": 18, "sfu": 2, "int32": 166}
+SMS, CLOCK, HBM = 132, 1.98e9, 3.35e12
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(env_steps, ops, nbytes, n_viol=0):
-    """Least time for ``env_steps`` steps with ``n_viol`` violations among
-    them (the draws they add depend on the data) moving ``nbytes``."""
-    t_ops = max((env_steps * n + n_viol * OPS_VIOLATION[k]) / RATE[k] for k, n in ops.items())
+def bound_ms(env_steps, ops, nbytes):
+    """Least time for ``env_steps`` steps of ``ops`` (per step and pipe, as
+    tools/sass_ops.py counts them) moving ``nbytes``."""
+    from sass_ops import RATE_PER_SM_CLOCK
+
+    t_ops = max(env_steps * n / (SMS * CLOCK * RATE_PER_SM_CLOCK[k]) for k, n in ops.items())
     t_bytes = nbytes / HBM
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -159,6 +153,7 @@ def env_match(torch, got, ref, is_angle, n_envs):
 def run(dev, card):
     """Phases 2-6 on ``dev``; returns nothing, raises on any failure."""
     import numpy as np
+    import sass_ops
     import torch
 
     import gym_electric_motor_tpu_torch as gt
@@ -168,11 +163,15 @@ def run(dev, card):
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build(["fused_pmsm"])
+    lib = cuda_build.build(["fused_pmsm"])["fused_pmsm"]
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in cuda_build.BUILD_LOG.get("fused_pmsm", "").splitlines()
              if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    counts = sass_ops.step_ops(lib, [f"{k}_kernel" for k in fs.KERNELS])
+    ops = {k: counts[f"{k}_kernel"]["always"] for k in fs.KERNELS}
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "ops_per_step": {k: {"always": v["always"], "conditional": v["conditional"]}
+                           for k, v in counts.items()}})
 
     R = N_ENVS // 128
     env = gt.make_functional("Finite-CC-PMSM-v0", device=dev)
@@ -182,40 +181,38 @@ def run(dev, card):
     i_sq0 = torch.as_tensor(rng.uniform(-100, 100, (R, 128)).astype(np.float32), device=dev)
     eps0 = torch.as_tensor(rng.uniform(0, 2 * np.pi, (R, 128)).astype(np.float32), device=dev)
     acts = torch.as_tensor(rng.integers(0, 8, (T_COMPARE, R, 128)).astype(np.int32), device=dev)
-    steps_cmp = N_ENVS * T_COMPARE
     state_bytes = 3 * 4 * N_ENVS
 
     # ---- 3. kernels against their plain versions -------------------------
+    # (kernel, plain version, which outputs are angles, steps, bytes moved)
     results = {}
     cases = {
         "pmsm_rollout_buffer": (
             lambda: fs.pmsm_rollout_buffer(consts, i_sd0, i_sq0, eps0, acts),
             lambda: fs.pmsm_rollout_buffer_plain(consts, i_sd0, i_sq0, eps0, acts),
-            (False, False, True, False, False), OPS_BUFFER,
-            state_bytes + 4 * steps_cmp + 5 * 4 * N_ENVS),
+            (False, False, True, False, False), T_COMPARE,
+            state_bytes + 4 * N_ENVS * T_COMPARE + 5 * 4 * N_ENVS),
         "pmsm_record_buffer": (
             lambda: fs.pmsm_record_buffer(consts, i_sd0, i_sq0, eps0, acts),
             lambda: fs.pmsm_record_buffer_plain(consts, i_sd0, i_sq0, eps0, acts),
-            (False, False, True), OPS_BUFFER, state_bytes + 16 * steps_cmp),
+            (False, False, True), T_COMPARE, state_bytes + 16 * N_ENVS * T_COMPARE),
         "pmsm_rollout_random": (
             lambda: fs.pmsm_rollout_random(consts, SEED, i_sd0, i_sq0, eps0, T_COMPARE),
             lambda: fs.pmsm_rollout_random_plain(consts, SEED, i_sd0, i_sq0, eps0, T_COMPARE),
-            (False, False, True, False, False, False, False, False, False), OPS_RANDOM,
+            (False, False, True, False, False, False, False, False, False), T_COMPARE,
             state_bytes + 13 * 4 * N_ENVS),
         "pmsm_record_random": (
-            lambda: fs.pmsm_record_random(consts, SEED, i_sd0, i_sq0, eps0, T_COMPARE),
-            lambda: fs.pmsm_record_random_plain(consts, SEED, i_sd0, i_sq0, eps0, T_COMPARE),
-            (False, False, True, False, False, False, False, False), OPS_RANDOM,
-            state_bytes + 32 * steps_cmp),
+            lambda: fs.pmsm_record_random(consts, SEED, i_sd0, i_sq0, eps0, T_RECORD),
+            lambda: fs.pmsm_record_random_plain(consts, SEED, i_sd0, i_sq0, eps0, T_RECORD),
+            (False, False, True, False, False, False, False, False), T_RECORD,
+            state_bytes + 32 * N_ENVS * T_RECORD),
     }
-    for name, (kern, plain, is_angle, ops, nbytes) in cases.items():
+    for name, (kern, plain, is_angle, steps, nbytes) in cases.items():
         ms, got = cuda_ms(torch, kern, reps=21)
         plain_ms, ref = host_ms(torch, plain)
-        n_viol = float(got[4].sum()) if name == "pmsm_rollout_random" else \
-            float(got[7].sum()) if name == "pmsm_record_random" else 0.0
-        b_ms, b_by = bound_ms(steps_cmp, ops, nbytes, n_viol)
+        b_ms, b_by = bound_ms(N_ENVS * steps, ops[name], nbytes)
         row = {"name": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "compare_envs": N_ENVS, "compare_steps": T_COMPARE}
+               "compare_envs": N_ENVS, "compare_steps": steps}
         if "buffer" in name:
             row["max_abs_err"] = check_buffer(torch, name, got, ref, is_angle)
             row["match_share"] = 1.0
@@ -290,14 +287,12 @@ def run(dev, card):
         "lengths": bool(((rl >= 500) & (rl < 2000) & (rk >= 1) & (rk <= rl)).all()),
         "sigma": bool(((rs >= 1e-3 * 0.999) & (rs <= 1e-1 * 1.001)).all()),
     }
-    k_viol = float(terms.double().sum())
     k_mean_r = float(reward.double().sum()) / (N_ENVS * T_ROLLOUT)
-    k_term = k_viol / (N_ENVS * T_ROLLOUT)
+    k_term = float(terms.double().sum()) / (N_ENVS * T_ROLLOUT)
 
     rec = fs.make_fused_pmsm_record_rollout(env_w, T_RECORD, N_ENVS)
     rec_ms, rec_out = cuda_ms(torch, lambda: rec(SEED, z, z, z), reps=5)
     rec_bytes = sum(x.numel() * x.element_size() for x in rec_out)
-    rec_viol = float(rec_out[7].double().sum())
     short = fs.make_fused_pmsm_rollout(env_w, T_RECORD, N_ENVS)(SEED, z, z, z)
     checks["record_equals_rollout"] = bool(
         torch.allclose(rec_out[6].sum(0), short[3], rtol=1e-4, atol=1e-3)
@@ -330,9 +325,8 @@ def run(dev, card):
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
     # ---- 6. kernels line -------------------------------------------------
-    main_shape = {"pmsm_rollout_random": (T_ROLLOUT, roll_ms, state_bytes + 52 * N_ENVS, k_viol),
-                  "pmsm_record_random": (T_RECORD, rec_ms, state_bytes + 32 * N_ENVS * T_RECORD,
-                                         rec_viol)}
+    main_shape = {"pmsm_rollout_random": (T_ROLLOUT, roll_ms, state_bytes + 52 * N_ENVS),
+                  "pmsm_record_random": (T_RECORD, rec_ms, state_bytes + 32 * N_ENVS * T_RECORD)}
     line = []
     for name in fs.KERNELS:
         r = results[name]
@@ -343,12 +337,12 @@ def run(dev, card):
                             "pmsm_record_buffer": "gym_electric_motor_tpu/ops/pallas_sync.py:392"}[name],
                "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-               "library_ms": None, "envs": N_ENVS, "steps": T_COMPARE,
+               "library_ms": None, "envs": N_ENVS, "steps": r["compare_steps"],
                "match_share": r["match_share"]}
         if name in main_shape:
-            steps, ms, nbytes, n_viol = main_shape[name]
+            steps, ms, nbytes = main_shape[name]
             row["main_steps"], row["main_ms"] = steps, ms
-            row["main_bound_ms"] = bound_ms(N_ENVS * steps, OPS_RANDOM, nbytes, n_viol)[0]
+            row["main_bound_ms"] = bound_ms(N_ENVS * steps, ops[name], nbytes)[0]
         line.append(row)
     print(json.dumps({"kernels": line}), flush=True)
 
@@ -357,7 +351,7 @@ def main():
     root = Path(__file__).resolve().parent
     if not (root / "gym_electric_motor_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke.py: gym_electric_motor_tpu_torch/ is not next to this script")
-    sys.path.insert(0, str(root))
+    sys.path[:0] = [str(root), str(root / "tools")]
     import torch
 
     # ---- 1. card ---------------------------------------------------------

@@ -201,19 +201,15 @@ class ElectricMotorEnvironment:
 
     def step_autoreset_full(self, state: EnvState, action):
         """``step_autoreset`` that also returns the terminal observation
-        the reset replaces.  The reset runs only when some env terminated
-        (one host read of ``terminated.any()``); where none did, the
-        result equals the JAX package's unconditional select."""
+        the reset replaces.  Every step computes the reset and selects it
+        where an env terminated, as the JAX package does; it reads nothing
+        back to the host."""
         new_state, obs, reward, terminated = self.step(state, action)
         episode = state.episode + terminated.to(torch.int32)
-        new_state = dataclasses.replace(new_state, episode=episode)
-        final_obs = obs
-        if bool(terminated.any()):
-            reset_state, reset_obs = self.reset(state.key)
-            reset_state = dataclasses.replace(reset_state, episode=episode)
-            new_state = _select(terminated, reset_state, new_state)
-            obs = _select(terminated, reset_obs, obs)
-        return new_state, obs, reward, terminated, final_obs
+        reset_state, reset_obs = self.reset(state.key)
+        reset_state = dataclasses.replace(reset_state, episode=episode)
+        merged = _select(terminated, reset_state, dataclasses.replace(new_state, episode=episode))
+        return merged, _select(terminated, reset_obs, obs), reward, terminated, obs
 
 
 def state_from_numpy(fields: dict, device, seed: int = 0) -> EnvState:
@@ -265,10 +261,10 @@ def random_policy(n_actions: int):
 class VectorEnv:
     """``n_envs`` independent envs stepped in lockstep on one device."""
 
-    def __init__(self, env: ElectricMotorEnvironment, n_envs: int, device=None):
+    def __init__(self, env: ElectricMotorEnvironment, n_envs: int):
         self.env = env
         self.n_envs = n_envs
-        self.device = torch.device(device) if device is not None else env.device
+        self.device = env.device
 
     def reset(self, seed: int = 0):
         return self.env.reset(rng.env_keys(seed, self.n_envs, self.device))

@@ -14,21 +14,29 @@
 // [t, env] so that a warp writes 128 contiguous bytes per signal and step.
 // Random bits come from Philox4x32-10 keyed by the seed and counted by
 // (env, step, slot), so the result does not depend on the launch geometry.
+// ops/cuda_build.py builds it with -fmad=false: each multiply and add
+// rounds on its own, as in the plain PyTorch version, which the kernels
+// then track over thousands of steps.
 //
 // What bounds it on this card: the reducing kernels move only the initial
 // and final state (plus 4 bytes of action per env-step in buffer mode), so
-// they are compute-bound.  Per random-mode env-step: ~140 FP32 operations
-// (RK4 on the dq currents is ~70 of them), 5 special functions on the SFU
-// path every step (rsqrt, log, sqrt, cos, sin) and 2 more exp on a
-// sub-episode regeneration, and ~80 INT32 operations for the one Philox
-// call of every step (10 rounds of 2 mul.hi, 2 mul.lo, 4 xor).  The design
-// keeps the Park rotation incremental (4 multiplies and an rsqrt instead of
-// a sin/cos pair), draws the parameter and reset slots only where they are
-// used, and needs no memory traffic inside the loop.  At the bench size
-// (16384 envs = 512 warps, about 4 per SM) the loop is latency-bound: too
-// few warps hide the dependent FP32/SFU chains.  The recorders add 32
-// (random) or 16 (buffer) bytes of HBM traffic per env-step and are
-// bound by that.
+// they are compute-bound.  The source's transcendentals per random-mode
+// env-step (log, sqrt, cos, sin, rsqrt, and 2 exp where a sub-episode ends)
+// compile to 2 MUFU instructions (rsqrt, and the rsqrt inside sqrtf) per
+// step: without fast math, logf, sinf and cosf are FP32 polynomials.  So
+// the issue pipes bound it, not the SFU: the always-executed step issues
+// about 190 FP32 operations (RK4 on the dq currents and the polynomials)
+// and about 70 ALU instructions (the Philox call's xors, compares and
+// selects), the ALU at half the FP32 rate; tools/sass_ops.py counts them
+// from the SASS, and chip_smoke.py takes its bounds from that count.  The
+// design keeps the Park rotation incremental (4 multiplies and an rsqrt
+// instead of a sin/cos pair), draws the parameter and reset slots only
+// where they are used, and needs no memory traffic inside the loop.  At
+// the bench size (16384 envs = 512 warps, about 4 per SM) the loop is
+// latency-bound: too few warps hide the dependent FP32 and ALU chains.
+// The recorders add 32 (random) or 16 (buffer) bytes of HBM traffic per
+// env-step and are bound by that.  Every step loop is `#pragma unroll 1`,
+// so that one loop iteration is one step in the SASS count.
 #include <cuda_runtime.h>
 
 #include "pmsm_step.cuh"
@@ -54,6 +62,7 @@ __global__ void pmsm_rollout_random_kernel(PmsmConst k, uint2 key, int n, int n_
   st.eps = eps0[e];
   pmsm_init(k, key, (uint32_t)e, st);
   float reward = 0.0f, terms = 0.0f;
+#pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
     const PmsmStepOut o = pmsm_random_step(k, key, (uint32_t)e, (uint32_t)t, st);
     reward += o.reward;
@@ -86,6 +95,7 @@ __global__ void pmsm_rollout_buffer_kernel(PmsmConst k, int n, int n_steps,
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   float i_sd = i_sd0[e], i_sq = i_sq0[e], eps = eps0[e];
+#pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
     const int a = actions[(size_t)t * n + e];
     pmsm_physics(k, a, cosf(eps), sinf(eps), i_sd, i_sq, eps);
@@ -112,6 +122,7 @@ __global__ void pmsm_record_random_kernel(PmsmConst k, uint2 key, int n, int n_s
   st.i_sq = i_sq0[e];
   st.eps = eps0[e];
   pmsm_init(k, key, (uint32_t)e, st);
+#pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
     const PmsmStepOut o = pmsm_random_step(k, key, (uint32_t)e, (uint32_t)t, st);
     const size_t i = (size_t)t * n + e;
@@ -136,6 +147,7 @@ __global__ void pmsm_record_buffer_kernel(PmsmConst k, int n, int n_steps,
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   float i_sd = i_sd0[e], i_sq = i_sq0[e], eps = eps0[e];
+#pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
     const size_t i = (size_t)t * n + e;
     pmsm_physics(k, actions[i], cosf(eps), sinf(eps), i_sd, i_sq, eps);

@@ -3,8 +3,8 @@
 The env-id grammar is ``{Finite|Cont}-{CC|TC|SC}-{Motor}-v0``.  This
 package serves the Finite-CC synchronous ids so far; every other id of the
 JAX catalog raises ``NotImplementedError`` naming the slice of the port
-that brings it.  The default tables below are this package's own copy of
-the PMSM and SynRM rows of the JAX package's tables.
+that brings it.  The defaults in ``make_functional`` are this package's
+own copy of the PMSM and SynRM rows of the JAX package's tables.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ ENV_IDS = ["Finite-CC-PMSM-v0", "Finite-CC-SynRM-v0"]
 
 
 def _parse_env_id(env_id):
+    """The motor name of a served env id."""
     parts = env_id.split("-")
     if len(parts) != 4 or parts[0] not in _ACTIONS or parts[1] not in _TASKS \
             or parts[2] not in _MOTORS or parts[3] != "v0":
@@ -38,30 +39,7 @@ def _parse_env_id(env_id):
         raise NotImplementedError(
             f"{env_id!r} is not ported yet: this package serves {ENV_IDS}; the "
             "rest of the catalog arrives with slice 3 of the port")
-    return parts[0], parts[1], parts[2]
-
-
-def _supply_u(action, task, motor):
-    return 420.0
-
-
-def _default_converter(action, motor, tau):
-    return cv.finite_b6_bridge_converter(tau)
-
-
-def _default_references(task, motor, action):
-    return rg.ReferenceSpec([
-        rg.WienerProcessReference("i_sd"),
-        rg.WienerProcessReference("i_sq"),
-    ])
-
-
-def _default_reward(task, motor):
-    return WeightedSumOfErrors(reward_weights=dict(i_sd=0.5, i_sq=0.5))
-
-
-def _default_constraints(motor):
-    return (SquaredConstraint(("i_sq", "i_sd")),)
+    return parts[2]
 
 
 def resolve_device(device):
@@ -97,17 +75,15 @@ def make_functional(
     (default ``cuda``).  Components may be overridden with spec instances,
     or with dicts of keyword overrides for the supply, motor and load (the
     env-arg pattern of utils.py:5-16 of the reference)."""
-    action, task, motor_name = _parse_env_id(env_id)
+    motor_name = _parse_env_id(env_id)
     device = resolve_device(device)
     tau = tau if tau is not None else 1e-5
 
     if isinstance(supply, dict):
-        kw = dict(u_nominal=_supply_u(action, task, motor_name))
-        kw.update(supply)
-        supply = sp.ideal_voltage_supply(**kw)
+        supply = sp.ideal_voltage_supply(**{"u_nominal": 420.0, **supply})
     else:
-        supply = supply or sp.ideal_voltage_supply(_supply_u(action, task, motor_name))
-    converter = converter or _default_converter(action, motor_name, tau)
+        supply = supply or sp.ideal_voltage_supply(420.0)
+    converter = converter or cv.finite_b6_bridge_converter(tau)
     if isinstance(motor, dict):
         motor_spec = mt.MOTOR_FACTORIES[motor_name](**motor)
     else:
@@ -116,9 +92,11 @@ def make_functional(
         load = ld.constant_speed_load(**load)
     elif load is None:
         load = ld.constant_speed_load(omega_fixed=100.0)
-    reference_generator = reference_generator or _default_references(task, motor_name, action)
-    reward_function = reward_function or _default_reward(task, motor_name)
-    constraints = constraints if constraints is not None else _default_constraints(motor_name)
+    reference_generator = reference_generator or rg.ReferenceSpec(
+        [rg.WienerProcessReference("i_sd"), rg.WienerProcessReference("i_sq")])
+    reward_function = reward_function or WeightedSumOfErrors(reward_weights=dict(i_sd=0.5, i_sq=0.5))
+    if constraints is None:
+        constraints = (SquaredConstraint(("i_sq", "i_sd")),)
 
     system = SynchronousMotorSystem(supply=supply, converter=converter, motor=motor_spec,
                                     load=load, tau=tau, solver=solver, substeps=substeps,

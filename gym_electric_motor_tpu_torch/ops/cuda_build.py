@@ -20,7 +20,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+# -fmad=false: every multiply and add is rounded on its own, as PyTorch's
+# separate ops round them, so that a kernel tracks its plain version over
+# thousands of steps (with contraction, the random recorder drifted past
+# rtol 1e-4 in 2% of envs by step 1024)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # per-library ptxas report (registers, spills) of the last build, and the

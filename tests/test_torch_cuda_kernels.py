@@ -8,10 +8,9 @@ repository's conftest imports jax, hence ``--noconftest``):
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: the buffer modes must match in every env at rtol 1e-4 /
-atol 1e-4 (float32 RK4 with the kernel's fused multiply-adds against
-PyTorch's separately rounded ops); in the random modes a
-constraint-threshold flip may send an env down another branch, so 99% of
-envs must match.  Angles are compared modulo 2 pi.
+atol 1e-4 (float32 RK4, the kernel's transcendentals against PyTorch's);
+in the random modes a constraint-threshold flip may send an env down
+another branch, so 99% of envs must match.  Angles are compared modulo 2 pi.
 """
 
 import numpy as np

@@ -7,12 +7,11 @@ Run from the root of a checkout on a machine with an NVIDIA GPU:
 
 Profiles (torch.profiler, CPU + CUDA activities) a window of the general
 path (``VectorEnv.rollout`` of Finite-CC-PMSM-v0 under random actions) and
-one launch of the fused random rollout, and prints one JSON line per
-window: wall time, device busy time (the sum of the kernels' device time),
-the device's idle share, kernel launches per env-step and the top device
-kernels.  If the profiler records no device time, the window's device time
-is reported as null and the wall time from CUDA events is kept.  The last
-line is the card's name and power limit.
+prints one JSON line: wall time (host clock), device busy time (the sum of
+the device ops' time), the device's idle share, device ops per env-step
+and the top device ops.  If the profiler records no device time, the
+device numbers are null.  The last line is the card's name and power
+limit.  The fused kernels are timed by chip_smoke.py with CUDA events.
 """
 
 from __future__ import annotations
@@ -58,7 +57,6 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--envs", type=int, default=16384)
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--fused-steps", type=int, default=65536)
     args = ap.parse_args()
     root = Path(__file__).resolve().parent.parent
     sys.path.insert(0, str(root))
@@ -67,7 +65,6 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("torch_profile.py: needs a CUDA GPU")
     import gym_electric_motor_tpu_torch as gt
-    from gym_electric_motor_tpu_torch.ops import fused_sync as fs
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -80,13 +77,6 @@ def main():
                              args.steps, args.envs)
     print(json.dumps({"window": "general_path", "envs": args.envs, "steps": args.steps,
                       "card": card, **general}), flush=True)
-
-    z = torch.zeros((args.envs // 128, 128), device="cuda")
-    roll = fs.make_fused_pmsm_rollout(venv.env, args.fused_steps, args.envs)
-    roll(0, z, z, z)  # build + warm-up
-    fused = profile_window(torch, lambda: roll(1, z, z, z), args.fused_steps, args.envs)
-    print(json.dumps({"window": "pmsm_rollout_random", "envs": args.envs,
-                      "steps": args.fused_steps, "card": card, **fused}), flush=True)
     print(card, flush=True)
 
 
