@@ -18,8 +18,38 @@ Phases (each prints one JSON line; any failure exits non-zero):
             16384 envs x 1000 steps), the random rollout kernel
             (16384 envs x 65536 steps) and the random recorder (16384 envs
             x 1024 steps, ~0.54 GB written), with output checks
-6. kernels line: launches on the main path (phases 4-5), errors, times
-7. the card line, then {"ok": true, "device": {...}}
+6. (slice 1's rows of the kernels line: launches on its main path,
+   phases 4-5, errors, times)
+7. policy    each of the 4 policy kernels (csrc/fused_policy.cu) against
+            its plain version at 16384 envs x 256 steps, H 16 (the
+            recorder at H 32): greedy/const and categorical/Wiener modes;
+            the categorical/Wiener REINFORCE rollout at the trainer's
+            shape, 16384 envs x 1024 steps, gamma 0.99 (about 32 ms)
+8. rl_checks the greedy policy rollout against the port's VectorEnv
+            driven by the MLP's argmax, and the greedy REINFORCE gradient
+            at gamma 0 and 0.97 against torch autograd of the REINFORCE
+            surrogate on that trajectory (16384 envs x 200 steps, constant
+            references; every env starts from the env's reset state, as
+            the JAX tests do)
+9.-11. the RL main paths, each with the launch counts set to zero just
+            before it and read just after, which must be exactly the
+            launches the path makes:
+   9. ppo   fused-collection PPO at full width (2048 envs x 256 steps,
+            hidden 32, 8 minibatches, 2 epochs): 2 warm-up and 20 timed
+            iterations, the collection/update split, reward range,
+            parameters moved, |E[log pi] + E[H]| < 0.02 on one batch
+   10. rl_timings  the evaluation rollout (16384 x 65536 steps) and 5
+            iterations of the REINFORCE trainer (16384 x 1024 steps)
+   11. ppo_learn  tools/torch_ppo_learn.py: 1200 PPO iterations at full
+            width must reach a mean reward above -0.11 over the last 10
+            and 0.05 above the first 5
+12. kernels line (all 8 kernels; a policy kernel's launches are the sum
+    over the paths of phases 9-11, listed by path), the card line, then
+    {"ok": true, "device": {...}}
+
+REINFORCE's block must match its plain version within 1e-4 of its
+largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
+random modes use the random-mode rule below.
 
 Tolerances: buffer modes rtol 1e-5 / atol 1e-4 (A, rad), those of
 tests/test_pallas_rollout.py:52-58 (float32 RK4; the kernels are built
@@ -38,7 +68,7 @@ instructions one step always executes over the pipe's rate, at 132 SMs x
 They leave out the blocks a step runs only sometimes (reference
 regeneration, the reset draws of a violation, the slow paths of sqrtf and
 sincosf), so each bound is a lower bound; the build phase prints both
-counts.
+counts.  REINFORCE's bound counts its FP32 and XU pipes only (BOUND_PIPES).
 """
 
 from __future__ import annotations
@@ -57,6 +87,26 @@ T_GENERAL = 1000
 T_ROLLOUT = 65536
 T_RECORD = 1024
 SEED = 7
+
+# slice 2: RL on Finite-CC-PMSM-v0
+SF = ("omega", "i_sd", "i_sq", "epsilon")
+H_EVAL, H_PPO = 16, 32
+T_RL_ENV = 200
+T_POLICY = 65536
+T_REINFORCE = 1024      # the REINFORCE trainer's depth; one call takes over 10 ms
+REINFORCE_ITERS = 5
+EVAL_REPS = 5
+PPO = dict(hidden=H_PPO, horizon=256, n_envs=2048, n_minibatches=8, n_epochs=2, lr=1e-3,
+           gamma=0.9, vf_coef=0.1, ent_coef=0.01)   # bench.py:455-462, tools/tpu_validate.py:282-285
+PPO_WARMUP, PPO_ITERS = 2, 20
+LEARN_ITERS = 1200      # tools/torch_ppo_learn.py, tools/tpu_validate.py:270-300
+# The pipes a kernel's bound counts, where not all.  Most of REINFORCE's ALU
+# and IMAD instructions are the 64-bit arithmetic of its 2 P trace
+# addresses, recomputed each step (opaque64 in csrc/policy_step.cuh keeps
+# ptxas from hoisting and spilling them): a cost of the kernel's layout, not
+# work the function needs, so they stay out of its bound.  The row reports
+# the bound over every pipe beside it.
+BOUND_PIPES = {"reinforce_rollout": ("fp32", "xu")}
 
 # peak rates (see the module docstring)
 SMS, CLOCK, HBM = 132, 1.98e9, 3.35e12
@@ -151,7 +201,8 @@ def env_match(torch, got, ref, is_angle, n_envs):
 
 
 def run(dev, card):
-    """Phases 2-6 on ``dev``; returns nothing, raises on any failure."""
+    """Phases 2-6 on ``dev``: returns the rows of slice 1's kernels for the
+    kernels line and the per-step operation counts; raises on any failure."""
     import numpy as np
     import sass_ops
     import torch
@@ -162,14 +213,21 @@ def run(dev, card):
     from gym_electric_motor_tpu_torch.ops import fused_sync as fs
 
     # ---- 2. build --------------------------------------------------------
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = cuda_build.build(["fused_pmsm"])["fused_pmsm"]
+    libs = cuda_build.build(["fused_pmsm", "fused_policy"])
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in cuda_build.BUILD_LOG.get("fused_pmsm", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    counts = sass_ops.step_ops(lib, [f"{k}_kernel" for k in fs.KERNELS])
-    ops = {k: counts[f"{k}_kernel"]["always"] for k in fs.KERNELS}
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+    ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
+                    for ln in cuda_build.BUILD_LOG.get(name, "").splitlines()
+                    if "registers" in ln or "spill" in ln or "Function properties" in ln]
+             for name in libs}
+    counts, ops = {}, {}
+    for lib, instances in sass_ops.STEP_INSTANCES.items():
+        c = sass_ops.step_ops(libs[lib], list(instances.values()))
+        counts.update(c)
+        ops.update({k: c[v]["always"] for k, v in instances.items()})
+    emit({"phase": "build", "seconds": build_s, "nvcc_seconds": cuda_build.BUILD_LOG.get("seconds"),
+          "ptxas": ptxas,
           "ops_per_step": {k: {"always": v["always"], "conditional": v["conditional"]}
                            for k, v in counts.items()}})
 
@@ -344,7 +402,349 @@ def run(dev, card):
             row["main_steps"], row["main_ms"] = steps, ms
             row["main_bound_ms"] = bound_ms(N_ENVS * steps, ops[name], nbytes)[0]
         line.append(row)
-    print(json.dumps({"kernels": line}), flush=True)
+    return line, ops
+
+
+def rl_weights(torch, rng, dev, n_features, hidden, scale, bias_scale):
+    """Flat (w1, b1, w2, b2) drawn from numpy: N(0, scale^2) weights and
+    N(0, bias_scale^2) biases."""
+    import numpy as np
+
+    sizes = (n_features * hidden, hidden, hidden * 8, 8)
+    return [torch.as_tensor((rng.normal(size=n) * (bias_scale if j % 2 else scale))
+                            .astype(np.float32), device=dev) for j, n in enumerate(sizes)]
+
+
+def run_rl(dev, card, ops):
+    """Slice 2, RL on Finite-CC-PMSM-v0: the policy kernels against their
+    plain versions, the greedy kernel against the env, REINFORCE against
+    autograd, then the RL main path (fused-collection PPO at full width,
+    the REINFORCE trainer, evaluation rollouts) with its launch counts and
+    timings.  Returns the policy kernels' rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+    from gym_electric_motor_tpu_torch.parallel import (init_actor_critic_params,
+                                                       make_fused_ppo_trainer, policy_obs)
+    from gym_electric_motor_tpu_torch.parallel import sharded as tsh
+
+    R = N_ENVS // 128
+    env = gt.make_functional("Finite-CC-PMSM-v0", device=dev, state_filter=SF)
+    consts = fp.PolicyConsts(env)
+    rng = np.random.default_rng(SEED)
+    i_sd0 = torch.as_tensor(rng.uniform(-100, 100, (R, 128)).astype(np.float32), device=dev)
+    i_sq0 = torch.as_tensor(rng.uniform(-100, 100, (R, 128)).astype(np.float32), device=dev)
+    eps0 = torch.as_tensor(rng.uniform(0, 2 * np.pi, (R, 128)).astype(np.float32), device=dev)
+    ref_d = torch.as_tensor(rng.uniform(-0.5, 0.5, (R, 128)).astype(np.float32), device=dev)
+    ref_q = torch.as_tensor(rng.uniform(-0.5, 0.5, (R, 128)).astype(np.float32), device=dev)
+    w16 = rl_weights(torch, rng, dev, 6, H_EVAL, 0.5, 0.1)
+    w32 = rl_weights(torch, rng, dev, 7, H_PPO, 0.5, 0.1)
+    start = (i_sd0, i_sq0, eps0)
+    state_bytes = 3 * 4 * N_ENVS
+
+    def wbytes(n_features, hidden):
+        return 4 * fp.n_policy_params(n_features, hidden)
+
+    # ---- 7. policy kernels against their plain versions ------------------
+    results = {}
+
+    def random_check(name, got, ref, is_angle, r_idx):
+        share, worst = env_match(torch, got, ref, is_angle, N_ENVS)
+        mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
+        rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
+        row = dict(match_share=share, max_abs_err=worst, mean_reward=mean_k,
+                   mean_reward_plain=mean_p, mean_reward_rel_err=rel)
+        if share < 0.999 or rel > 1e-4:
+            emit({"phase": "policy_kernels", "name": name, **row})
+            raise AssertionError(f"{name}: {share:.5f} of envs match (need 0.999), "
+                                 f"mean reward rel err {rel:.2e} (need 1e-4)")
+        return row
+
+    def block_err(got, ref):
+        return float((got - ref).abs().max() / ref.abs().max())
+
+    # policy_rollout: greedy/const (deterministic), categorical/Wiener (timed)
+    args_g = (consts, SEED, *w16, *start, ref_d, ref_q, T_COMPARE, "greedy", "const")
+    got, ref = fp.policy_rollout(*args_g), fp.policy_rollout_plain(*args_g)
+    err_g = check_buffer(torch, "policy_rollout greedy/const", got, ref,
+                         (False, False, True, False, False))
+    args_c = (consts, SEED, *w16, *start, None, None, T_COMPARE)
+    ms, got = cuda_ms(torch, lambda: fp.policy_rollout(*args_c), reps=21)
+    plain_ms, ref = host_ms(torch, lambda: fp.policy_rollout_plain(*args_c))
+    row = random_check("policy_rollout", got, ref, (False, False, True, False, False), 3)
+    row["max_abs_err"] = max(row["max_abs_err"], err_g)
+    row.update(ms=ms, plain_ms=plain_ms, max_abs_err_greedy_const=err_g, steps=T_COMPARE,
+               bound=bound_ms(N_ENVS * T_COMPARE, ops["policy_rollout"],
+                              state_bytes + 5 * 4 * N_ENVS + wbytes(6, H_EVAL)))
+    results["policy_rollout"] = row
+
+    # policy_record at H 32
+    args_r = (consts, SEED, *w32, *start, T_COMPARE)
+    ms, got = cuda_ms(torch, lambda: fp.policy_record(*args_r), reps=21)
+    plain_ms, ref = host_ms(torch, lambda: fp.policy_record_plain(*args_r))
+    row = random_check("policy_record", got, ref, (False, False, True) + (False,) * 5, 6)
+    row.update(ms=ms, plain_ms=plain_ms, steps=T_COMPARE,
+               bound=bound_ms(N_ENVS * T_COMPARE, ops["policy_record"],
+                              state_bytes + 32 * N_ENVS * T_COMPARE + wbytes(7, H_PPO)))
+    results["policy_record"] = row
+    del got, ref
+
+    # reinforce_rollout (+ reinforce_reduce): greedy/const, then categorical/
+    # Wiener at the trainer's shape (phase 10: T_REINFORCE steps, gamma 0.99)
+    n_p = fp.n_policy_params(6, H_EVAL)
+    args_g = (consts, SEED, -0.05, *w16, *start, ref_d, ref_q, T_COMPARE, 0.97, "greedy", "const")
+    got, ref = fp.reinforce_rollout(*args_g), fp.reinforce_rollout_plain(*args_g)
+    err_g = check_buffer(torch, "reinforce_rollout greedy/const", got[:5], ref[:5],
+                         (False, False, True, False, False))
+    blk_g = block_err(got[5], ref[5])
+    if not blk_g < 1e-4:
+        raise AssertionError(f"reinforce greedy/const gradient block off by {blk_g:.2e} of its max")
+    args_c = (consts, SEED, -0.1, *w16, *start, None, None, T_REINFORCE, 0.99)
+    ms, got = cuda_ms(torch, lambda: fp.reinforce_rollout(*args_c), reps=21)
+    plain_ms, ref = host_ms(torch, lambda: fp.reinforce_rollout_plain(*args_c))
+    blk_c = block_err(got[5], ref[5])
+    row = random_check("reinforce_rollout", got[:5], ref[:5], (False, False, True, False, False), 3)
+    if not blk_c < 1e-4:
+        raise AssertionError(f"reinforce categorical/Wiener block off by {blk_c:.2e} of its max "
+                             f"({row['match_share']:.5f} of envs match)")
+    rein_bytes = state_bytes + 5 * 4 * N_ENVS + wbytes(6, H_EVAL) + 4 * n_p * N_ENVS
+    rein_ops = {k: v for k, v in ops["reinforce_rollout"].items()
+                if k in BOUND_PIPES["reinforce_rollout"]}
+    row.update(ms=ms, plain_ms=plain_ms, max_abs_err=max(row["max_abs_err"], err_g),
+               grad_block_rel_err_greedy_const=blk_g, grad_block_rel_err=blk_c, steps=T_REINFORCE,
+               bound=bound_ms(N_ENVS * T_REINFORCE, rein_ops, rein_bytes),
+               bound_ms_all_pipes=bound_ms(N_ENVS * T_REINFORCE, ops["reinforce_rollout"],
+                                           rein_bytes)[0])
+    results["reinforce_rollout"] = row
+    rein_finite = all(bool(torch.isfinite(x).all()) for x in got)
+    rein_mean = float(got[3].double().sum()) / (N_ENVS * T_REINFORCE)
+    del got, ref
+
+    # reinforce_reduce alone, on per-env sums from numpy
+    acc = torch.as_tensor(rng.normal(size=(n_p, N_ENVS)).astype(np.float32), device=dev)
+    ms, got = cuda_ms(torch, lambda: fp.reinforce_reduce(acc), reps=21)
+    plain_ms, ref = host_ms(torch, lambda: fp.reinforce_reduce_plain(acc))
+    red_err = float((got - ref).abs().max())
+    if red_err != 0.0:
+        raise AssertionError(f"reinforce_reduce differs from its plain version by {red_err:.3e}")
+    results["reinforce_reduce"] = dict(
+        ms=ms, plain_ms=plain_ms, max_abs_err=red_err, match_share=1.0, steps=None,
+        bound=bound_ms(n_p * 128 * (R - 1), ops["reinforce_reduce"], 4 * n_p * (N_ENVS + 128)))
+    for name in fp.KERNELS:
+        r = results[name]
+        emit({"phase": "policy_kernels", "name": name, "envs": N_ENVS,
+              **{k: v for k, v in r.items() if k != "bound"}, "bound_ms": r["bound"][0],
+              "bound_by": r["bound"][1]})
+
+    # ---- 8. checks on the RL entry points (their launches are not counted)
+    # The greedy policy kernel against the env under the MLP's argmax,
+    # and the REINFORCE gradient against autograd on that trajectory.  Every
+    # env starts from the env's reset state with the same constant
+    # references (tests/test_pallas_rollout.py:439-479, 565-609).
+    env_c = gt.make_functional("Finite-CC-PMSM-v0", device=dev, state_filter=SF,
+                               reference_generator=rg.ReferenceSpec(
+                                   [rg.ConstReference("i_sd", -0.1), rg.ConstReference("i_sq", 0.2)]))
+    w_eval = rl_weights(torch, rng, dev, 6, H_EVAL, 0.1, 0.0)  # init_policy_params' scale
+    policy = tsh.Policy(w_eval[0].reshape(6, H_EVAL).clone(), w_eval[1].clone(),
+                        w_eval[2].reshape(H_EVAL, 8).clone(), w_eval[3].clone())
+    venv = gt.VectorEnv(env_c, N_ENVS)
+    state, _obs = venv.reset(SEED)
+    obs_l, act_l, rew_l = [], [], []
+    with torch.no_grad():
+        for _ in range(T_RL_ENV):
+            o = policy_obs(env_c, state)
+            a = torch.argmax(policy(o), dim=-1)
+            state, _obs, r, _term = venv.step(state, a)
+            obs_l.append(o), act_l.append(a), rew_l.append(r)
+    obs_t, act_t, rew_t = torch.stack(obs_l), torch.stack(act_l), torch.stack(rew_l)
+    z = torch.zeros((R, 128), device=dev)
+    rd, rq = torch.full_like(z, -0.1), torch.full_like(z, 0.2)
+    k_out = fp.make_fused_policy_rollout(env_c, T_RL_ENV, N_ENVS, hidden=H_EVAL, sample="greedy",
+                                         ref_mode="const")(SEED, *w_eval, z, z, z, rd, rq)
+    ode = state.phys.ode_state
+    err_env = check_buffer(torch, "env vs policy_rollout greedy/const", k_out[:2],
+                           [ode[:, 1].reshape(R, 128), ode[:, 2].reshape(R, 128)], (False, False))
+    mean_env = float(rew_t.double().mean())
+    mean_k = float(k_out[3].double().sum()) / (N_ENVS * T_RL_ENV)
+    if abs(mean_k - mean_env) > 1e-5 * abs(mean_env) + 1e-7:
+        raise AssertionError(f"env vs policy_rollout: mean reward {mean_k} against {mean_env}")
+    if bool((rew_t < -5).any()):
+        raise AssertionError("the greedy constant-reference run violated a constraint")
+
+    oracle = {}
+    for gamma in (0.0, 0.97):
+        out = fp.make_fused_reinforce_rollout(env_c, T_RL_ENV, N_ENVS, hidden=H_EVAL, gamma=gamma,
+                                              sample="greedy", ref_mode="const")(
+            SEED, -0.07, *w_eval, z, z, z, rd, rq)
+        g_kernel = fp.unflatten_policy_grads(out[5], 6, 8, H_EVAL)
+        adv = rew_t.double() + 0.07
+        wts = torch.zeros_like(adv)
+        acc_t = torch.zeros_like(adv[0])
+        for t in range(T_RL_ENV - 1, -1, -1):
+            acc_t = adv[t] + gamma * acc_t
+            wts[t] = acc_t
+        policy.zero_grad()
+        logp = torch.log_softmax(policy(obs_t.reshape(-1, 6)), dim=-1)
+        surrogate = torch.sum(wts.float().reshape(-1) * logp[torch.arange(logp.shape[0], device=dev),
+                                                             act_t.reshape(-1)])
+        surrogate.backward()
+        rel = {k: float((g_kernel[k] - getattr(policy, k).grad).abs().max()
+                        / (getattr(policy, k).grad.abs().max() + 1e-9)) for k in g_kernel}
+        oracle[str(gamma)] = rel
+        if max(rel.values()) >= 1e-4:
+            raise AssertionError(f"REINFORCE gradient at gamma {gamma} vs autograd: {rel}")
+    emit({"phase": "rl_checks", "envs": N_ENVS, "steps": T_RL_ENV,
+          "env_vs_policy_rollout_max_abs_err": err_env, "mean_reward_env": mean_env,
+          "mean_reward_kernel": mean_k, "reinforce_vs_autograd_rel_err": oracle})
+    del obs_t, act_t, rew_t, obs_l, state, venv
+
+    # ---- 9.-11. the RL main paths, each counted from zero ----------------
+    by_path = {}
+
+    def path_launches(path, expect):
+        """Reads the launches since the last reset, which must be ``expect``."""
+        got = {k: v for k, v in fp.LAUNCHES.items() if v}
+        by_path[path] = got
+        if got != expect:
+            raise AssertionError(f"RL path {path}: kernel launches {got}, expected {expect}")
+
+    # 9. fused-collection PPO at full width
+    fp.reset_launches()
+    init_opt, train = make_fused_ppo_trainer(env, **PPO)
+    model = init_actor_critic_params(SEED, 7, 8, H_PPO, device=dev)
+    p0 = [p.detach().clone() for p in model.parameters()]
+    opt = init_opt(model)
+    ne = PPO["n_envs"]
+    planes = tuple(torch.zeros((ne // 128, 128), device=dev) for _ in range(3))
+    model, opt, planes, rs_warm = train(model, opt, planes, 3, PPO_WARMUP)
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(PPO_ITERS)]
+    rs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (e0, e1, e2) in enumerate(events):
+        e0.record()
+        out = train.collect(model, planes, 3 + PPO_WARMUP + i)
+        e1.record()
+        planes, mean_r = train.ppo_update(model, opt, out, planes, 3 + PPO_WARMUP + i)
+        e2.record()
+        rs.append(mean_r)
+    torch.cuda.synchronize()
+    ppo_s = time.perf_counter() - t0
+    path_launches("ppo", {"policy_record": PPO_WARMUP + PPO_ITERS})
+    rs = torch.stack(rs).double().cpu().numpy()
+    collect_ms = [e0.elapsed_time(e1) for e0, e1, _ in events]
+    update_ms = [e1.elapsed_time(e2) for _, e1, e2 in events]
+    moved = all(not torch.equal(p.detach(), q) for p, q in zip(model.parameters(), p0))
+    # the alignment invariant on one recorded batch at this width
+    out = train.collect(model, planes, 999)
+    obs_b, act_b, logp_b, _adv, _ret = tsh.ppo_batch(model, train.roll, out, planes, PPO["gamma"],
+                                                     0.95)
+    with torch.no_grad():
+        _lp, ent_b = tsh.heads_logp_ent(model(obs_b)[0], act_b, train.roll.act_ns)
+    align = float(logp_b.double().mean() + ent_b.double().mean())
+    ppo = {"envs": ne, "horizon": PPO["horizon"], "hidden": H_PPO, "iters": PPO_ITERS,
+           "seconds": ppo_s, "env_steps_per_s": PPO_ITERS * ne * PPO["horizon"] / ppo_s,
+           "collect_ms_median": float(np.median(collect_ms)),
+           "update_ms_median": float(np.median(update_ms)),
+           "iter_ms_host": 1e3 * ppo_s / PPO_ITERS, "mean_reward_first": float(rs[0]),
+           "mean_reward_last": float(rs[-1]), "mean_reward": float(rs.mean()),
+           "params_moved": moved, "alignment": align}
+    emit({"phase": "ppo", "card": card, **ppo})
+    if not (np.isfinite(rs).all() and -0.5 < rs.min() and rs.max() < 0.0):
+        raise AssertionError(f"PPO rewards out of (-0.5, 0): {rs}")
+    if not moved:
+        raise AssertionError("PPO left a parameter unchanged")
+    if not abs(align) < 0.02:
+        raise AssertionError(f"PPO alignment |E[log pi] + E[H]| = {abs(align):.4f} (need < 0.02)")
+    del out, obs_b, act_b, logp_b
+
+    # 10. timings: evaluation rollout and REINFORCE trainer (the REINFORCE
+    # rollout was timed at the trainer's shape in phase 7)
+    fp.reset_launches()
+    roll = fp.make_fused_policy_rollout(env, T_POLICY, N_ENVS, hidden=H_EVAL)
+    pol_ms, pol = cuda_ms(torch, lambda: roll(SEED, *w16, z, z, z), reps=EVAL_REPS)
+    path_launches("evaluation", {"policy_rollout": 2 + EVAL_REPS})  # cuda_ms warms up twice
+    pol_mean = float(pol[3].double().sum()) / (N_ENVS * T_POLICY)
+    checks = {"finite": all(bool(torch.isfinite(x).all()) for x in pol),
+              "eps_in_range": bool(((pol[2] >= 0) & (pol[2] < 2 * math.pi)).all()),
+              "reward_scale": -0.5 < pol_mean < 0.0}
+    checks["reinforce_finite"] = rein_finite
+    t_rein, rein_ms = T_REINFORCE, results["reinforce_rollout"]["ms"]
+    trainer = fp.make_fused_reinforce_trainer(env, t_rein, N_ENVS, hidden=H_EVAL, gamma=0.99)
+    rpol = tsh.Policy(w16[0].reshape(6, H_EVAL).clone(), w16[1].clone(),
+                      w16[2].reshape(H_EVAL, 8).clone(), w16[3].clone())
+    fp.reset_launches()
+    train_ms, (rpol, rrs) = host_ms(torch, lambda: trainer(SEED, rpol, REINFORCE_ITERS))
+    path_launches("reinforce_trainer", {"reinforce_rollout": REINFORCE_ITERS,
+                                        "reinforce_reduce": REINFORCE_ITERS})
+    rrs = rrs.double().cpu().numpy()
+    checks["reinforce_trainer"] = bool(np.isfinite(rrs).all() and (-0.5 < rrs).all()
+                                       and (rrs < 0).all()
+                                       and all(bool(torch.isfinite(p).all())
+                                               for p in rpol.parameters()))
+
+    # 11. PPO learns: 1200 iterations at full width (tools/torch_ppo_learn.py)
+    import torch_ppo_learn
+
+    fp.reset_launches()
+    learned = torch_ppo_learn.learn(dev, LEARN_ITERS, 3, log=lambda d: None)
+    path_launches("ppo_learn", {"policy_record": LEARN_ITERS})
+    emit({"phase": "ppo_learn", "card": card, **learned})
+    if not learned["ok"]:
+        raise AssertionError(f"PPO did not learn: {learned}")
+    launches = {k: sum(p.get(k, 0) for p in by_path.values()) for k in fp.KERNELS}
+    emit({"phase": "rl_timings", "card": card,
+          "policy_rollout": {"envs": N_ENVS, "steps": T_POLICY, "hidden": H_EVAL, "ms": pol_ms,
+                             "env_steps_per_s": N_ENVS * T_POLICY / (pol_ms / 1e3),
+                             "mean_reward": pol_mean},
+          "reinforce_rollout": {"envs": N_ENVS, "steps": t_rein, "hidden": H_EVAL, "ms": rein_ms,
+                                "env_steps_per_s": N_ENVS * t_rein / (rein_ms / 1e3),
+                                "mean_reward": rein_mean},
+          "reinforce_trainer": {"envs": N_ENVS, "steps": t_rein, "iters": REINFORCE_ITERS,
+                                "ms": train_ms,
+                                "env_steps_per_s": REINFORCE_ITERS * N_ENVS * t_rein / (train_ms / 1e3),
+                                "mean_reward": rrs.tolist()},
+          "checks": checks, "launches": launches, "launches_by_path": by_path})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"RL output checks failed: {failed}")
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the RL main paths: {missing}")
+
+    # ---- kernels line rows (REINFORCE's compare shape is its main shape) --
+    main = {
+        "policy_rollout": (N_ENVS, T_POLICY, pol_ms, bound_ms(
+            N_ENVS * T_POLICY, ops["policy_rollout"], state_bytes + 20 * N_ENVS + wbytes(6, H_EVAL))),
+        "policy_record": (ne, PPO["horizon"], float(np.median(collect_ms)), bound_ms(
+            ne * PPO["horizon"], ops["policy_record"],
+            12 * ne + 32 * ne * PPO["horizon"] + wbytes(7, H_PPO))),
+    }
+    replaces = {"policy_rollout": "gym_electric_motor_tpu/ops/pallas_policy.py:268",
+                "policy_record": "gym_electric_motor_tpu/ops/pallas_policy.py:477",
+                "reinforce_rollout": "gym_electric_motor_tpu/ops/pallas_policy.py:747",
+                "reinforce_reduce": "gym_electric_motor_tpu/ops/pallas_policy.py:747"}
+    line = []
+    for name in fp.KERNELS:
+        r = results[name]
+        row = {"name": name, "route": "cuda",
+               "source": "gym_electric_motor_tpu_torch/csrc/fused_policy.cu",
+               "replaces": replaces[name], "launches": launches[name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None,
+               "envs": N_ENVS, "steps": r["steps"], "match_share": r["match_share"],
+               "launches_by_path": {p: c[name] for p, c in by_path.items() if name in c}}
+        if "bound_ms_all_pipes" in r:
+            row["bound_ms_all_pipes"] = r["bound_ms_all_pipes"]
+        if name in main:
+            envs, steps, ms, (b_ms, b_by) = main[name]
+            row.update(main_envs=envs, main_steps=steps, main_ms=ms, main_bound_ms=b_ms,
+                       main_bound_by=b_by)
+        line.append(row)
+    return line
 
 
 def main():
@@ -363,9 +763,12 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run(torch.device("cuda"), card)
+    dev = torch.device("cuda")
+    line, ops = run(dev, card)
+    line += run_rl(dev, card, ops)
 
-    # ---- 7. card and result ----------------------------------------------
+    # ---- 12. kernels line, card and result --------------------------------
+    print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

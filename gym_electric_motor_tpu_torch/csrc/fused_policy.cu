@@ -1,0 +1,431 @@
+// Policy-in-the-loop Finite-CC-PMSM kernels for Hopper (sm_90a): the
+// 2-layer tanh MLP of policy_step.cuh picks each step's B6 action inside
+// the kernel, over the PMSM step of pmsm_step.cuh.  Plain C interface for
+// ctypes; every function returns cudaGetLastError().
+//
+// Replaces (gym_electric_motor_tpu/ops/pallas_policy.py):
+//   policy_rollout    make_fused_policy_rollout (:268): reducing rollout,
+//                     categorical or greedy, Wiener or constant references
+//   policy_record     make_fused_policy_record_rollout (:477): the PPO
+//                     collection engine, every step recorded
+//   reinforce_rollout make_fused_reinforce_rollout (:747): the rollout with
+//                     the policy gradient accumulated from eligibility traces
+//   reinforce_reduce  the same call's reduction of the per-env gradient
+//                     sums to the (P, 128) block, lane = env mod 128
+//
+// Design: one thread per env, the drive and reference state in registers
+// across an in-kernel T loop (`#pragma unroll 1`, so one iteration is one
+// step for tools/sass_ops.py).  H is a template parameter (8, 16, 32): every
+// loop over features, hidden units and actions unrolls, so the hidden layer
+// and the logits live in registers.  The weights (F*H + H + 8*H + 8 floats,
+// 2080 B at F = 7, H = 32) change every training iteration, so they come as
+// a device pointer and each block stages them into shared memory once; all
+// threads then read one address at a time (a broadcast).  Random bits are
+// Philox4x32-10 keyed by the seed and counted by (env, step, slot):
+// the action uniform and the Box-Muller pair of the policy kernels are the
+// words of SLOT_STEP, REINFORCE's 8 Gumbel uniforms and 2 Box-Muller pairs
+// have slots of their own (policy_step.cuh).  Built with -fmad=false, as
+// fused_pmsm.cu, so that each multiply and add rounds as in the plain
+// version.
+//
+// What bounds them on this card: the reducing rollout moves only the
+// initial and final state, so it is bound by its operations per step: the
+// MLP (F*H + 8*H multiply-adds, as separate FMUL and FADD), H tanhf and, in
+// categorical mode, 8 expf, beside the PMSM step; tools/sass_ops.py counts
+// them from the SASS.  The recorder adds 32 B of stores per env-step.
+// REINFORCE keeps two traces of P = 6H + H + 8H + 8 floats per env (e and
+// G), which do not fit in registers; they live in global memory laid out
+// [P, N], so that a warp's accesses coalesce, and every step reads and
+// writes both (16 P bytes per env-step, 32 MB in all at 16384 envs and
+// H = 16, about the H100's L2).  That traffic bounds it; the bytes the
+// function must move (inputs once, outputs once) are far fewer, so its
+// bound_ms is set by the operations, its FP32 work: the 64-bit address
+// arithmetic of the traces, recomputed each step (opaque64), is a cost of
+// this layout and stays out of the bound.  The reduction reads G once, in a
+// fixed order with no atomics, so a rerun gives the same bits.
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "policy_step.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+template <int H, bool kGreedy, bool kWiener>
+__global__ void __launch_bounds__(kThreads)
+policy_rollout_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps,
+                      const float* __restrict__ w1, const float* __restrict__ b1,
+                      const float* __restrict__ w2, const float* __restrict__ b2,
+                      const float* __restrict__ i_sd0, const float* __restrict__ i_sq0,
+                      const float* __restrict__ eps0, const float* __restrict__ ref_d,
+                      const float* __restrict__ ref_q, float* __restrict__ out_isd,
+                      float* __restrict__ out_isq, float* __restrict__ out_eps,
+                      float* __restrict__ out_reward, float* __restrict__ out_terms) {
+  __shared__ __align__(16) float sw[MlpLayout<6, H>::N];
+  stage_weights<6, H>(sw, w1, b1, w2, b2);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  PmsmEnv st;
+  st.i_sd = i_sd0[e];
+  st.i_sq = i_sq0[e];
+  st.eps = eps0[e];
+  if (kWiener) {
+    pmsm_init(k, key, (uint32_t)e, st);
+  } else {
+    st.c = cosf(st.eps);
+    st.s = sinf(st.eps);
+    st.rv_d = ref_d[e];
+    st.rv_q = ref_q[e];
+  }
+  float reward = 0.0f, terms = 0.0f;
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    compiler_barrier();
+    float obs[6], h[H], logit[kActions];
+    policy_obs6(k, q, st, obs);
+    mlp_forward<6, H>(sw, obs, h, logit);
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (!kGreedy || kWiener) w = pmsm_draw(key, (uint32_t)e, (uint32_t)t, SLOT_STEP);
+    const int action = kGreedy ? argmax8(logit) : sample_inverse_cdf(logit, uniform24(w.x));
+    const PmsmStepOut o = pmsm_action_step(k, action, st);
+    reward += o.reward;
+    terms += o.done;
+    if (kWiener) wiener_advance_pair(k, key, (uint32_t)e, (uint32_t)t, w, o.done != 0.0f, st);
+  }
+  out_isd[e] = st.i_sd;
+  out_isq[e] = st.i_sq;
+  out_eps[e] = st.eps;
+  out_reward[e] = reward;
+  out_terms[e] = terms;
+}
+
+// Categorical, Wiener references; the 7-feature observation takes the
+// angle as the rotation's (cos, sin) (pallas_policy.py:378-380).
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+policy_record_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps,
+                     const float* __restrict__ w1, const float* __restrict__ b1,
+                     const float* __restrict__ w2, const float* __restrict__ b2,
+                     const float* __restrict__ i_sd0, const float* __restrict__ i_sq0,
+                     const float* __restrict__ eps0, float* __restrict__ out_isd,
+                     float* __restrict__ out_isq, float* __restrict__ out_eps,
+                     float* __restrict__ out_refd, float* __restrict__ out_refq,
+                     int* __restrict__ out_act, float* __restrict__ out_reward,
+                     float* __restrict__ out_done) {
+  __shared__ __align__(16) float sw[MlpLayout<7, H>::N];
+  stage_weights<7, H>(sw, w1, b1, w2, b2);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  PmsmEnv st;
+  st.i_sd = i_sd0[e];
+  st.i_sq = i_sq0[e];
+  st.eps = eps0[e];
+  pmsm_init(k, key, (uint32_t)e, st);
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    compiler_barrier();
+    const float obs[7] = {q.v[Q_OMEGA_N], st.i_sd * k.v[C_INV_I_LIM], st.i_sq * k.v[C_INV_I_LIM],
+                          st.c, st.s, st.rv_d, st.rv_q};
+    float h[H], logit[kActions];
+    mlp_forward<7, H>(sw, obs, h, logit);
+    const uint4 w = pmsm_draw(key, (uint32_t)e, (uint32_t)t, SLOT_STEP);
+    const PmsmStepOut o = pmsm_action_step(k, sample_inverse_cdf(logit, uniform24(w.x)), st);
+    wiener_advance_pair(k, key, (uint32_t)e, (uint32_t)t, w, o.done != 0.0f, st);
+    const size_t i = (size_t)t * n + e;
+    out_isd[i] = st.i_sd;
+    out_isq[i] = st.i_sq;
+    out_eps[i] = st.eps;
+    out_refd[i] = o.ref_d;
+    out_refq[i] = o.ref_q;
+    out_act[i] = o.action;
+    out_reward[i] = o.reward;
+    out_done[i] = o.done;
+  }
+}
+
+// REINFORCE with the backward pass in the loop (pallas_policy.py:613-722):
+// action by Gumbel-max over the 8 logits (strict >, the first maximum wins)
+// or argmax; score onehot(a) - softmax(logits) backpropagated through the
+// MLP by hand; physics at the exact angle (no incremental rotation); then
+// per parameter p, e = gamma * (1 - reset_{t-1}) * e + g and
+// G += (r - baseline) * e.  The baseline is one float on the device (a
+// trainer updates it there, without a round trip to the host); `trace` and
+// `acc` are [P, n] scratch.
+template <int H, bool kGreedy, bool kWiener>
+__global__ void __launch_bounds__(kThreads)
+reinforce_rollout_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps, float gamma,
+                         const float* __restrict__ baseline_p, const float* __restrict__ w1,
+                         const float* __restrict__ b1, const float* __restrict__ w2,
+                         const float* __restrict__ b2, const float* __restrict__ i_sd0,
+                         const float* __restrict__ i_sq0, const float* __restrict__ eps0,
+                         const float* __restrict__ ref_d, const float* __restrict__ ref_q,
+                         float* __restrict__ out_isd, float* __restrict__ out_isq,
+                         float* __restrict__ out_eps, float* __restrict__ out_reward,
+                         float* __restrict__ out_terms, float* __restrict__ trace,
+                         float* __restrict__ acc) {
+  using L = MlpLayout<6, H>;
+  constexpr int F = 6;
+  constexpr int P = L::N;
+  __shared__ __align__(16) float sw[P];
+  stage_weights<F, H>(sw, w1, b1, w2, b2);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float* __restrict__ et = trace + e;
+  float* __restrict__ gt = acc + e;
+  const size_t stride = (size_t)n;
+#pragma unroll 8
+  for (int p = 0; p < P; ++p) {
+    et[p * stride] = 0.0f;
+    gt[p * stride] = 0.0f;
+  }
+  PmsmEnv st;
+  st.i_sd = i_sd0[e];
+  st.i_sq = i_sq0[e];
+  st.eps = eps0[e];
+  if (kWiener) {
+    wiener_init(k, key, (uint32_t)e, st);
+  } else {
+    st.rv_d = ref_d[e];
+    st.rv_q = ref_q[e];
+  }
+  const float baseline = *baseline_p;
+  const float u_min = k.v[C_U_MIN];
+  float reward_sum = 0.0f, terms = 0.0f, viol_prev = 0.0f;
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    compiler_barrier();
+    float obs[F], h[H], logit[kActions];
+    policy_obs6(k, q, st, obs);
+    mlp_forward<F, H>(sw, obs, h, logit);
+    compiler_barrier();  // w2 again for dh, not kept live from the forward pass
+
+    int action;
+    if (kGreedy) {
+      action = argmax8(logit);
+    } else {
+      const uint4 ga = pmsm_draw(key, (uint32_t)e, (uint32_t)t, SLOT_GUMBEL_A);
+      const uint4 gb = pmsm_draw(key, (uint32_t)e, (uint32_t)t, SLOT_GUMBEL_B);
+      const uint32_t bits[kActions] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+      float best = 0.0f;
+      action = 0;
+#pragma unroll
+      for (int a = 0; a < kActions; ++a) {
+        const float pert = logit[a] - logf(-logf(fmaxf(uniform24(bits[a]), u_min)));
+        if (a == 0) {
+          best = pert;
+        } else if (pert > best) {
+          best = pert;
+          action = a;
+        }
+      }
+    }
+
+    // categorical score dlogit = onehot(a) - softmax(logits), then dh and
+    // the hidden pre-activation gradient dpre
+    float m = logit[0];
+#pragma unroll
+    for (int a = 1; a < kActions; ++a) m = fmaxf(m, logit[a]);
+    float ex[kActions];
+#pragma unroll
+    for (int a = 0; a < kActions; ++a) ex[a] = expf(logit[a] - m);
+    float z = ex[0];
+#pragma unroll
+    for (int a = 1; a < kActions; ++a) z = z + ex[a];
+    const float inv_z = 1.0f / z;
+    float dlogit[kActions];
+#pragma unroll
+    for (int a = 0; a < kActions; ++a) dlogit[a] = (action == a ? 1.0f : 0.0f) - ex[a] * inv_z;
+    float dpre[H];
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      float dh = sw[L::W2 + j * kActions] * dlogit[0];
+#pragma unroll
+      for (int a = 1; a < kActions; ++a) dh = dh + sw[L::W2 + j * kActions + a] * dlogit[a];
+      dpre[j] = (1.0f - h[j] * h[j]) * dh;
+    }
+
+    // physics at the exact angle, reward, constraint, reset
+    st.c = cosf(st.eps);
+    st.s = sinf(st.eps);
+    const PmsmStepOut o = pmsm_action_step(k, action, st);
+    reward_sum += o.reward;
+    terms += o.done;
+
+    // eligibility traces and the gradient sums, parameter by parameter in
+    // the packing order [w1 (f*H + j) | b1 | w2 (j*8 + a) | b2]
+    const float geff = gamma * (1.0f - viol_prev);
+    const float adv = o.reward - baseline;
+    float* __restrict__ ep = reinterpret_cast<float*>(opaque64(reinterpret_cast<uintptr_t>(et)));
+    float* __restrict__ gp = reinterpret_cast<float*>(opaque64(reinterpret_cast<uintptr_t>(gt)));
+    const size_t s = opaque64(stride);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      float g;
+      if (p < L::B1) {
+        g = obs[p / H] * dpre[p % H];
+      } else if (p < L::W2) {
+        g = dpre[p - L::B1];
+      } else if (p < L::B2) {
+        g = h[(p - L::W2) / kActions] * dlogit[(p - L::W2) % kActions];
+      } else {
+        g = dlogit[p - L::B2];
+      }
+      const float ev = *ep * geff + g;
+      *ep = ev;
+      *gp = *gp + adv * ev;
+      ep += s;
+      gp += s;
+    }
+    viol_prev = o.done;
+
+    if (kWiener) {
+      const uint4 b = pmsm_draw(key, (uint32_t)e, (uint32_t)t, SLOT_BOX_MULLER);
+      const float draw_d = sqrtf(-2.0f * logf(fmaxf(uniform24(b.x), u_min)))
+                           * cosf(k.v[C_TWO_PI] * uniform24(b.z));
+      const float draw_q = sqrtf(-2.0f * logf(fmaxf(uniform24(b.y), u_min)))
+                           * cosf(k.v[C_TWO_PI] * uniform24(b.w));
+      wiener_advance(k, key, (uint32_t)e, (uint32_t)t, draw_d, draw_q, o.done != 0.0f, st);
+    }
+  }
+  out_isd[e] = st.i_sd;
+  out_isq[e] = st.i_sq;
+  out_eps[e] = st.eps;
+  out_reward[e] = reward_sum;
+  out_terms[e] = terms;
+}
+
+// out[p, lane] = sum over r of acc[p, r * 128 + lane], r ascending: one
+// thread per (p, lane), a warp reads 128 contiguous bytes per r.
+__global__ void __launch_bounds__(kThreads)
+reinforce_reduce_kernel(int n, int n_params, const float* __restrict__ acc,
+                        float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_params * 128) return;
+  const float* g = acc + (size_t)(i / 128) * n + (i % 128);
+  float s = g[0];
+  const int rows = n / 128;
+#pragma unroll 1
+  for (int r = 1; r < rows; ++r) s = s + g[(size_t)r * 128];
+  out[i] = s;
+}
+
+PmsmConst load_const(const float* host) {
+  PmsmConst k;
+  for (int i = 0; i < N_PMSM_CONST; ++i) k.v[i] = host[i];
+  return k;
+}
+
+PolicyConst load_policy_const(const float* host) {
+  PolicyConst q;
+  for (int i = 0; i < N_POLICY_CONST; ++i) q.v[i] = host[N_PMSM_CONST + i];
+  return q;
+}
+
+uint2 seed_key(unsigned long long seed) {
+  return make_uint2((uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32));
+}
+
+int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+// Calls fn(std::integral_constant<int, H>) for an instantiated H (8, 16
+// or 32); returns false for any other.
+template <typename Fn>
+bool with_hidden(int hidden, Fn&& fn) {
+  switch (hidden) {
+    case 8: fn(std::integral_constant<int, 8>{}); return true;
+    case 16: fn(std::integral_constant<int, 16>{}); return true;
+    case 32: fn(std::integral_constant<int, 32>{}); return true;
+    default: return false;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int policy_n_const() { return N_PMSM_CONST + N_POLICY_CONST; }
+
+const char* gemx_policy_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+int policy_rollout(const float* consts, unsigned long long seed, int n, int n_steps, int hidden,
+                   int greedy, int wiener, const float* w1, const float* b1, const float* w2,
+                   const float* b2, const float* i_sd0, const float* i_sq0, const float* eps0,
+                   const float* ref_d, const float* ref_q, float* out_isd, float* out_isq,
+                   float* out_eps, float* out_reward, float* out_terms, void* stream) {
+  const PmsmConst k = load_const(consts);
+  const PolicyConst q = load_policy_const(consts);
+  const uint2 key = seed_key(seed);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool ok = with_hidden(hidden, [&](auto hc) {
+    constexpr int H = decltype(hc)::value;
+#define GEMX_POLICY_ROLLOUT(G, W)                                                              \
+  policy_rollout_kernel<H, G, W><<<blocks(n), kThreads, 0, s>>>(                               \
+      k, q, key, n, n_steps, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d, ref_q, out_isd,        \
+      out_isq, out_eps, out_reward, out_terms)
+    if (greedy) {
+      if (wiener) GEMX_POLICY_ROLLOUT(true, true); else GEMX_POLICY_ROLLOUT(true, false);
+    } else {
+      if (wiener) GEMX_POLICY_ROLLOUT(false, true); else GEMX_POLICY_ROLLOUT(false, false);
+    }
+#undef GEMX_POLICY_ROLLOUT
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+int policy_record(const float* consts, unsigned long long seed, int n, int n_steps, int hidden,
+                  const float* w1, const float* b1, const float* w2, const float* b2,
+                  const float* i_sd0, const float* i_sq0, const float* eps0, float* out_isd,
+                  float* out_isq, float* out_eps, float* out_refd, float* out_refq, int* out_act,
+                  float* out_reward, float* out_done, void* stream) {
+  const PmsmConst k = load_const(consts);
+  const PolicyConst q = load_policy_const(consts);
+  const uint2 key = seed_key(seed);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool ok = with_hidden(hidden, [&](auto hc) {
+    constexpr int H = decltype(hc)::value;
+    policy_record_kernel<H><<<blocks(n), kThreads, 0, s>>>(
+        k, q, key, n, n_steps, w1, b1, w2, b2, i_sd0, i_sq0, eps0, out_isd, out_isq, out_eps,
+        out_refd, out_refq, out_act, out_reward, out_done);
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+int reinforce_rollout(const float* consts, unsigned long long seed, int n, int n_steps,
+                      int hidden, int greedy, int wiener, float gamma, const float* baseline,
+                      const float* w1, const float* b1, const float* w2, const float* b2,
+                      const float* i_sd0, const float* i_sq0, const float* eps0,
+                      const float* ref_d, const float* ref_q, float* out_isd, float* out_isq,
+                      float* out_eps, float* out_reward, float* out_terms, float* trace,
+                      float* acc, void* stream) {
+  const PmsmConst k = load_const(consts);
+  const PolicyConst q = load_policy_const(consts);
+  const uint2 key = seed_key(seed);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool ok = with_hidden(hidden, [&](auto hc) {
+    constexpr int H = decltype(hc)::value;
+#define GEMX_REINFORCE(G, W)                                                                   \
+  reinforce_rollout_kernel<H, G, W><<<blocks(n), kThreads, 0, s>>>(                            \
+      k, q, key, n, n_steps, gamma, baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d,       \
+      ref_q, out_isd, out_isq, out_eps, out_reward, out_terms, trace, acc)
+    if (greedy) {
+      if (wiener) GEMX_REINFORCE(true, true); else GEMX_REINFORCE(true, false);
+    } else {
+      if (wiener) GEMX_REINFORCE(false, true); else GEMX_REINFORCE(false, false);
+    }
+#undef GEMX_REINFORCE
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+int reinforce_reduce(int n, int n_params, const float* acc, float* out, void* stream) {
+  reinforce_reduce_kernel<<<blocks(n_params * 128), kThreads, 0, (cudaStream_t)stream>>>(
+      n, n_params, acc, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

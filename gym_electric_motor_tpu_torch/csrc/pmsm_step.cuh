@@ -1,11 +1,13 @@
-// One env-step of the Finite-CC-PMSM / SynRM fused rollouts, shared by all
-// four kernels of fused_pmsm.cu so that their semantics cannot diverge.
+// One env-step of the Finite-CC-PMSM / SynRM fused rollouts, shared by the
+// four kernels of fused_pmsm.cu and the policy kernels of fused_policy.cu
+// so that their semantics cannot diverge.
 //
 // Replaces the per-step closures of _PmsmCtx in
 // gym_electric_motor_tpu/ops/pallas_sync.py (physics_step_cs, :108-120) and
 // the step bodies of make_fused_pmsm_rollout (:191-242) and
-// make_fused_pmsm_record_rollout (:440-491).  The plain PyTorch version of
-// the same arithmetic, in the same order, is
+// make_fused_pmsm_record_rollout (:440-491); _policy_pmsm_ctx in
+// ops/pallas_policy.py (:32-87) computes the same physics.  The plain
+// PyTorch version of the same arithmetic, in the same order, is
 // gym_electric_motor_tpu_torch/ops/fused_sync.py.
 //
 // Every float constant (the baked motor, converter, reward and Wiener
@@ -132,9 +134,8 @@ __device__ __forceinline__ void wiener_params(const PmsmConst& k, uint32_t b_len
   rs = expf(k.v[C_LN10] * (-3.0f + 2.0f * uniform24(b_sig)));
 }
 
-__device__ __forceinline__ void pmsm_init(const PmsmConst& k, uint2 key, uint32_t env, PmsmEnv& st) {
-  st.c = cosf(st.eps);
-  st.s = sinf(st.eps);
+// Both Wiener references at step 0 (value, sub-episode length, sigma).
+__device__ __forceinline__ void wiener_init(const PmsmConst& k, uint2 key, uint32_t env, PmsmEnv& st) {
   const uint4 a = pmsm_draw(key, env, 0u, SLOT_INIT_A);
   const uint4 b = pmsm_draw(key, env, 0u, SLOT_INIT_B);
   const float m = k.v[C_MARGIN];
@@ -146,19 +147,23 @@ __device__ __forceinline__ void pmsm_init(const PmsmConst& k, uint2 key, uint32_
   wiener_params(k, a.w, b.y, st.rl_q, st.rs_q);
 }
 
-// One random-mode step: random action, physics, incremental Park rotation
-// with rsqrt renormalisation, squared-current constraint, WSE reward
-// against the references, in-kernel reset, then the Wiener advance (one
-// Box-Muller pair feeds both references) with sub-episode regeneration.
-// Slot 1 and slot 2 are drawn only where their words are used.
-__device__ __forceinline__ PmsmStepOut pmsm_random_step(const PmsmConst& k, uint2 key,
-                                                        uint32_t env, uint32_t t, PmsmEnv& st) {
-  const uint4 w = pmsm_draw(key, env, t, SLOT_STEP);
+__device__ __forceinline__ void pmsm_init(const PmsmConst& k, uint2 key, uint32_t env, PmsmEnv& st) {
+  st.c = cosf(st.eps);
+  st.s = sinf(st.eps);
+  wiener_init(k, key, env, st);
+}
+
+// One step under a given action: physics, incremental Park rotation with
+// rsqrt renormalisation, squared-current constraint, WSE reward against the
+// references, in-kernel reset of the drive state.  The references are left
+// to the caller (wiener_advance, or constant).
+__device__ __forceinline__ PmsmStepOut pmsm_action_step(const PmsmConst& k, int action,
+                                                        PmsmEnv& st) {
   PmsmStepOut out;
-  out.action = (int)(w.x & 7u);
+  out.action = action;
   const float c = st.c, s = st.s;
   float i_sd = st.i_sd, i_sq = st.i_sq, eps = st.eps;
-  pmsm_physics(k, out.action, c, s, i_sd, i_sq, eps);
+  pmsm_physics(k, action, c, s, i_sd, i_sq, eps);
   float c_new = c * k.v[C_COS_D] - s * k.v[C_SIN_D];
   float s_new = s * k.v[C_COS_D] + c * k.v[C_SIN_D];
   const float inv = rsqrtf(c_new * c_new + s_new * s_new);
@@ -180,13 +185,15 @@ __device__ __forceinline__ PmsmStepOut pmsm_random_step(const PmsmConst& k, uint
   st.eps = violated ? 0.0f : eps;
   st.c = violated ? 1.0f : c_new;
   st.s = violated ? 0.0f : s_new;
+  return out;
+}
 
-  const float u1 = uniform24(w.y);
-  const float u2 = uniform24(w.z);
-  const float rad = sqrtf(-2.0f * logf(fmaxf(u1, k.v[C_U_MIN])));
-  const float theta = k.v[C_TWO_PI] * u2;
-  const float draw_d = rad * cosf(theta);
-  const float draw_q = rad * sinf(theta);
+// Wiener advance of both references from one normal draw each, with
+// sub-episode regeneration and a fresh value where the env reset.  Slot 1
+// and slot 2 are drawn only where their words are used.
+__device__ __forceinline__ void wiener_advance(const PmsmConst& k, uint2 key, uint32_t env,
+                                               uint32_t t, float draw_d, float draw_q,
+                                               bool violated, PmsmEnv& st) {
   const bool regen_d = (st.rk_d >= st.rl_d) || violated;
   const bool regen_q = (st.rk_q >= st.rl_q) || violated;
   if (regen_d || regen_q) {
@@ -207,5 +214,26 @@ __device__ __forceinline__ PmsmStepOut pmsm_random_step(const PmsmConst& k, uint
     st.rv_d = v_d;
     st.rv_q = v_q;
   }
+}
+
+// The Wiener advance of the random step: one Box-Muller pair from the
+// step's words (w.y, w.z) feeds both references.
+__device__ __forceinline__ void wiener_advance_pair(const PmsmConst& k, uint2 key, uint32_t env,
+                                                    uint32_t t, uint4 w, bool violated,
+                                                    PmsmEnv& st) {
+  const float u1 = uniform24(w.y);
+  const float u2 = uniform24(w.z);
+  const float rad = sqrtf(-2.0f * logf(fmaxf(u1, k.v[C_U_MIN])));
+  const float theta = k.v[C_TWO_PI] * u2;
+  wiener_advance(k, key, env, t, rad * cosf(theta), rad * sinf(theta), violated, st);
+}
+
+// One random-mode step: a random action (the low 3 bits of the step's
+// first word), pmsm_action_step, then the Wiener advance.
+__device__ __forceinline__ PmsmStepOut pmsm_random_step(const PmsmConst& k, uint2 key,
+                                                        uint32_t env, uint32_t t, PmsmEnv& st) {
+  const uint4 w = pmsm_draw(key, env, t, SLOT_STEP);
+  const PmsmStepOut out = pmsm_action_step(k, (int)(w.x & 7u), st);
+  wiener_advance_pair(k, key, env, t, w, out.done != 0.0f, st);
   return out;
 }

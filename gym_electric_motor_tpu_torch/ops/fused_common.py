@@ -84,6 +84,13 @@ SLOT_PARAMS = 1   # (length d, length q, sigma d, sigma q)
 SLOT_RESET = 2    # (reset value d, reset value q, -, -)
 SLOT_INIT_A = 3   # at step 0: (value d, value q, length d, length q)
 SLOT_INIT_B = 4   # at step 0: (sigma d, sigma q, -, -)
+# REINFORCE's own slots (csrc/policy_step.cuh): 8 Gumbel uniforms and one
+# Box-Muller pair per reference; its parameter and reset draws use slots 1
+# and 2.  The policy rollout and recorder take their action uniform and
+# Box-Muller pair from SLOT_STEP.
+SLOT_GUMBEL_A = 5    # (gumbel 0, 1, 2, 3)
+SLOT_GUMBEL_B = 6    # (gumbel 4, 5, 6, 7)
+SLOT_BOX_MULLER = 7  # (u1 d, u1 q, u2 d, u2 q)
 
 
 class PhiloxBits:
@@ -112,3 +119,16 @@ class PhiloxBits:
     def step_words(self, t: int):
         w0, w1, w2, w3 = self._call(t, [SLOT_STEP, SLOT_PARAMS, SLOT_RESET])
         return (w0[0], w1[0], w2[0], w0[1], w1[1], w2[1], w3[1], w0[2], w1[2])
+
+
+class ReinforceBits(PhiloxBits):
+    """REINFORCE's bit source: ``init_words()`` as ``PhiloxBits``;
+    ``step_words(t)`` the 18 words of step ``t``: 8 Gumbel words, the
+    Box-Muller ``(u1 d, u1 q, u2 d, u2 q)``, ``(len d, len q, sig d,
+    sig q)`` and ``(reset d, reset q)``."""
+
+    def step_words(self, t: int):
+        w0, w1, w2, w3 = self._call(t, [SLOT_GUMBEL_A, SLOT_GUMBEL_B, SLOT_BOX_MULLER,
+                                        SLOT_PARAMS, SLOT_RESET])
+        words = [w[i] for i in range(4) for w in (w0, w1, w2, w3)]
+        return tuple(words) + (w0[4], w1[4])

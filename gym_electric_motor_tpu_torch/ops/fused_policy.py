@@ -1,0 +1,666 @@
+"""Policy-in-the-loop Finite-CC-PMSM rollouts: the in-kernel actor MLP for
+RL evaluation, PPO collection and in-kernel REINFORCE training.
+
+Counterpart of ``_policy_pmsm_ctx``, ``make_fused_policy_rollout``,
+``make_fused_policy_record_rollout``, ``flatten_policy_params``,
+``make_fused_reinforce_rollout``, ``unflatten_policy_grads``,
+``make_fused_reinforce_trainer`` and ``policy_obs_host`` in
+``gym_electric_motor_tpu/ops/pallas_policy.py``.  Four kernels written in
+CUDA (``csrc/fused_policy.cu``, over ``csrc/policy_step.cuh`` and the PMSM
+step of ``csrc/pmsm_step.cuh``) carry the work on the GPU:
+
+===================== ================================================
+``policy_rollout``    T steps with the MLP choosing the action
+                      (categorical or greedy; Wiener or constant
+                      references), reduced to the final state, reward
+                      sums and termination counts
+``policy_record``     the categorical, Wiener step with the 7-feature
+                      observation, every step recorded (PPO collection)
+``reinforce_rollout`` the 6-feature step with Gumbel-max or greedy
+                      actions and the policy gradient accumulated per env
+                      from eligibility traces
+``reinforce_reduce``  the per-env gradient sums reduced to the
+                      ``(P, 128)`` block in a fixed order
+===================== ================================================
+
+The policy is the 2-layer tanh MLP of ``parallel/sharded.py`` with H in
+{8, 16, 32} hidden units and 8 logits; its weights are the flat float32
+vectors ``w1 (F*H,)``, ``b1 (H,)``, ``w2 (H*8,)``, ``b2 (8,)`` (row-major
+``obs @ w1``).  Each kernel has a plain PyTorch version here (``*_plain``)
+with the same arithmetic in the same order: every sum is an explicit loop
+in the kernel's order, never a matrix product.  A wrapper runs the plain
+version only for tensors on the CPU; for CUDA tensors it launches the kernel
+(and counts the launch in ``LAUNCHES``) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cuda_build
+from .fused_common import LANE, PhiloxBits, ReinforceBits, uniform_from_bits
+from .fused_sync import (
+    CONST_NAMES,
+    PmsmConsts,
+    _check,
+    _planes,
+    _ptrs,
+    _random_init,
+    action_step,
+    wiener_advance,
+    wiener_advance_pair,
+)
+
+_f32 = np.float32
+
+N_ACTIONS = 8
+HIDDEN_SIZES = (8, 16, 32)
+STATE_FILTER = ("omega", "i_sd", "i_sq", "epsilon")
+# Order of the constants after CONST_NAMES, the same as PolicyConstIndex in
+# csrc/policy_step.cuh.
+POLICY_CONST_NAMES = ("omega_n", "inv_eps_lim", "pi")
+
+KERNELS = ("policy_rollout", "policy_record", "reinforce_rollout", "reinforce_reduce")
+
+# launches of each CUDA kernel since the last reset_launches()
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches():
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def n_policy_params(n_features, hidden):
+    """P = F*H + H + 8*H + 8, the length of the flat weight vector."""
+    return n_features * hidden + hidden + hidden * N_ACTIONS + N_ACTIONS
+
+
+class PolicyConsts(PmsmConsts):
+    """``PmsmConsts`` plus the constants of ``_policy_pmsm_ctx`` that the
+    PMSM kernels lack (the speed feature and the angle scale).  The env must
+    observe ``state_filter=('omega', 'i_sd', 'i_sq', 'epsilon')``: the
+    kernels rebuild that observation from their state."""
+
+    def __init__(self, env):
+        super().__init__(env)
+        got = tuple(env.state_names[i] for i in np.asarray(env._state_filter))
+        if got != STATE_FILTER:
+            raise ValueError(f"the policy kernels observe {STATE_FILTER}: build the env with "
+                             f"state_filter={STATE_FILTER!r}, not {got!r}")
+        ps = env.physical_system
+        names = list(ps.state_names)
+        lim = np.asarray(ps.limits)
+        values = dict(omega_n=float(ps.load.omega_fixed) / float(lim[names.index("omega")]),
+                      inv_eps_lim=1.0 / float(lim[names.index("epsilon")]), pi=np.pi)
+        extra = np.array([_f32(values[n]) for n in POLICY_CONST_NAMES], dtype=np.float32)
+        self.host = np.concatenate([self.host, extra])
+        self.f.update({n: float(v) for n, v in zip(POLICY_CONST_NAMES, extra)})
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _col(v, like):
+    """A weight vector as a column that broadcasts over the plane ``like``."""
+    return v.reshape((-1,) + (1,) * like.dim())
+
+
+def mlp_forward(w1, b1, w2, b2, obs):
+    """``h = tanh(b1 + obs @ w1)``, ``logits = b2 + h @ w2`` for a list of F
+    feature planes, each sum taken in index order (``mlp_forward``).
+    Returns ``h (H, ...)`` and ``logits (8, ...)``."""
+    hidden = b1.numel()
+    w1 = w1.reshape(len(obs), hidden)
+    acc = _col(b1, obs[0]) + _col(w1[0], obs[0]) * obs[0]
+    for f in range(1, len(obs)):
+        acc = acc + _col(w1[f], obs[f]) * obs[f]
+    h = torch.tanh(acc)
+    w2 = w2.reshape(hidden, N_ACTIONS)
+    logits = _col(b2, h[0]) + _col(w2[0], h[0]) * h[0]
+    for j in range(1, hidden):
+        logits = logits + _col(w2[j], h[j]) * h[j]
+    return h, logits
+
+
+def argmax8(logits):
+    """First maximum wins (strict >)."""
+    best = logits[0]
+    action = torch.zeros(best.shape, dtype=torch.int32, device=best.device)
+    for a in range(1, N_ACTIONS):
+        take = logits[a] > best
+        best = torch.where(take, logits[a], best)
+        action = torch.where(take, a, action)
+    return action
+
+
+def sample_inverse_cdf(logits, u):
+    """Inverse-CDF categorical sample over the softmax (8 exps, one
+    uniform): the last a with ``u * total >= cumsum(exp)[a - 1]``."""
+    m = logits[0]
+    for a in range(1, N_ACTIONS):
+        m = torch.maximum(m, logits[a])
+    es = torch.exp(logits - m)
+    total = es[0]
+    for a in range(1, N_ACTIONS):
+        total = total + es[a]
+    uu = u * total
+    cum = es[0]
+    action = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
+    for a in range(1, N_ACTIONS):
+        action = torch.where(uu >= cum, a, action)
+        cum = cum + es[a]
+    return action
+
+
+def _obs6(k, st):
+    """The 6-feature observation (``policy_obs6``): the angle wrapped to
+    (-pi, pi] and scaled by 1 / pi."""
+    eps = st["eps"]
+    eps_w = eps - k["two_pi"] * torch.floor(eps * k["inv_two_pi"])
+    eps_w = torch.where(eps_w > k["pi"], eps_w - k["two_pi"], eps_w)
+    return [torch.full_like(eps, k["omega_n"]), st["i_sd"] * k["inv_i_lim"],
+            st["i_sq"] * k["inv_i_lim"], eps_w * k["inv_eps_lim"], st["rv_d"], st["rv_q"]]
+
+
+def _const_init(i_sd0, i_sq0, eps0, ref_d, ref_q):
+    return dict(i_sd=i_sd0.clone(), i_sq=i_sq0.clone(), eps=eps0.clone(),
+                c=torch.cos(eps0), s=torch.sin(eps0), rv_d=ref_d.clone(), rv_q=ref_q.clone())
+
+
+def _modes(sample, ref_mode):
+    if sample not in ("categorical", "greedy"):
+        raise ValueError(f"sample must be 'categorical' or 'greedy', got {sample!r}")
+    if ref_mode not in ("wiener", "const"):
+        raise ValueError(f"ref_mode must be 'wiener' or 'const', got {ref_mode!r}")
+    return sample == "greedy", ref_mode == "wiener"
+
+
+def _words(bits, t, shape):
+    return [w.reshape(shape) for w in bits.step_words(t)]
+
+
+def policy_rollout_plain(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d, ref_q,
+                         n_steps, sample="categorical", ref_mode="wiener", bits=None):
+    """Plain version of ``policy_rollout``: ``(i_sd, i_sq, eps, reward_sum,
+    term_count)``.  ``bits`` replaces the Philox bit source (an object with
+    ``init_words()`` and ``step_words(t)``, see ``fused_common.PhiloxBits``;
+    the first step word is the action uniform)."""
+    greedy, wiener = _modes(sample, ref_mode)
+    k = consts.f
+    bits = bits or PhiloxBits(seed, i_sd0.numel(), i_sd0.device)
+    st = (_random_init(k, bits.init_words(), i_sd0, i_sq0, eps0) if wiener
+          else _const_init(i_sd0, i_sq0, eps0, ref_d, ref_q))
+    reward = torch.zeros_like(i_sd0)
+    terms = torch.zeros_like(i_sd0)
+    for t in range(n_steps):
+        _h, logits = mlp_forward(w1, b1, w2, b2, _obs6(k, st))
+        words = _words(bits, t, i_sd0.shape) if (wiener or not greedy) else None
+        action = argmax8(logits) if greedy else sample_inverse_cdf(logits, uniform_from_bits(words[0]))
+        st, (_a, r, done, _rd, _rq) = action_step(k, st, action)
+        reward = reward + r
+        terms = terms + done
+        if wiener:
+            wiener_advance_pair(k, st, done > 0.5, *words[1:])
+    return st["i_sd"], st["i_sq"], st["eps"], reward, terms
+
+
+def policy_record_plain(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, n_steps, bits=None):
+    """Plain version of ``policy_record``: per step the post-reset (i_sd,
+    i_sq, eps), the references the policy observed (and the reward was
+    taken against), the action, the reward and the done flag."""
+    k = consts.f
+    bits = bits or PhiloxBits(seed, i_sd0.numel(), i_sd0.device)
+    st = _random_init(k, bits.init_words(), i_sd0, i_sq0, eps0)
+    omega_n = torch.full_like(i_sd0, k["omega_n"])
+    rec = [[] for _ in range(8)]
+    for t in range(n_steps):
+        obs = [omega_n, st["i_sd"] * k["inv_i_lim"], st["i_sq"] * k["inv_i_lim"], st["c"], st["s"],
+               st["rv_d"], st["rv_q"]]
+        _h, logits = mlp_forward(w1, b1, w2, b2, obs)
+        words = _words(bits, t, i_sd0.shape)
+        st, (a, r, done, ref_d, ref_q) = action_step(
+            k, st, sample_inverse_cdf(logits, uniform_from_bits(words[0])))
+        wiener_advance_pair(k, st, done > 0.5, *words[1:])
+        for lst, x in zip(rec, (st["i_sd"], st["i_sq"], st["eps"], ref_d, ref_q, a, r, done)):
+            lst.append(x)
+    if n_steps == 0:
+        shape = (0,) + tuple(i_sd0.shape)
+        return tuple(torch.empty(shape, dtype=torch.int32 if j == 5 else torch.float32,
+                                 device=i_sd0.device) for j in range(8))
+    return tuple(torch.stack(lst) for lst in rec)
+
+
+def reinforce_reduce_plain(acc):
+    """``(P, N)`` per-env gradient sums -> ``(P, 128)``: the rows of 128 envs
+    added in ascending order (``reinforce_reduce``)."""
+    rows = acc.reshape(acc.shape[0], -1, LANE)
+    out = rows[:, 0]
+    for r in range(1, rows.shape[1]):
+        out = out + rows[:, r]
+    return out
+
+
+def reinforce_rollout_plain(consts, seed, baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d,
+                            ref_q, n_steps, gamma=0.99, sample="categorical", ref_mode="wiener",
+                            bits=None):
+    """Plain version of ``reinforce_rollout`` followed by
+    ``reinforce_reduce``: ``(i_sd, i_sq, eps, reward_sum, term_count,
+    grad_block)``.  ``baseline`` is a float or a one-element tensor."""
+    greedy, wiener = _modes(sample, ref_mode)
+    k = consts.f
+    shape = i_sd0.shape
+    bits = bits or ReinforceBits(seed, i_sd0.numel(), i_sd0.device)
+    st = (_random_init(k, bits.init_words(), i_sd0, i_sq0, eps0) if wiener
+          else _const_init(i_sd0, i_sq0, eps0, ref_d, ref_q))
+    hidden = b1.numel()
+    n_params = n_policy_params(6, hidden)
+    gamma = float(_f32(gamma))
+    baseline = baseline.reshape(()) if isinstance(baseline, torch.Tensor) else float(_f32(baseline))
+    w2m = w2.reshape(hidden, N_ACTIONS)
+    trace = torch.zeros((n_params,) + tuple(shape), dtype=torch.float32, device=i_sd0.device)
+    acc = torch.zeros_like(trace)
+    viol_prev = torch.zeros_like(i_sd0)
+    reward_sum = torch.zeros_like(i_sd0)
+    terms = torch.zeros_like(i_sd0)
+    onehot_ids = _col(torch.arange(N_ACTIONS, device=i_sd0.device), i_sd0)
+    for t in range(n_steps):
+        obs = _obs6(k, st)
+        h, logits = mlp_forward(w1, b1, w2, b2, obs)
+        words = _words(bits, t, shape) if (wiener or not greedy) else None
+        if greedy:
+            action = argmax8(logits)
+        else:
+            best = action = None
+            for a in range(N_ACTIONS):
+                ug = torch.clamp(uniform_from_bits(words[a]), min=k["u_min"])
+                pert = logits[a] - torch.log(-torch.log(ug))
+                if a == 0:
+                    best = pert
+                    action = torch.zeros(shape, dtype=torch.int32, device=i_sd0.device)
+                else:
+                    take = pert > best
+                    best = torch.where(take, pert, best)
+                    action = torch.where(take, a, action)
+        # score onehot(a) - softmax(logits), backpropagated through the MLP
+        m = logits[0]
+        for a in range(1, N_ACTIONS):
+            m = torch.maximum(m, logits[a])
+        ex = torch.exp(logits - m)
+        z = ex[0]
+        for a in range(1, N_ACTIONS):
+            z = z + ex[a]
+        inv_z = 1.0 / z
+        dlogit = (onehot_ids == action).to(torch.float32) - ex * inv_z
+        dh = _col(w2m[:, 0], dlogit[0]) * dlogit[0]
+        for a in range(1, N_ACTIONS):
+            dh = dh + _col(w2m[:, a], dlogit[a]) * dlogit[a]
+        dpre = (1.0 - h * h) * dh
+        g = torch.cat([torch.stack([o * dpre for o in obs]).reshape((-1,) + tuple(shape)), dpre,
+                       (h[:, None] * dlogit[None]).reshape((-1,) + tuple(shape)), dlogit])
+
+        st["c"], st["s"] = torch.cos(st["eps"]), torch.sin(st["eps"])
+        st, (_a, r, done, _rd, _rq) = action_step(k, st, action)
+        reward_sum = reward_sum + r
+        terms = terms + done
+        trace = trace * (gamma * (1.0 - viol_prev)) + g
+        acc = acc + (r - baseline) * trace
+        viol_prev = done
+        if wiener:
+            u1d, u1q, u2d, u2q = (uniform_from_bits(w) for w in words[8:12])
+            draws = {"d": torch.sqrt(-2.0 * torch.log(torch.clamp(u1d, min=k["u_min"])))
+                     * torch.cos(k["two_pi"] * u2d),
+                     "q": torch.sqrt(-2.0 * torch.log(torch.clamp(u1q, min=k["u_min"])))
+                     * torch.cos(k["two_pi"] * u2q)}
+            wiener_advance(k, st, done > 0.5, draws, {"d": (words[12], words[14]),
+                                                      "q": (words[13], words[15])},
+                           {"d": words[16], "q": words[17]})
+    grad = reinforce_reduce_plain(acc.reshape(n_params, -1))
+    return st["i_sd"], st["i_sq"], st["eps"], reward_sum, terms, grad
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "policy_rollout": [_P, ctypes.c_uint64, _I, _I, _I, _I, _I] + [_P] * 14 + [_P],
+    "policy_record": [_P, ctypes.c_uint64, _I, _I, _I] + [_P] * 15 + [_P],
+    "reinforce_rollout": ([_P, ctypes.c_uint64, _I, _I, _I, _I, _I, ctypes.c_float]
+                          + [_P] * 17 + [_P]),
+    "reinforce_reduce": [_I, _I, _P, _P, _P],
+}
+
+
+def _lib():
+    lib = cuda_build.load("fused_policy")
+    if not getattr(lib, "_gemx_typed", False):
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.policy_n_const.restype = ctypes.c_int
+        lib.gemx_policy_error_string.argtypes = [ctypes.c_int]
+        lib.gemx_policy_error_string.restype = ctypes.c_char_p
+        if lib.policy_n_const() != len(CONST_NAMES) + len(POLICY_CONST_NAMES):
+            raise RuntimeError("csrc/policy_step.cuh and POLICY_CONST_NAMES disagree on the constants")
+        lib._gemx_typed = True
+    return lib
+
+
+def _launch(name, device, *args):
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {lib.gemx_policy_error_string(rc).decode()}")
+    LAUNCHES[name] += 1
+
+
+def _weights(n_features, w1, b1, w2, b2, device):
+    """Validate the flat weights; returns H."""
+    if not isinstance(b1, torch.Tensor) or b1.dim() != 1:
+        raise ValueError("b1 must be a 1-D tensor of H floats")
+    hidden = b1.shape[0]
+    if hidden not in HIDDEN_SIZES:
+        raise ValueError(f"the policy kernels are built for H in {HIDDEN_SIZES}, got {hidden}")
+    for name, x, n in (("w1", w1, n_features * hidden), ("b1", b1, hidden),
+                       ("w2", w2, hidden * N_ACTIONS), ("b2", b2, N_ACTIONS)):
+        _check(name, x, (n,), torch.float32, device)
+    return hidden
+
+
+def _refs(ref_d, ref_q, wiener, i_sd0):
+    """The reference planes: unused in Wiener mode (None is passed on), held
+    constant in const mode (None reads as zeros)."""
+    if wiener:
+        return None, None
+    ref_d = torch.zeros_like(i_sd0) if ref_d is None else ref_d
+    ref_q = torch.zeros_like(i_sd0) if ref_q is None else ref_q
+    _check("ref_d", ref_d, i_sd0.shape, torch.float32, i_sd0.device)
+    _check("ref_q", ref_q, i_sd0.shape, torch.float32, i_sd0.device)
+    return ref_d, ref_q
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def policy_rollout(consts: PolicyConsts, seed: int, w1, b1, w2, b2, i_sd0, i_sq0, eps0,
+                   ref_d, ref_q, n_steps: int, sample="categorical", ref_mode="wiener"):
+    """``(i_sd, i_sq, eps, reward_sum, term_count)``, each ``(R, 128)``."""
+    greedy, wiener = _modes(sample, ref_mode)
+    device, R = _planes(i_sd0, i_sq0, eps0)
+    _weights(6, w1, b1, w2, b2, device)
+    ref_d, ref_q = _refs(ref_d, ref_q, wiener, i_sd0)
+    if device.type == "cpu":
+        return policy_rollout_plain(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d,
+                                    ref_q, n_steps, sample, ref_mode)
+    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(5)]
+    _launch("policy_rollout", device, consts.host.ctypes.data, int(seed) & 0xFFFFFFFFFFFFFFFF,
+            R * LANE, int(n_steps), b1.shape[0], int(greedy), int(wiener),
+            *_ptrs(w1, b1, w2, b2, i_sd0, i_sq0, eps0), _ptr(ref_d), _ptr(ref_q), *_ptrs(*outs))
+    return tuple(outs)
+
+
+def policy_record(consts: PolicyConsts, seed: int, w1, b1, w2, b2, i_sd0, i_sq0, eps0,
+                  n_steps: int):
+    """``(i_sd, i_sq, eps, ref_d, ref_q, action, reward, done)``, each
+    ``(T, R, 128)`` (action int32)."""
+    device, R = _planes(i_sd0, i_sq0, eps0)
+    _weights(7, w1, b1, w2, b2, device)
+    if device.type == "cpu":
+        return policy_record_plain(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, n_steps)
+    shape = (int(n_steps), R, LANE)
+    outs = [torch.empty(shape, dtype=torch.int32 if j == 5 else torch.float32, device=device)
+            for j in range(8)]
+    _launch("policy_record", device, consts.host.ctypes.data, int(seed) & 0xFFFFFFFFFFFFFFFF,
+            R * LANE, int(n_steps), b1.shape[0], *_ptrs(w1, b1, w2, b2, i_sd0, i_sq0, eps0, *outs))
+    return tuple(outs)
+
+
+def reinforce_rollout(consts: PolicyConsts, seed: int, baseline, w1, b1, w2, b2, i_sd0, i_sq0,
+                      eps0, ref_d, ref_q, n_steps: int, gamma=0.99, sample="categorical",
+                      ref_mode="wiener"):
+    """``(i_sd, i_sq, eps, reward_sum, term_count, grad_block)``: the
+    ``reinforce_rollout`` kernel and then ``reinforce_reduce``.
+    ``grad_block`` is ``(P, 128)``, packed ``[w1 | b1 | w2 | b2]`` like the
+    weights; its lane sum is the unnormalised ascent direction.
+    ``baseline`` is a float or a one-element float32 tensor on the planes'
+    device (a trainer keeps it there)."""
+    greedy, wiener = _modes(sample, ref_mode)
+    device, R = _planes(i_sd0, i_sq0, eps0)
+    hidden = _weights(6, w1, b1, w2, b2, device)
+    ref_d, ref_q = _refs(ref_d, ref_q, wiener, i_sd0)
+    if isinstance(baseline, torch.Tensor):
+        _check("baseline", baseline, (1,), torch.float32, device)
+    if device.type == "cpu":
+        return reinforce_rollout_plain(consts, seed, baseline, w1, b1, w2, b2, i_sd0, i_sq0,
+                                       eps0, ref_d, ref_q, n_steps, gamma, sample, ref_mode)
+    if not isinstance(baseline, torch.Tensor):
+        baseline = torch.full((1,), float(baseline), dtype=torch.float32, device=device)
+    n, n_params = R * LANE, n_policy_params(6, hidden)
+    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(5)]
+    trace = torch.empty((n_params, n), dtype=torch.float32, device=device)
+    acc = torch.empty_like(trace)
+    _launch("reinforce_rollout", device, consts.host.ctypes.data,
+            int(seed) & 0xFFFFFFFFFFFFFFFF, n, int(n_steps), hidden, int(greedy), int(wiener),
+            float(gamma), *_ptrs(baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0), _ptr(ref_d),
+            _ptr(ref_q), *_ptrs(*outs, trace, acc))
+    return tuple(outs) + (reinforce_reduce(acc),)
+
+
+def reinforce_reduce(acc):
+    """``(P, N)`` float32 per-env gradient sums -> the ``(P, 128)`` block
+    (``reinforce_reduce``; the plain version for a CPU tensor)."""
+    if not isinstance(acc, torch.Tensor) or acc.dim() != 2 or acc.shape[1] % LANE \
+            or acc.shape[1] == 0:
+        raise ValueError(f"acc must be a (P, N) tensor with N a positive multiple of {LANE}")
+    _check("acc", acc, acc.shape, torch.float32, acc.device)
+    if acc.device.type == "cpu":
+        return reinforce_reduce_plain(acc)
+    grad = torch.empty((acc.shape[0], LANE), dtype=torch.float32, device=acc.device)
+    _launch("reinforce_reduce", acc.device, acc.shape[1], acc.shape[0], acc.data_ptr(),
+            grad.data_ptr())
+    return grad
+
+
+# ---------------------------------------------------------------------------
+# entry points (those of the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def make_fused_policy_rollout(env, n_steps, n_envs, hidden=16, sample="categorical",
+                              ref_mode="wiener"):
+    """Fused policy-in-the-loop rollout of Finite-CC-PMSM-v0: the 2-layer
+    tanh MLP of ``parallel/sharded.py`` picks each step's action in the
+    kernel, then physics, references, reward and reset run as in
+    ``make_fused_pmsm_rollout``.
+
+    ``env`` must use ``state_filter=('omega', 'i_sd', 'i_sq', 'epsilon')``:
+    the 6-feature observation is those 4 states plus the two current
+    references.  Returns ``rollout(seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0,
+    ref_d=None, ref_q=None) -> (i_sd, i_sq, eps, reward_sum, term_count)``
+    with flat float32 weights (``flatten_policy_params``).
+    ``sample='greedy'`` takes argmax actions; ``ref_mode='const'`` holds the
+    given reference planes (zeros when None)."""
+    _modes(sample, ref_mode)
+    if n_envs % LANE:
+        raise ValueError(f"n_envs must be a multiple of {LANE}")
+    if hidden not in HIDDEN_SIZES:
+        raise ValueError(f"the policy kernels are built for H in {HIDDEN_SIZES}, got {hidden}")
+    R = n_envs // LANE
+    consts = PolicyConsts(env)
+
+    def rollout(seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d=None, ref_q=None):
+        _check("i_sd0", i_sd0, (R, LANE), torch.float32, i_sd0.device)
+        return policy_rollout(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d, ref_q,
+                              n_steps, sample, ref_mode)
+    return rollout
+
+
+def make_fused_policy_record_rollout(env, n_steps, n_envs, hidden=16):
+    """Fused policy-in-the-loop trajectory recorder for Finite-CC-PMSM-v0,
+    the collection engine of ``parallel.sharded.make_fused_ppo_trainer``.
+
+    The policy observes 7 features ``(omega_n, i_sd/l, i_sq/l, cos(eps),
+    sin(eps), ref_d, ref_q)`` (the angle as the incremental rotation's
+    cos/sin), samples a categorical action, and every step's post-step
+    ``(i_sd, i_sq, eps)``, the references it observed, the action, reward and
+    done are recorded.  Returns ``rollout(seed, w1, b1, w2, b2, i_sd0, i_sq0,
+    eps0) -> dict`` of ``(n_steps, n_envs // 128, 128)`` tensors keyed by
+    ``rollout.signals`` (float32, the action int32), with the metadata of
+    the JAX function (``state_names``, ``ref_names``, ``act_names``,
+    ``act_ns``, ``obs_spec``, ``obs_dim``, ``n_state``)."""
+    if n_envs % LANE:
+        raise ValueError(f"n_envs must be a multiple of {LANE}")
+    if hidden not in HIDDEN_SIZES:
+        raise ValueError(f"the policy kernels are built for H in {HIDDEN_SIZES}, got {hidden}")
+    R = n_envs // LANE
+    consts = PolicyConsts(env)
+    names_out = ("i_sd", "i_sq", "eps", "ref_d", "ref_q", "action", "reward", "done")
+
+    def rollout(seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0):
+        _check("i_sd0", i_sd0, (R, LANE), torch.float32, i_sd0.device)
+        return dict(zip(names_out, policy_record(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0,
+                                                 eps0, n_steps)))
+
+    rollout.signals = names_out
+    rollout.state_names = ("i_sd", "i_sq", "eps")
+    rollout.ref_names = ("ref_d", "ref_q")
+    rollout.act_names = ("action",)
+    rollout.act_ns = (N_ACTIONS,)
+    inv_i_lim = consts.f["inv_i_lim"]
+    rollout.obs_spec = (("const", consts.f["omega_n"]), ("state", 0, inv_i_lim),
+                        ("state", 1, inv_i_lim), ("cos", 2), ("sin", 2))
+    rollout.obs_dim = 7
+    rollout.n_state = 3
+    rollout.consts = consts
+    return rollout
+
+
+def flatten_policy_params(params):
+    """A policy's weights -> the flat ``(w1, b1, w2, b2)`` float32 vectors
+    the kernels take (row-major, no transpose).  ``params`` is a
+    ``parallel.sharded.Policy`` or a mapping with those four keys."""
+    def get(nm):
+        return params[nm] if hasattr(params, "keys") else getattr(params, nm)
+
+    return tuple(torch.as_tensor(get(nm)).detach().to(torch.float32).reshape(-1).contiguous()
+                 for nm in ("w1", "b1", "w2", "b2"))
+
+
+def unflatten_policy_grads(grad_block, obs_dim=6, n_actions=8, hidden=16):
+    """``(P, 128)`` gradient block -> ``{'w1', 'b1', 'w2', 'b2'}`` in the
+    weights' shapes (the lane dimension summed)."""
+    g = grad_block.sum(-1)
+    f, h, a = obs_dim, hidden, n_actions
+    p1, p2, p3 = f * h, h, h * a
+    return {"w1": g[:p1].reshape(f, h), "b1": g[p1:p1 + p2],
+            "w2": g[p1 + p2:p1 + p2 + p3].reshape(h, a), "b2": g[p1 + p2 + p3:]}
+
+
+def make_fused_reinforce_rollout(env, n_steps, n_envs, hidden=16, gamma=0.99,
+                                 sample="categorical", ref_mode="wiener"):
+    """Fused REINFORCE rollout with the backward pass in the kernel: policy,
+    sampling (Gumbel-max, or argmax with ``sample='greedy'``), physics,
+    reward, reset and the policy-gradient accumulation per env
+
+        e_t = gamma * (1 - reset_{t-1}) * e_{t-1} + grad log pi(a_t | s_t)
+        G  += (r_t - baseline) * e_t
+
+    reduced to one ``(n_params, 128)`` block.  The JAX function's
+    ``block_rows`` (its TPU grid tiling) has no counterpart: the traces live
+    in one ``[n_params, n_envs]`` scratch pair.
+
+    Returns ``rollout(seed, baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0,
+    ref_d=None, ref_q=None) -> (i_sd, i_sq, eps, reward_sum, term_count,
+    grad_block)``; ``unflatten_policy_grads`` unpacks the block."""
+    _modes(sample, ref_mode)
+    if n_envs % LANE:
+        raise ValueError(f"n_envs must be a multiple of {LANE}")
+    if hidden not in HIDDEN_SIZES:
+        raise ValueError(f"the policy kernels are built for H in {HIDDEN_SIZES}, got {hidden}")
+    R = n_envs // LANE
+    consts = PolicyConsts(env)
+
+    def rollout(seed, baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d=None, ref_q=None):
+        _check("i_sd0", i_sd0, (R, LANE), torch.float32, i_sd0.device)
+        return reinforce_rollout(consts, seed, baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0,
+                                 ref_d, ref_q, n_steps, gamma, sample, ref_mode)
+    return rollout
+
+
+def make_fused_reinforce_trainer(env, n_steps, n_envs, hidden=16, gamma=0.99, lr=0.05,
+                                 baseline_decay=0.9):
+    """REINFORCE with the rollout and the backward pass in the kernel:
+    ``train(seed, policy, n_iters) -> (policy, mean_reward (n_iters,))``.
+    Each iteration is one ``make_fused_reinforce_rollout`` launch (T steps
+    and the policy gradient), an ascent step ``p += lr * g / (N T)`` on the
+    ``parallel.sharded.Policy`` (in place) and a moving-average reward
+    baseline.  The env state carries over from one iteration to the next;
+    iteration i runs with seed ``seed + i``.  Nothing is read back to the
+    host inside the loop."""
+    roll = make_fused_reinforce_rollout(env, n_steps, n_envs, hidden=hidden, gamma=gamma)
+    R = n_envs // LANE
+    denom = 1.0 / float(n_envs * n_steps)
+
+    def train(seed, policy, n_iters):
+        device = policy.w1.device
+        z = torch.zeros((R, LANE), dtype=torch.float32, device=device)
+        isd, isq, eps = z, z, z
+        baseline = torch.zeros((1,), dtype=torch.float32, device=device)
+        rs = []
+        with torch.no_grad():
+            for i in range(n_iters):
+                out = roll(seed + i, baseline, *flatten_policy_params(policy), isd, isq, eps)
+                isd, isq, eps, reward_sum, _terms, grad_block = out
+                mean_r = reward_sum.sum() * denom
+                grads = unflatten_policy_grads(grad_block, 6, N_ACTIONS, hidden)
+                for name, g in grads.items():
+                    p = getattr(policy, name)
+                    p.copy_(p + lr * g * denom)
+                baseline = baseline_decay * baseline + (1.0 - baseline_decay) * mean_r
+                rs.append(mean_r)
+        return policy, torch.stack(rs) if rs else torch.zeros((0,), device=device)
+
+    return train
+
+
+def policy_obs_host(roll, prev_states, refs):
+    """The observation the kernel's MLP saw at each step, rebuilt from the
+    recorded signals: ``prev_states`` holds the pre-step state planes (the
+    recorded post-step planes shifted by one, the launch's initial planes at
+    t = 0) keyed by ``roll.state_names``, ``refs`` the recorded references.
+    Returns an ``(..., obs_dim)`` stack.  Angle features are cos/sin of the
+    recorded angle, which match the kernel's renormalised rotation to about
+    an ulp.  The controlled-quantity features of the universal recorder
+    (``fs_quantities``) come with that recorder."""
+    if getattr(roll, "fs_quantities", None) is not None:
+        raise NotImplementedError("fs_quantities features belong to the universal policy "
+                                  "recorder, which is not ported yet")
+    names = roll.state_names
+    some = prev_states[names[0]]
+    feats = []
+    for e in roll.obs_spec:
+        if e[0] == "const":
+            feats.append(torch.full_like(some, e[1]))
+        elif e[0] == "state":
+            feats.append(prev_states[names[e[1]]] * float(_f32(e[2])))
+        elif e[0] == "cos":
+            feats.append(torch.cos(prev_states[names[e[1]]]))
+        elif e[0] == "sin":
+            feats.append(torch.sin(prev_states[names[e[1]]]))
+        else:
+            raise ValueError(f"unknown observation entry {e!r}")
+    for nm in roll.ref_names:
+        feats.append(refs[nm])
+    return torch.stack(feats, dim=-1)

@@ -178,12 +178,11 @@ def _random_init(k, words, i_sd0, i_sq0, eps0):
                 rk_d=zero, rk_q=zero.clone(), rl_d=rl_d, rs_d=rs_d, rl_q=rl_q, rs_q=rs_q)
 
 
-def _random_step(k, words, st):
-    """One random-mode step (``pmsm_random_step``): returns the new state
-    dict and ``(action, reward, done, ref_d, ref_q)``."""
-    (w_act, w_u1, w_u2, len_d, len_q, sig_d, sig_q, rst_d, rst_q) = (
-        w.reshape(st["i_sd"].shape) for w in words)
-    action = (w_act & 7).to(torch.int32)
+def action_step(k, st, action):
+    """One step under ``action`` (``pmsm_action_step``): physics, the
+    incremental Park rotation, constraint, reward and the reset of the drive
+    state.  Returns the new drive-state dict (the reference entries carried
+    over) and ``(action, reward, done, ref_d, ref_q)``."""
     c, s = st["c"], st["s"]
     i_sd, i_sq, eps = pmsm_physics(k, action, c, s, st["i_sd"], st["i_sq"], st["eps"])
     c_new = c * k["cos_d"] - s * k["sin_d"]
@@ -202,18 +201,18 @@ def _random_step(k, words, st):
     out = (action, reward, done, st["rv_d"], st["rv_q"])
 
     zero = torch.zeros_like(i_sd)
-    new = dict(i_sd=torch.where(violated, zero, i_sd), i_sq=torch.where(violated, zero, i_sq),
+    new = dict(st)
+    new.update(i_sd=torch.where(violated, zero, i_sd), i_sq=torch.where(violated, zero, i_sq),
                eps=torch.where(violated, zero, eps),
                c=torch.where(violated, torch.ones_like(c_new), c_new),
                s=torch.where(violated, zero, s_new))
+    return new, out
 
-    u1 = uniform_from_bits(w_u1)
-    u2 = uniform_from_bits(w_u2)
-    rad = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=k["u_min"])))
-    theta = k["two_pi"] * u2
-    draws = {"d": rad * torch.cos(theta), "q": rad * torch.sin(theta)}
-    params = {"d": (len_d, sig_d), "q": (len_q, sig_q)}
-    resets = {"d": rst_d, "q": rst_q}
+
+def wiener_advance(k, st, violated, draws, params, resets):
+    """Advance both references in ``st`` in place (``wiener_advance``):
+    ``draws``, ``params`` and ``resets`` map ``"d"``/``"q"`` to the normal
+    draw, the (length, sigma) words and the reset-value word."""
     m = k["margin"]
     for x in ("d", "q"):
         rk, rl, rs = st["rk_" + x], st["rl_" + x], st["rs_" + x]
@@ -224,8 +223,27 @@ def _random_step(k, words, st):
         rk = torch.where(regen, torch.zeros_like(rk), rk) + 1.0
         value = torch.clamp(st["rv_" + x] + rs * draws[x], -m, m)
         reset_value = (2.0 * uniform_from_bits(resets[x]) - 1.0) * m
-        new.update({"rv_" + x: torch.where(violated, reset_value, value),
-                    "rk_" + x: rk, "rl_" + x: rl, "rs_" + x: rs})
+        st.update({"rv_" + x: torch.where(violated, reset_value, value),
+                   "rk_" + x: rk, "rl_" + x: rl, "rs_" + x: rs})
+
+
+def wiener_advance_pair(k, st, violated, w_u1, w_u2, len_d, len_q, sig_d, sig_q, rst_d, rst_q):
+    """The random step's Wiener advance: one Box-Muller pair from the
+    step's words feeds both references."""
+    u1 = uniform_from_bits(w_u1)
+    u2 = uniform_from_bits(w_u2)
+    rad = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=k["u_min"])))
+    theta = k["two_pi"] * u2
+    wiener_advance(k, st, violated, {"d": rad * torch.cos(theta), "q": rad * torch.sin(theta)},
+                   {"d": (len_d, sig_d), "q": (len_q, sig_q)}, {"d": rst_d, "q": rst_q})
+
+
+def _random_step(k, words, st):
+    """One random-mode step (``pmsm_random_step``): returns the new state
+    dict and ``(action, reward, done, ref_d, ref_q)``."""
+    words = [w.reshape(st["i_sd"].shape) for w in words]
+    new, out = action_step(k, st, (words[0] & 7).to(torch.int32))
+    wiener_advance_pair(k, new, out[2] > 0.5, *words[1:])
     return new, out
 
 

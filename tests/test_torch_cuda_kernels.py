@@ -51,3 +51,61 @@ def test_cuda_kernels_match_plain_versions():
         assert ok.all() if kern in (fs.pmsm_rollout_buffer, fs.pmsm_record_buffer) else ok.mean() >= 0.99
     torch.cuda.synchronize()
     assert all(v == 1 for v in fs.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_cuda_policy_kernels_match_plain_versions():
+    """The policy-in-the-loop kernels at H = 8, 16, 32: the deterministic
+    modes (greedy, constant references) in every env at rtol 1e-4 /
+    atol 1e-4 and the REINFORCE block within 1e-4 of its largest entry;
+    the random modes in 99% of envs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+
+    dev = torch.device("cuda")
+    env = gt.make_functional("Finite-CC-PMSM-v0", device=dev,
+                             state_filter=("omega", "i_sd", "i_sq", "epsilon"))
+    consts = fp.PolicyConsts(env)
+    R, T = 2, 64
+    rng = np.random.default_rng(9)
+    start = [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+             for lo, hi in ((-50, 50), (-50, 50), (0, 2 * np.pi))]
+    refs = [torch.as_tensor(rng.uniform(-0.5, 0.5, (R, 128)).astype(np.float32), device=dev)
+            for _ in range(2)]
+
+    def weights(n_features, hidden):
+        return [torch.as_tensor((rng.normal(size=n) * s).astype(np.float32), device=dev)
+                for n, s in ((n_features * hidden, 0.5), (hidden, 0.1), (hidden * 8, 0.5),
+                             (8, 0.1))]
+
+    def share(got, want, angle=(2,)):
+        ok = np.ones(R * 128, bool)
+        for j, (g, w) in enumerate(zip(got, want)):
+            g, w = g.cpu().float().numpy(), w.cpu().float().numpy()
+            err = np.abs(g - w)
+            if j in angle:
+                err = np.remainder(err, 2 * np.pi)
+                err = np.minimum(err, 2 * np.pi - err)
+            ok &= (err <= 1e-4 + 1e-4 * np.abs(w)).reshape(-1, R * 128).all(axis=0)
+        return ok.mean()
+
+    fp.reset_launches()
+    for hidden in fp.HIDDEN_SIZES:
+        w6, w7 = weights(6, hidden), weights(7, hidden)
+        for sample, ref_mode in (("greedy", "const"), ("categorical", "wiener")):
+            args = (consts, 5, *w6, *start, *refs, T, sample, ref_mode)
+            s = share(fp.policy_rollout(*args), fp.policy_rollout_plain(*args))
+            assert s == 1.0 if sample == "greedy" else s >= 0.99, (hidden, sample, s)
+            rargs = (consts, 5, -0.05, *w6, *start, *refs, T, 0.9, sample, ref_mode)
+            got, want = fp.reinforce_rollout(*rargs), fp.reinforce_rollout_plain(*rargs)
+            s = share(got[:5], want[:5])
+            assert s == 1.0 if sample == "greedy" else s >= 0.99, (hidden, sample, s)
+            if sample == "greedy":
+                err = float((got[5] - want[5]).abs().max() / want[5].abs().max())
+                assert err < 1e-4, (hidden, err)
+        args = (consts, 5, *w7, *start, T)
+        assert share(fp.policy_record(*args), fp.policy_record_plain(*args)) >= 0.99
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES == {"policy_rollout": 6, "policy_record": 3, "reinforce_rollout": 6,
+                           "reinforce_reduce": 6}

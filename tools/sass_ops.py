@@ -4,11 +4,14 @@ executes, by class, from the SASS of a built library (``cuobjdump -sass``).
 
 Run on a machine with the CUDA toolkit, from the root of a checkout:
 
-    python3 tools/sass_ops.py [kernel substring ...]
+    python3 tools/sass_ops.py [kernel ...]
 
-It builds ``csrc/fused_pmsm.cu`` (as the package does at first use) and
-prints one JSON line per kernel.  ``chip_smoke.py`` calls
-:func:`step_ops` to take the operation counts of its bounds.
+It builds ``csrc/fused_pmsm.cu`` and ``csrc/fused_policy.cu`` (as the
+package does at first use) and prints one JSON line per kernel; a template
+instance is named by a substring of its mangled name, e.g.
+``policy_rollout_kernelILi16ELb0ELb1E`` for H = 16, categorical, Wiener.
+With no argument it counts the instances of ``STEP_INSTANCES``, whose
+counts ``chip_smoke.py`` takes for its bounds through :func:`step_ops`.
 
 Method.  The kernel's main loop is the one whose backward branch spans the
 most code.  Its basic blocks are split at branch targets and after
@@ -174,12 +177,16 @@ def cuobjdump() -> str:
     return str(Path(cuda_build.find_nvcc()).parent / "cuobjdump")
 
 
+def lib_functions(lib_path) -> dict:
+    """``functions()`` of ``cuobjdump -sass lib_path``."""
+    return functions(subprocess.run([cuobjdump(), "-sass", str(lib_path)], capture_output=True,
+                                    text=True, timeout=120, check=True).stdout)
+
+
 def step_ops(lib_path, kernels) -> dict:
     """``{kernel: loop_counts(...)}`` for each kernel whose mangled name
     holds the given substring, from ``cuobjdump -sass lib_path``."""
-    sass = subprocess.run([cuobjdump(), "-sass", str(lib_path)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    funcs = functions(sass)
+    funcs = lib_functions(lib_path)
     out = {}
     for k in kernels:
         names = [f for f in funcs if k in f]
@@ -189,15 +196,32 @@ def step_ops(lib_path, kernels) -> dict:
     return out
 
 
+# the template instance whose step each kernel's bound counts (a substring
+# of its mangled name), by library; chip_smoke.py takes its bounds from these
+STEP_INSTANCES = {
+    "fused_pmsm": {k: f"{k}_kernel" for k in ("pmsm_rollout_random", "pmsm_rollout_buffer",
+                                               "pmsm_record_random", "pmsm_record_buffer")},
+    "fused_policy": {
+        "policy_rollout": "policy_rollout_kernelILi16ELb0ELb1E",  # H 16, categorical, Wiener
+        "policy_record": "policy_record_kernelILi32E",  # H 32
+        "reinforce_rollout": "reinforce_rollout_kernelILi16ELb0ELb1E",
+        "reinforce_reduce": "reinforce_reduce_kernel",
+    },
+}
+
+
 def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     from gym_electric_motor_tpu_torch.ops import cuda_build
 
-    kernels = sys.argv[1:] or ["pmsm_rollout_random_kernel", "pmsm_rollout_buffer_kernel",
-                               "pmsm_record_random_kernel", "pmsm_record_buffer_kernel"]
-    lib = cuda_build.build(["fused_pmsm"])["fused_pmsm"]
-    for k, v in step_ops(lib, kernels).items():
-        print(json.dumps({"kernel": k, **v}), flush=True)
+    libs = cuda_build.build(list(STEP_INSTANCES))
+    for name, lib in libs.items():
+        kernels = list(STEP_INSTANCES[name].values())
+        if sys.argv[1:]:
+            funcs = lib_functions(lib)
+            kernels = [k for k in sys.argv[1:] if any(k in f for f in funcs)]
+        for k, v in step_ops(lib, kernels).items():
+            print(json.dumps({"kernel": k, **v}), flush=True)
 
 
 if __name__ == "__main__":
