@@ -43,9 +43,36 @@ Phases (each prints one JSON line; any failure exits non-zero):
    11. ppo_learn  tools/torch_ppo_learn.py: 1200 PPO iterations at full
             width must reach a mean reward above -0.11 over the last 10
             and 0.05 above the first 5
-12. kernels line (all 8 kernels; a policy kernel's launches are the sum
-    over the paths of phases 9-11, listed by path), the card line, then
-    {"ok": true, "device": {...}}
+12. (the rows of slices 1 and 2 of the kernels line, see 17)
+13. sync_kernels  slice 3, the universal synchronous family
+            (csrc/fused_sync.cu): for each of the 12 {Finite, Cont} x
+            {CC, TC, SC} x {PMSM, SynRM} ids, each of the 4 kernels against
+            its plain version at 16384 envs x 128 steps (timed on
+            Cont-SC-PMSM-v0, the instance the bounds count); the two
+            random kernels again at the recorder's main-path 1024 steps
+            on Finite-CC-PMSM-v0 and Cont-SC-PMSM-v0
+14.-16. the slice-3 main path, counted from zero:
+   14. sync_env  for each id, the port's env (VectorEnv's reset, the env's
+            step without autoreset, constant references, an action buffer,
+            16384 envs x 40 steps) against the buffer rollout and the buffer
+            recorder, both reached through the dispatch
+            (make_fused_rollout, make_fused_record_rollout), rtol 1e-4 /
+            atol 1e-3 (tests/test_pallas_sync_universal.py:75-77)
+   15. sync_dispatch  for each id, make_fused_rollout(env, 200, 16384) and
+            make_fused_record_rollout(env, 200, 16384) must launch exactly
+            sync_rollout_random and sync_record_random once each and no
+            other kernel; output checks (finite, angles in range, the
+            recorder's rewards sum to the rollout's, its last step is the
+            rollout's final state, references inside their margins)
+   16. sync_timings  at 16384 envs: the universal random rollout at 65536
+            steps on Finite-CC-PMSM-v0 beside slice 1's pmsm_rollout_random
+            on the same id, and on Cont-SC-PMSM-v0; the universal random
+            recorder at 1024 steps on both (GB/s); the general path
+            (VectorEnv.rollout, random duty) on Cont-SC-PMSM-v0 at 200 steps;
+            the launches of phases 14-16 must be exactly what they make
+17. kernels line (all 12 kernels; a policy kernel's launches are the sum
+    over the paths of phases 9-11, listed by path; a sync kernel's those of
+    phases 14-16), the card line, then {"ok": true, "device": {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
 largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
@@ -100,6 +127,16 @@ PPO = dict(hidden=H_PPO, horizon=256, n_envs=2048, n_minibatches=8, n_epochs=2, 
            gamma=0.9, vf_coef=0.1, ent_coef=0.01)   # bench.py:455-462, tools/tpu_validate.py:282-285
 PPO_WARMUP, PPO_ITERS = 2, 20
 LEARN_ITERS = 1200      # tools/torch_ppo_learn.py, tools/tpu_validate.py:270-300
+# slice 3: the twelve synchronous-family ids
+T_SYNC_COMPARE = 128
+T_SYNC_ENV = 40
+T_DISPATCH = 200
+T_SYNC_GENERAL = 200
+SYNC_TIMED = "Cont-SC-PMSM-v0"   # the ids whose instances STEP_INSTANCES counts
+SYNC_SPECIALISED = "Finite-CC-PMSM-v0"
+SYNC_REPS = 5                    # timed calls of each main-path timing
+SYNC_CONST_REFS = {"CC": [("i_sd", 0.1), ("i_sq", -0.2)], "TC": [("torque", 0.3)],
+                   "SC": [("omega", 0.2)]}
 # The pipes a kernel's bound counts, where not all.  Most of REINFORCE's ALU
 # and IMAD instructions are the 64-bit arithmetic of its 2 P trace
 # addresses, recomputed each step (opaque64 in csrc/policy_step.cuh keeps
@@ -215,7 +252,7 @@ def run(dev, card):
     # ---- 2. build --------------------------------------------------------
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = cuda_build.build(["fused_pmsm", "fused_policy"])
+    libs = cuda_build.build(["fused_pmsm", "fused_policy", "fused_sync"])
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
                     for ln in cuda_build.BUILD_LOG.get(name, "").splitlines()
@@ -747,6 +784,305 @@ def run_rl(dev, card, ops):
     return line
 
 
+def sync_bytes(c, kernel, n, steps):
+    """Bytes a sync kernel must move for ``n`` envs and ``steps`` steps:
+    each input once, each output once."""
+    state = 4 * n * c.n_state
+    act = (4 if c.finite else 12) * n * steps
+    if kernel == "sync_rollout_random":
+        return state + 4 * n * (c.n_state + 2) + 16 * n * c.n_ref
+    if kernel == "sync_rollout_buffer":
+        return 2 * state + act
+    if kernel == "sync_record_random":
+        return state + 4 * n * steps * (c.n_state + c.n_ref + c.n_act + 2)
+    return state + act + 4 * n * steps * c.n_state
+
+
+def run_sync(dev, card, ops):
+    """Slice 3, the universal synchronous family: the four kernels of
+    csrc/fused_sync.cu against their plain versions on the 12 ids, then the
+    main path (env against the buffer kernels, the dispatch, timings) with
+    its launches counted from zero.  Returns the sync kernels' rows of the
+    kernels line."""
+    import numpy as np
+    import torch
+
+    import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+    from gym_electric_motor_tpu_torch.ops import fused_record as frec
+    from gym_electric_motor_tpu_torch.ops import fused_rollout as fr
+    from gym_electric_motor_tpu_torch.ops import fused_sync as fs
+    from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
+
+    N, R = N_ENVS, N_ENVS // 128
+    rng = np.random.default_rng(SEED)
+
+    def planes(c, amp=100.0):
+        out = [torch.as_tensor(rng.uniform(-amp, amp, (R, 128)).astype(np.float32), device=dev)
+               for _ in range(c.n_state - 1)]
+        return out + [torch.as_tensor(rng.uniform(0, 2 * np.pi, (R, 128)).astype(np.float32),
+                                      device=dev)]
+
+    def actions(c, steps):
+        if c.finite:
+            return torch.as_tensor(rng.integers(0, 8, (steps, R, 128)).astype(np.int32), device=dev)
+        return torch.as_tensor(rng.uniform(-1.0, 1.0, (steps, 3, R, 128)).astype(np.float32),
+                               device=dev)
+
+    # ---- 13. the four kernels against their plain versions, every id -----
+    worst = dict.fromkeys(sf.KERNELS, 0.0)
+    share = dict.fromkeys(sf.KERNELS, 1.0)
+    timed = {}
+
+    def held_random(label, name, c, got, ref):
+        """The random-mode rule on a kernel's and its plain version's
+        outputs; returns the row entry, raises on failure."""
+        angle = [j == c.n_state - 1 for j in range(len(got))]
+        r_idx = c.n_state if name == "sync_rollout_random" else c.n_state + c.n_ref + c.n_act
+        m, err = env_match(torch, got, ref, angle, N)
+        mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
+        rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
+        share[name] = min(share[name], m)
+        worst[name] = max(worst[name], err)
+        if m < 0.999 or rel > 1e-4:
+            raise AssertionError(f"{label} {name}: {m:.5f} of envs match (need 0.999), "
+                                 f"mean reward rel err {rel:.2e} (need 1e-4), max abs err {err}")
+        return {"max_abs_err": err, "match_share": m, "mean_reward": mean_k,
+                "mean_reward_rel_err": rel}
+
+    for env_id in gt.ENV_IDS:
+        c = sf.SyncConsts(gt.make_functional(env_id, device=dev))
+        start, acts = planes(c), actions(c, T_SYNC_COMPARE)
+        angle = [j == c.n_state - 1 for j in range(c.n_state)]
+        cases = {
+            "sync_rollout_buffer": (lambda: sf.sync_rollout_buffer(c, start, acts),
+                                    lambda: sf.sync_rollout_buffer_plain(c, start, acts), True),
+            "sync_record_buffer": (lambda: sf.sync_record_buffer(c, start, acts),
+                                   lambda: sf.sync_record_buffer_plain(c, start, acts), True),
+            "sync_rollout_random": (
+                lambda: sf.sync_rollout_random(c, SEED, start, T_SYNC_COMPARE),
+                lambda: sf.sync_rollout_random_plain(c, SEED, start, T_SYNC_COMPARE), False),
+            "sync_record_random": (
+                lambda: sf.sync_record_random(c, SEED, start, T_SYNC_COMPARE),
+                lambda: sf.sync_record_random_plain(c, SEED, start, T_SYNC_COMPARE), False),
+        }
+        row = {"phase": "sync_kernels", "env_id": env_id, "envs": N, "steps": T_SYNC_COMPARE}
+        for name, (kern, plain, buffer) in cases.items():
+            if env_id == SYNC_TIMED:
+                ms, got = cuda_ms(torch, kern, reps=21)
+                plain_ms, ref = host_ms(torch, plain)
+                b_ms, b_by = bound_ms(N * T_SYNC_COMPARE, ops[name],
+                                      sync_bytes(c, name, N, T_SYNC_COMPARE))
+                timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            else:
+                got = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+            if buffer:
+                err = check_buffer(torch, f"{env_id} {name}", got, ref, angle)
+                worst[name] = max(worst[name], err)
+                row[name] = {"max_abs_err": err}
+            else:
+                row[name] = held_random(env_id, name, c, got, ref)
+            del got, ref
+        emit(row)
+
+    # the random kernels again at the recorder's main-path depth on the two
+    # timed ids, where drift between kernel and plain version would show
+    deep = {}
+    for env_id in (SYNC_SPECIALISED, SYNC_TIMED):
+        c = sf.SyncConsts(gt.make_functional(env_id, device=dev))
+        start = planes(c)
+        for name in ("sync_rollout_random", "sync_record_random"):
+            got = getattr(sf, name)(c, SEED, start, T_RECORD)
+            torch.cuda.synchronize()
+            ref = getattr(sf, name + "_plain")(c, SEED, start, T_RECORD)
+            deep[f"{env_id} {name}"] = held_random(env_id, name, c, got, ref)
+            del got, ref
+    emit({"phase": "sync_kernels_deep", "envs": N, "steps": T_RECORD, "results": deep})
+
+    # ---- 14.-16. the main path: counts from zero ---------------------------
+    fs.reset_launches()
+    fp.reset_launches()
+    sf.reset_launches()
+
+    # 14. the env against the buffer kernels, through the dispatch
+    env_rows = {}
+    for env_id in gt.ENV_IDS:
+        refs = SYNC_CONST_REFS[env_id.split("-")[1]]
+        env_c = gt.make_functional(env_id, device=dev, reference_generator=rg.ReferenceSpec(
+            [rg.ConstReference(n, v) for n, v in refs]))
+        c = sf.SyncConsts(env_c)
+        venv = gt.VectorEnv(env_c, N)
+        state, _obs = venv.reset(SEED)
+        acts = actions(c, T_SYNC_ENV)
+        cols = ([0] if c.mech else []) + [1, 2, 3]
+        # the kernels start where the env's reset put each env
+        start = [state.phys.ode_state[:, j].reshape(R, 128).contiguous() for j in cols]
+        traj, n_viol = [], 0
+        for t in range(T_SYNC_ENV):
+            a = acts[t].reshape(N) if c.finite else acts[t].reshape(3, N).T.contiguous()
+            state, _obs, _r, term = env_c.step(state, a)
+            n_viol += int(term.sum())
+            traj.append(state.phys.ode_state[:, cols])
+        ode = torch.stack(traj)  # (T, N, n_state)
+        k_final = fr.make_fused_rollout(env_c, T_SYNC_ENV, N, action_mode="buffer")(*start, acts)
+        k_traj = frec.make_fused_record_rollout(env_c, T_SYNC_ENV, N,
+                                                action_mode="buffer")(*start, acts)
+        k_traj = [k_traj[name] for name in c.state_names]
+        errs = []
+        for got, want in ((k_final, [ode[-1, :, j].reshape(R, 128) for j in range(c.n_state)]),
+                          (k_traj, [ode[:, :, j].reshape(T_SYNC_ENV, R, 128)
+                                    for j in range(c.n_state)])):
+            err = 0.0
+            for j, (x, y) in enumerate(zip(got, want)):
+                d = angle_err(torch, x, y) if j == c.n_state - 1 else (x - y).abs()
+                bad = (d > 1e-3 + 1e-4 * y.abs()) | ~torch.isfinite(x)
+                if bool(bad.any()):
+                    raise AssertionError(f"{env_id}: env vs buffer kernel, state {j} off in "
+                                         f"{int(bad.sum())} elements (max {float(d.max()):.3e})")
+                err = max(err, float(d.max()))
+            errs.append(err)
+        env_rows[env_id] = {"max_abs_err_rollout": errs[0], "max_abs_err_record": errs[1],
+                            "violations_seen": n_viol}
+    emit({"phase": "sync_env", "envs": N, "steps": T_SYNC_ENV, "ids": env_rows})
+
+    # 15. the dispatch: exactly one launch of each random kernel per id
+    disp, checks = {}, {}
+    sc_kernel_reward = None
+    for env_id in gt.ENV_IDS:
+        env = gt.make_functional(env_id, device=dev)
+        n_state = fr.fused_state_arity(env)
+        z = [torch.zeros((R, 128), device=dev) for _ in range(n_state)]
+        before = (dict(sf.LAUNCHES), dict(fs.LAUNCHES), dict(fp.LAUNCHES))
+        roll = fr.make_fused_rollout(env, T_DISPATCH, N)(SEED, *z)
+        rec = frec.make_fused_record_rollout(env, T_DISPATCH, N)(SEED, *z)
+        torch.cuda.synchronize()
+        delta = {k: v - before[0][k] for k, v in sf.LAUNCHES.items() if v != before[0][k]}
+        others = (fs.LAUNCHES != before[1]) or (fp.LAUNCHES != before[2])
+        if delta != {"sync_rollout_random": 1, "sync_record_random": 1} or others:
+            raise AssertionError(f"{env_id}: the dispatch launched {delta} (other kernels: "
+                                 f"{others}), expected one sync_rollout_random and one "
+                                 "sync_record_random")
+        c = sf.SyncConsts(env)
+        eps = roll[n_state - 1]
+        rv = roll[n_state + 2]
+        lo = min(row["mlo"] for row in c.rows)
+        hi = max(row["mhi"] for row in c.rows)
+        ok = {
+            "finite": all(bool(torch.isfinite(x).all()) for x in roll)
+            and all(bool(torch.isfinite(x.float()).all()) for x in rec.values()),
+            # [0, 2 pi] in float32: a tiny negative angle wraps to 2 pi exactly
+            "eps_in_range": bool(((eps >= 0) & (eps <= float(np.float32(2 * math.pi)))).all()),
+            "ref_in_margin": bool(((rv >= lo - 1e-6) & (rv <= hi + 1e-6)).all()),
+            "record_equals_rollout": bool(
+                torch.allclose(rec["reward"].sum(0), roll[n_state], rtol=1e-4, atol=1e-3)
+                and all(torch.equal(rec[nm][-1], roll[j]) for j, nm in enumerate(c.state_names))),
+        }
+        checks[env_id] = ok
+        mean_r = float(roll[n_state].double().sum()) / (N * T_DISPATCH)
+        disp[env_id] = {"launches": delta, "mean_reward": mean_r,
+                        "term_rate": float(roll[n_state + 1].double().sum()) / (N * T_DISPATCH)}
+        if env_id == SYNC_TIMED:
+            sc_kernel_reward = mean_r
+        del roll, rec
+    emit({"phase": "sync_dispatch", "envs": N, "steps": T_DISPATCH, "ids": disp, "checks": checks})
+    failed = [f"{i}:{k}" for i, ok in checks.items() for k, v in ok.items() if not v]
+    if failed:
+        raise AssertionError(f"sync dispatch output checks failed: {failed}")
+
+    # 16. timings at the bench width
+    timings = {}
+    for env_id in (SYNC_SPECIALISED, SYNC_TIMED):
+        env = gt.make_functional(env_id, device=dev)
+        c = sf.SyncConsts(env)
+        z = [torch.zeros((R, 128), device=dev) for _ in range(c.n_state)]
+        key = "" if env_id == SYNC_TIMED else "/" + env_id
+        roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
+        r_ms, out = cuda_ms(torch, lambda: roll(SEED, *z), reps=SYNC_REPS)
+        rec = frec.make_fused_record_rollout(env, T_RECORD, N)
+        c_ms, rec_out = cuda_ms(torch, lambda: rec(SEED, *z), reps=SYNC_REPS)
+        rec_bytes = sum(x.numel() * x.element_size() for x in rec_out.values())
+        row = {
+            "sync_rollout_random": {
+                "steps": T_ROLLOUT, "ms": r_ms, "env_steps_per_s": N * T_ROLLOUT / (r_ms / 1e3),
+                "bound_ms": bound_ms(N * T_ROLLOUT, ops["sync_rollout_random" + key],
+                                     sync_bytes(c, "sync_rollout_random", N, T_ROLLOUT))[0],
+                "mean_reward": float(out[c.n_state].double().sum()) / (N * T_ROLLOUT),
+                "finite": all(bool(torch.isfinite(x).all()) for x in out)},
+            "sync_record_random": {
+                "steps": T_RECORD, "ms": c_ms, "bytes_written": rec_bytes,
+                "env_steps_per_s": N * T_RECORD / (c_ms / 1e3),
+                "GB_per_s": rec_bytes / (c_ms / 1e3) / 1e9,
+                "bound_ms": bound_ms(N * T_RECORD, ops["sync_record_random" + key],
+                                     sync_bytes(c, "sync_record_random", N, T_RECORD))[0]},
+        }
+        if not row["sync_rollout_random"]["finite"]:
+            raise AssertionError(f"{env_id}: the 65536-step rollout produced non-finite values")
+        if env_id == SYNC_SPECIALISED:
+            pc = fs.PmsmConsts(env)
+            zz = torch.zeros((R, 128), device=dev)
+            p_ms, _ = cuda_ms(torch, lambda: fs.pmsm_rollout_random(pc, SEED, zz, zz, zz, T_ROLLOUT),
+                              reps=5)
+            row["pmsm_rollout_random"] = {"steps": T_ROLLOUT, "ms": p_ms,
+                                          "env_steps_per_s": N * T_ROLLOUT / (p_ms / 1e3)}
+            row["universal_over_specialised"] = r_ms / p_ms
+        timings[env_id] = row
+        del out, rec_out
+    env = gt.make_functional(SYNC_TIMED, device=dev)
+    venv = gt.VectorEnv(env, N)
+    state, _obs = venv.reset(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    policy = gt.random_cont_policy(3)
+    venv.rollout(state, policy, 5, gen)  # warm-up
+    gen_ms, (state, rsum, tsum) = host_ms(
+        torch, lambda: venv.rollout(state, policy, T_SYNC_GENERAL, gen))
+    gen_mean_r = float(rsum.double().sum()) / (N * T_SYNC_GENERAL)
+    timings["general_path/" + SYNC_TIMED] = {
+        "steps": T_SYNC_GENERAL, "ms": gen_ms,
+        "env_steps_per_s": N * T_SYNC_GENERAL / (gen_ms / 1e3), "mean_reward": gen_mean_r,
+        "term_rate": float(tsum.double().sum()) / (N * T_SYNC_GENERAL),
+        "kernel_mean_reward_200": sc_kernel_reward}
+    launches = dict(sf.LAUNCHES)
+    emit({"phase": "sync_timings", "card": card, "envs": N, "timings": timings,
+          "launches": launches})
+    if not (math.isfinite(gen_mean_r) and bool(torch.isfinite(state.phys.ode_state).all())):
+        raise AssertionError("the Cont-SC-PMSM-v0 general path produced non-finite values")
+    # the same process in distribution: general path vs kernel over 200 steps
+    # from the reset state (the bound of tests/test_pallas_sync_universal.py:104)
+    if not abs(gen_mean_r - sc_kernel_reward) < 0.08:
+        raise AssertionError(f"general path mean reward {gen_mean_r} vs kernel {sc_kernel_reward}")
+    # each id once through the env check (buffer) and the dispatch (random);
+    # cuda_ms calls twice before its reps, on 2 ids
+    n_ids, timed_calls = len(gt.ENV_IDS), 2 * (2 + SYNC_REPS)
+    want = {"sync_rollout_random": n_ids + timed_calls, "sync_record_random": n_ids + timed_calls,
+            "sync_rollout_buffer": n_ids, "sync_record_buffer": n_ids}
+    if launches != want:
+        raise AssertionError(f"sync kernels on the main path launched {launches}, expected {want}")
+
+    # ---- kernels line rows ---------------------------------------------------
+    replaces = {"sync_rollout_random": "gym_electric_motor_tpu/ops/pallas_sync.py:1112",
+                "sync_rollout_buffer": "gym_electric_motor_tpu/ops/pallas_sync.py:1085",
+                "sync_record_random": "gym_electric_motor_tpu/ops/pallas_record.py:303",
+                "sync_record_buffer": "gym_electric_motor_tpu/ops/pallas_record.py:147"}
+    line = []
+    for name in sf.KERNELS:
+        t = timed[name]
+        row = {"name": name, "route": "cuda",
+               "source": "gym_electric_motor_tpu_torch/csrc/fused_sync.cu",
+               "replaces": replaces[name], "launches": launches[name],
+               "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+               "envs": N, "steps": T_SYNC_COMPARE, "timed_on": SYNC_TIMED,
+               "match_share": share[name], "ids_compared": len(gt.ENV_IDS)}
+        if name in ("sync_rollout_random", "sync_record_random"):
+            main = timings[SYNC_TIMED][name]
+            row.update(main_steps=main["steps"], main_ms=main["ms"], main_bound_ms=main["bound_ms"])
+        line.append(row)
+    return line
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "gym_electric_motor_tpu_torch" / "csrc").is_dir():
@@ -766,8 +1102,9 @@ def main():
     dev = torch.device("cuda")
     line, ops = run(dev, card)
     line += run_rl(dev, card, ops)
+    line += run_sync(dev, card, ops)
 
-    # ---- 12. kernels line, card and result --------------------------------
+    # ---- 17. kernels line, card and result --------------------------------
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

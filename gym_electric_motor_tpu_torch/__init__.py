@@ -11,7 +11,8 @@ imports neither ``jax`` nor ``gym_electric_motor_tpu``.
 __version__ = "0.1.0"
 
 from . import constraints, core, ops, physical_systems, references, rewards
-from .core import ElectricMotorEnvironment, VectorEnv, random_policy, state_from_numpy
+from .core import (ElectricMotorEnvironment, VectorEnv, random_cont_policy, random_policy,
+                   state_from_numpy)
 from .envs import ENV_IDS, make, make_functional
 
 __all__ = [
@@ -24,6 +25,7 @@ __all__ = [
     "make_functional",
     "ops",
     "physical_systems",
+    "random_cont_policy",
     "random_policy",
     "references",
     "rewards",

@@ -258,6 +258,18 @@ def random_policy(n_actions: int):
     return policy_fn
 
 
+def random_cont_policy(n_dims: int):
+    """``policy_fn(obs, generator) -> (N, n_dims)`` float32 uniform in
+    [-1, 1): the random policy of a continuous converter (the box the Cont
+    ids' action space spans)."""
+    def policy_fn(obs, generator):
+        state = obs[0]
+        u = torch.rand((state.shape[0], n_dims), generator=generator, device=state.device)
+        return 2.0 * u - 1.0
+
+    return policy_fn
+
+
 class VectorEnv:
     """``n_envs`` independent envs stepped in lockstep on one device."""
 

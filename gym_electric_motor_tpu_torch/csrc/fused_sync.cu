@@ -1,0 +1,389 @@
+// Universal synchronous-family (PMSM / SynRM) fused rollouts for Hopper
+// (sm_90a): four kernels over the shared step of sync_step.cuh, with a
+// plain C interface for ctypes (every function returns cudaGetLastError()).
+// They serve the twelve {Finite, Cont} x {CC, TC, SC} x {PMSM, SynRM}
+// catalog ids at their defaults.
+//
+// Replaces (gym_electric_motor_tpu/ops/):
+//   sync_rollout_random  pallas_sync.py   make_fused_sync_rollout, random mode (:1112)
+//   sync_rollout_buffer  pallas_sync.py   make_fused_sync_rollout, buffer mode (:1085)
+//   sync_record_random   pallas_record.py make_fused_record_rollout, random mode (:303),
+//                                         for the sync family
+//   sync_record_buffer   pallas_record.py make_fused_record_rollout, buffer mode (:147),
+//                                         for the sync family
+//
+// Design: one thread per env, the drive state, the Park rotation and the
+// reference rows in registers across an in-kernel loop over T steps.  The
+// TPU recorder's sequential chunk grid and per-chunk reseed
+// (pallas_record.py:206-211) do not carry over: the recorders store
+// [t, env], so a warp writes 128 contiguous bytes per signal and step.
+// Random bits come from Philox4x32-10 keyed by the seed and counted by
+// (env, step, slot).  Templates: FINITE (B6 bits or duty), MECH (constant
+// speed or the polynomial load's speed ODE) and NREF (1 or 2 reference
+// rows); the referenced quantity of a row is a runtime code.  A random
+// kernel holds two loops, with and without the reference advance, and
+// takes the second when every reference is constant.  Built with
+// -fmad=false (ops/cuda_build.py), so each multiply and add rounds as in
+// the plain PyTorch version.
+//
+// What bounds it on this card: the reducing kernels move only the initial
+// and final state (plus 4 or 12 bytes of action per env-step in buffer
+// mode), so they are bound by the operations of a step: RK4 over the dq
+// currents (and the speed, with the load's torque), the non-fast-math
+// cosf/sinf/logf polynomials on the FP32 pipe, and Philox's integer
+// multiplies and xors; tools/sass_ops.py counts the instructions a step
+// always issues, per pipe, from the SASS, and chip_smoke.py takes its
+// bounds from that count.  The recorders add 4 bytes per signal and
+// env-step of HBM traffic (7 to 10 signals in random mode) and are bound by
+// it at large T.  Every step loop is `#pragma unroll 1`, so that one loop
+// iteration is one step in the SASS count.
+#include <cuda_runtime.h>
+
+#include "sync_step.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+template <bool MECH>
+__device__ __forceinline__ SyncState load_state(const float* __restrict__ w0,
+                                                const float* __restrict__ i_sd0,
+                                                const float* __restrict__ i_sq0,
+                                                const float* __restrict__ eps0, int e) {
+  SyncState x;
+  x.w = MECH ? w0[e] : 0.0f;
+  x.i_sd = i_sd0[e];
+  x.i_sq = i_sq0[e];
+  x.eps = eps0[e];
+  return x;
+}
+
+template <bool MECH>
+__device__ __forceinline__ void store_state(const SyncState& x, float* __restrict__ w,
+                                            float* __restrict__ i_sd, float* __restrict__ i_sq,
+                                            float* __restrict__ eps, size_t i) {
+  if (MECH) w[i] = x.w;
+  i_sd[i] = x.i_sd;
+  i_sq[i] = x.i_sq;
+  eps[i] = x.eps;
+}
+
+// The buffer step's action at step t: int32 (T, N) bits, or float32
+// (T, 3, N) duty commands.
+template <bool FINITE>
+__device__ __forceinline__ SyncAction read_action(const int* __restrict__ act_i,
+                                                  const float* __restrict__ act_f, int n, int t,
+                                                  int e) {
+  SyncAction a;
+  if (FINITE) {
+    a.bits = act_i[(size_t)t * n + e];
+    a.a = a.b = a.c = 0.0f;
+  } else {
+    const size_t base = (size_t)t * 3 * n + e;
+    a.bits = 0;
+    a.a = act_f[base];
+    a.b = act_f[base + n];
+    a.c = act_f[base + 2 * (size_t)n];
+  }
+  return a;
+}
+
+template <bool FINITE, bool MECH, int NREF, bool WIENER>
+__device__ __forceinline__ void rollout_random_loop(const SyncConst& k, uint2 key, int e,
+                                                    int n_steps, SyncState& x, float& c, float& s,
+                                                    SyncRefs<NREF>& refs, float& reward,
+                                                    float& terms) {
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    const SyncStepOut o =
+        sync_random_step<FINITE, MECH, NREF, WIENER>(k, key, (uint32_t)e, (uint32_t)t, x, c, s, refs);
+    reward += o.reward;
+    terms += o.done;
+  }
+}
+
+template <bool FINITE, bool MECH, int NREF>
+__global__ void sync_rollout_random_kernel(SyncConst k, uint2 key, int n, int n_steps,
+                                           const float* __restrict__ w0,
+                                           const float* __restrict__ i_sd0,
+                                           const float* __restrict__ i_sq0,
+                                           const float* __restrict__ eps0,
+                                           float* __restrict__ out_w, float* __restrict__ out_isd,
+                                           float* __restrict__ out_isq, float* __restrict__ out_eps,
+                                           float* __restrict__ out_reward,
+                                           float* __restrict__ out_terms, float* __restrict__ out_rv,
+                                           float* __restrict__ out_rk, float* __restrict__ out_rl,
+                                           float* __restrict__ out_rs) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  SyncState x = load_state<MECH>(w0, i_sd0, i_sq0, eps0, e);
+  float c = 1.0f, s = 0.0f;
+  if (!MECH) {
+    c = cosf(x.eps);
+    s = sinf(x.eps);
+  }
+  SyncRefs<NREF> refs;
+  sync_wiener_init<NREF>(k, key, (uint32_t)e, refs);
+  float reward = 0.0f, terms = 0.0f;
+  if (k.flag[F_ALL_CONST]) {
+    rollout_random_loop<FINITE, MECH, NREF, false>(k, key, e, n_steps, x, c, s, refs, reward, terms);
+  } else {
+    rollout_random_loop<FINITE, MECH, NREF, true>(k, key, e, n_steps, x, c, s, refs, reward, terms);
+  }
+  store_state<MECH>(x, out_w, out_isd, out_isq, out_eps, (size_t)e);
+  out_reward[e] = reward;
+  out_terms[e] = terms;
+  // final reference rows, (NREF * R, 128) planes: row 0 first
+#pragma unroll
+  for (int r = 0; r < NREF; ++r) {
+    out_rv[(size_t)r * n + e] = refs.rv[r];
+    out_rk[(size_t)r * n + e] = refs.rk[r];
+    out_rl[(size_t)r * n + e] = refs.rl[r];
+    out_rs[(size_t)r * n + e] = refs.rs[r];
+  }
+}
+
+template <bool FINITE, bool MECH>
+__global__ void sync_rollout_buffer_kernel(SyncConst k, int n, int n_steps,
+                                           const float* __restrict__ w0,
+                                           const float* __restrict__ i_sd0,
+                                           const float* __restrict__ i_sq0,
+                                           const float* __restrict__ eps0,
+                                           const int* __restrict__ act_i,
+                                           const float* __restrict__ act_f,
+                                           float* __restrict__ out_w, float* __restrict__ out_isd,
+                                           float* __restrict__ out_isq,
+                                           float* __restrict__ out_eps) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  SyncState x = load_state<MECH>(w0, i_sd0, i_sq0, eps0, e);
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    const SyncAction a = read_action<FINITE>(act_i, act_f, n, t, e);
+    sync_physics<FINITE, MECH>(k, a, cosf(x.eps), sinf(x.eps), x);
+  }
+  store_state<MECH>(x, out_w, out_isd, out_isq, out_eps, (size_t)e);
+}
+
+struct RecordOut {
+  float *w, *i_sd, *i_sq, *eps, *ref0, *ref1;
+  int* act_i;
+  float *act_a, *act_b, *act_c, *reward, *done;
+};
+
+template <bool FINITE, bool MECH, int NREF, bool WIENER>
+__device__ __forceinline__ void record_random_loop(const SyncConst& k, uint2 key, int e, int n,
+                                                   int n_steps, SyncState& x, float& c, float& s,
+                                                   SyncRefs<NREF>& refs, const RecordOut& o) {
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    const SyncStepOut r =
+        sync_random_step<FINITE, MECH, NREF, WIENER>(k, key, (uint32_t)e, (uint32_t)t, x, c, s, refs);
+    const size_t i = (size_t)t * n + e;
+    store_state<MECH>(x, o.w, o.i_sd, o.i_sq, o.eps, i);
+    o.ref0[i] = r.ref[0];
+    if (NREF == 2) o.ref1[i] = r.ref[1];
+    if (FINITE) {
+      o.act_i[i] = r.act.bits;
+    } else {
+      o.act_a[i] = r.act.a;
+      o.act_b[i] = r.act.b;
+      o.act_c[i] = r.act.c;
+    }
+    o.reward[i] = r.reward;
+    o.done[i] = r.done;
+  }
+}
+
+template <bool FINITE, bool MECH, int NREF>
+__global__ void sync_record_random_kernel(SyncConst k, uint2 key, int n, int n_steps,
+                                          const float* __restrict__ w0,
+                                          const float* __restrict__ i_sd0,
+                                          const float* __restrict__ i_sq0,
+                                          const float* __restrict__ eps0, RecordOut o) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  SyncState x = load_state<MECH>(w0, i_sd0, i_sq0, eps0, e);
+  float c = 1.0f, s = 0.0f;
+  if (!MECH) {
+    c = cosf(x.eps);
+    s = sinf(x.eps);
+  }
+  SyncRefs<NREF> refs;
+  sync_wiener_init<NREF>(k, key, (uint32_t)e, refs);
+  if (k.flag[F_ALL_CONST]) {
+    record_random_loop<FINITE, MECH, NREF, false>(k, key, e, n, n_steps, x, c, s, refs, o);
+  } else {
+    record_random_loop<FINITE, MECH, NREF, true>(k, key, e, n, n_steps, x, c, s, refs, o);
+  }
+}
+
+template <bool FINITE, bool MECH>
+__global__ void sync_record_buffer_kernel(SyncConst k, int n, int n_steps,
+                                          const float* __restrict__ w0,
+                                          const float* __restrict__ i_sd0,
+                                          const float* __restrict__ i_sq0,
+                                          const float* __restrict__ eps0,
+                                          const int* __restrict__ act_i,
+                                          const float* __restrict__ act_f, float* __restrict__ out_w,
+                                          float* __restrict__ out_isd, float* __restrict__ out_isq,
+                                          float* __restrict__ out_eps) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  SyncState x = load_state<MECH>(w0, i_sd0, i_sq0, eps0, e);
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    const SyncAction a = read_action<FINITE>(act_i, act_f, n, t, e);
+    sync_physics<FINITE, MECH>(k, a, cosf(x.eps), sinf(x.eps), x);
+    store_state<MECH>(x, out_w, out_isd, out_isq, out_eps, (size_t)t * n + e);
+  }
+}
+
+SyncConst load_const(const float* host, const int* flags) {
+  SyncConst k;
+  for (int i = 0; i < N_SYNC_CONST; ++i) k.v[i] = host[i];
+  for (int r = 0; r < 2; ++r) {
+    for (int j = 0; j < N_ROW_CONST; ++j) k.row[r][j] = host[N_SYNC_CONST + r * N_ROW_CONST + j];
+  }
+  for (int i = 0; i < N_SYNC_FLAG; ++i) k.flag[i] = flags[i];
+  return k;
+}
+
+uint2 seed_key(unsigned long long seed) {
+  return make_uint2((uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32));
+}
+
+int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+// Instance index of (FINITE, MECH, NREF): 4 * finite + 2 * mech + nref - 1
+// for the random kernels, 2 * finite + mech for the buffer kernels; -1 for
+// flags no instance serves.
+int random_index(const int* f) {
+  if (f[F_NREF] != 1 && f[F_NREF] != 2) return -1;
+  return 4 * (f[F_FINITE] != 0) + 2 * (f[F_MECH] != 0) + f[F_NREF] - 1;
+}
+
+int buffer_index(const int* f) { return 2 * (f[F_FINITE] != 0) + (f[F_MECH] != 0); }
+
+template <bool F, bool M, int NR>
+void launch_rollout_random(const SyncConst& k, uint2 key, int n, int n_steps, const float* const* in,
+                           float* const* out, cudaStream_t st) {
+  sync_rollout_random_kernel<F, M, NR><<<blocks(n), kThreads, 0, st>>>(
+      k, key, n, n_steps, in[0], in[1], in[2], in[3], out[0], out[1], out[2], out[3], out[4],
+      out[5], out[6], out[7], out[8], out[9]);
+}
+
+template <bool F, bool M, int NR>
+void launch_record_random(const SyncConst& k, uint2 key, int n, int n_steps, const float* const* in,
+                          const RecordOut& o, cudaStream_t st) {
+  sync_record_random_kernel<F, M, NR><<<blocks(n), kThreads, 0, st>>>(k, key, n, n_steps, in[0],
+                                                                      in[1], in[2], in[3], o);
+}
+
+template <bool F, bool M>
+void launch_rollout_buffer(const SyncConst& k, int n, int n_steps, const float* const* in,
+                           const int* act_i, const float* act_f, float* const* out,
+                           cudaStream_t st) {
+  sync_rollout_buffer_kernel<F, M><<<blocks(n), kThreads, 0, st>>>(
+      k, n, n_steps, in[0], in[1], in[2], in[3], act_i, act_f, out[0], out[1], out[2], out[3]);
+}
+
+template <bool F, bool M>
+void launch_record_buffer(const SyncConst& k, int n, int n_steps, const float* const* in,
+                          const int* act_i, const float* act_f, float* const* out,
+                          cudaStream_t st) {
+  sync_record_buffer_kernel<F, M><<<blocks(n), kThreads, 0, st>>>(
+      k, n, n_steps, in[0], in[1], in[2], in[3], act_i, act_f, out[0], out[1], out[2], out[3]);
+}
+
+using RolloutRandomFn = void (*)(const SyncConst&, uint2, int, int, const float* const*,
+                                 float* const*, cudaStream_t);
+using RecordRandomFn = void (*)(const SyncConst&, uint2, int, int, const float* const*,
+                                const RecordOut&, cudaStream_t);
+using BufferFn = void (*)(const SyncConst&, int, int, const float* const*, const int*,
+                          const float*, float* const*, cudaStream_t);
+
+const RolloutRandomFn kRolloutRandom[8] = {
+    launch_rollout_random<false, false, 1>, launch_rollout_random<false, false, 2>,
+    launch_rollout_random<false, true, 1>,  launch_rollout_random<false, true, 2>,
+    launch_rollout_random<true, false, 1>,  launch_rollout_random<true, false, 2>,
+    launch_rollout_random<true, true, 1>,   launch_rollout_random<true, true, 2>};
+const RecordRandomFn kRecordRandom[8] = {
+    launch_record_random<false, false, 1>, launch_record_random<false, false, 2>,
+    launch_record_random<false, true, 1>,  launch_record_random<false, true, 2>,
+    launch_record_random<true, false, 1>,  launch_record_random<true, false, 2>,
+    launch_record_random<true, true, 1>,   launch_record_random<true, true, 2>};
+const BufferFn kRolloutBuffer[4] = {
+    launch_rollout_buffer<false, false>, launch_rollout_buffer<false, true>,
+    launch_rollout_buffer<true, false>, launch_rollout_buffer<true, true>};
+const BufferFn kRecordBuffer[4] = {
+    launch_record_buffer<false, false>, launch_record_buffer<false, true>,
+    launch_record_buffer<true, false>, launch_record_buffer<true, true>};
+
+}  // namespace
+
+extern "C" {
+
+int sync_n_const() { return N_SYNC_CONST; }
+int sync_n_row_const() { return N_ROW_CONST; }
+int sync_n_flag() { return N_SYNC_FLAG; }
+
+const char* sync_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// in: (omega or NULL, i_sd, i_sq, eps); out: (omega or NULL, i_sd, i_sq,
+// eps, reward, terms, rv, rk, rl, rs).  Returns cudaErrorInvalidValue for
+// flags no instance serves.
+int sync_rollout_random(const float* consts, const int* flags, unsigned long long seed, int n,
+                        int n_steps, const float* const* in, float* const* out, void* stream) {
+  const int idx = random_index(flags);
+  if (idx < 0) return (int)cudaErrorInvalidValue;
+  kRolloutRandom[idx](load_const(consts, flags), seed_key(seed), n, n_steps, in, out,
+                      (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// actions: int32 (T, N) for a finite converter, float32 (T, 3, N) for a
+// continuous one (the other pointer NULL); out: (omega or NULL, i_sd, i_sq,
+// eps).
+int sync_rollout_buffer(const float* consts, const int* flags, int n, int n_steps,
+                        const float* const* in, const int* act_i, const float* act_f,
+                        float* const* out, void* stream) {
+  kRolloutBuffer[buffer_index(flags)](load_const(consts, flags), n, n_steps, in, act_i, act_f, out,
+                                      (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// out: (omega or NULL, i_sd, i_sq, eps, ref row 0, ref row 1 or NULL, int32
+// action or NULL, action a, b, c or NULL, reward, done), each (T, N).
+int sync_record_random(const float* consts, const int* flags, unsigned long long seed, int n,
+                       int n_steps, const float* const* in, void* const* out, void* stream) {
+  const int idx = random_index(flags);
+  if (idx < 0) return (int)cudaErrorInvalidValue;
+  RecordOut o;
+  o.w = (float*)out[0];
+  o.i_sd = (float*)out[1];
+  o.i_sq = (float*)out[2];
+  o.eps = (float*)out[3];
+  o.ref0 = (float*)out[4];
+  o.ref1 = (float*)out[5];
+  o.act_i = (int*)out[6];
+  o.act_a = (float*)out[7];
+  o.act_b = (float*)out[8];
+  o.act_c = (float*)out[9];
+  o.reward = (float*)out[10];
+  o.done = (float*)out[11];
+  kRecordRandom[idx](load_const(consts, flags), seed_key(seed), n, n_steps, in, o,
+                     (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// As sync_rollout_buffer, every step's state stored (T, N).
+int sync_record_buffer(const float* consts, const int* flags, int n, int n_steps,
+                       const float* const* in, const int* act_i, const float* act_f,
+                       float* const* out, void* stream) {
+  kRecordBuffer[buffer_index(flags)](load_const(consts, flags), n, n_steps, in, act_i, act_f, out,
+                                     (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

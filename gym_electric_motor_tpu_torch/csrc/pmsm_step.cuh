@@ -17,6 +17,8 @@
 
 #include <cstdint>
 
+#include "philox.cuh"
+
 enum PmsmConstIndex {
   C_U_SUP = 0,        // supply voltage
   C_K_A,              // -r_s
@@ -58,30 +60,8 @@ enum PmsmSlot {
   SLOT_INIT_B = 4   // at step 0: (sigma d, sigma q, -, -)
 };
 
-// Philox4x32-10 (Salmon et al., SC'11; the constants of Random123).
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
 __device__ __forceinline__ uint4 pmsm_draw(uint2 key, uint32_t env, uint32_t t, uint32_t slot) {
   return philox4x32_10(make_uint4(env, t, slot, 0u), key);
-}
-
-// Top 24 bits -> [0, 1) (pallas_common._uniform_from_bits).
-__device__ __forceinline__ float uniform24(uint32_t b) {
-  return (float)(int)(b >> 8) * (1.0f / 16777216.0f);
 }
 
 __device__ __forceinline__ void pmsm_rhs(const PmsmConst& k, float i_sd, float i_sq,

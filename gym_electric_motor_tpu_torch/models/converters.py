@@ -4,9 +4,10 @@
 ``conv_state`` is an ``(N, n_state)`` int32 tensor of persistent
 half-bridge switching states (0 = both transistors off, 1 = upper on,
 2 = lower on); a finite action is an ``(N,)`` integer tensor; phase
-currents are ``(N, n_in)``.  Only the finite B6 bridge exists so far, with
-zero interlocking time; the other converters and the dead-time schedule
-come with slice 3 of the port.
+currents are ``(N, n_in)``; a continuous action is an ``(N, n_out)`` float
+tensor of duty commands in [-1, 1].  The finite and continuous B6 bridges
+exist so far, with zero interlocking time; the DC converters and the
+dead-time schedule come with the DC family of queue 1, slice 3.
 """
 
 from __future__ import annotations
@@ -55,12 +56,13 @@ class ConverterSpec:
     u_frac: Callable = None
     i_sup: Callable = None
     u_reset: np.ndarray = None  # converter.reset() output voltage fractions
+    default_action: object = 0
 
     def __post_init__(self):
         if self.interlocking_time:
             raise NotImplementedError(
                 "interlocking dead time is not ported yet; it arrives with "
-                "slice 3 of the port")
+                "the shared parts of queue 1, slice 3 of the port")
 
     def interval_durations(self) -> tuple:
         return (self.tau,)
@@ -109,3 +111,35 @@ def finite_b6_bridge_converter(tau=1e-5, interlocking_time=0.0) -> ConverterSpec
         u_reset=np.full(3, -0.5),
     )
 
+
+def cont_b6_bridge_converter(tau=1e-4, interlocking_time=0.0) -> ConverterSpec:
+    """Box([-1, 1]^3) duty commands -> 3 half-bridge duty cycles
+    (converters.py:842-911 of the reference): duty d = (a + 1) / 2, each
+    phase offset by -0.5.  With zero interlocking time the half bridge's
+    dead-time discount (converters.py:148-184) is zero, so the phase
+    voltage is ``clip(d, 0, 1) - 0.5`` and the supply current ``sum d i``."""
+
+    def u_frac(bridge_states, action, i_out):
+        d = 0.5 * (torch.clamp(action, -1.0, 1.0) + 1.0)
+        return torch.clamp(d, 0.0, 1.0) - 0.5
+
+    def i_sup(bridge_states, action, i_out):
+        d = 0.5 * (torch.clamp(action, -1.0, 1.0) + 1.0)
+        return torch.sum(d * i_out, dim=-1)
+
+    return ConverterSpec(
+        kind="Cont-B6C",
+        action_type="cont",
+        action_space=("box", -np.ones(3), np.ones(3)),
+        n_state=0,
+        n_out=3,
+        n_in=3,
+        voltages=(-np.ones(3), np.ones(3)),
+        currents=(-np.ones(3), np.ones(3)),
+        interlocking_time=interlocking_time,
+        tau=tau,
+        u_frac=u_frac,
+        i_sup=i_sup,
+        u_reset=np.full(3, -0.5),
+        default_action=np.zeros(3),
+    )

@@ -4,7 +4,8 @@
 A supply spec provides ``get_voltage(sp, sup_state, t, i_sup) -> (u_sup,
 sup_state')`` on batched tensors: ``u_sup`` is ``(N, voltage_len)`` and
 ``sup_state`` is ``(N, n_state)``.  Only the ideal supply exists so far;
-the RC and AC supplies come with slice 3 of the port.
+the RC, AC1 and AC3 supplies raise until the shared parts of queue 1,
+slice 3 of the port bring them.
 """
 
 from __future__ import annotations
@@ -56,3 +57,17 @@ def ideal_voltage_supply(u_nominal=600.0) -> SupplySpec:
         reset_u=reset_u,
         n_state=0,
     )
+
+
+def _unported_supply(kind):
+    def factory(*args, **kwargs):
+        raise NotImplementedError(
+            f"{kind} is not ported yet; it arrives with the shared parts of "
+            "queue 1, slice 3 of the port (the supplies)")
+    factory.__name__ = kind
+    return factory
+
+
+rc_voltage_supply = _unported_supply("RCVoltageSupply")
+ac_1_phase_supply = _unported_supply("AC1PhaseSupply")
+ac_3_phase_supply = _unported_supply("AC3PhaseSupply")

@@ -1,14 +1,21 @@
 """Shared pieces of the fused rollout kernels: the lane constant, the
-24-bit uniform map, and the Philox4x32-10 bit source.
+24-bit uniform map, the Philox4x32-10 bit sources, and the plain versions
+of the in-kernel machinery the universal family kernels share.
 
-Counterpart of ``LANE``, ``TWO_PI``, ``_uniform_from_bits`` and
-``_make_rng`` in ``gym_electric_motor_tpu/ops/pallas_common.py``.  On the
-TPU the bits come from the on-core PRNG (xorshift in interpret mode); here
-they come from Philox4x32-10 (Salmon et al., "Parallel random numbers: as
-easy as 1, 2, 3", SC'11), a counter-based generator: the bits of one draw
-are a pure function of (key, counter), so the CUDA kernels
-(``csrc/pmsm_step.cuh``) and the plain PyTorch versions below produce the
-same bits whatever the launch geometry.
+Counterpart of ``LANE``, ``TWO_PI``, ``_uniform_from_bits``, ``_make_rng``,
+``_fused_check_system``, ``_fused_constraint_mode``, ``_make_b6``,
+``_make_fused_mech``, ``_make_fused_supply``, ``_ref_configs``,
+``_make_wiener``, ``_wse_err`` and ``_rotation_protocol`` in
+``gym_electric_motor_tpu/ops/pallas_common.py``, restricted to what the
+synchronous family's catalog defaults use (see :func:`fused_check_system`
+for what raises).  The CUDA counterparts of the machinery are the device
+functions of ``csrc/sync_step.cuh``.  On the TPU the bits come from the
+on-core PRNG (xorshift in interpret mode); here they come from
+Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+3", SC'11), a counter-based generator: the bits of one draw are a pure
+function of (key, counter), so the CUDA kernels (``csrc/philox.cuh``) and
+the plain PyTorch versions below produce the same bits whatever the launch
+geometry.
 
 Plain version on the CPU: torch integer ops are signed and the 32x32->64
 products of the Philox round overflow int64, so the words live in int64
@@ -20,6 +27,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 LANE = 128
@@ -91,6 +99,12 @@ SLOT_INIT_B = 4   # at step 0: (sigma d, sigma q, -, -)
 SLOT_GUMBEL_A = 5    # (gumbel 0, 1, 2, 3)
 SLOT_GUMBEL_B = 6    # (gumbel 4, 5, 6, 7)
 SLOT_BOX_MULLER = 7  # (u1 d, u1 q, u2 d, u2 q)
+# The synchronous family (csrc/sync_step.cuh, SyncBits below) reads slots 0
+# to 4 with reference rows 0 and 1 in place of d and q: SLOT_STEP as
+# (action 0, box-muller u1, box-muller u2, action 1), SLOT_PARAMS,
+# SLOT_RESET, SLOT_INIT_A, SLOT_INIT_B; and a continuous converter's third
+# action word from its own slot.
+SLOT_ACTION_C = 8    # (action 2, -, -, -)
 
 
 class PhiloxBits:
@@ -132,3 +146,255 @@ class ReinforceBits(PhiloxBits):
                                         SLOT_PARAMS, SLOT_RESET])
         words = [w[i] for i in range(4) for w in (w0, w1, w2, w3)]
         return tuple(words) + (w0[4], w1[4])
+
+
+class SyncBits(PhiloxBits):
+    """The synchronous family's bit source: the counters of
+    ``csrc/sync_step.cuh``.
+
+    ``init_words()`` gives ``(values, lengths, sigmas)``, one word per
+    reference row each; ``step_words(t)`` gives ``(actions, u1, u2,
+    lengths, sigmas, resets)``: 1 (finite) or 3 (cont) action words, the
+    Box-Muller pair, and one word per row for the sub-episode length, the
+    sigma and the reset value.  Each word is an (N,) int64 tensor; the plain
+    versions draw every word of ``BLOCK`` consecutive steps in one Philox
+    call."""
+
+    BLOCK = 16
+
+    def __init__(self, seed: int, n_envs: int, device, n_rows: int, n_act: int):
+        super().__init__(seed, n_envs, device)
+        self.n_rows, self.n_act = n_rows, n_act
+        self._slots = [SLOT_STEP, SLOT_PARAMS, SLOT_RESET] + ([SLOT_ACTION_C] if n_act == 3 else [])
+        self._block_t0, self._block = None, None
+
+    def _call(self, t, slots):
+        """Words of steps ``t .. t + BLOCK - 1`` at once: each (BLOCK,
+        slots, N) when ``t`` is a range start, as ``PhiloxBits._call``
+        otherwise."""
+        if not isinstance(t, range):
+            return super()._call(t, slots)
+        s = torch.tensor(slots, dtype=torch.int64, device=self.device)[None, :, None]
+        steps = torch.tensor(list(t), dtype=torch.int64, device=self.device)[:, None, None]
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        return philox4x32(self.env[None, None, :], steps, s, zero, self.k0, self.k1)
+
+    def init_words(self):
+        a0, a1, a2, a3 = self._call(0, [SLOT_INIT_A, SLOT_INIT_B])
+        n = self.n_rows
+        return [a0[0], a1[0]][:n], [a2[0], a3[0]][:n], [a0[1], a1[1]][:n]
+
+    def step_words(self, t: int):
+        t0 = t - t % self.BLOCK
+        if self._block_t0 != t0:
+            self._block_t0 = t0
+            self._block = self._call(range(t0, t0 + self.BLOCK), self._slots)
+        w0, w1, w2, w3 = (w[t - t0] for w in self._block)
+        acts = [w0[0]] if self.n_act == 1 else [w0[0], w3[0], w0[3]]
+        n = self.n_rows
+        return (acts, w1[0], w2[0], [w0[1], w1[1]][:n], [w2[1], w3[1]][:n],
+                [w0[2], w1[2]][:n])
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the universal families' shared machinery
+# ---------------------------------------------------------------------------
+
+_f32 = np.float32
+
+_FUSED_OK_WRAPPERS = ("CurrentSumProcessor", "CosSinProcessor", "FluxObserver")
+
+
+def fused_check_system(ps):
+    """Reject, loudly, what the synchronous-family kernels would simulate
+    wrong (``_fused_check_system``, pallas_common.py:74-114, with what this
+    slice does not port yet added): physical-system wrappers other than the
+    observation-only ones, the dq control space, non-ideal supplies,
+    interlocking dead time, loads other than the constant-speed and
+    polynomial static ones, and another integrator than one RK4 step."""
+    chain, cur = [], ps
+    while hasattr(cur, "inner"):
+        chain.append(type(cur).__name__)
+        cur = cur.inner
+    bad = [n for n in chain if n not in _FUSED_OK_WRAPPERS]
+    if bad:
+        raise NotImplementedError(
+            f"the fused kernels support observation-only wrappers {_FUSED_OK_WRAPPERS}; got "
+            f"{bad}: the DeadTime, StateNoise and DqToAbc wraps arrive with queue 2, item 7")
+    if getattr(cur, "control_space", "abc") != "abc":
+        raise NotImplementedError(
+            "control_space='dq' is not fused yet; it arrives with queue 2, item 7")
+    if cur.supply.kind != "IdealVoltageSupply":
+        raise NotImplementedError(
+            f"the fused kernels support IdealVoltageSupply only; {cur.supply.kind!r} "
+            "arrives with queue 2, item 8 (_make_fused_supply)")
+    if float(getattr(cur.converter, "interlocking_time", 0.0) or 0.0) != 0.0:
+        raise NotImplementedError(
+            "interlocking dead time is not fused yet; it arrives with queue 2, item 8 "
+            "(_fused_interlock)")
+    if cur.load.kind not in ("ConstantSpeedLoad", "PolynomialStaticLoad"):
+        raise NotImplementedError(
+            f"the fused kernels support ConstantSpeedLoad and PolynomialStaticLoad; "
+            f"{cur.load.kind!r} arrives with queue 2, item 8 (_make_fused_mech)")
+    if getattr(cur, "solver", "rk4") != "rk4" or getattr(cur, "substeps", 1) != 1:
+        raise NotImplementedError(
+            "the fused kernels take one RK4 step per control cycle; run other solvers "
+            "on VectorEnv")
+    return cur
+
+
+def fused_constraint_mode(env, default_desc):
+    """``'default'`` for the family's catalog constraint set, ``'none'``
+    for ``constraints=()``; anything else raises
+    (``_fused_constraint_mode``, pallas_common.py:117-155)."""
+    cm = env.constraint_monitor
+    cons = cm.constraints
+    if len(cons) == 0:
+        return "none"
+    desc = []
+    for c in cons:
+        tn = type(c).__name__
+        if tn == "LimitConstraint":
+            desc.append(("limit", tuple(c.observed_state_names)))
+        elif tn == "SquaredConstraint":
+            desc.append(("squared", tuple(c.states)))
+        else:
+            desc.append((tn, None))
+    if tuple(desc) == tuple(default_desc) and cm.merge_violations == "max":
+        return "default"
+    raise NotImplementedError(
+        f"the fused kernels implement the catalog-default constraints {default_desc} (or "
+        f"constraints=()); got {tuple(desc)}: run other constraint sets on VectorEnv")
+
+
+def b6_fractions(finite: bool, action):
+    """The three phase voltages as fractions of the supply voltage
+    (``_make_b6(finite, 0).frac``, pallas_common.py:790-799): finite, the
+    action's bits minus 1/2; cont, half the duty command, no clip."""
+    if finite:
+        return tuple(((action >> b) & 1).to(torch.float32) - 0.5 for b in (2, 1, 0))
+    return tuple(0.5 * a for a in action)
+
+
+def poly_load_rhs(k, w, t_e):
+    """d omega / dt of the polynomial static load, linearised below
+    ``omega_lin`` (``_make_fused_mech``'s 'poly' mode, pallas_common.py:
+    671-676); ``k`` holds the float32 constants as Python floats."""
+    sign = torch.sign(w)
+    a_term = torch.where(torch.abs(w) > k["omega_lin"], sign * k["load_a"], k["jt_over_td"] * w)
+    t_load = sign * k["load_c"] * w * w + k["load_b"] * w + a_term
+    return (t_e - t_load) * k["inv_jt"]
+
+
+def rotation_advance(k, c, s, violated):
+    """The constant-increment Park rotation with rsqrt renormalisation, reset
+    to (1, 0) on violation (``_rotation_protocol``, pallas_common.py:
+    1476-1494)."""
+    c_new = c * k["cos_d"] - s * k["sin_d"]
+    s_new = s * k["cos_d"] + c * k["sin_d"]
+    inv = torch.rsqrt(c_new * c_new + s_new * s_new)
+    return (torch.where(violated, torch.ones_like(c), c_new * inv),
+            torch.where(violated, torch.zeros_like(s), s_new * inv))
+
+
+def wse_err(row, q, r):
+    """One WSE penalty term at reward power 1, ``coef * |q - r|`` with the
+    state-length normalisation folded into ``coef`` (``_wse_err``,
+    pallas_common.py:912-925)."""
+    return row["coef"] * torch.abs(q - r)
+
+
+def ref_rows(env):
+    """Per-reference-row constants, as float32-exact Python floats
+    (``_ref_configs``, pallas_common.py:968-1092, for the 'wiener' and
+    'const' kinds): the referenced state, the WSE coefficient, 1 / limit,
+    the margins, the sub-episode length range and the log10 sigma range.  A
+    constant reference rides the Wiener machinery with pinned margins,
+    sigma 1e-30 and a sub-episode that never ends."""
+    ps = env.physical_system
+    names = list(ps.state_names)
+    lim = np.asarray(ps.limits)
+    rw = env.reward_function
+    rows = []
+    for s in env.reference_generator.subs:
+        idx = names.index(s.reference_state)
+        n_pow = float(np.asarray(rw._n).ravel()[idx])
+        if n_pow != 1.0:
+            raise NotImplementedError(
+                f"the fused kernels take reward power 1; {n_pow} arrives with queue 2, "
+                "item 8 (_wse_err)")
+        row = dict(kind=s.kind, name=s.reference_state,
+                   coef=_f32(rw._weights[idx] / rw._state_length[idx] ** n_pow),
+                   inv_lim=_f32(1.0 / lim[idx]))
+        if s.kind == "const":
+            v = _f32(s.reference_value)
+            row.update(mlo=v, mhi=v, sig_base=_f32(-30.0), sig_span=_f32(0.0),
+                       ep_lo=_f32(1e9), ep_span=_f32(0.0))
+        elif s.kind == "wiener":
+            row.update(mlo=_f32(s.margin[0]), mhi=_f32(s.margin[1]),
+                       ep_lo=_f32(s.episode_lengths[0]),
+                       ep_span=_f32(s.episode_lengths[1] - s.episode_lengths[0]),
+                       sig_base=_f32(np.log10(s.sigma_range[0])),
+                       sig_span=_f32(np.log10(s.sigma_range[1]) - np.log10(s.sigma_range[0])))
+        else:
+            raise NotImplementedError(
+                f"reference kind {s.kind!r} is not fused yet; it arrives with queue 2, "
+                "item 8 (_make_wiener)")
+        row["span"] = row["mhi"] - row["mlo"]  # float32, as the kernels form it
+        rows.append({key: (float(v) if isinstance(v, np.floating) else v)
+                     for key, v in row.items()})
+    return rows
+
+
+def _wiener_params(k, row, b_len, b_sig):
+    rl = torch.floor(row["ep_lo"] + row["ep_span"] * uniform_from_bits(b_len))
+    rs = torch.exp(k["ln10"] * (row["sig_base"] + row["sig_span"] * uniform_from_bits(b_sig)))
+    return rl, rs
+
+
+def _uniform_value(row, b):
+    return row["mlo"] + row["span"] * uniform_from_bits(b)
+
+
+def wiener_init(k, rows, all_const, words, shape, device):
+    """The reference rows at step 0 (``_make_wiener``'s ``init``): lists of
+    value, steps since regeneration, sub-episode length and sigma planes,
+    one per row.  ``words`` = ``(values, lengths, sigmas)`` of the bit
+    source; all-constant rows draw nothing (``words`` is then unused)."""
+    zero = torch.zeros(shape, dtype=torch.float32, device=device)
+    if all_const:
+        return ([zero + r["mlo"] for r in rows], [zero.clone() for _ in rows],
+                [torch.full(shape, 1e9, dtype=torch.float32, device=device) for _ in rows],
+                [zero.clone() for _ in rows])
+    vals, lens, sigs = ([w.reshape(shape) for w in ws] for ws in words)
+    rv, rk, rl, rs = [], [], [], []
+    for j, row in enumerate(rows):
+        rv.append(_uniform_value(row, vals[j]))
+        rk.append(zero.clone())
+        length, sigma = _wiener_params(k, row, lens[j], sigs[j])
+        rl.append(length)
+        rs.append(sigma)
+    return rv, rk, rl, rs
+
+
+def box_muller(k, w_u1, w_u2):
+    """``(r cos theta, r sin theta)`` of two 32-bit words."""
+    rad = torch.sqrt(-2.0 * torch.log(torch.clamp(uniform_from_bits(w_u1), min=k["u_min"])))
+    theta = k["two_pi"] * uniform_from_bits(w_u2)
+    return rad * torch.cos(theta), rad * torch.sin(theta)
+
+
+def wiener_advance(k, rows, ref, draws, violated, lens, sigs, resets):
+    """One advance of every row in ``ref`` (a dict of the lists ``rv``,
+    ``rk``, ``rl``, ``rs``), in place (``_make_wiener``'s ``advance``):
+    regeneration where a sub-episode ended or the env reset, the clipped
+    random-walk step with the row's ``draws``, and a fresh value where the
+    env reset."""
+    for j, row in enumerate(rows):
+        regen = (ref["rk"][j] >= ref["rl"][j]) | violated
+        length, sigma = _wiener_params(k, row, lens[j], sigs[j])
+        ref["rl"][j] = torch.where(regen, length, ref["rl"][j])
+        ref["rs"][j] = torch.where(regen, sigma, ref["rs"][j])
+        ref["rk"][j] = torch.where(regen, torch.zeros_like(ref["rk"][j]), ref["rk"][j]) + 1.0
+        value = torch.clamp(ref["rv"][j] + ref["rs"][j] * draws[j], row["mlo"], row["mhi"])
+        ref["rv"][j] = torch.where(violated, _uniform_value(row, resets[j]), value)

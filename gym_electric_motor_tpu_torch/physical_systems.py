@@ -9,10 +9,11 @@ builder closes over the component specs and provides
 for a batch of ``n`` envs (leading dimension of every tensor).
 ``system_state`` is the normalised full state vector (state / limits).
 
-Only the synchronous system (PMSM, SynRM) with a finite B6 bridge, an ideal
-supply and a constant-speed load exists so far; with zero interlocking time
-the converter schedule is a single sub-interval per control cycle.  The
-other families come with slice 3 of the port.
+Only the synchronous system (PMSM, SynRM) exists so far, with a finite or
+continuous B6 bridge, an ideal supply and a constant-speed or polynomial
+static load; with zero interlocking time the converter schedule is a single
+sub-interval per control cycle.  The other families come with the later
+steps of queue 1, slice 3 of the port.
 """
 
 from __future__ import annotations
@@ -83,9 +84,12 @@ def _sample_initializer(initializer, state_names, bounds_low, bounds_high):
 @dataclasses.dataclass
 class SynchronousMotorSystem:
     """PMSM / SynRM drive train (physical_systems.py:418-561 of the
-    reference).  ODE state ``[omega, i_sd, i_sq, epsilon]`` in the dq frame;
-    the converter voltages are Park-transformed with the rotor angle from
-    the start of the control cycle."""
+    reference).  ODE state ``[omega, i_sd, i_sq, epsilon]`` in the dq frame,
+    omega first: the load's mechanical state (constant for
+    ``ConstantSpeedLoad``, integrated with the currents for
+    ``PolynomialStaticLoad``).  The converter voltages are Park-transformed
+    with the rotor angle from the start of the control cycle; a finite
+    action is an ``(N,)`` integer tensor, a continuous one ``(N, 3)``."""
 
     supply: SupplySpec
     converter: ConverterSpec
@@ -100,8 +104,8 @@ class SynchronousMotorSystem:
     def __post_init__(self):
         if self.control_space != "abc":
             raise NotImplementedError(
-                "control_space='dq' needs a continuous converter, which "
-                "arrives with slice 3 of the port")
+                "control_space='dq' is not ported yet; it arrives with the "
+                "universal wraps of queue 2, item 7 of the port")
         self.converter.tau = self.tau
         self.n_mech = len(self.load.state_names)
         self.state_names = (list(self.load.state_names) + [

@@ -46,7 +46,8 @@ class ScalarRefSpec:
         if self.kind not in ("wiener", "const"):
             raise NotImplementedError(
                 f"reference kind {self.kind!r} is not ported yet (wiener and "
-                "const only); it arrives with slice 3 of the port")
+                "const only); it arrives with the shared parts of queue 1, slice 3 "
+                "of the port, and in the fused kernels with queue 2, item 8")
 
     def bind(self, state_names, limits, nominal, state_space_low, state_space_high, tau):
         """Resolve limit margins against the physical system

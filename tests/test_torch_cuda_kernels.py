@@ -109,3 +109,46 @@ def test_cuda_policy_kernels_match_plain_versions():
     torch.cuda.synchronize()
     assert fp.LAUNCHES == {"policy_rollout": 6, "policy_record": 3, "reinforce_rollout": 6,
                            "reinforce_reduce": 6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["Finite-CC-PMSM-v0", "Cont-SC-SynRM-v0"])
+def test_cuda_sync_kernels_match_plain_versions(env_id):
+    """The universal synchronous-family kernels (csrc/fused_sync.cu) on a
+    constant-speed finite id and a dynamic-speed continuous one: the buffer
+    modes in every env, the random modes in 99% of envs, at rtol 1e-4 /
+    atol 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
+
+    dev = torch.device("cuda")
+    c = sf.SyncConsts(gt.make_functional(env_id, device=dev))
+    R, T = 4, 64
+    rng = np.random.default_rng(10)
+    start = [torch.as_tensor(rng.uniform(-50, 50, (R, 128)).astype(np.float32), device=dev)
+             for _ in range(c.n_state - 1)]
+    start.append(torch.as_tensor(rng.uniform(0, 2 * np.pi, (R, 128)).astype(np.float32), device=dev))
+    if c.finite:
+        acts = torch.as_tensor(rng.integers(0, 8, (T, R, 128)).astype(np.int32), device=dev)
+    else:
+        acts = torch.as_tensor(rng.uniform(-1, 1, (T, 3, R, 128)).astype(np.float32), device=dev)
+    sf.reset_launches()
+    for kern, plain, args in [
+        (sf.sync_rollout_buffer, sf.sync_rollout_buffer_plain, (start, acts)),
+        (sf.sync_record_buffer, sf.sync_record_buffer_plain, (start, acts)),
+        (sf.sync_rollout_random, sf.sync_rollout_random_plain, (5, start, T)),
+        (sf.sync_record_random, sf.sync_record_random_plain, (5, start, T)),
+    ]:
+        got, want = kern(c, *args), plain(c, *args)
+        ok = np.ones(R * 128, bool)
+        for j, (g, w) in enumerate(zip(got, want)):
+            g, w = g.cpu().float().numpy(), w.cpu().float().numpy()
+            err = np.abs(g - w)
+            if j == c.n_state - 1:
+                err = np.remainder(err, 2 * np.pi)
+                err = np.minimum(err, 2 * np.pi - err)
+            ok &= (err <= 1e-4 + 1e-4 * np.abs(w)).reshape(-1, R * 128).all(axis=0)
+        assert ok.all() if kern in (sf.sync_rollout_buffer, sf.sync_record_buffer) else ok.mean() >= 0.99
+    torch.cuda.synchronize()
+    assert all(v == 1 for v in sf.LAUNCHES.values())

@@ -18,9 +18,11 @@ import torch
 
 import gym_electric_motor_tpu as gemx
 from gym_electric_motor_tpu.models import converters as jcv
+from gym_electric_motor_tpu.models import loads as jld
 from gym_electric_motor_tpu.models import motors as jmt
 import gym_electric_motor_tpu_torch as gt
 from gym_electric_motor_tpu_torch.models import converters as tcv
+from gym_electric_motor_tpu_torch.models import loads as tld
 from gym_electric_motor_tpu_torch.models import motors as tmt
 
 torch.set_num_threads(1)
@@ -77,7 +79,44 @@ def test_b6_u_frac_all_actions_match_jax():
     np.testing.assert_array_equal(got, expect)
 
 
-@pytest.mark.parametrize("env_id", ["Finite-CC-PMSM-v0", "Finite-CC-SynRM-v0"])
+def test_cont_b6_u_frac_matches_jax():
+    """Duty commands inside and outside [-1, 1]: the clipped duty minus 1/2
+    and the supply current, against the JAX converter at zero interlock."""
+    jb6, tb6 = jcv.cont_b6_bridge_converter(), tcv.cont_b6_bridge_converter()
+    rng = np.random.default_rng(3)
+    acts = rng.uniform(-1.5, 1.5, (32, 3)).astype(np.float32)
+    i_out = rng.normal(size=(32, 3)).astype(np.float32)
+    got = tb6.u_frac(None, torch.as_tensor(acts), torch.as_tensor(i_out)).numpy()
+    got_isup = tb6.i_sup(None, torch.as_tensor(acts), torch.as_tensor(i_out)).numpy()
+    for k in range(len(acts)):
+        a, i = jnp.asarray(acts[k]), jnp.asarray(i_out[k])
+        np.testing.assert_array_equal(got[k], np.asarray(jb6.u_frac(None, a, i)))
+        np.testing.assert_allclose(got_isup[k], float(jb6.i_sup(None, a, i)), rtol=1e-6, atol=1e-6)
+    assert (tb6.n_state, tb6.action_type, tb6.kind) == (jb6.n_state, jb6.action_type, jb6.kind)
+    np.testing.assert_array_equal(tb6.default_action, jb6.default_action)
+
+
+@pytest.mark.parametrize("params", [dict(a=0.01, b=0.01, c=0.0, j_load=1e-5),
+                                    dict(a=0.5, b=0.2, c=0.1, j_load=1e-3)])
+def test_polynomial_static_load_matches_jax(params):
+    """d omega / dt at zero speed (sign 0), on both sides of the linearised
+    band around it, and at random speeds and torques."""
+    jl, tl = jld.polynomial_static_load(params), tld.polynomial_static_load(params)
+    j_rotor = float(tmt.pmsm().parameter["j_rotor"])
+    jlp, tlp = jl.lp(j_rotor), tl.lp(j_rotor)
+    w_lin = params["a"] / (params["j_load"] + j_rotor) * 1e-3
+    rng = np.random.default_rng(4)
+    omega = np.concatenate([[0.0, 0.5 * w_lin, -0.5 * w_lin, 2 * w_lin, -2 * w_lin],
+                            rng.uniform(-400, 400, 27)]).astype(np.float32)
+    torque = rng.uniform(-5, 5, omega.shape).astype(np.float32)
+    got = tl.ode(tlp, 0.0, torch.as_tensor(omega)[:, None], torch.as_tensor(torque)).numpy()
+    want = np.stack([np.asarray(jl.ode(jlp, 0.0, jnp.asarray(w)[None], jnp.asarray(t)))
+                     for w, t in zip(omega, torque)])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-3)
+    assert tl.initializer == jl.initializer and tl.parameter == jl.parameter
+
+
+@pytest.mark.parametrize("env_id", gt.ENV_IDS)
 def test_system_layout_matches_jax(env_id):
     jenv = gemx.make_functional(env_id)
     tenv = gt.make_functional(env_id, device="cpu")
@@ -88,14 +127,20 @@ def test_system_layout_matches_jax(env_id):
     np.testing.assert_array_equal(tps.state_space_low, np.asarray(jps.state_space_low))
     np.testing.assert_array_equal(tps.state_space_high, np.asarray(jps.state_space_high))
     assert tenv.tau == jenv.tau
-    assert tenv.action_space.n == jenv.action_space.n
+    if env_id.startswith("Finite"):
+        assert tenv.action_space.n == jenv.action_space.n
+    else:
+        np.testing.assert_array_equal(tenv.action_space.low, np.asarray(jenv.action_space.low))
+        np.testing.assert_array_equal(tenv.action_space.high, np.asarray(jenv.action_space.high))
+    assert float(tps.supply.u_nominal) == float(jps.supply.u_nominal)
+    assert tps.load.kind == jps.load.kind
     assert tenv.reference_names == jenv.reference_names
     np.testing.assert_array_equal(tenv.observation_space[1].low, jenv.observation_space[1].low)
     assert tenv.reward_function._violation_value == jenv.reward_function._violation_value
     np.testing.assert_array_equal(tenv.reward_function._weights, jenv.reward_function._weights)
 
 
-@pytest.mark.parametrize("env_id,slice_no", [("Cont-CC-PMSM-v0", 3), ("Finite-TC-PMSM-v0", 3),
+@pytest.mark.parametrize("env_id,slice_no", [("Cont-CC-SCIM-v0", 3), ("Finite-TC-EESM-v0", 3),
                                              ("Finite-CC-PermExDc-v0", 3)])
 def test_unported_ids_raise(env_id, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):

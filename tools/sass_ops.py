@@ -6,10 +6,11 @@ Run on a machine with the CUDA toolkit, from the root of a checkout:
 
     python3 tools/sass_ops.py [kernel ...]
 
-It builds ``csrc/fused_pmsm.cu`` and ``csrc/fused_policy.cu`` (as the
-package does at first use) and prints one JSON line per kernel; a template
-instance is named by a substring of its mangled name, e.g.
-``policy_rollout_kernelILi16ELb0ELb1E`` for H = 16, categorical, Wiener.
+It builds ``csrc/fused_pmsm.cu``, ``csrc/fused_policy.cu`` and
+``csrc/fused_sync.cu`` (as the package does at first use) and prints one
+JSON line per kernel; a template instance is named by a substring of its
+mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1E`` for H = 16,
+categorical, Wiener.
 With no argument it counts the instances of ``STEP_INSTANCES``, whose
 counts ``chip_smoke.py`` takes for its bounds through :func:`step_ops`.
 
@@ -206,6 +207,16 @@ STEP_INSTANCES = {
         "policy_record": "policy_record_kernelILi32E",  # H 32
         "reinforce_rollout": "reinforce_rollout_kernelILi16ELb0ELb1E",
         "reinforce_reduce": "reinforce_reduce_kernel",
+    },
+    # <FINITE, MECH, NREF>: Cont-SC-PMSM-v0 (0, 1, 1) for each kernel, and
+    # Finite-CC-PMSM-v0 (1, 0, 2) for the random ones
+    "fused_sync": {
+        "sync_rollout_random": "sync_rollout_random_kernelILb0ELb1ELi1E",
+        "sync_rollout_buffer": "sync_rollout_buffer_kernelILb0ELb1E",
+        "sync_record_random": "sync_record_random_kernelILb0ELb1ELi1E",
+        "sync_record_buffer": "sync_record_buffer_kernelILb0ELb1E",
+        "sync_rollout_random/Finite-CC-PMSM-v0": "sync_rollout_random_kernelILb1ELb0ELi2E",
+        "sync_record_random/Finite-CC-PMSM-v0": "sync_record_random_kernelILb1ELb0ELi2E",
     },
 }
 
