@@ -70,9 +70,35 @@ Phases (each prints one JSON line; any failure exits non-zero):
             recorder at 1024 steps on both (GB/s); the general path
             (VectorEnv.rollout, random duty) on Cont-SC-PMSM-v0 at 200 steps;
             the launches of phases 14-16 must be exactly what they make
-17. kernels line (all 12 kernels; a policy kernel's launches are the sum
+17. (the rows of slices 1 to 3 of the kernels line, see 22)
+18. dc_kernels  slice 4, the universal DC family (csrc/fused_dc.cu,
+            csrc/fused_dc_record.cu): for each of the 24 {Finite, Cont} x
+            {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc} ids, each
+            of the 4 kernels against its plain version at 16384 envs x 128
+            steps (timed on Cont-SC-ShuntDc-v0, the instance the bounds
+            count); the two random kernels again at 1024 steps on
+            Finite-CC-PermExDc-v0 and Cont-SC-ShuntDc-v0
+19.-21. the slice-4 main path, counted from zero:
+   19. dc_env  for each id, the port's env (VectorEnv's reset, the env's
+            step without autoreset, constant references, an action buffer,
+            16384 envs x 40 steps) against the buffer rollout and the buffer
+            recorder, both reached through the dispatch, rtol 1e-4 /
+            atol 1e-3 (tests/test_pallas_dc_universal.py:83-85)
+   20. dc_dispatch  for each id, make_fused_rollout(env, 200, 16384) and
+            make_fused_record_rollout(env, 200, 16384) must launch exactly
+            dc_rollout_random and dc_record_random once each and no other
+            kernel; output checks as phase 15's
+   21. dc_timings  at 16384 envs: the random rollout at 65536 steps on
+            Finite-CC-PermExDc-v0 with Wiener and with constant references
+            (ConstReference("i", 0.3), bench.py:418-420) and on
+            Cont-SC-ShuntDc-v0; the random recorder at 1024 steps on both
+            ids (GB/s); the general path (VectorEnv.rollout, the random
+            policy of the action space) on Cont-SC-SeriesDc-v0 at 200 steps;
+            the launches of phases 19-21 must be exactly what they make
+22. kernels line (all 16 kernels; a policy kernel's launches are the sum
     over the paths of phases 9-11, listed by path; a sync kernel's those of
-    phases 14-16), the card line, then {"ok": true, "device": {...}}
+    phases 14-16, a DC kernel's those of phases 19-21), the card line,
+    then {"ok": true, "device": {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
 largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
@@ -110,7 +136,7 @@ from pathlib import Path
 N_ENVS = 16384
 T_COMPARE = 256
 T_ENV = 40
-T_GENERAL = 1000
+T_GENERAL = 500         # short enough to keep the whole script near 350 s
 T_ROLLOUT = 65536
 T_RECORD = 1024
 SEED = 7
@@ -137,6 +163,13 @@ SYNC_SPECIALISED = "Finite-CC-PMSM-v0"
 SYNC_REPS = 5                    # timed calls of each main-path timing
 SYNC_CONST_REFS = {"CC": [("i_sd", 0.1), ("i_sq", -0.2)], "TC": [("torque", 0.3)],
                    "SC": [("omega", 0.2)]}
+# slice 4: the 24 DC-family ids
+DC_TIMED = "Cont-SC-ShuntDc-v0"         # the ids whose instances STEP_INSTANCES counts
+DC_BENCH = "Finite-CC-PermExDc-v0"      # bench.py:418-420
+DC_GENERAL = "Cont-SC-SeriesDc-v0"
+DC_CONST_REFS = {"CC": {"PermExDc": [("i", 0.2)], "SeriesDc": [("i", 0.2)],
+                        "ShuntDc": [("i_a", 0.2)], "ExtExDc": [("i_a", 0.2), ("i_e", 0.1)]},
+                 "TC": [("torque", 0.3)], "SC": [("omega", 0.2)]}
 # The pipes a kernel's bound counts, where not all.  Most of REINFORCE's ALU
 # and IMAD instructions are the 64-bit arithmetic of its 2 P trace
 # addresses, recomputed each step (opaque64 in csrc/policy_step.cuh keeps
@@ -252,7 +285,8 @@ def run(dev, card):
     # ---- 2. build --------------------------------------------------------
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = cuda_build.build(["fused_pmsm", "fused_policy", "fused_sync"])
+    libs = cuda_build.build(["fused_pmsm", "fused_policy", "fused_sync", "fused_dc",
+                             "fused_dc_record"])
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
                     for ln in cuda_build.BUILD_LOG.get(name, "").splitlines()
@@ -809,6 +843,7 @@ def run_sync(dev, card, ops):
 
     import gym_electric_motor_tpu_torch as gt
     from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
     from gym_electric_motor_tpu_torch.ops import fused_policy as fp
     from gym_electric_motor_tpu_torch.ops import fused_record as frec
     from gym_electric_motor_tpu_torch.ops import fused_rollout as fr
@@ -851,7 +886,7 @@ def run_sync(dev, card, ops):
         return {"max_abs_err": err, "match_share": m, "mean_reward": mean_k,
                 "mean_reward_rel_err": rel}
 
-    for env_id in gt.ENV_IDS:
+    for env_id in gt.SYNC_ENV_IDS:
         c = sf.SyncConsts(gt.make_functional(env_id, device=dev))
         start, acts = planes(c), actions(c, T_SYNC_COMPARE)
         angle = [j == c.n_state - 1 for j in range(c.n_state)]
@@ -906,10 +941,11 @@ def run_sync(dev, card, ops):
     fs.reset_launches()
     fp.reset_launches()
     sf.reset_launches()
+    dcf.reset_launches()
 
     # 14. the env against the buffer kernels, through the dispatch
     env_rows = {}
-    for env_id in gt.ENV_IDS:
+    for env_id in gt.SYNC_ENV_IDS:
         refs = SYNC_CONST_REFS[env_id.split("-")[1]]
         env_c = gt.make_functional(env_id, device=dev, reference_generator=rg.ReferenceSpec(
             [rg.ConstReference(n, v) for n, v in refs]))
@@ -951,7 +987,7 @@ def run_sync(dev, card, ops):
     # 15. the dispatch: exactly one launch of each random kernel per id
     disp, checks = {}, {}
     sc_kernel_reward = None
-    for env_id in gt.ENV_IDS:
+    for env_id in gt.SYNC_ENV_IDS:
         env = gt.make_functional(env_id, device=dev)
         n_state = fr.fused_state_arity(env)
         z = [torch.zeros((R, 128), device=dev) for _ in range(n_state)]
@@ -960,7 +996,7 @@ def run_sync(dev, card, ops):
         rec = frec.make_fused_record_rollout(env, T_DISPATCH, N)(SEED, *z)
         torch.cuda.synchronize()
         delta = {k: v - before[0][k] for k, v in sf.LAUNCHES.items() if v != before[0][k]}
-        others = (fs.LAUNCHES != before[1]) or (fp.LAUNCHES != before[2])
+        others = (fs.LAUNCHES != before[1]) or (fp.LAUNCHES != before[2]) or any(dcf.LAUNCHES.values())
         if delta != {"sync_rollout_random": 1, "sync_record_random": 1} or others:
             raise AssertionError(f"{env_id}: the dispatch launched {delta} (other kernels: "
                                  f"{others}), expected one sync_rollout_random and one "
@@ -1055,7 +1091,7 @@ def run_sync(dev, card, ops):
         raise AssertionError(f"general path mean reward {gen_mean_r} vs kernel {sc_kernel_reward}")
     # each id once through the env check (buffer) and the dispatch (random);
     # cuda_ms calls twice before its reps, on 2 ids
-    n_ids, timed_calls = len(gt.ENV_IDS), 2 * (2 + SYNC_REPS)
+    n_ids, timed_calls = len(gt.SYNC_ENV_IDS), 2 * (2 + SYNC_REPS)
     want = {"sync_rollout_random": n_ids + timed_calls, "sync_record_random": n_ids + timed_calls,
             "sync_rollout_buffer": n_ids, "sync_record_buffer": n_ids}
     if launches != want:
@@ -1075,9 +1111,315 @@ def run_sync(dev, card, ops):
                "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
                "envs": N, "steps": T_SYNC_COMPARE, "timed_on": SYNC_TIMED,
-               "match_share": share[name], "ids_compared": len(gt.ENV_IDS)}
+               "match_share": share[name], "ids_compared": len(gt.SYNC_ENV_IDS)}
         if name in ("sync_rollout_random", "sync_record_random"):
             main = timings[SYNC_TIMED][name]
+            row.update(main_steps=main["steps"], main_ms=main["ms"], main_bound_ms=main["bound_ms"])
+        line.append(row)
+    return line
+
+
+def dc_bytes(c, kernel, n, steps):
+    """Bytes a DC kernel must move for ``n`` envs and ``steps`` steps: each
+    input once, each output once."""
+    state = 4 * n * c.n_state
+    act = 4 * c.n_ch * n * steps
+    if kernel == "dc_rollout_random":
+        return state + 4 * n * (c.n_state + 2) + 16 * n * c.n_ref
+    if kernel == "dc_rollout_buffer":
+        return 2 * state + act
+    if kernel == "dc_record_random":
+        return state + 4 * n * steps * (c.n_state + c.n_ref + c.n_ch + 2)
+    return state + act + 4 * n * steps * c.n_state
+
+
+def run_dc(dev, card, ops):
+    """Slice 4, the universal DC family: the four kernels of csrc/fused_dc.cu
+    and csrc/fused_dc_record.cu against their plain versions on the 24 ids,
+    then the main path (env against the buffer kernels, the dispatch,
+    timings) with its launches counted from zero.  Returns the DC kernels'
+    rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+    from gym_electric_motor_tpu_torch.ops import fused_record as frec
+    from gym_electric_motor_tpu_torch.ops import fused_rollout as fr
+    from gym_electric_motor_tpu_torch.ops import fused_sync as fs
+    from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
+
+    N, R = N_ENVS, N_ENVS // 128
+    rng = np.random.default_rng(SEED)
+
+    def planes(c):
+        """Speed (under a dynamic load) in [0, 100) rad/s, currents in
+        +-100 A."""
+        w = [rng.uniform(0, 100, (R, 128))] if c.mech else []
+        return [torch.as_tensor(x.astype(np.float32), device=dev)
+                for x in w + [rng.uniform(-100, 100, (R, 128)) for _ in range(c.n_el)]]
+
+    def actions(c, steps):
+        """Finite actions in 0..n-1, continuous ones uniform over the box;
+        (T, [2,] R, 128)."""
+        shape = (steps,) + ((2,) if c.n_ch == 2 else ()) + (R, 128)
+        if c.finite:
+            return torch.as_tensor(rng.integers(0, min(c.act_ns), shape).astype(np.int32),
+                                   device=dev)
+        lo, span = c.f["act_lo0"], c.f["act_span0"]
+        return torch.as_tensor(rng.uniform(lo, lo + span, shape).astype(np.float32), device=dev)
+
+    def env_actions(c, a):
+        """One step of a buffer as the env takes it: (N,), (N, 1) or (N, 2)."""
+        if c.n_ch == 2:
+            return a.reshape(2, N).T.contiguous()
+        return a.reshape(N) if c.finite else a.reshape(N, 1)
+
+    # ---- 18. the four kernels against their plain versions, every id -----
+    worst = dict.fromkeys(dcf.KERNELS, 0.0)
+    share = dict.fromkeys(dcf.KERNELS, 1.0)
+    timed = {}
+
+    def held_random(label, name, c, got, ref):
+        r_idx = c.n_state if name == "dc_rollout_random" else c.n_state + c.n_ref + c.n_ch
+        m, err = env_match(torch, got, ref, [False] * len(got), N)
+        mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
+        rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
+        share[name] = min(share[name], m)
+        worst[name] = max(worst[name], err)
+        if m < 0.999 or rel > 1e-4:
+            raise AssertionError(f"{label} {name}: {m:.5f} of envs match (need 0.999), "
+                                 f"mean reward rel err {rel:.2e} (need 1e-4), max abs err {err}")
+        return {"max_abs_err": err, "match_share": m, "mean_reward": mean_k,
+                "mean_reward_rel_err": rel}
+
+    for env_id in gt.DC_ENV_IDS:
+        c = dcf.DcConsts(gt.make_functional(env_id, device=dev))
+        start, acts = planes(c), actions(c, T_SYNC_COMPARE)
+        cases = {
+            "dc_rollout_buffer": (lambda: dcf.dc_rollout_buffer(c, start, acts),
+                                  lambda: dcf.dc_rollout_buffer_plain(c, start, acts), True),
+            "dc_record_buffer": (lambda: dcf.dc_record_buffer(c, start, acts),
+                                 lambda: dcf.dc_record_buffer_plain(c, start, acts), True),
+            "dc_rollout_random": (
+                lambda: dcf.dc_rollout_random(c, SEED, start, T_SYNC_COMPARE),
+                lambda: dcf.dc_rollout_random_plain(c, SEED, start, T_SYNC_COMPARE), False),
+            "dc_record_random": (
+                lambda: dcf.dc_record_random(c, SEED, start, T_SYNC_COMPARE),
+                lambda: dcf.dc_record_random_plain(c, SEED, start, T_SYNC_COMPARE), False),
+        }
+        row = {"phase": "dc_kernels", "env_id": env_id, "envs": N, "steps": T_SYNC_COMPARE}
+        for name, (kern, plain, buffer) in cases.items():
+            if env_id == DC_TIMED:
+                ms, got = cuda_ms(torch, kern, reps=21)
+                plain_ms, ref = host_ms(torch, plain)
+                b_ms, b_by = bound_ms(N * T_SYNC_COMPARE, ops[name],
+                                      dc_bytes(c, name, N, T_SYNC_COMPARE))
+                timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            else:
+                got = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+            if buffer:
+                err = check_buffer(torch, f"{env_id} {name}", got, ref, [False] * len(got))
+                worst[name] = max(worst[name], err)
+                row[name] = {"max_abs_err": err}
+            else:
+                row[name] = held_random(env_id, name, c, got, ref)
+            del got, ref
+        emit(row)
+
+    # the random kernels again at the recorder's main-path depth
+    deep = {}
+    for env_id in (DC_BENCH, DC_TIMED):
+        c = dcf.DcConsts(gt.make_functional(env_id, device=dev))
+        start = planes(c)
+        for name in ("dc_rollout_random", "dc_record_random"):
+            got = getattr(dcf, name)(c, SEED, start, T_RECORD)
+            torch.cuda.synchronize()
+            ref = getattr(dcf, name + "_plain")(c, SEED, start, T_RECORD)
+            deep[f"{env_id} {name}"] = held_random(env_id, name, c, got, ref)
+            del got, ref
+    emit({"phase": "dc_kernels_deep", "envs": N, "steps": T_RECORD, "results": deep})
+
+    # ---- 19.-21. the main path: counts from zero ---------------------------
+    fs.reset_launches()
+    fp.reset_launches()
+    sf.reset_launches()
+    dcf.reset_launches()
+
+    def others_launched():
+        return any(fs.LAUNCHES.values()) or any(fp.LAUNCHES.values()) \
+            or any(sf.LAUNCHES.values())
+
+    # 19. the env against the buffer kernels, through the dispatch
+    env_rows = {}
+    for env_id in gt.DC_ENV_IDS:
+        _a, task, motor, _v = env_id.split("-")
+        refs = DC_CONST_REFS[task][motor] if task == "CC" else DC_CONST_REFS[task]
+        env_c = gt.make_functional(env_id, device=dev, reference_generator=rg.ReferenceSpec(
+            [rg.ConstReference(n, v) for n, v in refs]))
+        c = dcf.DcConsts(env_c)
+        venv = gt.VectorEnv(env_c, N)
+        state, _obs = venv.reset(SEED)
+        acts = actions(c, T_SYNC_ENV)
+        cols = ([0] if c.mech else []) + [1, 2][:c.n_el]
+        # the kernels start where the env's reset put each env
+        start = [state.phys.ode_state[:, j].reshape(R, 128).contiguous() for j in cols]
+        traj, n_viol = [], 0
+        for t in range(T_SYNC_ENV):
+            state, _obs, _r, term = env_c.step(state, env_actions(c, acts[t]))
+            n_viol += int(term.sum())
+            traj.append(state.phys.ode_state[:, cols])
+        ode = torch.stack(traj)  # (T, N, n_state)
+        k_final = fr.make_fused_rollout(env_c, T_SYNC_ENV, N, action_mode="buffer")(*start, acts)
+        k_traj = frec.make_fused_record_rollout(env_c, T_SYNC_ENV, N,
+                                                action_mode="buffer")(*start, acts)
+        k_traj = [k_traj[name] for name in c.state_names]
+        errs = []
+        for got, want in ((k_final, [ode[-1, :, j].reshape(R, 128) for j in range(c.n_state)]),
+                          (k_traj, [ode[:, :, j].reshape(T_SYNC_ENV, R, 128)
+                                    for j in range(c.n_state)])):
+            err = 0.0
+            for j, (x, y) in enumerate(zip(got, want)):
+                d = (x - y).abs()
+                bad = (d > 1e-3 + 1e-4 * y.abs()) | ~torch.isfinite(x)
+                if bool(bad.any()):
+                    raise AssertionError(f"{env_id}: env vs buffer kernel, state {j} off in "
+                                         f"{int(bad.sum())} elements (max {float(d.max()):.3e})")
+                err = max(err, float(d.max()))
+            errs.append(err)
+        env_rows[env_id] = {"max_abs_err_rollout": errs[0], "max_abs_err_record": errs[1],
+                            "violations_seen": n_viol}
+    emit({"phase": "dc_env", "envs": N, "steps": T_SYNC_ENV, "ids": env_rows})
+
+    # 20. the dispatch: exactly one launch of each random kernel per id
+    disp, checks = {}, {}
+    for env_id in gt.DC_ENV_IDS:
+        env = gt.make_functional(env_id, device=dev)
+        n_state = fr.fused_state_arity(env)
+        z = [torch.zeros((R, 128), device=dev) for _ in range(n_state)]
+        before = dict(dcf.LAUNCHES)
+        roll = fr.make_fused_rollout(env, T_DISPATCH, N)(SEED, *z)
+        rec = frec.make_fused_record_rollout(env, T_DISPATCH, N)(SEED, *z)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in dcf.LAUNCHES.items() if v != before[k]}
+        if delta != {"dc_rollout_random": 1, "dc_record_random": 1} or others_launched():
+            raise AssertionError(f"{env_id}: the dispatch launched {delta} (other kernels: "
+                                 f"{others_launched()}), expected one dc_rollout_random and one "
+                                 "dc_record_random")
+        c = dcf.DcConsts(env)
+        rv = roll[n_state + 2]
+        lo = min(row["mlo"] for row in c.rows)
+        hi = max(row["mhi"] for row in c.rows)
+        lims = [c.f["lim0"], c.f["lim1"]][:c.n_el]
+        ok = {
+            "finite": all(bool(torch.isfinite(x).all()) for x in roll)
+            and all(bool(torch.isfinite(x.float()).all()) for x in rec.values()),
+            "in_current_limits": all(bool((roll[n_state - c.n_el + j].abs() <= lim).all())
+                                     for j, lim in enumerate(lims)),
+            "ref_in_margin": bool(((rv >= lo - 1e-6) & (rv <= hi + 1e-6)).all()),
+            "record_equals_rollout": bool(
+                torch.allclose(rec["reward"].sum(0), roll[n_state], rtol=1e-4, atol=1e-3)
+                and all(torch.equal(rec[nm][-1], roll[j]) for j, nm in enumerate(c.state_names))),
+        }
+        checks[env_id] = ok
+        disp[env_id] = {"launches": delta,
+                        "mean_reward": float(roll[n_state].double().sum()) / (N * T_DISPATCH),
+                        "term_rate": float(roll[n_state + 1].double().sum()) / (N * T_DISPATCH)}
+        del roll, rec
+    emit({"phase": "dc_dispatch", "envs": N, "steps": T_DISPATCH, "ids": disp, "checks": checks})
+    failed = [f"{i}:{k}" for i, ok in checks.items() for k, v in ok.items() if not v]
+    if failed:
+        raise AssertionError(f"DC dispatch output checks failed: {failed}")
+
+    # 21. timings at the bench width
+    timings = {}
+    bench_const = gt.make_functional(DC_BENCH, device=dev,
+                                     reference_generator=rg.ConstReference("i", 0.3))
+    for label, env, key in ((DC_BENCH, gt.make_functional(DC_BENCH, device=dev),
+                             "/" + DC_BENCH),
+                            (DC_BENCH + "/const_i_0.3", bench_const, "/" + DC_BENCH + "/const"),
+                            (DC_TIMED, gt.make_functional(DC_TIMED, device=dev), "")):
+        c = dcf.DcConsts(env)
+        z = [torch.zeros((R, 128), device=dev) for _ in range(c.n_state)]
+        roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
+        r_ms, out = cuda_ms(torch, lambda: roll(SEED, *z), reps=SYNC_REPS)
+        row = {"dc_rollout_random": {
+            "steps": T_ROLLOUT, "ms": r_ms, "env_steps_per_s": N * T_ROLLOUT / (r_ms / 1e3),
+            "bound_ms": bound_ms(N * T_ROLLOUT, ops["dc_rollout_random" + key],
+                                 dc_bytes(c, "dc_rollout_random", N, T_ROLLOUT))[0],
+            "mean_reward": float(out[c.n_state].double().sum()) / (N * T_ROLLOUT),
+            "term_rate": float(out[c.n_state + 1].double().sum()) / (N * T_ROLLOUT),
+            "finite": all(bool(torch.isfinite(x).all()) for x in out)}}
+        if not row["dc_rollout_random"]["finite"]:
+            raise AssertionError(f"{label}: the 65536-step rollout produced non-finite values")
+        if not label.endswith("const_i_0.3"):
+            rec = frec.make_fused_record_rollout(env, T_RECORD, N)
+            c_ms, rec_out = cuda_ms(torch, lambda: rec(SEED, *z), reps=SYNC_REPS)
+            rec_bytes = sum(x.numel() * x.element_size() for x in rec_out.values())
+            row["dc_record_random"] = {
+                "steps": T_RECORD, "ms": c_ms, "bytes_written": rec_bytes,
+                "env_steps_per_s": N * T_RECORD / (c_ms / 1e3),
+                "GB_per_s": rec_bytes / (c_ms / 1e3) / 1e9,
+                "bound_ms": bound_ms(N * T_RECORD, ops["dc_record_random" + key],
+                                     dc_bytes(c, "dc_record_random", N, T_RECORD))[0]}
+            del rec_out
+        timings[label] = row
+        del out
+    env = gt.make_functional(DC_GENERAL, device=dev)
+    venv = gt.VectorEnv(env, N)
+    state, _obs = venv.reset(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    policy = gt.random_policy_for(env)
+    venv.rollout(state, policy, 5, gen)  # warm-up
+    gen_ms, (state, rsum, tsum) = host_ms(
+        torch, lambda: venv.rollout(state, policy, T_SYNC_GENERAL, gen))
+    gen_mean_r = float(rsum.double().sum()) / (N * T_SYNC_GENERAL)
+    kernel_r = disp[DC_GENERAL]["mean_reward"]
+    timings["general_path/" + DC_GENERAL] = {
+        "steps": T_SYNC_GENERAL, "ms": gen_ms,
+        "env_steps_per_s": N * T_SYNC_GENERAL / (gen_ms / 1e3), "mean_reward": gen_mean_r,
+        "term_rate": float(tsum.double().sum()) / (N * T_SYNC_GENERAL),
+        "kernel_mean_reward_200": kernel_r}
+    launches = dict(dcf.LAUNCHES)
+    emit({"phase": "dc_timings", "card": card, "envs": N, "timings": timings,
+          "launches": launches})
+    if not (math.isfinite(gen_mean_r) and bool(torch.isfinite(state.phys.ode_state).all())):
+        raise AssertionError(f"the {DC_GENERAL} general path produced non-finite values")
+    # the same process in distribution: general path vs kernel over 200 steps
+    # from the reset state (the bound of tests/test_pallas_dc_universal.py:113)
+    if not abs(gen_mean_r - kernel_r) < 0.08:
+        raise AssertionError(f"general path mean reward {gen_mean_r} vs kernel {kernel_r}")
+    # each id once through the env check (buffer) and the dispatch (random);
+    # cuda_ms calls twice before its reps: 3 rollout and 2 recorder timings
+    n_ids, per_timing = len(gt.DC_ENV_IDS), 2 + SYNC_REPS
+    want = {"dc_rollout_random": n_ids + 3 * per_timing,
+            "dc_record_random": n_ids + 2 * per_timing,
+            "dc_rollout_buffer": n_ids, "dc_record_buffer": n_ids}
+    if launches != want or others_launched():
+        raise AssertionError(f"DC kernels on the main path launched {launches} (other kernels: "
+                             f"{others_launched()}), expected {want}")
+
+    # ---- kernels line rows ---------------------------------------------------
+    replaces = {"dc_rollout_random": "gym_electric_motor_tpu/ops/pallas_dc.py:1266",
+                "dc_rollout_buffer": "gym_electric_motor_tpu/ops/pallas_dc.py:1240",
+                "dc_record_random": "gym_electric_motor_tpu/ops/pallas_record.py:303",
+                "dc_record_buffer": "gym_electric_motor_tpu/ops/pallas_record.py:147"}
+    line = []
+    for name in dcf.KERNELS:
+        t = timed[name]
+        row = {"name": name, "route": "cuda",
+               "source": f"gym_electric_motor_tpu_torch/csrc/{dcf.LIBRARY[name]}.cu",
+               "replaces": replaces[name], "launches": launches[name],
+               "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+               "envs": N, "steps": T_SYNC_COMPARE, "timed_on": DC_TIMED,
+               "match_share": share[name], "ids_compared": len(gt.DC_ENV_IDS)}
+        if name in ("dc_rollout_random", "dc_record_random"):
+            main = timings[DC_TIMED][name]
             row.update(main_steps=main["steps"], main_ms=main["ms"], main_bound_ms=main["bound_ms"])
         line.append(row)
     return line
@@ -1100,11 +1442,23 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    line, ops = run(dev, card)
-    line += run_rl(dev, card, ops)
-    line += run_sync(dev, card, ops)
+    clock = [time.perf_counter()]
 
-    # ---- 17. kernels line, card and result --------------------------------
+    def lap():
+        clock.append(time.perf_counter())
+        return clock[-1] - clock[-2]
+
+    line, ops = run(dev, card)
+    seconds = {"slice_1": lap()}
+    line += run_rl(dev, card, ops)
+    seconds["slice_2"] = lap()
+    line += run_sync(dev, card, ops)
+    seconds["slice_3"] = lap()
+    line += run_dc(dev, card, ops)
+    seconds["slice_4"] = lap()
+    emit({"phase": "elapsed", "seconds": seconds, "total": clock[-1] - clock[0]})
+
+    # ---- 22. kernels line, card and result --------------------------------
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

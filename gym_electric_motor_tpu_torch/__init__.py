@@ -10,13 +10,16 @@ imports neither ``jax`` nor ``gym_electric_motor_tpu``.
 
 __version__ = "0.1.0"
 
-from . import constraints, core, ops, physical_systems, references, rewards
-from .core import (ElectricMotorEnvironment, VectorEnv, random_cont_policy, random_policy,
+from . import constraints, core, ops, physical_systems, references, rewards, wrappers
+from .core import (ElectricMotorEnvironment, VectorEnv, random_box_policy, random_cont_policy,
+                   random_multidiscrete_policy, random_policy, random_policy_for,
                    state_from_numpy)
-from .envs import ENV_IDS, make, make_functional
+from .envs import DC_ENV_IDS, ENV_IDS, SYNC_ENV_IDS, make, make_functional
 
 __all__ = [
+    "DC_ENV_IDS",
     "ENV_IDS",
+    "SYNC_ENV_IDS",
     "ElectricMotorEnvironment",
     "VectorEnv",
     "constraints",
@@ -25,9 +28,13 @@ __all__ = [
     "make_functional",
     "ops",
     "physical_systems",
+    "random_box_policy",
     "random_cont_policy",
+    "random_multidiscrete_policy",
     "random_policy",
+    "random_policy_for",
     "references",
     "rewards",
     "state_from_numpy",
+    "wrappers",
 ]

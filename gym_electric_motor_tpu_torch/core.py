@@ -26,6 +26,7 @@ from .physical_systems import PhysicsState
 from .references import ReferenceSpec, ScalarRefSpec
 from .rewards import WeightedSumOfErrors
 from .utils import rng
+from .utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
 # Minimal space descriptors (gymnasium-compatible but dependency-free)
@@ -68,10 +69,31 @@ class Box:
         return np.asarray(self.low).shape
 
 
+@dataclasses.dataclass
+class MultiDiscrete:
+    """One discrete choice per sub-converter (the ExtExDc multi converter)."""
+
+    nvec: tuple
+
+    def sample(self, rng=None):
+        rng = rng or np.random.default_rng()
+        return np.array([rng.integers(n) for n in self.nvec], dtype=np.int64)
+
+    def contains(self, x):
+        x = np.asarray(x)
+        return x.shape == (len(self.nvec),) and bool(np.all((x >= 0) & (x < np.asarray(self.nvec))))
+
+    @property
+    def shape(self):
+        return (len(self.nvec),)
+
+
 def make_space(descriptor):
     kind = descriptor[0]
     if kind == "discrete":
         return Discrete(descriptor[1])
+    if kind == "multidiscrete":
+        return MultiDiscrete(tuple(int(n) for n in descriptor[1]))
     if kind == "box":
         return Box(np.asarray(descriptor[1]), np.asarray(descriptor[2]))
     raise ValueError(descriptor)
@@ -121,7 +143,7 @@ class ElectricMotorEnvironment:
         device=None,
     ):
         self.physical_system = ps = physical_system
-        self.device = torch.device(device) if device is not None else None
+        self.device = resolve_device(device)
         if isinstance(reference_generator, ScalarRefSpec):
             reference_generator = ReferenceSpec([reference_generator])
         self.reference_generator = reference_generator.bind(
@@ -268,6 +290,43 @@ def random_cont_policy(n_dims: int):
         return 2.0 * u - 1.0
 
     return policy_fn
+
+
+def random_multidiscrete_policy(nvec):
+    """``policy_fn(obs, generator) -> (N, len(nvec))`` int64, column ``k``
+    uniform over ``nvec[k]`` (the ExtExDc multi converter)."""
+    def policy_fn(obs, generator):
+        state = obs[0]
+        return torch.stack([torch.randint(0, int(n), (state.shape[0],), generator=generator,
+                                          device=state.device) for n in nvec], dim=1)
+
+    return policy_fn
+
+
+def random_box_policy(low, high):
+    """``policy_fn(obs, generator) -> (N, n_dims)`` float32 uniform in the
+    box [low, high): [0, 1) for the continuous 1QC and 2QC, [-1, 1) for the
+    4QC and the B6 bridge."""
+    low = np.asarray(low, dtype=np.float32)
+    span = np.asarray(high, dtype=np.float32) - low
+
+    def policy_fn(obs, generator):
+        state = obs[0]
+        u = torch.rand((state.shape[0], len(low)), generator=generator, device=state.device)
+        return (torch.as_tensor(low, device=state.device)
+                + torch.as_tensor(span, device=state.device) * u)
+
+    return policy_fn
+
+
+def random_policy_for(env):
+    """The uniform random policy over ``env``'s action space."""
+    space = env.action_space
+    if isinstance(space, Discrete):
+        return random_policy(space.n)
+    if isinstance(space, MultiDiscrete):
+        return random_multidiscrete_policy(space.nvec)
+    return random_box_policy(space.low, space.high)
 
 
 class VectorEnv:

@@ -1,0 +1,167 @@
+// The machinery the universal family steps share (sync_step.cuh for PMSM /
+// SynRM, dc_step.cuh for the DC motors): the Philox draw slots, the
+// reference rows with their Wiener process, the Box-Muller pair and the WSE
+// reward at power 1, and the polynomial static load.
+//
+// Replaces the parts of gym_electric_motor_tpu/ops/pallas_common.py that the
+// universal builders call: _make_wiener (:1095-1443, 'wiener' and 'const'
+// rows: the n_ref = 2 spatial Box-Muller pair and the n_ref = 1 temporal
+// pair :1379-1404), _wse_err (:912-925, power 1) and _make_fused_mech's
+// 'poly' mode (:662-689).  The plain PyTorch version of the same
+// arithmetic, in the same order, is in
+// gym_electric_motor_tpu_torch/ops/fused_common.py (wiener_init,
+// reference_step, wse_err, poly_load_rhs).
+#pragma once
+
+#include <cstdint>
+
+#include "philox.cuh"
+
+// Per reference row (one referenced state).
+enum RefRowIndex {
+  R_COEF = 0,    // WSE weight / state length
+  R_INV_LIM,     // 1 / limit of the referenced state
+  R_MLO,         // margins of the reference value
+  R_MHI,
+  R_EP_LO,       // sub-episode length ~ floor(U[ep_lo, ep_lo + ep_span))
+  R_EP_SPAN,
+  R_SIG_BASE,    // sigma = 10^(sig_base + sig_span * U)
+  R_SIG_SPAN,
+  N_ROW_CONST
+};
+
+// The reference constants of one env, as float32 from the host.
+struct RefConst {
+  float row[2][N_ROW_CONST];
+  float two_pi, ln10;
+  float u_min;     // guard before the Box-Muller log
+  int all_const;   // every reference constant: no reference draws at all
+};
+
+// Draw slots of the universal families: the Philox counter of one call is
+// (env, step, slot, 0), with the numbering of pmsm_step.cuh's PmsmSlot.
+enum DriveSlot {
+  DRIVE_SLOT_STEP = 0,      // (action 0, box-muller u1, box-muller u2, action 1)
+  DRIVE_SLOT_PARAMS = 1,    // (length row 0, length row 1, sigma row 0, sigma row 1)
+  DRIVE_SLOT_RESET = 2,     // (reset value row 0, reset value row 1, -, -)
+  DRIVE_SLOT_INIT_A = 3,    // at step 0: (value row 0, value row 1, length row 0, length row 1)
+  DRIVE_SLOT_INIT_B = 4,    // at step 0: (sigma row 0, sigma row 1, -, -)
+  DRIVE_SLOT_ACTION_C = 8   // the B6 bridge's third duty: (action 2, -, -, -)
+};
+
+__device__ __forceinline__ uint4 drive_draw(uint2 key, uint32_t env, uint32_t t, uint32_t slot) {
+  return philox4x32_10(make_uint4(env, t, slot, 0u), key);
+}
+
+// The reference rows of one env: value, steps since regeneration, sub-
+// episode length, sigma; zb carries the sine half of a single reference's
+// Box-Muller pair to the next (odd) step.
+template <int NREF>
+struct RefRows {
+  float rv[NREF], rk[NREF], rl[NREF], rs[NREF];
+  float zb;
+};
+
+__device__ __forceinline__ void ref_params(const RefConst& k, int r, uint32_t b_len,
+                                           uint32_t b_sig, float& rl, float& rs) {
+  rl = floorf(k.row[r][R_EP_LO] + k.row[r][R_EP_SPAN] * uniform24(b_len));
+  rs = expf(k.ln10 * (k.row[r][R_SIG_BASE] + k.row[r][R_SIG_SPAN] * uniform24(b_sig)));
+}
+
+__device__ __forceinline__ float ref_uniform_value(const RefConst& k, int r, uint32_t b) {
+  return k.row[r][R_MLO] + (k.row[r][R_MHI] - k.row[r][R_MLO]) * uniform24(b);
+}
+
+// The reference rows at step 0.  All-constant references draw nothing.
+template <int NREF>
+__device__ __forceinline__ void ref_wiener_init(const RefConst& k, uint2 key, uint32_t env,
+                                                RefRows<NREF>& refs) {
+  refs.zb = 0.0f;
+  if (k.all_const) {
+#pragma unroll
+    for (int r = 0; r < NREF; ++r) {
+      refs.rv[r] = k.row[r][R_MLO];
+      refs.rk[r] = 0.0f;
+      refs.rl[r] = 1e9f;
+      refs.rs[r] = 0.0f;
+    }
+    return;
+  }
+  const uint4 a = drive_draw(key, env, 0u, DRIVE_SLOT_INIT_A);
+  const uint4 b = drive_draw(key, env, 0u, DRIVE_SLOT_INIT_B);
+#pragma unroll
+  for (int r = 0; r < NREF; ++r) {
+    refs.rv[r] = ref_uniform_value(k, r, r ? a.y : a.x);
+    refs.rk[r] = 0.0f;
+    ref_params(k, r, r ? a.w : a.z, r ? b.y : b.x, refs.rl[r], refs.rs[r]);
+  }
+}
+
+// The Wiener advance of every row: the step's Box-Muller pair (w.y, w.z)
+// feeds both rows (n_ref = 2) or, for one row, is drawn at even steps and
+// its cosine used there, its sine at the next odd step.  Sub-episode
+// regeneration and the reset value of a violating env draw their slots only
+// where they are used.
+template <int NREF>
+__device__ __forceinline__ void ref_wiener_advance(const RefConst& k, uint2 key, uint32_t env,
+                                                   uint32_t t, uint4 w, bool violated,
+                                                   RefRows<NREF>& refs) {
+  float draw[NREF];
+  if (NREF == 2 || (t & 1u) == 0u) {
+    const float rad = sqrtf(-2.0f * logf(fmaxf(uniform24(w.y), k.u_min)));
+    const float theta = k.two_pi * uniform24(w.z);
+    draw[0] = rad * cosf(theta);
+    if (NREF == 2) {
+      draw[NREF - 1] = rad * sinf(theta);
+    } else {
+      refs.zb = rad * sinf(theta);
+    }
+  } else {
+    draw[0] = refs.zb;
+  }
+  bool regen[NREF];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < NREF; ++r) {
+    regen[r] = (refs.rk[r] >= refs.rl[r]) || violated;
+    any = any || regen[r];
+  }
+  if (any) {
+    const uint4 p = drive_draw(key, env, t, DRIVE_SLOT_PARAMS);
+#pragma unroll
+    for (int r = 0; r < NREF; ++r) {
+      if (regen[r]) ref_params(k, r, r ? p.y : p.x, r ? p.w : p.z, refs.rl[r], refs.rs[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < NREF; ++r) {
+    refs.rk[r] = (regen[r] ? 0.0f : refs.rk[r]) + 1.0f;
+    refs.rv[r] = fminf(fmaxf(refs.rv[r] + refs.rs[r] * draw[r], k.row[r][R_MLO]), k.row[r][R_MHI]);
+  }
+  if (violated) {
+    const uint4 q = drive_draw(key, env, t, DRIVE_SLOT_RESET);
+#pragma unroll
+    for (int r = 0; r < NREF; ++r) refs.rv[r] = ref_uniform_value(k, r, r ? q.y : q.x);
+  }
+}
+
+// The WSE reward at power 1 against the pre-advance references: bias minus
+// coef * |q - ref| per row (q1 is read with two rows only).
+template <int NREF>
+__device__ __forceinline__ float ref_wse(const RefConst& k, float bias, float q0, float q1,
+                                         const RefRows<NREF>& refs) {
+  float wse = bias - k.row[0][R_COEF] * fabsf(q0 - refs.rv[0]);
+  if (NREF == 2) wse = wse - k.row[1][R_COEF] * fabsf(q1 - refs.rv[NREF - 1]);
+  return wse;
+}
+
+// PolynomialStaticLoad: d omega / dt with the a-term linearised below
+// omega_lin.  The sign is written out: 0 at w = 0, as jnp.sign.
+__device__ __forceinline__ float poly_load_rhs(float load_a, float load_b, float load_c,
+                                               float omega_lin, float jt_over_td, float inv_jt,
+                                               float w, float t_e) {
+  const float sign = w > 0.0f ? 1.0f : (w < 0.0f ? -1.0f : 0.0f);
+  const float a_term = fabsf(w) > omega_lin ? sign * load_a : jt_over_td * w;
+  const float t_load = sign * load_c * w * w + load_b * w + a_term;
+  return (t_e - t_load) * inv_jt;
+}

@@ -91,7 +91,7 @@ __device__ __forceinline__ SyncAction read_action(const int* __restrict__ act_i,
 template <bool FINITE, bool MECH, int NREF, bool WIENER>
 __device__ __forceinline__ void rollout_random_loop(const SyncConst& k, uint2 key, int e,
                                                     int n_steps, SyncState& x, float& c, float& s,
-                                                    SyncRefs<NREF>& refs, float& reward,
+                                                    RefRows<NREF>& refs, float& reward,
                                                     float& terms) {
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
@@ -122,8 +122,8 @@ __global__ void sync_rollout_random_kernel(SyncConst k, uint2 key, int n, int n_
     c = cosf(x.eps);
     s = sinf(x.eps);
   }
-  SyncRefs<NREF> refs;
-  sync_wiener_init<NREF>(k, key, (uint32_t)e, refs);
+  RefRows<NREF> refs;
+  ref_wiener_init<NREF>(k.ref, key, (uint32_t)e, refs);
   float reward = 0.0f, terms = 0.0f;
   if (k.flag[F_ALL_CONST]) {
     rollout_random_loop<FINITE, MECH, NREF, false>(k, key, e, n_steps, x, c, s, refs, reward, terms);
@@ -174,7 +174,7 @@ struct RecordOut {
 template <bool FINITE, bool MECH, int NREF, bool WIENER>
 __device__ __forceinline__ void record_random_loop(const SyncConst& k, uint2 key, int e, int n,
                                                    int n_steps, SyncState& x, float& c, float& s,
-                                                   SyncRefs<NREF>& refs, const RecordOut& o) {
+                                                   RefRows<NREF>& refs, const RecordOut& o) {
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
     const SyncStepOut r =
@@ -209,8 +209,8 @@ __global__ void sync_record_random_kernel(SyncConst k, uint2 key, int n, int n_s
     c = cosf(x.eps);
     s = sinf(x.eps);
   }
-  SyncRefs<NREF> refs;
-  sync_wiener_init<NREF>(k, key, (uint32_t)e, refs);
+  RefRows<NREF> refs;
+  ref_wiener_init<NREF>(k.ref, key, (uint32_t)e, refs);
   if (k.flag[F_ALL_CONST]) {
     record_random_loop<FINITE, MECH, NREF, false>(k, key, e, n, n_steps, x, c, s, refs, o);
   } else {
@@ -243,9 +243,13 @@ SyncConst load_const(const float* host, const int* flags) {
   SyncConst k;
   for (int i = 0; i < N_SYNC_CONST; ++i) k.v[i] = host[i];
   for (int r = 0; r < 2; ++r) {
-    for (int j = 0; j < N_ROW_CONST; ++j) k.row[r][j] = host[N_SYNC_CONST + r * N_ROW_CONST + j];
+    for (int j = 0; j < N_ROW_CONST; ++j) k.ref.row[r][j] = host[N_SYNC_CONST + r * N_ROW_CONST + j];
   }
+  k.ref.two_pi = host[S_TWO_PI];
+  k.ref.ln10 = host[S_LN10];
+  k.ref.u_min = host[S_U_MIN];
   for (int i = 0; i < N_SYNC_FLAG; ++i) k.flag[i] = flags[i];
+  k.ref.all_const = flags[F_ALL_CONST];
   return k;
 }
 

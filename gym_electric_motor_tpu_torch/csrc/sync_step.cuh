@@ -8,11 +8,10 @@
 // :661-671 and :765-768, the constraint :870-876, the reference quantities
 // :787-796) with the machinery of ops/pallas_common.py that it calls:
 // _make_b6 (:773-821, finite, and cont with no interlock), _make_fused_mech
-// (:638-746, 'const' and 'poly'), _make_fused_supply (:502, 'ideal'),
-// _wse_err (:912-925, power 1), _rotation_protocol (:1476-1494) and
-// _make_wiener (:1095-1443, 'wiener' and 'const' rows: the n_ref = 2 spatial
-// Box-Muller pair and the n_ref = 1 temporal pair :1379-1404).  The plain
-// PyTorch version of the same arithmetic, in the same order, is
+// (:638-746, 'const'), _make_fused_supply (:502, 'ideal') and
+// _rotation_protocol (:1476-1494); the reference machinery, the WSE reward
+// and the polynomial load are common_step.cuh's.  The plain PyTorch version
+// of the same arithmetic, in the same order, is
 // gym_electric_motor_tpu_torch/ops/fused_sync_family.py.
 //
 // Every float constant (motor, load, converter, reward and reference
@@ -24,7 +23,7 @@
 
 #include <cstdint>
 
-#include "philox.cuh"
+#include "common_step.cuh"
 
 enum SyncConstIndex {
   S_U_SUP = 0,         // supply voltage
@@ -66,19 +65,6 @@ enum SyncConstIndex {
   N_SYNC_CONST
 };
 
-// Per reference row (one referenced state).
-enum SyncRowIndex {
-  R_COEF = 0,    // WSE weight / state length
-  R_INV_LIM,     // 1 / limit of the referenced state
-  R_MLO,         // margins of the reference value
-  R_MHI,
-  R_EP_LO,       // sub-episode length ~ floor(U[ep_lo, ep_lo + ep_span))
-  R_EP_SPAN,
-  R_SIG_BASE,    // sigma = 10^(sig_base + sig_span * U)
-  R_SIG_SPAN,
-  N_ROW_CONST
-};
-
 // What a reference row refers to (the referenced quantity's code).
 enum SyncQuantity { Q_I_SD = 0, Q_I_SQ, Q_TORQUE, Q_OMEGA };
 
@@ -95,24 +81,9 @@ enum SyncFlag {
 
 struct SyncConst {
   float v[N_SYNC_CONST];
-  float row[2][N_ROW_CONST];
+  RefConst ref;   // the reference rows; two_pi, ln10 and u_min repeat S_TWO_PI, S_LN10, S_U_MIN
   int flag[N_SYNC_FLAG];
 };
-
-// Draw slots of the synchronous family: the Philox counter of one call is
-// (env, step, slot, 0), with the numbering of pmsm_step.cuh's PmsmSlot.
-enum SyncSlot {
-  SYNC_SLOT_STEP = 0,      // (action 0, box-muller u1, box-muller u2, action 1)
-  SYNC_SLOT_PARAMS = 1,    // (length row 0, length row 1, sigma row 0, sigma row 1)
-  SYNC_SLOT_RESET = 2,     // (reset value row 0, reset value row 1, -, -)
-  SYNC_SLOT_INIT_A = 3,    // at step 0: (value row 0, value row 1, length row 0, length row 1)
-  SYNC_SLOT_INIT_B = 4,    // at step 0: (sigma row 0, sigma row 1, -, -)
-  SYNC_SLOT_ACTION_C = 8   // continuous converter: (action 2, -, -, -)
-};
-
-__device__ __forceinline__ uint4 sync_draw(uint2 key, uint32_t env, uint32_t t, uint32_t slot) {
-  return philox4x32_10(make_uint4(env, t, slot, 0u), key);
-}
 
 // The drive state of one env; w is unused at constant speed.
 struct SyncState {
@@ -129,13 +100,9 @@ __device__ __forceinline__ float sync_torque(const SyncConst& k, float i_sd, flo
   return k.v[S_TQ_GAIN] * (k.v[S_PSI_P] + k.v[S_LD_MINUS_LQ] * i_sd) * i_sq;
 }
 
-// PolynomialStaticLoad: d omega / dt with the a-term linearised below
-// omega_lin.  The sign is written out: 0 at w = 0, as jnp.sign.
 __device__ __forceinline__ float poly_rhs(const SyncConst& k, float w, float t_e) {
-  const float sign = w > 0.0f ? 1.0f : (w < 0.0f ? -1.0f : 0.0f);
-  const float a_term = fabsf(w) > k.v[S_OMEGA_LIN] ? sign * k.v[S_LOAD_A] : k.v[S_JT_OVER_TD] * w;
-  const float t_load = sign * k.v[S_LOAD_C] * w * w + k.v[S_LOAD_B] * w + a_term;
-  return (t_e - t_load) * k.v[S_INV_JT];
+  return poly_load_rhs(k.v[S_LOAD_A], k.v[S_LOAD_B], k.v[S_LOAD_C], k.v[S_OMEGA_LIN],
+                       k.v[S_JT_OVER_TD], k.v[S_INV_JT], w, t_e);
 }
 
 // The dq current ODE; at constant speed the speed products are constants.
@@ -216,106 +183,14 @@ __device__ __forceinline__ float sync_quantity(const SyncConst& k, int row, cons
   q = code == Q_I_SQ ? x.i_sq : q;
   q = code == Q_TORQUE ? tq : q;
   q = code == Q_OMEGA ? x.w : q;
-  return q * k.row[row][R_INV_LIM];
+  return q * k.ref.row[row][R_INV_LIM];
 }
-
-// The reference rows of one env: value, steps since regeneration, sub-
-// episode length, sigma; zb carries the sine half of a single reference's
-// Box-Muller pair to the next (odd) step.
-template <int NREF>
-struct SyncRefs {
-  float rv[NREF], rk[NREF], rl[NREF], rs[NREF];
-  float zb;
-};
 
 struct SyncStepOut {
   SyncAction act;
   float reward, done;
   float ref[2];   // the references the reward was taken against
 };
-
-__device__ __forceinline__ void sync_params(const SyncConst& k, int r, uint32_t b_len,
-                                            uint32_t b_sig, float& rl, float& rs) {
-  rl = floorf(k.row[r][R_EP_LO] + k.row[r][R_EP_SPAN] * uniform24(b_len));
-  rs = expf(k.v[S_LN10] * (k.row[r][R_SIG_BASE] + k.row[r][R_SIG_SPAN] * uniform24(b_sig)));
-}
-
-__device__ __forceinline__ float sync_uniform_value(const SyncConst& k, int r, uint32_t b) {
-  return k.row[r][R_MLO] + (k.row[r][R_MHI] - k.row[r][R_MLO]) * uniform24(b);
-}
-
-// The reference rows at step 0.  All-constant references draw nothing.
-template <int NREF>
-__device__ __forceinline__ void sync_wiener_init(const SyncConst& k, uint2 key, uint32_t env,
-                                                 SyncRefs<NREF>& refs) {
-  refs.zb = 0.0f;
-  if (k.flag[F_ALL_CONST]) {
-#pragma unroll
-    for (int r = 0; r < NREF; ++r) {
-      refs.rv[r] = k.row[r][R_MLO];
-      refs.rk[r] = 0.0f;
-      refs.rl[r] = 1e9f;
-      refs.rs[r] = 0.0f;
-    }
-    return;
-  }
-  const uint4 a = sync_draw(key, env, 0u, SYNC_SLOT_INIT_A);
-  const uint4 b = sync_draw(key, env, 0u, SYNC_SLOT_INIT_B);
-#pragma unroll
-  for (int r = 0; r < NREF; ++r) {
-    refs.rv[r] = sync_uniform_value(k, r, r ? a.y : a.x);
-    refs.rk[r] = 0.0f;
-    sync_params(k, r, r ? a.w : a.z, r ? b.y : b.x, refs.rl[r], refs.rs[r]);
-  }
-}
-
-// The Wiener advance of every row: the step's Box-Muller pair (w.y, w.z)
-// feeds both rows (n_ref = 2) or, for one row, is drawn at even steps and
-// its cosine used there, its sine at the next odd step.  Sub-episode
-// regeneration and the reset value of a violating env draw their slots only
-// where they are used.
-template <int NREF>
-__device__ __forceinline__ void sync_wiener_advance(const SyncConst& k, uint2 key, uint32_t env,
-                                                    uint32_t t, uint4 w, bool violated,
-                                                    SyncRefs<NREF>& refs) {
-  float draw[NREF];
-  if (NREF == 2 || (t & 1u) == 0u) {
-    const float rad = sqrtf(-2.0f * logf(fmaxf(uniform24(w.y), k.v[S_U_MIN])));
-    const float theta = k.v[S_TWO_PI] * uniform24(w.z);
-    draw[0] = rad * cosf(theta);
-    if (NREF == 2) {
-      draw[NREF - 1] = rad * sinf(theta);
-    } else {
-      refs.zb = rad * sinf(theta);
-    }
-  } else {
-    draw[0] = refs.zb;
-  }
-  bool regen[NREF];
-  bool any = false;
-#pragma unroll
-  for (int r = 0; r < NREF; ++r) {
-    regen[r] = (refs.rk[r] >= refs.rl[r]) || violated;
-    any = any || regen[r];
-  }
-  if (any) {
-    const uint4 p = sync_draw(key, env, t, SYNC_SLOT_PARAMS);
-#pragma unroll
-    for (int r = 0; r < NREF; ++r) {
-      if (regen[r]) sync_params(k, r, r ? p.y : p.x, r ? p.w : p.z, refs.rl[r], refs.rs[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < NREF; ++r) {
-    refs.rk[r] = (regen[r] ? 0.0f : refs.rk[r]) + 1.0f;
-    refs.rv[r] = fminf(fmaxf(refs.rv[r] + refs.rs[r] * draw[r], k.row[r][R_MLO]), k.row[r][R_MHI]);
-  }
-  if (violated) {
-    const uint4 q = sync_draw(key, env, t, SYNC_SLOT_RESET);
-#pragma unroll
-    for (int r = 0; r < NREF; ++r) refs.rv[r] = sync_uniform_value(k, r, r ? q.y : q.x);
-  }
-}
 
 // One step under an action: physics, constraint, WSE reward against the
 // pre-advance references, reset of a violating env and, at constant speed,
@@ -325,7 +200,7 @@ __device__ __forceinline__ void sync_wiener_advance(const SyncConst& k, uint2 ke
 template <bool FINITE, bool MECH, int NREF>
 __device__ __forceinline__ SyncStepOut sync_action_step(const SyncConst& k, const SyncAction& act,
                                                         SyncState& x, float& c, float& s,
-                                                        const SyncRefs<NREF>& refs) {
+                                                        const RefRows<NREF>& refs) {
   SyncStepOut out;
   out.act = act;
   SyncState y = x;
@@ -333,10 +208,8 @@ __device__ __forceinline__ SyncStepOut sync_action_step(const SyncConst& k, cons
   const float i_sd_n = y.i_sd * k.v[S_INV_I_LIM];
   const float i_sq_n = y.i_sq * k.v[S_INV_I_LIM];
   const bool violated = !k.flag[F_NO_CONS] && (i_sd_n * i_sd_n + i_sq_n * i_sq_n) > 1.0f;
-  float wse = k.v[S_BIAS] - k.row[0][R_COEF] * fabsf(sync_quantity(k, 0, y) - refs.rv[0]);
-  if (NREF == 2) {
-    wse = wse - k.row[1][R_COEF] * fabsf(sync_quantity(k, 1, y) - refs.rv[NREF - 1]);
-  }
+  const float wse = ref_wse<NREF>(k.ref, k.v[S_BIAS], sync_quantity(k, 0, y),
+                                  NREF == 2 ? sync_quantity(k, 1, y) : 0.0f, refs);
   out.reward = violated ? k.v[S_VIOLATION_REWARD] : wse;
   out.done = violated ? 1.0f : 0.0f;
   out.ref[0] = refs.rv[0];
@@ -361,8 +234,8 @@ __device__ __forceinline__ SyncStepOut sync_action_step(const SyncConst& k, cons
 template <bool FINITE, bool MECH, int NREF, bool WIENER>
 __device__ __forceinline__ SyncStepOut sync_random_step(const SyncConst& k, uint2 key, uint32_t env,
                                                         uint32_t t, SyncState& x, float& c,
-                                                        float& s, SyncRefs<NREF>& refs) {
-  const uint4 w = sync_draw(key, env, t, SYNC_SLOT_STEP);
+                                                        float& s, RefRows<NREF>& refs) {
+  const uint4 w = drive_draw(key, env, t, DRIVE_SLOT_STEP);
   SyncAction act;
   if (FINITE) {
     act.bits = (int)(w.x & 7u);
@@ -371,13 +244,13 @@ __device__ __forceinline__ SyncStepOut sync_random_step(const SyncConst& k, uint
     act.bits = 0;
     act.a = 2.0f * uniform24(w.x) - 1.0f;
     act.b = 2.0f * uniform24(w.w) - 1.0f;
-    act.c = 2.0f * uniform24(sync_draw(key, env, t, SYNC_SLOT_ACTION_C).x) - 1.0f;
+    act.c = 2.0f * uniform24(drive_draw(key, env, t, DRIVE_SLOT_ACTION_C).x) - 1.0f;
   }
   if (MECH) {
     c = cosf(x.eps);
     s = sinf(x.eps);
   }
   const SyncStepOut out = sync_action_step<FINITE, MECH, NREF>(k, act, x, c, s, refs);
-  if (WIENER) sync_wiener_advance<NREF>(k, key, env, t, w, out.done != 0.0f, refs);
+  if (WIENER) ref_wiener_advance<NREF>(k.ref, key, env, t, w, out.done != 0.0f, refs);
   return out;
 }

@@ -1,11 +1,12 @@
 """Environment catalog (counterpart of ``gym_electric_motor_tpu/envs/catalog.py``).
 
 The env-id grammar is ``{Finite|Cont}-{CC|TC|SC}-{Motor}-v0``.  This
-package serves the twelve synchronous ids (``{Finite, Cont} x {CC, TC, SC}
-x {PMSM, SynRM}``) so far; every other id of the JAX catalog raises
+package serves the 36 ids of the DC and synchronous families (``{Finite,
+Cont} x {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc, PMSM,
+SynRM}``) so far; every other id of the JAX catalog raises
 ``NotImplementedError`` naming the step of queue 1, slice 3 of the port
 that brings it.  The default tables below are this package's own copy of
-the PMSM and SynRM rows of the JAX package's tables.
+the DC, PMSM and SynRM rows of the JAX package's tables.
 """
 
 from __future__ import annotations
@@ -13,33 +14,57 @@ from __future__ import annotations
 import torch
 
 from .. import references as rg
-from ..constraints import SquaredConstraint
+from ..constraints import LimitConstraint, SquaredConstraint
 from ..core import ElectricMotorEnvironment, VectorEnv
 from ..models import converters as cv
 from ..models import loads as ld
 from ..models import motors as mt
 from ..models import supplies as sp
-from ..physical_systems import SynchronousMotorSystem
+from ..physical_systems import DcMotorSystem, SynchronousMotorSystem
 from ..rewards import WeightedSumOfErrors
+from ..utils.device import resolve_device
+from ..wrappers import CurrentSumProcessor, apply_wrappers
 
 _MOTORS = ["PermExDc", "ExtExDc", "SeriesDc", "ShuntDc", "PMSM", "EESM", "SynRM", "SCIM", "DFIM", "SRM"]
 _TASKS = ["CC", "TC", "SC"]
 _ACTIONS = ["Finite", "Cont"]
+_DC_MOTORS = ["PermExDc", "ExtExDc", "SeriesDc", "ShuntDc"]
 _SYNC_MOTORS = ["PMSM", "SynRM"]
 
-ENV_IDS = [f"{a}-{t}-{m}-v0" for m in _SYNC_MOTORS for t in _TASKS for a in _ACTIONS]
+DC_ENV_IDS = [f"{a}-{t}-{m}-v0" for m in _DC_MOTORS for t in _TASKS for a in _ACTIONS]
+SYNC_ENV_IDS = [f"{a}-{t}-{m}-v0" for m in _SYNC_MOTORS for t in _TASKS for a in _ACTIONS]
+ENV_IDS = DC_ENV_IDS + SYNC_ENV_IDS
 
 # the step of queue 1, slice 3 that brings each family not served yet
-_FAMILY_STEP = {"PermExDc": "DC", "ExtExDc": "DC", "SeriesDc": "DC", "ShuntDc": "DC",
-                "SCIM": "SCIM", "EESM": "EESM", "DFIM": "DFIM", "SRM": "SRM"}
+_FAMILY_STEP = {"SCIM": "SCIM", "EESM": "EESM", "DFIM": "DFIM", "SRM": "SRM"}
 
-# supply voltage exceptions of the synchronous rows (the rest: 420 V)
-_SUPPLY_U = {("Cont", "CC", "PMSM"): 300.0}
-# PolynomialStaticLoad of the SC tasks (no synchronous row in the JAX
-# package's table, so its default applies)
-_SC_LOAD = dict(a=0.01, b=0.01, c=0.0, j_load=1e-5)
+# supply voltage exceptions (the rest: 60 V for DC, 420 V otherwise)
+_SUPPLY_U = {("Finite", "CC", "SeriesDc"): 420.0, ("Finite", "TC", "SeriesDc"): 420.0,
+             ("Cont", "CC", "PMSM"): 300.0}
+# PolynomialStaticLoad of the SC tasks (else _SC_LOAD_DEFAULT)
+_SC_LOAD = {
+    ("Finite", "PermExDc"): dict(a=0.0, b=0.0, c=0.0, j_load=1e-3),
+    ("Cont", "PermExDc"): dict(a=0.0, b=0.0, c=0.0, j_load=1e-4),
+    ("Finite", "ExtExDc"): dict(a=0.0, b=0.0, c=0.0, j_load=1e-4),
+    ("Cont", "ExtExDc"): dict(a=0.0, b=0.0, c=0.0, j_load=1e-4),
+    ("Finite", "SeriesDc"): dict(a=0.15, b=0.05, c=0.0, j_load=1e-4),
+    ("Cont", "SeriesDc"): dict(a=0.01, b=0.05, c=0.0, j_load=1e-4),
+    ("Finite", "ShuntDc"): dict(a=0.05, b=0.01, c=0.0, j_load=1e-4),
+    ("Cont", "ShuntDc"): dict(a=0.05, b=0.01, c=0.0, j_load=1e-4),
+}
+_SC_LOAD_DEFAULT = dict(a=0.01, b=0.01, c=0.0, j_load=1e-5)
 # Wiener sigma ranges the reference envs set (else (1e-3, 1e-1))
-_REF_SIGMA = {("SC", "SynRM"): (1e-3, 1e-2)}
+_REF_SIGMA = {
+    ("CC", "PermExDc"): (1e-2, 1e-1),
+    ("TC", "PermExDc"): (1e-2, 1e-1),
+    ("SC", "PermExDc", "Cont"): (1e-3, 5e-2),
+    ("SC", "PermExDc", "Finite"): (1e-3, 5e-3),
+    ("SC", "SeriesDc", "Cont"): (1e-3, 2e-2),
+    ("SC", "SeriesDc", "Finite"): (1e-3, 5e-3),
+    ("SC", "ShuntDc", "Cont"): (1e-3, 3e-2),
+    ("SC", "ShuntDc", "Finite"): (1e-3, 5e-3),
+    ("SC", "SynRM"): (1e-3, 1e-2),
+}
 
 
 def _parse_env_id(env_id):
@@ -51,45 +76,68 @@ def _parse_env_id(env_id):
                        f"{{{'|'.join(_MOTORS)}}}-v0")
     if env_id not in ENV_IDS:
         raise NotImplementedError(
-            f"{env_id!r} is not ported yet: this package serves the 12 synchronous "
-            f"ids; the {_FAMILY_STEP[parts[2]]} family arrives with its step of "
+            f"{env_id!r} is not ported yet: this package serves the 24 DC and the 12 "
+            f"synchronous ids; the {_FAMILY_STEP[parts[2]]} family arrives with its step of "
             "queue 1, slice 3 of the port")
     return parts[0], parts[1], parts[2]
 
 
-def _default_converter(action, tau):
-    return (cv.finite_b6_bridge_converter(tau) if action == "Finite"
-            else cv.cont_b6_bridge_converter(tau))
+def _supply_u(action, task, motor):
+    if (action, task, motor) in _SUPPLY_U:
+        return _SUPPLY_U[(action, task, motor)]
+    return 60.0 if motor in _DC_MOTORS else 420.0
 
 
-def _default_references(task, motor):
-    sig = _REF_SIGMA.get((task, motor), (1e-3, 1e-1))
+def _sigma_for(task, motor, action):
+    for key in ((task, motor, action), (task, motor)):
+        if key in _REF_SIGMA:
+            return _REF_SIGMA[key]
+    return (1e-3, 1e-1)
+
+
+def _default_converter(action, motor, tau):
+    if motor in _SYNC_MOTORS:
+        return (cv.finite_b6_bridge_converter(tau) if action == "Finite"
+                else cv.cont_b6_bridge_converter(tau))
+    four_qc = (cv.finite_four_quadrant_converter if action == "Finite"
+               else cv.cont_four_quadrant_converter)
+    if motor != "ExtExDc":
+        return four_qc(tau)
+    multi = cv.finite_multi_converter if action == "Finite" else cv.cont_multi_converter
+    return multi([four_qc(tau), four_qc(tau)], tau)
+
+
+def _default_references(task, motor, action):
+    sig = _sigma_for(task, motor, action)
     if task == "SC":
         return rg.ReferenceSpec([rg.WienerProcessReference("omega", sigma_range=sig)])
     if task == "TC":
-        return rg.ReferenceSpec([rg.WienerProcessReference("torque", sigma_range=sig)])
-    return rg.ReferenceSpec([rg.WienerProcessReference("i_sd"), rg.WienerProcessReference("i_sq")])
+        margin = (0, 0.8) if (motor, action) == ("ShuntDc", "Cont") else None
+        return rg.ReferenceSpec([rg.WienerProcessReference("torque", sigma_range=sig,
+                                                           limit_margin=margin)])
+    names = {"PermExDc": ["i"], "SeriesDc": ["i"], "ShuntDc": ["i_a"],
+             "ExtExDc": ["i_a", "i_e"]}.get(motor, ["i_sd", "i_sq"])
+    if motor in _SYNC_MOTORS:
+        return rg.ReferenceSpec([rg.WienerProcessReference(n) for n in names])
+    return rg.ReferenceSpec([rg.WienerProcessReference(n, sigma_range=sig) for n in names])
 
 
-def _default_reward(task):
+def _default_reward(task, motor):
     if task == "SC":
         return WeightedSumOfErrors(reward_weights=dict(omega=1.0))
     if task == "TC":
         return WeightedSumOfErrors(reward_weights=dict(torque=1.0))
-    return WeightedSumOfErrors(reward_weights=dict(i_sd=0.5, i_sq=0.5))
+    weights = {"PermExDc": dict(i=1.0), "SeriesDc": dict(i=1.0), "ShuntDc": dict(i_a=1.0),
+               "ExtExDc": dict(i_a=0.5, i_e=0.5)}.get(motor, dict(i_sd=0.5, i_sq=0.5))
+    return WeightedSumOfErrors(reward_weights=weights)
 
 
-def resolve_device(device):
-    """The device an entry point runs on: ``cuda`` unless the caller names
-    one.  Without a GPU and without an explicit device this raises; it
-    never falls back to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' explicitly to "
-            "run this package on the CPU")
-    return torch.device("cuda")
+def _default_constraints(motor):
+    if motor in ("PermExDc", "SeriesDc"):
+        return (LimitConstraint(("i",)),)
+    if motor in ("ShuntDc", "ExtExDc"):
+        return (LimitConstraint(("i_a",)), LimitConstraint(("i_e",)))
+    return (SquaredConstraint(("i_sq", "i_sd")),)
 
 
 def make_functional(
@@ -114,43 +162,59 @@ def make_functional(
     (default ``cuda``).  Components may be overridden with spec instances,
     or with dicts of keyword overrides for the supply, motor and load (the
     env-arg pattern of utils.py:5-16 of the reference).  ``control_space``
-    must be ``"abc"`` and ``physical_system_wrappers`` empty: the dq
-    control space and the wrappers are not ported yet."""
+    must be ``"abc"``, and ``physical_system_wrappers`` may hold
+    ``CurrentSumProcessor`` only: the dq control space and the other
+    wrappers are not ported yet.  A ShuntDc env appends its default
+    ``CurrentSumProcessor(("i_a", "i_e"))``, as the JAX package does."""
     action, task, motor_name = _parse_env_id(env_id)
-    if physical_system_wrappers:
-        names = [type(w).__name__ for w in physical_system_wrappers]
+    wrappers = tuple(physical_system_wrappers)
+    unported = [type(w).__name__ for w in wrappers if not isinstance(w, CurrentSumProcessor)]
+    if unported:
         raise NotImplementedError(
-            f"physical-system wrappers {names} are not ported yet; they arrive "
-            "with slice 4 of the port")
+            f"physical-system wrappers {unported} are not ported yet (CurrentSumProcessor "
+            "only); they arrive with slice 4 of the port")
     device = resolve_device(device)
     tau = tau if tau is not None else (1e-5 if action == "Finite" else 1e-4)
 
-    u_sup = _SUPPLY_U.get((action, task, motor_name), 420.0)
+    u_sup = _supply_u(action, task, motor_name)
     if isinstance(supply, dict):
         supply = sp.ideal_voltage_supply(**{"u_nominal": u_sup, **supply})
     else:
         supply = supply or sp.ideal_voltage_supply(u_sup)
-    converter = converter or _default_converter(action, tau)
+    converter = converter or _default_converter(action, motor_name, tau)
     if isinstance(motor, dict):
         motor_spec = mt.MOTOR_FACTORIES[motor_name](**motor)
     else:
         motor_spec = motor or mt.MOTOR_FACTORIES[motor_name]()
+    sc_load = _SC_LOAD.get((action, motor_name), _SC_LOAD_DEFAULT)
     if isinstance(load, dict):
         if task == "SC":
-            load = ld.polynomial_static_load({**_SC_LOAD, **load.get("load_parameter", load)})
+            load = ld.polynomial_static_load({**sc_load, **load.get("load_parameter", load)})
         else:
             load = ld.constant_speed_load(**load)
     elif load is None:
-        load = (ld.polynomial_static_load(dict(_SC_LOAD)) if task == "SC"
-                else ld.constant_speed_load(omega_fixed=100.0))
-    reference_generator = reference_generator or _default_references(task, motor_name)
-    reward_function = reward_function or _default_reward(task)
+        omega_fixed = 230.0 if (motor_name, task, action) == ("ShuntDc", "TC", "Cont") else 100.0
+        load = (ld.polynomial_static_load(dict(sc_load)) if task == "SC"
+                else ld.constant_speed_load(omega_fixed=omega_fixed))
+    reference_generator = reference_generator or _default_references(task, motor_name, action)
+    reward_function = reward_function or _default_reward(task, motor_name)
     if constraints is None:
-        constraints = (SquaredConstraint(("i_sq", "i_sd")),)
+        constraints = _default_constraints(motor_name)
 
-    system = SynchronousMotorSystem(supply=supply, converter=converter, motor=motor_spec,
-                                    load=load, tau=tau, solver=solver, substeps=substeps,
-                                    dtype=dtype, control_space=control_space)
+    if motor_name in _SYNC_MOTORS:
+        system = SynchronousMotorSystem(supply=supply, converter=converter, motor=motor_spec,
+                                        load=load, tau=tau, solver=solver, substeps=substeps,
+                                        dtype=dtype, control_space=control_space)
+    else:
+        if control_space != "abc":
+            raise ValueError(f"control_space={control_space!r} is not supported for {motor_name} "
+                             "(three-phase systems only)")
+        system = DcMotorSystem(supply=supply, converter=converter, motor=motor_spec, load=load,
+                               tau=tau, solver=solver, substeps=substeps, dtype=dtype)
+    if motor_name == "ShuntDc":
+        # every reference ShuntDc env appends a CurrentSumProcessor
+        wrappers = wrappers + (CurrentSumProcessor(("i_a", "i_e")),)
+    system = apply_wrappers(system, wrappers)
     return ElectricMotorEnvironment(
         physical_system=system,
         reference_generator=reference_generator,

@@ -1,16 +1,21 @@
-"""Synchronous motor models (counterpart of the PMSM and SynRM parts of
-``gym_electric_motor_tpu/models/motors.py``).
+"""DC and synchronous motor models (counterpart of the DC, PMSM and SynRM
+parts of ``gym_electric_motor_tpu/models/motors.py``).
 
 A *spec* (host side) carries default parameters, the completed limit and
 nominal dicts and the initial-state description; the *functions*
-``ode(mp, state, u_dq, omega)`` and ``torque(mp, state)`` work on batched
-tensors: ``state`` is ``(N, 3)`` = (i_sd, i_sq, epsilon), ``u_dq`` is
-``(N, 2)`` and ``omega`` is ``(N,)``.
+``ode(mp, state, u_in, omega)``, ``torque(mp, state)`` and ``i_in(mp,
+state)`` work on batched tensors with a leading env dimension: ``state`` is
+the motor's ODE state (``(N, 1)`` = (i,) or ``(N, 2)`` = (i_a, i_e) for the
+DC motors, ``(N, 3)`` = (i_sd, i_sq, epsilon) for the synchronous ones),
+``u_in`` the ``(N, n_u)`` input voltages and ``omega`` is ``(N,)``.
 
 ``mp`` holds every parameter as a Python float rounded to float32, and the
 products of parameters are formed in float32 with numpy before they meet a
-tensor, so each operation rounds where the JAX package's does.  The DC,
-EESM, SCIM, DFIM and SRM families come with slice 3 of the port.
+tensor, so each operation rounds where the JAX package's does.  The DC
+Jacobians of the JAX package serve only its implicit solvers, which this
+package does not port yet (``make_integrator`` raises for them), so they
+are left out.  The EESM, SCIM, DFIM and SRM families come with slice 3 of
+the port.
 """
 
 from __future__ import annotations
@@ -64,6 +69,129 @@ def _complete(limits, nominal, limits_agenda, nominal_agenda=None):
         if nominal.get(entry, 0) == 0:
             nominal[entry] = nominal_agenda.get(entry, limits[entry])
     return limits, nominal
+
+
+# ---------------------------------------------------------------------------
+# DC motors (dc_*_motor.py of the reference)
+# ---------------------------------------------------------------------------
+
+_DC_DEFAULT_NOMINAL = dict(omega=300.0, torque=16.0, i=97.0, i_a=97.0, i_e=97.0, u=60.0,
+                           u_a=60.0, u_e=60.0)
+_DC_DEFAULT_LIMITS = dict(omega=400.0, torque=38.0, i=210.0, i_a=210.0, i_e=210.0, u=60.0,
+                          u_a=60.0, u_e=60.0)
+
+
+def permex_dc_ode(mp, state, u_in, omega):
+    """d i / dt (dc_permanently_excited_motor.py:71-84 of the reference)."""
+    i = state[..., 0]
+    di = (float(-mp["psi_e"]) * omega - float(mp["r_a"]) * i + u_in[..., 0]) / float(mp["l_a"])
+    return di[..., None]
+
+
+def permex_dc_torque(mp, state):
+    return float(mp["psi_e"]) * state[..., 0]
+
+
+def series_dc_ode(mp, state, u_in, omega):
+    """dc_series_motor.py:68-83 of the reference."""
+    i = state[..., 0]
+    di = (float(-(mp["r_a"] + mp["r_e"])) * i - float(mp["l_e_prime"]) * omega * i
+          + u_in[..., 0]) / float(mp["l_a"] + mp["l_e"])
+    return di[..., None]
+
+
+def series_dc_torque(mp, state):
+    return float(mp["l_e_prime"]) * state[..., 0] * state[..., 0]
+
+
+def _two_current_ode(mp, i_a, i_e, u_a, u_e, omega):
+    """Armature and excitation circuits (dc_motor.py:96-127 of the
+    reference)."""
+    di_a = (float(-mp["r_a"]) * i_a - float(mp["l_e_prime"]) * omega * i_e + u_a) / float(mp["l_a"])
+    di_e = (float(-mp["r_e"]) * i_e + u_e) / float(mp["l_e"])
+    return torch.stack([di_a, di_e], dim=-1)
+
+
+def extex_dc_ode(mp, state, u_in, omega):
+    return _two_current_ode(mp, state[..., 0], state[..., 1], u_in[..., 0], u_in[..., 1], omega)
+
+
+def shunt_dc_ode(mp, state, u_in, omega):
+    """Both circuits see the one input voltage (dc_shunt_motor.py:72-74)."""
+    return _two_current_ode(mp, state[..., 0], state[..., 1], u_in[..., 0], u_in[..., 0], omega)
+
+
+def extex_dc_torque(mp, state):
+    return float(mp["l_e_prime"]) * state[..., 0] * state[..., 1]
+
+
+def _dc_spec(kind, defaults, currents, voltages, ode, torque, i_in, motor_parameter=None,
+             nominal_values=None, limit_values=None, motor_initializer=None):
+    parameter = update_parameter_dict(defaults, motor_parameter or {})
+    limits = dict(_DC_DEFAULT_LIMITS)
+    limits.update(limit_values or {})
+    nominal = dict(_DC_DEFAULT_NOMINAL)
+    nominal.update(nominal_values or {})
+    initializer = {"states": {c: 0.0 for c in currents}, "interval": None, "random_init": None,
+                   "random_params": (None, None)}
+    initializer.update(motor_initializer or {})
+
+    # limit completion (dc_*_motor.py _update_limits)
+    r_a = parameter.get("r_a", 1.0) or 1.0
+    if kind == "PermExDc":
+        agenda = {"u": _DC_DEFAULT_LIMITS["u"], "i": limits["u"] / r_a}
+    elif kind == "SeriesDc":
+        agenda = {"u": _DC_DEFAULT_LIMITS["u"], "i": limits["u"] / (r_a + parameter["r_e"])}
+    else:
+        agenda = ({"u": _DC_DEFAULT_LIMITS["u"]} if kind == "ShuntDc"
+                  else {"u_a": _DC_DEFAULT_LIMITS["u"], "u_e": _DC_DEFAULT_LIMITS["u"]})
+        agenda["i_a"] = limits.get("i", None) or limits["u"] / r_a
+        agenda["i_e"] = limits.get("i", None) or limits["u"] / parameter["r_e"]
+    # torque limit from the current limits (dc_motor.py:153-159)
+    if kind == "PermExDc":
+        agenda["torque"] = parameter["psi_e"] * limits["i"]
+    elif kind == "SeriesDc":
+        agenda["torque"] = parameter["l_e_prime"] * limits["i"] ** 2
+    else:
+        agenda["torque"] = parameter["l_e_prime"] * limits["i_a"] * limits["i_e"]
+    agenda["omega"] = _DC_DEFAULT_LIMITS["omega"]
+    limits, nominal = _complete(limits, nominal, agenda)
+    return MotorSpec(kind=kind, ode_states=currents, currents=currents, voltages=voltages,
+                     parameter=parameter, limits=limits, nominal=nominal, initializer=initializer,
+                     ode=ode, torque=torque, i_in=i_in)
+
+
+def permex_dc(**kwargs) -> MotorSpec:
+    return _dc_spec("PermExDc", {"r_a": 16e-3, "l_a": 19e-6, "psi_e": 0.165, "j_rotor": 0.025},
+                    ("i",), ("u",), permex_dc_ode, permex_dc_torque,
+                    lambda mp, s: s[..., :1], **kwargs)
+
+
+def series_dc(**kwargs) -> MotorSpec:
+    return _dc_spec("SeriesDc", {"r_a": 16e-3, "r_e": 48e-3, "l_a": 19e-6, "l_e_prime": 1.7e-3,
+                                 "l_e": 5.4e-3, "j_rotor": 0.0025},
+                    ("i",), ("u",), series_dc_ode, series_dc_torque,
+                    lambda mp, s: s[..., :1], **kwargs)
+
+
+def shunt_dc(**kwargs) -> MotorSpec:
+    """The converter feeds both circuits and sees i_a + i_e."""
+    return _dc_spec("ShuntDc", {"r_a": 16e-3, "r_e": 4e-1, "l_a": 19e-6, "l_e_prime": 1.7e-3,
+                                "l_e": 5.4e-3, "j_rotor": 0.0025},
+                    ("i_a", "i_e"), ("u",), shunt_dc_ode, extex_dc_torque,
+                    lambda mp, s: s[..., 0:1] + s[..., 1:2], **kwargs)
+
+
+def extex_dc(**kwargs) -> MotorSpec:
+    return _dc_spec("ExtExDc", {"r_a": 16e-3, "r_e": 16e-2, "l_a": 19e-6, "l_e_prime": 1.7e-3,
+                                "l_e": 5.4e-3, "j_rotor": 0.0025},
+                    ("i_a", "i_e"), ("u_a", "u_e"), extex_dc_ode, extex_dc_torque,
+                    lambda mp, s: s[..., :2], **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Synchronous motors
+# ---------------------------------------------------------------------------
 
 
 def pmsm_ode(mp, state, u_dq, omega):
@@ -206,6 +334,10 @@ def synrm(**kwargs) -> MotorSpec:
 
 
 MOTOR_FACTORIES = {
+    "PermExDc": permex_dc,
+    "SeriesDc": series_dc,
+    "ShuntDc": shunt_dc,
+    "ExtExDc": extex_dc,
     "PMSM": pmsm,
     "SynRM": synrm,
 }

@@ -5,11 +5,12 @@ of the in-kernel machinery the universal family kernels share.
 Counterpart of ``LANE``, ``TWO_PI``, ``_uniform_from_bits``, ``_make_rng``,
 ``_fused_check_system``, ``_fused_constraint_mode``, ``_make_b6``,
 ``_make_fused_mech``, ``_make_fused_supply``, ``_ref_configs``,
-``_make_wiener``, ``_wse_err`` and ``_rotation_protocol`` in
-``gym_electric_motor_tpu/ops/pallas_common.py``, restricted to what the
-synchronous family's catalog defaults use (see :func:`fused_check_system`
-for what raises).  The CUDA counterparts of the machinery are the device
-functions of ``csrc/sync_step.cuh``.  On the TPU the bits come from the
+``_make_wiener``, ``_wse_err``, ``_rotation_protocol``, ``_c2u`` and
+``_c2i`` in ``gym_electric_motor_tpu/ops/pallas_common.py``, restricted to
+what the DC and synchronous families' catalog defaults use (see
+:func:`fused_check_system` for what raises).  The CUDA counterparts of the
+machinery are the device functions of ``csrc/common_step.cuh``,
+``csrc/sync_step.cuh`` and ``csrc/dc_step.cuh``.  On the TPU the bits come from the
 on-core PRNG (xorshift in interpret mode); here they come from
 Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 3", SC'11), a counter-based generator: the bits of one draw are a pure
@@ -25,6 +26,7 @@ limbs (see ``_mulhilo``).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -82,6 +84,10 @@ def uniform_from_bits(bits):
     (``pallas_common._uniform_from_bits``: a uniform can be exactly 0)."""
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
+
+# Per-reference-row constants of the universal family kernels, in the order
+# of RefRowIndex in csrc/common_step.cuh.
+ROW_NAMES = ("coef", "inv_lim", "mlo", "mhi", "ep_lo", "ep_span", "sig_base", "sig_span")
 
 # Draw slots of the PMSM random mode: the counter of one Philox call is
 # (env, step, slot, 0); the kernels skip a slot whose words the step
@@ -190,10 +196,61 @@ class SyncBits(PhiloxBits):
             self._block_t0 = t0
             self._block = self._call(range(t0, t0 + self.BLOCK), self._slots)
         w0, w1, w2, w3 = (w[t - t0] for w in self._block)
-        acts = [w0[0]] if self.n_act == 1 else [w0[0], w3[0], w0[3]]
+        acts = [w0[0], w3[0]][:self.n_act] + ([w0[3]] if self.n_act == 3 else [])
         n = self.n_rows
         return (acts, w1[0], w2[0], [w0[1], w1[1]][:n], [w2[1], w3[1]][:n],
                 [w0[2], w1[2]][:n])
+
+
+class DcBits(SyncBits):
+    """The DC family's bit source: the counters of ``csrc/dc_step.cuh``,
+    which reads the sync family's slots with the same meaning.
+    ``step_words(t)`` gives one action word per converter channel of a
+    continuous converter (``SLOT_STEP``'s words 0 and 3) and one word for a
+    finite one, whose low bits carry both ExtExDc channels (bits 0-1 and
+    2-3, pallas_dc.py:1023-1026)."""
+
+    def __init__(self, seed: int, n_envs: int, device, n_rows: int, n_act: int):
+        if n_act not in (1, 2):
+            raise ValueError(f"the DC family draws 1 or 2 action words, got {n_act}")
+        super().__init__(seed, n_envs, device, n_rows, n_act)
+
+
+# ---------------------------------------------------------------------------
+# wrapper helpers of the kernel modules
+# ---------------------------------------------------------------------------
+
+
+def check_tensor(name, x, shape, dtype, device):
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, the other inputs on {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr_array(xs):
+    """A C array of the tensors' device pointers (None for NULL)."""
+    return (ctypes.c_void_p * len(xs))(*[None if x is None else x.data_ptr() for x in xs])
+
+
+def seed_u64(seed):
+    return int(seed) & 0xFFFFFFFFFFFFFFFF
+
+
+def check_rollout_inputs(R, n_steps, state0, actions=None):
+    """A builder's own checks: the planes hold the envs it was built for,
+    and an action buffer the steps."""
+    check_tensor("state0[0]", state0[0], (R, LANE), torch.float32, state0[0].device)
+    if actions is not None and actions.shape[0] != n_steps:
+        raise ValueError(f"the action buffer must hold {n_steps} steps, got {actions.shape[0]}")
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +322,18 @@ def fused_constraint_mode(env, default_desc):
     raise NotImplementedError(
         f"the fused kernels implement the catalog-default constraints {default_desc} (or "
         f"constraints=()); got {tuple(desc)}: run other constraint sets on VectorEnv")
+
+
+def c2u(d):
+    """A continuous half bridge's voltage fraction: the duty, less the
+    interlock discount, which is zero without interlocking (``_c2u`` at
+    k = 0, pallas_common.py:824-829)."""
+    return d
+
+
+def c2i(d, i):
+    """Its supply current (``_c2i`` at k = 0, pallas_common.py:832-837)."""
+    return d * i
 
 
 def b6_fractions(finite: bool, action):
@@ -382,6 +451,28 @@ def box_muller(k, w_u1, w_u2):
     rad = torch.sqrt(-2.0 * torch.log(torch.clamp(uniform_from_bits(w_u1), min=k["u_min"])))
     theta = k["two_pi"] * uniform_from_bits(w_u2)
     return rad * torch.cos(theta), rad * torch.sin(theta)
+
+
+def reference_step(k, rows, all_const, st, new, words, violated, t):
+    """The random modes' reference advance after step ``t`` (the part of
+    ``make_fused_sync_rollout``'s and ``make_fused_dc_rollout``'s ``body``
+    after the reset): the Box-Muller pair feeds both rows (two rows) or, for
+    one row, is drawn at even steps and its sine half kept in ``zb`` for
+    the next odd step; then ``wiener_advance`` of ``new`` in place.
+    ``words`` = ``(u1, u2, lengths, sigmas, resets)`` of the bit source."""
+    if all_const:
+        return
+    shape = violated.shape
+    u1, u2, lens, sigs, resets = words
+    if len(rows) == 2:
+        draws = box_muller(k, u1.reshape(shape), u2.reshape(shape))
+    elif t % 2 == 0:
+        za, new["zb"] = box_muller(k, u1.reshape(shape), u2.reshape(shape))
+        draws = (za,)
+    else:
+        draws = (st["zb"],)
+    wiener_advance(k, rows, new, draws, violated,
+                   *([w.reshape(shape) for w in ws] for ws in (lens, sigs, resets)))
 
 
 def wiener_advance(k, rows, ref, draws, violated, lens, sigs, resets):

@@ -1,0 +1,676 @@
+"""Universal DC-family fused rollouts: the reducing rollout and the trajectory
+recorder, each in a random-action and an action-buffer mode, for the 24
+``{Finite, Cont} x {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc}``
+catalog ids at their defaults (and the finite and continuous 1QC and 2QC
+converters passed as ``converter=``).
+
+Counterpart of ``_dc_family`` and ``make_fused_dc_rollout`` in
+``gym_electric_motor_tpu/ops/pallas_dc.py`` and of the DC family's part of
+``make_fused_record_rollout`` in ``ops/pallas_record.py``.  Four kernels
+written in CUDA carry the work on the GPU, over the shared step of
+``csrc/dc_step.cuh``:
+
+======================= ================================================
+``dc_rollout_random``    T random-action steps, reduced to the final state,
+                         reward sums, termination counts and the final
+                         reference rows (``csrc/fused_dc.cu``)
+``dc_rollout_buffer``    T steps of a given action buffer, deterministic
+                         (``csrc/fused_dc.cu``)
+``dc_record_random``     the random step, every step recorded
+                         (``csrc/fused_dc_record.cu``)
+``dc_record_buffer``     the buffer step, every state recorded
+                         (``csrc/fused_dc_record.cu``)
+======================= ================================================
+
+Each kernel has a plain PyTorch version here (``*_plain``) with the same
+arithmetic in the same order and the same Philox bits
+(``fused_common.DcBits``).  A wrapper runs the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel (and counts
+the launch in ``LAUNCHES``) or raises.
+
+Public functions keep the JAX builder's layout: state planes ``(omega,)
+i`` or ``(omega,) i_a, i_e`` (omega only under the polynomial load's
+dynamic speed) are ``(n_envs // 128, 128)`` float32, per-step arrays ``(T,
+n_envs // 128, 128)``, an action buffer ``(T, [2,] n_envs // 128, 128)``
+(the channel axis for ExtExDc only), int32 for a finite converter and
+float32 for a continuous one; the reference rows come out as ``(n_ref *
+n_envs // 128, 128)``, row 0 first.  The ShuntDc env's ``i_sum`` is an
+observation of its ``CurrentSumProcessor`` and no state of the kernels.
+
+What raises ``NotImplementedError`` (naming the queue item that brings it,
+or pointing at ``VectorEnv`` where the JAX kernels do not fuse it either):
+everything ``fused_common.fused_check_system`` and
+``fused_constraint_mode`` reject, ``randomize=``, interlocking time, multi
+converters other than the dual 4QC, other references than wiener and const
+on a current, the torque or (under a dynamic load) omega.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cuda_build
+from .fused_common import (
+    LANE,
+    ROW_NAMES,
+    TWO_PI,
+    DcBits,
+    c2i,
+    c2u,
+    check_rollout_inputs,
+    check_tensor,
+    fused_check_system,
+    fused_constraint_mode,
+    poly_load_rhs,
+    ptr_array,
+    ref_rows,
+    reference_step,
+    seed_u64,
+    uniform_from_bits,
+    wiener_init,
+    wse_err,
+)
+
+_f32 = np.float32
+
+# Order of the float constants, the same as DcConstIndex in
+# csrc/dc_step.cuh; then ROW_NAMES for each of two reference rows
+# (RefRowIndex of csrc/common_step.cuh), and FLAG_NAMES as int32 (DcFlag).
+CONST_NAMES = (
+    "u_sup", "half_tau", "tau", "sixth",
+    "neg_a", "neg_aw", "r", "b", "bw", "inv_l", "neg_re", "inv_le", "tq",
+    "load_a", "load_b", "load_c", "omega_lin", "jt_over_td", "inv_jt",
+    "lim0", "lim1", "bias", "violation_reward",
+    "act_lo0", "act_span0", "act_lo1", "act_span1",
+    "two_pi", "ln10", "u_min",
+)
+FLAG_NAMES = ("qty0", "qty1", "all_const", "no_cons", "finite", "mech", "n_ref", "mclass",
+              "conv0", "conv1", "series")
+# referenced quantities (DcQuantity): the first and second current, the
+# torque, the speed
+Q_EL0, Q_EL1, Q_TORQUE, Q_OMEGA = range(4)
+# motor classes (DcMotorClass): one current (PermExDc, SeriesDc), two
+# currents on one converter channel (ShuntDc), two channels (ExtExDc)
+ONE, SHUNT, EXTEX = range(3)
+# converter codes: the number of quadrants
+CONV_CODES = {"1QC": 1, "2QC": 2, "4QC": 4}
+
+KERNELS = ("dc_rollout_random", "dc_rollout_buffer", "dc_record_random", "dc_record_buffer")
+# the library of each kernel (csrc/<name>.cu)
+LIBRARY = {"dc_rollout_random": "fused_dc", "dc_rollout_buffer": "fused_dc",
+           "dc_record_random": "fused_dc_record", "dc_record_buffer": "fused_dc_record"}
+
+# launches of each CUDA kernel since the last reset_launches()
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches():
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+_MCLASS = {"PermExDc": ONE, "SeriesDc": ONE, "ShuntDc": SHUNT, "ExtExDc": EXTEX}
+_EL_NAMES = {ONE: ("i",), SHUNT: ("i_a", "i_e"), EXTEX: ("i_a", "i_e")}
+
+
+def _converter_kinds(conv, mclass):
+    """The kind of each converter channel, raising for the converters the
+    kernels do not simulate (pallas_dc.py:642-656)."""
+    if mclass == EXTEX:
+        subs = tuple(conv.sub_kinds or ())
+        if subs not in (("Finite-4QC", "Finite-4QC"), ("Cont-4QC", "Cont-4QC")):
+            raise NotImplementedError(
+                f"the DC-family kernels take the default dual-4QC multi converter for ExtExDc; "
+                f"got {subs or conv.kind!r}: run other converters on VectorEnv")
+        return subs
+    kinds = [f"{a}-{q}" for a in ("Finite", "Cont") for q in CONV_CODES]
+    if conv.kind not in kinds:
+        raise NotImplementedError(
+            f"the DC-family kernels take the 1QC, 2QC and 4QC converters; got {conv.kind!r}: "
+            "run other converters on VectorEnv")
+    return (conv.kind,)
+
+
+class DcConsts:
+    """The baked constants of one env (``_dc_family``), as float32:
+    ``host`` (floats) and ``flags`` (int32) are the arrays handed to the
+    kernels, ``f`` and ``rows`` the same values as Python floats for the
+    plain versions.  Raises ``NotImplementedError`` for what the kernels do
+    not simulate (see the module docstring).
+
+    The motor laws of one class share one form with constants that are
+    zero where a law lacks a term, so PermExDc and SeriesDc run the same
+    instructions: ``di/dt = ((-A w - r i) - (B w) i + u) / l`` with
+    ``(A, B) = (psi_e, 0)`` or ``(0, l_e')``; ``-(0 w) - r i`` and ``x -
+    (0 w) i`` round exactly as ``-r i`` and ``x`` do.  At constant speed
+    ``-A w`` and ``B w`` are host constants formed in double precision, as
+    the JAX kernel forms them from the Python floats."""
+
+    def __init__(self, env):
+        ps = fused_check_system(env.physical_system)
+        if ps.motor.kind not in _MCLASS:
+            raise NotImplementedError(
+                f"the DC-family kernels need a DC motor, got {ps.motor.kind!r}")
+        if ps.dtype != torch.float32:
+            raise NotImplementedError("the fused kernels run in float32")
+        self.mclass = _MCLASS[ps.motor.kind]
+        self.series = ps.motor.kind == "SeriesDc"
+        self.el_names = _EL_NAMES[self.mclass]
+        self.n_el = len(self.el_names)
+        self.n_ch = 2 if self.mclass == EXTEX else 1
+        conv = ps.converter
+        self.conv_kinds = _converter_kinds(conv, self.mclass)
+        self.conv = tuple(CONV_CODES[k.split("-")[1]] for k in self.conv_kinds)
+        self.finite = conv.action_type == "finite"
+        self.mech = ps.load.kind == "PolynomialStaticLoad"
+        desc = tuple(("limit", (n,)) for n in self.el_names)
+        self.no_cons = fused_constraint_mode(env, desc) == "none"
+        self.rows = ref_rows(env)
+        self.n_ref = len(self.rows)
+        if self.n_ref not in (1, 2) or (self.n_ref == 2 and (self.mclass != EXTEX or self.mech)):
+            raise NotImplementedError(
+                f"the DC-family kernels take one reference, or two on ExtExDc at constant speed "
+                f"(the catalog's CC task); got {self.n_ref}")
+        quantity = {n: j for j, n in enumerate(self.el_names)}
+        quantity.update(torque=Q_TORQUE, omega=Q_OMEGA)
+        for row in self.rows:
+            if row["name"] not in quantity or (row["name"] == "omega" and not self.mech):
+                raise NotImplementedError(
+                    f"a reference on {row['name']!r} is not fused for this system; the kernels "
+                    f"reference {self.el_names}, the torque, and omega under a dynamic load")
+        names = list(ps.state_names)
+        rw = env.reward_function
+        wnames = list(env.physical_system.state_names)
+        scored = {wnames[i] for i in np.flatnonzero(np.asarray(rw._weights))}
+        if not scored <= {row["name"] for row in self.rows}:
+            raise NotImplementedError(
+                f"the fused kernels score the referenced states only; the reward weighs "
+                f"{sorted(scored)}")
+        self.all_const = all(row["kind"] == "const" for row in self.rows)
+        self.n_act = self.n_ch if not self.finite else 1  # random words per step
+        self.state_names = (("omega",) if self.mech else ()) + self.el_names
+        self.n_state = len(self.state_names)
+        self.act_names = ("action",) if self.n_ch == 1 else ("action_a", "action_e")
+        if self.finite:
+            self.act_ns = tuple(int(n) for n in np.atleast_1d(
+                conv.action_space[1] if self.n_ch == 2 else [conv.action_space[1]]))
+        else:
+            act_lo = np.atleast_1d(np.asarray(conv.action_space[1], np.float32))
+            act_hi = np.atleast_1d(np.asarray(conv.action_space[2], np.float32))
+
+        mp = ps.motor.parameter
+        lim = np.asarray(ps.limits)
+        if ps.motor.kind == "PermExDc":
+            a, b, r, l_inv, tq = float(mp["psi_e"]), 0.0, float(mp["r_a"]), 1.0 / float(mp["l_a"]), \
+                float(mp["psi_e"])
+        elif ps.motor.kind == "SeriesDc":
+            a, b = 0.0, float(mp["l_e_prime"])
+            r, l_inv = float(mp["r_a"]) + float(mp["r_e"]), 1.0 / (float(mp["l_a"]) + float(mp["l_e"]))
+            tq = b
+        else:
+            a, b, r, l_inv, tq = 0.0, float(mp["l_e_prime"]), float(mp["r_a"]), \
+                1.0 / float(mp["l_a"]), float(mp["l_e_prime"])
+        omega = 0.0 if self.mech else float(ps.load.omega_fixed)
+        tau = float(ps.tau)
+        values = dict(
+            u_sup=float(ps.supply.u_nominal), half_tau=0.5 * tau, tau=tau, sixth=tau / 6.0,
+            neg_a=-a, neg_aw=-a * omega, r=r, b=b, bw=b * omega, inv_l=l_inv,
+            neg_re=-float(mp.get("r_e", 0.0)) if self.n_el == 2 else 0.0,
+            inv_le=1.0 / float(mp["l_e"]) if self.n_el == 2 else 0.0, tq=tq,
+            load_a=0.0, load_b=0.0, load_c=0.0, omega_lin=0.0, jt_over_td=0.0, inv_jt=0.0,
+            lim0=float(lim[names.index(self.el_names[0])]),
+            lim1=float(lim[names.index(self.el_names[-1])]),
+            bias=rw._bias_value, violation_reward=rw._violation_value,
+            act_lo0=0.0, act_span0=0.0, act_lo1=0.0, act_span1=0.0,
+            two_pi=TWO_PI, ln10=np.log(10.0), u_min=1e-12,
+        )
+        if not self.finite:
+            for j in range(self.n_ch):
+                values[f"act_lo{j}"] = act_lo[j]
+                values[f"act_span{j}"] = _f32(act_hi[j] - act_lo[j])
+        if self.mech:
+            lp = ps.load.parameter
+            load_a, j_total = float(lp["a"]), float(ps.load.j_load) + float(mp["j_rotor"])
+            tau_decay = 1e-3
+            values.update(load_a=load_a, load_b=float(lp["b"]), load_c=float(lp["c"]),
+                          omega_lin=load_a / j_total * tau_decay, jt_over_td=j_total / tau_decay,
+                          inv_jt=1.0 / j_total)
+        floats = [_f32(values[n]) for n in CONST_NAMES]
+        for j in (0, self.n_ref - 1):
+            floats += [_f32(self.rows[j][n]) for n in ROW_NAMES]
+        self.host = np.array(floats, dtype=np.float32)
+        self.f = {n: float(v) for n, v in zip(CONST_NAMES, self.host)}
+        self.qty = [quantity[row["name"]] for row in self.rows]
+        flags = dict(qty0=self.qty[0], qty1=self.qty[-1], all_const=int(self.all_const),
+                     no_cons=int(self.no_cons), finite=int(self.finite), mech=int(self.mech),
+                     n_ref=self.n_ref, mclass=self.mclass, conv0=self.conv[0],
+                     conv1=self.conv[-1], series=int(self.series))
+        self.flags = np.array([flags[n] for n in FLAG_NAMES], dtype=np.int32)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def dc_conv_frac(finite: bool, code: int, a, i):
+    """One converter channel's voltage fraction from its action and the
+    pre-step current (``conv_u`` without bridge planes, pallas_dc.py:
+    682-715): finite 1QC conducts through its diode while i < 0, finite 2QC
+    action 0 freewheels (1 while i < 0), finite 4QC maps 0..3 to 0, 1, -1,
+    0; continuous duties clip to [0, 1] (1QC, 2QC) or [-1, 1] (4QC)."""
+    if finite:
+        if code == 1:
+            return torch.where(i >= 0.0, a.to(torch.float32), 1.0)
+        if code == 2:
+            free = torch.where(i < 0.0, 1.0, 0.0)
+            return torch.where(a == 1, 1.0, torch.where(a == 2, 0.0, free))
+        return torch.where(a == 1, 1.0, 0.0) - torch.where(a == 2, 1.0, 0.0)
+    if code == 1:
+        return torch.where(i >= 0.0, torch.clamp(a, 0.0, 1.0), 1.0)
+    if code == 2:
+        return c2u(torch.clamp(a, 0.0, 1.0))
+    return torch.clamp(a, -1.0, 1.0)
+
+
+def dc_conv_i_sup(finite: bool, code: int, a, i):
+    """One channel's supply current (``conv_i_sup`` without bridge planes,
+    pallas_dc.py:717-743).  Only the non-ideal supplies read it, so the
+    kernels, which take the ideal supply, never form it."""
+    if finite:
+        if code == 1:
+            return torch.where(a == 1, i, 0.0)
+        if code == 2:
+            free = torch.where(i < 0.0, i, 0.0)
+            return torch.where(a == 1, i, torch.where(a == 2, 0.0, free))
+        return torch.where(a <= 1, i, 0.0) + torch.where((a == 0) | (a == 2), -i, 0.0)
+    if code == 1:
+        return torch.clamp(a, 0.0, 1.0) * i
+    if code == 2:
+        return c2i(torch.clamp(a, 0.0, 1.0), i)
+    return torch.clamp(a, -1.0, 1.0) * i
+
+
+def dc_torque(c: DcConsts, i0, i1):
+    """psi_e i, l_e' i^2 or l_e' i_a i_e (``torque``, pallas_dc.py:794-833)."""
+    t = c.f["tq"] * i0
+    if c.mclass != ONE:
+        return t * i1
+    return t * i0 if c.series else t
+
+
+def dc_physics(c: DcConsts, acts, st):
+    """Voltage fractions from the actions and the pre-step current (i_a +
+    i_e for ShuntDc), times the supply voltage, then RK4 over (omega?,
+    currents) (``step_physics`` on its zero-interlock branch,
+    pallas_dc.py:962-964, with ``rk4`` :878-892).  ``st`` and the result
+    are dicts of planes ``w`` (dynamic speed), ``i0`` and ``i1`` (two
+    currents)."""
+    k = c.f
+    w, i0, i1 = st.get("w"), st["i0"], st.get("i1")
+    i_conv = i0 + i1 if c.mclass == SHUNT else i0
+    u0 = dc_conv_frac(c.finite, c.conv[0], acts[0], i_conv) * k["u_sup"]
+    u1 = dc_conv_frac(c.finite, c.conv[1], acts[1], i1) * k["u_sup"] if c.mclass == EXTEX else u0
+
+    def rhs(w, i0, i1):
+        aw, bw = (k["neg_a"] * w, k["b"] * w) if c.mech else (k["neg_aw"], k["bw"])
+        d0 = (((aw - k["r"] * i0) - bw * (i0 if c.mclass == ONE else i1)) + u0) * k["inv_l"]
+        d1 = (k["neg_re"] * i1 + u1) * k["inv_le"] if c.mclass != ONE else None
+        dw = poly_load_rhs(k, w, dc_torque(c, i0, i1)) if c.mech else None
+        return dw, d0, d1
+
+    def axpy(x, d, h):
+        return None if x is None else x + h * d
+
+    h, dt, sixth = k["half_tau"], k["tau"], k["sixth"]
+    x = (w, i0, i1)
+    k1 = rhs(*x)
+    k2 = rhs(*(axpy(s, d, h) for s, d in zip(x, k1)))
+    k3 = rhs(*(axpy(s, d, h) for s, d in zip(x, k2)))
+    k4 = rhs(*(axpy(s, d, dt) for s, d in zip(x, k3)))
+    return {key: s + sixth * (a1 + 2.0 * (a2 + a3) + a4)
+            for key, s, a1, a2, a3, a4 in zip(("w", "i0", "i1"), x, k1, k2, k3, k4)
+            if s is not None}
+
+
+def dc_quantity(c: DcConsts, j, st):
+    """Row ``j``'s referenced quantity over its limit (``ref_quantity``,
+    pallas_dc.py:987-997)."""
+    q = {Q_EL0: lambda: st["i0"], Q_EL1: lambda: st["i1"], Q_OMEGA: lambda: st["w"],
+         Q_TORQUE: lambda: dc_torque(c, st["i0"], st.get("i1"))}[c.qty[j]]()
+    return q * c.rows[j]["inv_lim"]
+
+
+def _state_keys(c):
+    return (("w",) if c.mech else ()) + ("i0", "i1")[:c.n_el]
+
+
+def dc_action_step(c: DcConsts, st, acts):
+    """One step under ``acts``: physics, the limit constraint
+    (``violated_fn``, pallas_dc.py:1003-1010), the WSE reward against the
+    pre-advance references and the reset of a violating env to zeros (the
+    polynomial load's speed too, pallas_common.py:688-689).  Returns the new
+    state dict (the reference rows carried over) and ``(actions, reward,
+    done, refs)``."""
+    k = c.f
+    y = dc_physics(c, acts, st)
+    if c.no_cons:
+        violated = torch.zeros_like(y["i0"], dtype=torch.bool)
+    else:
+        violated = torch.abs(y["i0"]) > k["lim0"]
+        if c.n_el == 2:
+            violated = violated | (torch.abs(y["i1"]) > k["lim1"])
+    wse = k["bias"] - wse_err(c.rows[0], dc_quantity(c, 0, y), st["rv"][0])
+    if c.n_ref == 2:
+        wse = wse - wse_err(c.rows[1], dc_quantity(c, 1, y), st["rv"][1])
+    reward = torch.where(violated, torch.full_like(wse, k["violation_reward"]), wse)
+    out = (acts, reward, violated.to(torch.float32), list(st["rv"]))
+    new = dict(st, rv=list(st["rv"]), rk=list(st["rk"]), rl=list(st["rl"]), rs=list(st["rs"]))
+    zero = torch.zeros_like(y["i0"])
+    for key in _state_keys(c):
+        new[key] = torch.where(violated, zero, y[key])
+    return new, out
+
+
+def dc_sample_actions(c: DcConsts, words):
+    """The random actions from the step's action words (``_sample_actions``,
+    pallas_dc.py:1020-1042): a finite 4QC takes the low 2 bits (both ExtExDc
+    channels from one word, bits 0-1 and 2-3), a 1QC the low bit, a 2QC
+    min(floor(3 u), 2); a continuous channel lo + (hi - lo) u."""
+    if not c.finite:
+        return tuple(c.f[f"act_lo{j}"] + c.f[f"act_span{j}"] * uniform_from_bits(words[j])
+                     for j in range(c.n_ch))
+    b = words[0]
+    if c.n_ch == 2:
+        return ((b & 3).to(torch.int32), ((b >> 2) & 3).to(torch.int32))
+    if c.conv[0] == 2:
+        return (torch.clamp(torch.floor(uniform_from_bits(b) * 3.0).to(torch.int32), max=2),)
+    return ((b & (c.act_ns[0] - 1)).to(torch.int32),)
+
+
+def _random_init(c: DcConsts, bits, states):
+    shape, device = states[0].shape, states[0].device
+    st = {key: x.clone() for key, x in zip(_state_keys(c), states)}
+    words = None if c.all_const else bits.init_words()
+    st["rv"], st["rk"], st["rl"], st["rs"] = wiener_init(c.f, c.rows, c.all_const, words, shape,
+                                                         device)
+    st["zb"] = torch.zeros(shape, dtype=torch.float32, device=device)
+    return st
+
+
+def _random_step(c: DcConsts, st, words, t):
+    """One random-mode step (``make_fused_dc_rollout``'s ``body``, pallas_dc.py:
+    1166-1194): returns the new state dict and ``(actions, reward, done,
+    refs)``.  ``words`` = ``(actions, u1, u2, lengths, sigmas, resets)``
+    of the bit source."""
+    shape = st["i0"].shape
+    act_words, *ref_words = words
+    acts = dc_sample_actions(c, [w.reshape(shape) for w in act_words])
+    new, out = dc_action_step(c, st, acts)
+    reference_step(c.f, c.rows, c.all_const, st, new, ref_words, out[2] > 0.5, t)
+    return new, out
+
+
+def _bits(c, seed, states, bits):
+    return bits or DcBits(seed, states[0].numel(), states[0].device, c.n_ref, c.n_act)
+
+
+def dc_rollout_random_plain(c: DcConsts, seed, states, n_steps, bits=None):
+    """Plain version of ``dc_rollout_random``: ``(*states, reward_sum,
+    term_count, rv, rk, rl, rs)``.  ``bits`` replaces the Philox bit source
+    (an object with ``init_words()`` and ``step_words(t)``, see
+    ``fused_common.DcBits``)."""
+    bits = _bits(c, seed, states, bits)
+    st = _random_init(c, bits, states)
+    reward = torch.zeros_like(states[0])
+    terms = torch.zeros_like(states[0])
+    for t in range(n_steps):
+        st, (_a, r, done, _refs) = _random_step(c, st, bits.step_words(t), t)
+        reward = reward + r
+        terms = terms + done
+    return (tuple(st[key] for key in _state_keys(c)) + (reward, terms)
+            + tuple(torch.cat(st[key]) for key in ("rv", "rk", "rl", "rs")))
+
+
+def record_dtypes(c: DcConsts):
+    """The dtypes of the random recorder's signals, in order."""
+    act = torch.int32 if c.finite else torch.float32
+    return ((torch.float32,) * (c.n_state + c.n_ref) + (act,) * c.n_ch
+            + (torch.float32, torch.float32))
+
+
+def dc_record_random_plain(c: DcConsts, seed, states, n_steps, bits=None):
+    """Plain version of ``dc_record_random``: per step the post-reset
+    states, the references the reward was taken against, the actions (int32
+    or float32, one per channel), the reward and the done flag, each ``(T,
+    R, 128)``."""
+    bits = _bits(c, seed, states, bits)
+    st = _random_init(c, bits, states)
+    rec = [[] for _ in record_dtypes(c)]
+    for t in range(n_steps):
+        st, (acts, r, done, refs) = _random_step(c, st, bits.step_words(t), t)
+        row = [st[key] for key in _state_keys(c)] + refs + list(acts) + [r, done]
+        for lst, x in zip(rec, row):
+            lst.append(x)
+    if n_steps == 0:
+        return tuple(torch.empty((0,) + tuple(states[0].shape), dtype=dt, device=states[0].device)
+                     for dt in record_dtypes(c))
+    return tuple(torch.stack(lst) for lst in rec)
+
+
+def _buffer_actions(c, actions, t):
+    return (actions[t],) if c.n_ch == 1 else (actions[t, 0], actions[t, 1])
+
+
+def dc_rollout_buffer_plain(c: DcConsts, states, actions):
+    """Plain version of ``dc_rollout_buffer``: the final states (no
+    references, no reset)."""
+    st = dict(zip(_state_keys(c), states))
+    for t in range(actions.shape[0]):
+        st = dc_physics(c, _buffer_actions(c, actions, t), st)
+    return tuple(st[key].clone() for key in _state_keys(c))
+
+
+def dc_record_buffer_plain(c: DcConsts, states, actions):
+    """Plain version of ``dc_record_buffer``: every step's states, each
+    ``(T, R, 128)``."""
+    st = dict(zip(_state_keys(c), states))
+    T = actions.shape[0]
+    out = torch.empty((c.n_state, T) + tuple(states[0].shape), dtype=torch.float32,
+                      device=states[0].device)
+    for t in range(T):
+        st = dc_physics(c, _buffer_actions(c, actions, t), st)
+        for j, key in enumerate(_state_keys(c)):
+            out[j, t] = st[key]
+    return tuple(out[j] for j in range(c.n_state))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "dc_rollout_random": [_P, _P, ctypes.c_uint64, _I, _I, _P, _P, _P],
+    "dc_rollout_buffer": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "dc_record_random": [_P, _P, ctypes.c_uint64, _I, _I, _P, _P, _P],
+    "dc_record_buffer": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+}
+
+
+def _lib(name):
+    """The library of kernel ``name``, typed and checked on first use."""
+    lib = cuda_build.load(LIBRARY[name])
+    if not getattr(lib, "_gemx_typed", False):
+        for fn_name, argtypes in _ARGTYPES.items():
+            if LIBRARY[fn_name] == LIBRARY[name]:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        for fn_name in ("dc_n_const", "dc_n_row_const", "dc_n_flag"):
+            getattr(lib, fn_name).restype = ctypes.c_int
+        lib.dc_error_string.argtypes = [ctypes.c_int]
+        lib.dc_error_string.restype = ctypes.c_char_p
+        if (lib.dc_n_const(), lib.dc_n_row_const(), lib.dc_n_flag()) != (
+                len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)):
+            raise RuntimeError("csrc/dc_step.cuh and fused_dc_family.py disagree on the constants")
+        lib._gemx_typed = True
+    return lib
+
+
+def _launch(name, device, *args):
+    lib = _lib(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {lib.dc_error_string(rc).decode()}")
+    LAUNCHES[name] += 1
+
+
+def _planes(c: DcConsts, states):
+    """Validate the state planes; returns (device, R)."""
+    states = tuple(states)
+    if len(states) != c.n_state:
+        raise ValueError(f"this env takes {c.n_state} state planes {c.state_names}, "
+                         f"got {len(states)}")
+    x0 = states[0]
+    if not isinstance(x0, torch.Tensor) or x0.dim() != 2 or x0.shape[1] != LANE \
+            or x0.shape[0] < 1:
+        raise ValueError(f"state planes must be (n_envs // {LANE}, {LANE}) tensors")
+    device = x0.device
+    for nm, x in zip(c.state_names, states):
+        check_tensor(nm, x, x0.shape, torch.float32, device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device, x0.shape[0]
+
+
+def _check_actions(c: DcConsts, actions, R, device):
+    T = actions.shape[0] if isinstance(actions, torch.Tensor) and actions.dim() else 0
+    shape = (T, R, LANE) if c.n_ch == 1 else (T, 2, R, LANE)
+    check_tensor("actions", actions, shape, torch.int32 if c.finite else torch.float32, device)
+    return T
+
+
+def _in_ptrs(c, states):
+    """(omega or NULL, i0, i1 or NULL)."""
+    st = dict(zip(_state_keys(c), states))
+    return ptr_array([st.get("w"), st["i0"], st.get("i1")])
+
+
+def _out_state(c, outs):
+    st = dict(zip(_state_keys(c), outs))
+    return [st.get("w"), st["i0"], st.get("i1")]
+
+
+def _buffer_args(c, actions):
+    act_i, act_f = (actions, None) if c.finite else (None, actions)
+    return (None if act_i is None else act_i.data_ptr(),
+            None if act_f is None else act_f.data_ptr())
+
+
+def dc_rollout_random(c: DcConsts, seed: int, states, n_steps: int):
+    """``(*states, reward_sum, term_count, rv, rk, rl, rs)``."""
+    device, R = _planes(c, states)
+    if device.type == "cpu":
+        return dc_rollout_random_plain(c, seed, tuple(states), n_steps)
+
+    def plane(rows=1):
+        return torch.empty((rows * R, LANE), dtype=torch.float32, device=device)
+    outs = [plane() for _ in range(c.n_state + 2)] + [plane(c.n_ref) for _ in range(4)]
+    ptrs = _out_state(c, outs[:c.n_state]) + outs[c.n_state:]
+    _launch("dc_rollout_random", device, c.host.ctypes.data, c.flags.ctypes.data, seed_u64(seed),
+            R * LANE, int(n_steps), _in_ptrs(c, states), ptr_array(ptrs))
+    return tuple(outs)
+
+
+def dc_rollout_buffer(c: DcConsts, states, actions):
+    """The final states after the action buffer."""
+    device, R = _planes(c, states)
+    T = _check_actions(c, actions, R, device)
+    if device.type == "cpu":
+        return dc_rollout_buffer_plain(c, tuple(states), actions)
+    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(c.n_state)]
+    _launch("dc_rollout_buffer", device, c.host.ctypes.data, c.flags.ctypes.data, R * LANE, T,
+            _in_ptrs(c, states), *_buffer_args(c, actions), ptr_array(_out_state(c, outs)))
+    return tuple(outs)
+
+
+def dc_record_random(c: DcConsts, seed: int, states, n_steps: int):
+    """``(*states, *refs, *actions, reward, done)``, each ``(T, R, 128)``."""
+    device, R = _planes(c, states)
+    if device.type == "cpu":
+        return dc_record_random_plain(c, seed, tuple(states), n_steps)
+    shape = (int(n_steps), R, LANE)
+    outs = [torch.empty(shape, dtype=dt, device=device) for dt in record_dtypes(c)]
+    it = iter(outs)
+    st = [next(it) for _ in range(c.n_state)]
+    refs = [next(it) for _ in range(c.n_ref)]
+    acts = [next(it) for _ in range(c.n_ch)]
+    ptr_list = (_out_state(c, st) + refs + [None] * (2 - c.n_ref) + acts + [None] * (2 - c.n_ch)
+                + list(it))
+    _launch("dc_record_random", device, c.host.ctypes.data, c.flags.ctypes.data, seed_u64(seed),
+            R * LANE, int(n_steps), _in_ptrs(c, states), ptr_array(ptr_list))
+    return tuple(outs)
+
+
+def dc_record_buffer(c: DcConsts, states, actions):
+    """Every step's states, each ``(T, R, 128)``."""
+    device, R = _planes(c, states)
+    T = _check_actions(c, actions, R, device)
+    if device.type == "cpu":
+        return dc_record_buffer_plain(c, tuple(states), actions)
+    outs = [torch.empty((T, R, LANE), dtype=torch.float32, device=device)
+            for _ in range(c.n_state)]
+    _launch("dc_record_buffer", device, c.host.ctypes.data, c.flags.ctypes.data, R * LANE, T,
+            _in_ptrs(c, states), *_buffer_args(c, actions), ptr_array(_out_state(c, outs)))
+    return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# builder (the JAX package's entry point)
+# ---------------------------------------------------------------------------
+
+
+def make_fused_dc_rollout(env, n_steps, n_envs, action_mode="random", randomize=None):
+    """Universal fused rollout for the DC family: the 24 ``{Finite, Cont} x
+    {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc}`` catalog ids.
+
+    * random mode: ``rollout(seed, *state0) -> (*states, reward_sum,
+      term_count, rv, rk, rl, rs)``; states = (omega?, i) or (omega?, i_a,
+      i_e), ``(n_envs // 128, 128)`` float32 planes, the reference rows
+      ``(n_ref * n_envs // 128, 128)``.
+    * buffer mode: ``rollout(*state0, actions) -> states`` with an int32
+      (finite) or float32 (cont) ``(n_steps, [2,] n_envs // 128, 128)``
+      action buffer, the channel axis for ExtExDc only; deterministic
+      physics only.
+
+    The device is that of the inputs."""
+    if randomize:
+        raise NotImplementedError(
+            "domain randomization (randomize=) is not fused yet; it arrives with queue 2, "
+            "item 8 of the port (_param_reset_draws)")
+    if n_envs % LANE:
+        raise ValueError(f"n_envs must be a multiple of {LANE}")
+    R = n_envs // LANE
+    c = DcConsts(env)
+    if action_mode == "random":
+        def rollout(seed, *state0):
+            check_rollout_inputs(R, n_steps, state0)
+            return dc_rollout_random(c, seed, state0, n_steps)
+        rollout.consts = c
+        return rollout
+    if action_mode != "buffer":
+        raise ValueError(f"action_mode must be 'random' or 'buffer', got {action_mode!r}")
+
+    def rollout(*args):
+        *state0, actions = args
+        check_rollout_inputs(R, n_steps, state0, actions)
+        return dc_rollout_buffer(c, state0, actions)
+    rollout.consts = c
+    return rollout

@@ -1,42 +1,49 @@
 """Universal trajectory-recording fused rollouts (counterpart of
-``gym_electric_motor_tpu/ops/pallas_record.py``, for the synchronous
-family so far).
+``gym_electric_motor_tpu/ops/pallas_record.py``, for the DC and synchronous
+families so far).
 
 ``make_fused_record_rollout(env, T, N)`` returns ``rollout(seed, *state0)
 -> dict`` mapping signal names (the family's state names, ``ref_*``,
 ``action*``, ``reward``, ``done``) to ``(T, N // 128, 128)`` tensors;
 ``rollout.signals`` lists them in order.  ``action_mode='buffer'`` gives
 the deterministic validation path: ``rollout(*state0, actions) -> dict``
-of per-step states.  The synchronous family's kernels are
-``sync_record_random`` and ``sync_record_buffer`` of
-``csrc/fused_sync.cu`` (see ``ops/fused_sync_family.py``); the TPU
-recorder's chunk grid and per-chunk reseed (pallas_record.py:206-211) are
-TPU-only, so there is no ``chunk`` argument.  The other families raise
-until their kernels are ported.
+of per-step states.  The kernels are ``dc_record_random`` and
+``dc_record_buffer`` of ``csrc/fused_dc_record.cu`` (see
+``ops/fused_dc_family.py``) and ``sync_record_random`` and
+``sync_record_buffer`` of ``csrc/fused_sync.cu`` (see
+``ops/fused_sync_family.py``); the TPU recorder's chunk grid and per-chunk
+reseed (pallas_record.py:206-211) are TPU-only, so there is no ``chunk``
+argument.  The other families raise until their kernels are ported.
 """
 
 from __future__ import annotations
 
-from .fused_common import LANE
+from . import fused_dc_family as dcf
+from . import fused_sync_family as sf
+from .fused_common import LANE, check_rollout_inputs
 from .fused_rollout import family_of
-from .fused_sync_family import (SyncConsts, check_rollout_inputs, sync_record_buffer,
-                                sync_record_random)
+
+# family -> (constants, random recorder, buffer recorder)
+_FAMILIES = {
+    "dc": (dcf.DcConsts, dcf.dc_record_random, dcf.dc_record_buffer),
+    "sync": (sf.SyncConsts, sf.sync_record_random, sf.sync_record_buffer),
+}
 
 
 def make_fused_record_rollout(env, n_steps, n_envs, action_mode="random"):
     """Build the trajectory-recording rollout for a catalog env (see the
     module docstring).  With one seed, the random recorder takes the steps
     of ``make_fused_rollout``'s random mode."""
-    family_of(env)
+    consts, record_random, record_buffer = _FAMILIES[family_of(env)]
     if n_envs % LANE:
         raise ValueError(f"n_envs must be a multiple of {LANE}")
     R = n_envs // LANE
-    c = SyncConsts(env)
+    c = consts(env)
     if action_mode == "buffer":
         def rollout(*args):
             *state0, actions = args
             check_rollout_inputs(R, n_steps, state0, actions)
-            return dict(zip(c.state_names, sync_record_buffer(c, state0, actions)))
+            return dict(zip(c.state_names, record_buffer(c, state0, actions)))
 
         rollout.signals = c.state_names
         rollout.consts = c
@@ -48,7 +55,7 @@ def make_fused_record_rollout(env, n_steps, n_envs, action_mode="random"):
 
     def rollout(seed, *state0):
         check_rollout_inputs(R, n_steps, state0)
-        return dict(zip(names, sync_record_random(c, seed, state0, n_steps)))
+        return dict(zip(names, record_random(c, seed, state0, n_steps)))
 
     rollout.signals = names
     rollout.consts = c

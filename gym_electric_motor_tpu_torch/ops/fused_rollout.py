@@ -2,15 +2,17 @@
 (counterpart of ``gym_electric_motor_tpu/ops/pallas_rollout.py``).
 
 ``make_fused_rollout`` routes an env to its family's universal builder:
-the synchronous family (the twelve PMSM / SynRM ids) so far; every other
-family raises ``NotImplementedError`` naming the queue-2 item that brings
-its kernels.  The sharded ``make_sharded_fused_rollout`` and the universal
+the DC family (the 24 PermExDc, SeriesDc, ShuntDc and ExtExDc ids) and the
+synchronous family (the twelve PMSM / SynRM ids) so far; every other family
+raises ``NotImplementedError`` naming the queue-2 item that brings its
+kernels.  The sharded ``make_sharded_fused_rollout`` and the universal
 policy recorder come with later slices of the port.
 """
 
 from __future__ import annotations
 
 from .fused_common import LANE, TWO_PI  # noqa: F401
+from .fused_dc_family import make_fused_dc_rollout
 from .fused_policy import (  # noqa: F401
     flatten_policy_params,
     make_fused_policy_record_rollout,
@@ -35,9 +37,12 @@ FUSED_FAMILY_BUILDERS = {
     "EESM": "eesm", "DFIM": "dfim",
     "SRM": "srm",
 }
+PORTED_FAMILIES = {"dc": make_fused_dc_rollout, "sync": make_fused_sync_rollout}
 
 # the queue-2 item of the port that brings each family's universal kernels
-_FAMILY_ITEM = {"dc": 15, "induction": 18, "eesm": 20, "dfim": 22, "srm": 23}
+_FAMILY_ITEM = {"induction": 18, "eesm": 20, "dfim": 22, "srm": 23}
+# state planes of each motor (pallas_rollout.py:144-146), before the speed
+_BASE_ARITY = {"PermExDc": 1, "SeriesDc": 1, "ShuntDc": 2, "ExtExDc": 2, "PMSM": 3, "SynRM": 3}
 
 
 def _system(env):
@@ -51,7 +56,7 @@ def family_of(env):
     """The env's family, raising ``NotImplementedError`` for a family whose
     kernels are not ported yet."""
     family = FUSED_FAMILY_BUILDERS[_system(env).motor.kind]
-    if family != "sync":
+    if family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"the {family} family's fused kernels are not ported yet; they arrive with "
             f"queue 2, item {_FAMILY_ITEM[family]} of the port")
@@ -60,20 +65,20 @@ def family_of(env):
 
 def fused_state_arity(env):
     """Number of ``(R, LANE)`` state planes the universal fused rollout for
-    ``env`` takes and returns (``pallas_rollout.py:135-158``): i_sd, i_sq
-    and eps, with omega first under a dynamic-speed load.  The other
-    families' planes, and the supply, randomized-parameter and
-    flux-observer planes, come with their kernels."""
+    ``env`` takes and returns (``pallas_rollout.py:135-158``): the motor's
+    (PermExDc and SeriesDc 1, ShuntDc and ExtExDc 2, PMSM and SynRM 3), plus
+    omega first under a dynamic-speed load.  The supply, randomized-parameter
+    and flux-observer planes come with their kernels."""
     family_of(env)
-    return 3 + int(_system(env).load.omega_fixed is None)
+    ps = _system(env)
+    return _BASE_ARITY[ps.motor.kind] + int(ps.load.omega_fixed is None)
 
 
 def make_fused_rollout(env, n_steps, n_envs, action_mode="random", randomize=None):
     """Universal fused-rollout dispatch (``pallas_rollout.py:161-192``):
-    returns the family rollout (see ``make_fused_sync_rollout`` for the
-    signatures); the number of state planes is ``fused_state_arity(env)``.
-    Raises ``NotImplementedError`` for the families and options not ported
-    yet."""
-    family_of(env)
-    return make_fused_sync_rollout(env, n_steps, n_envs, action_mode=action_mode,
-                                   randomize=randomize)
+    returns the family rollout (see ``make_fused_dc_rollout`` and
+    ``make_fused_sync_rollout`` for the signatures); the number of state
+    planes is ``fused_state_arity(env)``.  Raises ``NotImplementedError``
+    for the families and options not ported yet."""
+    return PORTED_FAMILIES[family_of(env)](env, n_steps, n_envs, action_mode=action_mode,
+                                           randomize=randomize)

@@ -41,26 +41,30 @@ import torch
 from . import cuda_build
 from .fused_common import (
     LANE,
+    ROW_NAMES,
     TWO_PI,
     SyncBits,
     b6_fractions,
-    box_muller,
+    check_rollout_inputs,
     fused_check_system,
     fused_constraint_mode,
     poly_load_rhs,
     ref_rows,
+    reference_step,
     rotation_advance,
     uniform_from_bits,
-    wiener_advance,
     wiener_init,
     wse_err,
 )
+from .fused_common import check_tensor as _check
+from .fused_common import ptr_array as _ptrs
+from .fused_common import seed_u64 as _seed
 
 _f32 = np.float32
 
 # Order of the float constants, the same as SyncConstIndex in
 # csrc/sync_step.cuh; then ROW_NAMES for each of two reference rows
-# (SyncRowIndex), and FLAG_NAMES as int32 (SyncFlag).
+# (RefRowIndex of csrc/common_step.cuh), and FLAG_NAMES as int32 (SyncFlag).
 CONST_NAMES = (
     "u_sup", "half_tau", "tau", "sixth", "two_thirds", "inv_sqrt3", "two_pi", "inv_two_pi",
     "p", "neg_r_s", "r_s", "l_q", "l_d", "neg_psi_p", "inv_ld", "inv_lq",
@@ -69,7 +73,6 @@ CONST_NAMES = (
     "load_a", "load_b", "load_c", "omega_lin", "jt_over_td", "inv_jt",
     "inv_i_lim", "bias", "violation_reward", "ln10", "u_min",
 )
-ROW_NAMES = ("coef", "inv_lim", "mlo", "mhi", "ep_lo", "ep_span", "sig_base", "sig_span")
 FLAG_NAMES = ("qty0", "qty1", "all_const", "no_cons", "finite", "mech", "n_ref")
 QUANTITIES = ("i_sd", "i_sq", "torque", "omega")
 
@@ -290,16 +293,8 @@ def _random_step(c: SyncConsts, st, words, t):
         action = tuple(2.0 * uniform_from_bits(w) - 1.0 for w in acts)
     cos, sin = ((torch.cos(st["eps"]), torch.sin(st["eps"])) if c.mech else (st["c"], st["s"]))
     new, out = sync_action_step(c, st, action, cos, sin)
-    if not c.all_const:
-        if c.n_ref == 2:
-            draws = box_muller(c.f, u1.reshape(shape), u2.reshape(shape))
-        elif t % 2 == 0:
-            za, new["zb"] = box_muller(c.f, u1.reshape(shape), u2.reshape(shape))
-            draws = (za,)
-        else:
-            draws = (st["zb"],)
-        wiener_advance(c.f, c.rows, new, draws, out[2] > 0.5,
-                       *([w.reshape(shape) for w in ws] for ws in (lens, sigs, resets)))
+    reference_step(c.f, c.rows, c.all_const, st, new, (u1, u2, lens, sigs, resets), out[2] > 0.5,
+                   t)
     return new, out
 
 
@@ -416,19 +411,6 @@ def _lib():
     return lib
 
 
-def _check(name, x, shape, dtype, device):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, the other inputs on {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _planes(c: SyncConsts, states):
     """Validate the state planes; returns (device, R)."""
     states = tuple(states)
@@ -456,11 +438,6 @@ def _check_actions(c: SyncConsts, actions, R, device):
     return T
 
 
-def _ptrs(xs):
-    """A C array of the tensors' device pointers (None for NULL)."""
-    return (_P * len(xs))(*[None if x is None else x.data_ptr() for x in xs])
-
-
 def _in_ptrs(c, states):
     return _ptrs(((None,) if not c.mech else ()) + tuple(states))
 
@@ -477,10 +454,6 @@ def _launch(name, device, *args):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: {lib.sync_error_string(rc).decode()}")
     LAUNCHES[name] += 1
-
-
-def _seed(seed):
-    return int(seed) & 0xFFFFFFFFFFFFFFFF
 
 
 def sync_rollout_random(c: SyncConsts, seed: int, states, n_steps: int):
@@ -548,14 +521,6 @@ def sync_record_buffer(c: SyncConsts, states, actions):
 # ---------------------------------------------------------------------------
 # builder (the JAX package's entry point)
 # ---------------------------------------------------------------------------
-
-
-def check_rollout_inputs(R, n_steps, state0, actions=None):
-    """A builder's own checks: the planes hold the envs it was built for,
-    and an action buffer the steps."""
-    _check("state0[0]", state0[0], (R, LANE), torch.float32, state0[0].device)
-    if actions is not None and actions.shape[0] != n_steps:
-        raise ValueError(f"the action buffer must hold {n_steps} steps, got {actions.shape[0]}")
 
 
 def make_fused_sync_rollout(env, n_steps, n_envs, action_mode="random", randomize=None):

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..envs.catalog import resolve_device
+from ..utils.device import resolve_device
 from ..ops.fused_policy import flatten_policy_params, make_fused_policy_record_rollout, policy_obs_host
 
 

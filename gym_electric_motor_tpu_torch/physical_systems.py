@@ -9,11 +9,13 @@ builder closes over the component specs and provides
 for a batch of ``n`` envs (leading dimension of every tensor).
 ``system_state`` is the normalised full state vector (state / limits).
 
-Only the synchronous system (PMSM, SynRM) exists so far, with a finite or
-continuous B6 bridge, an ideal supply and a constant-speed or polynomial
-static load; with zero interlocking time the converter schedule is a single
-sub-interval per control cycle.  The other families come with the later
-steps of queue 1, slice 3 of the port.
+The DC system (PermExDc, SeriesDc, ShuntDc, ExtExDc with the 1QC, 2QC,
+4QC or dual-4QC multi converter) is ``SCMLSystem`` itself; the synchronous
+system (PMSM, SynRM, finite or continuous B6 bridge) subclasses it, as in
+the JAX package.  Both take an ideal supply and a constant-speed or
+polynomial static load; with zero interlocking time the converter schedule
+is a single sub-interval per control cycle.  The other families come with
+the later steps of queue 1, slice 3 of the port.
 """
 
 from __future__ import annotations
@@ -82,14 +84,16 @@ def _sample_initializer(initializer, state_names, bounds_low, bounds_high):
 
 
 @dataclasses.dataclass
-class SynchronousMotorSystem:
-    """PMSM / SynRM drive train (physical_systems.py:418-561 of the
-    reference).  ODE state ``[omega, i_sd, i_sq, epsilon]`` in the dq frame,
-    omega first: the load's mechanical state (constant for
-    ``ConstantSpeedLoad``, integrated with the currents for
-    ``PolynomialStaticLoad``).  The converter voltages are Park-transformed
-    with the rotor angle from the start of the control cycle; a finite
-    action is an ``(N,)`` integer tensor, a continuous one ``(N, 3)``."""
+class SCMLSystem:
+    """Base drive train, the DC one (``DcMotorSystem``, physical_systems.py:
+    118-430 of the JAX package, at one converter sub-interval).  ODE state
+    ``[mechanical states, motor ODE states]``, omega first: the load's
+    mechanical state (constant for ``ConstantSpeedLoad``, integrated with the
+    currents for ``PolynomialStaticLoad``).  The system state is ``[mech,
+    torque, currents, voltages, u_sup]`` over the limits; the state space is
+    polarity-aware (``_motor_state_space``).  A finite action is an ``(N,)``
+    integer tensor (``(N, 2)`` for the ExtExDc multi converter), a continuous
+    one ``(N, n_dims)``."""
 
     supply: SupplySpec
     converter: ConverterSpec
@@ -99,29 +103,15 @@ class SynchronousMotorSystem:
     solver: str = "rk4"
     substeps: int = 1
     dtype: torch.dtype = torch.float32
-    control_space: str = "abc"
 
     def __post_init__(self):
-        if self.control_space != "abc":
-            raise NotImplementedError(
-                "control_space='dq' is not ported yet; it arrives with the "
-                "universal wraps of queue 2, item 7 of the port")
+        self._validate()
         self.converter.tau = self.tau
         self.n_mech = len(self.load.state_names)
-        self.state_names = (list(self.load.state_names) + [
-            "torque",
-            "i_a", "i_b", "i_c", "i_sd", "i_sq",
-            "u_a", "u_b", "u_c", "u_sd", "u_sq",
-            "epsilon",
-        ] + self._u_sup_names())
+        self.state_names = self._build_state_names()
         self.state_positions = {n: i for i, n in enumerate(self.state_names)}
         self._set_limits()
-        low = -np.ones(len(self.state_names))
-        high = np.ones(len(self.state_names))
-        for j in self._u_sup_indices():
-            low[j] = 0.0
-        self.state_space_low = low
-        self.state_space_high = high
+        self._build_state_space()
         self.mp = self.motor.mp()
         self.lp = self.load.lp(self.motor.parameter["j_rotor"])
         self.sp = self.supply.sp()
@@ -130,6 +120,51 @@ class SynchronousMotorSystem:
         self._limits_host = np.asarray(self.limits, dtype=np.float32)
 
     # ---------------- host-side construction ----------------
+
+    def _validate(self):
+        pass
+
+    def _build_state_names(self):
+        return (list(self.load.state_names) + ["torque"] + list(self.motor.currents)
+                + list(self.motor.voltages) + self._u_sup_names())
+
+    def _build_state_space(self):
+        """Polarity-aware box from the motor and converter topology
+        (physical_systems.py:203-214 of the JAX package)."""
+        low, high = self._motor_state_space()
+        low_arr = np.array([float(low.get(s, -1.0)) for s in self.state_names])
+        high_arr = np.array([float(high.get(s, 1.0)) for s in self.state_names])
+        sup_lo, sup_hi = self.supply.supply_range
+        for j in self._u_sup_indices():
+            high_arr[j] = sup_hi / self.supply.u_nominal
+            low_arr[j] = sup_lo / self.supply.u_nominal if sup_lo != sup_hi else 0.0
+        self.state_space_low = low_arr
+        self.state_space_high = high_arr
+
+    def _motor_state_space(self):
+        """Each DC motor's ``get_state_space`` (dc_*_motor.py of the
+        reference, physical_systems.py:216-253 of the JAX package): omega,
+        torque and the currents may not go negative where the converter
+        cannot drive them there."""
+        cur_lo = self.converter.currents[0]
+        volt_lo = self.converter.voltages[0]
+        kind = self.motor.kind
+        if kind == "PermExDc":
+            low = {"omega": -1 if volt_lo[0] == -1 else 0, "torque": -1 if cur_lo[0] == -1 else 0,
+                   "i": -1 if cur_lo[0] == -1 else 0, "u": -1 if volt_lo[0] == -1 else 0}
+        elif kind == "SeriesDc":
+            low = {"omega": 0, "torque": 0, "i": -1 if cur_lo[0] == -1 else 0,
+                   "u": -1 if volt_lo[0] == -1 else 0}
+        elif kind == "ShuntDc":
+            low = {"omega": 0, "torque": -1 if cur_lo[0] == -1 else 0,
+                   "i_a": -1 if cur_lo[0] == -1 else 0, "i_e": -1 if cur_lo[0] == -1 else 0,
+                   "u": -1 if volt_lo[0] == -1 else 0}
+        else:  # ExtExDc (dc_motor.py:129-151)
+            low = {"omega": -1 if (volt_lo[0] == -1 or volt_lo[1] == -1) else 0,
+                   "torque": -1 if (cur_lo[0] == -1 or cur_lo[1] == -1) else 0,
+                   "i_a": -1 if cur_lo[0] == -1 else 0, "i_e": -1 if cur_lo[1] == -1 else 0,
+                   "u_a": -1 if volt_lo[0] == -1 else 0, "u_e": -1 if volt_lo[1] == -1 else 0}
+        return low, {k: 1 for k in low}
 
     def _set_limits(self):
         """physical_systems.py:105-123 of the reference."""
@@ -193,11 +228,6 @@ class SynchronousMotorSystem:
     def motor_slice(self):
         return slice(self.n_mech, None)
 
-    @property
-    def eps_idx(self):
-        """Index of epsilon inside the ode_state vector."""
-        return self.n_mech + len(self.motor.currents)
-
     def limits_tensor(self, device):
         return torch.as_tensor(self._limits_host, device=device).to(self.dtype)
 
@@ -211,34 +241,115 @@ class SynchronousMotorSystem:
         d_motor = self.motor.ode(self.mp, motor_state, u_in, y[:, 0])
         return torch.cat([d_mech, d_motor], dim=1)
 
-    def reset_from_u(self, u, n: int, device):
-        """physical_systems.py:256-287 (component order: motor, load, supply)."""
+    def _reset_parts(self, u, n, device):
+        """The component resets (physical_systems.py:256-287, order motor,
+        load, supply): motor and mechanical states, supply voltage and
+        state."""
         n_m, n_l = self._motor_n_u, self._load_n_u
         u_m = u[:, :n_m] if n_m else None
         u_l = u[:, n_m:n_m + n_l] if n_l else None
         u_s = u[:, n_m + n_l:] if self.supply.n_reset_u else None
-        dtype = self.dtype
-        motor_state = self._sample_motor_u(u_m, n, dtype, device)
-        mech_state = self._sample_load_u(u_l, n, dtype, device)
+        motor_state = self._sample_motor_u(u_m, n, self.dtype, device)
+        mech_state = self._sample_load_u(u_l, n, self.dtype, device)
+        u_sup, sup_state = self.supply.reset_u(self.sp, u_s, n, self.dtype, device)
+        return motor_state, mech_state, u_sup, sup_state
+
+    def _physics_state(self, ode_state, conv_state, sup_state, n, device):
+        return PhysicsState(ode_state=ode_state.contiguous(), conv_state=conv_state,
+                            sup_state=sup_state,
+                            t=torch.zeros((n,), dtype=self.dtype, device=device),
+                            k=torch.zeros((n,), dtype=torch.int32, device=device))
+
+    def reset_from_u(self, u, n: int, device):
+        """physical_systems.py:348-373 of the JAX package."""
+        motor_state, mech_state, u_sup, sup_state = self._reset_parts(u, n, device)
+        u_in = torch.tensor(self.converter.u_reset, dtype=self.dtype, device=device) * u_sup[:, 0:1]
+        torque = self.motor.torque(self.mp, motor_state)
+        currents = motor_state[:, : len(self.motor.currents)]
+        system_state = torch.cat([mech_state, torque[:, None], currents, u_in, u_sup], dim=1)
+        ps = self._physics_state(torch.cat([mech_state, motor_state], dim=1),
+                                 self.converter.init_state(n, device), sup_state, n, device)
+        return ps, system_state / self.limits_tensor(device)
+
+    def simulate(self, ps: PhysicsState, action, noise=None):
+        """One control period (physical_systems.py:375-427 of the JAX
+        package): converter fractions from the pre-step motor current, times
+        the supply voltage, one integration over the period."""
+        ode = ps.ode_state
+        i_in = self.motor.i_in(self.mp, ode[:, self.motor_slice])
+        (bridge,) = self.converter.interval_states(ps.conv_state, action)
+        i_sup = self.converter.i_sup(ps.conv_state, action, i_in)
+        u_sup, sup_state = self.supply.get_voltage(self.sp, ps.sup_state, ps.t, i_sup)
+        u_in = self.converter.u_frac(bridge, action, i_in) * u_sup[:, 0:1]
+        ode = self.integrate(self._rhs, ode, ps.t, self.tau, u_in, noise)
+        torque = self.motor.torque(self.mp, ode[:, self.motor_slice])
+        currents = ode[:, self.motor_slice][:, : len(self.motor.currents)]
+        system_state = torch.cat([ode[:, : self.n_mech], torque[:, None], currents, u_in, u_sup],
+                                 dim=1)
+        new_ps = PhysicsState(ode_state=ode, conv_state=bridge, sup_state=sup_state,
+                              t=ps.t + self.tau, k=ps.k + 1)
+        return new_ps, system_state / self.limits_tensor(ode.device)
+
+
+class DcMotorSystem(SCMLSystem):
+    """PermExDc, SeriesDc, ShuntDc and ExtExDc drive trains
+    (physical_systems.py:290-318 of the reference)."""
+
+
+@dataclasses.dataclass
+class SynchronousMotorSystem(SCMLSystem):
+    """PMSM / SynRM drive train (physical_systems.py:418-561 of the
+    reference).  ODE state ``[omega, i_sd, i_sq, epsilon]`` in the dq frame,
+    omega first.  The converter voltages are Park-transformed with the rotor
+    angle from the start of the control cycle; a finite action is an
+    ``(N,)`` integer tensor, a continuous one ``(N, 3)``."""
+
+    control_space: str = "abc"
+
+    def _validate(self):
+        if self.control_space != "abc":
+            raise NotImplementedError(
+                "control_space='dq' is not ported yet; it arrives with the "
+                "universal wraps of queue 2, item 7 of the port")
+
+    def _build_state_names(self):
+        return (list(self.load.state_names) + [
+            "torque",
+            "i_a", "i_b", "i_c", "i_sd", "i_sq",
+            "u_a", "u_b", "u_c", "u_sd", "u_sq",
+            "epsilon",
+        ] + self._u_sup_names())
+
+    def _build_state_space(self):
+        low = -np.ones(len(self.state_names))
+        high = np.ones(len(self.state_names))
+        for j in self._u_sup_indices():
+            low[j] = 0.0
+        self.state_space_low = low
+        self.state_space_high = high
+
+    @property
+    def eps_idx(self):
+        """Index of epsilon inside the ode_state vector."""
+        return self.n_mech + len(self.motor.currents)
+
+    # ---------------- batched functions ----------------
+
+    def reset_from_u(self, u, n: int, device):
+        """physical_systems.py:256-287 (component order: motor, load, supply)."""
+        motor_state, mech_state, u_sup, sup_state = self._reset_parts(u, n, device)
         ode_state = torch.cat([mech_state, motor_state], dim=1)
-        u_sup, sup_state = self.supply.reset_u(self.sp, u_s, n, dtype, device)
         eps = ode_state[:, self.eps_idx]
         eps = torch.where(eps > math.pi, eps - 2 * math.pi, eps)
-        conv_state = self.converter.init_state(n, device)
-        u_abc = torch.tensor(self.converter.u_reset, dtype=dtype, device=device) * u_sup[:, 0:1]
+        u_abc = torch.tensor(self.converter.u_reset, dtype=self.dtype, device=device) * u_sup[:, 0:1]
         u_dq = abc_to_dq(u_abc, eps)
         i_dq = ode_state[:, self.n_mech: self.n_mech + 2]
         i_abc = dq_to_abc(i_dq, eps)
         torque = self.motor.torque(self.mp, motor_state)
         system_state = torch.cat(
             [mech_state, torque[:, None], i_abc, i_dq, u_abc, u_dq, eps[:, None], u_sup], dim=1)
-        ps = PhysicsState(
-            ode_state=ode_state.contiguous(),
-            conv_state=conv_state,
-            sup_state=sup_state,
-            t=torch.zeros((n,), dtype=dtype, device=device),
-            k=torch.zeros((n,), dtype=torch.int32, device=device),
-        )
+        ps = self._physics_state(ode_state, self.converter.init_state(n, device), sup_state, n,
+                                 device)
         return ps, system_state / self.limits_tensor(device)
 
     def simulate(self, ps: PhysicsState, action, noise=None):

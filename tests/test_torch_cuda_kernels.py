@@ -152,3 +152,45 @@ def test_cuda_sync_kernels_match_plain_versions(env_id):
         assert ok.all() if kern in (sf.sync_rollout_buffer, sf.sync_record_buffer) else ok.mean() >= 0.99
     torch.cuda.synchronize()
     assert all(v == 1 for v in sf.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["Finite-CC-ExtExDc-v0", "Cont-SC-ShuntDc-v0"])
+def test_cuda_dc_kernels_match_plain_versions(env_id):
+    """The universal DC-family kernels (csrc/fused_dc.cu, fused_dc_record.cu)
+    on the two-channel finite id and a dynamic-speed continuous one: the
+    buffer modes in every env, the random modes in 99% of envs, at
+    rtol 1e-4 / atol 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+
+    dev = torch.device("cuda")
+    c = dcf.DcConsts(gt.make_functional(env_id, device=dev))
+    R, T = 4, 64
+    rng = np.random.default_rng(11)
+    start = ([torch.as_tensor(rng.uniform(0, 100, (R, 128)).astype(np.float32), device=dev)]
+             if c.mech else [])
+    start += [torch.as_tensor(rng.uniform(-100, 100, (R, 128)).astype(np.float32), device=dev)
+              for _ in range(c.n_el)]
+    ch = (2,) if c.n_ch == 2 else ()
+    if c.finite:
+        acts = torch.as_tensor(rng.integers(0, 4, (T,) + ch + (R, 128)).astype(np.int32), device=dev)
+    else:
+        acts = torch.as_tensor(rng.uniform(-1, 1, (T,) + ch + (R, 128)).astype(np.float32),
+                               device=dev)
+    dcf.reset_launches()
+    for kern, plain, args in [
+        (dcf.dc_rollout_buffer, dcf.dc_rollout_buffer_plain, (start, acts)),
+        (dcf.dc_record_buffer, dcf.dc_record_buffer_plain, (start, acts)),
+        (dcf.dc_rollout_random, dcf.dc_rollout_random_plain, (5, start, T)),
+        (dcf.dc_record_random, dcf.dc_record_random_plain, (5, start, T)),
+    ]:
+        got, want = kern(c, *args), plain(c, *args)
+        ok = np.ones(R * 128, bool)
+        for g, w in zip(got, want):
+            g, w = g.cpu().double().numpy(), w.cpu().double().numpy()
+            ok &= (np.abs(g - w) <= 1e-4 + 1e-4 * np.abs(w)).reshape(-1, R * 128).all(axis=0)
+        assert ok.all() if kern in (dcf.dc_rollout_buffer, dcf.dc_record_buffer) else ok.mean() >= 0.99
+    torch.cuda.synchronize()
+    assert all(v == 1 for v in dcf.LAUNCHES.values())

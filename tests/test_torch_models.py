@@ -54,7 +54,8 @@ def test_ode_and_torque_match_jax(factory, ode, torque):
     np.testing.assert_allclose(got_t, want_t, rtol=1e-6, atol=1e-3)
 
 
-@pytest.mark.parametrize("factory", ["pmsm", "synrm"])
+@pytest.mark.parametrize("factory", ["pmsm", "synrm", "permex_dc", "series_dc", "shunt_dc",
+                                     "extex_dc"])
 @pytest.mark.parametrize("field", ["parameter", "limits", "nominal", "initializer",
                                    "ode_states", "currents", "voltages"])
 def test_motor_spec_matches_jax(factory, field):
@@ -127,7 +128,9 @@ def test_system_layout_matches_jax(env_id):
     np.testing.assert_array_equal(tps.state_space_low, np.asarray(jps.state_space_low))
     np.testing.assert_array_equal(tps.state_space_high, np.asarray(jps.state_space_high))
     assert tenv.tau == jenv.tau
-    if env_id.startswith("Finite"):
+    if hasattr(jenv.action_space, "nvec"):  # the ExtExDc multi converter
+        assert tenv.action_space.nvec == jenv.action_space.nvec
+    elif env_id.startswith("Finite"):
         assert tenv.action_space.n == jenv.action_space.n
     else:
         np.testing.assert_array_equal(tenv.action_space.low, np.asarray(jenv.action_space.low))
@@ -141,7 +144,7 @@ def test_system_layout_matches_jax(env_id):
 
 
 @pytest.mark.parametrize("env_id,slice_no", [("Cont-CC-SCIM-v0", 3), ("Finite-TC-EESM-v0", 3),
-                                             ("Finite-CC-PermExDc-v0", 3)])
+                                             ("Finite-CC-SRM-v0", 3)])
 def test_unported_ids_raise(env_id, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         gt.make_functional(env_id, device="cpu")

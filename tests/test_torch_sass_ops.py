@@ -60,3 +60,28 @@ def test_loop_counts_split_always_from_conditional():
 ])
 def test_classify(op, args, want):
     assert sass_ops.classify(op, args) == want
+
+
+SASS_TWO_LOOPS = """
+        Function : _Z3twoPfi
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/               @P2 BRA 0x60 ;
+        /*0020*/                   FFMA R2, R2, R3, R4 ;
+        /*0030*/                   MUFU.EX2 R5, R2 ;
+        /*0040*/                   ISETP.NE.AND P1, PT, R0, UR4, PT ;
+        /*0050*/               @P1 BRA 0x20 ;
+        /*0060*/                   FADD R2, R2, R5 ;
+        /*0070*/                   ISETP.NE.AND P1, PT, R0, UR4, PT ;
+        /*0080*/               @P1 BRA 0x60 ;
+        /*0090*/                   EXIT ;
+"""
+
+
+def test_second_loop_counts_the_loop_outside_the_main_one():
+    """A random kernel's two step loops (with and without the reference
+    advance): ``second`` counts the smaller one, and ``step_ops`` reads it
+    from a substring ending in #2."""
+    insns = sass_ops.functions(SASS_TWO_LOOPS)["_Z3twoPfi"]
+    assert sass_ops.loop_counts(insns)["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 1}
+    assert sass_ops.loop_counts(insns, second=True)["always"] == {"fp32": 1, "alu": 1, "imad": 0,
+                                                                  "xu": 0}

@@ -112,7 +112,7 @@ def test_buffer_rollout_matches_jax_interpret(env_id, finite, mech, ref_names):
             np.testing.assert_allclose(g, w, **BUF)
 
 
-@pytest.mark.parametrize("env_id", gt.ENV_IDS)
+@pytest.mark.parametrize("env_id", gt.SYNC_ENV_IDS)
 def test_general_path_matches_jax_env(env_id):
     jenv, tenv = const_envs(env_id)
     finite = env_id.startswith("Finite")
@@ -230,14 +230,14 @@ def test_random_rollout_statistics_match_jax_env(env_id, n_state):
     assert all(bool(torch.isfinite(s).all()) for s in states)
 
 
-@pytest.mark.parametrize("env_id", gt.ENV_IDS)
+@pytest.mark.parametrize("env_id", gt.SYNC_ENV_IDS)
 def test_fused_state_arity_matches_jax(env_id):
     tenv = gt.make_functional(env_id, device="cpu")
     assert fr.fused_state_arity(tenv) == jax_arity(gemx.make_functional(env_id))
     assert sf.SyncConsts(tenv).n_state == fr.fused_state_arity(tenv)
 
 
-@pytest.mark.parametrize("motor", ["PermExDc", "SCIM", "EESM", "DFIM", "SRM"])
+@pytest.mark.parametrize("motor", ["SCIM", "EESM", "DFIM", "SRM"])
 def test_dispatch_raises_for_other_families(motor):
     env = types.SimpleNamespace(physical_system=types.SimpleNamespace(
         motor=types.SimpleNamespace(kind=motor)))

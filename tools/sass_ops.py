@@ -6,8 +6,9 @@ Run on a machine with the CUDA toolkit, from the root of a checkout:
 
     python3 tools/sass_ops.py [kernel ...]
 
-It builds ``csrc/fused_pmsm.cu``, ``csrc/fused_policy.cu`` and
-``csrc/fused_sync.cu`` (as the package does at first use) and prints one
+It builds ``csrc/fused_pmsm.cu``, ``csrc/fused_policy.cu``,
+``csrc/fused_sync.cu``, ``csrc/fused_dc.cu`` and ``csrc/fused_dc_record.cu``
+(as the package does at first use) and prints one
 JSON line per kernel; a template instance is named by a substring of its
 mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1E`` for H = 16,
 categorical, Wiener.
@@ -104,14 +105,23 @@ def _target(args):
     return None
 
 
-def loop_counts(insns) -> dict:
-    """Always-executed and conditional counts of the main loop's body."""
+def loop_counts(insns, second=False) -> dict:
+    """Always-executed and conditional counts of the main loop's body, or
+    (``second``) of the largest loop outside it: a random kernel's step loop
+    without the reference advance, which it takes when every reference is
+    constant."""
     addr = [a for a, *_ in insns]
     back = [(i, _target(args)) for i, (a, _p, op, args) in enumerate(insns)
             if op.startswith("BRA") and _target(args) is not None and _target(args) <= a]
     if not back:
         raise ValueError("no loop in this function")
     latch_i, head = max(back, key=lambda b: addr[b[0]] - b[1])
+    if second:
+        lo_m, hi_m = head, addr[latch_i]
+        back = [b for b in back if addr[b[0]] < lo_m or b[1] > hi_m]
+        if not back:
+            raise ValueError("no second loop in this function")
+        latch_i, head = max(back, key=lambda b: addr[b[0]] - b[1])
     lo, hi = addr.index(head), latch_i
     body = insns[lo:hi + 1]
     # basic blocks: leaders at the head, branch targets and after branches
@@ -186,14 +196,16 @@ def lib_functions(lib_path) -> dict:
 
 def step_ops(lib_path, kernels) -> dict:
     """``{kernel: loop_counts(...)}`` for each kernel whose mangled name
-    holds the given substring, from ``cuobjdump -sass lib_path``."""
+    holds the given substring, from ``cuobjdump -sass lib_path``; a
+    substring ending in ``#2`` counts the second loop (``loop_counts``)."""
     funcs = lib_functions(lib_path)
     out = {}
     for k in kernels:
-        names = [f for f in funcs if k in f]
+        sub, mark, _ = k.partition("#")
+        names = [f for f in funcs if sub in f]
         if len(names) != 1:
-            raise ValueError(f"{k!r} matches {len(names)} functions of {lib_path}")
-        out[k] = loop_counts(funcs[names[0]])
+            raise ValueError(f"{sub!r} matches {len(names)} functions of {lib_path}")
+        out[k] = loop_counts(funcs[names[0]], second=bool(mark))
     return out
 
 
@@ -217,6 +229,22 @@ STEP_INSTANCES = {
         "sync_record_buffer": "sync_record_buffer_kernelILb0ELb1E",
         "sync_rollout_random/Finite-CC-PMSM-v0": "sync_rollout_random_kernelILb1ELb0ELi2E",
         "sync_record_random/Finite-CC-PMSM-v0": "sync_record_random_kernelILb1ELb0ELi2E",
+    },
+    # <FINITE, MECH, MC, NREF> (MC: 0 one current, 1 ShuntDc, 2 ExtExDc):
+    # Cont-SC-ShuntDc-v0 (0, 1, 1, 1) for each kernel, and
+    # Finite-CC-PermExDc-v0 (1, 0, 0, 1) for the random ones
+    "fused_dc": {
+        "dc_rollout_random": "dc_rollout_random_kernelILb0ELb1ELi1ELi1E",
+        "dc_rollout_buffer": "dc_rollout_buffer_kernelILb0ELb1ELi1E",
+        "dc_rollout_random/Finite-CC-PermExDc-v0": "dc_rollout_random_kernelILb1ELb0ELi0ELi1E",
+        # its loop without the reference advance: constant references
+        "dc_rollout_random/Finite-CC-PermExDc-v0/const":
+            "dc_rollout_random_kernelILb1ELb0ELi0ELi1E#2",
+    },
+    "fused_dc_record": {
+        "dc_record_random": "dc_record_random_kernelILb0ELb1ELi1ELi1E",
+        "dc_record_buffer": "dc_record_buffer_kernelILb0ELb1ELi1E",
+        "dc_record_random/Finite-CC-PermExDc-v0": "dc_record_random_kernelILb1ELb0ELi0ELi1E",
     },
 }
 

@@ -3,10 +3,11 @@
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
-    python3 tools/torch_profile.py [--envs 16384] [--steps 20]
+    python3 tools/torch_profile.py [--envs 16384] [--steps 20] [--env-id ID ...]
 
 Profiles (torch.profiler, CPU + CUDA activities) a window of the general
-path (``VectorEnv.rollout`` of Finite-CC-PMSM-v0 under random actions) and
+path (``VectorEnv.rollout`` under the uniform random policy of the env's
+action space; Finite-CC-PMSM-v0 unless ``--env-id`` names others) and
 prints one JSON line: wall time (host clock), device busy time (the sum of
 the device ops' time), the device's idle share, device ops per env-step
 and the top device ops.  If the profiler records no device time, the
@@ -57,6 +58,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--envs", type=int, default=16384)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--env-id", nargs="+", default=["Finite-CC-PMSM-v0"])
     args = ap.parse_args()
     root = Path(__file__).resolve().parent.parent
     sys.path.insert(0, str(root))
@@ -68,15 +70,16 @@ def main():
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    venv = gt.make("Finite-CC-PMSM-v0", n_envs=args.envs)
-    state, _ = venv.reset(0)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    policy = gt.random_policy(8)
-    state, _r, _t = venv.rollout(state, policy, 10, gen)  # warm-up
-    general = profile_window(torch, lambda: venv.rollout(state, policy, args.steps, gen),
-                             args.steps, args.envs)
-    print(json.dumps({"window": "general_path", "envs": args.envs, "steps": args.steps,
-                      "card": card, **general}), flush=True)
+    for env_id in args.env_id:
+        venv = gt.make(env_id, n_envs=args.envs)
+        state, _ = venv.reset(0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        policy = gt.random_policy_for(venv.env)
+        state, _r, _t = venv.rollout(state, policy, 10, gen)  # warm-up
+        general = profile_window(torch, lambda: venv.rollout(state, policy, args.steps, gen),
+                                 args.steps, args.envs)
+        print(json.dumps({"window": "general_path", "env_id": env_id, "envs": args.envs,
+                          "steps": args.steps, "card": card, **general}), flush=True)
     print(card, flush=True)
 
 
