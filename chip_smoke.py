@@ -43,7 +43,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    11. ppo_learn  tools/torch_ppo_learn.py: 1200 PPO iterations at full
             width must reach a mean reward above -0.11 over the last 10
             and 0.05 above the first 5
-12. (the rows of slices 1 and 2 of the kernels line, see 17)
+12. (the rows of slices 1 and 2 of the kernels line, see 26)
 13. sync_kernels  slice 3, the universal synchronous family
             (csrc/fused_sync.cu): for each of the 12 {Finite, Cont} x
             {CC, TC, SC} x {PMSM, SynRM} ids, each of the 4 kernels against
@@ -70,7 +70,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
             recorder at 1024 steps on both (GB/s); the general path
             (VectorEnv.rollout, random duty) on Cont-SC-PMSM-v0 at 200 steps;
             the launches of phases 14-16 must be exactly what they make
-17. (the rows of slices 1 to 3 of the kernels line, see 22)
+17. (the rows of slices 1 to 3 of the kernels line, see 26)
 18. dc_kernels  slice 4, the universal DC family (csrc/fused_dc.cu,
             csrc/fused_dc_record.cu): for each of the 24 {Finite, Cont} x
             {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc} ids, each
@@ -95,10 +95,36 @@ Phases (each prints one JSON line; any failure exits non-zero):
             ids (GB/s); the general path (VectorEnv.rollout, the random
             policy of the action space) on Cont-SC-SeriesDc-v0 at 200 steps;
             the launches of phases 19-21 must be exactly what they make
-22. kernels line (all 16 kernels; a policy kernel's launches are the sum
+22. induction_kernels  slice 5, the universal induction family
+            (csrc/fused_induction.cu, csrc/fused_induction_record.cu): for
+            each of the 6 {Finite, Cont} x {CC, TC, SC} SCIM ids, each of
+            the 4 kernels against its plain version at 16384 envs x 128
+            steps (timed on Cont-SC-SCIM-v0, the instance the bounds count);
+            the two random kernels again at 1024 steps on Finite-CC-SCIM-v0
+            and Cont-SC-SCIM-v0
+23.-25. the slice-5 main path, counted from zero:
+   23. induction_env  for each id, the port's env (VectorEnv's reset, the
+            env's step without autoreset, constant references, an action
+            buffer, 16384 envs x 40 steps) against both buffer kernels,
+            reached through the dispatch, rtol 1e-4 / atol 2e-3
+            (tests/test_pallas_families.py:70-72)
+   24. induction_dispatch  for each id, make_fused_rollout(env, 200, 16384)
+            and make_fused_record_rollout(env, 200, 16384) must launch exactly
+            induction_rollout_random and induction_record_random once each
+            and no other kernel; output checks as phase 20's, the currents
+            inside the limit circle, and the share of env-steps that reset
+   25. induction_timings  at 16384 envs: the random rollout at 65536 steps
+            on Cont-TC-SCIM-v0 (bench.py:810-812), Finite-CC-SCIM-v0 and
+            Cont-SC-SCIM-v0; the random recorder at 1024 steps on the last
+            two (GB/s); each with its share of env-steps that reset; the
+            general path (VectorEnv.rollout, the random policy of the action
+            space) on Cont-SC-SCIM-v0 at 200 steps; the launches of phases
+            23-25 must be exactly what they make
+26. kernels line (all 20 kernels; a policy kernel's launches are the sum
     over the paths of phases 9-11, listed by path; a sync kernel's those of
-    phases 14-16, a DC kernel's those of phases 19-21), the card line,
-    then {"ok": true, "device": {...}}
+    phases 14-16, a DC kernel's those of phases 19-21, an induction
+    kernel's those of phases 23-25), the card line, then
+    {"ok": true, "device": {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
 largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
@@ -132,6 +158,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 N_ENVS = 16384
 T_COMPARE = 256
@@ -170,6 +197,10 @@ DC_GENERAL = "Cont-SC-SeriesDc-v0"
 DC_CONST_REFS = {"CC": {"PermExDc": [("i", 0.2)], "SeriesDc": [("i", 0.2)],
                         "ShuntDc": [("i_a", 0.2)], "ExtExDc": [("i_a", 0.2), ("i_e", 0.1)]},
                  "TC": [("torque", 0.3)], "SC": [("omega", 0.2)]}
+# slice 5: the six SCIM ids (constant references as slice 3's)
+IND_TIMED = "Cont-SC-SCIM-v0"      # the ids whose instances STEP_INSTANCES counts
+IND_BENCH = "Cont-TC-SCIM-v0"      # bench.py:810-812
+IND_CC = "Finite-CC-SCIM-v0"
 # The pipes a kernel's bound counts, where not all.  Most of REINFORCE's ALU
 # and IMAD instructions are the 64-bit arithmetic of its 2 P trace
 # addresses, recomputed each step (opaque64 in csrc/policy_step.cuh keeps
@@ -286,7 +317,7 @@ def run(dev, card):
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     libs = cuda_build.build(["fused_pmsm", "fused_policy", "fused_sync", "fused_dc",
-                             "fused_dc_record"])
+                             "fused_dc_record", "fused_induction", "fused_induction_record"])
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
                     for ln in cuda_build.BUILD_LOG.get(name, "").splitlines()
@@ -818,16 +849,157 @@ def run_rl(dev, card, ops):
     return line
 
 
+def held_random(torch, label, name, got, ref, angle, worst, share):
+    """The random-mode rule on a family kernel's and its plain version's
+    outputs (``angle``: which outputs are angles): at least 99.9% of envs
+    match and the mean reward agrees to 1e-4 relative.  Keeps the worst
+    error and the least share per kernel in ``worst`` and ``share``;
+    returns the row entry, raises on failure."""
+    # the reward sums follow the states (rollout), the reward precedes done
+    # (recorder)
+    r_idx = len(got) - 6 if name.endswith("_rollout_random") else len(got) - 2
+    m, err = env_match(torch, got, ref, angle, N_ENVS)
+    mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
+    rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
+    share[name] = min(share[name], m)
+    worst[name] = max(worst[name], err)
+    if m < 0.999 or rel > 1e-4:
+        raise AssertionError(f"{label} {name}: {m:.5f} of envs match (need 0.999), "
+                             f"mean reward rel err {rel:.2e} (need 1e-4), max abs err {err}")
+    return {"max_abs_err": err, "match_share": m, "mean_reward": mean_k,
+            "mean_reward_rel_err": rel}
+
+
+def compare_family_kernels(torch, gt, dev, fam, ids, timed_id, deep_ids, ops):
+    """A universal family's four kernels (``fam.mod``, named
+    ``<fam.prefix>_<mode>``) against their plain versions on every id of
+    ``ids`` at T_SYNC_COMPARE steps, timed with their bounds on
+    ``timed_id``; the two random kernels again at the recorder's main-path
+    depth on ``deep_ids``, where drift between kernel and plain version
+    would show.  Emits one line per id and one for the deep runs; returns
+    ``(worst, share, timed)`` per kernel."""
+    mod, N = fam.mod, N_ENVS
+    worst = dict.fromkeys(mod.KERNELS, 0.0)
+    share = dict.fromkeys(mod.KERNELS, 1.0)
+    timed = {}
+    for env_id in ids:
+        c = fam.consts(gt.make_functional(env_id, device=dev))
+        start, acts = fam.planes(c), fam.actions(c, T_SYNC_COMPARE)
+        row = {"phase": f"{fam.prefix}_kernels", "env_id": env_id, "envs": N,
+               "steps": T_SYNC_COMPARE}
+        for mode in ("rollout_buffer", "record_buffer", "rollout_random", "record_random"):
+            name = f"{fam.prefix}_{mode}"
+            kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+            args = (start, acts) if mode.endswith("buffer") else (SEED, start, T_SYNC_COMPARE)
+            if env_id == timed_id:
+                ms, got = cuda_ms(torch, lambda: kern(c, *args), reps=21)
+                plain_ms, ref = host_ms(torch, lambda: plain(c, *args))
+                b_ms, b_by = bound_ms(N * T_SYNC_COMPARE, ops[name],
+                                      fam.nbytes(c, name, N, T_SYNC_COMPARE))
+                timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            else:
+                got = kern(c, *args)
+                torch.cuda.synchronize()
+                ref = plain(c, *args)
+            angle = fam.angle(c, len(got))
+            if mode.endswith("buffer"):
+                err = check_buffer(torch, f"{env_id} {name}", got, ref, angle)
+                worst[name] = max(worst[name], err)
+                row[name] = {"max_abs_err": err}
+            else:
+                row[name] = held_random(torch, env_id, name, got, ref, angle, worst, share)
+            del got, ref
+        emit(row)
+    deep = {}
+    for env_id in deep_ids:
+        c = fam.consts(gt.make_functional(env_id, device=dev))
+        start = fam.planes(c)
+        for mode in ("rollout_random", "record_random"):
+            name = f"{fam.prefix}_{mode}"
+            got = getattr(mod, name)(c, SEED, start, T_RECORD)
+            torch.cuda.synchronize()
+            ref = getattr(mod, name + "_plain")(c, SEED, start, T_RECORD)
+            deep[f"{env_id} {name}"] = held_random(torch, env_id, name, got, ref,
+                                                   fam.angle(c, len(got)), worst, share)
+            del got, ref
+    emit({"phase": f"{fam.prefix}_kernels_deep", "envs": N, "steps": T_RECORD, "results": deep})
+    return worst, share, timed
+
+
+def env_vs_buffer_kernels(torch, gt, rg, fr, frec, dev, fam, env_id, refs, atol):
+    """The port's env (VectorEnv's reset, the env's step without autoreset,
+    constant references ``refs``, an action buffer, T_SYNC_ENV steps)
+    against both buffer kernels, reached through the dispatch and started
+    where the env's reset put each env (``fam.cols(c)``: the kernel
+    states' columns of the env's ode state).  Each element must lie within ``atol``
+    + 1e-4 |x| (angles modulo 2 pi); returns the row entry."""
+    N, R = N_ENVS, N_ENVS // 128
+    env_c = gt.make_functional(env_id, device=dev, reference_generator=rg.ReferenceSpec(
+        [rg.ConstReference(n, v) for n, v in refs]))
+    c = fam.consts(env_c)
+    venv = gt.VectorEnv(env_c, N)
+    state, _obs = venv.reset(SEED)
+    acts = fam.actions(c, T_SYNC_ENV)
+    cols = fam.cols(c)
+    start = [state.phys.ode_state[:, j].reshape(R, 128).contiguous() for j in cols]
+    traj, n_viol = [], 0
+    for t in range(T_SYNC_ENV):
+        state, _obs, _r, term = env_c.step(state, fam.env_action(c, acts[t]))
+        n_viol += int(term.sum())
+        traj.append(state.phys.ode_state[:, cols])
+    ode = torch.stack(traj)  # (T, N, n_state)
+    k_final = fr.make_fused_rollout(env_c, T_SYNC_ENV, N, action_mode="buffer")(*start, acts)
+    k_traj = frec.make_fused_record_rollout(env_c, T_SYNC_ENV, N, action_mode="buffer")(*start, acts)
+    k_traj = [k_traj[name] for name in c.state_names]
+    angle = fam.angle(c, c.n_state)
+    errs = []
+    for got, want in ((k_final, [ode[-1, :, j].reshape(R, 128) for j in range(c.n_state)]),
+                      (k_traj, [ode[:, :, j].reshape(T_SYNC_ENV, R, 128)
+                                for j in range(c.n_state)])):
+        err = 0.0
+        for j, (x, y) in enumerate(zip(got, want)):
+            d = angle_err(torch, x, y) if angle[j] else (x - y).abs()
+            bad = (d > atol + 1e-4 * y.abs()) | ~torch.isfinite(x)
+            if bool(bad.any()):
+                raise AssertionError(f"{env_id}: env vs buffer kernel, state {j} off in "
+                                     f"{int(bad.sum())} elements (max {float(d.max()):.3e})")
+            err = max(err, float(d.max()))
+        errs.append(err)
+    return {"max_abs_err_rollout": errs[0], "max_abs_err_record": errs[1],
+            "violations_seen": n_viol}
+
+
+def family_kernel_rows(fam, source, replaces, launches, worst, share, timed, timed_on, n_ids,
+                       main):
+    """A universal family's rows of the kernels line; ``main`` holds the
+    main-path timing (steps, ms, bound_ms) of the two random kernels."""
+    line = []
+    for name in fam.mod.KERNELS:
+        t = timed[name]
+        row = {"name": name, "route": "cuda", "source": source(name),
+               "replaces": replaces[name], "launches": launches[name],
+               "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+               "envs": N_ENVS, "steps": T_SYNC_COMPARE, "timed_on": timed_on,
+               "match_share": share[name], "ids_compared": n_ids}
+        if name in main:
+            m = main[name]
+            row.update(main_steps=m["steps"], main_ms=m["ms"], main_bound_ms=m["bound_ms"])
+        line.append(row)
+    return line
+
+
 def sync_bytes(c, kernel, n, steps):
-    """Bytes a sync kernel must move for ``n`` envs and ``steps`` steps:
-    each input once, each output once."""
+    """Bytes a kernel on a B6 bridge (the sync and induction families) must
+    move for ``n`` envs and ``steps`` steps: each input once, each output
+    once.  ``kernel`` ends in its mode (``..._rollout_random``, ...)."""
     state = 4 * n * c.n_state
     act = (4 if c.finite else 12) * n * steps
-    if kernel == "sync_rollout_random":
+    if kernel.endswith("_rollout_random"):
         return state + 4 * n * (c.n_state + 2) + 16 * n * c.n_ref
-    if kernel == "sync_rollout_buffer":
+    if kernel.endswith("_rollout_buffer"):
         return 2 * state + act
-    if kernel == "sync_record_random":
+    if kernel.endswith("_record_random"):
         return state + 4 * n * steps * (c.n_state + c.n_ref + c.n_act + 2)
     return state + act + 4 * n * steps * c.n_state
 
@@ -866,76 +1038,13 @@ def run_sync(dev, card, ops):
                                device=dev)
 
     # ---- 13. the four kernels against their plain versions, every id -----
-    worst = dict.fromkeys(sf.KERNELS, 0.0)
-    share = dict.fromkeys(sf.KERNELS, 1.0)
-    timed = {}
-
-    def held_random(label, name, c, got, ref):
-        """The random-mode rule on a kernel's and its plain version's
-        outputs; returns the row entry, raises on failure."""
-        angle = [j == c.n_state - 1 for j in range(len(got))]
-        r_idx = c.n_state if name == "sync_rollout_random" else c.n_state + c.n_ref + c.n_act
-        m, err = env_match(torch, got, ref, angle, N)
-        mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
-        rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
-        share[name] = min(share[name], m)
-        worst[name] = max(worst[name], err)
-        if m < 0.999 or rel > 1e-4:
-            raise AssertionError(f"{label} {name}: {m:.5f} of envs match (need 0.999), "
-                                 f"mean reward rel err {rel:.2e} (need 1e-4), max abs err {err}")
-        return {"max_abs_err": err, "match_share": m, "mean_reward": mean_k,
-                "mean_reward_rel_err": rel}
-
-    for env_id in gt.SYNC_ENV_IDS:
-        c = sf.SyncConsts(gt.make_functional(env_id, device=dev))
-        start, acts = planes(c), actions(c, T_SYNC_COMPARE)
-        angle = [j == c.n_state - 1 for j in range(c.n_state)]
-        cases = {
-            "sync_rollout_buffer": (lambda: sf.sync_rollout_buffer(c, start, acts),
-                                    lambda: sf.sync_rollout_buffer_plain(c, start, acts), True),
-            "sync_record_buffer": (lambda: sf.sync_record_buffer(c, start, acts),
-                                   lambda: sf.sync_record_buffer_plain(c, start, acts), True),
-            "sync_rollout_random": (
-                lambda: sf.sync_rollout_random(c, SEED, start, T_SYNC_COMPARE),
-                lambda: sf.sync_rollout_random_plain(c, SEED, start, T_SYNC_COMPARE), False),
-            "sync_record_random": (
-                lambda: sf.sync_record_random(c, SEED, start, T_SYNC_COMPARE),
-                lambda: sf.sync_record_random_plain(c, SEED, start, T_SYNC_COMPARE), False),
-        }
-        row = {"phase": "sync_kernels", "env_id": env_id, "envs": N, "steps": T_SYNC_COMPARE}
-        for name, (kern, plain, buffer) in cases.items():
-            if env_id == SYNC_TIMED:
-                ms, got = cuda_ms(torch, kern, reps=21)
-                plain_ms, ref = host_ms(torch, plain)
-                b_ms, b_by = bound_ms(N * T_SYNC_COMPARE, ops[name],
-                                      sync_bytes(c, name, N, T_SYNC_COMPARE))
-                timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-            else:
-                got = kern()
-                torch.cuda.synchronize()
-                ref = plain()
-            if buffer:
-                err = check_buffer(torch, f"{env_id} {name}", got, ref, angle)
-                worst[name] = max(worst[name], err)
-                row[name] = {"max_abs_err": err}
-            else:
-                row[name] = held_random(env_id, name, c, got, ref)
-            del got, ref
-        emit(row)
-
-    # the random kernels again at the recorder's main-path depth on the two
-    # timed ids, where drift between kernel and plain version would show
-    deep = {}
-    for env_id in (SYNC_SPECIALISED, SYNC_TIMED):
-        c = sf.SyncConsts(gt.make_functional(env_id, device=dev))
-        start = planes(c)
-        for name in ("sync_rollout_random", "sync_record_random"):
-            got = getattr(sf, name)(c, SEED, start, T_RECORD)
-            torch.cuda.synchronize()
-            ref = getattr(sf, name + "_plain")(c, SEED, start, T_RECORD)
-            deep[f"{env_id} {name}"] = held_random(env_id, name, c, got, ref)
-            del got, ref
-    emit({"phase": "sync_kernels_deep", "envs": N, "steps": T_RECORD, "results": deep})
+    fam = SimpleNamespace(
+        mod=sf, prefix="sync", consts=sf.SyncConsts, planes=planes, actions=actions,
+        nbytes=sync_bytes, angle=lambda c, n: [j == c.n_state - 1 for j in range(n)],
+        cols=lambda c: ([0] if c.mech else []) + [1, 2, 3],
+        env_action=lambda c, a: a.reshape(N) if c.finite else a.reshape(3, N).T.contiguous())
+    worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.SYNC_ENV_IDS, SYNC_TIMED,
+                                                 (SYNC_SPECIALISED, SYNC_TIMED), ops)
 
     # ---- 14.-16. the main path: counts from zero ---------------------------
     fs.reset_launches()
@@ -944,44 +1053,10 @@ def run_sync(dev, card, ops):
     dcf.reset_launches()
 
     # 14. the env against the buffer kernels, through the dispatch
-    env_rows = {}
-    for env_id in gt.SYNC_ENV_IDS:
-        refs = SYNC_CONST_REFS[env_id.split("-")[1]]
-        env_c = gt.make_functional(env_id, device=dev, reference_generator=rg.ReferenceSpec(
-            [rg.ConstReference(n, v) for n, v in refs]))
-        c = sf.SyncConsts(env_c)
-        venv = gt.VectorEnv(env_c, N)
-        state, _obs = venv.reset(SEED)
-        acts = actions(c, T_SYNC_ENV)
-        cols = ([0] if c.mech else []) + [1, 2, 3]
-        # the kernels start where the env's reset put each env
-        start = [state.phys.ode_state[:, j].reshape(R, 128).contiguous() for j in cols]
-        traj, n_viol = [], 0
-        for t in range(T_SYNC_ENV):
-            a = acts[t].reshape(N) if c.finite else acts[t].reshape(3, N).T.contiguous()
-            state, _obs, _r, term = env_c.step(state, a)
-            n_viol += int(term.sum())
-            traj.append(state.phys.ode_state[:, cols])
-        ode = torch.stack(traj)  # (T, N, n_state)
-        k_final = fr.make_fused_rollout(env_c, T_SYNC_ENV, N, action_mode="buffer")(*start, acts)
-        k_traj = frec.make_fused_record_rollout(env_c, T_SYNC_ENV, N,
-                                                action_mode="buffer")(*start, acts)
-        k_traj = [k_traj[name] for name in c.state_names]
-        errs = []
-        for got, want in ((k_final, [ode[-1, :, j].reshape(R, 128) for j in range(c.n_state)]),
-                          (k_traj, [ode[:, :, j].reshape(T_SYNC_ENV, R, 128)
-                                    for j in range(c.n_state)])):
-            err = 0.0
-            for j, (x, y) in enumerate(zip(got, want)):
-                d = angle_err(torch, x, y) if j == c.n_state - 1 else (x - y).abs()
-                bad = (d > 1e-3 + 1e-4 * y.abs()) | ~torch.isfinite(x)
-                if bool(bad.any()):
-                    raise AssertionError(f"{env_id}: env vs buffer kernel, state {j} off in "
-                                         f"{int(bad.sum())} elements (max {float(d.max()):.3e})")
-                err = max(err, float(d.max()))
-            errs.append(err)
-        env_rows[env_id] = {"max_abs_err_rollout": errs[0], "max_abs_err_record": errs[1],
-                            "violations_seen": n_viol}
+    # (rtol 1e-4 / atol 1e-3, tests/test_pallas_sync_universal.py:75-77)
+    env_rows = {env_id: env_vs_buffer_kernels(torch, gt, rg, fr, frec, dev, fam, env_id,
+                                              SYNC_CONST_REFS[env_id.split("-")[1]], 1e-3)
+                for env_id in gt.SYNC_ENV_IDS}
     emit({"phase": "sync_env", "envs": N, "steps": T_SYNC_ENV, "ids": env_rows})
 
     # 15. the dispatch: exactly one launch of each random kernel per id
@@ -1102,21 +1177,10 @@ def run_sync(dev, card, ops):
                 "sync_rollout_buffer": "gym_electric_motor_tpu/ops/pallas_sync.py:1085",
                 "sync_record_random": "gym_electric_motor_tpu/ops/pallas_record.py:303",
                 "sync_record_buffer": "gym_electric_motor_tpu/ops/pallas_record.py:147"}
-    line = []
-    for name in sf.KERNELS:
-        t = timed[name]
-        row = {"name": name, "route": "cuda",
-               "source": "gym_electric_motor_tpu_torch/csrc/fused_sync.cu",
-               "replaces": replaces[name], "launches": launches[name],
-               "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
-               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
-               "envs": N, "steps": T_SYNC_COMPARE, "timed_on": SYNC_TIMED,
-               "match_share": share[name], "ids_compared": len(gt.SYNC_ENV_IDS)}
-        if name in ("sync_rollout_random", "sync_record_random"):
-            main = timings[SYNC_TIMED][name]
-            row.update(main_steps=main["steps"], main_ms=main["ms"], main_bound_ms=main["bound_ms"])
-        line.append(row)
-    return line
+    return family_kernel_rows(
+        fam, lambda name: "gym_electric_motor_tpu_torch/csrc/fused_sync.cu", replaces, launches,
+        worst, share, timed, SYNC_TIMED, len(gt.SYNC_ENV_IDS),
+        {name: timings[SYNC_TIMED][name] for name in ("sync_rollout_random", "sync_record_random")})
 
 
 def dc_bytes(c, kernel, n, steps):
@@ -1178,71 +1242,12 @@ def run_dc(dev, card, ops):
         return a.reshape(N) if c.finite else a.reshape(N, 1)
 
     # ---- 18. the four kernels against their plain versions, every id -----
-    worst = dict.fromkeys(dcf.KERNELS, 0.0)
-    share = dict.fromkeys(dcf.KERNELS, 1.0)
-    timed = {}
-
-    def held_random(label, name, c, got, ref):
-        r_idx = c.n_state if name == "dc_rollout_random" else c.n_state + c.n_ref + c.n_ch
-        m, err = env_match(torch, got, ref, [False] * len(got), N)
-        mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
-        rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
-        share[name] = min(share[name], m)
-        worst[name] = max(worst[name], err)
-        if m < 0.999 or rel > 1e-4:
-            raise AssertionError(f"{label} {name}: {m:.5f} of envs match (need 0.999), "
-                                 f"mean reward rel err {rel:.2e} (need 1e-4), max abs err {err}")
-        return {"max_abs_err": err, "match_share": m, "mean_reward": mean_k,
-                "mean_reward_rel_err": rel}
-
-    for env_id in gt.DC_ENV_IDS:
-        c = dcf.DcConsts(gt.make_functional(env_id, device=dev))
-        start, acts = planes(c), actions(c, T_SYNC_COMPARE)
-        cases = {
-            "dc_rollout_buffer": (lambda: dcf.dc_rollout_buffer(c, start, acts),
-                                  lambda: dcf.dc_rollout_buffer_plain(c, start, acts), True),
-            "dc_record_buffer": (lambda: dcf.dc_record_buffer(c, start, acts),
-                                 lambda: dcf.dc_record_buffer_plain(c, start, acts), True),
-            "dc_rollout_random": (
-                lambda: dcf.dc_rollout_random(c, SEED, start, T_SYNC_COMPARE),
-                lambda: dcf.dc_rollout_random_plain(c, SEED, start, T_SYNC_COMPARE), False),
-            "dc_record_random": (
-                lambda: dcf.dc_record_random(c, SEED, start, T_SYNC_COMPARE),
-                lambda: dcf.dc_record_random_plain(c, SEED, start, T_SYNC_COMPARE), False),
-        }
-        row = {"phase": "dc_kernels", "env_id": env_id, "envs": N, "steps": T_SYNC_COMPARE}
-        for name, (kern, plain, buffer) in cases.items():
-            if env_id == DC_TIMED:
-                ms, got = cuda_ms(torch, kern, reps=21)
-                plain_ms, ref = host_ms(torch, plain)
-                b_ms, b_by = bound_ms(N * T_SYNC_COMPARE, ops[name],
-                                      dc_bytes(c, name, N, T_SYNC_COMPARE))
-                timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-            else:
-                got = kern()
-                torch.cuda.synchronize()
-                ref = plain()
-            if buffer:
-                err = check_buffer(torch, f"{env_id} {name}", got, ref, [False] * len(got))
-                worst[name] = max(worst[name], err)
-                row[name] = {"max_abs_err": err}
-            else:
-                row[name] = held_random(env_id, name, c, got, ref)
-            del got, ref
-        emit(row)
-
-    # the random kernels again at the recorder's main-path depth
-    deep = {}
-    for env_id in (DC_BENCH, DC_TIMED):
-        c = dcf.DcConsts(gt.make_functional(env_id, device=dev))
-        start = planes(c)
-        for name in ("dc_rollout_random", "dc_record_random"):
-            got = getattr(dcf, name)(c, SEED, start, T_RECORD)
-            torch.cuda.synchronize()
-            ref = getattr(dcf, name + "_plain")(c, SEED, start, T_RECORD)
-            deep[f"{env_id} {name}"] = held_random(env_id, name, c, got, ref)
-            del got, ref
-    emit({"phase": "dc_kernels_deep", "envs": N, "steps": T_RECORD, "results": deep})
+    fam = SimpleNamespace(
+        mod=dcf, prefix="dc", consts=dcf.DcConsts, planes=planes, actions=actions,
+        nbytes=dc_bytes, angle=lambda c, n: [False] * n,
+        cols=lambda c: ([0] if c.mech else []) + [1, 2][:c.n_el], env_action=env_actions)
+    worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.DC_ENV_IDS, DC_TIMED,
+                                                 (DC_BENCH, DC_TIMED), ops)
 
     # ---- 19.-21. the main path: counts from zero ---------------------------
     fs.reset_launches()
@@ -1255,44 +1260,13 @@ def run_dc(dev, card, ops):
             or any(sf.LAUNCHES.values())
 
     # 19. the env against the buffer kernels, through the dispatch
+    # (rtol 1e-4 / atol 1e-3, tests/test_pallas_dc_universal.py:83-85)
     env_rows = {}
     for env_id in gt.DC_ENV_IDS:
         _a, task, motor, _v = env_id.split("-")
         refs = DC_CONST_REFS[task][motor] if task == "CC" else DC_CONST_REFS[task]
-        env_c = gt.make_functional(env_id, device=dev, reference_generator=rg.ReferenceSpec(
-            [rg.ConstReference(n, v) for n, v in refs]))
-        c = dcf.DcConsts(env_c)
-        venv = gt.VectorEnv(env_c, N)
-        state, _obs = venv.reset(SEED)
-        acts = actions(c, T_SYNC_ENV)
-        cols = ([0] if c.mech else []) + [1, 2][:c.n_el]
-        # the kernels start where the env's reset put each env
-        start = [state.phys.ode_state[:, j].reshape(R, 128).contiguous() for j in cols]
-        traj, n_viol = [], 0
-        for t in range(T_SYNC_ENV):
-            state, _obs, _r, term = env_c.step(state, env_actions(c, acts[t]))
-            n_viol += int(term.sum())
-            traj.append(state.phys.ode_state[:, cols])
-        ode = torch.stack(traj)  # (T, N, n_state)
-        k_final = fr.make_fused_rollout(env_c, T_SYNC_ENV, N, action_mode="buffer")(*start, acts)
-        k_traj = frec.make_fused_record_rollout(env_c, T_SYNC_ENV, N,
-                                                action_mode="buffer")(*start, acts)
-        k_traj = [k_traj[name] for name in c.state_names]
-        errs = []
-        for got, want in ((k_final, [ode[-1, :, j].reshape(R, 128) for j in range(c.n_state)]),
-                          (k_traj, [ode[:, :, j].reshape(T_SYNC_ENV, R, 128)
-                                    for j in range(c.n_state)])):
-            err = 0.0
-            for j, (x, y) in enumerate(zip(got, want)):
-                d = (x - y).abs()
-                bad = (d > 1e-3 + 1e-4 * y.abs()) | ~torch.isfinite(x)
-                if bool(bad.any()):
-                    raise AssertionError(f"{env_id}: env vs buffer kernel, state {j} off in "
-                                         f"{int(bad.sum())} elements (max {float(d.max()):.3e})")
-                err = max(err, float(d.max()))
-            errs.append(err)
-        env_rows[env_id] = {"max_abs_err_rollout": errs[0], "max_abs_err_record": errs[1],
-                            "violations_seen": n_viol}
+        env_rows[env_id] = env_vs_buffer_kernels(torch, gt, rg, fr, frec, dev, fam, env_id, refs,
+                                                 1e-3)
     emit({"phase": "dc_env", "envs": N, "steps": T_SYNC_ENV, "ids": env_rows})
 
     # 20. the dispatch: exactly one launch of each random kernel per id
@@ -1408,21 +1382,189 @@ def run_dc(dev, card, ops):
                 "dc_rollout_buffer": "gym_electric_motor_tpu/ops/pallas_dc.py:1240",
                 "dc_record_random": "gym_electric_motor_tpu/ops/pallas_record.py:303",
                 "dc_record_buffer": "gym_electric_motor_tpu/ops/pallas_record.py:147"}
-    line = []
-    for name in dcf.KERNELS:
-        t = timed[name]
-        row = {"name": name, "route": "cuda",
-               "source": f"gym_electric_motor_tpu_torch/csrc/{dcf.LIBRARY[name]}.cu",
-               "replaces": replaces[name], "launches": launches[name],
-               "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
-               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
-               "envs": N, "steps": T_SYNC_COMPARE, "timed_on": DC_TIMED,
-               "match_share": share[name], "ids_compared": len(gt.DC_ENV_IDS)}
-        if name in ("dc_rollout_random", "dc_record_random"):
-            main = timings[DC_TIMED][name]
-            row.update(main_steps=main["steps"], main_ms=main["ms"], main_bound_ms=main["bound_ms"])
-        line.append(row)
-    return line
+    return family_kernel_rows(
+        fam, lambda name: f"gym_electric_motor_tpu_torch/csrc/{dcf.LIBRARY[name]}.cu", replaces,
+        launches, worst, share, timed, DC_TIMED, len(gt.DC_ENV_IDS),
+        {name: timings[DC_TIMED][name] for name in ("dc_rollout_random", "dc_record_random")})
+
+
+def run_induction(dev, card, ops):
+    """Slice 5, the universal induction family: the four kernels of
+    csrc/fused_induction.cu and csrc/fused_induction_record.cu against their
+    plain versions on the six SCIM ids, then the main path (env against the
+    buffer kernels, the dispatch, timings) with its launches counted from
+    zero.  Returns the induction kernels' rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+    from gym_electric_motor_tpu_torch.ops import fused_record as frec
+    from gym_electric_motor_tpu_torch.ops import fused_rollout as fr
+    from gym_electric_motor_tpu_torch.ops import fused_sync as fs
+    from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
+
+    N, R = N_ENVS, N_ENVS // 128
+    rng = np.random.default_rng(SEED)
+
+    def planes(c):
+        """Speed (under a dynamic load) in [0, 100) rad/s, currents within
+        6 A (the limit is 5.5 A, so some random-mode envs reset at once),
+        fluxes within 0.5 Wb."""
+        bounds = ([(0, 100)] if c.mech else []) + [(-6, 6)] * 2 + [(-0.5, 0.5)] * 2
+        return [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+                for lo, hi in bounds]
+
+    def actions(c, steps):
+        if c.finite:
+            return torch.as_tensor(rng.integers(0, 8, (steps, R, 128)).astype(np.int32), device=dev)
+        return torch.as_tensor(rng.uniform(-1.0, 1.0, (steps, 3, R, 128)).astype(np.float32),
+                               device=dev)
+
+    # ---- 22. the four kernels against their plain versions, every id -----
+    fam = SimpleNamespace(
+        mod=indf, prefix="induction", consts=indf.InductionConsts, planes=planes,
+        actions=actions, nbytes=sync_bytes, angle=lambda c, n: [False] * n,
+        cols=lambda c: ([0] if c.mech else []) + [1, 2, 3, 4],
+        env_action=lambda c, a: a.reshape(N) if c.finite else a.reshape(3, N).T.contiguous())
+    worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.SCIM_ENV_IDS, IND_TIMED,
+                                                 (IND_CC, IND_TIMED), ops)
+
+    # ---- 23.-25. the main path: counts from zero ---------------------------
+    for module in (fs, fp, sf, dcf, indf):
+        module.reset_launches()
+
+    def others_launched():
+        return any(any(m.LAUNCHES.values()) for m in (fs, fp, sf, dcf))
+
+    # 23. the env against the buffer kernels, through the dispatch
+    # (rtol 1e-4 / atol 2e-3, tests/test_pallas_families.py:70-72)
+    env_rows = {env_id: env_vs_buffer_kernels(torch, gt, rg, fr, frec, dev, fam, env_id,
+                                              SYNC_CONST_REFS[env_id.split("-")[1]], 2e-3)
+                for env_id in gt.SCIM_ENV_IDS}
+    emit({"phase": "induction_env", "envs": N, "steps": T_SYNC_ENV, "ids": env_rows})
+
+    # 24. the dispatch: exactly one launch of each random kernel per id
+    disp, checks = {}, {}
+    for env_id in gt.SCIM_ENV_IDS:
+        env = gt.make_functional(env_id, device=dev)
+        n_state = fr.fused_state_arity(env)
+        z = [torch.zeros((R, 128), device=dev) for _ in range(n_state)]
+        before = dict(indf.LAUNCHES)
+        roll = fr.make_fused_rollout(env, T_DISPATCH, N)(SEED, *z)
+        rec = frec.make_fused_record_rollout(env, T_DISPATCH, N)(SEED, *z)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in indf.LAUNCHES.items() if v != before[k]}
+        if delta != {"induction_rollout_random": 1, "induction_record_random": 1} \
+                or others_launched():
+            raise AssertionError(f"{env_id}: the dispatch launched {delta} (other kernels: "
+                                 f"{others_launched()}), expected one induction_rollout_random "
+                                 "and one induction_record_random")
+        c = indf.InductionConsts(env)
+        isa, isb = roll[n_state - 4], roll[n_state - 3]
+        rv = roll[n_state + 2]
+        lo = min(row["mlo"] for row in c.rows)
+        hi = max(row["mhi"] for row in c.rows)
+        ok = {
+            "finite": all(bool(torch.isfinite(x).all()) for x in roll)
+            and all(bool(torch.isfinite(x.float()).all()) for x in rec.values()),
+            "in_current_circle": bool(((isa * isa + isb * isb) * c.f["inv_ilim2"]
+                                       <= 1.0 + 1e-5).all()),
+            "ref_in_margin": bool(((rv >= lo - 1e-6) & (rv <= hi + 1e-6)).all()),
+            "record_equals_rollout": bool(
+                torch.allclose(rec["reward"].sum(0), roll[n_state], rtol=1e-4, atol=1e-3)
+                and all(torch.equal(rec[nm][-1], roll[j]) for j, nm in enumerate(c.state_names))),
+        }
+        checks[env_id] = ok
+        disp[env_id] = {"launches": delta,
+                        "mean_reward": float(roll[n_state].double().sum()) / (N * T_DISPATCH),
+                        "reset_share": float(roll[n_state + 1].double().sum()) / (N * T_DISPATCH)}
+        del roll, rec
+    emit({"phase": "induction_dispatch", "envs": N, "steps": T_DISPATCH, "ids": disp,
+          "checks": checks})
+    failed = [f"{i}:{k}" for i, ok in checks.items() for k, v in ok.items() if not v]
+    if failed:
+        raise AssertionError(f"induction dispatch output checks failed: {failed}")
+
+    # 25. timings at the bench width; the share of env-steps that reset
+    timings = {}
+    for env_id in (IND_BENCH, IND_CC, IND_TIMED):
+        env = gt.make_functional(env_id, device=dev)
+        c = indf.InductionConsts(env)
+        z = [torch.zeros((R, 128), device=dev) for _ in range(c.n_state)]
+        key = "" if env_id == IND_TIMED else "/" + env_id
+        roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
+        r_ms, out = cuda_ms(torch, lambda: roll(SEED, *z), reps=SYNC_REPS)
+        row = {"induction_rollout_random": {
+            "steps": T_ROLLOUT, "ms": r_ms, "env_steps_per_s": N * T_ROLLOUT / (r_ms / 1e3),
+            "bound_ms": bound_ms(N * T_ROLLOUT, ops["induction_rollout_random" + key],
+                                 sync_bytes(c, "induction_rollout_random", N, T_ROLLOUT))[0],
+            "mean_reward": float(out[c.n_state].double().sum()) / (N * T_ROLLOUT),
+            "reset_share": float(out[c.n_state + 1].double().sum()) / (N * T_ROLLOUT),
+            "finite": all(bool(torch.isfinite(x).all()) for x in out)}}
+        if not row["induction_rollout_random"]["finite"]:
+            raise AssertionError(f"{env_id}: the 65536-step rollout produced non-finite values")
+        if env_id != IND_BENCH:
+            rec = frec.make_fused_record_rollout(env, T_RECORD, N)
+            c_ms, rec_out = cuda_ms(torch, lambda: rec(SEED, *z), reps=SYNC_REPS)
+            rec_bytes = sum(x.numel() * x.element_size() for x in rec_out.values())
+            row["induction_record_random"] = {
+                "steps": T_RECORD, "ms": c_ms, "bytes_written": rec_bytes,
+                "env_steps_per_s": N * T_RECORD / (c_ms / 1e3),
+                "GB_per_s": rec_bytes / (c_ms / 1e3) / 1e9,
+                "bound_ms": bound_ms(N * T_RECORD, ops["induction_record_random" + key],
+                                     sync_bytes(c, "induction_record_random", N, T_RECORD))[0],
+                "reset_share": float(rec_out["done"].double().mean())}
+            del rec_out
+        timings[env_id] = row
+        del out
+    env = gt.make_functional(IND_TIMED, device=dev)
+    venv = gt.VectorEnv(env, N)
+    state, _obs = venv.reset(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    policy = gt.random_policy_for(env)
+    venv.rollout(state, policy, 5, gen)  # warm-up
+    gen_ms, (state, rsum, tsum) = host_ms(
+        torch, lambda: venv.rollout(state, policy, T_SYNC_GENERAL, gen))
+    gen_mean_r = float(rsum.double().sum()) / (N * T_SYNC_GENERAL)
+    kernel_r = disp[IND_TIMED]["mean_reward"]
+    timings["general_path/" + IND_TIMED] = {
+        "steps": T_SYNC_GENERAL, "ms": gen_ms,
+        "env_steps_per_s": N * T_SYNC_GENERAL / (gen_ms / 1e3), "mean_reward": gen_mean_r,
+        "reset_share": float(tsum.double().sum()) / (N * T_SYNC_GENERAL),
+        "kernel_mean_reward_200": kernel_r}
+    launches = dict(indf.LAUNCHES)
+    emit({"phase": "induction_timings", "card": card, "envs": N, "timings": timings,
+          "launches": launches})
+    if not (math.isfinite(gen_mean_r) and bool(torch.isfinite(state.phys.ode_state).all())):
+        raise AssertionError(f"the {IND_TIMED} general path produced non-finite values")
+    # the same process in distribution: general path vs kernel over 200 steps
+    # from the reset state (the bound of tests/test_pallas_families.py:212)
+    if not abs(gen_mean_r - kernel_r) < 0.08:
+        raise AssertionError(f"general path mean reward {gen_mean_r} vs kernel {kernel_r}")
+    # each id once through the env check (buffer) and the dispatch (random);
+    # cuda_ms calls twice before its reps: 3 rollout and 2 recorder timings
+    n_ids, per_timing = len(gt.SCIM_ENV_IDS), 2 + SYNC_REPS
+    want = {"induction_rollout_random": n_ids + 3 * per_timing,
+            "induction_record_random": n_ids + 2 * per_timing,
+            "induction_rollout_buffer": n_ids, "induction_record_buffer": n_ids}
+    if launches != want or others_launched():
+        raise AssertionError(f"induction kernels on the main path launched {launches} (other "
+                             f"kernels: {others_launched()}), expected {want}")
+
+    # ---- kernels line rows ---------------------------------------------------
+    replaces = {"induction_rollout_random": "gym_electric_motor_tpu/ops/pallas_induction.py:859",
+                "induction_rollout_buffer": "gym_electric_motor_tpu/ops/pallas_induction.py:833",
+                "induction_record_random": "gym_electric_motor_tpu/ops/pallas_record.py:303",
+                "induction_record_buffer": "gym_electric_motor_tpu/ops/pallas_record.py:147"}
+    return family_kernel_rows(
+        fam, lambda name: f"gym_electric_motor_tpu_torch/csrc/{indf.LIBRARY[name]}.cu", replaces,
+        launches, worst, share, timed, IND_TIMED, len(gt.SCIM_ENV_IDS),
+        {name: timings[IND_TIMED][name]
+         for name in ("induction_rollout_random", "induction_record_random")})
 
 
 def main():
@@ -1456,9 +1598,11 @@ def main():
     seconds["slice_3"] = lap()
     line += run_dc(dev, card, ops)
     seconds["slice_4"] = lap()
+    line += run_induction(dev, card, ops)
+    seconds["slice_5"] = lap()
     emit({"phase": "elapsed", "seconds": seconds, "total": clock[-1] - clock[0]})
 
-    # ---- 22. kernels line, card and result --------------------------------
+    # ---- 26. kernels line, card and result --------------------------------
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,16 +1,17 @@
 // The machinery the universal family steps share (sync_step.cuh for PMSM /
-// SynRM, dc_step.cuh for the DC motors): the Philox draw slots, the
-// reference rows with their Wiener process, the Box-Muller pair and the WSE
-// reward at power 1, and the polynomial static load.
+// SynRM, dc_step.cuh for the DC motors, induction_step.cuh for the SCIM):
+// the Philox draw slots, the reference rows with their Wiener process, the
+// Box-Muller pair and the WSE reward at power 1, the polynomial static load,
+// and the B6 bridge's actions and voltage fractions.
 //
 // Replaces the parts of gym_electric_motor_tpu/ops/pallas_common.py that the
 // universal builders call: _make_wiener (:1095-1443, 'wiener' and 'const'
 // rows: the n_ref = 2 spatial Box-Muller pair and the n_ref = 1 temporal
-// pair :1379-1404), _wse_err (:912-925, power 1) and _make_fused_mech's
-// 'poly' mode (:662-689).  The plain PyTorch version of the same
-// arithmetic, in the same order, is in
-// gym_electric_motor_tpu_torch/ops/fused_common.py (wiener_init,
-// reference_step, wse_err, poly_load_rhs).
+// pair :1379-1404), _wse_err (:912-925, power 1), _make_fused_mech's
+// 'poly' mode (:662-689) and _make_b6 (:773-821, finite, and cont with no
+// interlock).  The plain PyTorch version of the same arithmetic, in the
+// same order, is in gym_electric_motor_tpu_torch/ops/fused_common.py
+// (wiener_init, reference_step, wse_err, poly_load_rhs, b6_fractions).
 #pragma once
 
 #include <cstdint>
@@ -164,4 +165,64 @@ __device__ __forceinline__ float poly_load_rhs(float load_a, float load_b, float
   const float a_term = fabsf(w) > omega_lin ? sign * load_a : jt_over_td * w;
   const float t_load = sign * load_c * w * w + load_b * w + a_term;
   return (t_e - t_load) * inv_jt;
+}
+
+// A B6 bridge's action: 3 bits (finite) or 3 duty commands (continuous).
+struct B6Action {
+  int bits;
+  float a, b, c;
+};
+
+// The phase voltages as fractions of the supply voltage.  Finite: phase k
+// is high iff bit (2 - k) of the action is set, minus 1/2; continuous with
+// no interlock: half the duty, no clip (pallas_common.py:798-799).
+template <bool FINITE>
+__device__ __forceinline__ void b6_fractions(const B6Action& act, float& fa, float& fb,
+                                             float& fc) {
+  if (FINITE) {
+    fa = (float)((act.bits >> 2) & 1) - 0.5f;
+    fb = (float)((act.bits >> 1) & 1) - 0.5f;
+    fc = (float)(act.bits & 1) - 0.5f;
+  } else {
+    fa = 0.5f * act.a;
+    fb = 0.5f * act.b;
+    fc = 0.5f * act.c;
+  }
+}
+
+// The random action of a step from its SLOT_STEP words w: finite, the low 3
+// bits of w.x; continuous, 2 u - 1 from w.x, w.w and the ACTION_C slot.
+template <bool FINITE>
+__device__ __forceinline__ B6Action b6_random_action(uint2 key, uint32_t env, uint32_t t, uint4 w) {
+  B6Action act;
+  if (FINITE) {
+    act.bits = (int)(w.x & 7u);
+    act.a = act.b = act.c = 0.0f;
+  } else {
+    act.bits = 0;
+    act.a = 2.0f * uniform24(w.x) - 1.0f;
+    act.b = 2.0f * uniform24(w.w) - 1.0f;
+    act.c = 2.0f * uniform24(drive_draw(key, env, t, DRIVE_SLOT_ACTION_C).x) - 1.0f;
+  }
+  return act;
+}
+
+// The buffer step's action at step t: int32 (T, N) bits, or float32
+// (T, 3, N) duty commands.
+template <bool FINITE>
+__device__ __forceinline__ B6Action b6_read_action(const int* __restrict__ act_i,
+                                                   const float* __restrict__ act_f, int n, int t,
+                                                   int e) {
+  B6Action a;
+  if (FINITE) {
+    a.bits = act_i[(size_t)t * n + e];
+    a.a = a.b = a.c = 0.0f;
+  } else {
+    const size_t base = (size_t)t * 3 * n + e;
+    a.bits = 0;
+    a.a = act_f[base];
+    a.b = act_f[base + n];
+    a.c = act_f[base + 2 * (size_t)n];
+  }
+  return a;
 }

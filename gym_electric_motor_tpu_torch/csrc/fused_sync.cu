@@ -68,26 +68,6 @@ __device__ __forceinline__ void store_state(const SyncState& x, float* __restric
   eps[i] = x.eps;
 }
 
-// The buffer step's action at step t: int32 (T, N) bits, or float32
-// (T, 3, N) duty commands.
-template <bool FINITE>
-__device__ __forceinline__ SyncAction read_action(const int* __restrict__ act_i,
-                                                  const float* __restrict__ act_f, int n, int t,
-                                                  int e) {
-  SyncAction a;
-  if (FINITE) {
-    a.bits = act_i[(size_t)t * n + e];
-    a.a = a.b = a.c = 0.0f;
-  } else {
-    const size_t base = (size_t)t * 3 * n + e;
-    a.bits = 0;
-    a.a = act_f[base];
-    a.b = act_f[base + n];
-    a.c = act_f[base + 2 * (size_t)n];
-  }
-  return a;
-}
-
 template <bool FINITE, bool MECH, int NREF, bool WIENER>
 __device__ __forceinline__ void rollout_random_loop(const SyncConst& k, uint2 key, int e,
                                                     int n_steps, SyncState& x, float& c, float& s,
@@ -159,7 +139,7 @@ __global__ void sync_rollout_buffer_kernel(SyncConst k, int n, int n_steps,
   SyncState x = load_state<MECH>(w0, i_sd0, i_sq0, eps0, e);
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
-    const SyncAction a = read_action<FINITE>(act_i, act_f, n, t, e);
+    const SyncAction a = b6_read_action<FINITE>(act_i, act_f, n, t, e);
     sync_physics<FINITE, MECH>(k, a, cosf(x.eps), sinf(x.eps), x);
   }
   store_state<MECH>(x, out_w, out_isd, out_isq, out_eps, (size_t)e);
@@ -233,7 +213,7 @@ __global__ void sync_record_buffer_kernel(SyncConst k, int n, int n_steps,
   SyncState x = load_state<MECH>(w0, i_sd0, i_sq0, eps0, e);
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
-    const SyncAction a = read_action<FINITE>(act_i, act_f, n, t, e);
+    const SyncAction a = b6_read_action<FINITE>(act_i, act_f, n, t, e);
     sync_physics<FINITE, MECH>(k, a, cosf(x.eps), sinf(x.eps), x);
     store_state<MECH>(x, out_w, out_isd, out_isq, out_eps, (size_t)t * n + e);
   }

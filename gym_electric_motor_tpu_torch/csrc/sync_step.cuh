@@ -7,10 +7,10 @@
 // RK4 :619-689, the B6 fractions, Clarke and Park at the cycle-start angle
 // :661-671 and :765-768, the constraint :870-876, the reference quantities
 // :787-796) with the machinery of ops/pallas_common.py that it calls:
-// _make_b6 (:773-821, finite, and cont with no interlock), _make_fused_mech
-// (:638-746, 'const'), _make_fused_supply (:502, 'ideal') and
-// _rotation_protocol (:1476-1494); the reference machinery, the WSE reward
-// and the polynomial load are common_step.cuh's.  The plain PyTorch version
+// _make_fused_mech (:638-746, 'const'), _make_fused_supply (:502, 'ideal')
+// and _rotation_protocol (:1476-1494); the reference machinery, the WSE
+// reward, the polynomial load and the B6 bridge (_make_b6) are
+// common_step.cuh's.  The plain PyTorch version
 // of the same arithmetic, in the same order, is
 // gym_electric_motor_tpu_torch/ops/fused_sync_family.py.
 //
@@ -91,10 +91,7 @@ struct SyncState {
 };
 
 // A finite action (3 bits) or a continuous one (3 duty commands).
-struct SyncAction {
-  int bits;
-  float a, b, c;
-};
+using SyncAction = B6Action;
 
 __device__ __forceinline__ float sync_torque(const SyncConst& k, float i_sd, float i_sq) {
   return k.v[S_TQ_GAIN] * (k.v[S_PSI_P] + k.v[S_LD_MINUS_LQ] * i_sd) * i_sq;
@@ -130,23 +127,13 @@ __device__ __forceinline__ void sync_rhs(const SyncConst& k, float w, float i_sd
 }
 
 // B6 bridge -> Clarke -> Park at the cycle-start angle (c, s) -> RK4 over
-// (omega?, i_sd, i_sq, eps) -> wrap of eps to [0, 2 pi).  Finite: phase k
-// is high iff bit (2 - k) of the action is set; cont with no interlock: the
-// fraction is a / 2, no clip (pallas_common.py:798-799).  At constant speed
+// (omega?, i_sd, i_sq, eps) -> wrap of eps to [0, 2 pi).  At constant speed
 // eps integrates the constant rate p * omega_fixed through the RK4 sum.
 template <bool FINITE, bool MECH>
 __device__ __forceinline__ void sync_physics(const SyncConst& k, const SyncAction& act, float c,
                                              float s, SyncState& x) {
   float fa, fb, fc;
-  if (FINITE) {
-    fa = (float)((act.bits >> 2) & 1) - 0.5f;
-    fb = (float)((act.bits >> 1) & 1) - 0.5f;
-    fc = (float)(act.bits & 1) - 0.5f;
-  } else {
-    fa = 0.5f * act.a;
-    fb = 0.5f * act.b;
-    fc = 0.5f * act.c;
-  }
+  b6_fractions<FINITE>(act, fa, fb, fc);
   const float ua = fa * k.v[S_U_SUP], ub = fb * k.v[S_U_SUP], uc = fc * k.v[S_U_SUP];
   const float u_alpha = k.v[S_TWO_THIRDS] * (ua - 0.5f * (ub + uc));
   const float u_beta = k.v[S_INV_SQRT3] * (ub - uc);
@@ -236,16 +223,7 @@ __device__ __forceinline__ SyncStepOut sync_random_step(const SyncConst& k, uint
                                                         uint32_t t, SyncState& x, float& c,
                                                         float& s, RefRows<NREF>& refs) {
   const uint4 w = drive_draw(key, env, t, DRIVE_SLOT_STEP);
-  SyncAction act;
-  if (FINITE) {
-    act.bits = (int)(w.x & 7u);
-    act.a = act.b = act.c = 0.0f;
-  } else {
-    act.bits = 0;
-    act.a = 2.0f * uniform24(w.x) - 1.0f;
-    act.b = 2.0f * uniform24(w.w) - 1.0f;
-    act.c = 2.0f * uniform24(drive_draw(key, env, t, DRIVE_SLOT_ACTION_C).x) - 1.0f;
-  }
+  const SyncAction act = b6_random_action<FINITE>(key, env, t, w);
   if (MECH) {
     c = cosf(x.eps);
     s = sinf(x.eps);

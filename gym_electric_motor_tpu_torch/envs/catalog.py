@@ -1,12 +1,13 @@
 """Environment catalog (counterpart of ``gym_electric_motor_tpu/envs/catalog.py``).
 
 The env-id grammar is ``{Finite|Cont}-{CC|TC|SC}-{Motor}-v0``.  This
-package serves the 36 ids of the DC and synchronous families (``{Finite,
-Cont} x {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc, PMSM,
-SynRM}``) so far; every other id of the JAX catalog raises
-``NotImplementedError`` naming the step of queue 1, slice 3 of the port
-that brings it.  The default tables below are this package's own copy of
-the DC, PMSM and SynRM rows of the JAX package's tables.
+package serves the 42 ids of the DC, synchronous and squirrel-cage
+induction families (``{Finite, Cont} x {CC, TC, SC} x {PermExDc, SeriesDc,
+ShuntDc, ExtExDc, PMSM, SynRM, SCIM}``) so far; every other id of the JAX
+catalog raises ``NotImplementedError`` naming the step of queue 1, slice 3
+of the port that brings it.  The default tables below are this package's
+own copy of the DC, PMSM, SynRM and SCIM rows of the JAX package's
+tables.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ..models import converters as cv
 from ..models import loads as ld
 from ..models import motors as mt
 from ..models import supplies as sp
-from ..physical_systems import DcMotorSystem, SynchronousMotorSystem
+from ..physical_systems import DcMotorSystem, SCIMSystem, SynchronousMotorSystem
 from ..rewards import WeightedSumOfErrors
 from ..utils.device import resolve_device
 from ..wrappers import CurrentSumProcessor, apply_wrappers
@@ -30,13 +31,16 @@ _TASKS = ["CC", "TC", "SC"]
 _ACTIONS = ["Finite", "Cont"]
 _DC_MOTORS = ["PermExDc", "ExtExDc", "SeriesDc", "ShuntDc"]
 _SYNC_MOTORS = ["PMSM", "SynRM"]
+# the motors on a B6 bridge with Wiener references on (i_sd, i_sq) for CC
+_B6_MOTORS = _SYNC_MOTORS + ["SCIM"]
 
 DC_ENV_IDS = [f"{a}-{t}-{m}-v0" for m in _DC_MOTORS for t in _TASKS for a in _ACTIONS]
 SYNC_ENV_IDS = [f"{a}-{t}-{m}-v0" for m in _SYNC_MOTORS for t in _TASKS for a in _ACTIONS]
-ENV_IDS = DC_ENV_IDS + SYNC_ENV_IDS
+SCIM_ENV_IDS = [f"{a}-{t}-SCIM-v0" for t in _TASKS for a in _ACTIONS]
+ENV_IDS = DC_ENV_IDS + SYNC_ENV_IDS + SCIM_ENV_IDS
 
 # the step of queue 1, slice 3 that brings each family not served yet
-_FAMILY_STEP = {"SCIM": "SCIM", "EESM": "EESM", "DFIM": "DFIM", "SRM": "SRM"}
+_FAMILY_STEP = {"EESM": "EESM", "DFIM": "DFIM", "SRM": "SRM"}
 
 # supply voltage exceptions (the rest: 60 V for DC, 420 V otherwise)
 _SUPPLY_U = {("Finite", "CC", "SeriesDc"): 420.0, ("Finite", "TC", "SeriesDc"): 420.0,
@@ -64,6 +68,7 @@ _REF_SIGMA = {
     ("SC", "ShuntDc", "Cont"): (1e-3, 3e-2),
     ("SC", "ShuntDc", "Finite"): (1e-3, 5e-3),
     ("SC", "SynRM"): (1e-3, 1e-2),
+    ("SC", "SCIM"): (1e-3, 1e-2),
 }
 
 
@@ -76,8 +81,8 @@ def _parse_env_id(env_id):
                        f"{{{'|'.join(_MOTORS)}}}-v0")
     if env_id not in ENV_IDS:
         raise NotImplementedError(
-            f"{env_id!r} is not ported yet: this package serves the 24 DC and the 12 "
-            f"synchronous ids; the {_FAMILY_STEP[parts[2]]} family arrives with its step of "
+            f"{env_id!r} is not ported yet: this package serves the 24 DC, the 12 synchronous "
+            f"and the 6 SCIM ids; the {_FAMILY_STEP[parts[2]]} family arrives with its step of "
             "queue 1, slice 3 of the port")
     return parts[0], parts[1], parts[2]
 
@@ -96,7 +101,7 @@ def _sigma_for(task, motor, action):
 
 
 def _default_converter(action, motor, tau):
-    if motor in _SYNC_MOTORS:
+    if motor in _B6_MOTORS:
         return (cv.finite_b6_bridge_converter(tau) if action == "Finite"
                 else cv.cont_b6_bridge_converter(tau))
     four_qc = (cv.finite_four_quadrant_converter if action == "Finite"
@@ -117,7 +122,7 @@ def _default_references(task, motor, action):
                                                            limit_margin=margin)])
     names = {"PermExDc": ["i"], "SeriesDc": ["i"], "ShuntDc": ["i_a"],
              "ExtExDc": ["i_a", "i_e"]}.get(motor, ["i_sd", "i_sq"])
-    if motor in _SYNC_MOTORS:
+    if motor in _B6_MOTORS:
         return rg.ReferenceSpec([rg.WienerProcessReference(n) for n in names])
     return rg.ReferenceSpec([rg.WienerProcessReference(n, sigma_range=sig) for n in names])
 
@@ -201,10 +206,11 @@ def make_functional(
     if constraints is None:
         constraints = _default_constraints(motor_name)
 
-    if motor_name in _SYNC_MOTORS:
-        system = SynchronousMotorSystem(supply=supply, converter=converter, motor=motor_spec,
-                                        load=load, tau=tau, solver=solver, substeps=substeps,
-                                        dtype=dtype, control_space=control_space)
+    if motor_name in _B6_MOTORS:
+        system_cls = SCIMSystem if motor_name == "SCIM" else SynchronousMotorSystem
+        system = system_cls(supply=supply, converter=converter, motor=motor_spec, load=load,
+                            tau=tau, solver=solver, substeps=substeps, dtype=dtype,
+                            control_space=control_space)
     else:
         if control_space != "abc":
             raise ValueError(f"control_space={control_space!r} is not supported for {motor_name} "

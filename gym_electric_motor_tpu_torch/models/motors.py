@@ -1,21 +1,23 @@
-"""DC and synchronous motor models (counterpart of the DC, PMSM and SynRM
-parts of ``gym_electric_motor_tpu/models/motors.py``).
+"""DC, synchronous and squirrel-cage induction motor models (counterpart of
+the DC, PMSM, SynRM and SCIM parts of
+``gym_electric_motor_tpu/models/motors.py``).
 
 A *spec* (host side) carries default parameters, the completed limit and
 nominal dicts and the initial-state description; the *functions*
 ``ode(mp, state, u_in, omega)``, ``torque(mp, state)`` and ``i_in(mp,
 state)`` work on batched tensors with a leading env dimension: ``state`` is
 the motor's ODE state (``(N, 1)`` = (i,) or ``(N, 2)`` = (i_a, i_e) for the
-DC motors, ``(N, 3)`` = (i_sd, i_sq, epsilon) for the synchronous ones),
-``u_in`` the ``(N, n_u)`` input voltages and ``omega`` is ``(N,)``.
+DC motors, ``(N, 3)`` = (i_sd, i_sq, epsilon) for the synchronous ones,
+``(N, 5)`` = (i_salpha, i_sbeta, psi_ralpha, psi_rbeta, epsilon) for the
+SCIM), ``u_in`` the ``(N, n_u)`` input voltages and ``omega`` is ``(N,)``.
 
 ``mp`` holds every parameter as a Python float rounded to float32, and the
 products of parameters are formed in float32 with numpy before they meet a
 tensor, so each operation rounds where the JAX package's does.  The DC
 Jacobians of the JAX package serve only its implicit solvers, which this
 package does not port yet (``make_integrator`` raises for them), so they
-are left out.  The EESM, SCIM, DFIM and SRM families come with slice 3 of
-the port.
+are left out.  The EESM, DFIM and SRM families come with slice 3 of the
+port.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ class MotorSpec:
     ode: Callable = None
     torque: Callable = None
     i_in: Callable = None
+    initial_limits: dict = None  # the induction motors' (electric_motor.py:199-213)
 
     @property
     def n_ode(self) -> int:
@@ -333,6 +336,139 @@ def synrm(**kwargs) -> MotorSpec:
     )
 
 
+# ---------------------------------------------------------------------------
+# Induction motors (induction_motor.py and squirrel_cage_induction_motor.py
+# of the reference)
+# ---------------------------------------------------------------------------
+
+
+def _im_derived(mp):
+    """``(l_s, l_r, sigma, tau_r, tau_sig)`` in float32, each operation
+    rounded as the JAX package's numpy float32 parameters round it."""
+    l_s = mp["l_m"] + mp["l_sigs"]
+    l_r = mp["l_m"] + mp["l_sigr"]
+    sigma = (l_s * l_r - mp["l_m"] ** 2) / (l_s * l_r)
+    tau_r = l_r / mp["r_r"]
+    tau_sig = sigma * l_s / (mp["r_s"] + mp["r_r"] * (mp["l_m"] ** 2) / (l_r**2))
+    return l_s, l_r, sigma, tau_r, tau_sig
+
+
+def induction_ode(mp, state, u_sr_alphabeta, omega):
+    """The alpha/beta induction-machine ODE (induction_motor.py:287-313 of
+    the reference): ``state`` is ``(N, 5)`` = (i_salpha, i_sbeta, psi_ralpha,
+    psi_rbeta, epsilon), ``u_sr_alphabeta`` the pair of ``(N, 2)`` stator
+    and rotor voltages, ``omega`` ``(N,)``.  The rotor inputs serve the DFIM,
+    which is not ported yet."""
+    l_s, l_r, sigma, tau_r, tau_sig = _im_derived(mp)
+    i_sa, i_sb, psi_ra, psi_rb = state[..., 0], state[..., 1], state[..., 2], state[..., 3]
+    p = mp["p"]
+    u_sal, u_sbe = u_sr_alphabeta[0][..., 0], u_sr_alphabeta[0][..., 1]
+    u_ral, u_rbe = u_sr_alphabeta[1][..., 0], u_sr_alphabeta[1][..., 1]
+    c_psi = float(mp["l_m"] * mp["r_r"] / (sigma * l_s * l_r**2))
+    c_w = float(mp["l_m"] * p / (sigma * l_r * l_s))
+    c_u = float(_f32(1.0) / (sigma * l_s))
+    c_ur = float(mp["l_m"] / (sigma * l_r * l_s))
+    tau_sig, tau_r, l_m_tau_r, p = float(tau_sig), float(tau_r), float(mp["l_m"] / tau_r), float(p)
+    di_sa = (-i_sa / tau_sig + c_psi * psi_ra + c_w * omega * psi_rb + c_u * u_sal
+             - c_ur * u_ral)
+    di_sb = (-i_sb / tau_sig + c_psi * psi_rb - c_w * omega * psi_ra + c_u * u_sbe
+             - c_ur * u_rbe)
+    dpsi_ra = l_m_tau_r * i_sa - psi_ra / tau_r - p * omega * psi_rb + u_ral
+    dpsi_rb = l_m_tau_r * i_sb - psi_rb / tau_r + p * omega * psi_ra + u_rbe
+    deps = p * omega
+    return torch.stack([di_sa, di_sb, dpsi_ra, dpsi_rb, deps], dim=-1)
+
+
+def scim_ode(mp, state, u_salphabeta, omega):
+    """The rotor windings are short-circuited: u_r = 0
+    (squirrel_cage_induction_motor.py:121-129 of the reference)."""
+    zero = torch.zeros_like(u_salphabeta)
+    return induction_ode(mp, state, (u_salphabeta, zero), omega)
+
+
+def induction_torque(mp, state):
+    """1.5 p l_m / l_r (psi_ralpha i_sbeta - psi_rbeta i_salpha)
+    (induction_motor.py:236-248 of the reference)."""
+    l_r = mp["l_m"] + mp["l_sigr"]
+    gain = float(1.5 * mp["p"] * mp["l_m"] / l_r)
+    return gain * (state[..., 2] * state[..., 1] - state[..., 3] * state[..., 0])
+
+
+def _im_torque_limit(mp, limits, nominal):
+    """induction_motor.py:223-234 of the reference."""
+    l_r = mp["l_m"] + mp["l_sigr"]
+    return 1.5 * mp["p"] * mp["l_m"] ** 2 / l_r * limits["i_sd"] * limits["i_sq"] / 2
+
+
+def _im_spec(kind, defaults, default_limits, default_nominal, io_voltages, io_currents, ode,
+             motor_parameter=None, nominal_values=None, limit_values=None, motor_initializer=None,
+             initial_limits=None):
+    parameter = update_parameter_dict(defaults, motor_parameter or {})
+    # the phase voltage limits are half the placeholder 'u'
+    # (squirrel_cage_induction_motor.py:131-144 of the reference); limit
+    # values the caller gives per quantity take precedence
+    limits = dict(default_limits)
+    limits.update(limit_values or {})
+    nominal = dict(default_nominal)
+    nominal.update(nominal_values or {})
+    voltage_limit = 0.5 * limits["u"]
+    voltage_nominal = 0.5 * nominal["u"]
+    limits_agenda, nominal_agenda = {}, {}
+    r_div = parameter["r_s"] if kind == "SCIM" else parameter["r_r"]
+    for u, i in zip(io_voltages, io_currents):
+        limits_agenda[u] = voltage_limit
+        nominal_agenda[u] = voltage_nominal
+        limits_agenda[i] = limits.get("i", None) or limits[u] / r_div
+        nominal_agenda[i] = nominal.get("i", None) or nominal[u] / r_div
+    limits_agenda["omega"] = default_limits["omega"]
+    limits, nominal = _complete(limits, nominal, limits_agenda, nominal_agenda)
+    tl = {"torque": _im_torque_limit(parameter, limits, nominal)}
+    limits, nominal = _complete(limits, nominal, tl)
+
+    initializer = {
+        "states": {"i_salpha": 0.0, "i_sbeta": 0.0, "psi_ralpha": 0.0, "psi_rbeta": 0.0,
+                   "epsilon": 0.0},
+        "interval": None,
+        "random_init": None,
+        "random_params": (None, None),
+    }
+    initializer.update(motor_initializer or {})
+    init_lims = dict(nominal)
+    init_lims.update(initial_limits or {})
+    return MotorSpec(
+        kind=kind,
+        ode_states=("i_salpha", "i_sbeta", "psi_ralpha", "psi_rbeta", "epsilon"),
+        currents=("i_salpha", "i_sbeta"),
+        voltages=("u_salpha", "u_sbeta"),
+        parameter=parameter,
+        limits=limits,
+        nominal=nominal,
+        initializer=initializer,
+        ode=ode,
+        torque=induction_torque,
+        i_in=lambda mp, s: s[..., :2],
+        initial_limits=init_lims,
+    )
+
+
+_IM_IO_VOLTAGES = ["u_sa", "u_sb", "u_sc", "u_salpha", "u_sbeta", "u_sd", "u_sq"]
+_IM_IO_CURRENTS = ["i_sa", "i_sb", "i_sc", "i_salpha", "i_sbeta", "i_sd", "i_sq"]
+
+
+def scim(**kwargs) -> MotorSpec:
+    return _im_spec(
+        "SCIM",
+        {"p": 2.0, "l_m": 143.75e-3, "l_sigs": 5.87e-3, "l_sigr": 5.87e-3, "j_rotor": 1.1e-3,
+         "r_s": 2.9338, "r_r": 1.355},
+        dict(omega=4e3 * np.pi / 30, torque=0.0, i=5.5, epsilon=math.pi, u=560.0),
+        dict(omega=3e3 * np.pi / 30, torque=0.0, i=3.9, epsilon=math.pi, u=560.0),
+        _IM_IO_VOLTAGES,
+        _IM_IO_CURRENTS,
+        scim_ode,
+        **kwargs,
+    )
+
+
 MOTOR_FACTORIES = {
     "PermExDc": permex_dc,
     "SeriesDc": series_dc,
@@ -340,4 +476,5 @@ MOTOR_FACTORIES = {
     "ExtExDc": extex_dc,
     "PMSM": pmsm,
     "SynRM": synrm,
+    "SCIM": scim,
 }

@@ -7,10 +7,11 @@ Counterpart of ``LANE``, ``TWO_PI``, ``_uniform_from_bits``, ``_make_rng``,
 ``_make_fused_mech``, ``_make_fused_supply``, ``_ref_configs``,
 ``_make_wiener``, ``_wse_err``, ``_rotation_protocol``, ``_c2u`` and
 ``_c2i`` in ``gym_electric_motor_tpu/ops/pallas_common.py``, restricted to
-what the DC and synchronous families' catalog defaults use (see
+what the DC, synchronous and SCIM families' catalog defaults use (see
 :func:`fused_check_system` for what raises).  The CUDA counterparts of the
 machinery are the device functions of ``csrc/common_step.cuh``,
-``csrc/sync_step.cuh`` and ``csrc/dc_step.cuh``.  On the TPU the bits come from the
+``csrc/sync_step.cuh``, ``csrc/dc_step.cuh`` and
+``csrc/induction_step.cuh``.  On the TPU the bits come from the
 on-core PRNG (xorshift in interpret mode); here they come from
 Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 3", SC'11), a counter-based generator: the bits of one draw are a pure
@@ -31,6 +32,8 @@ import math
 
 import numpy as np
 import torch
+
+from . import cuda_build
 
 LANE = 128
 TWO_PI = 2.0 * math.pi
@@ -245,6 +248,78 @@ def seed_u64(seed):
     return int(seed) & 0xFFFFFFFFFFFFFFFF
 
 
+def check_planes(c, states):
+    """Validate the state planes of a family kernel: ``c.n_state`` float32
+    ``(n_envs // 128, 128)`` tensors on one device, the CPU or CUDA (``c``
+    names them in ``c.state_names``); returns ``(device, R)``."""
+    states = tuple(states)
+    if len(states) != c.n_state:
+        raise ValueError(f"this env takes {c.n_state} state planes {c.state_names}, "
+                         f"got {len(states)}")
+    x0 = states[0]
+    if not isinstance(x0, torch.Tensor) or x0.dim() != 2 or x0.shape[1] != LANE \
+            or x0.shape[0] < 1:
+        raise ValueError(f"state planes must be (n_envs // {LANE}, {LANE}) tensors")
+    device = x0.device
+    for nm, x in zip(c.state_names, states):
+        check_tensor(nm, x, x0.shape, torch.float32, device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device, x0.shape[0]
+
+
+def check_b6_actions(c, actions, R, device):
+    """Validate a B6 bridge's action buffer: int32 ``(T, R, 128)`` bits
+    (``c.finite``) or float32 ``(T, 3, R, 128)`` duties; returns T."""
+    T = actions.shape[0] if isinstance(actions, torch.Tensor) and actions.dim() else 0
+    if c.finite:
+        check_tensor("actions", actions, (T, R, LANE), torch.int32, device)
+    else:
+        check_tensor("actions", actions, (T, 3, R, LANE), torch.float32, device)
+    return T
+
+
+def family_library(library, prefix, argtypes, counts):
+    """The loaded library of ``csrc/<library>.cu`` (built on first use),
+    its kernel functions typed on first load (``argtypes``: ``{name:
+    [ctypes types]}``; names the library lacks are skipped) and its
+    constant layout checked: ``<prefix>_n_const``, ``_n_row_const`` and
+    ``_n_flag`` must return ``counts``."""
+    lib = cuda_build.load(library)
+    if not getattr(lib, "_gemx_typed", False):
+        for name, types in argtypes.items():
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes = types
+                fn.restype = ctypes.c_int
+        sizes = []
+        for suffix in ("n_const", "n_row_const", "n_flag"):
+            fn = getattr(lib, f"{prefix}_{suffix}")
+            fn.restype = ctypes.c_int
+            sizes.append(fn())
+        err = getattr(lib, f"{prefix}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        if tuple(sizes) != tuple(counts):
+            raise RuntimeError(f"csrc/{library}.cu and its Python module disagree on the "
+                               f"constants: {tuple(sizes)} against {tuple(counts)}")
+        lib._gemx_typed = True
+    return lib
+
+
+def launch_kernel(lib, prefix, name, device, launches, *args):
+    """Call kernel ``name`` of ``lib`` on the current stream of ``device``,
+    raise on the error code it returns, and count the launch in
+    ``launches``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        message = getattr(lib, f"{prefix}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {message}")
+    launches[name] += 1
+
+
 def check_rollout_inputs(R, n_steps, state0, actions=None):
     """A builder's own checks: the planes hold the envs it was built for,
     and an action buffer the steps."""
@@ -263,12 +338,13 @@ _FUSED_OK_WRAPPERS = ("CurrentSumProcessor", "CosSinProcessor", "FluxObserver")
 
 
 def fused_check_system(ps):
-    """Reject, loudly, what the synchronous-family kernels would simulate
-    wrong (``_fused_check_system``, pallas_common.py:74-114, with what this
-    slice does not port yet added): physical-system wrappers other than the
-    observation-only ones, the dq control space, non-ideal supplies,
-    interlocking dead time, loads other than the constant-speed and
-    polynomial static ones, and another integrator than one RK4 step."""
+    """Reject, loudly, what the universal family kernels would simulate
+    wrong (``_fused_check_system``, pallas_common.py:74-114, with what the
+    port does not fuse yet added): physical-system wrappers other than the
+    observation-only ones, the dq control space, NoConverter (the grid
+    simulation), non-ideal supplies, interlocking dead time, loads other
+    than the constant-speed and polynomial static ones, and another
+    integrator than one RK4 step."""
     chain, cur = [], ps
     while hasattr(cur, "inner"):
         chain.append(type(cur).__name__)
@@ -277,10 +353,15 @@ def fused_check_system(ps):
     if bad:
         raise NotImplementedError(
             f"the fused kernels support observation-only wrappers {_FUSED_OK_WRAPPERS}; got "
-            f"{bad}: the DeadTime, StateNoise and DqToAbc wraps arrive with queue 2, item 7")
+            f"{bad}: the DeadTime, StateNoise and DqToAbc wraps (the SCIM's with its flux "
+            "observer) arrive with queue 2, item 7")
     if getattr(cur, "control_space", "abc") != "abc":
         raise NotImplementedError(
             "control_space='dq' is not fused yet; it arrives with queue 2, item 7")
+    if getattr(cur.converter, "action_type", None) == "none":
+        raise NotImplementedError(
+            "NoConverter (the AC3 grid simulation of pallas_induction.py:271-276) is not fused "
+            "yet; it arrives with queue 2, item 8 (_make_fused_supply)")
     if cur.supply.kind != "IdealVoltageSupply":
         raise NotImplementedError(
             f"the fused kernels support IdealVoltageSupply only; {cur.supply.kind!r} "

@@ -52,7 +52,6 @@ import ctypes
 import numpy as np
 import torch
 
-from . import cuda_build
 from .fused_common import (
     LANE,
     ROW_NAMES,
@@ -60,10 +59,13 @@ from .fused_common import (
     DcBits,
     c2i,
     c2u,
+    check_planes,
     check_rollout_inputs,
     check_tensor,
+    family_library,
     fused_check_system,
     fused_constraint_mode,
+    launch_kernel,
     poly_load_rhs,
     ptr_array,
     ref_rows,
@@ -502,52 +504,10 @@ _ARGTYPES = {
 }
 
 
-def _lib(name):
-    """The library of kernel ``name``, typed and checked on first use."""
-    lib = cuda_build.load(LIBRARY[name])
-    if not getattr(lib, "_gemx_typed", False):
-        for fn_name, argtypes in _ARGTYPES.items():
-            if LIBRARY[fn_name] == LIBRARY[name]:
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-        for fn_name in ("dc_n_const", "dc_n_row_const", "dc_n_flag"):
-            getattr(lib, fn_name).restype = ctypes.c_int
-        lib.dc_error_string.argtypes = [ctypes.c_int]
-        lib.dc_error_string.restype = ctypes.c_char_p
-        if (lib.dc_n_const(), lib.dc_n_row_const(), lib.dc_n_flag()) != (
-                len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)):
-            raise RuntimeError("csrc/dc_step.cuh and fused_dc_family.py disagree on the constants")
-        lib._gemx_typed = True
-    return lib
-
-
 def _launch(name, device, *args):
-    lib = _lib(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: {lib.dc_error_string(rc).decode()}")
-    LAUNCHES[name] += 1
-
-
-def _planes(c: DcConsts, states):
-    """Validate the state planes; returns (device, R)."""
-    states = tuple(states)
-    if len(states) != c.n_state:
-        raise ValueError(f"this env takes {c.n_state} state planes {c.state_names}, "
-                         f"got {len(states)}")
-    x0 = states[0]
-    if not isinstance(x0, torch.Tensor) or x0.dim() != 2 or x0.shape[1] != LANE \
-            or x0.shape[0] < 1:
-        raise ValueError(f"state planes must be (n_envs // {LANE}, {LANE}) tensors")
-    device = x0.device
-    for nm, x in zip(c.state_names, states):
-        check_tensor(nm, x, x0.shape, torch.float32, device)
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device, x0.shape[0]
+    lib = family_library(LIBRARY[name], "dc", _ARGTYPES,
+                         (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)))
+    launch_kernel(lib, "dc", name, device, LAUNCHES, *args)
 
 
 def _check_actions(c: DcConsts, actions, R, device):
@@ -576,7 +536,7 @@ def _buffer_args(c, actions):
 
 def dc_rollout_random(c: DcConsts, seed: int, states, n_steps: int):
     """``(*states, reward_sum, term_count, rv, rk, rl, rs)``."""
-    device, R = _planes(c, states)
+    device, R = check_planes(c, states)
     if device.type == "cpu":
         return dc_rollout_random_plain(c, seed, tuple(states), n_steps)
 
@@ -591,7 +551,7 @@ def dc_rollout_random(c: DcConsts, seed: int, states, n_steps: int):
 
 def dc_rollout_buffer(c: DcConsts, states, actions):
     """The final states after the action buffer."""
-    device, R = _planes(c, states)
+    device, R = check_planes(c, states)
     T = _check_actions(c, actions, R, device)
     if device.type == "cpu":
         return dc_rollout_buffer_plain(c, tuple(states), actions)
@@ -603,7 +563,7 @@ def dc_rollout_buffer(c: DcConsts, states, actions):
 
 def dc_record_random(c: DcConsts, seed: int, states, n_steps: int):
     """``(*states, *refs, *actions, reward, done)``, each ``(T, R, 128)``."""
-    device, R = _planes(c, states)
+    device, R = check_planes(c, states)
     if device.type == "cpu":
         return dc_record_random_plain(c, seed, tuple(states), n_steps)
     shape = (int(n_steps), R, LANE)
@@ -621,7 +581,7 @@ def dc_record_random(c: DcConsts, seed: int, states, n_steps: int):
 
 def dc_record_buffer(c: DcConsts, states, actions):
     """Every step's states, each ``(T, R, 128)``."""
-    device, R = _planes(c, states)
+    device, R = check_planes(c, states)
     T = _check_actions(c, actions, R, device)
     if device.type == "cpu":
         return dc_record_buffer_plain(c, tuple(states), actions)

@@ -38,16 +38,19 @@ import ctypes
 import numpy as np
 import torch
 
-from . import cuda_build
 from .fused_common import (
     LANE,
     ROW_NAMES,
     TWO_PI,
     SyncBits,
     b6_fractions,
+    check_b6_actions,
+    check_planes,
     check_rollout_inputs,
+    family_library,
     fused_check_system,
     fused_constraint_mode,
+    launch_kernel,
     poly_load_rhs,
     ref_rows,
     reference_step,
@@ -56,7 +59,6 @@ from .fused_common import (
     wiener_init,
     wse_err,
 )
-from .fused_common import check_tensor as _check
 from .fused_common import ptr_array as _ptrs
 from .fused_common import seed_u64 as _seed
 
@@ -392,52 +394,6 @@ _ARGTYPES = {
 }
 
 
-def _lib():
-    lib = cuda_build.load("fused_sync")
-    if not getattr(lib, "_gemx_typed", False):
-        for name, argtypes in _ARGTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        for name in ("sync_n_const", "sync_n_row_const", "sync_n_flag"):
-            getattr(lib, name).restype = ctypes.c_int
-        lib.sync_error_string.argtypes = [ctypes.c_int]
-        lib.sync_error_string.restype = ctypes.c_char_p
-        if (lib.sync_n_const(), lib.sync_n_row_const(), lib.sync_n_flag()) != (
-                len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)):
-            raise RuntimeError("csrc/sync_step.cuh and fused_sync_family.py disagree on the "
-                               "constants")
-        lib._gemx_typed = True
-    return lib
-
-
-def _planes(c: SyncConsts, states):
-    """Validate the state planes; returns (device, R)."""
-    states = tuple(states)
-    if len(states) != c.n_state:
-        raise ValueError(f"this env takes {c.n_state} state planes {c.state_names}, "
-                         f"got {len(states)}")
-    x0 = states[0]
-    if not isinstance(x0, torch.Tensor) or x0.dim() != 2 or x0.shape[1] != LANE \
-            or x0.shape[0] < 1:
-        raise ValueError(f"state planes must be (n_envs // {LANE}, {LANE}) tensors")
-    device = x0.device
-    for nm, x in zip(c.state_names, states):
-        _check(nm, x, x0.shape, torch.float32, device)
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device, x0.shape[0]
-
-
-def _check_actions(c: SyncConsts, actions, R, device):
-    T = actions.shape[0] if isinstance(actions, torch.Tensor) and actions.dim() else 0
-    if c.finite:
-        _check("actions", actions, (T, R, LANE), torch.int32, device)
-    else:
-        _check("actions", actions, (T, 3, R, LANE), torch.float32, device)
-    return T
-
-
 def _in_ptrs(c, states):
     return _ptrs(((None,) if not c.mech else ()) + tuple(states))
 
@@ -447,18 +403,14 @@ def _out_state(c, outs):
 
 
 def _launch(name, device, *args):
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: {lib.sync_error_string(rc).decode()}")
-    LAUNCHES[name] += 1
+    lib = family_library("fused_sync", "sync", _ARGTYPES,
+                         (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)))
+    launch_kernel(lib, "sync", name, device, LAUNCHES, *args)
 
 
 def sync_rollout_random(c: SyncConsts, seed: int, states, n_steps: int):
     """``(*states, reward_sum, term_count, rv, rk, rl, rs)``."""
-    device, R = _planes(c, states)
+    device, R = check_planes(c, states)
     if device.type == "cpu":
         return sync_rollout_random_plain(c, seed, tuple(states), n_steps)
 
@@ -472,8 +424,8 @@ def sync_rollout_random(c: SyncConsts, seed: int, states, n_steps: int):
 
 def sync_rollout_buffer(c: SyncConsts, states, actions):
     """The final states after the action buffer."""
-    device, R = _planes(c, states)
-    T = _check_actions(c, actions, R, device)
+    device, R = check_planes(c, states)
+    T = check_b6_actions(c, actions, R, device)
     if device.type == "cpu":
         return sync_rollout_buffer_plain(c, tuple(states), actions)
     outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(c.n_state)]
@@ -486,7 +438,7 @@ def sync_rollout_buffer(c: SyncConsts, states, actions):
 
 def sync_record_random(c: SyncConsts, seed: int, states, n_steps: int):
     """``(*states, *refs, *actions, reward, done)``, each ``(T, R, 128)``."""
-    device, R = _planes(c, states)
+    device, R = check_planes(c, states)
     if device.type == "cpu":
         return sync_record_random_plain(c, seed, tuple(states), n_steps)
     shape = (int(n_steps), R, LANE)
@@ -505,8 +457,8 @@ def sync_record_random(c: SyncConsts, seed: int, states, n_steps: int):
 
 def sync_record_buffer(c: SyncConsts, states, actions):
     """Every step's states, each ``(T, R, 128)``."""
-    device, R = _planes(c, states)
-    T = _check_actions(c, actions, R, device)
+    device, R = check_planes(c, states)
+    T = check_b6_actions(c, actions, R, device)
     if device.type == "cpu":
         return sync_record_buffer_plain(c, tuple(states), actions)
     outs = [torch.empty((T, R, LANE), dtype=torch.float32, device=device)

@@ -11,11 +11,12 @@ for a batch of ``n`` envs (leading dimension of every tensor).
 
 The DC system (PermExDc, SeriesDc, ShuntDc, ExtExDc with the 1QC, 2QC,
 4QC or dual-4QC multi converter) is ``SCMLSystem`` itself; the synchronous
-system (PMSM, SynRM, finite or continuous B6 bridge) subclasses it, as in
-the JAX package.  Both take an ideal supply and a constant-speed or
-polynomial static load; with zero interlocking time the converter schedule
-is a single sub-interval per control cycle.  The other families come with
-the later steps of queue 1, slice 3 of the port.
+system (PMSM, SynRM) and the squirrel-cage induction system (SCIM), each on
+a finite or continuous B6 bridge, subclass it, as in the JAX package.  All
+take an ideal supply and a constant-speed or polynomial static load; with
+zero interlocking time the converter schedule is a single sub-interval per
+control cycle.  The other families come with the later steps of queue 1,
+slice 3 of the port.
 """
 
 from __future__ import annotations
@@ -31,7 +32,15 @@ from .models.loads import LoadSpec
 from .models.motors import MotorSpec
 from .models.supplies import SupplySpec
 from .ops.integrators import make_integrator
-from .ops.transforms import abc_to_dq, dq_to_abc, wrap_angle
+from .ops.transforms import (
+    TWO_PI,
+    abc_to_alphabeta,
+    abc_to_dq,
+    alphabeta_to_abc,
+    alphabeta_to_dq,
+    dq_to_abc,
+    wrap_angle,
+)
 
 
 @dataclasses.dataclass
@@ -195,9 +204,12 @@ class SCMLSystem:
         lower = upper * np.array([self.state_space_low[i] for i in idx])
         return lower, upper
 
+    def _motor_init_bounds(self, names):
+        return self._init_bounds(names)
+
     def _build_initializers(self):
         m_names = list(self.motor.initializer.get("states", {}).keys()) or list(self.motor.ode_states)
-        m_lo, m_hi = self._init_bounds(m_names)
+        m_lo, m_hi = self._motor_init_bounds(m_names)
         _, self._motor_n_u, sample_motor = _sample_initializer(
             self.motor.initializer, m_names, m_lo, m_hi)
         # place the sampled values into the motor-ODE layout by name
@@ -379,6 +391,132 @@ class SynchronousMotorSystem(SCMLSystem):
         eps_out = wrap_angle(ode[:, self.eps_idx])
         system_state = torch.cat(
             [mech, torque[:, None], i_abc, i_dq, u_in, u_dq, eps_out[:, None], u_sup], dim=1)
+        new_ps = PhysicsState(ode_state=ode, conv_state=cur, sup_state=sup_state,
+                              t=ps.t + self.tau, k=ps.k + 1)
+        return new_ps, system_state / self.limits_tensor(ode.device)
+
+
+@dataclasses.dataclass
+class SCIMSystem(SCMLSystem):
+    """Squirrel-cage induction drive train (physical_systems.py:763-940 of
+    the JAX package).  ODE state ``[omega, i_salpha, i_sbeta, psi_ralpha,
+    psi_rbeta, epsilon]`` in the stator-fixed alpha/beta frame, omega
+    first: the converter voltages are Clarke-transformed only.  The field
+    angle ``eps_fs = atan2(psi_rbeta, psi_ralpha)`` from the start of the
+    control cycle orients the dq outputs; a finite action is an ``(N,)``
+    integer tensor, a continuous one ``(N, 3)``."""
+
+    control_space: str = "abc"
+
+    def _validate(self):
+        if self.control_space != "abc":
+            raise NotImplementedError(
+                "control_space='dq' is not ported yet; it arrives with the "
+                "universal wraps of queue 2, item 7 of the port")
+
+    def _build_state_names(self):
+        return (list(self.load.state_names) + [
+            "torque",
+            "i_sa", "i_sb", "i_sc", "i_sd", "i_sq",
+            "u_sa", "u_sb", "u_sc", "u_sd", "u_sq",
+            "epsilon",
+        ] + self._u_sup_names())
+
+    def _build_state_space(self):
+        low = -np.ones(len(self.state_names))
+        high = np.ones(len(self.state_names))
+        for j in self._u_sup_indices():
+            low[j] = 0.0
+        self.state_space_low = low
+        self.state_space_high = high
+
+    @property
+    def eps_idx(self):
+        return self.n_mech + 4
+
+    def _motor_init_bounds(self, names):
+        """Symmetric bounds (electric_motor.py:199-213 of the reference):
+        the currents' nominal value, the flux's at omega = 0 (``l_m *
+        i_sd_nominal``, induction_motor.py:268-269), pi for the angle."""
+        nominal = self.motor.nominal
+        psi_max = self.motor.parameter["l_m"] * nominal.get("i_sd", nominal.get("i", 1.0))
+        per_name = {"i_salpha": nominal.get("i", 1.0), "i_sbeta": nominal.get("i", 1.0),
+                    "psi_ralpha": psi_max, "psi_rbeta": psi_max, "epsilon": np.pi}
+        upper = np.array([abs(per_name[n]) for n in names])
+        return -upper, upper
+
+    def _build_initializers(self):
+        super()._build_initializers()
+        if not self.motor.initializer.get("random_init"):
+            return
+        # The random-field-angle flux initialisation
+        # (squirrel_cage_induction_motor.py:146-157 of the reference): one
+        # more uniform per reset draws eps_mag ~ U(-pi, pi), and the drawn
+        # flux magnitude is split into its alpha/beta parts along it.
+        base_sample, base_n_u = self._sample_motor_u, self._motor_n_u
+        ode_states = list(self.motor.ode_states)
+        ia, ib = ode_states.index("psi_ralpha"), ode_states.index("psi_rbeta")
+
+        def sample(u, n, dtype, device):
+            vals = base_sample(u[:, :base_n_u], n, dtype, device).clone()
+            eps_mag = TWO_PI * u[:, base_n_u] - math.pi
+            mag = torch.abs(vals[:, ia])
+            vals[:, ia] = mag * torch.cos(eps_mag)
+            vals[:, ib] = mag * torch.sin(eps_mag)
+            return vals
+
+        self._sample_motor_u = sample
+        self._motor_n_u = base_n_u + 1
+
+    def _field_angle(self, ode):
+        return torch.atan2(ode[:, self.n_mech + 3], ode[:, self.n_mech + 2])
+
+    def reset_from_u(self, u, n: int, device):
+        """physical_systems.py:852-876 of the JAX package (the load resets
+        first there; the component samples are independent)."""
+        motor_state, mech_state, u_sup, sup_state = self._reset_parts(u, n, device)
+        ode_state = torch.cat([mech_state, motor_state], dim=1)
+        eps = ode_state[:, self.eps_idx]
+        eps = torch.where(eps > math.pi, eps - 2 * math.pi, eps)
+        eps_fs = self._field_angle(ode_state)
+        u_abc = torch.tensor(self.converter.u_reset, dtype=self.dtype, device=device) * u_sup[:, 0:1]
+        u_dq = abc_to_dq(u_abc, eps_fs)
+        i_dq = alphabeta_to_dq(ode_state[:, self.n_mech: self.n_mech + 2], eps_fs)
+        i_abc = dq_to_abc(i_dq, eps_fs)
+        torque = self.motor.torque(self.mp, motor_state)
+        system_state = torch.cat(
+            [mech_state, torque[:, None], i_abc, i_dq, u_abc, u_dq, eps[:, None], u_sup], dim=1)
+        ps = self._physics_state(ode_state, self.converter.init_state(n, device), sup_state, n,
+                                 device)
+        return ps, system_state / self.limits_tensor(device)
+
+    def simulate(self, ps: PhysicsState, action, noise=None):
+        """One control period (physical_systems.py:878-932 of the JAX
+        package): Clarke only, no Park.  The dq outputs take the field angle
+        from before the integration (physical_systems.py:883, :921-925)."""
+        ode = ps.ode_state
+        eps_fs = self._field_angle(ode)
+        i_in = alphabeta_to_abc(self.motor.i_in(self.mp, ode[:, self.motor_slice]))
+        intervals = self.converter.interval_states(ps.conv_state, action)
+        cur = ps.conv_state
+        sup_state = ps.sup_state
+        t = ps.t
+        u_in = u_sup = None
+        for j, dur in enumerate(self.converter.interval_durations()):
+            i_sup = self.converter.i_sup(cur, action, i_in)
+            u_sup, sup_state = self.supply.get_voltage(self.sp, sup_state, ps.t, i_sup)
+            u_in = self.converter.u_frac(intervals[j], action, i_in) * u_sup[:, 0:1]
+            ode = self.integrate(self._rhs, ode, t, dur, abc_to_alphabeta(u_in), noise)
+            cur = intervals[j]
+            t = t + dur
+        u_dq = abc_to_dq(u_in, eps_fs)
+        torque = self.motor.torque(self.mp, ode[:, self.motor_slice])
+        i_dq = alphabeta_to_dq(ode[:, self.n_mech: self.n_mech + 2], eps_fs)
+        i_abc = dq_to_abc(i_dq, eps_fs)
+        eps_out = wrap_angle(ode[:, self.eps_idx])
+        system_state = torch.cat(
+            [ode[:, : self.n_mech], torque[:, None], i_abc, i_dq, u_in, u_dq, eps_out[:, None],
+             u_sup], dim=1)
         new_ps = PhysicsState(ode_state=ode, conv_state=cur, sup_state=sup_state,
                               t=ps.t + self.tau, k=ps.k + 1)
         return new_ps, system_state / self.limits_tensor(ode.device)

@@ -194,3 +194,45 @@ def test_cuda_dc_kernels_match_plain_versions(env_id):
         assert ok.all() if kern in (dcf.dc_rollout_buffer, dcf.dc_record_buffer) else ok.mean() >= 0.99
     torch.cuda.synchronize()
     assert all(v == 1 for v in dcf.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["Finite-CC-SCIM-v0", "Cont-SC-SCIM-v0"])
+def test_cuda_induction_kernels_match_plain_versions(env_id):
+    """The universal SCIM kernels (csrc/fused_induction.cu,
+    fused_induction_record.cu) on a constant-speed finite CC id (two
+    references, the flux direction) and a dynamic-speed continuous one:
+    the buffer modes in every env, the random modes in 99% of envs, at
+    rtol 1e-4 / atol 1e-4.  A fifth of the starts lie outside the current
+    limit, so the random modes cross resets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
+
+    dev = torch.device("cuda")
+    c = indf.InductionConsts(gt.make_functional(env_id, device=dev))
+    R, T = 4, 64
+    rng = np.random.default_rng(12)
+    bounds = ([(0, 100)] if c.mech else []) + [(-6, 6)] * 2 + [(-0.5, 0.5)] * 2
+    start = [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+             for lo, hi in bounds]
+    if c.finite:
+        acts = torch.as_tensor(rng.integers(0, 8, (T, R, 128)).astype(np.int32), device=dev)
+    else:
+        acts = torch.as_tensor(rng.uniform(-1, 1, (T, 3, R, 128)).astype(np.float32), device=dev)
+    indf.reset_launches()
+    for kern, plain, args in [
+        (indf.induction_rollout_buffer, indf.induction_rollout_buffer_plain, (start, acts)),
+        (indf.induction_record_buffer, indf.induction_record_buffer_plain, (start, acts)),
+        (indf.induction_rollout_random, indf.induction_rollout_random_plain, (5, start, T)),
+        (indf.induction_record_random, indf.induction_record_random_plain, (5, start, T)),
+    ]:
+        got, want = kern(c, *args), plain(c, *args)
+        ok = np.ones(R * 128, bool)
+        for g, w in zip(got, want):
+            g, w = g.cpu().double().numpy(), w.cpu().double().numpy()
+            ok &= (np.abs(g - w) <= 1e-4 + 1e-4 * np.abs(w)).reshape(-1, R * 128).all(axis=0)
+        buffer = kern in (indf.induction_rollout_buffer, indf.induction_record_buffer)
+        assert ok.all() if buffer else ok.mean() >= 0.99
+    torch.cuda.synchronize()
+    assert all(v == 1 for v in indf.LAUNCHES.values())

@@ -7,8 +7,9 @@ Run on a machine with the CUDA toolkit, from the root of a checkout:
     python3 tools/sass_ops.py [kernel ...]
 
 It builds ``csrc/fused_pmsm.cu``, ``csrc/fused_policy.cu``,
-``csrc/fused_sync.cu``, ``csrc/fused_dc.cu`` and ``csrc/fused_dc_record.cu``
-(as the package does at first use) and prints one
+``csrc/fused_sync.cu``, ``csrc/fused_dc.cu``, ``csrc/fused_dc_record.cu``,
+``csrc/fused_induction.cu`` and ``csrc/fused_induction_record.cu`` (as the
+package does at first use) and prints one
 JSON line per kernel; a template instance is named by a substring of its
 mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1E`` for H = 16,
 categorical, Wiener.
@@ -245,6 +246,21 @@ STEP_INSTANCES = {
         "dc_record_random": "dc_record_random_kernelILb0ELb1ELi1ELi1E",
         "dc_record_buffer": "dc_record_buffer_kernelILb0ELb1ELi1E",
         "dc_record_random/Finite-CC-PermExDc-v0": "dc_record_random_kernelILb1ELb0ELi0ELi1E",
+    },
+    # <FINITE, MECH, NREF>: Cont-SC-SCIM-v0 (0, 1, 1) for each kernel, and
+    # Cont-TC-SCIM-v0 (0, 0, 1) and Finite-CC-SCIM-v0 (1, 0, 2) for the
+    # random ones
+    "fused_induction": {
+        "induction_rollout_random": "induction_rollout_random_kernelILb0ELb1ELi1E",
+        "induction_rollout_buffer": "induction_rollout_buffer_kernelILb0ELb1E",
+        "induction_rollout_random/Cont-TC-SCIM-v0": "induction_rollout_random_kernelILb0ELb0ELi1E",
+        "induction_rollout_random/Finite-CC-SCIM-v0":
+            "induction_rollout_random_kernelILb1ELb0ELi2E",
+    },
+    "fused_induction_record": {
+        "induction_record_random": "induction_record_random_kernelILb0ELb1ELi1E",
+        "induction_record_buffer": "induction_record_buffer_kernelILb0ELb1E",
+        "induction_record_random/Finite-CC-SCIM-v0": "induction_record_random_kernelILb1ELb0ELi2E",
     },
 }
 
