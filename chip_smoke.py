@@ -43,7 +43,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    11. ppo_learn  tools/torch_ppo_learn.py: 1200 PPO iterations at full
             width must reach a mean reward above -0.11 over the last 10
             and 0.05 above the first 5
-12. (the rows of slices 1 and 2 of the kernels line, see 26)
+12. (the rows of slices 1 and 2 of the kernels line, see 30)
 13. sync_kernels  slice 3, the universal synchronous family
             (csrc/fused_sync.cu): for each of the 12 {Finite, Cont} x
             {CC, TC, SC} x {PMSM, SynRM} ids, each of the 4 kernels against
@@ -70,7 +70,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
             recorder at 1024 steps on both (GB/s); the general path
             (VectorEnv.rollout, random duty) on Cont-SC-PMSM-v0 at 200 steps;
             the launches of phases 14-16 must be exactly what they make
-17. (the rows of slices 1 to 3 of the kernels line, see 26)
+17. (the rows of slices 1 to 3 of the kernels line, see 30)
 18. dc_kernels  slice 4, the universal DC family (csrc/fused_dc.cu,
             csrc/fused_dc_record.cu): for each of the 24 {Finite, Cont} x
             {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc} ids, each
@@ -120,11 +120,37 @@ Phases (each prints one JSON line; any failure exits non-zero):
             general path (VectorEnv.rollout, the random policy of the action
             space) on Cont-SC-SCIM-v0 at 200 steps; the launches of phases
             23-25 must be exactly what they make
-26. kernels line (all 20 kernels; a policy kernel's launches are the sum
+26. eesm_kernels  slice 6, the universal EESM family (csrc/fused_eesm.cu,
+            csrc/fused_eesm_record.cu): for each of the 6 {Finite, Cont} x
+            {CC, TC, SC} EESM ids (three references on the CC ids), each of
+            the 4 kernels against its plain version at 16384 envs x 128
+            steps (timed on Cont-SC-EESM-v0, the instance the bounds count);
+            the two random kernels again at 1024 steps on Finite-CC-EESM-v0
+            and Cont-SC-EESM-v0
+27.-29. the slice-6 main path, counted from zero:
+   27. eesm_env  for each id, the port's env (VectorEnv's reset, the env's
+            step without autoreset, constant references, an action buffer,
+            16384 envs x 40 steps) against both buffer kernels, reached
+            through the dispatch, rtol 1e-4 / atol 2e-3 (angles modulo
+            2 pi, tests/test_pallas_families.py:61-72)
+   28. eesm_dispatch  for each id, make_fused_rollout(env, 200, 16384) and
+            make_fused_record_rollout(env, 200, 16384) must launch exactly
+            eesm_rollout_random and eesm_record_random once each and no
+            other kernel; output checks as phase 24's, the currents inside
+            their limits, and the share of env-steps that reset
+   29. eesm_timings  at 16384 envs: the random rollout at 65536 steps on
+            Finite-CC-EESM-v0 (bench.py:773-775), Cont-TC-EESM-v0 and
+            Cont-SC-EESM-v0; the random recorder at 1024 steps on
+            Finite-CC-EESM-v0 and Cont-SC-EESM-v0 (11 and 12 planes, GB/s);
+            each with its share of env-steps that reset; the general path
+            (VectorEnv.rollout, the random policy of the action space) on
+            Cont-SC-EESM-v0 at 200 steps; the launches of phases 27-29 must
+            be exactly what they make
+30. kernels line (all 24 kernels; a policy kernel's launches are the sum
     over the paths of phases 9-11, listed by path; a sync kernel's those of
     phases 14-16, a DC kernel's those of phases 19-21, an induction
-    kernel's those of phases 23-25), the card line, then
-    {"ok": true, "device": {...}}
+    kernel's those of phases 23-25, an EESM kernel's those of phases
+    27-29), the card line, then {"ok": true, "device": {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
 largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
@@ -201,6 +227,12 @@ DC_CONST_REFS = {"CC": {"PermExDc": [("i", 0.2)], "SeriesDc": [("i", 0.2)],
 IND_TIMED = "Cont-SC-SCIM-v0"      # the ids whose instances STEP_INSTANCES counts
 IND_BENCH = "Cont-TC-SCIM-v0"      # bench.py:810-812
 IND_CC = "Finite-CC-SCIM-v0"
+# slice 6: the six EESM ids
+EESM_TIMED = "Cont-SC-EESM-v0"     # the ids whose instances STEP_INSTANCES counts
+EESM_BENCH = "Finite-CC-EESM-v0"   # bench.py:773-775, three references
+EESM_TC = "Cont-TC-EESM-v0"
+EESM_CONST_REFS = {"CC": [("i_sd", 0.1), ("i_sq", -0.2), ("i_e", 0.3)], "TC": [("torque", 0.3)],
+                   "SC": [("omega", 0.2)]}
 # The pipes a kernel's bound counts, where not all.  Most of REINFORCE's ALU
 # and IMAD instructions are the 64-bit arithmetic of its 2 P trace
 # addresses, recomputed each step (opaque64 in csrc/policy_step.cuh keeps
@@ -317,7 +349,8 @@ def run(dev, card):
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     libs = cuda_build.build(["fused_pmsm", "fused_policy", "fused_sync", "fused_dc",
-                             "fused_dc_record", "fused_induction", "fused_induction_record"])
+                             "fused_dc_record", "fused_induction", "fused_induction_record",
+                             "fused_eesm", "fused_eesm_record"])
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
                     for ln in cuda_build.BUILD_LOG.get(name, "").splitlines()
@@ -990,11 +1023,12 @@ def family_kernel_rows(fam, source, replaces, launches, worst, share, timed, tim
 
 
 def sync_bytes(c, kernel, n, steps):
-    """Bytes a kernel on a B6 bridge (the sync and induction families) must
-    move for ``n`` envs and ``steps`` steps: each input once, each output
-    once.  ``kernel`` ends in its mode (``..._rollout_random``, ...)."""
+    """Bytes a kernel on a B6 bridge (the sync, induction and EESM
+    families) must move for ``n`` envs and ``steps`` steps: each input once,
+    each output once (4 bytes per action channel and step).  ``kernel`` ends
+    in its mode (``..._rollout_random``, ...)."""
     state = 4 * n * c.n_state
-    act = (4 if c.finite else 12) * n * steps
+    act = 4 * c.n_act * n * steps
     if kernel.endswith("_rollout_random"):
         return state + 4 * n * (c.n_state + 2) + 16 * n * c.n_ref
     if kernel.endswith("_rollout_buffer"):
@@ -1388,6 +1422,145 @@ def run_dc(dev, card, ops):
         {name: timings[DC_TIMED][name] for name in ("dc_rollout_random", "dc_record_random")})
 
 
+def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids, record_ids,
+                     ops, others, dispatch_checks):
+    """The main path of a universal family on a B6 bridge (the induction and
+    EESM slices), its launches counted from zero: the env against both
+    buffer kernels on every id of ``ids`` (constant references
+    ``const_refs[task]``, tolerance ``atol``), the dispatch (exactly one
+    launch of each random kernel per id and none of the ``others`` modules'
+    kernels; output checks, with ``dispatch_checks(c, roll, n_state)`` the
+    family's own), then the timings at the bench width: the random rollout
+    at T_ROLLOUT steps on ``timed_ids``, the random recorder at T_RECORD on
+    ``record_ids``, each with its share of env-steps that reset, and the
+    general path on the last of ``timed_ids`` (the instance the bounds
+    count).  Returns the family's launches on the path and the timings."""
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_record as frec
+    from gym_electric_motor_tpu_torch.ops import fused_rollout as fr
+
+    mod, pre = fam.mod, fam.prefix
+    rollout, record = f"{pre}_rollout_random", f"{pre}_record_random"
+    timed_id = timed_ids[-1]
+    N, R = N_ENVS, N_ENVS // 128
+    for module in others + (mod,):
+        module.reset_launches()
+
+    def others_launched():
+        return any(any(m.LAUNCHES.values()) for m in others)
+
+    # the env against the buffer kernels, through the dispatch
+    env_rows = {env_id: env_vs_buffer_kernels(torch, gt, rg, fr, frec, dev, fam, env_id,
+                                              const_refs[env_id.split("-")[1]], atol)
+                for env_id in ids}
+    emit({"phase": f"{pre}_env", "envs": N, "steps": T_SYNC_ENV, "ids": env_rows})
+
+    # the dispatch: exactly one launch of each random kernel per id
+    disp, checks = {}, {}
+    for env_id in ids:
+        env = gt.make_functional(env_id, device=dev)
+        n_state = fr.fused_state_arity(env)
+        z = [torch.zeros((R, 128), device=dev) for _ in range(n_state)]
+        before = dict(mod.LAUNCHES)
+        roll = fr.make_fused_rollout(env, T_DISPATCH, N)(SEED, *z)
+        rec = frec.make_fused_record_rollout(env, T_DISPATCH, N)(SEED, *z)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in mod.LAUNCHES.items() if v != before[k]}
+        if delta != {rollout: 1, record: 1} or others_launched():
+            raise AssertionError(f"{env_id}: the dispatch launched {delta} (other kernels: "
+                                 f"{others_launched()}), expected one {rollout} and one {record}")
+        c = fam.consts(env)
+        rv = roll[n_state + 2]
+        lo = min(row["mlo"] for row in c.rows)
+        hi = max(row["mhi"] for row in c.rows)
+        ok = {
+            "finite": all(bool(torch.isfinite(x).all()) for x in roll)
+            and all(bool(torch.isfinite(x.float()).all()) for x in rec.values()),
+            **dispatch_checks(c, roll, n_state),
+            "ref_in_margin": bool(((rv >= lo - 1e-6) & (rv <= hi + 1e-6)).all()),
+            "record_equals_rollout": bool(
+                torch.allclose(rec["reward"].sum(0), roll[n_state], rtol=1e-4, atol=1e-3)
+                and all(torch.equal(rec[nm][-1], roll[j]) for j, nm in enumerate(c.state_names))),
+        }
+        checks[env_id] = ok
+        disp[env_id] = {"launches": delta,
+                        "mean_reward": float(roll[n_state].double().sum()) / (N * T_DISPATCH),
+                        "reset_share": float(roll[n_state + 1].double().sum()) / (N * T_DISPATCH)}
+        del roll, rec
+    emit({"phase": f"{pre}_dispatch", "envs": N, "steps": T_DISPATCH, "ids": disp,
+          "checks": checks})
+    failed = [f"{i}:{k}" for i, ok in checks.items() for k, v in ok.items() if not v]
+    if failed:
+        raise AssertionError(f"{pre} dispatch output checks failed: {failed}")
+
+    # timings at the bench width; the share of env-steps that reset
+    timings = {}
+    for env_id in timed_ids:
+        env = gt.make_functional(env_id, device=dev)
+        c = fam.consts(env)
+        z = [torch.zeros((R, 128), device=dev) for _ in range(c.n_state)]
+        key = "" if env_id == timed_id else "/" + env_id
+        roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
+        r_ms, out = cuda_ms(torch, lambda: roll(SEED, *z), reps=SYNC_REPS)
+        row = {rollout: {
+            "steps": T_ROLLOUT, "ms": r_ms, "env_steps_per_s": N * T_ROLLOUT / (r_ms / 1e3),
+            "bound_ms": bound_ms(N * T_ROLLOUT, ops[rollout + key],
+                                 fam.nbytes(c, rollout, N, T_ROLLOUT))[0],
+            "mean_reward": float(out[c.n_state].double().sum()) / (N * T_ROLLOUT),
+            "reset_share": float(out[c.n_state + 1].double().sum()) / (N * T_ROLLOUT),
+            "finite": all(bool(torch.isfinite(x).all()) for x in out)}}
+        if not row[rollout]["finite"]:
+            raise AssertionError(f"{env_id}: the 65536-step rollout produced non-finite values")
+        if env_id in record_ids:
+            rec = frec.make_fused_record_rollout(env, T_RECORD, N)
+            c_ms, rec_out = cuda_ms(torch, lambda: rec(SEED, *z), reps=SYNC_REPS)
+            rec_bytes = sum(x.numel() * x.element_size() for x in rec_out.values())
+            row[record] = {
+                "steps": T_RECORD, "ms": c_ms, "bytes_written": rec_bytes,
+                "env_steps_per_s": N * T_RECORD / (c_ms / 1e3),
+                "GB_per_s": rec_bytes / (c_ms / 1e3) / 1e9,
+                "bound_ms": bound_ms(N * T_RECORD, ops[record + key],
+                                     fam.nbytes(c, record, N, T_RECORD))[0],
+                "reset_share": float(rec_out["done"].double().mean())}
+            del rec_out
+        timings[env_id] = row
+        del out
+    env = gt.make_functional(timed_id, device=dev)
+    venv = gt.VectorEnv(env, N)
+    state, _obs = venv.reset(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    policy = gt.random_policy_for(env)
+    venv.rollout(state, policy, 5, gen)  # warm-up
+    gen_ms, (state, rsum, tsum) = host_ms(
+        torch, lambda: venv.rollout(state, policy, T_SYNC_GENERAL, gen))
+    gen_mean_r = float(rsum.double().sum()) / (N * T_SYNC_GENERAL)
+    kernel_r = disp[timed_id]["mean_reward"]
+    timings["general_path/" + timed_id] = {
+        "steps": T_SYNC_GENERAL, "ms": gen_ms,
+        "env_steps_per_s": N * T_SYNC_GENERAL / (gen_ms / 1e3), "mean_reward": gen_mean_r,
+        "reset_share": float(tsum.double().sum()) / (N * T_SYNC_GENERAL),
+        "kernel_mean_reward_200": kernel_r}
+    launches = dict(mod.LAUNCHES)
+    emit({"phase": f"{pre}_timings", "card": card, "envs": N, "timings": timings,
+          "launches": launches})
+    if not (math.isfinite(gen_mean_r) and bool(torch.isfinite(state.phys.ode_state).all())):
+        raise AssertionError(f"the {timed_id} general path produced non-finite values")
+    # the same process in distribution: general path vs kernel over 200 steps
+    # from the reset state (the bound of tests/test_pallas_families.py:212)
+    if not abs(gen_mean_r - kernel_r) < 0.08:
+        raise AssertionError(f"general path mean reward {gen_mean_r} vs kernel {kernel_r}")
+    # each id once through the env check (buffer) and the dispatch (random);
+    # cuda_ms calls twice before its reps
+    n_ids, per_timing = len(ids), 2 + SYNC_REPS
+    want = {rollout: n_ids + len(timed_ids) * per_timing,
+            record: n_ids + len(record_ids) * per_timing,
+            f"{pre}_rollout_buffer": n_ids, f"{pre}_record_buffer": n_ids}
+    if launches != want or others_launched():
+        raise AssertionError(f"{pre} kernels on the main path launched {launches} (other "
+                             f"kernels: {others_launched()}), expected {want}")
+    return launches, timings
+
+
 def run_induction(dev, card, ops):
     """Slice 5, the universal induction family: the four kernels of
     csrc/fused_induction.cu and csrc/fused_induction_record.cu against their
@@ -1398,12 +1571,9 @@ def run_induction(dev, card, ops):
     import torch
 
     import gym_electric_motor_tpu_torch as gt
-    from gym_electric_motor_tpu_torch import references as rg
     from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
     from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
     from gym_electric_motor_tpu_torch.ops import fused_policy as fp
-    from gym_electric_motor_tpu_torch.ops import fused_record as frec
-    from gym_electric_motor_tpu_torch.ops import fused_rollout as fr
     from gym_electric_motor_tpu_torch.ops import fused_sync as fs
     from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
 
@@ -1434,126 +1604,17 @@ def run_induction(dev, card, ops):
                                                  (IND_CC, IND_TIMED), ops)
 
     # ---- 23.-25. the main path: counts from zero ---------------------------
-    for module in (fs, fp, sf, dcf, indf):
-        module.reset_launches()
-
-    def others_launched():
-        return any(any(m.LAUNCHES.values()) for m in (fs, fp, sf, dcf))
-
-    # 23. the env against the buffer kernels, through the dispatch
-    # (rtol 1e-4 / atol 2e-3, tests/test_pallas_families.py:70-72)
-    env_rows = {env_id: env_vs_buffer_kernels(torch, gt, rg, fr, frec, dev, fam, env_id,
-                                              SYNC_CONST_REFS[env_id.split("-")[1]], 2e-3)
-                for env_id in gt.SCIM_ENV_IDS}
-    emit({"phase": "induction_env", "envs": N, "steps": T_SYNC_ENV, "ids": env_rows})
-
-    # 24. the dispatch: exactly one launch of each random kernel per id
-    disp, checks = {}, {}
-    for env_id in gt.SCIM_ENV_IDS:
-        env = gt.make_functional(env_id, device=dev)
-        n_state = fr.fused_state_arity(env)
-        z = [torch.zeros((R, 128), device=dev) for _ in range(n_state)]
-        before = dict(indf.LAUNCHES)
-        roll = fr.make_fused_rollout(env, T_DISPATCH, N)(SEED, *z)
-        rec = frec.make_fused_record_rollout(env, T_DISPATCH, N)(SEED, *z)
-        torch.cuda.synchronize()
-        delta = {k: v - before[k] for k, v in indf.LAUNCHES.items() if v != before[k]}
-        if delta != {"induction_rollout_random": 1, "induction_record_random": 1} \
-                or others_launched():
-            raise AssertionError(f"{env_id}: the dispatch launched {delta} (other kernels: "
-                                 f"{others_launched()}), expected one induction_rollout_random "
-                                 "and one induction_record_random")
-        c = indf.InductionConsts(env)
+    # 23. the env against the buffer kernels (rtol 1e-4 / atol 2e-3,
+    # tests/test_pallas_families.py:70-72); 24. the dispatch, with the
+    # currents inside the limit circle; 25. timings
+    def in_circle(c, roll, n_state):
         isa, isb = roll[n_state - 4], roll[n_state - 3]
-        rv = roll[n_state + 2]
-        lo = min(row["mlo"] for row in c.rows)
-        hi = max(row["mhi"] for row in c.rows)
-        ok = {
-            "finite": all(bool(torch.isfinite(x).all()) for x in roll)
-            and all(bool(torch.isfinite(x.float()).all()) for x in rec.values()),
-            "in_current_circle": bool(((isa * isa + isb * isb) * c.f["inv_ilim2"]
-                                       <= 1.0 + 1e-5).all()),
-            "ref_in_margin": bool(((rv >= lo - 1e-6) & (rv <= hi + 1e-6)).all()),
-            "record_equals_rollout": bool(
-                torch.allclose(rec["reward"].sum(0), roll[n_state], rtol=1e-4, atol=1e-3)
-                and all(torch.equal(rec[nm][-1], roll[j]) for j, nm in enumerate(c.state_names))),
-        }
-        checks[env_id] = ok
-        disp[env_id] = {"launches": delta,
-                        "mean_reward": float(roll[n_state].double().sum()) / (N * T_DISPATCH),
-                        "reset_share": float(roll[n_state + 1].double().sum()) / (N * T_DISPATCH)}
-        del roll, rec
-    emit({"phase": "induction_dispatch", "envs": N, "steps": T_DISPATCH, "ids": disp,
-          "checks": checks})
-    failed = [f"{i}:{k}" for i, ok in checks.items() for k, v in ok.items() if not v]
-    if failed:
-        raise AssertionError(f"induction dispatch output checks failed: {failed}")
+        return {"in_current_circle": bool(((isa * isa + isb * isb) * c.f["inv_ilim2"]
+                                           <= 1.0 + 1e-5).all())}
 
-    # 25. timings at the bench width; the share of env-steps that reset
-    timings = {}
-    for env_id in (IND_BENCH, IND_CC, IND_TIMED):
-        env = gt.make_functional(env_id, device=dev)
-        c = indf.InductionConsts(env)
-        z = [torch.zeros((R, 128), device=dev) for _ in range(c.n_state)]
-        key = "" if env_id == IND_TIMED else "/" + env_id
-        roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
-        r_ms, out = cuda_ms(torch, lambda: roll(SEED, *z), reps=SYNC_REPS)
-        row = {"induction_rollout_random": {
-            "steps": T_ROLLOUT, "ms": r_ms, "env_steps_per_s": N * T_ROLLOUT / (r_ms / 1e3),
-            "bound_ms": bound_ms(N * T_ROLLOUT, ops["induction_rollout_random" + key],
-                                 sync_bytes(c, "induction_rollout_random", N, T_ROLLOUT))[0],
-            "mean_reward": float(out[c.n_state].double().sum()) / (N * T_ROLLOUT),
-            "reset_share": float(out[c.n_state + 1].double().sum()) / (N * T_ROLLOUT),
-            "finite": all(bool(torch.isfinite(x).all()) for x in out)}}
-        if not row["induction_rollout_random"]["finite"]:
-            raise AssertionError(f"{env_id}: the 65536-step rollout produced non-finite values")
-        if env_id != IND_BENCH:
-            rec = frec.make_fused_record_rollout(env, T_RECORD, N)
-            c_ms, rec_out = cuda_ms(torch, lambda: rec(SEED, *z), reps=SYNC_REPS)
-            rec_bytes = sum(x.numel() * x.element_size() for x in rec_out.values())
-            row["induction_record_random"] = {
-                "steps": T_RECORD, "ms": c_ms, "bytes_written": rec_bytes,
-                "env_steps_per_s": N * T_RECORD / (c_ms / 1e3),
-                "GB_per_s": rec_bytes / (c_ms / 1e3) / 1e9,
-                "bound_ms": bound_ms(N * T_RECORD, ops["induction_record_random" + key],
-                                     sync_bytes(c, "induction_record_random", N, T_RECORD))[0],
-                "reset_share": float(rec_out["done"].double().mean())}
-            del rec_out
-        timings[env_id] = row
-        del out
-    env = gt.make_functional(IND_TIMED, device=dev)
-    venv = gt.VectorEnv(env, N)
-    state, _obs = venv.reset(SEED)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    policy = gt.random_policy_for(env)
-    venv.rollout(state, policy, 5, gen)  # warm-up
-    gen_ms, (state, rsum, tsum) = host_ms(
-        torch, lambda: venv.rollout(state, policy, T_SYNC_GENERAL, gen))
-    gen_mean_r = float(rsum.double().sum()) / (N * T_SYNC_GENERAL)
-    kernel_r = disp[IND_TIMED]["mean_reward"]
-    timings["general_path/" + IND_TIMED] = {
-        "steps": T_SYNC_GENERAL, "ms": gen_ms,
-        "env_steps_per_s": N * T_SYNC_GENERAL / (gen_ms / 1e3), "mean_reward": gen_mean_r,
-        "reset_share": float(tsum.double().sum()) / (N * T_SYNC_GENERAL),
-        "kernel_mean_reward_200": kernel_r}
-    launches = dict(indf.LAUNCHES)
-    emit({"phase": "induction_timings", "card": card, "envs": N, "timings": timings,
-          "launches": launches})
-    if not (math.isfinite(gen_mean_r) and bool(torch.isfinite(state.phys.ode_state).all())):
-        raise AssertionError(f"the {IND_TIMED} general path produced non-finite values")
-    # the same process in distribution: general path vs kernel over 200 steps
-    # from the reset state (the bound of tests/test_pallas_families.py:212)
-    if not abs(gen_mean_r - kernel_r) < 0.08:
-        raise AssertionError(f"general path mean reward {gen_mean_r} vs kernel {kernel_r}")
-    # each id once through the env check (buffer) and the dispatch (random);
-    # cuda_ms calls twice before its reps: 3 rollout and 2 recorder timings
-    n_ids, per_timing = len(gt.SCIM_ENV_IDS), 2 + SYNC_REPS
-    want = {"induction_rollout_random": n_ids + 3 * per_timing,
-            "induction_record_random": n_ids + 2 * per_timing,
-            "induction_rollout_buffer": n_ids, "induction_record_buffer": n_ids}
-    if launches != want or others_launched():
-        raise AssertionError(f"induction kernels on the main path launched {launches} (other "
-                             f"kernels: {others_launched()}), expected {want}")
+    launches, timings = family_main_path(
+        torch, gt, dev, card, fam, gt.SCIM_ENV_IDS, SYNC_CONST_REFS, 2e-3,
+        (IND_BENCH, IND_CC, IND_TIMED), (IND_CC, IND_TIMED), ops, (fs, fp, sf, dcf), in_circle)
 
     # ---- kernels line rows ---------------------------------------------------
     replaces = {"induction_rollout_random": "gym_electric_motor_tpu/ops/pallas_induction.py:859",
@@ -1565,6 +1626,83 @@ def run_induction(dev, card, ops):
         launches, worst, share, timed, IND_TIMED, len(gt.SCIM_ENV_IDS),
         {name: timings[IND_TIMED][name]
          for name in ("induction_rollout_random", "induction_record_random")})
+
+
+def run_eesm(dev, card, ops):
+    """Slice 6, the universal EESM family: the four kernels of
+    csrc/fused_eesm.cu and csrc/fused_eesm_record.cu against their plain
+    versions on the six EESM ids, then the main path (env against the buffer
+    kernels, the dispatch, timings) with its launches counted from zero.
+    Returns the EESM kernels' rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef
+    from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+    from gym_electric_motor_tpu_torch.ops import fused_sync as fs
+    from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
+
+    N, R = N_ENVS, N_ENVS // 128
+    rng = np.random.default_rng(SEED)
+
+    def planes(c):
+        """Speed (under a dynamic load) in [0, 100) rad/s, the three currents
+        within 170 A (the limits are 150 A, so some random-mode envs reset at
+        once), the angle in [0, 2 pi)."""
+        bounds = ([(0, 100)] if c.mech else []) + [(-170, 170)] * 3 + [(0, 2 * np.pi)]
+        return [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+                for lo, hi in bounds]
+
+    def actions(c, steps):
+        """int32 (T, 2, R, 128) B6 bits and 4QC actions, or float32
+        (T, 4, R, 128) duties."""
+        if c.finite:
+            a = np.stack([rng.integers(0, 8, (steps, R, 128)), rng.integers(0, 4, (steps, R, 128))],
+                         axis=1)
+            return torch.as_tensor(a.astype(np.int32), device=dev)
+        return torch.as_tensor(rng.uniform(-1.0, 1.0, (steps, 4, R, 128)).astype(np.float32),
+                               device=dev)
+
+    # ---- 26. the four kernels against their plain versions, every id -----
+    fam = SimpleNamespace(
+        mod=ef, prefix="eesm", consts=ef.EesmConsts, planes=planes, actions=actions,
+        nbytes=sync_bytes, angle=lambda c, n: [j == c.n_state - 1 for j in range(n)],
+        cols=lambda c: ([0] if c.mech else []) + [1, 2, 3, 4],
+        env_action=lambda c, a: a.reshape(c.n_act, N).T.contiguous())
+    worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.EESM_ENV_IDS, EESM_TIMED,
+                                                 (EESM_BENCH, EESM_TIMED), ops)
+
+    # ---- 27.-29. the main path: counts from zero ---------------------------
+    # 27. the env against the buffer kernels (rtol 1e-4 / atol 2e-3, angles
+    # modulo 2 pi, tests/test_pallas_families.py:61-72); 28. the dispatch,
+    # with the angle in range and the currents inside their limits; 29.
+    # timings
+    def in_limits(c, roll, n_state):
+        i_sd, i_sq, i_e, eps = roll[n_state - 4:n_state]
+        i_n = c.f["inv_i_lim"]
+        return {
+            # [0, 2 pi] in float32: a tiny negative angle wraps to 2 pi exactly
+            "eps_in_range": bool(((eps >= 0) & (eps <= float(np.float32(2 * math.pi)))).all()),
+            "in_current_limits": bool((((i_sd * i_n) ** 2 + (i_sq * i_n) ** 2) <= 1.0 + 1e-5).all()
+                                      and ((i_e * c.f["inv_ie_lim"]).abs() <= 1.0).all())}
+
+    launches, timings = family_main_path(
+        torch, gt, dev, card, fam, gt.EESM_ENV_IDS, EESM_CONST_REFS, 2e-3,
+        (EESM_BENCH, EESM_TC, EESM_TIMED), (EESM_BENCH, EESM_TIMED), ops,
+        (fs, fp, sf, dcf, indf), in_limits)
+
+    # ---- kernels line rows ---------------------------------------------------
+    replaces = {"eesm_rollout_random": "gym_electric_motor_tpu/ops/pallas_eesm.py:902",
+                "eesm_rollout_buffer": "gym_electric_motor_tpu/ops/pallas_eesm.py:875",
+                "eesm_record_random": "gym_electric_motor_tpu/ops/pallas_record.py:303",
+                "eesm_record_buffer": "gym_electric_motor_tpu/ops/pallas_record.py:147"}
+    return family_kernel_rows(
+        fam, lambda name: f"gym_electric_motor_tpu_torch/csrc/{ef.LIBRARY[name]}.cu", replaces,
+        launches, worst, share, timed, EESM_TIMED, len(gt.EESM_ENV_IDS),
+        {name: timings[EESM_TIMED][name] for name in ("eesm_rollout_random", "eesm_record_random")})
 
 
 def main():
@@ -1600,9 +1738,11 @@ def main():
     seconds["slice_4"] = lap()
     line += run_induction(dev, card, ops)
     seconds["slice_5"] = lap()
+    line += run_eesm(dev, card, ops)
+    seconds["slice_6"] = lap()
     emit({"phase": "elapsed", "seconds": seconds, "total": clock[-1] - clock[0]})
 
-    # ---- 26. kernels line, card and result --------------------------------
+    # ---- 30. kernels line, card and result --------------------------------
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,8 +6,8 @@
 //
 // Replaces the parts of gym_electric_motor_tpu/ops/pallas_common.py that the
 // universal builders call: _make_wiener (:1095-1443, 'wiener' and 'const'
-// rows: the n_ref = 2 spatial Box-Muller pair and the n_ref = 1 temporal
-// pair :1379-1404), _wse_err (:912-925, power 1), _make_fused_mech's
+// rows: the n_ref = 2 spatial Box-Muller pair, the n_ref = 3 two pairs and
+// the n_ref = 1 temporal pair :1379-1404), _wse_err (:912-925, power 1), _make_fused_mech's
 // 'poly' mode (:662-689) and _make_b6 (:773-821, finite, and cont with no
 // interlock).  The plain PyTorch version of the same arithmetic, in the
 // same order, is in gym_electric_motor_tpu_torch/ops/fused_common.py
@@ -31,23 +31,35 @@ enum RefRowIndex {
   N_ROW_CONST
 };
 
-// The reference constants of one env, as float32 from the host.
-struct RefConst {
-  float row[2][N_ROW_CONST];
+// The reference constants of one env, as float32 from the host, for up to
+// NROWS reference rows.
+template <int NROWS>
+struct RefConstN {
+  float row[NROWS][N_ROW_CONST];
   float two_pi, ln10;
   float u_min;     // guard before the Box-Muller log
   int all_const;   // every reference constant: no reference draws at all
 };
 
+// The families with at most two reference rows; the EESM's three current
+// references take RefConstN<3>.
+using RefConst = RefConstN<2>;
+
 // Draw slots of the universal families: the Philox counter of one call is
-// (env, step, slot, 0), with the numbering of pmsm_step.cuh's PmsmSlot.
+// (env, step, slot, 0), with the numbering of pmsm_step.cuh's PmsmSlot.  A
+// third reference row draws from slots of its own, so the one- and two-row
+// instances draw what they drew before it existed.
 enum DriveSlot {
   DRIVE_SLOT_STEP = 0,      // (action 0, box-muller u1, box-muller u2, action 1)
   DRIVE_SLOT_PARAMS = 1,    // (length row 0, length row 1, sigma row 0, sigma row 1)
-  DRIVE_SLOT_RESET = 2,     // (reset value row 0, reset value row 1, -, -)
+  DRIVE_SLOT_RESET = 2,     // (reset value row 0, row 1, row 2, -)
   DRIVE_SLOT_INIT_A = 3,    // at step 0: (value row 0, value row 1, length row 0, length row 1)
   DRIVE_SLOT_INIT_B = 4,    // at step 0: (sigma row 0, sigma row 1, -, -)
-  DRIVE_SLOT_ACTION_C = 8   // the B6 bridge's third duty: (action 2, -, -, -)
+  DRIVE_SLOT_ACTION_C = 8,  // the B6 bridge's third duty and the EESM's excitation duty:
+                            // (action 2, action 3, -, -)
+  DRIVE_SLOT_ROW2 = 9,      // three rows: (box-muller u1 of pair 2, u2 of pair 2,
+                            // length row 2, sigma row 2)
+  DRIVE_SLOT_INIT_C = 10    // three rows, at step 0: (value row 2, length row 2, sigma row 2, -)
 };
 
 __device__ __forceinline__ uint4 drive_draw(uint2 key, uint32_t env, uint32_t t, uint32_t slot) {
@@ -63,19 +75,21 @@ struct RefRows {
   float zb;
 };
 
-__device__ __forceinline__ void ref_params(const RefConst& k, int r, uint32_t b_len,
-                                           uint32_t b_sig, float& rl, float& rs) {
+template <class RC>
+__device__ __forceinline__ void ref_params(const RC& k, int r, uint32_t b_len, uint32_t b_sig,
+                                           float& rl, float& rs) {
   rl = floorf(k.row[r][R_EP_LO] + k.row[r][R_EP_SPAN] * uniform24(b_len));
   rs = expf(k.ln10 * (k.row[r][R_SIG_BASE] + k.row[r][R_SIG_SPAN] * uniform24(b_sig)));
 }
 
-__device__ __forceinline__ float ref_uniform_value(const RefConst& k, int r, uint32_t b) {
+template <class RC>
+__device__ __forceinline__ float ref_uniform_value(const RC& k, int r, uint32_t b) {
   return k.row[r][R_MLO] + (k.row[r][R_MHI] - k.row[r][R_MLO]) * uniform24(b);
 }
 
 // The reference rows at step 0.  All-constant references draw nothing.
-template <int NREF>
-__device__ __forceinline__ void ref_wiener_init(const RefConst& k, uint2 key, uint32_t env,
+template <int NREF, class RC>
+__device__ __forceinline__ void ref_wiener_init(const RC& k, uint2 key, uint32_t env,
                                                 RefRows<NREF>& refs) {
   refs.zb = 0.0f;
   if (k.all_const) {
@@ -90,25 +104,39 @@ __device__ __forceinline__ void ref_wiener_init(const RefConst& k, uint2 key, ui
   }
   const uint4 a = drive_draw(key, env, 0u, DRIVE_SLOT_INIT_A);
   const uint4 b = drive_draw(key, env, 0u, DRIVE_SLOT_INIT_B);
+  uint4 c = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (NREF == 3) c = drive_draw(key, env, 0u, DRIVE_SLOT_INIT_C);
 #pragma unroll
   for (int r = 0; r < NREF; ++r) {
-    refs.rv[r] = ref_uniform_value(k, r, r ? a.y : a.x);
+    refs.rv[r] = ref_uniform_value(k, r, r == 2 ? c.x : (r ? a.y : a.x));
     refs.rk[r] = 0.0f;
-    ref_params(k, r, r ? a.w : a.z, r ? b.y : b.x, refs.rl[r], refs.rs[r]);
+    ref_params(k, r, r == 2 ? c.y : (r ? a.w : a.z), r == 2 ? c.z : (r ? b.y : b.x), refs.rl[r],
+               refs.rs[r]);
   }
 }
 
 // The Wiener advance of every row: the step's Box-Muller pair (w.y, w.z)
 // feeds both rows (n_ref = 2) or, for one row, is drawn at even steps and
-// its cosine used there, its sine at the next odd step.  Sub-episode
-// regeneration and the reset value of a violating env draw their slots only
-// where they are used.
-template <int NREF>
-__device__ __forceinline__ void ref_wiener_advance(const RefConst& k, uint2 key, uint32_t env,
+// its cosine used there, its sine at the next odd step; three rows take the
+// step's pair for rows 0 and 1 and the cosine of a second pair, from the
+// ROW2 slot, for row 2 (cos, sin, cos, as pallas_common.py:1379-1389).
+// Sub-episode regeneration and the reset value of a violating env draw
+// their slots only where they are used.
+template <int NREF, class RC>
+__device__ __forceinline__ void ref_wiener_advance(const RC& k, uint2 key, uint32_t env,
                                                    uint32_t t, uint4 w, bool violated,
                                                    RefRows<NREF>& refs) {
   float draw[NREF];
-  if (NREF == 2 || (t & 1u) == 0u) {
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);  // three rows: the ROW2 slot's words
+  if constexpr (NREF == 3) {
+    x = drive_draw(key, env, t, DRIVE_SLOT_ROW2);
+    const float rad = sqrtf(-2.0f * logf(fmaxf(uniform24(w.y), k.u_min)));
+    const float theta = k.two_pi * uniform24(w.z);
+    draw[0] = rad * cosf(theta);
+    draw[1] = rad * sinf(theta);
+    const float rad2 = sqrtf(-2.0f * logf(fmaxf(uniform24(x.x), k.u_min)));
+    draw[2] = rad2 * cosf(k.two_pi * uniform24(x.y));
+  } else if (NREF == 2 || (t & 1u) == 0u) {
     const float rad = sqrtf(-2.0f * logf(fmaxf(uniform24(w.y), k.u_min)));
     const float theta = k.two_pi * uniform24(w.z);
     draw[0] = rad * cosf(theta);
@@ -131,7 +159,10 @@ __device__ __forceinline__ void ref_wiener_advance(const RefConst& k, uint2 key,
     const uint4 p = drive_draw(key, env, t, DRIVE_SLOT_PARAMS);
 #pragma unroll
     for (int r = 0; r < NREF; ++r) {
-      if (regen[r]) ref_params(k, r, r ? p.y : p.x, r ? p.w : p.z, refs.rl[r], refs.rs[r]);
+      if (regen[r]) {
+        ref_params(k, r, r == 2 ? x.z : (r ? p.y : p.x), r == 2 ? x.w : (r ? p.w : p.z),
+                   refs.rl[r], refs.rs[r]);
+      }
     }
   }
 #pragma unroll
@@ -142,17 +173,21 @@ __device__ __forceinline__ void ref_wiener_advance(const RefConst& k, uint2 key,
   if (violated) {
     const uint4 q = drive_draw(key, env, t, DRIVE_SLOT_RESET);
 #pragma unroll
-    for (int r = 0; r < NREF; ++r) refs.rv[r] = ref_uniform_value(k, r, r ? q.y : q.x);
+    for (int r = 0; r < NREF; ++r) {
+      refs.rv[r] = ref_uniform_value(k, r, r == 2 ? q.z : (r ? q.y : q.x));
+    }
   }
 }
 
 // The WSE reward at power 1 against the pre-advance references: bias minus
-// coef * |q - ref| per row (q1 is read with two rows only).
-template <int NREF>
-__device__ __forceinline__ float ref_wse(const RefConst& k, float bias, float q0, float q1,
-                                         const RefRows<NREF>& refs) {
+// coef * |q - ref| per row, in row order (q1 is read with two or three
+// rows, q2 with three).
+template <int NREF, class RC>
+__device__ __forceinline__ float ref_wse(const RC& k, float bias, float q0, float q1,
+                                         const RefRows<NREF>& refs, float q2 = 0.0f) {
   float wse = bias - k.row[0][R_COEF] * fabsf(q0 - refs.rv[0]);
-  if (NREF == 2) wse = wse - k.row[1][R_COEF] * fabsf(q1 - refs.rv[NREF - 1]);
+  if (NREF >= 2) wse = wse - k.row[1][R_COEF] * fabsf(q1 - refs.rv[NREF > 1 ? 1 : 0]);
+  if (NREF == 3) wse = wse - k.row[NREF - 1][R_COEF] * fabsf(q2 - refs.rv[NREF - 1]);
   return wse;
 }
 
@@ -190,10 +225,11 @@ __device__ __forceinline__ void b6_fractions(const B6Action& act, float& fa, flo
   }
 }
 
-// The random action of a step from its SLOT_STEP words w: finite, the low 3
-// bits of w.x; continuous, 2 u - 1 from w.x, w.w and the ACTION_C slot.
+// The B6 action of a step's words: finite, the low 3 bits of the SLOT_STEP
+// word w.x; continuous, 2 u - 1 from w.x, w.w and the ACTION_C slot's first
+// word c.
 template <bool FINITE>
-__device__ __forceinline__ B6Action b6_random_action(uint2 key, uint32_t env, uint32_t t, uint4 w) {
+__device__ __forceinline__ B6Action b6_action_of_words(uint4 w, uint32_t c) {
   B6Action act;
   if (FINITE) {
     act.bits = (int)(w.x & 7u);
@@ -202,9 +238,17 @@ __device__ __forceinline__ B6Action b6_random_action(uint2 key, uint32_t env, ui
     act.bits = 0;
     act.a = 2.0f * uniform24(w.x) - 1.0f;
     act.b = 2.0f * uniform24(w.w) - 1.0f;
-    act.c = 2.0f * uniform24(drive_draw(key, env, t, DRIVE_SLOT_ACTION_C).x) - 1.0f;
+    act.c = 2.0f * uniform24(c) - 1.0f;
   }
   return act;
+}
+
+// The random action of a step from its SLOT_STEP words w (continuous: and
+// the ACTION_C slot).
+template <bool FINITE>
+__device__ __forceinline__ B6Action b6_random_action(uint2 key, uint32_t env, uint32_t t, uint4 w) {
+  return b6_action_of_words<FINITE>(
+      w, FINITE ? 0u : drive_draw(key, env, t, DRIVE_SLOT_ACTION_C).x);
 }
 
 // The buffer step's action at step t: int32 (T, N) bits, or float32

@@ -1,13 +1,13 @@
 """Environment catalog (counterpart of ``gym_electric_motor_tpu/envs/catalog.py``).
 
 The env-id grammar is ``{Finite|Cont}-{CC|TC|SC}-{Motor}-v0``.  This
-package serves the 42 ids of the DC, synchronous and squirrel-cage
-induction families (``{Finite, Cont} x {CC, TC, SC} x {PermExDc, SeriesDc,
-ShuntDc, ExtExDc, PMSM, SynRM, SCIM}``) so far; every other id of the JAX
-catalog raises ``NotImplementedError`` naming the step of queue 1, slice 3
-of the port that brings it.  The default tables below are this package's
-own copy of the DC, PMSM, SynRM and SCIM rows of the JAX package's
-tables.
+package serves the 48 ids of the DC, synchronous, externally excited
+synchronous and squirrel-cage induction families (``{Finite, Cont} x {CC,
+TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc, PMSM, SynRM, EESM,
+SCIM}``) so far; every other id of the JAX catalog raises
+``NotImplementedError`` naming the step of queue 1, slice 3 of the port
+that brings it.  The default tables below are this package's own copy of
+the DC, PMSM, SynRM, EESM and SCIM rows of the JAX package's tables.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from ..models import converters as cv
 from ..models import loads as ld
 from ..models import motors as mt
 from ..models import supplies as sp
-from ..physical_systems import DcMotorSystem, SCIMSystem, SynchronousMotorSystem
+from ..physical_systems import DcMotorSystem, EESMSystem, SCIMSystem, SynchronousMotorSystem
 from ..rewards import WeightedSumOfErrors
 from ..utils.device import resolve_device
 from ..wrappers import CurrentSumProcessor, apply_wrappers
@@ -37,14 +37,15 @@ _B6_MOTORS = _SYNC_MOTORS + ["SCIM"]
 DC_ENV_IDS = [f"{a}-{t}-{m}-v0" for m in _DC_MOTORS for t in _TASKS for a in _ACTIONS]
 SYNC_ENV_IDS = [f"{a}-{t}-{m}-v0" for m in _SYNC_MOTORS for t in _TASKS for a in _ACTIONS]
 SCIM_ENV_IDS = [f"{a}-{t}-SCIM-v0" for t in _TASKS for a in _ACTIONS]
-ENV_IDS = DC_ENV_IDS + SYNC_ENV_IDS + SCIM_ENV_IDS
+EESM_ENV_IDS = [f"{a}-{t}-EESM-v0" for t in _TASKS for a in _ACTIONS]
+ENV_IDS = DC_ENV_IDS + SYNC_ENV_IDS + SCIM_ENV_IDS + EESM_ENV_IDS
 
 # the step of queue 1, slice 3 that brings each family not served yet
-_FAMILY_STEP = {"EESM": "EESM", "DFIM": "DFIM", "SRM": "SRM"}
+_FAMILY_STEP = {"DFIM": "DFIM", "SRM": "SRM"}
 
 # supply voltage exceptions (the rest: 60 V for DC, 420 V otherwise)
 _SUPPLY_U = {("Finite", "CC", "SeriesDc"): 420.0, ("Finite", "TC", "SeriesDc"): 420.0,
-             ("Cont", "CC", "PMSM"): 300.0}
+             ("Cont", "CC", "PMSM"): 300.0, ("Cont", "CC", "EESM"): 300.0}
 # PolynomialStaticLoad of the SC tasks (else _SC_LOAD_DEFAULT)
 _SC_LOAD = {
     ("Finite", "PermExDc"): dict(a=0.0, b=0.0, c=0.0, j_load=1e-3),
@@ -81,9 +82,9 @@ def _parse_env_id(env_id):
                        f"{{{'|'.join(_MOTORS)}}}-v0")
     if env_id not in ENV_IDS:
         raise NotImplementedError(
-            f"{env_id!r} is not ported yet: this package serves the 24 DC, the 12 synchronous "
-            f"and the 6 SCIM ids; the {_FAMILY_STEP[parts[2]]} family arrives with its step of "
-            "queue 1, slice 3 of the port")
+            f"{env_id!r} is not ported yet: this package serves the 24 DC, the 12 synchronous, "
+            f"the 6 SCIM and the 6 EESM ids; the {_FAMILY_STEP[parts[2]]} family arrives with its "
+            "step of queue 1, slice 3 of the port")
     return parts[0], parts[1], parts[2]
 
 
@@ -101,15 +102,17 @@ def _sigma_for(task, motor, action):
 
 
 def _default_converter(action, motor, tau):
+    b6 = cv.finite_b6_bridge_converter if action == "Finite" else cv.cont_b6_bridge_converter
     if motor in _B6_MOTORS:
-        return (cv.finite_b6_bridge_converter(tau) if action == "Finite"
-                else cv.cont_b6_bridge_converter(tau))
+        return b6(tau)
     four_qc = (cv.finite_four_quadrant_converter if action == "Finite"
                else cv.cont_four_quadrant_converter)
-    if motor != "ExtExDc":
+    if motor not in ("ExtExDc", "EESM"):
         return four_qc(tau)
     multi = cv.finite_multi_converter if action == "Finite" else cv.cont_multi_converter
-    return multi([four_qc(tau), four_qc(tau)], tau)
+    # ExtExDc: armature and excitation 4QC; EESM: the stator B6 bridge and
+    # the excitation 4QC
+    return multi([b6(tau) if motor == "EESM" else four_qc(tau), four_qc(tau)], tau)
 
 
 def _default_references(task, motor, action):
@@ -120,6 +123,10 @@ def _default_references(task, motor, action):
         margin = (0, 0.8) if (motor, action) == ("ShuntDc", "Cont") else None
         return rg.ReferenceSpec([rg.WienerProcessReference("torque", sigma_range=sig,
                                                            limit_margin=margin)])
+    if motor == "EESM":
+        return rg.ReferenceSpec([rg.WienerProcessReference("i_sd"),
+                                 rg.WienerProcessReference("i_sq"),
+                                 rg.WienerProcessReference("i_e", limit_margin=(0, 1))])
     names = {"PermExDc": ["i"], "SeriesDc": ["i"], "ShuntDc": ["i_a"],
              "ExtExDc": ["i_a", "i_e"]}.get(motor, ["i_sd", "i_sq"])
     if motor in _B6_MOTORS:
@@ -133,7 +140,8 @@ def _default_reward(task, motor):
     if task == "TC":
         return WeightedSumOfErrors(reward_weights=dict(torque=1.0))
     weights = {"PermExDc": dict(i=1.0), "SeriesDc": dict(i=1.0), "ShuntDc": dict(i_a=1.0),
-               "ExtExDc": dict(i_a=0.5, i_e=0.5)}.get(motor, dict(i_sd=0.5, i_sq=0.5))
+               "ExtExDc": dict(i_a=0.5, i_e=0.5),
+               "EESM": dict(i_sd=1 / 3, i_sq=1 / 3, i_e=1 / 3)}.get(motor, dict(i_sd=0.5, i_sq=0.5))
     return WeightedSumOfErrors(reward_weights=weights)
 
 
@@ -142,6 +150,8 @@ def _default_constraints(motor):
         return (LimitConstraint(("i",)),)
     if motor in ("ShuntDc", "ExtExDc"):
         return (LimitConstraint(("i_a",)), LimitConstraint(("i_e",)))
+    if motor == "EESM":
+        return (SquaredConstraint(("i_sq", "i_sd")), LimitConstraint(("i_e",)))
     return (SquaredConstraint(("i_sq", "i_sd")),)
 
 
@@ -165,8 +175,10 @@ def make_functional(
 ) -> ElectricMotorEnvironment:
     """Build the functional environment for a catalog env id on ``device``
     (default ``cuda``).  Components may be overridden with spec instances,
-    or with dicts of keyword overrides for the supply, motor and load (the
-    env-arg pattern of utils.py:5-16 of the reference).  ``control_space``
+    or with dicts of keyword overrides for the supply, converter, motor and
+    load (the env-arg pattern of utils.py:5-16 of the reference; a
+    converter dict is merged into the default converter's factory, and a
+    multi converter keeps its default, as in the JAX package).  ``control_space``
     must be ``"abc"``, and ``physical_system_wrappers`` may hold
     ``CurrentSumProcessor`` only: the dq control space and the other
     wrappers are not ported yet.  A ShuntDc env appends its default
@@ -186,7 +198,14 @@ def make_functional(
         supply = sp.ideal_voltage_supply(**{"u_nominal": u_sup, **supply})
     else:
         supply = supply or sp.ideal_voltage_supply(u_sup)
-    converter = converter or _default_converter(action, motor_name, tau)
+    if isinstance(converter, dict):
+        # merged into the default converter's factory; a multi converter
+        # keeps its default (catalog.py:256-260 of the JAX package)
+        default_conv = _default_converter(action, motor_name, tau)
+        converter = (default_conv if "Multi" in default_conv.kind
+                     else cv.CONVERTER_FACTORIES[default_conv.kind](tau=tau, **converter))
+    else:
+        converter = converter or _default_converter(action, motor_name, tau)
     if isinstance(motor, dict):
         motor_spec = mt.MOTOR_FACTORIES[motor_name](**motor)
     else:
@@ -206,8 +225,9 @@ def make_functional(
     if constraints is None:
         constraints = _default_constraints(motor_name)
 
-    if motor_name in _B6_MOTORS:
-        system_cls = SCIMSystem if motor_name == "SCIM" else SynchronousMotorSystem
+    if motor_name in _B6_MOTORS or motor_name == "EESM":
+        system_cls = {"SCIM": SCIMSystem, "EESM": EESMSystem}.get(motor_name,
+                                                                 SynchronousMotorSystem)
         system = system_cls(supply=supply, converter=converter, motor=motor_spec, load=load,
                             tau=tau, solver=solver, substeps=substeps, dtype=dtype,
                             control_space=control_space)

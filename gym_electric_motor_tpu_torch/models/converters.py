@@ -341,3 +341,19 @@ def finite_multi_converter(subconverters, tau=1e-5, interlocking_time=0.0) -> Co
 
 def cont_multi_converter(subconverters, tau=1e-4, interlocking_time=0.0) -> ConverterSpec:
     return _multi(list(subconverters), False, tau, interlocking_time)
+
+
+# the factory of each converter kind this package has, for the catalog's
+# dict overrides (``converter=dict(tau=..., ...)``)
+CONVERTER_FACTORIES = {
+    "Finite-1QC": finite_one_quadrant_converter,
+    "Finite-2QC": finite_two_quadrant_converter,
+    "Finite-4QC": finite_four_quadrant_converter,
+    "Finite-B6C": finite_b6_bridge_converter,
+    "Cont-1QC": cont_one_quadrant_converter,
+    "Cont-2QC": cont_two_quadrant_converter,
+    "Cont-4QC": cont_four_quadrant_converter,
+    "Cont-B6C": cont_b6_bridge_converter,
+    "Finite-Multi": finite_multi_converter,
+    "Cont-Multi": cont_multi_converter,
+}

@@ -1,5 +1,5 @@
 """DC, synchronous and squirrel-cage induction motor models (counterpart of
-the DC, PMSM, SynRM and SCIM parts of
+the DC, PMSM, SynRM, EESM and SCIM parts of
 ``gym_electric_motor_tpu/models/motors.py``).
 
 A *spec* (host side) carries default parameters, the completed limit and
@@ -7,17 +7,17 @@ nominal dicts and the initial-state description; the *functions*
 ``ode(mp, state, u_in, omega)``, ``torque(mp, state)`` and ``i_in(mp,
 state)`` work on batched tensors with a leading env dimension: ``state`` is
 the motor's ODE state (``(N, 1)`` = (i,) or ``(N, 2)`` = (i_a, i_e) for the
-DC motors, ``(N, 3)`` = (i_sd, i_sq, epsilon) for the synchronous ones,
-``(N, 5)`` = (i_salpha, i_sbeta, psi_ralpha, psi_rbeta, epsilon) for the
-SCIM), ``u_in`` the ``(N, n_u)`` input voltages and ``omega`` is ``(N,)``.
+DC motors, ``(N, 3)`` = (i_sd, i_sq, epsilon) for the PMSM and SynRM,
+``(N, 4)`` = (i_sd, i_sq, i_e, epsilon) for the EESM, ``(N, 5)`` =
+(i_salpha, i_sbeta, psi_ralpha, psi_rbeta, epsilon) for the SCIM),
+``u_in`` the ``(N, n_u)`` input voltages and ``omega`` is ``(N,)``.
 
 ``mp`` holds every parameter as a Python float rounded to float32, and the
 products of parameters are formed in float32 with numpy before they meet a
 tensor, so each operation rounds where the JAX package's does.  The DC
 Jacobians of the JAX package serve only its implicit solvers, which this
 package does not port yet (``make_integrator`` raises for them), so they
-are left out.  The EESM, DFIM and SRM families come with slice 3 of the
-port.
+are left out.  The DFIM and SRM families come with slice 3 of the port.
 """
 
 from __future__ import annotations
@@ -337,6 +337,92 @@ def synrm(**kwargs) -> MotorSpec:
 
 
 # ---------------------------------------------------------------------------
+# Externally excited synchronous motor
+# (externally_excited_synchronous_motor.py of the reference)
+# ---------------------------------------------------------------------------
+
+
+def _eesm_derived(mp):
+    """Stator-side transformed rotor parameters ``(r_E, l_M, l_E, i_k_rs,
+    sigma)`` (externally_excited_synchronous_motor.py:125-135 of the
+    reference), each operation rounded as the parameters' type rounds it."""
+    r_E = mp["k"] ** 2 * 1.5 * mp["r_e"]
+    l_M = mp["k"] * 1.5 * mp["l_m"]
+    l_E = mp["k"] ** 2 * 1.5 * mp["l_e"]
+    i_k_rs = 2.0 / 3.0 / mp["k"]
+    sigma = 1.0 - l_M**2 / (mp["l_d"] * l_E)
+    return r_E, l_M, l_E, i_k_rs, sigma
+
+
+def eesm_ode(mp, state, u_dqe, omega):
+    """The EESM ODE over ``(N, 4)`` = (i_sd, i_sq, i_e, epsilon) under the
+    ``(N, 3)`` voltages (u_sd, u_sq, u_e)
+    (externally_excited_synchronous_motor.py:139-182 of the reference)."""
+    r_E, l_M, l_E, i_k_rs, sigma = _eesm_derived(mp)
+    i_sd, i_sq, i_e = state[..., 0], state[..., 1], state[..., 2]
+    p, r_s, l_d, l_q, k = mp["p"], mp["r_s"], mp["l_d"], mp["l_q"], mp["k"]
+    u_d, u_q, u_e = u_dqe[..., 0], u_dqe[..., 1], u_dqe[..., 2]
+    di_sd = (float(-r_s / sigma) * i_sd + float(l_M * r_E / (sigma * l_E) * i_k_rs) * i_e
+             + u_d / float(sigma) - float(l_M * k / (sigma * l_E)) * u_e
+             + float(l_q * p / sigma) * omega * i_sq) / float(l_d)
+    di_sq = (float(-r_s) * i_sq + u_q - float(l_d * p) * omega * i_sd
+             - float(p * l_M * i_k_rs) * omega * i_e) / float(l_q)
+    di_e = (float(l_M * r_s / (sigma * l_d)) * i_sd - float(r_E / sigma * i_k_rs) * i_e
+            - float(l_M / (sigma * l_d)) * u_d + float(k / sigma) * u_e
+            - float(p * l_M * l_q / (sigma * l_d)) * omega * i_sq) / float(l_E * i_k_rs)
+    deps = float(p) * omega
+    return torch.stack([di_sd, di_sq, di_e, deps], dim=-1)
+
+
+def eesm_torque(mp, state):
+    """1.5 p (l_M i_e i_k_rs + (l_d - l_q) i_sd) i_sq
+    (externally_excited_synchronous_motor.py:200-203 of the reference)."""
+    _, l_M, _, i_k_rs, _ = _eesm_derived(mp)
+    return (float(1.5 * mp["p"])
+            * (float(l_M) * state[..., 2] * float(i_k_rs)
+               + float(mp["l_d"] - mp["l_q"]) * state[..., 0]) * state[..., 1])
+
+
+def _eesm_torque_limit(mp, limits, nominal):
+    """externally_excited_synchronous_motor.py:184-198 of the reference: the
+    MTPC point at the nominal current where l_d != l_q."""
+    _r_E, l_M, _l_E, i_k_rs, _sigma = _eesm_derived({k: float(v) for k, v in mp.items()})
+    if mp["l_d"] == mp["l_q"]:
+        i_d_opt, i_q_opt = 0.0, limits["i_sq"]
+    else:
+        i_n = nominal["i"]
+        _p = l_M * i_n / (2 * (mp["l_d"] - mp["l_q"]))
+        _q = -(i_n**2) / 2
+        if mp["l_d"] < mp["l_q"]:
+            i_d_opt = -_p / 2 - math.sqrt((_p / 2) ** 2 - _q)
+        else:
+            i_d_opt = -_p / 2 + math.sqrt((_p / 2) ** 2 - _q)
+        i_q_opt = math.sqrt(i_n**2 - i_d_opt**2)
+    return (1.5 * mp["p"] * (l_M * limits["i_e"] * i_k_rs + (mp["l_d"] - mp["l_q"]) * i_d_opt)
+            * i_q_opt)
+
+
+def eesm(**kwargs) -> MotorSpec:
+    return _sync_spec(
+        "EESM",
+        {"p": 3.0, "l_d": 1.66e-3, "l_q": 0.35e-3, "l_m": 1.589e-3, "l_e": 1.74e-3,
+         "j_rotor": 0.3883, "r_s": 15.55e-3, "r_e": 7.2e-3, "k": 65.21},
+        dict(omega=12e3 * np.pi / 30, torque=0.0, i=150.0, i_e=150.0, epsilon=math.pi, u=320.0),
+        dict(omega=4.3e3 * np.pi / 30, torque=0.0, i=120.0, i_e=150.0, epsilon=math.pi, u=320.0),
+        ["u_a", "u_b", "u_c", "u_sd", "u_sq", "u_e"],
+        ["i_a", "i_b", "i_c", "i_sd", "i_sq", "i_e"],
+        ("i_sd", "i_sq", "i_e"),
+        ("u_sd", "u_sq", "u_e"),
+        eesm_ode,
+        eesm_torque,
+        {"states": {"i_sq": 0.0, "i_sd": 0.0, "i_e": 0.0, "epsilon": 0.0}, "interval": None,
+         "random_init": None, "random_params": (None, None)},
+        _eesm_torque_limit,
+        **kwargs,
+    )
+
+
+# ---------------------------------------------------------------------------
 # Induction motors (induction_motor.py and squirrel_cage_induction_motor.py
 # of the reference)
 # ---------------------------------------------------------------------------
@@ -476,5 +562,6 @@ MOTOR_FACTORIES = {
     "ExtExDc": extex_dc,
     "PMSM": pmsm,
     "SynRM": synrm,
+    "EESM": eesm,
     "SCIM": scim,
 }

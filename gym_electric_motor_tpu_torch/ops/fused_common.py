@@ -112,8 +112,15 @@ SLOT_BOX_MULLER = 7  # (u1 d, u1 q, u2 d, u2 q)
 # to 4 with reference rows 0 and 1 in place of d and q: SLOT_STEP as
 # (action 0, box-muller u1, box-muller u2, action 1), SLOT_PARAMS,
 # SLOT_RESET, SLOT_INIT_A, SLOT_INIT_B; and a continuous converter's third
-# action word from its own slot.
-SLOT_ACTION_C = 8    # (action 2, -, -, -)
+# (and fourth) action word from its own slot.
+SLOT_ACTION_C = 8    # (action 2, action 3, -, -)
+# A third reference row (the EESM's i_e, csrc/common_step.cuh) takes its
+# words from two more slots, so that the one- and two-row draws stay as
+# they are: per step the second Box-Muller pair and row 2's sub-episode
+# length and sigma, and at step 0 row 2's initial draws; its reset value is
+# SLOT_RESET's third word.
+SLOT_ROW2 = 9        # (box-muller u1 of pair 2, u2 of pair 2, length row 2, sigma row 2)
+SLOT_INIT_C = 10     # at step 0: (value row 2, length row 2, sigma row 2, -)
 
 
 class PhiloxBits:
@@ -163,18 +170,21 @@ class SyncBits(PhiloxBits):
 
     ``init_words()`` gives ``(values, lengths, sigmas)``, one word per
     reference row each; ``step_words(t)`` gives ``(actions, u1, u2,
-    lengths, sigmas, resets)``: 1 (finite) or 3 (cont) action words, the
+    lengths, sigmas, resets)``: 1 (finite), 3 or 4 (cont) action words, the
     Box-Muller pair, and one word per row for the sub-episode length, the
-    sigma and the reset value.  Each word is an (N,) int64 tensor; the plain
-    versions draw every word of ``BLOCK`` consecutive steps in one Philox
-    call."""
+    sigma and the reset value.  With three rows ``u1`` and ``u2`` are the
+    lists of two pairs' words (``SLOT_ROW2``).  Each word is an (N,) int64
+    tensor; the plain versions draw every word of ``BLOCK`` consecutive
+    steps in one Philox call."""
 
     BLOCK = 16
 
     def __init__(self, seed: int, n_envs: int, device, n_rows: int, n_act: int):
         super().__init__(seed, n_envs, device)
         self.n_rows, self.n_act = n_rows, n_act
-        self._slots = [SLOT_STEP, SLOT_PARAMS, SLOT_RESET] + ([SLOT_ACTION_C] if n_act == 3 else [])
+        self._slots = ([SLOT_STEP, SLOT_PARAMS, SLOT_RESET]
+                       + ([SLOT_ACTION_C] if n_act >= 3 else [])
+                       + ([SLOT_ROW2] if n_rows == 3 else []))
         self._block_t0, self._block = None, None
 
     def _call(self, t, slots):
@@ -189,9 +199,10 @@ class SyncBits(PhiloxBits):
         return philox4x32(self.env[None, None, :], steps, s, zero, self.k0, self.k1)
 
     def init_words(self):
-        a0, a1, a2, a3 = self._call(0, [SLOT_INIT_A, SLOT_INIT_B])
+        a0, a1, a2, a3 = self._call(0, [SLOT_INIT_A, SLOT_INIT_B, SLOT_INIT_C])
         n = self.n_rows
-        return [a0[0], a1[0]][:n], [a2[0], a3[0]][:n], [a0[1], a1[1]][:n]
+        return ([a0[0], a1[0], a0[2]][:n], [a2[0], a3[0], a1[2]][:n],
+                [a0[1], a1[1], a2[2]][:n])
 
     def step_words(self, t: int):
         t0 = t - t % self.BLOCK
@@ -199,10 +210,17 @@ class SyncBits(PhiloxBits):
             self._block_t0 = t0
             self._block = self._call(range(t0, t0 + self.BLOCK), self._slots)
         w0, w1, w2, w3 = (w[t - t0] for w in self._block)
-        acts = [w0[0], w3[0]][:self.n_act] + ([w0[3]] if self.n_act == 3 else [])
+        acts = [w0[0], w3[0]][:self.n_act] + ([w0[3], w1[3]][:self.n_act - 2]
+                                             if self.n_act >= 3 else [])
         n = self.n_rows
-        return (acts, w1[0], w2[0], [w0[1], w1[1]][:n], [w2[1], w3[1]][:n],
-                [w0[2], w1[2]][:n])
+        u1, u2 = w1[0], w2[0]
+        lens, sigs, resets = [w0[1], w1[1]], [w2[1], w3[1]], [w0[2], w1[2], w2[2]]
+        if n == 3:
+            row2 = len(self._slots) - 1
+            u1, u2 = [u1, w0[row2]], [u2, w1[row2]]
+            lens.append(w2[row2])
+            sigs.append(w3[row2])
+        return acts, u1, u2, lens[:n], sigs[:n], resets[:n]
 
 
 class DcBits(SyncBits):
@@ -539,13 +557,18 @@ def reference_step(k, rows, all_const, st, new, words, violated, t):
     ``make_fused_sync_rollout``'s and ``make_fused_dc_rollout``'s ``body``
     after the reset): the Box-Muller pair feeds both rows (two rows) or, for
     one row, is drawn at even steps and its sine half kept in ``zb`` for
-    the next odd step; then ``wiener_advance`` of ``new`` in place.
-    ``words`` = ``(u1, u2, lengths, sigmas, resets)`` of the bit source."""
+    the next odd step; three rows take two pairs, cos, sin, cos
+    (pallas_common.py:1379-1389); then ``wiener_advance`` of ``new`` in
+    place.  ``words`` = ``(u1, u2, lengths, sigmas, resets)`` of the bit
+    source, ``u1`` and ``u2`` lists of two words with three rows."""
     if all_const:
         return
     shape = violated.shape
     u1, u2, lens, sigs, resets = words
-    if len(rows) == 2:
+    if len(rows) == 3:
+        draws = box_muller(k, u1[0].reshape(shape), u2[0].reshape(shape))
+        draws += box_muller(k, u1[1].reshape(shape), u2[1].reshape(shape))[:1]
+    elif len(rows) == 2:
         draws = box_muller(k, u1.reshape(shape), u2.reshape(shape))
     elif t % 2 == 0:
         za, new["zb"] = box_muller(k, u1.reshape(shape), u2.reshape(shape))

@@ -3,9 +3,10 @@
 
 ``make_fused_rollout`` routes an env to its family's universal builder:
 the DC family (the 24 PermExDc, SeriesDc, ShuntDc and ExtExDc ids), the
-synchronous family (the twelve PMSM / SynRM ids) and the induction family
-(the six SCIM ids) so far; every other family raises
-``NotImplementedError`` naming the queue-2 item that brings its kernels.  The sharded ``make_sharded_fused_rollout`` and the universal
+synchronous family (the twelve PMSM / SynRM ids), the induction family (the
+six SCIM ids) and the EESM family (the six EESM ids) so far; every other
+family raises ``NotImplementedError`` naming the queue-2 item that brings
+its kernels.  The sharded ``make_sharded_fused_rollout`` and the universal
 policy recorder come with later slices of the port.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from .fused_common import LANE, TWO_PI  # noqa: F401
 from .fused_dc_family import make_fused_dc_rollout
+from .fused_eesm_family import make_fused_eesm_family_rollout
 from .fused_induction_family import make_fused_induction_rollout
 from .fused_policy import (  # noqa: F401
     flatten_policy_params,
@@ -39,13 +41,15 @@ FUSED_FAMILY_BUILDERS = {
     "SRM": "srm",
 }
 PORTED_FAMILIES = {"dc": make_fused_dc_rollout, "sync": make_fused_sync_rollout,
-                   "induction": make_fused_induction_rollout}
+                   "induction": make_fused_induction_rollout,
+                   "eesm": make_fused_eesm_family_rollout}
 
 # the queue-2 item of the port that brings each family's universal kernels
-_FAMILY_ITEM = {"eesm": 20, "dfim": 22, "srm": 23}
-# state planes of each motor (pallas_rollout.py:144-146), before the speed
+_FAMILY_ITEM = {"dfim": 22, "srm": 23}
+# state planes of each motor (pallas_rollout.py:144-146), before the speed;
+# the EESM's are i_sd, i_sq, i_e and the angle eps
 _BASE_ARITY = {"PermExDc": 1, "SeriesDc": 1, "ShuntDc": 2, "ExtExDc": 2, "PMSM": 3, "SynRM": 3,
-               "SCIM": 4}
+               "SCIM": 4, "EESM": 4}
 
 
 def _system(env):
@@ -70,7 +74,7 @@ def fused_state_arity(env):
     """Number of ``(R, LANE)`` state planes the universal fused rollout for
     ``env`` takes and returns (``pallas_rollout.py:135-158``): the motor's
     (PermExDc and SeriesDc 1, ShuntDc and ExtExDc 2, PMSM and SynRM 3, SCIM
-    4), plus omega first under a dynamic-speed load.  The supply, randomized-parameter
+    and EESM 4), plus omega first under a dynamic-speed load.  The supply, randomized-parameter
     and flux-observer planes come with their kernels."""
     family_of(env)
     ps = _system(env)
@@ -80,8 +84,8 @@ def fused_state_arity(env):
 def make_fused_rollout(env, n_steps, n_envs, action_mode="random", randomize=None):
     """Universal fused-rollout dispatch (``pallas_rollout.py:161-192``):
     returns the family rollout (see ``make_fused_dc_rollout``,
-    ``make_fused_sync_rollout`` and ``make_fused_induction_rollout`` for the
-    signatures); the number of state
+    ``make_fused_sync_rollout``, ``make_fused_induction_rollout`` and
+    ``make_fused_eesm_family_rollout`` for the signatures); the number of state
     planes is ``fused_state_arity(env)``.  Raises ``NotImplementedError``
     for the families and options not ported yet."""
     return PORTED_FAMILIES[family_of(env)](env, n_steps, n_envs, action_mode=action_mode,

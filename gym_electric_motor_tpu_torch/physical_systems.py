@@ -12,7 +12,9 @@ for a batch of ``n`` envs (leading dimension of every tensor).
 The DC system (PermExDc, SeriesDc, ShuntDc, ExtExDc with the 1QC, 2QC,
 4QC or dual-4QC multi converter) is ``SCMLSystem`` itself; the synchronous
 system (PMSM, SynRM) and the squirrel-cage induction system (SCIM), each on
-a finite or continuous B6 bridge, subclass it, as in the JAX package.  All
+a finite or continuous B6 bridge, and the externally excited synchronous
+system (EESM, a B6 bridge beside a 4QC for the excitation) subclass it, as
+in the JAX package.  All
 take an ideal supply and a constant-speed or polynomial static load; with
 zero interlocking time the converter schedule is a single sub-interval per
 control cycle.  The other families come with the later steps of queue 1,
@@ -391,6 +393,76 @@ class SynchronousMotorSystem(SCMLSystem):
         eps_out = wrap_angle(ode[:, self.eps_idx])
         system_state = torch.cat(
             [mech, torque[:, None], i_abc, i_dq, u_in, u_dq, eps_out[:, None], u_sup], dim=1)
+        new_ps = PhysicsState(ode_state=ode, conv_state=cur, sup_state=sup_state,
+                              t=ps.t + self.tau, k=ps.k + 1)
+        return new_ps, system_state / self.limits_tensor(ode.device)
+
+
+@dataclasses.dataclass
+class EESMSystem(SynchronousMotorSystem):
+    """Externally excited synchronous drive train (physical_systems.py:
+    648-754 of the JAX package).  ODE state ``[omega, i_sd, i_sq, i_e,
+    epsilon]``; the converter is a B6 bridge beside a 4QC for the
+    excitation, so its output is the three stator phases and the excitation
+    voltage, of which only the stator part is Park-transformed.  A finite
+    action is ``(N, 2)`` (B6, 4QC), a continuous one ``(N, 4)``."""
+
+    def _build_state_names(self):
+        return (list(self.load.state_names) + [
+            "torque",
+            "i_a", "i_b", "i_c", "i_sd", "i_sq", "i_e",
+            "u_a", "u_b", "u_c", "u_sd", "u_sq", "u_e",
+            "epsilon",
+        ] + self._u_sup_names())
+
+    def reset_from_u(self, u, n: int, device):
+        """physical_systems.py:674-697 of the JAX package."""
+        motor_state, mech_state, u_sup, sup_state = self._reset_parts(u, n, device)
+        ode_state = torch.cat([mech_state, motor_state], dim=1)
+        eps = ode_state[:, self.eps_idx]
+        eps = torch.where(eps > math.pi, eps - 2 * math.pi, eps)
+        u_out = torch.tensor(self.converter.u_reset, dtype=self.dtype, device=device) * u_sup[:, 0:1]
+        u_abc, u_e = u_out[:, :3], u_out[:, 3:]
+        u_dq = abc_to_dq(u_abc, eps)
+        i_dq_e = motor_state[:, :3]
+        i_abc = dq_to_abc(i_dq_e[:, :2], eps)
+        torque = self.motor.torque(self.mp, motor_state)
+        system_state = torch.cat(
+            [mech_state, torque[:, None], i_abc, i_dq_e, u_abc, u_dq, u_e, eps[:, None], u_sup],
+            dim=1)
+        ps = self._physics_state(ode_state, self.converter.init_state(n, device), sup_state, n,
+                                 device)
+        return ps, system_state / self.limits_tensor(device)
+
+    def simulate(self, ps: PhysicsState, action, noise=None):
+        """One control period (physical_systems.py:699-754 of the JAX
+        package): the stator voltages Park-transformed at the cycle-start
+        angle, the excitation voltage passed straight through; the abc
+        currents take the angle from before the integration."""
+        ode = ps.ode_state
+        eps = ode[:, self.eps_idx]
+        i_dq_e = self.motor.i_in(self.mp, ode[:, self.motor_slice])
+        i_in = torch.cat([dq_to_abc(i_dq_e[:, :2], eps), i_dq_e[:, 2:]], dim=1)
+        intervals = self.converter.interval_states(ps.conv_state, action)
+        cur = ps.conv_state
+        sup_state = ps.sup_state
+        t = ps.t
+        u_in = u_dq_e = u_sup = None
+        for j, dur in enumerate(self.converter.interval_durations()):
+            i_sup = self.converter.i_sup(cur, action, i_in)
+            u_sup, sup_state = self.supply.get_voltage(self.sp, sup_state, ps.t, i_sup)
+            u_in = self.converter.u_frac(intervals[j], action, i_in) * u_sup[:, 0:1]
+            u_dq_e = torch.cat([abc_to_dq(u_in[:, :3], eps), u_in[:, 3:]], dim=1)
+            ode = self.integrate(self._rhs, ode, t, dur, u_dq_e, noise)
+            cur = intervals[j]
+            t = t + dur
+        torque = self.motor.torque(self.mp, ode[:, self.motor_slice])
+        i_dq_e = ode[:, self.n_mech: self.n_mech + 3]
+        i_abc = dq_to_abc(i_dq_e[:, :2], eps)
+        eps_out = wrap_angle(ode[:, self.eps_idx])
+        system_state = torch.cat(
+            [ode[:, : self.n_mech], torque[:, None], i_abc, i_dq_e, u_in[:, :3], u_dq_e,
+             eps_out[:, None], u_sup], dim=1)
         new_ps = PhysicsState(ode_state=ode, conv_state=cur, sup_state=sup_state,
                               t=ps.t + self.tau, k=ps.k + 1)
         return new_ps, system_state / self.limits_tensor(ode.device)

@@ -8,8 +8,9 @@ Run on a machine with the CUDA toolkit, from the root of a checkout:
 
 It builds ``csrc/fused_pmsm.cu``, ``csrc/fused_policy.cu``,
 ``csrc/fused_sync.cu``, ``csrc/fused_dc.cu``, ``csrc/fused_dc_record.cu``,
-``csrc/fused_induction.cu`` and ``csrc/fused_induction_record.cu`` (as the
-package does at first use) and prints one
+``csrc/fused_induction.cu``, ``csrc/fused_induction_record.cu``,
+``csrc/fused_eesm.cu`` and ``csrc/fused_eesm_record.cu`` (as the package
+does at first use) and prints one
 JSON line per kernel; a template instance is named by a substring of its
 mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1E`` for H = 16,
 categorical, Wiener.
@@ -261,6 +262,20 @@ STEP_INSTANCES = {
         "induction_record_random": "induction_record_random_kernelILb0ELb1ELi1E",
         "induction_record_buffer": "induction_record_buffer_kernelILb0ELb1E",
         "induction_record_random/Finite-CC-SCIM-v0": "induction_record_random_kernelILb1ELb0ELi2E",
+    },
+    # <FINITE, MECH, NREF>: Cont-SC-EESM-v0 (0, 1, 1) for each kernel, and
+    # Cont-TC-EESM-v0 (0, 0, 1) and Finite-CC-EESM-v0 (1, 0, 3) for the
+    # random ones
+    "fused_eesm": {
+        "eesm_rollout_random": "eesm_rollout_random_kernelILb0ELb1ELi1E",
+        "eesm_rollout_buffer": "eesm_rollout_buffer_kernelILb0ELb1E",
+        "eesm_rollout_random/Cont-TC-EESM-v0": "eesm_rollout_random_kernelILb0ELb0ELi1E",
+        "eesm_rollout_random/Finite-CC-EESM-v0": "eesm_rollout_random_kernelILb1ELb0ELi3E",
+    },
+    "fused_eesm_record": {
+        "eesm_record_random": "eesm_record_random_kernelILb0ELb1ELi1E",
+        "eesm_record_buffer": "eesm_record_buffer_kernelILb0ELb1E",
+        "eesm_record_random/Finite-CC-EESM-v0": "eesm_record_random_kernelILb1ELb0ELi3E",
     },
 }
 
