@@ -146,11 +146,38 @@ Phases (each prints one JSON line; any failure exits non-zero):
             (VectorEnv.rollout, the random policy of the action space) on
             Cont-SC-EESM-v0 at 200 steps; the launches of phases 27-29 must
             be exactly what they make
-30. kernels line (all 24 kernels; a policy kernel's launches are the sum
+30. dfim_kernels  slice 7, the universal DFIM family (csrc/fused_dfim.cu,
+            csrc/fused_dfim_record.cu): for each of the 6 {Finite, Cont} x
+            {CC, TC, SC} DFIM ids, each of the 4 kernels against its plain
+            version at 16384 envs x 128 steps (timed on Cont-SC-DFIM-v0,
+            the instance the bounds count); the two random kernels again at
+            1024 steps on Cont-CC-DFIM-v0 and Cont-SC-DFIM-v0
+31.-33. the slice-7 main path, counted from zero:
+   31. dfim_env  for each id, the port's env (VectorEnv's reset, the env's
+            step without autoreset, constant references, an action buffer,
+            16384 envs x 40 steps) against both buffer kernels, reached
+            through the dispatch, rtol 1e-4 / atol 2e-3 (angles modulo
+            2 pi, tests/test_pallas_families.py:61-72; the env turns the
+            rotor voltages by two rotations, the kernels by one)
+   32. dfim_dispatch  for each id, make_fused_rollout(env, 200, 16384) and
+            make_fused_record_rollout(env, 200, 16384) must launch exactly
+            dfim_rollout_random and dfim_record_random once each and no
+            other kernel; output checks as phase 28's, the currents inside
+            the limit circle, and the share of env-steps that reset
+   33. dfim_timings  at 16384 envs: the random rollout at 65536 steps on
+            Cont-CC-DFIM-v0 (bench.py:773-775), Finite-CC-DFIM-v0 and
+            Cont-SC-DFIM-v0; the random recorder at 1024 steps on
+            Cont-CC-DFIM-v0 and Cont-SC-DFIM-v0 (15 planes each, GB/s);
+            each with its share of env-steps that reset; the general path
+            (VectorEnv.rollout, the random policy of the action space) on
+            Cont-SC-DFIM-v0 at 200 steps; the launches of phases 31-33 must
+            be exactly what they make
+34. kernels line (all 28 kernels; a policy kernel's launches are the sum
     over the paths of phases 9-11, listed by path; a sync kernel's those of
     phases 14-16, a DC kernel's those of phases 19-21, an induction
     kernel's those of phases 23-25, an EESM kernel's those of phases
-    27-29), the card line, then {"ok": true, "device": {...}}
+    27-29, a DFIM kernel's those of phases 31-33), the card line, then
+    {"ok": true, "device": {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
 largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
@@ -233,6 +260,10 @@ EESM_BENCH = "Finite-CC-EESM-v0"   # bench.py:773-775, three references
 EESM_TC = "Cont-TC-EESM-v0"
 EESM_CONST_REFS = {"CC": [("i_sd", 0.1), ("i_sq", -0.2), ("i_e", 0.3)], "TC": [("torque", 0.3)],
                    "SC": [("omega", 0.2)]}
+# slice 7: the six DFIM ids (constant references as slice 3's)
+DFIM_TIMED = "Cont-SC-DFIM-v0"     # the ids whose instances STEP_INSTANCES counts
+DFIM_BENCH = "Cont-CC-DFIM-v0"     # bench.py:773-775
+DFIM_CC = "Finite-CC-DFIM-v0"
 # The pipes a kernel's bound counts, where not all.  Most of REINFORCE's ALU
 # and IMAD instructions are the 64-bit arithmetic of its 2 P trace
 # addresses, recomputed each step (opaque64 in csrc/policy_step.cuh keeps
@@ -350,7 +381,8 @@ def run(dev, card):
     t0 = time.perf_counter()
     libs = cuda_build.build(["fused_pmsm", "fused_policy", "fused_sync", "fused_dc",
                              "fused_dc_record", "fused_induction", "fused_induction_record",
-                             "fused_eesm", "fused_eesm_record"])
+                             "fused_eesm", "fused_eesm_record", "fused_dfim",
+                             "fused_dfim_record"])
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
                     for ln in cuda_build.BUILD_LOG.get(name, "").splitlines()
@@ -1424,8 +1456,8 @@ def run_dc(dev, card, ops):
 
 def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids, record_ids,
                      ops, others, dispatch_checks):
-    """The main path of a universal family on a B6 bridge (the induction and
-    EESM slices), its launches counted from zero: the env against both
+    """The main path of a universal family on B6 bridges (the induction,
+    EESM and DFIM slices), its launches counted from zero: the env against both
     buffer kernels on every id of ``ids`` (constant references
     ``const_refs[task]``, tolerance ``atol``), the dispatch (exactly one
     launch of each random kernel per id and none of the ``others`` modules'
@@ -1705,6 +1737,83 @@ def run_eesm(dev, card, ops):
         {name: timings[EESM_TIMED][name] for name in ("eesm_rollout_random", "eesm_record_random")})
 
 
+def run_dfim(dev, card, ops):
+    """Slice 7, the universal DFIM family: the four kernels of
+    csrc/fused_dfim.cu and csrc/fused_dfim_record.cu against their plain
+    versions on the six DFIM ids, then the main path (env against the buffer
+    kernels, the dispatch, timings) with its launches counted from zero.
+    Returns the DFIM kernels' rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
+    from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef
+    from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+    from gym_electric_motor_tpu_torch.ops import fused_sync as fs
+    from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
+
+    N, R = N_ENVS, N_ENVS // 128
+    rng = np.random.default_rng(SEED)
+
+    def planes(c):
+        """Speed (under a dynamic load) in [0, 100) rad/s, the stator
+        currents within 10 A (the limit is 9 A, so some random-mode envs
+        reset at once), the fluxes within 1.5 Wb, the angle in [0, 2 pi)."""
+        bounds = (([(0, 100)] if c.mech else []) + [(-10, 10)] * 2 + [(-1.5, 1.5)] * 2
+                  + [(0, 2 * np.pi)])
+        return [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+                for lo, hi in bounds]
+
+    def actions(c, steps):
+        """int32 (T, 2, R, 128) stator and rotor bits, or float32
+        (T, 6, R, 128) duties."""
+        if c.finite:
+            return torch.as_tensor(rng.integers(0, 8, (steps, 2, R, 128)).astype(np.int32),
+                                   device=dev)
+        return torch.as_tensor(rng.uniform(-1.0, 1.0, (steps, 6, R, 128)).astype(np.float32),
+                               device=dev)
+
+    # ---- 30. the four kernels against their plain versions, every id -----
+    fam = SimpleNamespace(
+        mod=dff, prefix="dfim", consts=dff.DfimConsts, planes=planes, actions=actions,
+        nbytes=sync_bytes, angle=lambda c, n: [j == c.n_state - 1 for j in range(n)],
+        cols=lambda c: ([0] if c.mech else []) + [1, 2, 3, 4, 5],
+        env_action=lambda c, a: a.reshape(c.n_act, N).T.contiguous())
+    worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.DFIM_ENV_IDS, DFIM_TIMED,
+                                                 (DFIM_BENCH, DFIM_TIMED), ops)
+
+    # ---- 31.-33. the main path: counts from zero ---------------------------
+    # 31. the env against the buffer kernels (rtol 1e-4 / atol 2e-3, angles
+    # modulo 2 pi, tests/test_pallas_families.py:61-72); 32. the dispatch,
+    # with the angle in range and the currents inside the limit circle; 33.
+    # timings
+    def in_limits(c, roll, n_state):
+        isa, isb, eps = roll[n_state - 5], roll[n_state - 4], roll[n_state - 1]
+        return {
+            # [0, 2 pi] in float32: a tiny negative angle wraps to 2 pi exactly
+            "eps_in_range": bool(((eps >= 0) & (eps <= float(np.float32(2 * math.pi)))).all()),
+            "in_current_circle": bool(((isa * isa + isb * isb) * c.f["inv_ilim2"]
+                                       <= 1.0 + 1e-5).all())}
+
+    launches, timings = family_main_path(
+        torch, gt, dev, card, fam, gt.DFIM_ENV_IDS, SYNC_CONST_REFS, 2e-3,
+        (DFIM_BENCH, DFIM_CC, DFIM_TIMED), (DFIM_BENCH, DFIM_TIMED), ops,
+        (fs, fp, sf, dcf, indf, ef), in_limits)
+
+    # ---- kernels line rows ---------------------------------------------------
+    replaces = {"dfim_rollout_random": "gym_electric_motor_tpu/ops/pallas_dfim.py:974",
+                "dfim_rollout_buffer": "gym_electric_motor_tpu/ops/pallas_dfim.py:947",
+                "dfim_record_random": "gym_electric_motor_tpu/ops/pallas_record.py:303",
+                "dfim_record_buffer": "gym_electric_motor_tpu/ops/pallas_record.py:147"}
+    return family_kernel_rows(
+        fam, lambda name: f"gym_electric_motor_tpu_torch/csrc/{dff.LIBRARY[name]}.cu", replaces,
+        launches, worst, share, timed, DFIM_TIMED, len(gt.DFIM_ENV_IDS),
+        {name: timings[DFIM_TIMED][name] for name in ("dfim_rollout_random", "dfim_record_random")})
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "gym_electric_motor_tpu_torch" / "csrc").is_dir():
@@ -1740,9 +1849,11 @@ def main():
     seconds["slice_5"] = lap()
     line += run_eesm(dev, card, ops)
     seconds["slice_6"] = lap()
+    line += run_dfim(dev, card, ops)
+    seconds["slice_7"] = lap()
     emit({"phase": "elapsed", "seconds": seconds, "total": clock[-1] - clock[0]})
 
-    # ---- 30. kernels line, card and result --------------------------------
+    # ---- 34. kernels line, card and result --------------------------------
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

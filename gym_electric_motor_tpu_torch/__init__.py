@@ -14,11 +14,12 @@ from . import constraints, core, ops, physical_systems, references, rewards, wra
 from .core import (ElectricMotorEnvironment, VectorEnv, random_box_policy, random_cont_policy,
                    random_multidiscrete_policy, random_policy, random_policy_for,
                    state_from_numpy)
-from .envs import (DC_ENV_IDS, EESM_ENV_IDS, ENV_IDS, SCIM_ENV_IDS, SYNC_ENV_IDS, make,
-                   make_functional)
+from .envs import (DC_ENV_IDS, DFIM_ENV_IDS, EESM_ENV_IDS, ENV_IDS, SCIM_ENV_IDS,
+                   SYNC_ENV_IDS, make, make_functional)
 
 __all__ = [
     "DC_ENV_IDS",
+    "DFIM_ENV_IDS",
     "EESM_ENV_IDS",
     "ENV_IDS",
     "SCIM_ENV_IDS",

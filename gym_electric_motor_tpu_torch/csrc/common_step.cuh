@@ -1,5 +1,6 @@
 // The machinery the universal family steps share (sync_step.cuh for PMSM /
-// SynRM, dc_step.cuh for the DC motors, induction_step.cuh for the SCIM):
+// SynRM, dc_step.cuh for the DC motors, induction_step.cuh for the SCIM,
+// eesm_step.cuh for the EESM, dfim_step.cuh for the DFIM):
 // the Philox draw slots, the reference rows with their Wiener process, the
 // Box-Muller pair and the WSE reward at power 1, the polynomial static load,
 // and the B6 bridge's actions and voltage fractions.
@@ -55,8 +56,8 @@ enum DriveSlot {
   DRIVE_SLOT_RESET = 2,     // (reset value row 0, row 1, row 2, -)
   DRIVE_SLOT_INIT_A = 3,    // at step 0: (value row 0, value row 1, length row 0, length row 1)
   DRIVE_SLOT_INIT_B = 4,    // at step 0: (sigma row 0, sigma row 1, -, -)
-  DRIVE_SLOT_ACTION_C = 8,  // the B6 bridge's third duty and the EESM's excitation duty:
-                            // (action 2, action 3, -, -)
+  DRIVE_SLOT_ACTION_C = 8,  // the B6 bridge's third duty, the EESM's excitation duty and
+                            // the DFIM's rotor duties: (action 2, action 3, action 4, action 5)
   DRIVE_SLOT_ROW2 = 9,      // three rows: (box-muller u1 of pair 2, u2 of pair 2,
                             // length row 2, sigma row 2)
   DRIVE_SLOT_INIT_C = 10    // three rows, at step 0: (value row 2, length row 2, sigma row 2, -)

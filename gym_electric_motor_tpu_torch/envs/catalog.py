@@ -1,13 +1,13 @@
 """Environment catalog (counterpart of ``gym_electric_motor_tpu/envs/catalog.py``).
 
 The env-id grammar is ``{Finite|Cont}-{CC|TC|SC}-{Motor}-v0``.  This
-package serves the 48 ids of the DC, synchronous, externally excited
-synchronous and squirrel-cage induction families (``{Finite, Cont} x {CC,
-TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc, PMSM, SynRM, EESM,
-SCIM}``) so far; every other id of the JAX catalog raises
+package serves the 54 ids of the DC, synchronous, externally excited
+synchronous, squirrel-cage and doubly fed induction families (``{Finite,
+Cont} x {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc, PMSM, SynRM,
+EESM, SCIM, DFIM}``) so far; the SRM ids of the JAX catalog raise
 ``NotImplementedError`` naming the step of queue 1, slice 3 of the port
-that brings it.  The default tables below are this package's own copy of
-the DC, PMSM, SynRM, EESM and SCIM rows of the JAX package's tables.
+that brings them.  The default tables below are this package's own copy of
+the DC, PMSM, SynRM, EESM, SCIM and DFIM rows of the JAX package's tables.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from ..models import converters as cv
 from ..models import loads as ld
 from ..models import motors as mt
 from ..models import supplies as sp
-from ..physical_systems import DcMotorSystem, EESMSystem, SCIMSystem, SynchronousMotorSystem
+from ..physical_systems import (DcMotorSystem, DFIMSystem, EESMSystem, SCIMSystem,
+                                SynchronousMotorSystem)
 from ..rewards import WeightedSumOfErrors
 from ..utils.device import resolve_device
 from ..wrappers import CurrentSumProcessor, apply_wrappers
@@ -31,17 +32,21 @@ _TASKS = ["CC", "TC", "SC"]
 _ACTIONS = ["Finite", "Cont"]
 _DC_MOTORS = ["PermExDc", "ExtExDc", "SeriesDc", "ShuntDc"]
 _SYNC_MOTORS = ["PMSM", "SynRM"]
-# the motors on a B6 bridge with Wiener references on (i_sd, i_sq) for CC
+# the motors on one B6 bridge
 _B6_MOTORS = _SYNC_MOTORS + ["SCIM"]
+# the motors with Wiener references on (i_sd, i_sq) at their default sigma
+# for CC: the DFIM takes them too, on its own dual-B6 converter
+_DQ_CC_MOTORS = _B6_MOTORS + ["DFIM"]
 
 DC_ENV_IDS = [f"{a}-{t}-{m}-v0" for m in _DC_MOTORS for t in _TASKS for a in _ACTIONS]
 SYNC_ENV_IDS = [f"{a}-{t}-{m}-v0" for m in _SYNC_MOTORS for t in _TASKS for a in _ACTIONS]
 SCIM_ENV_IDS = [f"{a}-{t}-SCIM-v0" for t in _TASKS for a in _ACTIONS]
 EESM_ENV_IDS = [f"{a}-{t}-EESM-v0" for t in _TASKS for a in _ACTIONS]
-ENV_IDS = DC_ENV_IDS + SYNC_ENV_IDS + SCIM_ENV_IDS + EESM_ENV_IDS
+DFIM_ENV_IDS = [f"{a}-{t}-DFIM-v0" for t in _TASKS for a in _ACTIONS]
+ENV_IDS = DC_ENV_IDS + SYNC_ENV_IDS + SCIM_ENV_IDS + EESM_ENV_IDS + DFIM_ENV_IDS
 
 # the step of queue 1, slice 3 that brings each family not served yet
-_FAMILY_STEP = {"DFIM": "DFIM", "SRM": "SRM"}
+_FAMILY_STEP = {"SRM": "SRM"}
 
 # supply voltage exceptions (the rest: 60 V for DC, 420 V otherwise)
 _SUPPLY_U = {("Finite", "CC", "SeriesDc"): 420.0, ("Finite", "TC", "SeriesDc"): 420.0,
@@ -70,6 +75,7 @@ _REF_SIGMA = {
     ("SC", "ShuntDc", "Finite"): (1e-3, 5e-3),
     ("SC", "SynRM"): (1e-3, 1e-2),
     ("SC", "SCIM"): (1e-3, 1e-2),
+    ("SC", "DFIM"): (1e-3, 1e-2),
 }
 
 
@@ -83,8 +89,8 @@ def _parse_env_id(env_id):
     if env_id not in ENV_IDS:
         raise NotImplementedError(
             f"{env_id!r} is not ported yet: this package serves the 24 DC, the 12 synchronous, "
-            f"the 6 SCIM and the 6 EESM ids; the {_FAMILY_STEP[parts[2]]} family arrives with its "
-            "step of queue 1, slice 3 of the port")
+            f"the 6 SCIM, the 6 EESM and the 6 DFIM ids; the {_FAMILY_STEP[parts[2]]} family "
+            "arrives with its step of queue 1, slice 3 of the port")
     return parts[0], parts[1], parts[2]
 
 
@@ -105,11 +111,14 @@ def _default_converter(action, motor, tau):
     b6 = cv.finite_b6_bridge_converter if action == "Finite" else cv.cont_b6_bridge_converter
     if motor in _B6_MOTORS:
         return b6(tau)
+    multi = cv.finite_multi_converter if action == "Finite" else cv.cont_multi_converter
+    if motor == "DFIM":
+        # the stator and the rotor B6 bridge
+        return multi([b6(tau), b6(tau)], tau)
     four_qc = (cv.finite_four_quadrant_converter if action == "Finite"
                else cv.cont_four_quadrant_converter)
     if motor not in ("ExtExDc", "EESM"):
         return four_qc(tau)
-    multi = cv.finite_multi_converter if action == "Finite" else cv.cont_multi_converter
     # ExtExDc: armature and excitation 4QC; EESM: the stator B6 bridge and
     # the excitation 4QC
     return multi([b6(tau) if motor == "EESM" else four_qc(tau), four_qc(tau)], tau)
@@ -129,7 +138,7 @@ def _default_references(task, motor, action):
                                  rg.WienerProcessReference("i_e", limit_margin=(0, 1))])
     names = {"PermExDc": ["i"], "SeriesDc": ["i"], "ShuntDc": ["i_a"],
              "ExtExDc": ["i_a", "i_e"]}.get(motor, ["i_sd", "i_sq"])
-    if motor in _B6_MOTORS:
+    if motor in _DQ_CC_MOTORS:
         return rg.ReferenceSpec([rg.WienerProcessReference(n) for n in names])
     return rg.ReferenceSpec([rg.WienerProcessReference(n, sigma_range=sig) for n in names])
 
@@ -225,9 +234,9 @@ def make_functional(
     if constraints is None:
         constraints = _default_constraints(motor_name)
 
-    if motor_name in _B6_MOTORS or motor_name == "EESM":
-        system_cls = {"SCIM": SCIMSystem, "EESM": EESMSystem}.get(motor_name,
-                                                                 SynchronousMotorSystem)
+    if motor_name in _B6_MOTORS or motor_name in ("EESM", "DFIM"):
+        system_cls = {"SCIM": SCIMSystem, "EESM": EESMSystem, "DFIM": DFIMSystem}.get(
+            motor_name, SynchronousMotorSystem)
         system = system_cls(supply=supply, converter=converter, motor=motor_spec, load=load,
                             tau=tau, solver=solver, substeps=substeps, dtype=dtype,
                             control_space=control_space)

@@ -1,5 +1,5 @@
-"""DC, synchronous and squirrel-cage induction motor models (counterpart of
-the DC, PMSM, SynRM, EESM and SCIM parts of
+"""DC, synchronous and induction motor models (counterpart of the DC, PMSM,
+SynRM, EESM, SCIM and DFIM parts of
 ``gym_electric_motor_tpu/models/motors.py``).
 
 A *spec* (host side) carries default parameters, the completed limit and
@@ -9,15 +9,17 @@ state)`` work on batched tensors with a leading env dimension: ``state`` is
 the motor's ODE state (``(N, 1)`` = (i,) or ``(N, 2)`` = (i_a, i_e) for the
 DC motors, ``(N, 3)`` = (i_sd, i_sq, epsilon) for the PMSM and SynRM,
 ``(N, 4)`` = (i_sd, i_sq, i_e, epsilon) for the EESM, ``(N, 5)`` =
-(i_salpha, i_sbeta, psi_ralpha, psi_rbeta, epsilon) for the SCIM),
-``u_in`` the ``(N, n_u)`` input voltages and ``omega`` is ``(N,)``.
+(i_salpha, i_sbeta, psi_ralpha, psi_rbeta, epsilon) for the SCIM and the
+DFIM), ``u_in`` the ``(N, n_u)`` input voltages (the pair of stator and
+rotor alpha/beta voltages for the induction ODE) and ``omega`` is
+``(N,)``.
 
 ``mp`` holds every parameter as a Python float rounded to float32, and the
 products of parameters are formed in float32 with numpy before they meet a
 tensor, so each operation rounds where the JAX package's does.  The DC
 Jacobians of the JAX package serve only its implicit solvers, which this
 package does not port yet (``make_integrator`` raises for them), so they
-are left out.  The DFIM and SRM families come with slice 3 of the port.
+are left out.  The SRM family comes with slice 3 of the port.
 """
 
 from __future__ import annotations
@@ -443,8 +445,8 @@ def induction_ode(mp, state, u_sr_alphabeta, omega):
     """The alpha/beta induction-machine ODE (induction_motor.py:287-313 of
     the reference): ``state`` is ``(N, 5)`` = (i_salpha, i_sbeta, psi_ralpha,
     psi_rbeta, epsilon), ``u_sr_alphabeta`` the pair of ``(N, 2)`` stator
-    and rotor voltages, ``omega`` ``(N,)``.  The rotor inputs serve the DFIM,
-    which is not ported yet."""
+    and rotor voltages, ``omega`` ``(N,)``.  The SCIM passes zero rotor
+    voltages; the DFIM its rotor converter's, turned into the stator frame."""
     l_s, l_r, sigma, tau_r, tau_sig = _im_derived(mp)
     i_sa, i_sb, psi_ra, psi_rb = state[..., 0], state[..., 1], state[..., 2], state[..., 3]
     p = mp["p"]
@@ -539,6 +541,10 @@ def _im_spec(kind, defaults, default_limits, default_nominal, io_voltages, io_cu
 
 _IM_IO_VOLTAGES = ["u_sa", "u_sb", "u_sc", "u_salpha", "u_sbeta", "u_sd", "u_sq"]
 _IM_IO_CURRENTS = ["i_sa", "i_sb", "i_sc", "i_salpha", "i_sbeta", "i_sd", "i_sq"]
+_DFIM_IO_VOLTAGES = _IM_IO_VOLTAGES + ["u_ra", "u_rb", "u_rc", "u_rd", "u_rq", "u_ralpha",
+                                       "u_rbeta"]
+_DFIM_IO_CURRENTS = _IM_IO_CURRENTS + ["i_ra", "i_rb", "i_rc", "i_rd", "i_rq", "i_ralpha",
+                                       "i_rbeta"]
 
 
 def scim(**kwargs) -> MotorSpec:
@@ -555,6 +561,22 @@ def scim(**kwargs) -> MotorSpec:
     )
 
 
+def dfim(**kwargs) -> MotorSpec:
+    """The doubly fed induction motor (doubly_fed_induction_motor.py of the
+    reference): the induction ODE with the rotor voltages as inputs."""
+    return _im_spec(
+        "DFIM",
+        {"p": 2.0, "l_m": 297.5e-3, "l_sigs": 25.71e-3, "l_sigr": 25.71e-3, "j_rotor": 13.695e-3,
+         "r_s": 4.42, "r_r": 3.51},
+        dict(omega=1800 * np.pi / 30, torque=0.0, i=9.0, epsilon=math.pi, u=720.0),
+        dict(omega=1650 * np.pi / 30, torque=0.0, i=7.5, epsilon=math.pi, u=720.0),
+        _DFIM_IO_VOLTAGES,
+        _DFIM_IO_CURRENTS,
+        induction_ode,
+        **kwargs,
+    )
+
+
 MOTOR_FACTORIES = {
     "PermExDc": permex_dc,
     "SeriesDc": series_dc,
@@ -564,4 +586,5 @@ MOTOR_FACTORIES = {
     "SynRM": synrm,
     "EESM": eesm,
     "SCIM": scim,
+    "DFIM": dfim,
 }

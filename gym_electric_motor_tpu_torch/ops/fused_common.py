@@ -7,14 +7,13 @@ Counterpart of ``LANE``, ``TWO_PI``, ``_uniform_from_bits``, ``_make_rng``,
 ``_make_fused_mech``, ``_make_fused_supply``, ``_ref_configs``,
 ``_make_wiener``, ``_wse_err``, ``_rotation_protocol``, ``_c2u`` and
 ``_c2i`` in ``gym_electric_motor_tpu/ops/pallas_common.py``, restricted to
-what the DC, synchronous and SCIM families' catalog defaults use (see
-:func:`fused_check_system` for what raises).  The CUDA counterparts of the
-machinery are the device functions of ``csrc/common_step.cuh``,
-``csrc/sync_step.cuh``, ``csrc/dc_step.cuh`` and
-``csrc/induction_step.cuh``.  On the TPU the bits come from the
-on-core PRNG (xorshift in interpret mode); here they come from
-Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
-3", SC'11), a counter-based generator: the bits of one draw are a pure
+what the DC, synchronous, SCIM, EESM and DFIM families' catalog defaults
+use (see :func:`fused_check_system` for what raises).  The CUDA
+counterparts of the machinery are the device functions of
+``csrc/common_step.cuh`` and the families' ``csrc/*_step.cuh``.  On the
+TPU the bits come from the on-core PRNG (xorshift in interpret mode); here
+they come from Philox4x32-10 (Salmon et al., "Parallel random numbers: as
+easy as 1, 2, 3", SC'11), a counter-based generator: the bits of one draw are a pure
 function of (key, counter), so the CUDA kernels (``csrc/philox.cuh``) and
 the plain PyTorch versions below produce the same bits whatever the launch
 geometry.
@@ -112,8 +111,9 @@ SLOT_BOX_MULLER = 7  # (u1 d, u1 q, u2 d, u2 q)
 # to 4 with reference rows 0 and 1 in place of d and q: SLOT_STEP as
 # (action 0, box-muller u1, box-muller u2, action 1), SLOT_PARAMS,
 # SLOT_RESET, SLOT_INIT_A, SLOT_INIT_B; and a continuous converter's third
-# (and fourth) action word from its own slot.
-SLOT_ACTION_C = 8    # (action 2, action 3, -, -)
+# to sixth action words (the DFIM's rotor duties are the fourth to sixth)
+# from its own slot.
+SLOT_ACTION_C = 8    # (action 2, action 3, action 4, action 5)
 # A third reference row (the EESM's i_e, csrc/common_step.cuh) takes its
 # words from two more slots, so that the one- and two-row draws stay as
 # they are: per step the second Box-Muller pair and row 2's sub-episode
@@ -170,7 +170,7 @@ class SyncBits(PhiloxBits):
 
     ``init_words()`` gives ``(values, lengths, sigmas)``, one word per
     reference row each; ``step_words(t)`` gives ``(actions, u1, u2,
-    lengths, sigmas, resets)``: 1 (finite), 3 or 4 (cont) action words, the
+    lengths, sigmas, resets)``: 1 (finite), 3, 4 or 6 (cont) action words, the
     Box-Muller pair, and one word per row for the sub-episode length, the
     sigma and the reset value.  With three rows ``u1`` and ``u2`` are the
     lists of two pairs' words (``SLOT_ROW2``).  Each word is an (N,) int64
@@ -210,7 +210,7 @@ class SyncBits(PhiloxBits):
             self._block_t0 = t0
             self._block = self._call(range(t0, t0 + self.BLOCK), self._slots)
         w0, w1, w2, w3 = (w[t - t0] for w in self._block)
-        acts = [w0[0], w3[0]][:self.n_act] + ([w0[3], w1[3]][:self.n_act - 2]
+        acts = [w0[0], w3[0]][:self.n_act] + ([w0[3], w1[3], w2[3], w3[3]][:self.n_act - 2]
                                              if self.n_act >= 3 else [])
         n = self.n_rows
         u1, u2 = w1[0], w2[0]
@@ -297,6 +297,16 @@ def check_b6_actions(c, actions, R, device):
     return T
 
 
+def check_channel_actions(c, actions, R, device):
+    """Validate a multi converter's action buffer of ``c.n_act`` channels:
+    int32 ``(T, n_act, R, 128)`` (``c.finite``) or float32 duties of the
+    same shape; returns T."""
+    T = actions.shape[0] if isinstance(actions, torch.Tensor) and actions.dim() else 0
+    check_tensor("actions", actions, (T, c.n_act, R, LANE),
+                 torch.int32 if c.finite else torch.float32, device)
+    return T
+
+
 def family_library(library, prefix, argtypes, counts):
     """The loaded library of ``csrc/<library>.cu`` (built on first use),
     its kernel functions typed on first load (``argtypes``: ``{name:
@@ -351,6 +361,13 @@ def check_rollout_inputs(R, n_steps, state0, actions=None):
 # ---------------------------------------------------------------------------
 
 _f32 = np.float32
+
+
+def reciprocal_f32(x):
+    """``1 / float32(x)`` in float32: XLA turns a division by a constant
+    into this product, so the JAX kernels multiply by it."""
+    return _f32(1.0) / _f32(x)
+
 
 _FUSED_OK_WRAPPERS = ("CurrentSumProcessor", "CosSinProcessor", "FluxObserver")
 

@@ -66,15 +66,16 @@ from .fused_common import (
     TWO_PI,
     SyncBits,
     b6_fractions,
+    check_channel_actions,
     check_planes,
     check_rollout_inputs,
-    check_tensor,
     family_library,
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
     poly_load_rhs,
     ptr_array,
+    reciprocal_f32,
     ref_rows,
     reference_step,
     rotation_advance,
@@ -115,12 +116,6 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 def reset_launches():
     for name in KERNELS:
         LAUNCHES[name] = 0
-
-
-def _reciprocal(x):
-    """``1 / float32(x)`` in float32: XLA turns a division by a constant
-    into this product, so the JAX kernels multiply by it."""
-    return _f32(1.0) / _f32(x)
 
 
 class EesmConsts:
@@ -186,14 +181,14 @@ class EesmConsts:
         r_s, l_d, l_q, p = mp["r_s"], mp["l_d"], mp["l_q"], mp["p"]
         tau = float(ps.tau)
         lim = np.asarray(ps.limits)
-        inv_sig = _reciprocal(sig)
+        inv_sig = reciprocal_f32(sig)
         if self.mech:
             # (p omega) times constants: XLA folds the constants in float32
             omega = 0.0
             w_sd = (_f32(p) * _f32(l_q)) * inv_sig
             w_sq_d = _f32(p) * _f32(l_d)
             w_sq_e = (_f32(p) * _f32(l_M)) * _f32(i_k_rs)
-            w_e = ((_f32(p) * _f32(l_M)) * _f32(l_q)) * _reciprocal(sig * l_d)
+            w_e = ((_f32(p) * _f32(l_M)) * _f32(l_q)) * reciprocal_f32(sig * l_d)
         else:
             # constant speed: Python floats, folded in double
             omega = float(ps.load.omega_fixed)
@@ -496,15 +491,6 @@ def _launch(name, device, *args):
     launch_kernel(lib, "eesm", name, device, LAUNCHES, *args)
 
 
-def check_eesm_actions(c: EesmConsts, actions, R, device):
-    """Validate an action buffer: int32 ``(T, 2, R, 128)`` (B6 bits, 4QC;
-    ``c.finite``) or float32 ``(T, 4, R, 128)`` duties; returns T."""
-    T = actions.shape[0] if isinstance(actions, torch.Tensor) and actions.dim() else 0
-    check_tensor("actions", actions, (T, c.n_act, R, LANE),
-                 torch.int32 if c.finite else torch.float32, device)
-    return T
-
-
 def _with_omega(c, planes):
     """(omega or NULL, the four other planes)."""
     return ([] if c.mech else [None]) + list(planes)
@@ -532,7 +518,7 @@ def eesm_rollout_random(c: EesmConsts, seed: int, states, n_steps: int):
 def eesm_rollout_buffer(c: EesmConsts, states, actions):
     """The final states after the action buffer."""
     device, R = check_planes(c, states)
-    T = check_eesm_actions(c, actions, R, device)
+    T = check_channel_actions(c, actions, R, device)
     if device.type == "cpu":
         return eesm_rollout_buffer_plain(c, tuple(states), actions)
     outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(c.n_state)]
@@ -565,7 +551,7 @@ def eesm_record_random(c: EesmConsts, seed: int, states, n_steps: int):
 def eesm_record_buffer(c: EesmConsts, states, actions):
     """Every step's states, each ``(T, R, 128)``."""
     device, R = check_planes(c, states)
-    T = check_eesm_actions(c, actions, R, device)
+    T = check_channel_actions(c, actions, R, device)
     if device.type == "cpu":
         return eesm_record_buffer_plain(c, tuple(states), actions)
     outs = [torch.empty((T, R, LANE), dtype=torch.float32, device=device)

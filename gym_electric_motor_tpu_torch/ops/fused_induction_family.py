@@ -75,6 +75,7 @@ from .fused_common import (
     launch_kernel,
     poly_load_rhs,
     ptr_array,
+    reciprocal_f32,
     ref_rows,
     reference_step,
     seed_u64,
@@ -113,12 +114,6 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 def reset_launches():
     for name in KERNELS:
         LAUNCHES[name] = 0
-
-
-def _reciprocal(x):
-    """``1 / float32(x)`` in float32: XLA turns a division by a constant
-    into this product, so the JAX kernels multiply by it."""
-    return _f32(1.0) / _f32(x)
 
 
 class InductionConsts:
@@ -190,8 +185,8 @@ class InductionConsts:
         values = dict(
             u_sup=float(ps.supply.u_nominal), half_tau=0.5 * tau, tau=tau, sixth=tau / 6.0,
             two_thirds=2.0 / 3.0, inv_sqrt3=1.0 / np.sqrt(3.0),
-            inv_tau_sig=_reciprocal(tau_sig), c_psi=c_psi, c_w=c_w, cw_w=c_w * omega, c_u=c_u,
-            l_m=l_m, inv_tau_r=_reciprocal(tau_r), p=p, pw=p * omega, k_t=k_t,
+            inv_tau_sig=reciprocal_f32(tau_sig), c_psi=c_psi, c_w=c_w, cw_w=c_w * omega, c_u=c_u,
+            l_m=l_m, inv_tau_r=reciprocal_f32(tau_r), p=p, pw=p * omega, k_t=k_t,
             load_a=0.0, load_b=0.0, load_c=0.0, omega_lin=0.0, jt_over_td=0.0, inv_jt=0.0,
             inv_ilim2=1.0 / (i_lim * i_lim), tiny=1e-24,
             bias=rw._bias_value, violation_reward=rw._violation_value,

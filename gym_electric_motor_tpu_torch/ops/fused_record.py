@@ -1,6 +1,6 @@
 """Universal trajectory-recording fused rollouts (counterpart of
 ``gym_electric_motor_tpu/ops/pallas_record.py``, for the DC, synchronous,
-induction and EESM families so far).
+induction, EESM and DFIM families so far).
 
 ``make_fused_record_rollout(env, T, N)`` returns ``rollout(seed, *state0)
 -> dict`` mapping signal names (the family's state names, ``ref_*``,
@@ -15,14 +15,17 @@ of per-step states.  The kernels are ``dc_record_random`` and
 ``induction_record_buffer`` of ``csrc/fused_induction_record.cu`` (see
 ``ops/fused_induction_family.py``) and ``eesm_record_random`` and
 ``eesm_record_buffer`` of ``csrc/fused_eesm_record.cu`` (see
-``ops/fused_eesm_family.py``); the TPU recorder's chunk grid and per-chunk
+``ops/fused_eesm_family.py``) and ``dfim_record_random`` and
+``dfim_record_buffer`` of ``csrc/fused_dfim_record.cu`` (see
+``ops/fused_dfim_family.py``); the TPU recorder's chunk grid and per-chunk
 reseed (pallas_record.py:206-211) are TPU-only, so there is no ``chunk``
-argument.  The other families raise until their kernels are ported.
+argument.  The SRM family raises until its kernels are ported.
 """
 
 from __future__ import annotations
 
 from . import fused_dc_family as dcf
+from . import fused_dfim_family as dff
 from . import fused_eesm_family as ef
 from . import fused_induction_family as indf
 from . import fused_sync_family as sf
@@ -36,6 +39,7 @@ _FAMILIES = {
     "induction": (indf.InductionConsts, indf.induction_record_random,
                   indf.induction_record_buffer),
     "eesm": (ef.EesmConsts, ef.eesm_record_random, ef.eesm_record_buffer),
+    "dfim": (dff.DfimConsts, dff.dfim_record_random, dff.dfim_record_buffer),
 }
 
 

@@ -12,13 +12,13 @@ for a batch of ``n`` envs (leading dimension of every tensor).
 The DC system (PermExDc, SeriesDc, ShuntDc, ExtExDc with the 1QC, 2QC,
 4QC or dual-4QC multi converter) is ``SCMLSystem`` itself; the synchronous
 system (PMSM, SynRM) and the squirrel-cage induction system (SCIM), each on
-a finite or continuous B6 bridge, and the externally excited synchronous
-system (EESM, a B6 bridge beside a 4QC for the excitation) subclass it, as
-in the JAX package.  All
-take an ideal supply and a constant-speed or polynomial static load; with
-zero interlocking time the converter schedule is a single sub-interval per
-control cycle.  The other families come with the later steps of queue 1,
-slice 3 of the port.
+a finite or continuous B6 bridge, the externally excited synchronous
+system (EESM, a B6 bridge beside a 4QC for the excitation) and the doubly
+fed induction system (DFIM, a B6 bridge on the stator and one on the
+rotor) subclass it, as in the JAX package.  All take an ideal supply and a
+constant-speed or polynomial static load; with zero interlocking time the
+converter schedule is a single sub-interval per control cycle.  The SRM
+family comes with the last step of queue 1, slice 3 of the port.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from .ops.transforms import (
     alphabeta_to_abc,
     alphabeta_to_dq,
     dq_to_abc,
+    dq_to_alphabeta,
     wrap_angle,
 )
 
@@ -589,6 +590,113 @@ class SCIMSystem(SCMLSystem):
         system_state = torch.cat(
             [ode[:, : self.n_mech], torque[:, None], i_abc, i_dq, u_in, u_dq, eps_out[:, None],
              u_sup], dim=1)
+        new_ps = PhysicsState(ode_state=ode, conv_state=cur, sup_state=sup_state,
+                              t=ps.t + self.tau, k=ps.k + 1)
+        return new_ps, system_state / self.limits_tensor(ode.device)
+
+
+@dataclasses.dataclass
+class DFIMSystem(SCIMSystem):
+    """Doubly fed induction drive train (physical_systems.py:943-1073 of the
+    JAX package): the SCIM's alpha/beta ODE state ``[omega, i_salpha,
+    i_sbeta, psi_ralpha, psi_rbeta, epsilon]`` with a second B6 bridge on
+    the rotor windings.  The stator voltages are Clarke-transformed; the
+    rotor's "def" voltages go to dq at the field angle less the electrical
+    angle, then to alpha/beta at the field angle, both angles from the start
+    of the control cycle.  The rotor currents are rebuilt from the fluxes.
+    A finite action is ``(N, 2)`` (stator bridge, rotor bridge), a
+    continuous one ``(N, 6)``."""
+
+    def _validate(self):
+        # the reference's DoublyFedInductionMotorSystem takes no
+        # control_space at all (physical_systems.py:850-860 of the reference)
+        if self.control_space == "dq":
+            raise ValueError("control_space='dq' is not supported for the DFIM (the reference "
+                             "rejects it too: physical_systems.py:850-860)")
+        super()._validate()
+
+    def _build_state_names(self):
+        return (list(self.load.state_names) + [
+            "torque",
+            "i_sa", "i_sb", "i_sc", "i_sd", "i_sq",
+            "i_ra", "i_rb", "i_rc", "i_rd", "i_rq",
+            "u_sa", "u_sb", "u_sc", "u_sd", "u_sq",
+            "u_ra", "u_rb", "u_rc", "u_rd", "u_rq",
+            "epsilon",
+        ] + self._u_sup_names())
+
+    def _rotor_current(self, ode):
+        """i_r = psi_r / l_r - l_m / l_r i_s in the stator frame
+        (physical_systems.py:970-975 of the JAX package)."""
+        mp = self.mp
+        l_r = mp["l_m"] + mp["l_sigr"]
+        i_s = ode[:, self.n_mech: self.n_mech + 2]
+        psi_r = ode[:, self.n_mech + 2: self.n_mech + 4]
+        return psi_r / l_r - (mp["l_m"] / l_r) * i_s
+
+    def reset_from_u(self, u, n: int, device):
+        """physical_systems.py:977-1005 of the JAX package: at reset the
+        rotor dq current is taken at the field angle less the electrical
+        angle."""
+        motor_state, mech_state, u_sup, sup_state = self._reset_parts(u, n, device)
+        ode_state = torch.cat([mech_state, motor_state], dim=1)
+        eps_el = ode_state[:, self.eps_idx]
+        eps_el = torch.where(eps_el > math.pi, eps_el - 2 * math.pi, eps_el)
+        eps_field = self._field_angle(ode_state)
+        eps_field = torch.where(eps_field > math.pi, eps_field - 2 * math.pi, eps_field)
+        u_out = torch.tensor(self.converter.u_reset, dtype=self.dtype, device=device) * u_sup[:, 0:1]
+        u_sabc, u_rdef = u_out[:, :3], u_out[:, 3:6]
+        u_sdq = abc_to_dq(u_sabc, eps_field)
+        u_rdq = abc_to_dq(u_rdef, eps_field - eps_el)
+        i_sdq = alphabeta_to_dq(ode_state[:, self.n_mech: self.n_mech + 2], eps_field)
+        i_sabc = dq_to_abc(i_sdq, eps_field)
+        i_rdq = alphabeta_to_dq(self._rotor_current(ode_state), eps_field - eps_el)
+        i_rdef = dq_to_abc(i_rdq, eps_field - eps_el)
+        torque = self.motor.torque(self.mp, motor_state)
+        system_state = torch.cat(
+            [mech_state, torque[:, None], i_sabc, i_sdq, i_rdef, i_rdq, u_sabc, u_sdq, u_rdef,
+             u_rdq, eps_el[:, None], u_sup], dim=1)
+        ps = self._physics_state(ode_state, self.converter.init_state(n, device), sup_state, n,
+                                 device)
+        return ps, system_state / self.limits_tensor(device)
+
+    def simulate(self, ps: PhysicsState, action, noise=None):
+        """One control period (physical_systems.py:1007-1073 of the JAX
+        package).  Two output quirks of the reference are kept: after a step
+        the rotor dq current is taken at the field angle (at reset, at the
+        field angle less the electrical angle), and the rotor "def" currents
+        are the stator-frame rotor currents Clarke-inverted, never rotated
+        into the rotor frame."""
+        ode = ps.ode_state
+        eps_field = self._field_angle(ode)
+        eps_el = ode[:, self.eps_idx]
+        i_sabc = alphabeta_to_abc(self.motor.i_in(self.mp, ode[:, self.motor_slice]))
+        i_rdef = alphabeta_to_abc(self._rotor_current(ode))
+        i_in = torch.cat([i_sabc, i_rdef], dim=1)
+        intervals = self.converter.interval_states(ps.conv_state, action)
+        cur = ps.conv_state
+        sup_state = ps.sup_state
+        t = ps.t
+        u_in = u_sup = None
+        for j, dur in enumerate(self.converter.interval_durations()):
+            i_sup = self.converter.i_sup(cur, action, i_in)
+            u_sup, sup_state = self.supply.get_voltage(self.sp, sup_state, ps.t, i_sup)
+            u_in = self.converter.u_frac(intervals[j], action, i_in) * u_sup[:, 0:1]
+            u_rdq = abc_to_dq(u_in[:, 3:6], eps_field - eps_el)
+            u_sr = (abc_to_alphabeta(u_in[:, :3]), dq_to_alphabeta(u_rdq, eps_field))
+            ode = self.integrate(self._rhs, ode, t, dur, u_sr, noise)
+            cur = intervals[j]
+            t = t + dur
+        u_sabc, u_rdef = u_in[:, :3], u_in[:, 3:6]
+        u_sdq = abc_to_dq(u_sabc, eps_field)
+        torque = self.motor.torque(self.mp, ode[:, self.motor_slice])
+        i_sdq = alphabeta_to_dq(ode[:, self.n_mech: self.n_mech + 2], eps_field)
+        i_rdq = alphabeta_to_dq(self._rotor_current(ode), eps_field)
+        eps_out = wrap_angle(ode[:, self.eps_idx])
+        system_state = torch.cat(
+            [ode[:, : self.n_mech], torque[:, None], dq_to_abc(i_sdq, eps_field), i_sdq,
+             dq_to_abc(i_rdq, eps_field - eps_el), i_rdq, u_sabc, u_sdq, u_rdef, u_rdq,
+             eps_out[:, None], u_sup], dim=1)
         new_ps = PhysicsState(ode_state=ode, conv_state=cur, sup_state=sup_state,
                               t=ps.t + self.tau, k=ps.k + 1)
         return new_ps, system_state / self.limits_tensor(ode.device)

@@ -283,3 +283,49 @@ def test_cuda_eesm_kernels_match_plain_versions(env_id):
         assert ok.all() if buffer else ok.mean() >= 0.99
     torch.cuda.synchronize()
     assert all(v == 1 for v in ef.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["Finite-CC-DFIM-v0", "Cont-SC-DFIM-v0"])
+def test_cuda_dfim_kernels_match_plain_versions(env_id):
+    """The universal DFIM kernels (csrc/fused_dfim.cu, fused_dfim_record.cu)
+    on a constant-speed finite CC id (two references, the flux direction,
+    the incremental rotation) and a dynamic-speed continuous one (six
+    duties): the buffer modes in every env, the random modes in 99% of envs,
+    at rtol 1e-4 / atol 1e-4 (the angle modulo 2 pi).  Some starts lie
+    outside the current limit, so the random modes cross resets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
+
+    dev = torch.device("cuda")
+    c = dff.DfimConsts(gt.make_functional(env_id, device=dev))
+    R, T = 4, 64
+    rng = np.random.default_rng(14)
+    bounds = (([(0, 100)] if c.mech else []) + [(-10, 10)] * 2 + [(-1.5, 1.5)] * 2
+              + [(0, 2 * np.pi)])
+    start = [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+             for lo, hi in bounds]
+    if c.finite:
+        acts = torch.as_tensor(rng.integers(0, 8, (T, 2, R, 128)).astype(np.int32), device=dev)
+    else:
+        acts = torch.as_tensor(rng.uniform(-1, 1, (T, 6, R, 128)).astype(np.float32), device=dev)
+    dff.reset_launches()
+    for kern, plain, args in [
+        (dff.dfim_rollout_buffer, dff.dfim_rollout_buffer_plain, (start, acts)),
+        (dff.dfim_record_buffer, dff.dfim_record_buffer_plain, (start, acts)),
+        (dff.dfim_rollout_random, dff.dfim_rollout_random_plain, (5, start, T)),
+        (dff.dfim_record_random, dff.dfim_record_random_plain, (5, start, T)),
+    ]:
+        got, want = kern(c, *args), plain(c, *args)
+        ok = np.ones(R * 128, bool)
+        for j, (g, w) in enumerate(zip(got, want)):
+            g, w = g.cpu().double().numpy(), w.cpu().double().numpy()
+            d = np.abs(g - w)
+            if j == c.n_state - 1:  # the angle
+                d = np.minimum(np.remainder(g - w, 2 * np.pi), np.remainder(w - g, 2 * np.pi))
+            ok &= (d <= 1e-4 + 1e-4 * np.abs(w)).reshape(-1, R * 128).all(axis=0)
+        buffer = kern in (dff.dfim_rollout_buffer, dff.dfim_record_buffer)
+        assert ok.all() if buffer else ok.mean() >= 0.99
+    torch.cuda.synchronize()
+    assert all(v == 1 for v in dff.LAUNCHES.values())

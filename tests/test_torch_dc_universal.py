@@ -259,7 +259,7 @@ def test_fused_state_arity_matches_jax_all_ids(env_id):
         assert dcf.DcConsts(tenv).n_state == fr.fused_state_arity(tenv)
 
 
-@pytest.mark.parametrize("motor", ["DFIM", "SRM"])
+@pytest.mark.parametrize("motor", ["SRM"])
 def test_dispatch_raises_for_unported_families(motor):
     env = types.SimpleNamespace(physical_system=types.SimpleNamespace(
         motor=types.SimpleNamespace(kind=motor)))

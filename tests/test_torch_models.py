@@ -143,7 +143,7 @@ def test_system_layout_matches_jax(env_id):
     np.testing.assert_array_equal(tenv.reward_function._weights, jenv.reward_function._weights)
 
 
-@pytest.mark.parametrize("env_id,slice_no", [("Cont-CC-DFIM-v0", 3), ("Finite-TC-DFIM-v0", 3),
+@pytest.mark.parametrize("env_id,slice_no", [("Cont-CC-SRM-v0", 3), ("Finite-TC-SRM-v0", 3),
                                              ("Finite-CC-SRM-v0", 3)])
 def test_unported_ids_raise(env_id, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):

@@ -237,7 +237,7 @@ def test_fused_state_arity_matches_jax(env_id):
     assert sf.SyncConsts(tenv).n_state == fr.fused_state_arity(tenv)
 
 
-@pytest.mark.parametrize("motor", ["DFIM", "SRM"])
+@pytest.mark.parametrize("motor", ["SRM"])
 def test_dispatch_raises_for_other_families(motor):
     env = types.SimpleNamespace(physical_system=types.SimpleNamespace(
         motor=types.SimpleNamespace(kind=motor)))

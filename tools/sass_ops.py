@@ -9,8 +9,9 @@ Run on a machine with the CUDA toolkit, from the root of a checkout:
 It builds ``csrc/fused_pmsm.cu``, ``csrc/fused_policy.cu``,
 ``csrc/fused_sync.cu``, ``csrc/fused_dc.cu``, ``csrc/fused_dc_record.cu``,
 ``csrc/fused_induction.cu``, ``csrc/fused_induction_record.cu``,
-``csrc/fused_eesm.cu`` and ``csrc/fused_eesm_record.cu`` (as the package
-does at first use) and prints one
+``csrc/fused_eesm.cu``, ``csrc/fused_eesm_record.cu``, ``csrc/fused_dfim.cu``
+and ``csrc/fused_dfim_record.cu`` (as the package does at first use) and
+prints one
 JSON line per kernel; a template instance is named by a substring of its
 mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1E`` for H = 16,
 categorical, Wiener.
@@ -276,6 +277,20 @@ STEP_INSTANCES = {
         "eesm_record_random": "eesm_record_random_kernelILb0ELb1ELi1E",
         "eesm_record_buffer": "eesm_record_buffer_kernelILb0ELb1E",
         "eesm_record_random/Finite-CC-EESM-v0": "eesm_record_random_kernelILb1ELb0ELi3E",
+    },
+    # <FINITE, MECH, NREF>: Cont-SC-DFIM-v0 (0, 1, 1) for each kernel, and
+    # Cont-CC-DFIM-v0 (0, 0, 2) and Finite-CC-DFIM-v0 (1, 0, 2) for the
+    # random ones
+    "fused_dfim": {
+        "dfim_rollout_random": "dfim_rollout_random_kernelILb0ELb1ELi1E",
+        "dfim_rollout_buffer": "dfim_rollout_buffer_kernelILb0ELb1E",
+        "dfim_rollout_random/Cont-CC-DFIM-v0": "dfim_rollout_random_kernelILb0ELb0ELi2E",
+        "dfim_rollout_random/Finite-CC-DFIM-v0": "dfim_rollout_random_kernelILb1ELb0ELi2E",
+    },
+    "fused_dfim_record": {
+        "dfim_record_random": "dfim_record_random_kernelILb0ELb1ELi1E",
+        "dfim_record_buffer": "dfim_record_buffer_kernelILb0ELb1E",
+        "dfim_record_random/Cont-CC-DFIM-v0": "dfim_record_random_kernelILb0ELb0ELi2E",
     },
 }
 
