@@ -28,7 +28,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 8. rl_checks the greedy policy rollout against the port's VectorEnv
             driven by the MLP's argmax, and the greedy REINFORCE gradient
             at gamma 0 and 0.97 against torch autograd of the REINFORCE
-            surrogate on that trajectory (16384 envs x 200 steps, constant
+            surrogate on that trajectory (16384 envs x 100 steps, constant
             references; every env starts from the env's reset state, as
             the JAX tests do)
 9.-11. the RL main paths, each with the launch counts set to zero just
@@ -172,12 +172,45 @@ Phases (each prints one JSON line; any failure exits non-zero):
             (VectorEnv.rollout, the random policy of the action space) on
             Cont-SC-DFIM-v0 at 200 steps; the launches of phases 31-33 must
             be exactly what they make
-34. kernels line (all 28 kernels; a policy kernel's launches are the sum
+34. srm_kernels  slice 8, the universal SRM family (csrc/fused_srm.cu,
+            csrc/fused_srm_record.cu): for each of the 6 {Finite, Cont} x
+            {CC, TC, SC} SRM ids (three references on the CC ids), each of
+            the 4 kernels against its plain version at 16384 envs x 128
+            steps (timed on Cont-SC-SRM-v0, the instance the bounds count),
+            the start currents in [0, 22) A (the limit is 20 A); the two
+            random kernels again at 1024 steps on Finite-CC-SRM-v0 and
+            Cont-SC-SRM-v0; all four again with the saturating flux model
+            (psi_s = 1.2) on Finite-TC-SRM-v0 and Cont-SC-SRM-v0 (the
+            continuous buffer's duties in [-0.5, 0.5), where the stiff
+            model stays inside the explicit RK4's stability limit without
+            resets, as in tests/test_srm.py:265-305)
+35.-37. the slice-8 main path, counted from zero:
+   35. srm_env  for each id, the port's env (VectorEnv's reset, the env's
+            step without autoreset, constant references, an action buffer,
+            16384 envs x 40 steps) against both buffer kernels, reached
+            through the dispatch, rtol 1e-4 / atol 2e-3 (angles modulo
+            2 pi, tests/test_srm.py:145-178; the env divides by 2 pi where
+            the kernels multiply by its float32 reciprocal)
+   36. srm_dispatch  for each id, make_fused_rollout(env, 200, 16384) and
+            make_fused_record_rollout(env, 200, 16384) must launch exactly
+            srm_rollout_random and srm_record_random once each and no other
+            kernel; output checks as phase 32's, every phase current in
+            [0, limit] (the diode clamp) and the angle in [-pi, pi], and the
+            share of env-steps that reset
+   37. srm_timings  at 16384 envs: the random rollout at 65536 steps on
+            Finite-CC-SRM-v0 (bench.py:632, :734), Finite-TC-SRM-v0 and
+            Cont-SC-SRM-v0; the random recorder at 1024 steps on
+            Finite-CC-SRM-v0 and Cont-SC-SRM-v0 (12 and 11 planes, GB/s);
+            each with its share of env-steps that reset; the general path
+            (VectorEnv.rollout, the random policy of the action space) on
+            Cont-SC-SRM-v0 at 200 steps; the launches of phases 35-37 must
+            be exactly what they make
+38. kernels line (all 32 kernels; a policy kernel's launches are the sum
     over the paths of phases 9-11, listed by path; a sync kernel's those of
     phases 14-16, a DC kernel's those of phases 19-21, an induction
     kernel's those of phases 23-25, an EESM kernel's those of phases
-    27-29, a DFIM kernel's those of phases 31-33), the card line, then
-    {"ok": true, "device": {...}}
+    27-29, a DFIM kernel's those of phases 31-33, an SRM kernel's those of
+    phases 35-37), the card line, then {"ok": true, "device": {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
 largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
@@ -224,7 +257,7 @@ SEED = 7
 # slice 2: RL on Finite-CC-PMSM-v0
 SF = ("omega", "i_sd", "i_sq", "epsilon")
 H_EVAL, H_PPO = 16, 32
-T_RL_ENV = 200
+T_RL_ENV = 100         # the RL checks' depth, cut from 200 for the script's time: every check is exact
 T_POLICY = 65536
 T_REINFORCE = 1024      # the REINFORCE trainer's depth; one call takes over 10 ms
 REINFORCE_ITERS = 5
@@ -264,6 +297,14 @@ EESM_CONST_REFS = {"CC": [("i_sd", 0.1), ("i_sq", -0.2), ("i_e", 0.3)], "TC": [(
 DFIM_TIMED = "Cont-SC-DFIM-v0"     # the ids whose instances STEP_INSTANCES counts
 DFIM_BENCH = "Cont-CC-DFIM-v0"     # bench.py:773-775
 DFIM_CC = "Finite-CC-DFIM-v0"
+# slice 8: the six SRM ids
+SRM_TIMED = "Cont-SC-SRM-v0"      # the ids whose instances STEP_INSTANCES counts
+SRM_BENCH = "Finite-CC-SRM-v0"    # bench.py:632, :734, three references
+SRM_TC = "Finite-TC-SRM-v0"       # the torque reward at the wrapped angle
+SRM_SAT = dict(motor=dict(motor_parameter={"psi_s": 1.2}))  # tests/test_srm.py:265-305
+SRM_SAT_IDS = ("Finite-TC-SRM-v0", "Cont-SC-SRM-v0")
+SRM_CONST_REFS = {"CC": [("i_a", 0.2), ("i_b", 0.3), ("i_c", 0.1)], "TC": [("torque", 0.3)],
+                  "SC": [("omega", 0.2)]}
 # The pipes a kernel's bound counts, where not all.  Most of REINFORCE's ALU
 # and IMAD instructions are the 64-bit arithmetic of its 2 P trace
 # addresses, recomputed each step (opaque64 in csrc/policy_step.cuh keeps
@@ -382,7 +423,7 @@ def run(dev, card):
     libs = cuda_build.build(["fused_pmsm", "fused_policy", "fused_sync", "fused_dc",
                              "fused_dc_record", "fused_induction", "fused_induction_record",
                              "fused_eesm", "fused_eesm_record", "fused_dfim",
-                             "fused_dfim_record"])
+                             "fused_dfim_record", "fused_srm", "fused_srm_record"])
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
                     for ln in cuda_build.BUILD_LOG.get(name, "").splitlines()
@@ -935,23 +976,27 @@ def held_random(torch, label, name, got, ref, angle, worst, share):
             "mean_reward_rel_err": rel}
 
 
-def compare_family_kernels(torch, gt, dev, fam, ids, timed_id, deep_ids, ops):
+def compare_family_kernels(torch, gt, dev, fam, ids, timed_id, deep_ids, ops, env_kw=None):
     """A universal family's four kernels (``fam.mod``, named
     ``<fam.prefix>_<mode>``) against their plain versions on every id of
     ``ids`` at T_SYNC_COMPARE steps, timed with their bounds on
     ``timed_id``; the two random kernels again at the recorder's main-path
     depth on ``deep_ids``, where drift between kernel and plain version
-    would show.  Emits one line per id and one for the deep runs; returns
-    ``(worst, share, timed)`` per kernel."""
+    would show.  ``env_kw`` (keyword arguments of ``make_functional``, such
+    as a motor override) applies to every env.  Emits one line per id and
+    one for the deep runs; returns ``(worst, share, timed)`` per kernel."""
     mod, N = fam.mod, N_ENVS
     worst = dict.fromkeys(mod.KERNELS, 0.0)
     share = dict.fromkeys(mod.KERNELS, 1.0)
     timed = {}
+    env_kw = env_kw or {}
     for env_id in ids:
-        c = fam.consts(gt.make_functional(env_id, device=dev))
+        c = fam.consts(gt.make_functional(env_id, device=dev, **env_kw))
         start, acts = fam.planes(c), fam.actions(c, T_SYNC_COMPARE)
         row = {"phase": f"{fam.prefix}_kernels", "env_id": env_id, "envs": N,
                "steps": T_SYNC_COMPARE}
+        if env_kw:
+            row["env_kw"] = env_kw
         for mode in ("rollout_buffer", "record_buffer", "rollout_random", "record_random"):
             name = f"{fam.prefix}_{mode}"
             kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
@@ -977,7 +1022,7 @@ def compare_family_kernels(torch, gt, dev, fam, ids, timed_id, deep_ids, ops):
         emit(row)
     deep = {}
     for env_id in deep_ids:
-        c = fam.consts(gt.make_functional(env_id, device=dev))
+        c = fam.consts(gt.make_functional(env_id, device=dev, **env_kw))
         start = fam.planes(c)
         for mode in ("rollout_random", "record_random"):
             name = f"{fam.prefix}_{mode}"
@@ -987,7 +1032,9 @@ def compare_family_kernels(torch, gt, dev, fam, ids, timed_id, deep_ids, ops):
             deep[f"{env_id} {name}"] = held_random(torch, env_id, name, got, ref,
                                                    fam.angle(c, len(got)), worst, share)
             del got, ref
-    emit({"phase": f"{fam.prefix}_kernels_deep", "envs": N, "steps": T_RECORD, "results": deep})
+    if deep_ids:
+        emit({"phase": f"{fam.prefix}_kernels_deep", "envs": N, "steps": T_RECORD,
+              "results": deep})
     return worst, share, timed
 
 
@@ -1456,8 +1503,8 @@ def run_dc(dev, card, ops):
 
 def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids, record_ids,
                      ops, others, dispatch_checks):
-    """The main path of a universal family on B6 bridges (the induction,
-    EESM and DFIM slices), its launches counted from zero: the env against both
+    """The main path of a universal family (the induction, EESM, DFIM and
+    SRM slices), its launches counted from zero: the env against both
     buffer kernels on every id of ``ids`` (constant references
     ``const_refs[task]``, tolerance ``atol``), the dispatch (exactly one
     launch of each random kernel per id and none of the ``others`` modules'
@@ -1814,6 +1861,99 @@ def run_dfim(dev, card, ops):
         {name: timings[DFIM_TIMED][name] for name in ("dfim_rollout_random", "dfim_record_random")})
 
 
+def run_srm(dev, card, ops):
+    """Slice 8, the universal SRM family: the four kernels of
+    csrc/fused_srm.cu and csrc/fused_srm_record.cu against their plain
+    versions on the six SRM ids and on two with the saturating flux model,
+    then the main path (env against the buffer kernels, the dispatch,
+    timings) with its launches counted from zero.  Returns the SRM kernels'
+    rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
+    from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef
+    from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+    from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf
+    from gym_electric_motor_tpu_torch.ops import fused_sync as fs
+    from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
+
+    N, R = N_ENVS, N_ENVS // 128
+    rng = np.random.default_rng(SEED)
+
+    def planes(c):
+        """Speed (under a dynamic load) in [0, 100) rad/s, the three phase
+        currents in [0, 22) A (the limit is 20 A, so some random-mode envs
+        reset at once), the angle in [-pi, pi)."""
+        bounds = ([(0, 100)] if c.mech else []) + [(0, 22)] * 3 + [(-np.pi, np.pi)]
+        return [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+                for lo, hi in bounds]
+
+    def actions(c, steps, duty=1.0):
+        """int32 (T, 3, R, 128) per-phase commands in {0, 1, 2}, or float32
+        (T, 3, R, 128) duties in [-duty, duty)."""
+        if c.finite:
+            return torch.as_tensor(rng.integers(0, 3, (steps, 3, R, 128)).astype(np.int32),
+                                   device=dev)
+        return torch.as_tensor(rng.uniform(-duty, duty, (steps, 3, R, 128)).astype(np.float32),
+                               device=dev)
+
+    # ---- 34. the four kernels against their plain versions, every id -----
+    fam = SimpleNamespace(
+        mod=srf, prefix="srm", consts=srf.SrmConsts, planes=planes, actions=actions,
+        nbytes=sync_bytes, angle=lambda c, n: [j == c.n_state - 1 for j in range(n)],
+        cols=lambda c: ([0] if c.mech else []) + [1, 2, 3, 4],
+        env_action=lambda c, a: a.reshape(c.n_act, N).T.contiguous())
+    worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.SRM_ENV_IDS, SRM_TIMED,
+                                                 (SRM_BENCH, SRM_TIMED), ops)
+    # the saturating instances: every kernel, error 0 and every env as above.
+    # The continuous buffer takes duties in [-0.5, 0.5), as the JAX suite's
+    # saturating parity does (tests/test_srm.py:265-305): the incremental
+    # inductance l_k exp(-i l_k / psi_s) falls as a current grows, and with
+    # full duties some 0.7% of envs, which no reset stops in buffer mode,
+    # pass the explicit RK4's stability limit within 128 steps and run to
+    # inf in kernel and plain version alike.
+    fam_sat = SimpleNamespace(**{**vars(fam), "actions": lambda c, steps: actions(c, steps, 0.5)})
+    w_sat, s_sat, _ = compare_family_kernels(torch, gt, dev, fam_sat, SRM_SAT_IDS, None, (), ops,
+                                             env_kw=SRM_SAT)
+    for name in srf.KERNELS:
+        worst[name] = max(worst[name], w_sat[name])
+        share[name] = min(share[name], s_sat[name])
+
+    # ---- 35.-37. the main path: counts from zero ---------------------------
+    # 35. the env against the buffer kernels (rtol 1e-4 / atol 2e-3, angles
+    # modulo 2 pi, tests/test_srm.py:145-178); 36. the dispatch, with the
+    # clamped currents inside their limit and the angle in range; 37.
+    # timings
+    def in_limits(c, roll, n_state):
+        i3, eps = roll[n_state - 4:n_state - 1], roll[n_state - 1]
+        lim = 1.0 / c.f["inv_ilim"]
+        pi32 = float(np.float32(math.pi))
+        return {
+            "currents_clamped": all(bool((i >= 0.0).all()) for i in i3),
+            "in_current_limit": all(bool((i <= lim * (1.0 + 1e-5)).all()) for i in i3),
+            # [-pi, pi] in float32: the wrap's product can land on pi exactly
+            "eps_in_range": bool(((eps >= -pi32) & (eps <= pi32)).all())}
+
+    launches, timings = family_main_path(
+        torch, gt, dev, card, fam, gt.SRM_ENV_IDS, SRM_CONST_REFS, 2e-3,
+        (SRM_BENCH, SRM_TC, SRM_TIMED), (SRM_BENCH, SRM_TIMED), ops,
+        (fs, fp, sf, dcf, indf, ef, dff), in_limits)
+
+    # ---- kernels line rows ---------------------------------------------------
+    replaces = {"srm_rollout_random": "gym_electric_motor_tpu/ops/pallas_srm.py:609",
+                "srm_rollout_buffer": "gym_electric_motor_tpu/ops/pallas_srm.py:581",
+                "srm_record_random": "gym_electric_motor_tpu/ops/pallas_record.py:303",
+                "srm_record_buffer": "gym_electric_motor_tpu/ops/pallas_record.py:147"}
+    return family_kernel_rows(
+        fam, lambda name: f"gym_electric_motor_tpu_torch/csrc/{srf.LIBRARY[name]}.cu", replaces,
+        launches, worst, share, timed, SRM_TIMED, len(gt.SRM_ENV_IDS) + len(SRM_SAT_IDS),
+        {name: timings[SRM_TIMED][name] for name in ("srm_rollout_random", "srm_record_random")})
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "gym_electric_motor_tpu_torch" / "csrc").is_dir():
@@ -1851,9 +1991,11 @@ def main():
     seconds["slice_6"] = lap()
     line += run_dfim(dev, card, ops)
     seconds["slice_7"] = lap()
+    line += run_srm(dev, card, ops)
+    seconds["slice_8"] = lap()
     emit({"phase": "elapsed", "seconds": seconds, "total": clock[-1] - clock[0]})
 
-    # ---- 34. kernels line, card and result --------------------------------
+    # ---- 38. kernels line, card and result --------------------------------
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

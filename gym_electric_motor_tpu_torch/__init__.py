@@ -15,7 +15,7 @@ from .core import (ElectricMotorEnvironment, VectorEnv, random_box_policy, rando
                    random_multidiscrete_policy, random_policy, random_policy_for,
                    state_from_numpy)
 from .envs import (DC_ENV_IDS, DFIM_ENV_IDS, EESM_ENV_IDS, ENV_IDS, SCIM_ENV_IDS,
-                   SYNC_ENV_IDS, make, make_functional)
+                   SRM_ENV_IDS, SYNC_ENV_IDS, make, make_functional)
 
 __all__ = [
     "DC_ENV_IDS",
@@ -23,6 +23,7 @@ __all__ = [
     "EESM_ENV_IDS",
     "ENV_IDS",
     "SCIM_ENV_IDS",
+    "SRM_ENV_IDS",
     "SYNC_ENV_IDS",
     "ElectricMotorEnvironment",
     "VectorEnv",

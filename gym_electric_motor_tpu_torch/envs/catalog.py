@@ -1,13 +1,12 @@
 """Environment catalog (counterpart of ``gym_electric_motor_tpu/envs/catalog.py``).
 
 The env-id grammar is ``{Finite|Cont}-{CC|TC|SC}-{Motor}-v0``.  This
-package serves the 54 ids of the DC, synchronous, externally excited
-synchronous, squirrel-cage and doubly fed induction families (``{Finite,
-Cont} x {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc, PMSM, SynRM,
-EESM, SCIM, DFIM}``) so far; the SRM ids of the JAX catalog raise
-``NotImplementedError`` naming the step of queue 1, slice 3 of the port
-that brings them.  The default tables below are this package's own copy of
-the DC, PMSM, SynRM, EESM, SCIM and DFIM rows of the JAX package's tables.
+package serves all 60 ids of the JAX catalog: the DC, synchronous,
+externally excited synchronous, squirrel-cage induction, doubly fed
+induction and switched reluctance families (``{Finite, Cont} x {CC, TC, SC} x {PermExDc,
+SeriesDc, ShuntDc, ExtExDc, PMSM, SynRM, EESM, SCIM, DFIM, SRM}``).  The
+default tables below are this package's own copy of the JAX package's
+tables.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from ..models import converters as cv
 from ..models import loads as ld
 from ..models import motors as mt
 from ..models import supplies as sp
-from ..physical_systems import (DcMotorSystem, DFIMSystem, EESMSystem, SCIMSystem,
+from ..physical_systems import (DcMotorSystem, DFIMSystem, EESMSystem, SCIMSystem, SRMSystem,
                                 SynchronousMotorSystem)
 from ..rewards import WeightedSumOfErrors
 from ..utils.device import resolve_device
@@ -43,12 +42,11 @@ SYNC_ENV_IDS = [f"{a}-{t}-{m}-v0" for m in _SYNC_MOTORS for t in _TASKS for a in
 SCIM_ENV_IDS = [f"{a}-{t}-SCIM-v0" for t in _TASKS for a in _ACTIONS]
 EESM_ENV_IDS = [f"{a}-{t}-EESM-v0" for t in _TASKS for a in _ACTIONS]
 DFIM_ENV_IDS = [f"{a}-{t}-DFIM-v0" for t in _TASKS for a in _ACTIONS]
-ENV_IDS = DC_ENV_IDS + SYNC_ENV_IDS + SCIM_ENV_IDS + EESM_ENV_IDS + DFIM_ENV_IDS
+SRM_ENV_IDS = [f"{a}-{t}-SRM-v0" for t in _TASKS for a in _ACTIONS]
+ENV_IDS = DC_ENV_IDS + SYNC_ENV_IDS + SCIM_ENV_IDS + EESM_ENV_IDS + DFIM_ENV_IDS + SRM_ENV_IDS
 
-# the step of queue 1, slice 3 that brings each family not served yet
-_FAMILY_STEP = {"SRM": "SRM"}
-
-# supply voltage exceptions (the rest: 60 V for DC, 420 V otherwise)
+# supply voltage exceptions (the rest: 60 V for DC, 400 V for the SRM, 420 V
+# otherwise)
 _SUPPLY_U = {("Finite", "CC", "SeriesDc"): 420.0, ("Finite", "TC", "SeriesDc"): 420.0,
              ("Cont", "CC", "PMSM"): 300.0, ("Cont", "CC", "EESM"): 300.0}
 # PolynomialStaticLoad of the SC tasks (else _SC_LOAD_DEFAULT)
@@ -80,24 +78,21 @@ _REF_SIGMA = {
 
 
 def _parse_env_id(env_id):
-    """``(action, task, motor)`` of a served env id."""
+    """``(action, task, motor)`` of a catalog env id."""
     parts = env_id.split("-")
     if len(parts) != 4 or parts[0] not in _ACTIONS or parts[1] not in _TASKS \
             or parts[2] not in _MOTORS or parts[3] != "v0":
         raise KeyError(f"Unknown env id {env_id!r}; valid ids: {{Finite|Cont}}-{{CC|TC|SC}}-"
                        f"{{{'|'.join(_MOTORS)}}}-v0")
-    if env_id not in ENV_IDS:
-        raise NotImplementedError(
-            f"{env_id!r} is not ported yet: this package serves the 24 DC, the 12 synchronous, "
-            f"the 6 SCIM, the 6 EESM and the 6 DFIM ids; the {_FAMILY_STEP[parts[2]]} family "
-            "arrives with its step of queue 1, slice 3 of the port")
     return parts[0], parts[1], parts[2]
 
 
 def _supply_u(action, task, motor):
     if (action, task, motor) in _SUPPLY_U:
         return _SUPPLY_U[(action, task, motor)]
-    return 60.0 if motor in _DC_MOTORS else 420.0
+    if motor in _DC_MOTORS:
+        return 60.0
+    return 400.0 if motor == "SRM" else 420.0
 
 
 def _sigma_for(task, motor, action):
@@ -111,6 +106,9 @@ def _default_converter(action, motor, tau):
     b6 = cv.finite_b6_bridge_converter if action == "Finite" else cv.cont_b6_bridge_converter
     if motor in _B6_MOTORS:
         return b6(tau)
+    if motor == "SRM":
+        return (cv.finite_asymmetric_bridge_converter(tau) if action == "Finite"
+                else cv.cont_asymmetric_bridge_converter(tau))
     multi = cv.finite_multi_converter if action == "Finite" else cv.cont_multi_converter
     if motor == "DFIM":
         # the stator and the rotor B6 bridge
@@ -136,6 +134,11 @@ def _default_references(task, motor, action):
         return rg.ReferenceSpec([rg.WienerProcessReference("i_sd"),
                                  rg.WienerProcessReference("i_sq"),
                                  rg.WienerProcessReference("i_e", limit_margin=(0, 1))])
+    if motor == "SRM":
+        # unipolar phase currents: the references live in [0, 1]
+        return rg.ReferenceSpec([rg.WienerProcessReference(n, sigma_range=sig,
+                                                           limit_margin=(0, 1))
+                                 for n in ("i_a", "i_b", "i_c")])
     names = {"PermExDc": ["i"], "SeriesDc": ["i"], "ShuntDc": ["i_a"],
              "ExtExDc": ["i_a", "i_e"]}.get(motor, ["i_sd", "i_sq"])
     if motor in _DQ_CC_MOTORS:
@@ -150,7 +153,8 @@ def _default_reward(task, motor):
         return WeightedSumOfErrors(reward_weights=dict(torque=1.0))
     weights = {"PermExDc": dict(i=1.0), "SeriesDc": dict(i=1.0), "ShuntDc": dict(i_a=1.0),
                "ExtExDc": dict(i_a=0.5, i_e=0.5),
-               "EESM": dict(i_sd=1 / 3, i_sq=1 / 3, i_e=1 / 3)}.get(motor, dict(i_sd=0.5, i_sq=0.5))
+               "EESM": dict(i_sd=1 / 3, i_sq=1 / 3, i_e=1 / 3),
+               "SRM": dict(i_a=1 / 3, i_b=1 / 3, i_c=1 / 3)}.get(motor, dict(i_sd=0.5, i_sq=0.5))
     return WeightedSumOfErrors(reward_weights=weights)
 
 
@@ -161,6 +165,8 @@ def _default_constraints(motor):
         return (LimitConstraint(("i_a",)), LimitConstraint(("i_e",)))
     if motor == "EESM":
         return (SquaredConstraint(("i_sq", "i_sd")), LimitConstraint(("i_e",)))
+    if motor == "SRM":
+        return (LimitConstraint(("i_a", "i_b", "i_c")),)
     return (SquaredConstraint(("i_sq", "i_sd")),)
 
 
@@ -244,8 +250,9 @@ def make_functional(
         if control_space != "abc":
             raise ValueError(f"control_space={control_space!r} is not supported for {motor_name} "
                              "(three-phase systems only)")
-        system = DcMotorSystem(supply=supply, converter=converter, motor=motor_spec, load=load,
-                               tau=tau, solver=solver, substeps=substeps, dtype=dtype)
+        system_cls = SRMSystem if motor_name == "SRM" else DcMotorSystem
+        system = system_cls(supply=supply, converter=converter, motor=motor_spec, load=load,
+                            tau=tau, solver=solver, substeps=substeps, dtype=dtype)
     if motor_name == "ShuntDc":
         # every reference ShuntDc env appends a CurrentSumProcessor
         wrappers = wrappers + (CurrentSumProcessor(("i_a", "i_e")),)

@@ -7,9 +7,9 @@ half-bridge switching states (0 = both transistors off, 1 = upper on,
 n_subs)`` for a multi converter); phase currents are ``(N, n_in)``; a
 continuous action is an ``(N, n_out)`` float tensor of duty commands.  The
 DC converters (finite and continuous 1QC, 2QC and 4QC), the multi
-converter and the finite and continuous B6 bridges exist, at zero
-interlocking time; the dead-time schedule comes with queue 2, item 8 of
-the port.
+converter, the finite and continuous B6 bridges and the SRM's finite and
+continuous asymmetric bridges exist, at zero interlocking time; the
+dead-time schedule comes with queue 2, item 8 of the port.
 """
 
 from __future__ import annotations
@@ -343,6 +343,59 @@ def cont_multi_converter(subconverters, tau=1e-4, interlocking_time=0.0) -> Conv
     return _multi(list(subconverters), False, tau, interlocking_time)
 
 
+def _no_interlock(interlocking_time):
+    if interlocking_time:
+        raise ValueError("the asymmetric bridge has no shoot-through path: interlocking dead "
+                         "time does not apply")
+
+
+def finite_asymmetric_bridge_converter(tau=1e-5, n_phases=3,
+                                       interlocking_time=0.0) -> ConverterSpec:
+    """The SRM's per-phase asymmetric half bridge, ``(N, n_phases)``
+    actions: 0 freewheels (u = 0), 1 magnetises (+u_sup), 2 demagnetises
+    (-u_sup, the current returns to the link).  No switching state: the
+    supply current takes the current action."""
+    _no_interlock(interlocking_time)
+
+    def fracs(action, dtype):
+        return (action == 1).to(dtype) - (action == 2).to(dtype)
+
+    def u_frac(bridge_states, action, i_out):
+        return fracs(action, i_out.dtype)
+
+    def i_sup(bridge_states, action, i_out):
+        return torch.sum(fracs(action, i_out.dtype) * i_out, dim=-1)
+
+    return ConverterSpec(
+        kind="Finite-ASYM", action_type="finite", action_space=("multidiscrete", [3] * n_phases),
+        n_state=0, n_out=n_phases, n_in=n_phases,
+        voltages=(-np.ones(n_phases), np.ones(n_phases)),
+        currents=(np.zeros(n_phases), np.ones(n_phases)), interlocking_time=0.0, tau=tau,
+        u_frac=u_frac, i_sup=i_sup, u_reset=np.zeros(n_phases),
+        default_action=np.zeros(n_phases, dtype=int))
+
+
+def cont_asymmetric_bridge_converter(tau=1e-4, n_phases=3,
+                                     interlocking_time=0.0) -> ConverterSpec:
+    """The dynamically averaged asymmetric bridge: the duty in [-1, 1] per
+    phase (clipped) gives u = d u_sup, the supply current sum(d_k i_k)."""
+    _no_interlock(interlocking_time)
+
+    def u_frac(bridge_states, action, i_out):
+        return torch.clamp(action, -1.0, 1.0)
+
+    def i_sup(bridge_states, action, i_out):
+        return torch.sum(torch.clamp(action, -1.0, 1.0) * i_out, dim=-1)
+
+    return ConverterSpec(
+        kind="Cont-ASYM", action_type="cont",
+        action_space=("box", -np.ones(n_phases), np.ones(n_phases)), n_state=0, n_out=n_phases,
+        n_in=n_phases, voltages=(-np.ones(n_phases), np.ones(n_phases)),
+        currents=(np.zeros(n_phases), np.ones(n_phases)), interlocking_time=0.0, tau=tau,
+        u_frac=u_frac, i_sup=i_sup, u_reset=np.zeros(n_phases),
+        default_action=np.zeros(n_phases))
+
+
 # the factory of each converter kind this package has, for the catalog's
 # dict overrides (``converter=dict(tau=..., ...)``)
 CONVERTER_FACTORIES = {
@@ -356,4 +409,6 @@ CONVERTER_FACTORIES = {
     "Cont-B6C": cont_b6_bridge_converter,
     "Finite-Multi": finite_multi_converter,
     "Cont-Multi": cont_multi_converter,
+    "Finite-ASYM": finite_asymmetric_bridge_converter,
+    "Cont-ASYM": cont_asymmetric_bridge_converter,
 }

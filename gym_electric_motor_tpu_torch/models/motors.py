@@ -1,6 +1,5 @@
-"""DC, synchronous and induction motor models (counterpart of the DC, PMSM,
-SynRM, EESM, SCIM and DFIM parts of
-``gym_electric_motor_tpu/models/motors.py``).
+"""DC, synchronous, induction and switched reluctance motor models
+(counterpart of ``gym_electric_motor_tpu/models/motors.py``).
 
 A *spec* (host side) carries default parameters, the completed limit and
 nominal dicts and the initial-state description; the *functions*
@@ -10,7 +9,7 @@ the motor's ODE state (``(N, 1)`` = (i,) or ``(N, 2)`` = (i_a, i_e) for the
 DC motors, ``(N, 3)`` = (i_sd, i_sq, epsilon) for the PMSM and SynRM,
 ``(N, 4)`` = (i_sd, i_sq, i_e, epsilon) for the EESM, ``(N, 5)`` =
 (i_salpha, i_sbeta, psi_ralpha, psi_rbeta, epsilon) for the SCIM and the
-DFIM), ``u_in`` the ``(N, n_u)`` input voltages (the pair of stator and
+DFIM, ``(N, 4)`` = (i_a, i_b, i_c, epsilon) for the SRM), ``u_in`` the ``(N, n_u)`` input voltages (the pair of stator and
 rotor alpha/beta voltages for the induction ODE) and ``omega`` is
 ``(N,)``.
 
@@ -19,7 +18,7 @@ products of parameters are formed in float32 with numpy before they meet a
 tensor, so each operation rounds where the JAX package's does.  The DC
 Jacobians of the JAX package serve only its implicit solvers, which this
 package does not port yet (``make_integrator`` raises for them), so they
-are left out.  The SRM family comes with slice 3 of the port.
+are left out.
 """
 
 from __future__ import annotations
@@ -577,6 +576,111 @@ def dfim(**kwargs) -> MotorSpec:
     )
 
 
+# ---------------------------------------------------------------------------
+# Switched reluctance motor (an extension of the JAX package: the reference
+# only stubs it).  Sinusoidal inductance profile per phase k,
+#   L_k(eps) = l0 - l1 cos(eps - k 2 pi / 3),  dL_k / dtheta = p l1 sin(...),
+# unipolar phase currents (the system clamps them at zero after a step) and,
+# with ``psi_s`` set, the exponential saturating flux model
+#   di_k / dt = (u - r_s i - i L'_k omega e) / (L_k e),  e = exp(-i L_k / psi_s),
+#   T = sum_k (L'_k psi_s^2 / L_k^2) ((1 - e) - x e),  x = i L_k / psi_s.
+# ---------------------------------------------------------------------------
+
+_SRM_PHI = (0.0, 2.0 * math.pi / 3.0, 4.0 * math.pi / 3.0)
+
+
+def _srm_sat(mp):
+    v = mp.get("psi_s", None)
+    return None if v is None or float(v) <= 0.0 else v
+
+
+def _srm_phase(mp, state):
+    """sin and cos of eps - phi_k, the inductances and their slopes:
+    ``(N, 3)`` each."""
+    phi = torch.tensor(_SRM_PHI, dtype=state.dtype, device=state.device)
+    arg = state[..., 3:4] - phi
+    s_k = torch.sin(arg)
+    l_k = float(mp["l0"]) - float(mp["l1"]) * torch.cos(arg)
+    dl_dth = float(mp["p"] * mp["l1"]) * s_k
+    return l_k, dl_dth
+
+
+def srm_ode(mp, state, u_in, omega):
+    """The phase-current ODE and the angle rate (``srm_ode``)."""
+    l_k, dl_dth = _srm_phase(mp, state)
+    i = state[..., :3]
+    w = omega[..., None]
+    psi_s = _srm_sat(mp)
+    if psi_s is None:
+        di = (u_in - float(mp["r_s"]) * i - i * dl_dth * w) / l_k
+    else:
+        e = torch.exp(-i * l_k / float(psi_s))
+        di = (u_in - float(mp["r_s"]) * i - i * dl_dth * w * e) / (l_k * e)
+    return torch.cat([di, (float(mp["p"]) * omega)[..., None]], dim=-1)
+
+
+def srm_torque(mp, state):
+    """The reluctance torque, the coenergy form when saturating
+    (``srm_torque``)."""
+    l_k, dl_dth = _srm_phase(mp, state)
+    i = state[..., :3]
+    psi_s = _srm_sat(mp)
+    if psi_s is None:
+        return torch.sum(0.5 * i * i * dl_dth, dim=-1)
+    x = i * l_k / float(psi_s)
+    e = torch.exp(-x)
+    return torch.sum((dl_dth * float(_f32(psi_s) ** 2) / (l_k * l_k)) * ((1.0 - e) - x * e),
+                     dim=-1)
+
+
+def switched_reluctance_motor(motor_parameter=None, nominal_values=None, limit_values=None,
+                              motor_initializer=None) -> MotorSpec:
+    """3-phase switched reluctance motor: ``r_s``, the unaligned and aligned
+    inductances ``l_min`` and ``l_max`` (``l0`` and ``l1`` are their mean
+    and half difference), ``p``, ``j_rotor`` and the optional saturation
+    flux ``psi_s``.  The torque limit is the single-phase maximum
+    0.5 i_lim^2 p l1."""
+    defaults = {"p": 4.0, "r_s": 0.5, "l_min": 12e-3, "l_max": 60e-3, "j_rotor": 5e-3,
+                "psi_s": None}
+    parameter = update_parameter_dict(defaults, motor_parameter or {})
+    if parameter.get("psi_s") is None:
+        # an absent key selects the linear model (mp() would turn None into
+        # nan)
+        parameter.pop("psi_s", None)
+    parameter["l0"] = 0.5 * (parameter["l_max"] + parameter["l_min"])
+    parameter["l1"] = 0.5 * (parameter["l_max"] - parameter["l_min"])
+    limits = dict(omega=500.0, torque=0.0, i=20.0, epsilon=math.pi, u=400.0)
+    limits.update(limit_values or {})
+    nominal = dict(omega=300.0, torque=0.0, i=16.0, epsilon=math.pi, u=400.0)
+    nominal.update(nominal_values or {})
+    limits_agenda, nominal_agenda = {}, {}
+    for k in "abc":
+        limits_agenda[f"u_{k}"] = limits["u"]  # the full DC link per phase
+        nominal_agenda[f"u_{k}"] = nominal["u"]
+        limits_agenda[f"i_{k}"] = limits["i"]
+        nominal_agenda[f"i_{k}"] = nominal["i"]
+    limits, nominal = _complete(limits, nominal, limits_agenda, nominal_agenda)
+    tl = 0.5 * limits["i"] ** 2 * parameter["p"] * parameter["l1"]
+    limits, nominal = _complete(limits, nominal, {"torque": tl})
+    initializer = {"states": {"i_a": 0.0, "i_b": 0.0, "i_c": 0.0, "epsilon": 0.0},
+                   "interval": None, "random_init": None, "random_params": (None, None)}
+    initializer.update(motor_initializer or {})
+    return MotorSpec(
+        kind="SRM",
+        ode_states=("i_a", "i_b", "i_c", "epsilon"),
+        currents=("i_a", "i_b", "i_c"),
+        voltages=("u_a", "u_b", "u_c"),
+        parameter=parameter,
+        limits=limits,
+        nominal=nominal,
+        initializer=initializer,
+        ode=srm_ode,
+        torque=srm_torque,
+        i_in=lambda mp, s: s[..., :3],
+        initial_limits=dict(nominal),
+    )
+
+
 MOTOR_FACTORIES = {
     "PermExDc": permex_dc,
     "SeriesDc": series_dc,
@@ -587,4 +691,5 @@ MOTOR_FACTORIES = {
     "EESM": eesm,
     "SCIM": scim,
     "DFIM": dfim,
+    "SRM": switched_reluctance_motor,
 }

@@ -1,6 +1,6 @@
 """Universal trajectory-recording fused rollouts (counterpart of
-``gym_electric_motor_tpu/ops/pallas_record.py``, for the DC, synchronous,
-induction, EESM and DFIM families so far).
+``gym_electric_motor_tpu/ops/pallas_record.py``, for all six families:
+DC, synchronous, induction, EESM, DFIM and SRM).
 
 ``make_fused_record_rollout(env, T, N)`` returns ``rollout(seed, *state0)
 -> dict`` mapping signal names (the family's state names, ``ref_*``,
@@ -17,9 +17,11 @@ of per-step states.  The kernels are ``dc_record_random`` and
 ``eesm_record_buffer`` of ``csrc/fused_eesm_record.cu`` (see
 ``ops/fused_eesm_family.py``) and ``dfim_record_random`` and
 ``dfim_record_buffer`` of ``csrc/fused_dfim_record.cu`` (see
-``ops/fused_dfim_family.py``); the TPU recorder's chunk grid and per-chunk
+``ops/fused_dfim_family.py``) and ``srm_record_random`` and
+``srm_record_buffer`` of ``csrc/fused_srm_record.cu`` (see
+``ops/fused_srm_family.py``); the TPU recorder's chunk grid and per-chunk
 reseed (pallas_record.py:206-211) are TPU-only, so there is no ``chunk``
-argument.  The SRM family raises until its kernels are ported.
+argument.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from . import fused_dc_family as dcf
 from . import fused_dfim_family as dff
 from . import fused_eesm_family as ef
 from . import fused_induction_family as indf
+from . import fused_srm_family as srf
 from . import fused_sync_family as sf
 from .fused_common import LANE, check_rollout_inputs
 from .fused_rollout import family_of
@@ -40,6 +43,7 @@ _FAMILIES = {
                   indf.induction_record_buffer),
     "eesm": (ef.EesmConsts, ef.eesm_record_random, ef.eesm_record_buffer),
     "dfim": (dff.DfimConsts, dff.dfim_record_random, dff.dfim_record_buffer),
+    "srm": (srf.SrmConsts, srf.srm_record_random, srf.srm_record_buffer),
 }
 
 

@@ -4,10 +4,10 @@
 ``make_fused_rollout`` routes an env to its family's universal builder:
 the DC family (the 24 PermExDc, SeriesDc, ShuntDc and ExtExDc ids), the
 synchronous family (the twelve PMSM / SynRM ids), the induction family (the
-six SCIM ids), the EESM family (the six EESM ids) and the DFIM family (the
-six DFIM ids) so far; the SRM family raises ``NotImplementedError`` naming
-the queue-2 item that brings its kernels.  The sharded ``make_sharded_fused_rollout`` and the universal
-policy recorder come with later slices of the port.
+six SCIM ids), the EESM family (the six EESM ids), the DFIM family (the six
+DFIM ids) and the SRM family (the six SRM ids).  The sharded
+``make_sharded_fused_rollout`` and the universal policy recorder come with
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from .fused_sync import (  # noqa: F401
     make_fused_pmsm_rollout,
     reset_launches,
 )
+from .fused_srm_family import make_fused_srm_rollout
 from .fused_sync_family import make_fused_sync_rollout
 
 FUSED_FAMILY_BUILDERS = {
@@ -44,16 +45,15 @@ FUSED_FAMILY_BUILDERS = {
 PORTED_FAMILIES = {"dc": make_fused_dc_rollout, "sync": make_fused_sync_rollout,
                    "induction": make_fused_induction_rollout,
                    "eesm": make_fused_eesm_family_rollout,
-                   "dfim": make_fused_dfim_family_rollout}
+                   "dfim": make_fused_dfim_family_rollout, "srm": make_fused_srm_rollout}
 
-# the queue-2 item of the port that brings each family's universal kernels
-_FAMILY_ITEM = {"srm": 23}
 # state planes of each motor (pallas_rollout.py:144-146), before the speed;
 # the EESM's are i_sd, i_sq, i_e and the angle eps, the DFIM's i_sa, i_sb,
 # psi_ra, psi_rb and the angle eps (unlike the SCIM's, a kernel state: it
-# turns the rotor voltages into the stator frame)
+# turns the rotor voltages into the stator frame), the SRM's i_a, i_b, i_c
+# and the angle eps
 _BASE_ARITY = {"PermExDc": 1, "SeriesDc": 1, "ShuntDc": 2, "ExtExDc": 2, "PMSM": 3, "SynRM": 3,
-               "SCIM": 4, "EESM": 4, "DFIM": 5}
+               "SCIM": 4, "EESM": 4, "DFIM": 5, "SRM": 4}
 
 
 def _system(env):
@@ -64,21 +64,15 @@ def _system(env):
 
 
 def family_of(env):
-    """The env's family, raising ``NotImplementedError`` for a family whose
-    kernels are not ported yet."""
-    family = FUSED_FAMILY_BUILDERS[_system(env).motor.kind]
-    if family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {family} family's fused kernels are not ported yet; they arrive with "
-            f"queue 2, item {_FAMILY_ITEM[family]} of the port")
-    return family
+    """The env's family (a key of ``PORTED_FAMILIES``)."""
+    return FUSED_FAMILY_BUILDERS[_system(env).motor.kind]
 
 
 def fused_state_arity(env):
     """Number of ``(R, LANE)`` state planes the universal fused rollout for
     ``env`` takes and returns (``pallas_rollout.py:135-158``): the motor's
-    (PermExDc and SeriesDc 1, ShuntDc and ExtExDc 2, PMSM and SynRM 3, SCIM
-    and EESM 4, DFIM 5), plus omega first under a dynamic-speed load.  The supply, randomized-parameter
+    (PermExDc and SeriesDc 1, ShuntDc and ExtExDc 2, PMSM and SynRM 3, SCIM,
+    EESM and SRM 4, DFIM 5), plus omega first under a dynamic-speed load.  The supply, randomized-parameter
     and flux-observer planes come with their kernels."""
     family_of(env)
     ps = _system(env)
@@ -89,9 +83,9 @@ def make_fused_rollout(env, n_steps, n_envs, action_mode="random", randomize=Non
     """Universal fused-rollout dispatch (``pallas_rollout.py:161-192``):
     returns the family rollout (see ``make_fused_dc_rollout``,
     ``make_fused_sync_rollout``, ``make_fused_induction_rollout``,
-    ``make_fused_eesm_family_rollout`` and ``make_fused_dfim_family_rollout``
-    for the signatures); the number of state
+    ``make_fused_eesm_family_rollout``, ``make_fused_dfim_family_rollout``
+    and ``make_fused_srm_rollout`` for the signatures); the number of state
     planes is ``fused_state_arity(env)``.  Raises ``NotImplementedError``
-    for the families and options not ported yet."""
+    for the options not ported yet."""
     return PORTED_FAMILIES[family_of(env)](env, n_steps, n_envs, action_mode=action_mode,
                                            randomize=randomize)

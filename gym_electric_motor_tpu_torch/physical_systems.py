@@ -13,12 +13,12 @@ The DC system (PermExDc, SeriesDc, ShuntDc, ExtExDc with the 1QC, 2QC,
 4QC or dual-4QC multi converter) is ``SCMLSystem`` itself; the synchronous
 system (PMSM, SynRM) and the squirrel-cage induction system (SCIM), each on
 a finite or continuous B6 bridge, the externally excited synchronous
-system (EESM, a B6 bridge beside a 4QC for the excitation) and the doubly
+system (EESM, a B6 bridge beside a 4QC for the excitation), the doubly
 fed induction system (DFIM, a B6 bridge on the stator and one on the
-rotor) subclass it, as in the JAX package.  All take an ideal supply and a
+rotor) and the switched reluctance system (SRM, on an asymmetric bridge)
+subclass it, as in the JAX package.  All take an ideal supply and a
 constant-speed or polynomial static load; with zero interlocking time the
-converter schedule is a single sub-interval per control cycle.  The SRM
-family comes with the last step of queue 1, slice 3 of the port.
+converter schedule is a single sub-interval per control cycle.
 """
 
 from __future__ import annotations
@@ -280,11 +280,15 @@ class SCMLSystem:
         motor_state, mech_state, u_sup, sup_state = self._reset_parts(u, n, device)
         u_in = torch.tensor(self.converter.u_reset, dtype=self.dtype, device=device) * u_sup[:, 0:1]
         torque = self.motor.torque(self.mp, motor_state)
-        currents = motor_state[:, : len(self.motor.currents)]
-        system_state = torch.cat([mech_state, torque[:, None], currents, u_in, u_sup], dim=1)
+        system_state = self._assemble_reset(mech_state, torque, motor_state, u_in, u_sup)
         ps = self._physics_state(torch.cat([mech_state, motor_state], dim=1),
                                  self.converter.init_state(n, device), sup_state, n, device)
         return ps, system_state / self.limits_tensor(device)
+
+    def _assemble_reset(self, mech_state, torque, motor_state, u_in, u_sup):
+        """The system state after a reset, before the limits divide it."""
+        currents = motor_state[:, : len(self.motor.currents)]
+        return torch.cat([mech_state, torque[:, None], currents, u_in, u_sup], dim=1)
 
     def simulate(self, ps: PhysicsState, action, noise=None):
         """One control period (physical_systems.py:375-427 of the JAX
@@ -309,6 +313,63 @@ class SCMLSystem:
 class DcMotorSystem(SCMLSystem):
     """PermExDc, SeriesDc, ShuntDc and ExtExDc drive trains
     (physical_systems.py:290-318 of the reference)."""
+
+
+@dataclasses.dataclass
+class SRMSystem(SCMLSystem):
+    """Switched reluctance drive train (``SRMSystem`` of the JAX package's
+    physical_systems.py:441-529, an extension: the reference stubs the SRM).
+    ODE state ``[omega, i_a, i_b, i_c, epsilon]`` with the sinusoidal
+    inductance model; the asymmetric bridge applies {0, +u_sup, -u_sup} per
+    phase.  After each control period the phase currents clamp at zero
+    (ideal freewheel diodes; the clamp is not applied inside the RK4
+    stages) and epsilon wraps to [-pi, pi), unlike the [0, 2 pi) of the
+    other families.  A finite action is ``(N, 3)``, a continuous one
+    ``(N, 3)`` duties."""
+
+    def _build_state_names(self):
+        return list(self.load.state_names) + [
+            "torque", "i_a", "i_b", "i_c", "u_a", "u_b", "u_c", "epsilon",
+        ] + self._u_sup_names()
+
+    def _build_state_space(self):
+        low = -np.ones(len(self.state_names))
+        high = np.ones(len(self.state_names))
+        for name in ("i_a", "i_b", "i_c"):  # unipolar phase currents
+            low[self.state_positions[name]] = 0.0
+        for j in self._u_sup_indices():
+            low[j] = 0.0
+        self.state_space_low = low
+        self.state_space_high = high
+
+    @property
+    def eps_idx(self):
+        return self.n_mech + 3
+
+    def _assemble_reset(self, mech_state, torque, motor_state, u_in, u_sup):
+        return torch.cat([mech_state, torque[:, None], motor_state[:, :3], u_in,
+                          motor_state[:, 3:4], u_sup], dim=1)
+
+    def simulate(self, ps: PhysicsState, action, noise=None):
+        """The base period, then the clamp of the phase currents at zero,
+        the wrap of epsilon and the torque of the clamped state."""
+        ode = ps.ode_state
+        i_in = self.motor.i_in(self.mp, ode[:, self.motor_slice])
+        i_sup = self.converter.i_sup(ps.conv_state, action, i_in)
+        u_sup, sup_state = self.supply.get_voltage(self.sp, ps.sup_state, ps.t, i_sup)
+        u_in = self.converter.u_frac(ps.conv_state, action, i_in) * u_sup[:, 0:1]
+        ode = self.integrate(self._rhs, ode, ps.t, self.tau, u_in, noise)
+        i_clamped = ode[:, self.n_mech:self.n_mech + 3]
+        i_clamped = torch.where(i_clamped < 0.0, torch.zeros_like(i_clamped), i_clamped)
+        eps = ode[:, self.eps_idx]
+        eps = eps - TWO_PI * torch.floor((eps + math.pi) / TWO_PI)
+        ode = torch.cat([ode[:, : self.n_mech], i_clamped, eps[:, None]], dim=1)
+        torque = self.motor.torque(self.mp, ode[:, self.motor_slice])
+        system_state = torch.cat([ode[:, : self.n_mech], torque[:, None], i_clamped, u_in,
+                                  eps[:, None], u_sup], dim=1)
+        new_ps = PhysicsState(ode_state=ode, conv_state=ps.conv_state, sup_state=sup_state,
+                              t=ps.t + self.tau, k=ps.k + 1)
+        return new_ps, system_state / self.limits_tensor(ode.device)
 
 
 @dataclasses.dataclass

@@ -329,3 +329,54 @@ def test_cuda_dfim_kernels_match_plain_versions(env_id):
         assert ok.all() if buffer else ok.mean() >= 0.99
     torch.cuda.synchronize()
     assert all(v == 1 for v in dff.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,psi_s", [("Finite-CC-SRM-v0", None), ("Cont-SC-SRM-v0", None),
+                                          ("Finite-TC-SRM-v0", 1.2), ("Cont-SC-SRM-v0", 1.2)],
+                         ids=["Finite-CC-SRM-v0", "Cont-SC-SRM-v0", "Finite-TC-SRM-v0-psi_s",
+                              "Cont-SC-SRM-v0-psi_s"])
+def test_cuda_srm_kernels_match_plain_versions(env_id, psi_s):
+    """The universal SRM kernels (csrc/fused_srm.cu, fused_srm_record.cu),
+    linear and saturating, on a constant-speed finite CC id (three
+    references, the carried rotation), a constant-speed finite TC id (the
+    torque reward at the wrapped angle) and a dynamic-speed continuous one
+    (the per-stage angles): the buffer modes in every env, the random modes
+    in 99% of envs, at rtol 1e-4 / atol 1e-4 (the angle modulo 2 pi).  Some
+    starts lie past the 20 A limit, so the random modes cross resets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf
+
+    dev = torch.device("cuda")
+    kw = dict(motor=dict(motor_parameter={"psi_s": psi_s})) if psi_s else {}
+    c = srf.SrmConsts(gt.make_functional(env_id, device=dev, **kw))
+    assert c.sat == (psi_s is not None)
+    R, T = 4, 64
+    rng = np.random.default_rng(15)
+    bounds = ([(0, 100)] if c.mech else []) + [(0, 22)] * 3 + [(-np.pi, np.pi)]
+    start = [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+             for lo, hi in bounds]
+    if c.finite:
+        acts = torch.as_tensor(rng.integers(0, 3, (T, 3, R, 128)).astype(np.int32), device=dev)
+    else:
+        acts = torch.as_tensor(rng.uniform(-1, 1, (T, 3, R, 128)).astype(np.float32), device=dev)
+    srf.reset_launches()
+    for kern, plain, args in [
+        (srf.srm_rollout_buffer, srf.srm_rollout_buffer_plain, (start, acts)),
+        (srf.srm_record_buffer, srf.srm_record_buffer_plain, (start, acts)),
+        (srf.srm_rollout_random, srf.srm_rollout_random_plain, (5, start, T)),
+        (srf.srm_record_random, srf.srm_record_random_plain, (5, start, T)),
+    ]:
+        got, want = kern(c, *args), plain(c, *args)
+        ok = np.ones(R * 128, bool)
+        for j, (g, w) in enumerate(zip(got, want)):
+            g, w = g.cpu().double().numpy(), w.cpu().double().numpy()
+            d = np.abs(g - w)
+            if j == c.n_state - 1:  # the angle
+                d = np.minimum(np.remainder(g - w, 2 * np.pi), np.remainder(w - g, 2 * np.pi))
+            ok &= (d <= 1e-4 + 1e-4 * np.abs(w)).reshape(-1, R * 128).all(axis=0)
+        buffer = kern in (srf.srm_rollout_buffer, srf.srm_record_buffer)
+        assert ok.all() if buffer else ok.mean() >= 0.99
+    torch.cuda.synchronize()
+    assert all(v == 1 for v in srf.LAUNCHES.values())

@@ -23,7 +23,6 @@ dispatch ``make_fused_rollout``, plain PyTorch versions on the CPU) and its
   and a mid-episode JAX state carried over by ``state_from_numpy``.
 """
 
-import types
 
 import jax
 import jax.numpy as jnp
@@ -257,14 +256,6 @@ def test_fused_state_arity_matches_jax_all_ids(env_id):
     assert fr.fused_state_arity(tenv) == jax_arity(gemx.make_functional(env_id))
     if env_id in gt.DC_ENV_IDS:
         assert dcf.DcConsts(tenv).n_state == fr.fused_state_arity(tenv)
-
-
-@pytest.mark.parametrize("motor", ["SRM"])
-def test_dispatch_raises_for_unported_families(motor):
-    env = types.SimpleNamespace(physical_system=types.SimpleNamespace(
-        motor=types.SimpleNamespace(kind=motor)))
-    with pytest.raises(NotImplementedError, match="queue 2, item"):
-        fr.make_fused_rollout(env, 8, 128)
 
 
 class _Wrapper:

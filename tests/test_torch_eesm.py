@@ -20,7 +20,8 @@ ids against the JAX package, and the catalog's converter overrides.
   factory, as the JAX catalog does (catalog.py:256-260), and a multi
   converter keeps its default.
 * Every EESM option the port does not simulate raises, naming its queue
-  item; ``make`` serves the six ids, 54 in all (with the DFIM's).
+  item; ``make`` serves the six ids, 60 in all (with the DFIM's and the
+  SRM's).
 """
 
 import jax
@@ -240,8 +241,8 @@ def test_unported_options_raise(option):
 @pytest.mark.parametrize("env_id", gt.EESM_ENV_IDS)
 def test_make_steps_each_eesm_id(env_id):
     """``make`` serves the id at 256 envs on the CPU: reset, a few random
-    steps, finite states and rewards; the catalog now holds 54 ids."""
-    assert len(gt.ENV_IDS) == 54 and env_id in gt.ENV_IDS
+    steps, finite states and rewards; the catalog now holds 60 ids."""
+    assert len(gt.ENV_IDS) == 60 and env_id in gt.ENV_IDS
     venv = gt.make(env_id, n_envs=256, device="cpu")
     state, obs = venv.reset(3)
     assert obs[0].shape == (256, len(venv.env.state_names))

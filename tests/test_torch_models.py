@@ -1,5 +1,5 @@
-"""The port's PMSM / SynRM models, B6 converter and assembled system
-against the JAX package.
+"""The port's PMSM / SynRM models (and the SRM's ODE and torque), B6
+converter and assembled system against the JAX package.
 
 Inputs are drawn with numpy from fixed seeds and go through both packages
 on the CPU.  ODE and torque: rtol 1e-6 / atol 1e-3 (A/s, N m): both
@@ -27,7 +27,8 @@ from gym_electric_motor_tpu_torch.models import motors as tmt
 
 torch.set_num_threads(1)
 
-MOTORS = [("pmsm", "pmsm_ode", "pmsm_torque"), ("synrm", "synrm_ode", "synrm_torque")]
+MOTORS = [("pmsm", "pmsm_ode", "pmsm_torque"), ("synrm", "synrm_ode", "synrm_torque"),
+          ("switched_reluctance_motor", "srm_ode", "srm_torque")]
 
 
 def _batch(seed, n=64):
@@ -39,10 +40,21 @@ def _batch(seed, n=64):
     return state, u_dq, omega
 
 
+def _srm_batch(seed, n=64):
+    """Unipolar phase currents up to 20 A, the angle in [-pi, pi), three
+    phase voltages and a speed."""
+    rng = np.random.default_rng(seed)
+    state = np.concatenate([rng.uniform(0, 20, (n, 3)), rng.uniform(-np.pi, np.pi, (n, 1))],
+                           axis=1).astype(np.float32)
+    u_abc = rng.uniform(-400, 400, (n, 3)).astype(np.float32)
+    omega = rng.uniform(-400, 400, n).astype(np.float32)
+    return state, u_abc, omega
+
+
 @pytest.mark.parametrize("factory,ode,torque", MOTORS)
 def test_ode_and_torque_match_jax(factory, ode, torque):
     jspec, tspec = getattr(jmt, factory)(), getattr(tmt, factory)()
-    state, u_dq, omega = _batch(len(factory))
+    state, u_dq, omega = (_srm_batch if ode == "srm_ode" else _batch)(len(factory))
     jmp = jspec.mp()
     want_d = np.stack([np.asarray(getattr(jmt, ode)(jmp, jnp.asarray(s), jnp.asarray(u), jnp.asarray(w)))
                        for s, u, w in zip(state, u_dq, omega)])
@@ -55,7 +67,7 @@ def test_ode_and_torque_match_jax(factory, ode, torque):
 
 
 @pytest.mark.parametrize("factory", ["pmsm", "synrm", "permex_dc", "series_dc", "shunt_dc",
-                                     "extex_dc"])
+                                     "extex_dc", "switched_reluctance_motor"])
 @pytest.mark.parametrize("field", ["parameter", "limits", "nominal", "initializer",
                                    "ode_states", "currents", "voltages"])
 def test_motor_spec_matches_jax(factory, field):
@@ -141,13 +153,6 @@ def test_system_layout_matches_jax(env_id):
     np.testing.assert_array_equal(tenv.observation_space[1].low, jenv.observation_space[1].low)
     assert tenv.reward_function._violation_value == jenv.reward_function._violation_value
     np.testing.assert_array_equal(tenv.reward_function._weights, jenv.reward_function._weights)
-
-
-@pytest.mark.parametrize("env_id,slice_no", [("Cont-CC-SRM-v0", 3), ("Finite-TC-SRM-v0", 3),
-                                             ("Finite-CC-SRM-v0", 3)])
-def test_unported_ids_raise(env_id, slice_no):
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        gt.make_functional(env_id, device="cpu")
 
 
 def test_port_imports_without_jax():

@@ -18,8 +18,8 @@ against the JAX package.
   for env against kernel, tests/test_pallas_families.py:70-72), reward at
   rtol 1e-4 / atol 1e-5, termination exactly.
 * Every SCIM option the port does not simulate raises, naming its queue
-  item; ``make`` serves the six ids (54 ids in all, with the EESM's and
-  the DFIM's).
+  item; ``make`` serves the six ids (60 ids in all, with the EESM's,
+  the DFIM's and the SRM's).
 """
 
 import jax
@@ -245,8 +245,8 @@ def test_unported_options_raise(option):
 @pytest.mark.parametrize("env_id", gt.SCIM_ENV_IDS)
 def test_make_steps_each_scim_id(env_id):
     """``make`` serves the id at 256 envs on the CPU: reset, a few random
-    steps, finite states and rewards; the catalog now holds 54 ids."""
-    assert len(gt.ENV_IDS) == 54 and env_id in gt.ENV_IDS
+    steps, finite states and rewards; the catalog now holds 60 ids."""
+    assert len(gt.ENV_IDS) == 60 and env_id in gt.ENV_IDS
     venv = gt.make(env_id, n_envs=256, device="cpu")
     state, obs = venv.reset(3)
     assert obs[0].shape == (256, len(venv.env.state_names))

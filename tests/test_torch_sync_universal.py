@@ -23,7 +23,6 @@ and its twelve env ids against the JAX package.
 * The dispatch and every option the port does not fuse yet.
 """
 
-import types
 
 import jax
 import jax.numpy as jnp
@@ -235,16 +234,6 @@ def test_fused_state_arity_matches_jax(env_id):
     tenv = gt.make_functional(env_id, device="cpu")
     assert fr.fused_state_arity(tenv) == jax_arity(gemx.make_functional(env_id))
     assert sf.SyncConsts(tenv).n_state == fr.fused_state_arity(tenv)
-
-
-@pytest.mark.parametrize("motor", ["SRM"])
-def test_dispatch_raises_for_other_families(motor):
-    env = types.SimpleNamespace(physical_system=types.SimpleNamespace(
-        motor=types.SimpleNamespace(kind=motor)))
-    with pytest.raises(NotImplementedError, match="queue 2, item"):
-        fr.make_fused_rollout(env, 8, 128)
-    with pytest.raises(NotImplementedError, match="family arrives with its step of queue 1, slice 3"):
-        gt.make_functional(f"Finite-CC-{motor}-v0", device="cpu")
 
 
 class _Wrapper:

@@ -292,6 +292,21 @@ STEP_INSTANCES = {
         "dfim_record_buffer": "dfim_record_buffer_kernelILb0ELb1E",
         "dfim_record_random/Cont-CC-DFIM-v0": "dfim_record_random_kernelILb0ELb0ELi2E",
     },
+    # <FINITE, MECH, NREF, SAT> (<FINITE, MECH, SAT> for the buffer kernels),
+    # linear: Cont-SC-SRM-v0 (0, 1, 1, 0) for each kernel, and
+    # Finite-CC-SRM-v0 (1, 0, 3, 0) and Finite-TC-SRM-v0 (1, 0, 1, 0) for the
+    # random ones
+    "fused_srm": {
+        "srm_rollout_random": "srm_rollout_random_kernelILb0ELb1ELi1ELb0E",
+        "srm_rollout_buffer": "srm_rollout_buffer_kernelILb0ELb1ELb0E",
+        "srm_rollout_random/Finite-CC-SRM-v0": "srm_rollout_random_kernelILb1ELb0ELi3ELb0E",
+        "srm_rollout_random/Finite-TC-SRM-v0": "srm_rollout_random_kernelILb1ELb0ELi1ELb0E",
+    },
+    "fused_srm_record": {
+        "srm_record_random": "srm_record_random_kernelILb0ELb1ELi1ELb0E",
+        "srm_record_buffer": "srm_record_buffer_kernelILb0ELb1ELb0E",
+        "srm_record_random/Finite-CC-SRM-v0": "srm_record_random_kernelILb1ELb0ELi3ELb0E",
+    },
 }
 
 
