@@ -47,7 +47,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 13. sync_kernels  slice 3, the universal synchronous family
             (csrc/fused_sync.cu): for each of the 12 {Finite, Cont} x
             {CC, TC, SC} x {PMSM, SynRM} ids, each of the 4 kernels against
-            its plain version at 16384 envs x 128 steps (timed on
+            its plain version at 16384 envs x 64 steps (timed on
             Cont-SC-PMSM-v0, the instance the bounds count); the two
             random kernels again at the recorder's main-path 1024 steps
             on Finite-CC-PMSM-v0 and Cont-SC-PMSM-v0
@@ -74,7 +74,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 18. dc_kernels  slice 4, the universal DC family (csrc/fused_dc.cu,
             csrc/fused_dc_record.cu): for each of the 24 {Finite, Cont} x
             {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc} ids, each
-            of the 4 kernels against its plain version at 16384 envs x 128
+            of the 4 kernels against its plain version at 16384 envs x 64
             steps (timed on Cont-SC-ShuntDc-v0, the instance the bounds
             count); the two random kernels again at 1024 steps on
             Finite-CC-PermExDc-v0 and Cont-SC-ShuntDc-v0
@@ -98,7 +98,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 22. induction_kernels  slice 5, the universal induction family
             (csrc/fused_induction.cu, csrc/fused_induction_record.cu): for
             each of the 6 {Finite, Cont} x {CC, TC, SC} SCIM ids, each of
-            the 4 kernels against its plain version at 16384 envs x 128
+            the 4 kernels against its plain version at 16384 envs x 64
             steps (timed on Cont-SC-SCIM-v0, the instance the bounds count);
             the two random kernels again at 1024 steps on Finite-CC-SCIM-v0
             and Cont-SC-SCIM-v0
@@ -123,7 +123,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 26. eesm_kernels  slice 6, the universal EESM family (csrc/fused_eesm.cu,
             csrc/fused_eesm_record.cu): for each of the 6 {Finite, Cont} x
             {CC, TC, SC} EESM ids (three references on the CC ids), each of
-            the 4 kernels against its plain version at 16384 envs x 128
+            the 4 kernels against its plain version at 16384 envs x 64
             steps (timed on Cont-SC-EESM-v0, the instance the bounds count);
             the two random kernels again at 1024 steps on Finite-CC-EESM-v0
             and Cont-SC-EESM-v0
@@ -149,7 +149,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 30. dfim_kernels  slice 7, the universal DFIM family (csrc/fused_dfim.cu,
             csrc/fused_dfim_record.cu): for each of the 6 {Finite, Cont} x
             {CC, TC, SC} DFIM ids, each of the 4 kernels against its plain
-            version at 16384 envs x 128 steps (timed on Cont-SC-DFIM-v0,
+            version at 16384 envs x 64 steps (timed on Cont-SC-DFIM-v0,
             the instance the bounds count); the two random kernels again at
             1024 steps on Cont-CC-DFIM-v0 and Cont-SC-DFIM-v0
 31.-33. the slice-7 main path, counted from zero:
@@ -175,7 +175,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 34. srm_kernels  slice 8, the universal SRM family (csrc/fused_srm.cu,
             csrc/fused_srm_record.cu): for each of the 6 {Finite, Cont} x
             {CC, TC, SC} SRM ids (three references on the CC ids), each of
-            the 4 kernels against its plain version at 16384 envs x 128
+            the 4 kernels against its plain version at 16384 envs x 64
             steps (timed on Cont-SC-SRM-v0, the instance the bounds count),
             the start currents in [0, 22) A (the limit is 20 A); the two
             random kernels again at 1024 steps on Finite-CC-SRM-v0 and
@@ -205,12 +205,43 @@ Phases (each prints one JSON line; any failure exits non-zero):
             (VectorEnv.rollout, the random policy of the action space) on
             Cont-SC-SRM-v0 at 200 steps; the launches of phases 35-37 must
             be exactly what they make
-38. kernels line (all 32 kernels; a policy kernel's launches are the sum
+38. policy_universal_kernels  slice 9, the universal policy recorder
+            (csrc/fused_<family>_policy.cu, one kernel per family): on each
+            of the 60 ids at PPO's width (2048 envs x 64 steps, H 32), and
+            with joint heads on Finite-CC-{ExtExDc,EESM,DFIM,SRM}-v0, the
+            kernel against its plain version (the random-mode rule; timed on
+            each family's row id); again at 16384 envs x 256 steps on one id
+            per family; and on every id and the four joint heads at the
+            main path's own shape and width (phase 41: 1024 envs x 32
+            steps, H 16), so that a kernel wrong at another H than 32 fails
+39. policy_universal_replay  the recorded actions (a continuous id's
+            squashed duties) through the buffer recorder on Finite- and
+            Cont-CC-{PermExDc,DFIM}-v0 (2048 envs x 32 steps, zero biases):
+            the states up to each env's first reset within rtol 1e-4 /
+            atol 2e-3, angles modulo 2 pi
+40. policy_universal_alignment  on one id per family, the observation
+            rebuilt by policy_obs_host and the recorded actions give
+            |E[log pi(a|s)] + E[H]| < 0.03 (categorical or Gaussian)
+41. the slice-9 main path, its launches counted from zero, with no
+    plain-version call: make_fused_ppo_trainer(env) ('auto') trains one
+    iteration on every id (1024 envs x 32 steps, H 16), one launch of the
+    family's kernel each; tools/torch_ppo_learn.py's two universal
+    learning checks (tools/tpu_validate.py:303-365, limits unchanged:
+    Finite-CC-PermExDc-v0 200 iterations, Cont-CC-PermExDc-v0 300) and 10
+    timed iterations each (collection and update, CUDA events); 'auto' on
+    Finite-CC-PMSM-v0 with the RL state filter launches policy_record
+42. policy_universal_timings  the recorder at PPO's shape (2048 x 256) and
+    at 16384 x 1024, H 32, on Finite-CC-PermExDc-v0, Cont-CC-PermExDc-v0,
+    Finite-CC-DFIM-v0 (factorised and joint) and Cont-SC-SRM-v0, each with
+    its bound and reset share; on Finite-CC-PMSM-v0 beside policy_record
+    in the same call
+43. kernels line (all 38 kernels; a policy kernel's launches are the sum
     over the paths of phases 9-11, listed by path; a sync kernel's those of
     phases 14-16, a DC kernel's those of phases 19-21, an induction
     kernel's those of phases 23-25, an EESM kernel's those of phases
     27-29, a DFIM kernel's those of phases 31-33, an SRM kernel's those of
-    phases 35-37), the card line, then {"ok": true, "device": {...}}
+    phases 35-37, a universal policy kernel's those of phase 41), the card
+    line, then {"ok": true, "device": {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
 largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
@@ -234,6 +265,8 @@ They leave out the blocks a step runs only sometimes (reference
 regeneration, the reset draws of a violation, the slow paths of sqrtf and
 sincosf), so each bound is a lower bound; the build phase prints both
 counts.  REINFORCE's bound counts its FP32 and XU pipes only (BOUND_PIPES).
+The universal policy recorders' hidden-unit loop runs H times a step: their
+bound adds its count (tools/sass_ops.py's @inner) H times.
 """
 
 from __future__ import annotations
@@ -267,7 +300,9 @@ PPO = dict(hidden=H_PPO, horizon=256, n_envs=2048, n_minibatches=8, n_epochs=2, 
 PPO_WARMUP, PPO_ITERS = 2, 20
 LEARN_ITERS = 1200      # tools/torch_ppo_learn.py, tools/tpu_validate.py:270-300
 # slice 3: the twelve synchronous-family ids
-T_SYNC_COMPARE = 128
+# each family kernel against its plain version on every id; cut from 128 for the script's
+# time (every id is still checked, and drift shows in the 1024-step deep checks)
+T_SYNC_COMPARE = 64
 T_SYNC_ENV = 40
 T_DISPATCH = 200
 T_SYNC_GENERAL = 200
@@ -305,6 +340,34 @@ SRM_SAT = dict(motor=dict(motor_parameter={"psi_s": 1.2}))  # tests/test_srm.py:
 SRM_SAT_IDS = ("Finite-TC-SRM-v0", "Cont-SC-SRM-v0")
 SRM_CONST_REFS = {"CC": [("i_a", 0.2), ("i_b", 0.3), ("i_c", 0.1)], "TC": [("torque", 0.3)],
                   "SC": [("omega", 0.2)]}
+# slice 9: the universal policy recorder (csrc/fused_<family>_policy.cu)
+PU_COMPARE = (2048, 64)       # every id against the plain version, at PPO's width
+PU_DEEP = (16384, 256)        # one id per family again, deeper
+PU_REPLAY = (2048, 32)        # the buffer replay (tests/test_fused_policy_universal.py:205-236)
+PU_JOINT_IDS = ("Finite-CC-ExtExDc-v0", "Finite-CC-EESM-v0", "Finite-CC-DFIM-v0",
+                "Finite-CC-SRM-v0")
+# each family's id: deep compare, alignment, its kernel row (STEP_INSTANCES counts it)
+PU_ROW_IDS = {"sync": "Finite-CC-PMSM-v0", "dc": "Finite-CC-PermExDc-v0",
+              "induction": "Finite-CC-SCIM-v0", "eesm": "Finite-CC-EESM-v0",
+              "dfim": "Finite-CC-DFIM-v0", "srm": "Cont-SC-SRM-v0"}
+PU_DEEP_IDS = ("Finite-CC-PMSM-v0", "Cont-CC-PermExDc-v0", "Finite-CC-SCIM-v0",
+               "Cont-SC-EESM-v0", "Finite-CC-DFIM-v0", "Cont-SC-SRM-v0")
+PU_ALIGN_IDS = ("Finite-CC-PMSM-v0", "Cont-CC-PermExDc-v0", "Finite-CC-SCIM-v0",
+                "Cont-SC-EESM-v0", "Finite-CC-DFIM-v0", "Cont-TC-SRM-v0")
+PU_REPLAY_IDS = ("Finite-CC-PermExDc-v0", "Finite-CC-DFIM-v0", "Cont-CC-PermExDc-v0",
+                 "Cont-CC-DFIM-v0")
+# (id, joint heads, the STEP_INSTANCES key of its instance)
+PU_TIMED = (("Finite-CC-PermExDc-v0", False, "dc_policy_record"),
+            ("Cont-CC-PermExDc-v0", False, "dc_policy_record/Cont-CC-PermExDc-v0"),
+            ("Finite-CC-DFIM-v0", False, "dfim_policy_record"),
+            ("Finite-CC-DFIM-v0", True, "dfim_policy_record/joint"),
+            ("Cont-SC-SRM-v0", False, "srm_policy_record"))
+PU_TIMED_SHAPES = ((2048, 256), (16384, 1024))
+PU_MAIN = (1024, 32)          # the main path's per-id PPO shape (phase 41), also compared
+H_PU_MAIN = 16                # its hidden width: the trainer's default
+PU_ALL_IDS_PPO = dict(horizon=PU_MAIN[1], n_envs=PU_MAIN[0], n_minibatches=4,
+                      hidden=H_PU_MAIN)   # one iteration per id
+PU_SPLIT_ITERS = 10           # timed PPO iterations (collection and update) per learning id
 # The pipes a kernel's bound counts, where not all.  Most of REINFORCE's ALU
 # and IMAD instructions are the 64-bit arithmetic of its 2 P trace
 # addresses, recomputed each step (opaque64 in csrc/policy_step.cuh keeps
@@ -423,7 +486,9 @@ def run(dev, card):
     libs = cuda_build.build(["fused_pmsm", "fused_policy", "fused_sync", "fused_dc",
                              "fused_dc_record", "fused_induction", "fused_induction_record",
                              "fused_eesm", "fused_eesm_record", "fused_dfim",
-                             "fused_dfim_record", "fused_srm", "fused_srm_record"])
+                             "fused_dfim_record", "fused_srm", "fused_srm_record",
+                             "fused_sync_policy", "fused_dc_policy", "fused_induction_policy",
+                             "fused_eesm_policy", "fused_dfim_policy", "fused_srm_policy"])
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
                     for ln in cuda_build.BUILD_LOG.get(name, "").splitlines()
@@ -434,10 +499,13 @@ def run(dev, card):
         c = sass_ops.step_ops(libs[lib], list(instances.values()))
         counts.update(c)
         ops.update({k: c[v]["always"] for k, v in instances.items()})
+        # the policy recorders' hidden-unit loop, per hidden unit
+        ops.update({k + "/inner": c[v]["inner"]["always"] for k, v in instances.items()
+                    if "inner" in c[v]})
     emit({"phase": "build", "seconds": build_s, "nvcc_seconds": cuda_build.BUILD_LOG.get("seconds"),
           "ptxas": ptxas,
-          "ops_per_step": {k: {"always": v["always"], "conditional": v["conditional"]}
-                           for k, v in counts.items()}})
+          "ops_per_step": {k: {key: v[key] for key in ("always", "conditional", "inner")
+                               if key in v} for k, v in counts.items()}})
 
     R = N_ENVS // 128
     env = gt.make_functional("Finite-CC-PMSM-v0", device=dev)
@@ -1954,6 +2022,340 @@ def run_srm(dev, card, ops):
         {name: timings[SRM_TIMED][name] for name in ("srm_rollout_random", "srm_record_random")})
 
 
+def pu_weights(torch, rng, pol, hidden, dev):
+    """Flat (w1, b1, w2, b2) of the universal recorder drawn from numpy:
+    N(0, 0.5^2) weights (0.3 for a continuous env) and N(0, 0.1^2) biases;
+    and log-stds -0.5 for a continuous env (None for a finite one)."""
+    import numpy as np
+
+    scale = 0.3 if pol.cont else 0.5
+    sizes = ((pol.obs_dim * hidden, scale), (hidden, 0.1), (hidden * pol.n_out, scale),
+             (pol.n_out, 0.1))
+    w = [torch.as_tensor((rng.normal(size=n) * sc).astype(np.float32), device=dev)
+         for n, sc in sizes]
+    ls = (torch.full((len(pol.consts.act_names),), -0.5, device=dev) if pol.cont else None)
+    return w, ls
+
+
+def pu_bytes(pol, n, steps, hidden):
+    """Bytes the universal recorder must move: the state planes and the
+    weights read once, every recorded signal written once."""
+    c = pol.consts
+    weights = 4 * (pol.obs_dim * hidden + hidden + hidden * pol.n_out + pol.n_out
+                   + (len(c.act_names) if pol.cont else 0))
+    return 4 * n * c.n_state + weights + 4 * n * steps * len(pol.dtypes)
+
+
+def pu_ops(ops, key, hidden):
+    """A step's instructions per pipe at ``hidden`` units: the step loop's
+    count plus H times its hidden-unit loop's (tools/sass_ops.py)."""
+    inner = ops[key + "/inner"]
+    return {k: v + hidden * inner[k] for k, v in ops[key].items()}
+
+
+def run_policy_universal(dev, card, ops):
+    """Slice 9, the universal policy-in-the-loop recorder
+    (csrc/fused_<family>_policy.cu, one kernel per family): each family's
+    kernel against its plain version on every id (and joint heads), the
+    recorded actions replayed through the buffer recorder, the alignment
+    identity, then the main path counted from zero (fused PPO on every id,
+    the two learning checks of the JAX package, 'auto' on the PMSM recorder)
+    and the timings.  Returns the six kernels' rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    import torch_ppo_learn
+
+    import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+    from gym_electric_motor_tpu_torch.ops import fused_record as frec
+    from gym_electric_motor_tpu_torch.ops.fused_rollout import family_of
+    from gym_electric_motor_tpu_torch.parallel import (init_actor_critic_params,
+                                                       make_fused_ppo_trainer)
+    from gym_electric_motor_tpu_torch.parallel import sharded as tsh
+
+    rng = np.random.default_rng(SEED)
+    H = H_PPO
+    names = fp.UNIVERSAL_KERNELS
+    worst = dict.fromkeys(names, 0.0)
+    share = dict.fromkeys(names, 1.0)
+    timed = {}
+
+    def build(env_id, n, steps, joint=False, env=None, hidden=H):
+        env = env or gt.make_functional(env_id, device=dev)
+        roll = fp.make_fused_policy_record_universal(env, steps, n, hidden=hidden,
+                                                     joint_heads=joint)
+        w, ls = pu_weights(torch, rng, roll.policy, hidden, dev)
+        planes = fp.fused_policy_init_planes(env, n, device=dev)
+        return env, roll, w, ls, planes
+
+    def compare(env_id, n, steps, joint=False, time_row=False, hidden=H):
+        """The kernel against its plain version at ``hidden`` units;
+        ``time_row``: time both where ``env_id`` is its family's row id."""
+        _env, roll, w, ls, planes = build(env_id, n, steps, joint, hidden=hidden)
+        pol = roll.policy
+        time_it = time_row and PU_ROW_IDS[pol.kernel[:-len("_policy_record")]] == env_id
+        args = (pol, SEED, *w, ls, planes, steps)
+        if time_it:
+            ms, got = cuda_ms(torch, lambda: fp.policy_record_universal(*args), reps=21)
+            plain_ms, ref = host_ms(torch, lambda: fp.policy_record_universal_plain(*args))
+        else:
+            got = fp.policy_record_universal(*args)
+            torch.cuda.synchronize()
+            ref = fp.policy_record_universal_plain(*args)
+        if any(g.dtype != r.dtype or g.shape != (steps, n // 128, 128)
+               for g, r in zip(got, ref)):
+            raise AssertionError(f"{env_id}: the kernel's signals differ in type or shape")
+        angle = [nm == "eps" for nm in roll.signals]
+        m, err = env_match(torch, got, ref, angle, n)
+        mean_k, mean_p = float(got[-2].double().mean()), float(ref[-2].double().mean())
+        rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
+        share[pol.kernel] = min(share[pol.kernel], m)
+        worst[pol.kernel] = max(worst[pol.kernel], err)
+        row = {"max_abs_err": err, "match_share": m, "mean_reward": mean_k,
+               "mean_reward_rel_err": rel, "reset_share": float(got[-1].double().mean())}
+        if m < 0.999 or rel > 1e-4:
+            raise AssertionError(f"{env_id} {pol.kernel}: {m:.5f} of envs match (need 0.999), "
+                                 f"mean reward rel err {rel:.2e} (need 1e-4), max abs err {err}")
+        if time_it:
+            b_ms, b_by = bound_ms(n * steps, pu_ops(ops, pol.kernel, H), pu_bytes(pol, n, steps, H))
+            timed[pol.kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                     timed_on=env_id)
+        return row
+
+    # ---- 38. the kernel against its plain version: every id, joint heads, deep
+    n, steps = PU_COMPARE
+    rows = {}
+    for env_id in gt.ENV_IDS:
+        rows[env_id] = compare(env_id, n, steps, time_row=True)
+    for env_id in PU_JOINT_IDS:
+        rows[env_id + "/joint"] = compare(env_id, n, steps, joint=True)
+    emit({"phase": "policy_universal_kernels", "envs": n, "steps": steps, "hidden": H,
+          "ids": rows})
+    n, steps = PU_DEEP
+    deep = {env_id: compare(env_id, n, steps) for env_id in PU_DEEP_IDS}
+    emit({"phase": "policy_universal_kernels_deep", "envs": n, "steps": steps, "hidden": H,
+          "ids": deep})
+    # the main path's own shape and width (phase 41): every id, and the joint heads
+    n, steps = PU_MAIN
+    main_rows = {env_id: compare(env_id, n, steps, hidden=H_PU_MAIN) for env_id in gt.ENV_IDS}
+    for env_id in PU_JOINT_IDS:
+        main_rows[env_id + "/joint"] = compare(env_id, n, steps, joint=True, hidden=H_PU_MAIN)
+    emit({"phase": "policy_universal_kernels_main_shape", "envs": n, "steps": steps,
+          "hidden": H_PU_MAIN, "ids": main_rows})
+
+    # ---- 39. the recorded actions replayed through the buffer recorder ------
+    # (tests/test_fused_policy_universal.py:89-125, :205-236): the states
+    # of every env agree with the policy kernel's up to its first reset
+    # (buffer mode has none), rtol 1e-4 / atol 2e-3, angles modulo 2 pi; at
+    # the JAX test's depth and with its zero biases, so that a continuous
+    # env keeps steps before its first reset
+    n, steps = PU_REPLAY
+    replay = {}
+    for env_id in PU_REPLAY_IDS:
+        env, roll, w, ls, planes = build(env_id, n, steps)
+        w[1].zero_()
+        w[3].zero_()
+        out = roll(SEED, *w, *((ls,) if roll.cont else ()), *planes)
+        acts = [out[an] for an in roll.act_names]
+        if roll.cont:
+            pol = roll.policy
+            acts = [m + h * torch.tanh(raw) for m, h, raw in zip(pol.mid, pol.half, acts)]
+        buf = acts[0] if len(acts) == 1 else torch.stack(acts, 1).contiguous()
+        rep = frec.make_fused_record_rollout(env, steps, n, action_mode="buffer")(*planes, buf)
+        done = out["done"].reshape(steps, n)
+        valid = (torch.cumsum(done, 0) == 0).reshape(steps, n // 128, 128)
+        worst_rep = 0.0
+        for nm in roll.state_names:
+            x, y = out[nm], rep[nm]
+            d = angle_err(torch, x, y) if nm == "eps" else (x - y).abs()
+            bad = ((d > 2e-3 + 1e-4 * y.abs()) | ~torch.isfinite(y)) & valid
+            if bool(bad.any()):
+                raise AssertionError(f"{env_id}: buffer replay of {nm} off in {int(bad.sum())} "
+                                     f"env-steps (max {float(d[valid].max()):.3e})")
+            worst_rep = max(worst_rep, float(d[valid].max()))
+        replay[env_id] = {"max_abs_err": worst_rep,
+                          "share_compared": float(valid.float().mean())}
+        if replay[env_id]["share_compared"] < 0.05:
+            raise AssertionError(f"{env_id}: too few env-steps before a reset to replay")
+    emit({"phase": "policy_universal_replay", "envs": n, "steps": steps, "ids": replay})
+
+    # ---- 40. alignment: |E[log pi(a|s)] + E[H]| < 0.03 on the rebuilt observation
+    n, steps = PU_COMPARE
+    align = {}
+    for env_id in PU_ALIGN_IDS:
+        env, roll, w, ls, planes = build(env_id, n, steps)
+        out = roll(SEED, *w, *((ls,) if roll.cont else ()), *planes)
+
+        def tn(x):
+            return x.reshape(steps, n)
+
+        prev = {nm: torch.cat([planes[i].reshape(1, -1), tn(out[nm])[:-1]])
+                for i, nm in enumerate(roll.state_names)}
+        obs = fp.policy_obs_host(roll, prev, {nm: tn(out[nm]) for nm in roll.ref_names})
+        with torch.no_grad():
+            h = torch.tanh(obs @ w[0].reshape(roll.obs_dim, H) + w[1])
+            logits = h @ w[2].reshape(H, roll.n_out) + w[3]
+            act = torch.stack([tn(out[an]) for an in roll.act_names], dim=-1)
+            lp, ent = tsh.heads_logp_ent(logits, act, roll.act_ns, ls)
+        e_lp, e_h = float(lp.double().mean()), float(ent.double().mean())
+        align[env_id] = {"E_logp": e_lp, "E_entropy": e_h, "identity": e_lp + e_h}
+        if not abs(e_lp + e_h) < 0.03:
+            raise AssertionError(f"{env_id}: |E[log pi] + E[H]| = {abs(e_lp + e_h):.4f} "
+                                 "(need < 0.03)")
+    emit({"phase": "policy_universal_alignment", "envs": n, "steps": steps, "ids": align})
+
+    # ---- 41. the main path, counted from zero: PPO on every id, the two
+    # learning checks with their timed iterations, 'auto' on the PMSM recorder
+    plain_calls = {"n": 0}
+    plain_fns = {nm: getattr(fp, nm) for nm in ("policy_record_universal_plain",
+                                                "policy_record_plain")}
+
+    def counting(fn):
+        def wrapped(*args, **kw):
+            plain_calls["n"] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    for nm, fn in plain_fns.items():
+        setattr(fp, nm, counting(fn))
+    fp.reset_launches()
+    try:
+        all_ids = {}
+        for env_id in gt.ENV_IDS:
+            env = gt.make_functional(env_id, device=dev)
+            before = dict(fp.LAUNCHES)
+            init_opt, train = make_fused_ppo_trainer(env, **PU_ALL_IDS_PPO)
+            pol = train.roll.policy
+            model = init_actor_critic_params(SEED, pol.obs_dim, pol.n_out,
+                                             PU_ALL_IDS_PPO["hidden"], device=dev,
+                                             n_cont=fp.policy_n_cont(env))
+            p0 = [p.detach().clone() for p in model.parameters()]
+            planes = fp.fused_policy_init_planes(env, PU_ALL_IDS_PPO["n_envs"], device=dev)
+            model, _opt, planes, rs = train(model, init_opt(model), planes, SEED, 1)
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in fp.LAUNCHES.items() if v != before[k]}
+            ok = (delta == {pol.kernel: 1} and bool(torch.isfinite(rs).all())
+                  and all(bool(torch.isfinite(x).all()) for x in planes)
+                  and all(not torch.equal(p.detach(), q) for p, q in zip(model.parameters(), p0)))
+            all_ids[env_id] = {"launches": delta, "mean_reward": float(rs[0]), "ok": ok}
+            if not ok:
+                raise AssertionError(f"{env_id}: one PPO iteration gave {all_ids[env_id]}")
+        emit({"phase": "policy_universal_ppo_all_ids", "envs": PU_ALL_IDS_PPO["n_envs"],
+              "horizon": PU_ALL_IDS_PPO["horizon"], "hidden": PU_ALL_IDS_PPO["hidden"],
+              "ids": all_ids})
+
+        learned = {}
+        for env_id, cfg in torch_ppo_learn.UNIVERSAL_CHECKS.items():
+            res = torch_ppo_learn.learn_universal(dev, env_id, log=lambda d: None, **cfg)
+            model, opt, planes, train = res.pop("trainer")
+            events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                      for _ in range(PU_SPLIT_ITERS)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, (e0, e1, e2) in enumerate(events):
+                e0.record()
+                out = train.collect(model, planes, 10_000 + i)
+                e1.record()
+                planes, _mean_r = train.ppo_update(model, opt, out, planes, 10_000 + i)
+                e2.record()
+            torch.cuda.synchronize()
+            res.update(
+                iter_ms_host=1e3 * (time.perf_counter() - t0) / PU_SPLIT_ITERS,
+                collect_ms_median=float(np.median([a.elapsed_time(b) for a, b, _ in events])),
+                update_ms_median=float(np.median([b.elapsed_time(c) for _, b, c in events])),
+                limits=cfg)
+            learned[env_id] = res
+            emit({"phase": "policy_universal_learn", "card": card, **res})
+            if not res["ok"]:
+                raise AssertionError(f"{env_id}: PPO through the universal recorder did not "
+                                     f"learn: {res}")
+
+        env_sf = gt.make_functional("Finite-CC-PMSM-v0", device=dev, state_filter=SF)
+        before = dict(fp.LAUNCHES)
+        init_opt, train = make_fused_ppo_trainer(env_sf, **PPO)
+        model = init_actor_critic_params(SEED, 7, 8, H_PPO, device=dev)
+        planes = tuple(torch.zeros((PPO["n_envs"] // 128, 128), device=dev) for _ in range(3))
+        train(model, init_opt(model), planes, SEED, 1)
+        torch.cuda.synchronize()
+        auto_pmsm = {k: v - before[k] for k, v in fp.LAUNCHES.items() if v != before[k]}
+        if auto_pmsm != {"policy_record": 1} or getattr(train.roll, "policy", None) is not None:
+            raise AssertionError(f"'auto' on Finite-CC-PMSM-v0 with the state filter launched "
+                                 f"{auto_pmsm}, expected one policy_record")
+    finally:
+        for nm, fn in plain_fns.items():
+            setattr(fp, nm, fn)
+    launches = {k: v for k, v in fp.LAUNCHES.items() if v}
+    want = {k: 0 for k in names}
+    for env_id in gt.ENV_IDS:
+        want[f"{family_of(gt.make_functional(env_id, device=dev))}_policy_record"] += 1
+    want["dc_policy_record"] += sum(cfg["iters"] + PU_SPLIT_ITERS
+                                    for cfg in torch_ppo_learn.UNIVERSAL_CHECKS.values())
+    want["policy_record"] = 1
+    emit({"phase": "policy_universal_main_path", "launches": launches, "expected": want,
+          "plain_version_calls": plain_calls["n"], "auto_pmsm": auto_pmsm})
+    if launches != want or plain_calls["n"]:
+        raise AssertionError(f"the universal PPO main path launched {launches} (expected "
+                             f"{want}) and called a plain version {plain_calls['n']} times")
+
+    # ---- 42. timings: PPO's shape and the bench width; beside the PMSM recorder
+    timings = {}
+    for env_id, joint, key in PU_TIMED:
+        for n_t, steps_t in PU_TIMED_SHAPES:
+            _env, roll, w, ls, planes = build(env_id, n_t, steps_t, joint)
+            pol = roll.policy
+            ms, out = cuda_ms(torch, lambda: fp.policy_record_universal(pol, SEED, *w, ls, planes,
+                                                                        steps_t), reps=EVAL_REPS)
+            b_ms, b_by = bound_ms(n_t * steps_t, pu_ops(ops, key, H),
+                                  pu_bytes(pol, n_t, steps_t, H))
+            timings[f"{env_id}{'/joint' if joint else ''}/{n_t}x{steps_t}"] = {
+                "ms": ms, "env_steps_per_s": n_t * steps_t / (ms / 1e3), "bound_ms": b_ms,
+                "bound_by": b_by, "bound_share": b_ms / ms,
+                "reset_share": float(out[-1].double().mean()),
+                "finite": all(bool(torch.isfinite(x.float()).all()) for x in out)}
+            del out
+    n_t, steps_t = PU_TIMED_SHAPES[1]
+    env_sf = gt.make_functional("Finite-CC-PMSM-v0", device=dev, state_filter=SF)
+    _env, roll, w, ls, planes = build("Finite-CC-PMSM-v0", n_t, steps_t, env=env_sf)
+    pol = roll.policy
+    consts = fp.PolicyConsts(env_sf)
+    w7 = rl_weights(torch, rng, dev, 7, H, 0.5, 0.1)
+    z = planes[0]
+    u_ms, out = cuda_ms(torch, lambda: fp.policy_record_universal(pol, SEED, *w, None, planes,
+                                                                  steps_t), reps=EVAL_REPS)
+    p_ms, out2 = cuda_ms(torch, lambda: fp.policy_record(consts, SEED, *w7, z, z, z, steps_t),
+                         reps=EVAL_REPS)
+    timings["Finite-CC-PMSM-v0/universal_vs_policy_record"] = {
+        "envs": n_t, "steps": steps_t, "universal_ms": u_ms, "policy_record_ms": p_ms,
+        "ratio": u_ms / p_ms,
+        "universal_bound_ms": bound_ms(n_t * steps_t, pu_ops(ops, "sync_policy_record", H),
+                                       pu_bytes(pol, n_t, steps_t, H))[0],
+        "policy_record_bound_ms": bound_ms(n_t * steps_t, ops["policy_record"],
+                                           12 * n_t + 32 * n_t * steps_t
+                                           + 4 * fp.n_policy_params(7, H_PPO))[0]}
+    del out, out2
+    emit({"phase": "policy_universal_timings", "card": card, "hidden": H, "timings": timings})
+    bad = [k for k, v in timings.items() if not v.get("finite", True)]
+    if bad:
+        raise AssertionError(f"universal recorder timings produced non-finite values: {bad}")
+
+    # ---- kernels line rows -----------------------------------------------------
+    line = []
+    n, steps = PU_COMPARE
+    for name in names:
+        t = timed[name]
+        line.append({
+            "name": name, "route": "cuda",
+            "source": f"gym_electric_motor_tpu_torch/csrc/fused_{name[:-len('_policy_record')]}"
+                      "_policy.cu",
+            "replaces": "gym_electric_motor_tpu/ops/pallas_policy.py:1256",
+            "launches": launches[name], "max_abs_err": worst[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "envs": n, "steps": steps, "hidden": H,
+            "timed_on": t["timed_on"], "match_share": share[name]})
+    return line
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "gym_electric_motor_tpu_torch" / "csrc").is_dir():
@@ -1993,9 +2395,11 @@ def main():
     seconds["slice_7"] = lap()
     line += run_srm(dev, card, ops)
     seconds["slice_8"] = lap()
+    line += run_policy_universal(dev, card, ops)
+    seconds["slice_9"] = lap()
     emit({"phase": "elapsed", "seconds": seconds, "total": clock[-1] - clock[0]})
 
-    # ---- 38. kernels line, card and result --------------------------------
+    # ---- 43. kernels line, card and result --------------------------------
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

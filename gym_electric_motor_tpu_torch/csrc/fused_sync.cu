@@ -219,20 +219,6 @@ __global__ void sync_record_buffer_kernel(SyncConst k, int n, int n_steps,
   }
 }
 
-SyncConst load_const(const float* host, const int* flags) {
-  SyncConst k;
-  for (int i = 0; i < N_SYNC_CONST; ++i) k.v[i] = host[i];
-  for (int r = 0; r < 2; ++r) {
-    for (int j = 0; j < N_ROW_CONST; ++j) k.ref.row[r][j] = host[N_SYNC_CONST + r * N_ROW_CONST + j];
-  }
-  k.ref.two_pi = host[S_TWO_PI];
-  k.ref.ln10 = host[S_LN10];
-  k.ref.u_min = host[S_U_MIN];
-  for (int i = 0; i < N_SYNC_FLAG; ++i) k.flag[i] = flags[i];
-  k.ref.all_const = flags[F_ALL_CONST];
-  return k;
-}
-
 uint2 seed_key(unsigned long long seed) {
   return make_uint2((uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32));
 }
@@ -321,7 +307,7 @@ int sync_rollout_random(const float* consts, const int* flags, unsigned long lon
                         int n_steps, const float* const* in, float* const* out, void* stream) {
   const int idx = random_index(flags);
   if (idx < 0) return (int)cudaErrorInvalidValue;
-  kRolloutRandom[idx](load_const(consts, flags), seed_key(seed), n, n_steps, in, out,
+  kRolloutRandom[idx](sync_load_const(consts, flags), seed_key(seed), n, n_steps, in, out,
                       (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
@@ -332,8 +318,8 @@ int sync_rollout_random(const float* consts, const int* flags, unsigned long lon
 int sync_rollout_buffer(const float* consts, const int* flags, int n, int n_steps,
                         const float* const* in, const int* act_i, const float* act_f,
                         float* const* out, void* stream) {
-  kRolloutBuffer[buffer_index(flags)](load_const(consts, flags), n, n_steps, in, act_i, act_f, out,
-                                      (cudaStream_t)stream);
+  kRolloutBuffer[buffer_index(flags)](sync_load_const(consts, flags), n, n_steps, in, act_i, act_f,
+                                     out, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -356,7 +342,7 @@ int sync_record_random(const float* consts, const int* flags, unsigned long long
   o.act_c = (float*)out[9];
   o.reward = (float*)out[10];
   o.done = (float*)out[11];
-  kRecordRandom[idx](load_const(consts, flags), seed_key(seed), n, n_steps, in, o,
+  kRecordRandom[idx](sync_load_const(consts, flags), seed_key(seed), n, n_steps, in, o,
                      (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
@@ -365,8 +351,8 @@ int sync_record_random(const float* consts, const int* flags, unsigned long long
 int sync_record_buffer(const float* consts, const int* flags, int n, int n_steps,
                        const float* const* in, const int* act_i, const float* act_f,
                        float* const* out, void* stream) {
-  kRecordBuffer[buffer_index(flags)](load_const(consts, flags), n, n_steps, in, act_i, act_f, out,
-                                     (cudaStream_t)stream);
+  kRecordBuffer[buffer_index(flags)](sync_load_const(consts, flags), n, n_steps, in, act_i, act_f,
+                                    out, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

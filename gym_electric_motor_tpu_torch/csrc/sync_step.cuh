@@ -232,3 +232,18 @@ __device__ __forceinline__ SyncStepOut sync_random_step(const SyncConst& k, uint
   if (WIENER) ref_wiener_advance<NREF>(k.ref, key, env, t, w, out.done != 0.0f, refs);
   return out;
 }
+
+// The constants of one env from the host's float32 and int32 arrays.
+inline SyncConst sync_load_const(const float* host, const int* flags) {
+  SyncConst k;
+  for (int i = 0; i < N_SYNC_CONST; ++i) k.v[i] = host[i];
+  for (int r = 0; r < 2; ++r) {
+    for (int j = 0; j < N_ROW_CONST; ++j) k.ref.row[r][j] = host[N_SYNC_CONST + r * N_ROW_CONST + j];
+  }
+  k.ref.two_pi = host[S_TWO_PI];
+  k.ref.ln10 = host[S_LN10];
+  k.ref.u_min = host[S_U_MIN];
+  for (int i = 0; i < N_SYNC_FLAG; ++i) k.flag[i] = flags[i];
+  k.ref.all_const = flags[F_ALL_CONST];
+  return k;
+}

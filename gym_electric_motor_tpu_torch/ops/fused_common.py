@@ -121,6 +121,13 @@ SLOT_ACTION_C = 8    # (action 2, action 3, action 4, action 5)
 # SLOT_RESET's third word.
 SLOT_ROW2 = 9        # (box-muller u1 of pair 2, u2 of pair 2, length row 2, sigma row 2)
 SLOT_INIT_C = 10     # at step 0: (value row 2, length row 2, sigma row 2, -)
+# The universal policy recorder (csrc/policy_heads.cuh, PolicyBits below)
+# draws its uniforms from two slots of its own: one per categorical head (one
+# for a joint head), or a Box-Muller pair per two Gaussian channels; the
+# reference advance keeps SLOT_STEP's pair, so nothing the other kernels draw
+# moves.
+SLOT_POLICY_A = 11   # (uniform 0, 1, 2, 3)
+SLOT_POLICY_B = 12   # (uniform 4, 5, -, -): the DFIM's third Box-Muller pair
 
 
 class PhiloxBits:
@@ -221,6 +228,54 @@ class SyncBits(PhiloxBits):
             lens.append(w2[row2])
             sigs.append(w3[row2])
         return acts, u1, u2, lens[:n], sigs[:n], resets[:n]
+
+
+class PolicyBits(SyncBits):
+    """The universal policy recorder's bit source: the reference words of
+    ``SyncBits`` (SLOT_STEP's Box-Muller pair, the length, sigma and reset
+    words, SLOT_ROW2 with three rows) and, in place of the random action
+    words, ``n_words`` policy uniforms from ``SLOT_POLICY_A`` and
+    ``SLOT_POLICY_B``: ``step_words(t)`` gives ``(policy words, u1, u2,
+    lengths, sigmas, resets)``."""
+
+    def __init__(self, seed: int, n_envs: int, device, n_rows: int, n_words: int):
+        if not 1 <= n_words <= 6:
+            raise ValueError(f"the policy draws 1 to 6 uniforms per step, got {n_words}")
+        super().__init__(seed, n_envs, device, n_rows, 1)
+        self.n_words = n_words
+        self._pslots = [SLOT_POLICY_A] + ([SLOT_POLICY_B] if n_words > 4 else [])
+        self._pblock_t0, self._pblock = None, None
+
+    def step_words(self, t: int):
+        _acts, *ref_words = super().step_words(t)
+        t0 = t - t % self.BLOCK
+        if self._pblock_t0 != t0:
+            self._pblock_t0 = t0
+            self._pblock = self._call(range(t0, t0 + self.BLOCK), self._pslots)
+        w = [x[t - t0] for x in self._pblock]
+        words = [w[i % 4][i // 4] for i in range(self.n_words)]
+        return (words, *ref_words)
+
+
+def policy_obs_spec(mech, w_lim, omega_fixed, entries):
+    """The universal policy recorder's observation spec
+    (``_policy_obs_spec``, pallas_common.py:1459-1475): the speed feature,
+    omega over its limit under a dynamic load or the constant
+    ``omega_fixed / w_lim``, then the family's ``entries``, each
+    ``("const", v)``, ``("state", plane, scale)`` or ``("cos"/"sin",
+    plane)``.  The recorder appends the referenced quantities and the
+    reference values."""
+    head = ((("state", 0, 1.0 / w_lim),) if mech
+            else (("const", float(omega_fixed) / w_lim),))
+    return head + tuple(entries)
+
+
+def system_limits(env):
+    """``(unwrapped physical system, its state names, its limits)`` of an
+    env the fused kernels take: what the families' policy surfaces scale
+    their observation features by."""
+    ps = fused_check_system(env.physical_system)
+    return ps, list(ps.state_names), np.asarray(ps.limits)
 
 
 class DcBits(SyncBits):

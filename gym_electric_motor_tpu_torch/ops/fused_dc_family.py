@@ -48,6 +48,7 @@ on a current, the torque or (under a dynamic load) omega.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -66,11 +67,13 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    policy_obs_spec,
     poly_load_rhs,
     ptr_array,
     ref_rows,
     reference_step,
     seed_u64,
+    system_limits,
     uniform_from_bits,
     wiener_init,
     wse_err,
@@ -634,3 +637,35 @@ def make_fused_dc_rollout(env, n_steps, n_envs, action_mode="random", randomize=
         return dc_rollout_buffer(c, state0, actions)
     rollout.consts = c
     return rollout
+
+
+# ---------------------------------------------------------------------------
+# the universal policy recorder's view of the family
+# ---------------------------------------------------------------------------
+
+
+def policy_surface(c: DcConsts, env):
+    """What ``ops.fused_policy.make_fused_policy_record_universal`` needs of
+    the family (the policy-adapter surface of ``_dc_family``,
+    pallas_dc.py:1014-1024, :1078-1087): the observation spec (omega and
+    the currents over their limits), one head per converter channel (the
+    1QC's 2, the 2QC's 3 or the 4QC's 4 actions; ExtExDc's dual 4QC (4, 4))
+    or one duty per channel in the converter's range, and the plain step."""
+    ps, names, lim = system_limits(env)
+    w_lim = float(lim[names.index("omega")])
+    off = int(c.mech)
+    obs_spec = policy_obs_spec(c.mech, w_lim, ps.load.omega_fixed, [
+        ("state", off + j, 1.0 / float(lim[names.index(n)])) for j, n in enumerate(c.el_names)])
+    act_range = None
+    if not c.finite:
+        space = ps.converter.action_space
+        act_range = (np.atleast_1d(np.asarray(space[1], _f32)),
+                     np.atleast_1d(np.asarray(space[2], _f32)))
+    return SimpleNamespace(
+        family="dc", consts=c, obs_spec=obs_spec, act_ns=c.act_ns if c.finite else None,
+        act_range=act_range, state_keys=_state_keys(c),
+        init=lambda bits, states: _random_init(c, bits, states),
+        aux=lambda st, afresh=False: None, aux_cs=None,
+        quantities=lambda st, a: [dc_quantity(c, j, st) for j in range(c.n_ref)],
+        action=tuple, step=lambda st, action, a: dc_action_step(c, st, action),
+        planes=lambda planes: _out_state(c, planes))

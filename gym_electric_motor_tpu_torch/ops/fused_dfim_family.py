@@ -60,6 +60,7 @@ i_sq, the torque or (under a dynamic load) omega.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -77,6 +78,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    policy_obs_spec,
     poly_load_rhs,
     ptr_array,
     reciprocal_f32,
@@ -84,6 +86,7 @@ from .fused_common import (
     reference_step,
     rotation_advance,
     seed_u64,
+    system_limits,
     uniform_from_bits,
     wiener_init,
     wse_err,
@@ -602,3 +605,43 @@ def make_fused_dfim_family_rollout(env, n_steps, n_envs, action_mode="random", r
         return dfim_rollout_buffer(c, state0, actions)
     rollout.consts = c
     return rollout
+
+
+# ---------------------------------------------------------------------------
+# the universal policy recorder's view of the family
+# ---------------------------------------------------------------------------
+
+
+def policy_surface(c: DfimConsts, env):
+    """What ``ops.fused_policy.make_fused_policy_record_universal`` needs of
+    the family (the policy-adapter surface of ``_dfim_family``,
+    pallas_dfim.py:750-764): the observation spec (omega, the stator
+    currents over their limit, the rotor fluxes over ``l_m i_lim``, the
+    angle as cos/sin), the heads (8, 8) of the stator's and the rotor's B6
+    bits or six duties in [-1, 1], and the plain step.  ``aux`` is
+    ``(flux direction or None, cos, sin)``: the pre-step flux direction
+    where a row refers to the dq currents, then the step's (cos, sin) as the
+    sync family's."""
+    ps, names, lim = system_limits(env)
+    i_lim, w_lim = float(lim[names.index("i_sd")]), float(lim[names.index("omega")])
+    psi_lim = float(ps.motor.parameter["l_m"]) * i_lim
+    off, i_eps = int(c.mech), c.n_state - 1
+    obs_spec = policy_obs_spec(c.mech, w_lim, ps.load.omega_fixed, [
+        ("state", off, 1.0 / i_lim), ("state", off + 1, 1.0 / i_lim),
+        ("state", off + 2, 1.0 / psi_lim), ("state", off + 3, 1.0 / psi_lim),
+        ("cos", i_eps), ("sin", i_eps)])
+
+    def aux(st, afresh=False):
+        cs = flux_dir(c, st) if c.needs_dq else None
+        if c.mech or afresh:
+            return cs, torch.cos(st["eps"]), torch.sin(st["eps"])
+        return cs, st["c"], st["s"]
+
+    return SimpleNamespace(
+        family="dfim", consts=c, obs_spec=obs_spec, act_ns=(8, 8) if c.finite else None,
+        act_range=None if c.finite else (np.full(6, -1.0, _f32), np.ones(6, _f32)),
+        state_keys=_state_keys(c), init=lambda bits, states: _random_init(c, bits, states),
+        aux=aux, aux_cs=lambda a: a[1:],
+        quantities=lambda st, a: [dfim_quantity(c, j, st, a[0]) for j in range(c.n_ref)],
+        action=tuple, step=lambda st, action, a: dfim_action_step(c, st, action, a[1], a[2], a[0]),
+        planes=lambda planes: _with_omega(c, planes))

@@ -56,6 +56,7 @@ three (CC).
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -73,6 +74,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    policy_obs_spec,
     poly_load_rhs,
     ptr_array,
     reciprocal_f32,
@@ -80,6 +82,7 @@ from .fused_common import (
     reference_step,
     rotation_advance,
     seed_u64,
+    system_limits,
     uniform_from_bits,
     wiener_init,
     wse_err,
@@ -604,3 +607,38 @@ def make_fused_eesm_family_rollout(env, n_steps, n_envs, action_mode="random", r
         return eesm_rollout_buffer(c, state0, actions)
     rollout.consts = c
     return rollout
+
+
+# ---------------------------------------------------------------------------
+# the universal policy recorder's view of the family
+# ---------------------------------------------------------------------------
+
+
+def policy_surface(c: EesmConsts, env):
+    """What ``ops.fused_policy.make_fused_policy_record_universal`` needs of
+    the family (the policy-adapter surface of ``_eesm_family``,
+    pallas_eesm.py:680-691): the observation spec (omega, i_sd, i_sq and
+    i_e over their limits, the angle as cos/sin), the heads (8, 4) of the B6
+    bits and the excitation 4QC or four duties in [-1, 1], and the plain
+    step.  ``aux`` gives the step's (cos, sin), as the sync family's."""
+    ps, names, lim = system_limits(env)
+    i_lim, ie_lim = float(lim[names.index("i_sd")]), float(lim[names.index("i_e")])
+    w_lim = float(lim[names.index("omega")])
+    off, i_eps = int(c.mech), c.n_state - 1
+    obs_spec = policy_obs_spec(c.mech, w_lim, ps.load.omega_fixed, [
+        ("state", off, 1.0 / i_lim), ("state", off + 1, 1.0 / i_lim),
+        ("state", off + 2, 1.0 / ie_lim), ("cos", i_eps), ("sin", i_eps)])
+
+    def aux(st, afresh=False):
+        if c.mech or afresh:
+            return torch.cos(st["eps"]), torch.sin(st["eps"])
+        return st["c"], st["s"]
+
+    return SimpleNamespace(
+        family="eesm", consts=c, obs_spec=obs_spec, act_ns=(8, 4) if c.finite else None,
+        act_range=None if c.finite else (np.full(4, -1.0, _f32), np.ones(4, _f32)),
+        state_keys=_state_keys(c), init=lambda bits, states: _random_init(c, bits, states),
+        aux=aux, aux_cs=lambda a: a,
+        quantities=lambda st, a: [eesm_quantity(c, j, st) for j in range(c.n_ref)],
+        action=tuple, step=lambda st, action, a: eesm_action_step(c, st, action, *a),
+        planes=lambda planes: _with_omega(c, planes))

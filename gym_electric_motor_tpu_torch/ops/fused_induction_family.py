@@ -56,6 +56,7 @@ dynamic load) omega.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -73,12 +74,14 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    policy_obs_spec,
     poly_load_rhs,
     ptr_array,
     reciprocal_f32,
     ref_rows,
     reference_step,
     seed_u64,
+    system_limits,
     uniform_from_bits,
     wiener_init,
     wse_err,
@@ -552,3 +555,34 @@ def make_fused_induction_rollout(env, n_steps, n_envs, action_mode="random", ran
         return induction_rollout_buffer(c, state0, actions)
     rollout.consts = c
     return rollout
+
+
+# ---------------------------------------------------------------------------
+# the universal policy recorder's view of the family
+# ---------------------------------------------------------------------------
+
+
+def policy_surface(c: InductionConsts, env):
+    """What ``ops.fused_policy.make_fused_policy_record_universal`` needs of
+    the family (the policy-adapter surface of ``_induction_family``,
+    pallas_induction.py:669-676): the observation spec (omega, the stator
+    currents over their limit and the rotor fluxes over ``l_m i_lim``; the
+    stator frame has no angle plane), one 8-way head for the B6 bits or
+    three duties in [-1, 1], and the plain step.  ``aux`` is the pre-step
+    flux direction where a row refers to the dq currents."""
+    ps, names, lim = system_limits(env)
+    i_lim, w_lim = float(lim[names.index("i_sd")]), float(lim[names.index("omega")])
+    psi_lim = float(ps.motor.parameter["l_m"]) * i_lim
+    off = int(c.mech)
+    obs_spec = policy_obs_spec(c.mech, w_lim, ps.load.omega_fixed, [
+        ("state", off, 1.0 / i_lim), ("state", off + 1, 1.0 / i_lim),
+        ("state", off + 2, 1.0 / psi_lim), ("state", off + 3, 1.0 / psi_lim)])
+    return SimpleNamespace(
+        family="induction", consts=c, obs_spec=obs_spec, act_ns=(8,) if c.finite else None,
+        act_range=None if c.finite else (np.full(3, -1.0, _f32), np.ones(3, _f32)),
+        state_keys=_state_keys(c), init=lambda bits, states: _random_init(c, bits, states),
+        aux=lambda st, afresh=False: flux_dir(c, st) if c.needs_dq else None, aux_cs=None,
+        quantities=lambda st, a: [induction_quantity(c, j, st, a) for j in range(c.n_ref)],
+        action=lambda xs: xs[0] if c.finite else tuple(xs),
+        step=lambda st, action, a: induction_action_step(c, st, action, a),
+        planes=lambda planes: _with_omega(c, planes))

@@ -1,34 +1,48 @@
-"""Policy-in-the-loop Finite-CC-PMSM rollouts: the in-kernel actor MLP for
-RL evaluation, PPO collection and in-kernel REINFORCE training.
+"""Policy-in-the-loop rollouts: the in-kernel actor MLP for RL evaluation,
+PPO collection and in-kernel REINFORCE training on Finite-CC-PMSM-v0, and the
+universal policy recorder, PPO's collection engine on every catalog id.
 
 Counterpart of ``_policy_pmsm_ctx``, ``make_fused_policy_rollout``,
 ``make_fused_policy_record_rollout``, ``flatten_policy_params``,
 ``make_fused_reinforce_rollout``, ``unflatten_policy_grads``,
-``make_fused_reinforce_trainer`` and ``policy_obs_host`` in
+``make_fused_reinforce_trainer``, ``policy_obs_host``, ``_policy_family``,
+``policy_obs_dim``, ``policy_act_ns``, ``policy_n_cont``,
+``make_fused_policy_record_universal`` and ``fused_policy_init_planes`` in
 ``gym_electric_motor_tpu/ops/pallas_policy.py``.  Four kernels written in
 CUDA (``csrc/fused_policy.cu``, over ``csrc/policy_step.cuh`` and the PMSM
-step of ``csrc/pmsm_step.cuh``) carry the work on the GPU:
+step of ``csrc/pmsm_step.cuh``) carry the Finite-CC-PMSM work on the GPU,
+and one kernel per family the universal recorder's (``UNIVERSAL_KERNELS``:
+``<family>_policy_record`` of ``csrc/fused_<family>_policy.cu``, over
+``csrc/policy_heads.cuh`` and the family's ``*_action_step``):
 
-===================== ================================================
-``policy_rollout``    T steps with the MLP choosing the action
-                      (categorical or greedy; Wiener or constant
-                      references), reduced to the final state, reward
-                      sums and termination counts
-``policy_record``     the categorical, Wiener step with the 7-feature
-                      observation, every step recorded (PPO collection)
-``reinforce_rollout`` the 6-feature step with Gumbel-max or greedy
-                      actions and the policy gradient accumulated per env
-                      from eligibility traces
-``reinforce_reduce``  the per-env gradient sums reduced to the
-                      ``(P, 128)`` block in a fixed order
-===================== ================================================
+========================== ===========================================
+``policy_rollout``         T steps with the MLP choosing the action
+                           (categorical or greedy; Wiener or constant
+                           references), reduced to the final state, reward
+                           sums and termination counts
+``policy_record``          the categorical, Wiener step with the 7-feature
+                           observation, every step recorded (PPO
+                           collection)
+``reinforce_rollout``      the 6-feature step with Gumbel-max or greedy
+                           actions and the policy gradient accumulated per
+                           env from eligibility traces
+``reinforce_reduce``       the per-env gradient sums reduced to the
+                           ``(P, 128)`` block in a fixed order
+``<family>_policy_record`` any id's observation (the family's
+                           ``obs_spec``, the referenced quantities, the
+                           references), factorised or joint categorical
+                           heads or squashed-Gaussian duties, the family's
+                           step, every step recorded
+========================== ===========================================
 
-The policy is the 2-layer tanh MLP of ``parallel/sharded.py`` with H in
-{8, 16, 32} hidden units and 8 logits; its weights are the flat float32
-vectors ``w1 (F*H,)``, ``b1 (H,)``, ``w2 (H*8,)``, ``b2 (8,)`` (row-major
-``obs @ w1``).  Each kernel has a plain PyTorch version here (``*_plain``)
-with the same arithmetic in the same order: every sum is an explicit loop
-in the kernel's order, never a matrix product.  A wrapper runs the plain
+The PMSM kernels' policy is the 2-layer tanh MLP of ``parallel/sharded.py``
+with H in {8, 16, 32} hidden units and 8 logits; its weights are the flat
+float32 vectors ``w1 (F*H,)``, ``b1 (H,)``, ``w2 (H*8,)``, ``b2 (8,)``
+(row-major ``obs @ w1``); the universal recorder's take A logits (the summed
+or joint heads, or the duty channels' means) and 1 to 32 hidden units.  Each
+kernel has a plain PyTorch version here (``*_plain``) with the same
+arithmetic in the same order: every sum is an explicit loop in the kernel's
+order, never a matrix product.  A wrapper runs the plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
 (and counts the launch in ``LAUNCHES``) or raises.
 """
@@ -41,7 +55,27 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .fused_common import LANE, PhiloxBits, ReinforceBits, uniform_from_bits
+from . import fused_dc_family as dcf
+from . import fused_dfim_family as dff
+from . import fused_eesm_family as ef
+from . import fused_induction_family as indf
+from . import fused_srm_family as srf
+from . import fused_sync_family as sf
+from .fused_common import (
+    LANE,
+    TWO_PI,
+    PhiloxBits,
+    PolicyBits,
+    ReinforceBits,
+    check_planes,
+    check_rollout_inputs,
+    family_library,
+    launch_kernel,
+    ptr_array,
+    reference_step,
+    seed_u64,
+    uniform_from_bits,
+)
 from .fused_sync import (
     CONST_NAMES,
     PmsmConsts,
@@ -64,13 +98,16 @@ STATE_FILTER = ("omega", "i_sd", "i_sq", "epsilon")
 POLICY_CONST_NAMES = ("omega_n", "inv_eps_lim", "pi")
 
 KERNELS = ("policy_rollout", "policy_record", "reinforce_rollout", "reinforce_reduce")
+# the universal policy recorder's kernel of each family, csrc/fused_<family>_policy.cu
+UNIVERSAL_KERNELS = ("sync_policy_record", "dc_policy_record", "induction_policy_record",
+                     "eesm_policy_record", "dfim_policy_record", "srm_policy_record")
 
 # launches of each CUDA kernel since the last reset_launches()
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = dict.fromkeys(KERNELS + UNIVERSAL_KERNELS, 0)
 
 
 def reset_launches():
-    for name in KERNELS:
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
@@ -111,17 +148,17 @@ def _col(v, like):
     return v.reshape((-1,) + (1,) * like.dim())
 
 
-def mlp_forward(w1, b1, w2, b2, obs):
+def mlp_forward(w1, b1, w2, b2, obs, n_out=N_ACTIONS):
     """``h = tanh(b1 + obs @ w1)``, ``logits = b2 + h @ w2`` for a list of F
     feature planes, each sum taken in index order (``mlp_forward``).
-    Returns ``h (H, ...)`` and ``logits (8, ...)``."""
+    Returns ``h (H, ...)`` and ``logits (n_out, ...)``."""
     hidden = b1.numel()
     w1 = w1.reshape(len(obs), hidden)
     acc = _col(b1, obs[0]) + _col(w1[0], obs[0]) * obs[0]
     for f in range(1, len(obs)):
         acc = acc + _col(w1[f], obs[f]) * obs[f]
     h = torch.tanh(acc)
-    w2 = w2.reshape(hidden, N_ACTIONS)
+    w2 = w2.reshape(hidden, n_out)
     logits = _col(b2, h[0]) + _col(w2[0], h[0]) * h[0]
     for j in range(1, hidden):
         logits = logits + _col(w2[j], h[j]) * h[j]
@@ -140,19 +177,21 @@ def argmax8(logits):
 
 
 def sample_inverse_cdf(logits, u):
-    """Inverse-CDF categorical sample over the softmax (8 exps, one
-    uniform): the last a with ``u * total >= cumsum(exp)[a - 1]``."""
+    """Inverse-CDF categorical sample over the softmax of the ``n`` logits
+    (``n`` exps, one uniform): the last a with ``u * total >= cumsum(exp)[a
+    - 1]``."""
+    n = logits.shape[0]
     m = logits[0]
-    for a in range(1, N_ACTIONS):
+    for a in range(1, n):
         m = torch.maximum(m, logits[a])
     es = torch.exp(logits - m)
     total = es[0]
-    for a in range(1, N_ACTIONS):
+    for a in range(1, n):
         total = total + es[a]
     uu = u * total
     cum = es[0]
     action = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
-    for a in range(1, N_ACTIONS):
+    for a in range(1, n):
         action = torch.where(uu >= cum, a, action)
         cum = cum + es[a]
     return action
@@ -637,16 +676,15 @@ def make_fused_reinforce_trainer(env, n_steps, n_envs, hidden=16, gamma=0.99, lr
 
 def policy_obs_host(roll, prev_states, refs):
     """The observation the kernel's MLP saw at each step, rebuilt from the
-    recorded signals: ``prev_states`` holds the pre-step state planes (the
-    recorded post-step planes shifted by one, the launch's initial planes at
-    t = 0) keyed by ``roll.state_names``, ``refs`` the recorded references.
-    Returns an ``(..., obs_dim)`` stack.  Angle features are cos/sin of the
-    recorded angle, which match the kernel's renormalised rotation to about
-    an ulp.  The controlled-quantity features of the universal recorder
-    (``fs_quantities``) come with that recorder."""
-    if getattr(roll, "fs_quantities", None) is not None:
-        raise NotImplementedError("fs_quantities features belong to the universal policy "
-                                  "recorder, which is not ported yet")
+    recorded signals (``policy_obs_host``, pallas_policy.py:901-936):
+    ``prev_states`` holds the pre-step state planes (the recorded post-step
+    planes shifted by one, the launch's initial planes at t = 0) keyed by
+    ``roll.state_names``, ``refs`` the recorded references.  Returns an
+    ``(..., obs_dim)`` stack.  Angle features are cos/sin of the recorded
+    angle, which match the kernel's renormalised rotation to about an ulp.
+    The universal recorder's controlled-quantity features come from the
+    family's own plain functions (``roll.fs_pre_step`` and
+    ``roll.fs_quantities``) on the pre-step planes."""
     names = roll.state_names
     some = prev_states[names[0]]
     feats = []
@@ -661,6 +699,332 @@ def policy_obs_host(roll, prev_states, refs):
             feats.append(torch.sin(prev_states[names[e[1]]]))
         else:
             raise ValueError(f"unknown observation entry {e!r}")
+    if getattr(roll, "fs_quantities", None) is not None:
+        cur = tuple(prev_states[nm] for nm in names)
+        feats.extend(roll.fs_quantities(cur, roll.fs_pre_step(cur)))
     for nm in roll.ref_names:
         feats.append(refs[nm])
     return torch.stack(feats, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the universal policy recorder: every catalog id
+# ---------------------------------------------------------------------------
+
+# family -> (module, constants): each module has policy_surface(consts, env)
+_POLICY_FAMILIES = {
+    "sync": (sf, sf.SyncConsts), "dc": (dcf, dcf.DcConsts),
+    "induction": (indf, indf.InductionConsts), "eesm": (ef, ef.EesmConsts),
+    "dfim": (dff, dff.DfimConsts), "srm": (srf, srf.SrmConsts),
+}
+MAX_HIDDEN = 32     # the kernels stage up to 32 hidden units
+N_FEAT_CONST = 8    # the non-angle features' constants (PolicyConst.feat)
+MAX_CHANNELS = 6    # Gaussian channels (the DFIM's six duties)
+MAX_HEADS = 3       # categorical heads (the SRM's three phases)
+
+
+def _policy_family(env, randomize=None):
+    """The family's policy surface (``_policy_family``,
+    pallas_policy.py:847-873); ``randomize=`` raises."""
+    from .fused_rollout import family_of
+
+    if randomize:
+        raise NotImplementedError(
+            "randomize= (per-env motor parameters as state planes) is not fused yet; it "
+            "arrives with queue 2, item 8 of the port")
+    mod, consts = _POLICY_FAMILIES[family_of(env)]
+    return mod.policy_surface(consts(env), env)
+
+
+def policy_obs_dim(env):
+    """Observation features of the universal policy recorder for ``env``:
+    the family's ``obs_spec`` plus, per reference, the normalised
+    controlled quantity and the reference value."""
+    fs = _policy_family(env)
+    return len(fs.obs_spec) + 2 * fs.consts.n_ref
+
+
+def policy_act_ns(env):
+    """The categorical heads' cardinalities of a finite env (one head per
+    converter channel, e.g. EESM (8, 4)), ``None`` for a continuous one."""
+    return _policy_family(env).act_ns
+
+
+def policy_n_cont(env):
+    """The squashed-Gaussian channels of a continuous env, 0 for a finite
+    one."""
+    fs = _policy_family(env)
+    return 0 if fs.act_ns is not None else len(fs.consts.act_names)
+
+
+class UniversalPolicy:
+    """The universal recorder's build of one env: the family's constants
+    and policy surface, the sizes (``obs_dim`` F, ``n_out`` A, ``n_words``
+    policy uniforms per step), the dtypes of the recorded signals, and the
+    host arrays the kernel takes: ``pk`` (float32: the non-angle features'
+    constants, then the duties' mid and half ranges) and ``pi`` (int32: the
+    head count and cardinalities, the joint flag), in the order of
+    PolicyConst in csrc/policy_heads.cuh."""
+
+    def __init__(self, env, hidden, joint_heads=False, randomize=None):
+        if not 1 <= int(hidden) <= MAX_HIDDEN:
+            raise ValueError(f"the policy recorder takes 1 to {MAX_HIDDEN} hidden units, "
+                             f"got {hidden}")
+        fs = _policy_family(env, randomize)
+        c = fs.consts
+        self.surface, self.consts, self.hidden = fs, c, int(hidden)
+        self.cont = fs.act_ns is None
+        self.act_ns = fs.act_ns
+        n_act = len(c.act_names)
+        if joint_heads and (self.cont or len(fs.act_ns) < 2):
+            raise ValueError("joint_heads needs a multi-head finite action space")
+        self.joint = bool(joint_heads)
+        self.obs_dim = len(fs.obs_spec) + 2 * c.n_ref
+        self.n_out = (n_act if self.cont else int(np.prod(fs.act_ns)) if self.joint
+                      else int(sum(fs.act_ns)))
+        self.n_words = (2 * ((n_act + 1) // 2) if self.cont
+                        else 1 if self.joint else len(fs.act_ns))
+        act = torch.float32 if self.cont else torch.int32
+        self.dtypes = ((torch.float32,) * (c.n_state + c.n_ref) + (act,) * n_act
+                       + (torch.float32, torch.float32))
+        feat = [e[1] if e[0] == "const" else e[2] for e in fs.obs_spec
+                if e[0] in ("const", "state")]
+        mid = half = np.zeros(0, _f32)
+        if self.cont:
+            lo, hi = fs.act_range
+            mid, half = _f32(0.5) * (lo + hi), _f32(0.5) * (hi - lo)
+            self.mid, self.half = [float(x) for x in mid], [float(x) for x in half]
+        pad = lambda x, n: list(x) + [0.0] * (n - len(x))  # noqa: E731
+        self.pk = np.array(pad(feat, N_FEAT_CONST) + pad(mid, MAX_CHANNELS)
+                           + pad(half, MAX_CHANNELS), dtype=_f32)
+        ns = list(fs.act_ns or ())
+        self.pi = np.array([len(ns)] + ns + [0] * (MAX_HEADS - len(ns)) + [int(self.joint)],
+                           dtype=np.int32)
+        self.kernel = f"{fs.family}_policy_record"
+
+
+def _universal_obs(pol, st, aux):
+    """The observation of the kernel's step: the ``obs_spec`` features, the
+    referenced quantities of the pre-step state, the references before
+    they advance."""
+    fs = pol.surface
+    some = st[fs.state_keys[0]]
+    cs = fs.aux_cs(aux) if fs.aux_cs is not None else None
+    obs = []
+    for e in fs.obs_spec:
+        if e[0] == "const":
+            obs.append(torch.full_like(some, float(_f32(e[1]))))
+        elif e[0] == "state":
+            obs.append(st[fs.state_keys[e[1]]] * float(_f32(e[2])))
+        else:
+            obs.append(cs[0] if e[0] == "cos" else cs[1])
+    obs.extend(fs.quantities(st, aux))
+    obs.extend(st["rv"][:pol.consts.n_ref])
+    return obs
+
+
+def sample_heads(logits, act_ns, joint, words):
+    """Finite actions (pallas_policy.py:1154-1187): one inverse-CDF draw
+    per head over its slice of the logits, or one over the joint logits,
+    decoded by radix with the last head fastest."""
+    if joint:
+        a = sample_inverse_cdf(logits, uniform_from_bits(words[0]))
+        decoded = []
+        for n in reversed(act_ns):
+            decoded.append(a % n)
+            a = a // n
+        return decoded[::-1]
+    heads, off = [], 0
+    for h, n in enumerate(act_ns):
+        heads.append(sample_inverse_cdf(logits[off:off + n], uniform_from_bits(words[h])))
+        off += n
+    return heads
+
+
+def gaussian_raw(logits, std, words):
+    """The raw squashed-Gaussian samples ``mu + std z`` (pallas_policy.py:
+    1133-1153): a Box-Muller pair per two channels, cosine then sine."""
+    two_pi = float(_f32(TWO_PI))
+    zs = []
+    for j in range(0, logits.shape[0], 2):
+        u1, u2 = uniform_from_bits(words[j]), uniform_from_bits(words[j + 1])
+        rad = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+        th = two_pi * u2
+        zs.append(rad * torch.cos(th))
+        zs.append(rad * torch.sin(th))
+    return [logits[j] + std[j] * zs[j] for j in range(logits.shape[0])]
+
+
+def policy_record_universal_plain(pol, seed, w1, b1, w2, b2, ls, states, n_steps, bits=None):
+    """Plain version of the family's ``<family>_policy_record`` kernel: per
+    step the post-reset states, the references the policy observed (and the
+    reward was taken against), the action of each head (int32) or each
+    channel's raw sample (float32), the reward and the done flag, each
+    ``(T, R, 128)``.  ``bits`` replaces the Philox bit source (see
+    ``fused_common.PolicyBits``)."""
+    fs, c = pol.surface, pol.consts
+    shape, device = states[0].shape, states[0].device
+    bits = bits or PolicyBits(seed, states[0].numel(), device, c.n_ref, pol.n_words)
+    st = fs.init(bits, tuple(states))
+    std = torch.exp(ls) if pol.cont else None
+    rec = [[] for _ in pol.dtypes]
+    for t in range(n_steps):
+        words, *ref_words = bits.step_words(t)
+        words = [w.reshape(shape) for w in words]
+        aux = fs.aux(st)
+        _h, logits = mlp_forward(w1, b1, w2, b2, _universal_obs(pol, st, aux), pol.n_out)
+        if pol.cont:
+            recorded = gaussian_raw(logits, std, words)
+            action = fs.action([m + h * torch.tanh(raw)
+                                for m, h, raw in zip(pol.mid, pol.half, recorded)])
+        else:
+            recorded = sample_heads(logits, pol.act_ns, pol.joint, words)
+            action = fs.action(recorded)
+        new, (_a, r, done, refs) = fs.step(st, action, aux)
+        reference_step(c.f, c.rows, c.all_const, st, new, ref_words, done > 0.5, t)
+        st = new
+        row = [st[key] for key in fs.state_keys] + refs + list(recorded) + [r, done]
+        for lst, x in zip(rec, row):
+            lst.append(x)
+    if n_steps == 0:
+        return tuple(torch.empty((0,) + tuple(shape), dtype=dt, device=device)
+                     for dt in pol.dtypes)
+    return tuple(torch.stack(lst) for lst in rec)
+
+
+_UNIVERSAL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_uint64] + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p] * 8
+
+
+def _universal_launch(pol, device, *args):
+    fs = pol.surface
+    mod = _POLICY_FAMILIES[fs.family][0]
+    prefix = f"{fs.family}_policy"
+    lib = family_library(f"fused_{prefix}", prefix, {pol.kernel: _UNIVERSAL_ARGTYPES},
+                         (len(mod.CONST_NAMES), len(mod.ROW_NAMES), len(mod.FLAG_NAMES)))
+    launch_kernel(lib, prefix, pol.kernel, device, LAUNCHES, *args)
+
+
+def _universal_weights(pol, w1, b1, w2, b2, ls, device):
+    """Validate the flat weights (and the log-stds of a continuous env)."""
+    H, F, A = pol.hidden, pol.obs_dim, pol.n_out
+    for name, x, n in (("w1", w1, F * H), ("b1", b1, H), ("w2", w2, H * A), ("b2", b2, A)):
+        _check(name, x, (n,), torch.float32, device)
+    if pol.cont:
+        _check("ls", ls, (len(pol.consts.act_names),), torch.float32, device)
+    elif ls is not None:
+        raise ValueError("a finite env's policy takes no log-stds")
+
+
+def policy_record_universal(pol, seed, w1, b1, w2, b2, ls, states, n_steps):
+    """``(*states, *refs, *actions, reward, done)``, each ``(T, R, 128)``:
+    the family's ``<family>_policy_record`` kernel on CUDA tensors, its
+    plain version on CPU tensors."""
+    c = pol.consts
+    device, R = check_planes(c, states)
+    _universal_weights(pol, w1, b1, w2, b2, ls, device)
+    if device.type == "cpu":
+        return policy_record_universal_plain(pol, seed, w1, b1, w2, b2, ls, tuple(states),
+                                             n_steps)
+    shape = (int(n_steps), R, LANE)
+    outs = [torch.empty(shape, dtype=dt, device=device) for dt in pol.dtypes]
+    n_act = len(c.act_names)
+    it = iter(outs)
+    st = [next(it) for _ in range(c.n_state)]
+    refs = [next(it) for _ in range(c.n_ref)]
+    acts = [next(it) for _ in range(n_act)]
+    act_i = acts if not pol.cont else []
+    act_f = acts if pol.cont else []
+    ptrs = (pol.surface.planes(st) + refs + [None] * (3 - c.n_ref)
+            + act_i + [None] * (MAX_HEADS - len(act_i))
+            + act_f + [None] * (MAX_CHANNELS - len(act_f)) + list(it))
+    _universal_launch(pol, device, c.host.ctypes.data, c.flags.ctypes.data, pol.pk.ctypes.data,
+                      pol.pi.ctypes.data, seed_u64(seed), R * LANE, int(n_steps), pol.hidden,
+                      *_ptrs(w1, b1, w2, b2), _ptr(ls),
+                      ptr_array(pol.surface.planes(list(states))), ptr_array(ptrs))
+    return tuple(outs)
+
+
+def make_fused_policy_record_universal(env, n_steps, n_envs, hidden=16, randomize=None,
+                                       joint_heads=False):
+    """Fused policy-in-the-loop trajectory recorder for any catalog id, all
+    six families and both action types (``make_fused_policy_record_universal``,
+    pallas_policy.py:939-1284).
+
+    Per step a 2-layer tanh MLP reads the family's observation (the
+    ``obs_spec`` features, the normalised referenced quantities of the
+    pre-step state, the references before they advance) and picks the
+    converter action: a finite env samples each head from its own softmax
+    by inverse CDF (or, ``joint_heads``, one softmax over the product of
+    the heads, decoded by radix with the last head fastest; the recorded
+    columns stay per head); a continuous env samples one squashed-Gaussian
+    duty per channel, recording the raw ``mu + exp(ls) z`` while the
+    converter sees ``mid + half tanh(raw)``.  Then the family's step,
+    constraint, reward and reset run as in its random recorder, through the
+    same plain functions and device functions.
+
+    Returns ``rollout(seed, w1, b1, w2, b2, [ls,] *state0) -> dict`` of
+    ``(n_steps, n_envs // 128, 128)`` tensors keyed by ``rollout.signals``
+    (the family's states, ``ref_*``, the action columns, ``reward``,
+    ``done``), with flat float32 weights ``w1 (F*hidden,)``, ``b1``, ``w2
+    (hidden*A,)``, ``b2 (A,)`` (F = ``policy_obs_dim(env)``, A the summed
+    or joint head sizes, or the channels) and, for a continuous env, the
+    log-stds ``ls``.  The attributes are the JAX function's.  On CUDA
+    tensors one launch of ``csrc/fused_<family>_policy.cu`` records it all;
+    on CPU tensors the plain version runs.  The TPU grid's ``chunk`` and
+    ``interpret`` have no counterpart; ``randomize=`` raises, and StateNoise
+    is rejected (as by the JAX function), by the family's constants."""
+    if n_envs % LANE:
+        raise ValueError(f"n_envs must be a multiple of {LANE}")
+    R = n_envs // LANE
+    pol = UniversalPolicy(env, hidden, joint_heads, randomize)
+    fs, c = pol.surface, pol.consts
+    ref_names = tuple("ref_" + row["name"] for row in c.rows)
+    names = c.state_names + ref_names + c.act_names + ("reward", "done")
+
+    def rollout(seed, w1, b1, w2, b2, *rest):
+        ls, state0 = (rest[0], rest[1:]) if pol.cont else (None, rest)
+        check_rollout_inputs(R, n_steps, state0)
+        return dict(zip(names, policy_record_universal(pol, seed, w1, b1, w2, b2, ls, state0,
+                                                       n_steps)))
+
+    def pre_step(cur):
+        return fs.aux(dict(zip(fs.state_keys, cur)), afresh=True)
+
+    def quantities(cur, aux):
+        return fs.quantities(dict(zip(fs.state_keys, cur)), aux)
+
+    rollout.signals = names
+    rollout.state_names = c.state_names
+    rollout.ref_names = ref_names
+    rollout.act_names = c.act_names
+    rollout.obs_spec = fs.obs_spec
+    rollout.act_ns = pol.act_ns
+    rollout.joint_heads = pol.joint
+    rollout.n_out = pol.n_out
+    rollout.cont = pol.cont
+    rollout.act_range = fs.act_range
+    rollout.obs_dim = pol.obs_dim
+    rollout.n_state = c.n_state
+    rollout.fs_pre_step = pre_step
+    rollout.fs_quantities = quantities
+    rollout.policy = pol
+    rollout.consts = c
+    return rollout
+
+
+def fused_policy_init_planes(env, n_envs, randomize=None, device=None):
+    """Initial ``(n_envs // 128, 128)`` state planes for the universal
+    policy recorder and the PPO trainer (``fused_policy_init_planes``,
+    pallas_policy.py:1287-1313): zeros, the in-kernel reset value of every
+    plane.  The supply planes (an RC supply's u_0) and ``randomize=``'s
+    parameter draws (with the JAX function's ``seed``) arrive with queue 2,
+    item 8: both raise, the first in the family's constants."""
+    from ..utils.device import resolve_device
+
+    fs = _policy_family(env, randomize)
+    if n_envs % LANE:
+        raise ValueError(f"n_envs must be a multiple of {LANE}")
+    device = resolve_device(device)
+    return tuple(torch.zeros((n_envs // LANE, LANE), dtype=torch.float32, device=device)
+                 for _ in range(fs.consts.n_state))

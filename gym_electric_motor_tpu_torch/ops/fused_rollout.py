@@ -5,9 +5,9 @@
 the DC family (the 24 PermExDc, SeriesDc, ShuntDc and ExtExDc ids), the
 synchronous family (the twelve PMSM / SynRM ids), the induction family (the
 six SCIM ids), the EESM family (the six EESM ids), the DFIM family (the six
-DFIM ids) and the SRM family (the six SRM ids).  The sharded
-``make_sharded_fused_rollout`` and the universal policy recorder come with
-later slices of the port.
+DFIM ids) and the SRM family (the six SRM ids).  The universal policy
+recorder is ``fused_policy.make_fused_policy_record_universal``; the sharded
+``make_sharded_fused_rollout`` comes with a later slice of the port.
 """
 
 from __future__ import annotations

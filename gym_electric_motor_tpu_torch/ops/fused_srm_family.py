@@ -64,6 +64,7 @@ one (TC, SC) or three (CC).
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 import math
 
 import numpy as np
@@ -81,12 +82,14 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    policy_obs_spec,
     poly_load_rhs,
     ptr_array,
     ref_rows,
     reference_step,
     rotation_advance,
     seed_u64,
+    system_limits,
     uniform_from_bits,
     wiener_init,
     wse_err,
@@ -640,3 +643,40 @@ def make_fused_srm_rollout(env, n_steps, n_envs, action_mode="random", randomize
         return srm_rollout_buffer(c, state0, actions)
     rollout.consts = c
     return rollout
+
+
+# ---------------------------------------------------------------------------
+# the universal policy recorder's view of the family
+# ---------------------------------------------------------------------------
+
+
+def policy_surface(c: SrmConsts, env):
+    """What ``ops.fused_policy.make_fused_policy_record_universal`` needs of
+    the family (the policy-adapter surface of ``_srm_family``,
+    pallas_srm.py:398-409): the observation spec (omega, the three phase
+    currents over their limit, the angle as cos/sin), the heads (3, 3, 3)
+    of the per-phase commands or three duties in [-1, 1], and the plain
+    step.  ``aux`` gives (cos, sin) of the angle: the carried rotation at
+    constant speed, of the angle under the speed ODE (where the step takes
+    its own) or ``afresh``."""
+    ps, names, lim = system_limits(env)
+    i_lim, w_lim = float(lim[names.index("i_a")]), float(lim[names.index("omega")])
+    off, i_eps = int(c.mech), c.n_state - 1
+    obs_spec = policy_obs_spec(c.mech, w_lim, ps.load.omega_fixed, [
+        ("state", off, 1.0 / i_lim), ("state", off + 1, 1.0 / i_lim),
+        ("state", off + 2, 1.0 / i_lim), ("cos", i_eps), ("sin", i_eps)])
+
+    def aux(st, afresh=False):
+        if c.mech or afresh:
+            return torch.cos(st["eps"]), torch.sin(st["eps"])
+        return st["c"], st["s"]
+
+    return SimpleNamespace(
+        family="srm", consts=c, obs_spec=obs_spec, act_ns=(3, 3, 3) if c.finite else None,
+        act_range=None if c.finite else (np.full(3, -1.0, _f32), np.ones(3, _f32)),
+        state_keys=_state_keys(c), init=lambda bits, states: _random_init(c, bits, states),
+        aux=aux, aux_cs=lambda a: a,
+        quantities=lambda st, a: [srm_quantity(c, j, st) for j in range(c.n_ref)],
+        action=tuple,
+        step=lambda st, action, a: srm_action_step(c, st, action, None if c.mech else a),
+        planes=lambda planes: _with_omega(c, planes))

@@ -34,6 +34,7 @@ reference rows come out as ``(n_ref * n_envs // 128, 128)``, row 0 first.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -51,10 +52,12 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    policy_obs_spec,
     poly_load_rhs,
     ref_rows,
     reference_step,
     rotation_advance,
+    system_limits,
     uniform_from_bits,
     wiener_init,
     wse_err,
@@ -512,3 +515,39 @@ def make_fused_sync_rollout(env, n_steps, n_envs, action_mode="random", randomiz
         return sync_rollout_buffer(c, state0, actions)
     rollout.consts = c
     return rollout
+
+
+# ---------------------------------------------------------------------------
+# the universal policy recorder's view of the family
+# ---------------------------------------------------------------------------
+
+
+def policy_surface(c: SyncConsts, env):
+    """What ``ops.fused_policy.make_fused_policy_record_universal`` needs of
+    the family (the policy-adapter surface of ``_sync_family``,
+    pallas_sync.py:881-892): the observation spec (omega, i_sd and i_sq
+    over their limits, the angle as cos/sin), one 8-way head for the B6
+    bits or three duties in [-1, 1], and the plain step.  ``aux`` gives the
+    step's (cos, sin): the carried rotation at constant speed, of the angle
+    under the speed ODE or ``afresh``."""
+    ps, names, lim = system_limits(env)
+    i_lim, w_lim = float(lim[names.index("i_sd")]), float(lim[names.index("omega")])
+    off, i_eps = int(c.mech), c.n_state - 1
+    obs_spec = policy_obs_spec(c.mech, w_lim, ps.load.omega_fixed, [
+        ("state", off, 1.0 / i_lim), ("state", off + 1, 1.0 / i_lim), ("cos", i_eps),
+        ("sin", i_eps)])
+
+    def aux(st, afresh=False):
+        if c.mech or afresh:
+            return torch.cos(st["eps"]), torch.sin(st["eps"])
+        return st["c"], st["s"]
+
+    return SimpleNamespace(
+        family="sync", consts=c, obs_spec=obs_spec, act_ns=(8,) if c.finite else None,
+        act_range=None if c.finite else (np.full(3, -1.0, _f32), np.ones(3, _f32)),
+        state_keys=_state_keys(c), init=lambda bits, states: _random_init(c, bits, states),
+        aux=aux, aux_cs=lambda a: a,
+        quantities=lambda st, a: [sync_quantity(c, j, st) for j in range(c.n_ref)],
+        action=lambda xs: xs[0] if c.finite else tuple(xs),
+        step=lambda st, action, a: sync_action_step(c, st, action, *a),
+        planes=lambda planes: _out_state(c, planes))

@@ -20,7 +20,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
-from ..ops.fused_policy import flatten_policy_params, make_fused_policy_record_rollout, policy_obs_host
+from ..ops.fused_policy import (
+    flatten_policy_params,
+    make_fused_policy_record_rollout,
+    make_fused_policy_record_universal,
+    policy_obs_host,
+)
+
+LOG_2PI = float(np.log(2.0 * np.pi))
 
 
 def policy_obs(env, state):
@@ -67,9 +74,11 @@ class ActorCritic(nn.Module):
     value head (``wv``, ``bv``).  With ``w1v``/``b1v`` (``separate_critic``)
     the value head has its own trunk: with a shared trunk, the value
     regression repurposes the policy's features on torque tasks at
-    gamma = 0.99 (``init_actor_critic_params`` in the JAX package)."""
+    gamma = 0.99 (``init_actor_critic_params`` in the JAX package).  With
+    ``ls`` the policy is squashed-Gaussian: the policy head gives the means
+    and ``ls`` the learned per-channel log-stds."""
 
-    def __init__(self, w1, b1, wp, bp, wv, bv, w1v=None, b1v=None):
+    def __init__(self, w1, b1, wp, bp, wv, bv, w1v=None, b1v=None, ls=None):
         super().__init__()
         self.w1, self.b1 = nn.Parameter(w1), nn.Parameter(b1)
         self.wp, self.bp = nn.Parameter(wp), nn.Parameter(bp)
@@ -77,6 +86,7 @@ class ActorCritic(nn.Module):
         self.separate_critic = w1v is not None
         if self.separate_critic:
             self.w1v, self.b1v = nn.Parameter(w1v), nn.Parameter(b1v)
+        self.ls = None if ls is None else nn.Parameter(ls)
 
     def forward(self, obs):
         """``(logits, value)``."""
@@ -87,10 +97,13 @@ class ActorCritic(nn.Module):
 
 
 def init_actor_critic_params(seed, obs_dim, n_actions, hidden=32, separate_critic=False,
-                             device=None):
+                             device=None, n_cont=0, log_std_init=-0.5):
     """An ``ActorCritic`` with N(0, 0.1^2) weights drawn from a CPU
-    ``torch.Generator`` seeded with ``seed``, and zero biases.  The
-    continuous heads (``n_cont``) come with the universal policy recorder."""
+    ``torch.Generator`` seeded with ``seed``, and zero biases.
+    ``n_actions`` is the number of policy outputs (the summed logits of a
+    finite policy, the means of a continuous one); ``n_cont > 0`` adds the
+    ``ls`` log-std vector of the squashed-Gaussian policy, ``log_std_init``
+    each."""
     g = torch.Generator().manual_seed(int(seed))
     device = resolve_device(device)
     w = dict(w1=_randn(g, (obs_dim, hidden), device), wp=_randn(g, (hidden, n_actions), device),
@@ -98,6 +111,8 @@ def init_actor_critic_params(seed, obs_dim, n_actions, hidden=32, separate_criti
     if separate_critic:
         w["w1v"] = _randn(g, (obs_dim, hidden), device)
         w["b1v"] = torch.zeros(hidden, device=device)
+    if n_cont:
+        w["ls"] = torch.full((n_cont,), float(log_std_init), device=device)
     return ActorCritic(b1=torch.zeros(hidden, device=device),
                        bp=torch.zeros(n_actions, device=device),
                        bv=torch.zeros(1, device=device), **w)
@@ -116,12 +131,9 @@ def _tensors(params, names, device):
 def params_from_numpy(params, device=None) -> ActorCritic:
     """An ``ActorCritic`` holding a JAX actor-critic parameter dict taken out
     as numpy arrays (``jax.tree.map(np.asarray, params)``), with or without
-    the separate critic trunk."""
-    if "ls" in params:
-        raise NotImplementedError("continuous heads ('ls') come with the universal policy "
-                                  "recorder, which is not ported yet")
-    return ActorCritic(**_tensors(params, ("w1", "b1", "wp", "bp", "wv", "bv", "w1v", "b1v"),
-                                  device))
+    the separate critic trunk and the log-stds ``ls``."""
+    return ActorCritic(**_tensors(params, ("w1", "b1", "wp", "bp", "wv", "bv", "w1v", "b1v",
+                                           "ls"), device))
 
 
 def policy_params_from_numpy(params, device=None) -> Policy:
@@ -135,9 +147,19 @@ def policy_params_from_numpy(params, device=None) -> Policy:
 # ---------------------------------------------------------------------------
 
 
-def heads_logp_ent(logits, acts, act_ns):
-    """Log-prob of the taken actions and the policy entropy of a factorised
-    categorical policy: sums over the heads, one softmax slice each."""
+def heads_logp_ent(logits, acts, act_ns, ls=None):
+    """Log-prob of the taken actions and the policy entropy.  Finite
+    (``act_ns``): a factorised categorical policy, sums over the heads, one
+    softmax slice each.  Continuous (``act_ns`` None): the diagonal Gaussian
+    of the recorded raw samples about the means ``logits`` with log-stds
+    ``ls``, and the Gaussian entropy; the tanh squash's correction depends on
+    the raw sample only, so it cancels in the PPO ratio and is left out
+    (sharded.py:598-616)."""
+    if act_ns is None:
+        z = (acts - logits) / torch.exp(ls)
+        lp = torch.sum(-0.5 * z * z - ls - 0.5 * LOG_2PI, dim=-1)
+        ent = torch.sum(ls + 0.5 * (LOG_2PI + 1.0)) * torch.ones_like(lp)
+        return lp, ent
     lp = ent = 0.0
     off = 0
     for h, n in enumerate(act_ns):
@@ -185,7 +207,7 @@ def ppo_batch(model, roll, out, planes, gamma, lam):
     act = torch.stack([tn(out[an]) for an in roll.act_names], dim=-1)
     with torch.no_grad():
         logits_t, val_t = model(obs_t)
-        logp_t, _ = heads_logp_ent(logits_t, act, roll.act_ns)
+        logp_t, _ = heads_logp_ent(logits_t, act, roll.act_ns, model.ls)
         obs_last = policy_obs_host(roll, {nm: tn(out[nm])[-1] for nm in roll.state_names},
                                    {nm: refs[nm][-1] for nm in roll.ref_names})
         _, last_val = model(obs_last)
@@ -198,7 +220,7 @@ def ppo_batch(model, roll, out, planes, gamma, lam):
 def ppo_loss(model, obs, act, logp_old, adv, ret, act_ns, clip_eps, vf_coef, ent_coef):
     """Clipped surrogate + ``vf_coef`` x value MSE - ``ent_coef`` x entropy."""
     logits, value = model(obs)
-    logp, ent_all = heads_logp_ent(logits, act, act_ns)
+    logp, ent_all = heads_logp_ent(logits, act, act_ns, model.ls)
     ratio = torch.exp(logp - logp_old)
     pg = -torch.mean(torch.minimum(ratio * adv,
                                    torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps) * adv))
@@ -209,49 +231,52 @@ def ppo_loss(model, obs, act, logp_old, adv, ret, act_ns, clip_eps, vf_coef, ent
 def make_fused_ppo_trainer(env, hidden=16, lr=3e-4, horizon=256, n_envs=8192, n_epochs=2,
                            n_minibatches=8, clip_eps=0.2, gamma=0.99, lam=0.95, vf_coef=0.5,
                            ent_coef=0.0, mesh=None, kernel="auto", randomize=None):
-    """PPO with fused on-policy collection on Finite-CC-PMSM-v0: each
-    iteration is one ``policy_record`` launch (the actor trunk of the
-    ``ActorCritic`` samples in the kernel, every step recorded), then GAE
-    and minibatch Adam on the recorded batch in PyTorch.
+    """PPO with fused on-policy collection on any catalog id
+    (``make_fused_ppo_trainer``, sharded.py:511-760): each iteration is one
+    recorder launch (the actor trunk of the ``ActorCritic`` samples in the
+    kernel, every step recorded), then GAE and minibatch Adam on the
+    recorded batch in PyTorch.
 
-    ``env`` needs ``state_filter=('omega', 'i_sd', 'i_sq', 'epsilon')`` and
-    ``model`` an ``ActorCritic`` with ``obs_dim=7, n_actions=8`` and
-    ``hidden`` units.  Returns ``(init_opt, train)``: ``init_opt(model)`` is
-    a ``torch.optim.Adam`` with optax's defaults, and ``train(model, opt,
-    planes, seed, n_iters) -> (model, opt, planes, mean_reward (n_iters,))``
-    updates ``model`` in place; ``planes`` are the three ``(n_envs // 128,
-    128)`` state planes (i_sd, i_sq, eps) and iteration i collects with seed
-    ``seed + i``.  ``train.ppo_update(model, opt, out, planes, seed)`` is
-    one iteration's update on a recorded batch ``out`` and ``train.roll``
-    the recorder.  Minibatches are whole envs over the full horizon, drawn
-    by a permutation per epoch from a generator seeded with (17, seed).
-
-    ``kernel='pmsm'`` takes the PMSM recorder; ``'auto'`` takes it too and
-    raises where it does not apply.  ``mesh=`` (slice 6 of the port),
-    ``randomize=`` and ``kernel='universal'`` (the universal policy
-    recorder) are not ported and raise."""
+    ``kernel`` picks the recorder: ``'pmsm'`` the Finite-CC-PMSM one
+    (``policy_record``; the env needs ``state_filter=('omega', 'i_sd',
+    'i_sq', 'epsilon')`` and the model ``obs_dim=7, n_actions=8``);
+    ``'universal'`` the universal one (``make_fused_policy_record_universal``,
+    every id: the model takes ``obs_dim=policy_obs_dim(env)`` and
+    ``n_actions=sum(policy_act_ns(env))``, or ``policy_n_cont(env)`` means
+    with ``n_cont`` log-stds); ``'auto'`` the PMSM recorder where it applies
+    and the universal one otherwise.  Returns ``(init_opt, train)``:
+    ``init_opt(model)`` is a ``torch.optim.Adam`` with optax's defaults, and
+    ``train(model, opt, planes, seed, n_iters) -> (model, opt, planes,
+    mean_reward (n_iters,))`` updates ``model`` in place; ``planes`` are the
+    recorder's ``(n_envs // 128, 128)`` state planes
+    (``fused_policy_init_planes`` builds the universal recorder's) and
+    iteration i collects with seed ``seed + i``.  ``train.ppo_update(model,
+    opt, out, planes, seed)`` is one iteration's update on a recorded batch
+    ``out``, ``train.collect(model, planes, seed)`` one collection and
+    ``train.roll`` the recorder.  Minibatches are whole envs over the full
+    horizon, drawn by a permutation per epoch from a generator seeded with
+    (17, seed).  ``mesh=`` (slice 6 of the port) and ``randomize=`` (queue
+    2, item 8) raise."""
     if mesh is not None:
         raise NotImplementedError("mesh= lays the env batch over several devices; it comes "
                                   "with slice 6 of the port")
     if randomize:
-        raise NotImplementedError("randomize= needs the universal policy recorder (the "
-                                  "universal tier of the port), which is not ported yet")
-    if kernel == "universal":
-        raise NotImplementedError("kernel='universal': the universal policy recorder (the "
-                                  "universal tier of the port) is not ported yet")
-    if kernel not in ("auto", "pmsm"):
+        raise NotImplementedError("randomize= (per-env motor parameters as state planes) is not "
+                                  "fused yet; it arrives with queue 2, item 8 of the port")
+    if kernel not in ("auto", "pmsm", "universal"):
         raise ValueError(f"kernel must be 'auto', 'pmsm' or 'universal', got {kernel!r}")
     if n_envs % n_minibatches:
         raise ValueError(f"n_envs ({n_envs}) must split into {n_minibatches} equal minibatches")
-    try:
-        roll = make_fused_policy_record_rollout(env, horizon, n_envs, hidden=hidden)
-    except (NotImplementedError, ValueError) as err:
-        if kernel == "pmsm":
-            raise
-        raise NotImplementedError(
-            "kernel='auto': the PMSM policy recorder does not take this env, and the "
-            f"universal policy recorder (the universal tier of the port) is not ported yet: {err}"
-        ) from err
+    roll = None
+    if kernel != "universal":
+        try:
+            roll = make_fused_policy_record_rollout(env, horizon, n_envs, hidden=hidden)
+        except (NotImplementedError, ValueError):
+            if kernel == "pmsm":
+                raise
+    if roll is None:
+        roll = make_fused_policy_record_universal(env, horizon, n_envs, hidden=hidden)
+    cont = bool(getattr(roll, "cont", False))
     mb_envs = n_envs // n_minibatches
 
     def init_opt(model):
@@ -278,7 +303,8 @@ def make_fused_ppo_trainer(env, hidden=16, lr=3e-4, horizon=256, n_envs=8192, n_
     def collect(model, planes, seed):
         w1, b1, wp, bp = flatten_policy_params(
             {"w1": model.w1, "b1": model.b1, "w2": model.wp, "b2": model.bp})
-        return roll(seed, w1, b1, wp, bp, *planes)
+        extra = (model.ls.detach().contiguous(),) if cont else ()
+        return roll(seed, w1, b1, wp, bp, *extra, *planes)
 
     def train(model, opt, planes, seed, n_iters):
         rs = []

@@ -107,8 +107,9 @@ def test_cuda_policy_kernels_match_plain_versions():
         args = (consts, 5, *w7, *start, T)
         assert share(fp.policy_record(*args), fp.policy_record_plain(*args)) >= 0.99
     torch.cuda.synchronize()
-    assert fp.LAUNCHES == {"policy_rollout": 6, "policy_record": 3, "reinforce_rollout": 6,
-                           "reinforce_reduce": 6}
+    # LAUNCHES also counts the universal recorders' kernels, none launched here
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {
+        "policy_rollout": 6, "policy_record": 3, "reinforce_rollout": 6, "reinforce_reduce": 6}
 
 
 @pytest.mark.cuda
@@ -380,3 +381,57 @@ def test_cuda_srm_kernels_match_plain_versions(env_id, psi_s):
         assert ok.all() if buffer else ok.mean() >= 0.99
     torch.cuda.synchronize()
     assert all(v == 1 for v in srf.LAUNCHES.values())
+
+
+POLICY_CASES = [("Finite-CC-PMSM-v0", False), ("Cont-SC-SynRM-v0", False),
+                ("Finite-TC-SeriesDc-v0", False), ("Finite-CC-ExtExDc-v0", True),
+                ("Cont-SC-ShuntDc-v0", False), ("Finite-CC-SCIM-v0", False),
+                ("Cont-TC-SCIM-v0", False), ("Finite-CC-EESM-v0", False),
+                ("Finite-CC-EESM-v0", True), ("Cont-SC-EESM-v0", False),
+                ("Finite-TC-DFIM-v0", False), ("Finite-CC-DFIM-v0", True),
+                ("Cont-CC-DFIM-v0", False), ("Finite-CC-SRM-v0", False),
+                ("Finite-SC-SRM-v0", True), ("Cont-SC-SRM-v0", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 16, 5])
+@pytest.mark.parametrize("env_id,joint", POLICY_CASES,
+                         ids=[e + ("-joint" if j else "") for e, j in POLICY_CASES])
+def test_cuda_universal_policy_kernel_matches_plain_version(env_id, joint, H):
+    """The universal policy recorder of each family (finite, joint heads
+    and continuous) against its plain version at H = 32 (PPO's width), 16
+    (the trainer's default) and an odd 5, since H is a run-time count that
+    places the staged weights: every signal of an env at every step at
+    rtol 1e-4 / atol 1e-4, angles modulo 2 pi, in 99% of envs (the
+    random-mode rule), and one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+
+    dev = torch.device("cuda")
+    R, T = 2, 64
+    env = gt.make_functional(env_id, device=dev)
+    roll = fp.make_fused_policy_record_universal(env, T, R * 128, hidden=H, joint_heads=joint)
+    pol = roll.policy
+    rng = np.random.default_rng(10)
+    scale = 0.3 if pol.cont else 0.5
+    w = [torch.as_tensor((rng.normal(size=n) * s).astype(np.float32), device=dev)
+         for n, s in ((pol.obs_dim * H, scale), (H, 0.1), (H * pol.n_out, scale),
+                      (pol.n_out, 0.1))]
+    ls = (torch.full((len(roll.act_names),), -0.5, device=dev) if pol.cont else None)
+    planes = fp.fused_policy_init_planes(env, R * 128, device=dev)
+    fp.reset_launches()
+    got = fp.policy_record_universal(pol, 5, *w, ls, planes, T)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES[pol.kernel] == 1
+    want = fp.policy_record_universal_plain(pol, 5, *w, ls, planes, T)
+    ok = np.ones(R * 128, bool)
+    for name, g, x in zip(roll.signals, got, want):
+        assert g.dtype == x.dtype and g.shape == (T, R, 128)
+        g, x = g.double().cpu().numpy(), x.double().cpu().numpy()
+        err = np.abs(g - x)
+        if name == "eps":
+            err = np.remainder(err, 2 * np.pi)
+            err = np.minimum(err, 2 * np.pi - err)
+        ok &= (err <= 1e-4 + 1e-4 * np.abs(x)).reshape(-1, R * 128).all(axis=0)
+    assert ok.mean() >= 0.99

@@ -1,0 +1,138 @@
+"""The universal policy recorder's surface on all 60 catalog ids against the
+JAX package's (``ops/pallas_policy.py``), and fused PPO through it.
+
+* The surface: ``policy_obs_dim``, ``policy_act_ns``, ``policy_n_cont``, the
+  recorder's signals, names, observation spec, head sizes (joint too) and
+  duty ranges equal JAX's exactly; the recorded signals' dtypes are JAX's
+  (float32, int32 actions of a finite id).
+* ``policy_obs_host`` on one recording (the port's plain recorder, 128 envs
+  x 8 steps, H 8) rebuilds the observation that JAX's function rebuilds
+  from the same planes, within 1e-5.
+* ``make_fused_ppo_trainer(env, kernel='auto')`` builds and trains on
+  every id at its defaults (two iterations at 128 envs x 8 steps, H 8):
+  finite rewards, moved parameters, the universal recorder's planes.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gym_electric_motor_tpu as gemx
+from gym_electric_motor_tpu.ops import pallas_policy as jp
+import gym_electric_motor_tpu_torch as gt
+from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+from gym_electric_motor_tpu_torch.parallel import init_actor_critic_params, make_fused_ppo_trainer
+
+torch.set_num_threads(1)
+
+N, T, H = 128, 8, 8
+MULTI_HEAD = ("Finite-CC-ExtExDc-v0", "Finite-SC-ExtExDc-v0", "Finite-CC-EESM-v0",
+              "Finite-TC-DFIM-v0", "Finite-CC-SRM-v0")
+
+
+@pytest.mark.parametrize("env_id", gt.ENV_IDS)
+def test_surface_matches_jax(env_id):
+    jenv = gemx.make_functional(env_id)
+    tenv = gt.make_functional(env_id, device="cpu")
+    assert fp.policy_obs_dim(tenv) == jp.policy_obs_dim(jenv)
+    assert fp.policy_act_ns(tenv) == jp.policy_act_ns(jenv)
+    assert fp.policy_n_cont(tenv) == jp.policy_n_cont(jenv)
+    jroll = jp.make_fused_policy_record_universal(jenv, T, N, hidden=H, interpret=True)
+    troll = fp.make_fused_policy_record_universal(tenv, T, N, hidden=H)
+    for attr in ("signals", "state_names", "ref_names", "act_names", "act_ns", "n_out",
+                 "cont", "obs_dim", "n_state", "joint_heads"):
+        assert getattr(troll, attr) == getattr(jroll, attr), attr
+    assert tuple(troll.obs_spec) == tuple(jroll.obs_spec)
+    if troll.cont:
+        for x, y in zip(troll.act_range, jroll.act_range):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+    else:
+        assert troll.act_range is None is jroll.act_range
+    if env_id in MULTI_HEAD:
+        jj = jp.make_fused_policy_record_universal(jenv, T, N, hidden=H, interpret=True,
+                                                   joint_heads=True)
+        tj = fp.make_fused_policy_record_universal(tenv, T, N, hidden=H, joint_heads=True)
+        assert tj.n_out == jj.n_out and tj.joint_heads
+    act = torch.float32 if troll.cont else torch.int32
+    assert troll.policy.dtypes == ((torch.float32,) * (troll.n_state + len(troll.ref_names))
+                                   + (act,) * len(troll.act_names) + (torch.float32,) * 2)
+
+
+def _record(tenv):
+    roll = fp.make_fused_policy_record_universal(tenv, T, N, hidden=H)
+    rng = np.random.default_rng(1)
+    w = [torch.as_tensor(rng.normal(0, 0.5, n).astype(np.float32))
+         for n in (roll.obs_dim * H, H, H * roll.n_out, roll.n_out)]
+    extra = (torch.full((len(roll.act_names),), -0.5),) if roll.cont else ()
+    planes = fp.fused_policy_init_planes(tenv, N, device="cpu")
+    out = roll(5, *w, *extra, *planes)
+    for name, dt in zip(roll.signals, roll.policy.dtypes):
+        assert out[name].dtype == dt and out[name].shape == (T, N // 128, 128)
+        assert bool(torch.isfinite(out[name].double()).all())
+    return roll, planes, out
+
+
+@pytest.mark.parametrize("env_id", gt.ENV_IDS)
+def test_policy_obs_host_matches_jax(env_id):
+    jenv = gemx.make_functional(env_id)
+    tenv = gt.make_functional(env_id, device="cpu")
+    roll, planes, out = _record(tenv)
+    jroll = jp.make_fused_policy_record_universal(jenv, T, N, hidden=H, interpret=True)
+    prev = {nm: torch.cat([planes[i].reshape(1, N), out[nm].reshape(T, N)[:-1]])
+            for i, nm in enumerate(roll.state_names)}
+    refs = {nm: out[nm].reshape(T, N) for nm in roll.ref_names}
+    got = fp.policy_obs_host(roll, prev, refs)
+    want = jp.policy_obs_host(jroll, {k: jnp.asarray(v.numpy()) for k, v in prev.items()},
+                              {k: jnp.asarray(v.numpy()) for k, v in refs.items()})
+    assert got.shape == (T, N, roll.obs_dim)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("env_id", gt.ENV_IDS)
+def test_fused_ppo_auto_trains_on_every_id(env_id):
+    tenv = gt.make_functional(env_id, device="cpu")
+    init_opt, train = make_fused_ppo_trainer(tenv, hidden=H, horizon=T, n_envs=N,
+                                             n_minibatches=2, n_epochs=1, lr=1e-3)
+    pol = train.roll.policy
+    n_cont = fp.policy_n_cont(tenv)
+    assert pol.cont == bool(n_cont)
+    model = init_actor_critic_params(1, pol.obs_dim, pol.n_out, H, device="cpu", n_cont=n_cont)
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    planes = fp.fused_policy_init_planes(tenv, N, device="cpu")
+    model, _opt, planes, rs = train(model, init_opt(model), planes, 3, 2)
+    assert rs.shape == (2,) and bool(torch.isfinite(rs).all())
+    assert len(planes) == pol.consts.n_state
+    assert all(bool(torch.isfinite(x).all()) for x in planes)
+    assert ("ls" in p0) == bool(n_cont)
+    for k, v in model.named_parameters():
+        assert not torch.equal(v.detach(), p0[k]), k
+
+
+def test_options_raise():
+    """randomize= raises naming queue 2, item 8 (the builder, the initial
+    planes); joint heads need a multi-head finite id; the kernels take 1 to
+    32 hidden units; the weights and log-stds are checked."""
+    tenv = gt.make_functional("Finite-CC-EESM-v0", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        fp.make_fused_policy_record_universal(tenv, T, N, randomize=("r_s",))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        fp.fused_policy_init_planes(tenv, N, randomize=("r_s",))
+    for eid in ("Finite-CC-PMSM-v0", "Cont-CC-EESM-v0"):
+        with pytest.raises(ValueError, match="joint_heads"):
+            fp.make_fused_policy_record_universal(gt.make_functional(eid, device="cpu"), T, N,
+                                                  joint_heads=True)
+    with pytest.raises(ValueError, match="hidden"):
+        fp.make_fused_policy_record_universal(tenv, T, N, hidden=33)
+    with pytest.raises(ValueError, match="multiple"):
+        fp.make_fused_policy_record_universal(tenv, T, 100)
+    roll = fp.make_fused_policy_record_universal(tenv, T, N, hidden=H)
+    planes = fp.fused_policy_init_planes(tenv, N, device="cpu")
+    w = [torch.zeros(n) for n in (roll.obs_dim * H, H, H * roll.n_out, roll.n_out)]
+    with pytest.raises(ValueError, match="w2"):
+        roll(1, w[0], w[1], torch.zeros(H * roll.n_out + 1), w[3], *planes)
+    cont = gt.make_functional("Cont-CC-EESM-v0", device="cpu")
+    croll = fp.make_fused_policy_record_universal(cont, T, N, hidden=H)
+    wc = [torch.zeros(n) for n in (croll.obs_dim * H, H, H * croll.n_out, croll.n_out)]
+    with pytest.raises(ValueError, match="ls"):
+        croll(1, *wc, torch.zeros(3), *fp.fused_policy_init_planes(cont, N, device="cpu"))

@@ -28,6 +28,10 @@ import torch
 import gym_electric_motor_tpu as gemx
 from gym_electric_motor_tpu.ops.pallas_policy import (
     make_fused_policy_record_rollout as jax_record,
+    make_fused_policy_record_universal as jax_record_universal,
+    policy_act_ns as jax_policy_act_ns,
+    policy_n_cont as jax_policy_n_cont,
+    policy_obs_dim as jax_policy_obs_dim,
     policy_obs_host as jax_obs_host,
 )
 from gym_electric_motor_tpu.parallel.sharded import (
@@ -180,24 +184,58 @@ def test_ppo_loss_gradient_matches_jax():
                                    atol=1e-4 * np.abs(want).max(), err_msg=name)
 
 
-def test_one_ppo_iteration_matches_jax_train():
-    jenv, tenv = _envs()
+def _universal_case(env_id):
+    """The JAX and port envs of a universal-recorder id, the JAX
+    actor-critic parameters (with ``ls`` for a continuous id) and one JAX
+    interpret recorder launch under them, with its initial planes."""
+    jenv = gemx.make_functional(env_id)
+    tenv = gt.make_functional(env_id, device="cpu")
+    F, cont = jax_policy_obs_dim(jenv), jax_policy_n_cont(jenv)
+    A = cont or int(sum(jax_policy_act_ns(jenv)))
+    params = jax_init_ac(jax.random.PRNGKey(1), F, A, H, n_cont=cont)
+    roll = jax_record_universal(jenv, T, N, hidden=H, interpret=True)
+    z = jnp.zeros((N // 128, 128), jnp.float32)
+    planes = (z,) * roll.n_state
+    extra = (params["ls"],) if cont else ()
+    out = roll(SEED, params["w1"].reshape(-1), params["b1"], params["wp"].reshape(-1),
+               params["bp"], *extra, *planes)
+    return jenv, tenv, params, roll, {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("env_id", ["Finite-CC-PMSM-v0", "Finite-CC-PermExDc-v0",
+                                    "Cont-CC-PermExDc-v0"])
+def test_one_ppo_iteration_matches_jax_train(env_id):
+    """The PMSM recorder's batch (Finite-CC-PMSM-v0, the state filter) and
+    the universal recorder's (Finite- and Cont-CC-PermExDc-v0, the latter
+    with the log-stds ``ls``): one update on the same JAX-recorded batch and
+    parameters."""
     lr = 1e-3
     cfg = dict(hidden=H, lr=lr, horizon=T, n_envs=N, n_epochs=2, n_minibatches=1, **CFG)
-    params = jax_init_ac(jax.random.PRNGKey(1), 7, 8, H)
+    if env_id == "Finite-CC-PMSM-v0":
+        jenv, tenv = _envs()
+        params = jax_init_ac(jax.random.PRNGKey(1), 7, 8, H)
+        params_np = jax.tree.map(np.asarray, params)
+        _roll_j, out = _jax_batch(jenv, params_np)
+        state_names = ("i_sd", "i_sq", "eps")
+    else:
+        jenv, tenv, params, roll_j, out = _universal_case(env_id)
+        params_np = jax.tree.map(np.asarray, params)
+        state_names = roll_j.state_names
     init_opt_j, train_j = jax_make_ppo(jenv, interpret=True, **cfg)
     z = jnp.zeros((N // 128, 128), jnp.float32)
-    p_jax, _opt, _planes, rs_jax = train_j(params, init_opt_j(params), (z, z, z), SEED, 1)
+    p_jax, _opt, _planes, rs_jax = train_j(params, init_opt_j(params),
+                                           (z,) * len(state_names), SEED, 1)
 
-    params_np = jax.tree.map(np.asarray, params)
-    _roll_j, out = _jax_batch(jenv, params_np)
     model = params_from_numpy(params_np, device="cpu")
     init_opt, train = make_fused_ppo_trainer(tenv, **cfg)
+    assert tuple(train.roll.state_names) == tuple(state_names)
     zt = torch.zeros((N // 128, 128))
-    planes, mean_r = train.ppo_update(model, init_opt(model), _torch_out(out), (zt, zt, zt), SEED)
+    planes, mean_r = train.ppo_update(model, init_opt(model), _torch_out(out),
+                                      (zt,) * len(state_names), SEED)
     np.testing.assert_allclose(float(mean_r), float(rs_jax[0]), rtol=1e-6)
-    for j, nm in enumerate(("i_sd", "i_sq", "eps")):
+    for j, nm in enumerate(state_names):
         np.testing.assert_array_equal(planes[j].numpy(), out[nm][-1])
+    assert {n for n, _ in model.named_parameters()} == set(params_np)
     for name, p in model.named_parameters():
         d = np.abs(p.detach().numpy() - np.asarray(p_jax[name]))
         assert d.max() <= 2 * lr, (name, d.max())
@@ -220,17 +258,57 @@ def test_fused_ppo_trainer_runs():
 
 
 def test_unported_options_raise():
+    """mesh= (slice 6) and randomize= (queue 2, item 8) raise; the
+    universal recorder builds (kernel='universal', and 'auto' where the PMSM
+    recorder does not apply); 'pmsm' keeps its state-filter check."""
     _jenv, tenv = _envs()
     with pytest.raises(NotImplementedError, match="slice 6"):
         make_fused_ppo_trainer(tenv, n_envs=256, mesh=object())
-    with pytest.raises(NotImplementedError, match="universal"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         make_fused_ppo_trainer(tenv, n_envs=256, randomize=("r_s",))
-    with pytest.raises(NotImplementedError, match="universal"):
-        make_fused_ppo_trainer(tenv, n_envs=256, kernel="universal")
+    _init, train = make_fused_ppo_trainer(tenv, n_envs=256, kernel="universal")
+    assert train.roll.policy.kernel == "sync_policy_record"
+    _init, train = make_fused_ppo_trainer(tenv, n_envs=256, kernel="auto")
+    assert getattr(train.roll, "policy", None) is None  # the PMSM recorder
     unfiltered = gt.make_functional("Finite-CC-PMSM-v0", device="cpu")
-    with pytest.raises(NotImplementedError, match="universal"):
-        make_fused_ppo_trainer(unfiltered, n_envs=256, kernel="auto")
+    _init, train = make_fused_ppo_trainer(unfiltered, n_envs=256, kernel="auto")
+    assert train.roll.policy.kernel == "sync_policy_record"
     with pytest.raises(ValueError, match="state_filter"):
         make_fused_ppo_trainer(unfiltered, n_envs=256, kernel="pmsm")
-    with pytest.raises(NotImplementedError):
-        params_from_numpy({"w1": np.zeros((7, 8)), "ls": np.zeros(2)}, device="cpu")
+    with pytest.raises(ValueError, match="kernel"):
+        make_fused_ppo_trainer(unfiltered, n_envs=256, kernel="other")
+
+
+@pytest.mark.parametrize("n_cont", [1, 6])
+def test_gaussian_heads_match_jax(n_cont):
+    """``init_actor_critic_params(n_cont=)`` adds ``ls`` at -0.5 as JAX's
+    does; ``params_from_numpy`` carries a JAX ``ls`` across; the port's
+    continuous ``heads_logp_ent`` and its gradient in ``ls`` match a
+    test-side copy of sharded.py:598-616 on the same parameters."""
+    model = init_actor_critic_params(1, 5, n_cont, H, device="cpu", n_cont=n_cont)
+    torch.testing.assert_close(model.ls.detach(), torch.full((n_cont,), -0.5))
+    params = jax.tree.map(np.asarray, jax_init_ac(jax.random.PRNGKey(4), 5, n_cont, H,
+                                                  n_cont=n_cont, log_std_init=-0.3))
+    params["ls"] = params["ls"] + np.linspace(-0.2, 0.2, n_cont).astype(np.float32)
+    model = params_from_numpy(params, device="cpu")
+    rng = np.random.default_rng(3)
+    obs = rng.normal(size=(7, 11, 5)).astype(np.float32)
+    raw = rng.normal(size=(7, 11, n_cont)).astype(np.float32)
+    log_2pi = float(np.log(2.0 * np.pi))
+
+    def jax_lp_ent(p):
+        logits, _v = jax_actor_critic(p, jnp.asarray(obs))
+        z = (jnp.asarray(raw) - logits) / jnp.exp(p["ls"])
+        lp = jnp.sum(-0.5 * z * z - p["ls"] - 0.5 * log_2pi, axis=-1)
+        ent = jnp.sum(p["ls"] + 0.5 * (log_2pi + 1.0)) * jnp.ones(lp.shape, lp.dtype)
+        return lp, ent
+
+    want_lp, want_ent = jax_lp_ent(jax.tree.map(jnp.asarray, params))
+    logits, _v = model(torch.as_tensor(obs))
+    lp, ent = tsh.heads_logp_ent(logits, torch.as_tensor(raw), None, model.ls)
+    np.testing.assert_allclose(lp.detach().numpy(), np.asarray(want_lp), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ent.detach().numpy(), np.asarray(want_ent), rtol=1e-6)
+    g_jax = jax.grad(lambda p: jnp.mean(jax_lp_ent(p)[0]))(jax.tree.map(jnp.asarray, params))
+    lp.mean().backward()
+    np.testing.assert_allclose(model.ls.grad.numpy(), np.asarray(g_jax["ls"]), rtol=1e-4,
+                               atol=1e-6)

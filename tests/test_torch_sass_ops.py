@@ -85,3 +85,37 @@ def test_second_loop_counts_the_loop_outside_the_main_one():
     assert sass_ops.loop_counts(insns)["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 1}
     assert sass_ops.loop_counts(insns, second=True)["always"] == {"fp32": 1, "alu": 1, "imad": 0,
                                                                   "xu": 0}
+
+
+SASS_NESTED = """
+        Function : _Z6nestedPfi
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   FMUL R2, R2, R3 ;
+        /*0020*/                   ISETP.GE.AND P0, PT, R7, 0x1, PT ;
+        /*0030*/               @!P0 BRA 0x80 ;
+        /*0040*/                   FADD R4, R4, R5 ;
+        /*0050*/                   FMUL R5, R5, R6 ;
+        /*0060*/                   MUFU.TANH R6, R4 ;
+        /*0070*/               @P1 BRA 0x40 ;
+        /*0080*/                   FFMA R2, R2, R3, R4 ;
+        /*0090*/                   ISETP.NE.AND P1, PT, R0, UR4, PT ;
+        /*00a0*/               @P1 BRA 0x10 ;
+        /*00b0*/                   EXIT ;
+"""
+
+
+def test_nested_loop_counts_apart():
+    """The policy recorders' hidden-unit loop (its trip count a launch
+    parameter) nested in the step loop: ``inner`` counts its body per
+    iteration and the outer counts leave it out, so that a step issues the
+    outer count plus H times the inner one."""
+    insns = sass_ops.functions(SASS_NESTED)["_Z6nestedPfi"]
+    counts = sass_ops.loop_counts(insns, inner=True)
+    assert counts["always"] == {"fp32": 3, "alu": 2, "imad": 0, "xu": 0}
+    assert counts["inner"]["always"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1}
+    # without `inner` the nested body counts once, as conditional (the guard skips it)
+    plain = sass_ops.loop_counts(insns)
+    assert plain["always"] == counts["always"] and "inner" not in plain
+    assert plain["conditional"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1}
+    with pytest.raises(ValueError, match="nested"):
+        sass_ops.loop_counts(sass_ops.functions(SASS)["_Z4stepPfi"], inner=True)

@@ -6,15 +6,12 @@ Run on a machine with the CUDA toolkit, from the root of a checkout:
 
     python3 tools/sass_ops.py [kernel ...]
 
-It builds ``csrc/fused_pmsm.cu``, ``csrc/fused_policy.cu``,
-``csrc/fused_sync.cu``, ``csrc/fused_dc.cu``, ``csrc/fused_dc_record.cu``,
-``csrc/fused_induction.cu``, ``csrc/fused_induction_record.cu``,
-``csrc/fused_eesm.cu``, ``csrc/fused_eesm_record.cu``, ``csrc/fused_dfim.cu``
-and ``csrc/fused_dfim_record.cu`` (as the package does at first use) and
-prints one
-JSON line per kernel; a template instance is named by a substring of its
-mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1E`` for H = 16,
-categorical, Wiener.
+It builds the libraries of ``STEP_INSTANCES`` (``csrc/fused_pmsm.cu``,
+``csrc/fused_policy.cu``, the six families' rollout and record sources and
+their ``csrc/fused_<family>_policy.cu``, as the package does at first use)
+and prints one JSON line per kernel; a template instance is named by a
+substring of its mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1E``
+for H = 16, categorical, Wiener.
 With no argument it counts the instances of ``STEP_INSTANCES``, whose
 counts ``chip_smoke.py`` takes for its bounds through :func:`step_ops`.
 
@@ -41,7 +38,11 @@ Moves (MOV, move idioms of IMAD and HFMA2), uniform-datapath instructions
 are not counted, so the counts are a lower bound on the issued work.  The
 blocks a step runs only sometimes (a branch taken on some data) are
 reported apart, as ``conditional``.  The loop must hold one step per
-iteration: the kernels' step loops are marked ``#pragma unroll 1``.
+iteration: the kernels' step loops are marked ``#pragma unroll 1``.  A
+loop nested in the step whose trip count is a launch parameter (the
+universal policy recorders' loop over the H hidden units) is counted apart
+where the instance's name ends in ``@inner``: a step then issues the outer
+count plus H times the inner one.
 """
 
 from __future__ import annotations
@@ -108,11 +109,14 @@ def _target(args):
     return None
 
 
-def loop_counts(insns, second=False) -> dict:
+def loop_counts(insns, second=False, inner=False) -> dict:
     """Always-executed and conditional counts of the main loop's body, or
     (``second``) of the largest loop outside it: a random kernel's step loop
     without the reference advance, which it takes when every reference is
-    constant."""
+    constant.  With ``inner`` the largest loop nested in that body (the
+    policy recorders' hidden-unit loop, whose trip count is a launch
+    parameter) is counted apart, as ``inner`` (its own always-executed and
+    conditional counts per iteration), and left out of the outer counts."""
     addr = [a for a, *_ in insns]
     back = [(i, _target(args)) for i, (a, _p, op, args) in enumerate(insns)
             if op.startswith("BRA") and _target(args) is not None and _target(args) <= a]
@@ -125,6 +129,25 @@ def loop_counts(insns, second=False) -> dict:
         if not back:
             raise ValueError("no second loop in this function")
         latch_i, head = max(back, key=lambda b: addr[b[0]] - b[1])
+    skip = None
+    out_inner = None
+    if inner:
+        nested = [b for b in back if head < b[1] and addr[b[0]] < addr[latch_i]]
+        if not nested:
+            raise ValueError("no loop nested in the main loop")
+        i_latch, i_head = max(nested, key=lambda b: addr[b[0]] - b[1])
+        skip = (i_head, addr[i_latch])
+        out_inner = _body_counts(insns, addr, i_head, i_latch, None)
+    out = _body_counts(insns, addr, head, latch_i, skip)
+    if out_inner is not None:
+        out["inner"] = {"always": out_inner["always"], "conditional": out_inner["conditional"]}
+    return out
+
+
+def _body_counts(insns, addr, head, latch_i, skip) -> dict:
+    """The counts of one loop's body from ``head`` to the backward branch
+    at index ``latch_i``; instructions at addresses in the range ``skip``
+    (a nested loop) are left out."""
     lo, hi = addr.index(head), latch_i
     body = insns[lo:hi + 1]
     # basic blocks: leaders at the head, branch targets and after branches
@@ -170,17 +193,21 @@ def loop_counts(insns, second=False) -> dict:
             if new != dom[b]:
                 dom[b], changed = new, True
     always = dom[block_of[len(body) - 1]]
+
+    def counted(a):
+        return skip is None or not skip[0] <= a <= skip[1]
+
     out = {"always": dict.fromkeys(CLASSES, 0), "conditional": dict.fromkeys(CLASSES, 0)}
     for b, blk in enumerate(blocks):
         kind = "always" if b in always else "conditional"
-        for _a, _p, op, args in blk:
+        for a, _p, op, args in blk:
             cls, k = classify(op, args)
-            if cls:
+            if cls and counted(a):
                 out[kind][cls] += k
     out["opcodes_always"] = {}
     for b in sorted(always):
-        for _a, _p, op, args in blocks[b]:
-            if classify(op, args)[0]:
+        for a, _p, op, args in blocks[b]:
+            if classify(op, args)[0] and counted(a):
                 out["opcodes_always"][op] = out["opcodes_always"].get(op, 0) + 1
     return out
 
@@ -200,15 +227,17 @@ def lib_functions(lib_path) -> dict:
 def step_ops(lib_path, kernels) -> dict:
     """``{kernel: loop_counts(...)}`` for each kernel whose mangled name
     holds the given substring, from ``cuobjdump -sass lib_path``; a
-    substring ending in ``#2`` counts the second loop (``loop_counts``)."""
+    substring ending in ``#2`` counts the second loop, one ending in
+    ``@inner`` the main loop's nested loop apart (``loop_counts``)."""
     funcs = lib_functions(lib_path)
     out = {}
     for k in kernels:
-        sub, mark, _ = k.partition("#")
+        sub, _, nested = k.partition("@")
+        sub, mark, _ = sub.partition("#")
         names = [f for f in funcs if sub in f]
         if len(names) != 1:
             raise ValueError(f"{sub!r} matches {len(names)} functions of {lib_path}")
-        out[k] = loop_counts(funcs[names[0]], second=bool(mark))
+        out[k] = loop_counts(funcs[names[0]], second=bool(mark), inner=nested == "inner")
     return out
 
 
@@ -306,6 +335,33 @@ STEP_INSTANCES = {
         "srm_record_random": "srm_record_random_kernelILb0ELb1ELi1ELb0E",
         "srm_record_buffer": "srm_record_buffer_kernelILb0ELb1ELb0E",
         "srm_record_random/Finite-CC-SRM-v0": "srm_record_random_kernelILb1ELb0ELi3ELb0E",
+    },
+    # The universal policy recorders, one instance per family (and the
+    # other ids chip_smoke.py times), the hidden-unit loop counted apart
+    # (@inner: a step runs it H times): <FINITE, MECH, NREF> for the sync
+    # and induction families, <FINITE, MECH, MC, NREF, JOINT> for the DC,
+    # <FINITE, MECH, NREF, JOINT> for the EESM and DFIM, <FINITE, MECH,
+    # NREF, SAT, JOINT> for the SRM family
+    "fused_sync_policy": {  # Finite-CC-PMSM-v0
+        "sync_policy_record": "sync_policy_record_kernelILb1ELb0ELi2EE@inner",
+    },
+    "fused_dc_policy": {
+        "dc_policy_record": "dc_policy_record_kernelILb1ELb0ELi0ELi1ELb0EE@inner",
+        "dc_policy_record/Cont-CC-PermExDc-v0":
+            "dc_policy_record_kernelILb0ELb0ELi0ELi1ELb0EE@inner",
+    },
+    "fused_induction_policy": {  # Finite-CC-SCIM-v0
+        "induction_policy_record": "induction_policy_record_kernelILb1ELb0ELi2EE@inner",
+    },
+    "fused_eesm_policy": {  # Finite-CC-EESM-v0
+        "eesm_policy_record": "eesm_policy_record_kernelILb1ELb0ELi3ELb0EE@inner",
+    },
+    "fused_dfim_policy": {  # Finite-CC-DFIM-v0, factorised and joint heads
+        "dfim_policy_record": "dfim_policy_record_kernelILb1ELb0ELi2ELb0EE@inner",
+        "dfim_policy_record/joint": "dfim_policy_record_kernelILb1ELb0ELi2ELb1EE@inner",
+    },
+    "fused_srm_policy": {  # Cont-SC-SRM-v0
+        "srm_policy_record": "srm_policy_record_kernelILb0ELb1ELi1ELb0ELb0EE@inner",
     },
 }
 
