@@ -43,7 +43,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    11. ppo_learn  tools/torch_ppo_learn.py: 1200 PPO iterations at full
             width must reach a mean reward above -0.11 over the last 10
             and 0.05 above the first 5
-12. (the rows of slices 1 and 2 of the kernels line, see 30)
+12. (the rows of slices 1 and 2 of the kernels line, see 46)
 13. sync_kernels  slice 3, the universal synchronous family
             (csrc/fused_sync.cu): for each of the 12 {Finite, Cont} x
             {CC, TC, SC} x {PMSM, SynRM} ids, each of the 4 kernels against
@@ -70,7 +70,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
             recorder at 1024 steps on both (GB/s); the general path
             (VectorEnv.rollout, random duty) on Cont-SC-PMSM-v0 at 200 steps;
             the launches of phases 14-16 must be exactly what they make
-17. (the rows of slices 1 to 3 of the kernels line, see 30)
+17. (the rows of slices 1 to 3 of the kernels line, see 46)
 18. dc_kernels  slice 4, the universal DC family (csrc/fused_dc.cu,
             csrc/fused_dc_record.cu): for each of the 24 {Finite, Cont} x
             {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc} ids, each
@@ -235,13 +235,47 @@ Phases (each prints one JSON line; any failure exits non-zero):
     Finite-CC-DFIM-v0 (factorised and joint) and Cont-SC-SRM-v0, each with
     its bound and reset share; on Finite-CC-PMSM-v0 beside policy_record
     in the same call
-43. kernels line (all 38 kernels; a policy kernel's launches are the sum
+43. control_kernels  slice 10, the classical controllers in the loop
+    (csrc/fused_foc.cu, csrc/fused_dc_cascade.cu, csrc/fused_srm_cascade.cu):
+    each kernel against its plain version at 16384 envs x 64 steps, with
+    constant references (every env, rtol 1e-5 / atol 1e-4) and with the
+    catalog's Wiener references (the random-mode rule): the FOC on
+    Cont-CC-PMSM-v0, the DC cascade on the three Cont-SC DC ids, the SRM
+    cascade on the six SRM ids and, saturating (psi_s = 1.2), on
+    Finite-TC-SRM-v0 and Cont-SC-SRM-v0; each again at 1024 steps on one id
+    (timed on Cont-CC-PMSM-v0, Cont-SC-PermExDc-v0, Finite-SC-SRM-v0)
+44.-45. the slice-10 main path, counted from zero (GemController.make and
+    the three builders of ops/fused_rollout.py, no plain version):
+   44. control_loops  with constant references at 128 envs, the fused loop
+            against the port's control_environment (tests/test_pallas_
+            rollout.py:376-415, :790-812, tests/test_srm.py:207-233): the
+            FOC 400 steps (currents rtol 1e-5 / atol 1e-3 and at -0.1 and
+            0.3 of the env's i_sd / i_sq limits within 0.05 A, mean reward
+            rtol 1e-4), the DC
+            cascade on Cont-SC-PermExDc-v0 600 steps (omega rtol 1e-5 / atol
+            1e-2, mean reward rtol 1e-4), the SRM cascade on Finite-SC- and
+            Finite-TC-SRM-v0 600 steps (mean reward atol 2e-5); no
+            termination; the DC cascade on each Cont-SC DC id converges to
+            0.5 w_lim at rtol 2e-3 in 4000 steps
+   45. control_timings  at 16384 envs x 65536 steps (CUDA-event medians of
+            5 calls, the catalog's Wiener references), each kernel in one
+            call with the open-loop universal kernel on the same id:
+            foc_rollout beside sync_rollout_random on Cont-CC-PMSM-v0,
+            dc_cascade_rollout beside dc_rollout_random on
+            Cont-SC-PermExDc-v0, srm_cascade_rollout beside
+            srm_rollout_random on Finite-SC- and Finite-TC-SRM-v0; each with
+            its SASS bound and the share of it reached, and its reset
+            share; control_environment on the general path (16384 envs x
+            200 steps, host clock); the launches of phases 44-45 must be
+            exactly what they make
+46. kernels line (all 41 kernels; a policy kernel's launches are the sum
     over the paths of phases 9-11, listed by path; a sync kernel's those of
     phases 14-16, a DC kernel's those of phases 19-21, an induction
     kernel's those of phases 23-25, an EESM kernel's those of phases
     27-29, a DFIM kernel's those of phases 31-33, an SRM kernel's those of
-    phases 35-37, a universal policy kernel's those of phase 41), the card
-    line, then {"ok": true, "device": {...}}
+    phases 35-37, a universal policy kernel's those of phase 41, a
+    controller kernel's those of phases 44-45), the card line, then
+    {"ok": true, "device": {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
 largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
@@ -488,7 +522,8 @@ def run(dev, card):
                              "fused_eesm", "fused_eesm_record", "fused_dfim",
                              "fused_dfim_record", "fused_srm", "fused_srm_record",
                              "fused_sync_policy", "fused_dc_policy", "fused_induction_policy",
-                             "fused_eesm_policy", "fused_dfim_policy", "fused_srm_policy"])
+                             "fused_eesm_policy", "fused_dfim_policy", "fused_srm_policy",
+                             "fused_foc", "fused_dc_cascade", "fused_srm_cascade"])
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
                     for ln in cuda_build.BUILD_LOG.get(name, "").splitlines()
@@ -637,7 +672,7 @@ def run(dev, card):
     checks["general_vs_kernel_reward"] = abs(gen_mean_r - short_r) < 0.05
     del rec_out, short
 
-    launches = dict(fs.LAUNCHES)
+    launches = {name: fs.LAUNCHES[name] for name in fs.KERNELS}
     emit({"phase": "timings", "card": card,
           "general_path": {"envs": N_ENVS, "steps": T_GENERAL, "ms": gen_ms,
                            "env_steps_per_s": N_ENVS * T_GENERAL / (gen_ms / 1e3),
@@ -1539,7 +1574,7 @@ def run_dc(dev, card, ops):
         "env_steps_per_s": N * T_SYNC_GENERAL / (gen_ms / 1e3), "mean_reward": gen_mean_r,
         "term_rate": float(tsum.double().sum()) / (N * T_SYNC_GENERAL),
         "kernel_mean_reward_200": kernel_r}
-    launches = dict(dcf.LAUNCHES)
+    launches = {name: dcf.LAUNCHES[name] for name in dcf.KERNELS}
     emit({"phase": "dc_timings", "card": card, "envs": N, "timings": timings,
           "launches": launches})
     if not (math.isfinite(gen_mean_r) and bool(torch.isfinite(state.phys.ode_state).all())):
@@ -1687,7 +1722,7 @@ def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids
         "env_steps_per_s": N * T_SYNC_GENERAL / (gen_ms / 1e3), "mean_reward": gen_mean_r,
         "reset_share": float(tsum.double().sum()) / (N * T_SYNC_GENERAL),
         "kernel_mean_reward_200": kernel_r}
-    launches = dict(mod.LAUNCHES)
+    launches = {name: mod.LAUNCHES[name] for name in mod.KERNELS}
     emit({"phase": f"{pre}_timings", "card": card, "envs": N, "timings": timings,
           "launches": launches})
     if not (math.isfinite(gen_mean_r) and bool(torch.isfinite(state.phys.ode_state).all())):
@@ -2356,6 +2391,321 @@ def run_policy_universal(dev, card, ops):
     return line
 
 
+CONTROL_COMPARE = 64          # steps of each kernel-vs-plain comparison (phase 43)
+CONTROL_DEEP = 1024           # and again on one id per kernel
+CONTROL_LOOP_ENVS = 128       # phase 44's closed loops
+T_FOC_LOOP = 400              # tests/test_pallas_rollout.py:376-415
+T_CASCADE_LOOP = 600          # against control_environment (host-bound: about 10 ms a step)
+T_DC_CONVERGE = 4000          # tests/test_pallas_rollout.py:790-812
+T_CONTROL_GENERAL = 200
+FOC_ID = "Cont-CC-PMSM-v0"
+DC_CASCADE_IDS = ("Cont-SC-PermExDc-v0", "Cont-SC-SeriesDc-v0", "Cont-SC-ShuntDc-v0")
+SRM_CASCADE_TIMED = ("Finite-SC-SRM-v0", "Finite-TC-SRM-v0")
+CONTROL_REFS = {"foc": [("i_sd", -0.1), ("i_sq", 0.3)], "dc": [("omega", 0.5)],
+                "CC": [("i_a", 0.2), ("i_b", 0.3), ("i_c", 0.1)], "TC": [("torque", 0.3)],
+                "SC": [("omega", 0.4)]}
+
+
+def control_bytes(kind, c, n):
+    """Bytes a controller-in-the-loop kernel must move for ``n`` envs: the
+    state planes it reads (the FOC's two reference planes in const mode
+    only) and every output once (the reference rows n_ref each, the
+    integrators)."""
+    if kind == "foc":
+        return 4 * n * ((3 if c.wiener else 5) + 5 + 8)
+    n_state, n_ref = c.c.n_state, c.c.n_ref
+    n_int = 2 if kind == "dc" else 1
+    return 4 * n * (n_state + n_state + 2 + 4 * n_ref + n_int)
+
+
+def run_control(dev, card, ops):
+    """Slice 10, the classical controllers and the three controller-in-the-
+    loop kernels (csrc/fused_foc.cu, csrc/fused_dc_cascade.cu,
+    csrc/fused_srm_cascade.cu): each kernel against its plain version, then
+    the main path, its launches counted from zero: the closed loops through
+    GemController.make and the three builders against control_environment,
+    and the timings.  Returns the three kernels' rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.controllers import GemController
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_rollout as fr
+    from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf
+    from gym_electric_motor_tpu_torch.ops import fused_sync as fs
+
+    N, R = N_ENVS, N_ENVS // 128
+    rng = np.random.default_rng(SEED)
+    mods = {"foc_rollout": fs, "dc_cascade_rollout": dcf, "srm_cascade_rollout": srf}
+
+    def env_of(env_id, refs=None, **kw):
+        if refs:
+            kw["reference_generator"] = rg.ReferenceSpec([rg.ConstReference(n, v)
+                                                          for n, v in refs])
+        return gt.make_functional(env_id, device=dev, **kw)
+
+    def planes(bounds, r=R):
+        return [torch.as_tensor(rng.uniform(lo, hi, (r, 128)).astype(np.float32), device=dev)
+                for lo, hi in bounds]
+
+    def case(kind, env_id, mode, kw=None):
+        """(kernel name, consts, kernel call, plain call) of one instance."""
+        refs = None if mode == "wiener" else CONTROL_REFS[
+            kind if kind != "srm" else env_id.split("-")[1]]
+        env = env_of(env_id, refs, **(kw or {}))
+        ctrl = GemController.make(env, env_id)
+        if kind == "foc":
+            c = fs.FocConsts(env, ctrl, mode)
+            start = planes([(-50, 50), (-50, 50), (0, 2 * np.pi), (-0.3, 0.3), (-0.3, 0.3)])
+            return ("foc_rollout", c, lambda t: fs.foc_rollout(c, SEED, *start, t),
+                    lambda t: fs.foc_rollout_plain(c, SEED, *start, t))
+        if kind == "dc":
+            c = dcf.DcCascadeConsts(env, ctrl)
+            start = planes([(0, 100)] + [(-5, 5)] * (c.c.n_state - 1))
+            return ("dc_cascade_rollout", c, lambda t: dcf.dc_cascade_rollout(c, SEED, start, t),
+                    lambda t: dcf.dc_cascade_rollout_plain(c, SEED, start, t))
+        c = srf.SrmCascadeConsts(env, ctrl)
+        start = planes(([(0, 100)] if c.c.mech else []) + [(0, 22)] * 3 + [(-np.pi, np.pi)])
+        return ("srm_cascade_rollout", c, lambda t: srf.srm_cascade_rollout(c, SEED, start, t),
+                lambda t: srf.srm_cascade_rollout_plain(c, SEED, start, t))
+
+    def reward_index(name, c):
+        return 3 if name == "foc_rollout" else c.c.n_state
+
+    # ---- 43. each kernel against its plain version, every instance -------
+    # (const: every env at rtol 1e-5 / atol 1e-4; Wiener: the random-mode
+    # rule, 99.9% of envs and the mean reward to 1e-4 relative)
+    cases = ([("foc", FOC_ID, None)] + [("dc", i, None) for i in DC_CASCADE_IDS]
+             + [("srm", i, None) for i in gt.SRM_ENV_IDS]
+             + [("srm", i, SRM_SAT) for i in SRM_SAT_IDS])
+    timed_on = {"foc_rollout": FOC_ID, "dc_cascade_rollout": DC_CASCADE_IDS[0],
+                "srm_cascade_rollout": SRM_CASCADE_TIMED[0]}
+    worst = dict.fromkeys(mods, 0.0)
+    share = dict.fromkeys(mods, 1.0)
+    timed, rows = {}, []
+    for kind, env_id, kw in cases:
+        for mode in ("const", "wiener"):
+            name, c, kern, plain = case(kind, env_id, mode, kw)
+            if mode == "wiener" and env_id == timed_on[name] and not kw:
+                ms, got = cuda_ms(torch, lambda: kern(CONTROL_COMPARE), reps=21)
+                plain_ms, ref = host_ms(torch, lambda: plain(CONTROL_COMPARE))
+                b_ms, b_by = bound_ms(N * CONTROL_COMPARE, ops[name], control_bytes(kind, c, N))
+                timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            else:
+                got = kern(CONTROL_COMPARE)
+                torch.cuda.synchronize()
+                ref = plain(CONTROL_COMPARE)
+            label = f"{env_id}{' psi_s 1.2' if kw else ''} {mode}"
+            if mode == "const":
+                err = check_buffer(torch, f"{label} {name}", got, ref, [False] * len(got))
+                worst[name] = max(worst[name], err)
+                rows.append({"case": label, "kernel": name, "max_abs_err": err})
+            else:
+                r_idx = reward_index(name, c)
+                m, err = env_match(torch, got, ref, [False] * len(got), N)
+                mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
+                rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
+                worst[name], share[name] = max(worst[name], err), min(share[name], m)
+                rows.append({"case": label, "kernel": name, "max_abs_err": err, "match_share": m,
+                             "mean_reward_rel_err": rel})
+                if m < 0.999 or rel > 1e-4:
+                    raise AssertionError(f"{label} {name}: {m:.5f} of envs match (need 0.999), "
+                                         f"mean reward rel err {rel:.2e}")
+            del got, ref
+    deep = {}
+    for kind, env_id in (("foc", FOC_ID), ("dc", DC_CASCADE_IDS[0]),
+                         ("srm", SRM_CASCADE_TIMED[0])):
+        name, c, kern, plain = case(kind, env_id, "wiener")
+        got = kern(CONTROL_DEEP)
+        torch.cuda.synchronize()
+        ref = plain(CONTROL_DEEP)
+        m, err = env_match(torch, got, ref, [False] * len(got), N)
+        r_idx = reward_index(name, c)
+        mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
+        rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
+        worst[name], share[name] = max(worst[name], err), min(share[name], m)
+        deep[f"{env_id} {name}"] = {"max_abs_err": err, "match_share": m,
+                                    "mean_reward_rel_err": rel}
+        if m < 0.999 or rel > 1e-4:
+            raise AssertionError(f"{env_id} {name} at {CONTROL_DEEP} steps: {m:.5f} of envs "
+                                 f"match, mean reward rel err {rel:.2e}")
+        del got, ref
+    emit({"phase": "control_kernels", "envs": N, "steps": CONTROL_COMPARE, "results": rows,
+          "deep_steps": CONTROL_DEEP, "deep": deep, "timed": timed})
+
+    # ---- 44.-45. the main path: counts from zero --------------------------
+    for mod in mods.values():
+        mod.reset_launches()
+    n_loop = CONTROL_LOOP_ENVS
+    z1 = torch.zeros((n_loop // 128, 128), device=dev)
+
+    # 44. the closed loops against control_environment, const references
+    # (tests/test_pallas_rollout.py:376-415, :790-812, tests/test_srm.py:
+    # 207-233), and their convergence
+    loops = {}
+    env = env_of(FOC_ID, CONTROL_REFS["foc"])
+    ctrl = GemController.make(env, FOC_ID)
+    set_d, set_q = (v for _n, v in CONTROL_REFS["foc"])
+    isd, isq, _eps, rew, terms, *_ = fr.make_fused_foc_rollout(env, ctrl, T_FOC_LOOP, n_loop,
+                                                               ref_mode="const")(
+        SEED, z1, z1, z1, torch.full_like(z1, set_d), torch.full_like(z1, set_q))
+    out = ctrl.control_environment(env, T_FOC_LOOP)
+    names, lim = env.state_names, np.asarray(env.physical_system.limits)
+    isd_lim, isq_lim = float(lim[names.index("i_sd")]), float(lim[names.index("i_sq")])
+    isd_x = float(out["states"][-1, names.index("i_sd")]) * isd_lim
+    isq_x = float(out["states"][-1, names.index("i_sq")]) * isq_lim
+    k_isd, k_isq = float(isd[0, 0]), float(isq[0, 0])
+    loops[FOC_ID] = {
+        "steps": T_FOC_LOOP, "i_sd": k_isd, "i_sq": k_isq, "i_sd_env": isd_x, "i_sq_env": isq_x,
+        "mean_reward": float(rew.double().sum()) / (n_loop * T_FOC_LOOP),
+        "mean_reward_env": float(out["rewards"].double().mean()),
+        "terminations": float(terms.sum())}
+    ok = (abs(k_isd - isd_x) <= 1e-3 + 1e-5 * abs(isd_x)
+          and abs(k_isq - isq_x) <= 1e-3 + 1e-5 * abs(isq_x)
+          and abs(k_isd - set_d * isd_lim) <= 0.05 and abs(k_isq - set_q * isq_lim) <= 0.05
+          and abs(loops[FOC_ID]["mean_reward"] - loops[FOC_ID]["mean_reward_env"])
+          <= 1e-6 + 1e-4 * abs(loops[FOC_ID]["mean_reward_env"])
+          and loops[FOC_ID]["terminations"] == 0.0)
+    if not ok:
+        raise AssertionError(f"the FOC closed loop: {loops[FOC_ID]}")
+    for env_id in DC_CASCADE_IDS:
+        env = env_of(env_id, CONTROL_REFS["dc"])
+        ctrl = GemController.make(env, env_id)
+        n_state = fr.fused_state_arity(env)
+        w_lim = float(np.asarray(env.physical_system.limits)[env.state_names.index("omega")])
+        row = {}
+        if env_id == DC_CASCADE_IDS[0]:
+            k = fr.make_fused_dc_cascade_rollout(env, ctrl, T_CASCADE_LOOP, n_loop)(
+                SEED, *[z1] * n_state)
+            res = ctrl.control_environment(env, T_CASCADE_LOOP)
+            omega_x = float(res["states"][-1, env.state_names.index("omega")]) * w_lim
+            row.update(steps=T_CASCADE_LOOP, omega=float(k[0][0, 0]), omega_env=omega_x,
+                       mean_reward=float(k[n_state].double().sum()) / (n_loop * T_CASCADE_LOOP),
+                       mean_reward_env=float(res["rewards"].double().mean()),
+                       terminations=float(k[n_state + 1].sum()))
+            if not (abs(row["omega"] - omega_x) <= 1e-2 + 1e-5 * abs(omega_x)
+                    and abs(row["mean_reward"] - row["mean_reward_env"])
+                    <= 1e-6 + 1e-4 * abs(row["mean_reward_env"]) and row["terminations"] == 0):
+                raise AssertionError(f"{env_id} cascade against control_environment: {row}")
+        k = fr.make_fused_dc_cascade_rollout(env, ctrl, T_DC_CONVERGE, n_loop)(
+            SEED, *[z1] * n_state)
+        row.update(converge_steps=T_DC_CONVERGE, omega_final=float(k[0][0, 0]),
+                   target=0.5 * w_lim, converge_terminations=float(k[n_state + 1].sum()))
+        if not (abs(row["omega_final"] - 0.5 * w_lim) <= 2e-3 * 0.5 * w_lim
+                and row["converge_terminations"] == 0):
+            raise AssertionError(f"{env_id} cascade did not converge: {row}")
+        loops[env_id] = row
+    for env_id in SRM_CASCADE_TIMED:
+        env = env_of(env_id, CONTROL_REFS[env_id.split("-")[1]])
+        ctrl = GemController.make(env, env_id)
+        n_state = fr.fused_state_arity(env)
+        k = fr.make_fused_srm_cascade_rollout(env, ctrl, T_CASCADE_LOOP, n_loop)(
+            SEED, *[z1] * n_state)
+        oc = ctrl.control_environment(env, T_CASCADE_LOOP)
+        row = {"steps": T_CASCADE_LOOP,
+               "mean_reward": float(k[n_state].double().mean()) / T_CASCADE_LOOP,
+               "mean_reward_env": float(oc["rewards"].double().mean()),
+               "terminations": float(k[n_state + 1].sum()),
+               "terminations_env": float(oc["terminations"].sum())}
+        loops[env_id] = row
+        if not (abs(row["mean_reward"] - row["mean_reward_env"]) <= 2e-5
+                and row["terminations"] == 0 and row["terminations_env"] == 0):
+            raise AssertionError(f"{env_id} cascade against control_environment: {row}")
+    emit({"phase": "control_loops", "envs": n_loop, "loops": loops})
+
+    # 45. timings at the bench width, each kernel in one call with the
+    # open-loop universal kernel on the same id (the catalog's Wiener
+    # references), and the general path's control_environment
+    timings = {}
+    pairs = (("foc_rollout", FOC_ID, "sync_rollout_random"),
+             ("dc_cascade_rollout", DC_CASCADE_IDS[0], "dc_rollout_random"),
+             ("srm_cascade_rollout", SRM_CASCADE_TIMED[0], "srm_rollout_random"),
+             ("srm_cascade_rollout", SRM_CASCADE_TIMED[1], "srm_rollout_random"))
+    for name, env_id, open_name in pairs:
+        env = env_of(env_id)
+        ctrl = GemController.make(env, env_id)
+        n_state = fr.fused_state_arity(env)
+        z = [torch.zeros((R, 128), device=dev) for _ in range(n_state)]
+        if name == "foc_rollout":
+            roll = fr.make_fused_foc_rollout(env, ctrl, T_ROLLOUT, N)
+            c, r_idx = roll.consts, 3
+        elif name == "dc_cascade_rollout":
+            roll = fr.make_fused_dc_cascade_rollout(env, ctrl, T_ROLLOUT, N)
+            c, r_idx = roll.consts, n_state
+        else:
+            roll = fr.make_fused_srm_cascade_rollout(env, ctrl, T_ROLLOUT, N)
+            c, r_idx = roll.consts, n_state
+        key = "" if env_id == timed_on[name] else "/" + env_id
+        k_ms, out = cuda_ms(torch, lambda: roll(SEED, *z), reps=SYNC_REPS)
+        b_ms, b_by = bound_ms(N * T_ROLLOUT, ops[name + key],
+                              control_bytes(name.split("_")[0], c, N))
+        open_roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
+        o_ms, o_out = cuda_ms(torch, lambda: open_roll(SEED, *z), reps=SYNC_REPS)
+        row = {name: {"steps": T_ROLLOUT, "ms": k_ms,
+                      "env_steps_per_s": N * T_ROLLOUT / (k_ms / 1e3),
+                      "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
+                      "ops_per_step": ops[name + key],
+                      "mean_reward": float(out[r_idx].double().sum()) / (N * T_ROLLOUT),
+                      "reset_share": float(out[r_idx + 1].double().sum()) / (N * T_ROLLOUT),
+                      "finite": all(bool(torch.isfinite(x).all()) for x in out)},
+               open_name: {"steps": T_ROLLOUT, "ms": o_ms,
+                           "env_steps_per_s": N * T_ROLLOUT / (o_ms / 1e3),
+                           "ops_per_step": ops[f"{open_name}/{env_id}"],
+                           "reset_share": float(o_out[n_state + 1].double().sum())
+                           / (N * T_ROLLOUT)},
+               "closed_over_open": k_ms / o_ms}
+        timings[env_id] = row
+        if not row[name]["finite"]:
+            raise AssertionError(f"{env_id}: the {T_ROLLOUT}-step {name} produced non-finite "
+                                 "values")
+        del out, o_out
+    env = env_of(DC_CASCADE_IDS[0])
+    ctrl = GemController.make(env, DC_CASCADE_IDS[0])
+    ctrl.control_environment(env, 5, seed=SEED, n_envs=N)  # warm-up
+    g_ms, res = host_ms(torch, lambda: ctrl.control_environment(env, T_CONTROL_GENERAL,
+                                                                seed=SEED, n_envs=N))
+    timings["control_environment/" + DC_CASCADE_IDS[0]] = {
+        "steps": T_CONTROL_GENERAL, "ms": g_ms,
+        "env_steps_per_s": N * T_CONTROL_GENERAL / (g_ms / 1e3),
+        "mean_reward": float(res["rewards"].double().mean()),
+        "reset_share": float(res["terminations"].double().mean())}
+    if not bool(torch.isfinite(res["states"]).all()):
+        raise AssertionError("control_environment produced non-finite states")
+    del res
+    launches = {name: mod.LAUNCHES[name] for name, mod in mods.items()}
+    emit({"phase": "control_timings", "card": card, "envs": N, "timings": timings,
+          "launches": launches})
+    per_timing = 2 + SYNC_REPS
+    want = {"foc_rollout": 1 + per_timing,
+            "dc_cascade_rollout": 1 + len(DC_CASCADE_IDS) + per_timing,
+            "srm_cascade_rollout": len(SRM_CASCADE_TIMED) * (1 + per_timing)}
+    if launches != want:
+        raise AssertionError(f"the controller kernels on the main path launched {launches}, "
+                             f"expected {want}")
+
+    # ---- kernels line rows -----------------------------------------------
+    replaces = {"foc_rollout": "gym_electric_motor_tpu/ops/pallas_sync.py:1339",
+                "dc_cascade_rollout": "gym_electric_motor_tpu/ops/pallas_dc.py:1455",
+                "srm_cascade_rollout": "gym_electric_motor_tpu/ops/pallas_srm.py:859"}
+    sources = {"foc_rollout": "fused_foc", "dc_cascade_rollout": "fused_dc_cascade",
+               "srm_cascade_rollout": "fused_srm_cascade"}
+    line = []
+    for name in mods:
+        t, m = timed[name], timings[timed_on[name]][name]
+        line.append({
+            "name": name, "route": "cuda",
+            "source": f"gym_electric_motor_tpu_torch/csrc/{sources[name]}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "envs": N, "steps": CONTROL_COMPARE, "timed_on": timed_on[name],
+            "match_share": share[name], "main_steps": T_ROLLOUT, "main_ms": m["ms"],
+            "main_bound_ms": m["bound_ms"]})
+    return line
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "gym_electric_motor_tpu_torch" / "csrc").is_dir():
@@ -2397,9 +2747,11 @@ def main():
     seconds["slice_8"] = lap()
     line += run_policy_universal(dev, card, ops)
     seconds["slice_9"] = lap()
+    line += run_control(dev, card, ops)
+    seconds["slice_10"] = lap()
     emit({"phase": "elapsed", "seconds": seconds, "total": clock[-1] - clock[0]})
 
-    # ---- 43. kernels line, card and result --------------------------------
+    # ---- 46. kernels line, card and result --------------------------------
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 // One env-step of the Finite-CC-PMSM / SynRM fused rollouts, shared by the
-// four kernels of fused_pmsm.cu and the policy kernels of fused_policy.cu
-// so that their semantics cannot diverge.
+// four kernels of fused_pmsm.cu, the policy kernels of fused_policy.cu and
+// the FOC closed loop of fused_foc.cu so that their semantics cannot
+// diverge.
 //
 // Replaces the per-step closures of _PmsmCtx in
 // gym_electric_motor_tpu/ops/pallas_sync.py (physics_step_cs, :108-120) and
@@ -70,13 +71,13 @@ __device__ __forceinline__ void pmsm_rhs(const PmsmConst& k, float i_sd, float i
   d_sq = (k.v[C_K_D] - k.v[C_K_E] * i_sq - k.v[C_K_F] * i_sd + u_q) * k.v[C_K_G];
 }
 
-// B6 bridge -> Clarke -> Park at the cycle-start angle (c, s) -> RK4 on
-// (i_sd, i_sq) at constant speed -> angle advance and wrap to [0, 2*pi).
-__device__ __forceinline__ void pmsm_physics(const PmsmConst& k, int action, float c, float s,
-                                             float& i_sd, float& i_sq, float& eps) {
-  const float ua = ((float)((action >> 2) & 1) - 0.5f) * k.v[C_U_SUP];
-  const float ub = ((float)((action >> 1) & 1) - 0.5f) * k.v[C_U_SUP];
-  const float uc = ((float)(action & 1) - 0.5f) * k.v[C_U_SUP];
+// The phase voltages (ua, ub, uc) -> Clarke -> Park at the cycle-start
+// angle (c, s) -> RK4 on (i_sd, i_sq) at constant speed -> angle advance
+// and wrap to [0, 2*pi).  The finite bridge's pmsm_physics and the FOC
+// kernel's continuous output (fused_foc.cu) share it.
+__device__ __forceinline__ void pmsm_physics_abc(const PmsmConst& k, float ua, float ub, float uc,
+                                                 float c, float s, float& i_sd, float& i_sq,
+                                                 float& eps) {
   const float u_alpha = k.v[C_TWO_THIRDS] * (ua - 0.5f * (ub + uc));
   const float u_beta = k.v[C_INV_SQRT3] * (ub - uc);
   const float u_d = c * u_alpha + s * u_beta;
@@ -93,6 +94,15 @@ __device__ __forceinline__ void pmsm_physics(const PmsmConst& k, int action, flo
 
   eps = eps + k.v[C_D_EPS];
   eps = eps - k.v[C_TWO_PI] * floorf(eps * k.v[C_INV_TWO_PI]);
+}
+
+// B6 bridge -> pmsm_physics_abc.
+__device__ __forceinline__ void pmsm_physics(const PmsmConst& k, int action, float c, float s,
+                                             float& i_sd, float& i_sq, float& eps) {
+  const float ua = ((float)((action >> 2) & 1) - 0.5f) * k.v[C_U_SUP];
+  const float ub = ((float)((action >> 1) & 1) - 0.5f) * k.v[C_U_SUP];
+  const float uc = ((float)(action & 1) - 0.5f) * k.v[C_U_SUP];
+  pmsm_physics_abc(k, ua, ub, uc, c, s, i_sd, i_sq, eps);
 }
 
 // Random mode: the drive state and both Wiener references of one env.
@@ -133,17 +143,17 @@ __device__ __forceinline__ void pmsm_init(const PmsmConst& k, uint2 key, uint32_
   wiener_init(k, key, env, st);
 }
 
-// One step under a given action: physics, incremental Park rotation with
-// rsqrt renormalisation, squared-current constraint, WSE reward against the
-// references, in-kernel reset of the drive state.  The references are left
-// to the caller (wiener_advance, or constant).
-__device__ __forceinline__ PmsmStepOut pmsm_action_step(const PmsmConst& k, int action,
-                                                        PmsmEnv& st) {
+// One step under the phase voltages (ua, ub, uc): physics, incremental Park
+// rotation with rsqrt renormalisation, squared-current constraint, WSE
+// reward against the references, in-kernel reset of the drive state.  The
+// references are left to the caller (wiener_advance, or constant).
+__device__ __forceinline__ PmsmStepOut pmsm_voltage_step(const PmsmConst& k, float ua, float ub,
+                                                         float uc, PmsmEnv& st) {
   PmsmStepOut out;
-  out.action = action;
+  out.action = 0;
   const float c = st.c, s = st.s;
   float i_sd = st.i_sd, i_sq = st.i_sq, eps = st.eps;
-  pmsm_physics(k, action, c, s, i_sd, i_sq, eps);
+  pmsm_physics_abc(k, ua, ub, uc, c, s, i_sd, i_sq, eps);
   float c_new = c * k.v[C_COS_D] - s * k.v[C_SIN_D];
   float s_new = s * k.v[C_COS_D] + c * k.v[C_SIN_D];
   const float inv = rsqrtf(c_new * c_new + s_new * s_new);
@@ -165,6 +175,17 @@ __device__ __forceinline__ PmsmStepOut pmsm_action_step(const PmsmConst& k, int 
   st.eps = violated ? 0.0f : eps;
   st.c = violated ? 1.0f : c_new;
   st.s = violated ? 0.0f : s_new;
+  return out;
+}
+
+// pmsm_voltage_step under a B6 action.
+__device__ __forceinline__ PmsmStepOut pmsm_action_step(const PmsmConst& k, int action,
+                                                        PmsmEnv& st) {
+  const float ua = ((float)((action >> 2) & 1) - 0.5f) * k.v[C_U_SUP];
+  const float ub = ((float)((action >> 1) & 1) - 0.5f) * k.v[C_U_SUP];
+  const float uc = ((float)(action & 1) - 0.5f) * k.v[C_U_SUP];
+  PmsmStepOut out = pmsm_voltage_step(k, ua, ub, uc, st);
+  out.action = action;
   return out;
 }
 

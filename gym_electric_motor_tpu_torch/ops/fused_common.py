@@ -362,12 +362,18 @@ def check_channel_actions(c, actions, R, device):
     return T
 
 
+# the C size queries of a library's constant layout, in the order of
+# family_library's ``counts`` (``n_ctrl`` only in a controller-in-the-loop
+# library)
+LAYOUT_SUFFIXES = ("n_const", "n_row_const", "n_flag", "n_ctrl")
+
+
 def family_library(library, prefix, argtypes, counts):
     """The loaded library of ``csrc/<library>.cu`` (built on first use),
     its kernel functions typed on first load (``argtypes``: ``{name:
     [ctypes types]}``; names the library lacks are skipped) and its
-    constant layout checked: ``<prefix>_n_const``, ``_n_row_const`` and
-    ``_n_flag`` must return ``counts``."""
+    constant layout checked: ``<prefix>_<suffix>`` for the first
+    ``len(counts)`` of ``LAYOUT_SUFFIXES`` must return ``counts``."""
     lib = cuda_build.load(library)
     if not getattr(lib, "_gemx_typed", False):
         for name, types in argtypes.items():
@@ -376,7 +382,7 @@ def family_library(library, prefix, argtypes, counts):
                 fn.argtypes = types
                 fn.restype = ctypes.c_int
         sizes = []
-        for suffix in ("n_const", "n_row_const", "n_flag"):
+        for suffix in LAYOUT_SUFFIXES[:len(counts)]:
             fn = getattr(lib, f"{prefix}_{suffix}")
             fn.restype = ctypes.c_int
             sizes.append(fn())
@@ -469,6 +475,24 @@ def fused_check_system(ps):
             "the fused kernels take one RK4 step per control cycle; run other solvers "
             "on VectorEnv")
     return cur
+
+
+def require(cond, message):
+    """Raise ``AssertionError(message)`` unless ``cond``: the JAX builders'
+    assertions, raised whatever the interpreter's ``-O``."""
+    if not cond:
+        raise AssertionError(message)
+
+
+def require_default_constraints(env, default_desc):
+    """The controller-in-the-loop kernels hard-code the catalog-default
+    violation check and have no constraints-off mode: reject custom
+    constraint sets and ``constraints=()`` alike
+    (``_require_default_constraints``, pallas_common.py:168-176)."""
+    if fused_constraint_mode(env, default_desc) != "default":
+        raise NotImplementedError(
+            f"this kernel implements the catalog-default constraints {default_desc} only, not "
+            "constraints=(): run the closed loop on the general path (control_environment)")
 
 
 def fused_constraint_mode(env, default_desc):

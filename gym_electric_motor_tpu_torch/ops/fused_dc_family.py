@@ -72,6 +72,8 @@ from .fused_common import (
     ptr_array,
     ref_rows,
     reference_step,
+    require,
+    require_default_constraints,
     seed_u64,
     system_limits,
     uniform_from_bits,
@@ -104,16 +106,18 @@ ONE, SHUNT, EXTEX = range(3)
 CONV_CODES = {"1QC": 1, "2QC": 2, "4QC": 4}
 
 KERNELS = ("dc_rollout_random", "dc_rollout_buffer", "dc_record_random", "dc_record_buffer")
+# the controller-in-the-loop kernel (the DC speed cascade, csrc/fused_dc_cascade.cu)
+CONTROL_KERNELS = ("dc_cascade_rollout",)
 # the library of each kernel (csrc/<name>.cu)
 LIBRARY = {"dc_rollout_random": "fused_dc", "dc_rollout_buffer": "fused_dc",
            "dc_record_random": "fused_dc_record", "dc_record_buffer": "fused_dc_record"}
 
 # launches of each CUDA kernel since the last reset_launches()
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = dict.fromkeys(KERNELS + CONTROL_KERNELS, 0)
 
 
 def reset_launches():
-    for name in KERNELS:
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
@@ -669,3 +673,186 @@ def policy_surface(c: DcConsts, env):
         quantities=lambda st, a: [dc_quantity(c, j, st) for j in range(c.n_ref)],
         action=tuple, step=lambda st, action, a: dc_action_step(c, st, action),
         planes=lambda planes: _out_state(c, planes))
+
+
+# ---------------------------------------------------------------------------
+# the DC speed cascade in the loop (make_fused_dc_cascade_rollout)
+# ---------------------------------------------------------------------------
+
+# Order of the controller's float constants, the same as DcCascadeIndex in
+# csrc/control_laws.cuh.
+CASCADE_CONST_NAMES = (
+    "sc_p", "sc_i", "sc_lo", "sc_hi", "tc_lo", "tc_hi", "cc_p", "cc_i", "cc_lo", "cc_hi",
+    "inv_out", "ref_lim", "l_emf", "psi_emf", "p_ff", "tau", "inv_psi", "inv_lp", "ie_limit",
+    "ia_limit",
+)
+# the operating-point selections (DcOps): PermExDc i = T / psi, SeriesDc
+# i = sqrt(max(T, 0) / l_e'), ShuntDc i_a = T / (l_e' i_e) with the i_e
+# guards
+OPS_CODES = {"permex": 0, "series": 1, "shunt": 2}
+
+class DcCascadeConsts:
+    """The baked constants of the DC speed cascade in the loop
+    (``make_fused_dc_cascade_rollout``, pallas_dc.py:1300-1353): ``c`` the
+    family's (``DcConsts``), ``host`` the tuned controller's constants in
+    ``CASCADE_CONST_NAMES`` order as float32, ``f`` the same as Python
+    floats and ``ops`` the operating-point code.  Each constant is
+    rounded as the JAX kernel rounds it (``np.float32`` of the tuned value;
+    the reciprocals ``1 / out_lim``, ``1 / psi_e`` and ``1 / l_e'`` in
+    double first)."""
+
+    def __init__(self, env, ctrl):
+        kind = env.physical_system.motor.kind
+        require(ctrl.control_task == "SC" and ctrl.output_kind == "cont",
+                 "the DC cascade kernel takes the speed controller of a continuous converter")
+        require(kind in ("PermExDc", "SeriesDc", "ShuntDc"),
+                 f"in-kernel DC cascade covers PermExDc/SeriesDc/ShuntDc; got {kind!r} "
+                 "(ExtExDc's dual-channel flux-weakening cascade runs on the general path)")
+        c = DcConsts(env)
+        desc = tuple(("limit", (n,)) for n in c.el_names)
+        require_default_constraints(env, desc)
+        require(c.mech and c.n_ch == 1 and not c.finite and c.n_ref == 1,
+                 "the DC cascade kernel takes the speed ODE, one continuous channel and one "
+                 "reference")
+        require(c.rows[0]["name"] == "omega", "the DC cascade kernel references omega")
+        self.c = c
+        names = list(env.physical_system.state_names)
+        pos = {nm: j for j, nm in enumerate(c.state_names)}
+        ci = pos[names[int(np.asarray(ctrl.current_idx)[0])]]
+        emf = pos[names[int(np.asarray(ctrl.emf_current_idx)[0])]]
+        # the kernel reads the controlled current from i0 and the EMF
+        # current from i0 (i for PermExDc and SeriesDc) or i1 (ShuntDc's i_e)
+        require(ci == 1 and emf == (2 if kind == "ShuntDc" else 1),
+                 "the DC cascade's current channels are not the family's planes")
+        self.ops = OPS_CODES[ctrl.ops_kind]
+        op = ctrl.ops_params
+        tc = np.asarray(ctrl.tc_clip_limits, dtype=np.float64)
+        cc = np.asarray(ctrl.cc_clip_limits, dtype=np.float64)
+        values = dict(
+            sc_p=ctrl.sc_p_gain[0], sc_i=ctrl.sc_i_gain[0],
+            sc_lo=np.asarray(ctrl.sc_clip_range[0])[0], sc_hi=np.asarray(ctrl.sc_clip_range[1])[0],
+            tc_lo=tc[0].min(), tc_hi=tc[1].max(), cc_p=ctrl.cc_p_gain[0], cc_i=ctrl.cc_i_gain[0],
+            cc_lo=cc[0].min(), cc_hi=cc[1].max(), inv_out=1.0 / np.asarray(ctrl.output_limits)[0],
+            ref_lim=np.asarray(ctrl.ref_limits)[0], l_emf=np.asarray(ctrl.l_emf)[0],
+            psi_emf=np.asarray(ctrl.psi_emf)[0], p_ff=ctrl.pole_pairs,
+            tau=env.physical_system.tau,
+            inv_psi=1.0 / op["psi"] if self.ops == 0 else 0.0,
+            inv_lp=1.0 / op["l_prime"] if self.ops != 0 else 0.0,
+            ie_limit=op.get("i_e_limit", 0.0), ia_limit=op.get("i_a_limit", 0.0),
+        )
+        self.host = np.array([_f32(values[n]) for n in CASCADE_CONST_NAMES], dtype=np.float32)
+        self.f = {n: float(v) for n, v in zip(CASCADE_CONST_NAMES, self.host)}
+
+
+def dc_cascade_law(cc: DcCascadeConsts, st, sc_int, cc_int):
+    """One cycle of the speed cascade (``cascade``, pallas_dc.py:1355-1384)
+    on the state dict ``st``: PI speed control with the torque clip and
+    anti-windup by exact equality, the operating point, the current clip,
+    PI current control with the EMF feedforward and the voltage clip's
+    anti-windup.  Returns the *unclipped* normalised voltage (the converter
+    clips the duty) and the two integrators."""
+    q = cc.f
+    w, i0 = st["w"], st["i0"]
+    err = st["rv"][0] * q["ref_lim"] - w
+    t_ref = q["sc_p"] * err + q["sc_i"] * sc_int
+    t_c = torch.clamp(t_ref, q["sc_lo"], q["sc_hi"])
+    sc_int = sc_int + q["tau"] * err * (t_ref == t_c)
+    if cc.ops == 0:
+        i_ref = t_c * q["inv_psi"]
+    elif cc.ops == 1:
+        i_ref = torch.sqrt(torch.clamp(t_c, min=0.0) * q["inv_lp"])
+    else:
+        i_e = st["i1"]
+        i_e_safe = torch.where(torch.abs(i_e) < 1e-4, torch.sign(i_e) * 1e-4 + (i_e == 0) * 1e-4,
+                               i_e)
+        i_ref = t_c * q["inv_lp"] / i_e_safe
+        i_ref = torch.where(i_e > q["ie_limit"], torch.full_like(i_ref, -q["ia_limit"]), i_ref)
+        i_ref = torch.where(i_e < -q["ie_limit"], torch.full_like(i_ref, q["ia_limit"]), i_ref)
+    i_ref = torch.clamp(i_ref, q["tc_lo"], q["tc_hi"])
+    err_i = i_ref - i0
+    u = q["cc_p"] * err_i + q["cc_i"] * cc_int
+    i_emf = st["i1"] if cc.ops == 2 else i0
+    u = u + (q["l_emf"] * i_emf + q["psi_emf"]) * (w * q["p_ff"])
+    u_c = torch.clamp(u, q["cc_lo"], q["cc_hi"])
+    cc_int = cc_int + q["tau"] * err_i * (u == u_c)
+    return u * q["inv_out"], sc_int, cc_int
+
+
+def dc_cascade_rollout_plain(cc: DcCascadeConsts, seed, states, n_steps, bits=None):
+    """Plain version of ``dc_cascade_rollout``: ``(*states, reward_sum,
+    term_count, rv, rk, rl, rs, sc_int, cc_int)``.  The reference advances
+    as in ``dc_rollout_random`` (``bits`` replaces its Philox source; the
+    step's action words are unused); the integrators start at zero and
+    persist across env resets, as ``control_environment`` carries the
+    controller state."""
+    c = cc.c
+    bits = _bits(c, seed, states, bits)
+    st = _random_init(c, bits, states)
+    zero = torch.zeros_like(states[0])
+    sc_int, cc_int = zero.clone(), zero.clone()
+    reward, terms = zero.clone(), zero.clone()
+    for t in range(n_steps):
+        action, sc_int, cc_int = dc_cascade_law(cc, st, sc_int, cc_int)
+        new, (_a, r, done, _refs) = dc_action_step(c, st, (action,))
+        if not c.all_const:
+            _acts, *ref_words = bits.step_words(t)
+            reference_step(c.f, c.rows, c.all_const, st, new, ref_words, done > 0.5, t)
+        st = new
+        reward = reward + r
+        terms = terms + done
+    return (tuple(st[key] for key in _state_keys(c)) + (reward, terms)
+            + tuple(torch.cat(st[key]) for key in ("rv", "rk", "rl", "rs")) + (sc_int, cc_int))
+
+
+_CONTROL_ARGTYPES = {
+    "dc_cascade_rollout": [_P, _P, _P, ctypes.c_uint64, _I, _I, _P, _P, _P],
+}
+
+
+def dc_cascade_rollout(cc: DcCascadeConsts, seed: int, states, n_steps: int):
+    """``(*states, reward_sum, term_count, rv, rk, rl, rs, sc_int, cc_int)``
+    of ``n_steps`` closed-loop steps: the plain version for CPU tensors, the
+    kernel of ``csrc/fused_dc_cascade.cu`` for CUDA ones."""
+    c = cc.c
+    device, R = check_planes(c, states)
+    if device.type == "cpu":
+        return dc_cascade_rollout_plain(cc, seed, tuple(states), n_steps)
+    lib = family_library("fused_dc_cascade", "dc_cascade", _CONTROL_ARGTYPES,
+                         (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES),
+                          len(CASCADE_CONST_NAMES)))
+    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device)
+            for _ in range(c.n_state + 2)]
+    outs += [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(6)]
+    ptrs = _out_state(c, outs[:c.n_state]) + outs[c.n_state:]
+    launch_kernel(lib, "dc_cascade", "dc_cascade_rollout", device, LAUNCHES,
+                  c.host.ctypes.data, c.flags.ctypes.data, cc.host.ctypes.data, seed_u64(seed),
+                  R * LANE, int(n_steps), _in_ptrs(c, states), ptr_array(ptrs))
+    return tuple(outs)
+
+
+def make_fused_dc_cascade_rollout(env, ctrl, n_steps, n_envs):
+    """Fused closed-loop speed cascade of a Cont-SC-{PermExDc, SeriesDc,
+    ShuntDc}-v0 env (``make_fused_dc_cascade_rollout``, pallas_dc.py:1276):
+    the tuned three-stage chain of ``ctrl`` (from ``GemController.make(env,
+    "Cont-SC-<motor>-v0")``) -- PI speed control, torque clip, the analytic
+    operating point, current clip, PI current control with the EMF
+    feedforward, voltage clip, the continuous output -- against the family
+    physics with the polynomial load, the env's reference, the WSE reward,
+    the limit constraint and the in-kernel reset to zero.
+
+    ``rollout(seed, *state0) -> (*states, reward_sum, term_count, rv, rk,
+    rl, rs, sc_int, cc_int)``; states = (omega, i) or (omega, i_a, i_e),
+    ``(n_envs // 128, 128)`` float32 planes.  Build the env with
+    ``ConstReference('omega', v)`` for the deterministic closed loop, which
+    follows ``ctrl.control_environment``.  The device is that of the
+    inputs."""
+    if n_envs % LANE:
+        raise ValueError(f"n_envs must be a multiple of {LANE}")
+    R = n_envs // LANE
+    cc = DcCascadeConsts(env, ctrl)
+
+    def rollout(seed, *state0):
+        check_rollout_inputs(R, n_steps, state0)
+        return dc_cascade_rollout(cc, seed, state0, n_steps)
+    rollout.consts = cc
+    return rollout

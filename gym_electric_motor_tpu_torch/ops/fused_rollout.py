@@ -7,13 +7,17 @@ synchronous family (the twelve PMSM / SynRM ids), the induction family (the
 six SCIM ids), the EESM family (the six EESM ids), the DFIM family (the six
 DFIM ids) and the SRM family (the six SRM ids).  The universal policy
 recorder is ``fused_policy.make_fused_policy_record_universal``; the sharded
-``make_sharded_fused_rollout`` comes with a later slice of the port.
+``make_sharded_fused_rollout`` comes with a later slice of the port.  The
+controller-in-the-loop builders are re-exported here as the JAX package
+re-exports them: ``make_fused_foc_rollout`` (``fused_sync.py``),
+``make_fused_dc_cascade_rollout`` (``fused_dc_family.py``) and
+``make_fused_srm_cascade_rollout`` (``fused_srm_family.py``).
 """
 
 from __future__ import annotations
 
 from .fused_common import LANE, TWO_PI  # noqa: F401
-from .fused_dc_family import make_fused_dc_rollout
+from .fused_dc_family import make_fused_dc_cascade_rollout, make_fused_dc_rollout  # noqa: F401
 from .fused_dfim_family import make_fused_dfim_family_rollout
 from .fused_eesm_family import make_fused_eesm_family_rollout
 from .fused_induction_family import make_fused_induction_rollout
@@ -28,11 +32,12 @@ from .fused_policy import (  # noqa: F401
 )
 from .fused_sync import (  # noqa: F401
     LAUNCHES,
+    make_fused_foc_rollout,
     make_fused_pmsm_record_rollout,
     make_fused_pmsm_rollout,
     reset_launches,
 )
-from .fused_srm_family import make_fused_srm_rollout
+from .fused_srm_family import make_fused_srm_cascade_rollout, make_fused_srm_rollout  # noqa: F401
 from .fused_sync_family import make_fused_sync_rollout
 
 FUSED_FAMILY_BUILDERS = {

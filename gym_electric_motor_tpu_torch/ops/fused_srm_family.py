@@ -87,6 +87,7 @@ from .fused_common import (
     ptr_array,
     ref_rows,
     reference_step,
+    require,
     rotation_advance,
     seed_u64,
     system_limits,
@@ -112,16 +113,18 @@ QUANTITIES = ("i_a", "i_b", "i_c", "torque", "omega")
 N_ROWS = 3  # reference rows the kernels carry constants for
 
 KERNELS = ("srm_rollout_random", "srm_rollout_buffer", "srm_record_random", "srm_record_buffer")
+# the controller-in-the-loop kernel (the SRM commutation cascade, csrc/fused_srm_cascade.cu)
+CONTROL_KERNELS = ("srm_cascade_rollout",)
 # the library of each kernel (csrc/<name>.cu)
 LIBRARY = {"srm_rollout_random": "fused_srm", "srm_rollout_buffer": "fused_srm",
            "srm_record_random": "fused_srm_record", "srm_record_buffer": "fused_srm_record"}
 
 # launches of each CUDA kernel since the last reset_launches()
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = dict.fromkeys(KERNELS + CONTROL_KERNELS, 0)
 
 
 def reset_launches():
-    for name in KERNELS:
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
@@ -680,3 +683,220 @@ def policy_surface(c: SrmConsts, env):
         action=tuple,
         step=lambda st, action, a: srm_action_step(c, st, action, None if c.mech else a),
         planes=lambda planes: _with_omega(c, planes))
+
+
+# ---------------------------------------------------------------------------
+# the commutation cascade in the loop (make_fused_srm_cascade_rollout)
+# ---------------------------------------------------------------------------
+
+# Order of the controller's float constants, the same as SrmCascadeIndex in
+# csrc/control_laws.cuh.
+CASCADE_CONST_NAMES = (
+    "kp_w", "ki_w", "t_max", "neg_t_max", "w_lim", "inv_w_lim", "inv_i_lim", "t_lim", "ki_t",
+    "tau_c", "trim_lo", "trim_hi", "pl1", "theta_on", "hyst", "kp_i", "ff_i", "i_max",
+    "cph0", "cph1", "cph2", "sph0", "sph1", "sph2", "s_min", "i_star_min",
+)
+TASK_CODES = {"CC": 0, "TC": 1, "SC": 2}
+
+class SrmCascadeConsts:
+    """The baked constants of the SRM commutation cascade in the loop
+    (``make_fused_srm_cascade_rollout``, pallas_srm.py:650-702): ``c`` the
+    family's (``SrmConsts``), ``task`` the control task, ``host`` the tuned
+    controller's constants in ``CASCADE_CONST_NAMES`` order as float32 and
+    ``f`` the same as Python floats.  Each is formed by the JAX kernel's
+    own expression over the same ``np.float32`` operands (``1.0 / I_LIM``,
+    ``-0.3 * T_LIM``, ...), so it rounds as there."""
+
+    def __init__(self, env, ctrl):
+        from ..controllers.srm import SRMCommutationController
+
+        require(isinstance(ctrl, SRMCommutationController),
+                 "the SRM cascade kernel takes an SRMCommutationController")
+        task = ctrl.control_task
+        require(task in TASK_CODES, f"unknown control task {task!r}")
+        c = SrmConsts(env)
+        require(c.finite == (ctrl.action_type == "Finite"),
+                 "the controller's converter is not the env's")
+        names = [row["name"] for row in c.rows]
+        if task == "SC":
+            require(c.mech and c.n_ref == 1 and names == ["omega"],
+                     "SC takes the speed ODE and one omega reference")
+        elif task == "TC":
+            require(c.n_ref == 1 and names == ["torque"], "TC takes one torque reference")
+        else:
+            require(names == ["i_a", "i_b", "i_c"], "CC takes the three phase currents")
+        if c.mech != (task == "SC"):
+            raise NotImplementedError(
+                f"the SRM cascade kernel runs {task} at the catalog's "
+                f"{'dynamic' if task == 'SC' else 'constant'} speed; run other loads on the "
+                "general path (control_environment)")
+        self.c, self.task = c, TASK_CODES[task]
+        f32 = np.float32
+        KP_W, KI_W, T_MAX = f32(ctrl.kp_w), f32(ctrl.ki_w), f32(ctrl.t_max)
+        W_LIM, I_LIM, T_LIM = f32(ctrl.w_lim), f32(ctrl.i_lim), f32(ctrl.t_lim)
+        cph = (1.0, -0.5, -0.5)
+        sph = (0.0, float(np.sqrt(3.0) / 2.0), float(-np.sqrt(3.0) / 2.0))
+        values = dict(
+            kp_w=KP_W, ki_w=KI_W, t_max=T_MAX, neg_t_max=-T_MAX, w_lim=W_LIM,
+            inv_w_lim=1.0 / W_LIM, inv_i_lim=1.0 / I_LIM, t_lim=T_LIM, ki_t=f32(ctrl.ki_t),
+            tau_c=f32(ctrl.tau), trim_lo=-0.3 * T_LIM, trim_hi=0.3 * T_LIM,
+            pl1=f32(ctrl.p * ctrl.l1), theta_on=f32(ctrl.theta_on), hyst=f32(ctrl.hysteresis),
+            kp_i=f32(ctrl.kp_i), ff_i=f32(ctrl.r_s * ctrl.i_lim / ctrl.u_lim),
+            i_max=f32((1.0 - ctrl.current_margin) * ctrl.i_lim),
+            cph0=cph[0], cph1=cph[1], cph2=cph[2], sph0=sph[0], sph1=sph[1], sph2=sph[2],
+            s_min=0.05, i_star_min=1e-6,
+        )
+        self.host = np.array([f32(values[n]) for n in CASCADE_CONST_NAMES], dtype=np.float32)
+        self.f = {n: float(v) for n, v in zip(CASCADE_CONST_NAMES, self.host)}
+
+
+def srm_commutate(q, t_ref, ce, se):
+    """Single-pulse commutation with the sqrt linearization (``_commutate``,
+    pallas_srm.py:718-735): the normalised per-phase setpoints for the
+    torque ``t_ref`` at the cycle-start (cos, sin) of the angle.  Only the
+    phase with the largest usable slope fires (a tie fires two)."""
+    sign = torch.sign(t_ref)
+    s_k = [se * q[f"cph{k}"] - ce * q[f"sph{k}"] for k in range(3)]
+    gain = [s * sign for s in s_k]
+    gmax = torch.maximum(gain[0], torch.maximum(gain[1], gain[2]))
+    out = []
+    for k in range(3):
+        fire = (gain[k] > q["theta_on"]) & (gain[k] >= gmax)
+        i_cmd = torch.sqrt(2.0 * torch.abs(t_ref)
+                           / (q["pl1"] * torch.clamp(torch.abs(s_k[k]), min=q["s_min"])))
+        i_star = torch.where(fire, torch.clamp(i_cmd, max=q["i_max"]), torch.zeros_like(i_cmd))
+        out.append(i_star * q["inv_i_lim"])
+    return out
+
+
+def srm_regulate(q, finite, i3, i_star_n):
+    """Per-phase regulation toward the normalised setpoints (``_regulate``,
+    pallas_srm.py:703-716): a hysteresis band on a finite converter (1
+    magnetise, 2 demagnetise, inside the band 0 while a setpoint exists and
+    2 otherwise, int32), P plus the resistive feed-forward duty on a
+    continuous one."""
+    acts = []
+    for i, i_star in zip(i3, i_star_n):
+        i_n = i * q["inv_i_lim"]
+        if finite:
+            one, two, zero = (torch.full_like(i_n, v, dtype=torch.int32) for v in (1, 2, 0))
+            mag = i_n < i_star - q["hyst"]
+            dem = i_n > i_star + q["hyst"]
+            hold = torch.where(i_star > q["i_star_min"], zero, two)
+            acts.append(torch.where(mag, one, torch.where(dem, two, hold)))
+        else:
+            duty = q["kp_i"] * (i_star - i_n) + q["ff_i"] * i_star
+            acts.append(torch.clamp(duty, -1.0, 1.0))
+    return tuple(acts)
+
+
+def srm_cascade_law(cc: SrmCascadeConsts, st, integ, ce, se):
+    """One cycle of the commutation cascade (``control``, pallas_srm.py:
+    737-758) on the state dict ``st``: CC regulates toward the three
+    references; TC trims the torque command by the integral of the error
+    against the measured coenergy torque (clipped to +-0.3 T_lim); SC runs
+    the anti-windup PI speed loop (equality test); both then commutate.
+    Returns the new integrator and the action."""
+    q, c = cc.f, cc.c
+    i3 = (st["ia"], st["ib"], st["ic"])
+    if cc.task == 0:
+        return integ, srm_regulate(q, c.finite, i3, st["rv"])
+    if cc.task == 1:
+        t_star = st["rv"][0] * q["t_lim"]
+        t_meas = srm_quantity(c, 0, st) * q["t_lim"]
+        integ = torch.clamp(integ + q["ki_t"] * (t_star - t_meas) * q["tau_c"],
+                            q["trim_lo"], q["trim_hi"])
+        t_ref = t_star + integ
+    else:
+        w_err = (st["rv"][0] - st["w"] * q["inv_w_lim"]) * q["w_lim"]
+        t_raw = q["kp_w"] * w_err + integ
+        t_ref = torch.clamp(t_raw, q["neg_t_max"], q["t_max"])
+        integ = integ + torch.where(t_raw == t_ref, q["ki_w"] * w_err * q["tau_c"],
+                                    torch.zeros_like(w_err))
+    return integ, srm_regulate(q, c.finite, i3, srm_commutate(q, t_ref, ce, se))
+
+
+def srm_cascade_rollout_plain(cc: SrmCascadeConsts, seed, states, n_steps, bits=None):
+    """Plain version of ``srm_cascade_rollout``: ``(*states, reward_sum,
+    term_count, rv, rk, rl, rs, integ)``.  The commutation takes cos and
+    sin of the state's angle under the speed ODE (SC) and the carried
+    rotation at constant speed (CC, TC); the reference advances as in
+    ``srm_rollout_random`` (``bits`` replaces its Philox source; the step's
+    action words are unused); the integrator starts at zero and persists
+    across env resets."""
+    c = cc.c
+    bits = _bits(c, seed, states, bits)
+    st = _random_init(c, bits, states)
+    zero = torch.zeros_like(states[0])
+    integ, reward, terms = zero.clone(), zero.clone(), zero.clone()
+    for t in range(n_steps):
+        if c.mech:
+            ce, se = torch.cos(st["eps"]), torch.sin(st["eps"])
+        else:
+            ce, se = st["c"], st["s"]
+        integ, action = srm_cascade_law(cc, st, integ, ce, se)
+        new, (_a, r, done, _refs) = srm_action_step(c, st, action,
+                                                    None if c.mech else (ce, se))
+        if not c.all_const:
+            _acts, *ref_words = bits.step_words(t)
+            reference_step(c.f, c.rows, c.all_const, st, new, ref_words, done > 0.5, t)
+        st = new
+        reward = reward + r
+        terms = terms + done
+    return (tuple(st[key] for key in _state_keys(c)) + (reward, terms)
+            + tuple(torch.cat(st[key]) for key in ("rv", "rk", "rl", "rs")) + (integ,))
+
+
+_CONTROL_ARGTYPES = {
+    "srm_cascade_rollout": [_P, _P, _P, ctypes.c_uint64, _I, _I, _P, _P, _P],
+}
+
+
+def srm_cascade_rollout(cc: SrmCascadeConsts, seed: int, states, n_steps: int):
+    """``(*states, reward_sum, term_count, rv, rk, rl, rs, integ)`` of
+    ``n_steps`` closed-loop steps: the plain version for CPU tensors, the
+    kernel of ``csrc/fused_srm_cascade.cu`` for CUDA ones."""
+    c = cc.c
+    device, R = check_planes(c, states)
+    if device.type == "cpu":
+        return srm_cascade_rollout_plain(cc, seed, tuple(states), n_steps)
+    lib = family_library("fused_srm_cascade", "srm_cascade", _CONTROL_ARGTYPES,
+                         (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES),
+                          len(CASCADE_CONST_NAMES)))
+
+    def plane(rows=1):
+        return torch.empty((rows * R, LANE), dtype=torch.float32, device=device)
+    outs = ([plane() for _ in range(c.n_state + 2)] + [plane(c.n_ref) for _ in range(4)]
+            + [plane()])
+    flags = np.concatenate([c.flags, np.array([cc.task], dtype=np.int32)])
+    launch_kernel(lib, "srm_cascade", "srm_cascade_rollout", device, LAUNCHES,
+                  c.host.ctypes.data, flags.ctypes.data, cc.host.ctypes.data, seed_u64(seed),
+                  R * LANE, int(n_steps), ptr_array(_with_omega(c, states)),
+                  ptr_array(_with_omega(c, outs)))
+    return tuple(outs)
+
+
+def make_fused_srm_cascade_rollout(env, ctrl, n_steps, n_envs):
+    """Fused closed-loop commutation cascade of an SRM env
+    (``make_fused_srm_cascade_rollout``, pallas_srm.py:622): the three
+    tasks of ``SRMCommutationController`` (``ctrl``, from
+    ``GemController.make(env, env_id)``) on either converter, linear or
+    saturating, against the family physics, the env's references, the WSE
+    reward, the limit constraint and the in-kernel reset.
+
+    ``rollout(seed, *state0) -> (*states, reward_sum, term_count, rv, rk,
+    rl, rs, integ)``; states = (omega?, i_a, i_b, i_c, eps), ``(n_envs //
+    128, 128)`` float32 planes, the reference rows ``(n_ref * n_envs //
+    128, 128)``.  Build the env with ``ConstReference`` for the
+    deterministic closed loop, which follows ``ctrl.control_environment``.
+    The device is that of the inputs."""
+    if n_envs % LANE:
+        raise ValueError(f"n_envs must be a multiple of {LANE}")
+    R = n_envs // LANE
+    cc = SrmCascadeConsts(env, ctrl)
+
+    def rollout(seed, *state0):
+        check_rollout_inputs(R, n_steps, state0)
+        return srm_cascade_rollout(cc, seed, state0, n_steps)
+    rollout.consts = cc
+    return rollout

@@ -16,6 +16,10 @@ carry the work on the GPU:
 ``pmsm_record_buffer``   the buffer step, every step recorded
 ==================== ==================================================
 
+and the FOC closed loop of ``make_fused_foc_rollout`` (pallas_sync.py:1124,
+site :1339), ``foc_rollout`` (``csrc/fused_foc.cu``): Cont-CC-PMSM under
+the tuned PI current controller, over the same physics and references.
+
 Each kernel has a plain PyTorch version here (``*_plain``) with the same
 arithmetic in the same order and the same Philox bits.  A wrapper runs the
 plain version only for tensors on the CPU; for CUDA tensors it launches
@@ -35,7 +39,8 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .fused_common import LANE, TWO_PI, PhiloxBits, uniform_from_bits
+from .fused_common import (LANE, TWO_PI, PhiloxBits, family_library, launch_kernel, ptr_array,
+                           require, uniform_from_bits)
 
 _f32 = np.float32
 
@@ -50,19 +55,22 @@ CONST_NAMES = (
 
 KERNELS = ("pmsm_rollout_random", "pmsm_rollout_buffer",
            "pmsm_record_random", "pmsm_record_buffer")
+# the controller-in-the-loop kernel (the FOC closed loop, csrc/fused_foc.cu)
+CONTROL_KERNELS = ("foc_rollout",)
 
 # launches of each CUDA kernel since the last reset_launches()
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = dict.fromkeys(KERNELS + CONTROL_KERNELS, 0)
 
 
 def reset_launches():
-    for name in KERNELS:
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
-def _require_fused_config(env):
-    """The kernels bake the catalog defaults of Finite-CC-PMSM/SynRM:
-    reject what they would silently simulate wrong."""
+def _require_fused_config(env, converter="Finite-B6C"):
+    """The kernels bake the catalog defaults of Finite-CC-PMSM/SynRM (the
+    FOC kernel those of Cont-CC-PMSM, ``converter="Cont-B6C"``): reject
+    what they would silently simulate wrong."""
     ps = env.physical_system
     if ps.motor.kind not in ("PMSM", "SynRM"):
         raise NotImplementedError(f"the PMSM kernels need a PMSM or SynRM, got {ps.motor.kind!r}")
@@ -72,9 +80,9 @@ def _require_fused_config(env):
     if ps.load.kind != "ConstantSpeedLoad":
         raise NotImplementedError(
             f"the PMSM kernels support ConstantSpeedLoad only; got {ps.load.kind!r}")
-    if ps.converter.kind != "Finite-B6C":
+    if ps.converter.kind != converter:
         raise NotImplementedError(
-            f"the PMSM kernels need the finite B6 bridge; got {ps.converter.kind!r}")
+            f"the PMSM kernels need the {converter} bridge; got {ps.converter.kind!r}")
     cm = env.constraint_monitor
     ok = (len(cm.constraints) == 1 and cm.merge_violations == "max"
           and type(cm.constraints[0]).__name__ == "SquaredConstraint"
@@ -90,8 +98,8 @@ class PmsmConsts:
     is the array handed to the kernels, ``f`` the same values as Python
     floats for the plain versions."""
 
-    def __init__(self, env):
-        _require_fused_config(env)
+    def __init__(self, env, converter="Finite-B6C"):
+        _require_fused_config(env, converter)
         ps = env.physical_system
         mp = ps.motor.parameter
         names = list(ps.state_names)
@@ -140,6 +148,11 @@ def pmsm_physics(k, action, c, s, i_sd, i_sq, eps):
     ua = (((action >> 2) & 1).to(torch.float32) - 0.5) * k["u_sup"]
     ub = (((action >> 1) & 1).to(torch.float32) - 0.5) * k["u_sup"]
     uc = ((action & 1).to(torch.float32) - 0.5) * k["u_sup"]
+    return pmsm_physics_abc(k, ua, ub, uc, c, s, i_sd, i_sq, eps)
+
+
+def pmsm_physics_abc(k, ua, ub, uc, c, s, i_sd, i_sq, eps):
+    """``pmsm_physics`` from the three phase voltages on."""
     u_alpha = k["two_thirds"] * (ua - 0.5 * (ub + uc))
     u_beta = k["inv_sqrt3"] * (ub - uc)
     u_d = c * u_alpha + s * u_beta
@@ -183,8 +196,19 @@ def action_step(k, st, action):
     incremental Park rotation, constraint, reward and the reset of the drive
     state.  Returns the new drive-state dict (the reference entries carried
     over) and ``(action, reward, done, ref_d, ref_q)``."""
+    ua = (((action >> 2) & 1).to(torch.float32) - 0.5) * k["u_sup"]
+    ub = (((action >> 1) & 1).to(torch.float32) - 0.5) * k["u_sup"]
+    uc = ((action & 1).to(torch.float32) - 0.5) * k["u_sup"]
+    new, out = voltage_step(k, st, ua, ub, uc)
+    return new, (action,) + out
+
+
+def voltage_step(k, st, ua, ub, uc):
+    """``action_step`` under the phase voltages ``ua``, ``ub``, ``uc``
+    (``pmsm_voltage_step``); returns the new drive-state dict and
+    ``(reward, done, ref_d, ref_q)``."""
     c, s = st["c"], st["s"]
-    i_sd, i_sq, eps = pmsm_physics(k, action, c, s, st["i_sd"], st["i_sq"], st["eps"])
+    i_sd, i_sq, eps = pmsm_physics_abc(k, ua, ub, uc, c, s, st["i_sd"], st["i_sq"], st["eps"])
     c_new = c * k["cos_d"] - s * k["sin_d"]
     s_new = s * k["cos_d"] + c * k["sin_d"]
     inv = torch.rsqrt(c_new * c_new + s_new * s_new)
@@ -198,7 +222,7 @@ def action_step(k, st, action):
     wse = -(w * torch.abs(i_sd_n - st["rv_d"]) + w * torch.abs(i_sq_n - st["rv_q"]))
     reward = torch.where(violated, torch.full_like(wse, k["violation_reward"]), wse)
     done = violated.to(torch.float32)
-    out = (action, reward, done, st["rv_d"], st["rv_q"])
+    out = (reward, done, st["rv_d"], st["rv_q"])
 
     zero = torch.zeros_like(i_sd)
     new = dict(st)
@@ -494,4 +518,176 @@ def make_fused_pmsm_record_rollout(env, n_steps, n_envs, action_mode="random"):
         _check("i_sd0", i_sd0, (R, LANE), torch.float32, i_sd0.device)
         _check("actions", actions, (n_steps, R, LANE), torch.int32, i_sd0.device)
         return pmsm_record_buffer(consts, i_sd0, i_sq0, eps0, actions)
+    return rollout
+
+
+# ---------------------------------------------------------------------------
+# the FOC closed loop: Cont-CC-PMSM under the tuned PI current controller
+# ---------------------------------------------------------------------------
+
+# Order of the controller's float constants, the same as FocIndex in
+# csrc/control_laws.cuh; the physics takes CONST_NAMES (PmsmConstIndex).
+FOC_CONST_NAMES = (
+    "cc_p_d", "cc_p_q", "cc_i_d", "cc_i_q", "inv_clip_d", "inv_clip_q",
+    "l_emf_d", "l_emf_q", "psi_emf_d", "psi_emf_q", "omega_el", "ref_lim_d", "ref_lim_q",
+    "inv_out", "u_half", "cos_a", "sin_a", "half_sqrt3", "tau",
+)
+
+class FocConsts:
+    """The baked constants of the FOC closed loop (``make_fused_foc_rollout``,
+    pallas_sync.py:1142-1177): ``pm`` the PMSM physics of a Cont-CC-PMSM env
+    (``PmsmConsts`` over the continuous B6 bridge), ``host`` the tuned
+    controller's constants in ``FOC_CONST_NAMES`` order as float32 and
+    ``f`` the same as Python floats.  Each constant is rounded as the JAX
+    kernel rounds it: a gain, limit or flux once to float32; ``1 / out_lim``,
+    ``omega p`` and ``u_sup / 2`` in double first; the voltage clip's
+    division by its limit as XLA compiles it, a product with the float32
+    reciprocal of the float32 limit."""
+
+    def __init__(self, env, ctrl, ref_mode="wiener"):
+        if ref_mode not in ("wiener", "const"):
+            raise ValueError(f"ref_mode must be 'wiener' or 'const', got {ref_mode!r}")
+        require(ctrl.control_task == "CC" and ctrl.output_kind == "cont",
+                 "the FOC kernel takes the current controller of a continuous converter")
+        self.pm = PmsmConsts(env, converter="Cont-B6C")
+        self.wiener = ref_mode == "wiener"
+        ps = env.physical_system
+        omega, tau = float(ps.load.omega_fixed), float(ps.tau)
+        cc_p_d, cc_p_q = (float(x) for x in ctrl.cc_p_gain)
+        cc_i_d, cc_i_q = (float(x) for x in ctrl.cc_i_gain)
+        clip_d, clip_q = (float(x) for x in np.asarray(ctrl.cc_clip_limits))
+        l_emf_d, l_emf_q = (float(x) for x in ctrl.l_emf)
+        psi_emf_d, psi_emf_q = (float(x) for x in ctrl.psi_emf)
+        ref_lim_d, ref_lim_q = (float(x) for x in ctrl.ref_limits)
+        out_lim = float(np.asarray(ctrl.output_limits)[0])
+        # the advance angle takes the mechanical omega (controller.py:452-454)
+        adv_dt = float(ctrl.advance_factor) * tau * omega
+        values = dict(
+            cc_p_d=cc_p_d, cc_p_q=cc_p_q, cc_i_d=cc_i_d, cc_i_q=cc_i_q,
+            inv_clip_d=_f32(1.0) / _f32(clip_d), inv_clip_q=_f32(1.0) / _f32(clip_q),
+            l_emf_d=l_emf_d, l_emf_q=l_emf_q, psi_emf_d=psi_emf_d, psi_emf_q=psi_emf_q,
+            omega_el=omega * float(ctrl.pole_pairs), ref_lim_d=ref_lim_d, ref_lim_q=ref_lim_q,
+            inv_out=1.0 / out_lim, u_half=0.5 * float(ps.supply.u_nominal),
+            cos_a=np.cos(adv_dt), sin_a=np.sin(adv_dt), half_sqrt3=np.sqrt(3.0) / 2.0, tau=tau,
+        )
+        self.host = np.array([_f32(values[n]) for n in FOC_CONST_NAMES], dtype=np.float32)
+        self.f = {n: float(v) for n, v in zip(FOC_CONST_NAMES, self.host)}
+
+
+def foc_cycle(q, i_sd, i_sq, ce, se, integ_d, integ_q, ref_d_n, ref_q_n):
+    """One FOC control cycle (``_cycle``'s controller half, pallas_sync.py:
+    1186-1221): PI current control on the denormalised references, the EMF
+    decoupling (the d voltage takes i_sq, the q voltage i_sd), the squared
+    voltage clip's anti-windup, the dq -> abc transform of the *unclipped*
+    voltage at the cycle-start rotation (ce, se) turned by the constant
+    advance angle, and the continuous output stage with the converter's
+    clip.  Returns the phase voltages and the two integrators."""
+    err_d = ref_d_n * q["ref_lim_d"] - i_sd
+    err_q = ref_q_n * q["ref_lim_q"] - i_sq
+    u_d = q["cc_p_d"] * err_d + q["cc_i_d"] * integ_d
+    u_q = q["cc_p_q"] * err_q + q["cc_i_q"] * integ_q
+    u_d = u_d + (q["l_emf_d"] * i_sq + q["psi_emf_d"]) * q["omega_el"]
+    u_q = u_q + (q["l_emf_q"] * i_sd + q["psi_emf_q"]) * q["omega_el"]
+    rel_d = u_d * q["inv_clip_d"]
+    rel_q = u_q * q["inv_clip_q"]
+    not_clipped = ((rel_d * rel_d + rel_q * rel_q) < 1.0).to(torch.float32)
+    integ_d = integ_d + q["tau"] * err_d * not_clipped
+    integ_q = integ_q + q["tau"] * err_q * not_clipped
+    c = ce * q["cos_a"] - se * q["sin_a"]
+    s = se * q["cos_a"] + ce * q["sin_a"]
+    u_al = c * u_d - s * u_q
+    u_be = s * u_d + c * u_q
+    ub = -0.5 * u_al + q["half_sqrt3"] * u_be
+    uc = -0.5 * u_al - q["half_sqrt3"] * u_be
+    phases = [torch.clamp(u * q["inv_out"], -1.0, 1.0) * q["u_half"] for u in (u_al, ub, uc)]
+    return (*phases, integ_d, integ_q)
+
+
+def foc_rollout_plain(fc: FocConsts, seed, i_sd0, i_sq0, eps0, ref_d, ref_q, n_steps, bits=None):
+    """Plain version of ``foc_rollout``: ``(i_sd, i_sq, eps, reward_sum,
+    term_count, rv, rk, rl, rs)``, the reference planes ``(2R, 128)`` with
+    the d rows first.  Wiener mode draws the references as
+    ``pmsm_rollout_random`` does (``bits`` replaces its Philox source; the
+    step's action word is unused); const mode holds them at ``ref_d`` and
+    ``ref_q``.  The integrators start at zero and persist across env
+    resets, as ``control_environment`` carries the controller state."""
+    k, q = fc.pm.f, fc.f
+    zero = torch.zeros_like(i_sd0)
+    if fc.wiener:
+        bits = bits or PhiloxBits(seed, i_sd0.numel(), i_sd0.device)
+        st = _random_init(k, bits.init_words(), i_sd0, i_sq0, eps0)
+    else:
+        st = dict(i_sd=i_sd0.clone(), i_sq=i_sq0.clone(), eps=eps0.clone(),
+                  c=torch.cos(eps0), s=torch.sin(eps0), rv_d=ref_d.clone(), rv_q=ref_q.clone(),
+                  rk_d=zero, rk_q=zero.clone(), rl_d=torch.full_like(zero, 1e9),
+                  rl_q=torch.full_like(zero, 1e9), rs_d=zero.clone(), rs_q=zero.clone())
+    integ_d, integ_q = zero.clone(), zero.clone()
+    reward, terms = zero.clone(), zero.clone()
+    for t in range(n_steps):
+        ua, ub, uc, integ_d, integ_q = foc_cycle(q, st["i_sd"], st["i_sq"], st["c"], st["s"],
+                                                 integ_d, integ_q, st["rv_d"], st["rv_q"])
+        new, (r, done, _rd, _rq) = voltage_step(k, st, ua, ub, uc)
+        if fc.wiener:
+            words = [w.reshape(zero.shape) for w in bits.step_words(t)[1:]]
+            wiener_advance_pair(k, new, done > 0.5, *words)
+        st = new
+        reward = reward + r
+        terms = terms + done
+    return (st["i_sd"], st["i_sq"], st["eps"], reward, terms,
+            torch.cat([st["rv_d"], st["rv_q"]]), torch.cat([st["rk_d"], st["rk_q"]]),
+            torch.cat([st["rl_d"], st["rl_q"]]), torch.cat([st["rs_d"], st["rs_q"]]))
+
+
+_CONTROL_ARGTYPES = {
+    "foc_rollout": [_P, _P, ctypes.c_uint64, _I, _I, _P, _P, _P],
+}
+
+
+def foc_rollout(fc: FocConsts, seed: int, i_sd0, i_sq0, eps0, ref_d, ref_q, n_steps: int):
+    """``(i_sd, i_sq, eps, reward_sum, term_count, rv, rk, rl, rs)`` of
+    ``n_steps`` closed-loop FOC steps: the plain version for CPU tensors,
+    the kernel of ``csrc/fused_foc.cu`` for CUDA ones."""
+    device, R = _planes(i_sd0, i_sq0, eps0)
+    _check("ref_d", ref_d, (R, LANE), torch.float32, device)
+    _check("ref_q", ref_q, (R, LANE), torch.float32, device)
+    if device.type == "cpu":
+        return foc_rollout_plain(fc, seed, i_sd0, i_sq0, eps0, ref_d, ref_q, n_steps)
+    lib = family_library("fused_foc", "foc", _CONTROL_ARGTYPES,
+                         (len(CONST_NAMES), 0, 1, len(FOC_CONST_NAMES)))
+    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(5)]
+    outs += [torch.empty((2 * R, LANE), dtype=torch.float32, device=device) for _ in range(4)]
+    flags = np.array([int(fc.wiener)], dtype=np.int32)
+    launch_kernel(lib, "foc", "foc_rollout", device, LAUNCHES, fc.pm.host.ctypes.data,
+                  flags.ctypes.data, fc.host.ctypes.data, int(seed) & 0xFFFFFFFFFFFFFFFF,
+                  R * LANE, int(n_steps), ptr_array([i_sd0, i_sq0, eps0, ref_d, ref_q]),
+                  ptr_array(outs))
+    return tuple(outs)
+
+
+def make_fused_foc_rollout(env, ctrl, n_steps, n_envs, ref_mode="wiener"):
+    """Fused closed-loop FOC rollout of a Cont-CC-PMSM-v0 env
+    (``make_fused_foc_rollout``, pallas_sync.py:1124): the whole control
+    cycle of the tuned PI current controller (``ctrl``, from
+    ``GemController.make(env, "Cont-CC-PMSM-v0")``) fused with the PMSM
+    physics, the Wiener current references, the WSE reward, the squared
+    constraint and the in-kernel reset.
+
+    Returns ``rollout(seed, i_sd0, i_sq0, eps0, ref_d=None, ref_q=None) ->
+    (i_sd, i_sq, eps, reward_sum, term_count, rv, rk, rl, rs)`` with
+    ``(n_envs // 128, 128)`` float32 planes and ``(2 * n_envs // 128,
+    128)`` reference planes.  ``ref_mode='const'`` holds the normalised
+    references at the ``ref_d`` and ``ref_q`` planes (zeros if omitted):
+    the closed loop is then deterministic and follows
+    ``ctrl.control_environment``.  The device is that of the inputs."""
+    if n_envs % LANE:
+        raise ValueError(f"n_envs must be a multiple of {LANE}")
+    R = n_envs // LANE
+    fc = FocConsts(env, ctrl, ref_mode)
+
+    def rollout(seed, i_sd0, i_sq0, eps0, ref_d=None, ref_q=None):
+        _check("i_sd0", i_sd0, (R, LANE), torch.float32, i_sd0.device)
+        z = torch.zeros((R, LANE), dtype=torch.float32, device=i_sd0.device)
+        return foc_rollout(fc, seed, i_sd0, i_sq0, eps0, z if ref_d is None else ref_d,
+                           z if ref_q is None else ref_q, n_steps)
+    rollout.consts = fc
     return rollout

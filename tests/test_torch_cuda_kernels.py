@@ -50,7 +50,7 @@ def test_cuda_kernels_match_plain_versions():
             ok &= (err <= 1e-4 + 1e-4 * np.abs(w)).reshape(-1, R * 128).all(axis=0)
         assert ok.all() if kern in (fs.pmsm_rollout_buffer, fs.pmsm_record_buffer) else ok.mean() >= 0.99
     torch.cuda.synchronize()
-    assert all(v == 1 for v in fs.LAUNCHES.values())
+    assert {k: v for k, v in fs.LAUNCHES.items() if v} == dict.fromkeys(fs.KERNELS, 1)
 
 
 @pytest.mark.cuda
@@ -194,7 +194,7 @@ def test_cuda_dc_kernels_match_plain_versions(env_id):
             ok &= (np.abs(g - w) <= 1e-4 + 1e-4 * np.abs(w)).reshape(-1, R * 128).all(axis=0)
         assert ok.all() if kern in (dcf.dc_rollout_buffer, dcf.dc_record_buffer) else ok.mean() >= 0.99
     torch.cuda.synchronize()
-    assert all(v == 1 for v in dcf.LAUNCHES.values())
+    assert {k: v for k, v in dcf.LAUNCHES.items() if v} == dict.fromkeys(dcf.KERNELS, 1)
 
 
 @pytest.mark.cuda
@@ -380,7 +380,7 @@ def test_cuda_srm_kernels_match_plain_versions(env_id, psi_s):
         buffer = kern in (srf.srm_rollout_buffer, srf.srm_record_buffer)
         assert ok.all() if buffer else ok.mean() >= 0.99
     torch.cuda.synchronize()
-    assert all(v == 1 for v in srf.LAUNCHES.values())
+    assert {k: v for k, v in srf.LAUNCHES.items() if v} == dict.fromkeys(srf.KERNELS, 1)
 
 
 POLICY_CASES = [("Finite-CC-PMSM-v0", False), ("Cont-SC-SynRM-v0", False),
@@ -435,3 +435,76 @@ def test_cuda_universal_policy_kernel_matches_plain_version(env_id, joint, H):
             err = np.minimum(err, 2 * np.pi - err)
         ok &= (err <= 1e-4 + 1e-4 * np.abs(x)).reshape(-1, R * 128).all(axis=0)
     assert ok.mean() >= 0.99
+
+
+def _close_share(got, want, n):
+    """Share of the n envs (the trailing n elements) whose every output
+    agrees at rtol 1e-5 / atol 1e-4."""
+    ok = np.ones(n, bool)
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy().astype(np.float64), w.cpu().numpy().astype(np.float64)
+        assert g.shape == w.shape
+        ok &= (np.abs(g - w) <= 1e-4 + 1e-5 * np.abs(w)).reshape(-1, n).all(axis=0)
+    return ok.mean()
+
+
+CONTROL_SRM_REFS = {"CC": [("i_a", 0.2), ("i_b", 0.3), ("i_c", 0.1)], "TC": [("torque", 0.3)],
+                    "SC": [("omega", 0.4)]}
+CONTROL_CASES = ([("foc", "Cont-CC-PMSM-v0", None)]
+                 + [("dc", i, None) for i in ("Cont-SC-PermExDc-v0", "Cont-SC-SeriesDc-v0",
+                                              "Cont-SC-ShuntDc-v0")]
+                 + [("srm", i, None) for i in gt.SRM_ENV_IDS] + [("srm", "Finite-TC-SRM-v0", 1.2)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["const", "wiener"])
+@pytest.mark.parametrize("kind,env_id,psi_s", CONTROL_CASES,
+                         ids=[f"{i}{'-sat' if p else ''}" for _k, i, p in CONTROL_CASES])
+def test_cuda_control_kernels_match_plain_versions(kind, env_id, psi_s, mode):
+    """The three controller-in-the-loop kernels (FOC, DC speed cascade, SRM
+    commutation cascade) at 256 envs x 64 steps: constant references in
+    every env at rtol 1e-5 / atol 1e-4, Wiener references in 99% of envs;
+    one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.controllers import GemController
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf
+
+    dev = torch.device("cuda")
+    R, T, N = 2, 64, 256
+    rng = np.random.default_rng(13)
+    kw = {"motor": {"motor_parameter": {"psi_s": psi_s}}} if psi_s else {}
+    task = env_id.split("-")[1]
+    refs = {"foc": [("i_sd", -0.1), ("i_sq", 0.3)], "dc": [("omega", 0.5)],
+            "srm": CONTROL_SRM_REFS[task]}[kind]
+    if mode == "const":
+        kw["reference_generator"] = rg.ReferenceSpec([rg.ConstReference(n, v) for n, v in refs])
+    env = gt.make_functional(env_id, device=dev, **kw)
+    ctrl = GemController.make(env, env_id)
+
+    def planes(bounds):
+        return [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+                for lo, hi in bounds]
+
+    if kind == "foc":
+        mod, c = fs, fs.FocConsts(env, ctrl, mode)
+        args = (7, *planes([(-50, 50), (-50, 50), (0, 2 * np.pi), (-0.3, 0.3), (-0.3, 0.3)]), T)
+        kern, plain = fs.foc_rollout, fs.foc_rollout_plain
+    elif kind == "dc":
+        mod, c = dcf, dcf.DcCascadeConsts(env, ctrl)
+        args = (7, planes([(0, 100)] + [(-5, 5)] * (c.c.n_state - 1)), T)
+        kern, plain = dcf.dc_cascade_rollout, dcf.dc_cascade_rollout_plain
+    else:
+        mod, c = srf, srf.SrmCascadeConsts(env, ctrl)
+        args = (7, planes(([(0, 100)] if c.c.mech else []) + [(0, 22)] * 3 + [(-np.pi, np.pi)]),
+                T)
+        kern, plain = srf.srm_cascade_rollout, srf.srm_cascade_rollout_plain
+    mod.reset_launches()
+    got = kern(c, *args)
+    torch.cuda.synchronize()
+    want = plain(c, *args)
+    share = _close_share(got, want, N)
+    assert share == 1.0 if mode == "const" else share >= 0.99
+    assert {k: v for k, v in mod.LAUNCHES.items() if v} == dict.fromkeys(mod.CONTROL_KERNELS, 1)

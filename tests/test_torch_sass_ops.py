@@ -7,6 +7,7 @@ everything else in the loop runs every iteration.  Counts are exact
 integers, so the test compares them exactly.
 """
 
+import re
 import sys
 from pathlib import Path
 
@@ -119,3 +120,64 @@ def test_nested_loop_counts_apart():
     assert plain["conditional"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1}
     with pytest.raises(ValueError, match="nested"):
         sass_ops.loop_counts(sass_ops.functions(SASS)["_Z4stepPfi"], inner=True)
+
+
+def _template_arity(source, kernel):
+    """The number of template parameters of ``__global__ void kernel`` in a
+    CUDA source (0 for a plain kernel)."""
+    m = re.search(r"(?:template\s*<([^>]*)>\s*)?__global__\s+void\s+"
+                  r"(?:__launch_bounds__\([^)]*\)\s*)?" + kernel + r"\s*\(", source)
+    assert m, f"no __global__ {kernel} in the source"
+    return 0 if m.group(1) is None else m.group(1).count(",") + 1
+
+
+CSRC = Path(__file__).resolve().parent.parent / "gym_electric_motor_tpu_torch" / "csrc"
+
+
+@pytest.mark.parametrize("library", sorted(sass_ops.STEP_INSTANCES))
+def test_step_instances_name_kernels_of_their_sources(library):
+    """Every ``STEP_INSTANCES`` entry parses: a kernel defined in
+    ``csrc/<library>.cu`` with as many template arguments in the mangled
+    substring as the kernel has template parameters, and at most one loop
+    mark (``#2`` or ``@inner``)."""
+    source = (CSRC / f"{library}.cu").read_text()
+    for key, instance in sass_ops.STEP_INSTANCES[library].items():
+        sub, _, nested = instance.partition("@")
+        sub, mark, second = sub.partition("#")
+        assert nested in ("", "inner") and second in ("", "2") and not (nested and mark), key
+        kernel, _sep, args = sub.partition("_kernel")
+        n_args = args.count("Lb") + args.count("Li")
+        assert _template_arity(source, kernel + "_kernel") == n_args, key
+        assert key.split("/")[0] == kernel, key
+
+
+# the mangled names of the controller-in-the-loop instances, as cuobjdump
+# lists them for the libraries nvcc builds (anonymous-namespace prefix as
+# printed on an H100 build)
+SASS_CONTROL = "\n".join(
+    f"""        Function : _ZN45_GLOBAL__N__300bf0b0_12_x_cu_9057f009{len(k)}{k}Ev9CtrlConst
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   FFMA R2, R2, R3, R4 ;
+        /*0020*/                   ISETP.NE.AND P1, PT, R0, UR4, PT ;
+        /*0030*/               @P1 BRA 0x10 ;
+        /*0040*/                   EXIT ;"""
+    for k in ("foc_rollout_kernelILb0EE", "foc_rollout_kernelILb1EE",
+              *[f"dc_cascade_rollout_kernelILi{o}ELb{w}EE" for o in range(3) for w in range(2)],
+              *[f"srm_cascade_rollout_kernelILi{t}ELb{f}ELb{s}ELb{w}EE"
+                for t in range(3) for f in range(2) for s in range(2) for w in range(2)]))
+
+
+def test_control_instances_pick_one_function_each():
+    """The controller-in-the-loop entries each match exactly one function of
+    their library's listing (2, 6 and 24 instances), the one with the
+    reference advance (WIENER, the last template argument, true), whose
+    loop counts."""
+    funcs = sass_ops.functions(SASS_CONTROL)
+    assert len(funcs) == 32
+    for library in ("fused_foc", "fused_dc_cascade", "fused_srm_cascade"):
+        for instance in sass_ops.STEP_INSTANCES[library].values():
+            names = [f for f in funcs if instance in f]
+            assert len(names) == 1, instance
+            assert instance.endswith("Lb1EE"), instance
+            counts = sass_ops.loop_counts(funcs[names[0]])
+            assert counts["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 0}

@@ -7,8 +7,10 @@ Run on a machine with the CUDA toolkit, from the root of a checkout:
     python3 tools/sass_ops.py [kernel ...]
 
 It builds the libraries of ``STEP_INSTANCES`` (``csrc/fused_pmsm.cu``,
-``csrc/fused_policy.cu``, the six families' rollout and record sources and
-their ``csrc/fused_<family>_policy.cu``, as the package does at first use)
+``csrc/fused_policy.cu``, the six families' rollout and record sources,
+their ``csrc/fused_<family>_policy.cu`` and the three controller-in-the-loop
+sources ``csrc/fused_foc.cu``, ``csrc/fused_dc_cascade.cu`` and
+``csrc/fused_srm_cascade.cu``, as the package does at first use)
 and prints one JSON line per kernel; a template instance is named by a
 substring of its mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1E``
 for H = 16, categorical, Wiener.
@@ -253,22 +255,26 @@ STEP_INSTANCES = {
         "reinforce_reduce": "reinforce_reduce_kernel",
     },
     # <FINITE, MECH, NREF>: Cont-SC-PMSM-v0 (0, 1, 1) for each kernel, and
-    # Finite-CC-PMSM-v0 (1, 0, 2) for the random ones
+    # Finite-CC-PMSM-v0 (1, 0, 2) and Cont-CC-PMSM-v0 (0, 0, 2) for the
+    # random ones
     "fused_sync": {
         "sync_rollout_random": "sync_rollout_random_kernelILb0ELb1ELi1E",
         "sync_rollout_buffer": "sync_rollout_buffer_kernelILb0ELb1E",
         "sync_record_random": "sync_record_random_kernelILb0ELb1ELi1E",
         "sync_record_buffer": "sync_record_buffer_kernelILb0ELb1E",
         "sync_rollout_random/Finite-CC-PMSM-v0": "sync_rollout_random_kernelILb1ELb0ELi2E",
+        "sync_rollout_random/Cont-CC-PMSM-v0": "sync_rollout_random_kernelILb0ELb0ELi2E",
         "sync_record_random/Finite-CC-PMSM-v0": "sync_record_random_kernelILb1ELb0ELi2E",
     },
     # <FINITE, MECH, MC, NREF> (MC: 0 one current, 1 ShuntDc, 2 ExtExDc):
     # Cont-SC-ShuntDc-v0 (0, 1, 1, 1) for each kernel, and
-    # Finite-CC-PermExDc-v0 (1, 0, 0, 1) for the random ones
+    # Finite-CC-PermExDc-v0 (1, 0, 0, 1) and Cont-SC-PermExDc-v0 (0, 1, 0, 1)
+    # for the random ones
     "fused_dc": {
         "dc_rollout_random": "dc_rollout_random_kernelILb0ELb1ELi1ELi1E",
         "dc_rollout_buffer": "dc_rollout_buffer_kernelILb0ELb1ELi1E",
         "dc_rollout_random/Finite-CC-PermExDc-v0": "dc_rollout_random_kernelILb1ELb0ELi0ELi1E",
+        "dc_rollout_random/Cont-SC-PermExDc-v0": "dc_rollout_random_kernelILb0ELb1ELi0ELi1E",
         # its loop without the reference advance: constant references
         "dc_rollout_random/Finite-CC-PermExDc-v0/const":
             "dc_rollout_random_kernelILb1ELb0ELi0ELi1E#2",
@@ -323,13 +329,14 @@ STEP_INSTANCES = {
     },
     # <FINITE, MECH, NREF, SAT> (<FINITE, MECH, SAT> for the buffer kernels),
     # linear: Cont-SC-SRM-v0 (0, 1, 1, 0) for each kernel, and
-    # Finite-CC-SRM-v0 (1, 0, 3, 0) and Finite-TC-SRM-v0 (1, 0, 1, 0) for the
-    # random ones
+    # Finite-CC-SRM-v0 (1, 0, 3, 0), Finite-TC-SRM-v0 (1, 0, 1, 0) and
+    # Finite-SC-SRM-v0 (1, 1, 1, 0) for the random ones
     "fused_srm": {
         "srm_rollout_random": "srm_rollout_random_kernelILb0ELb1ELi1ELb0E",
         "srm_rollout_buffer": "srm_rollout_buffer_kernelILb0ELb1ELb0E",
         "srm_rollout_random/Finite-CC-SRM-v0": "srm_rollout_random_kernelILb1ELb0ELi3ELb0E",
         "srm_rollout_random/Finite-TC-SRM-v0": "srm_rollout_random_kernelILb1ELb0ELi1ELb0E",
+        "srm_rollout_random/Finite-SC-SRM-v0": "srm_rollout_random_kernelILb1ELb1ELi1ELb0E",
     },
     "fused_srm_record": {
         "srm_record_random": "srm_record_random_kernelILb0ELb1ELi1ELb0E",
@@ -362,6 +369,21 @@ STEP_INSTANCES = {
     },
     "fused_srm_policy": {  # Cont-SC-SRM-v0
         "srm_policy_record": "srm_policy_record_kernelILb0ELb1ELi1ELb0ELb0EE@inner",
+    },
+    # The controller-in-the-loop kernels, each the instance with the
+    # reference advance (WIENER true, the last template argument: the
+    # catalog's Wiener references): <WIENER> for the FOC on Cont-CC-PMSM-v0;
+    # <OPS, WIENER> (OPS 0 PermExDc, 1 SeriesDc, 2 ShuntDc) for the DC
+    # cascade on Cont-SC-PermExDc-v0; <TASK, FINITE, SAT, WIENER> (TASK 0
+    # CC, 1 TC, 2 SC) for the SRM cascade on Finite-SC-SRM-v0 and
+    # Finite-TC-SRM-v0.  chip_smoke.py times each beside the open-loop
+    # universal kernel on the same id, whose instances the "/<id>" entries
+    # of fused_sync, fused_dc and fused_srm count
+    "fused_foc": {"foc_rollout": "foc_rollout_kernelILb1EE"},
+    "fused_dc_cascade": {"dc_cascade_rollout": "dc_cascade_rollout_kernelILi0ELb1EE"},
+    "fused_srm_cascade": {
+        "srm_cascade_rollout": "srm_cascade_rollout_kernelILi2ELb1ELb0ELb1EE",
+        "srm_cascade_rollout/Finite-TC-SRM-v0": "srm_cascade_rollout_kernelILi1ELb1ELb0ELb1EE",
     },
 }
 
