@@ -43,7 +43,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    11. ppo_learn  tools/torch_ppo_learn.py: 1200 PPO iterations at full
             width must reach a mean reward above -0.11 over the last 10
             and 0.05 above the first 5
-12. (the rows of slices 1 and 2 of the kernels line, see 46)
+12. (the rows of slices 1 and 2 of the kernels line, see 49)
 13. sync_kernels  slice 3, the universal synchronous family
             (csrc/fused_sync.cu): for each of the 12 {Finite, Cont} x
             {CC, TC, SC} x {PMSM, SynRM} ids, each of the 4 kernels against
@@ -70,7 +70,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
             recorder at 1024 steps on both (GB/s); the general path
             (VectorEnv.rollout, random duty) on Cont-SC-PMSM-v0 at 200 steps;
             the launches of phases 14-16 must be exactly what they make
-17. (the rows of slices 1 to 3 of the kernels line, see 46)
+17. (the rows of slices 1 to 3 of the kernels line, see 49)
 18. dc_kernels  slice 4, the universal DC family (csrc/fused_dc.cu,
             csrc/fused_dc_record.cu): for each of the 24 {Finite, Cont} x
             {CC, TC, SC} x {PermExDc, SeriesDc, ShuntDc, ExtExDc} ids, each
@@ -268,13 +268,37 @@ Phases (each prints one JSON line; any failure exits non-zero):
             share; control_environment on the general path (16384 envs x
             200 steps, host clock); the launches of phases 44-45 must be
             exactly what they make
-46. kernels line (all 41 kernels; a policy kernel's launches are the sum
+46. specialised_kernels  slice 11, the specialised builders
+    (csrc/fused_permex.cu, csrc/fused_dc_sc.cu, csrc/fused_scim_tc.cu,
+    csrc/fused_eesm_cc.cu, csrc/fused_dfim_cc.cu; bench.py:790-825): each of
+    the 12 kernels against its plain version at 16384 envs x 64 steps on its
+    catalog id (the DC SC kernels on Cont-SC-SeriesDc-v0 and
+    Cont-SC-ShuntDc-v0, timed on the latter), the PermExDc recorder again at
+    its main-path 1024 steps; bit for bit in both modes (error 0 in every
+    env)
+47.-48. the slice-11 main path, counted from zero (the six builders of
+    ops/fused_rollout.py, no plain version):
+   47. specialised_buffer  each builder's buffer mode (and the PermExDc
+            recorder's) against the universal buffer kernels, reached
+            through the dispatch, on the same id and buffer, 16384 envs x 64
+            steps, rtol 1e-5 / atol 1e-4
+   48. specialised_timings  at 16384 envs x 65536 steps (CUDA-event medians
+            of 5 calls, the builders' Wiener references), each random
+            rollout in one call with the universal kernel on the same id,
+            the ratio of their times, its SASS bound and reset share; the
+            PermExDc recorder at 1024 steps beside the universal recorder;
+            output checks (finite, references inside their windows, the
+            sub-episode lengths and sigmas, the mean reward within 0.08 of
+            the universal kernel's); the launches of phases 47-48 must be
+            exactly what they make
+49. kernels line (all 53 kernels; a policy kernel's launches are the sum
     over the paths of phases 9-11, listed by path; a sync kernel's those of
     phases 14-16, a DC kernel's those of phases 19-21, an induction
     kernel's those of phases 23-25, an EESM kernel's those of phases
     27-29, a DFIM kernel's those of phases 31-33, an SRM kernel's those of
     phases 35-37, a universal policy kernel's those of phase 41, a
-    controller kernel's those of phases 44-45), the card line, then
+    controller kernel's those of phases 44-45, a specialised kernel's those
+    of phases 47-48), the card line, then
     {"ok": true, "device": {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
@@ -287,7 +311,8 @@ with -fmad=false, so each op rounds as PyTorch's do).  Random modes:
 an env matches when all its outputs agree at rtol 1e-4 / atol 1e-4; at
 least 99.9% of envs must match (a constraint-threshold flip sends an env
 down another branch) and the mean reward must agree to 1e-4 relative.
-Angles are compared modulo 2 pi.
+Angles are compared modulo 2 pi.  The specialised kernels (phase 46) must
+equal their plain versions bit for bit in every env, both modes.
 
 Bounds (bound_ms): the larger of the bytes moved (each input read once,
 each output written once) over 3.35 TB/s and, for each issue pipe, the
@@ -305,6 +330,7 @@ bound adds its count (tools/sass_ops.py's @inner) H times.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import subprocess
@@ -523,22 +549,31 @@ def run(dev, card):
                              "fused_dfim_record", "fused_srm", "fused_srm_record",
                              "fused_sync_policy", "fused_dc_policy", "fused_induction_policy",
                              "fused_eesm_policy", "fused_dfim_policy", "fused_srm_policy",
-                             "fused_foc", "fused_dc_cascade", "fused_srm_cascade"])
+                             "fused_foc", "fused_dc_cascade", "fused_srm_cascade",
+                             "fused_permex", "fused_dc_sc", "fused_scim_tc", "fused_eesm_cc",
+                             "fused_dfim_cc"])
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
                     for ln in cuda_build.BUILD_LOG.get(name, "").splitlines()
                     if "registers" in ln or "spill" in ln or "Function properties" in ln]
              for name in libs}
     counts, ops = {}, {}
+    # one cuobjdump for each library, all started together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        found = dict(zip(sass_ops.STEP_INSTANCES, pool.map(
+            lambda item: sass_ops.step_ops(libs[item[0]], list(item[1].values())),
+            sass_ops.STEP_INSTANCES.items())))
+    sass_s = time.perf_counter() - t0
     for lib, instances in sass_ops.STEP_INSTANCES.items():
-        c = sass_ops.step_ops(libs[lib], list(instances.values()))
+        c = found[lib]
         counts.update(c)
         ops.update({k: c[v]["always"] for k, v in instances.items()})
         # the policy recorders' hidden-unit loop, per hidden unit
         ops.update({k + "/inner": c[v]["inner"]["always"] for k, v in instances.items()
                     if "inner" in c[v]})
     emit({"phase": "build", "seconds": build_s, "nvcc_seconds": cuda_build.BUILD_LOG.get("seconds"),
-          "ptxas": ptxas,
+          "sass_seconds": sass_s, "ptxas": ptxas,
           "ops_per_step": {k: {key: v[key] for key in ("always", "conditional", "inner")
                                if key in v} for k, v in counts.items()}})
 
@@ -2706,6 +2741,317 @@ def run_control(dev, card, ops):
     return line
 
 
+SPEC_COMPARE = 64             # steps of each kernel-vs-plain comparison (phase 46)
+PERMEX = "Finite-CC-PermExDc-v0"
+SPEC_SERIES, SPEC_SHUNT = "Cont-SC-SeriesDc-v0", "Cont-SC-ShuntDc-v0"
+# the builders' ids (bench.py:790-825), each with its start bounds and
+# action buffer
+SPEC_IDS = {PERMEX: ([(-100, 100)], "4qc"),
+            SPEC_SERIES: ([(0, 100), (-5, 5)], "duty"),
+            SPEC_SHUNT: ([(0, 100), (-5, 5), (-5, 5)], "duty"),
+            "Cont-TC-SCIM-v0": ([(-8, 8)] * 2 + [(-1, 1)] * 2, "duty3"),
+            "Finite-CC-EESM-v0": ([(-8, 8)] * 3 + [(0, 2 * math.pi)], "b6_4qc"),
+            "Cont-CC-DFIM-v0": ([(-10, 10)] * 2 + [(-1.5, 1.5)] * 2 + [(0, 2 * math.pi)],
+                                "duty6")}
+# kernel -> (the id it is compared and timed on, the TPU kernel it replaces)
+SPEC_KERNELS = {
+    "permex_rollout_random": (PERMEX, "pallas_dc.py:206"),
+    "permex_rollout_buffer": (PERMEX, "pallas_dc.py:192"),
+    "permex_record_random": (PERMEX, "pallas_dc.py:349"),
+    "permex_record_buffer": (PERMEX, "pallas_dc.py:275"),
+    "dc_sc_rollout_random": (SPEC_SHUNT, "pallas_dc.py:577"),
+    "dc_sc_rollout_buffer": (SPEC_SHUNT, "pallas_dc.py:560"),
+    "scim_rollout_random": ("Cont-TC-SCIM-v0", "pallas_induction.py:235"),
+    "scim_rollout_buffer": ("Cont-TC-SCIM-v0", "pallas_induction.py:220"),
+    "eesm_cc_rollout_random": ("Finite-CC-EESM-v0", "pallas_eesm.py:280"),
+    "eesm_cc_rollout_buffer": ("Finite-CC-EESM-v0", "pallas_eesm.py:264"),
+    "dfim_cc_rollout_random": ("Cont-CC-DFIM-v0", "pallas_dfim.py:287"),
+    "dfim_cc_rollout_buffer": ("Cont-CC-DFIM-v0", "pallas_dfim.py:271"),
+}
+SPEC_SOURCES = {"permex": "fused_permex", "dc_sc": "fused_dc_sc", "scim": "fused_scim_tc",
+                "eesm_cc": "fused_eesm_cc", "dfim_cc": "fused_dfim_cc"}
+# the random kernel timed on each id, the universal kernel beside it and the
+# key of the universal kernel's counted instance
+SPEC_UNIVERSAL = {
+    PERMEX: ("permex_rollout_random", "dc_rollout_random",
+             "dc_rollout_random/Finite-CC-PermExDc-v0"),
+    SPEC_SERIES: ("dc_sc_rollout_random", "dc_rollout_random",
+                  "dc_rollout_random/Cont-SC-PermExDc-v0"),
+    SPEC_SHUNT: ("dc_sc_rollout_random", "dc_rollout_random", "dc_rollout_random"),
+    "Cont-TC-SCIM-v0": ("scim_rollout_random", "induction_rollout_random",
+                        "induction_rollout_random/Cont-TC-SCIM-v0"),
+    "Finite-CC-EESM-v0": ("eesm_cc_rollout_random", "eesm_rollout_random",
+                          "eesm_rollout_random/Finite-CC-EESM-v0"),
+    "Cont-CC-DFIM-v0": ("dfim_cc_rollout_random", "dfim_rollout_random",
+                        "dfim_rollout_random/Cont-CC-DFIM-v0")}
+
+def tensor_bytes(xs):
+    """Bytes of the tensors among ``xs`` (nested in lists and tuples)."""
+    if isinstance(xs, (list, tuple)):
+        return sum(tensor_bytes(x) for x in xs)
+    return xs.numel() * xs.element_size() if hasattr(xs, "numel") else 0
+
+
+def run_specialised(dev, card, ops):
+    """Slice 11, the specialised builders (csrc/fused_permex.cu,
+    csrc/fused_dc_sc.cu, csrc/fused_scim_tc.cu, csrc/fused_eesm_cc.cu,
+    csrc/fused_dfim_cc.cu): each kernel against its plain version, then the
+    main path, its launches counted from zero: the builders of
+    ops/fused_rollout.py in buffer mode against the universal buffer
+    kernels, and in random mode timed beside the universal kernel on the
+    same id.  Returns the twelve kernels' rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch.ops import fused_dc as fd
+    from gym_electric_motor_tpu_torch.ops import fused_dfim as ff
+    from gym_electric_motor_tpu_torch.ops import fused_eesm as fe
+    from gym_electric_motor_tpu_torch.ops import fused_induction as fi
+    from gym_electric_motor_tpu_torch.ops import fused_rollout as fr
+    from gym_electric_motor_tpu_torch.ops.fused_record import make_fused_record_rollout
+
+    N, R = N_ENVS, N_ENVS // 128
+    rng = np.random.default_rng(SEED)
+    mods = {name: mod for mod in (fd, fi, fe, ff) for name in mod.KERNELS}
+    consts = {PERMEX: fd.PermexConsts, SPEC_SERIES: fd.DcScConsts, SPEC_SHUNT: fd.DcScConsts,
+              "Cont-TC-SCIM-v0": fi.ScimConsts, "Finite-CC-EESM-v0": fe.EesmCcConsts,
+              "Cont-CC-DFIM-v0": ff.DfimCcConsts}
+    builders = {PERMEX: fr.make_fused_permex_rollout, SPEC_SERIES: fr.make_fused_dc_sc_rollout,
+                SPEC_SHUNT: fr.make_fused_dc_sc_rollout,
+                "Cont-TC-SCIM-v0": fr.make_fused_scim_rollout,
+                "Finite-CC-EESM-v0": fr.make_fused_eesm_rollout,
+                "Cont-CC-DFIM-v0": fr.make_fused_dfim_rollout}
+    # the angle's state plane, where there is one
+    angle_at = {"Finite-CC-EESM-v0": 3, "Cont-CC-DFIM-v0": 4}
+
+    def start_of(env_id):
+        return [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+                for lo, hi in SPEC_IDS[env_id][0]]
+
+    def actions_of(env_id, steps):
+        kind = SPEC_IDS[env_id][1]
+        if kind == "4qc":
+            a = rng.integers(0, 4, (steps, R, 128)).astype(np.int32)
+        elif kind == "b6_4qc":
+            a = np.stack([rng.integers(0, 8, (steps, R, 128)),
+                          rng.integers(0, 4, (steps, R, 128))], axis=1).astype(np.int32)
+        else:
+            n_ch = {"duty": (), "duty3": (3,), "duty6": (6,)}[kind]
+            a = rng.uniform(-1, 1, (steps,) + n_ch + (R, 128)).astype(np.float32)
+        return torch.as_tensor(a, device=dev)
+
+    def reward_index(name, n_state):
+        if name == "permex_record_random":
+            return 3
+        return 1 if name == "permex_rollout_random" else n_state
+
+    def as_tuple(x):
+        return (x,) if isinstance(x, torch.Tensor) else tuple(x)
+
+    # ---- 46. each kernel against its plain version -----------------------
+    # (bit for bit, both modes: error 0 in every env; -fmad=false makes the
+    # kernels round as their plain versions do)
+    cases = [(name, env_id, SPEC_COMPARE) for name, (env_id, _r) in SPEC_KERNELS.items()]
+    cases += [("dc_sc_rollout_random", SPEC_SERIES, SPEC_COMPARE),
+              ("dc_sc_rollout_buffer", SPEC_SERIES, SPEC_COMPARE),
+              ("permex_record_random", PERMEX, T_RECORD)]
+    worst = dict.fromkeys(SPEC_KERNELS, 0.0)
+    share = dict.fromkeys(SPEC_KERNELS, 1.0)
+    timed, rows = {}, []
+    for name, env_id, steps in cases:
+        mod = mods[name]
+        c = consts[env_id](gt.make_functional(env_id, device=dev))
+        start = start_of(env_id)
+        state = start[0] if name.startswith("permex") else start
+        random = "random" in name
+        args = (SEED, state, steps) if random else (state, actions_of(env_id, steps))
+
+        def kern():
+            return getattr(mod, name)(c, *args)
+
+        def plain():
+            return getattr(mod, name + "_plain")(c, *args)
+
+        if env_id == SPEC_KERNELS[name][0] and steps == SPEC_COMPARE:
+            ms, got = cuda_ms(torch, kern, reps=21)
+            plain_ms, ref = host_ms(torch, plain)
+            b_ms, b_by = bound_ms(N * steps, ops[name], tensor_bytes(args) + tensor_bytes(got))
+            timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        else:
+            got = kern()
+            torch.cuda.synchronize()
+            ref = plain()
+        got, ref = as_tuple(got), as_tuple(ref)
+        n_state = len(start)
+        is_angle = [j == angle_at.get(env_id) for j in range(len(got))]
+        row = {"case": f"{env_id} {name}", "steps": steps}
+        if random:
+            m, err = env_match(torch, got, ref, is_angle, N)
+            r_idx = reward_index(name, n_state)
+            mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
+            rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
+            row.update(max_abs_err=err, match_share=m, mean_reward_rel_err=rel)
+            share[name] = min(share[name], m)
+        else:
+            err = check_buffer(torch, f"{env_id} {name}", got, ref, is_angle)
+            m = 1.0
+            row.update(max_abs_err=err, match_share=m)
+        if m < 1.0 or err != 0.0:
+            raise AssertionError(f"{env_id} {name}: {m:.5f} of envs match, max abs err {err:.3e} "
+                                 "(the specialised kernels equal their plain versions bit for "
+                                 "bit)")
+        worst[name] = max(worst[name], err)
+        rows.append(row)
+        del got, ref
+    emit({"phase": "specialised_kernels", "envs": N, "steps": SPEC_COMPARE,
+          "record_steps": T_RECORD, "results": rows, "timed": timed})
+
+    # ---- 47.-48. the main path: counts from zero ---------------------------
+    for mod in (fd, fi, fe, ff):
+        mod.reset_launches()
+
+    # 47. each builder's buffer mode against the universal buffer kernels,
+    # reached through the dispatch, on the same id and buffer
+    against = {}
+    for env_id in SPEC_IDS:
+        env = gt.make_functional(env_id, device=dev)
+        start = start_of(env_id)
+        acts = actions_of(env_id, SPEC_COMPARE)
+        universal = fr.make_fused_rollout(env, SPEC_COMPARE, N, action_mode="buffer")(*start, acts)
+        got = builders[env_id](env, SPEC_COMPARE, N, action_mode="buffer")(*start, acts)
+        is_angle = [j == angle_at.get(env_id) for j in range(len(start))]
+        row = {"rollout": check_buffer(torch, f"{env_id} buffer vs universal", as_tuple(got),
+                                       universal, is_angle)}
+        if env_id == PERMEX:
+            rec = fr.make_fused_permex_record_rollout(env, SPEC_COMPARE, N,
+                                                      action_mode="buffer")(start[0], acts)
+            u_rec = make_fused_record_rollout(env, SPEC_COMPARE, N, action_mode="buffer")(
+                start[0], acts)["i"]
+            row["record"] = check_buffer(torch, f"{env_id} record buffer vs universal", (rec,),
+                                         (u_rec,), [False])
+        against[env_id] = row
+    emit({"phase": "specialised_buffer", "envs": N, "steps": SPEC_COMPARE,
+          "max_abs_err_vs_universal": against})
+
+    # 48. the random builders at the bench width, each in one call with the
+    # universal kernel on the same id; the recorder at its 1024 steps
+    timings = {}
+    for env_id in SPEC_IDS:
+        env = gt.make_functional(env_id, device=dev)
+        n_state = len(SPEC_IDS[env_id][0])
+        z = [torch.zeros((R, 128), device=dev) for _ in range(n_state)]
+        name, u_name, u_key = SPEC_UNIVERSAL[env_id]
+        roll = builders[env_id](env, T_ROLLOUT, N)
+        c = roll.consts
+        k_ms, out = cuda_ms(torch, lambda: roll(SEED, *z), reps=SYNC_REPS)
+        u_roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
+        u_ms, u_out = cuda_ms(torch, lambda: u_roll(SEED, *z), reps=SYNC_REPS)
+        key = name if env_id == SPEC_KERNELS[name][0] else f"{name}/{env_id}"
+        b_ms, b_by = bound_ms(N * T_ROLLOUT, ops[key], tensor_bytes(z) + tensor_bytes(out))
+        r_idx = reward_index(name, n_state)
+        reward, terms, rv, rk, rl, rs = out[r_idx:r_idx + 6]
+        f = c.f
+        if env_id == "Finite-CC-EESM-v0":
+            lo = torch.tensor([w[0] for w in c.windows], device=dev).repeat_interleave(N)
+            hi = torch.tensor([w[1] for w in c.windows], device=dev).repeat_interleave(N)
+            in_window = bool(((rv.reshape(-1) >= lo) & (rv.reshape(-1) <= hi)).all())
+        else:
+            lo = 0.0 if env_id in (SPEC_SERIES, SPEC_SHUNT) else -f["margin"]
+            in_window = bool(((rv >= lo) & (rv <= f["margin"])).all())
+        sig_lo, sig_hi = 10.0 ** f["sig_base"], 10.0 ** (f["sig_base"] + f["sig_span"])
+        mean_k = float(reward.double().sum()) / (N * T_ROLLOUT)
+        mean_u = float(u_out[n_state].double().sum()) / (N * T_ROLLOUT)
+        checks = {
+            "finite": all(bool(torch.isfinite(x).all()) for x in out),
+            "ref_in_window": in_window,
+            "lengths": bool(((rl >= 500) & (rl < 2000) & (rk >= 1) & (rk <= rl)).all()),
+            "sigma": bool(((rs >= sig_lo * 0.999) & (rs <= sig_hi * 1.001)).all()),
+            # the same process in distribution (the JAX suite's kernel-vs-env
+            # bound, tests/test_pallas_rollout.py:230)
+            "mean_reward_vs_universal": abs(mean_k - mean_u) < 0.08,
+        }
+        if env_id in angle_at:
+            eps = out[angle_at[env_id]]
+            checks["eps_in_range"] = bool(((eps >= 0) & (eps <= 2 * math.pi)).all())
+        timings[env_id] = {
+            name: {"steps": T_ROLLOUT, "ms": k_ms, "env_steps_per_s": N * T_ROLLOUT / (k_ms / 1e3),
+                   "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
+                   "ops_per_step": ops[key], "mean_reward": mean_k,
+                   "reset_share": float(terms.double().sum()) / (N * T_ROLLOUT)},
+            u_name: {"steps": T_ROLLOUT, "ms": u_ms, "env_steps_per_s": N * T_ROLLOUT / (u_ms / 1e3),
+                     "ops_per_step": ops[u_key], "mean_reward": mean_u,
+                     "reset_share": float(u_out[n_state + 1].double().sum()) / (N * T_ROLLOUT)},
+            "specialised_over_universal": k_ms / u_ms, "checks": checks}
+        failed = [k for k, v in checks.items() if not v]
+        if failed:
+            raise AssertionError(f"{env_id} {name}: output checks failed: {failed}")
+        del out, u_out
+    env = gt.make_functional(PERMEX, device=dev)
+    z = torch.zeros((R, 128), device=dev)
+    rec = fr.make_fused_permex_record_rollout(env, T_RECORD, N)
+    k_ms, out = cuda_ms(torch, lambda: rec(SEED, z), reps=SYNC_REPS)
+    u_rec = make_fused_record_rollout(env, T_RECORD, N)
+    u_ms, u_out = cuda_ms(torch, lambda: u_rec(SEED, z), reps=SYNC_REPS)
+    nbytes = tensor_bytes(z) + tensor_bytes(out)
+    b_ms, b_by = bound_ms(N * T_RECORD, ops["permex_record_random"], nbytes)
+    i, ref, act, reward, done = out
+    margin = rec.consts.f["margin"]
+    checks = {"finite": all(bool(torch.isfinite(x.float()).all()) for x in out),
+              "ref_in_window": bool((ref.abs() <= margin * 1.001).all()),
+              "actions": bool(((act >= 0) & (act <= 3)).all()),
+              "reset_zeroes": bool((i[done > 0.5] == 0).all()),
+              "mean_reward_vs_universal": abs(float(reward.double().mean())
+                                              - float(u_out["reward"].double().mean())) < 0.08}
+    timings[PERMEX + " record"] = {
+        "permex_record_random": {"steps": T_RECORD, "ms": k_ms, "bytes_written": nbytes - 4 * N,
+                                 "GB_per_s": (nbytes - 4 * N) / (k_ms / 1e3) / 1e9,
+                                 "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
+                                 "ops_per_step": ops["permex_record_random"],
+                                 "mean_reward": float(reward.double().mean()),
+                                 "reset_share": float(done.double().mean())},
+        "dc_record_random": {"steps": T_RECORD, "ms": u_ms,
+                             "ops_per_step": ops["dc_record_random/Finite-CC-PermExDc-v0"],
+                             "reset_share": float(u_out["done"].double().mean())},
+        "specialised_over_universal": k_ms / u_ms, "checks": checks}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"permex_record_random: output checks failed: {failed}")
+    del out, u_out
+    launches = {name: mods[name].LAUNCHES[name] for name in SPEC_KERNELS}
+    emit({"phase": "specialised_timings", "card": card, "envs": N, "timings": timings,
+          "launches": launches})
+    per_timing = 2 + SYNC_REPS
+    want = {name: (1 if "buffer" in name else per_timing) for name in SPEC_KERNELS}
+    want.update(dc_sc_rollout_buffer=2, dc_sc_rollout_random=2 * per_timing)
+    if launches != want:
+        raise AssertionError(f"the specialised kernels on the main path launched {launches}, "
+                             f"expected {want}")
+
+    # ---- kernels line rows -----------------------------------------------
+    line = []
+    for name, (env_id, replaces) in SPEC_KERNELS.items():
+        t = timed[name]
+        prefix = name.rsplit("_rollout", 1)[0].rsplit("_record", 1)[0]
+        row = {"name": name, "route": "cuda",
+               "source": f"gym_electric_motor_tpu_torch/csrc/{SPEC_SOURCES[prefix]}.cu",
+               "replaces": f"gym_electric_motor_tpu/ops/{replaces}", "launches": launches[name],
+               "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+               "envs": N, "steps": SPEC_COMPARE, "timed_on": env_id,
+               "match_share": share[name]}
+        if "random" in name:
+            main = timings[PERMEX + " record" if name == "permex_record_random" else env_id]
+            u_name = "dc_record_random" if name == "permex_record_random" else \
+                SPEC_UNIVERSAL[env_id][1]
+            m = main[name]
+            row.update(main_steps=m["steps"], main_ms=m["ms"], main_bound_ms=m["bound_ms"],
+                       universal=u_name, universal_ms=main[u_name]["ms"],
+                       specialised_over_universal=main["specialised_over_universal"])
+        line.append(row)
+    return line
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "gym_electric_motor_tpu_torch" / "csrc").is_dir():
@@ -2749,9 +3095,11 @@ def main():
     seconds["slice_9"] = lap()
     line += run_control(dev, card, ops)
     seconds["slice_10"] = lap()
+    line += run_specialised(dev, card, ops)
+    seconds["slice_11"] = lap()
     emit({"phase": "elapsed", "seconds": seconds, "total": clock[-1] - clock[0]})
 
-    # ---- 46. kernels line, card and result --------------------------------
+    # ---- 49. kernels line, card and result --------------------------------
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

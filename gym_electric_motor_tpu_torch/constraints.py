@@ -3,7 +3,10 @@
 
 Every check reduces the normalised ``(N, S)`` state to an ``(N,)``
 violation degree in [0, 1]; the monitor merges the degrees ('max' |
-'product' | callable) and a merged degree >= 1 terminates the episode.
+'product' | callable) and a merged degree >= 1 terminates the episode.  A
+bare callable constraint and a callable merge act on one env, as under the
+JAX package's ``jax.vmap`` of ``env.step``: the monitor maps them over the
+batch with ``torch.vmap``.
 """
 
 from __future__ import annotations
@@ -79,9 +82,18 @@ class ConstraintMonitor:
     def check_constraints(self, state):
         if not self.constraints:
             return torch.zeros(state.shape[:1], dtype=state.dtype, device=state.device)
-        degrees = torch.stack([c(state) for c in self.constraints], dim=-1)
+        degrees = torch.stack([_degrees(c, state) for c in self.constraints], dim=-1)
         if self.merge_violations == "max":
             return torch.max(degrees, dim=-1).values
         if self.merge_violations == "product":
             return 1.0 - torch.prod(1.0 - degrees, dim=-1)
-        return self.merge_violations(degrees)
+        return torch.vmap(self.merge_violations)(degrees)
+
+
+def _degrees(constraint, state):
+    """The ``(N,)`` violation degrees of one constraint: the batched checks
+    above take the whole ``(N, S)`` state, a bare callable one env's
+    ``(S,)`` state at a time."""
+    if isinstance(constraint, (LimitConstraint, SquaredConstraint)):
+        return constraint(state)
+    return torch.vmap(constraint)(state).to(state.dtype)

@@ -368,12 +368,12 @@ def check_channel_actions(c, actions, R, device):
 LAYOUT_SUFFIXES = ("n_const", "n_row_const", "n_flag", "n_ctrl")
 
 
-def family_library(library, prefix, argtypes, counts):
+def family_library(library, prefix, argtypes, counts, suffixes=LAYOUT_SUFFIXES):
     """The loaded library of ``csrc/<library>.cu`` (built on first use),
     its kernel functions typed on first load (``argtypes``: ``{name:
     [ctypes types]}``; names the library lacks are skipped) and its
     constant layout checked: ``<prefix>_<suffix>`` for the first
-    ``len(counts)`` of ``LAYOUT_SUFFIXES`` must return ``counts``."""
+    ``len(counts)`` of ``suffixes`` must return ``counts``."""
     lib = cuda_build.load(library)
     if not getattr(lib, "_gemx_typed", False):
         for name, types in argtypes.items():
@@ -382,7 +382,7 @@ def family_library(library, prefix, argtypes, counts):
                 fn.argtypes = types
                 fn.restype = ctypes.c_int
         sizes = []
-        for suffix in LAYOUT_SUFFIXES[:len(counts)]:
+        for suffix in suffixes[:len(counts)]:
             fn = getattr(lib, f"{prefix}_{suffix}")
             fn.restype = ctypes.c_int
             sizes.append(fn())
@@ -610,6 +610,15 @@ def ref_rows(env):
     return rows
 
 
+def physics_rows(name):
+    """One constant reference row on ``name`` with every constant zero: the
+    rows of a family's constants built with ``physics_only=True``, where the
+    caller (a specialised builder) bakes its own references and reward."""
+    row = dict(kind="const", name=name, **dict.fromkeys(ROW_NAMES, 0.0))
+    row["span"] = 0.0
+    return [row]
+
+
 def _wiener_params(k, row, b_len, b_sig):
     rl = torch.floor(row["ep_lo"] + row["ep_span"] * uniform_from_bits(b_len))
     rs = torch.exp(k["ln10"] * (row["sig_base"] + row["sig_span"] * uniform_from_bits(b_sig)))
@@ -689,3 +698,163 @@ def wiener_advance(k, rows, ref, draws, violated, lens, sigs, resets):
         ref["rk"][j] = torch.where(regen, torch.zeros_like(ref["rk"][j]), ref["rk"][j]) + 1.0
         value = torch.clamp(ref["rv"][j] + ref["rs"][j] * draws[j], row["mlo"], row["mhi"])
         ref["rv"][j] = torch.where(violated, _uniform_value(row, resets[j]), value)
+
+
+# ---------------------------------------------------------------------------
+# the specialised builders (ops/fused_dc.py, fused_induction.py,
+# fused_eesm.py, fused_dfim.py; csrc/specialised_step.cuh)
+# ---------------------------------------------------------------------------
+
+# Draw slots of the specialised kernels (SpecSlot in csrc/specialised_step.cuh);
+# each kernel's source says which words of a slot it reads.
+SPEC_SLOT_STEP, SPEC_SLOT_PARAMS, SPEC_SLOT_RESET = 0, 1, 2
+SPEC_SLOT_INIT_0, SPEC_SLOT_INIT_1, SPEC_SLOT_EXTRA, SPEC_SLOT_INIT_2 = 3, 4, 5, 6
+
+# the catalog-default constraint set of each motor
+# (``_DEFAULT_CONSTRAINT_DESC``, pallas_common.py:158-165)
+DEFAULT_CONSTRAINT_DESC = {
+    "PermExDc": (("limit", ("i",)),),
+    "SeriesDc": (("limit", ("i",)),),
+    "ShuntDc": (("limit", ("i_a",)), ("limit", ("i_e",))),
+    "ExtExDc": (("limit", ("i_a",)), ("limit", ("i_e",))),
+    "EESM": (("squared", ("i_sq", "i_sd")), ("limit", ("i_e",))),
+    "SRM": (("limit", ("i_a", "i_b", "i_c")),),
+}
+
+
+class SlotBits(PhiloxBits):
+    """The bit source of a specialised kernel's plain version: its Philox
+    words by role.  ``init`` and ``step`` map each role to the ``(slot,
+    word)`` the kernel reads it from, or to a list of them (one per
+    reference row); ``init_words()`` and ``step_words(t)`` return ``{role:
+    (N,) int64 tensor, or a list of them}``.  A test replays the JAX
+    interpret kernels' xorshift with an object of the same interface."""
+
+    def __init__(self, seed: int, n_envs: int, device, init: dict, step: dict):
+        super().__init__(seed, n_envs, device)
+        self.init, self.step = init, step
+
+    def _pick(self, t, layout):
+        def pairs(v):
+            return v if isinstance(v, list) else [v]
+
+        slots = sorted({s for v in layout.values() for s, _w in pairs(v)})
+        words = self._call(t, slots)
+        row = {s: j for j, s in enumerate(slots)}
+
+        def get(sw):
+            return words[sw[1]][row[sw[0]]]
+
+        return {role: ([get(x) for x in v] if isinstance(v, list) else get(v))
+                for role, v in layout.items()}
+
+    def init_words(self):
+        return self._pick(0, self.init)
+
+    def step_words(self, t: int):
+        return self._pick(t, self.step)
+
+
+def shaped_words(words, shape):
+    """``words`` (a dict of (N,) word tensors or lists of them, or None for
+    a word not drawn) reshaped to the state planes' ``shape``."""
+    def one(w):
+        return None if w is None else w.reshape(shape)
+    return {k: ([one(x) for x in v] if isinstance(v, list) else one(v)) for k, v in words.items()}
+
+
+def spec_params(k, b_len, b_sig):
+    """A row's new sub-episode length and sigma (``spec_params`` of
+    csrc/specialised_step.cuh): ``floor(ep_lo + ep_span U)``, ``10^(sig_base
+    + sig_span U)``."""
+    rl = torch.floor(k["ep_lo"] + k["ep_span"] * uniform_from_bits(b_len))
+    rs = torch.exp(k["ln10"] * (k["sig_base"] + k["sig_span"] * uniform_from_bits(b_sig)))
+    return rl, rs
+
+
+def spec_row_walk(row, regen, new_rl, new_rs, draw, lo, hi):
+    """A row's advance (``spec_row_walk``): regeneration where ``regen``,
+    then the clipped random-walk step.  ``row`` is a dict of the ``rv``,
+    ``rk``, ``rl``, ``rs`` planes, updated in place; ``lo``/``hi`` floats."""
+    row["rl"] = torch.where(regen, new_rl, row["rl"])
+    row["rs"] = torch.where(regen, new_rs, row["rs"])
+    row["rk"] = torch.where(regen, torch.zeros_like(row["rk"]), row["rk"]) + 1.0
+    row["rv"] = torch.clamp(row["rv"] + row["rs"] * draw, lo, hi)
+
+
+def specialised_u_sup(ps):
+    """The supply voltage the specialised kernels bake: ideal supply and no
+    interlocking only (``_fused_u_sup``, pallas_common.py:34-53)."""
+    if ps.supply.kind != "IdealVoltageSupply":
+        raise NotImplementedError(
+            f"the specialized fused kernels support IdealVoltageSupply only; got "
+            f"{ps.supply.kind!r}: use make_fused_rollout (the universal dispatch) or VectorEnv")
+    if float(getattr(ps.converter, "interlocking_time", 0.0) or 0.0) != 0.0:
+        raise NotImplementedError(
+            "the specialized fused kernels support zero interlocking dead time only; use "
+            "make_fused_rollout (the universal dispatch) or VectorEnv")
+    return float(ps.supply.u_nominal)
+
+
+def specialised_load(ps, kinds):
+    """The load spec, restricted to the kinds the kernel implements
+    (``_fused_load``, pallas_common.py:56-68)."""
+    if ps.load.kind not in kinds:
+        raise NotImplementedError(
+            f"this fused kernel supports loads {kinds}; got {ps.load.kind!r}: use the general "
+            "path (VectorEnv.rollout)")
+    return ps.load
+
+
+def require_specialised_defaults(env):
+    """The specialised kernels hard-code the catalog-default constraints and
+    have no constraints-off mode (``_require_default_constraints``,
+    pallas_common.py:168-176)."""
+    kind = env.physical_system.motor.kind
+    desc = DEFAULT_CONSTRAINT_DESC.get(kind, (("squared", ("i_sq", "i_sd")),))
+    if fused_constraint_mode(env, desc) != "default":
+        raise NotImplementedError(
+            "this specialized kernel implements the catalog-default constraints; "
+            "constraints=() runs on the universal family kernels (make_fused_rollout) or "
+            "VectorEnv")
+
+
+def require_lanes(n_envs):
+    """``n_envs % 128 == 0`` (the JAX builders' assertion); returns R."""
+    require(n_envs % LANE == 0, f"n_envs must be a multiple of {LANE}, got {n_envs}")
+    return n_envs // LANE
+
+
+def pack_consts(c, names, values):
+    """Set ``c.host``, the float32 array of ``values`` in ``names`` order
+    that a kernel takes, and ``c.f``, the same values as Python floats for
+    the plain versions."""
+    c.host = np.array([np.float32(values[n]) for n in names], dtype=np.float32)
+    c.f = {n: float(v) for n, v in zip(names, c.host)}
+
+
+# what follows a specialised kernel's constants: (seed, n, n_steps, in,
+# out, stream) in random mode, (n, n_steps, in, actions, out, stream) in
+# buffer mode
+_SPEC_RANDOM_ARGS = [ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p]
+_SPEC_BUFFER_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p]
+# the size queries of a specialised library: a family's constant layout,
+# then the kernel's own constants
+SPEC_LAYOUT_SUFFIXES = ("n_const", "n_row_const", "n_flag", "n_spec")
+
+
+def spec_library(library, prefix, kernels, counts):
+    """The loaded library of a specialised source (``csrc/<library>.cu``):
+    each kernel takes ``(consts, flags, spec, ...)`` where its step is a
+    universal family's (four ``counts``: the family's constants, rows and
+    flags, then the kernel's own), ``(spec, ...)`` where it carries its
+    own (one count), followed by ``(seed, n, n_steps, in, out, stream)``
+    in random mode and ``(n, n_steps, in, actions, out, stream)`` in
+    buffer mode."""
+    lead = [ctypes.c_void_p] * (3 if len(counts) > 1 else 1)
+    argtypes = {k: lead + (_SPEC_RANDOM_ARGS if "random" in k else _SPEC_BUFFER_ARGS)
+                for k in kernels}
+    return family_library(library, prefix, argtypes, counts,
+                          SPEC_LAYOUT_SUFFIXES[-len(counts):])

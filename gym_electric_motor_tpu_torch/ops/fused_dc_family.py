@@ -67,6 +67,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    physics_rows,
     policy_obs_spec,
     poly_load_rhs,
     ptr_array,
@@ -156,10 +157,17 @@ class DcConsts:
     ``(A, B) = (psi_e, 0)`` or ``(0, l_e')``; ``-(0 w) - r i`` and ``x -
     (0 w) i`` round exactly as ``-r i`` and ``x`` do.  At constant speed
     ``-A w`` and ``B w`` are host constants formed in double precision, as
-    the JAX kernel forms them from the Python floats."""
+    the JAX kernel forms them from the Python floats.
 
-    def __init__(self, env):
-        ps = fused_check_system(env.physical_system)
+    ``physics_only=True`` reads the motor, load, converter and supply
+    alone, for a specialised builder that checks the system itself and
+    bakes its own references, reward and constraint (``fused_dc.py``): the env's
+    reference generator, reward weights and constraints are not read, the
+    rows are one zero constant row (``physics_rows``) and the flags the
+    defaults."""
+
+    def __init__(self, env, physics_only=False):
+        ps = env.physical_system if physics_only else fused_check_system(env.physical_system)
         if ps.motor.kind not in _MCLASS:
             raise NotImplementedError(
                 f"the DC-family kernels need a DC motor, got {ps.motor.kind!r}")
@@ -176,8 +184,8 @@ class DcConsts:
         self.finite = conv.action_type == "finite"
         self.mech = ps.load.kind == "PolynomialStaticLoad"
         desc = tuple(("limit", (n,)) for n in self.el_names)
-        self.no_cons = fused_constraint_mode(env, desc) == "none"
-        self.rows = ref_rows(env)
+        self.no_cons = not physics_only and fused_constraint_mode(env, desc) == "none"
+        self.rows = physics_rows(self.el_names[0]) if physics_only else ref_rows(env)
         self.n_ref = len(self.rows)
         if self.n_ref not in (1, 2) or (self.n_ref == 2 and (self.mclass != EXTEX or self.mech)):
             raise NotImplementedError(
@@ -194,7 +202,7 @@ class DcConsts:
         rw = env.reward_function
         wnames = list(env.physical_system.state_names)
         scored = {wnames[i] for i in np.flatnonzero(np.asarray(rw._weights))}
-        if not scored <= {row["name"] for row in self.rows}:
+        if not physics_only and not scored <= {row["name"] for row in self.rows}:
             raise NotImplementedError(
                 f"the fused kernels score the referenced states only; the reward weighs "
                 f"{sorted(scored)}")

@@ -78,6 +78,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    physics_rows,
     policy_obs_spec,
     poly_load_rhs,
     ptr_array,
@@ -136,10 +137,17 @@ class DfimConsts:
     expression order (pallas_dfim.py:323-331, :356-368): sigma, c_w, c_u,
     c_ur, k_t, then tau_r, tau_sig = sigma l_s / (r_s + r_r l_m^2 / l_r^2)
     and c_psi = l_m r_r / (sigma l_s l_r^2); at constant speed ``c_w w`` and
-    ``p w`` too, as the JAX kernel forms them from Python floats."""
+    ``p w`` too, as the JAX kernel forms them from Python floats.
 
-    def __init__(self, env):
-        ps = fused_check_system(env.physical_system)
+    ``physics_only=True`` reads the motor, load, converter and supply
+    alone, for a specialised builder that checks the system itself and
+    bakes its own references, reward and constraint (``fused_dfim.py``): the env's
+    reference generator, reward weights and constraints are not read, the
+    rows are one zero constant row (``physics_rows``) and the flags the
+    defaults."""
+
+    def __init__(self, env, physics_only=False):
+        ps = env.physical_system if physics_only else fused_check_system(env.physical_system)
         if ps.motor.kind != "DFIM":
             raise NotImplementedError(
                 f"the DFIM-family kernels need a DFIM, got {ps.motor.kind!r}")
@@ -150,10 +158,11 @@ class DfimConsts:
                 f"multi converter), got {ps.converter.kind!r} {subs}")
         if ps.dtype != torch.float32:
             raise NotImplementedError("the fused kernels run in float32")
-        self.no_cons = fused_constraint_mode(env, (("squared", ("i_sq", "i_sd")),)) == "none"
+        self.no_cons = not physics_only and fused_constraint_mode(
+            env, (("squared", ("i_sq", "i_sd")),)) == "none"
         self.finite = ps.converter.action_type == "finite"
         self.mech = ps.load.kind == "PolynomialStaticLoad"
-        self.rows = ref_rows(env)
+        self.rows = physics_rows("torque") if physics_only else ref_rows(env)
         self.n_ref = len(self.rows)
         if self.n_ref not in (1, 2):
             raise NotImplementedError(
@@ -166,7 +175,7 @@ class DfimConsts:
         names = list(ps.state_names)
         rw = env.reward_function
         scored = {names[i] for i in np.flatnonzero(np.asarray(rw._weights))}
-        if not scored <= {row["name"] for row in self.rows}:
+        if not physics_only and not scored <= {row["name"] for row in self.rows}:
             raise NotImplementedError(
                 f"the fused kernels score the referenced states only; the reward weighs "
                 f"{sorted(scored)}")

@@ -74,6 +74,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    physics_rows,
     policy_obs_spec,
     poly_load_rhs,
     ptr_array,
@@ -126,10 +127,17 @@ class EesmConsts:
     ``host`` (floats) and ``flags`` (int32) are the arrays handed to the
     kernels, ``f`` and ``rows`` the same values as Python floats for the
     plain versions.  Raises ``NotImplementedError`` for what the kernels do
-    not simulate (see the module docstring)."""
+    not simulate (see the module docstring).
 
-    def __init__(self, env):
-        ps = fused_check_system(env.physical_system)
+    ``physics_only=True`` reads the motor, load, converter and supply
+    alone, for a specialised builder that checks the system itself and
+    bakes its own references, reward and constraint (``fused_eesm.py``): the env's
+    reference generator, reward weights and constraints are not read, the
+    rows are one zero constant row (``physics_rows``) and the flags the
+    defaults."""
+
+    def __init__(self, env, physics_only=False):
+        ps = env.physical_system if physics_only else fused_check_system(env.physical_system)
         if ps.motor.kind != "EESM":
             raise NotImplementedError(
                 f"the EESM-family kernels need an EESM, got {ps.motor.kind!r}")
@@ -140,11 +148,11 @@ class EesmConsts:
                 f"converter), got {ps.converter.kind!r} {subs}")
         if ps.dtype != torch.float32:
             raise NotImplementedError("the fused kernels run in float32")
-        self.no_cons = fused_constraint_mode(
+        self.no_cons = not physics_only and fused_constraint_mode(
             env, (("squared", ("i_sq", "i_sd")), ("limit", ("i_e",)))) == "none"
         self.finite = ps.converter.action_type == "finite"
         self.mech = ps.load.kind == "PolynomialStaticLoad"
-        self.rows = ref_rows(env)
+        self.rows = physics_rows("torque") if physics_only else ref_rows(env)
         self.n_ref = len(self.rows)
         if self.n_ref not in (1, N_ROWS):
             raise NotImplementedError(
@@ -159,7 +167,7 @@ class EesmConsts:
         names = list(ps.state_names)
         rw = env.reward_function
         scored = {names[i] for i in np.flatnonzero(np.asarray(rw._weights))}
-        if not scored <= {row["name"] for row in self.rows}:
+        if not physics_only and not scored <= {row["name"] for row in self.rows}:
             raise NotImplementedError(
                 f"the fused kernels score the referenced states only; the reward weighs "
                 f"{sorted(scored)}")

@@ -74,6 +74,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    physics_rows,
     policy_obs_spec,
     poly_load_rhs,
     ptr_array,
@@ -129,10 +130,17 @@ class InductionConsts:
     The motor constants are formed in double precision in the JAX
     expression order (pallas_induction.py:281-288, :336-343): sigma, c_w,
     c_u, k_t, then tau_r, tau_sig and c_psi; at constant speed ``c_w w``
-    and ``p w`` too, as the JAX kernel forms them from Python floats."""
+    and ``p w`` too, as the JAX kernel forms them from Python floats.
 
-    def __init__(self, env):
-        ps = fused_check_system(env.physical_system)
+    ``physics_only=True`` reads the motor, load, converter and supply
+    alone, for a specialised builder that checks the system itself and
+    bakes its own references, reward and constraint (``fused_induction.py``): the env's
+    reference generator, reward weights and constraints are not read, the
+    rows are one zero constant row (``physics_rows``) and the flags the
+    defaults."""
+
+    def __init__(self, env, physics_only=False):
+        ps = env.physical_system if physics_only else fused_check_system(env.physical_system)
         if ps.motor.kind != "SCIM":
             raise NotImplementedError(
                 f"the induction-family kernels need a SCIM, got {ps.motor.kind!r}")
@@ -141,10 +149,11 @@ class InductionConsts:
                 f"the induction-family kernels need a B6 bridge, got {ps.converter.kind!r}")
         if ps.dtype != torch.float32:
             raise NotImplementedError("the fused kernels run in float32")
-        self.no_cons = fused_constraint_mode(env, (("squared", ("i_sq", "i_sd")),)) == "none"
+        self.no_cons = not physics_only and fused_constraint_mode(
+            env, (("squared", ("i_sq", "i_sd")),)) == "none"
         self.finite = ps.converter.action_type == "finite"
         self.mech = ps.load.kind == "PolynomialStaticLoad"
-        self.rows = ref_rows(env)
+        self.rows = physics_rows("torque") if physics_only else ref_rows(env)
         self.n_ref = len(self.rows)
         if self.n_ref not in (1, 2):
             raise NotImplementedError(
@@ -157,7 +166,7 @@ class InductionConsts:
         names = list(ps.state_names)
         rw = env.reward_function
         scored = {names[i] for i in np.flatnonzero(np.asarray(rw._weights))}
-        if not scored <= {row["name"] for row in self.rows}:
+        if not physics_only and not scored <= {row["name"] for row in self.rows}:
             raise NotImplementedError(
                 f"the fused kernels score the referenced states only; the reward weighs "
                 f"{sorted(scored)}")

@@ -11,15 +11,29 @@ recorder is ``fused_policy.make_fused_policy_record_universal``; the sharded
 controller-in-the-loop builders are re-exported here as the JAX package
 re-exports them: ``make_fused_foc_rollout`` (``fused_sync.py``),
 ``make_fused_dc_cascade_rollout`` (``fused_dc_family.py``) and
-``make_fused_srm_cascade_rollout`` (``fused_srm_family.py``).
+``make_fused_srm_cascade_rollout`` (``fused_srm_family.py``).  So are the
+specialised builders, each with kernels of its own, which the dispatch
+never reaches (``pallas_rollout.py:179-187``): ``make_fused_permex_rollout``,
+``make_fused_permex_record_rollout`` and ``make_fused_dc_sc_rollout``
+(``fused_dc.py``), ``make_fused_scim_rollout`` (``fused_induction.py``),
+``make_fused_eesm_rollout`` (``fused_eesm.py``) and
+``make_fused_dfim_rollout`` (``fused_dfim.py``).
 """
 
 from __future__ import annotations
 
 from .fused_common import LANE, TWO_PI  # noqa: F401
+from .fused_dc import (  # noqa: F401
+    make_fused_dc_sc_rollout,
+    make_fused_permex_record_rollout,
+    make_fused_permex_rollout,
+)
 from .fused_dc_family import make_fused_dc_cascade_rollout, make_fused_dc_rollout  # noqa: F401
+from .fused_dfim import make_fused_dfim_rollout  # noqa: F401
 from .fused_dfim_family import make_fused_dfim_family_rollout
+from .fused_eesm import make_fused_eesm_rollout  # noqa: F401
 from .fused_eesm_family import make_fused_eesm_family_rollout
+from .fused_induction import make_fused_scim_rollout  # noqa: F401
 from .fused_induction_family import make_fused_induction_rollout
 from .fused_policy import (  # noqa: F401
     flatten_policy_params,

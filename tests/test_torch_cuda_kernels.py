@@ -508,3 +508,67 @@ def test_cuda_control_kernels_match_plain_versions(kind, env_id, psi_s, mode):
     share = _close_share(got, want, N)
     assert share == 1.0 if mode == "const" else share >= 0.99
     assert {k: v for k, v in mod.LAUNCHES.items() if v} == dict.fromkeys(mod.CONTROL_KERNELS, 1)
+
+
+# the specialised builders' kernels: (module, id, consts class, random
+# kernel, buffer kernel, start bounds, action buffer kind)
+SPECIALISED_CASES = [
+    ("fused_dc", "Finite-CC-PermExDc-v0", "PermexConsts", "permex_rollout_random",
+     "permex_rollout_buffer", [(-100, 100)], "4qc"),
+    ("fused_dc", "Finite-CC-PermExDc-v0", "PermexConsts", "permex_record_random",
+     "permex_record_buffer", [(-100, 100)], "4qc"),
+    ("fused_dc", "Cont-SC-SeriesDc-v0", "DcScConsts", "dc_sc_rollout_random",
+     "dc_sc_rollout_buffer", [(0, 100), (-5, 5)], "duty"),
+    ("fused_dc", "Cont-SC-ShuntDc-v0", "DcScConsts", "dc_sc_rollout_random",
+     "dc_sc_rollout_buffer", [(0, 100), (-5, 5), (-5, 5)], "duty"),
+    ("fused_induction", "Cont-TC-SCIM-v0", "ScimConsts", "scim_rollout_random",
+     "scim_rollout_buffer", [(-8, 8)] * 2 + [(-1, 1)] * 2, "duty3"),
+    ("fused_eesm", "Finite-CC-EESM-v0", "EesmCcConsts", "eesm_cc_rollout_random",
+     "eesm_cc_rollout_buffer", [(-8, 8)] * 3 + [(0, 2 * np.pi)], "b6_4qc"),
+    ("fused_dfim", "Cont-CC-DFIM-v0", "DfimCcConsts", "dfim_cc_rollout_random",
+     "dfim_cc_rollout_buffer", [(-10, 10)] * 2 + [(-1.5, 1.5)] * 2 + [(0, 2 * np.pi)], "duty6"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod_name,env_id,consts,random,buffer,bounds,acts", SPECIALISED_CASES,
+                         ids=[f"{c[3]}-{c[1]}" for c in SPECIALISED_CASES])
+def test_cuda_specialised_kernels_match_plain_versions(mod_name, env_id, consts, random, buffer,
+                                                       bounds, acts):
+    """The twelve kernels of the specialised builders (csrc/fused_permex.cu,
+    fused_dc_sc.cu, fused_scim_tc.cu, fused_eesm_cc.cu, fused_dfim_cc.cu) at
+    512 envs x 64 steps: the buffer mode in every env, the random mode in
+    99% of envs, at rtol 1e-5 / atol 1e-4; one launch of each.  Some starts
+    lie outside the limits, so the random modes cross resets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    import importlib
+
+    mod = importlib.import_module(f"gym_electric_motor_tpu_torch.ops.{mod_name}")
+    dev = torch.device("cuda")
+    c = getattr(mod, consts)(gt.make_functional(env_id, device=dev))
+    R, T, N = 4, 64, 512
+    rng = np.random.default_rng(15)
+    start = [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+             for lo, hi in bounds]
+    shape = {"4qc": (T, R, 128), "duty": (T, R, 128), "duty3": (T, 3, R, 128),
+             "b6_4qc": (T, 2, R, 128), "duty6": (T, 6, R, 128)}[acts]
+    if acts == "4qc":
+        a = rng.integers(0, 4, shape)
+    elif acts == "b6_4qc":
+        a = np.stack([rng.integers(0, 8, (T, R, 128)), rng.integers(0, 4, (T, R, 128))], axis=1)
+    else:
+        a = rng.uniform(-1, 1, shape)
+    a = torch.as_tensor(a.astype(np.int32 if acts in ("4qc", "b6_4qc") else np.float32),
+                        device=dev)
+    state = start[0] if mod_name == "fused_dc" and "permex" in random else start
+    mod.reset_launches()
+    for name, args in ((random, (7, state, T)), (buffer, (state, a))):
+        got = getattr(mod, name)(c, *args)
+        torch.cuda.synchronize()
+        want = getattr(mod, name + "_plain")(c, *args)
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        share = _close_share(got, want, N)
+        assert share == 1.0 if name == buffer else share >= 0.99
+    assert {k: v for k, v in mod.LAUNCHES.items() if v} == {random: 1, buffer: 1}

@@ -181,3 +181,41 @@ def test_control_instances_pick_one_function_each():
             assert instance.endswith("Lb1EE"), instance
             counts = sass_ops.loop_counts(funcs[names[0]])
             assert counts["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 0}
+
+
+# the mangled names of the specialised builders' kernels, as cuobjdump lists
+# them (anonymous-namespace prefix and parameter types as nvcc mangles them)
+SPECIALISED_KERNELS = {
+    "fused_permex": [f"{k}_kernelE7DcConst{'11PermexConst5uint2' if 'random' in k else ''}ii"
+                     for k in ("permex_rollout_random", "permex_rollout_buffer",
+                               "permex_record_random", "permex_record_buffer")],
+    "fused_dc_sc": [f"dc_sc_rollout_{m}_kernelILi{n}EEv9DcScConst" for m in ("random", "buffer")
+                    for n in (1, 2)],
+    "fused_scim_tc": [f"scim_rollout_{m}_kernelE14InductionConst" for m in ("random", "buffer")],
+    "fused_eesm_cc": [f"eesm_cc_rollout_{m}_kernelE9EesmConst11EesmCcConst"
+                      for m in ("random", "buffer")],
+    "fused_dfim_cc": [f"dfim_cc_rollout_{m}_kernelE9DfimConst11DfimCcConst"
+                      for m in ("random", "buffer")],
+}
+
+
+@pytest.mark.parametrize("library", sorted(SPECIALISED_KERNELS))
+def test_specialised_instances_pick_one_function_each(library):
+    """Every specialised entry matches exactly one function of its library's
+    listing, and each of the library's random and buffer kernels is counted
+    (the dc_sc random kernel on both motors)."""
+    listing = "\n".join(
+        f"""        Function : _ZN45_GLOBAL__N__5c1e2d3f_12_x_cu_0f1e2d3c{len(k)}{k}
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   FFMA R2, R2, R3, R4 ;
+        /*0020*/                   ISETP.NE.AND P1, PT, R0, UR4, PT ;
+        /*0030*/               @P1 BRA 0x10 ;
+        /*0040*/                   EXIT ;""" for k in SPECIALISED_KERNELS[library])
+    funcs = sass_ops.functions(listing)
+    counted = set()
+    for instance in sass_ops.STEP_INSTANCES[library].values():
+        names = [f for f in funcs if instance in f]
+        assert len(names) == 1, instance
+        counted.add(names[0])
+        assert sass_ops.loop_counts(funcs[names[0]])["always"]["fp32"] == 2
+    assert len(counted) == len(sass_ops.STEP_INSTANCES[library]) >= 2

@@ -8,9 +8,12 @@ Run on a machine with the CUDA toolkit, from the root of a checkout:
 
 It builds the libraries of ``STEP_INSTANCES`` (``csrc/fused_pmsm.cu``,
 ``csrc/fused_policy.cu``, the six families' rollout and record sources,
-their ``csrc/fused_<family>_policy.cu`` and the three controller-in-the-loop
+their ``csrc/fused_<family>_policy.cu``, the three controller-in-the-loop
 sources ``csrc/fused_foc.cu``, ``csrc/fused_dc_cascade.cu`` and
-``csrc/fused_srm_cascade.cu``, as the package does at first use)
+``csrc/fused_srm_cascade.cu`` and the specialised builders' five,
+``csrc/fused_permex.cu``, ``csrc/fused_dc_sc.cu``, ``csrc/fused_scim_tc.cu``,
+``csrc/fused_eesm_cc.cu`` and ``csrc/fused_dfim_cc.cu``, as the package does
+at first use)
 and prints one JSON line per kernel; a template instance is named by a
 substring of its mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1E``
 for H = 16, categorical, Wiener.
@@ -385,6 +388,24 @@ STEP_INSTANCES = {
         "srm_cascade_rollout": "srm_cascade_rollout_kernelILi2ELb1ELb0ELb1EE",
         "srm_cascade_rollout/Finite-TC-SRM-v0": "srm_cascade_rollout_kernelILi1ELb1ELb0ELb1EE",
     },
+    # The specialised builders' kernels, with their own baked constants and
+    # draw order: the Finite-CC-PermExDc rollout and recorder, the DC SC
+    # kernels (<NEL>: 1 SeriesDc, 2 ShuntDc; Cont-SC-ShuntDc-v0 for each
+    # kernel, Cont-SC-SeriesDc-v0 for the random one), Cont-TC-SCIM,
+    # Finite-CC-EESM and Cont-CC-DFIM.  chip_smoke.py times each random
+    # kernel beside the universal kernel on the same id
+    "fused_permex": {k: f"{k}_kernel" for k in ("permex_rollout_random", "permex_rollout_buffer",
+                                                 "permex_record_random", "permex_record_buffer")},
+    "fused_dc_sc": {
+        "dc_sc_rollout_random": "dc_sc_rollout_random_kernelILi2E",
+        "dc_sc_rollout_buffer": "dc_sc_rollout_buffer_kernelILi2E",
+        "dc_sc_rollout_random/Cont-SC-SeriesDc-v0": "dc_sc_rollout_random_kernelILi1E",
+    },
+    "fused_scim_tc": {k: f"{k}_kernel" for k in ("scim_rollout_random", "scim_rollout_buffer")},
+    "fused_eesm_cc": {k: f"{k}_kernel" for k in ("eesm_cc_rollout_random",
+                                                  "eesm_cc_rollout_buffer")},
+    "fused_dfim_cc": {k: f"{k}_kernel" for k in ("dfim_cc_rollout_random",
+                                                  "dfim_cc_rollout_buffer")},
 }
 
 
