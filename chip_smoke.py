@@ -183,7 +183,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
             (psi_s = 1.2) on Finite-TC-SRM-v0 and Cont-SC-SRM-v0 (the
             continuous buffer's duties in [-0.5, 0.5), where the stiff
             model stays inside the explicit RK4's stability limit without
-            resets, as in tests/test_srm.py:265-305)
+            resets, as in tests/test_srm.py:265-305); srm_rollout_random
+            (lane groups at constant speed, one thread per env under the
+            speed ODE) bit for bit (error 0 in every env) on all eight
 35.-37. the slice-8 main path, counted from zero:
    35. srm_env  for each id, the port's env (VectorEnv's reset, the env's
             step without autoreset, constant references, an action buffer,
@@ -201,10 +203,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
             Finite-CC-SRM-v0 (bench.py:632, :734), Finite-TC-SRM-v0 and
             Cont-SC-SRM-v0; the random recorder at 1024 steps on
             Finite-CC-SRM-v0 and Cont-SC-SRM-v0 (12 and 11 planes, GB/s);
-            each with its share of env-steps that reset; the general path
-            (VectorEnv.rollout, the random policy of the action space) on
-            Cont-SC-SRM-v0 at 200 steps; the launches of phases 35-37 must
-            be exactly what they make
+            each with its share of env-steps that reset, and for the
+            rollout its lanes per env (1 under the speed ODE) and, on lane
+            groups, registers and the issue bound of four lanes' counts
+            beside the bound of the function's own work; the general
+            path (VectorEnv.rollout, the random policy of the action space)
+            on Cont-SC-SRM-v0 at 200 steps; the launches of phases 35-37
+            must be exactly what they make
 38. policy_universal_kernels  slice 9, the universal policy recorder
             (csrc/fused_<family>_policy.cu, one kernel per family): on each
             of the 60 ids at PPO's width (2048 envs x 64 steps, H 32), and
@@ -243,7 +248,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
     Cont-CC-PMSM-v0, the DC cascade on the three Cont-SC DC ids, the SRM
     cascade on the six SRM ids and, saturating (psi_s = 1.2), on
     Finite-TC-SRM-v0 and Cont-SC-SRM-v0; each again at 1024 steps on one id
-    (timed on Cont-CC-PMSM-v0, Cont-SC-PermExDc-v0, Finite-SC-SRM-v0)
+    (timed on Cont-CC-PMSM-v0, Cont-SC-PermExDc-v0, Finite-SC-SRM-v0); the
+    SRM cascade bit for bit (error 0 in every env) in every case
 44.-45. the slice-10 main path, counted from zero (GemController.make and
     the three builders of ops/fused_rollout.py, no plain version):
    44. control_loops  with constant references at 128 envs, the fused loop
@@ -298,8 +304,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
     27-29, a DFIM kernel's those of phases 31-33, an SRM kernel's those of
     phases 35-37, a universal policy kernel's those of phase 41, a
     controller kernel's those of phases 44-45, a specialised kernel's those
-    of phases 47-48), the card line, then
-    {"ok": true, "device": {...}}
+    of phases 47-48), after a redesign_order line (every kernel by its
+    launches times the time a launch takes above its bound), the card
+    line, then {"ok": true, "device": {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
 largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
@@ -319,7 +326,12 @@ each output written once) over 3.35 TB/s and, for each issue pipe, the
 instructions one step always executes over the pipe's rate, at 132 SMs x
 1.98 GHz.  The counts come from the SASS of the library this run built
 (tools/sass_ops.py: FP32 operations at 256 per SM and clock, i.e.
-67 TFLOP/s; ALU and IMAD instructions at 64; MUFU and conversions at 16).
+67 TFLOP/s; ALU and IMAD instructions at 64; MUFU and conversions at 16;
+warp shuffles at 32).  At constant speed the SRM random rollout runs an
+env on four lanes (tools/sass_ops.py's @lanes4); its bound counts the
+function's own work, the one-thread step of the same instance (built for
+the count, never launched), and phase 37 prints the issue bound of four
+lanes' counts beside it.
 They leave out the blocks a step runs only sometimes (reference
 regeneration, the reset draws of a violation, the slow paths of sqrtf and
 sincosf), so each bound is a lower bound; the build phase prints both
@@ -439,6 +451,10 @@ BOUND_PIPES = {"reinforce_rollout": ("fp32", "xu")}
 # peak rates (see the module docstring)
 SMS, CLOCK, HBM = 132, 1.98e9, 3.35e12
 
+# The lane-group kernels (tools/sass_ops.py's @lanes4 entries): lanes per
+# env, registers (ptxas) and a lane's counts, filled by the build phase.
+LANE_KERNELS = {}
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -452,6 +468,32 @@ def bound_ms(env_steps, ops, nbytes):
     t_ops = max(env_steps * n / (SMS * CLOCK * RATE_PER_SM_CLOCK[k]) for k, n in ops.items())
     t_bytes = nbytes / HBM
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_registers(log):
+    """``{mangled name: registers}`` from an ``nvcc -Xptxas -v`` report."""
+    regs, cur = {}, None
+    for ln in log.splitlines():
+        if "Function properties for " in ln:
+            cur = ln.split("Function properties for ", 1)[1].strip()
+        elif "Used " in ln and " registers" in ln and cur:
+            regs[cur] = int(ln.split("Used ", 1)[1].split()[0])
+    return regs
+
+
+def lane_fields(key, env_steps, nbytes, ms):
+    """The lane fields of a timed SRM random rollout (phase 37): its lanes
+    per env and, on lane groups (the constant-speed ids), registers, a
+    lane's counts and the issue bound of four lanes' counts, work that
+    every lane repeats included, with its share; the row's bound_ms stays
+    the function's own work."""
+    info = LANE_KERNELS.get(key.replace("srm_rollout_random", "srm_rollout_lanes", 1))
+    if info is None:
+        return {"lanes": 1}
+    i_ms = bound_ms(env_steps, info["ops"], nbytes)[0]
+    return {"lanes": info["lanes"], "registers": info["registers"],
+            "ops_per_lane_step": info["per_lane"], "issue_ops_per_step": info["ops"],
+            "issue_bound_ms": i_ms, "issue_bound_share": i_ms / ms}
 
 
 def card_line():
@@ -569,13 +611,23 @@ def run(dev, card):
         c = found[lib]
         counts.update(c)
         ops.update({k: c[v]["always"] for k, v in instances.items()})
+        regs = ptxas_registers(cuda_build.BUILD_LOG.get(lib, ""))
+        for k, v in instances.items():
+            if "lanes" in c[v]:
+                sub = v.partition("@")[0]
+                LANE_KERNELS[k] = {"lanes": c[v]["lanes"], "per_lane": c[v]["per_lane"]["always"],
+                                   "ops": c[v]["always"],
+                                   "registers": next((r for f, r in regs.items() if sub in f),
+                                                     None)}
         # the policy recorders' hidden-unit loop, per hidden unit
         ops.update({k + "/inner": c[v]["inner"]["always"] for k, v in instances.items()
                     if "inner" in c[v]})
     emit({"phase": "build", "seconds": build_s, "nvcc_seconds": cuda_build.BUILD_LOG.get("seconds"),
           "sass_seconds": sass_s, "ptxas": ptxas,
-          "ops_per_step": {k: {key: v[key] for key in ("always", "conditional", "inner")
-                               if key in v} for k, v in counts.items()}})
+          "ops_per_step": {k: {key: v[key] for key in ("always", "conditional", "inner", "lanes",
+                                                       "per_lane") if key in v}
+                           for k, v in counts.items()},
+          "lane_kernels": LANE_KERNELS})
 
     R = N_ENVS // 128
     env = gt.make_functional("Finite-CC-PMSM-v0", device=dev)
@@ -1640,7 +1692,7 @@ def run_dc(dev, card, ops):
 
 
 def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids, record_ids,
-                     ops, others, dispatch_checks):
+                     ops, others, dispatch_checks, annotate=None):
     """The main path of a universal family (the induction, EESM, DFIM and
     SRM slices), its launches counted from zero: the env against both
     buffer kernels on every id of ``ids`` (constant references
@@ -1651,7 +1703,9 @@ def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids
     at T_ROLLOUT steps on ``timed_ids``, the random recorder at T_RECORD on
     ``record_ids``, each with its share of env-steps that reset, and the
     general path on the last of ``timed_ids`` (the instance the bounds
-    count).  Returns the family's launches on the path and the timings."""
+    count); ``annotate(key, env_steps, nbytes, ms)`` adds fields to each
+    timed rollout's row.  Returns the family's launches on the path and the
+    timings."""
     from gym_electric_motor_tpu_torch import references as rg
     from gym_electric_motor_tpu_torch.ops import fused_record as frec
     from gym_electric_motor_tpu_torch.ops import fused_rollout as fr
@@ -1726,6 +1780,9 @@ def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids
             "mean_reward": float(out[c.n_state].double().sum()) / (N * T_ROLLOUT),
             "reset_share": float(out[c.n_state + 1].double().sum()) / (N * T_ROLLOUT),
             "finite": all(bool(torch.isfinite(x).all()) for x in out)}}
+        if annotate:
+            row[rollout].update(annotate(rollout + key, N * T_ROLLOUT,
+                                         fam.nbytes(c, rollout, N, T_ROLLOUT), r_ms))
         if not row[rollout]["finite"]:
             raise AssertionError(f"{env_id}: the 65536-step rollout produced non-finite values")
         if env_id in record_ids:
@@ -2060,6 +2117,11 @@ def run_srm(dev, card, ops):
     for name in srf.KERNELS:
         worst[name] = max(worst[name], w_sat[name])
         share[name] = min(share[name], s_sat[name])
+    # the random rollout, on lane groups or one thread per env, equals its
+    # plain version bit for bit, every env
+    if worst["srm_rollout_random"] != 0.0 or share["srm_rollout_random"] != 1.0:
+        raise AssertionError(f"srm_rollout_random: max abs err {worst['srm_rollout_random']}, "
+                             f"{share['srm_rollout_random']} of envs match (need 0 and 1)")
 
     # ---- 35.-37. the main path: counts from zero ---------------------------
     # 35. the env against the buffer kernels (rtol 1e-4 / atol 2e-3, angles
@@ -2079,7 +2141,7 @@ def run_srm(dev, card, ops):
     launches, timings = family_main_path(
         torch, gt, dev, card, fam, gt.SRM_ENV_IDS, SRM_CONST_REFS, 2e-3,
         (SRM_BENCH, SRM_TC, SRM_TIMED), (SRM_BENCH, SRM_TIMED), ops,
-        (fs, fp, sf, dcf, indf, ef, dff), in_limits)
+        (fs, fp, sf, dcf, indf, ef, dff), in_limits, lane_fields)
 
     # ---- kernels line rows ---------------------------------------------------
     replaces = {"srm_rollout_random": "gym_electric_motor_tpu/ops/pallas_srm.py:609",
@@ -2569,6 +2631,10 @@ def run_control(dev, card, ops):
         del got, ref
     emit({"phase": "control_kernels", "envs": N, "steps": CONTROL_COMPARE, "results": rows,
           "deep_steps": CONTROL_DEEP, "deep": deep, "timed": timed})
+    # the cascade equals its plain version bit for bit, every env
+    if worst["srm_cascade_rollout"] != 0.0 or share["srm_cascade_rollout"] != 1.0:
+        raise AssertionError(f"srm_cascade_rollout: max abs err {worst['srm_cascade_rollout']}, "
+                             f"{share['srm_cascade_rollout']} of envs match (need 0 and 1)")
 
     # ---- 44.-45. the main path: counts from zero --------------------------
     for mod in mods.values():
@@ -3052,6 +3118,22 @@ def run_specialised(dev, card, ops):
     return line
 
 
+def redesign_order(line):
+    """The kernels by launches x gap, largest first: the main path's
+    launches times the time a launch takes above its bound, at the main
+    path's shape where the row has one (its timed id's), else at the
+    comparison shape.  Every launch counts at that shape, so the score is
+    an approximation of the time the path loses to each kernel."""
+    out = []
+    for r in line:
+        main = r.get("main_ms") is not None and r.get("main_bound_ms") is not None
+        ms, b_ms = (r["main_ms"], r["main_bound_ms"]) if main else (r["ms"], r["bound_ms"])
+        out.append({"name": r["name"], "launches": r["launches"], "ms": ms, "bound_ms": b_ms,
+                    "gap_ms": ms - b_ms, "launches_x_gap_ms": r["launches"] * (ms - b_ms),
+                    "shape": "main" if main else "compare"})
+    return sorted(out, key=lambda x: -x["launches_x_gap_ms"])
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "gym_electric_motor_tpu_torch" / "csrc").is_dir():
@@ -3099,7 +3181,8 @@ def main():
     seconds["slice_11"] = lap()
     emit({"phase": "elapsed", "seconds": seconds, "total": clock[-1] - clock[0]})
 
-    # ---- 49. kernels line, card and result --------------------------------
+    # ---- 49. the order of the next redesigns, kernels line, card, result ----
+    emit({"phase": "redesign_order", "ranking": redesign_order(line)})
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

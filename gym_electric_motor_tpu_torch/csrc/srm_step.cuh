@@ -115,6 +115,24 @@ struct SrmPhase {
   float s, l, x, e;
 };
 
+// One phase's geometry from the sine and cosine of its angle eps - phi_k:
+// the inductance l0 - l1 c_k and, saturating, x = i l / psi_s and
+// e = exp(-x).  srm_phases takes it for each phase, the lane-group step
+// (srm_lanes.cuh) for its own.
+template <bool SAT>
+__device__ __forceinline__ SrmPhase srm_phase(const SrmConst& k, float s_k, float c_k, float i) {
+  SrmPhase ph;
+  ph.s = s_k;
+  ph.l = k.v[S_L0] - k.v[S_L1] * c_k;
+  if (SAT) {
+    ph.x = i * ph.l * k.v[S_INV_PSI_S];
+    ph.e = expf(-ph.x);
+  } else {
+    ph.x = ph.e = 0.0f;
+  }
+  return ph;
+}
+
 // The three phases from (cos eps, sin eps) = (ce, se): phase a is the pair
 // itself, phases b and c turn it by cos phi = -1/2, sin phi = +-sin(2 pi / 3).
 template <bool SAT>
@@ -122,37 +140,43 @@ __device__ __forceinline__ void srm_phases(const SrmConst& k, float ce, float se
                                            float ib, float ic, SrmPhase ph[3]) {
   const float sp = k.v[S_SIN_PHI];
   const float c_k[3] = {ce, ce * -0.5f + se * sp, ce * -0.5f + se * -sp};
-  ph[0].s = se;
-  ph[1].s = se * -0.5f - ce * sp;
-  ph[2].s = se * -0.5f - ce * -sp;
+  const float s_k[3] = {se, se * -0.5f - ce * sp, se * -0.5f - ce * -sp};
   const float i3[3] = {ia, ib, ic};
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    ph[j].l = k.v[S_L0] - k.v[S_L1] * c_k[j];
-    if (SAT) {
-      ph[j].x = i3[j] * ph[j].l * k.v[S_INV_PSI_S];
-      ph[j].e = expf(-ph[j].x);
-    } else {
-      ph[j].x = ph[j].e = 0.0f;
-    }
-  }
+  for (int j = 0; j < 3; ++j) ph[j] = srm_phase<SAT>(k, s_k[j], c_k[j], i3[j]);
 }
 
-// The reluctance torque: p l1 (1/2) sum i^2 s_k, or the coenergy form
-// sum ((p l1 s_k) psi_s^2 / l_k^2) ((1 - e) - x e) when saturating.
+// One phase's torque term: i^2 s_k (linear), or the coenergy form's
+// ((p l1 s_k) psi_s^2 / l_k^2) ((1 - e) - x e) when saturating.
+template <bool SAT>
+__device__ __forceinline__ float srm_torque_term(const SrmConst& k, float i, const SrmPhase& ph) {
+  return SAT ? (k.v[S_PL1] * ph.s * k.v[S_PSI_S2] / (ph.l * ph.l)) * ((1.0f - ph.e) - ph.x * ph.e)
+             : i * i * ph.s;
+}
+
+// The reluctance torque from the three terms, summed in phase order: p l1
+// (1/2) sum i^2 s_k, or the sum of the coenergy terms when saturating.
+template <bool SAT>
+__device__ __forceinline__ float srm_torque_sum(const SrmConst& k, float t0, float t1, float t2) {
+  return SAT ? t0 + t1 + t2 : k.v[S_PL1] * (0.5f * (t0 + t1 + t2));
+}
+
 template <bool SAT>
 __device__ __forceinline__ float srm_torque(const SrmConst& k, float ia, float ib, float ic,
                                             const SrmPhase ph[3]) {
-  if (!SAT) {
-    return k.v[S_PL1] * (0.5f * (ia * ia * ph[0].s + ib * ib * ph[1].s + ic * ic * ph[2].s));
-  }
-  float t[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    t[j] = (k.v[S_PL1] * ph[j].s * k.v[S_PSI_S2] / (ph[j].l * ph[j].l))
-           * ((1.0f - ph[j].e) - ph[j].x * ph[j].e);
-  }
-  return t[0] + t[1] + t[2];
+  return srm_torque_sum<SAT>(k, srm_torque_term<SAT>(k, ia, ph[0]),
+                             srm_torque_term<SAT>(k, ib, ph[1]),
+                             srm_torque_term<SAT>(k, ic, ph[2]));
+}
+
+// One phase's current slope at the speed wv:
+// ((u - r_s i) - (i (p l1 s_k)) wv [e]) / (l_k [e]).
+template <bool SAT>
+__device__ __forceinline__ float srm_slope(const SrmConst& k, float u, float i, float wv,
+                                           const SrmPhase& ph) {
+  const float emf = i * (k.v[S_PL1] * ph.s) * wv;
+  return SAT ? ((u - k.v[S_R_S] * i) - emf * ph.e) / (ph.l * ph.e)
+             : ((u - k.v[S_R_S] * i) - emf) / ph.l;
 }
 
 // The right-hand side at one RK4 stage at the angle (ce, se): d omega (the
@@ -167,14 +191,7 @@ __device__ __forceinline__ void srm_rhs(const SrmConst& k, float w, float ia, fl
   const float wv = MECH ? w : k.v[S_W_FIXED];
   const float i3[3] = {ia, ib, ic};
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float emf = i3[j] * (k.v[S_PL1] * ph[j].s) * wv;
-    if (SAT) {
-      di[j] = ((u[j] - k.v[S_R_S] * i3[j]) - emf * ph[j].e) / (ph[j].l * ph[j].e);
-    } else {
-      di[j] = ((u[j] - k.v[S_R_S] * i3[j]) - emf) / ph[j].l;
-    }
-  }
+  for (int j = 0; j < 3; ++j) di[j] = srm_slope<SAT>(k, u[j], i3[j], wv, ph[j]);
   dw = MECH ? poly_load_rhs(k.v[S_LOAD_A], k.v[S_LOAD_B], k.v[S_LOAD_C], k.v[S_OMEGA_LIN],
                             k.v[S_JT_OVER_TD], k.v[S_INV_JT], w,
                             srm_torque<SAT>(k, ia, ib, ic, ph))
@@ -184,9 +201,13 @@ __device__ __forceinline__ void srm_rhs(const SrmConst& k, float w, float ia, fl
 // The phase voltages as fractions of the supply voltage: finite
 // (a == 1) - (a == 2), continuous the duty clipped to [-1, 1].
 template <bool FINITE>
+__device__ __forceinline__ float srm_fraction(int a, float d) {
+  return FINITE ? (float)(a == 1) - (float)(a == 2) : fminf(fmaxf(d, -1.0f), 1.0f);
+}
+
+template <bool FINITE>
 __device__ __forceinline__ float srm_fraction(const SrmAction& act, int j) {
-  return FINITE ? (float)(act.a[j] == 1) - (float)(act.a[j] == 2)
-                : fminf(fmaxf(act.d[j], -1.0f), 1.0f);
+  return srm_fraction<FINITE>(act.a[j], act.d[j]);
 }
 
 // Fractions times the supply voltage -> RK4 over (omega?, i_a, i_b, i_c,
@@ -269,6 +290,17 @@ __device__ __forceinline__ float srm_quantity(const SrmConst& k, int row, const 
   return q * k.ref.row[row][R_INV_LIM];
 }
 
+// The constant-speed rotation one step on, renormalised by rsqrt, and
+// (1, 0) after a violation.
+__device__ __forceinline__ void srm_rotation_advance(const SrmConst& k, bool violated, float& c,
+                                                     float& s) {
+  const float c_new = c * k.v[S_COS_D] - s * k.v[S_SIN_D];
+  const float s_new = s * k.v[S_COS_D] + c * k.v[S_SIN_D];
+  const float inv = rsqrtf(c_new * c_new + s_new * s_new);
+  c = violated ? 1.0f : c_new * inv;
+  s = violated ? 0.0f : s_new * inv;
+}
+
 // One step under an action: physics, the limit constraint on the three
 // phase currents, the WSE reward against the pre-advance references (a
 // torque reference takes cosf and sinf of the wrapped angle afresh), the
@@ -304,13 +336,7 @@ __device__ __forceinline__ SrmStepOut srm_action_step(const SrmConst& k, const S
   x.ib = violated ? 0.0f : y.ib;
   x.ic = violated ? 0.0f : y.ic;
   x.eps = violated ? 0.0f : y.eps;
-  if (!MECH) {
-    const float c_new = c * k.v[S_COS_D] - s * k.v[S_SIN_D];
-    const float s_new = s * k.v[S_COS_D] + c * k.v[S_SIN_D];
-    const float inv = rsqrtf(c_new * c_new + s_new * s_new);
-    c = violated ? 1.0f : c_new * inv;
-    s = violated ? 0.0f : s_new * inv;
-  }
+  if (!MECH) srm_rotation_advance(k, violated, c, s);
   return out;
 }
 

@@ -510,6 +510,71 @@ def test_cuda_control_kernels_match_plain_versions(kind, env_id, psi_s, mode):
     assert {k: v for k, v in mod.LAUNCHES.items() if v} == dict.fromkeys(mod.CONTROL_KERNELS, 1)
 
 
+# the SRM random rollout (lane groups at constant speed) and the SRM
+# cascade: (kernel, id, psi_s, references)
+SRM_BIT_CASES = ([("rollout", i, None, "wiener") for i in gt.SRM_ENV_IDS]
+                  + [("rollout", "Finite-TC-SRM-v0", 1.2, "wiener"),
+                     ("rollout", "Cont-SC-SRM-v0", 1.2, "wiener"),
+                     ("rollout", "Finite-CC-SRM-v0", None, "const"),
+                     ("rollout", "Cont-SC-SRM-v0", None, "const")]
+                  + [("cascade", i, None, "wiener") for i in gt.SRM_ENV_IDS]
+                  + [("cascade", "Finite-TC-SRM-v0", 1.2, "wiener"),
+                     ("cascade", "Finite-CC-SRM-v0", None, "const"),
+                     ("cascade", "Finite-SC-SRM-v0", None, "const")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,env_id,psi_s,refs", SRM_BIT_CASES,
+                         ids=[f"{k}-{i}{'-sat' if p else ''}-{r}" for k, i, p, r in SRM_BIT_CASES])
+def test_cuda_srm_rollout_and_cascade_equal_plain_versions_bit_for_bit(kernel, env_id, psi_s,
+                                                                       refs):
+    """srm_rollout_random (csrc/fused_srm.cu: four lanes an env at constant
+    speed, one thread per env under the speed ODE) and srm_cascade_rollout
+    (csrc/fused_srm_cascade.cu) equal their plain versions bit for bit in
+    every env and every output (NaN where the plain version has NaN),
+    linear and saturating, with Wiener and with constant references (the
+    loop without the reference advance), at one plane of 128 envs: a grid
+    smaller than the SMs.  Env 5 starts with only phase b above the 20 A
+    limit, the others below it: its first step violates, and on lane groups
+    the reset must reach all four lanes of its group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.controllers import GemController
+    from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf
+
+    dev = torch.device("cuda")
+    kw = {"motor": {"motor_parameter": {"psi_s": psi_s}}} if psi_s else {}
+    if refs == "const":
+        kw["reference_generator"] = rg.ReferenceSpec(
+            [rg.ConstReference(n, v) for n, v in CONTROL_SRM_REFS[env_id.split("-")[1]]])
+    env = gt.make_functional(env_id, device=dev, **kw)
+    if kernel == "cascade":
+        c = srf.SrmCascadeConsts(env, GemController.make(env, env_id))
+        base, kern, plain = c.c, srf.srm_cascade_rollout, srf.srm_cascade_rollout_plain
+    else:
+        c = base = srf.SrmConsts(env)
+        kern, plain = srf.srm_rollout_random, srf.srm_rollout_random_plain
+    assert base.sat == (psi_s is not None) and base.all_const == (refs == "const")
+    R, T, hot = 1, 64, 5
+    rng = np.random.default_rng(21)
+    bounds = ([(0, 100)] if base.mech else []) + [(0, 19)] * 3 + [(-np.pi, np.pi)]
+    start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32) for lo, hi in bounds]
+    start[-3][0, hot] = 25.0  # i_b
+    start = [torch.as_tensor(x, device=dev) for x in start]
+    srf.reset_launches()
+    got = kern(c, 7, start, T)
+    torch.cuda.synchronize()
+    want = plain(c, 7, start, T)
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, j
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        assert bool(same.all()), f"output {j} differs in {int((~same).sum())} elements"
+    assert float(got[base.n_state + 1][0, hot]) >= 1.0  # the violating env reset
+    name = "srm_cascade_rollout" if kernel == "cascade" else "srm_rollout_random"
+    assert {k: v for k, v in srf.LAUNCHES.items() if v} == {name: 1}
+
+
 # the specialised builders' kernels: (module, id, consts class, random
 # kernel, buffer kernel, start bounds, action buffer kind)
 SPECIALISED_CASES = [

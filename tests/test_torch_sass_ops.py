@@ -43,8 +43,8 @@ def test_loop_counts_split_always_from_conditional():
     counts = sass_ops.loop_counts(funcs["_Z4stepPfi"])
     # FFMA (2) + FADD (1); ISETP, FSEL, ISETP; the move and the uniform
     # add are not counted
-    assert counts["always"] == {"fp32": 3, "alu": 3, "imad": 0, "xu": 0}
-    assert counts["conditional"] == {"fp32": 0, "alu": 0, "imad": 1, "xu": 1}
+    assert counts["always"] == {"fp32": 3, "alu": 3, "imad": 0, "xu": 0, "shfl": 0}
+    assert counts["conditional"] == {"fp32": 0, "alu": 0, "imad": 1, "xu": 1, "shfl": 0}
 
 
 @pytest.mark.parametrize("op,args,want", [
@@ -58,6 +58,8 @@ def test_loop_counts_split_always_from_conditional():
     ("FRND.FLOOR", ["R1", "R2"], ("xu", 1)),
     ("HFMA2.MMA", ["R1", "-RZ", "RZ", "0", "0"], (None, 0)),
     ("STG.E", ["desc[UR4][R2.64]", "R5"], (None, 0)),
+    ("SHFL.BFLY", ["PT", "R3", "R2", "0x1", "0x1f"], ("shfl", 1)),
+    ("SHFL.IDX", ["PT", "R5", "R4", "R7", "0x1c1f"], ("shfl", 1)),
 ])
 def test_classify(op, args, want):
     assert sass_ops.classify(op, args) == want
@@ -83,9 +85,10 @@ def test_second_loop_counts_the_loop_outside_the_main_one():
     advance): ``second`` counts the smaller one, and ``step_ops`` reads it
     from a substring ending in #2."""
     insns = sass_ops.functions(SASS_TWO_LOOPS)["_Z3twoPfi"]
-    assert sass_ops.loop_counts(insns)["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 1}
+    assert sass_ops.loop_counts(insns)["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 1,
+                                                     "shfl": 0}
     assert sass_ops.loop_counts(insns, second=True)["always"] == {"fp32": 1, "alu": 1, "imad": 0,
-                                                                  "xu": 0}
+                                                                  "xu": 0, "shfl": 0}
 
 
 SASS_NESTED = """
@@ -112,12 +115,12 @@ def test_nested_loop_counts_apart():
     outer count plus H times the inner one."""
     insns = sass_ops.functions(SASS_NESTED)["_Z6nestedPfi"]
     counts = sass_ops.loop_counts(insns, inner=True)
-    assert counts["always"] == {"fp32": 3, "alu": 2, "imad": 0, "xu": 0}
-    assert counts["inner"]["always"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1}
+    assert counts["always"] == {"fp32": 3, "alu": 2, "imad": 0, "xu": 0, "shfl": 0}
+    assert counts["inner"]["always"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1, "shfl": 0}
     # without `inner` the nested body counts once, as conditional (the guard skips it)
     plain = sass_ops.loop_counts(insns)
     assert plain["always"] == counts["always"] and "inner" not in plain
-    assert plain["conditional"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1}
+    assert plain["conditional"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1, "shfl": 0}
     with pytest.raises(ValueError, match="nested"):
         sass_ops.loop_counts(sass_ops.functions(SASS)["_Z4stepPfi"], inner=True)
 
@@ -139,12 +142,13 @@ def test_step_instances_name_kernels_of_their_sources(library):
     """Every ``STEP_INSTANCES`` entry parses: a kernel defined in
     ``csrc/<library>.cu`` with as many template arguments in the mangled
     substring as the kernel has template parameters, and at most one loop
-    mark (``#2`` or ``@inner``)."""
+    mark (``#2``, ``@inner`` or a lane group's ``@lanes4``)."""
     source = (CSRC / f"{library}.cu").read_text()
     for key, instance in sass_ops.STEP_INSTANCES[library].items():
         sub, _, nested = instance.partition("@")
         sub, mark, second = sub.partition("#")
-        assert nested in ("", "inner") and second in ("", "2") and not (nested and mark), key
+        assert nested in ("", "inner", "lanes4") and second in ("", "2"), key
+        assert not (nested and mark), key
         kernel, _sep, args = sub.partition("_kernel")
         n_args = args.count("Lb") + args.count("Li")
         assert _template_arity(source, kernel + "_kernel") == n_args, key
@@ -180,7 +184,7 @@ def test_control_instances_pick_one_function_each():
             assert len(names) == 1, instance
             assert instance.endswith("Lb1EE"), instance
             counts = sass_ops.loop_counts(funcs[names[0]])
-            assert counts["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 0}
+            assert counts["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 0, "shfl": 0}
 
 
 # the mangled names of the specialised builders' kernels, as cuobjdump lists
@@ -219,3 +223,55 @@ def test_specialised_instances_pick_one_function_each(library):
         counted.add(names[0])
         assert sass_ops.loop_counts(funcs[names[0]])["always"]["fp32"] == 2
     assert len(counted) == len(sass_ops.STEP_INSTANCES[library]) >= 2
+
+
+# a lane-group kernel's step loop: a shuffle beside the arithmetic
+SASS_LANES = """
+        Function : _ZN45_GLOBAL__N__0a1b2c3d_12_x_cu_4e5f6a7b24srm_rollout_lanes_kernelILb1ELi3ELb0EEEv8SrmConst
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   FFMA R2, R2, R3, R4 ;
+        /*0020*/                   SHFL.IDX PT, R5, R2, 0x3, 0x1c1f ;
+        /*0030*/                   FADD R2, R2, R5 ;
+        /*0040*/                   ISETP.NE.AND P1, PT, R0, UR4, PT ;
+        /*0050*/               @P1 BRA 0x10 ;
+        /*0060*/                   EXIT ;
+"""
+
+
+def test_lane_mark_multiplies_by_the_lanes_per_env():
+    """``@lanes4``: a warp issues a lane's count for eight envs, so an
+    env-step issues four times a lane's count, shuffles included; the
+    lane's own count stays beside it."""
+    funcs = sass_ops.functions(SASS_LANES)
+    name = "srm_rollout_lanes_kernelILb1ELi3ELb0E"
+    assert sass_ops.lanes_of(name + "@lanes4") == 4 and sass_ops.lanes_of(name) == 1
+    counts = sass_ops.instance_counts(funcs, [name, name + "@lanes4"])
+    lane = {"fp32": 3, "alu": 1, "imad": 0, "xu": 0, "shfl": 1}
+    assert counts[name]["always"] == lane and "lanes" not in counts[name]
+    marked = counts[name + "@lanes4"]
+    assert marked["lanes"] == 4 and marked["per_lane"]["always"] == lane
+    assert marked["always"] == {k: 4 * v for k, v in lane.items()}
+    with pytest.raises(ValueError, match="divide"):
+        sass_ops.lanes_of(name + "@lanes3")
+
+
+def test_srm_lane_kernels_carry_their_lane_mark():
+    """The SRM random rollout's lane-group kernel runs four lanes an env:
+    its entries (the constant-speed ids Finite-CC and Finite-TC) carry
+    ``@lanes4`` and no other entry does; each of those ids also has an
+    unmarked one-thread entry of srm_rollout_random with the same FINITE,
+    NREF and SAT, the function's own work that the bounds count."""
+    lanes = {}
+    for library, instances in sass_ops.STEP_INSTANCES.items():
+        for key, instance in instances.items():
+            lane_kernel = key.split("/")[0] == "srm_rollout_lanes"
+            assert sass_ops.lanes_of(instance) == (4 if lane_kernel else 1), key
+            if lane_kernel:
+                lanes[key.split("/")[1]] = instance
+    assert sorted(lanes) == ["Finite-CC-SRM-v0", "Finite-TC-SRM-v0"]
+    srm = sass_ops.STEP_INSTANCES["fused_srm"]
+    for env_id, instance in lanes.items():
+        finite, nref, sat = re.fullmatch(r"srm_rollout_lanes_kernelI(Lb\dE)(Li\dE)(Lb\dE)@lanes4",
+                                         instance).groups()
+        assert srm[f"srm_rollout_random/{env_id}"] == (
+            f"srm_rollout_random_kernelI{finite}Lb0E{nref}{sat}"), env_id

@@ -36,7 +36,8 @@ Programming Guide's throughput table for compute capability 9.0):
 * ``imad`` (64): integer multiplies (IMAD, IMAD.WIDE, IMAD.HI), which
   issue on half of the FP32 lanes;
 * ``xu`` (16): MUFU (rsqrt, exp2, ...) and conversions (I2F, F2I, F2F,
-  FRND) and the bit counts.
+  FRND) and the bit counts;
+* ``shfl`` (32): the warp shuffles (SHFL.IDX, .BFLY, .UP, .DOWN).
 
 Moves (MOV, move idioms of IMAD and HFMA2), uniform-datapath instructions
 (once per warp, not per thread), memory, barrier and control instructions
@@ -47,7 +48,12 @@ iteration: the kernels' step loops are marked ``#pragma unroll 1``.  A
 loop nested in the step whose trip count is a launch parameter (the
 universal policy recorders' loop over the H hidden units) is counted apart
 where the instance's name ends in ``@inner``: a step then issues the outer
-count plus H times the inner one.
+count plus H times the inner one.  A kernel that runs one env on a group
+of G lanes (the SRM random rollout at constant speed, four lanes an env)
+is marked ``@lanesG``: a warp then issues a lane's count for 32 / G envs,
+so an env-step issues G times a lane's count, and ``step_ops`` multiplies
+by G.  That is what the lanes issue, work that every lane repeats
+included; the function's own work is the one-thread step's count.
 """
 
 from __future__ import annotations
@@ -61,11 +67,11 @@ from pathlib import Path
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _SKIP = ("MOV", "CS2R", "S2R", "S2UR", "NOP", "BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET",
          "LD", "ST", "BAR", "WARPSYNC", "DEPBAR", "YIELD", "P2R", "R2P", "PLOP3", "RED", "ATOM",
-         "MEMBAR", "ERRBAR", "CCTL", "BPT", "BMOV", "KILL", "NANOSLEEP", "VOTE", "SHFL", "PRMT")
+         "MEMBAR", "ERRBAR", "CCTL", "BPT", "BMOV", "KILL", "NANOSLEEP", "VOTE", "PRMT")
 _CONV = ("I2F", "F2I", "F2F", "FRND", "FLO", "POPC", "BREV")
-CLASSES = ("fp32", "alu", "imad", "xu")
+CLASSES = ("fp32", "alu", "imad", "xu", "shfl")
 # issue rate per SM and clock of each class (operations for fp32)
-RATE_PER_SM_CLOCK = {"fp32": 256, "alu": 64, "imad": 64, "xu": 16}
+RATE_PER_SM_CLOCK = {"fp32": 256, "alu": 64, "imad": 64, "xu": 16, "shfl": 32}
 
 
 def functions(sass: str) -> dict:
@@ -104,6 +110,8 @@ def classify(op: str, args) -> tuple:
         return "fp32", 1
     if base == "MUFU" or base in _CONV:
         return "xu", 1
+    if base == "SHFL":
+        return "shfl", 1
     return "alu", 1
 
 
@@ -230,19 +238,44 @@ def lib_functions(lib_path) -> dict:
 
 
 def step_ops(lib_path, kernels) -> dict:
+    """``instance_counts`` of the listing of ``cuobjdump -sass lib_path``."""
+    return instance_counts(lib_functions(lib_path), kernels, str(lib_path))
+
+
+def lanes_of(instance) -> int:
+    """The lanes per env of a ``STEP_INSTANCES`` entry: G for a name
+    ending in ``@lanesG``, else 1."""
+    mark = instance.partition("@")[2]
+    if not mark.startswith("lanes"):
+        return 1
+    lanes = int(mark[len("lanes"):])
+    if lanes < 1 or 32 % lanes:
+        raise ValueError(f"{instance!r}: a lane group must divide the warp")
+    return lanes
+
+
+def instance_counts(funcs, kernels, where="the listing") -> dict:
     """``{kernel: loop_counts(...)}`` for each kernel whose mangled name
-    holds the given substring, from ``cuobjdump -sass lib_path``; a
-    substring ending in ``#2`` counts the second loop, one ending in
-    ``@inner`` the main loop's nested loop apart (``loop_counts``)."""
-    funcs = lib_functions(lib_path)
+    holds the given substring, in ``funcs`` (``functions()``); a substring
+    ending in ``#2`` counts the second loop, one ending in ``@inner`` the
+    main loop's nested loop apart (``loop_counts``), one ending in
+    ``@lanesG`` a lane-group kernel: its counts are per env-step, G times
+    a lane's, which ``per_lane`` keeps beside ``lanes``."""
     out = {}
     for k in kernels:
         sub, _, nested = k.partition("@")
         sub, mark, _ = sub.partition("#")
         names = [f for f in funcs if sub in f]
         if len(names) != 1:
-            raise ValueError(f"{sub!r} matches {len(names)} functions of {lib_path}")
-        out[k] = loop_counts(funcs[names[0]], second=bool(mark), inner=nested == "inner")
+            raise ValueError(f"{sub!r} matches {len(names)} functions of {where}")
+        counts = loop_counts(funcs[names[0]], second=bool(mark), inner=nested == "inner")
+        lanes = lanes_of(k)
+        if lanes > 1:
+            counts["lanes"] = lanes
+            counts["per_lane"] = {key: counts[key] for key in ("always", "conditional")}
+            for key in ("always", "conditional"):
+                counts[key] = {c: lanes * n for c, n in counts[key].items()}
+        out[k] = counts
     return out
 
 
@@ -333,13 +366,19 @@ STEP_INSTANCES = {
     # <FINITE, MECH, NREF, SAT> (<FINITE, MECH, SAT> for the buffer kernels),
     # linear: Cont-SC-SRM-v0 (0, 1, 1, 0) for each kernel, and
     # Finite-CC-SRM-v0 (1, 0, 3, 0), Finite-TC-SRM-v0 (1, 0, 1, 0) and
-    # Finite-SC-SRM-v0 (1, 1, 1, 0) for the random ones
+    # Finite-SC-SRM-v0 (1, 1, 1, 0) for the random ones.  At constant speed
+    # (the CC and TC ids) the random rollout runs srm_rollout_lanes_kernel
+    # <FINITE, NREF, SAT>, four lanes an env (@lanes4: the count a step
+    # issues); the one-thread instances of those two ids are built but never
+    # launched, and count the function's own work
     "fused_srm": {
         "srm_rollout_random": "srm_rollout_random_kernelILb0ELb1ELi1ELb0E",
         "srm_rollout_buffer": "srm_rollout_buffer_kernelILb0ELb1ELb0E",
         "srm_rollout_random/Finite-CC-SRM-v0": "srm_rollout_random_kernelILb1ELb0ELi3ELb0E",
         "srm_rollout_random/Finite-TC-SRM-v0": "srm_rollout_random_kernelILb1ELb0ELi1ELb0E",
         "srm_rollout_random/Finite-SC-SRM-v0": "srm_rollout_random_kernelILb1ELb1ELi1ELb0E",
+        "srm_rollout_lanes/Finite-CC-SRM-v0": "srm_rollout_lanes_kernelILb1ELi3ELb0E@lanes4",
+        "srm_rollout_lanes/Finite-TC-SRM-v0": "srm_rollout_lanes_kernelILb1ELi1ELb0E@lanes4",
     },
     "fused_srm_record": {
         "srm_record_random": "srm_record_random_kernelILb0ELb1ELi1ELb0E",
