@@ -77,7 +77,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
             of the 4 kernels against its plain version at 16384 envs x 64
             steps (timed on Cont-SC-ShuntDc-v0, the instance the bounds
             count); the two random kernels again at 1024 steps on
-            Finite-CC-PermExDc-v0 and Cont-SC-ShuntDc-v0
+            Finite-CC-PermExDc-v0 and Cont-SC-ShuntDc-v0; dc_rollout_random
+            (warp-specialised) bit for bit (error 0 in every env) in all of
+            those runs, and again on every id with constant references
 19.-21. the slice-4 main path, counted from zero:
    19. dc_env  for each id, the port's env (VectorEnv's reset, the env's
             step without autoreset, constant references, an action buffer,
@@ -94,7 +96,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
             Cont-SC-ShuntDc-v0; the random recorder at 1024 steps on both
             ids (GB/s); the general path (VectorEnv.rollout, the random
             policy of the action space) on Cont-SC-SeriesDc-v0 at 200 steps;
-            the launches of phases 19-21 must be exactly what they make
+            for each rollout its reset share, design (warp-specialised with
+            Wiener references, one thread per env with constant ones) and,
+            warp-specialised, roles, ring (K, slots, words, shared-memory
+            bytes), registers and both roles' counts, and its issue bound
+            beside the one-thread bound; the launches of phases 19-21 must
+            be exactly what they make
 22. induction_kernels  slice 5, the universal induction family
             (csrc/fused_induction.cu, csrc/fused_induction_record.cu): for
             each of the 6 {Finite, Cont} x {CC, TC, SC} SCIM ids, each of
@@ -126,7 +133,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
             the 4 kernels against its plain version at 16384 envs x 64
             steps (timed on Cont-SC-EESM-v0, the instance the bounds count);
             the two random kernels again at 1024 steps on Finite-CC-EESM-v0
-            and Cont-SC-EESM-v0
+            and Cont-SC-EESM-v0; eesm_rollout_random (warp-specialised) bit
+            for bit (error 0 in every env) in all of those runs, and again
+            on every id with constant references
 27.-29. the slice-6 main path, counted from zero:
    27. eesm_env  for each id, the port's env (VectorEnv's reset, the env's
             step without autoreset, constant references, an action buffer,
@@ -140,12 +149,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
             their limits, and the share of env-steps that reset
    29. eesm_timings  at 16384 envs: the random rollout at 65536 steps on
             Finite-CC-EESM-v0 (bench.py:773-775), Cont-TC-EESM-v0 and
-            Cont-SC-EESM-v0; the random recorder at 1024 steps on
+            Cont-SC-EESM-v0, and on Finite-CC-EESM-v0 with constant
+            references; the random recorder at 1024 steps on
             Finite-CC-EESM-v0 and Cont-SC-EESM-v0 (11 and 12 planes, GB/s);
-            each with its share of env-steps that reset; the general path
-            (VectorEnv.rollout, the random policy of the action space) on
-            Cont-SC-EESM-v0 at 200 steps; the launches of phases 27-29 must
-            be exactly what they make
+            each with its share of env-steps that reset, and for the rollout
+            its design, roles, ring, registers and issue bound as phase
+            21's; the
+            general path (VectorEnv.rollout, the random policy of the action
+            space) on Cont-SC-EESM-v0 at 200 steps; the launches of phases
+            27-29 must be exactly what they make
 30. dfim_kernels  slice 7, the universal DFIM family (csrc/fused_dfim.cu,
             csrc/fused_dfim_record.cu): for each of the 6 {Finite, Cont} x
             {CC, TC, SC} DFIM ids, each of the 4 kernels against its plain
@@ -319,7 +331,9 @@ an env matches when all its outputs agree at rtol 1e-4 / atol 1e-4; at
 least 99.9% of envs must match (a constraint-threshold flip sends an env
 down another branch) and the mean reward must agree to 1e-4 relative.
 Angles are compared modulo 2 pi.  The specialised kernels (phase 46) must
-equal their plain versions bit for bit in every env, both modes.
+equal their plain versions bit for bit in every env, both modes, and so
+must the DC, EESM and SRM random rollouts (phases 18, 26 and 34) and the
+SRM cascade (phase 43).
 
 Bounds (bound_ms): the larger of the bytes moved (each input read once,
 each output written once) over 3.35 TB/s and, for each issue pipe, the
@@ -331,7 +345,12 @@ warp shuffles at 32).  At constant speed the SRM random rollout runs an
 env on four lanes (tools/sass_ops.py's @lanes4); its bound counts the
 function's own work, the one-thread step of the same instance (built for
 the count, never launched), and phase 37 prints the issue bound of four
-lanes' counts beside it.
+lanes' counts beside it.  The DC and EESM random rollouts run
+warp-specialised with Wiener references (tools/sass_ops.py's @ws2 and
+@ws4); their bound counts the one-thread step of the same instance (its
+Wiener loop built for the count, never run), and phases 21 and 29 print the
+issue bound of both roles' counts per env-step beside it.  Shared-memory accesses and barriers (the smem and bar
+pipes, LAYOUT_PIPES) count only in issue bounds.
 They leave out the blocks a step runs only sometimes (reference
 regeneration, the reset draws of a violation, the slow paths of sqrtf and
 sincosf), so each bound is a lower bound; the build phase prints both
@@ -454,18 +473,29 @@ SMS, CLOCK, HBM = 132, 1.98e9, 3.35e12
 # The lane-group kernels (tools/sass_ops.py's @lanes4 entries): lanes per
 # env, registers (ptxas) and a lane's counts, filled by the build phase.
 LANE_KERNELS = {}
+# The warp-specialised kernels (tools/sass_ops.py's @ws entries): both
+# roles' counts per env-step, each role's own and registers (ptxas), filled
+# by the build phase; OPS is every instance's count per step.
+WS_KERNELS = {}
+OPS = {}
+# Shared-memory accesses and barriers are a kernel's layout, not the
+# function's work: a bound of the function's own work leaves them out (an
+# issue bound counts them).
+LAYOUT_PIPES = ("smem", "bar")
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(env_steps, ops, nbytes):
+def bound_ms(env_steps, ops, nbytes, pipes=None):
     """Least time for ``env_steps`` steps of ``ops`` (per step and pipe, as
-    tools/sass_ops.py counts them) moving ``nbytes``."""
+    tools/sass_ops.py counts them) moving ``nbytes``.  ``pipes`` (default:
+    all but LAYOUT_PIPES) are the pipes that count."""
     from sass_ops import RATE_PER_SM_CLOCK
 
-    t_ops = max(env_steps * n / (SMS * CLOCK * RATE_PER_SM_CLOCK[k]) for k, n in ops.items())
+    pipes = pipes or [k for k in ops if k not in LAYOUT_PIPES]
+    t_ops = max(env_steps * ops[k] / (SMS * CLOCK * RATE_PER_SM_CLOCK[k]) for k in pipes)
     t_bytes = nbytes / HBM
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -481,7 +511,7 @@ def ptxas_registers(log):
     return regs
 
 
-def lane_fields(key, env_steps, nbytes, ms):
+def lane_fields(key, env_steps, nbytes, ms, _c=None):
     """The lane fields of a timed SRM random rollout (phase 37): its lanes
     per env and, on lane groups (the constant-speed ids), registers, a
     lane's counts and the issue bound of four lanes' counts, work that
@@ -490,10 +520,57 @@ def lane_fields(key, env_steps, nbytes, ms):
     info = LANE_KERNELS.get(key.replace("srm_rollout_random", "srm_rollout_lanes", 1))
     if info is None:
         return {"lanes": 1}
-    i_ms = bound_ms(env_steps, info["ops"], nbytes)[0]
+    i_ms = bound_ms(env_steps, info["ops"], nbytes, list(info["ops"]))[0]
     return {"lanes": info["lanes"], "registers": info["registers"],
             "ops_per_lane_step": info["per_lane"], "issue_ops_per_step": info["ops"],
             "issue_bound_ms": i_ms, "issue_bound_share": i_ms / ms}
+
+
+def ring_layout(lib, prefix, c):
+    """The random rollout's design and ring for ``c``'s instance and loop,
+    from the library itself (csrc/draw_ring.cuh's RingLayout)."""
+    import ctypes
+
+    fn = getattr(lib, f"{prefix}_ring_layout")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    out = (ctypes.c_int * 7)()
+    if fn(c.flags.ctypes.data, out) != 0:
+        raise AssertionError(f"{prefix}_ring_layout refused the flags {list(c.flags)}")
+    return dict(zip(("consumer_warps", "producer_warps", "K", "slots", "words", "smem_bytes",
+                     "design"), out))
+
+
+DESIGNS = {0: "warp-specialised", 1: "one thread per env",
+           2: "one thread per env, the next step's draws ahead"}
+
+
+def design_fields(key, env_steps, nbytes, ms, c):
+    """The fields of a timed DC or EESM random rollout (phases 21 and 29):
+    the design its launch takes and, warp-specialised (Wiener references),
+    its roles and ring (K steps a slot, two slots, words a step,
+    shared-memory bytes), registers (one allocation for both roles: no
+    setmaxnreg), each role's counts and the issue bound of both roles'
+    counts per env-step, every pipe included, with its share; one thread
+    per env (constant references), the issue bound of the loop it runs.
+    The row's bound_ms stays the one-thread step's, the function's own
+    work, repeated here as one_thread_bound_ms."""
+    from gym_electric_motor_tpu_torch.ops import cuda_build
+
+    prefix = key.split("_", 1)[0]
+    layout = ring_layout(cuda_build.load(f"fused_{prefix}"), prefix, c)
+    out = {"design": DESIGNS[layout["design"]],
+           "one_thread_bound_ms": bound_ms(env_steps, OPS[key], nbytes)[0]}
+    if layout["design"] == 0:
+        info = WS_KERNELS[key.replace("_rollout_random", "_rollout_ws", 1)]
+        issue = info["ops"]
+        out.update(ring=layout, role_ops=info["roles"],
+                   registers={"consumer": info["registers"], "producer": info["registers"]})
+    else:
+        issue = OPS[key.replace("_rollout_random", "_rollout_ahead", 1)
+                    if layout["design"] == 2 else key]
+    i_ms = bound_ms(env_steps, issue, nbytes, list(issue))[0]
+    out.update(ops_per_env_step=issue, issue_bound_ms=i_ms, issue_bound_share=i_ms / ms)
+    return out
 
 
 def card_line():
@@ -613,6 +690,12 @@ def run(dev, card):
         ops.update({k: c[v]["always"] for k, v in instances.items()})
         regs = ptxas_registers(cuda_build.BUILD_LOG.get(lib, ""))
         for k, v in instances.items():
+            if "ws_steps" in c[v]:
+                sub = v.partition("@")[0].partition("#")[0]
+                WS_KERNELS[k] = {"ops": c[v]["always"], "ws_steps": c[v]["ws_steps"],
+                                 "roles": {r: x["always"] for r, x in c[v]["roles"].items()},
+                                 "registers": next((r for f, r in regs.items() if sub in f),
+                                                   None)}
             if "lanes" in c[v]:
                 sub = v.partition("@")[0]
                 LANE_KERNELS[k] = {"lanes": c[v]["lanes"], "per_lane": c[v]["per_lane"]["always"],
@@ -625,9 +708,10 @@ def run(dev, card):
     emit({"phase": "build", "seconds": build_s, "nvcc_seconds": cuda_build.BUILD_LOG.get("seconds"),
           "sass_seconds": sass_s, "ptxas": ptxas,
           "ops_per_step": {k: {key: v[key] for key in ("always", "conditional", "inner", "lanes",
-                                                       "per_lane") if key in v}
+                                                       "per_lane", "roles", "ws_steps") if key in v}
                            for k, v in counts.items()},
-          "lane_kernels": LANE_KERNELS})
+          "lane_kernels": LANE_KERNELS, "ws_kernels": WS_KERNELS})
+    OPS.update(ops)
 
     R = N_ENVS // 128
     env = gt.make_functional("Finite-CC-PMSM-v0", device=dev)
@@ -1166,6 +1250,41 @@ def held_random(torch, label, name, got, ref, angle, worst, share):
             "mean_reward_rel_err": rel}
 
 
+def hold_bit_equal(torch, gt, rg, dev, fam, ids, refs_of, worst, share):
+    """A warp-specialised random rollout (``<fam.prefix>_rollout_random``)
+    against its plain version bit for bit: compare_family_kernels' runs
+    (the catalog's Wiener references on every id, and the deep runs) must
+    have found error 0 in every env, and the rollout runs again on every id
+    with the constant references ``refs_of(env_id)`` (the loop without the
+    reference advance), every output equal, or NaN in both.  Emits one line;
+    raises otherwise."""
+    name = f"{fam.prefix}_rollout_random"
+    if worst[name] != 0.0 or share[name] != 1.0:
+        raise AssertionError(f"{name}: max abs err {worst[name]}, {share[name]} of envs match "
+                             "(need 0 and 1)")
+    kern, plain = getattr(fam.mod, name), getattr(fam.mod, name + "_plain")
+    for env_id in ids:
+        env = gt.make_functional(env_id, device=dev, reference_generator=rg.ReferenceSpec(
+            [rg.ConstReference(n, v) for n, v in refs_of(env_id)]))
+        c = fam.consts(env)
+        if not c.all_const:
+            raise AssertionError(f"{env_id}: the constant references did not make all_const")
+        start = fam.planes(c)
+        got = kern(c, SEED, start, T_SYNC_COMPARE)
+        torch.cuda.synchronize()
+        ref = plain(c, SEED, start, T_SYNC_COMPARE)
+        for j, (x, y) in enumerate(zip(got, ref)):
+            same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+            if not bool(same.all()):
+                raise AssertionError(f"{env_id} {name}, constant references: output {j} differs "
+                                     f"in {int((~same).sum())} elements")
+        del got, ref
+    emit({"phase": f"{fam.prefix}_kernels_bit_equal", "kernel": name, "ids": len(ids),
+          "wiener": {"max_abs_err": worst[name], "match_share": share[name]},
+          "const": {"envs": N_ENVS, "steps": T_SYNC_COMPARE, "max_abs_err": 0.0,
+                    "match_share": 1.0}})
+
+
 def compare_family_kernels(torch, gt, dev, fam, ids, timed_id, deep_ids, ops, env_kw=None):
     """A universal family's four kernels (``fam.mod``, named
     ``<fam.prefix>_<mode>``) against their plain versions on every id of
@@ -1552,6 +1671,13 @@ def run_dc(dev, card, ops):
     worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.DC_ENV_IDS, DC_TIMED,
                                                  (DC_BENCH, DC_TIMED), ops)
 
+    def dc_const_refs(env_id):
+        _a, task, motor, _v = env_id.split("-")
+        return DC_CONST_REFS[task][motor] if task == "CC" else DC_CONST_REFS[task]
+
+    # the warp-specialised random rollout, bit for bit on every id
+    hold_bit_equal(torch, gt, rg, dev, fam, gt.DC_ENV_IDS, dc_const_refs, worst, share)
+
     # ---- 19.-21. the main path: counts from zero ---------------------------
     fs.reset_launches()
     fp.reset_launches()
@@ -1564,12 +1690,9 @@ def run_dc(dev, card, ops):
 
     # 19. the env against the buffer kernels, through the dispatch
     # (rtol 1e-4 / atol 1e-3, tests/test_pallas_dc_universal.py:83-85)
-    env_rows = {}
-    for env_id in gt.DC_ENV_IDS:
-        _a, task, motor, _v = env_id.split("-")
-        refs = DC_CONST_REFS[task][motor] if task == "CC" else DC_CONST_REFS[task]
-        env_rows[env_id] = env_vs_buffer_kernels(torch, gt, rg, fr, frec, dev, fam, env_id, refs,
-                                                 1e-3)
+    env_rows = {env_id: env_vs_buffer_kernels(torch, gt, rg, fr, frec, dev, fam, env_id,
+                                              dc_const_refs(env_id), 1e-3)
+                for env_id in gt.DC_ENV_IDS}
     emit({"phase": "dc_env", "envs": N, "steps": T_SYNC_ENV, "ids": env_rows})
 
     # 20. the dispatch: exactly one launch of each random kernel per id
@@ -1630,7 +1753,11 @@ def run_dc(dev, card, ops):
                                  dc_bytes(c, "dc_rollout_random", N, T_ROLLOUT))[0],
             "mean_reward": float(out[c.n_state].double().sum()) / (N * T_ROLLOUT),
             "term_rate": float(out[c.n_state + 1].double().sum()) / (N * T_ROLLOUT),
+            "reset_share": float(out[c.n_state + 1].double().sum()) / (N * T_ROLLOUT),
             "finite": all(bool(torch.isfinite(x).all()) for x in out)}}
+        row["dc_rollout_random"].update(design_fields(
+            "dc_rollout_random" + key, N * T_ROLLOUT, dc_bytes(c, "dc_rollout_random", N, T_ROLLOUT),
+            r_ms, c))
         if not row["dc_rollout_random"]["finite"]:
             raise AssertionError(f"{label}: the 65536-step rollout produced non-finite values")
         if not label.endswith("const_i_0.3"):
@@ -1692,7 +1819,7 @@ def run_dc(dev, card, ops):
 
 
 def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids, record_ids,
-                     ops, others, dispatch_checks, annotate=None):
+                     ops, others, dispatch_checks, annotate=None, const_timed=()):
     """The main path of a universal family (the induction, EESM, DFIM and
     SRM slices), its launches counted from zero: the env against both
     buffer kernels on every id of ``ids`` (constant references
@@ -1703,8 +1830,10 @@ def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids
     at T_ROLLOUT steps on ``timed_ids``, the random recorder at T_RECORD on
     ``record_ids``, each with its share of env-steps that reset, and the
     general path on the last of ``timed_ids`` (the instance the bounds
-    count); ``annotate(key, env_steps, nbytes, ms)`` adds fields to each
-    timed rollout's row.  Returns the family's launches on the path and the
+    count); ``annotate(key, env_steps, nbytes, ms, c)`` adds fields to each
+    timed rollout's row; ``const_timed`` holds ``(id, references)`` whose
+    rollout is timed again with those constant references (key
+    ``/<id>/const``).  Returns the family's launches on the path and the
     timings."""
     from gym_electric_motor_tpu_torch import references as rg
     from gym_electric_motor_tpu_torch.ops import fused_record as frec
@@ -1766,11 +1895,13 @@ def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids
 
     # timings at the bench width; the share of env-steps that reset
     timings = {}
-    for env_id in timed_ids:
-        env = gt.make_functional(env_id, device=dev)
+    timed = [(env_id, None) for env_id in timed_ids] + list(const_timed)
+    for env_id, refs in timed:
+        env = gt.make_functional(env_id, device=dev, **({} if refs is None else {
+            "reference_generator": rg.ReferenceSpec([rg.ConstReference(n, v) for n, v in refs])}))
         c = fam.consts(env)
         z = [torch.zeros((R, 128), device=dev) for _ in range(c.n_state)]
-        key = "" if env_id == timed_id else "/" + env_id
+        key = ("" if env_id == timed_id else "/" + env_id) + ("" if refs is None else "/const")
         roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
         r_ms, out = cuda_ms(torch, lambda: roll(SEED, *z), reps=SYNC_REPS)
         row = {rollout: {
@@ -1782,10 +1913,10 @@ def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids
             "finite": all(bool(torch.isfinite(x).all()) for x in out)}}
         if annotate:
             row[rollout].update(annotate(rollout + key, N * T_ROLLOUT,
-                                         fam.nbytes(c, rollout, N, T_ROLLOUT), r_ms))
+                                         fam.nbytes(c, rollout, N, T_ROLLOUT), r_ms, c))
         if not row[rollout]["finite"]:
             raise AssertionError(f"{env_id}: the 65536-step rollout produced non-finite values")
-        if env_id in record_ids:
+        if env_id in record_ids and refs is None:
             rec = frec.make_fused_record_rollout(env, T_RECORD, N)
             c_ms, rec_out = cuda_ms(torch, lambda: rec(SEED, *z), reps=SYNC_REPS)
             rec_bytes = sum(x.numel() * x.element_size() for x in rec_out.values())
@@ -1797,7 +1928,7 @@ def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids
                                      fam.nbytes(c, record, N, T_RECORD))[0],
                 "reset_share": float(rec_out["done"].double().mean())}
             del rec_out
-        timings[env_id] = row
+        timings[env_id + ("" if refs is None else "/const")] = row
         del out
     env = gt.make_functional(timed_id, device=dev)
     venv = gt.VectorEnv(env, N)
@@ -1826,7 +1957,7 @@ def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids
     # each id once through the env check (buffer) and the dispatch (random);
     # cuda_ms calls twice before its reps
     n_ids, per_timing = len(ids), 2 + SYNC_REPS
-    want = {rollout: n_ids + len(timed_ids) * per_timing,
+    want = {rollout: n_ids + len(timed) * per_timing,
             record: n_ids + len(record_ids) * per_timing,
             f"{pre}_rollout_buffer": n_ids, f"{pre}_record_buffer": n_ids}
     if launches != want or others_launched():
@@ -1912,6 +2043,7 @@ def run_eesm(dev, card, ops):
     import torch
 
     import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch import references as rg
     from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
     from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef
     from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
@@ -1948,6 +2080,9 @@ def run_eesm(dev, card, ops):
         env_action=lambda c, a: a.reshape(c.n_act, N).T.contiguous())
     worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.EESM_ENV_IDS, EESM_TIMED,
                                                  (EESM_BENCH, EESM_TIMED), ops)
+    # the warp-specialised random rollout, bit for bit on every id
+    hold_bit_equal(torch, gt, rg, dev, fam, gt.EESM_ENV_IDS,
+                   lambda env_id: EESM_CONST_REFS[env_id.split("-")[1]], worst, share)
 
     # ---- 27.-29. the main path: counts from zero ---------------------------
     # 27. the env against the buffer kernels (rtol 1e-4 / atol 2e-3, angles
@@ -1966,7 +2101,8 @@ def run_eesm(dev, card, ops):
     launches, timings = family_main_path(
         torch, gt, dev, card, fam, gt.EESM_ENV_IDS, EESM_CONST_REFS, 2e-3,
         (EESM_BENCH, EESM_TC, EESM_TIMED), (EESM_BENCH, EESM_TIMED), ops,
-        (fs, fp, sf, dcf, indf), in_limits)
+        (fs, fp, sf, dcf, indf), in_limits, design_fields,
+        ((EESM_BENCH, EESM_CONST_REFS["CC"]),))
 
     # ---- kernels line rows ---------------------------------------------------
     replaces = {"eesm_rollout_random": "gym_electric_motor_tpu/ops/pallas_eesm.py:902",

@@ -11,29 +11,57 @@
 //   dc_rollout_random  pallas_dc.py  make_fused_dc_rollout, random mode (:1266)
 //   dc_rollout_buffer  pallas_dc.py  make_fused_dc_rollout, buffer mode (:1240)
 //
-// Design: one thread per env, the drive state and the reference rows in
-// registers across an in-kernel loop over T steps.  Random bits come from
-// Philox4x32-10 keyed by the seed and counted by (env, step, slot).
-// Templates: FINITE, MECH (constant speed or the polynomial load's speed
-// ODE), MC (the motor class) and NREF (1 or 2 reference rows; 2 only for
-// ExtExDc at constant speed): 14 random and 12 buffer instances.  A random
-// kernel holds two loops, with and without the reference advance, and takes
-// the second when every reference is constant.  Built with -fmad=false
-// (ops/cuda_build.py), so each multiply and add rounds as in the plain
-// PyTorch version.
+// Design.  Templates: FINITE, MECH (constant speed or the polynomial
+// load's speed ODE), MC (the motor class) and NREF (1 or 2 reference rows;
+// 2 only for ExtExDc at constant speed): 14 random and 12 buffer
+// instances.  The drive state and the reference rows stay in registers
+// across an in-kernel loop over T steps.  Random bits come from
+// Philox4x32-10 keyed by the seed and counted by (env, step, slot).  The one-thread
+// random kernel holds two loops, with and without the reference advance,
+// and takes the second when every reference is constant.  Built with
+// -fmad=false (ops/cuda_build.py), so each multiply and add rounds as in
+// the plain PyTorch version.
 //
-// What bounds it on this card: the kernels move only the initial and final
-// state (plus 4 or 8 bytes of action per env-step in buffer mode), so they
-// are bound by the operations of a step: RK4 over one or two currents (and
-// the speed, with the load's torque), the converter selects, and in random
-// mode Philox's integer multiplies and xors and the non-fast-math logf,
-// cosf and sinf of the Box-Muller pair; tools/sass_ops.py counts the
-// instructions a step always issues, per pipe, from the SASS, and
-// chip_smoke.py takes its bounds from that count.  Every step loop is
-// `#pragma unroll 1`, so that one loop iteration is one step in the count.
+// What bounded the one-thread random rollout on this card (PERF.md): its
+// loop moves nothing, so the operations of a step bound it, and it reached
+// 10% to 18% of that bound.  At 16384 envs one thread per env is 128
+// blocks of four warps, one warp per scheduler, so nothing hid a
+// dependent instruction's latency; and the blocks a step ran only when one
+// of the warp's 32 envs needed them (the Box-Muller pair, the PARAMS draw
+// with floorf and expf after a regeneration, the RESET draw after a
+// violation) were larger than the step itself and sat on its dependent
+// chain: at 3.6% of env-steps resetting, about 69% of warp-steps took
+// them, at 33% all of them.  None of that work depends on the state.
+//
+// With Wiener references the random rollout is warp-specialised
+// (draw_ring.cuh): four consumer warps run the step, one thread per env,
+// and eight producer warps draw, in a double-buffered shared-memory ring of
+// K = 4 steps a slot, every value of a step that depends on the constants
+// alone: the sampled action (one word per converter channel) and per row
+// the Box-Muller draw, the candidate length and sigma (PARAMS) and the
+// candidate reset value (RESET), 5 to 10 words a step.  Two producer warps
+// per consumer warp, each drawing two steps of a slot: with one, the
+// consumers waited on the producers (PERF.md).  The consumer takes the
+// candidates by selects.  A block is 128 envs on twelve warps, three per
+// scheduler at 16384 envs.  With constant references a step draws only its
+// action, and the launch takes the one-thread kernel, whose loop ran as
+// fast as the warp-specialised one's and as one thread with the next
+// step's action drawn ahead.  The same functions on the same operands make
+// every design equal to the plain version bit for bit.
+//
+// tools/sass_ops.py counts the instructions a step always issues, per
+// pipe, from the SASS.  chip_smoke.py takes its bounds from the one-thread
+// step of the same instance, the function's own work (the one-thread
+// kernel's Wiener loop is built for that count and never run); beside it,
+// the count of both roles per env-step (the consumer's step plus a
+// producer's two steps over two), what the warp-specialised kernel
+// issues.  Every step loop is `#pragma unroll 1` and a producer's slot
+// loop unrolls exactly its steps, so that one loop iteration is one step,
+// or two, in the count.
 #include <cuda_runtime.h>
 
 #include "dc_step.cuh"
+#include "draw_ring.cuh"
 
 namespace {
 
@@ -86,6 +114,130 @@ __global__ void dc_rollout_random_kernel(DcConst k, uint2 key, int n, int n_step
   }
 }
 
+// ---- the warp-specialised random rollout ------------------------------
+
+// The ring of every instance: K = 4 steps a slot, two producer warps per
+// consumer warp, each drawing two steps of a slot (PERF.md: one producer
+// warp per consumer warp left the consumers waiting on the producers).
+using DcRing = RingShape<4, 2>;
+
+// Ring words a step: the action (one word per converter channel: a finite
+// action or a continuous one's bits), then kRefWords per reference row
+// (draw_ring.cuh).
+template <int MC, int NREF>
+__host__ __device__ constexpr int dc_ring_words() {
+  return (MC == MC_EXTEX ? 2 : 1) + kRefWords * NREF;
+}
+
+// What step t draws, whatever the state: the action and the reference
+// rows' candidates.
+template <int NREF>
+struct DcDraws {
+  DcAction a;
+  RefCandidates<NREF> c;
+};
+
+template <bool FINITE, int MC, int NREF>
+__device__ __forceinline__ DcDraws<NREF> dc_draws(const DcConst& k, uint2 key, uint32_t env,
+                                                 uint32_t t, bool odd, float& zb) {
+  DcDraws<NREF> d;
+  const uint4 w = drive_draw(key, env, t, DRIVE_SLOT_STEP);
+  d.a = dc_sample<FINITE, MC>(k, w);
+  d.c = ref_candidates<NREF>(k.ref, key, env, t, w, odd, zb);
+  return d;
+}
+
+template <bool FINITE, int MC, int NREF>
+__device__ __forceinline__ RingWords<dc_ring_words<MC, NREF>()> dc_pack(const DcDraws<NREF>& d) {
+  RingWords<dc_ring_words<MC, NREF>()> x;
+  x.w[0] = FINITE ? (uint32_t)d.a.a0 : __float_as_uint(d.a.f0);
+  if (MC == MC_EXTEX) x.w[1] = FINITE ? (uint32_t)d.a.a1 : __float_as_uint(d.a.f1);
+  pack_refs<NREF>(d.c, MC == MC_EXTEX ? 2 : 1, x);
+  return x;
+}
+
+template <bool FINITE, int MC, int NREF>
+__device__ __forceinline__ DcDraws<NREF> dc_unpack(const RingWords<dc_ring_words<MC, NREF>()>& x) {
+  DcDraws<NREF> d;
+  d.a.a0 = d.a.a1 = 0;
+  d.a.f0 = d.a.f1 = 0.0f;
+  if (FINITE) {
+    d.a.a0 = (int)x.w[0];
+    if (MC == MC_EXTEX) d.a.a1 = (int)x.w[1];
+  } else {
+    d.a.f0 = __uint_as_float(x.w[0]);
+    if (MC == MC_EXTEX) d.a.f1 = __uint_as_float(x.w[1]);
+  }
+  d.c = unpack_refs<NREF>(x, MC == MC_EXTEX ? 2 : 1);
+  return d;
+}
+
+// What depends on the state: dc_random_step with the step's draws given.
+template <bool FINITE, bool MECH, int MC, int NREF>
+__device__ __forceinline__ void dc_draw_step(const DcConst& k, const DcDraws<NREF>& d,
+                                             DcState& x, RefRows<NREF>& refs, float& reward,
+                                             float& terms) {
+  const DcStepOut o = dc_action_step<FINITE, MECH, MC, NREF>(k, d.a, x, refs);
+  reward += o.reward;
+  terms += o.done;
+  ref_advance_candidates<NREF>(k.ref, d.c, o.done != 0.0f, refs);
+}
+
+// One role of the warp-specialised kernel over the launch's steps.
+template <bool FINITE, bool MECH, int MC, int NREF>
+__device__ __forceinline__ void dc_ws_role(const DcConst& k, uint2 key, const RingThread& th,
+                                           int n_steps, uint32_t* column, DcState& x,
+                                           RefRows<NREF>& refs, float& reward, float& terms) {
+  constexpr int W = dc_ring_words<MC, NREF>();
+  const RingPipe<DcRing> pipe(n_steps);
+  const RingView<W> v{column};
+  const uint32_t env = (uint32_t)th.e;
+  if (th.consumer) {
+    ring_consume(pipe, v, n_steps, [&](const RingWords<W>& w) {
+      dc_draw_step<FINITE, MECH, MC, NREF>(k, dc_unpack<FINITE, MC, NREF>(w), x, refs, reward,
+                                           terms);
+    });
+  } else {
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool odd, float& zb) {
+      return dc_pack<FINITE, MC, NREF>(dc_draws<FINITE, MC, NREF>(k, key, env, t, odd, zb));
+    });
+  }
+}
+
+// The random rollout with Wiener references (with constant ones the
+// launch takes dc_rollout_random_kernel).
+template <bool FINITE, bool MECH, int MC, int NREF>
+__global__ void __launch_bounds__(DcRing::kThreads)
+    dc_rollout_ws_kernel(DcConst k, uint2 key, int n, int n_steps, const float* __restrict__ w0,
+                         const float* __restrict__ i00, const float* __restrict__ i10,
+                         float* __restrict__ out_w, float* __restrict__ out_i0,
+                         float* __restrict__ out_i1, float* __restrict__ out_reward,
+                         float* __restrict__ out_terms, float* __restrict__ out_rv,
+                         float* __restrict__ out_rk, float* __restrict__ out_rl,
+                         float* __restrict__ out_rs) {
+  extern __shared__ uint32_t ring[];
+  const RingThread th = ring_thread(n);
+  uint32_t* const column = ring + th.le;
+  const int e = th.e;
+  DcState x = dc_load_state<MECH, MC>(w0, i00, i10, e);
+  RefRows<NREF> refs;
+  ref_wiener_init<NREF>(k.ref, key, (uint32_t)e, refs);
+  float reward = 0.0f, terms = 0.0f;
+  dc_ws_role<FINITE, MECH, MC, NREF>(k, key, th, n_steps, column, x, refs, reward, terms);
+  if (!th.consumer || !th.live) return;
+  dc_store_state<MECH, MC>(x, out_w, out_i0, out_i1, (size_t)e);
+  out_reward[e] = reward;
+  out_terms[e] = terms;
+  // final reference rows, (NREF * R, 128) planes: row 0 first
+#pragma unroll
+  for (int r = 0; r < NREF; ++r) {
+    out_rv[(size_t)r * n + e] = refs.rv[r];
+    out_rk[(size_t)r * n + e] = refs.rk[r];
+    out_rl[(size_t)r * n + e] = refs.rl[r];
+    out_rs[(size_t)r * n + e] = refs.rs[r];
+  }
+}
+
 template <bool FINITE, bool MECH, int MC>
 __global__ void dc_rollout_buffer_kernel(DcConst k, int n, int n_steps,
                                          const float* __restrict__ w0,
@@ -111,12 +263,28 @@ using RandomFn = void (*)(const DcConst&, uint2, int, int, const float* const*, 
 using BufferFn = void (*)(const DcConst&, int, int, const float* const*, const int*, const float*,
                           float* const*, cudaStream_t);
 
+// Wiener references run the warp-specialised kernel; constant ones, which
+// draw only the action, the one-thread kernel (its constant-reference loop
+// ran as fast as the warp-specialised one's and as one thread with the next
+// step's draws ahead, PERF.md).
 template <bool F, bool M, int MC, int NR>
 void launch_random(const DcConst& k, uint2 key, int n, int n_steps, const float* const* in,
                    float* const* out, cudaStream_t st) {
-  dc_rollout_random_kernel<F, M, MC, NR><<<blocks(n), kThreads, 0, st>>>(
-      k, key, n, n_steps, in[0], in[1], in[2], out[0], out[1], out[2], out[3], out[4], out[5],
-      out[6], out[7], out[8]);
+  if (k.ref.all_const) {
+    dc_rollout_random_kernel<F, M, MC, NR><<<blocks(n), kThreads, 0, st>>>(
+        k, key, n, n_steps, in[0], in[1], in[2], out[0], out[1], out[2], out[3], out[4], out[5],
+        out[6], out[7], out[8]);
+    return;
+  }
+  constexpr int bytes = ring_bytes<DcRing>(dc_ring_words<MC, NR>());
+  if (bytes > 48 * 1024) {
+    cudaFuncSetAttribute(dc_rollout_ws_kernel<F, M, MC, NR>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
+  dc_rollout_ws_kernel<F, M, MC, NR><<<(n + kRingEnvs - 1) / kRingEnvs, DcRing::kThreads, bytes,
+                                       st>>>(k, key, n, n_steps, in[0], in[1], in[2], out[0],
+                                             out[1], out[2], out[3], out[4], out[5], out[6],
+                                             out[7], out[8]);
 }
 
 template <bool F, bool M, int MC, int NR>
@@ -168,6 +336,21 @@ int dc_rollout_random(const float* consts, const int* flags, unsigned long long 
   kRandom[idx](dc_load_const(consts, flags), dc_seed_key(seed), n, n_steps, in, out,
                (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// The random rollout's ring for the instance and loop of these flags
+// (draw_ring.cuh's RingLayout), or RL_DESIGN 1 and the rest zero where the
+// launch runs one thread per env; cudaErrorInvalidValue for flags no
+// instance serves.
+int dc_ring_layout(const int* flags, int* out) {
+  const int idx = dc_instance(flags);
+  if (idx < 0 || kRandom[idx] == nullptr) return (int)cudaErrorInvalidValue;
+  if (flags[DF_ALL_CONST]) {
+    ring_layout_one_thread(1, out);
+    return 0;
+  }
+  ring_layout<DcRing>((flags[DF_MCLASS] == MC_EXTEX ? 2 : 1) + kRefWords * flags[DF_NREF], out);
+  return 0;
 }
 
 // actions: int32 (T, [2,] N) for a finite converter, float32 for a

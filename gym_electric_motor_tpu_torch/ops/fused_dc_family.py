@@ -13,7 +13,11 @@ written in CUDA carry the work on the GPU, over the shared step of
 ======================= ================================================
 ``dc_rollout_random``    T random-action steps, reduced to the final state,
                          reward sums, termination counts and the final
-                         reference rows (``csrc/fused_dc.cu``)
+                         reference rows (``csrc/fused_dc.cu``; with Wiener
+                         references producer warps draw each step's
+                         action and reference candidates into a
+                         shared-memory ring, ``csrc/draw_ring.cuh``, and
+                         consumer warps run the step)
 ``dc_rollout_buffer``    T steps of a given action buffer, deterministic
                          (``csrc/fused_dc.cu``)
 ``dc_record_random``     the random step, every step recorded

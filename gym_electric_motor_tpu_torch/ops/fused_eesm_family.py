@@ -12,7 +12,11 @@ written in CUDA carry the work on the GPU, over the shared step of
 ======================= ================================================
 ``eesm_rollout_random``  T random-action steps, reduced to the final state,
                          reward sums, termination counts and the final
-                         reference rows (``csrc/fused_eesm.cu``)
+                         reference rows (``csrc/fused_eesm.cu``; with Wiener
+                         references producer warps draw each step's
+                         action and reference candidates into a
+                         shared-memory ring, ``csrc/draw_ring.cuh``, and
+                         consumer warps run the step)
 ``eesm_rollout_buffer``  T steps of a given action buffer, deterministic
                          (``csrc/fused_eesm.cu``)
 ``eesm_record_random``   the random step, every step recorded

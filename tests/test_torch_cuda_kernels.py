@@ -637,3 +637,85 @@ def test_cuda_specialised_kernels_match_plain_versions(mod_name, env_id, consts,
         share = _close_share(got, want, N)
         assert share == 1.0 if name == buffer else share >= 0.99
     assert {k: v for k, v in mod.LAUNCHES.items() if v} == {random: 1, buffer: 1}
+
+
+# the warp-specialised DC and EESM random rollouts: (family, id, references);
+# every DC motor class, finite and continuous, at constant speed (ExtExDc's
+# CC id with two reference rows) and under the speed ODE, and all six EESM
+# ids, each with its Wiener references and with constant ones
+DC_EESM_CONST_REFS = {
+    "CC": {"PermExDc": [("i", 0.2)], "SeriesDc": [("i", 0.2)], "ShuntDc": [("i_a", 0.2)],
+           "ExtExDc": [("i_a", 0.2), ("i_e", 0.1)],
+           "EESM": [("i_sd", 0.1), ("i_sq", -0.2), ("i_e", 0.3)]},
+    "TC": [("torque", 0.3)], "SC": [("omega", 0.2)]}
+WS_BIT_CASES = ([("dc", f"{conv}-{task}-{motor}-v0", refs)
+                 for motor in ("PermExDc", "SeriesDc", "ShuntDc", "ExtExDc")
+                 for conv in ("Finite", "Cont") for task in ("CC", "SC")
+                 for refs in ("wiener", "const")]
+                + [("eesm", env_id, refs) for env_id in gt.EESM_ENV_IDS
+                   for refs in ("wiener", "const")])
+# K, the steps of a ring slot (csrc/fused_dc.cu, csrc/fused_eesm.cu): 1,
+# K - 1 and 2 K + 3 steps end inside the first slot and mid-way through the
+# second fill of the first slot
+WS_RING_STEPS = 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,env_id,refs", WS_BIT_CASES,
+                         ids=[f"{f}-{i}-{r}" for f, i, r in WS_BIT_CASES])
+def test_cuda_dc_and_eesm_rollouts_equal_plain_versions_bit_for_bit(family, env_id, refs):
+    """dc_rollout_random and eesm_rollout_random (csrc/fused_dc.cu,
+    csrc/fused_eesm.cu: producer and consumer warps over a shared-memory
+    ring with Wiener references, one thread per env with constant ones)
+    equal their plain versions bit for bit in every env and every output
+    (NaN where the plain version has NaN), at one plane of 128 envs (one
+    block, fewer blocks than SMs) and at 1, K - 1 and 2 K + 3 steps, so
+    that the ring stops in every place.  Env 5 starts at five times its
+    current limit (at 1.5 times a continuous PermExDc's back-EMF brings
+    some envs inside the limit within the step), the others inside it: its
+    first step violates and resets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef
+
+    dev = torch.device("cuda")
+    _conv, task, motor, _v = env_id.split("-")
+    kw = {}
+    if refs == "const":
+        const = DC_EESM_CONST_REFS[task]
+        const = const[motor] if task == "CC" else const
+        kw["reference_generator"] = rg.ReferenceSpec([rg.ConstReference(n, v) for n, v in const])
+    env = gt.make_functional(env_id, device=dev, **kw)
+    mod = dcf if family == "dc" else ef
+    c = (dcf.DcConsts if family == "dc" else ef.EesmConsts)(env)
+    assert c.all_const == (refs == "const")
+    R, hot = 1, 5
+    rng = np.random.default_rng(23)
+    if family == "dc":
+        lims = [c.f["lim0"], c.f["lim1"]][:c.n_el]
+        start = ([rng.uniform(0, 100, (R, 128))] if c.mech else []) + [
+            rng.uniform(-0.5 * lim, 0.5 * lim, (R, 128)) for lim in lims]
+        start[-c.n_el][0, hot] = 5.0 * lims[0]
+    else:
+        i_lim, ie_lim = 1.0 / c.f["inv_i_lim"], 1.0 / c.f["inv_ie_lim"]
+        start = ([rng.uniform(0, 100, (R, 128))] if c.mech else []) + [
+            rng.uniform(-0.4 * i_lim, 0.4 * i_lim, (R, 128)),
+            rng.uniform(-0.4 * i_lim, 0.4 * i_lim, (R, 128)),
+            rng.uniform(-0.5 * ie_lim, 0.5 * ie_lim, (R, 128)),
+            rng.uniform(0, 2 * np.pi, (R, 128))]
+        start[-4][0, hot] = 5.0 * i_lim  # i_sd
+    start = [torch.as_tensor(x.astype(np.float32), device=dev) for x in start]
+    name = f"{family}_rollout_random"
+    mod.reset_launches()
+    for T in (1, WS_RING_STEPS - 1, 2 * WS_RING_STEPS + 3):
+        got = getattr(mod, name)(c, 7, start, T)
+        torch.cuda.synchronize()
+        want = getattr(mod, name + "_plain")(c, 7, start, T)
+        for j, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape and g.dtype == w.dtype, (T, j)
+            same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+            assert bool(same.all()), f"T={T}: output {j} differs in {int((~same).sum())} elements"
+        assert float(got[c.n_state + 1][0, hot]) >= 1.0  # the violating env reset
+    assert {k: v for k, v in mod.LAUNCHES.items() if v} == {name: 3}

@@ -43,8 +43,8 @@ def test_loop_counts_split_always_from_conditional():
     counts = sass_ops.loop_counts(funcs["_Z4stepPfi"])
     # FFMA (2) + FADD (1); ISETP, FSEL, ISETP; the move and the uniform
     # add are not counted
-    assert counts["always"] == {"fp32": 3, "alu": 3, "imad": 0, "xu": 0, "shfl": 0}
-    assert counts["conditional"] == {"fp32": 0, "alu": 0, "imad": 1, "xu": 1, "shfl": 0}
+    assert counts["always"] == {"fp32": 3, "alu": 3, "imad": 0, "xu": 0, "shfl": 0, "smem": 0, "bar": 0}
+    assert counts["conditional"] == {"fp32": 0, "alu": 0, "imad": 1, "xu": 1, "shfl": 0, "smem": 0, "bar": 0}
 
 
 @pytest.mark.parametrize("op,args,want", [
@@ -60,6 +60,12 @@ def test_loop_counts_split_always_from_conditional():
     ("STG.E", ["desc[UR4][R2.64]", "R5"], (None, 0)),
     ("SHFL.BFLY", ["PT", "R3", "R2", "0x1", "0x1f"], ("shfl", 1)),
     ("SHFL.IDX", ["PT", "R5", "R4", "R7", "0x1c1f"], ("shfl", 1)),
+    ("LDS", ["R3", "[R2+0x200]"], ("smem", 1)),
+    ("LDS.64", ["R4", "[R2]"], ("smem", 1)),
+    ("STS", ["[R2+0x400]", "R5"], ("smem", 1)),
+    ("BAR.SYNC.DEFER_BLOCKING", ["R2", "0x100"], ("bar", 1)),
+    ("BAR.ARV", ["R3", "0x100"], ("bar", 1)),
+    ("LDG.E", ["R1", "desc[UR4][R2.64]"], (None, 0)),
 ])
 def test_classify(op, args, want):
     assert sass_ops.classify(op, args) == want
@@ -86,9 +92,9 @@ def test_second_loop_counts_the_loop_outside_the_main_one():
     from a substring ending in #2."""
     insns = sass_ops.functions(SASS_TWO_LOOPS)["_Z3twoPfi"]
     assert sass_ops.loop_counts(insns)["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 1,
-                                                     "shfl": 0}
+                                                     "shfl": 0, "smem": 0, "bar": 0}
     assert sass_ops.loop_counts(insns, second=True)["always"] == {"fp32": 1, "alu": 1, "imad": 0,
-                                                                  "xu": 0, "shfl": 0}
+                                                                  "xu": 0, "shfl": 0, "smem": 0, "bar": 0}
 
 
 SASS_NESTED = """
@@ -115,12 +121,12 @@ def test_nested_loop_counts_apart():
     outer count plus H times the inner one."""
     insns = sass_ops.functions(SASS_NESTED)["_Z6nestedPfi"]
     counts = sass_ops.loop_counts(insns, inner=True)
-    assert counts["always"] == {"fp32": 3, "alu": 2, "imad": 0, "xu": 0, "shfl": 0}
-    assert counts["inner"]["always"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1, "shfl": 0}
+    assert counts["always"] == {"fp32": 3, "alu": 2, "imad": 0, "xu": 0, "shfl": 0, "smem": 0, "bar": 0}
+    assert counts["inner"]["always"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1, "shfl": 0, "smem": 0, "bar": 0}
     # without `inner` the nested body counts once, as conditional (the guard skips it)
     plain = sass_ops.loop_counts(insns)
     assert plain["always"] == counts["always"] and "inner" not in plain
-    assert plain["conditional"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1, "shfl": 0}
+    assert plain["conditional"] == {"fp32": 2, "alu": 0, "imad": 0, "xu": 1, "shfl": 0, "smem": 0, "bar": 0}
     with pytest.raises(ValueError, match="nested"):
         sass_ops.loop_counts(sass_ops.functions(SASS)["_Z4stepPfi"], inner=True)
 
@@ -142,12 +148,13 @@ def test_step_instances_name_kernels_of_their_sources(library):
     """Every ``STEP_INSTANCES`` entry parses: a kernel defined in
     ``csrc/<library>.cu`` with as many template arguments in the mangled
     substring as the kernel has template parameters, and at most one loop
-    mark (``#2``, ``@inner`` or a lane group's ``@lanes4``)."""
+    mark (``#2``, ``@inner``, a lane group's ``@lanes4`` or a
+    warp-specialised kernel's ``@ws2`` or ``@ws4``)."""
     source = (CSRC / f"{library}.cu").read_text()
     for key, instance in sass_ops.STEP_INSTANCES[library].items():
         sub, _, nested = instance.partition("@")
         sub, mark, second = sub.partition("#")
-        assert nested in ("", "inner", "lanes4") and second in ("", "2"), key
+        assert nested in ("", "inner", "lanes4", "ws2", "ws4") and second in ("", "2"), key
         assert not (nested and mark), key
         kernel, _sep, args = sub.partition("_kernel")
         n_args = args.count("Lb") + args.count("Li")
@@ -184,7 +191,7 @@ def test_control_instances_pick_one_function_each():
             assert len(names) == 1, instance
             assert instance.endswith("Lb1EE"), instance
             counts = sass_ops.loop_counts(funcs[names[0]])
-            assert counts["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 0, "shfl": 0}
+            assert counts["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 0, "shfl": 0, "smem": 0, "bar": 0}
 
 
 # the mangled names of the specialised builders' kernels, as cuobjdump lists
@@ -246,7 +253,7 @@ def test_lane_mark_multiplies_by_the_lanes_per_env():
     name = "srm_rollout_lanes_kernelILb1ELi3ELb0E"
     assert sass_ops.lanes_of(name + "@lanes4") == 4 and sass_ops.lanes_of(name) == 1
     counts = sass_ops.instance_counts(funcs, [name, name + "@lanes4"])
-    lane = {"fp32": 3, "alu": 1, "imad": 0, "xu": 0, "shfl": 1}
+    lane = {"fp32": 3, "alu": 1, "imad": 0, "xu": 0, "shfl": 1, "smem": 0, "bar": 0}
     assert counts[name]["always"] == lane and "lanes" not in counts[name]
     marked = counts[name + "@lanes4"]
     assert marked["lanes"] == 4 and marked["per_lane"]["always"] == lane
@@ -275,3 +282,107 @@ def test_srm_lane_kernels_carry_their_lane_mark():
                                          instance).groups()
         assert srm[f"srm_rollout_random/{env_id}"] == (
             f"srm_rollout_random_kernelI{finite}Lb0E{nref}{sat}"), env_id
+
+
+# a warp-specialised kernel: the consumer's step loop (ring loads, a
+# barrier wait at a slot's first step) and the producer's slot loop of two
+# steps (ring stores, the barrier before a refill), with the constant-
+# reference variant of each role (#2) after them
+SASS_WS = """
+        Function : _ZN45_GLOBAL__N__0a1b2c3d_12_x_cu_4e5f6a7b28dc_rollout_ws_kernelILb1ELb0ELi0ELi1EEEv7DcConst
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, 0x80, PT ;
+        /*0020*/               @P0 BRA 0x100 ;
+        /*0030*/                   LOP3.LUT P1, RZ, R4, 0x3, RZ, 0xc0, !PT ;
+        /*0040*/               @P1 BRA 0x60 ;
+        /*0050*/                   BAR.SYNC R2, 0x100 ;
+        /*0060*/                   LDS R5, [R3] ;
+        /*0070*/                   LDS R6, [R3+0x200] ;
+        /*0080*/                   FFMA R7, R5, R6, R7 ;
+        /*0090*/                   FMUL R7, R7, R8 ;
+        /*00a0*/                   ISETP.NE.AND P2, PT, R4, UR4, PT ;
+        /*00b0*/               @P2 BRA 0x30 ;
+        /*00c0*/                   LDS R5, [R3] ;
+        /*00d0*/                   FADD R7, R7, R5 ;
+        /*00e0*/               @P2 BRA 0xc0 ;
+        /*00f0*/                   EXIT ;
+        /*0100*/               @P3 BRA 0x120 ;
+        /*0110*/                   BAR.SYNC R9, 0x100 ;
+        /*0120*/                   IMAD.HI.U32 R10, R11, 0x3, RZ ;
+        /*0130*/                   IMAD.HI.U32 R12, R13, 0x3, RZ ;
+        /*0140*/                   LOP3.LUT R10, R10, R14, R15, 0x96, !PT ;
+        /*0150*/                   LOP3.LUT R12, R12, R14, R15, 0x96, !PT ;
+        /*0160*/                   MUFU.LG2 R16, R10 ;
+        /*0170*/                   STS [R3], R10 ;
+        /*0180*/                   STS [R3+0x200], R12 ;
+        /*0190*/                   BAR.ARV R2, 0x100 ;
+        /*01a0*/                   ISETP.NE.AND P4, PT, R17, UR5, PT ;
+        /*01b0*/               @P4 BRA 0x100 ;
+        /*01c0*/                   IMAD.HI.U32 R10, R11, 0x3, RZ ;
+        /*01d0*/                   STS [R3], R10 ;
+        /*01e0*/               @P4 BRA 0x1c0 ;
+        /*01f0*/                   EXIT ;
+"""
+
+
+def test_ws_mark_gives_the_steps_of_a_producer_iteration():
+    """``@wsK`` names a warp-specialised kernel whose producer iteration
+    fills K steps; other entries are not warp-specialised (0)."""
+    name = "dc_rollout_ws_kernelILb1ELb0ELi0ELi1E"
+    assert sass_ops.ws_steps_of(name + "@ws4") == 4
+    assert sass_ops.ws_steps_of(name + "#2@ws2") == 2
+    assert sass_ops.ws_steps_of(name) == 0 and sass_ops.ws_steps_of(name + "@lanes4") == 0
+    with pytest.raises(ValueError, match="at least one step"):
+        sass_ops.ws_steps_of(name + "@ws0")
+
+
+def test_ws_counts_sum_the_consumer_step_and_the_producer_slot_over_its_steps():
+    """The two roles' loops are told apart by the ring (stores: producer,
+    loads only: consumer); an env-step issues the consumer's always-executed
+    count plus the producer's over the steps its iteration fills, and the
+    barrier waits, taken once a slot, are conditional.  ``#2`` counts each
+    role's second loop (constant references)."""
+    funcs = sass_ops.functions(SASS_WS)
+    name = "dc_rollout_ws_kernelILb1ELb0ELi0ELi1E"
+    counts = sass_ops.instance_counts(funcs, [name + "@ws2", name + "#2@ws2"])
+    ws = counts[name + "@ws2"]
+    zero = dict.fromkeys(sass_ops.CLASSES, 0)
+    consumer = {**zero, "fp32": 3, "alu": 2, "smem": 2}
+    producer = {**zero, "alu": 3, "imad": 2, "xu": 1, "smem": 2, "bar": 1}
+    assert ws["ws_steps"] == 2
+    assert ws["roles"]["consumer"]["always"] == consumer
+    assert ws["roles"]["consumer"]["conditional"] == {**zero, "bar": 1}
+    assert ws["roles"]["producer"]["always"] == producer and ws["roles"]["producer"]["steps"] == 2
+    assert ws["roles"]["producer"]["conditional"] == {**zero, "bar": 1}
+    assert ws["always"] == {k: consumer[k] + producer[k] / 2 for k in consumer}
+    const = counts[name + "#2@ws2"]
+    assert const["roles"]["consumer"]["always"] == {**zero, "fp32": 1, "smem": 1}
+    assert const["roles"]["producer"]["always"] == {**zero, "imad": 1, "smem": 1}
+    assert const["always"] == {**zero, "fp32": 1, "imad": 0.5, "smem": 1.5}
+    with pytest.raises(ValueError, match="no consumer loop"):
+        sass_ops.ws_counts(sass_ops.functions(SASS)["_Z4stepPfi"], 4)
+
+
+def test_ws_kernels_sit_beside_their_one_thread_instances():
+    """The DC and EESM random rollouts run warp-specialised with Wiener
+    references: their ``_ws`` entries carry ``@ws2`` (two producer warps per
+    consumer warp, two steps each of a four-step slot) or, under the EESM's
+    speed ODE (MECH), ``@ws4``, and no other entry carries a ``@ws`` mark;
+    each has a one-thread entry of the same template arguments, the
+    function's own work that the bounds count."""
+    seen = {}
+    for instances in sass_ops.STEP_INSTANCES.values():
+        for key, instance in instances.items():
+            ws = key.split("/")[0] in ("dc_rollout_ws", "eesm_rollout_ws")
+            assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
+            if ws:
+                seen[key] = sass_ops.ws_steps_of(instance)
+                one = instances[key.replace("_ws", "_random", 1)]
+                sub = instance.partition("@")[0]
+                assert sub.replace("_ws_kernel", "_random_kernel", 1) == one, key
+    assert seen == {"dc_rollout_ws": 2, "dc_rollout_ws/Finite-CC-PermExDc-v0": 2,
+                    "eesm_rollout_ws": 4, "eesm_rollout_ws/Cont-TC-EESM-v0": 2,
+                    "eesm_rollout_ws/Finite-CC-EESM-v0": 2}
+    # under the speed ODE (the second template argument) one producer warp
+    assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
+        "eesm_rollout_ws_kernelILb0ELb1E")

@@ -37,11 +37,22 @@ Programming Guide's throughput table for compute capability 9.0):
   issue on half of the FP32 lanes;
 * ``xu`` (16): MUFU (rsqrt, exp2, ...) and conversions (I2F, F2I, F2F,
   FRND) and the bit counts;
-* ``shfl`` (32): the warp shuffles (SHFL.IDX, .BFLY, .UP, .DOWN).
+* ``shfl`` (32): the warp shuffles (SHFL.IDX, .BFLY, .UP, .DOWN);
+* ``smem`` (32): shared-memory loads and stores (LDS, STS, LDSM, STSM,
+  ATOMS), one warp-wide access per clock: the guide's 32 banks of 32 bits
+  a clock (its section on shared memory for compute capability 5.x and
+  later, which 9.0 keeps); a wider or bank-conflicted access takes more;
+* ``bar`` (16): barrier instructions (BAR.SYNC, BAR.ARV, BAR.RED), the
+  guide's throughput of ``__syncthreads()`` (its section on
+  synchronization instructions: 16 operations per clock for compute
+  capability 7.x and later).
 
 Moves (MOV, move idioms of IMAD and HFMA2), uniform-datapath instructions
-(once per warp, not per thread), memory, barrier and control instructions
-are not counted, so the counts are a lower bound on the issued work.  The
+(once per warp, not per thread), global and local memory and control
+instructions are not counted, so the counts are a lower bound on the
+issued work.  The ``smem`` and ``bar`` pipes are a kernel's layout, not
+the function's work: ``chip_smoke.py`` leaves them out of a bound of the
+function's own work and counts them in an issue bound.  The
 blocks a step runs only sometimes (a branch taken on some data) are
 reported apart, as ``conditional``.  The loop must hold one step per
 iteration: the kernels' step loops are marked ``#pragma unroll 1``.  A
@@ -53,7 +64,13 @@ of G lanes (the SRM random rollout at constant speed, four lanes an env)
 is marked ``@lanesG``: a warp then issues a lane's count for 32 / G envs,
 so an env-step issues G times a lane's count, and ``step_ops`` multiplies
 by G.  That is what the lanes issue, work that every lane repeats
-included; the function's own work is the one-thread step's count.
+included; the function's own work is the one-thread step's count.  A
+warp-specialised kernel (the DC and EESM random rollouts, csrc/draw_ring.cuh)
+is marked ``@wsK``: its consumer warps run a step loop (one step an
+iteration, shared-memory loads) and its producer warps a loop whose
+iteration fills a ring slot of K steps (shared-memory stores, the K steps
+unrolled); an env-step issues the consumer's count plus the producer's
+over K, and both stay beside it under ``roles``.
 """
 
 from __future__ import annotations
@@ -69,9 +86,12 @@ _SKIP = ("MOV", "CS2R", "S2R", "S2UR", "NOP", "BRA", "BSSY", "BSYNC", "EXIT", "C
          "LD", "ST", "BAR", "WARPSYNC", "DEPBAR", "YIELD", "P2R", "R2P", "PLOP3", "RED", "ATOM",
          "MEMBAR", "ERRBAR", "CCTL", "BPT", "BMOV", "KILL", "NANOSLEEP", "VOTE", "PRMT")
 _CONV = ("I2F", "F2I", "F2F", "FRND", "FLO", "POPC", "BREV")
-CLASSES = ("fp32", "alu", "imad", "xu", "shfl")
+_SMEM = ("LDS", "STS", "LDSM", "STSM", "ATOMS")
+_SMEM_STORE = ("STS", "STSM", "ATOMS")
+CLASSES = ("fp32", "alu", "imad", "xu", "shfl", "smem", "bar")
 # issue rate per SM and clock of each class (operations for fp32)
-RATE_PER_SM_CLOCK = {"fp32": 256, "alu": 64, "imad": 64, "xu": 16, "shfl": 32}
+RATE_PER_SM_CLOCK = {"fp32": 256, "alu": 64, "imad": 64, "xu": 16, "shfl": 32, "smem": 32,
+                     "bar": 16}
 
 
 def functions(sass: str) -> dict:
@@ -98,6 +118,10 @@ def classify(op: str, args) -> tuple:
     base = op.split(".")[0]
     if base.startswith("U"):
         return None, 0  # uniform datapath: one per warp
+    if base in _SMEM:
+        return "smem", 1
+    if base == "BAR":
+        return "bar", 1
     if base.startswith(_SKIP) or base == "HFMA2":
         return None, 0
     if base == "IMAD":
@@ -154,6 +178,56 @@ def loop_counts(insns, second=False, inner=False) -> dict:
     out = _body_counts(insns, addr, head, latch_i, skip)
     if out_inner is not None:
         out["inner"] = {"always": out_inner["always"], "conditional": out_inner["conditional"]}
+    return out
+
+
+def _ws_role(body) -> str | None:
+    """The role of a loop of a warp-specialised kernel from its body: the
+    producer's stores the ring (shared-memory stores), the consumer's only
+    loads it; None for a loop that touches no shared memory."""
+    bases = {op.split(".")[0] for _a, _p, op, _args in body}
+    if bases & set(_SMEM_STORE):
+        return "producer"
+    if bases & set(_SMEM):
+        return "consumer"
+    return None
+
+
+def ws_counts(insns, steps, second=False) -> dict:
+    """The counts of a warp-specialised kernel per env-step: the
+    consumer's step loop plus the producer's slot loop over ``steps`` (the
+    steps a producer iteration fills).  Each role's loop is the largest of
+    its role, or (``second``) the largest of its role outside that one, as
+    in ``loop_counts``; ``roles`` keeps each role's own counts (the
+    producer's per iteration)."""
+    addr = [a for a, *_ in insns]
+    loops = {"consumer": [], "producer": []}
+    for i, (a, _p, op, args) in enumerate(insns):
+        t = _target(args) if op.startswith("BRA") else None
+        if t is None or t > a:
+            continue
+        role = _ws_role(insns[addr.index(t):i + 1])
+        if role:
+            loops[role].append((i, t))
+    out = {"always": dict.fromkeys(CLASSES, 0), "conditional": dict.fromkeys(CLASSES, 0),
+           "roles": {}}
+    for role, back in loops.items():
+        if not back:
+            raise ValueError(f"no {role} loop in this function")
+        latch_i, head = max(back, key=lambda b: addr[b[0]] - b[1])
+        if second:
+            lo_m, hi_m = head, addr[latch_i]
+            back = [b for b in back if addr[b[0]] < lo_m or b[1] > hi_m]
+            if not back:
+                raise ValueError(f"no second {role} loop in this function")
+            latch_i, head = max(back, key=lambda b: addr[b[0]] - b[1])
+        c = _body_counts(insns, addr, head, latch_i, None)
+        per = steps if role == "producer" else 1
+        for kind in ("always", "conditional"):
+            for cls, n in c[kind].items():
+                out[kind][cls] += n / per
+        out["roles"][role] = {"always": c["always"], "conditional": c["conditional"],
+                              "steps": per, "opcodes_always": c["opcodes_always"]}
     return out
 
 
@@ -242,6 +316,18 @@ def step_ops(lib_path, kernels) -> dict:
     return instance_counts(lib_functions(lib_path), kernels, str(lib_path))
 
 
+def ws_steps_of(instance) -> int:
+    """The steps a producer iteration fills of a ``STEP_INSTANCES`` entry:
+    K for a name ending in ``@wsK``, else 0 (not warp-specialised)."""
+    mark = instance.partition("@")[2]
+    if not mark.startswith("ws"):
+        return 0
+    steps = int(mark[len("ws"):])
+    if steps < 1:
+        raise ValueError(f"{instance!r}: a producer iteration fills at least one step")
+    return steps
+
+
 def lanes_of(instance) -> int:
     """The lanes per env of a ``STEP_INSTANCES`` entry: G for a name
     ending in ``@lanesG``, else 1."""
@@ -260,7 +346,9 @@ def instance_counts(funcs, kernels, where="the listing") -> dict:
     ending in ``#2`` counts the second loop, one ending in ``@inner`` the
     main loop's nested loop apart (``loop_counts``), one ending in
     ``@lanesG`` a lane-group kernel: its counts are per env-step, G times
-    a lane's, which ``per_lane`` keeps beside ``lanes``."""
+    a lane's, which ``per_lane`` keeps beside ``lanes``; one ending in
+    ``@wsK`` a warp-specialised kernel (``ws_counts``, with ``ws_steps``
+    K beside)."""
     out = {}
     for k in kernels:
         sub, _, nested = k.partition("@")
@@ -268,6 +356,12 @@ def instance_counts(funcs, kernels, where="the listing") -> dict:
         names = [f for f in funcs if sub in f]
         if len(names) != 1:
             raise ValueError(f"{sub!r} matches {len(names)} functions of {where}")
+        steps = ws_steps_of(k)
+        if steps:
+            counts = ws_counts(funcs[names[0]], steps, second=bool(mark))
+            counts["ws_steps"] = steps
+            out[k] = counts
+            continue
         counts = loop_counts(funcs[names[0]], second=bool(mark), inner=nested == "inner")
         lanes = lanes_of(k)
         if lanes > 1:
@@ -305,7 +399,11 @@ STEP_INSTANCES = {
     # <FINITE, MECH, MC, NREF> (MC: 0 one current, 1 ShuntDc, 2 ExtExDc):
     # Cont-SC-ShuntDc-v0 (0, 1, 1, 1) for each kernel, and
     # Finite-CC-PermExDc-v0 (1, 0, 0, 1) and Cont-SC-PermExDc-v0 (0, 1, 0, 1)
-    # for the random ones
+    # for the random ones.  With Wiener references the random rollout runs
+    # dc_rollout_ws_kernel, warp-specialised, a producer iteration two steps
+    # (@ws2: what its two roles issue per env-step); with constant ones the
+    # one-thread kernel's second loop (#2).  The one-thread Wiener loop is
+    # built but never run, and counts the function's own work
     "fused_dc": {
         "dc_rollout_random": "dc_rollout_random_kernelILb0ELb1ELi1ELi1E",
         "dc_rollout_buffer": "dc_rollout_buffer_kernelILb0ELb1ELi1E",
@@ -314,6 +412,8 @@ STEP_INSTANCES = {
         # its loop without the reference advance: constant references
         "dc_rollout_random/Finite-CC-PermExDc-v0/const":
             "dc_rollout_random_kernelILb1ELb0ELi0ELi1E#2",
+        "dc_rollout_ws": "dc_rollout_ws_kernelILb0ELb1ELi1ELi1E@ws2",
+        "dc_rollout_ws/Finite-CC-PermExDc-v0": "dc_rollout_ws_kernelILb1ELb0ELi0ELi1E@ws2",
     },
     "fused_dc_record": {
         "dc_record_random": "dc_record_random_kernelILb0ELb1ELi1ELi1E",
@@ -337,12 +437,23 @@ STEP_INSTANCES = {
     },
     # <FINITE, MECH, NREF>: Cont-SC-EESM-v0 (0, 1, 1) for each kernel, and
     # Cont-TC-EESM-v0 (0, 0, 1) and Finite-CC-EESM-v0 (1, 0, 3) for the
-    # random ones
+    # random ones.  With Wiener references the random rollout runs
+    # eesm_rollout_ws_kernel, as the DC family's (@ws2 at constant speed,
+    # @ws4 under the speed ODE, one producer warp per consumer warp); with
+    # constant ones eesm_rollout_ahead_kernel, one thread per env (timed on
+    # Finite-CC-EESM-v0, beside the one-thread kernel's second loop).  The
+    # one-thread instances are built but never launched, and count the
+    # function's own work
     "fused_eesm": {
         "eesm_rollout_random": "eesm_rollout_random_kernelILb0ELb1ELi1E",
         "eesm_rollout_buffer": "eesm_rollout_buffer_kernelILb0ELb1E",
         "eesm_rollout_random/Cont-TC-EESM-v0": "eesm_rollout_random_kernelILb0ELb0ELi1E",
         "eesm_rollout_random/Finite-CC-EESM-v0": "eesm_rollout_random_kernelILb1ELb0ELi3E",
+        "eesm_rollout_ws": "eesm_rollout_ws_kernelILb0ELb1ELi1E@ws4",
+        "eesm_rollout_ws/Cont-TC-EESM-v0": "eesm_rollout_ws_kernelILb0ELb0ELi1E@ws2",
+        "eesm_rollout_ws/Finite-CC-EESM-v0": "eesm_rollout_ws_kernelILb1ELb0ELi3E@ws2",
+        "eesm_rollout_random/Finite-CC-EESM-v0/const": "eesm_rollout_random_kernelILb1ELb0ELi3E#2",
+        "eesm_rollout_ahead/Finite-CC-EESM-v0/const": "eesm_rollout_ahead_kernelILb1ELb0ELi3E",
     },
     "fused_eesm_record": {
         "eesm_record_random": "eesm_record_random_kernelILb0ELb1ELi1E",
