@@ -24,7 +24,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
             its plain version at 16384 envs x 256 steps, H 16 (the
             recorder at H 32): greedy/const and categorical/Wiener modes;
             the categorical/Wiener REINFORCE rollout at the trainer's
-            shape, 16384 envs x 1024 steps, gamma 0.99 (about 32 ms)
+            shape, 16384 envs x 1024 steps, gamma 0.99 (about 32 ms);
+            policy_record bit for bit (error 0 in every env) there (one
+            thread per env), at PPO's 2048 envs x 256 steps (eight lanes an
+            env, lane 0 stepping) and at 4096 x 256 (four lanes, each
+            stepping), each timed with its design, lanes, blocks,
+            registers, bound and issue bound
 8. rl_checks the greedy policy rollout against the port's VectorEnv
             driven by the MLP's argmax, and the greedy REINFORCE gradient
             at gamma 0 and 0.97 against torch autograd of the REINFORCE
@@ -108,7 +113,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
             the 4 kernels against its plain version at 16384 envs x 64
             steps (timed on Cont-SC-SCIM-v0, the instance the bounds count);
             the two random kernels again at 1024 steps on Finite-CC-SCIM-v0
-            and Cont-SC-SCIM-v0
+            and Cont-SC-SCIM-v0; induction_rollout_random (warp-specialised
+            with Wiener references) bit for bit (error 0 in every env) in
+            all of those runs, and again on every id with constant
+            references
 23.-25. the slice-5 main path, counted from zero:
    23. induction_env  for each id, the port's env (VectorEnv's reset, the
             env's step without autoreset, constant references, an action
@@ -122,11 +130,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
             inside the limit circle, and the share of env-steps that reset
    25. induction_timings  at 16384 envs: the random rollout at 65536 steps
             on Cont-TC-SCIM-v0 (bench.py:810-812), Finite-CC-SCIM-v0 and
-            Cont-SC-SCIM-v0; the random recorder at 1024 steps on the last
-            two (GB/s); each with its share of env-steps that reset; the
-            general path (VectorEnv.rollout, the random policy of the action
-            space) on Cont-SC-SCIM-v0 at 200 steps; the launches of phases
-            23-25 must be exactly what they make
+            Cont-SC-SCIM-v0, and on Cont-TC-SCIM-v0 with constant
+            references; the random recorder at 1024 steps on Finite-CC- and
+            Cont-SC-SCIM-v0 (GB/s); each with its share of env-steps that
+            reset, and for the rollout its design, roles, ring, registers
+            and issue bound as phase 21's; the general path
+            (VectorEnv.rollout, the random policy of the action space) on
+            Cont-SC-SCIM-v0 at 200 steps; the launches of phases 23-25 must
+            be exactly what they make
 26. eesm_kernels  slice 6, the universal EESM family (csrc/fused_eesm.cu,
             csrc/fused_eesm_record.cu): for each of the 6 {Finite, Cont} x
             {CC, TC, SC} EESM ids (three references on the CC ids), each of
@@ -332,8 +343,8 @@ least 99.9% of envs must match (a constraint-threshold flip sends an env
 down another branch) and the mean reward must agree to 1e-4 relative.
 Angles are compared modulo 2 pi.  The specialised kernels (phase 46) must
 equal their plain versions bit for bit in every env, both modes, and so
-must the DC, EESM and SRM random rollouts (phases 18, 26 and 34) and the
-SRM cascade (phase 43).
+must the DC, SCIM, EESM and SRM random rollouts (phases 18, 22, 26 and 34),
+policy_record (phase 7) and the SRM cascade (phase 43).
 
 Bounds (bound_ms): the larger of the bytes moved (each input read once,
 each output written once) over 3.35 TB/s and, for each issue pipe, the
@@ -345,11 +356,18 @@ warp shuffles at 32).  At constant speed the SRM random rollout runs an
 env on four lanes (tools/sass_ops.py's @lanes4); its bound counts the
 function's own work, the one-thread step of the same instance (built for
 the count, never launched), and phase 37 prints the issue bound of four
-lanes' counts beside it.  The DC and EESM random rollouts run
-warp-specialised with Wiener references (tools/sass_ops.py's @ws2 and
-@ws4); their bound counts the one-thread step of the same instance (its
-Wiener loop built for the count, never run), and phases 21 and 29 print the
-issue bound of both roles' counts per env-step beside it.  Shared-memory accesses and barriers (the smem and bar
+lanes' counts beside it.  policy_record runs an env on eight lanes at
+PPO's width, lane 0 alone stepping, and on four lanes, each stepping, up
+to three blocks an SM (@lanes4); its bound counts the one-thread step, and
+phase 7 prints the issue bound of four lanes' counts beside it.  The
+eight-lane step is a branch that lane 0 alone takes, which
+tools/sass_ops.py does not count as issued, so that design's issue bound
+is printed as not counted.  The DC, SCIM and EESM
+random rollouts run warp-specialised with Wiener references
+(tools/sass_ops.py's @ws2 and @ws4); their bound counts the one-thread step
+of the same instance (its Wiener loop built for the count, not taken by
+the launch), and phases 21, 25 and 29 print the issue bound of both roles'
+counts per env-step beside it.  Shared-memory accesses and barriers (the smem and bar
 pipes, LAYOUT_PIPES) count only in issue bounds.
 They leave out the blocks a step runs only sometimes (reference
 regeneration, the reset draws of a violation, the slow paths of sqrtf and
@@ -511,13 +529,18 @@ def ptxas_registers(log):
     return regs
 
 
+# the lane kernel's STEP_INSTANCES key of a kernel that runs on lane groups
+LANE_OF = {"srm_rollout_random": "srm_rollout_lanes", "policy_record": "policy_record_lanes"}
+
+
 def lane_fields(key, env_steps, nbytes, ms, _c=None):
-    """The lane fields of a timed SRM random rollout (phase 37): its lanes
-    per env and, on lane groups (the constant-speed ids), registers, a
-    lane's counts and the issue bound of four lanes' counts, work that
-    every lane repeats included, with its share; the row's bound_ms stays
-    the function's own work."""
-    info = LANE_KERNELS.get(key.replace("srm_rollout_random", "srm_rollout_lanes", 1))
+    """The lane fields of a timed SRM random rollout (phase 37) or of
+    policy_record on four lanes (phase 7): its lanes per env and, on lane
+    groups, registers, a lane's counts and the issue bound of G lanes'
+    counts, work that every lane repeats included, with its share; the
+    row's bound_ms stays the function's own work."""
+    base, sep, rest = key.partition("/")
+    info = LANE_KERNELS.get(LANE_OF.get(base, base) + sep + rest)
     if info is None:
         return {"lanes": 1}
     i_ms = bound_ms(env_steps, info["ops"], nbytes, list(info["ops"]))[0]
@@ -545,9 +568,9 @@ DESIGNS = {0: "warp-specialised", 1: "one thread per env",
 
 
 def design_fields(key, env_steps, nbytes, ms, c):
-    """The fields of a timed DC or EESM random rollout (phases 21 and 29):
-    the design its launch takes and, warp-specialised (Wiener references),
-    its roles and ring (K steps a slot, two slots, words a step,
+    """The fields of a timed DC, SCIM or EESM random rollout (phases 21, 25
+    and 29): the design its launch takes and, warp-specialised (Wiener
+    references), its roles and ring (K steps a slot, two slots, words a step,
     shared-memory bytes), registers (one allocation for both roles: no
     setmaxnreg), each role's counts and the issue bound of both roles'
     counts per env-step, every pipe included, with its share; one thread
@@ -566,8 +589,10 @@ def design_fields(key, env_steps, nbytes, ms, c):
         out.update(ring=layout, role_ops=info["roles"],
                    registers={"consumer": info["registers"], "producer": info["registers"]})
     else:
-        issue = OPS[key.replace("_rollout_random", "_rollout_ahead", 1)
-                    if layout["design"] == 2 else key]
+        # the ahead loop: a kernel of its own (the EESM's) or the one-thread
+        # kernel's constant-reference loop (the SCIM's)
+        ahead = key.replace("_rollout_random", "_rollout_ahead", 1)
+        issue = OPS[ahead if layout["design"] == 2 and ahead in OPS else key]
     i_ms = bound_ms(env_steps, issue, nbytes, list(issue))[0]
     out.update(ops_per_env_step=issue, issue_bound_ms=i_ms, issue_bound_share=i_ms / ms)
     return out
@@ -644,6 +669,22 @@ def env_match(torch, got, ref, is_angle, n_envs):
         # envs are the trailing N elements: (R,128), (2R,128) or (T,R,128)
         ok &= ~bad.reshape(-1, n_envs).any(dim=0)
         worst = max(worst, float(err.max()))
+    return float(ok.float().mean()), worst
+
+
+def bit_match(torch, got, ref, n_envs):
+    """Bit for bit per env: every element of every output equal, or NaN in
+    both (envs are the trailing ``n_envs`` elements, as in env_match);
+    returns (share of envs equal, max abs err over the elements that
+    differ, 0 where none does)."""
+    ok = torch.ones(n_envs, dtype=torch.bool, device=got[0].device)
+    worst = 0.0
+    for x, y in zip(got, ref):
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+        ok &= same.reshape(-1, n_envs).all(dim=0)
+        if not bool(same.all()):
+            d = (x.double() - y.double()).abs().nan_to_num(nan=math.inf)
+            worst = max(worst, float(d[~same].max()))
     return float(ok.float().mean()), worst
 
 
@@ -897,6 +938,34 @@ def rl_weights(torch, rng, dev, n_features, hidden, scale, bias_scale):
                             .astype(np.float32), device=dev) for j, n in enumerate(sizes)]
 
 
+# the mangled prefix of policy_record's instance at H 32 by lanes an env
+# (ptxas registers)
+RECORD_INSTANCES = {1: "policy_record_kernelILi32E",
+                    8: "policy_record_lanes_kernelILi32ELi8ELb1E",
+                    4: "policy_record_lanes_kernelILi32ELi4ELb0E"}
+
+
+def record_fields(fp, n, env_steps, nbytes, ms):
+    """policy_record's launch over ``n`` envs (csrc/fused_policy.cu): its
+    design, lanes, blocks and registers and, on four lanes, the issue bound
+    of four lanes' counts (``lane_fields``); eight lanes step on lane 0
+    alone, a branch tools/sass_ops.py does not count as issued, so their
+    issue bound is not counted."""
+    from gym_electric_motor_tpu_torch.ops import cuda_build
+
+    lay = fp.policy_record_layout(n)
+    regs = ptxas_registers(cuda_build.BUILD_LOG.get("fused_policy", ""))
+    out = {"design": lay["design"], "lanes": lay["lanes"], "blocks": lay["blocks"],
+           "sms": lay["sms"], "registers": next((r for f, r in regs.items()
+                                                 if RECORD_INSTANCES[lay["lanes"]] in f), None)}
+    if lay["lanes"] == 4:
+        out.update(lane_fields("policy_record", env_steps, nbytes, ms))
+    elif lay["lanes"] == 8:
+        out["issue_bound_ms"] = None
+        out["issue_bound"] = "not counted: lane 0 alone takes the step's branch"
+    return out
+
+
 def run_rl(dev, card, ops):
     """Slice 2, RL on Finite-CC-PMSM-v0: the policy kernels against their
     plain versions, the greedy kernel against the env, REINFORCE against
@@ -963,16 +1032,35 @@ def run_rl(dev, card, ops):
                               state_bytes + 5 * 4 * N_ENVS + wbytes(6, H_EVAL)))
     results["policy_rollout"] = row
 
-    # policy_record at H 32
+    # policy_record at H 32, bit for bit (error 0 in every env), at 16384
+    # envs (one thread per env), at PPO's 2048 (eight lanes an env) and at
+    # 4096 (four lanes), each timed (csrc/fused_policy.cu)
     args_r = (consts, SEED, *w32, *start, T_COMPARE)
     ms, got = cuda_ms(torch, lambda: fp.policy_record(*args_r), reps=21)
     plain_ms, ref = host_ms(torch, lambda: fp.policy_record_plain(*args_r))
     row = random_check("policy_record", got, ref, (False, False, True) + (False,) * 5, 6)
-    row.update(ms=ms, plain_ms=plain_ms, steps=T_COMPARE,
+    widths = {}
+    for n in (N_ENVS, PPO["n_envs"], 2 * PPO["n_envs"]):
+        if n == N_ENVS:
+            T, ms_n = T_COMPARE, ms
+        else:
+            T = PPO["horizon"]
+            args_n = (consts, SEED, *w32, *(x[:n // 128] for x in start), T)
+            ms_n, got = cuda_ms(torch, lambda: fp.policy_record(*args_n), reps=21)
+            ref = fp.policy_record_plain(*args_n)
+        m, err = bit_match(torch, got, ref, n)
+        del got, ref
+        if m != 1.0:
+            raise AssertionError(f"policy_record at {n} envs: {m:.5f} of envs equal their plain "
+                                 f"version bit for bit (need 1), max abs err {err}")
+        nbytes = 12 * n + 32 * n * T + wbytes(7, H_PPO)
+        b_ms, b_by = bound_ms(n * T, ops["policy_record"], nbytes)
+        widths[f"{n}x{T}"] = {"ms": ms_n, "match_share": m, "max_abs_err": err, "bound_ms": b_ms,
+                              "bound_by": b_by, **record_fields(fp, n, n * T, nbytes, ms_n)}
+    row.update(ms=ms, plain_ms=plain_ms, steps=T_COMPARE, widths=widths,
                bound=bound_ms(N_ENVS * T_COMPARE, ops["policy_record"],
                               state_bytes + 32 * N_ENVS * T_COMPARE + wbytes(7, H_PPO)))
     results["policy_record"] = row
-    del got, ref
 
     # reinforce_rollout (+ reinforce_reduce): greedy/const, then categorical/
     # Wiener at the trainer's shape (phase 10: T_REINFORCE steps, gamma 0.99)
@@ -1225,6 +1313,10 @@ def run_rl(dev, card, ops):
             envs, steps, ms, (b_ms, b_by) = main[name]
             row.update(main_envs=envs, main_steps=steps, main_ms=ms, main_bound_ms=b_ms,
                        main_bound_by=b_by)
+        if name == "policy_record":
+            row.update({"main_" + k: v for k, v in record_fields(
+                fp, ne, ne * PPO["horizon"], 12 * ne + 32 * ne * PPO["horizon"] + wbytes(7, H_PPO),
+                main[name][2]).items()})
         line.append(row)
     return line
 
@@ -1976,6 +2068,7 @@ def run_induction(dev, card, ops):
     import torch
 
     import gym_electric_motor_tpu_torch as gt
+    from gym_electric_motor_tpu_torch import references as rg
     from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
     from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
     from gym_electric_motor_tpu_torch.ops import fused_policy as fp
@@ -2007,6 +2100,9 @@ def run_induction(dev, card, ops):
         env_action=lambda c, a: a.reshape(N) if c.finite else a.reshape(3, N).T.contiguous())
     worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.SCIM_ENV_IDS, IND_TIMED,
                                                  (IND_CC, IND_TIMED), ops)
+    # the warp-specialised random rollout, bit for bit on every id
+    hold_bit_equal(torch, gt, rg, dev, fam, gt.SCIM_ENV_IDS,
+                   lambda env_id: SYNC_CONST_REFS[env_id.split("-")[1]], worst, share)
 
     # ---- 23.-25. the main path: counts from zero ---------------------------
     # 23. the env against the buffer kernels (rtol 1e-4 / atol 2e-3,
@@ -2019,7 +2115,8 @@ def run_induction(dev, card, ops):
 
     launches, timings = family_main_path(
         torch, gt, dev, card, fam, gt.SCIM_ENV_IDS, SYNC_CONST_REFS, 2e-3,
-        (IND_BENCH, IND_CC, IND_TIMED), (IND_CC, IND_TIMED), ops, (fs, fp, sf, dcf), in_circle)
+        (IND_BENCH, IND_CC, IND_TIMED), (IND_CC, IND_TIMED), ops, (fs, fp, sf, dcf), in_circle,
+        design_fields, ((IND_BENCH, SYNC_CONST_REFS["TC"]),))
 
     # ---- kernels line rows ---------------------------------------------------
     replaces = {"induction_rollout_random": "gym_electric_motor_tpu/ops/pallas_induction.py:859",

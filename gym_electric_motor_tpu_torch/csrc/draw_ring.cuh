@@ -1,5 +1,5 @@
-// The warp-specialised random rollouts of the DC and EESM families
-// (fused_dc.cu, fused_eesm.cu): producer warps compute every value of a
+// The warp-specialised random rollouts of the DC, SCIM and EESM families
+// (fused_dc.cu, fused_induction.cu, fused_eesm.cu): producer warps compute every value of a
 // step that does not depend on the state into a shared-memory ring, and
 // consumer warps run the step, one thread per env, reading those values.
 //
@@ -271,6 +271,40 @@ __device__ __forceinline__ RefCandidates<NREF> unpack_refs(const RingWords<W>& x
     c.rv[r] = __uint_as_float(x.w[j0 + kRefWords * r + 3]);
   }
   return c;
+}
+
+// A B6 bridge's action in the ring (the SCIM random rollout's; the sync
+// and DFIM families draw the same B6Action): the 3 bits in one word
+// (finite), or the three duty commands' float bits (continuous).
+template <bool FINITE>
+__host__ __device__ constexpr int b6_ring_words() {
+  return FINITE ? 1 : 3;
+}
+
+template <bool FINITE, int W>
+__device__ __forceinline__ void pack_b6(const B6Action& a, int j0, RingWords<W>& x) {
+  if constexpr (FINITE) {
+    x.w[j0] = (uint32_t)a.bits;
+  } else {
+    x.w[j0] = __float_as_uint(a.a);
+    x.w[j0 + 1] = __float_as_uint(a.b);
+    x.w[j0 + 2] = __float_as_uint(a.c);
+  }
+}
+
+template <bool FINITE, int W>
+__device__ __forceinline__ B6Action unpack_b6(const RingWords<W>& x, int j0) {
+  B6Action a;
+  if constexpr (FINITE) {
+    a.bits = (int)x.w[j0];
+    a.a = a.b = a.c = 0.0f;
+  } else {
+    a.bits = 0;
+    a.a = __uint_as_float(x.w[j0]);
+    a.b = __uint_as_float(x.w[j0 + 1]);
+    a.c = __uint_as_float(x.w[j0 + 2]);
+  }
+  return a;
 }
 
 // Consumer side: ref_wiener_advance with the draws and candidates of the

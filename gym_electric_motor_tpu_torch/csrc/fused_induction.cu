@@ -12,16 +12,32 @@
 //   induction_rollout_buffer  pallas_induction.py  make_fused_induction_rollout,
 //                                                  buffer mode (:833)
 //
-// Design: one thread per env, the drive state (4 or 5 planes) and the
-// reference rows in registers across an in-kernel loop over T steps.
-// Random bits come from Philox4x32-10 keyed by the seed and counted by
-// (env, step, slot), the slots of the synchronous family.  Templates:
-// FINITE (B6 bits or duty), MECH (constant speed or the polynomial load's
-// speed ODE) and NREF (1 or 2 reference rows): 8 random and 4 buffer
-// instances.  A random kernel holds two loops, with and without the
-// reference advance, and takes the second when every reference is
-// constant.  Built with -fmad=false (ops/cuda_build.py), so each multiply
+// Design: the drive state (4 or 5 planes) and the reference rows in
+// registers across an in-kernel loop over T steps.  Random bits come from
+// Philox4x32-10 keyed by the seed and counted by (env, step, slot), the
+// slots of the synchronous family.  Templates: FINITE (B6 bits or duty),
+// MECH (constant speed or the polynomial load's speed ODE) and NREF (1 or 2
+// reference rows): 8 instances of each random kernel and 4 buffer
+// instances.  Built with -fmad=false (ops/cuda_build.py), so each multiply
 // and add rounds as in the plain PyTorch version.
+//
+// With Wiener references the random rollout is warp-specialised
+// (draw_ring.cuh), as the DC and EESM ones: four consumer warps run the
+// step, one thread per env (the flux direction where a row refers to the
+// dq currents, the physics, the violation, the reward, the regeneration
+// test), and producer warps draw, in a double-buffered shared-memory ring
+// of K = 8 steps a slot, every value of a step that depends on the
+// constants alone: the B6 action (the bits, or three duties with the
+// ACTION_C call) and per row the Box-Muller draw, the candidate length and
+// sigma and the candidate reset value, 5 to 11 words a step.  The
+// continuous ids reset in 2.4% of env-steps, so one thread per env took the
+// divergent redraw in about 55% of warp-steps.  Two producer warps per
+// consumer warp, at constant speed and under the speed ODE (IndRing).  With
+// constant references a step draws only its action, and the launch takes
+// the one-thread kernel, whose constant-reference loop draws step t + 1's
+// action beside step t's physics.  That kernel's Wiener loop is built for
+// the bound's count alone.  Every design equals the plain version bit for
+// bit.
 //
 // What bounds it on this card: the kernels move only the initial and final
 // state (plus 4 or 12 bytes of action per env-step in buffer mode), so they
@@ -30,36 +46,114 @@
 // rsqrt for the CC ids, and in random mode Philox's integer multiplies and
 // xors and the non-fast-math logf, cosf and sinf of the Box-Muller pair;
 // tools/sass_ops.py counts the instructions a step always issues, per pipe,
-// from the SASS, and chip_smoke.py takes its bounds from that count.  Every
-// step loop is `#pragma unroll 1`, so that one loop iteration is one step
-// in the count.
+// from the SASS, and chip_smoke.py takes its bounds from that count: the
+// one-thread step of the same instance, the function's own work (its Wiener
+// loop, which the launch no longer takes, is built for that count); beside
+// it, the count of both roles per env-step, what the warp-specialised
+// kernel issues.  Every step loop is `#pragma unroll 1` and a producer's
+// slot loop unrolls exactly its four steps, so that one loop iteration is
+// one step, or four, in the count.
 #include <cuda_runtime.h>
 
+#include "draw_ring.cuh"
 #include "induction_step.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-template <bool FINITE, bool MECH, int NREF, bool WIENER>
-__device__ __forceinline__ void rollout_random_loop(const InductionConst& k, uint2 key, int e,
-                                                    int n_steps, InductionState& x,
-                                                    RefRows<NREF>& refs, float& reward,
-                                                    float& terms) {
-#pragma unroll 1
-  for (int t = 0; t < n_steps; ++t) {
-    const InductionStepOut o = ind_random_step<FINITE, MECH, NREF, WIENER>(
-        k, key, (uint32_t)e, (uint32_t)t, x, refs);
-    reward += o.reward;
-    terms += o.done;
-  }
-}
-
 // out_red: reward, terms, rv, rk, rl, rs
 struct RolloutOut {
   float *reward, *terms, *rv, *rk, *rl, *rs;
 };
 
+// A random kernel's results for env e: the final state, the reward sum,
+// the termination count and the final reference rows ((NREF * R, 128)
+// planes, row 0 first).
+template <bool MECH, int NREF>
+__device__ __forceinline__ void ind_store_out(const InductionState& x, float reward, float terms,
+                                              const RefRows<NREF>& refs, int n, int e,
+                                              const InductionPlanes& out_state,
+                                              const RolloutOut& o) {
+  ind_store_state<MECH>(x, out_state, (size_t)e);
+  o.reward[e] = reward;
+  o.terms[e] = terms;
+#pragma unroll
+  for (int r = 0; r < NREF; ++r) {
+    o.rv[(size_t)r * n + e] = refs.rv[r];
+    o.rk[(size_t)r * n + e] = refs.rk[r];
+    o.rl[(size_t)r * n + e] = refs.rl[r];
+    o.rs[(size_t)r * n + e] = refs.rs[r];
+  }
+}
+
+// The ring: K = 8 steps a slot, two producer warps per consumer warp, each
+// drawing four steps of a slot, at constant speed and under the speed ODE
+// alike (one producer warp left the consumers waiting on both, and K = 4
+// ran 2% to 3% slower, PERF.md).
+using IndRing = RingShape<8, 2>;
+
+// Ring words a step: the B6 action (the bits, or three duties), then
+// kRefWords per reference row (draw_ring.cuh).
+template <bool FINITE, int NREF>
+__host__ __device__ constexpr int ind_ring_words() {
+  return b6_ring_words<FINITE>() + kRefWords * NREF;
+}
+
+// What step t draws, whatever the state: the action and (WIENER) the
+// reference rows' candidates, in ind_random_step's operand order.
+template <int NREF>
+struct IndDraws {
+  B6Action a;
+  RefCandidates<NREF> c;
+};
+
+template <bool FINITE, int NREF, bool WIENER>
+__device__ __forceinline__ IndDraws<NREF> ind_draws(const InductionConst& k, uint2 key,
+                                                   uint32_t env, uint32_t t, bool odd,
+                                                   float& zb) {
+  IndDraws<NREF> d;
+  const uint4 w = drive_draw(key, env, t, DRIVE_SLOT_STEP);
+  d.a = b6_random_action<FINITE>(key, env, t, w);
+  if constexpr (WIENER) d.c = ref_candidates<NREF>(k.ref, key, env, t, w, odd, zb);
+  return d;
+}
+
+template <bool FINITE, int NREF>
+__device__ __forceinline__ RingWords<ind_ring_words<FINITE, NREF>()> ind_pack(
+    const IndDraws<NREF>& d) {
+  RingWords<ind_ring_words<FINITE, NREF>()> x;
+  pack_b6<FINITE>(d.a, 0, x);
+  pack_refs<NREF>(d.c, b6_ring_words<FINITE>(), x);
+  return x;
+}
+
+template <bool FINITE, int NREF>
+__device__ __forceinline__ IndDraws<NREF> ind_unpack(
+    const RingWords<ind_ring_words<FINITE, NREF>()>& x) {
+  IndDraws<NREF> d;
+  d.a = unpack_b6<FINITE>(x, 0);
+  d.c = unpack_refs<NREF>(x, b6_ring_words<FINITE>());
+  return d;
+}
+
+// What depends on the state: ind_random_step with the step's draws given.
+template <bool FINITE, bool MECH, int NREF, bool WIENER>
+__device__ __forceinline__ void ind_draw_step(const InductionConst& k, const IndDraws<NREF>& d,
+                                              InductionState& x, RefRows<NREF>& refs,
+                                              float& reward, float& terms) {
+  float c = 1.0f, s = 0.0f;
+  if (k.flag[IF_NEEDS_DQ]) ind_flux_dir(k, x, c, s);
+  const InductionStepOut o = ind_action_step<FINITE, MECH, NREF>(k, d.a, x, c, s, refs);
+  reward += o.reward;
+  terms += o.done;
+  if constexpr (WIENER) ref_advance_candidates<NREF>(k.ref, d.c, o.done != 0.0f, refs);
+}
+
+// One thread per env.  With Wiener references (the loop the bound counts;
+// the launch takes the warp-specialised kernel) each step draws and steps
+// as ind_random_step; with constant ones step t + 1's action is drawn
+// beside step t's physics.
 template <bool FINITE, bool MECH, int NREF>
 __global__ void induction_rollout_random_kernel(InductionConst k, uint2 key, int n, int n_steps,
                                                 InductionInPlanes in, InductionPlanes out_state,
@@ -71,21 +165,55 @@ __global__ void induction_rollout_random_kernel(InductionConst k, uint2 key, int
   ref_wiener_init<NREF>(k.ref, key, (uint32_t)e, refs);
   float reward = 0.0f, terms = 0.0f;
   if (k.flag[IF_ALL_CONST]) {
-    rollout_random_loop<FINITE, MECH, NREF, false>(k, key, e, n_steps, x, refs, reward, terms);
+    float zb = 0.0f;  // unused: constant references draw no Box-Muller pair
+    IndDraws<NREF> d = ind_draws<FINITE, NREF, false>(k, key, (uint32_t)e, 0u, false, zb);
+#pragma unroll 1
+    for (int t = 0; t < n_steps; ++t) {
+      const IndDraws<NREF> next =
+          ind_draws<FINITE, NREF, false>(k, key, (uint32_t)e, (uint32_t)(t + 1), false, zb);
+      ind_draw_step<FINITE, MECH, NREF, false>(k, d, x, refs, reward, terms);
+      d = next;
+    }
   } else {
-    rollout_random_loop<FINITE, MECH, NREF, true>(k, key, e, n_steps, x, refs, reward, terms);
+#pragma unroll 1
+    for (int t = 0; t < n_steps; ++t) {
+      const InductionStepOut s = ind_random_step<FINITE, MECH, NREF, true>(
+          k, key, (uint32_t)e, (uint32_t)t, x, refs);
+      reward += s.reward;
+      terms += s.done;
+    }
   }
-  ind_store_state<MECH>(x, out_state, (size_t)e);
-  o.reward[e] = reward;
-  o.terms[e] = terms;
-  // final reference rows, (NREF * R, 128) planes: row 0 first
-#pragma unroll
-  for (int r = 0; r < NREF; ++r) {
-    o.rv[(size_t)r * n + e] = refs.rv[r];
-    o.rk[(size_t)r * n + e] = refs.rk[r];
-    o.rl[(size_t)r * n + e] = refs.rl[r];
-    o.rs[(size_t)r * n + e] = refs.rs[r];
+  ind_store_out<MECH, NREF>(x, reward, terms, refs, n, e, out_state, o);
+}
+
+// The random rollout with Wiener references on the ring IndRing.
+template <bool FINITE, bool MECH, int NREF>
+__global__ void __launch_bounds__(IndRing::kThreads)
+    induction_rollout_ws_kernel(InductionConst k, uint2 key, int n, int n_steps,
+                                InductionInPlanes in, InductionPlanes out_state, RolloutOut o) {
+  constexpr int W = ind_ring_words<FINITE, NREF>();
+  extern __shared__ uint32_t ring[];
+  const RingThread th = ring_thread(n);
+  const int e = th.e;
+  InductionState x = ind_load_state<MECH>(in, e);
+  RefRows<NREF> refs;
+  ref_wiener_init<NREF>(k.ref, key, (uint32_t)e, refs);
+  float reward = 0.0f, terms = 0.0f;
+  const RingPipe<IndRing> pipe(n_steps);
+  const RingView<W> v{ring + th.le};
+  if (th.consumer) {
+    ring_consume(pipe, v, n_steps, [&](const RingWords<W>& w) {
+      ind_draw_step<FINITE, MECH, NREF, true>(k, ind_unpack<FINITE, NREF>(w), x, refs, reward,
+                                              terms);
+    });
+  } else {
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool odd, float& zb) {
+      return ind_pack<FINITE, NREF>(
+          ind_draws<FINITE, NREF, true>(k, key, (uint32_t)e, t, odd, zb));
+    });
   }
+  if (!th.consumer || !th.live) return;
+  ind_store_out<MECH, NREF>(x, reward, terms, refs, n, e, out_state, o);
 }
 
 template <bool FINITE, bool MECH>
@@ -106,17 +234,25 @@ __global__ void induction_rollout_buffer_kernel(InductionConst k, int n, int n_s
 
 int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
-using RandomFn = void (*)(const InductionConst&, uint2, int, int, const float* const*,
-                          float* const*, cudaStream_t);
-using BufferFn = void (*)(const InductionConst&, int, int, const float* const*, const int*,
-                          const float*, float* const*, cudaStream_t);
-
+// The warp-specialised kernel with Wiener references, the one-thread
+// kernel's constant-reference loop with constant ones.
 template <bool F, bool M, int NR>
 void launch_random(const InductionConst& k, uint2 key, int n, int n_steps, const float* const* in,
                    float* const* out, cudaStream_t st) {
   const RolloutOut o = {out[5], out[6], out[7], out[8], out[9], out[10]};
-  induction_rollout_random_kernel<F, M, NR><<<blocks(n), kThreads, 0, st>>>(
-      k, key, n, n_steps, ind_in_planes(in), ind_out_planes(out), o);
+  if (k.flag[IF_ALL_CONST]) {
+    induction_rollout_random_kernel<F, M, NR><<<blocks(n), kThreads, 0, st>>>(
+        k, key, n, n_steps, ind_in_planes(in), ind_out_planes(out), o);
+    return;
+  }
+  constexpr int bytes = ring_bytes<IndRing>(ind_ring_words<F, NR>());
+  if (bytes > 48 * 1024) {
+    cudaFuncSetAttribute(induction_rollout_ws_kernel<F, M, NR>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
+  induction_rollout_ws_kernel<F, M, NR><<<(n + kRingEnvs - 1) / kRingEnvs, IndRing::kThreads,
+                                          bytes, st>>>(k, key, n, n_steps, ind_in_planes(in),
+                                                       ind_out_planes(out), o);
 }
 
 template <bool F, bool M>
@@ -125,6 +261,11 @@ void launch_buffer(const InductionConst& k, int n, int n_steps, const float* con
   induction_rollout_buffer_kernel<F, M><<<blocks(n), kThreads, 0, st>>>(
       k, n, n_steps, ind_in_planes(in), act_i, act_f, ind_out_planes(out));
 }
+
+using RandomFn = void (*)(const InductionConst&, uint2, int, int, const float* const*,
+                          float* const*, cudaStream_t);
+using BufferFn = void (*)(const InductionConst&, int, int, const float* const*, const int*,
+                          const float*, float* const*, cudaStream_t);
 
 // indexed by ind_random_index() and ind_buffer_index()
 const RandomFn kRandom[8] = {
@@ -156,6 +297,21 @@ int induction_rollout_random(const float* consts, const int* flags, unsigned lon
   kRandom[idx](ind_load_const(consts, flags), ind_seed_key(seed), n, n_steps, in, out,
                (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// The random rollout's ring for the instance and loop of these flags
+// (draw_ring.cuh's RingLayout), or RL_DESIGN 2 and the rest zero where the
+// launch runs one thread per env with the next step's draws ahead
+// (constant references); cudaErrorInvalidValue for flags no instance
+// serves.
+int induction_ring_layout(const int* flags, int* out) {
+  if (ind_random_index(flags) < 0) return (int)cudaErrorInvalidValue;
+  if (flags[IF_ALL_CONST]) {
+    ring_layout_one_thread(2, out);
+    return 0;
+  }
+  ring_layout<IndRing>((flags[IF_FINITE] ? 1 : 3) + kRefWords * flags[IF_NREF], out);
+  return 0;
 }
 
 // actions: int32 (T, N) for a finite converter, float32 (T, 3, N) for a

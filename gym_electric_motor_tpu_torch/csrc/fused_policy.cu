@@ -43,11 +43,26 @@
 // arithmetic of the traces, recomputed each step (opaque64), is a cost of
 // this layout and stays out of the bound.  The reduction reads G once, in a
 // fixed order with no atomics, so a rerun gives the same bits.
+//
+// policy_record at PPO's width.  PPO collects 2048 envs: one thread per env
+// is 16 blocks on 16 of the card's 132 SMs, one warp per scheduler, each
+// thread working through the MLP's long per-env chain (520 shared-memory
+// loads, 480 multiply-adds, 32 tanhf a step), at 1.7% of the bound of its
+// own work (PERF.md).  On lane groups (policy_lanes.cuh) G lanes of a warp
+// serve one env: a lane computes H / G hidden units and 8 / G logits,
+// gathering the hidden values by __shfl_sync in the plain version's order.
+// At PPO's width G = 8 and lane 0 of a group samples and steps the env and
+// passes the results on; 2048 envs are then 128 blocks on 128 SMs.  With
+// more envs the launch takes four lanes an env, each of them stepping,
+// then one thread per env (record_lanes), where lane groups would issue
+// the per-env step G times over on a full card.  Every design equals the
+// plain version bit for bit.  The one-thread kernel stays the count of the
+// function's own work for the bound.
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
-#include "policy_step.cuh"
+#include "policy_lanes.cuh"
 
 namespace {
 
@@ -142,6 +157,62 @@ policy_record_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps,
     out_act[i] = o.action;
     out_reward[i] = o.reward;
     out_done[i] = o.done;
+  }
+}
+
+// policy_record on lane groups: G lanes of a warp serve one env
+// (policy_lanes.cuh), a block 128 / G envs.  Per step a lane computes H / G
+// hidden units and 8 / G logits; every lane of the group then samples and
+// steps the env on the same 8 logits and words, or with kLead lane 0 alone
+// does and passes the results on.  Lane p % G stores recorded plane p, so
+// a step costs a lane 8 / G stores.
+template <int H, int G, bool kLead>
+__global__ void __launch_bounds__(kThreads)
+policy_record_lanes_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps,
+                           const float* __restrict__ w1, const float* __restrict__ b1,
+                           const float* __restrict__ w2, const float* __restrict__ b2,
+                           const float* __restrict__ i_sd0, const float* __restrict__ i_sq0,
+                           const float* __restrict__ eps0, RecordPlanes out) {
+  constexpr int AL = kRecordPlanes / G;  // planes a lane stores
+  __shared__ __align__(16) float sw[MlpLayout<7, H>::N];
+  stage_weights<7, H>(sw, w1, b1, w2, b2);
+  // a group past the last env steps env n - 1 and stores nothing, so that
+  // every lane of the warp takes part in each shuffle
+  const int ge = (int)((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  const bool live = ge < n;
+  const int e = live ? ge : n - 1;
+  const int l = (int)(threadIdx.x % G);
+  uint32_t* dst[AL];
+#pragma unroll
+  for (int i = 0; i < AL; ++i) dst[i] = record_plane(l + G * i, out);
+  PmsmEnv st;
+  st.i_sd = i_sd0[e];
+  st.i_sq = i_sq0[e];
+  st.eps = eps0[e];
+  pmsm_init(k, key, (uint32_t)e, st);
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    compiler_barrier();
+    const float obs[7] = {q.v[Q_OMEGA_N], st.i_sd * k.v[C_INV_I_LIM], st.i_sq * k.v[C_INV_I_LIM],
+                          st.c, st.s, st.rv_d, st.rv_q};
+    float logit[kActions];
+    mlp_forward_lanes<H, G>(sw, obs, l, logit);
+    PmsmStepOut o = {};
+    if (!kLead || l == 0) {
+      const uint4 w = pmsm_draw(key, (uint32_t)e, (uint32_t)t, SLOT_STEP);
+      o = pmsm_action_step(k, sample_inverse_cdf(logit, uniform24(w.x)), st);
+      wiener_advance_pair(k, key, (uint32_t)e, (uint32_t)t, w, o.done != 0.0f, st);
+    }
+    if (kLead) share_lead(G, st, o);
+    const uint32_t v[kRecordPlanes] = {
+        __float_as_uint(st.i_sd),  __float_as_uint(st.i_sq),  __float_as_uint(st.eps),
+        __float_as_uint(o.ref_d),  __float_as_uint(o.ref_q),  (uint32_t)o.action,
+        __float_as_uint(o.reward), __float_as_uint(o.done)};
+    const size_t idx = (size_t)t * n + e;
+#pragma unroll
+    for (int i = 0; i < AL; ++i) {
+      if (live) dst[i][idx] = record_value(l + G * i, v);
+    }
   }
 }
 
@@ -341,6 +412,43 @@ bool with_hidden(int hidden, Fn&& fn) {
   }
 }
 
+// The SMs of the current device, read once per device.
+int device_sms() {
+  static int sms[16] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 0;
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
+
+// The lanes an env of policy_record's launch over n envs: eight (lane 0
+// stepping) while that launch puts at most one block on each SM, four
+// (every lane stepping) while that one puts at most three, else one thread
+// per env.  Measured at H 32 and 256 steps on an H100 (PERF.md, §5 slice
+// 14): at 2048 envs (128 blocks) eight lanes with lane 0 stepping took
+// 0.39 of one thread's time, every lane stepping 0.47, four lanes 0.47; at
+// 4096 to 12288 envs (128 to 384 blocks) four lanes were the fastest
+// design; at 16384 one thread per env already puts a block on 128 of the
+// SMs and lane groups issue the per-env step G times over (four lanes took
+// 1.01 times its time, eight 1.49).
+int record_lanes(int n) {
+  const long long sms = device_sms();
+  if ((long long)blocks(n) * 8 <= sms) return 8;
+  if ((long long)blocks(n) * 4 <= 3 * sms) return 4;
+  return 1;
+}
+
+template <int H, int G, bool kLead>
+void launch_record_lanes(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps,
+                         const float* w1, const float* b1, const float* w2, const float* b2,
+                         const float* i_sd0, const float* i_sq0, const float* eps0,
+                         const RecordPlanes& out, cudaStream_t s) {
+  const long long threads = (long long)n * G;
+  policy_record_lanes_kernel<H, G, kLead><<<(int)((threads + kThreads - 1) / kThreads), kThreads,
+                                            0, s>>>(k, q, key, n, n_steps, w1, b1, w2, b2, i_sd0,
+                                                    i_sq0, eps0, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -384,14 +492,38 @@ int policy_record(const float* consts, unsigned long long seed, int n, int n_ste
   const PolicyConst q = load_policy_const(consts);
   const uint2 key = seed_key(seed);
   cudaStream_t s = (cudaStream_t)stream;
+  const int g = record_lanes(n);
+  float* planes[kRecordPlanes] = {out_isd, out_isq, out_eps, out_refd, out_refq,
+                                  reinterpret_cast<float*>(out_act), out_reward, out_done};
+  RecordPlanes out;
+  for (int j = 0; j < kRecordPlanes; ++j) out.p[j] = reinterpret_cast<uint32_t*>(planes[j]);
   const bool ok = with_hidden(hidden, [&](auto hc) {
     constexpr int H = decltype(hc)::value;
-    policy_record_kernel<H><<<blocks(n), kThreads, 0, s>>>(
-        k, q, key, n, n_steps, w1, b1, w2, b2, i_sd0, i_sq0, eps0, out_isd, out_isq, out_eps,
-        out_refd, out_refq, out_act, out_reward, out_done);
+    if (g == 8) {
+      launch_record_lanes<H, 8, true>(k, q, key, n, n_steps, w1, b1, w2, b2, i_sd0, i_sq0, eps0,
+                                      out, s);
+    } else if (g == 4) {
+      launch_record_lanes<H, 4, false>(k, q, key, n, n_steps, w1, b1, w2, b2, i_sd0, i_sq0, eps0,
+                                       out, s);
+    } else {
+      policy_record_kernel<H><<<blocks(n), kThreads, 0, s>>>(
+          k, q, key, n, n_steps, w1, b1, w2, b2, i_sd0, i_sq0, eps0, out_isd, out_isq, out_eps,
+          out_refd, out_refq, out_act, out_reward, out_done);
+    }
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The launch of policy_record over n envs on the current device: out =
+// (lanes an env, lane 0 alone stepping, blocks of kThreads, the card's SMs).
+int policy_record_layout(int n, int* out) {
+  const int g = record_lanes(n);
+  out[0] = g;
+  out[1] = g == 8;
+  out[2] = (int)(((long long)n * g + kThreads - 1) / kThreads);
+  out[3] = device_sms();
+  return 0;
 }
 
 int reinforce_rollout(const float* consts, unsigned long long seed, int n, int n_steps,

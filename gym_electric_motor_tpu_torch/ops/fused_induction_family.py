@@ -13,7 +13,8 @@ step of ``csrc/induction_step.cuh``:
 ``induction_rollout_random``  T random-action steps, reduced to the final
                               state, reward sums, termination counts and
                               the final reference rows
-                              (``csrc/fused_induction.cu``)
+                              (``csrc/fused_induction.cu``; warp-specialised
+                              with Wiener references)
 ``induction_rollout_buffer``  T steps of a given action buffer,
                               deterministic (``csrc/fused_induction.cu``)
 ``induction_record_random``   the random step, every step recorded
@@ -465,14 +466,24 @@ def induction_rollout_random(c: InductionConsts, seed: int, states, n_steps: int
     device, R = check_planes(c, states)
     if device.type == "cpu":
         return induction_rollout_random_plain(c, seed, tuple(states), n_steps)
+    outs = _rollout_random_launch(c, seed, states, n_steps, R * LANE)
+    return tuple(x.reshape(-1, LANE) for x in outs)
 
-    def plane(rows=1):
-        return torch.empty((rows * R, LANE), dtype=torch.float32, device=device)
-    outs = [plane() for _ in range(c.n_state + 2)] + [plane(c.n_ref) for _ in range(4)]
+
+def _rollout_random_launch(c, seed, states, n_steps, n_envs):
+    """The random rollout's kernel on the first ``n_envs`` envs of the
+    planes, its outputs flat: each state plane, the reward sums and
+    termination counts ``(n_envs,)``, the reference rows ``(n_ref *
+    n_envs,)``, row 0 first."""
+    device = states[0].device
+    outs = ([torch.empty(n_envs, dtype=torch.float32, device=device)
+             for _ in range(c.n_state + 2)]
+            + [torch.empty(c.n_ref * n_envs, dtype=torch.float32, device=device)
+               for _ in range(4)])
     _launch("induction_rollout_random", device, c.host.ctypes.data, c.flags.ctypes.data,
-            seed_u64(seed), R * LANE, int(n_steps), ptr_array(_with_omega(c, states)),
+            seed_u64(seed), n_envs, int(n_steps), ptr_array(_with_omega(c, states)),
             ptr_array(_with_omega(c, outs)))
-    return tuple(outs)
+    return outs
 
 
 def induction_rollout_buffer(c: InductionConsts, states, actions):

@@ -22,7 +22,8 @@ and one kernel per family the universal recorder's (``UNIVERSAL_KERNELS``:
                            sums and termination counts
 ``policy_record``          the categorical, Wiener step with the 7-feature
                            observation, every step recorded (PPO
-                           collection)
+                           collection; at PPO's width eight lanes of a
+                           warp an env, ``policy_record_layout``)
 ``reinforce_rollout``      the 6-feature step with Gumbel-max or greedy
                            actions and the policy gradient accumulated per
                            env from eligibility traces
@@ -372,6 +373,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "policy_rollout": [_P, ctypes.c_uint64, _I, _I, _I, _I, _I] + [_P] * 14 + [_P],
     "policy_record": [_P, ctypes.c_uint64, _I, _I, _I] + [_P] * 15 + [_P],
+    "policy_record_layout": [_I, _P],
     "reinforce_rollout": ([_P, ctypes.c_uint64, _I, _I, _I, _I, _I, ctypes.c_float]
                           + [_P] * 17 + [_P]),
     "reinforce_reduce": [_I, _I, _P, _P, _P],
@@ -458,12 +460,41 @@ def policy_record(consts: PolicyConsts, seed: int, w1, b1, w2, b2, i_sd0, i_sq0,
     _weights(7, w1, b1, w2, b2, device)
     if device.type == "cpu":
         return policy_record_plain(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, n_steps)
-    shape = (int(n_steps), R, LANE)
-    outs = [torch.empty(shape, dtype=torch.int32 if j == 5 else torch.float32, device=device)
-            for j in range(8)]
-    _launch("policy_record", device, consts.host.ctypes.data, int(seed) & 0xFFFFFFFFFFFFFFFF,
-            R * LANE, int(n_steps), b1.shape[0], *_ptrs(w1, b1, w2, b2, i_sd0, i_sq0, eps0, *outs))
-    return tuple(outs)
+    outs = _record_launch(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, n_steps, R * LANE)
+    LAUNCHES["policy_record"] += 1
+    return tuple(x.reshape(int(n_steps), R, LANE) for x in outs)
+
+
+def _record_launch(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, n_steps, n_envs):
+    """policy_record's kernel on the first ``n_envs`` envs of the planes:
+    the 8 outputs, each ``(T, n_envs)``; not counted in ``LAUNCHES``."""
+    device = i_sd0.device
+    outs = [torch.empty((int(n_steps), n_envs), dtype=torch.int32 if j == 5 else torch.float32,
+                        device=device) for j in range(8)]
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.policy_record(consts.host.ctypes.data, int(seed) & 0xFFFFFFFFFFFFFFFF, n_envs,
+                               int(n_steps), b1.shape[0],
+                               *_ptrs(w1, b1, w2, b2, i_sd0, i_sq0, eps0, *outs), stream)
+    if rc != 0:
+        raise RuntimeError(f"policy_record kernel launch failed: "
+                           f"{lib.gemx_policy_error_string(rc).decode()}")
+    return outs
+
+
+def policy_record_layout(n_envs):
+    """The launch of ``policy_record`` over ``n_envs`` envs on the current
+    card (csrc/fused_policy.cu, ``record_lanes``): its lanes an env (8, 4 or
+    1), whether lane 0 of a group alone samples and steps, its blocks of 128
+    threads and the card's SMs, and a name for the design."""
+    out = (ctypes.c_int * 4)()
+    _lib().policy_record_layout(int(n_envs), out)
+    lanes, lead, blocks, sms = out
+    design = ("one thread per env" if lanes == 1 else
+              f"{lanes} lanes an env, " + ("lane 0 stepping" if lead else "every lane stepping"))
+    return {"design": design, "lanes": lanes, "lead_lane_steps": bool(lead), "blocks": blocks,
+            "sms": sms}
 
 
 def reinforce_rollout(consts: PolicyConsts, seed: int, baseline, w1, b1, w2, b2, i_sd0, i_sq0,

@@ -719,3 +719,100 @@ def test_cuda_dc_and_eesm_rollouts_equal_plain_versions_bit_for_bit(family, env_
             assert bool(same.all()), f"T={T}: output {j} differs in {int((~same).sum())} elements"
         assert float(got[c.n_state + 1][0, hot]) >= 1.0  # the violating env reset
     assert {k: v for k, v in mod.LAUNCHES.items() if v} == {name: 3}
+
+
+# policy_record's widths: a partial lane group's block, PPO's 2048 envs
+# (eight lanes an env on an H100), a partial block past it (four lanes) and
+# a full card (one thread per env)
+POLICY_RECORD_CASES = [(h, n) for h in (8, 16, 32) for n in (1, 37, 2048, 2051, 16384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,n", POLICY_RECORD_CASES,
+                         ids=[f"H{h}-n{n}" for h, n in POLICY_RECORD_CASES])
+def test_cuda_policy_record_equals_plain_version_bit_for_bit(hidden, n):
+    """policy_record (eight lanes of a warp an env with lane 0 stepping, four
+    lanes each stepping, or one thread per env, by the launch's width rule)
+    equals policy_record_plain bit for bit in every env and every output
+    (NaN where the plain version has NaN), for 1, 2 and 64 steps.  Some envs
+    start outside the current limit and reset at once; env 0 starts at
+    three times it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+
+    dev = torch.device("cuda")
+    env = gt.make_functional("Finite-CC-PMSM-v0", device=dev, state_filter=fp.STATE_FILTER)
+    consts = fp.PolicyConsts(env)
+    rng = np.random.default_rng(31)
+    w = [torch.as_tensor((rng.normal(size=k) * s).astype(np.float32), device=dev)
+         for k, s in ((7 * hidden, 0.5), (hidden, 0.1), (hidden * 8, 0.5), (8, 0.1))]
+    layout = fp.policy_record_layout(n)
+    blocks = -(-n // 128)
+    lanes = 8 if blocks * 8 <= layout["sms"] else 4 if blocks * 4 <= 3 * layout["sms"] else 1
+    assert (layout["lanes"], layout["lead_lane_steps"]) == (lanes, lanes == 8)
+    i_lim = 1.0 / float(consts.f["inv_i_lim"])
+    R = -(-n // 128)
+    start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32)
+             for lo, hi in ((-i_lim, i_lim), (-i_lim, i_lim), (0, 2 * np.pi))]
+    start[0][0, 0] = 3.0 * i_lim
+    start = [torch.as_tensor(x, device=dev) for x in start]
+    for T in (1, 2, 64):
+        got = fp._record_launch(consts, 3, *w, *start, T, n)
+        torch.cuda.synchronize()
+        want = fp.policy_record_plain(consts, 3, *w, *start, T)
+        for j, (g, x) in enumerate(zip(got, want)):
+            x = x.reshape(T, R * 128)[:, :n]
+            assert g.shape == x.shape and g.dtype == x.dtype, (T, j)
+            same = (g == x) | (torch.isnan(g) & torch.isnan(x))
+            assert bool(same.all()), f"T={T}: output {j} differs in {int((~same).sum())}"
+        assert float(got[7][0, 0]) == 1.0  # env 0 reset at its first step
+
+
+SCIM_BIT_CASES = [(i, r) for i in gt.SCIM_ENV_IDS for r in ("wiener", "const")]
+SCIM_CONST_REFS = {"CC": [("i_sd", 0.1), ("i_sq", -0.2)], "TC": [("torque", 0.3)],
+                   "SC": [("omega", 0.2)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,refs", SCIM_BIT_CASES, ids=[f"{i}-{r}" for i, r in SCIM_BIT_CASES])
+def test_cuda_induction_rollout_equals_plain_version_bit_for_bit(env_id, refs):
+    """induction_rollout_random (producer and consumer warps over a
+    shared-memory ring of K = 8 steps a slot with Wiener references, one
+    thread per env drawing the next step's action ahead with constant ones)
+    equals its plain version bit for bit in every env and every output (NaN
+    where the plain version has NaN), for 1, 129 and 2048 envs (one partial
+    block, a partial second block, full blocks) and 1, K - 1, K + 1 and 200
+    steps, so that the ring stops in every place of a slot.  Envs 0 and 5
+    start at five times the current limit and reset at their first step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
+
+    dev = torch.device("cuda")
+    kw = {}
+    if refs == "const":
+        kw["reference_generator"] = rg.ReferenceSpec(
+            [rg.ConstReference(n, v) for n, v in SCIM_CONST_REFS[env_id.split("-")[1]]])
+    c = indf.InductionConsts(gt.make_functional(env_id, device=dev, **kw))
+    assert c.all_const == (refs == "const")
+    rng = np.random.default_rng(29)
+    i_lim = float(c.f["inv_ilim2"]) ** -0.5
+    for n in (1, 129, 2048):
+        R = -(-n // 128)
+        bounds = ([(0, 100)] if c.mech else []) + [(-0.5 * i_lim, 0.5 * i_lim)] * 2 + [(-0.5, 0.5)] * 2
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32) for lo, hi in bounds]
+        for hot in (0, 5):
+            start[-4].reshape(-1)[hot] = 5.0 * i_lim
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        for T in (1, 7, 9, 200):
+            want = indf.induction_rollout_random_plain(c, 7, start, T)
+            want = ([x.reshape(-1)[:n] for x in want[:c.n_state + 2]]
+                    + [x.reshape(c.n_ref, R * 128)[:, :n].reshape(-1) for x in want[c.n_state + 2:]])
+            got = indf._rollout_random_launch(c, 7, start, T, n)
+            torch.cuda.synchronize()
+            for j, (g, x) in enumerate(zip(got, want)):
+                same = (g == x) | (torch.isnan(g) & torch.isnan(x))
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[c.n_state + 1][0]) >= 1.0  # env 0 reset

@@ -265,14 +265,17 @@ def test_lane_mark_multiplies_by_the_lanes_per_env():
 def test_srm_lane_kernels_carry_their_lane_mark():
     """The SRM random rollout's lane-group kernel runs four lanes an env:
     its entries (the constant-speed ids Finite-CC and Finite-TC) carry
-    ``@lanes4`` and no other entry does; each of those ids also has an
-    unmarked one-thread entry of srm_rollout_random with the same FINITE,
-    NREF and SAT, the function's own work that the bounds count."""
+    ``@lanes4`` and, besides them, only the PPO recorder's four-lane kernel
+    carries a lane mark (``test_policy_record_lane_instance_carries_its_lane_mark``);
+    each of those ids also has an unmarked one-thread entry of
+    srm_rollout_random with the same FINITE, NREF and SAT, the function's
+    own work that the bounds count."""
     lanes = {}
     for library, instances in sass_ops.STEP_INSTANCES.items():
         for key, instance in instances.items():
             lane_kernel = key.split("/")[0] == "srm_rollout_lanes"
-            assert sass_ops.lanes_of(instance) == (4 if lane_kernel else 1), key
+            want = 4 if lane_kernel or key == "policy_record_lanes" else 1
+            assert sass_ops.lanes_of(instance) == want, key
             if lane_kernel:
                 lanes[key.split("/")[1]] = instance
     assert sorted(lanes) == ["Finite-CC-SRM-v0", "Finite-TC-SRM-v0"]
@@ -282,6 +285,23 @@ def test_srm_lane_kernels_carry_their_lane_mark():
                                          instance).groups()
         assert srm[f"srm_rollout_random/{env_id}"] == (
             f"srm_rollout_random_kernelI{finite}Lb0E{nref}{sat}"), env_id
+
+
+def test_policy_record_lane_instance_carries_its_lane_mark():
+    """The PPO recorder runs on lane groups below a full card: the entry of
+    its lane kernel with every lane stepping (LEAD 0, the design whose step
+    the count takes as issued) carries ``@lanesG`` with G its second
+    template argument, a divisor of the warp and of H (each lane holds H / G
+    hidden units), and sits beside the one-thread entry of the same H, the
+    function's own work that the bounds count."""
+    policy = sass_ops.STEP_INSTANCES["fused_policy"]
+    instance = policy["policy_record_lanes"]
+    hidden, lanes, lead = re.fullmatch(
+        r"policy_record_lanes_kernelILi(\d+)ELi(\d+)ELb(\d)E@lanes\d+", instance).groups()
+    hidden, lanes = int(hidden), int(lanes)
+    assert sass_ops.lanes_of(instance) == lanes and lead == "0"
+    assert 32 % lanes == 0 and hidden % lanes == 0 and lanes > 1
+    assert policy["policy_record"] == f"policy_record_kernelILi{hidden}E"
 
 
 # a warp-specialised kernel: the consumer's step loop (ring loads, a
@@ -364,16 +384,18 @@ def test_ws_counts_sum_the_consumer_step_and_the_producer_slot_over_its_steps():
 
 
 def test_ws_kernels_sit_beside_their_one_thread_instances():
-    """The DC and EESM random rollouts run warp-specialised with Wiener
-    references: their ``_ws`` entries carry ``@ws2`` (two producer warps per
-    consumer warp, two steps each of a four-step slot) or, under the EESM's
-    speed ODE (MECH), ``@ws4``, and no other entry carries a ``@ws`` mark;
-    each has a one-thread entry of the same template arguments, the
-    function's own work that the bounds count."""
+    """The DC, SCIM and EESM random rollouts run warp-specialised with
+    Wiener references: the DC and EESM ``_ws`` entries carry ``@ws2`` (two
+    producer warps per consumer warp, two steps each of a four-step slot)
+    or, under the EESM's speed ODE (MECH), ``@ws4`` (one), and no other
+    entry carries a ``@ws`` mark; each has a one-thread entry of the same
+    template arguments, the function's own work that the bounds count.  The
+    SCIM ring holds eight steps a slot for two producer warps, so its mark
+    is ``@ws4``, the steps a producer iteration fills."""
     seen = {}
     for instances in sass_ops.STEP_INSTANCES.values():
         for key, instance in instances.items():
-            ws = key.split("/")[0] in ("dc_rollout_ws", "eesm_rollout_ws")
+            ws = key.split("/")[0] in ("dc_rollout_ws", "eesm_rollout_ws", "induction_rollout_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
@@ -382,7 +404,9 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                 assert sub.replace("_ws_kernel", "_random_kernel", 1) == one, key
     assert seen == {"dc_rollout_ws": 2, "dc_rollout_ws/Finite-CC-PermExDc-v0": 2,
                     "eesm_rollout_ws": 4, "eesm_rollout_ws/Cont-TC-EESM-v0": 2,
-                    "eesm_rollout_ws/Finite-CC-EESM-v0": 2}
+                    "eesm_rollout_ws/Finite-CC-EESM-v0": 2,
+                    "induction_rollout_ws": 4, "induction_rollout_ws/Cont-TC-SCIM-v0": 4,
+                    "induction_rollout_ws/Finite-CC-SCIM-v0": 4}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")

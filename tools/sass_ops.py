@@ -60,17 +60,18 @@ loop nested in the step whose trip count is a launch parameter (the
 universal policy recorders' loop over the H hidden units) is counted apart
 where the instance's name ends in ``@inner``: a step then issues the outer
 count plus H times the inner one.  A kernel that runs one env on a group
-of G lanes (the SRM random rollout at constant speed, four lanes an env)
+of G lanes (the SRM random rollout at constant speed and the PPO recorder
+``policy_record`` between PPO's width and a full card, four lanes an env)
 is marked ``@lanesG``: a warp then issues a lane's count for 32 / G envs,
 so an env-step issues G times a lane's count, and ``step_ops`` multiplies
 by G.  That is what the lanes issue, work that every lane repeats
 included; the function's own work is the one-thread step's count.  A
-warp-specialised kernel (the DC and EESM random rollouts, csrc/draw_ring.cuh)
-is marked ``@wsK``: its consumer warps run a step loop (one step an
-iteration, shared-memory loads) and its producer warps a loop whose
-iteration fills a ring slot of K steps (shared-memory stores, the K steps
-unrolled); an env-step issues the consumer's count plus the producer's
-over K, and both stay beside it under ``roles``.
+warp-specialised kernel (the DC, SCIM and EESM random rollouts,
+csrc/draw_ring.cuh) is marked ``@wsK``: its consumer warps run a step
+loop (one step an iteration, shared-memory loads) and its producer warps
+a loop whose iteration fills a ring slot of K steps (shared-memory
+stores, the K steps unrolled); an env-step issues the consumer's count
+plus the producer's over K, and both stay beside it under ``roles``.
 """
 
 from __future__ import annotations
@@ -378,9 +379,16 @@ def instance_counts(funcs, kernels, where="the listing") -> dict:
 STEP_INSTANCES = {
     "fused_pmsm": {k: f"{k}_kernel" for k in ("pmsm_rollout_random", "pmsm_rollout_buffer",
                                                "pmsm_record_random", "pmsm_record_buffer")},
+    # policy_record runs on lane groups below a full card,
+    # policy_record_lanes_kernel<H, G, LEAD>: four lanes an env, every lane
+    # stepping (@lanes4: the count a step issues).  At PPO's width it runs
+    # eight lanes with lane 0 alone stepping, a divergent branch this count
+    # does not take as issued, so it has no entry.  The one-thread instance
+    # counts the function's own work
     "fused_policy": {
         "policy_rollout": "policy_rollout_kernelILi16ELb0ELb1E",  # H 16, categorical, Wiener
         "policy_record": "policy_record_kernelILi32E",  # H 32
+        "policy_record_lanes": "policy_record_lanes_kernelILi32ELi4ELb0E@lanes4",
         "reinforce_rollout": "reinforce_rollout_kernelILi16ELb0ELb1E",
         "reinforce_reduce": "reinforce_reduce_kernel",
     },
@@ -422,13 +430,24 @@ STEP_INSTANCES = {
     },
     # <FINITE, MECH, NREF>: Cont-SC-SCIM-v0 (0, 1, 1) for each kernel, and
     # Cont-TC-SCIM-v0 (0, 0, 1) and Finite-CC-SCIM-v0 (1, 0, 2) for the
-    # random ones
+    # random ones.  With Wiener references the random rollout runs
+    # induction_rollout_ws_kernel<FINITE, MECH, NREF>, as the DC and EESM
+    # ones (K = 8, two producer warps per consumer warp, four steps a
+    # producer iteration: @ws4); with constant ones the one-thread kernel's
+    # second loop, which draws the next step's action ahead (timed on
+    # Cont-TC-SCIM-v0, #2).  The one-thread kernel's Wiener loop, which the
+    # launch does not take, counts the function's own work
     "fused_induction": {
         "induction_rollout_random": "induction_rollout_random_kernelILb0ELb1ELi1E",
         "induction_rollout_buffer": "induction_rollout_buffer_kernelILb0ELb1E",
         "induction_rollout_random/Cont-TC-SCIM-v0": "induction_rollout_random_kernelILb0ELb0ELi1E",
         "induction_rollout_random/Finite-CC-SCIM-v0":
             "induction_rollout_random_kernelILb1ELb0ELi2E",
+        "induction_rollout_ws": "induction_rollout_ws_kernelILb0ELb1ELi1E@ws4",
+        "induction_rollout_ws/Cont-TC-SCIM-v0": "induction_rollout_ws_kernelILb0ELb0ELi1E@ws4",
+        "induction_rollout_ws/Finite-CC-SCIM-v0": "induction_rollout_ws_kernelILb1ELb0ELi2E@ws4",
+        "induction_rollout_random/Cont-TC-SCIM-v0/const":
+            "induction_rollout_random_kernelILb0ELb0ELi1E#2",
     },
     "fused_induction_record": {
         "induction_record_random": "induction_record_random_kernelILb0ELb1ELi1E",
