@@ -1,5 +1,6 @@
-// The warp-specialised random rollouts of the DC, SCIM and EESM families
-// (fused_dc.cu, fused_induction.cu, fused_eesm.cu): producer warps compute every value of a
+// The warp-specialised random rollouts of the DC, SCIM, EESM and synchronous
+// families (fused_dc.cu, fused_induction.cu, fused_eesm.cu, fused_sync.cu):
+// producer warps compute every value of a
 // step that does not depend on the state into a shared-memory ring, and
 // consumer warps run the step, one thread per env, reading those values.
 //
@@ -273,9 +274,9 @@ __device__ __forceinline__ RefCandidates<NREF> unpack_refs(const RingWords<W>& x
   return c;
 }
 
-// A B6 bridge's action in the ring (the SCIM random rollout's; the sync
-// and DFIM families draw the same B6Action): the 3 bits in one word
-// (finite), or the three duty commands' float bits (continuous).
+// A B6 bridge's action in the ring (the SCIM's and the synchronous
+// family's random rollouts): the 3 bits in one word (finite), or the three
+// duty commands' float bits (continuous).
 template <bool FINITE>
 __host__ __device__ constexpr int b6_ring_words() {
   return FINITE ? 1 : 3;
@@ -305,6 +306,49 @@ __device__ __forceinline__ B6Action unpack_b6(const RingWords<W>& x, int j0) {
     a.c = __uint_as_float(x.w[j0 + 2]);
   }
   return a;
+}
+
+// What step t of a B6 bridge's random rollout draws, whatever the state
+// (the SCIM's and the synchronous family's): the action and (WIENER) the
+// reference rows' candidates, in the one-thread step's operand order; in
+// the ring the action's b6_ring_words, then kRefWords per row.
+template <int NREF>
+struct B6Draws {
+  B6Action a;
+  RefCandidates<NREF> c;
+};
+
+template <bool FINITE, int NREF>
+__host__ __device__ constexpr int b6_draw_words() {
+  return b6_ring_words<FINITE>() + kRefWords * NREF;
+}
+
+template <bool FINITE, int NREF, bool WIENER, class RC>
+__device__ __forceinline__ B6Draws<NREF> b6_draws(const RC& k, uint2 key, uint32_t env,
+                                                  uint32_t t, bool odd, float& zb) {
+  B6Draws<NREF> d;
+  const uint4 w = drive_draw(key, env, t, DRIVE_SLOT_STEP);
+  d.a = b6_random_action<FINITE>(key, env, t, w);
+  if constexpr (WIENER) d.c = ref_candidates<NREF>(k, key, env, t, w, odd, zb);
+  return d;
+}
+
+template <bool FINITE, int NREF>
+__device__ __forceinline__ RingWords<b6_draw_words<FINITE, NREF>()> b6_draws_pack(
+    const B6Draws<NREF>& d) {
+  RingWords<b6_draw_words<FINITE, NREF>()> x;
+  pack_b6<FINITE>(d.a, 0, x);
+  pack_refs<NREF>(d.c, b6_ring_words<FINITE>(), x);
+  return x;
+}
+
+template <bool FINITE, int NREF>
+__device__ __forceinline__ B6Draws<NREF> b6_draws_unpack(
+    const RingWords<b6_draw_words<FINITE, NREF>()>& x) {
+  B6Draws<NREF> d;
+  d.a = unpack_b6<FINITE>(x, 0);
+  d.c = unpack_refs<NREF>(x, b6_ring_words<FINITE>());
+  return d;
 }
 
 // Consumer side: ref_wiener_advance with the draws and candidates of the

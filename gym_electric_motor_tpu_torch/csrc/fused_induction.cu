@@ -93,53 +93,9 @@ __device__ __forceinline__ void ind_store_out(const InductionState& x, float rew
 // ran 2% to 3% slower, PERF.md).
 using IndRing = RingShape<8, 2>;
 
-// Ring words a step: the B6 action (the bits, or three duties), then
-// kRefWords per reference row (draw_ring.cuh).
-template <bool FINITE, int NREF>
-__host__ __device__ constexpr int ind_ring_words() {
-  return b6_ring_words<FINITE>() + kRefWords * NREF;
-}
-
-// What step t draws, whatever the state: the action and (WIENER) the
-// reference rows' candidates, in ind_random_step's operand order.
-template <int NREF>
-struct IndDraws {
-  B6Action a;
-  RefCandidates<NREF> c;
-};
-
-template <bool FINITE, int NREF, bool WIENER>
-__device__ __forceinline__ IndDraws<NREF> ind_draws(const InductionConst& k, uint2 key,
-                                                   uint32_t env, uint32_t t, bool odd,
-                                                   float& zb) {
-  IndDraws<NREF> d;
-  const uint4 w = drive_draw(key, env, t, DRIVE_SLOT_STEP);
-  d.a = b6_random_action<FINITE>(key, env, t, w);
-  if constexpr (WIENER) d.c = ref_candidates<NREF>(k.ref, key, env, t, w, odd, zb);
-  return d;
-}
-
-template <bool FINITE, int NREF>
-__device__ __forceinline__ RingWords<ind_ring_words<FINITE, NREF>()> ind_pack(
-    const IndDraws<NREF>& d) {
-  RingWords<ind_ring_words<FINITE, NREF>()> x;
-  pack_b6<FINITE>(d.a, 0, x);
-  pack_refs<NREF>(d.c, b6_ring_words<FINITE>(), x);
-  return x;
-}
-
-template <bool FINITE, int NREF>
-__device__ __forceinline__ IndDraws<NREF> ind_unpack(
-    const RingWords<ind_ring_words<FINITE, NREF>()>& x) {
-  IndDraws<NREF> d;
-  d.a = unpack_b6<FINITE>(x, 0);
-  d.c = unpack_refs<NREF>(x, b6_ring_words<FINITE>());
-  return d;
-}
-
 // What depends on the state: ind_random_step with the step's draws given.
 template <bool FINITE, bool MECH, int NREF, bool WIENER>
-__device__ __forceinline__ void ind_draw_step(const InductionConst& k, const IndDraws<NREF>& d,
+__device__ __forceinline__ void ind_draw_step(const InductionConst& k, const B6Draws<NREF>& d,
                                               InductionState& x, RefRows<NREF>& refs,
                                               float& reward, float& terms) {
   float c = 1.0f, s = 0.0f;
@@ -166,11 +122,11 @@ __global__ void induction_rollout_random_kernel(InductionConst k, uint2 key, int
   float reward = 0.0f, terms = 0.0f;
   if (k.flag[IF_ALL_CONST]) {
     float zb = 0.0f;  // unused: constant references draw no Box-Muller pair
-    IndDraws<NREF> d = ind_draws<FINITE, NREF, false>(k, key, (uint32_t)e, 0u, false, zb);
+    B6Draws<NREF> d = b6_draws<FINITE, NREF, false>(k.ref, key, (uint32_t)e, 0u, false, zb);
 #pragma unroll 1
     for (int t = 0; t < n_steps; ++t) {
-      const IndDraws<NREF> next =
-          ind_draws<FINITE, NREF, false>(k, key, (uint32_t)e, (uint32_t)(t + 1), false, zb);
+      const B6Draws<NREF> next =
+          b6_draws<FINITE, NREF, false>(k.ref, key, (uint32_t)e, (uint32_t)(t + 1), false, zb);
       ind_draw_step<FINITE, MECH, NREF, false>(k, d, x, refs, reward, terms);
       d = next;
     }
@@ -191,7 +147,7 @@ template <bool FINITE, bool MECH, int NREF>
 __global__ void __launch_bounds__(IndRing::kThreads)
     induction_rollout_ws_kernel(InductionConst k, uint2 key, int n, int n_steps,
                                 InductionInPlanes in, InductionPlanes out_state, RolloutOut o) {
-  constexpr int W = ind_ring_words<FINITE, NREF>();
+  constexpr int W = b6_draw_words<FINITE, NREF>();
   extern __shared__ uint32_t ring[];
   const RingThread th = ring_thread(n);
   const int e = th.e;
@@ -203,13 +159,13 @@ __global__ void __launch_bounds__(IndRing::kThreads)
   const RingView<W> v{ring + th.le};
   if (th.consumer) {
     ring_consume(pipe, v, n_steps, [&](const RingWords<W>& w) {
-      ind_draw_step<FINITE, MECH, NREF, true>(k, ind_unpack<FINITE, NREF>(w), x, refs, reward,
-                                              terms);
+      ind_draw_step<FINITE, MECH, NREF, true>(k, b6_draws_unpack<FINITE, NREF>(w), x, refs,
+                                              reward, terms);
     });
   } else {
     ring_produce(pipe, v, th.part, [&](uint32_t t, bool odd, float& zb) {
-      return ind_pack<FINITE, NREF>(
-          ind_draws<FINITE, NREF, true>(k, key, (uint32_t)e, t, odd, zb));
+      return b6_draws_pack<FINITE, NREF>(
+          b6_draws<FINITE, NREF, true>(k.ref, key, (uint32_t)e, t, odd, zb));
     });
   }
   if (!th.consumer || !th.live) return;
@@ -245,7 +201,7 @@ void launch_random(const InductionConst& k, uint2 key, int n, int n_steps, const
         k, key, n, n_steps, ind_in_planes(in), ind_out_planes(out), o);
     return;
   }
-  constexpr int bytes = ring_bytes<IndRing>(ind_ring_words<F, NR>());
+  constexpr int bytes = ring_bytes<IndRing>(b6_draw_words<F, NR>());
   if (bytes > 48 * 1024) {
     cudaFuncSetAttribute(induction_rollout_ws_kernel<F, M, NR>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

@@ -12,9 +12,10 @@
 //   sync_record_buffer   pallas_record.py make_fused_record_rollout, buffer mode (:147),
 //                                         for the sync family
 //
-// Design: one thread per env, the drive state, the Park rotation and the
-// reference rows in registers across an in-kernel loop over T steps.  The
-// TPU recorder's sequential chunk grid and per-chunk reseed
+// Design: the drive state, the Park rotation and the reference rows in
+// registers across an in-kernel loop over T steps, one thread per env but
+// in the random rollout with Wiener references.  The TPU recorder's
+// sequential chunk grid and per-chunk reseed
 // (pallas_record.py:206-211) do not carry over: the recorders store
 // [t, env], so a warp writes 128 contiguous bytes per signal and step.
 // Random bits come from Philox4x32-10 keyed by the seed and counted by
@@ -26,6 +27,20 @@
 // -fmad=false (ops/cuda_build.py), so each multiply and add rounds as in
 // the plain PyTorch version.
 //
+// With Wiener references the random rollout is warp-specialised
+// (draw_ring.cuh), as the SCIM's: four consumer warps run the step, one
+// thread per env (cos and sin of the angle under the speed ODE,
+// sync_action_step, the reference update by selects), and two producer
+// warps per consumer warp draw, in a double-buffered shared-memory ring of
+// K = 8 steps a slot, the B6 action (the bits, or three duties with the
+// ACTION_C call) and per row the Box-Muller draw and the candidate length,
+// sigma and reset value, 5 to 11 words a step.  The Philox calls and the
+// Box-Muller pair are a large share of the synchronous step, so taking
+// them off the consumers' dependent chain pays though the ids rarely reset
+// (PERF.md, slice 15).  The one-thread kernel's Wiener loop, which the launch
+// does not take, counts the function's own work.  Every design equals the
+// plain version bit for bit.
+//
 // What bounds it on this card: the reducing kernels move only the initial
 // and final state (plus 4 or 12 bytes of action per env-step in buffer
 // mode), so they are bound by the operations of a step: RK4 over the dq
@@ -35,10 +50,12 @@
 // always issues, per pipe, from the SASS, and chip_smoke.py takes its
 // bounds from that count.  The recorders add 4 bytes per signal and
 // env-step of HBM traffic (7 to 10 signals in random mode) and are bound by
-// it at large T.  Every step loop is `#pragma unroll 1`, so that one loop
-// iteration is one step in the SASS count.
+// it at large T.  Every step loop is `#pragma unroll 1` and a producer's
+// slot loop unrolls exactly its four steps, so that one loop iteration is
+// one step, or four, in the SASS count.
 #include <cuda_runtime.h>
 
+#include "draw_ring.cuh"
 #include "sync_step.cuh"
 
 namespace {
@@ -68,35 +85,67 @@ __device__ __forceinline__ void store_state(const SyncState& x, float* __restric
   eps[i] = x.eps;
 }
 
-template <bool FINITE, bool MECH, int NREF, bool WIENER>
-__device__ __forceinline__ void rollout_random_loop(const SyncConst& k, uint2 key, int e,
-                                                    int n_steps, SyncState& x, float& c, float& s,
-                                                    RefRows<NREF>& refs, float& reward,
-                                                    float& terms) {
-#pragma unroll 1
-  for (int t = 0; t < n_steps; ++t) {
-    const SyncStepOut o =
-        sync_random_step<FINITE, MECH, NREF, WIENER>(k, key, (uint32_t)e, (uint32_t)t, x, c, s, refs);
-    reward += o.reward;
-    terms += o.done;
+// out_red: reward, terms, rv, rk, rl, rs
+struct RolloutOut {
+  float *reward, *terms, *rv, *rk, *rl, *rs;
+};
+
+// A random kernel's results for env e: the final state, the reward sum,
+// the termination count and the final reference rows ((NREF * R, 128)
+// planes, row 0 first).
+template <bool MECH, int NREF>
+__device__ __forceinline__ void store_out(const SyncState& x, float reward, float terms,
+                                          const RefRows<NREF>& refs, int n, int e,
+                                          float* const* out_state, const RolloutOut& o) {
+  store_state<MECH>(x, out_state[0], out_state[1], out_state[2], out_state[3], (size_t)e);
+  o.reward[e] = reward;
+  o.terms[e] = terms;
+#pragma unroll
+  for (int r = 0; r < NREF; ++r) {
+    o.rv[(size_t)r * n + e] = refs.rv[r];
+    o.rk[(size_t)r * n + e] = refs.rk[r];
+    o.rl[(size_t)r * n + e] = refs.rl[r];
+    o.rs[(size_t)r * n + e] = refs.rs[r];
   }
 }
 
+// The kernel parameters of a random rollout: the state planes in and out
+// (omega or NULL first) and the reductions.
+struct RandomIo {
+  const float* in[4];
+  float* out[4];
+  RolloutOut o;
+};
+
+// What depends on the state: sync_random_step with the step's draws given
+// (under the speed ODE cos and sin of the angle, then the action step and
+// the reference advance by the candidates).
+template <bool FINITE, bool MECH, int NREF, bool WIENER>
+__device__ __forceinline__ void sync_draw_step(const SyncConst& k, const B6Draws<NREF>& d,
+                                               SyncState& x, float& c, float& s,
+                                               RefRows<NREF>& refs, float& reward,
+                                               float& terms) {
+  if (MECH) {
+    c = cosf(x.eps);
+    s = sinf(x.eps);
+  }
+  const SyncStepOut o = sync_action_step<FINITE, MECH, NREF>(k, d.a, x, c, s, refs);
+  reward += o.reward;
+  terms += o.done;
+  if constexpr (WIENER) ref_advance_candidates<NREF>(k.ref, d.c, o.done != 0.0f, refs);
+}
+
+// One thread per env.  With Wiener references (the loop the bound counts;
+// the launch takes the warp-specialised kernel) each step draws and steps
+// as sync_random_step.  With constant ones, at constant speed step t + 1's
+// action is drawn beside step t's physics; under the speed ODE the step
+// draws its own action, the faster form there (PERF.md, slice 15).
 template <bool FINITE, bool MECH, int NREF>
 __global__ void sync_rollout_random_kernel(SyncConst k, uint2 key, int n, int n_steps,
-                                           const float* __restrict__ w0,
-                                           const float* __restrict__ i_sd0,
-                                           const float* __restrict__ i_sq0,
-                                           const float* __restrict__ eps0,
-                                           float* __restrict__ out_w, float* __restrict__ out_isd,
-                                           float* __restrict__ out_isq, float* __restrict__ out_eps,
-                                           float* __restrict__ out_reward,
-                                           float* __restrict__ out_terms, float* __restrict__ out_rv,
-                                           float* __restrict__ out_rk, float* __restrict__ out_rl,
-                                           float* __restrict__ out_rs) {
+                                           RandomIo io) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  SyncState x = load_state<MECH>(w0, i_sd0, i_sq0, eps0, e);
+  SyncState x = load_state<MECH>(io.in[0], io.in[1], io.in[2], io.in[3], e);
   float c = 1.0f, s = 0.0f;
   if (!MECH) {
     c = cosf(x.eps);
@@ -105,22 +154,70 @@ __global__ void sync_rollout_random_kernel(SyncConst k, uint2 key, int n, int n_
   RefRows<NREF> refs;
   ref_wiener_init<NREF>(k.ref, key, (uint32_t)e, refs);
   float reward = 0.0f, terms = 0.0f;
-  if (k.flag[F_ALL_CONST]) {
-    rollout_random_loop<FINITE, MECH, NREF, false>(k, key, e, n_steps, x, c, s, refs, reward, terms);
+  if (k.flag[F_ALL_CONST] && MECH) {
+#pragma unroll 1
+    for (int t = 0; t < n_steps; ++t) {
+      const SyncStepOut o = sync_random_step<FINITE, MECH, NREF, false>(
+          k, key, (uint32_t)e, (uint32_t)t, x, c, s, refs);
+      reward += o.reward;
+      terms += o.done;
+    }
+  } else if (k.flag[F_ALL_CONST]) {
+    float zb = 0.0f;  // unused: constant references draw no Box-Muller pair
+    B6Draws<NREF> d = b6_draws<FINITE, NREF, false>(k.ref, key, (uint32_t)e, 0u, false, zb);
+#pragma unroll 1
+    for (int t = 0; t < n_steps; ++t) {
+      const B6Draws<NREF> next =
+          b6_draws<FINITE, NREF, false>(k.ref, key, (uint32_t)e, (uint32_t)(t + 1), false, zb);
+      sync_draw_step<FINITE, MECH, NREF, false>(k, d, x, c, s, refs, reward, terms);
+      d = next;
+    }
   } else {
-    rollout_random_loop<FINITE, MECH, NREF, true>(k, key, e, n_steps, x, c, s, refs, reward, terms);
+#pragma unroll 1
+    for (int t = 0; t < n_steps; ++t) {
+      const SyncStepOut o = sync_random_step<FINITE, MECH, NREF, true>(
+          k, key, (uint32_t)e, (uint32_t)t, x, c, s, refs);
+      reward += o.reward;
+      terms += o.done;
+    }
   }
-  store_state<MECH>(x, out_w, out_isd, out_isq, out_eps, (size_t)e);
-  out_reward[e] = reward;
-  out_terms[e] = terms;
-  // final reference rows, (NREF * R, 128) planes: row 0 first
-#pragma unroll
-  for (int r = 0; r < NREF; ++r) {
-    out_rv[(size_t)r * n + e] = refs.rv[r];
-    out_rk[(size_t)r * n + e] = refs.rk[r];
-    out_rl[(size_t)r * n + e] = refs.rl[r];
-    out_rs[(size_t)r * n + e] = refs.rs[r];
+  store_out<MECH, NREF>(x, reward, terms, refs, n, e, io.out, io.o);
+}
+
+// The random rollout with Wiener references on a ring of shape S
+// (draw_ring.cuh): producer warps draw each step's action and reference
+// candidates, consumer warps run sync_draw_step.
+template <bool FINITE, bool MECH, int NREF, class S>
+__global__ void __launch_bounds__(S::kThreads)
+    sync_rollout_ws_kernel(SyncConst k, uint2 key, int n, int n_steps, RandomIo io) {
+  constexpr int W = b6_draw_words<FINITE, NREF>();
+  extern __shared__ uint32_t ring[];
+  const RingThread th = ring_thread(n);
+  const int e = th.e;
+  SyncState x = load_state<MECH>(io.in[0], io.in[1], io.in[2], io.in[3], e);
+  float c = 1.0f, s = 0.0f;
+  if (!MECH) {
+    c = cosf(x.eps);
+    s = sinf(x.eps);
   }
+  RefRows<NREF> refs;
+  ref_wiener_init<NREF>(k.ref, key, (uint32_t)e, refs);
+  float reward = 0.0f, terms = 0.0f;
+  const RingPipe<S> pipe(n_steps);
+  const RingView<W> v{ring + th.le};
+  if (th.consumer) {
+    ring_consume(pipe, v, n_steps, [&](const RingWords<W>& w) {
+      sync_draw_step<FINITE, MECH, NREF, true>(k, b6_draws_unpack<FINITE, NREF>(w), x, c, s,
+                                               refs, reward, terms);
+    });
+  } else {
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool odd, float& zb) {
+      return b6_draws_pack<FINITE, NREF>(
+          b6_draws<FINITE, NREF, true>(k.ref, key, (uint32_t)e, t, odd, zb));
+    });
+  }
+  if (!th.consumer || !th.live) return;
+  store_out<MECH, NREF>(x, reward, terms, refs, n, e, io.out, io.o);
 }
 
 template <bool FINITE, bool MECH>
@@ -235,12 +332,40 @@ int random_index(const int* f) {
 
 int buffer_index(const int* f) { return 2 * (f[F_FINITE] != 0) + (f[F_MECH] != 0); }
 
+RandomIo random_io(const float* const* in, float* const* out) {
+  RandomIo io;
+  for (int j = 0; j < 4; ++j) {
+    io.in[j] = in[j];
+    io.out[j] = out[j];
+  }
+  io.o = {out[4], out[5], out[6], out[7], out[8], out[9]};
+  return io;
+}
+
+// The ring of the synchronous random rollout: K = 8 steps a slot, two
+// producer warps per consumer warp (the SCIM's IndRing), on every instance
+// (one producer warp was slower at constant speed and under Cont-SC's speed
+// ODE, PERF.md, slice 15).
+using SyncRing = RingShape<8, 2>;
+
+// The warp-specialised kernel with Wiener references, the one-thread
+// kernel's constant-reference loop with constant ones.
 template <bool F, bool M, int NR>
 void launch_rollout_random(const SyncConst& k, uint2 key, int n, int n_steps, const float* const* in,
                            float* const* out, cudaStream_t st) {
-  sync_rollout_random_kernel<F, M, NR><<<blocks(n), kThreads, 0, st>>>(
-      k, key, n, n_steps, in[0], in[1], in[2], in[3], out[0], out[1], out[2], out[3], out[4],
-      out[5], out[6], out[7], out[8], out[9]);
+  const RandomIo io = random_io(in, out);
+  if (k.flag[F_ALL_CONST]) {
+    sync_rollout_random_kernel<F, M, NR><<<blocks(n), kThreads, 0, st>>>(k, key, n, n_steps, io);
+    return;
+  }
+  constexpr int bytes = ring_bytes<SyncRing>(b6_draw_words<F, NR>());
+  if (bytes > 48 * 1024) {
+    cudaFuncSetAttribute(sync_rollout_ws_kernel<F, M, NR, SyncRing>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
+  sync_rollout_ws_kernel<F, M, NR, SyncRing><<<(n + kRingEnvs - 1) / kRingEnvs,
+                                               SyncRing::kThreads, bytes, st>>>(k, key, n,
+                                                                                 n_steps, io);
 }
 
 template <bool F, bool M, int NR>
@@ -310,6 +435,21 @@ int sync_rollout_random(const float* consts, const int* flags, unsigned long lon
   kRolloutRandom[idx](sync_load_const(consts, flags), seed_key(seed), n, n_steps, in, out,
                       (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// The random rollout's ring for the instance and loop of these flags
+// (draw_ring.cuh's RingLayout), or the rest zero where the launch runs one
+// thread per env (constant references): RL_DESIGN 2 at constant speed,
+// where the next step's draws are ahead, 1 under the speed ODE;
+// cudaErrorInvalidValue for flags no instance serves.
+int sync_ring_layout(const int* flags, int* out) {
+  if (random_index(flags) < 0) return (int)cudaErrorInvalidValue;
+  if (flags[F_ALL_CONST]) {
+    ring_layout_one_thread(flags[F_MECH] ? 1 : 2, out);
+    return 0;
+  }
+  ring_layout<SyncRing>((flags[F_FINITE] ? 1 : 3) + kRefWords * flags[F_NREF], out);
+  return 0;
 }
 
 // actions: int32 (T, N) for a finite converter, float32 (T, 3, N) for a

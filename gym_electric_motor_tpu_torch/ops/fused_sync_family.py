@@ -416,13 +416,23 @@ def sync_rollout_random(c: SyncConsts, seed: int, states, n_steps: int):
     device, R = check_planes(c, states)
     if device.type == "cpu":
         return sync_rollout_random_plain(c, seed, tuple(states), n_steps)
+    outs = _rollout_random_launch(c, seed, states, n_steps, R * LANE)
+    return tuple(x.reshape(-1, LANE) for x in outs)
 
-    def plane(rows=1):
-        return torch.empty((rows * R, LANE), dtype=torch.float32, device=device)
-    outs = [plane() for _ in range(c.n_state + 2)] + [plane(c.n_ref) for _ in range(4)]
+
+def _rollout_random_launch(c, seed, states, n_steps, n_envs):
+    """The random rollout's kernel on the first ``n_envs`` envs of the
+    planes, its outputs flat: each state plane, the reward sums and
+    termination counts ``(n_envs,)``, the reference rows ``(n_ref *
+    n_envs,)``, row 0 first."""
+    device = states[0].device
+    outs = ([torch.empty(n_envs, dtype=torch.float32, device=device)
+             for _ in range(c.n_state + 2)]
+            + [torch.empty(c.n_ref * n_envs, dtype=torch.float32, device=device)
+               for _ in range(4)])
     _launch("sync_rollout_random", device, c.host.ctypes.data, c.flags.ctypes.data, _seed(seed),
-            R * LANE, int(n_steps), _in_ptrs(c, states), _ptrs(_out_state(c, outs)))
-    return tuple(outs)
+            n_envs, int(n_steps), _in_ptrs(c, states), _ptrs(_out_state(c, outs)))
+    return outs
 
 
 def sync_rollout_buffer(c: SyncConsts, states, actions):

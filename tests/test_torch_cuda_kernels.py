@@ -816,3 +816,66 @@ def test_cuda_induction_rollout_equals_plain_version_bit_for_bit(env_id, refs):
                 same = (g == x) | (torch.isnan(g) & torch.isnan(x))
                 assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
             assert float(got[c.n_state + 1][0]) >= 1.0  # env 0 reset
+
+
+# the DFIM and sync random rollouts warp-specialised: (family, id,
+# references) on every id of both families
+LANE_RING_BIT_CASES = ([("dfim", i, r) for i in gt.DFIM_ENV_IDS for r in ("wiener", "const")]
+                       + [("sync", i, r) for i in gt.SYNC_ENV_IDS for r in ("wiener", "const")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,env_id,refs", LANE_RING_BIT_CASES,
+                         ids=[f"{f}-{i}-{r}" for f, i, r in LANE_RING_BIT_CASES])
+def test_cuda_dfim_and_sync_rollouts_equal_plain_versions_bit_for_bit(family, env_id, refs):
+    """dfim_rollout_random and sync_rollout_random (producer and consumer
+    warps over a shared-memory ring of K = 8 steps a slot with Wiener
+    references; one thread per env with constant ones, the sync rollout at
+    constant speed drawing the next step's action ahead) equal their plain
+    versions bit for bit in every env and every output (NaN where the plain
+    version has NaN), for 1, 17, 129 and 2048 envs (a partial warp, a
+    partial block, a partial second block, full blocks) and 1, K - 1, K + 1
+    and 200 steps, so that the ring stops in every place of a slot.  Envs 0
+    and 5 start at five times the current limit and reset at their first
+    step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
+    from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
+
+    dev = torch.device("cuda")
+    kw = {}
+    if refs == "const":
+        kw["reference_generator"] = rg.ReferenceSpec(
+            [rg.ConstReference(n, v) for n, v in SCIM_CONST_REFS[env_id.split("-")[1]]])
+    env = gt.make_functional(env_id, device=dev, **kw)
+    mod = dff if family == "dfim" else sf
+    c = dff.DfimConsts(env) if family == "dfim" else sf.SyncConsts(env)
+    assert c.all_const == (refs == "const")
+    rng = np.random.default_rng(37)
+    if family == "dfim":
+        i_lim = float(c.f["inv_ilim2"]) ** -0.5
+        bounds = [(-0.5 * i_lim, 0.5 * i_lim)] * 2 + [(-0.5, 0.5)] * 2 + [(0, 2 * np.pi)]
+    else:
+        i_lim = 1.0 / float(c.f["inv_i_lim"])
+        bounds = [(-0.6 * i_lim, 0.6 * i_lim)] * 2 + [(0, 2 * np.pi)]
+    bounds = ([(0, 100)] if c.mech else []) + bounds
+    hot = int(c.mech)  # the first current plane
+    name = f"{family}_rollout_random"
+    for n in (1, 17, 129, 2048):
+        R = -(-n // 128)
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32) for lo, hi in bounds]
+        for e in (0, 5):
+            start[hot].reshape(-1)[e] = 5.0 * i_lim
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        for T in (1, 7, 9, 200):
+            want = getattr(mod, name + "_plain")(c, 7, start, T)
+            want = ([x.reshape(-1)[:n] for x in want[:c.n_state + 2]]
+                    + [x.reshape(c.n_ref, R * 128)[:, :n].reshape(-1) for x in want[c.n_state + 2:]])
+            got = mod._rollout_random_launch(c, 7, start, T, n)
+            torch.cuda.synchronize()
+            for j, (g, x) in enumerate(zip(got, want)):
+                same = (g == x) | (torch.isnan(g) & torch.isnan(x))
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[c.n_state + 1][0]) >= 1.0  # env 0 reset

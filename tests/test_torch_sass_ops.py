@@ -140,6 +140,29 @@ def _template_arity(source, kernel):
     return 0 if m.group(1) is None else m.group(1).count(",") + 1
 
 
+def _mangled_args(args, i):
+    """Parse a mangled template argument list from ``args[i]`` (just after
+    its ``I``): ``(count, index after its closing E)``; literals ``L...E``
+    and named types, a named type with its own arguments counting once."""
+    n = 0
+    while i < len(args) and args[i] != "E":
+        if args[i] == "L":
+            i = args.index("E", i) + 1
+        else:
+            m = re.match(r"\d+", args[i:])
+            i += len(m.group()) + int(m.group())
+            if i < len(args) and args[i] == "I":
+                i = _mangled_args(args, i + 1)[1]
+        n += 1
+    return n, i + 1
+
+
+def _mangled_arity(args):
+    """The number of template arguments in a mangled list ``I...E`` (its
+    closing ``E`` may be cut off)."""
+    return _mangled_args(args, 1 if args.startswith("I") else 0)[0]
+
+
 CSRC = Path(__file__).resolve().parent.parent / "gym_electric_motor_tpu_torch" / "csrc"
 
 
@@ -148,16 +171,17 @@ def test_step_instances_name_kernels_of_their_sources(library):
     """Every ``STEP_INSTANCES`` entry parses: a kernel defined in
     ``csrc/<library>.cu`` with as many template arguments in the mangled
     substring as the kernel has template parameters, and at most one loop
-    mark (``#2``, ``@inner``, a lane group's ``@lanes4`` or a
+    mark (``#2``, ``@inner``, a lane group's ``@lanesG`` or a
     warp-specialised kernel's ``@ws2`` or ``@ws4``)."""
     source = (CSRC / f"{library}.cu").read_text()
     for key, instance in sass_ops.STEP_INSTANCES[library].items():
         sub, _, nested = instance.partition("@")
         sub, mark, second = sub.partition("#")
-        assert nested in ("", "inner", "lanes4", "ws2", "ws4") and second in ("", "2"), key
+        assert nested in ("", "inner", "lanes2", "lanes4", "lanes8", "ws2", "ws4") \
+            and second in ("", "2"), key
         assert not (nested and mark), key
         kernel, _sep, args = sub.partition("_kernel")
-        n_args = args.count("Lb") + args.count("Li")
+        n_args = _mangled_arity(args)
         assert _template_arity(source, kernel + "_kernel") == n_args, key
         assert key.split("/")[0] == kernel, key
 
@@ -258,6 +282,9 @@ def test_lane_mark_multiplies_by_the_lanes_per_env():
     marked = counts[name + "@lanes4"]
     assert marked["lanes"] == 4 and marked["per_lane"]["always"] == lane
     assert marked["always"] == {k: 4 * v for k, v in lane.items()}
+    # FFMA, SHFL, FADD, ISETP: an FFMA is one instruction
+    assert counts[name]["insns"]["always"] == 4 and marked["insns"]["always"] == 16
+    assert marked["per_lane"]["insns"]["always"] == 4
     with pytest.raises(ValueError, match="divide"):
         sass_ops.lanes_of(name + "@lanes3")
 
@@ -265,16 +292,17 @@ def test_lane_mark_multiplies_by_the_lanes_per_env():
 def test_srm_lane_kernels_carry_their_lane_mark():
     """The SRM random rollout's lane-group kernel runs four lanes an env:
     its entries (the constant-speed ids Finite-CC and Finite-TC) carry
-    ``@lanes4`` and, besides them, only the PPO recorder's four-lane kernel
-    carries a lane mark (``test_policy_record_lane_instance_carries_its_lane_mark``);
-    each of those ids also has an unmarked one-thread entry of
+    ``@lanes4`` and, besides them, only the PPO recorder's lane kernels
+    (``test_policy_record_lane_instance_carries_its_lane_mark``) carry a
+    lane mark; each of those ids also has an unmarked one-thread entry of
     srm_rollout_random with the same FINITE, NREF and SAT, the function's
     own work that the bounds count."""
+    marks = {"srm_rollout_lanes": 4, "policy_record_lanes": 4, "policy_record_lanes/8": 8}
     lanes = {}
     for library, instances in sass_ops.STEP_INSTANCES.items():
         for key, instance in instances.items():
             lane_kernel = key.split("/")[0] == "srm_rollout_lanes"
-            want = 4 if lane_kernel or key == "policy_record_lanes" else 1
+            want = marks.get(key, marks.get(key.split("/")[0], 1))
             assert sass_ops.lanes_of(instance) == want, key
             if lane_kernel:
                 lanes[key.split("/")[1]] = instance
@@ -302,6 +330,10 @@ def test_policy_record_lane_instance_carries_its_lane_mark():
     assert sass_ops.lanes_of(instance) == lanes and lead == "0"
     assert 32 % lanes == 0 and hidden % lanes == 0 and lanes > 1
     assert policy["policy_record"] == f"policy_record_kernelILi{hidden}E"
+    # at PPO's width eight lanes, lane 0 stepping (LEAD 1): a branch on the
+    # lane, counted as issued (test_branch_on_the_lane_counts_as_issued)
+    assert policy["policy_record_lanes/8"] == (
+        f"policy_record_lanes_kernelILi{hidden}ELi8ELb1E@lanes8")
 
 
 # a warp-specialised kernel: the consumer's step loop (ring loads, a
@@ -384,29 +416,104 @@ def test_ws_counts_sum_the_consumer_step_and_the_producer_slot_over_its_steps():
 
 
 def test_ws_kernels_sit_beside_their_one_thread_instances():
-    """The DC, SCIM and EESM random rollouts run warp-specialised with
+    """The sync, DC, SCIM, EESM and DFIM random rollouts run warp-specialised with
     Wiener references: the DC and EESM ``_ws`` entries carry ``@ws2`` (two
     producer warps per consumer warp, two steps each of a four-step slot)
     or, under the EESM's speed ODE (MECH), ``@ws4`` (one), and no other
     entry carries a ``@ws`` mark; each has a one-thread entry of the same
     template arguments, the function's own work that the bounds count.  The
-    SCIM ring holds eight steps a slot for two producer warps, so its mark
-    is ``@ws4``, the steps a producer iteration fills."""
+    SCIM, sync and DFIM rings hold eight steps a slot for two producer
+    warps, so their mark is ``@ws4``, the steps a producer iteration
+    fills."""
     seen = {}
     for instances in sass_ops.STEP_INSTANCES.values():
         for key, instance in instances.items():
-            ws = key.split("/")[0] in ("dc_rollout_ws", "eesm_rollout_ws", "induction_rollout_ws")
+            ws = key.split("/")[0] in ("dc_rollout_ws", "eesm_rollout_ws", "induction_rollout_ws",
+                                       "sync_rollout_ws", "dfim_rollout_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
                 one = instances[key.replace("_ws", "_random", 1)]
-                sub = instance.partition("@")[0]
+                # the sync ring's shape is a template argument of its own
+                sub = instance.partition("@")[0].split("9RingShape")[0]
                 assert sub.replace("_ws_kernel", "_random_kernel", 1) == one, key
     assert seen == {"dc_rollout_ws": 2, "dc_rollout_ws/Finite-CC-PermExDc-v0": 2,
                     "eesm_rollout_ws": 4, "eesm_rollout_ws/Cont-TC-EESM-v0": 2,
                     "eesm_rollout_ws/Finite-CC-EESM-v0": 2,
                     "induction_rollout_ws": 4, "induction_rollout_ws/Cont-TC-SCIM-v0": 4,
-                    "induction_rollout_ws/Finite-CC-SCIM-v0": 4}
+                    "induction_rollout_ws/Finite-CC-SCIM-v0": 4,
+                    "sync_rollout_ws": 4, "sync_rollout_ws/Finite-CC-PMSM-v0": 4,
+                    "sync_rollout_ws/Cont-CC-PMSM-v0": 4,
+                    "dfim_rollout_ws": 4, "dfim_rollout_ws/Cont-CC-DFIM-v0": 4,
+                    "dfim_rollout_ws/Finite-CC-DFIM-v0": 4}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
+
+
+# a step loop with a branch on the lane: P0 (lane index & 7 != 0) is made
+# before the loop from SR_TID.X and immediates alone, so the block that
+# lanes 0, 8, 16 and 24 take (0x40-0x50) runs in every warp at every step;
+# the block under the branch on data (0x80) stays conditional
+SASS_LANE_BRANCH = """
+        Function : _Z5lanesPfi
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LOP3.LUT P0, RZ, R0, 0x7, RZ, 0xc0, !PT ;
+        /*0020*/                   FFMA R2, R2, R3, R4 ;
+        /*0030*/               @P0 BRA 0x60 ;
+        /*0040*/                   MUFU.EX2 R5, R2 ;
+        /*0050*/                   FADD R2, R2, R5 ;
+        /*0060*/                   FSETP.GT.AND P1, PT, R2, RZ, PT ;
+        /*0070*/               @P1 BRA 0x90 ;
+        /*0080*/                   IMAD.WIDE.U32 R6, R5, 0x3, RZ ;
+        /*0090*/                   ISETP.NE.AND P2, PT, R0, UR4, PT ;
+        /*00a0*/               @P2 BRA 0x20 ;
+        /*00b0*/                   EXIT ;
+"""
+
+
+def test_branch_on_the_lane_counts_as_issued():
+    """A block under a branch on the lane runs in every warp at every step
+    (a warp issues both sides), so it counts as always issued; a block
+    under a branch on data stays conditional."""
+    counts = sass_ops.loop_counts(sass_ops.functions(SASS_LANE_BRANCH)["_Z5lanesPfi"])
+    zero = dict.fromkeys(sass_ops.CLASSES, 0)
+    assert counts["lane_branches"] == 1
+    assert counts["always"] == {**zero, "fp32": 3, "alu": 2, "xu": 1}
+    assert counts["conditional"] == {**zero, "imad": 1}
+    # FFMA, MUFU, FADD, FSETP, ISETP
+    assert counts["insns"] == {"always": 5, "conditional": 1}
+
+
+@pytest.mark.parametrize("define", [
+    # the predicate made again in the loop from data before the branch
+    "FSETP.GEU.AND P0, PT, R2, RZ, PT",
+    # the lane index mixed with data
+    "ISETP.NE.AND P0, PT, R0, R2, PT",
+    # the lane index mixed with a uniform register (a block's, not a lane's)
+    "ISETP.NE.AND P0, PT, R0, UR5, PT",
+])
+def test_branch_on_data_stays_conditional(define):
+    """A predicate with a definition that reads data (or a uniform
+    register) is no branch on the lane: the block under it stays
+    conditional, as before."""
+    sass = SASS_LANE_BRANCH.replace("FFMA R2, R2, R3, R4 ;", define + " ;", 1).replace(
+        "/*0010*/                   LOP3.LUT P0, RZ, R0, 0x7, RZ, 0xc0, !PT ;",
+        "/*0010*/                   FFMA R2, R2, R3, R4 ;", 1)
+    counts = sass_ops.loop_counts(sass_ops.functions(sass)["_Z5lanesPfi"])
+    zero = dict.fromkeys(sass_ops.CLASSES, 0)
+    assert counts["lane_branches"] == 0
+    assert counts["conditional"] == {**zero, "fp32": 1, "imad": 1, "xu": 1}
+
+
+def test_issue_slot_floor_is_instructions_at_four_warp_instructions_per_sm_and_clock():
+    """The issue-slot floor: every counted instruction of every env-step
+    at one warp-instruction per scheduler and clock, 4 x 32
+    thread-instructions per SM and clock; 362 instructions a step (an
+    estimate of the Cont-SC-PMSM step) at 16384 x 65536 on 132 SMs at
+    1.98 GHz take 11.62 ms."""
+    assert sass_ops.ISSUE_PER_SM_CLOCK == 128
+    env_steps = 16384 * 65536
+    want = 1e3 * env_steps * 362 / (132 * 1.98e9 * 128)
+    assert sass_ops.issue_floor_ms(env_steps, 362, 132, 1.98e9) == pytest.approx(want, rel=1e-12)
+    assert round(want, 2) == 11.62

@@ -54,8 +54,15 @@ issued work.  The ``smem`` and ``bar`` pipes are a kernel's layout, not
 the function's work: ``chip_smoke.py`` leaves them out of a bound of the
 function's own work and counts them in an issue bound.  The
 blocks a step runs only sometimes (a branch taken on some data) are
-reported apart, as ``conditional``.  The loop must hold one step per
-iteration: the kernels' step loops are marked ``#pragma unroll 1``.  A
+reported apart, as ``conditional``.  A branch on the lane (its predicate
+made of ``SR_TID.X`` or ``SR_LANEID``, immediates and constants alone,
+such as a lane group's lead lane) is taken by some lane of every warp at
+every step, and a warp issues both its sides, so a block under it counts
+as always issued.  ``insns`` counts the same blocks' instructions one
+each (an FFMA is one instruction, not two operations): at one
+warp-instruction per scheduler and clock, four per SM, they give the
+issue-slot floor, a lower bound since moves are not counted.  The loop
+must hold one step per iteration: the kernels' step loops are marked ``#pragma unroll 1``.  A
 loop nested in the step whose trip count is a launch parameter (the
 universal policy recorders' loop over the H hidden units) is counted apart
 where the instance's name ends in ``@inner``: a step then issues the outer
@@ -66,7 +73,7 @@ is marked ``@lanesG``: a warp then issues a lane's count for 32 / G envs,
 so an env-step issues G times a lane's count, and ``step_ops`` multiplies
 by G.  That is what the lanes issue, work that every lane repeats
 included; the function's own work is the one-thread step's count.  A
-warp-specialised kernel (the DC, SCIM and EESM random rollouts,
+warp-specialised kernel (the sync, DC, SCIM, EESM and DFIM random rollouts,
 csrc/draw_ring.cuh) is marked ``@wsK``: its consumer warps run a step
 loop (one step an iteration, shared-memory loads) and its producer warps
 a loop whose iteration fills a ring slot of K steps (shared-memory
@@ -93,6 +100,16 @@ CLASSES = ("fp32", "alu", "imad", "xu", "shfl", "smem", "bar")
 # issue rate per SM and clock of each class (operations for fp32)
 RATE_PER_SM_CLOCK = {"fp32": 256, "alu": 64, "imad": 64, "xu": 16, "shfl": 32, "smem": 32,
                      "bar": 16}
+# thread-instructions an SM issues per clock: four schedulers, one
+# warp-instruction each
+ISSUE_PER_SM_CLOCK = 4 * 32
+
+
+def issue_floor_ms(env_steps, insns, sms, clock):
+    """The issue-slot floor (ms) of ``env_steps`` steps of ``insns``
+    counted instructions each (``insns`` of the counts), on ``sms`` SMs at
+    ``clock`` Hz."""
+    return 1e3 * env_steps * insns / (sms * clock * ISSUE_PER_SM_CLOCK)
 
 
 def functions(sass: str) -> dict:
@@ -178,7 +195,8 @@ def loop_counts(insns, second=False, inner=False) -> dict:
         out_inner = _body_counts(insns, addr, i_head, i_latch, None)
     out = _body_counts(insns, addr, head, latch_i, skip)
     if out_inner is not None:
-        out["inner"] = {"always": out_inner["always"], "conditional": out_inner["conditional"]}
+        out["inner"] = {"always": out_inner["always"], "conditional": out_inner["conditional"],
+                        "insns": out_inner["insns"]}
     return out
 
 
@@ -211,7 +229,7 @@ def ws_counts(insns, steps, second=False) -> dict:
         if role:
             loops[role].append((i, t))
     out = {"always": dict.fromkeys(CLASSES, 0), "conditional": dict.fromkeys(CLASSES, 0),
-           "roles": {}}
+           "insns": {"always": 0.0, "conditional": 0.0}, "roles": {}}
     for role, back in loops.items():
         if not back:
             raise ValueError(f"no {role} loop in this function")
@@ -227,9 +245,180 @@ def ws_counts(insns, steps, second=False) -> dict:
         for kind in ("always", "conditional"):
             for cls, n in c[kind].items():
                 out[kind][cls] += n / per
+            out["insns"][kind] += c["insns"][kind] / per
         out["roles"][role] = {"always": c["always"], "conditional": c["conditional"],
-                              "steps": per, "opcodes_always": c["opcodes_always"]}
+                              "insns": c["insns"], "steps": per,
+                              "opcodes_always": c["opcodes_always"]}
     return out
+
+
+_PRED = re.compile(r"^P[0-6]$")
+_REG = re.compile(r"^R[0-9]+$")
+_LANE_SR = ("SR_TID.X", "SR_LANEID")
+_DATA_OPS = ("LD", "SHFL", "ATOM", "RED", "VOTE", "MATCH", "S2UR", "CS2R", "R2UR")
+
+
+def _operand(a) -> str:
+    """A register or predicate name, 'lane', 'const' or 'data'."""
+    a = a.strip().lstrip("!-~|").rstrip("|")
+    if a in ("RZ", "PT", "URZ", "UPT") or a.startswith(("c[", "0x", "-0x")):
+        return "const"
+    if a in _LANE_SR:
+        return "lane"
+    if a.startswith(("SR_", "UR", "UP", "[")):
+        return "data"
+    base = a.split(".")[0]
+    if _REG.match(base) or _PRED.match(base):
+        return base
+    try:
+        float(a.replace("INF", "inf").replace("QNAN", "nan"))
+        return "const"
+    except ValueError:
+        return "data"
+
+
+def _dests(op, args) -> int:
+    """How many leading operands an instruction writes."""
+    base = op.split(".")[0]
+    if base.endswith("SETP") or base in ("PLOP3", "SHFL"):
+        return 2
+    if len(args) > 1 and _PRED.match(args[1].strip()) and base in ("IADD3", "LEA", "IMAD"):
+        return 2
+    return 1
+
+
+def _reaching(insns, lo, blocks, preds, head_b):
+    """Reaching definitions in the loop body from ``insns[lo]`` (``blocks``:
+    (offset in the body, instructions)), the back edge and the last
+    definition before the loop included: per block, ``{register: set of
+    instruction indices}`` at its entry."""
+    entry = {}
+    for i in range(lo):
+        _a, _p, op, args = insns[i]
+        for d in args[:_dests(op, args)]:
+            r = _operand(d)
+            if r not in ("const", "lane", "data"):
+                entry[r] = i
+    gen = []
+    for blk_start, blk in blocks:
+        g = {}
+        for j in range(len(blk)):
+            _a, _p, op, args = blk[j]
+            for d in args[:_dests(op, args)]:
+                r = _operand(d)
+                if r not in ("const", "lane", "data"):
+                    g[r] = lo + blk_start + j
+        gen.append(g)
+    n = len(blocks)
+    out = [dict() for _ in range(n)]
+    inn = [dict() for _ in range(n)]
+    changed = True
+    while changed:
+        changed = False
+        for b in range(n):
+            acc = {}
+            srcs = [out[q] for q in preds[b]]
+            if b == head_b:
+                srcs.append({r: {i} for r, i in entry.items()})
+            for m in srcs:
+                for r, ds in m.items():
+                    acc.setdefault(r, set()).update(ds)
+            o = {r: set(ds) for r, ds in acc.items()}
+            for r, i in gen[b].items():
+                o[r] = {i}
+            if acc != inn[b] or o != out[b]:
+                inn[b], out[b], changed = acc, o, True
+    return inn
+
+
+def _lane_branches(insns, lo, blocks, preds, head_b) -> set:
+    """The blocks (indices into ``blocks``) that end in a branch on the
+    lane: a predicate whose every reaching definition is made of the lane
+    index, immediates and constants alone."""
+    inn = _reaching(insns, lo, blocks, preds, head_b)
+    block_at = {}
+    for b, (start, blk) in enumerate(blocks):
+        for j in range(len(blk)):
+            block_at[lo + start + j] = b
+    memo = {}
+
+    def defs_at(i, reg):
+        if i not in block_at:  # before the loop: the last definition in program order
+            for k in range(i - 1, -1, -1):
+                _a, _p, op, args = insns[k]
+                if any(_operand(d) == reg for d in args[:_dests(op, args)]):
+                    return {k}
+            return set()
+        b = block_at[i]
+        start = lo + blocks[b][0]
+        for k in range(i - 1, start - 1, -1):
+            _a, _p, op, args = insns[k]
+            if any(_operand(d) == reg for d in args[:_dests(op, args)]):
+                return {k}
+        return set(inn[b].get(reg, ()))
+
+    def lane_only(i, depth=0):
+        if i in memo:
+            return memo[i]
+        if depth > 24:
+            return False
+        memo[i] = False  # a cycle through the back edge is not lane-only
+        _a, pred, op, args = insns[i]
+        base = op.split(".")[0]
+        ok = not (pred and _operand(pred.lstrip("@")) not in ("const",)) \
+            and not base.startswith(_DATA_OPS)
+        if ok and base == "S2R":
+            ok = args[1].strip() in _LANE_SR
+        elif ok:
+            for a in args[_dests(op, args):]:
+                r = _operand(a)
+                if r == "data":
+                    ok = False
+                elif r not in ("const", "lane"):
+                    ds = defs_at(i, r)
+                    ok = bool(ds) and all(lane_only(k, depth + 1) for k in ds)
+                if not ok:
+                    break
+        memo[i] = ok
+        return ok
+
+    out = set()
+    for b, (start, blk) in enumerate(blocks):
+        _a, pred, op, _args = blk[-1]
+        if not (op.startswith("BRA") and pred):
+            continue
+        reg = _operand(pred.lstrip("@"))
+        if reg in ("const", "lane", "data"):
+            continue
+        i = lo + start + len(blk) - 1
+        ds = defs_at(i, reg)
+        if ds and all(lane_only(k) for k in ds):
+            out.add(b)
+    return out
+
+
+def _issued_every_step(blocks_succ, latch_b, lane_b) -> set:
+    """The blocks some lane of every warp runs at every step: a block is
+    avoidable if the step can reach the latch without it, choosing a side
+    of every branch on data but taking both sides of every branch on the
+    lane (least fixed point)."""
+    n = len(blocks_succ)
+    always = set()
+    for t in range(n):
+        av = [False] * n
+        av[latch_b] = latch_b != t
+        changed = True
+        while changed:
+            changed = False
+            for b in range(n):
+                if b in (t, latch_b) or av[b] or not blocks_succ[b]:
+                    continue
+                side = [av[x] for x in blocks_succ[b]]
+                if all(side) if b in lane_b else any(side):
+                    av[b], changed = True, True
+        if not av[0]:
+            always.add(t)
+    return always
 
 
 def _body_counts(insns, addr, head, latch_i, skip) -> dict:
@@ -281,17 +470,24 @@ def _body_counts(insns, addr, head, latch_i, skip) -> dict:
             if new != dom[b]:
                 dom[b], changed = new, True
     always = dom[block_of[len(body) - 1]]
+    # the loop's own back edge
+    preds[0] = preds[0] + [block_of[len(body) - 1]]
+    lane_b = _lane_branches(insns, lo, list(zip(starts, blocks)), preds, 0)
+    if lane_b:
+        always = _issued_every_step(succ, block_of[len(body) - 1], lane_b)
 
     def counted(a):
         return skip is None or not skip[0] <= a <= skip[1]
 
-    out = {"always": dict.fromkeys(CLASSES, 0), "conditional": dict.fromkeys(CLASSES, 0)}
+    out = {"always": dict.fromkeys(CLASSES, 0), "conditional": dict.fromkeys(CLASSES, 0),
+           "insns": {"always": 0, "conditional": 0}, "lane_branches": len(lane_b)}
     for b, blk in enumerate(blocks):
         kind = "always" if b in always else "conditional"
         for a, _p, op, args in blk:
             cls, k = classify(op, args)
             if cls and counted(a):
                 out[kind][cls] += k
+                out["insns"][kind] += 1
     out["opcodes_always"] = {}
     for b in sorted(always):
         for a, _p, op, args in blocks[b]:
@@ -367,8 +563,8 @@ def instance_counts(funcs, kernels, where="the listing") -> dict:
         lanes = lanes_of(k)
         if lanes > 1:
             counts["lanes"] = lanes
-            counts["per_lane"] = {key: counts[key] for key in ("always", "conditional")}
-            for key in ("always", "conditional"):
+            counts["per_lane"] = {key: counts[key] for key in ("always", "conditional", "insns")}
+            for key in ("always", "conditional", "insns"):
                 counts[key] = {c: lanes * n for c, n in counts[key].items()}
         out[k] = counts
     return out
@@ -381,20 +577,26 @@ STEP_INSTANCES = {
                                                "pmsm_record_random", "pmsm_record_buffer")},
     # policy_record runs on lane groups below a full card,
     # policy_record_lanes_kernel<H, G, LEAD>: four lanes an env, every lane
-    # stepping (@lanes4: the count a step issues).  At PPO's width it runs
-    # eight lanes with lane 0 alone stepping, a divergent branch this count
-    # does not take as issued, so it has no entry.  The one-thread instance
-    # counts the function's own work
+    # stepping (@lanes4: the count a step issues), and at PPO's width eight
+    # lanes with lane 0 alone stepping, a branch on the lane that every warp
+    # issues (@lanes8).  The one-thread instance counts the function's own
+    # work
     "fused_policy": {
         "policy_rollout": "policy_rollout_kernelILi16ELb0ELb1E",  # H 16, categorical, Wiener
         "policy_record": "policy_record_kernelILi32E",  # H 32
         "policy_record_lanes": "policy_record_lanes_kernelILi32ELi4ELb0E@lanes4",
+        "policy_record_lanes/8": "policy_record_lanes_kernelILi32ELi8ELb1E@lanes8",
         "reinforce_rollout": "reinforce_rollout_kernelILi16ELb0ELb1E",
         "reinforce_reduce": "reinforce_reduce_kernel",
     },
     # <FINITE, MECH, NREF>: Cont-SC-PMSM-v0 (0, 1, 1) for each kernel, and
     # Finite-CC-PMSM-v0 (1, 0, 2) and Cont-CC-PMSM-v0 (0, 0, 2) for the
-    # random ones
+    # random ones.  With Wiener references the random rollout runs
+    # sync_rollout_ws_kernel<FINITE, MECH, NREF, RingShape<8, 2>> (two
+    # producer warps per consumer warp, four steps a producer iteration:
+    # @ws4); with constant ones the one-thread kernel's second loop, which
+    # draws the next step's action ahead (timed on Finite-CC-PMSM-v0, #2).
+    # The one-thread kernel's Wiener loop counts the function's own work
     "fused_sync": {
         "sync_rollout_random": "sync_rollout_random_kernelILb0ELb1ELi1E",
         "sync_rollout_buffer": "sync_rollout_buffer_kernelILb0ELb1E",
@@ -403,6 +605,12 @@ STEP_INSTANCES = {
         "sync_rollout_random/Finite-CC-PMSM-v0": "sync_rollout_random_kernelILb1ELb0ELi2E",
         "sync_rollout_random/Cont-CC-PMSM-v0": "sync_rollout_random_kernelILb0ELb0ELi2E",
         "sync_record_random/Finite-CC-PMSM-v0": "sync_record_random_kernelILb1ELb0ELi2E",
+        "sync_rollout_ws": "sync_rollout_ws_kernelILb0ELb1ELi1E9RingShapeILi8ELi2EE@ws4",
+        "sync_rollout_ws/Finite-CC-PMSM-v0":
+            "sync_rollout_ws_kernelILb1ELb0ELi2E9RingShapeILi8ELi2EE@ws4",
+        "sync_rollout_ws/Cont-CC-PMSM-v0":
+            "sync_rollout_ws_kernelILb0ELb0ELi2E9RingShapeILi8ELi2EE@ws4",
+        "sync_rollout_random/Finite-CC-PMSM-v0/const": "sync_rollout_random_kernelILb1ELb0ELi2E#2",
     },
     # <FINITE, MECH, MC, NREF> (MC: 0 one current, 1 ShuntDc, 2 ExtExDc):
     # Cont-SC-ShuntDc-v0 (0, 1, 1, 1) for each kernel, and
@@ -481,12 +689,19 @@ STEP_INSTANCES = {
     },
     # <FINITE, MECH, NREF>: Cont-SC-DFIM-v0 (0, 1, 1) for each kernel, and
     # Cont-CC-DFIM-v0 (0, 0, 2) and Finite-CC-DFIM-v0 (1, 0, 2) for the
-    # random ones
+    # random ones.  With Wiener references the random rollout runs
+    # dfim_rollout_ws_kernel<FINITE, MECH, NREF> (K = 8, two producer warps
+    # per consumer warp: @ws4); with constant ones the one-thread kernel.
+    # Its Wiener loop, which the launch does not take, counts the function's
+    # own work
     "fused_dfim": {
         "dfim_rollout_random": "dfim_rollout_random_kernelILb0ELb1ELi1E",
         "dfim_rollout_buffer": "dfim_rollout_buffer_kernelILb0ELb1E",
         "dfim_rollout_random/Cont-CC-DFIM-v0": "dfim_rollout_random_kernelILb0ELb0ELi2E",
         "dfim_rollout_random/Finite-CC-DFIM-v0": "dfim_rollout_random_kernelILb1ELb0ELi2E",
+        "dfim_rollout_ws": "dfim_rollout_ws_kernelILb0ELb1ELi1E@ws4",
+        "dfim_rollout_ws/Cont-CC-DFIM-v0": "dfim_rollout_ws_kernelILb0ELb0ELi2E@ws4",
+        "dfim_rollout_ws/Finite-CC-DFIM-v0": "dfim_rollout_ws_kernelILb1ELb0ELi2E@ws4",
     },
     "fused_dfim_record": {
         "dfim_record_random": "dfim_record_random_kernelILb0ELb1ELi1E",
