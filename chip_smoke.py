@@ -22,7 +22,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    phases 4-5, errors, times)
 7. policy    each of the 4 policy kernels (csrc/fused_policy.cu) against
             its plain version at 16384 envs x 256 steps, H 16 (the
-            recorder at H 32): greedy/const and categorical/Wiener modes;
+            recorder at H 32): greedy/const and categorical/Wiener modes,
+            policy_rollout bit for bit (error 0 in every env) there and in
+            its ten other instances (H 8, 16, 32 x categorical/greedy x
+            Wiener/const) at 64 steps, with its design line (the ring's K,
+            producer warps, words and bytes with Wiener references, each
+            role's registers, the issue bound and issue-slot floor);
             the categorical/Wiener REINFORCE rollout at the trainer's
             shape, 16384 envs x 1024 steps, gamma 0.99 (about 32 ms);
             policy_record bit for bit (error 0 in every env) there (one
@@ -43,8 +48,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
             hidden 32, 8 minibatches, 2 epochs): 2 warm-up and 20 timed
             iterations, the collection/update split, reward range,
             parameters moved, |E[log pi] + E[H]| < 0.02 on one batch
-   10. rl_timings  the evaluation rollout (16384 x 65536 steps) and 5
-            iterations of the REINFORCE trainer (16384 x 1024 steps)
+   10. rl_timings  the evaluation rollout (16384 x 65536 steps;
+            categorical with Wiener references, the ring, and greedy with
+            constant references, one thread per env), each with its design
+            line and reset share, and 5 iterations of the REINFORCE
+            trainer (16384 x 1024 steps)
    11. ppo_learn  tools/torch_ppo_learn.py: 1200 PPO iterations at full
             width must reach a mean reward above -0.11 over the last 10
             and 0.05 above the first 5
@@ -310,9 +318,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
     csrc/fused_eesm_cc.cu, csrc/fused_dfim_cc.cu; bench.py:790-825): each of
     the 12 kernels against its plain version at 16384 envs x 64 steps on its
     catalog id (the DC SC kernels on Cont-SC-SeriesDc-v0 and
-    Cont-SC-ShuntDc-v0, timed on the latter), the PermExDc recorder again at
-    its main-path 1024 steps; bit for bit in both modes (error 0 in every
-    env)
+    Cont-SC-ShuntDc-v0, timed on the latter, with the DC SC random
+    rollout's design line: its ring, registers, issue bound and issue-slot
+    floor), the PermExDc recorder again at its main-path 1024 steps; bit
+    for bit in both modes (error 0 in every env)
 47.-48. the slice-11 main path, counted from zero (the six builders of
     ops/fused_rollout.py, no plain version):
    47. specialised_buffer  each builder's buffer mode (and the PermExDc
@@ -322,7 +331,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    48. specialised_timings  at 16384 envs x 65536 steps (CUDA-event medians
             of 5 calls, the builders' Wiener references), each random
             rollout in one call with the universal kernel on the same id,
-            the ratio of their times, its SASS bound and reset share; the
+            the ratio of their times, its SASS bound and reset share (the
+            DC SC rollout's design line on both ids); the
             PermExDc recorder at 1024 steps beside the universal recorder;
             output checks (finite, references inside their windows, the
             sub-episode lengths and sigmas, the mean reward within 0.08 of
@@ -336,8 +346,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
     phases 35-37, a universal policy kernel's those of phase 41, a
     controller kernel's those of phases 44-45, a specialised kernel's those
     of phases 47-48), after a redesign_order line (every kernel by its
-    launches times the time a launch takes above its bound), the card
-    line, then {"ok": true, "device": {...}}
+    launches times the time a launch takes above its bound, each with the
+    redesign it has had), the card line, then {"ok": true, "device":
+    {...}}
 
 REINFORCE's block must match its plain version within 1e-4 of its
 largest entry in both modes, and autograd within 1e-4 relative; the PPO and policy
@@ -352,8 +363,8 @@ down another branch) and the mean reward must agree to 1e-4 relative.
 Angles are compared modulo 2 pi.  The specialised kernels (phase 46) must
 equal their plain versions bit for bit in every env, both modes, and so
 must the sync, DC, SCIM, EESM, DFIM and SRM random rollouts (phases 13,
-18, 22, 26, 30 and 34), policy_record (phase 7) and the SRM cascade
-(phase 43).
+18, 22, 26, 30 and 34), policy_record and policy_rollout (phase 7) and the
+SRM cascade (phase 43).
 
 Bounds (bound_ms): the larger of the bytes moved (each input read once,
 each output written once) over 3.35 TB/s and, for each issue pipe, the
@@ -370,12 +381,12 @@ PPO's width, lane 0 alone stepping (@lanes8: the step is a branch on the
 lane, which every warp issues), and on four lanes, each stepping, up to
 three blocks an SM (@lanes4); its bound counts the one-thread step, and
 phase 7 prints the issue bound of G lanes' counts beside it.  The sync,
-DC, SCIM, EESM and DFIM
-random rollouts run warp-specialised with Wiener references
+DC, SCIM, EESM and DFIM random rollouts, policy_rollout and the DC SC
+random rollout run warp-specialised with Wiener references
 (tools/sass_ops.py's @ws2 and @ws4); their bound counts the one-thread step
-of the same instance (its Wiener loop built for the count, not taken by
-the launch), and phases 16, 21, 25, 29 and 33 print the issue bound of
-both roles' counts per env-step beside it.  Beside an issue bound stands the
+of the same instance (built for the count, not taken by the launch), and
+phases 7, 10, 16, 21, 25, 29, 33, 46 and 48 print the issue bound of both
+roles' counts per env-step beside it.  Beside an issue bound stands the
 issue-slot floor: every counted instruction the launch issues (an FFMA
 is one) at one warp-instruction per scheduler and clock, 4 x 32
 thread-instructions per SM and clock.  Shared-memory accesses and barriers (the smem and bar
@@ -412,6 +423,7 @@ SF = ("omega", "i_sd", "i_sq", "epsilon")
 H_EVAL, H_PPO = 16, 32
 T_RL_ENV = 100         # the RL checks' depth, cut from 200 for the script's time: every check is exact
 T_POLICY = 65536
+T_POLICY_BIT = 64       # the ten other policy_rollout instances, bit for bit
 T_REINFORCE = 1024      # the REINFORCE trainer's depth; one call takes over 10 ms
 REINFORCE_ITERS = 5
 EVAL_REPS = 5
@@ -580,52 +592,65 @@ def ring_layout(lib, prefix, c):
     from the library itself (csrc/draw_ring.cuh's RingLayout)."""
     import ctypes
 
+    from gym_electric_motor_tpu_torch.ops.fused_common import RING_LAYOUT_FIELDS
+
     fn = getattr(lib, f"{prefix}_ring_layout")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * len(RING_LAYOUT_FIELDS))()
     if fn(c.flags.ctypes.data, out) != 0:
         raise AssertionError(f"{prefix}_ring_layout refused the flags {list(c.flags)}")
-    return dict(zip(("consumer_warps", "producer_warps", "K", "slots", "words", "smem_bytes",
-                     "design"), out))
+    return dict(zip(RING_LAYOUT_FIELDS, out))
 
 
 DESIGNS = {0: "warp-specialised", 1: "one thread per env",
            2: "one thread per env, the next step's draws ahead"}
 
 
-def design_fields(key, env_steps, nbytes, ms, c):
-    """The fields of a timed sync, DC, SCIM, EESM or DFIM random rollout
-    (phases 16, 21, 25, 29 and 33): the design its launch takes and, warp-specialised
-    (Wiener references), its roles and ring (K steps a slot, two slots,
-    words a step, shared-memory bytes), registers (one allocation for both
-    roles: no setmaxnreg), each role's counts and the issue bound of both
-    roles' counts per env-step, every pipe included, with its share; one
-    thread per env (constant references), the issue bound of the loop it
-    runs; and the issue-slot floor of the same instructions.  The row's
-    bound_ms stays the one-thread step's, the function's own work, repeated
-    here as one_thread_bound_ms."""
-    from gym_electric_motor_tpu_torch.ops import cuda_build
-
-    prefix = key.split("_", 1)[0]
-    layout = ring_layout(cuda_build.load(f"fused_{prefix}"), prefix, c)
-    out = {"design": DESIGNS[layout["design"]],
-           "one_thread_bound_ms": bound_ms(env_steps, OPS[key], nbytes)[0]}
-    if layout["design"] == 0:
-        ws_key = key.replace("_rollout_random", "_rollout_ws", 1)
+def ring_fields(layout, ws_key, loop_key, one_key, env_steps, nbytes, ms, registers=None):
+    """The design fields of a timed random rollout: the design its launch
+    takes (``layout``, a RingLayout with ``design`` named) and,
+    warp-specialised, its ring (K steps a slot, two slots, words a step,
+    shared-memory bytes), registers (ptxas: one allocation for both roles
+    unless ``registers`` names each role's setmaxnreg budget), each role's
+    counts and the issue bound of both roles' counts per env-step
+    (``ws_key``), every pipe included, with its share; one thread per env,
+    the issue bound of the loop it runs (``loop_key``); and the issue-slot
+    floor of the same instructions.  The row's bound_ms stays the
+    one-thread step's (``one_key``), the function's own work, repeated here
+    as one_thread_bound_ms."""
+    out = {"design": layout["design"],
+           "one_thread_bound_ms": bound_ms(env_steps, OPS[one_key], nbytes)[0]}
+    if layout["design"] == DESIGNS[0]:
         info = WS_KERNELS[ws_key]
         issue, insns = info["ops"], INSNS[ws_key]
         out.update(ring=layout, role_ops=info["roles"],
-                   registers={"consumer": info["registers"], "producer": info["registers"]})
+                   registers=registers or {"consumer": info["registers"],
+                                           "producer": info["registers"]})
     else:
-        # the ahead loop: a kernel of its own (the EESM's) or the one-thread
-        # kernel's constant-reference loop (the SCIM's and the sync family's)
-        ahead = key.replace("_rollout_random", "_rollout_ahead", 1)
-        loop = ahead if layout["design"] == 2 and ahead in OPS else key
-        issue, insns = OPS[loop], INSNS[loop]
+        issue, insns = OPS[loop_key], INSNS[loop_key]
     i_ms = bound_ms(env_steps, issue, nbytes, list(issue))[0]
     out.update(ops_per_env_step=issue, issue_bound_ms=i_ms, issue_bound_share=i_ms / ms,
                **floor_fields(env_steps, insns, ms))
     return out
+
+
+def design_fields(key, env_steps, nbytes, ms, c):
+    """``ring_fields`` of a timed sync, DC, SCIM, EESM or DFIM random
+    rollout (phases 16, 21, 25, 29 and 33): warp-specialised with Wiener
+    references; with constant ones one thread per env, in the one-thread
+    kernel's own loop or one that draws the next step's action ahead."""
+    from gym_electric_motor_tpu_torch.ops import cuda_build
+
+    prefix = key.split("_", 1)[0]
+    layout = ring_layout(cuda_build.load(f"fused_{prefix}"), prefix, c)
+    design = layout["design"]
+    layout["design"] = DESIGNS[design]
+    # the ahead loop: a kernel of its own (the EESM's) or the one-thread
+    # kernel's constant-reference loop (the SCIM's and the sync family's)
+    ahead = key.replace("_rollout_random", "_rollout_ahead", 1)
+    loop = ahead if design == 2 and ahead in OPS else key
+    return ring_fields(layout, key.replace("_rollout_random", "_rollout_ws", 1), loop, key,
+                       env_steps, nbytes, ms)
 
 
 def card_line():
@@ -995,6 +1020,23 @@ def record_fields(fp, n, env_steps, nbytes, ms):
     return out
 
 
+def policy_rollout_fields(fp, sample, ref_mode, env_steps, nbytes, ms):
+    """policy_rollout's launch at H 16 in these modes (csrc/fused_policy.cu,
+    ``ring_fields``; categorical with Wiener references, or greedy with
+    constant ones, the instances tools/sass_ops.py counts): with Wiener
+    references the ring, the registers and both roles' issue bound; with
+    constant ones one thread per env reading the weights as 16-byte vectors.
+    The bound stays the one-thread step's with its weights read one at a
+    time, the function's own work."""
+    layout = fp.policy_rollout_layout(H_EVAL, sample, ref_mode)
+    regs = {role: layout.pop(f"{role}_registers") for role in ("consumer", "producer")}
+    one_key = "policy_rollout" + ("" if ref_mode == "wiener" else f"/{sample}/const")
+    if layout["design"] == DESIGNS[0]:
+        regs["launch"] = WS_KERNELS["policy_rollout_ws"]["registers"]
+    return ring_fields(layout, "policy_rollout_ws", one_key + "/vec", one_key, env_steps,
+                       nbytes, ms, regs)
+
+
 def run_rl(dev, card, ops):
     """Slice 2, RL on Finite-CC-PMSM-v0: the policy kernels against their
     plain versions, the greedy kernel against the env, REINFORCE against
@@ -1046,19 +1088,42 @@ def run_rl(dev, card, ops):
     def block_err(got, ref):
         return float((got - ref).abs().max() / ref.abs().max())
 
-    # policy_rollout: greedy/const (deterministic), categorical/Wiener (timed)
+    # policy_rollout: greedy/const and categorical/Wiener (timed) at H 16,
+    # then every other instance (H 8, 16, 32 x categorical/greedy x
+    # Wiener/const) at T_POLICY_BIT steps, each bit for bit (error 0 in
+    # every env; csrc/fused_policy.cu, a ring with Wiener references)
     args_g = (consts, SEED, *w16, *start, ref_d, ref_q, T_COMPARE, "greedy", "const")
     got, ref = fp.policy_rollout(*args_g), fp.policy_rollout_plain(*args_g)
     err_g = check_buffer(torch, "policy_rollout greedy/const", got, ref,
                          (False, False, True, False, False))
+    instances = {"H16/greedy/const": bit_match(torch, got, ref, N_ENVS)}
     args_c = (consts, SEED, *w16, *start, None, None, T_COMPARE)
     ms, got = cuda_ms(torch, lambda: fp.policy_rollout(*args_c), reps=21)
     plain_ms, ref = host_ms(torch, lambda: fp.policy_rollout_plain(*args_c))
     row = random_check("policy_rollout", got, ref, (False, False, True, False, False), 3)
+    instances["H16/categorical/wiener"] = bit_match(torch, got, ref, N_ENVS)
+    rng_bit = np.random.default_rng(SEED + 1)
+    for hidden in fp.HIDDEN_SIZES:
+        w_h = rl_weights(torch, rng_bit, dev, 6, hidden, 0.5, 0.1)
+        for sample in ("categorical", "greedy"):
+            for ref_mode in ("wiener", "const"):
+                label = f"H{hidden}/{sample}/{ref_mode}"
+                if label in instances:
+                    continue
+                args_i = (consts, SEED, *w_h, *start, ref_d, ref_q, T_POLICY_BIT, sample, ref_mode)
+                instances[label] = bit_match(torch, fp.policy_rollout(*args_i),
+                                             fp.policy_rollout_plain(*args_i), N_ENVS)
+    unequal = {k: v for k, v in instances.items() if v != (1.0, 0.0)}
+    if unequal:
+        raise AssertionError(f"policy_rollout differs from its plain version (share of envs "
+                             f"equal, max abs err): {unequal}")
     row["max_abs_err"] = max(row["max_abs_err"], err_g)
+    p_bytes = state_bytes + 5 * 4 * N_ENVS + wbytes(6, H_EVAL)
     row.update(ms=ms, plain_ms=plain_ms, max_abs_err_greedy_const=err_g, steps=T_COMPARE,
-               bound=bound_ms(N_ENVS * T_COMPARE, ops["policy_rollout"],
-                              state_bytes + 5 * 4 * N_ENVS + wbytes(6, H_EVAL)))
+               bit_equal_instances=sorted(instances), bit_steps=T_POLICY_BIT,
+               bound=bound_ms(N_ENVS * T_COMPARE, ops["policy_rollout"], p_bytes),
+               **policy_rollout_fields(fp, "categorical", "wiener", N_ENVS * T_COMPARE, p_bytes,
+                                       ms))
     results["policy_rollout"] = row
 
     # policy_record at H 32, bit for bit (error 0 in every env), at 16384
@@ -1265,11 +1330,25 @@ def run_rl(dev, card, ops):
     fp.reset_launches()
     roll = fp.make_fused_policy_rollout(env, T_POLICY, N_ENVS, hidden=H_EVAL)
     pol_ms, pol = cuda_ms(torch, lambda: roll(SEED, *w16, z, z, z), reps=EVAL_REPS)
-    path_launches("evaluation", {"policy_rollout": 2 + EVAL_REPS})  # cuda_ms warms up twice
+    # greedy with constant (zero) references: the one-thread kernel's
+    # vectorised weight reads alone, without the ring
+    roll_g = fp.make_fused_policy_rollout(env, T_POLICY, N_ENVS, hidden=H_EVAL, sample="greedy",
+                                          ref_mode="const")
+    pol_g_ms, pol_g = cuda_ms(torch, lambda: roll_g(SEED, *w16, z, z, z, z, z), reps=EVAL_REPS)
+    # cuda_ms warms up twice
+    path_launches("evaluation", {"policy_rollout": 2 * (2 + EVAL_REPS)})
     pol_mean = float(pol[3].double().sum()) / (N_ENVS * T_POLICY)
-    checks = {"finite": all(bool(torch.isfinite(x).all()) for x in pol),
-              "eps_in_range": bool(((pol[2] >= 0) & (pol[2] < 2 * math.pi)).all()),
-              "reward_scale": -0.5 < pol_mean < 0.0}
+    pol_g_mean = float(pol_g[3].double().sum()) / (N_ENVS * T_POLICY)
+    checks = {"finite": all(bool(torch.isfinite(x).all()) for x in pol + pol_g),
+              "eps_in_range": all(bool(((x[2] >= 0) & (x[2] < 2 * math.pi)).all())
+                                  for x in (pol, pol_g)),
+              "reward_scale": -0.5 < pol_mean < 0.0 and pol_g_mean < 0.0}
+    main_bytes = state_bytes + 20 * N_ENVS + wbytes(6, H_EVAL)
+    eval_rows = {
+        "categorical/wiener": (pol_ms, pol_mean, pol, policy_rollout_fields(
+            fp, "categorical", "wiener", N_ENVS * T_POLICY, main_bytes, pol_ms)),
+        "greedy/const": (pol_g_ms, pol_g_mean, pol_g, policy_rollout_fields(
+            fp, "greedy", "const", N_ENVS * T_POLICY, main_bytes + 8 * N_ENVS, pol_g_ms))}
     checks["reinforce_finite"] = rein_finite
     t_rein, rein_ms = T_REINFORCE, results["reinforce_rollout"]["ms"]
     trainer = fp.make_fused_reinforce_trainer(env, t_rein, N_ENVS, hidden=H_EVAL, gamma=0.99)
@@ -1296,9 +1375,11 @@ def run_rl(dev, card, ops):
         raise AssertionError(f"PPO did not learn: {learned}")
     launches = {k: sum(p.get(k, 0) for p in by_path.values()) for k in fp.KERNELS}
     emit({"phase": "rl_timings", "card": card,
-          "policy_rollout": {"envs": N_ENVS, "steps": T_POLICY, "hidden": H_EVAL, "ms": pol_ms,
-                             "env_steps_per_s": N_ENVS * T_POLICY / (pol_ms / 1e3),
-                             "mean_reward": pol_mean},
+          "policy_rollout": {
+              mode: {"envs": N_ENVS, "steps": T_POLICY, "hidden": H_EVAL, "ms": m,
+                     "env_steps_per_s": N_ENVS * T_POLICY / (m / 1e3), "mean_reward": r,
+                     "reset_share": float(o[4].double().sum()) / (N_ENVS * T_POLICY), **f}
+              for mode, (m, r, o, f) in eval_rows.items()},
           "reinforce_rollout": {"envs": N_ENVS, "steps": t_rein, "hidden": H_EVAL, "ms": rein_ms,
                                 "env_steps_per_s": N_ENVS * t_rein / (rein_ms / 1e3),
                                 "mean_reward": rein_mean},
@@ -1317,7 +1398,7 @@ def run_rl(dev, card, ops):
     # ---- kernels line rows (REINFORCE's compare shape is its main shape) --
     main = {
         "policy_rollout": (N_ENVS, T_POLICY, pol_ms, bound_ms(
-            N_ENVS * T_POLICY, ops["policy_rollout"], state_bytes + 20 * N_ENVS + wbytes(6, H_EVAL))),
+            N_ENVS * T_POLICY, ops["policy_rollout"], main_bytes)),
         "policy_record": (ne, PPO["horizon"], float(np.median(collect_ms)), bound_ms(
             ne * PPO["horizon"], ops["policy_record"],
             12 * ne + 32 * ne * PPO["horizon"] + wbytes(7, H_PPO))),
@@ -1342,6 +1423,9 @@ def run_rl(dev, card, ops):
             envs, steps, ms, (b_ms, b_by) = main[name]
             row.update(main_envs=envs, main_steps=steps, main_ms=ms, main_bound_ms=b_ms,
                        main_bound_by=b_by)
+        if name == "policy_rollout":
+            row.update({"main_" + k: v for k, v in eval_rows["categorical/wiener"][3].items()})
+            row["main_ms_greedy_const"] = pol_g_ms
         if name == "policy_record":
             row.update({"main_" + k: v for k, v in record_fields(
                 fp, ne, ne * PPO["horizon"], 12 * ne + 32 * ne * PPO["horizon"] + wbytes(7, H_PPO),
@@ -3131,6 +3215,23 @@ SPEC_UNIVERSAL = {
     "Cont-CC-DFIM-v0": ("dfim_cc_rollout_random", "dfim_rollout_random",
                         "dfim_rollout_random/Cont-CC-DFIM-v0")}
 
+# the specialised random rollouts that run on a ring (ring_pipe.cuh), by
+# the module function that gives the ring's layout
+SPEC_RINGS = {"dc_sc_rollout_random": "dc_sc_ring_layout"}
+
+
+def spec_ring_fields(name, key, env_steps, nbytes, ms):
+    """``ring_fields`` of a specialised random rollout on a ring (phases 46
+    and 48): ``key`` is its one-thread entry in tools/sass_ops.py's
+    STEP_INSTANCES (the function's own work), and the ``_ws`` entry beside it
+    counts both roles."""
+    from gym_electric_motor_tpu_torch.ops import fused_dc as fd
+
+    layout = getattr(fd, SPEC_RINGS[name])()
+    return ring_fields(layout, key.replace("_rollout_random", "_rollout_ws", 1), key, key,
+                       env_steps, nbytes, ms)
+
+
 def tensor_bytes(xs):
     """Bytes of the tensors among ``xs`` (nested in lists and tuples)."""
     if isinstance(xs, (list, tuple)):
@@ -3224,6 +3325,9 @@ def run_specialised(dev, card, ops):
             plain_ms, ref = host_ms(torch, plain)
             b_ms, b_by = bound_ms(N * steps, ops[name], tensor_bytes(args) + tensor_bytes(got))
             timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            if name in SPEC_RINGS:
+                timed[name].update(spec_ring_fields(name, name, N * steps,
+                                                    tensor_bytes(args) + tensor_bytes(got), ms))
         else:
             got = kern()
             torch.cuda.synchronize()
@@ -3320,11 +3424,13 @@ def run_specialised(dev, card, ops):
         if env_id in angle_at:
             eps = out[angle_at[env_id]]
             checks["eps_in_range"] = bool(((eps >= 0) & (eps <= 2 * math.pi)).all())
+        design = (spec_ring_fields(name, key, N * T_ROLLOUT, tensor_bytes(z) + tensor_bytes(out),
+                                   k_ms) if name in SPEC_RINGS else {})
         timings[env_id] = {
             name: {"steps": T_ROLLOUT, "ms": k_ms, "env_steps_per_s": N * T_ROLLOUT / (k_ms / 1e3),
                    "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
                    "ops_per_step": ops[key], "mean_reward": mean_k,
-                   "reset_share": float(terms.double().sum()) / (N * T_ROLLOUT)},
+                   "reset_share": float(terms.double().sum()) / (N * T_ROLLOUT), **design},
             u_name: {"steps": T_ROLLOUT, "ms": u_ms, "env_steps_per_s": N * T_ROLLOUT / (u_ms / 1e3),
                      "ops_per_step": ops[u_key], "mean_reward": mean_u,
                      "reset_share": float(u_out[n_state + 1].double().sum()) / (N * T_ROLLOUT)},
@@ -3394,8 +3500,24 @@ def run_specialised(dev, card, ops):
             row.update(main_steps=m["steps"], main_ms=m["ms"], main_bound_ms=m["bound_ms"],
                        universal=u_name, universal_ms=main[u_name]["ms"],
                        specialised_over_universal=main["specialised_over_universal"])
+            if name in SPEC_RINGS:
+                row.update({"main_" + k: m[k] for k in ("design", "ring", "registers",
+                                                        "issue_bound_ms", "issue_floor_ms")
+                            if k in m})
         line.append(row)
     return line
+
+
+# the kernels redesigned for Hopper after their port, by the redesign
+# (PERF.md, section 5, names when; the SRM cascade's lane groups were
+# slower and not kept)
+REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
+              "srm_cascade_rollout": "lane groups, tried and not kept",
+              "dc_rollout_random": "ring", "eesm_rollout_random": "ring",
+              "policy_record": "lane groups below a full card",
+              "induction_rollout_random": "ring", "dfim_rollout_random": "ring",
+              "sync_rollout_random": "ring", "policy_rollout": "ring, layer 1 in registers",
+              "dc_sc_rollout_random": "ring"}
 
 
 def redesign_order(line):
@@ -3403,14 +3525,16 @@ def redesign_order(line):
     launches times the time a launch takes above its bound, at the main
     path's shape where the row has one (its timed id's), else at the
     comparison shape.  Every launch counts at that shape, so the score is
-    an approximation of the time the path loses to each kernel."""
+    an approximation of the time the path loses to each kernel.  Each entry
+    names the redesign its kernel has had (REDESIGNED), or null."""
     out = []
     for r in line:
         main = r.get("main_ms") is not None and r.get("main_bound_ms") is not None
         ms, b_ms = (r["main_ms"], r["main_bound_ms"]) if main else (r["ms"], r["bound_ms"])
         out.append({"name": r["name"], "launches": r["launches"], "ms": ms, "bound_ms": b_ms,
                     "gap_ms": ms - b_ms, "launches_x_gap_ms": r["launches"] * (ms - b_ms),
-                    "shape": "main" if main else "compare"})
+                    "shape": "main" if main else "compare",
+                    "redesigned": REDESIGNED.get(r["name"])})
     return sorted(out, key=lambda x: -x["launches_x_gap_ms"])
 
 

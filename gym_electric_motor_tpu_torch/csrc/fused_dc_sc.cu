@@ -16,9 +16,20 @@
 // a violating env to zeros, and the Wiener omega reference on the window
 // [0, nominal / limit] with the env's sigma range.
 //
-// Design: one thread per env, the state and the reference row in
-// registers across a `#pragma unroll 1` loop over T steps; the template
-// NEL (1 SeriesDc, 2 ShuntDc) picks the motor.  Random bits from
+// Design: the state and the reference row in registers across a
+// `#pragma unroll 1` loop over T steps; the template NEL (1 SeriesDc, 2
+// ShuntDc) picks the motor.  The random rollout is warp-specialised on the
+// ring of ring_pipe.cuh: two producer warps per consumer warp draw, in a
+// double-buffered ring of K = 8 steps a slot, every value of a step that
+// depends on the constants alone (dcsc_draws: the duty, the row's draw,
+// its candidate length and sigma and its candidate reset value, 5 words);
+// consumer warps run the step, one thread per env, and take the candidates
+// by selects (dcsc_ring_step).  Where 33% of env-steps reset (Cont-SC-
+// ShuntDc) the one-thread loop drew the PARAMS slot in a divergent branch
+// on most warp-steps; the producers draw it at every step off the step's
+// dependent chain.  The one-thread random kernel is built for the count of
+// the function's own work and never launched; the buffer kernel runs one
+// thread per env.  Random bits from
 // Philox4x32-10, counter (env, step, slot): SPEC_SLOT_STEP gives (duty,
 // Box-Muller u1, u2, -) every step, SPEC_SLOT_PARAMS (length, sigma, reset
 // value, -) where the row regenerates, SPEC_SLOT_INIT_0 (value, length,
@@ -32,6 +43,7 @@
 // the joint right-hand side (about 60 to 90 FP32 operations with the load's
 // selects), a Philox call, and at every second step the Box-Muller pair.
 #include "common_step.cuh"
+#include "ring_pipe.cuh"
 #include "specialised_step.cuh"
 
 enum DcScConstIndex {
@@ -133,21 +145,47 @@ __device__ __forceinline__ float dcsc_value(const DcScConst& k, uint32_t b) {
 }
 
 template <int NEL>
-__global__ void dc_sc_rollout_random_kernel(DcScConst k, uint2 key, int n, int n_steps,
-                                            SpecIn in, SpecOut out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
+__device__ __forceinline__ DcScState dcsc_load(const SpecIn& in, int e) {
   DcScState s;
   s.w = in.p[0][e];
   s.i0 = in.p[1][e];
   s.i1 = NEL == 2 ? in.p[2][e] : 0.0f;
+  return s;
+}
+
+// The reference row at step 0.
+__device__ __forceinline__ SpecRow dcsc_row_init(const DcScConst& k, uint2 key, uint32_t e) {
+  const uint4 w0 = spec_draw(key, e, 0u, SPEC_SLOT_INIT_0);
   SpecRow r;
-  {
-    const uint4 w0 = spec_draw(key, (uint32_t)e, 0u, SPEC_SLOT_INIT_0);
-    r.rv = dcsc_value(k, w0.x);
-    r.rk = 0.0f;
-    spec_params(dcsc_params(k), w0.y, w0.z, r.rl, r.rs);
-  }
+  r.rv = dcsc_value(k, w0.x);
+  r.rk = 0.0f;
+  spec_params(dcsc_params(k), w0.y, w0.z, r.rl, r.rs);
+  return r;
+}
+
+// The state, reward, terms, rv, rk, rl, rs of env e.
+template <int NEL>
+__device__ __forceinline__ void dcsc_store(const SpecOut& out, int e, const DcScState& s,
+                                           float reward, float terms, const SpecRow& r) {
+  out.p[0][e] = s.w;
+  out.p[1][e] = s.i0;
+  const int o = NEL == 2 ? 3 : 2;
+  if (NEL == 2) out.p[2][e] = s.i1;
+  out.p[o][e] = reward;
+  out.p[o + 1][e] = terms;
+  out.p[o + 2][e] = r.rv;
+  out.p[o + 3][e] = r.rk;
+  out.p[o + 4][e] = r.rl;
+  out.p[o + 5][e] = r.rs;
+}
+
+template <int NEL>
+__global__ void dc_sc_rollout_random_kernel(DcScConst k, uint2 key, int n, int n_steps,
+                                            SpecIn in, SpecOut out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  DcScState s = dcsc_load<NEL>(in, e);
+  SpecRow r = dcsc_row_init(k, key, (uint32_t)e);
   float reward = 0.0f, terms = 0.0f, zb = 0.0f;
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
@@ -177,16 +215,92 @@ __global__ void dc_sc_rollout_random_kernel(DcScConst k, uint2 key, int n, int n
     spec_row_walk(r, regen, rl, rs, draw, 0.0f, k.v[DS_MARGIN]);
     if (violated) r.rv = dcsc_value(k, p.z);
   }
-  out.p[0][e] = s.w;
-  out.p[1][e] = s.i0;
-  const int o = NEL == 2 ? 3 : 2;
-  if (NEL == 2) out.p[2][e] = s.i1;
-  out.p[o][e] = reward;
-  out.p[o + 1][e] = terms;
-  out.p[o + 2][e] = r.rv;
-  out.p[o + 3][e] = r.rk;
-  out.p[o + 4][e] = r.rl;
-  out.p[o + 5][e] = r.rs;
+  dcsc_store<NEL>(out, e, s, reward, terms, r);
+}
+
+// ---- the warp-specialised random rollout ------------------------------
+
+// The words of a step on the ring (ring_pipe.cuh): the duty, the reference
+// row's draw, its candidate length and sigma, and its candidate reset value.
+constexpr int kDcScWords = 5;
+
+// Producer side: what step t draws whatever the state, in the operand
+// order of dc_sc_rollout_random_kernel's step: the duty 2 U - 1 of
+// SPEC_SLOT_STEP's first word, the Box-Muller pair at even steps (odd false)
+// with its sine left in zb for the odd step after it, and of
+// SPEC_SLOT_PARAMS the length and sigma a regeneration takes and the value
+// a reset takes.
+__device__ __forceinline__ RingWords<kDcScWords> dcsc_draws(const DcScConst& k, uint2 key,
+                                                            uint32_t env, uint32_t t, bool odd,
+                                                            float& zb) {
+  const uint4 w = spec_draw(key, env, t, SPEC_SLOT_STEP);
+  float draw;
+  if (odd) {
+    draw = zb;
+  } else {
+    spec_box_muller(k.v[DS_U_MIN], k.v[DS_TWO_PI], w.y, w.z, draw, zb);
+  }
+  const uint4 p = spec_draw(key, env, t, SPEC_SLOT_PARAMS);
+  float rl, rs;
+  spec_params(dcsc_params(k), p.x, p.y, rl, rs);
+  RingWords<kDcScWords> x;
+  x.w[0] = __float_as_uint(2.0f * uniform24(w.x) - 1.0f);
+  x.w[1] = __float_as_uint(draw);
+  x.w[2] = __float_as_uint(rl);
+  x.w[3] = __float_as_uint(rs);
+  x.w[4] = __float_as_uint(dcsc_value(k, p.z));
+  return x;
+}
+
+// Consumer side: the one-thread step with the step's words given, the
+// candidates taken by selects.
+template <int NEL>
+__device__ __forceinline__ void dcsc_ring_step(const DcScConst& k, const RingWords<kDcScWords>& x,
+                                               DcScState& s, SpecRow& r, float& reward,
+                                               float& terms) {
+  const DcScState y = dcsc_physics<NEL>(k, s, __uint_as_float(x.w[0]));
+  const float w_n = y.w * k.v[DS_INV_W_LIM];
+  bool violated = fabsf(y.i0) > k.v[DS_I0_LIM];
+  if (NEL == 2) violated = violated || (fabsf(y.i1) > k.v[DS_I1_LIM]);
+  reward += violated ? k.v[DS_VIOLATION_REWARD] : -fabsf(w_n - r.rv);
+  terms += violated ? 1.0f : 0.0f;
+  s.w = violated ? 0.0f : y.w;
+  s.i0 = violated ? 0.0f : y.i0;
+  s.i1 = violated ? 0.0f : y.i1;
+  const bool regen = (r.rk >= r.rl) || violated;
+  spec_row_walk(r, regen, __uint_as_float(x.w[2]), __uint_as_float(x.w[3]),
+                __uint_as_float(x.w[1]), 0.0f, k.v[DS_MARGIN]);
+  r.rv = violated ? __uint_as_float(x.w[4]) : r.rv;
+}
+
+// The ring: K = 8 steps a slot, two producer warps per consumer warp, each
+// drawing four steps of a slot (K = 4 or one producer warp was slower on
+// both motors, PERF.md, slice 16).
+using DcScRing = RingShape<8, 2>;
+
+// The random rollout warp-specialised: producer warps run dcsc_draws,
+// consumer warps dcsc_ring_step, one thread per env.
+template <int NEL>
+__global__ void __launch_bounds__(DcScRing::kThreads)
+    dc_sc_rollout_ws_kernel(DcScConst k, uint2 key, int n, int n_steps, SpecIn in, SpecOut out) {
+  extern __shared__ uint32_t ring[];
+  const RingThread th = ring_thread(n);
+  const int e = th.e;
+  const RingPipe<DcScRing> pipe(n_steps);
+  const RingView<kDcScWords> v{ring + th.le};
+  if (!th.consumer) {
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool odd, float& zb) {
+      return dcsc_draws(k, key, (uint32_t)e, t, odd, zb);
+    });
+    return;
+  }
+  DcScState s = dcsc_load<NEL>(in, e);
+  SpecRow r = dcsc_row_init(k, key, (uint32_t)e);
+  float reward = 0.0f, terms = 0.0f;
+  ring_consume(pipe, v, n_steps, [&](const RingWords<kDcScWords>& x) {
+    dcsc_ring_step<NEL>(k, x, s, r, reward, terms);
+  });
+  if (th.live) dcsc_store<NEL>(out, e, s, reward, terms, r);
 }
 
 template <int NEL>
@@ -213,6 +327,13 @@ DcScConst ds_consts(const float* consts) {
 
 bool ds_shunt(const DcScConst& k) { return k.v[DS_SHUNT] != 0.0f; }
 
+// The one-thread random kernels are never launched: tools/sass_ops.py counts
+// their step, the function's own work, for the bound.
+template __global__ void dc_sc_rollout_random_kernel<1>(DcScConst, uint2, int, int, SpecIn,
+                                                        SpecOut);
+template __global__ void dc_sc_rollout_random_kernel<2>(DcScConst, uint2, int, int, SpecIn,
+                                                        SpecOut);
+
 }  // namespace
 
 extern "C" {
@@ -226,10 +347,19 @@ int dc_sc_rollout_random(const float* consts, unsigned long long seed, int n, in
   const DcScConst k = ds_consts(consts);
   const bool shunt = ds_shunt(k);
   const int n_state = shunt ? 3 : 2;
-  auto kernel = shunt ? dc_sc_rollout_random_kernel<2> : dc_sc_rollout_random_kernel<1>;
-  kernel<<<spec_blocks(n), kSpecThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = shunt ? dc_sc_rollout_ws_kernel<2> : dc_sc_rollout_ws_kernel<1>;
+  constexpr int bytes = ring_bytes<DcScRing>(kDcScWords);
+  static_assert(bytes <= 48 * 1024, "the ring fits the default dynamic shared memory");
+  kernel<<<(n + kRingEnvs - 1) / kRingEnvs, DcScRing::kThreads, bytes, (cudaStream_t)stream>>>(
       k, spec_seed_key(seed), n, n_steps, spec_in(in, n_state), spec_out(out, n_state + 6));
   return (int)cudaGetLastError();
+}
+
+// The random rollout's ring (ring_pipe.cuh's RingLayout), the same for
+// both motors.
+int dc_sc_ring_layout(int* out) {
+  ring_layout<DcScRing>(kDcScWords, out);
+  return 0;
 }
 
 // actions: float32 (T, R, 128) duties; out: the state, each (R, 128).

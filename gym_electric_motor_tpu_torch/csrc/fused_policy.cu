@@ -58,17 +58,41 @@
 // the per-env step G times over on a full card.  Every design equals the
 // plain version bit for bit.  The one-thread kernel stays the count of the
 // function's own work for the bound.
+//
+// policy_rollout on a ring.  At 16384 envs one thread per env is one warp a
+// scheduler, and each step put the Philox call, the Box-Muller pair's
+// logf, sqrtf, cosf and sinf and the divergent regeneration and reset
+// draws on the MLP's thread.  With Wiener references the rollout is
+// warp-specialised (ring_pipe.cuh, pmsm_ring.cuh): two producer warps per
+// consumer warp draw, in a double-buffered ring of K = 8 steps a slot, the
+// action uniform, both references' draws and their candidate lengths,
+// sigmas and reset values (9 words a step, 8 greedy); the consumer warps
+// run the observation, the MLP, the sample, the PMSM step and the
+// reference update by selects, one thread per env.  The consumers hold b1
+// and the first rows of w1 (112 floats at H 16, all of layer 1) in
+// registers across the step loop, with a register budget of 200 that
+// setmaxnreg raises from the launch's 168 while the producers lower
+// theirs to 56; layer 2 and the rest of w1 stay in shared memory behind
+// the compiler barrier, read as 16-byte vectors (mlp_forward_vec).  The
+// parent's scalar reads were already merged into LDS.128 by ptxas (62
+// shared-memory loads a step at H 16), so the gain is the loads taken off
+// the step, not wider ones.  With constant references the rollout stays one
+// thread per env (greedy at H 8 and 16 in mlp_forward_vec's loop order,
+// const_vec).  One producer warp per consumer warp, K = 4, a ring without
+// the held weights and mlp_forward's loop order with them were slower
+// (PERF.md, slice 16).
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "pmsm_ring.cuh"
 #include "policy_lanes.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-template <int H, bool kGreedy, bool kWiener>
+template <int H, bool kGreedy, bool kWiener, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 policy_rollout_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps,
                       const float* __restrict__ w1, const float* __restrict__ b1,
@@ -100,7 +124,11 @@ policy_rollout_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps,
     compiler_barrier();
     float obs[6], h[H], logit[kActions];
     policy_obs6(k, q, st, obs);
-    mlp_forward<6, H>(sw, obs, h, logit);
+    if constexpr (kVec) {
+      mlp_forward_vec<6, H, 0>(sw, MlpHeld<H, 0>{}, obs, h, logit);
+    } else {
+      mlp_forward<6, H>(sw, obs, h, logit);
+    }
     uint4 w = make_uint4(0u, 0u, 0u, 0u);
     if (!kGreedy || kWiener) w = pmsm_draw(key, (uint32_t)e, (uint32_t)t, SLOT_STEP);
     const int action = kGreedy ? argmax8(logit) : sample_inverse_cdf(logit, uniform24(w.x));
@@ -114,6 +142,91 @@ policy_rollout_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps,
   out_eps[e] = st.eps;
   out_reward[e] = reward;
   out_terms[e] = terms;
+}
+
+// One consumer step of the warp-specialised rollout: policy_rollout_kernel's
+// Wiener step with the step's draws taken from the ring (pmsm_ring.cuh) and
+// layer 1's weights from registers (mlp_forward_vec over MlpHeld).
+template <int H, bool kGreedy, int NROW>
+__device__ __forceinline__ void policy_ring_step(const PmsmConst& k, const PolicyConst& q,
+                                                 const float* sw, const MlpHeld<H, NROW>& held,
+                                                 const PmsmDraws& d, PmsmEnv& st, float& reward,
+                                                 float& terms) {
+  compiler_barrier();
+  float obs[6], h[H], logit[kActions];
+  policy_obs6(k, q, st, obs);
+  mlp_forward_vec<6, H, NROW>(sw, held, obs, h, logit);
+  const int action = kGreedy ? argmax8(logit) : sample_inverse_cdf(logit, d.u);
+  const PmsmStepOut o = pmsm_action_step(k, action, st);
+  reward += o.reward;
+  terms += o.done;
+  pmsm_advance_candidates(k, d.c, o.done != 0.0f, st);
+}
+
+// The ring of the evaluation rollout: K = 8 steps a slot, two producer
+// warps per consumer warp (one was slower at H 8, 32 and greedy, PERF.md).
+using PolicyRing = RingShape<8, 2>;
+
+// setmaxnreg budgets (sm_90a) of the two roles: the consumer warpgroup
+// raises its threads' registers to kConsumerRegs, enough to hold layer 1
+// (mlp_held_rows) beside the step, the producer warpgroups lower theirs to
+// kProducerRegs.  The launch allocates 168 a thread (__launch_bounds__ of
+// one block an SM), so the consumers' raise always finds the registers the
+// producers gave back.
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 200;
+
+// The evaluation rollout with Wiener references, warp-specialised
+// (ring_pipe.cuh, pmsm_ring.cuh): producer warps draw each step's action
+// uniform, Box-Muller pair and reference candidates into the ring,
+// consumer warps run policy_ring_step, one thread per env, with b1 and the
+// first rows of w1 in registers across the step loop.  Each role's branch
+// runs to its own end, so that the two never reconverge (setmaxnreg
+// requires it).
+template <int H, bool kGreedy>
+__global__ void __launch_bounds__(PolicyRing::kThreads, 1)
+policy_rollout_ws_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps,
+                         const float* __restrict__ w1, const float* __restrict__ b1,
+                         const float* __restrict__ w2, const float* __restrict__ b2,
+                         const float* __restrict__ i_sd0, const float* __restrict__ i_sq0,
+                         const float* __restrict__ eps0, float* __restrict__ out_isd,
+                         float* __restrict__ out_isq, float* __restrict__ out_eps,
+                         float* __restrict__ out_reward, float* __restrict__ out_terms) {
+  constexpr int W = pmsm_ring_words<!kGreedy>();
+  constexpr int NROW = mlp_held_rows<6, H>();
+  extern __shared__ uint32_t ring[];
+  __shared__ __align__(16) float sw[MlpLayout<6, H>::N];
+  stage_weights<6, H>(sw, w1, b1, w2, b2);
+  const RingThread th = ring_thread(n);
+  const int e = th.e;
+  const RingPipe<PolicyRing> pipe(n_steps);
+  const RingView<W> v{ring + th.le};
+  if (th.consumer) {
+    ring_regs_inc<kConsumerRegs>();
+    const MlpHeld<H, NROW> held = mlp_hold<6, H, NROW>(sw);
+    PmsmEnv st;
+    st.i_sd = i_sd0[e];
+    st.i_sq = i_sq0[e];
+    st.eps = eps0[e];
+    pmsm_init(k, key, (uint32_t)e, st);
+    float reward = 0.0f, terms = 0.0f;
+    ring_consume(pipe, v, n_steps, [&](const RingWords<W>& w) {
+      policy_ring_step<H, kGreedy, NROW>(k, q, sw, held, pmsm_draws_unpack<!kGreedy>(w), st,
+                                         reward, terms);
+    });
+    if (th.live) {
+      out_isd[e] = st.i_sd;
+      out_isq[e] = st.i_sq;
+      out_eps[e] = st.eps;
+      out_reward[e] = reward;
+      out_terms[e] = terms;
+    }
+  } else {
+    ring_regs_dec<kProducerRegs>();
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool, float&) {
+      return pmsm_draws_pack<!kGreedy>(pmsm_draws(k, key, (uint32_t)e, t));
+    });
+  }
 }
 
 // Categorical, Wiener references; the 7-feature observation takes the
@@ -449,11 +562,33 @@ void launch_record_lanes(PmsmConst k, PolicyConst q, uint2 key, int n, int n_ste
                                                     i_sq0, eps0, out);
 }
 
+// With constant references policy_rollout runs one thread per env; greedy
+// at H 8 and 16 in mlp_forward_vec's loop order (kVec), which ran 4% to 6%
+// faster there and 0.5% to 4.6% slower in every other constant-reference
+// instance (PERF.md, slice 16).
+template <int H, bool kGreedy>
+constexpr bool const_vec() {
+  return kGreedy && H < 32;
+}
+
+// The one-thread instances that read the weights in mlp_forward's order,
+// never launched at H 16 with Wiener references or greedy: tools/sass_ops.py
+// counts their step, the function's own work, for the bound.
+template __global__ void policy_rollout_kernel<16, false, true, false>(
+    PmsmConst, PolicyConst, uint2, int, int, const float*, const float*, const float*,
+    const float*, const float*, const float*, const float*, const float*, const float*, float*,
+    float*, float*, float*, float*);
+template __global__ void policy_rollout_kernel<16, true, false, false>(
+    PmsmConst, PolicyConst, uint2, int, int, const float*, const float*, const float*,
+    const float*, const float*, const float*, const float*, const float*, const float*, float*,
+    float*, float*, float*, float*);
+
 }  // namespace
 
 extern "C" {
 
 int policy_n_const() { return N_PMSM_CONST + N_POLICY_CONST; }
+
 
 const char* gemx_policy_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
@@ -468,19 +603,48 @@ int policy_rollout(const float* consts, unsigned long long seed, int n, int n_st
   cudaStream_t s = (cudaStream_t)stream;
   const bool ok = with_hidden(hidden, [&](auto hc) {
     constexpr int H = decltype(hc)::value;
-#define GEMX_POLICY_ROLLOUT(G, W)                                                              \
-  policy_rollout_kernel<H, G, W><<<blocks(n), kThreads, 0, s>>>(                               \
-      k, q, key, n, n_steps, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d, ref_q, out_isd,        \
-      out_isq, out_eps, out_reward, out_terms)
+    auto launch = [&](auto gc) {
+      constexpr bool G = decltype(gc)::value;
+      if (wiener) {
+        constexpr int bytes = ring_bytes<PolicyRing>(pmsm_ring_words<!G>());
+        if (bytes > 48 * 1024) {
+          cudaFuncSetAttribute(policy_rollout_ws_kernel<H, G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        }
+        policy_rollout_ws_kernel<H, G><<<(n + kRingEnvs - 1) / kRingEnvs, PolicyRing::kThreads,
+                                         bytes, s>>>(k, q, key, n, n_steps, w1, b1, w2, b2, i_sd0,
+                                                     i_sq0, eps0, out_isd, out_isq, out_eps,
+                                                     out_reward, out_terms);
+      } else {
+        policy_rollout_kernel<H, G, false, const_vec<H, G>()><<<blocks(n), kThreads, 0, s>>>(
+            k, q, key, n, n_steps, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d, ref_q, out_isd,
+            out_isq, out_eps, out_reward, out_terms);
+      }
+    };
     if (greedy) {
-      if (wiener) GEMX_POLICY_ROLLOUT(true, true); else GEMX_POLICY_ROLLOUT(true, false);
+      launch(std::true_type{});
     } else {
-      if (wiener) GEMX_POLICY_ROLLOUT(false, true); else GEMX_POLICY_ROLLOUT(false, false);
+      launch(std::false_type{});
     }
-#undef GEMX_POLICY_ROLLOUT
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// policy_rollout's launch for these modes: ring_pipe.cuh's RingLayout of
+// its ring with Wiener references, RL_DESIGN 1 and the rest zero with
+// constant ones (one thread per env); then the consumer and producer
+// threads' register budgets (setmaxnreg), or zeros.
+int policy_rollout_layout(int hidden, int greedy, int wiener, int* out) {
+  if (hidden != 8 && hidden != 16 && hidden != 32) return (int)cudaErrorInvalidValue;
+  if (wiener) {
+    ring_layout<PolicyRing>(greedy ? pmsm_ring_words<false>() : pmsm_ring_words<true>(), out);
+  } else {
+    ring_layout_one_thread(1, out);
+  }
+  out[N_RING_LAYOUT] = wiener ? kConsumerRegs : 0;
+  out[N_RING_LAYOUT + 1] = wiener ? kProducerRegs : 0;
+  return 0;
 }
 
 int policy_record(const float* consts, unsigned long long seed, int n, int n_steps, int hidden,

@@ -109,6 +109,102 @@ __device__ __forceinline__ void mlp_forward(const float* sw, const float (&obs)[
   }
 }
 
+// Layer 1's weights held in registers across a rollout's step loop: b1 and
+// the first NROW rows of w1 (NROW 0: none, every weight read from shared
+// memory).  kMlpHeldFloats bounds what a consumer thread holds.
+constexpr int kMlpHeldFloats = 112;
+
+template <int F, int H>
+__host__ __device__ constexpr int mlp_held_rows() {
+  return (kMlpHeldFloats - H) / H < F ? (kMlpHeldFloats - H) / H : F;
+}
+
+template <int H, int NROW>
+struct MlpHeld {
+  float b1[NROW > 0 ? H : 1];
+  float w1[NROW > 0 ? NROW : 1][H];
+};
+
+template <int F, int H, int NROW>
+__device__ __forceinline__ MlpHeld<H, NROW> mlp_hold(const float* sw) {
+  using L = MlpLayout<F, H>;
+  MlpHeld<H, NROW> w = {};
+  if constexpr (NROW > 0) {
+#pragma unroll
+    for (int j = 0; j < H; ++j) w.b1[j] = sw[L::B1 + j];
+#pragma unroll
+    for (int f = 0; f < NROW; ++f) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) w.w1[f][j] = sw[L::W1 + f * H + j];
+    }
+  }
+  return w;
+}
+
+// mlp_forward with the weights read from shared memory as 16-byte vectors
+// (LDS.128: every offset of MlpLayout is a multiple of 4 floats for H a
+// multiple of 4, and sw is 16-byte aligned), and with NROW > 0 b1 and the
+// first NROW rows of w1 taken from registers (mlp_hold).  The loops run f
+// outer and j inner over H accumulators in layer 1, j outer and a inner
+// over 8 in layer 2, so that every accumulator still sums its operands in
+// the order of the index, as mlp_forward does: the same bits.
+template <int F, int H, int NROW>
+__device__ __forceinline__ void mlp_forward_vec(const float* sw, const MlpHeld<H, NROW>& held,
+                                                const float (&obs)[F], float (&h)[H],
+                                                float (&logit)[kActions]) {
+  using L = MlpLayout<F, H>;
+  static_assert(H % 4 == 0 && L::B1 % 4 == 0 && L::W2 % 4 == 0 && L::B2 % 4 == 0,
+                "the layout's offsets are whole 16-byte vectors");
+  const float4* v = reinterpret_cast<const float4*>(sw);
+  float acc[H];
+#pragma unroll
+  for (int j4 = 0; j4 < H / 4; ++j4) {
+    if constexpr (NROW > 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[4 * j4 + i] = held.b1[4 * j4 + i];
+    } else {
+      const float4 b = v[L::B1 / 4 + j4];
+      acc[4 * j4] = b.x;
+      acc[4 * j4 + 1] = b.y;
+      acc[4 * j4 + 2] = b.z;
+      acc[4 * j4 + 3] = b.w;
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+#pragma unroll
+    for (int j4 = 0; j4 < H / 4; ++j4) {
+      const int fh = f < NROW ? f : 0;
+      const float4 x = f < NROW ? make_float4(held.w1[fh][4 * j4], held.w1[fh][4 * j4 + 1],
+                                              held.w1[fh][4 * j4 + 2], held.w1[fh][4 * j4 + 3])
+                                : v[(L::W1 + f * H) / 4 + j4];
+      const float w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[4 * j4 + i] = acc[4 * j4 + i] + w[i] * obs[f];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < H; ++j) h[j] = tanhf(acc[j]);
+  {
+    const float4 b0 = v[L::B2 / 4], b1 = v[L::B2 / 4 + 1];
+    logit[0] = b0.x;
+    logit[1] = b0.y;
+    logit[2] = b0.z;
+    logit[3] = b0.w;
+    logit[4] = b1.x;
+    logit[5] = b1.y;
+    logit[6] = b1.z;
+    logit[7] = b1.w;
+  }
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float4 x0 = v[(L::W2 + j * kActions) / 4], x1 = v[(L::W2 + j * kActions) / 4 + 1];
+    const float w[kActions] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+    for (int a = 0; a < kActions; ++a) logit[a] = logit[a] + w[a] * h[j];
+  }
+}
+
 // First maximum wins (strict >).
 __device__ __forceinline__ int argmax8(const float (&logit)[kActions]) {
   float best = logit[0];

@@ -409,6 +409,19 @@ def launch_kernel(lib, prefix, name, device, launches, *args):
     launches[name] += 1
 
 
+# the fields of csrc/ring_pipe.cuh's RingLayout, in order
+RING_LAYOUT_FIELDS = ("consumer_warps", "producer_warps", "K", "slots", "words", "smem_bytes",
+                      "design")
+
+
+def named_ring_layout(values, extra=()):
+    """A RingLayout (and ``extra`` fields after it) as a dict, its design
+    named: warp-specialised, or one thread per env."""
+    lay = dict(zip(RING_LAYOUT_FIELDS + tuple(extra), values))
+    lay["design"] = "warp-specialised" if lay["design"] == 0 else "one thread per env"
+    return lay
+
+
 def check_rollout_inputs(R, n_steps, state0, actions=None):
     """A builder's own checks: the planes hold the envs it was built for,
     and an action buffer the steps."""

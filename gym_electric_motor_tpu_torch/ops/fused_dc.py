@@ -41,12 +41,15 @@ kernel's per-chunk reseed, which the Philox counters do not need.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from .fused_common import (LANE, ROW_NAMES, SPEC_SLOT_INIT_0, SPEC_SLOT_PARAMS, SPEC_SLOT_STEP,
-                           SlotBits, TWO_PI, box_muller, check_planes, check_rollout_inputs,
-                           check_tensor, fused_check_system, launch_kernel, pack_consts,
+from .fused_common import (LANE, RING_LAYOUT_FIELDS, ROW_NAMES, SPEC_SLOT_INIT_0,
+                           SPEC_SLOT_PARAMS, SPEC_SLOT_STEP, SlotBits, TWO_PI, box_muller,
+                           check_planes, check_rollout_inputs, check_tensor, fused_check_system,
+                           launch_kernel, named_ring_layout, pack_consts,
                            poly_load_rhs, ptr_array, require, require_lanes,
                            require_specialised_defaults, seed_u64, shaped_words, spec_library,
                            spec_params, spec_row_walk, specialised_load, specialised_u_sup,
@@ -361,10 +364,13 @@ _LIBS = {"permex": ("fused_permex", (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_
          "dc_sc": ("fused_dc_sc", (len(DcScConsts.NAMES),))}
 
 
-def _launch(prefix, name, device, *args):
+def _library(prefix):
     library, counts = _LIBS[prefix]
-    lib = spec_library(library, prefix, [k for k in KERNELS if k.startswith(prefix)], counts)
-    launch_kernel(lib, prefix, name, device, LAUNCHES, *args)
+    return spec_library(library, prefix, [k for k in KERNELS if k.startswith(prefix)], counts)
+
+
+def _launch(prefix, name, device, *args):
+    launch_kernel(_library(prefix), prefix, name, device, LAUNCHES, *args)
 
 
 def _px_consts(c: PermexConsts):
@@ -440,6 +446,28 @@ def dc_sc_rollout_random(c: DcScConsts, seed: int, state0, n_steps: int):
     _launch("dc_sc", "dc_sc_rollout_random", device, c.host.ctypes.data, seed_u64(seed),
             R * LANE, int(n_steps), ptr_array(state0), ptr_array(outs))
     return tuple(outs)
+
+
+def _dc_sc_random_launch(c: DcScConsts, seed: int, state0, n_steps: int, n_envs: int):
+    """dc_sc_rollout_random's kernel on the first ``n_envs`` envs of the
+    planes: its outputs, each ``(n_envs,)``; not counted in ``LAUNCHES``."""
+    device = state0[0].device
+    outs = _empty((n_envs,), device, c.n_state + 6)
+    launch_kernel(_library("dc_sc"), "dc_sc", "dc_sc_rollout_random", device,
+                  {"dc_sc_rollout_random": 0}, c.host.ctypes.data, seed_u64(seed), n_envs,
+                  int(n_steps), ptr_array(state0), ptr_array(outs))
+    return outs
+
+
+def dc_sc_ring_layout():
+    """The random rollout's ring (csrc/fused_dc_sc.cu, the same for both
+    motors; csrc/ring_pipe.cuh's RingLayout): consumer and producer warps,
+    K steps a slot, slots, words a step, shared-memory bytes."""
+    lib = _library("dc_sc")
+    lib.dc_sc_ring_layout.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_int * len(RING_LAYOUT_FIELDS))()
+    lib.dc_sc_ring_layout(out)
+    return named_ring_layout(out)
 
 
 def dc_sc_rollout_buffer(c: DcScConsts, state0, actions):

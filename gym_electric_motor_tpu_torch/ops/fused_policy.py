@@ -19,7 +19,9 @@ and one kernel per family the universal recorder's (``UNIVERSAL_KERNELS``:
 ``policy_rollout``         T steps with the MLP choosing the action
                            (categorical or greedy; Wiener or constant
                            references), reduced to the final state, reward
-                           sums and termination counts
+                           sums and termination counts (with Wiener
+                           references producer warps draw and consumer
+                           warps step, ``policy_rollout_layout``)
 ``policy_record``          the categorical, Wiener step with the 7-feature
                            observation, every step recorded (PPO
                            collection; at PPO's width eight lanes of a
@@ -66,12 +68,14 @@ from .fused_common import (
     LANE,
     TWO_PI,
     PhiloxBits,
+    RING_LAYOUT_FIELDS,
     PolicyBits,
     ReinforceBits,
     check_planes,
     check_rollout_inputs,
     family_library,
     launch_kernel,
+    named_ring_layout,
     ptr_array,
     reference_step,
     seed_u64,
@@ -374,6 +378,7 @@ _ARGTYPES = {
     "policy_rollout": [_P, ctypes.c_uint64, _I, _I, _I, _I, _I] + [_P] * 14 + [_P],
     "policy_record": [_P, ctypes.c_uint64, _I, _I, _I] + [_P] * 15 + [_P],
     "policy_record_layout": [_I, _P],
+    "policy_rollout_layout": [_I, _I, _I, _P],
     "reinforce_rollout": ([_P, ctypes.c_uint64, _I, _I, _I, _I, _I, ctypes.c_float]
                           + [_P] * 17 + [_P]),
     "reinforce_reduce": [_I, _I, _P, _P, _P],
@@ -396,13 +401,19 @@ def _lib():
     return lib
 
 
-def _launch(name, device, *args):
+def _call(name, device, *args):
+    """Call kernel ``name`` on the current stream of ``device``; raise on
+    the error code it returns."""
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: {lib.gemx_policy_error_string(rc).decode()}")
+
+
+def _launch(name, device, *args):
+    _call(name, device, *args)
     LAUNCHES[name] += 1
 
 
@@ -445,11 +456,36 @@ def policy_rollout(consts: PolicyConsts, seed: int, w1, b1, w2, b2, i_sd0, i_sq0
     if device.type == "cpu":
         return policy_rollout_plain(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d,
                                     ref_q, n_steps, sample, ref_mode)
-    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(5)]
-    _launch("policy_rollout", device, consts.host.ctypes.data, int(seed) & 0xFFFFFFFFFFFFFFFF,
-            R * LANE, int(n_steps), b1.shape[0], int(greedy), int(wiener),
-            *_ptrs(w1, b1, w2, b2, i_sd0, i_sq0, eps0), _ptr(ref_d), _ptr(ref_q), *_ptrs(*outs))
-    return tuple(outs)
+    outs = _rollout_launch(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d, ref_q,
+                           n_steps, R * LANE, greedy, wiener)
+    LAUNCHES["policy_rollout"] += 1
+    return tuple(x.reshape(R, LANE) for x in outs)
+
+
+def _rollout_launch(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d, ref_q, n_steps,
+                    n_envs, greedy, wiener):
+    """policy_rollout's kernel on the first ``n_envs`` envs of the planes:
+    the 5 outputs, each ``(n_envs,)``; not counted in ``LAUNCHES``."""
+    outs = [torch.empty(n_envs, dtype=torch.float32, device=i_sd0.device) for _ in range(5)]
+    _call("policy_rollout", i_sd0.device, consts.host.ctypes.data,
+          int(seed) & 0xFFFFFFFFFFFFFFFF, n_envs, int(n_steps), b1.shape[0], int(greedy),
+          int(wiener), *_ptrs(w1, b1, w2, b2, i_sd0, i_sq0, eps0), _ptr(ref_d), _ptr(ref_q),
+          *_ptrs(*outs))
+    return outs
+
+
+def policy_rollout_layout(hidden, sample="categorical", ref_mode="wiener"):
+    """The launch of ``policy_rollout`` at H ``hidden`` in these modes
+    (csrc/fused_policy.cu): with Wiener references its ring
+    (csrc/ring_pipe.cuh's RingLayout: consumer and producer warps, K steps
+    a slot, slots, words a step, shared-memory bytes) and each role's
+    register budget (setmaxnreg), with constant ones one thread per env;
+    ``design`` names it."""
+    greedy, wiener = _modes(sample, ref_mode)
+    out = (ctypes.c_int * (len(RING_LAYOUT_FIELDS) + 2))()
+    if _lib().policy_rollout_layout(int(hidden), int(greedy), int(wiener), out) != 0:
+        raise ValueError(f"the policy kernels are built for H in {HIDDEN_SIZES}, got {hidden}")
+    return named_ring_layout(out, ("consumer_registers", "producer_registers"))
 
 
 def policy_record(consts: PolicyConsts, seed: int, w1, b1, w2, b2, i_sd0, i_sq0, eps0,
@@ -468,18 +504,11 @@ def policy_record(consts: PolicyConsts, seed: int, w1, b1, w2, b2, i_sd0, i_sq0,
 def _record_launch(consts, seed, w1, b1, w2, b2, i_sd0, i_sq0, eps0, n_steps, n_envs):
     """policy_record's kernel on the first ``n_envs`` envs of the planes:
     the 8 outputs, each ``(T, n_envs)``; not counted in ``LAUNCHES``."""
-    device = i_sd0.device
     outs = [torch.empty((int(n_steps), n_envs), dtype=torch.int32 if j == 5 else torch.float32,
-                        device=device) for j in range(8)]
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.policy_record(consts.host.ctypes.data, int(seed) & 0xFFFFFFFFFFFFFFFF, n_envs,
-                               int(n_steps), b1.shape[0],
-                               *_ptrs(w1, b1, w2, b2, i_sd0, i_sq0, eps0, *outs), stream)
-    if rc != 0:
-        raise RuntimeError(f"policy_record kernel launch failed: "
-                           f"{lib.gemx_policy_error_string(rc).decode()}")
+                        device=i_sd0.device) for j in range(8)]
+    _call("policy_record", i_sd0.device, consts.host.ctypes.data,
+          int(seed) & 0xFFFFFFFFFFFFFFFF, n_envs, int(n_steps), b1.shape[0],
+          *_ptrs(w1, b1, w2, b2, i_sd0, i_sq0, eps0, *outs))
     return outs
 
 

@@ -879,3 +879,108 @@ def test_cuda_dfim_and_sync_rollouts_equal_plain_versions_bit_for_bit(family, en
                 same = (g == x) | (torch.isnan(g) & torch.isnan(x))
                 assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
             assert float(got[c.n_state + 1][0]) >= 1.0  # env 0 reset
+
+
+# policy_rollout's twelve instances: (H, sample, references)
+POLICY_ROLLOUT_CASES = [(h, s, r) for h in (8, 16, 32) for s in ("categorical", "greedy")
+                        for r in ("wiener", "const")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,sample,ref_mode", POLICY_ROLLOUT_CASES,
+                         ids=[f"H{h}-{s}-{r}" for h, s, r in POLICY_ROLLOUT_CASES])
+def test_cuda_policy_rollout_equals_plain_version_bit_for_bit(hidden, sample, ref_mode):
+    """policy_rollout (csrc/fused_policy.cu: producer and consumer warps over
+    a shared-memory ring with Wiener references, one thread per env reading
+    the weights as 16-byte vectors with constant ones) equals
+    policy_rollout_plain bit for bit in every env and every output (NaN
+    where the plain version has NaN), for 1, 37 and 2051 envs (a partial
+    warp, a partial block, a partial last block) and 1, 7, 8 and 64 steps,
+    and for 131 envs at 1024 steps.  Envs 0 and 5 start at three times the
+    current limit and reset at their first step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+
+    dev = torch.device("cuda")
+    env = gt.make_functional("Finite-CC-PMSM-v0", device=dev, state_filter=fp.STATE_FILTER)
+    consts = fp.PolicyConsts(env)
+    greedy, wiener = sample == "greedy", ref_mode == "wiener"
+    rng = np.random.default_rng(41)
+    w = [torch.as_tensor((rng.normal(size=k) * s).astype(np.float32), device=dev)
+         for k, s in ((6 * hidden, 0.5), (hidden, 0.1), (hidden * 8, 0.5), (8, 0.1))]
+    i_lim = 1.0 / float(consts.f["inv_i_lim"])
+    fp.reset_launches()
+    for n, steps in ((1, (1, 7, 8, 64)), (37, (1, 7, 8, 64)), (2051, (1, 7, 8, 64)),
+                     (131, (1024,))):
+        R = -(-n // 128)
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32)
+                 for lo, hi in ((-i_lim, i_lim), (-i_lim, i_lim), (0, 2 * np.pi))]
+        for e in (0, 5):
+            start[0].reshape(-1)[e] = 3.0 * i_lim
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        refs = [torch.as_tensor(rng.uniform(-0.5, 0.5, (R, 128)).astype(np.float32), device=dev)
+                for _ in range(2)]
+        refs_k = (None, None) if wiener else refs
+        for T in steps:
+            got = fp._rollout_launch(consts, 9, *w, *start, *refs_k, T, n, greedy, wiener)
+            torch.cuda.synchronize()
+            want = fp.policy_rollout_plain(consts, 9, *w, *start, *refs, T, sample, ref_mode)
+            for j, (g, x) in enumerate(zip(got, want)):
+                x = x.reshape(-1)[:n]
+                assert g.shape == x.shape and g.dtype == x.dtype, (n, T, j)
+                same = (g == x) | (torch.isnan(g) & torch.isnan(x))
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[4][0]) >= 1.0  # env 0 reset
+    # the plane entry point launches the same kernel, counted once
+    R = 3
+    start = [torch.zeros((R, 128), device=dev) for _ in range(3)]
+    refs = [torch.full((R, 128), 0.1, device=dev) for _ in range(2)]
+    got = fp.policy_rollout(consts, 9, *w, *start, *refs, 9, sample, ref_mode)
+    want = fp.policy_rollout_plain(consts, 9, *w, *start, *refs, 9, sample, ref_mode)
+    assert all(bool(torch.equal(g, x)) for g, x in zip(got, want))
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {"policy_rollout": 1}
+    layout = fp.policy_rollout_layout(hidden, sample, ref_mode)
+    assert layout["design"] == ("warp-specialised" if wiener else "one thread per env")
+
+
+DC_SC_IDS = ["Cont-SC-SeriesDc-v0", "Cont-SC-ShuntDc-v0"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", DC_SC_IDS)
+def test_cuda_dc_sc_rollout_random_equals_plain_version_bit_for_bit(env_id):
+    """dc_sc_rollout_random (csrc/fused_dc_sc.cu: producer and consumer warps
+    over a shared-memory ring) equals dc_sc_rollout_random_plain bit for bit
+    in every env and every output (NaN where the plain version has NaN), for
+    1, 37 and 2051 envs and 1, 3, 4, 5, 9 and 64 steps (the ring stops in
+    every place of its slots, and a Box-Muller pair's sine is carried to an
+    odd step), and for 131 envs at 1024 steps.  Env 0 starts at five times
+    the armature current's limit and resets at its first step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_dc as fd
+
+    dev = torch.device("cuda")
+    c = fd.DcScConsts(gt.make_functional(env_id, device=dev))
+    rng = np.random.default_rng(43)
+    fd.reset_launches()
+    for n, steps in ((1, (1, 3, 4, 5, 9, 64)), (37, (1, 3, 4, 5, 9, 64)),
+                     (2051, (1, 3, 4, 5, 9, 64)), (131, (1024,))):
+        R = -(-n // 128)
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32)
+                 for lo, hi in [(0, 100)] + [(-5, 5)] * (c.n_state - 1)]
+        start[1].reshape(-1)[0] = 5.0 * float(c.f["i0_lim"])
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        for T in steps:
+            got = fd._dc_sc_random_launch(c, 7, start, T, n)
+            torch.cuda.synchronize()
+            want = fd.dc_sc_rollout_random_plain(c, 7, start, T)
+            for j, (g, x) in enumerate(zip(got, want)):
+                x = x.reshape(-1)[:n]
+                assert g.shape == x.shape and g.dtype == x.dtype, (n, T, j)
+                same = (g == x) | (torch.isnan(g) & torch.isnan(x))
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[c.n_state + 1][0]) >= 1.0  # env 0 reset
+    assert not any(fd.LAUNCHES.values())
+    assert fd.dc_sc_ring_layout()["design"] == "warp-specialised"

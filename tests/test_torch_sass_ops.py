@@ -224,8 +224,8 @@ SPECIALISED_KERNELS = {
     "fused_permex": [f"{k}_kernelE7DcConst{'11PermexConst5uint2' if 'random' in k else ''}ii"
                      for k in ("permex_rollout_random", "permex_rollout_buffer",
                                "permex_record_random", "permex_record_buffer")],
-    "fused_dc_sc": [f"dc_sc_rollout_{m}_kernelILi{n}EEv9DcScConst" for m in ("random", "buffer")
-                    for n in (1, 2)],
+    "fused_dc_sc": [f"dc_sc_rollout_{m}_kernelILi{n}EEv9DcScConst"
+                    for m in ("random", "buffer", "ws") for n in (1, 2)],
     "fused_scim_tc": [f"scim_rollout_{m}_kernelE14InductionConst" for m in ("random", "buffer")],
     "fused_eesm_cc": [f"eesm_cc_rollout_{m}_kernelE9EesmConst11EesmCcConst"
                       for m in ("random", "buffer")],
@@ -238,7 +238,8 @@ SPECIALISED_KERNELS = {
 def test_specialised_instances_pick_one_function_each(library):
     """Every specialised entry matches exactly one function of its library's
     listing, and each of the library's random and buffer kernels is counted
-    (the dc_sc random kernel on both motors)."""
+    (the dc_sc random kernel on both motors, one thread per env and on its
+    ring; a ring entry's ``@wsK`` mark names no part of the function)."""
     listing = "\n".join(
         f"""        Function : _ZN45_GLOBAL__N__5c1e2d3f_12_x_cu_0f1e2d3c{len(k)}{k}
         /*0000*/                   S2R R0, SR_TID.X ;
@@ -249,7 +250,7 @@ def test_specialised_instances_pick_one_function_each(library):
     funcs = sass_ops.functions(listing)
     counted = set()
     for instance in sass_ops.STEP_INSTANCES[library].values():
-        names = [f for f in funcs if instance in f]
+        names = [f for f in funcs if instance.partition("@")[0] in f]
         assert len(names) == 1, instance
         counted.add(names[0])
         assert sass_ops.loop_counts(funcs[names[0]])["always"]["fp32"] == 2
@@ -416,27 +417,32 @@ def test_ws_counts_sum_the_consumer_step_and_the_producer_slot_over_its_steps():
 
 
 def test_ws_kernels_sit_beside_their_one_thread_instances():
-    """The sync, DC, SCIM, EESM and DFIM random rollouts run warp-specialised with
-    Wiener references: the DC and EESM ``_ws`` entries carry ``@ws2`` (two
-    producer warps per consumer warp, two steps each of a four-step slot)
-    or, under the EESM's speed ODE (MECH), ``@ws4`` (one), and no other
-    entry carries a ``@ws`` mark; each has a one-thread entry of the same
-    template arguments, the function's own work that the bounds count.  The
-    SCIM, sync and DFIM rings hold eight steps a slot for two producer
-    warps, so their mark is ``@ws4``, the steps a producer iteration
-    fills."""
+    """The sync, DC, SCIM, EESM and DFIM random rollouts, the policy
+    evaluation rollout and the specialised DC SC rollout run
+    warp-specialised with Wiener references: the DC and EESM ``_ws`` entries
+    carry ``@ws2`` (two producer warps per consumer warp, two steps each of
+    a four-step slot) or, under the EESM's speed ODE (MECH), ``@ws4`` (one),
+    and no other entry carries a ``@ws`` mark; each has a one-thread entry
+    whose template arguments start with its own, the function's own work
+    that the bounds count (the policy's one-thread kernel adds its Wiener
+    and weight-order flags).  The SCIM, sync, DFIM, policy and DC SC rings
+    hold eight steps a slot for two producer warps, so their mark is
+    ``@ws4``, the steps a producer iteration fills."""
     seen = {}
     for instances in sass_ops.STEP_INSTANCES.values():
         for key, instance in instances.items():
             ws = key.split("/")[0] in ("dc_rollout_ws", "eesm_rollout_ws", "induction_rollout_ws",
-                                       "sync_rollout_ws", "dfim_rollout_ws")
+                                       "sync_rollout_ws", "dfim_rollout_ws", "policy_rollout_ws",
+                                       "dc_sc_rollout_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
-                one = instances[key.replace("_ws", "_random", 1)]
+                random = key.replace("_ws", "_random", 1)
+                one = instances[random if random in instances else key.replace("_ws", "", 1)]
                 # the sync ring's shape is a template argument of its own
                 sub = instance.partition("@")[0].split("9RingShape")[0]
-                assert sub.replace("_ws_kernel", "_random_kernel", 1) == one, key
+                kernel = "_random_kernel" if random in instances else "_kernel"
+                assert one.startswith(sub.replace("_ws_kernel", kernel, 1)), key
     assert seen == {"dc_rollout_ws": 2, "dc_rollout_ws/Finite-CC-PermExDc-v0": 2,
                     "eesm_rollout_ws": 4, "eesm_rollout_ws/Cont-TC-EESM-v0": 2,
                     "eesm_rollout_ws/Finite-CC-EESM-v0": 2,
@@ -445,7 +451,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                     "sync_rollout_ws": 4, "sync_rollout_ws/Finite-CC-PMSM-v0": 4,
                     "sync_rollout_ws/Cont-CC-PMSM-v0": 4,
                     "dfim_rollout_ws": 4, "dfim_rollout_ws/Cont-CC-DFIM-v0": 4,
-                    "dfim_rollout_ws/Finite-CC-DFIM-v0": 4}
+                    "dfim_rollout_ws/Finite-CC-DFIM-v0": 4, "policy_rollout_ws": 4,
+                    "dc_sc_rollout_ws": 4, "dc_sc_rollout_ws/Cont-SC-SeriesDc-v0": 4}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
@@ -517,3 +524,25 @@ def test_issue_slot_floor_is_instructions_at_four_warp_instructions_per_sm_and_c
     want = 1e3 * env_steps * 362 / (132 * 1.98e9 * 128)
     assert sass_ops.issue_floor_ms(env_steps, 362, 132, 1.98e9) == pytest.approx(want, rel=1e-12)
     assert round(want, 2) == 11.62
+
+
+def test_policy_and_dc_sc_rings_keep_their_one_thread_entries():
+    """policy_rollout and dc_sc_rollout_random run on rings (csrc/ring_pipe.cuh):
+    their ``_ws`` entries count what the launch issues, while the one-thread
+    entries stay the count of the function's own work, the instances the
+    bounds take: policy_rollout at H 16, categorical, Wiener references,
+    the weights in mlp_forward's order (VEC 0), and greedy with constant
+    references in both orders (the launch takes VEC 1 there); the DC SC
+    kernel on both motors (NEL 2 ShuntDc, 1 SeriesDc)."""
+    policy = sass_ops.STEP_INSTANCES["fused_policy"]
+    assert policy["policy_rollout"] == "policy_rollout_kernelILi16ELb0ELb1ELb0EE"
+    assert policy["policy_rollout_ws"] == "policy_rollout_ws_kernelILi16ELb0E@ws4"
+    assert policy["policy_rollout/greedy/const"] == "policy_rollout_kernelILi16ELb1ELb0ELb0EE"
+    assert policy["policy_rollout/greedy/const/vec"] == "policy_rollout_kernelILi16ELb1ELb0ELb1EE"
+    dc_sc = sass_ops.STEP_INSTANCES["fused_dc_sc"]
+    assert dc_sc["dc_sc_rollout_random"] == "dc_sc_rollout_random_kernelILi2E"
+    assert dc_sc["dc_sc_rollout_random/Cont-SC-SeriesDc-v0"] == "dc_sc_rollout_random_kernelILi1E"
+    assert dc_sc["dc_sc_rollout_ws"] == "dc_sc_rollout_ws_kernelILi2E@ws4"
+    assert dc_sc["dc_sc_rollout_ws/Cont-SC-SeriesDc-v0"] == "dc_sc_rollout_ws_kernelILi1E@ws4"
+    for instance in list(policy.values()) + list(dc_sc.values()):
+        assert sass_ops.ws_steps_of(instance) == (4 if "_ws_kernel" in instance else 0)

@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
-"""Time this checkout's universal random rollouts against another
-checkout's, in one process on one card, and check that both give the same
-bits.
+"""Time this checkout's random rollouts against another checkout's, in one
+process on one card, and check that both give the same bits.
 
 Run on a machine with an NVIDIA GPU and the CUDA toolkit, from the root of
 a checkout, with another checkout unpacked beside it (for example the
 parent commit: ``git archive <commit> | tar -x -C _checkout/parent``):
 
-    python3 tools/rollout_ab.py _checkout/parent [family:env_id[:const] ...]
+    python3 tools/rollout_ab.py _checkout/parent [path ...]
 
+A path is ``family:env_id[:const]`` for a universal random rollout,
+``policy:<sample>:<refs>:<H>`` for the policy evaluation rollout
+(``policy_rollout`` on Finite-CC-PMSM-v0: sample ``categorical`` or
+``greedy``, refs ``wiener`` or ``const``, H 8, 16 or 32) or
+``dc_sc:<env_id>`` for the specialised Cont-SC DC rollout
+(``dc_sc_rollout_random`` on Cont-SC-SeriesDc-v0 or Cont-SC-ShuntDc-v0).
 For each path (default: the synchronous and DFIM ids that ``chip_smoke.py``
-times, with Wiener and with constant references) it builds
-``csrc/fused_<family>.cu`` of both trees with the package's nvcc flags,
-runs ``<family>_rollout_random`` of each on the same constants, seed and
-zero states (16384 envs x 65536 steps), in turns other, this, this, other,
-each a median of CUDA-event gaps (``chip_smoke.cuda_ms``), and prints one
-JSON line: both sides' times, other over this, whether the final outputs
-of the two sides are equal bit for bit (NaN where both are NaN), the mean
-reward and the share of env-steps that reset.  Families: ``sync``,
-``induction`` and ``dfim`` (the rollouts with a private
-``_rollout_random_launch``); constant references are those of
-``chip_smoke.SYNC_CONST_REFS``.
+times, with Wiener and with constant references) it builds the path's
+source (``csrc/fused_<family>.cu``, ``csrc/fused_policy.cu``,
+``csrc/fused_dc_sc.cu``) of both trees with the package's nvcc flags,
+runs the kernel of each on the same constants, seed and zero states
+(16384 envs x 65536 steps; the policy's weights drawn from numpy as
+``chip_smoke.py``'s evaluation rollout draws them, its constant references
+zero), in turns other, this, this, other, each a median of CUDA-event gaps
+(``chip_smoke.cuda_ms``), and prints one JSON line: both sides' times,
+other over this, whether the final outputs of the two sides are equal bit
+for bit (NaN where both are NaN), the mean reward and the share of
+env-steps that reset.  Families: ``sync``, ``induction`` and ``dfim`` (the
+rollouts with a private ``_rollout_random_launch``); constant references
+are those of ``chip_smoke.SYNC_CONST_REFS``.
 """
 
 from __future__ import annotations
@@ -60,8 +67,10 @@ def main():
     import chip_smoke as cs
     import gym_electric_motor_tpu_torch as gt
     from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_dc as fd
     from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
     from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
     from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
     from gym_electric_motor_tpu_torch.ops.fused_common import ptr_array, seed_u64
 
@@ -75,35 +84,90 @@ def main():
     dev = torch.device("cuda")
     card = cs.card_line()
     libs = {}
-    for path in paths:
-        family, env_id, *refs = path.split(":")
-        mod, consts, library = families[family]
+
+    def other_lib(library, name, argtypes):
         if library not in libs:
             libs[library] = build_other(other, library)
-        kw = {}
-        if refs:
-            kw["reference_generator"] = rg.ReferenceSpec(
-                [rg.ConstReference(n, v) for n, v in cs.SYNC_CONST_REFS[env_id.split("-")[1]]])
-        c = consts(gt.make_functional(env_id, device=dev, **kw))
-        z = [torch.zeros((N_ENVS // 128, 128), device=dev) for _ in range(c.n_state)]
-        pad = ([] if c.mech else [None])
-        fn = getattr(libs[library], f"{family}_rollout_random")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn = getattr(libs[library], name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        return fn
 
-        def run_other():
-            outs = ([torch.empty(N_ENVS, device=dev) for _ in range(c.n_state + 2)]
-                    + [torch.empty(c.n_ref * N_ENVS, device=dev) for _ in range(4)])
-            rc = fn(c.host.ctypes.data, c.flags.ctypes.data, seed_u64(SEED), N_ENVS, T_STEPS,
-                    ptr_array(pad + z), ptr_array(pad + outs),
-                    torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"the other tree's {family}_rollout_random returned {rc}")
-            return outs
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
 
-        def run_this():
-            return mod._rollout_random_launch(c, SEED, z, T_STEPS, N_ENVS)
+    for path in paths:
+        family, *rest = path.split(":")
+        if family == "policy":
+            sample, refs, hidden = rest
+            greedy, wiener = sample == "greedy", refs == "wiener"
+            env_id = "Finite-CC-PMSM-v0"
+            consts = fp.PolicyConsts(gt.make_functional(env_id, device=dev,
+                                                        state_filter=fp.STATE_FILTER))
+            w = cs.rl_weights(torch, np.random.default_rng(SEED), dev, 6, int(hidden), 0.5, 0.1)
+            z = [torch.zeros(N_ENVS, device=dev) for _ in range(3)]
+            zref = None if wiener else torch.zeros(N_ENVS, device=dev)
+            fn = other_lib("fused_policy", "policy_rollout", fp._ARGTYPES["policy_rollout"])
+            r_idx = 3
+
+            def run_other():
+                outs = [torch.empty(N_ENVS, device=dev) for _ in range(5)]
+                rc = fn(consts.host.ctypes.data, seed_u64(SEED), N_ENVS, T_STEPS, int(hidden),
+                        int(greedy), int(wiener), *[x.data_ptr() for x in w + z],
+                        *([None, None] if wiener else [zref.data_ptr()] * 2),
+                        *[x.data_ptr() for x in outs], stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's policy_rollout returned {rc}")
+                return outs
+
+            def run_this():
+                return fp._rollout_launch(consts, SEED, *w, *z, zref, zref, T_STEPS, N_ENVS,
+                                          greedy, wiener)
+        elif family == "dc_sc":
+            (env_id,) = rest
+            c = fd.DcScConsts(gt.make_functional(env_id, device=dev))
+            z = [torch.zeros(N_ENVS, device=dev) for _ in range(c.n_state)]
+            fn = other_lib("fused_dc_sc", "dc_sc_rollout_random",
+                           [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+            r_idx = c.n_state
+
+            def run_other():
+                outs = [torch.empty(N_ENVS, device=dev) for _ in range(c.n_state + 6)]
+                rc = fn(c.host.ctypes.data, seed_u64(SEED), N_ENVS, T_STEPS, ptr_array(z),
+                        ptr_array(outs), stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's dc_sc_rollout_random returned {rc}")
+                return outs
+
+            def run_this():
+                return fd._dc_sc_random_launch(c, SEED, z, T_STEPS, N_ENVS)
+        else:
+            env_id, *refs = rest
+            mod, consts, library = families[family]
+            kw = {}
+            if refs:
+                kw["reference_generator"] = rg.ReferenceSpec(
+                    [rg.ConstReference(n, v) for n, v in cs.SYNC_CONST_REFS[env_id.split("-")[1]]])
+            c = consts(gt.make_functional(env_id, device=dev, **kw))
+            z = [torch.zeros((N_ENVS // 128, 128), device=dev) for _ in range(c.n_state)]
+            pad = ([] if c.mech else [None])
+            fn = other_lib(library, f"{family}_rollout_random",
+                           [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+            r_idx = c.n_state
+
+            def run_other():
+                outs = ([torch.empty(N_ENVS, device=dev) for _ in range(c.n_state + 2)]
+                        + [torch.empty(c.n_ref * N_ENVS, device=dev) for _ in range(4)])
+                rc = fn(c.host.ctypes.data, c.flags.ctypes.data, seed_u64(SEED), N_ENVS, T_STEPS,
+                        ptr_array(pad + z), ptr_array(pad + outs), stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's {family}_rollout_random returned {rc}")
+                return outs
+
+            def run_this():
+                return mod._rollout_random_launch(c, SEED, z, T_STEPS, N_ENVS)
 
         times, outs = {"other": [], "this": []}, {}
         for side in ("other", "this", "this", "other"):
@@ -113,12 +177,12 @@ def main():
                     for a, b in zip(outs["this"], outs["other"]))
         o_ms, t_ms = float(np.median(times["other"])), float(np.median(times["this"]))
         ref = outs["this"]
-        print(json.dumps({"card": card, "family": family, "env_id": env_id,
-                          "refs": "const" if refs else "wiener", "envs": N_ENVS,
+        print(json.dumps({"card": card, "path": path, "family": family, "env_id": env_id,
+                          "envs": N_ENVS,
                           "steps": T_STEPS, "other_ms": times["other"], "this_ms": times["this"],
                           "other_over_this": o_ms / t_ms, "equal": equal,
-                          "mean_reward": float(ref[c.n_state].double().sum()) / (N_ENVS * T_STEPS),
-                          "reset_share": float(ref[c.n_state + 1].double().sum())
+                          "mean_reward": float(ref[r_idx].double().sum()) / (N_ENVS * T_STEPS),
+                          "reset_share": float(ref[r_idx + 1].double().sum())
                           / (N_ENVS * T_STEPS)}), flush=True)
         if not equal:
             raise AssertionError(f"{path}: the two trees' outputs differ")

@@ -15,8 +15,8 @@ sources ``csrc/fused_foc.cu``, ``csrc/fused_dc_cascade.cu`` and
 ``csrc/fused_eesm_cc.cu`` and ``csrc/fused_dfim_cc.cu``, as the package does
 at first use)
 and prints one JSON line per kernel; a template instance is named by a
-substring of its mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1E``
-for H = 16, categorical, Wiener.
+substring of its mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1ELb0EE``
+for H = 16, categorical, Wiener, mlp_forward's order.
 With no argument it counts the instances of ``STEP_INSTANCES``, whose
 counts ``chip_smoke.py`` takes for its bounds through :func:`step_ops`.
 
@@ -74,8 +74,9 @@ so an env-step issues G times a lane's count, and ``step_ops`` multiplies
 by G.  That is what the lanes issue, work that every lane repeats
 included; the function's own work is the one-thread step's count.  A
 warp-specialised kernel (the sync, DC, SCIM, EESM and DFIM random rollouts,
-csrc/draw_ring.cuh) is marked ``@wsK``: its consumer warps run a step
-loop (one step an iteration, shared-memory loads) and its producer warps
+csrc/draw_ring.cuh; the policy evaluation rollout and the specialised DC
+SC rollout, csrc/ring_pipe.cuh) is marked ``@wsK``: its consumer warps run
+a step loop (one step an iteration, shared-memory loads) and its producer warps
 a loop whose iteration fills a ring slot of K steps (shared-memory
 stores, the K steps unrolled); an env-step issues the consumer's count
 plus the producer's over K, and both stay beside it under ``roles``.
@@ -579,10 +580,19 @@ STEP_INSTANCES = {
     # policy_record_lanes_kernel<H, G, LEAD>: four lanes an env, every lane
     # stepping (@lanes4: the count a step issues), and at PPO's width eight
     # lanes with lane 0 alone stepping, a branch on the lane that every warp
-    # issues (@lanes8).  The one-thread instance counts the function's own
-    # work
+    # issues (@lanes8).  policy_rollout runs policy_rollout_ws_kernel<H,
+    # GREEDY> with Wiener references (two producer warps per consumer warp,
+    # K = 8: @ws4), and with constant ones policy_rollout_kernel<H, GREEDY,
+    # WIENER, VEC>, greedy at H 16 in mlp_forward_vec's loop order (/vec).
+    # The one-thread instances in mlp_forward's order (VEC 0) count the
+    # function's own work
     "fused_policy": {
-        "policy_rollout": "policy_rollout_kernelILi16ELb0ELb1E",  # H 16, categorical, Wiener
+        # H 16, categorical, Wiener
+        "policy_rollout": "policy_rollout_kernelILi16ELb0ELb1ELb0EE",
+        "policy_rollout_ws": "policy_rollout_ws_kernelILi16ELb0E@ws4",
+        # H 16, greedy, constant references
+        "policy_rollout/greedy/const": "policy_rollout_kernelILi16ELb1ELb0ELb0EE",
+        "policy_rollout/greedy/const/vec": "policy_rollout_kernelILi16ELb1ELb0ELb1EE",
         "policy_record": "policy_record_kernelILi32E",  # H 32
         "policy_record_lanes": "policy_record_lanes_kernelILi32ELi4ELb0E@lanes4",
         "policy_record_lanes/8": "policy_record_lanes_kernelILi32ELi8ELb1E@lanes8",
@@ -780,10 +790,15 @@ STEP_INSTANCES = {
     # kernel beside the universal kernel on the same id
     "fused_permex": {k: f"{k}_kernel" for k in ("permex_rollout_random", "permex_rollout_buffer",
                                                  "permex_record_random", "permex_record_buffer")},
+    # The DC SC random rollout runs dc_sc_rollout_ws_kernel<NEL> (K = 8, two
+    # producer warps per consumer warp: @ws4); its one-thread kernel is built
+    # for the count of the function's own work and never launched
     "fused_dc_sc": {
         "dc_sc_rollout_random": "dc_sc_rollout_random_kernelILi2E",
         "dc_sc_rollout_buffer": "dc_sc_rollout_buffer_kernelILi2E",
         "dc_sc_rollout_random/Cont-SC-SeriesDc-v0": "dc_sc_rollout_random_kernelILi1E",
+        "dc_sc_rollout_ws": "dc_sc_rollout_ws_kernelILi2E@ws4",
+        "dc_sc_rollout_ws/Cont-SC-SeriesDc-v0": "dc_sc_rollout_ws_kernelILi1E@ws4",
     },
     "fused_scim_tc": {k: f"{k}_kernel" for k in ("scim_rollout_random", "scim_rollout_buffer")},
     "fused_eesm_cc": {k: f"{k}_kernel" for k in ("eesm_cc_rollout_random",
