@@ -288,7 +288,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
     cascade on the six SRM ids and, saturating (psi_s = 1.2), on
     Finite-TC-SRM-v0 and Cont-SC-SRM-v0; each again at 1024 steps on one id
     (timed on Cont-CC-PMSM-v0, Cont-SC-PermExDc-v0, Finite-SC-SRM-v0); the
-    SRM cascade bit for bit (error 0 in every env) in every case
+    SRM and DC cascades bit for bit (error 0 in every env) in every case
 44.-45. the slice-10 main path, counted from zero (GemController.make and
     the three builders of ops/fused_rollout.py, no plain version):
    44. control_loops  with constant references at 128 envs, the fused loop
@@ -307,20 +307,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
             call with the open-loop universal kernel on the same id:
             foc_rollout beside sync_rollout_random on Cont-CC-PMSM-v0,
             dc_cascade_rollout beside dc_rollout_random on
-            Cont-SC-PermExDc-v0, srm_cascade_rollout beside
-            srm_rollout_random on Finite-SC- and Finite-TC-SRM-v0; each with
-            its SASS bound and the share of it reached, and its reset
-            share; control_environment on the general path (16384 envs x
-            200 steps, host clock); the launches of phases 44-45 must be
-            exactly what they make
+            Cont-SC-PermExDc-v0 and alone on Cont-SC-SeriesDc-v0 and
+            Cont-SC-ShuntDc-v0, with its design line (ring, registers,
+            both roles' issue bound and the issue-slot floor),
+            srm_cascade_rollout beside srm_rollout_random on Finite-SC- and
+            Finite-TC-SRM-v0; each with its SASS bound and the share of it
+            reached, and its reset share; control_environment on the
+            general path (16384 envs x 200 steps, host clock); the launches
+            of phases 44-45 must be exactly what they make
 46. specialised_kernels  slice 11, the specialised builders
     (csrc/fused_permex.cu, csrc/fused_dc_sc.cu, csrc/fused_scim_tc.cu,
     csrc/fused_eesm_cc.cu, csrc/fused_dfim_cc.cu; bench.py:790-825): each of
     the 12 kernels against its plain version at 16384 envs x 64 steps on its
     catalog id (the DC SC kernels on Cont-SC-SeriesDc-v0 and
-    Cont-SC-ShuntDc-v0, timed on the latter, with the DC SC random
-    rollout's design line: its ring, registers, issue bound and issue-slot
-    floor), the PermExDc recorder again at its main-path 1024 steps; bit
+    Cont-SC-ShuntDc-v0, timed on the latter, with the design lines of the
+    DC SC and Finite-CC-EESM random rollouts: ring, registers, issue bound
+    and issue-slot floor), the PermExDc recorder again at its main-path
+    1024 steps; bit
     for bit in both modes (error 0 in every env)
 47.-48. the slice-11 main path, counted from zero (the six builders of
     ops/fused_rollout.py, no plain version):
@@ -332,7 +335,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             of 5 calls, the builders' Wiener references), each random
             rollout in one call with the universal kernel on the same id,
             the ratio of their times, its SASS bound and reset share (the
-            DC SC rollout's design line on both ids); the
+            DC SC rollout's design line on both ids, the EESM CC
+            rollout's on its id); the
             PermExDc recorder at 1024 steps beside the universal recorder;
             output checks (finite, references inside their windows, the
             sub-episode lengths and sigmas, the mean reward within 0.08 of
@@ -2937,7 +2941,8 @@ def run_control(dev, card, ops):
 
     # ---- 43. each kernel against its plain version, every instance -------
     # (const: every env at rtol 1e-5 / atol 1e-4; Wiener: the random-mode
-    # rule, 99.9% of envs and the mean reward to 1e-4 relative)
+    # rule, 99.9% of envs and the mean reward to 1e-4 relative; after the
+    # loop, both cascades bit for bit in every env)
     cases = ([("foc", FOC_ID, None)] + [("dc", i, None) for i in DC_CASCADE_IDS]
              + [("srm", i, None) for i in gt.SRM_ENV_IDS]
              + [("srm", i, SRM_SAT) for i in SRM_SAT_IDS])
@@ -2995,10 +3000,11 @@ def run_control(dev, card, ops):
         del got, ref
     emit({"phase": "control_kernels", "envs": N, "steps": CONTROL_COMPARE, "results": rows,
           "deep_steps": CONTROL_DEEP, "deep": deep, "timed": timed})
-    # the cascade equals its plain version bit for bit, every env
-    if worst["srm_cascade_rollout"] != 0.0 or share["srm_cascade_rollout"] != 1.0:
-        raise AssertionError(f"srm_cascade_rollout: max abs err {worst['srm_cascade_rollout']}, "
-                             f"{share['srm_cascade_rollout']} of envs match (need 0 and 1)")
+    # the cascades equal their plain versions bit for bit, every env
+    for name in ("srm_cascade_rollout", "dc_cascade_rollout"):
+        if worst[name] != 0.0 or share[name] != 1.0:
+            raise AssertionError(f"{name}: max abs err {worst[name]}, {share[name]} of envs "
+                                 f"match (need 0 and 1)")
 
     # ---- 44.-45. the main path: counts from zero --------------------------
     for mod in mods.values():
@@ -3082,10 +3088,13 @@ def run_control(dev, card, ops):
 
     # 45. timings at the bench width, each kernel in one call with the
     # open-loop universal kernel on the same id (the catalog's Wiener
-    # references), and the general path's control_environment
+    # references), the DC cascade's ring also alone on its other two
+    # motors, and the general path's control_environment
     timings = {}
     pairs = (("foc_rollout", FOC_ID, "sync_rollout_random"),
              ("dc_cascade_rollout", DC_CASCADE_IDS[0], "dc_rollout_random"),
+             ("dc_cascade_rollout", DC_CASCADE_IDS[1], None),
+             ("dc_cascade_rollout", DC_CASCADE_IDS[2], None),
              ("srm_cascade_rollout", SRM_CASCADE_TIMED[0], "srm_rollout_random"),
              ("srm_cascade_rollout", SRM_CASCADE_TIMED[1], "srm_rollout_random"))
     for name, env_id, open_name in pairs:
@@ -3103,29 +3112,37 @@ def run_control(dev, card, ops):
             roll = fr.make_fused_srm_cascade_rollout(env, ctrl, T_ROLLOUT, N)
             c, r_idx = roll.consts, n_state
         key = "" if env_id == timed_on[name] else "/" + env_id
+        nbytes = control_bytes(name.split("_")[0], c, N)
         k_ms, out = cuda_ms(torch, lambda: roll(SEED, *z), reps=SYNC_REPS)
-        b_ms, b_by = bound_ms(N * T_ROLLOUT, ops[name + key],
-                              control_bytes(name.split("_")[0], c, N))
-        open_roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
-        o_ms, o_out = cuda_ms(torch, lambda: open_roll(SEED, *z), reps=SYNC_REPS)
+        b_ms, b_by = bound_ms(N * T_ROLLOUT, ops[name + key], nbytes)
         row = {name: {"steps": T_ROLLOUT, "ms": k_ms,
                       "env_steps_per_s": N * T_ROLLOUT / (k_ms / 1e3),
                       "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
                       "ops_per_step": ops[name + key],
                       "mean_reward": float(out[r_idx].double().sum()) / (N * T_ROLLOUT),
                       "reset_share": float(out[r_idx + 1].double().sum()) / (N * T_ROLLOUT),
-                      "finite": all(bool(torch.isfinite(x).all()) for x in out)},
-               open_name: {"steps": T_ROLLOUT, "ms": o_ms,
-                           "env_steps_per_s": N * T_ROLLOUT / (o_ms / 1e3),
-                           "ops_per_step": ops[f"{open_name}/{env_id}"],
-                           "reset_share": float(o_out[n_state + 1].double().sum())
-                           / (N * T_ROLLOUT)},
-               "closed_over_open": k_ms / o_ms}
+                      "finite": all(bool(torch.isfinite(x).all()) for x in out)}}
+        if name == "dc_cascade_rollout":
+            # the design the launch takes: on the ring, both roles' issue
+            # bound and the issue-slot floor beside the one-thread bound
+            row[name].update(ring_fields(dcf.dc_cascade_ring_layout(c),
+                                         "dc_cascade_rollout_ws" + key, name + key, name + key,
+                                         N * T_ROLLOUT, nbytes, k_ms))
+        if open_name:
+            open_roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
+            o_ms, o_out = cuda_ms(torch, lambda: open_roll(SEED, *z), reps=SYNC_REPS)
+            row[open_name] = {"steps": T_ROLLOUT, "ms": o_ms,
+                              "env_steps_per_s": N * T_ROLLOUT / (o_ms / 1e3),
+                              "ops_per_step": ops[f"{open_name}/{env_id}"],
+                              "reset_share": float(o_out[n_state + 1].double().sum())
+                              / (N * T_ROLLOUT)}
+            row["closed_over_open"] = k_ms / o_ms
+            del o_out
         timings[env_id] = row
         if not row[name]["finite"]:
             raise AssertionError(f"{env_id}: the {T_ROLLOUT}-step {name} produced non-finite "
                                  "values")
-        del out, o_out
+        del out
     env = env_of(DC_CASCADE_IDS[0])
     ctrl = GemController.make(env, DC_CASCADE_IDS[0])
     ctrl.control_environment(env, 5, seed=SEED, n_envs=N)  # warm-up
@@ -3144,7 +3161,7 @@ def run_control(dev, card, ops):
           "launches": launches})
     per_timing = 2 + SYNC_REPS
     want = {"foc_rollout": 1 + per_timing,
-            "dc_cascade_rollout": 1 + len(DC_CASCADE_IDS) + per_timing,
+            "dc_cascade_rollout": 1 + len(DC_CASCADE_IDS) * (1 + per_timing),
             "srm_cascade_rollout": len(SRM_CASCADE_TIMED) * (1 + per_timing)}
     if launches != want:
         raise AssertionError(f"the controller kernels on the main path launched {launches}, "
@@ -3167,7 +3184,9 @@ def run_control(dev, card, ops):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "envs": N, "steps": CONTROL_COMPARE, "timed_on": timed_on[name],
             "match_share": share[name], "main_steps": T_ROLLOUT, "main_ms": m["ms"],
-            "main_bound_ms": m["bound_ms"]})
+            "main_bound_ms": m["bound_ms"],
+            **{"main_" + k: m[k] for k in ("design", "ring", "registers", "issue_bound_ms",
+                                           "issue_floor_ms") if k in m}})
     return line
 
 
@@ -3216,8 +3235,10 @@ SPEC_UNIVERSAL = {
                         "dfim_rollout_random/Cont-CC-DFIM-v0")}
 
 # the specialised random rollouts that run on a ring (ring_pipe.cuh), by
-# the module function that gives the ring's layout
-SPEC_RINGS = {"dc_sc_rollout_random": "dc_sc_ring_layout"}
+# the module of gym_electric_motor_tpu_torch.ops and its function that
+# gives the ring's layout
+SPEC_RINGS = {"dc_sc_rollout_random": ("fused_dc", "dc_sc_ring_layout"),
+              "eesm_cc_rollout_random": ("fused_eesm", "eesm_cc_ring_layout")}
 
 
 def spec_ring_fields(name, key, env_steps, nbytes, ms):
@@ -3225,9 +3246,11 @@ def spec_ring_fields(name, key, env_steps, nbytes, ms):
     and 48): ``key`` is its one-thread entry in tools/sass_ops.py's
     STEP_INSTANCES (the function's own work), and the ``_ws`` entry beside it
     counts both roles."""
-    from gym_electric_motor_tpu_torch.ops import fused_dc as fd
+    import importlib
 
-    layout = getattr(fd, SPEC_RINGS[name])()
+    module, layout_fn = SPEC_RINGS[name]
+    mod = importlib.import_module(f"gym_electric_motor_tpu_torch.ops.{module}")
+    layout = getattr(mod, layout_fn)()
     return ring_fields(layout, key.replace("_rollout_random", "_rollout_ws", 1), key, key,
                        env_steps, nbytes, ms)
 
@@ -3517,7 +3540,8 @@ REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "policy_record": "lane groups below a full card",
               "induction_rollout_random": "ring", "dfim_rollout_random": "ring",
               "sync_rollout_random": "ring", "policy_rollout": "ring, layer 1 in registers",
-              "dc_sc_rollout_random": "ring"}
+              "dc_sc_rollout_random": "ring", "eesm_cc_rollout_random": "ring",
+              "dc_cascade_rollout": "ring with Wiener references"}
 
 
 def redesign_order(line):

@@ -59,6 +59,7 @@ import torch
 
 from .fused_common import (
     LANE,
+    RING_LAYOUT_FIELDS,
     ROW_NAMES,
     TWO_PI,
     DcBits,
@@ -71,6 +72,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    named_ring_layout,
     physics_rows,
     policy_obs_spec,
     poly_load_rhs,
@@ -821,25 +823,52 @@ _CONTROL_ARGTYPES = {
 }
 
 
+def _cascade_library():
+    return family_library("fused_dc_cascade", "dc_cascade", _CONTROL_ARGTYPES,
+                          (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES),
+                           len(CASCADE_CONST_NAMES)))
+
+
 def dc_cascade_rollout(cc: DcCascadeConsts, seed: int, states, n_steps: int):
     """``(*states, reward_sum, term_count, rv, rk, rl, rs, sc_int, cc_int)``
     of ``n_steps`` closed-loop steps: the plain version for CPU tensors, the
     kernel of ``csrc/fused_dc_cascade.cu`` for CUDA ones."""
-    c = cc.c
-    device, R = check_planes(c, states)
+    device, R = check_planes(cc.c, states)
     if device.type == "cpu":
         return dc_cascade_rollout_plain(cc, seed, tuple(states), n_steps)
-    lib = family_library("fused_dc_cascade", "dc_cascade", _CONTROL_ARGTYPES,
-                         (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES),
-                          len(CASCADE_CONST_NAMES)))
-    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device)
-            for _ in range(c.n_state + 2)]
-    outs += [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(6)]
+    outs = _dc_cascade_launch(cc, seed, states, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(R, LANE) for x in outs)
+
+
+def _dc_cascade_launch(cc: DcCascadeConsts, seed: int, states, n_steps: int, n_envs: int,
+                       launches=None):
+    """dc_cascade_rollout's kernel on the first ``n_envs`` envs of the
+    planes: its outputs, each ``(n_envs,)``; the launch counted in
+    ``launches`` (none: not counted)."""
+    c = cc.c
+    device = states[0].device
+    outs = [torch.empty((n_envs,), dtype=torch.float32, device=device)
+            for _ in range(c.n_state + 8)]
     ptrs = _out_state(c, outs[:c.n_state]) + outs[c.n_state:]
-    launch_kernel(lib, "dc_cascade", "dc_cascade_rollout", device, LAUNCHES,
+    launch_kernel(_cascade_library(), "dc_cascade", "dc_cascade_rollout", device,
+                  {"dc_cascade_rollout": 0} if launches is None else launches,
                   c.host.ctypes.data, c.flags.ctypes.data, cc.host.ctypes.data, seed_u64(seed),
-                  R * LANE, int(n_steps), _in_ptrs(c, states), ptr_array(ptrs))
-    return tuple(outs)
+                  n_envs, int(n_steps), _in_ptrs(c, states), ptr_array(ptrs))
+    return outs
+
+
+def dc_cascade_ring_layout(cc: DcCascadeConsts):
+    """The loop's design for ``cc``'s references (csrc/fused_dc_cascade.cu;
+    csrc/ring_pipe.cuh's RingLayout): with Wiener references the ring
+    (consumer and producer warps, K steps a slot, slots, words a step,
+    shared-memory bytes), the same for the three motors; with constant ones
+    one thread per env."""
+    lib = _cascade_library()
+    lib.dc_cascade_ring_layout.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    out = (ctypes.c_int * len(RING_LAYOUT_FIELDS))()
+    if lib.dc_cascade_ring_layout(cc.c.flags.ctypes.data, out) != 0:
+        raise ValueError("the flags are outside the DC cascade's configuration")
+    return named_ring_layout(out)
 
 
 def make_fused_dc_cascade_rollout(env, ctrl, n_steps, n_envs):

@@ -28,13 +28,16 @@ kernel, counts the launch in ``LAUNCHES``, or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from .fused_common import (LANE, ROW_NAMES, SPEC_SLOT_EXTRA, SPEC_SLOT_INIT_0, SPEC_SLOT_INIT_1,
-                           SPEC_SLOT_INIT_2, SPEC_SLOT_PARAMS, SPEC_SLOT_RESET, SPEC_SLOT_STEP,
-                           SlotBits, TWO_PI, box_muller, check_planes, check_rollout_inputs,
-                           check_tensor, fused_check_system, launch_kernel, pack_consts, ptr_array,
+from .fused_common import (LANE, RING_LAYOUT_FIELDS, ROW_NAMES, SPEC_SLOT_EXTRA,
+                           SPEC_SLOT_INIT_0, SPEC_SLOT_INIT_1, SPEC_SLOT_INIT_2, SPEC_SLOT_PARAMS,
+                           SPEC_SLOT_RESET, SPEC_SLOT_STEP, SlotBits, TWO_PI, box_muller,
+                           check_planes, check_rollout_inputs, check_tensor, fused_check_system,
+                           launch_kernel, named_ring_layout, pack_consts, ptr_array,
                            require, require_lanes, require_specialised_defaults,
                            rotation_advance, seed_u64, shaped_words, spec_library, spec_params,
                            spec_row_walk, specialised_load, specialised_u_sup, uniform_from_bits)
@@ -205,11 +208,34 @@ def eesm_cc_rollout_random(c: EesmCcConsts, seed: int, state0, n_steps: int):
     device, R = check_planes(c, state0)
     if device.type == "cpu":
         return eesm_cc_rollout_random_plain(c, seed, state0, n_steps)
-    outs = [torch.empty((R if j < 6 else 3 * R, LANE), dtype=torch.float32, device=device)
+    outs = _eesm_cc_random_launch(c, seed, state0, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(-1, LANE) for x in outs)
+
+
+def _eesm_cc_random_launch(c: EesmCcConsts, seed: int, state0, n_steps: int, n_envs: int,
+                           launches=None):
+    """eesm_cc_rollout_random's kernel on the first ``n_envs`` envs of the
+    planes: its outputs, six ``(n_envs,)`` and four ``(3 n_envs,)`` (row 0's
+    envs, then row 1's, then row 2's); the launch counted in ``launches``
+    (none: not counted)."""
+    device = state0[0].device
+    outs = [torch.empty((n_envs if j < 6 else 3 * n_envs,), dtype=torch.float32, device=device)
             for j in range(10)]
-    launch_kernel(_lib(), "eesm_cc", "eesm_cc_rollout_random", device, LAUNCHES, *_consts(c),
-                  seed_u64(seed), R * LANE, int(n_steps), ptr_array(state0), ptr_array(outs))
-    return tuple(outs)
+    launch_kernel(_lib(), "eesm_cc", "eesm_cc_rollout_random", device,
+                  {"eesm_cc_rollout_random": 0} if launches is None else launches, *_consts(c),
+                  seed_u64(seed), n_envs, int(n_steps), ptr_array(state0), ptr_array(outs))
+    return outs
+
+
+def eesm_cc_ring_layout():
+    """The random rollout's ring (csrc/fused_eesm_cc.cu; csrc/ring_pipe.cuh's
+    RingLayout): consumer and producer warps, K steps a slot, slots, words a
+    step, shared-memory bytes."""
+    lib = _lib()
+    lib.eesm_cc_ring_layout.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_int * len(RING_LAYOUT_FIELDS))()
+    lib.eesm_cc_ring_layout(out)
+    return named_ring_layout(out)
 
 
 def eesm_cc_rollout_buffer(c: EesmCcConsts, state0, actions):

@@ -984,3 +984,103 @@ def test_cuda_dc_sc_rollout_random_equals_plain_version_bit_for_bit(env_id):
             assert float(got[c.n_state + 1][0]) >= 1.0  # env 0 reset
     assert not any(fd.LAUNCHES.values())
     assert fd.dc_sc_ring_layout()["design"] == "warp-specialised"
+
+
+def _equal_bits(got, want, n, rows=1):
+    """Per output, the envs where the kernel's first ``n`` envs equal the
+    plain version's bit for bit (NaN where it has NaN); ``rows``-row
+    planes hold row r's envs at ``[r n, (r + 1) n)``."""
+    out = []
+    for g, x in zip(got, want):
+        k = rows if g.numel() == rows * n else 1
+        x = x.reshape(k, -1)[:, :n].reshape(-1)
+        assert g.shape == x.shape and g.dtype == x.dtype
+        out.append((g == x) | (torch.isnan(g) & torch.isnan(x)))
+    return out
+
+
+# (envs, steps): the ring stops at every place in a slot of four or eight
+# steps, and across the odd step that takes an even step's carried sine
+RING_STOPS = ((1, (1, 3, 4, 5, 8, 9, 64)), (37, (1, 3, 4, 5, 8, 9, 64)),
+              (2051, (1, 3, 4, 5, 8, 9, 64)), (131, (1024,)))
+
+
+@pytest.mark.cuda
+def test_cuda_eesm_cc_rollout_random_equals_plain_version_bit_for_bit():
+    """eesm_cc_rollout_random (csrc/fused_eesm_cc.cu: producer and consumer
+    warps over a shared-memory ring) equals eesm_cc_rollout_random_plain bit
+    for bit in every env and every output (NaN where the plain version has
+    NaN), for 1, 37 and 2051 envs at 1, 3, 4, 5, 8, 9 and 64 steps and 131
+    envs at 1024.  Env 0 starts at five times the current limit and resets
+    at its first step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_eesm as fe
+
+    dev = torch.device("cuda")
+    c = fe.EesmCcConsts(gt.make_functional("Finite-CC-EESM-v0", device=dev))
+    rng = np.random.default_rng(47)
+    fe.reset_launches()
+    for n, steps in RING_STOPS:
+        R = -(-n // 128)
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32)
+                 for lo, hi in [(-8, 8)] * 3 + [(0, 2 * np.pi)]]
+        start[0].reshape(-1)[0] = 5.0 / float(c.ec.f["inv_i_lim"])
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        for T in steps:
+            got = fe._eesm_cc_random_launch(c, 7, start, T, n)
+            torch.cuda.synchronize()
+            want = fe.eesm_cc_rollout_random_plain(c, 7, start, T)
+            for j, same in enumerate(_equal_bits(got, want, n, rows=3)):
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[5][0]) >= 1.0  # env 0 reset
+    assert not any(fe.LAUNCHES.values())
+    assert fe.eesm_cc_ring_layout()["design"] == "warp-specialised"
+
+
+DC_CASCADE_BIT_CASES = [(i, r) for i in ("Cont-SC-PermExDc-v0", "Cont-SC-SeriesDc-v0",
+                                         "Cont-SC-ShuntDc-v0") for r in ("wiener", "const")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,refs", DC_CASCADE_BIT_CASES,
+                         ids=[f"{i}-{r}" for i, r in DC_CASCADE_BIT_CASES])
+def test_cuda_dc_cascade_rollout_equals_plain_version_bit_for_bit(env_id, refs):
+    """dc_cascade_rollout (csrc/fused_dc_cascade.cu) equals
+    dc_cascade_rollout_plain bit for bit in every env and every output (NaN
+    where the plain version has NaN): with Wiener references on the ring
+    (producer warps draw the reference's candidates, consumer warps run the
+    cascade and the step), with constant ones on one thread per env; for 1,
+    37 and 2051 envs at 1, 3, 4, 5, 8, 9 and 64 steps and 131 envs at 1024.
+    Env 0 starts at five times the armature current's limit and resets at
+    its first step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.controllers import GemController
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+
+    dev = torch.device("cuda")
+    kw = ({"reference_generator": rg.ReferenceSpec([rg.ConstReference("omega", 0.5)])}
+          if refs == "const" else {})
+    env = gt.make_functional(env_id, device=dev, **kw)
+    cc = dcf.DcCascadeConsts(env, GemController.make(env, env_id))
+    n_state = cc.c.n_state
+    rng = np.random.default_rng(53)
+    dcf.reset_launches()
+    for n, steps in RING_STOPS:
+        R = -(-n // 128)
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32)
+                 for lo, hi in [(0, 100)] + [(-5, 5)] * (n_state - 1)]
+        start[1].reshape(-1)[0] = 5.0 * float(cc.c.f["lim0"])
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        for T in steps:
+            got = dcf._dc_cascade_launch(cc, 7, start, T, n)
+            torch.cuda.synchronize()
+            want = dcf.dc_cascade_rollout_plain(cc, 7, start, T)
+            for j, same in enumerate(_equal_bits(got, want, n)):
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[n_state + 1][0]) >= 1.0  # env 0 reset
+    assert not any(dcf.LAUNCHES.values())
+    assert dcf.dc_cascade_ring_layout(cc)["design"] == (
+        "warp-specialised" if refs == "wiener" else "one thread per env")

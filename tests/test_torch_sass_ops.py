@@ -198,21 +198,27 @@ SASS_CONTROL = "\n".join(
         /*0040*/                   EXIT ;"""
     for k in ("foc_rollout_kernelILb0EE", "foc_rollout_kernelILb1EE",
               *[f"dc_cascade_rollout_kernelILi{o}ELb{w}EE" for o in range(3) for w in range(2)],
+              *[f"dc_cascade_rollout_ws_kernelILi{o}EE" for o in range(3)],
               *[f"srm_cascade_rollout_kernelILi{t}ELb{f}ELb{s}ELb{w}EE"
                 for t in range(3) for f in range(2) for s in range(2) for w in range(2)]))
 
 
 def test_control_instances_pick_one_function_each():
     """The controller-in-the-loop entries each match exactly one function of
-    their library's listing (2, 6 and 24 instances), the one with the
-    reference advance (WIENER, the last template argument, true), whose
-    loop counts."""
+    their library's listing (2, 6 and 24 one-thread instances, and the DC
+    cascade's 3 on the ring), a one-thread entry the one with the reference
+    advance (WIENER, the last template argument, true), whose loop counts;
+    a ring entry (``@ws2``) names the kernel's OPS alone."""
     funcs = sass_ops.functions(SASS_CONTROL)
-    assert len(funcs) == 32
+    assert len(funcs) == 35
     for library in ("fused_foc", "fused_dc_cascade", "fused_srm_cascade"):
         for instance in sass_ops.STEP_INSTANCES[library].values():
-            names = [f for f in funcs if instance in f]
+            sub = instance.partition("@")[0]
+            names = [f for f in funcs if sub in f]
             assert len(names) == 1, instance
+            if sass_ops.ws_steps_of(instance):
+                assert "_ws_kernel" in sub and sass_ops.ws_steps_of(instance) == 2, instance
+                continue
             assert instance.endswith("Lb1EE"), instance
             counts = sass_ops.loop_counts(funcs[names[0]])
             assert counts["always"] == {"fp32": 2, "alu": 1, "imad": 0, "xu": 0, "shfl": 0, "smem": 0, "bar": 0}
@@ -228,7 +234,7 @@ SPECIALISED_KERNELS = {
                     for m in ("random", "buffer", "ws") for n in (1, 2)],
     "fused_scim_tc": [f"scim_rollout_{m}_kernelE14InductionConst" for m in ("random", "buffer")],
     "fused_eesm_cc": [f"eesm_cc_rollout_{m}_kernelE9EesmConst11EesmCcConst"
-                      for m in ("random", "buffer")],
+                      for m in ("random", "buffer", "ws")],
     "fused_dfim_cc": [f"dfim_cc_rollout_{m}_kernelE9DfimConst11DfimCcConst"
                       for m in ("random", "buffer")],
 }
@@ -238,8 +244,9 @@ SPECIALISED_KERNELS = {
 def test_specialised_instances_pick_one_function_each(library):
     """Every specialised entry matches exactly one function of its library's
     listing, and each of the library's random and buffer kernels is counted
-    (the dc_sc random kernel on both motors, one thread per env and on its
-    ring; a ring entry's ``@wsK`` mark names no part of the function)."""
+    (the dc_sc random kernel on both motors and the eesm_cc one, one thread
+    per env and on its ring; a ring entry's ``@wsK`` mark names no part of
+    the function)."""
     listing = "\n".join(
         f"""        Function : _ZN45_GLOBAL__N__5c1e2d3f_12_x_cu_0f1e2d3c{len(k)}{k}
         /*0000*/                   S2R R0, SR_TID.X ;
@@ -418,8 +425,8 @@ def test_ws_counts_sum_the_consumer_step_and_the_producer_slot_over_its_steps():
 
 def test_ws_kernels_sit_beside_their_one_thread_instances():
     """The sync, DC, SCIM, EESM and DFIM random rollouts, the policy
-    evaluation rollout and the specialised DC SC rollout run
-    warp-specialised with Wiener references: the DC and EESM ``_ws`` entries
+    evaluation rollout, the specialised DC SC and Finite-CC-EESM rollouts
+    and the DC cascade run warp-specialised with Wiener references: the DC and EESM ``_ws`` entries
     carry ``@ws2`` (two producer warps per consumer warp, two steps each of
     a four-step slot) or, under the EESM's speed ODE (MECH), ``@ws4`` (one),
     and no other entry carries a ``@ws`` mark; each has a one-thread entry
@@ -427,13 +434,15 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     that the bounds count (the policy's one-thread kernel adds its Wiener
     and weight-order flags).  The SCIM, sync, DFIM, policy and DC SC rings
     hold eight steps a slot for two producer warps, so their mark is
-    ``@ws4``, the steps a producer iteration fills."""
+    ``@ws4``, the steps a producer iteration fills; the EESM CC and DC
+    cascade rings hold four for two, ``@ws2``."""
     seen = {}
     for instances in sass_ops.STEP_INSTANCES.values():
         for key, instance in instances.items():
             ws = key.split("/")[0] in ("dc_rollout_ws", "eesm_rollout_ws", "induction_rollout_ws",
                                        "sync_rollout_ws", "dfim_rollout_ws", "policy_rollout_ws",
-                                       "dc_sc_rollout_ws")
+                                       "dc_sc_rollout_ws", "eesm_cc_rollout_ws",
+                                       "dc_cascade_rollout_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
@@ -452,7 +461,10 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                     "sync_rollout_ws/Cont-CC-PMSM-v0": 4,
                     "dfim_rollout_ws": 4, "dfim_rollout_ws/Cont-CC-DFIM-v0": 4,
                     "dfim_rollout_ws/Finite-CC-DFIM-v0": 4, "policy_rollout_ws": 4,
-                    "dc_sc_rollout_ws": 4, "dc_sc_rollout_ws/Cont-SC-SeriesDc-v0": 4}
+                    "dc_sc_rollout_ws": 4, "dc_sc_rollout_ws/Cont-SC-SeriesDc-v0": 4,
+                    "eesm_cc_rollout_ws": 2, "dc_cascade_rollout_ws": 2,
+                    "dc_cascade_rollout_ws/Cont-SC-SeriesDc-v0": 2,
+                    "dc_cascade_rollout_ws/Cont-SC-ShuntDc-v0": 2}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
@@ -546,3 +558,22 @@ def test_policy_and_dc_sc_rings_keep_their_one_thread_entries():
     assert dc_sc["dc_sc_rollout_ws/Cont-SC-SeriesDc-v0"] == "dc_sc_rollout_ws_kernelILi1E@ws4"
     for instance in list(policy.values()) + list(dc_sc.values()):
         assert sass_ops.ws_steps_of(instance) == (4 if "_ws_kernel" in instance else 0)
+
+
+def test_eesm_cc_and_dc_cascade_rings_keep_their_one_thread_entries():
+    """eesm_cc_rollout_random and, with Wiener references, dc_cascade_rollout
+    run on rings (csrc/ring_pipe.cuh): their ``_ws`` entries count what the
+    launch issues (``@ws2``: K = 4, two producer warps), while the one-thread
+    entries stay the count of the function's own work, the instances the
+    bounds take: the EESM CC kernel, and the cascade with the reference
+    advance (WIENER true) on each of the three motors (OPS 0 PermExDc, 1
+    SeriesDc, 2 ShuntDc), each beside a ring entry of the same OPS."""
+    eesm = sass_ops.STEP_INSTANCES["fused_eesm_cc"]
+    assert eesm["eesm_cc_rollout_random"] == "eesm_cc_rollout_random_kernel"
+    assert eesm["eesm_cc_rollout_ws"] == "eesm_cc_rollout_ws_kernel@ws2"
+    cascade = sass_ops.STEP_INSTANCES["fused_dc_cascade"]
+    for ops, suffix in enumerate(("", "/Cont-SC-SeriesDc-v0", "/Cont-SC-ShuntDc-v0")):
+        assert cascade["dc_cascade_rollout" + suffix] == f"dc_cascade_rollout_kernelILi{ops}ELb1EE"
+        assert cascade["dc_cascade_rollout_ws" + suffix] == f"dc_cascade_rollout_ws_kernelILi{ops}E@ws2"
+    for instance in list(eesm.values()) + list(cascade.values()):
+        assert sass_ops.ws_steps_of(instance) == (2 if "_ws_kernel" in instance else 0)

@@ -11,13 +11,20 @@ parent commit: ``git archive <commit> | tar -x -C _checkout/parent``):
 A path is ``family:env_id[:const]`` for a universal random rollout,
 ``policy:<sample>:<refs>:<H>`` for the policy evaluation rollout
 (``policy_rollout`` on Finite-CC-PMSM-v0: sample ``categorical`` or
-``greedy``, refs ``wiener`` or ``const``, H 8, 16 or 32) or
+``greedy``, refs ``wiener`` or ``const``, H 8, 16 or 32),
 ``dc_sc:<env_id>`` for the specialised Cont-SC DC rollout
-(``dc_sc_rollout_random`` on Cont-SC-SeriesDc-v0 or Cont-SC-ShuntDc-v0).
+(``dc_sc_rollout_random`` on Cont-SC-SeriesDc-v0 or Cont-SC-ShuntDc-v0),
+``eesm_cc:Finite-CC-EESM-v0`` for the specialised Finite-CC-EESM rollout
+(``eesm_cc_rollout_random``) or ``dc_cascade:<env_id>[:const]`` for the DC
+speed cascade in the loop (``dc_cascade_rollout`` on Cont-SC-PermExDc-v0,
+Cont-SC-SeriesDc-v0 or Cont-SC-ShuntDc-v0, the catalog's Wiener reference
+or ``ConstReference("omega", 0.5)``; the tuned controller of
+``GemController.make``).
 For each path (default: the synchronous and DFIM ids that ``chip_smoke.py``
 times, with Wiener and with constant references) it builds the path's
 source (``csrc/fused_<family>.cu``, ``csrc/fused_policy.cu``,
-``csrc/fused_dc_sc.cu``) of both trees with the package's nvcc flags,
+``csrc/fused_dc_sc.cu``, ``csrc/fused_eesm_cc.cu``,
+``csrc/fused_dc_cascade.cu``) of both trees with the package's nvcc flags,
 runs the kernel of each on the same constants, seed and zero states
 (16384 envs x 65536 steps; the policy's weights drawn from numpy as
 ``chip_smoke.py``'s evaluation rollout draws them, its constant references
@@ -45,6 +52,11 @@ DEFAULT_PATHS = ("sync:Finite-CC-PMSM-v0", "sync:Cont-SC-PMSM-v0", "sync:Finite-
                  "dfim:Cont-SC-DFIM-v0", "dfim:Cont-CC-DFIM-v0:const",
                  "dfim:Cont-SC-DFIM-v0:const")
 
+# (consts, flags, spec, seed, n, n_steps, in, out, stream): the specialised
+# builders' C rollouts (eesm_cc_rollout_random, dc_cascade_rollout)
+C_ROLLOUT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int]
+                      + [ctypes.c_void_p] * 3)
+
 
 def build_other(other: Path, library: str) -> ctypes.CDLL:
     """``csrc/<library>.cu`` of the other checkout, built with this
@@ -67,7 +79,10 @@ def main():
     import chip_smoke as cs
     import gym_electric_motor_tpu_torch as gt
     from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.controllers import GemController
     from gym_electric_motor_tpu_torch.ops import fused_dc as fd
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_eesm as fe
     from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
     from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
     from gym_electric_motor_tpu_torch.ops import fused_policy as fp
@@ -142,6 +157,47 @@ def main():
 
             def run_this():
                 return fd._dc_sc_random_launch(c, SEED, z, T_STEPS, N_ENVS)
+        elif family == "eesm_cc":
+            (env_id,) = rest
+            c = fe.EesmCcConsts(gt.make_functional(env_id, device=dev))
+            z = [torch.zeros(N_ENVS, device=dev) for _ in range(c.n_state)]
+            fn = other_lib("fused_eesm_cc", "eesm_cc_rollout_random", C_ROLLOUT_ARGTYPES)
+            r_idx = 4
+
+            def run_other():
+                outs = ([torch.empty(N_ENVS, device=dev) for _ in range(6)]
+                        + [torch.empty(3 * N_ENVS, device=dev) for _ in range(4)])
+                rc = fn(c.ec.host.ctypes.data, c.ec.flags.ctypes.data, c.host.ctypes.data,
+                        seed_u64(SEED), N_ENVS, T_STEPS, ptr_array(z), ptr_array(outs), stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's eesm_cc_rollout_random returned {rc}")
+                return outs
+
+            def run_this():
+                return fe._eesm_cc_random_launch(c, SEED, z, T_STEPS, N_ENVS)
+        elif family == "dc_cascade":
+            env_id, *refs = rest
+            kw = ({"reference_generator": rg.ReferenceSpec([rg.ConstReference("omega", 0.5)])}
+                  if refs else {})
+            env = gt.make_functional(env_id, device=dev, **kw)
+            cc = dcf.DcCascadeConsts(env, GemController.make(env, env_id))
+            n_state = cc.c.n_state
+            z = [torch.zeros(N_ENVS, device=dev) for _ in range(n_state)]
+            fn = other_lib("fused_dc_cascade", "dc_cascade_rollout", C_ROLLOUT_ARGTYPES)
+            r_idx = n_state
+
+            def run_other():
+                outs = [torch.empty(N_ENVS, device=dev) for _ in range(n_state + 8)]
+                rc = fn(cc.c.host.ctypes.data, cc.c.flags.ctypes.data, cc.host.ctypes.data,
+                        seed_u64(SEED), N_ENVS, T_STEPS, dcf._in_ptrs(cc.c, z),
+                        ptr_array(dcf._out_state(cc.c, outs[:n_state]) + outs[n_state:]),
+                        stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's dc_cascade_rollout returned {rc}")
+                return outs
+
+            def run_this():
+                return dcf._dc_cascade_launch(cc, SEED, z, T_STEPS, N_ENVS)
         else:
             env_id, *refs = rest
             mod, consts, library = families[family]

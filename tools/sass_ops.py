@@ -74,8 +74,9 @@ so an env-step issues G times a lane's count, and ``step_ops`` multiplies
 by G.  That is what the lanes issue, work that every lane repeats
 included; the function's own work is the one-thread step's count.  A
 warp-specialised kernel (the sync, DC, SCIM, EESM and DFIM random rollouts,
-csrc/draw_ring.cuh; the policy evaluation rollout and the specialised DC
-SC rollout, csrc/ring_pipe.cuh) is marked ``@wsK``: its consumer warps run
+csrc/draw_ring.cuh; the policy evaluation rollout, the specialised DC SC
+and Finite-CC-EESM rollouts and the DC cascade, csrc/ring_pipe.cuh) is
+marked ``@wsK``: its consumer warps run
 a step loop (one step an iteration, shared-memory loads) and its producer warps
 a loop whose iteration fills a ring slot of K steps (shared-memory
 stores, the K steps unrolled); an env-step issues the consumer's count
@@ -775,9 +776,20 @@ STEP_INSTANCES = {
     # CC, 1 TC, 2 SC) for the SRM cascade on Finite-SC-SRM-v0 and
     # Finite-TC-SRM-v0.  chip_smoke.py times each beside the open-loop
     # universal kernel on the same id, whose instances the "/<id>" entries
-    # of fused_sync, fused_dc and fused_srm count
+    # of fused_sync, fused_dc and fused_srm count.  With Wiener references
+    # the DC cascade runs dc_cascade_rollout_ws_kernel<OPS> (K = 4, two
+    # producer warps per consumer warp: @ws2), on the three motors; its
+    # one-thread instances are built for the count of the function's own
+    # work and never launched
     "fused_foc": {"foc_rollout": "foc_rollout_kernelILb1EE"},
-    "fused_dc_cascade": {"dc_cascade_rollout": "dc_cascade_rollout_kernelILi0ELb1EE"},
+    "fused_dc_cascade": {
+        "dc_cascade_rollout": "dc_cascade_rollout_kernelILi0ELb1EE",
+        "dc_cascade_rollout/Cont-SC-SeriesDc-v0": "dc_cascade_rollout_kernelILi1ELb1EE",
+        "dc_cascade_rollout/Cont-SC-ShuntDc-v0": "dc_cascade_rollout_kernelILi2ELb1EE",
+        "dc_cascade_rollout_ws": "dc_cascade_rollout_ws_kernelILi0E@ws2",
+        "dc_cascade_rollout_ws/Cont-SC-SeriesDc-v0": "dc_cascade_rollout_ws_kernelILi1E@ws2",
+        "dc_cascade_rollout_ws/Cont-SC-ShuntDc-v0": "dc_cascade_rollout_ws_kernelILi2E@ws2",
+    },
     "fused_srm_cascade": {
         "srm_cascade_rollout": "srm_cascade_rollout_kernelILi2ELb1ELb0ELb1EE",
         "srm_cascade_rollout/Finite-TC-SRM-v0": "srm_cascade_rollout_kernelILi1ELb1ELb0ELb1EE",
@@ -801,8 +813,14 @@ STEP_INSTANCES = {
         "dc_sc_rollout_ws/Cont-SC-SeriesDc-v0": "dc_sc_rollout_ws_kernelILi1E@ws4",
     },
     "fused_scim_tc": {k: f"{k}_kernel" for k in ("scim_rollout_random", "scim_rollout_buffer")},
-    "fused_eesm_cc": {k: f"{k}_kernel" for k in ("eesm_cc_rollout_random",
-                                                  "eesm_cc_rollout_buffer")},
+    # The Finite-CC-EESM random rollout runs eesm_cc_rollout_ws_kernel (K = 4,
+    # two producer warps per consumer warp: @ws2); its one-thread kernel is
+    # built for the count of the function's own work and never launched
+    "fused_eesm_cc": {
+        "eesm_cc_rollout_random": "eesm_cc_rollout_random_kernel",
+        "eesm_cc_rollout_buffer": "eesm_cc_rollout_buffer_kernel",
+        "eesm_cc_rollout_ws": "eesm_cc_rollout_ws_kernel@ws2",
+    },
     "fused_dfim_cc": {k: f"{k}_kernel" for k in ("dfim_cc_rollout_random",
                                                   "dfim_cc_rollout_buffer")},
 }
@@ -817,7 +835,8 @@ def main():
         kernels = list(STEP_INSTANCES[name].values())
         if sys.argv[1:]:
             funcs = lib_functions(lib)
-            kernels = [k for k in sys.argv[1:] if any(k in f for f in funcs)]
+            kernels = [k for k in sys.argv[1:]
+                       if any(k.partition("@")[0].partition("#")[0] in f for f in funcs)]
         for k, v in step_ops(lib, kernels).items():
             print(json.dumps({"kernel": k, **v}), flush=True)
 
