@@ -288,7 +288,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
     cascade on the six SRM ids and, saturating (psi_s = 1.2), on
     Finite-TC-SRM-v0 and Cont-SC-SRM-v0; each again at 1024 steps on one id
     (timed on Cont-CC-PMSM-v0, Cont-SC-PermExDc-v0, Finite-SC-SRM-v0); the
-    SRM and DC cascades bit for bit (error 0 in every env) in every case
+    FOC and the SRM and DC cascades bit for bit (error 0 in every env) in
+    every case
 44.-45. the slice-10 main path, counted from zero (GemController.make and
     the three builders of ops/fused_rollout.py, no plain version):
    44. control_loops  with constant references at 128 envs, the fused loop
@@ -308,8 +309,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             foc_rollout beside sync_rollout_random on Cont-CC-PMSM-v0,
             dc_cascade_rollout beside dc_rollout_random on
             Cont-SC-PermExDc-v0 and alone on Cont-SC-SeriesDc-v0 and
-            Cont-SC-ShuntDc-v0, with its design line (ring, registers,
-            both roles' issue bound and the issue-slot floor),
+            Cont-SC-ShuntDc-v0, both with their design lines (ring,
+            registers, both roles' issue bound and the issue-slot floor),
             srm_cascade_rollout beside srm_rollout_random on Finite-SC- and
             Finite-TC-SRM-v0; each with its SASS bound and the share of it
             reached, and its reset share; control_environment on the
@@ -321,8 +322,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
     the 12 kernels against its plain version at 16384 envs x 64 steps on its
     catalog id (the DC SC kernels on Cont-SC-SeriesDc-v0 and
     Cont-SC-ShuntDc-v0, timed on the latter, with the design lines of the
-    DC SC and Finite-CC-EESM random rollouts: ring, registers, issue bound
-    and issue-slot floor), the PermExDc recorder again at its main-path
+    DC SC, Finite-CC-EESM and Cont-CC-DFIM random rollouts: ring,
+    registers, issue bound and issue-slot floor), the PermExDc recorder
+    again at its main-path
     1024 steps; bit
     for bit in both modes (error 0 in every env)
 47.-48. the slice-11 main path, counted from zero (the six builders of
@@ -335,8 +337,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             of 5 calls, the builders' Wiener references), each random
             rollout in one call with the universal kernel on the same id,
             the ratio of their times, its SASS bound and reset share (the
-            DC SC rollout's design line on both ids, the EESM CC
-            rollout's on its id); the
+            DC SC rollout's design line on both ids, the EESM CC and DFIM
+            CC rollouts' on their ids); the
             PermExDc recorder at 1024 steps beside the universal recorder;
             output checks (finite, references inside their windows, the
             sub-episode lengths and sigmas, the mean reward within 0.08 of
@@ -2942,7 +2944,7 @@ def run_control(dev, card, ops):
     # ---- 43. each kernel against its plain version, every instance -------
     # (const: every env at rtol 1e-5 / atol 1e-4; Wiener: the random-mode
     # rule, 99.9% of envs and the mean reward to 1e-4 relative; after the
-    # loop, both cascades bit for bit in every env)
+    # loop, the FOC and both cascades bit for bit in every env)
     cases = ([("foc", FOC_ID, None)] + [("dc", i, None) for i in DC_CASCADE_IDS]
              + [("srm", i, None) for i in gt.SRM_ENV_IDS]
              + [("srm", i, SRM_SAT) for i in SRM_SAT_IDS])
@@ -3000,8 +3002,9 @@ def run_control(dev, card, ops):
         del got, ref
     emit({"phase": "control_kernels", "envs": N, "steps": CONTROL_COMPARE, "results": rows,
           "deep_steps": CONTROL_DEEP, "deep": deep, "timed": timed})
-    # the cascades equal their plain versions bit for bit, every env
-    for name in ("srm_cascade_rollout", "dc_cascade_rollout"):
+    # the FOC and the cascades equal their plain versions bit for bit, every
+    # env
+    for name in ("foc_rollout", "srm_cascade_rollout", "dc_cascade_rollout"):
         if worst[name] != 0.0 or share[name] != 1.0:
             raise AssertionError(f"{name}: max abs err {worst[name]}, {share[name]} of envs "
                                  f"match (need 0 and 1)")
@@ -3088,8 +3091,9 @@ def run_control(dev, card, ops):
 
     # 45. timings at the bench width, each kernel in one call with the
     # open-loop universal kernel on the same id (the catalog's Wiener
-    # references), the DC cascade's ring also alone on its other two
-    # motors, and the general path's control_environment
+    # references; the FOC and the DC cascade on their rings), the DC
+    # cascade's ring also alone on its other two motors, and the general
+    # path's control_environment
     timings = {}
     pairs = (("foc_rollout", FOC_ID, "sync_rollout_random"),
              ("dc_cascade_rollout", DC_CASCADE_IDS[0], "dc_rollout_random"),
@@ -3122,11 +3126,12 @@ def run_control(dev, card, ops):
                       "mean_reward": float(out[r_idx].double().sum()) / (N * T_ROLLOUT),
                       "reset_share": float(out[r_idx + 1].double().sum()) / (N * T_ROLLOUT),
                       "finite": all(bool(torch.isfinite(x).all()) for x in out)}}
-        if name == "dc_cascade_rollout":
+        if name != "srm_cascade_rollout":
             # the design the launch takes: on the ring, both roles' issue
             # bound and the issue-slot floor beside the one-thread bound
-            row[name].update(ring_fields(dcf.dc_cascade_ring_layout(c),
-                                         "dc_cascade_rollout_ws" + key, name + key, name + key,
+            layout = (fs.foc_ring_layout(c) if name == "foc_rollout"
+                      else dcf.dc_cascade_ring_layout(c))
+            row[name].update(ring_fields(layout, name + "_ws" + key, name + key, name + key,
                                          N * T_ROLLOUT, nbytes, k_ms))
         if open_name:
             open_roll = fr.make_fused_rollout(env, T_ROLLOUT, N)
@@ -3238,7 +3243,8 @@ SPEC_UNIVERSAL = {
 # the module of gym_electric_motor_tpu_torch.ops and its function that
 # gives the ring's layout
 SPEC_RINGS = {"dc_sc_rollout_random": ("fused_dc", "dc_sc_ring_layout"),
-              "eesm_cc_rollout_random": ("fused_eesm", "eesm_cc_ring_layout")}
+              "eesm_cc_rollout_random": ("fused_eesm", "eesm_cc_ring_layout"),
+              "dfim_cc_rollout_random": ("fused_dfim", "dfim_cc_ring_layout")}
 
 
 def spec_ring_fields(name, key, env_steps, nbytes, ms):
@@ -3541,7 +3547,8 @@ REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "induction_rollout_random": "ring", "dfim_rollout_random": "ring",
               "sync_rollout_random": "ring", "policy_rollout": "ring, layer 1 in registers",
               "dc_sc_rollout_random": "ring", "eesm_cc_rollout_random": "ring",
-              "dc_cascade_rollout": "ring with Wiener references"}
+              "dc_cascade_rollout": "ring with Wiener references",
+              "foc_rollout": "ring with Wiener references", "dfim_cc_rollout_random": "ring"}
 
 
 def redesign_order(line):

@@ -28,24 +28,40 @@
 // one step with rsqrtf renormalisation (spec_rotate, :194-214); the buffer
 // mode takes cosf and sinf of the angle each step (:142).
 //
-// Design: one thread per env, the state, the rotation and both reference
-// rows in registers across a `#pragma unroll 1` loop over T steps.  Random
-// bits from Philox4x32-10, counter (env, step, slot): SPEC_SLOT_STEP gives
-// duties (0, 1, 2, 3) and SPEC_SLOT_EXTRA (duty 4, duty 5, u1, u2) every
-// step, the Box-Muller pair feeding both references (pallas_dfim.py:
-// 222-228); SPEC_SLOT_PARAMS (length row 0, sigma row 0, length row 1,
-// sigma row 1) where a row regenerates, SPEC_SLOT_RESET (reset value rows
-// 0, 1, -, -) where the env reset, SPEC_SLOT_INIT_0 and _1 (value, length,
-// sigma, -) at step 0.  Built with -fmad=false (ops/cuda_build.py), so each
-// multiply and add rounds as in the plain PyTorch version
-// (ops/fused_dfim.py).
+// Design: the state, the rotation and both reference rows in registers
+// across a `#pragma unroll 1` loop over T steps.  The random rollout is
+// warp-specialised on the shared-memory ring of ring_pipe.cuh: producer
+// warps draw, in a double-buffered ring of K steps a slot, every value of a
+// step that depends on the constants alone (fc_draws: the six duties, each
+// row's normal draw, its candidate length and sigma and its candidate
+// reset value, 14 words); consumer warps run the step, one thread per env,
+// and take the candidates by selects (fc_ring_step).  The one-thread random
+// kernel drew two Philox slots and the Box-Muller pair on every step's
+// chain, and the PARAMS and RESET slots in divergent branches; it is built
+// for tools/sass_ops.py's count of the function's own work and never
+// launched.  The buffer kernel runs one thread per env.  Random bits from
+// Philox4x32-10, counter (env, step, slot): SPEC_SLOT_STEP gives duties
+// (0, 1, 2, 3) and SPEC_SLOT_EXTRA (duty 4, duty 5, u1, u2) every step, the
+// Box-Muller pair feeding both references (pallas_dfim.py:222-228);
+// SPEC_SLOT_PARAMS (length row 0, sigma row 0, length row 1, sigma row 1)
+// where a row regenerates, SPEC_SLOT_RESET (reset value rows 0, 1, -, -)
+// where the env reset, SPEC_SLOT_INIT_0 and _1 (value, length, sigma, -)
+// at step 0; the producers draw PARAMS and RESET at every step, which
+// changes no bit of what a step uses.  Built with -fmad=false
+// (ops/cuda_build.py), so each multiply and add rounds as in the plain
+// PyTorch version (ops/fused_dfim.py), and the producers compute each
+// candidate with the one-thread kernel's functions on the same operands,
+// so the two designs are equal bit for bit.
 //
 // What bounds it on this card: 5 planes in and 15 out per env (24 bytes of
 // duties per env-step in buffer mode); the step is four stages of the
 // 4-state right-hand side with both voltages (about 120 FP32 operations),
 // two Clarke transforms and a rotation, two rsqrtf, two Philox calls and
-// the Box-Muller pair.
+// the Box-Muller pair.  On the ring the producers issue four Philox calls
+// a step (PARAMS and RESET too) and the consumers 14 shared-memory loads;
+// tools/sass_ops.py counts both roles beside the one-thread step.
 #include "dfim_step.cuh"
+#include "ring_pipe.cuh"
 #include "specialised_step.cuh"
 
 // The builder's own constants; the physics takes the DFIM family's
@@ -99,6 +115,73 @@ __device__ __forceinline__ float fc_value(const DfimCcConst& k, uint32_t b) {
   return (2.0f * uniform24(b) - 1.0f) * k.v[FC_MARGIN];
 }
 
+// The rows and the rotation at step 0.
+__device__ __forceinline__ void fc_init(const DfimCcConst& k, uint2 key, uint32_t e, float eps,
+                                        float& c, float& s, SpecRow (&row)[2]) {
+  c = cosf(eps);
+  s = sinf(eps);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const uint4 w0 = spec_draw(key, e, 0u, r == 0 ? SPEC_SLOT_INIT_0 : SPEC_SLOT_INIT_1);
+    row[r].rv = fc_value(k, w0.x);
+    row[r].rk = 0.0f;
+    spec_params(fc_params(k), w0.y, w0.z, row[r].rl, row[r].rs);
+  }
+}
+
+// The physics under duties d, the field-oriented dq currents, the
+// constraint, the reward and the reset of a step: the state, the angle and
+// the rotation move on; returns whether the env violated.
+__device__ __forceinline__ bool fc_step(const DfimConst& dk, const DfimCcConst& k, const float* d,
+                                        DfimState& x, float& eps, float& c, float& s,
+                                        const SpecRow (&row)[2], float& reward, float& terms) {
+  const DfimState y = fc_physics(dk, x, c, s, d);
+  const float eps_new = fc_advance(dk, k, eps);
+  // the field-oriented dq currents from the flux direction cosines
+  const float pn2 = y.psa * y.psa + y.psb * y.psb;
+  const float inv_pn = rsqrtf(fmaxf(pn2, k.v[FC_TINY]));
+  const bool safe = pn2 > k.v[FC_TINY];
+  const float cf = safe ? y.psa * inv_pn : 1.0f;
+  const float sf = safe ? y.psb * inv_pn : 0.0f;
+  const float i_sd = (cf * y.isa + sf * y.isb) * k.v[FC_INV_I_LIM];
+  const float i_sq = (-sf * y.isa + cf * y.isb) * k.v[FC_INV_I_LIM];
+  const bool violated = (i_sd * i_sd + i_sq * i_sq) > 1.0f;
+  const float wgt = k.v[FC_W];
+  const float wse = -(wgt * fabsf(i_sd - row[0].rv) + wgt * fabsf(i_sq - row[1].rv));
+  reward += violated ? k.v[FC_VIOLATION_REWARD] : wse;
+  terms += violated ? 1.0f : 0.0f;
+  x.isa = violated ? 0.0f : y.isa;
+  x.isb = violated ? 0.0f : y.isb;
+  x.psa = violated ? 0.0f : y.psa;
+  x.psb = violated ? 0.0f : y.psb;
+  eps = violated ? 0.0f : eps_new;
+  spec_rotate(dk.v[D_COS_D], dk.v[D_SIN_D], violated, c, s);
+  return violated;
+}
+
+// The state, reward, terms and (2R, 128) reference planes (i_sd* rows
+// first) of env e.
+__device__ __forceinline__ void fc_store(const SpecOut& out, int n, int e, const DfimState& x,
+                                         float eps, float reward, float terms,
+                                         const SpecRow (&row)[2]) {
+  out.p[0][e] = x.isa;
+  out.p[1][e] = x.isb;
+  out.p[2][e] = x.psa;
+  out.p[3][e] = x.psb;
+  out.p[4][e] = eps;
+  out.p[5][e] = reward;
+  out.p[6][e] = terms;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    out.p[7][(size_t)r * n + e] = row[r].rv;
+    out.p[8][(size_t)r * n + e] = row[r].rk;
+    out.p[9][(size_t)r * n + e] = row[r].rl;
+    out.p[10][(size_t)r * n + e] = row[r].rs;
+  }
+}
+
+// The one-thread random rollout: built, never launched; tools/sass_ops.py
+// counts its step, the function's own work, for the bound.
 __global__ void dfim_cc_rollout_random_kernel(DfimConst dk, DfimCcConst k, uint2 key, int n,
                                               int n_steps, SpecIn in, SpecOut out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -106,15 +189,9 @@ __global__ void dfim_cc_rollout_random_kernel(DfimConst dk, DfimCcConst k, uint2
   const uint32_t ue = (uint32_t)e;
   DfimState x{0.0f, in.p[0][e], in.p[1][e], in.p[2][e], in.p[3][e], 0.0f};
   float eps = in.p[4][e];
-  float c = cosf(eps), s = sinf(eps);
+  float c, s;
   SpecRow row[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const uint4 w0 = spec_draw(key, ue, 0u, r == 0 ? SPEC_SLOT_INIT_0 : SPEC_SLOT_INIT_1);
-    row[r].rv = fc_value(k, w0.x);
-    row[r].rk = 0.0f;
-    spec_params(fc_params(k), w0.y, w0.z, row[r].rl, row[r].rs);
-  }
+  fc_init(k, key, ue, eps, c, s, row);
   float reward = 0.0f, terms = 0.0f;
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
@@ -123,27 +200,7 @@ __global__ void dfim_cc_rollout_random_kernel(DfimConst dk, DfimCcConst k, uint2
     const float d[6] = {2.0f * uniform24(w.x) - 1.0f, 2.0f * uniform24(w.y) - 1.0f,
                         2.0f * uniform24(w.z) - 1.0f, 2.0f * uniform24(w.w) - 1.0f,
                         2.0f * uniform24(v.x) - 1.0f, 2.0f * uniform24(v.y) - 1.0f};
-    const DfimState y = fc_physics(dk, x, c, s, d);
-    const float eps_new = fc_advance(dk, k, eps);
-    // the field-oriented dq currents from the flux direction cosines
-    const float pn2 = y.psa * y.psa + y.psb * y.psb;
-    const float inv_pn = rsqrtf(fmaxf(pn2, k.v[FC_TINY]));
-    const bool safe = pn2 > k.v[FC_TINY];
-    const float cf = safe ? y.psa * inv_pn : 1.0f;
-    const float sf = safe ? y.psb * inv_pn : 0.0f;
-    const float i_sd = (cf * y.isa + sf * y.isb) * k.v[FC_INV_I_LIM];
-    const float i_sq = (-sf * y.isa + cf * y.isb) * k.v[FC_INV_I_LIM];
-    const bool violated = (i_sd * i_sd + i_sq * i_sq) > 1.0f;
-    const float wgt = k.v[FC_W];
-    const float wse = -(wgt * fabsf(i_sd - row[0].rv) + wgt * fabsf(i_sq - row[1].rv));
-    reward += violated ? k.v[FC_VIOLATION_REWARD] : wse;
-    terms += violated ? 1.0f : 0.0f;
-    x.isa = violated ? 0.0f : y.isa;
-    x.isb = violated ? 0.0f : y.isb;
-    x.psa = violated ? 0.0f : y.psa;
-    x.psb = violated ? 0.0f : y.psb;
-    eps = violated ? 0.0f : eps_new;
-    spec_rotate(dk.v[D_COS_D], dk.v[D_SIN_D], violated, c, s);
+    const bool violated = fc_step(dk, k, d, x, eps, c, s, row, reward, terms);
 
     float draw[2];
     spec_box_muller(k.v[FC_U_MIN], k.v[FC_TWO_PI], v.z, v.w, draw[0], draw[1]);
@@ -163,21 +220,95 @@ __global__ void dfim_cc_rollout_random_kernel(DfimConst dk, DfimCcConst k, uint2
       row[1].rv = fc_value(k, q.y);
     }
   }
-  out.p[0][e] = x.isa;
-  out.p[1][e] = x.isb;
-  out.p[2][e] = x.psa;
-  out.p[3][e] = x.psb;
-  out.p[4][e] = eps;
-  out.p[5][e] = reward;
-  out.p[6][e] = terms;
-  // the reference rows, (2R, 128) planes: i_sd* rows first
+  fc_store(out, n, e, x, eps, reward, terms, row);
+}
+
+// ---- the warp-specialised random rollout ------------------------------
+
+// The words of a step on the ring (ring_pipe.cuh): the six duties, then per
+// reference row its normal draw, its candidate length and sigma and its
+// candidate reset value (kRefWords, pack_refs).
+constexpr int kFcWords = 6 + 2 * kRefWords;
+
+// Producer side: what step t draws whatever the state, in the operand
+// order of dfim_cc_rollout_random_kernel's step: the duties from
+// SPEC_SLOT_STEP and SPEC_SLOT_EXTRA, the Box-Muller pair from
+// SPEC_SLOT_EXTRA, both rows' length and sigma from SPEC_SLOT_PARAMS, the
+// reset values from SPEC_SLOT_RESET.
+__device__ __forceinline__ RingWords<kFcWords> fc_draws(const DfimCcConst& k, uint2 key,
+                                                        uint32_t env, uint32_t t) {
+  const uint4 w = spec_draw(key, env, t, SPEC_SLOT_STEP);
+  const uint4 v = spec_draw(key, env, t, SPEC_SLOT_EXTRA);
+  const uint4 p = spec_draw(key, env, t, SPEC_SLOT_PARAMS);
+  const uint4 q = spec_draw(key, env, t, SPEC_SLOT_RESET);
+  RingWords<kFcWords> x;
+  const uint32_t b_duty[6] = {w.x, w.y, w.z, w.w, v.x, v.y};
+#pragma unroll
+  for (int j = 0; j < 6; ++j) x.w[j] = __float_as_uint(2.0f * uniform24(b_duty[j]) - 1.0f);
+  RefCandidates<2> cand;
+  spec_box_muller(k.v[FC_U_MIN], k.v[FC_TWO_PI], v.z, v.w, cand.draw[0], cand.draw[1]);
+  spec_params(fc_params(k), p.x, p.y, cand.rl[0], cand.rs[0]);
+  spec_params(fc_params(k), p.z, p.w, cand.rl[1], cand.rs[1]);
+  cand.rv[0] = fc_value(k, q.x);
+  cand.rv[1] = fc_value(k, q.y);
+  pack_refs<2>(cand, 6, x);
+  return x;
+}
+
+// Consumer side: the one-thread step with the step's words given, the
+// candidates taken by selects.
+__device__ __forceinline__ void fc_ring_step(const DfimConst& dk, const DfimCcConst& k,
+                                             const RingWords<kFcWords>& x, DfimState& st,
+                                             float& eps, float& c, float& s, SpecRow (&row)[2],
+                                             float& reward, float& terms) {
+  float d[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) d[j] = __uint_as_float(x.w[j]);
+  const bool violated = fc_step(dk, k, d, st, eps, c, s, row, reward, terms);
+  const RefCandidates<2> cand = unpack_refs<2>(x, 6);
+  const float m = k.v[FC_MARGIN];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    out.p[7][(size_t)r * n + e] = row[r].rv;
-    out.p[8][(size_t)r * n + e] = row[r].rk;
-    out.p[9][(size_t)r * n + e] = row[r].rl;
-    out.p[10][(size_t)r * n + e] = row[r].rs;
+    const bool regen = (row[r].rk >= row[r].rl) || violated;
+    spec_row_walk(row[r], regen, cand.rl[r], cand.rs[r], cand.draw[r], -m, m);
+    row[r].rv = violated ? cand.rv[r] : row[r].rv;
   }
+}
+
+// The ring: 8 steps a slot, 2 producer warps per consumer warp, each
+// drawing 4 steps of a slot (the fastest of K in {4, 8} x P in {1, 2};
+// parent one-thread kernel over ring on Cont-CC-DFIM at 16384 x 65536:
+// K = 4 with one producer warp 0.959, with two 1.144; K = 8 with one 0.859,
+// with two 1.170; PERF.md, slice 18).  At 14 words a step it holds
+// 114,688 B, above the default 48 KB of dynamic shared memory.
+using DfimCcRing = RingShape<8, 2>;
+
+// The random rollout warp-specialised: producer warps run fc_draws,
+// consumer warps fc_ring_step, one thread per env.
+__global__ void __launch_bounds__(DfimCcRing::kThreads)
+    dfim_cc_rollout_ws_kernel(DfimConst dk, DfimCcConst k, uint2 key, int n, int n_steps,
+                              SpecIn in, SpecOut out) {
+  extern __shared__ uint32_t ring[];
+  const RingThread th = ring_thread(n);
+  const int e = th.e;
+  const RingPipe<DfimCcRing> pipe(n_steps);
+  const RingView<kFcWords> v{ring + th.le};
+  if (!th.consumer) {
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool, float&) {
+      return fc_draws(k, key, (uint32_t)e, t);
+    });
+    return;
+  }
+  DfimState x{0.0f, in.p[0][e], in.p[1][e], in.p[2][e], in.p[3][e], 0.0f};
+  float eps = in.p[4][e];
+  float c, s;
+  SpecRow row[2];
+  fc_init(k, key, (uint32_t)e, eps, c, s, row);
+  float reward = 0.0f, terms = 0.0f;
+  ring_consume(pipe, v, n_steps, [&](const RingWords<kFcWords>& w) {
+    fc_ring_step(dk, k, w, x, eps, c, s, row, reward, terms);
+  });
+  if (th.live) fc_store(out, n, e, x, eps, reward, terms, row);
 }
 
 __global__ void dfim_cc_rollout_buffer_kernel(DfimConst dk, DfimCcConst k, int n, int n_steps,
@@ -222,10 +353,22 @@ SPEC_FAMILY_C_INFO(dfim_cc, N_DFIM_CONST, N_ROW_CONST, N_DFIM_FLAG, N_DFIM_CC_CO
 int dfim_cc_rollout_random(const float* consts, const int* flags, const float* spec,
                            unsigned long long seed, int n, int n_steps, const float* const* in,
                            float* const* out, void* stream) {
-  dfim_cc_rollout_random_kernel<<<spec_blocks(n), kSpecThreads, 0, (cudaStream_t)stream>>>(
+  constexpr int bytes = ring_bytes<DfimCcRing>(kFcWords);
+  if (bytes > 48 * 1024) {
+    cudaFuncSetAttribute(dfim_cc_rollout_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+  }
+  dfim_cc_rollout_ws_kernel<<<(n + kRingEnvs - 1) / kRingEnvs, DfimCcRing::kThreads, bytes,
+                              (cudaStream_t)stream>>>(
       dfim_load_const(consts, flags), fc_consts(spec), spec_seed_key(seed), n, n_steps,
       spec_in(in, 5), spec_out(out, 11));
   return (int)cudaGetLastError();
+}
+
+// The random rollout's ring (ring_pipe.cuh's RingLayout).
+int dfim_cc_ring_layout(int* out) {
+  ring_layout<DfimCcRing>(kFcWords, out);
+  return 0;
 }
 
 // actions: float32 (T, 6, R, 128) duties; out: the state, each (R, 128).

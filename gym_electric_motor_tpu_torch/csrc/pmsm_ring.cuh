@@ -1,9 +1,12 @@
 // The PMSM step's draws on the shared-memory ring of ring_pipe.cuh: what
 // producer warps draw for a step of the Finite-CC-PMSM random step
 // (pmsm_step.cuh) whatever the state, and what the consumer warps take by
-// selects.  The policy evaluation rollout (fused_policy.cu) runs on it with
-// Wiener references; the main path's pmsm_rollout_random (fused_pmsm.cu)
-// draws the same words and could take it too.
+// selects.  Two loops run on it with Wiener references: the policy
+// evaluation rollout (fused_policy.cu; with the action uniform where it
+// samples, without it where it is greedy) and the FOC closed loop
+// (fused_foc.cu, without it: the controller gives the voltages).  The main
+// path's pmsm_rollout_random (fused_pmsm.cu) draws the same words and could
+// take it too.
 //
 // The split.  A step draws through pmsm_draw(key, env, t, slot) alone:
 // SLOT_STEP gives the action uniform (w.x) and the Box-Muller pair (w.y,

@@ -1,7 +1,9 @@
-// The shared-memory ring of the warp-specialised random rollouts
-// (draw_ring.cuh for the universal families, pmsm_ring.cuh for the PMSM
-// policy evaluation rollout, fused_dc_sc.cu for the specialised Cont-SC DC
-// rollout): producer warps compute every value of a step that does not
+// The shared-memory ring of the warp-specialised rollouts (draw_ring.cuh
+// for the universal families, pmsm_ring.cuh for the PMSM policy evaluation
+// rollout and the FOC closed loop, fused_dc_sc.cu, fused_eesm_cc.cu and
+// fused_dfim_cc.cu for the specialised Cont-SC DC, Finite-CC-EESM and
+// Cont-CC-DFIM rollouts, fused_dc_cascade.cu for the DC speed cascade):
+// producer warps compute every value of a step that does not
 // depend on the state into a shared-memory ring, and consumer warps run
 // the step, one thread per env, reading those values.  This header holds
 // the roles, the double buffer and the named barriers, whatever a step

@@ -31,16 +31,19 @@ the CPU; for CUDA tensors it launches the kernel, counts the launch in
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from .fused_common import (LANE, ROW_NAMES, SPEC_SLOT_EXTRA, SPEC_SLOT_INIT_0, SPEC_SLOT_INIT_1,
-                           SPEC_SLOT_PARAMS, SPEC_SLOT_RESET, SPEC_SLOT_STEP, SlotBits, TWO_PI,
-                           box_muller, check_planes, check_rollout_inputs, check_tensor,
-                           fused_check_system, launch_kernel, pack_consts, ptr_array, require,
-                           require_lanes, require_specialised_defaults, rotation_advance,
-                           seed_u64, shaped_words, spec_library, spec_params, spec_row_walk,
-                           specialised_load, specialised_u_sup, uniform_from_bits)
+from .fused_common import (LANE, RING_LAYOUT_FIELDS, ROW_NAMES, SPEC_SLOT_EXTRA, SPEC_SLOT_INIT_0,
+                           SPEC_SLOT_INIT_1, SPEC_SLOT_PARAMS, SPEC_SLOT_RESET, SPEC_SLOT_STEP,
+                           SlotBits, TWO_PI, box_muller, check_planes, check_rollout_inputs,
+                           check_tensor, fused_check_system, launch_kernel, named_ring_layout,
+                           pack_consts, ptr_array, require, require_lanes,
+                           require_specialised_defaults, rotation_advance, seed_u64, shaped_words,
+                           spec_library, spec_params, spec_row_walk, specialised_load,
+                           specialised_u_sup, uniform_from_bits)
 from .fused_dfim_family import CONST_NAMES, FLAG_NAMES, DfimConsts, dfim_physics
 
 KERNELS = ("dfim_cc_rollout_random", "dfim_cc_rollout_buffer")
@@ -207,11 +210,34 @@ def dfim_cc_rollout_random(c: DfimCcConsts, seed: int, state0, n_steps: int):
     device, R = check_planes(c, state0)
     if device.type == "cpu":
         return dfim_cc_rollout_random_plain(c, seed, state0, n_steps)
-    outs = [torch.empty((R if j < 7 else 2 * R, LANE), dtype=torch.float32, device=device)
+    outs = _dfim_cc_random_launch(c, seed, state0, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(-1, LANE) for x in outs)
+
+
+def _dfim_cc_random_launch(c: DfimCcConsts, seed: int, state0, n_steps: int, n_envs: int,
+                           launches=None):
+    """dfim_cc_rollout_random's kernel on the first ``n_envs`` envs of the
+    planes: its outputs, seven ``(n_envs,)`` and four ``(2 n_envs,)`` (row
+    0's envs, then row 1's); the launch counted in ``launches`` (none: not
+    counted)."""
+    device = state0[0].device
+    outs = [torch.empty((n_envs if j < 7 else 2 * n_envs,), dtype=torch.float32, device=device)
             for j in range(11)]
-    launch_kernel(_lib(), "dfim_cc", "dfim_cc_rollout_random", device, LAUNCHES, *_consts(c),
-                  seed_u64(seed), R * LANE, int(n_steps), ptr_array(state0), ptr_array(outs))
-    return tuple(outs)
+    launch_kernel(_lib(), "dfim_cc", "dfim_cc_rollout_random", device,
+                  {"dfim_cc_rollout_random": 0} if launches is None else launches, *_consts(c),
+                  seed_u64(seed), n_envs, int(n_steps), ptr_array(state0), ptr_array(outs))
+    return outs
+
+
+def dfim_cc_ring_layout():
+    """The random rollout's ring (csrc/fused_dfim_cc.cu; csrc/ring_pipe.cuh's
+    RingLayout): consumer and producer warps, K steps a slot, slots, words a
+    step, shared-memory bytes."""
+    lib = _lib()
+    lib.dfim_cc_ring_layout.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_int * len(RING_LAYOUT_FIELDS))()
+    lib.dfim_cc_ring_layout(out)
+    return named_ring_layout(out)
 
 
 def dfim_cc_rollout_buffer(c: DfimCcConsts, state0, actions):

@@ -39,8 +39,8 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .fused_common import (LANE, TWO_PI, PhiloxBits, family_library, launch_kernel, ptr_array,
-                           require, uniform_from_bits)
+from .fused_common import (LANE, RING_LAYOUT_FIELDS, TWO_PI, PhiloxBits, family_library,
+                           launch_kernel, named_ring_layout, ptr_array, require, uniform_from_bits)
 
 _f32 = np.float32
 
@@ -643,6 +643,15 @@ _CONTROL_ARGTYPES = {
 }
 
 
+def _foc_library():
+    return family_library("fused_foc", "foc", _CONTROL_ARGTYPES,
+                          (len(CONST_NAMES), 0, 1, len(FOC_CONST_NAMES)))
+
+
+def _foc_flags(fc: FocConsts):
+    return np.array([int(fc.wiener)], dtype=np.int32)
+
+
 def foc_rollout(fc: FocConsts, seed: int, i_sd0, i_sq0, eps0, ref_d, ref_q, n_steps: int):
     """``(i_sd, i_sq, eps, reward_sum, term_count, rv, rk, rl, rs)`` of
     ``n_steps`` closed-loop FOC steps: the plain version for CPU tensors,
@@ -652,16 +661,37 @@ def foc_rollout(fc: FocConsts, seed: int, i_sd0, i_sq0, eps0, ref_d, ref_q, n_st
     _check("ref_q", ref_q, (R, LANE), torch.float32, device)
     if device.type == "cpu":
         return foc_rollout_plain(fc, seed, i_sd0, i_sq0, eps0, ref_d, ref_q, n_steps)
-    lib = family_library("fused_foc", "foc", _CONTROL_ARGTYPES,
-                         (len(CONST_NAMES), 0, 1, len(FOC_CONST_NAMES)))
-    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(5)]
-    outs += [torch.empty((2 * R, LANE), dtype=torch.float32, device=device) for _ in range(4)]
-    flags = np.array([int(fc.wiener)], dtype=np.int32)
-    launch_kernel(lib, "foc", "foc_rollout", device, LAUNCHES, fc.pm.host.ctypes.data,
+    outs = _foc_launch(fc, seed, (i_sd0, i_sq0, eps0, ref_d, ref_q), n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(-1, LANE) for x in outs)
+
+
+def _foc_launch(fc: FocConsts, seed: int, planes, n_steps: int, n_envs: int, launches=None):
+    """foc_rollout's kernel on the first ``n_envs`` envs of ``planes``
+    (``i_sd0, i_sq0, eps0, ref_d, ref_q``): its outputs, five ``(n_envs,)``
+    and four ``(2 n_envs,)`` (the d rows' envs, then the q rows'); the launch
+    counted in ``launches`` (none: not counted)."""
+    device = planes[0].device
+    outs = [torch.empty((n_envs if j < 5 else 2 * n_envs,), dtype=torch.float32, device=device)
+            for j in range(9)]
+    flags = _foc_flags(fc)
+    launch_kernel(_foc_library(), "foc", "foc_rollout", device,
+                  {"foc_rollout": 0} if launches is None else launches, fc.pm.host.ctypes.data,
                   flags.ctypes.data, fc.host.ctypes.data, int(seed) & 0xFFFFFFFFFFFFFFFF,
-                  R * LANE, int(n_steps), ptr_array([i_sd0, i_sq0, eps0, ref_d, ref_q]),
-                  ptr_array(outs))
-    return tuple(outs)
+                  n_envs, int(n_steps), ptr_array(planes), ptr_array(outs))
+    return outs
+
+
+def foc_ring_layout(fc: FocConsts):
+    """The loop's design for ``fc``'s references (csrc/fused_foc.cu;
+    csrc/ring_pipe.cuh's RingLayout): with Wiener references the ring
+    (consumer and producer warps, K steps a slot, slots, words a step,
+    shared-memory bytes); with constant ones one thread per env."""
+    lib = _foc_library()
+    lib.foc_ring_layout.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    flags = _foc_flags(fc)
+    out = (ctypes.c_int * len(RING_LAYOUT_FIELDS))()
+    lib.foc_ring_layout(flags.ctypes.data, out)
+    return named_ring_layout(out)
 
 
 def make_fused_foc_rollout(env, ctrl, n_steps, n_envs, ref_mode="wiener"):

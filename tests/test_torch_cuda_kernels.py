@@ -1084,3 +1084,73 @@ def test_cuda_dc_cascade_rollout_equals_plain_version_bit_for_bit(env_id, refs):
     assert not any(dcf.LAUNCHES.values())
     assert dcf.dc_cascade_ring_layout(cc)["design"] == (
         "warp-specialised" if refs == "wiener" else "one thread per env")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refs", ["wiener", "const"])
+def test_cuda_foc_rollout_equals_plain_version_bit_for_bit(refs):
+    """foc_rollout (csrc/fused_foc.cu) equals foc_rollout_plain bit for bit
+    in every env and every output (NaN where the plain version has NaN):
+    with Wiener references on the ring (producer warps draw the references'
+    candidates, consumer warps run the controller and the step), with
+    constant ones on one thread per env; for 1, 37 and 2051 envs at 1, 3,
+    4, 5, 8, 9 and 64 steps and 131 envs at 1024.  Env 0 starts at five
+    times the current limit and resets at its first step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.controllers import GemController
+
+    dev = torch.device("cuda")
+    env = gt.make_functional("Cont-CC-PMSM-v0", device=dev)
+    fc = fs.FocConsts(env, GemController.make(env, "Cont-CC-PMSM-v0"), refs)
+    rng = np.random.default_rng(59)
+    fs.reset_launches()
+    for n, steps in RING_STOPS:
+        R = -(-n // 128)
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32)
+                 for lo, hi in [(-50, 50), (-50, 50), (0, 2 * np.pi), (-0.3, 0.3), (-0.3, 0.3)]]
+        start[0].reshape(-1)[0] = 5.0 / float(fc.pm.f["inv_i_lim"])
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        for T in steps:
+            got = fs._foc_launch(fc, 7, start, T, n)
+            torch.cuda.synchronize()
+            want = fs.foc_rollout_plain(fc, 7, *start, T)
+            for j, same in enumerate(_equal_bits(got, want, n, rows=2)):
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[4][0]) >= 1.0  # env 0 reset
+    assert not any(fs.LAUNCHES.values())
+    assert fs.foc_ring_layout(fc)["design"] == (
+        "warp-specialised" if refs == "wiener" else "one thread per env")
+
+
+@pytest.mark.cuda
+def test_cuda_dfim_cc_rollout_random_equals_plain_version_bit_for_bit():
+    """dfim_cc_rollout_random (csrc/fused_dfim_cc.cu: producer and consumer
+    warps over a shared-memory ring) equals dfim_cc_rollout_random_plain bit
+    for bit in every env and every output (NaN where the plain version has
+    NaN), for 1, 37 and 2051 envs at 1, 3, 4, 5, 8, 9 and 64 steps and 131
+    envs at 1024.  Env 0 starts at five times the current limit and resets
+    at its first step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_dfim as fd
+
+    dev = torch.device("cuda")
+    c = fd.DfimCcConsts(gt.make_functional("Cont-CC-DFIM-v0", device=dev))
+    rng = np.random.default_rng(61)
+    fd.reset_launches()
+    for n, steps in RING_STOPS:
+        R = -(-n // 128)
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32)
+                 for lo, hi in [(-10, 10)] * 2 + [(-1.5, 1.5)] * 2 + [(0, 2 * np.pi)]]
+        start[0].reshape(-1)[0] = 5.0 / float(c.f["inv_i_lim"])
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        for T in steps:
+            got = fd._dfim_cc_random_launch(c, 7, start, T, n)
+            torch.cuda.synchronize()
+            want = fd.dfim_cc_rollout_random_plain(c, 7, start, T)
+            for j, same in enumerate(_equal_bits(got, want, n, rows=2)):
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[6][0]) >= 1.0  # env 0 reset
+    assert not any(fd.LAUNCHES.values())
+    assert fd.dfim_cc_ring_layout()["design"] == "warp-specialised"

@@ -196,7 +196,7 @@ SASS_CONTROL = "\n".join(
         /*0020*/                   ISETP.NE.AND P1, PT, R0, UR4, PT ;
         /*0030*/               @P1 BRA 0x10 ;
         /*0040*/                   EXIT ;"""
-    for k in ("foc_rollout_kernelILb0EE", "foc_rollout_kernelILb1EE",
+    for k in ("foc_rollout_kernelILb0EE", "foc_rollout_kernelILb1EE", "foc_rollout_ws_kernel",
               *[f"dc_cascade_rollout_kernelILi{o}ELb{w}EE" for o in range(3) for w in range(2)],
               *[f"dc_cascade_rollout_ws_kernelILi{o}EE" for o in range(3)],
               *[f"srm_cascade_rollout_kernelILi{t}ELb{f}ELb{s}ELb{w}EE"
@@ -205,19 +205,22 @@ SASS_CONTROL = "\n".join(
 
 def test_control_instances_pick_one_function_each():
     """The controller-in-the-loop entries each match exactly one function of
-    their library's listing (2, 6 and 24 one-thread instances, and the DC
-    cascade's 3 on the ring), a one-thread entry the one with the reference
-    advance (WIENER, the last template argument, true), whose loop counts;
-    a ring entry (``@ws2``) names the kernel's OPS alone."""
+    their library's listing (2, 6 and 24 one-thread instances, the FOC's
+    ring kernel and the DC cascade's 3), a one-thread entry the one with the
+    reference advance (WIENER, the last template argument, true), whose loop
+    counts; a ring entry (the DC cascade's ``@ws2``, the FOC's ``@ws4``)
+    names the kernel's OPS alone or, for the FOC, no template argument."""
     funcs = sass_ops.functions(SASS_CONTROL)
-    assert len(funcs) == 35
+    assert len(funcs) == 36
+    ws_steps = {"fused_foc": 4, "fused_dc_cascade": 2}
     for library in ("fused_foc", "fused_dc_cascade", "fused_srm_cascade"):
         for instance in sass_ops.STEP_INSTANCES[library].values():
             sub = instance.partition("@")[0]
             names = [f for f in funcs if sub in f]
             assert len(names) == 1, instance
             if sass_ops.ws_steps_of(instance):
-                assert "_ws_kernel" in sub and sass_ops.ws_steps_of(instance) == 2, instance
+                assert "_ws_kernel" in sub, instance
+                assert sass_ops.ws_steps_of(instance) == ws_steps[library], instance
                 continue
             assert instance.endswith("Lb1EE"), instance
             counts = sass_ops.loop_counts(funcs[names[0]])
@@ -236,7 +239,7 @@ SPECIALISED_KERNELS = {
     "fused_eesm_cc": [f"eesm_cc_rollout_{m}_kernelE9EesmConst11EesmCcConst"
                       for m in ("random", "buffer", "ws")],
     "fused_dfim_cc": [f"dfim_cc_rollout_{m}_kernelE9DfimConst11DfimCcConst"
-                      for m in ("random", "buffer")],
+                      for m in ("random", "buffer", "ws")],
 }
 
 
@@ -244,9 +247,9 @@ SPECIALISED_KERNELS = {
 def test_specialised_instances_pick_one_function_each(library):
     """Every specialised entry matches exactly one function of its library's
     listing, and each of the library's random and buffer kernels is counted
-    (the dc_sc random kernel on both motors and the eesm_cc one, one thread
-    per env and on its ring; a ring entry's ``@wsK`` mark names no part of
-    the function)."""
+    (the dc_sc random kernel on both motors and the eesm_cc and dfim_cc
+    ones, one thread per env and on its ring; a ring entry's ``@wsK`` mark
+    names no part of the function)."""
     listing = "\n".join(
         f"""        Function : _ZN45_GLOBAL__N__5c1e2d3f_12_x_cu_0f1e2d3c{len(k)}{k}
         /*0000*/                   S2R R0, SR_TID.X ;
@@ -425,24 +428,26 @@ def test_ws_counts_sum_the_consumer_step_and_the_producer_slot_over_its_steps():
 
 def test_ws_kernels_sit_beside_their_one_thread_instances():
     """The sync, DC, SCIM, EESM and DFIM random rollouts, the policy
-    evaluation rollout, the specialised DC SC and Finite-CC-EESM rollouts
-    and the DC cascade run warp-specialised with Wiener references: the DC and EESM ``_ws`` entries
+    evaluation rollout, the specialised DC SC, Finite-CC-EESM and
+    Cont-CC-DFIM rollouts, the DC cascade and the FOC run warp-specialised
+    with Wiener references: the DC and EESM ``_ws`` entries
     carry ``@ws2`` (two producer warps per consumer warp, two steps each of
     a four-step slot) or, under the EESM's speed ODE (MECH), ``@ws4`` (one),
     and no other entry carries a ``@ws`` mark; each has a one-thread entry
     whose template arguments start with its own, the function's own work
     that the bounds count (the policy's one-thread kernel adds its Wiener
-    and weight-order flags).  The SCIM, sync, DFIM, policy and DC SC rings
-    hold eight steps a slot for two producer warps, so their mark is
-    ``@ws4``, the steps a producer iteration fills; the EESM CC and DC
-    cascade rings hold four for two, ``@ws2``."""
+    and weight-order flags).  The SCIM, sync, DFIM, policy, DC SC, DFIM CC
+    and FOC rings hold eight steps a slot for two producer warps, so their
+    mark is ``@ws4``, the steps a producer iteration fills; the EESM CC and
+    DC cascade rings hold four for two, ``@ws2``."""
     seen = {}
     for instances in sass_ops.STEP_INSTANCES.values():
         for key, instance in instances.items():
             ws = key.split("/")[0] in ("dc_rollout_ws", "eesm_rollout_ws", "induction_rollout_ws",
                                        "sync_rollout_ws", "dfim_rollout_ws", "policy_rollout_ws",
                                        "dc_sc_rollout_ws", "eesm_cc_rollout_ws",
-                                       "dc_cascade_rollout_ws")
+                                       "dc_cascade_rollout_ws", "dfim_cc_rollout_ws",
+                                       "foc_rollout_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
@@ -464,7 +469,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                     "dc_sc_rollout_ws": 4, "dc_sc_rollout_ws/Cont-SC-SeriesDc-v0": 4,
                     "eesm_cc_rollout_ws": 2, "dc_cascade_rollout_ws": 2,
                     "dc_cascade_rollout_ws/Cont-SC-SeriesDc-v0": 2,
-                    "dc_cascade_rollout_ws/Cont-SC-ShuntDc-v0": 2}
+                    "dc_cascade_rollout_ws/Cont-SC-ShuntDc-v0": 2,
+                    "dfim_cc_rollout_ws": 4, "foc_rollout_ws": 4}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
@@ -577,3 +583,21 @@ def test_eesm_cc_and_dc_cascade_rings_keep_their_one_thread_entries():
         assert cascade["dc_cascade_rollout_ws" + suffix] == f"dc_cascade_rollout_ws_kernelILi{ops}E@ws2"
     for instance in list(eesm.values()) + list(cascade.values()):
         assert sass_ops.ws_steps_of(instance) == (2 if "_ws_kernel" in instance else 0)
+
+
+def test_foc_and_dfim_cc_rings_keep_their_one_thread_entries():
+    """dfim_cc_rollout_random and, with Wiener references, foc_rollout run
+    on rings (csrc/ring_pipe.cuh): their ``_ws`` entries count what the
+    launch issues (``@ws4``: K = 8, two producer warps), while the
+    one-thread entries stay the count of the function's own work, the
+    instances the bounds take: the DFIM CC random kernel, and the FOC with
+    the reference advance (WIENER true)."""
+    dfim = sass_ops.STEP_INSTANCES["fused_dfim_cc"]
+    assert dfim["dfim_cc_rollout_random"] == "dfim_cc_rollout_random_kernel"
+    assert dfim["dfim_cc_rollout_buffer"] == "dfim_cc_rollout_buffer_kernel"
+    assert dfim["dfim_cc_rollout_ws"] == "dfim_cc_rollout_ws_kernel@ws4"
+    foc = sass_ops.STEP_INSTANCES["fused_foc"]
+    assert foc == {"foc_rollout": "foc_rollout_kernelILb1EE",
+                   "foc_rollout_ws": "foc_rollout_ws_kernel@ws4"}
+    for instance in list(dfim.values()) + list(foc.values()):
+        assert sass_ops.ws_steps_of(instance) == (4 if "_ws_kernel" in instance else 0)

@@ -15,16 +15,21 @@ A path is ``family:env_id[:const]`` for a universal random rollout,
 ``dc_sc:<env_id>`` for the specialised Cont-SC DC rollout
 (``dc_sc_rollout_random`` on Cont-SC-SeriesDc-v0 or Cont-SC-ShuntDc-v0),
 ``eesm_cc:Finite-CC-EESM-v0`` for the specialised Finite-CC-EESM rollout
-(``eesm_cc_rollout_random``) or ``dc_cascade:<env_id>[:const]`` for the DC
-speed cascade in the loop (``dc_cascade_rollout`` on Cont-SC-PermExDc-v0,
-Cont-SC-SeriesDc-v0 or Cont-SC-ShuntDc-v0, the catalog's Wiener reference
-or ``ConstReference("omega", 0.5)``; the tuned controller of
-``GemController.make``).
+(``eesm_cc_rollout_random``), ``dfim_cc:Cont-CC-DFIM-v0`` for the
+specialised Cont-CC-DFIM rollout (``dfim_cc_rollout_random``),
+``dc_cascade:<env_id>[:const]`` for the DC speed cascade in the loop
+(``dc_cascade_rollout`` on Cont-SC-PermExDc-v0, Cont-SC-SeriesDc-v0 or
+Cont-SC-ShuntDc-v0, the catalog's Wiener reference or
+``ConstReference("omega", 0.5)``) or ``foc:Cont-CC-PMSM-v0[:const]`` for the
+FOC closed loop (``foc_rollout``, the catalog's Wiener references or
+constant zero ones); the closed loops take the tuned controller of
+``GemController.make``.
 For each path (default: the synchronous and DFIM ids that ``chip_smoke.py``
 times, with Wiener and with constant references) it builds the path's
 source (``csrc/fused_<family>.cu``, ``csrc/fused_policy.cu``,
-``csrc/fused_dc_sc.cu``, ``csrc/fused_eesm_cc.cu``,
-``csrc/fused_dc_cascade.cu``) of both trees with the package's nvcc flags,
+``csrc/fused_dc_sc.cu``, ``csrc/fused_eesm_cc.cu``, ``csrc/fused_dfim_cc.cu``,
+``csrc/fused_dc_cascade.cu``, ``csrc/fused_foc.cu``) of both trees with the
+package's nvcc flags,
 runs the kernel of each on the same constants, seed and zero states
 (16384 envs x 65536 steps; the policy's weights drawn from numpy as
 ``chip_smoke.py``'s evaluation rollout draws them, its constant references
@@ -52,8 +57,9 @@ DEFAULT_PATHS = ("sync:Finite-CC-PMSM-v0", "sync:Cont-SC-PMSM-v0", "sync:Finite-
                  "dfim:Cont-SC-DFIM-v0", "dfim:Cont-CC-DFIM-v0:const",
                  "dfim:Cont-SC-DFIM-v0:const")
 
-# (consts, flags, spec, seed, n, n_steps, in, out, stream): the specialised
-# builders' C rollouts (eesm_cc_rollout_random, dc_cascade_rollout)
+# (consts, flags, spec, seed, n, n_steps, in, out, stream): the C rollouts
+# of the specialised builders and the closed loops (eesm_cc_rollout_random,
+# dfim_cc_rollout_random, dc_cascade_rollout, foc_rollout)
 C_ROLLOUT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int]
                       + [ctypes.c_void_p] * 3)
 
@@ -82,10 +88,12 @@ def main():
     from gym_electric_motor_tpu_torch.controllers import GemController
     from gym_electric_motor_tpu_torch.ops import fused_dc as fd
     from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_dfim as fdc
     from gym_electric_motor_tpu_torch.ops import fused_eesm as fe
     from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
     from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
     from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+    from gym_electric_motor_tpu_torch.ops import fused_sync as fs
     from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
     from gym_electric_motor_tpu_torch.ops.fused_common import ptr_array, seed_u64
 
@@ -198,6 +206,44 @@ def main():
 
             def run_this():
                 return dcf._dc_cascade_launch(cc, SEED, z, T_STEPS, N_ENVS)
+        elif family == "dfim_cc":
+            (env_id,) = rest
+            c = fdc.DfimCcConsts(gt.make_functional(env_id, device=dev))
+            z = [torch.zeros(N_ENVS, device=dev) for _ in range(c.n_state)]
+            fn = other_lib("fused_dfim_cc", "dfim_cc_rollout_random", C_ROLLOUT_ARGTYPES)
+            r_idx = 5
+
+            def run_other():
+                outs = ([torch.empty(N_ENVS, device=dev) for _ in range(7)]
+                        + [torch.empty(2 * N_ENVS, device=dev) for _ in range(4)])
+                rc = fn(c.df.host.ctypes.data, c.df.flags.ctypes.data, c.host.ctypes.data,
+                        seed_u64(SEED), N_ENVS, T_STEPS, ptr_array(z), ptr_array(outs), stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's dfim_cc_rollout_random returned {rc}")
+                return outs
+
+            def run_this():
+                return fdc._dfim_cc_random_launch(c, SEED, z, T_STEPS, N_ENVS)
+        elif family == "foc":
+            env_id, *refs = rest
+            env = gt.make_functional(env_id, device=dev)
+            fc = fs.FocConsts(env, GemController.make(env, env_id), "const" if refs else "wiener")
+            flags = np.array([int(fc.wiener)], dtype=np.int32)
+            z = [torch.zeros(N_ENVS, device=dev) for _ in range(5)]
+            fn = other_lib("fused_foc", "foc_rollout", C_ROLLOUT_ARGTYPES)
+            r_idx = 3
+
+            def run_other():
+                outs = ([torch.empty(N_ENVS, device=dev) for _ in range(5)]
+                        + [torch.empty(2 * N_ENVS, device=dev) for _ in range(4)])
+                rc = fn(fc.pm.host.ctypes.data, flags.ctypes.data, fc.host.ctypes.data,
+                        seed_u64(SEED), N_ENVS, T_STEPS, ptr_array(z), ptr_array(outs), stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's foc_rollout returned {rc}")
+                return outs
+
+            def run_this():
+                return fs._foc_launch(fc, SEED, z, T_STEPS, N_ENVS)
         else:
             env_id, *refs = rest
             mod, consts, library = families[family]

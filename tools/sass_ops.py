@@ -74,9 +74,9 @@ so an env-step issues G times a lane's count, and ``step_ops`` multiplies
 by G.  That is what the lanes issue, work that every lane repeats
 included; the function's own work is the one-thread step's count.  A
 warp-specialised kernel (the sync, DC, SCIM, EESM and DFIM random rollouts,
-csrc/draw_ring.cuh; the policy evaluation rollout, the specialised DC SC
-and Finite-CC-EESM rollouts and the DC cascade, csrc/ring_pipe.cuh) is
-marked ``@wsK``: its consumer warps run
+csrc/draw_ring.cuh; the policy evaluation rollout, the specialised DC SC,
+Finite-CC-EESM and Cont-CC-DFIM rollouts, the DC cascade and the FOC,
+csrc/ring_pipe.cuh) is marked ``@wsK``: its consumer warps run
 a step loop (one step an iteration, shared-memory loads) and its producer warps
 a loop whose iteration fills a ring slot of K steps (shared-memory
 stores, the K steps unrolled); an env-step issues the consumer's count
@@ -778,10 +778,12 @@ STEP_INSTANCES = {
     # universal kernel on the same id, whose instances the "/<id>" entries
     # of fused_sync, fused_dc and fused_srm count.  With Wiener references
     # the DC cascade runs dc_cascade_rollout_ws_kernel<OPS> (K = 4, two
-    # producer warps per consumer warp: @ws2), on the three motors; its
+    # producer warps per consumer warp: @ws2), on the three motors, and the
+    # FOC foc_rollout_ws_kernel (K = 8, two producer warps: @ws4); their
     # one-thread instances are built for the count of the function's own
     # work and never launched
-    "fused_foc": {"foc_rollout": "foc_rollout_kernelILb1EE"},
+    "fused_foc": {"foc_rollout": "foc_rollout_kernelILb1EE",
+                  "foc_rollout_ws": "foc_rollout_ws_kernel@ws4"},
     "fused_dc_cascade": {
         "dc_cascade_rollout": "dc_cascade_rollout_kernelILi0ELb1EE",
         "dc_cascade_rollout/Cont-SC-SeriesDc-v0": "dc_cascade_rollout_kernelILi1ELb1EE",
@@ -821,8 +823,14 @@ STEP_INSTANCES = {
         "eesm_cc_rollout_buffer": "eesm_cc_rollout_buffer_kernel",
         "eesm_cc_rollout_ws": "eesm_cc_rollout_ws_kernel@ws2",
     },
-    "fused_dfim_cc": {k: f"{k}_kernel" for k in ("dfim_cc_rollout_random",
-                                                  "dfim_cc_rollout_buffer")},
+    # The Cont-CC-DFIM random rollout runs dfim_cc_rollout_ws_kernel (K = 8,
+    # two producer warps per consumer warp: @ws4); its one-thread kernel is
+    # built for the count of the function's own work and never launched
+    "fused_dfim_cc": {
+        "dfim_cc_rollout_random": "dfim_cc_rollout_random_kernel",
+        "dfim_cc_rollout_buffer": "dfim_cc_rollout_buffer_kernel",
+        "dfim_cc_rollout_ws": "dfim_cc_rollout_ws_kernel@ws4",
+    },
 }
 
 
