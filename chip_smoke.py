@@ -29,7 +29,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
             producer warps, words and bytes with Wiener references, each
             role's registers, the issue bound and issue-slot floor);
             the categorical/Wiener REINFORCE rollout at the trainer's
-            shape, 16384 envs x 1024 steps, gamma 0.99 (about 32 ms);
+            shape, 16384 envs x 1024 steps, gamma 0.99, with its design
+            line (the role split's step and trace warps, ring, shared
+            memory and setmaxnreg budgets, registers, both roles' counts,
+            the issue bound and issue-slot floor);
             policy_record bit for bit (error 0 in every env) there (one
             thread per env), at PPO's 2048 envs x 256 steps (eight lanes an
             env, lane 0 stepping) and at 4096 x 256 (four lanes, each
@@ -322,8 +325,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
     the 12 kernels against its plain version at 16384 envs x 64 steps on its
     catalog id (the DC SC kernels on Cont-SC-SeriesDc-v0 and
     Cont-SC-ShuntDc-v0, timed on the latter, with the design lines of the
-    DC SC, Finite-CC-EESM and Cont-CC-DFIM random rollouts: ring,
-    registers, issue bound and issue-slot floor), the PermExDc recorder
+    DC SC, Cont-TC-SCIM, Finite-CC-EESM and Cont-CC-DFIM random rollouts:
+    ring, registers, issue bound and issue-slot floor), the PermExDc recorder
     again at its main-path
     1024 steps; bit
     for bit in both modes (error 0 in every env)
@@ -337,8 +340,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             of 5 calls, the builders' Wiener references), each random
             rollout in one call with the universal kernel on the same id,
             the ratio of their times, its SASS bound and reset share (the
-            DC SC rollout's design line on both ids, the EESM CC and DFIM
-            CC rollouts' on their ids); the
+            DC SC rollout's design line on both ids, the SCIM TC, EESM CC
+            and DFIM CC rollouts' on their ids); the
             PermExDc recorder at 1024 steps beside the universal recorder;
             output checks (finite, references inside their windows, the
             sub-episode lengths and sigmas, the mean reward within 0.08 of
@@ -506,12 +509,13 @@ H_PU_MAIN = 16                # its hidden width: the trainer's default
 PU_ALL_IDS_PPO = dict(horizon=PU_MAIN[1], n_envs=PU_MAIN[0], n_minibatches=4,
                       hidden=H_PU_MAIN)   # one iteration per id
 PU_SPLIT_ITERS = 10           # timed PPO iterations (collection and update) per learning id
-# The pipes a kernel's bound counts, where not all.  Most of REINFORCE's ALU
-# and IMAD instructions are the 64-bit arithmetic of its 2 P trace
-# addresses, recomputed each step (opaque64 in csrc/policy_step.cuh keeps
-# ptxas from hoisting and spilling them): a cost of the kernel's layout, not
-# work the function needs, so they stay out of its bound.  The row reports
-# the bound over every pipe beside it.
+# The pipes a kernel's bound counts, where not all.  Most of the ALU and
+# IMAD instructions of REINFORCE's one-thread step, whose count the bound
+# takes, are the 64-bit arithmetic of its 2 P trace addresses in global
+# memory, recomputed each step (opaque64 in csrc/policy_step.cuh keeps
+# ptxas from hoisting and spilling them): a cost of that kernel's layout,
+# not work the function needs, so they stay out of its bound.  The row
+# reports the bound over every pipe beside it.
 BOUND_PIPES = {"reinforce_rollout": ("fp32", "xu")}
 
 # peak rates (see the module docstring)
@@ -812,7 +816,8 @@ def run(dev, card):
           "sass_seconds": sass_s, "ptxas": ptxas,
           "ops_per_step": {k: {key: v[key] for key in ("always", "conditional", "insns", "inner",
                                                        "lanes", "lane_branches", "per_lane",
-                                                       "roles", "ws_steps") if key in v}
+                                                       "roles", "ws_steps", "trace_warps")
+                                  if key in v}
                            for k, v in counts.items()},
           "lane_kernels": LANE_KERNELS, "ws_kernels": WS_KERNELS})
     OPS.update(ops)
@@ -1043,6 +1048,26 @@ def policy_rollout_fields(fp, sample, ref_mode, env_steps, nbytes, ms):
                        nbytes, ms, regs)
 
 
+def reinforce_fields(fp, env_steps, nbytes, ms):
+    """reinforce_rollout's launch at H 16 (csrc/reinforce_split.cuh): its
+    layout (fused_policy.reinforce_layout: step and trace warps, ring,
+    shared memory, setmaxnreg budgets), its registers (ptxas), both roles'
+    counts, the issue bound of the step warp's count plus T trace warps'
+    per env-step, every pipe included, and the issue-slot floor of the same
+    instructions, each with its share.  The row's bound_ms stays the
+    one-thread step's FP32 and XU work (BOUND_PIPES), repeated here as
+    one_thread_bound_ms."""
+    layout = fp.reinforce_layout(H_EVAL, env_steps // T_REINFORCE)
+    info = WS_KERNELS["reinforce_split"]
+    one = {k: v for k, v in OPS["reinforce_rollout"].items()
+           if k in BOUND_PIPES["reinforce_rollout"]}
+    i_ms = bound_ms(env_steps, info["ops"], nbytes, list(info["ops"]))[0]
+    return {"design": layout.pop("design"), "layout": layout, "registers": info["registers"],
+            "role_ops": info["roles"], "one_thread_bound_ms": bound_ms(env_steps, one, nbytes)[0],
+            "ops_per_env_step": info["ops"], "issue_bound_ms": i_ms, "issue_bound_share": i_ms / ms,
+            **floor_fields(env_steps, INSNS["reinforce_split"], ms)}
+
+
 def run_rl(dev, card, ops):
     """Slice 2, RL on Finite-CC-PMSM-v0: the policy kernels against their
     plain versions, the greedy kernel against the env, REINFORCE against
@@ -1187,7 +1212,8 @@ def run_rl(dev, card, ops):
                grad_block_rel_err_greedy_const=blk_g, grad_block_rel_err=blk_c, steps=T_REINFORCE,
                bound=bound_ms(N_ENVS * T_REINFORCE, rein_ops, rein_bytes),
                bound_ms_all_pipes=bound_ms(N_ENVS * T_REINFORCE, ops["reinforce_rollout"],
-                                           rein_bytes)[0])
+                                           rein_bytes)[0],
+               **reinforce_fields(fp, N_ENVS * T_REINFORCE, rein_bytes, ms))
     results["reinforce_rollout"] = row
     rein_finite = all(bool(torch.isfinite(x).all()) for x in got)
     rein_mean = float(got[3].double().sum()) / (N_ENVS * T_REINFORCE)
@@ -3244,7 +3270,8 @@ SPEC_UNIVERSAL = {
 # gives the ring's layout
 SPEC_RINGS = {"dc_sc_rollout_random": ("fused_dc", "dc_sc_ring_layout"),
               "eesm_cc_rollout_random": ("fused_eesm", "eesm_cc_ring_layout"),
-              "dfim_cc_rollout_random": ("fused_dfim", "dfim_cc_ring_layout")}
+              "dfim_cc_rollout_random": ("fused_dfim", "dfim_cc_ring_layout"),
+              "scim_rollout_random": ("fused_induction", "scim_tc_ring_layout")}
 
 
 def spec_ring_fields(name, key, env_steps, nbytes, ms):
@@ -3548,7 +3575,9 @@ REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "sync_rollout_random": "ring", "policy_rollout": "ring, layer 1 in registers",
               "dc_sc_rollout_random": "ring", "eesm_cc_rollout_random": "ring",
               "dc_cascade_rollout": "ring with Wiener references",
-              "foc_rollout": "ring with Wiener references", "dfim_cc_rollout_random": "ring"}
+              "foc_rollout": "ring with Wiener references", "dfim_cc_rollout_random": "ring",
+              "scim_rollout_random": "ring",
+              "reinforce_rollout": "role split, traces in registers"}
 
 
 def redesign_order(line):

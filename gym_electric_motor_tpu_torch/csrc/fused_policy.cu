@@ -34,15 +34,20 @@
 // categorical mode, 8 expf, beside the PMSM step; tools/sass_ops.py counts
 // them from the SASS.  The recorder adds 32 B of stores per env-step.
 // REINFORCE keeps two traces of P = 6H + H + 8H + 8 floats per env (e and
-// G), which do not fit in registers; they live in global memory laid out
-// [P, N], so that a warp's accesses coalesce, and every step reads and
-// writes both (16 P bytes per env-step, 32 MB in all at 16384 envs and
-// H = 16, about the H100's L2).  That traffic bounds it; the bytes the
-// function must move (inputs once, outputs once) are far fewer, so its
-// bound_ms is set by the operations, its FP32 work: the 64-bit address
-// arithmetic of the traces, recomputed each step (opaque64), is a cost of
-// this layout and stays out of the bound.  The reduction reads G once, in a
-// fixed order with no atomics, so a rerun gives the same bits.
+// G), which one thread cannot hold in registers.  The launch splits the
+// roles (reinforce_split.cuh): step warps run the envs' steps and pass each
+// env-step's H + 17 words (observation, logits, action, adv, geff, hidden
+// layer) through a shared-memory ring to trace warps, which take the score
+// and its backward pass and hold each env's e in registers and G in shared
+// memory for the whole launch, as the TPU kernel holds them in VMEM
+// scratch; G is written once, to acc [P, n], at the end.  The bytes the function must move
+// (inputs once, outputs once, acc included) are far fewer than its
+// operations need, so its bound_ms is set by the operations, its FP32 work.
+// The one-thread kernel, which kept e and G as [P, n] tensors in global
+// memory and read and wrote both at every step (16 P bytes per env-step),
+// is built for the count of that work and never launched.  The reduction
+// reads G once, in a fixed order with no atomics, so a rerun gives the same
+// bits.
 //
 // policy_record at PPO's width.  PPO collects 2048 envs: one thread per env
 // is 16 blocks on 16 of the card's 132 SMs, one warp per scheduler, each
@@ -87,6 +92,7 @@
 
 #include "pmsm_ring.cuh"
 #include "policy_lanes.cuh"
+#include "reinforce_split.cuh"
 
 namespace {
 
@@ -329,14 +335,14 @@ policy_record_lanes_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_s
   }
 }
 
-// REINFORCE with the backward pass in the loop (pallas_policy.py:613-722):
-// action by Gumbel-max over the 8 logits (strict >, the first maximum wins)
-// or argmax; score onehot(a) - softmax(logits) backpropagated through the
-// MLP by hand; physics at the exact angle (no incremental rotation); then
-// per parameter p, e = gamma * (1 - reset_{t-1}) * e + g and
-// G += (r - baseline) * e.  The baseline is one float on the device (a
-// trainer updates it there, without a round trip to the host); `trace` and
-// `acc` are [P, n] scratch.
+// REINFORCE with the backward pass in the loop (pallas_policy.py:613-722),
+// one thread per env: the step of reinforce_split.cuh, then per
+// parameter p, e = gamma * (1 - reset_{t-1}) * e + g and G += (r - baseline)
+// * e, then the reference advance.  The baseline is one float on the device
+// (a trainer updates it there, without a round trip to the host); `trace`
+// and `acc` are [P, n] scratch.  Built for tools/sass_ops.py's count of the
+// function's own work at H 16 (categorical, Wiener) and never launched:
+// reinforce_rollout runs reinforce_split_kernel.
 template <int H, bool kGreedy, bool kWiener>
 __global__ void __launch_bounds__(kThreads)
 reinforce_rollout_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps, float gamma,
@@ -375,65 +381,17 @@ reinforce_rollout_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_ste
     st.rv_q = ref_q[e];
   }
   const float baseline = *baseline_p;
-  const float u_min = k.v[C_U_MIN];
   float reward_sum = 0.0f, terms = 0.0f, viol_prev = 0.0f;
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
     compiler_barrier();
-    float obs[F], h[H], logit[kActions];
-    policy_obs6(k, q, st, obs);
-    mlp_forward<F, H>(sw, obs, h, logit);
-    compiler_barrier();  // w2 again for dh, not kept live from the forward pass
-
-    int action;
-    if (kGreedy) {
-      action = argmax8(logit);
-    } else {
-      const uint4 ga = pmsm_draw(key, (uint32_t)e, (uint32_t)t, SLOT_GUMBEL_A);
-      const uint4 gb = pmsm_draw(key, (uint32_t)e, (uint32_t)t, SLOT_GUMBEL_B);
-      const uint32_t bits[kActions] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-      float best = 0.0f;
-      action = 0;
+    float obs[F], h[H], logit[kActions], dlogit[kActions], dpre[H];
+    const int action = reinforce_act<H, kGreedy>(k, q, key, (uint32_t)e, (uint32_t)t, sw, st, obs,
+                                                 h, logit);
+    reinforce_score(logit, action, dlogit);
 #pragma unroll
-      for (int a = 0; a < kActions; ++a) {
-        const float pert = logit[a] - logf(-logf(fmaxf(uniform24(bits[a]), u_min)));
-        if (a == 0) {
-          best = pert;
-        } else if (pert > best) {
-          best = pert;
-          action = a;
-        }
-      }
-    }
-
-    // categorical score dlogit = onehot(a) - softmax(logits), then dh and
-    // the hidden pre-activation gradient dpre
-    float m = logit[0];
-#pragma unroll
-    for (int a = 1; a < kActions; ++a) m = fmaxf(m, logit[a]);
-    float ex[kActions];
-#pragma unroll
-    for (int a = 0; a < kActions; ++a) ex[a] = expf(logit[a] - m);
-    float z = ex[0];
-#pragma unroll
-    for (int a = 1; a < kActions; ++a) z = z + ex[a];
-    const float inv_z = 1.0f / z;
-    float dlogit[kActions];
-#pragma unroll
-    for (int a = 0; a < kActions; ++a) dlogit[a] = (action == a ? 1.0f : 0.0f) - ex[a] * inv_z;
-    float dpre[H];
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      float dh = sw[L::W2 + j * kActions] * dlogit[0];
-#pragma unroll
-      for (int a = 1; a < kActions; ++a) dh = dh + sw[L::W2 + j * kActions + a] * dlogit[a];
-      dpre[j] = (1.0f - h[j] * h[j]) * dh;
-    }
-
-    // physics at the exact angle, reward, constraint, reset
-    st.c = cosf(st.eps);
-    st.s = sinf(st.eps);
-    const PmsmStepOut o = pmsm_action_step(k, action, st);
+    for (int j = 0; j < H; ++j) dpre[j] = reinforce_dpre<H>(sw, j, h[j], dlogit);
+    const PmsmStepOut o = reinforce_physics(k, action, st);
     reward_sum += o.reward;
     terms += o.done;
 
@@ -446,17 +404,17 @@ reinforce_rollout_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_ste
     const size_t s = opaque64(stride);
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      float g;
+      float gv;
       if (p < L::B1) {
-        g = obs[p / H] * dpre[p % H];
+        gv = obs[p / H] * dpre[p % H];
       } else if (p < L::W2) {
-        g = dpre[p - L::B1];
+        gv = dpre[p - L::B1];
       } else if (p < L::B2) {
-        g = h[(p - L::W2) / kActions] * dlogit[(p - L::W2) % kActions];
+        gv = h[(p - L::W2) / kActions] * dlogit[(p - L::W2) % kActions];
       } else {
-        g = dlogit[p - L::B2];
+        gv = dlogit[p - L::B2];
       }
-      const float ev = *ep * geff + g;
+      const float ev = *ep * geff + gv;
       *ep = ev;
       *gp = *gp + adv * ev;
       ep += s;
@@ -464,20 +422,172 @@ reinforce_rollout_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_ste
     }
     viol_prev = o.done;
 
-    if (kWiener) {
-      const uint4 b = pmsm_draw(key, (uint32_t)e, (uint32_t)t, SLOT_BOX_MULLER);
-      const float draw_d = sqrtf(-2.0f * logf(fmaxf(uniform24(b.x), u_min)))
-                           * cosf(k.v[C_TWO_PI] * uniform24(b.z));
-      const float draw_q = sqrtf(-2.0f * logf(fmaxf(uniform24(b.y), u_min)))
-                           * cosf(k.v[C_TWO_PI] * uniform24(b.w));
-      wiener_advance(k, key, (uint32_t)e, (uint32_t)t, draw_d, draw_q, o.done != 0.0f, st);
-    }
+    if (kWiener) reinforce_wiener(k, key, (uint32_t)e, (uint32_t)t, o.done != 0.0f, st);
   }
   out_isd[e] = st.i_sd;
   out_isq[e] = st.i_sq;
   out_eps[e] = st.eps;
   out_reward[e] = reward_sum;
   out_terms[e] = terms;
+}
+
+// The role-split rollout (reinforce_split.cuh): the block's first SW warps
+// step its 32 SW envs and write each step's observation, hidden layer,
+// logits, action, adv and geff into the ring; the other warps, T per step
+// warp, each take the score and its backward pass for their hidden units
+// and keep their share of the envs' traces and sums.  Each role's branch
+// runs to its own end, so that the two never reconverge (setmaxnreg
+// requires it).  A lane past the last env steps env n - 1 and stores
+// nothing.
+template <int H, bool kGreedy, bool kWiener>
+__global__ void __launch_bounds__(ReinforceRing<H>::kThreads, ReinforceRing<H>::kMinBlocks)
+reinforce_split_kernel(PmsmConst k, PolicyConst q, uint2 key, int n, int n_steps, float gamma,
+                       const float* __restrict__ baseline_p, const float* __restrict__ w1,
+                       const float* __restrict__ b1, const float* __restrict__ w2,
+                       const float* __restrict__ b2, const float* __restrict__ i_sd0,
+                       const float* __restrict__ i_sq0, const float* __restrict__ eps0,
+                       const float* __restrict__ ref_d, const float* __restrict__ ref_q,
+                       float* __restrict__ out_isd, float* __restrict__ out_isq,
+                       float* __restrict__ out_eps, float* __restrict__ out_reward,
+                       float* __restrict__ out_terms, float* __restrict__ acc) {
+  using RR = ReinforceRing<H>;
+  using L = MlpLayout<6, H>;
+  constexpr int K = RR::K, W = RR::W, E = RR::kEnvs;
+  extern __shared__ float rf_ring[];
+  __shared__ __align__(16) float sw[L::N];
+  stage_weights<6, H>(sw, w1, b1, w2, b2);
+  constexpr int SW = RR::kStepWarps;
+  const int warp = (int)threadIdx.x / 32;
+  const int lane = (int)threadIdx.x % 32;
+  // a step warp's envs, or a trace warp's: env-warp s, share w
+  const bool stepper = warp < SW;
+  const int w = stepper ? 0 : (warp - SW) / SW;
+  const int le = (stepper ? warp : (warp - SW) % SW) * 32 + lane;   // env in the block
+  const int ge = (int)blockIdx.x * E + le;
+  const bool live = ge < n;
+  const int e = live ? ge : n - 1;
+  const RingPipe<RR> pipe(n_steps);
+  float* col = rf_ring + le;   // word j of ring position p at col[(p W + j) E]
+
+  if (stepper) {
+    if constexpr (RR::kSetMaxNReg) ring_regs_dec<kStepRegs>();
+    PmsmEnv st;
+    st.i_sd = i_sd0[e];
+    st.i_sq = i_sq0[e];
+    st.eps = eps0[e];
+    if (kWiener) {
+      wiener_init(k, key, (uint32_t)e, st);
+    } else {
+      st.rv_d = ref_d[e];
+      st.rv_q = ref_q[e];
+    }
+    const float baseline = *baseline_p;
+    float reward_sum = 0.0f, terms = 0.0f, viol_prev = 0.0f;
+#pragma unroll 1
+    for (int t = 0; t < n_steps; ++t) {
+      if ((t & (K - 1)) == 0) pipe.producer_acquire(t / K);
+      compiler_barrier();
+      float obs[6], h[H], logit[kActions];
+      const int action = reinforce_act<H, kGreedy>(k, q, key, (uint32_t)e, (uint32_t)t, sw, st,
+                                                   obs, h, logit);
+      const PmsmStepOut o = reinforce_physics(k, action, st);
+      reward_sum += o.reward;
+      terms += o.done;
+      float* dst = col + (t & (2 * K - 1)) * W * E;
+#pragma unroll
+      for (int f = 0; f < 6; ++f) dst[(RW_OBS + f) * E] = obs[f];
+#pragma unroll
+      for (int a = 0; a < kActions; ++a) dst[(RW_LOGIT + a) * E] = logit[a];
+      dst[RW_ACTION * E] = __int_as_float(action);
+      dst[RW_ADV * E] = o.reward - baseline;
+      dst[RW_GEFF * E] = gamma * (1.0f - viol_prev);
+#pragma unroll
+      for (int j = 0; j < H; ++j) dst[(RW_H + j) * E] = h[j];
+      if ((t & (K - 1)) == K - 1 || t == n_steps - 1) pipe.producer_commit(t / K);
+      viol_prev = o.done;
+      if (kWiener) reinforce_wiener(k, key, (uint32_t)e, (uint32_t)t, o.done != 0.0f, st);
+    }
+    if (live) {
+      out_isd[e] = st.i_sd;
+      out_isq[e] = st.i_sq;
+      out_eps[e] = st.eps;
+      out_reward[e] = reward_sum;
+      out_terms[e] = terms;
+    }
+    return;
+  }
+
+  // a trace warp: units j = w + T m, b2 entries a = w + T m; its e in
+  // registers, its G in shared memory after the ring (slot r at gsh[r E])
+  if constexpr (RR::kSetMaxNReg) ring_regs_inc<kTraceRegs>();
+  constexpr int T = RR::T, NU = RR::kUnits, NB = RR::kB2, PU = 6 + 1 + kActions;
+  float ev[RR::kOwn];
+  float* gsh = rf_ring + RR::kRingFloats + w * RR::kOwn * E + le;
+#pragma unroll
+  for (int i = 0; i < RR::kOwn; ++i) {
+    ev[i] = 0.0f;
+    gsh[i * E] = 0.0f;
+  }
+  const float* hw = col + (RW_H + w) * E;   // h[w] at ring position 0
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    pipe.consumer_wait(t);
+    const int pos = (t & (2 * K - 1)) * W * E;
+    const float* src = col + pos;
+    float obs[6], logit[kActions], h[NU];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) obs[f] = src[(RW_OBS + f) * E];
+#pragma unroll
+    for (int a = 0; a < kActions; ++a) logit[a] = src[(RW_LOGIT + a) * E];
+    const int action = __float_as_int(src[RW_ACTION * E]);
+    const float adv = src[RW_ADV * E];
+    const float geff = src[RW_GEFF * E];
+#pragma unroll
+    for (int m = 0; m < NU; ++m) h[m] = hw[pos + T * m * E];
+    pipe.consumer_release(t);
+    float dlogit[kActions];
+    reinforce_score(logit, action, dlogit);
+#pragma unroll
+    for (int m = 0; m < NU; ++m) {
+      const float dpre = reinforce_dpre<H>(sw, w + T * m, h[m], dlogit);
+#pragma unroll
+      for (int f = 0; f < 6; ++f) {
+        trace_update<E>(ev, gsh, m * PU + f, geff, adv, obs[f] * dpre);
+      }
+      trace_update<E>(ev, gsh, m * PU + 6, geff, adv, dpre);
+#pragma unroll
+      for (int a = 0; a < kActions; ++a) {
+        trace_update<E>(ev, gsh, m * PU + 7 + a, geff, adv, h[m] * dlogit[a]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < NB; ++m) {
+      float g = dlogit[0];   // dlogit[w + T m], taken by selects
+#pragma unroll
+      for (int a = 1; a < kActions; ++a) g = a == w + T * m ? dlogit[a] : g;
+      trace_update<E>(ev, gsh, NU * PU + m, geff, adv, g);
+    }
+  }
+  if (!live) return;
+  float* out = acc + e;
+  const size_t s = (size_t)n;
+#pragma unroll
+  for (int m = 0; m < NU; ++m) {
+    const int j = w + T * m;
+#pragma unroll
+    for (int f = 0; f < 6; ++f) {
+      out[(size_t)(L::W1 + f * H + j) * s] = gsh[(m * PU + f) * E];
+    }
+    out[(size_t)(L::B1 + j) * s] = gsh[(m * PU + 6) * E];
+#pragma unroll
+    for (int a = 0; a < kActions; ++a) {
+      out[(size_t)(L::W2 + j * kActions + a) * s] = gsh[(m * PU + 7 + a) * E];
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
+    out[(size_t)(L::B2 + w + T * m) * s] = gsh[(NU * PU + m) * E];
+  }
 }
 
 // out[p, lane] = sum over r of acc[p, r * 128 + lane], r ascending: one
@@ -582,6 +692,10 @@ template __global__ void policy_rollout_kernel<16, true, false, false>(
     PmsmConst, PolicyConst, uint2, int, int, const float*, const float*, const float*,
     const float*, const float*, const float*, const float*, const float*, const float*, float*,
     float*, float*, float*, float*);
+template __global__ void reinforce_rollout_kernel<16, false, true>(
+    PmsmConst, PolicyConst, uint2, int, int, float, const float*, const float*, const float*,
+    const float*, const float*, const float*, const float*, const float*, const float*,
+    const float*, float*, float*, float*, float*, float*, float*, float*);
 
 }  // namespace
 
@@ -690,32 +804,53 @@ int policy_record_layout(int n, int* out) {
   return 0;
 }
 
+// acc: the [P, n] per-env gradient sums, written once at the end.
 int reinforce_rollout(const float* consts, unsigned long long seed, int n, int n_steps,
                       int hidden, int greedy, int wiener, float gamma, const float* baseline,
                       const float* w1, const float* b1, const float* w2, const float* b2,
                       const float* i_sd0, const float* i_sq0, const float* eps0,
                       const float* ref_d, const float* ref_q, float* out_isd, float* out_isq,
-                      float* out_eps, float* out_reward, float* out_terms, float* trace,
-                      float* acc, void* stream) {
+                      float* out_eps, float* out_reward, float* out_terms, float* acc,
+                      void* stream) {
   const PmsmConst k = load_const(consts);
   const PolicyConst q = load_policy_const(consts);
   const uint2 key = seed_key(seed);
   cudaStream_t s = (cudaStream_t)stream;
   const bool ok = with_hidden(hidden, [&](auto hc) {
     constexpr int H = decltype(hc)::value;
-#define GEMX_REINFORCE(G, W)                                                                   \
-  reinforce_rollout_kernel<H, G, W><<<blocks(n), kThreads, 0, s>>>(                            \
-      k, q, key, n, n_steps, gamma, baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d,       \
-      ref_q, out_isd, out_isq, out_eps, out_reward, out_terms, trace, acc)
+    using RR = ReinforceRing<H>;
+    auto launch = [&](auto kernel) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RR::kBytes);
+      kernel<<<(n + RR::kEnvs - 1) / RR::kEnvs, RR::kThreads, RR::kBytes, s>>>(
+          k, q, key, n, n_steps, gamma, baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d,
+          ref_q, out_isd, out_isq, out_eps, out_reward, out_terms, acc);
+    };
     if (greedy) {
-      if (wiener) GEMX_REINFORCE(true, true); else GEMX_REINFORCE(true, false);
+      if (wiener) launch(reinforce_split_kernel<H, true, true>);
+      else launch(reinforce_split_kernel<H, true, false>);
     } else {
-      if (wiener) GEMX_REINFORCE(false, true); else GEMX_REINFORCE(false, false);
+      if (wiener) launch(reinforce_split_kernel<H, false, true>);
+      else launch(reinforce_split_kernel<H, false, false>);
     }
-#undef GEMX_REINFORCE
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// reinforce_rollout's role split at H (reinforce_split.cuh): out = (trace
+// warps per step warp, K steps a ring slot, words a step, shared-memory
+// bytes of the ring and of G in it, threads a block, envs a block,
+// parameters a trace thread owns, blocks an SM the registers must allow,
+// the step and trace warps' setmaxnreg budgets or zeros).
+int reinforce_shape(int hidden, int* out) {
+  const bool ok = with_hidden(hidden, [&](auto hc) {
+    using RR = ReinforceRing<decltype(hc)::value>;
+    const int v[] = {RR::T,        RR::K,     RR::W,    RR::kBytes,
+                     RR::kThreads, RR::kEnvs, RR::kOwn, RR::kMinBlocks,
+                     RR::kSetMaxNReg ? kStepRegs : 0, RR::kSetMaxNReg ? kTraceRegs : 0};
+    for (int i = 0; i < 10; ++i) out[i] = v[i];
+  });
+  return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
 int reinforce_reduce(int n, int n_params, const float* acc, float* out, void* stream) {

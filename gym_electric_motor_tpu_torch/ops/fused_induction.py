@@ -8,7 +8,9 @@ written in CUDA (``csrc/fused_scim_tc.cu``) carry the work on the GPU:
 ========================  ====================================================
 ``scim_rollout_random``   T steps of random continuous B6 duties, reduced to
                           the final state, reward sums, termination counts
-                          and the final Wiener torque reference
+                          and the final Wiener torque reference (producer
+                          warps draw and consumer warps step,
+                          ``scim_tc_ring_layout``)
 ``scim_rollout_buffer``   T steps of a given duty buffer, deterministic
 ========================  ====================================================
 
@@ -30,10 +32,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fused_common import (LANE, ROW_NAMES, SPEC_SLOT_EXTRA, SPEC_SLOT_INIT_0, SPEC_SLOT_PARAMS,
-                           SPEC_SLOT_STEP, SlotBits, TWO_PI, box_muller, check_planes,
+from .fused_common import (LANE, ROW_NAMES, SPEC_SLOT_EXTRA,
+                           SPEC_SLOT_INIT_0, SPEC_SLOT_PARAMS, SPEC_SLOT_STEP, SlotBits, TWO_PI,
+                           box_muller, check_planes,
                            check_rollout_inputs, check_tensor, fused_check_system, launch_kernel,
-                           pack_consts, ptr_array, require, require_lanes,
+                           named_ring_layout, pack_consts, ptr_array, require, require_lanes,
                            require_specialised_defaults, seed_u64, shaped_words, spec_library,
                            spec_params, spec_row_walk, specialised_load, specialised_u_sup,
                            uniform_from_bits)
@@ -50,6 +53,11 @@ def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
+
+# the random rollout's ring (ScimRing in csrc/fused_scim_tc.cu): K steps a
+# slot, producer warps per consumer warp; and the words of a step
+SCIM_TC_RING = (8, 2)
+SCIM_TC_RING_WORDS = 7
 
 # the bit layout of csrc/fused_scim_tc.cu: role -> (slot, word); u1 and u2
 # are read at even steps only
@@ -176,10 +184,31 @@ def scim_rollout_random(c: ScimConsts, seed: int, state0, n_steps: int):
     device, R = check_planes(c, state0)
     if device.type == "cpu":
         return scim_rollout_random_plain(c, seed, state0, n_steps)
-    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(10)]
-    launch_kernel(_lib(), "scim", "scim_rollout_random", device, LAUNCHES, *_consts(c),
-                  seed_u64(seed), R * LANE, int(n_steps), ptr_array(state0), ptr_array(outs))
-    return tuple(outs)
+    outs = _scim_random_launch(c, seed, state0, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(R, LANE) for x in outs)
+
+
+def _scim_random_launch(c: ScimConsts, seed: int, state0, n_steps: int, n_envs: int,
+                        launches=None):
+    """scim_rollout_random's kernel on the first ``n_envs`` envs of the
+    planes: its 10 outputs, each ``(n_envs,)``; the launch counted in
+    ``launches`` (none: not counted)."""
+    device = state0[0].device
+    outs = [torch.empty((n_envs,), dtype=torch.float32, device=device) for _ in range(10)]
+    launch_kernel(_lib(), "scim", "scim_rollout_random", device,
+                  {"scim_rollout_random": 0} if launches is None else launches, *_consts(c),
+                  seed_u64(seed), n_envs, int(n_steps), ptr_array(state0), ptr_array(outs))
+    return outs
+
+
+def scim_tc_ring_layout():
+    """The random rollout's ring (csrc/fused_scim_tc.cu's ScimRing, in
+    csrc/ring_pipe.cuh's RingLayout): consumer and producer warps, K steps a
+    slot, slots, words a step, shared-memory bytes; computed here, without
+    the library."""
+    K, P = SCIM_TC_RING
+    return named_ring_layout((4, 4 * P, K, 2, SCIM_TC_RING_WORDS,
+                              2 * K * SCIM_TC_RING_WORDS * 128 * 4, 0))
 
 
 def scim_rollout_buffer(c: ScimConsts, state0, actions):

@@ -28,7 +28,10 @@ and one kernel per family the universal recorder's (``UNIVERSAL_KERNELS``:
                            warp an env, ``policy_record_layout``)
 ``reinforce_rollout``      the 6-feature step with Gumbel-max or greedy
                            actions and the policy gradient accumulated per
-                           env from eligibility traces
+                           env from eligibility traces, which stay on
+                           chip for the whole launch: e in the registers
+                           of trace warps beside the step warps, G in
+                           shared memory (``reinforce_layout``)
 ``reinforce_reduce``       the per-env gradient sums reduced to the
                            ``(P, 128)`` block in a fixed order
 ``<family>_policy_record`` any id's observation (the family's
@@ -380,9 +383,47 @@ _ARGTYPES = {
     "policy_record_layout": [_I, _P],
     "policy_rollout_layout": [_I, _I, _I, _P],
     "reinforce_rollout": ([_P, ctypes.c_uint64, _I, _I, _I, _I, _I, ctypes.c_float]
-                          + [_P] * 17 + [_P]),
+                          + [_P] * 16 + [_P]),
     "reinforce_reduce": [_I, _I, _P, _P, _P],
+    "reinforce_shape": [_I, _P],
 }
+
+# reinforce_rollout's role split at each H (ReinforceShape in
+# csrc/reinforce_split.cuh): step warps a block, trace warps per step warp,
+# blocks an SM that the registers must allow; the steps of a ring slot; and
+# the setmaxnreg budgets of the step and trace warps of a block of four step
+# warps
+REINFORCE_SHAPES = {8: (1, 4, 4), 16: (4, 2, 1), 32: (1, 8, 2)}
+REINFORCE_K = 2
+REINFORCE_REGS = (104, 200)
+
+
+def reinforce_layout(hidden, n_envs):
+    """The launch of ``reinforce_rollout`` at H ``hidden`` over ``n_envs``
+    envs (csrc/reinforce_split.cuh): a block of 32 SW envs holds SW step
+    warps and T trace warps per step warp (with four step warps, their
+    warpgroup gives registers to the trace warps' under setmaxnreg), the
+    step warps write the W = H + 17 words of each env-step (observation,
+    logits, action, adv, geff, hidden layer) into a ring of two slots of K
+    steps in shared memory, and a trace thread takes
+    the score and its backward pass for H / T hidden units and keeps e of
+    their parameters (15 each) and of 8 / T entries of b2 in its registers
+    and their G in shared memory after the ring, for the whole launch."""
+    if hidden not in REINFORCE_SHAPES:
+        raise ValueError(f"the policy kernels are built for H in {HIDDEN_SIZES}, got {hidden}")
+    SW, T, B = REINFORCE_SHAPES[hidden]
+    E, K = 32 * SW, REINFORCE_K
+    words = hidden + 17
+    own = (hidden // T) * (6 + 1 + N_ACTIONS) + N_ACTIONS // T
+    n_params = n_policy_params(6, hidden)
+    step_regs, trace_regs = REINFORCE_REGS if SW > 1 else (0, 0)
+    return {"design": "role split: step warps and trace warps, e in the trace warps' "
+                      "registers, G in shared memory",
+            "step_warps": SW, "trace_warps": T, "K": K, "slots": 2, "words": words,
+            "smem_bytes": (2 * K * words + n_params) * E * 4, "threads": E * (1 + T),
+            "envs_per_block": E, "blocks": -(-int(n_envs) // E), "params": n_params,
+            "params_per_trace_thread": own, "min_blocks_per_sm": B,
+            "setmaxnreg_step": step_regs, "setmaxnreg_trace": trace_regs}
 
 
 def _lib():
@@ -397,6 +438,16 @@ def _lib():
         lib.gemx_policy_error_string.restype = ctypes.c_char_p
         if lib.policy_n_const() != len(CONST_NAMES) + len(POLICY_CONST_NAMES):
             raise RuntimeError("csrc/policy_step.cuh and POLICY_CONST_NAMES disagree on the constants")
+        for hidden in HIDDEN_SIZES:
+            out = (ctypes.c_int * 10)()
+            lib.reinforce_shape(hidden, out)
+            lay = reinforce_layout(hidden, 0)
+            want = [lay[k] for k in ("trace_warps", "K", "words", "smem_bytes", "threads",
+                                     "envs_per_block", "params_per_trace_thread",
+                                     "min_blocks_per_sm", "setmaxnreg_step", "setmaxnreg_trace")]
+            if list(out) != want:
+                raise RuntimeError(f"csrc/reinforce_split.cuh and reinforce_layout disagree at "
+                                   f"H {hidden}: {list(out)} against {want}")
         lib._gemx_typed = True
     return lib
 
@@ -546,15 +597,27 @@ def reinforce_rollout(consts: PolicyConsts, seed: int, baseline, w1, b1, w2, b2,
                                        eps0, ref_d, ref_q, n_steps, gamma, sample, ref_mode)
     if not isinstance(baseline, torch.Tensor):
         baseline = torch.full((1,), float(baseline), dtype=torch.float32, device=device)
-    n, n_params = R * LANE, n_policy_params(6, hidden)
-    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(5)]
-    trace = torch.empty((n_params, n), dtype=torch.float32, device=device)
-    acc = torch.empty_like(trace)
-    _launch("reinforce_rollout", device, consts.host.ctypes.data,
-            int(seed) & 0xFFFFFFFFFFFFFFFF, n, int(n_steps), hidden, int(greedy), int(wiener),
-            float(gamma), *_ptrs(baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0), _ptr(ref_d),
-            _ptr(ref_q), *_ptrs(*outs, trace, acc))
-    return tuple(outs) + (reinforce_reduce(acc),)
+    outs = _reinforce_launch(consts, seed, baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d,
+                             ref_q, n_steps, R * LANE, gamma, greedy, wiener)
+    LAUNCHES["reinforce_rollout"] += 1
+    return tuple(x.reshape(R, LANE) for x in outs[:5]) + (reinforce_reduce(outs[5]),)
+
+
+def _reinforce_launch(consts, seed, baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0, ref_d, ref_q,
+                      n_steps, n_envs, gamma, greedy, wiener):
+    """reinforce_rollout's kernel on the first ``n_envs`` envs of the
+    planes (``baseline`` a one-element tensor on their device): the 5
+    outputs, each ``(n_envs,)``, and the ``(P, n_envs)`` per-env gradient
+    sums; not counted in ``LAUNCHES``."""
+    device = i_sd0.device
+    outs = [torch.empty(n_envs, dtype=torch.float32, device=device) for _ in range(5)]
+    acc = torch.empty((n_policy_params(6, b1.shape[0]), n_envs), dtype=torch.float32,
+                      device=device)
+    _call("reinforce_rollout", device, consts.host.ctypes.data, int(seed) & 0xFFFFFFFFFFFFFFFF,
+          n_envs, int(n_steps), b1.shape[0], int(greedy), int(wiener), float(gamma),
+          *_ptrs(baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0), _ptr(ref_d), _ptr(ref_q),
+          *_ptrs(*outs, acc))
+    return outs + [acc]
 
 
 def reinforce_reduce(acc):
@@ -677,8 +740,10 @@ def make_fused_reinforce_rollout(env, n_steps, n_envs, hidden=16, gamma=0.99,
         G  += (r_t - baseline) * e_t
 
     reduced to one ``(n_params, 128)`` block.  The JAX function's
-    ``block_rows`` (its TPU grid tiling) has no counterpart: the traces live
-    in one ``[n_params, n_envs]`` scratch pair.
+    ``block_rows`` (its TPU grid tiling) has no counterpart: each env's
+    traces stay on chip for the whole launch (``reinforce_layout``), and
+    its gradient sums are written once, to one ``[n_params, n_envs]``
+    tensor.
 
     Returns ``rollout(seed, baseline, w1, b1, w2, b2, i_sd0, i_sq0, eps0,
     ref_d=None, ref_q=None) -> (i_sd, i_sq, eps, reward_sum, term_count,

@@ -18,6 +18,8 @@ mode on the CPU as tests/test_pallas_rollout.py runs them.
 * Each builder raises where the JAX builder raises, with the same type.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -270,3 +272,18 @@ def test_buffer_matches_the_universal_buffer_kernel(name):
             _assert_angle(g.numpy(), w.numpy())
         else:
             torch.testing.assert_close(g, w, **BUF)
+
+
+def test_scim_tc_ring_layout_is_the_kernels_ring():
+    """scim_tc_ring_layout, computed without the library, is the ring of
+    csrc/fused_scim_tc.cu (ScimRing, 7 words a step): 4 consumer warps, P
+    producer warps per consumer warp, two slots of K steps, each producer's
+    steps pairing an even step with the odd one that takes its sine half."""
+    lay = fi.scim_tc_ring_layout()
+    K, P = fi.SCIM_TC_RING
+    assert lay == {"consumer_warps": 4, "producer_warps": 4 * P, "K": K, "slots": 2, "words": 7,
+                   "smem_bytes": 2 * K * 7 * 128 * 4, "design": "warp-specialised"}
+    assert (K // P) % 2 == 0 and lay["smem_bytes"] <= 227 * 1024
+    source = (Path(fi.__file__).resolve().parent.parent / "csrc" / "fused_scim_tc.cu").read_text()
+    assert f"using ScimRing = RingShape<{K}, {P}>;" in source
+    assert f"constexpr int kScimWords = {fi.SCIM_TC_RING_WORDS};" in source

@@ -1154,3 +1154,107 @@ def test_cuda_dfim_cc_rollout_random_equals_plain_version_bit_for_bit():
             assert float(got[6][0]) >= 1.0  # env 0 reset
     assert not any(fd.LAUNCHES.values())
     assert fd.dfim_cc_ring_layout()["design"] == "warp-specialised"
+
+
+@pytest.mark.cuda
+def test_cuda_scim_rollout_random_equals_plain_version_bit_for_bit():
+    """scim_rollout_random (csrc/fused_scim_tc.cu: producer and consumer
+    warps over a shared-memory ring) equals scim_rollout_random_plain bit
+    for bit in every env and every output (NaN where the plain version has
+    NaN), for 1, 37 and 2051 envs at 1, 3, 4, 5, 8, 9 and 64 steps and 131
+    envs at 1024: the ring stops at every place in a slot and across the
+    odd step that takes the carried sine half.  Env 0 starts at five times
+    the current limit and resets at its first step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_induction as fi
+
+    dev = torch.device("cuda")
+    c = fi.ScimConsts(gt.make_functional("Cont-TC-SCIM-v0", device=dev))
+    i_lim = float(c.ic.f["inv_ilim2"]) ** -0.5
+    rng = np.random.default_rng(67)
+    fi.reset_launches()
+    for n, steps in RING_STOPS:
+        R = -(-n // 128)
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32)
+                 for lo, hi in [(-10, 10)] * 2 + [(-1.5, 1.5)] * 2]
+        start[0].reshape(-1)[0] = 5.0 * i_lim
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        for T in steps:
+            got = fi._scim_random_launch(c, 7, start, T, n)
+            torch.cuda.synchronize()
+            want = fi.scim_rollout_random_plain(c, 7, start, T)
+            for j, same in enumerate(_equal_bits(got, want, n)):
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[5][0]) >= 1.0  # env 0 reset
+    assert not any(fi.LAUNCHES.values())
+
+
+REINFORCE_CASES = [(h, s, r) for h in (8, 16, 32) for s in ("greedy", "categorical")
+                   for r in ("const", "wiener")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,sample,ref_mode", REINFORCE_CASES,
+                         ids=[f"H{h}-{s}-{r}" for h, s, r in REINFORCE_CASES])
+def test_cuda_reinforce_rollout_every_instance_matches_plain_version(hidden, sample, ref_mode):
+    """reinforce_rollout (csrc/fused_policy.cu's role split: a step warp and
+    trace warps holding e and G in registers) in each of its 12 instances
+    against its plain version at 256 envs x 64 steps, gamma 0.9: greedy in
+    every env at rtol 1e-4 / atol 1e-4 and the gradient block within 1e-4 of
+    its largest entry, categorical in 99% of envs.  On 200 of the envs (the
+    last block cut short, at 32 and at 128 envs a block) the kernel gives
+    the first 200 envs' outputs and per-env gradient sums of the full launch
+    bit for bit, and the launch allocates the (P, n) sums and no trace
+    tensor beside them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+
+    dev = torch.device("cuda")
+    env = gt.make_functional("Finite-CC-PMSM-v0", device=dev, state_filter=fp.STATE_FILTER)
+    consts = fp.PolicyConsts(env)
+    R, T, n = 2, 64, 200
+    rng = np.random.default_rng(71 + hidden)
+    start = [torch.as_tensor(rng.uniform(lo, hi, (R, 128)).astype(np.float32), device=dev)
+             for lo, hi in ((-50, 50), (-50, 50), (0, 2 * np.pi))]
+    refs = [torch.as_tensor(rng.uniform(-0.5, 0.5, (R, 128)).astype(np.float32), device=dev)
+            for _ in range(2)]
+    w = [torch.as_tensor((rng.normal(size=k) * s).astype(np.float32), device=dev)
+         for k, s in ((6 * hidden, 0.5), (hidden, 0.1), (hidden * 8, 0.5), (8, 0.1))]
+    fp.reset_launches()
+    args = (consts, 5, -0.05, *w, *start, *refs, T, 0.9, sample, ref_mode)
+    got, want = fp.reinforce_rollout(*args), fp.reinforce_rollout_plain(*args)
+    ok = np.ones(R * 128, bool)
+    for j, (g, x) in enumerate(zip(got[:5], want[:5])):
+        g, x = g.cpu().numpy(), x.cpu().numpy()
+        err = np.abs(g - x)
+        if j == 2:
+            err = np.remainder(err, 2 * np.pi)
+            err = np.minimum(err, 2 * np.pi - err)
+        ok &= (err <= 1e-4 + 1e-4 * np.abs(x)).reshape(-1)
+    if sample == "greedy":
+        assert ok.all(), (hidden, ref_mode, ok.mean())
+        err = float((got[5] - want[5]).abs().max() / want[5].abs().max())
+        assert err < 1e-4, (hidden, ref_mode, err)
+    else:
+        assert ok.mean() >= 0.99, (hidden, ref_mode, ok.mean())
+    greedy, wiener = sample == "greedy", ref_mode == "wiener"
+    base = torch.full((1,), -0.05, device=dev)
+    ref_d, ref_q = (None, None) if wiener else refs
+    full = fp._reinforce_launch(consts, 5, base, *w, *start, ref_d, ref_q, T, R * 128, 0.9,
+                                greedy, wiener)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    part = fp._reinforce_launch(consts, 5, base, *w, *start, ref_d, ref_q, T, n, 0.9, greedy,
+                                wiener)
+    torch.cuda.synchronize()
+    n_p = fp.n_policy_params(6, hidden)
+    assert torch.cuda.max_memory_allocated(dev) - before < 2 * 4 * n_p * n + 4096
+    for j, (a, b) in enumerate(zip(part, full)):
+        b = b[:, :n] if b.dim() == 2 else b[:n]
+        assert bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()), (hidden, j)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {"reinforce_rollout": 1,
+                                                           "reinforce_reduce": 1}

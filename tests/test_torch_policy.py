@@ -23,6 +23,9 @@ The CUDA kernels run only on a GPU: ``chip_smoke.py`` and
 tests/test_torch_cuda_kernels.py hold them against these plain versions.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -321,3 +324,52 @@ def test_wrappers_validate_and_take_plain_path_on_cpu():
     with pytest.raises(NotImplementedError):
         fp.PolicyConsts(gt.make_functional("Finite-CC-PMSM-v0", device="cpu", state_filter=SF,
                                            constraints=()))
+
+
+@pytest.mark.parametrize("hidden", fp.HIDDEN_SIZES)
+def test_reinforce_layout_gives_every_parameter_to_one_trace_thread(hidden):
+    """reinforce_layout (csrc/reinforce_split.cuh's role split): trace
+    thread w owns the hidden units j = w + T m, each with its 6 w1 entries,
+    b1 and 8 w2 entries, and b2[w + T m]; over the T trace warps every
+    packed parameter is owned exactly once.  The ring's words and the shared
+    memory of the ring and G, the threads and the setmaxnreg budgets follow
+    from the shape, which is the source's."""
+    lay = fp.reinforce_layout(hidden, 16384)
+    H, T = hidden, lay["trace_warps"]
+    assert lay["params"] == fp.n_policy_params(6, H)
+    owned = []
+    for w in range(T):
+        mine = []
+        for m in range(H // T):
+            j = w + T * m
+            mine += [f * H + j for f in range(6)] + [6 * H + j]
+            mine += [7 * H + j * 8 + a for a in range(8)]
+        mine += [15 * H + w + T * m for m in range(8 // T)]
+        assert len(mine) == lay["params_per_trace_thread"]
+        owned += mine
+    assert sorted(owned) == list(range(lay["params"]))
+    assert lay["words"] == H + 17
+    E, SW = lay["envs_per_block"], lay["step_warps"]
+    assert E == 32 * SW and SW in (1, 4)
+    ring = 2 * lay["K"] * lay["words"] * E * 4
+    assert lay["smem_bytes"] == ring + 4 * E * lay["params"]
+    assert lay["smem_bytes"] * lay["min_blocks_per_sm"] <= 227 * 1024
+    assert lay["threads"] == E * (1 + T) <= 1024
+    assert lay["blocks"] == 16384 // E and fp.reinforce_layout(H, 200)["blocks"] == -(-200 // E)
+    if SW > 1:  # setmaxnreg: the step warpgroup gives registers to the trace warps
+        assert lay["min_blocks_per_sm"] == 1
+        assert E * (lay["setmaxnreg_step"] + T * lay["setmaxnreg_trace"]) < 65536
+        assert lay["params_per_trace_thread"] < lay["setmaxnreg_trace"]
+    source = (Path(fp.__file__).resolve().parent.parent / "csrc"
+              / "reinforce_split.cuh").read_text()
+    shape = re.search(rf"struct ReinforceShape<{H}> {{\s*static constexpr int SW = (\d+), "
+                      rf"T = (\d+), B = (\d+);", source)
+    assert shape and tuple(map(int, shape.groups())) == (SW, T, lay["min_blocks_per_sm"])
+    assert f"constexpr int kReinforceK = {lay['K']};" in source
+    regs = re.findall(r"constexpr int k(?:Step|Trace)Regs = (\d+);", source)
+    assert tuple(map(int, regs)) == fp.REINFORCE_REGS
+
+
+def test_reinforce_layout_refuses_other_widths():
+    with pytest.raises(ValueError, match="H in"):
+        fp.reinforce_layout(12, 128)

@@ -16,6 +16,8 @@ import pytest
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import sass_ops  # noqa: E402
 
+from gym_electric_motor_tpu_torch.ops import fused_policy as fp  # noqa: E402
+
 SASS = """
         Function : _Z4stepPfi
         .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
@@ -171,13 +173,14 @@ def test_step_instances_name_kernels_of_their_sources(library):
     """Every ``STEP_INSTANCES`` entry parses: a kernel defined in
     ``csrc/<library>.cu`` with as many template arguments in the mangled
     substring as the kernel has template parameters, and at most one loop
-    mark (``#2``, ``@inner``, a lane group's ``@lanesG`` or a
-    warp-specialised kernel's ``@ws2`` or ``@ws4``)."""
+    mark (``#2``, ``@inner``, a lane group's ``@lanesG``, a
+    warp-specialised kernel's ``@ws2`` or ``@ws4`` or the role-split
+    REINFORCE kernel's ``@rs2``)."""
     source = (CSRC / f"{library}.cu").read_text()
     for key, instance in sass_ops.STEP_INSTANCES[library].items():
         sub, _, nested = instance.partition("@")
         sub, mark, second = sub.partition("#")
-        assert nested in ("", "inner", "lanes2", "lanes4", "lanes8", "ws2", "ws4") \
+        assert nested in ("", "inner", "lanes2", "lanes4", "lanes8", "ws2", "ws4", "rs2") \
             and second in ("", "2"), key
         assert not (nested and mark), key
         kernel, _sep, args = sub.partition("_kernel")
@@ -235,7 +238,8 @@ SPECIALISED_KERNELS = {
                                "permex_record_random", "permex_record_buffer")],
     "fused_dc_sc": [f"dc_sc_rollout_{m}_kernelILi{n}EEv9DcScConst"
                     for m in ("random", "buffer", "ws") for n in (1, 2)],
-    "fused_scim_tc": [f"scim_rollout_{m}_kernelE14InductionConst" for m in ("random", "buffer")],
+    "fused_scim_tc": [f"scim_rollout_{m}_kernelE14InductionConst"
+                      for m in ("random", "buffer", "ws")],
     "fused_eesm_cc": [f"eesm_cc_rollout_{m}_kernelE9EesmConst11EesmCcConst"
                       for m in ("random", "buffer", "ws")],
     "fused_dfim_cc": [f"dfim_cc_rollout_{m}_kernelE9DfimConst11DfimCcConst"
@@ -247,9 +251,9 @@ SPECIALISED_KERNELS = {
 def test_specialised_instances_pick_one_function_each(library):
     """Every specialised entry matches exactly one function of its library's
     listing, and each of the library's random and buffer kernels is counted
-    (the dc_sc random kernel on both motors and the eesm_cc and dfim_cc
-    ones, one thread per env and on its ring; a ring entry's ``@wsK`` mark
-    names no part of the function)."""
+    (the dc_sc random kernel on both motors and the scim_tc, eesm_cc and
+    dfim_cc ones, one thread per env and on its ring; a ring entry's
+    ``@wsK`` mark names no part of the function)."""
     listing = "\n".join(
         f"""        Function : _ZN45_GLOBAL__N__5c1e2d3f_12_x_cu_0f1e2d3c{len(k)}{k}
         /*0000*/                   S2R R0, SR_TID.X ;
@@ -399,6 +403,37 @@ def test_ws_mark_gives_the_steps_of_a_producer_iteration():
         sass_ops.ws_steps_of(name + "@ws0")
 
 
+def test_rs_mark_gives_the_trace_warps_of_a_role_split():
+    """``@rsT`` names a role-split kernel with T trace warps per step warp;
+    other entries are not role splits (0), and ``@rsT`` is no ``@wsK``."""
+    name = "reinforce_split_kernelILi16ELb0ELb1E"
+    assert sass_ops.trace_warps_of(name + "@rs4") == 4
+    assert sass_ops.trace_warps_of(name) == 0 and sass_ops.trace_warps_of(name + "@ws4") == 0
+    assert sass_ops.ws_steps_of(name + "@rs4") == 0
+    with pytest.raises(ValueError, match="at least one trace warp"):
+        sass_ops.trace_warps_of(name + "@rs0")
+
+
+def test_rs_counts_add_the_step_loop_and_t_trace_loops():
+    """A role-split kernel (``@rsT``): the loop that stores the ring is the
+    step warp's and the loop that only loads it a trace warp's, each one
+    step an iteration, so an env-step issues the step loop's count plus T
+    times the trace loop's; the roles are named step and trace."""
+    funcs = sass_ops.functions(SASS_WS)
+    name = "dc_rollout_ws_kernelILb1ELb0ELi0ELi1E"
+    rs = sass_ops.instance_counts(funcs, [name + "@rs4"])[name + "@rs4"]
+    zero = dict.fromkeys(sass_ops.CLASSES, 0)
+    trace = {**zero, "fp32": 3, "alu": 2, "smem": 2}
+    step = {**zero, "alu": 3, "imad": 2, "xu": 1, "smem": 2, "bar": 1}
+    assert rs["ws_steps"] == 1 and rs["trace_warps"] == 4
+    assert set(rs["roles"]) == {"step", "trace"}
+    assert rs["roles"]["step"]["always"] == step and rs["roles"]["step"]["steps"] == 1
+    assert rs["roles"]["trace"]["always"] == trace and rs["roles"]["trace"]["warps_per_env"] == 4
+    assert rs["always"] == {k: step[k] + 4 * trace[k] for k in zero}
+    assert rs["insns"]["always"] == (rs["roles"]["step"]["insns"]["always"]
+                                     + 4 * rs["roles"]["trace"]["insns"]["always"])
+
+
 def test_ws_counts_sum_the_consumer_step_and_the_producer_slot_over_its_steps():
     """The two roles' loops are told apart by the ring (stores: producer,
     loads only: consumer); an env-step issues the consumer's always-executed
@@ -428,16 +463,16 @@ def test_ws_counts_sum_the_consumer_step_and_the_producer_slot_over_its_steps():
 
 def test_ws_kernels_sit_beside_their_one_thread_instances():
     """The sync, DC, SCIM, EESM and DFIM random rollouts, the policy
-    evaluation rollout, the specialised DC SC, Finite-CC-EESM and
-    Cont-CC-DFIM rollouts, the DC cascade and the FOC run warp-specialised
+    evaluation rollout, the specialised DC SC, Cont-TC-SCIM, Finite-CC-EESM
+    and Cont-CC-DFIM rollouts, the DC cascade and the FOC run warp-specialised
     with Wiener references: the DC and EESM ``_ws`` entries
     carry ``@ws2`` (two producer warps per consumer warp, two steps each of
     a four-step slot) or, under the EESM's speed ODE (MECH), ``@ws4`` (one),
     and no other entry carries a ``@ws`` mark; each has a one-thread entry
     whose template arguments start with its own, the function's own work
     that the bounds count (the policy's one-thread kernel adds its Wiener
-    and weight-order flags).  The SCIM, sync, DFIM, policy, DC SC, DFIM CC
-    and FOC rings hold eight steps a slot for two producer warps, so their
+    and weight-order flags).  The SCIM, sync, DFIM, policy, DC SC, SCIM TC,
+    DFIM CC and FOC rings hold eight steps a slot for two producer warps, so their
     mark is ``@ws4``, the steps a producer iteration fills; the EESM CC and
     DC cascade rings hold four for two, ``@ws2``."""
     seen = {}
@@ -447,7 +482,7 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                                        "sync_rollout_ws", "dfim_rollout_ws", "policy_rollout_ws",
                                        "dc_sc_rollout_ws", "eesm_cc_rollout_ws",
                                        "dc_cascade_rollout_ws", "dfim_cc_rollout_ws",
-                                       "foc_rollout_ws")
+                                       "foc_rollout_ws", "scim_rollout_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
@@ -470,7 +505,7 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                     "eesm_cc_rollout_ws": 2, "dc_cascade_rollout_ws": 2,
                     "dc_cascade_rollout_ws/Cont-SC-SeriesDc-v0": 2,
                     "dc_cascade_rollout_ws/Cont-SC-ShuntDc-v0": 2,
-                    "dfim_cc_rollout_ws": 4, "foc_rollout_ws": 4}
+                    "dfim_cc_rollout_ws": 4, "foc_rollout_ws": 4, "scim_rollout_ws": 4}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
@@ -601,3 +636,24 @@ def test_foc_and_dfim_cc_rings_keep_their_one_thread_entries():
                    "foc_rollout_ws": "foc_rollout_ws_kernel@ws4"}
     for instance in list(dfim.values()) + list(foc.values()):
         assert sass_ops.ws_steps_of(instance) == (4 if "_ws_kernel" in instance else 0)
+
+
+def test_scim_tc_ring_and_reinforce_split_keep_their_one_thread_entries():
+    """scim_rollout_random runs on a ring (csrc/ring_pipe.cuh; ``@ws4``: K =
+    8, two producer warps) and reinforce_rollout on its role split
+    (``@rs2``: two trace warps per step warp at H 16, categorical, Wiener
+    references, as fused_policy.reinforce_layout gives them), while the
+    one-thread entries stay the count of the function's own work, the
+    instances the bounds take."""
+    scim = sass_ops.STEP_INSTANCES["fused_scim_tc"]
+    assert scim == {"scim_rollout_random": "scim_rollout_random_kernel",
+                    "scim_rollout_buffer": "scim_rollout_buffer_kernel",
+                    "scim_rollout_ws": "scim_rollout_ws_kernel@ws4"}
+    policy = sass_ops.STEP_INSTANCES["fused_policy"]
+    assert policy["reinforce_rollout"] == "reinforce_rollout_kernelILi16ELb0ELb1E"
+    assert policy["reinforce_split"] == "reinforce_split_kernelILi16ELb0ELb1E@rs2"
+    for instance in scim.values():
+        assert sass_ops.ws_steps_of(instance) == (4 if "_ws_kernel" in instance else 0)
+    assert [k for k, v in policy.items() if sass_ops.trace_warps_of(v)] == ["reinforce_split"]
+    assert sass_ops.trace_warps_of(policy["reinforce_split"]) == fp.reinforce_layout(
+        16, 128)["trace_warps"] == 2

@@ -17,6 +17,11 @@ A path is ``family:env_id[:const]`` for a universal random rollout,
 ``eesm_cc:Finite-CC-EESM-v0`` for the specialised Finite-CC-EESM rollout
 (``eesm_cc_rollout_random``), ``dfim_cc:Cont-CC-DFIM-v0`` for the
 specialised Cont-CC-DFIM rollout (``dfim_cc_rollout_random``),
+``scim_tc:Cont-TC-SCIM-v0`` for the specialised Cont-TC-SCIM rollout
+(``scim_rollout_random``), ``reinforce:<sample>:<refs>:<H>`` for the
+REINFORCE rollout (``reinforce_rollout`` on Finite-CC-PMSM-v0, sample, refs
+and H as for the policy; at the trainer's 1024 steps, gamma 0.99 and
+baseline -0.1, its per-env gradient sums compared too),
 ``dc_cascade:<env_id>[:const]`` for the DC speed cascade in the loop
 (``dc_cascade_rollout`` on Cont-SC-PermExDc-v0, Cont-SC-SeriesDc-v0 or
 Cont-SC-ShuntDc-v0, the catalog's Wiener reference or
@@ -28,6 +33,7 @@ For each path (default: the synchronous and DFIM ids that ``chip_smoke.py``
 times, with Wiener and with constant references) it builds the path's
 source (``csrc/fused_<family>.cu``, ``csrc/fused_policy.cu``,
 ``csrc/fused_dc_sc.cu``, ``csrc/fused_eesm_cc.cu``, ``csrc/fused_dfim_cc.cu``,
+``csrc/fused_scim_tc.cu``,
 ``csrc/fused_dc_cascade.cu``, ``csrc/fused_foc.cu``) of both trees with the
 package's nvcc flags,
 runs the kernel of each on the same constants, seed and zero states
@@ -52,6 +58,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 N_ENVS, T_STEPS, SEED, REPS = 16384, 65536, 7, 5
+T_REINFORCE = 1024   # the REINFORCE trainer's depth (chip_smoke.T_REINFORCE)
 DEFAULT_PATHS = ("sync:Finite-CC-PMSM-v0", "sync:Cont-SC-PMSM-v0", "sync:Finite-CC-PMSM-v0:const",
                  "sync:Cont-SC-PMSM-v0:const", "dfim:Cont-CC-DFIM-v0", "dfim:Finite-CC-DFIM-v0",
                  "dfim:Cont-SC-DFIM-v0", "dfim:Cont-CC-DFIM-v0:const",
@@ -59,7 +66,8 @@ DEFAULT_PATHS = ("sync:Finite-CC-PMSM-v0", "sync:Cont-SC-PMSM-v0", "sync:Finite-
 
 # (consts, flags, spec, seed, n, n_steps, in, out, stream): the C rollouts
 # of the specialised builders and the closed loops (eesm_cc_rollout_random,
-# dfim_cc_rollout_random, dc_cascade_rollout, foc_rollout)
+# dfim_cc_rollout_random, scim_rollout_random, dc_cascade_rollout,
+# foc_rollout)
 C_ROLLOUT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int]
                       + [ctypes.c_void_p] * 3)
 
@@ -90,6 +98,7 @@ def main():
     from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
     from gym_electric_motor_tpu_torch.ops import fused_dfim as fdc
     from gym_electric_motor_tpu_torch.ops import fused_eesm as fe
+    from gym_electric_motor_tpu_torch.ops import fused_induction as fi
     from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
     from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
     from gym_electric_motor_tpu_torch.ops import fused_policy as fp
@@ -121,6 +130,7 @@ def main():
 
     for path in paths:
         family, *rest = path.split(":")
+        steps = T_STEPS
         if family == "policy":
             sample, refs, hidden = rest
             greedy, wiener = sample == "greedy", refs == "wiener"
@@ -146,6 +156,53 @@ def main():
             def run_this():
                 return fp._rollout_launch(consts, SEED, *w, *z, zref, zref, T_STEPS, N_ENVS,
                                           greedy, wiener)
+        elif family == "reinforce":
+            sample, refs, hidden = rest
+            greedy, wiener = sample == "greedy", refs == "wiener"
+            env_id, steps, gamma = "Finite-CC-PMSM-v0", T_REINFORCE, 0.99
+            consts = fp.PolicyConsts(gt.make_functional(env_id, device=dev,
+                                                        state_filter=fp.STATE_FILTER))
+            w = cs.rl_weights(torch, np.random.default_rng(SEED), dev, 6, int(hidden), 0.5, 0.1)
+            z = [torch.zeros(N_ENVS, device=dev) for _ in range(3)]
+            zref = None if wiener else torch.zeros(N_ENVS, device=dev)
+            base = torch.full((1,), -0.1, device=dev)
+            n_p = fp.n_policy_params(6, int(hidden))
+            # the parent's C interface: its [P, n] trace scratch before acc
+            fn = other_lib("fused_policy", "reinforce_rollout",
+                           fp._ARGTYPES["reinforce_rollout"][:-1] + [ctypes.c_void_p] * 2)
+            r_idx = 3
+
+            def run_other():
+                outs = [torch.empty(N_ENVS, device=dev) for _ in range(5)]
+                trace, acc = (torch.empty((n_p, N_ENVS), device=dev) for _ in range(2))
+                rc = fn(consts.host.ctypes.data, seed_u64(SEED), N_ENVS, steps, int(hidden),
+                        int(greedy), int(wiener), gamma, *[x.data_ptr() for x in [base] + w + z],
+                        *([None, None] if wiener else [zref.data_ptr()] * 2),
+                        *[x.data_ptr() for x in outs + [trace, acc]], stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's reinforce_rollout returned {rc}")
+                return outs + [acc]
+
+            def run_this():
+                return fp._reinforce_launch(consts, SEED, base, *w, *z, zref, zref, steps,
+                                            N_ENVS, gamma, greedy, wiener)
+        elif family == "scim_tc":
+            (env_id,) = rest
+            c = fi.ScimConsts(gt.make_functional(env_id, device=dev))
+            z = [torch.zeros(N_ENVS, device=dev) for _ in range(c.n_state)]
+            fn = other_lib("fused_scim_tc", "scim_rollout_random", C_ROLLOUT_ARGTYPES)
+            r_idx = 4
+
+            def run_other():
+                outs = [torch.empty(N_ENVS, device=dev) for _ in range(10)]
+                rc = fn(c.ic.host.ctypes.data, c.ic.flags.ctypes.data, c.host.ctypes.data,
+                        seed_u64(SEED), N_ENVS, T_STEPS, ptr_array(z), ptr_array(outs), stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's scim_rollout_random returned {rc}")
+                return outs
+
+            def run_this():
+                return fi._scim_random_launch(c, SEED, z, T_STEPS, N_ENVS)
         elif family == "dc_sc":
             (env_id,) = rest
             c = fd.DcScConsts(gt.make_functional(env_id, device=dev))
@@ -281,11 +338,11 @@ def main():
         ref = outs["this"]
         print(json.dumps({"card": card, "path": path, "family": family, "env_id": env_id,
                           "envs": N_ENVS,
-                          "steps": T_STEPS, "other_ms": times["other"], "this_ms": times["this"],
+                          "steps": steps, "other_ms": times["other"], "this_ms": times["this"],
                           "other_over_this": o_ms / t_ms, "equal": equal,
-                          "mean_reward": float(ref[r_idx].double().sum()) / (N_ENVS * T_STEPS),
+                          "mean_reward": float(ref[r_idx].double().sum()) / (N_ENVS * steps),
                           "reset_share": float(ref[r_idx + 1].double().sum())
-                          / (N_ENVS * T_STEPS)}), flush=True)
+                          / (N_ENVS * steps)}), flush=True)
         if not equal:
             raise AssertionError(f"{path}: the two trees' outputs differ")
 

@@ -75,12 +75,20 @@ by G.  That is what the lanes issue, work that every lane repeats
 included; the function's own work is the one-thread step's count.  A
 warp-specialised kernel (the sync, DC, SCIM, EESM and DFIM random rollouts,
 csrc/draw_ring.cuh; the policy evaluation rollout, the specialised DC SC,
-Finite-CC-EESM and Cont-CC-DFIM rollouts, the DC cascade and the FOC,
-csrc/ring_pipe.cuh) is marked ``@wsK``: its consumer warps run
+Cont-TC-SCIM, Finite-CC-EESM and Cont-CC-DFIM rollouts, the DC cascade and
+the FOC, csrc/ring_pipe.cuh) is marked ``@wsK``: its consumer warps run
 a step loop (one step an iteration, shared-memory loads) and its producer warps
 a loop whose iteration fills a ring slot of K steps (shared-memory
 stores, the K steps unrolled); an env-step issues the consumer's count
-plus the producer's over K, and both stay beside it under ``roles``.
+plus the producer's over K, and both stay beside it under ``roles``.  The
+REINFORCE rollout splits its roles otherwise (csrc/reinforce_split.cuh)
+and is marked ``@rsT``: its step warp runs a step loop that stores each
+step's operands into the ring, and T trace warps per step warp each run a
+loop over the same steps that reads them (both one step an iteration; the
+trace loop may store its gradient sums in shared memory too, so the larger
+of the two outermost loops is taken as the step loop), so an env-step
+issues the step loop's count plus T times the trace loop's, both kept
+under ``roles`` as ``step`` and ``trace``.
 """
 
 from __future__ import annotations
@@ -250,6 +258,35 @@ def ws_counts(insns, steps, second=False) -> dict:
             out["insns"][kind] += c["insns"][kind] / per
         out["roles"][role] = {"always": c["always"], "conditional": c["conditional"],
                               "insns": c["insns"], "steps": per,
+                              "opcodes_always": c["opcodes_always"]}
+    return out
+
+
+def rs_counts(insns, trace) -> dict:
+    """The counts of a role-split kernel (``@rsT``) per env-step.  Its two
+    largest loops that nest in no other loop are the step warp's (the
+    larger, one step an iteration) and a trace warp's (one step an
+    iteration, ``trace`` warps serving an env): an env-step issues the
+    first's count once and the second's ``trace`` times; ``roles`` keeps
+    each as ``step`` and ``trace``."""
+    addr = [a for a, *_ in insns]
+    back = [(i, _target(args)) for i, (a, _p, op, args) in enumerate(insns)
+            if op.startswith("BRA") and _target(args) is not None and _target(args) <= a]
+    outer = [b for b in back
+             if not any(o != b and o[1] <= b[1] and addr[b[0]] <= addr[o[0]] for o in back)]
+    if len(outer) < 2:
+        raise ValueError("a role split needs a step loop and a trace loop")
+    step, tr = sorted(outer, key=lambda b: addr[b[0]] - b[1], reverse=True)[:2]
+    out = {"always": dict.fromkeys(CLASSES, 0), "conditional": dict.fromkeys(CLASSES, 0),
+           "insns": {"always": 0, "conditional": 0}, "roles": {}}
+    for role, (latch_i, head), weight in (("step", step, 1), ("trace", tr, trace)):
+        c = _body_counts(insns, addr, head, latch_i, None)
+        for kind in ("always", "conditional"):
+            for cls, n in c[kind].items():
+                out[kind][cls] += n * weight
+            out["insns"][kind] += c["insns"][kind] * weight
+        out["roles"][role] = {"always": c["always"], "conditional": c["conditional"],
+                              "insns": c["insns"], "steps": 1, "warps_per_env": weight,
                               "opcodes_always": c["opcodes_always"]}
     return out
 
@@ -527,6 +564,18 @@ def ws_steps_of(instance) -> int:
     return steps
 
 
+def trace_warps_of(instance) -> int:
+    """The trace warps per step warp of a ``STEP_INSTANCES`` entry: T for a
+    name ending in ``@rsT``, else 0 (not a role split)."""
+    mark = instance.partition("@")[2]
+    if not mark.startswith("rs"):
+        return 0
+    warps = int(mark[len("rs"):])
+    if warps < 1:
+        raise ValueError(f"{instance!r}: a role split has at least one trace warp")
+    return warps
+
+
 def lanes_of(instance) -> int:
     """The lanes per env of a ``STEP_INSTANCES`` entry: G for a name
     ending in ``@lanesG``, else 1."""
@@ -547,7 +596,8 @@ def instance_counts(funcs, kernels, where="the listing") -> dict:
     ``@lanesG`` a lane-group kernel: its counts are per env-step, G times
     a lane's, which ``per_lane`` keeps beside ``lanes``; one ending in
     ``@wsK`` a warp-specialised kernel (``ws_counts``, with ``ws_steps``
-    K beside)."""
+    K beside); one ending in ``@rsT`` a role-split kernel (``rs_counts``,
+    with ``ws_steps`` 1 and ``trace_warps`` T beside)."""
     out = {}
     for k in kernels:
         sub, _, nested = k.partition("@")
@@ -555,6 +605,13 @@ def instance_counts(funcs, kernels, where="the listing") -> dict:
         names = [f for f in funcs if sub in f]
         if len(names) != 1:
             raise ValueError(f"{sub!r} matches {len(names)} functions of {where}")
+        warps = trace_warps_of(k)
+        if warps:
+            counts = rs_counts(funcs[names[0]], warps)
+            counts["ws_steps"] = 1
+            counts["trace_warps"] = warps
+            out[k] = counts
+            continue
         steps = ws_steps_of(k)
         if steps:
             counts = ws_counts(funcs[names[0]], steps, second=bool(mark))
@@ -586,7 +643,10 @@ STEP_INSTANCES = {
     # K = 8: @ws4), and with constant ones policy_rollout_kernel<H, GREEDY,
     # WIENER, VEC>, greedy at H 16 in mlp_forward_vec's loop order (/vec).
     # The one-thread instances in mlp_forward's order (VEC 0) count the
-    # function's own work
+    # function's own work.  reinforce_rollout runs reinforce_split_kernel<H,
+    # GREEDY, WIENER>, at H 16 two trace warps per step warp (@rs2); its
+    # one-thread kernel, built at H 16 (categorical, Wiener) and never
+    # launched, counts the function's own work
     "fused_policy": {
         # H 16, categorical, Wiener
         "policy_rollout": "policy_rollout_kernelILi16ELb0ELb1ELb0EE",
@@ -598,6 +658,7 @@ STEP_INSTANCES = {
         "policy_record_lanes": "policy_record_lanes_kernelILi32ELi4ELb0E@lanes4",
         "policy_record_lanes/8": "policy_record_lanes_kernelILi32ELi8ELb1E@lanes8",
         "reinforce_rollout": "reinforce_rollout_kernelILi16ELb0ELb1E",
+        "reinforce_split": "reinforce_split_kernelILi16ELb0ELb1E@rs2",
         "reinforce_reduce": "reinforce_reduce_kernel",
     },
     # <FINITE, MECH, NREF>: Cont-SC-PMSM-v0 (0, 1, 1) for each kernel, and
@@ -814,7 +875,14 @@ STEP_INSTANCES = {
         "dc_sc_rollout_ws": "dc_sc_rollout_ws_kernelILi2E@ws4",
         "dc_sc_rollout_ws/Cont-SC-SeriesDc-v0": "dc_sc_rollout_ws_kernelILi1E@ws4",
     },
-    "fused_scim_tc": {k: f"{k}_kernel" for k in ("scim_rollout_random", "scim_rollout_buffer")},
+    # The Cont-TC-SCIM random rollout runs scim_rollout_ws_kernel (K = 8, two
+    # producer warps per consumer warp: @ws4); its one-thread kernel is
+    # built for the count of the function's own work and never launched
+    "fused_scim_tc": {
+        "scim_rollout_random": "scim_rollout_random_kernel",
+        "scim_rollout_buffer": "scim_rollout_buffer_kernel",
+        "scim_rollout_ws": "scim_rollout_ws_kernel@ws4",
+    },
     # The Finite-CC-EESM random rollout runs eesm_cc_rollout_ws_kernel (K = 4,
     # two producer warps per consumer warp: @ws2); its one-thread kernel is
     # built for the count of the function's own work and never launched
