@@ -10,14 +10,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build    nvcc builds the kernels of csrc/ for sm_90a
 3. kernels  each of the 4 fused PMSM kernels against its plain PyTorch
             version on the card, 16384 envs x 256 steps (the random
-            recorder at its main-path 1024 steps), same inputs/seed
+            recorder at its main-path 1024 steps), same inputs/seed;
+            pmsm_rollout_random (warp-specialised on the ring) bit for bit
+            (error 0 in every env, equal mean rewards), with its design
+            line (ring, registers, both roles' issue bound and the
+            issue-slot floor)
 4. env      the main path: the port's VectorEnv (Finite-CC-PMSM-v0, const
             references, an action buffer, 16384 envs x 40 steps) against
             the buffer rollout and the buffer recorder
 5. timings  the general path (VectorEnv.rollout, random actions,
             16384 envs x 1000 steps), the random rollout kernel
-            (16384 envs x 65536 steps) and the random recorder (16384 envs
-            x 1024 steps, ~0.54 GB written), with output checks
+            (16384 envs x 65536 steps, with its bound and design line) and
+            the random recorder (16384 envs x 1024 steps, ~0.54 GB
+            written), with output checks
 6. (slice 1's rows of the kernels line: launches on its main path,
    phases 4-5, errors, times)
 7. policy    each of the 4 policy kernels (csrc/fused_policy.cu) against
@@ -85,7 +90,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             rollout's final state, references inside their margins)
    16. sync_timings  at 16384 envs: the universal random rollout at 65536
             steps on Finite-CC-PMSM-v0 beside slice 1's pmsm_rollout_random
-            on the same id, on Finite-CC-PMSM-v0 with constant references
+            on the same id (with its bound, reset share and design line),
+            on Finite-CC-PMSM-v0 with constant references
             (the one-thread loop that draws the next step's action ahead)
             and on Cont-SC-PMSM-v0, each with its share of env-steps that
             reset, its design, ring, registers, issue bound and issue-slot
@@ -325,7 +331,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
     the 12 kernels against its plain version at 16384 envs x 64 steps on its
     catalog id (the DC SC kernels on Cont-SC-SeriesDc-v0 and
     Cont-SC-ShuntDc-v0, timed on the latter, with the design lines of the
-    DC SC, Cont-TC-SCIM, Finite-CC-EESM and Cont-CC-DFIM random rollouts:
+    PermExDc, DC SC, Cont-TC-SCIM, Finite-CC-EESM and Cont-CC-DFIM random
+    rollouts:
     ring, registers, issue bound and issue-slot floor), the PermExDc recorder
     again at its main-path
     1024 steps; bit
@@ -340,8 +347,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             of 5 calls, the builders' Wiener references), each random
             rollout in one call with the universal kernel on the same id,
             the ratio of their times, its SASS bound and reset share (the
-            DC SC rollout's design line on both ids, the SCIM TC, EESM CC
-            and DFIM CC rollouts' on their ids); the
+            DC SC rollout's design line on both ids, the PermExDc, SCIM TC,
+            EESM CC and DFIM CC rollouts' on their ids); the
             PermExDc recorder at 1024 steps beside the universal recorder;
             output checks (finite, references inside their windows, the
             sub-episode lengths and sigmas, the mean reward within 0.08 of
@@ -371,9 +378,9 @@ least 99.9% of envs must match (a constraint-threshold flip sends an env
 down another branch) and the mean reward must agree to 1e-4 relative.
 Angles are compared modulo 2 pi.  The specialised kernels (phase 46) must
 equal their plain versions bit for bit in every env, both modes, and so
-must the sync, DC, SCIM, EESM, DFIM and SRM random rollouts (phases 13,
-18, 22, 26, 30 and 34), policy_record and policy_rollout (phase 7) and the
-SRM cascade (phase 43).
+must pmsm_rollout_random (phase 3), the sync, DC, SCIM, EESM, DFIM and SRM
+random rollouts (phases 13, 18, 22, 26, 30 and 34), policy_record and
+policy_rollout (phase 7) and the SRM cascade (phase 43).
 
 Bounds (bound_ms): the larger of the bytes moved (each input read once,
 each output written once) over 3.35 TB/s and, for each issue pipe, the
@@ -389,13 +396,13 @@ lanes' counts beside it.  policy_record runs an env on eight lanes at
 PPO's width, lane 0 alone stepping (@lanes8: the step is a branch on the
 lane, which every warp issues), and on four lanes, each stepping, up to
 three blocks an SM (@lanes4); its bound counts the one-thread step, and
-phase 7 prints the issue bound of G lanes' counts beside it.  The sync,
-DC, SCIM, EESM and DFIM random rollouts, policy_rollout and the DC SC
-random rollout run warp-specialised with Wiener references
-(tools/sass_ops.py's @ws2 and @ws4); their bound counts the one-thread step
-of the same instance (built for the count, not taken by the launch), and
-phases 7, 10, 16, 21, 25, 29, 33, 46 and 48 print the issue bound of both
-roles' counts per env-step beside it.  Beside an issue bound stands the
+phase 7 prints the issue bound of G lanes' counts beside it.
+pmsm_rollout_random, the sync, DC, SCIM, EESM and DFIM random rollouts,
+policy_rollout and the specialised random rollouts run warp-specialised
+with Wiener references (tools/sass_ops.py's @ws2 and @ws4); their bound
+counts the one-thread step of the same instance (built for the count, not
+taken by the launch), and phases 3, 5, 7, 10, 16, 21, 25, 29, 33, 46 and
+48 print the issue bound of both roles' counts per env-step beside it.  Beside an issue bound stands the
 issue-slot floor: every counted instruction the launch issues (an FFMA
 is one) at one warp-instruction per scheduler and clock, 4 x 32
 thread-instructions per SM and clock.  Shared-memory accesses and barriers (the smem and bar
@@ -865,10 +872,22 @@ def run(dev, card):
         if "buffer" in name:
             row["max_abs_err"] = check_buffer(torch, name, got, ref, is_angle)
             row["match_share"] = 1.0
+        elif name == "pmsm_rollout_random":
+            # the ring: bit for bit in every env and output
+            share, worst = bit_match(torch, got, ref, N_ENVS)
+            mean_k, mean_p = float(got[3].double().mean()), float(ref[3].double().mean())
+            row.update(max_abs_err=worst, match_share=share, mean_reward=mean_k,
+                       mean_reward_plain=mean_p,
+                       **ring_fields(fs.pmsm_ring_layout(), "pmsm_rollout_ws", name, name,
+                                     N_ENVS * steps, nbytes, ms))
+            if share < 1.0 or worst != 0.0 or mean_k != mean_p:
+                emit({"phase": "kernels", **row})
+                raise AssertionError(f"{name}: {share:.5f} of envs equal, max abs err "
+                                     f"{worst:.3e} (the ring equals its plain version bit for "
+                                     "bit)")
         else:
             share, worst = env_match(torch, got, ref, is_angle, N_ENVS)
-            r_idx = 3 if name == "pmsm_rollout_random" else 6
-            mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
+            mean_k, mean_p = float(got[6].double().mean()), float(ref[6].double().mean())
             rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
             row.update(max_abs_err=worst, match_share=share, mean_reward=mean_k,
                        mean_reward_plain=mean_p, mean_reward_rel_err=rel)
@@ -953,13 +972,19 @@ def run(dev, card):
     del rec_out, short
 
     launches = {name: fs.LAUNCHES[name] for name in fs.KERNELS}
+    roll_bytes = state_bytes + 52 * N_ENVS
+    roll_design = ring_fields(fs.pmsm_ring_layout(), "pmsm_rollout_ws", "pmsm_rollout_random",
+                              "pmsm_rollout_random", N_ENVS * T_ROLLOUT, roll_bytes, roll_ms)
     emit({"phase": "timings", "card": card,
           "general_path": {"envs": N_ENVS, "steps": T_GENERAL, "ms": gen_ms,
                            "env_steps_per_s": N_ENVS * T_GENERAL / (gen_ms / 1e3),
                            "mean_reward": gen_mean_r, "term_rate": gen_term},
-          "pmsm_rollout_random": {"envs": N_ENVS, "steps": T_ROLLOUT, "ms": roll_ms,
-                                  "env_steps_per_s": N_ENVS * T_ROLLOUT / (roll_ms / 1e3),
-                                  "mean_reward": k_mean_r, "term_rate": k_term},
+          "pmsm_rollout_random": {
+              "envs": N_ENVS, "steps": T_ROLLOUT, "ms": roll_ms,
+              "env_steps_per_s": N_ENVS * T_ROLLOUT / (roll_ms / 1e3),
+              "mean_reward": k_mean_r, "term_rate": k_term,
+              "bound_ms": bound_ms(N_ENVS * T_ROLLOUT, ops["pmsm_rollout_random"], roll_bytes)[0],
+              **roll_design},
           "pmsm_record_random": {"envs": N_ENVS, "steps": T_RECORD, "ms": rec_ms,
                                  "bytes_written": rec_bytes,
                                  "env_steps_per_s": N_ENVS * T_RECORD / (rec_ms / 1e3),
@@ -974,7 +999,7 @@ def run(dev, card):
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
     # ---- 6. kernels line -------------------------------------------------
-    main_shape = {"pmsm_rollout_random": (T_ROLLOUT, roll_ms, state_bytes + 52 * N_ENVS),
+    main_shape = {"pmsm_rollout_random": (T_ROLLOUT, roll_ms, roll_bytes),
                   "pmsm_record_random": (T_RECORD, rec_ms, state_bytes + 32 * N_ENVS * T_RECORD)}
     line = []
     for name in fs.KERNELS:
@@ -992,6 +1017,9 @@ def run(dev, card):
             steps, ms, nbytes = main_shape[name]
             row["main_steps"], row["main_ms"] = steps, ms
             row["main_bound_ms"] = bound_ms(N_ENVS * steps, ops[name], nbytes)[0]
+        if name == "pmsm_rollout_random":
+            row.update({"main_" + k: roll_design[k] for k in ("design", "ring", "registers",
+                                                               "issue_bound_ms", "issue_floor_ms")})
         line.append(row)
     return line, ops
 
@@ -1805,11 +1833,17 @@ def run_sync(dev, card, ops):
         if env_id == SYNC_SPECIALISED:
             pc = fs.PmsmConsts(env)
             zz = torch.zeros((R, 128), device=dev)
-            p_ms, _ = cuda_ms(torch, lambda: fs.pmsm_rollout_random(pc, SEED, zz, zz, zz, T_ROLLOUT),
-                              reps=5)
-            row["pmsm_rollout_random"] = {"steps": T_ROLLOUT, "ms": p_ms,
-                                          "env_steps_per_s": N * T_ROLLOUT / (p_ms / 1e3)}
+            p_ms, p_out = cuda_ms(
+                torch, lambda: fs.pmsm_rollout_random(pc, SEED, zz, zz, zz, T_ROLLOUT), reps=5)
+            p_bytes = 3 * 4 * N + 13 * 4 * N
+            row["pmsm_rollout_random"] = {
+                "steps": T_ROLLOUT, "ms": p_ms, "env_steps_per_s": N * T_ROLLOUT / (p_ms / 1e3),
+                "bound_ms": bound_ms(N * T_ROLLOUT, ops["pmsm_rollout_random"], p_bytes)[0],
+                "reset_share": float(p_out[4].double().sum()) / (N * T_ROLLOUT),
+                **ring_fields(fs.pmsm_ring_layout(), "pmsm_rollout_ws", "pmsm_rollout_random",
+                              "pmsm_rollout_random", N * T_ROLLOUT, p_bytes, p_ms)}
             row["universal_over_specialised"] = r_ms / p_ms
+            del p_out
         timings[env_id] = row
         del out, rec_out
     env = gt.make_functional(SYNC_TIMED, device=dev)
@@ -3268,7 +3302,8 @@ SPEC_UNIVERSAL = {
 # the specialised random rollouts that run on a ring (ring_pipe.cuh), by
 # the module of gym_electric_motor_tpu_torch.ops and its function that
 # gives the ring's layout
-SPEC_RINGS = {"dc_sc_rollout_random": ("fused_dc", "dc_sc_ring_layout"),
+SPEC_RINGS = {"permex_rollout_random": ("fused_dc", "permex_ring_layout"),
+              "dc_sc_rollout_random": ("fused_dc", "dc_sc_ring_layout"),
               "eesm_cc_rollout_random": ("fused_eesm", "eesm_cc_ring_layout"),
               "dfim_cc_rollout_random": ("fused_dfim", "dfim_cc_ring_layout"),
               "scim_rollout_random": ("fused_induction", "scim_tc_ring_layout")}
@@ -3577,7 +3612,8 @@ REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "dc_cascade_rollout": "ring with Wiener references",
               "foc_rollout": "ring with Wiener references", "dfim_cc_rollout_random": "ring",
               "scim_rollout_random": "ring",
-              "reinforce_rollout": "role split, traces in registers"}
+              "reinforce_rollout": "role split, traces in registers",
+              "pmsm_rollout_random": "ring", "permex_rollout_random": "ring"}
 
 
 def redesign_order(line):

@@ -21,8 +21,19 @@
 // reference with the builder's own constants (sub-episode length
 // floor(U[500, 2000)), sigma 10^U[-2, -1], the margin nominal / limit).
 //
-// Design: one thread per env, the current and the reference row in
-// registers across a `#pragma unroll 1` loop over T steps.  Random bits
+// Design: the current and the reference row in registers across a
+// `#pragma unroll 1` loop over T steps.  The random rollout is
+// warp-specialised on the shared-memory ring of ring_pipe.cuh: producer
+// warps draw, in a double-buffered ring of K steps a slot, every value of a
+// step that depends on the constants alone (px_draws: the action code, the
+// row's normal draw, its candidate length and sigma and its candidate reset
+// value, 5 words); consumer warps run the step, one thread per env, and
+// take the candidates by selects (px_ring_step).  The one-thread random
+// kernel had the Philox call and, at every second step, the Box-Muller pair
+// on every step's chain, and the PARAMS slot in a branch that most warps
+// took at some lane (3.6% of env-steps reset); it is built for
+// tools/sass_ops.py's count of the function's own work and never launched.
+// The recorders and the buffer kernels run one thread per env.  Random bits
 // from Philox4x32-10 keyed by the seed, counter (env, step, slot): slot
 // SPEC_SLOT_STEP gives (action, Box-Muller u1, u2, -) every step, slot
 // SPEC_SLOT_PARAMS (length, sigma, reset value, -) where the row
@@ -30,10 +41,15 @@
 // length, sigma, -) at step 0.  The rollout draws one Box-Muller pair at
 // even steps and keeps its sine for the odd step (pallas_dc.py:146-163);
 // the recorder draws a fresh pair each step and uses its cosine
-// (:335-340).  The recorder needs no chunk grid: the state stays in
-// registers and each step's signals are stored [t, env], coalesced.  Built
-// with -fmad=false (ops/cuda_build.py), so each multiply and add rounds as
-// in the plain PyTorch version (ops/fused_dc.py).
+// (:335-340).  The producers draw PARAMS at every step, which changes no
+// bit of what a step uses, and each producer's steps pair an even step with
+// the odd one after it, so the sine half reaches the odd step in the
+// producer's registers.  The recorder needs no chunk grid: the state stays
+// in registers and each step's signals are stored [t, env], coalesced.
+// Built with -fmad=false (ops/cuda_build.py), so each multiply and add
+// rounds as in the plain PyTorch version (ops/fused_dc.py), and the
+// producers compute each candidate with the one-thread kernel's functions
+// on the same operands, so the two designs are equal bit for bit.
 //
 // What bounds it on this card: the rollouts move one plane in and seven
 // out (and 4 bytes of action per env-step in buffer mode), the recorders
@@ -41,8 +57,12 @@
 // FP32 operations of RK4 (the family's, with its x - (0 w) i term), a
 // Philox call, and at every second step the Box-Muller pair's
 // non-fast-math logf, cosf and sinf.  tools/sass_ops.py counts the
-// instructions a step always issues, per pipe.
+// instructions a step always issues, per pipe.  On the ring the producers
+// issue two Philox calls a step (PARAMS too) and the Box-Muller pair every
+// second step, the consumers 5 shared-memory loads; tools/sass_ops.py
+// counts both roles beside the one-thread step.
 #include "dc_step.cuh"
+#include "ring_pipe.cuh"
 #include "specialised_step.cuh"
 
 // The builder's own constants; the physics takes the DC family's (DcConst).
@@ -87,6 +107,18 @@ __device__ __forceinline__ void px_ref_init(const PermexConst& k, uint2 key, uin
   spec_params(px_params(k), w.y, w.z, r.rl, r.rs);
 }
 
+// The current, reward, terms, rv, rk, rl, rs of env e.
+__device__ __forceinline__ void px_store(const SpecOut& out, int e, float i, float reward,
+                                         float terms, const SpecRow& r) {
+  out.p[0][e] = i;
+  out.p[1][e] = reward;
+  out.p[2][e] = terms;
+  out.p[3][e] = r.rv;
+  out.p[4][e] = r.rk;
+  out.p[5][e] = r.rl;
+  out.p[6][e] = r.rs;
+}
+
 struct PxStepOut {
   float reward, done, ref;
 };
@@ -120,6 +152,8 @@ __device__ __forceinline__ void px_ref_advance(const PermexConst& k, uint2 key, 
   if (violated) r.rv = (2.0f * uniform24(p.z) - 1.0f) * m;
 }
 
+// The one-thread random rollout: built, never launched; tools/sass_ops.py
+// counts its step, the function's own work, for the bound.
 __global__ void permex_rollout_random_kernel(DcConst dc, PermexConst k, uint2 key, int n,
                                              int n_steps, SpecIn in, SpecOut out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -142,13 +176,89 @@ __global__ void permex_rollout_random_kernel(DcConst dc, PermexConst k, uint2 ke
     reward += o.reward;
     terms += o.done;
   }
-  out.p[0][e] = i;
-  out.p[1][e] = reward;
-  out.p[2][e] = terms;
-  out.p[3][e] = r.rv;
-  out.p[4][e] = r.rk;
-  out.p[5][e] = r.rl;
-  out.p[6][e] = r.rs;
+  px_store(out, e, i, reward, terms, r);
+}
+
+// ---- the warp-specialised random rollout ------------------------------
+
+// The words of a step on the ring (ring_pipe.cuh): the action code, the
+// reference row's draw, its candidate length and sigma, and its candidate
+// reset value.
+constexpr int kPermexWords = 5;
+
+// Producer side: what step t draws whatever the state, in the operand
+// order of permex_rollout_random_kernel's step: the action code w.x & 3 of
+// SPEC_SLOT_STEP, the Box-Muller pair at even steps (odd false) with its
+// sine left in zb for the odd step after it, and of SPEC_SLOT_PARAMS the
+// length and sigma a regeneration takes and the value a reset takes.
+__device__ __forceinline__ RingWords<kPermexWords> px_draws(const PermexConst& k, uint2 key,
+                                                            uint32_t env, uint32_t t, bool odd,
+                                                            float& zb) {
+  const uint4 w = spec_draw(key, env, t, SPEC_SLOT_STEP);
+  float draw;
+  if (odd) {
+    draw = zb;
+  } else {
+    spec_box_muller(k.v[PX_U_MIN], k.v[PX_TWO_PI], w.y, w.z, draw, zb);
+  }
+  const uint4 p = spec_draw(key, env, t, SPEC_SLOT_PARAMS);
+  float rl, rs;
+  spec_params(px_params(k), p.x, p.y, rl, rs);
+  RingWords<kPermexWords> x;
+  x.w[0] = w.x & 3u;
+  x.w[1] = __float_as_uint(draw);
+  x.w[2] = __float_as_uint(rl);
+  x.w[3] = __float_as_uint(rs);
+  x.w[4] = __float_as_uint((2.0f * uniform24(p.z) - 1.0f) * k.v[PX_MARGIN]);
+  return x;
+}
+
+// Consumer side: the one-thread step with the step's words given, the
+// candidates taken by selects.
+__device__ __forceinline__ void px_ring_step(const DcConst& dc, const PermexConst& k,
+                                             const RingWords<kPermexWords>& x, float& i,
+                                             SpecRow& r, float& reward, float& terms) {
+  const PxStepOut o = px_action_step(dc, k, (int)x.w[0], i, r);
+  const bool violated = o.done != 0.0f;
+  const bool regen = (r.rk >= r.rl) || violated;
+  const float m = k.v[PX_MARGIN];
+  spec_row_walk(r, regen, __uint_as_float(x.w[2]), __uint_as_float(x.w[3]),
+                __uint_as_float(x.w[1]), -m, m);
+  r.rv = violated ? __uint_as_float(x.w[4]) : r.rv;
+  reward += o.reward;
+  terms += o.done;
+}
+
+// The ring: 8 steps a slot, 2 producer warps per consumer warp, each
+// drawing 4 steps of a slot (the fastest of K in {4, 8} x P in {1, 2} and
+// K = 8 with P = 4, PERF.md, slice 20); ops/fused_dc.py's PERMEX_RING
+// mirrors it.  At 5 words a step it holds 40 KB.
+using PermexRing = RingShape<8, 2>;
+
+// The random rollout warp-specialised: producer warps run px_draws,
+// consumer warps px_ring_step, one thread per env.
+__global__ void __launch_bounds__(PermexRing::kThreads)
+    permex_rollout_ws_kernel(DcConst dc, PermexConst k, uint2 key, int n, int n_steps,
+                             SpecIn in, SpecOut out) {
+  extern __shared__ uint32_t ring[];
+  const RingThread th = ring_thread(n);
+  const int e = th.e;
+  const RingPipe<PermexRing> pipe(n_steps);
+  const RingView<kPermexWords> v{ring + th.le};
+  if (!th.consumer) {
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool odd, float& zb) {
+      return px_draws(k, key, (uint32_t)e, t, odd, zb);
+    });
+    return;
+  }
+  float i = in.p[0][e];
+  SpecRow r;
+  px_ref_init(k, key, (uint32_t)e, r);
+  float reward = 0.0f, terms = 0.0f;
+  ring_consume(pipe, v, n_steps, [&](const RingWords<kPermexWords>& x) {
+    px_ring_step(dc, k, x, i, r, reward, terms);
+  });
+  if (th.live) px_store(out, e, i, reward, terms, r);
 }
 
 __global__ void permex_record_random_kernel(DcConst dc, PermexConst k, uint2 key, int n,
@@ -215,13 +325,23 @@ SPEC_FAMILY_C_INFO(permex, N_DC_CONST, N_ROW_CONST, N_DC_FLAG, N_PERMEX_CONST)
 // spec: the builder's own (PermexConstIndex), which the buffer kernels do
 // not read (their step is the family's alone).
 // in: (i0); out: (i, reward, terms, rv, rk, rl, rs), each (R, 128).
+// The random rollout runs on its ring.
 int permex_rollout_random(const float* consts, const int* flags, const float* spec,
                           unsigned long long seed, int n, int n_steps, const float* const* in,
                           float* const* out, void* stream) {
-  permex_rollout_random_kernel<<<spec_blocks(n), kSpecThreads, 0, (cudaStream_t)stream>>>(
+  constexpr int bytes = ring_bytes<PermexRing>(kPermexWords);
+  static_assert(bytes <= 48 * 1024, "the ring fits the default dynamic shared memory");
+  permex_rollout_ws_kernel<<<(n + kRingEnvs - 1) / kRingEnvs, PermexRing::kThreads, bytes,
+                             (cudaStream_t)stream>>>(
       dc_load_const(consts, flags), px_consts(spec), spec_seed_key(seed), n, n_steps,
       spec_in(in, 1), spec_out(out, 7));
   return (int)cudaGetLastError();
+}
+
+// The random rollout's ring (ring_pipe.cuh's RingLayout).
+int permex_ring_layout(int* out) {
+  ring_layout<PermexRing>(kPermexWords, out);
+  return 0;
 }
 
 // out: (i, ref, action (int32), reward, done), each (T, R, 128).

@@ -8,12 +8,26 @@
 //   pmsm_record_random   make_fused_pmsm_record_rollout, random mode (:502)
 //   pmsm_record_buffer   make_fused_pmsm_record_rollout, buffer mode (:392)
 //
-// Design: one thread per env, the whole drive and reference state in
-// registers across an in-kernel loop over T steps; the TPU's (R, 128)
-// planes are one flat array of N envs here, and the recorders store
-// [t, env] so that a warp writes 128 contiguous bytes per signal and step.
-// Random bits come from Philox4x32-10 keyed by the seed and counted by
-// (env, step, slot), so the result does not depend on the launch geometry.
+// Design: the whole drive and reference state of an env in registers across
+// an in-kernel loop over T steps; the TPU's (R, 128) planes are one flat
+// array of N envs here, and the recorders store [t, env] so that a warp
+// writes 128 contiguous bytes per signal and step.  The random rollout is
+// warp-specialised on the shared-memory ring of ring_pipe.cuh: producer
+// warps draw, in a double-buffered ring of K steps a slot, what a step
+// draws whatever the state (pmsm_ring.cuh's pmsm_draws with the action
+// code: the code w.x & 7, both normal draws of the step's Box-Muller pair,
+// each reference's candidate length and sigma and its candidate reset
+// value, 9 words); consumer warps run the step, one thread per env, and
+// take the candidates by selects (pmsm_advance_candidates).  The one-thread
+// random kernel had the Philox calls, the pair's non-fast-math logf, sqrtf,
+// cosf and sinf and the PARAMS and RESET redraws on every step's chain; it
+// is built for tools/sass_ops.py's count of the function's own work and
+// never launched.  The buffer kernels and the recorders run one thread per
+// env.  Random bits come from Philox4x32-10 keyed by the seed and counted
+// by (env, step, slot), so the result does not depend on the launch
+// geometry, and the producers compute each candidate with the one-thread
+// step's functions on the same operands, so the two designs are equal bit
+// for bit.
 // ops/cuda_build.py builds it with -fmad=false: each multiply and add
 // rounds on its own, as in the plain PyTorch version, which the kernels
 // then track over thousands of steps.
@@ -36,15 +50,44 @@
 // latency-bound: too few warps hide the dependent FP32 and ALU chains.
 // The recorders add 32 (random) or 16 (buffer) bytes of HBM traffic per
 // env-step and are bound by that.  Every step loop is `#pragma unroll 1`,
-// so that one loop iteration is one step in the SASS count.
+// so that one loop iteration is one step in the SASS count.  On the ring
+// the producers issue three Philox calls a step (PARAMS and RESET too) and
+// the Box-Muller pair, the consumers 9 shared-memory loads; tools/sass_ops.py
+// counts both roles beside the one-thread step.
 #include <cuda_runtime.h>
 
-#include "pmsm_step.cuh"
+#include "pmsm_ring.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
+// The random rollout's outputs: (i_sd, i_sq, eps, reward, terms) and the
+// final Wiener state, (2R, 128) planes with the d rows first, then the q
+// rows.
+struct PmsmOut {
+  float *isd, *isq, *eps, *reward, *terms, *rv, *rk, *rl, *rs;
+
+  __device__ __forceinline__ void store(int n, int e, const PmsmEnv& st, float r,
+                                        float t) const {
+    isd[e] = st.i_sd;
+    isq[e] = st.i_sq;
+    eps[e] = st.eps;
+    reward[e] = r;
+    terms[e] = t;
+    rv[e] = st.rv_d;
+    rv[n + e] = st.rv_q;
+    rk[e] = st.rk_d;
+    rk[n + e] = st.rk_q;
+    rl[e] = st.rl_d;
+    rl[n + e] = st.rl_q;
+    rs[e] = st.rs_d;
+    rs[n + e] = st.rs_q;
+  }
+};
+
+// The one-thread random rollout: built, never launched; tools/sass_ops.py
+// counts its step, the function's own work, for the bound.
 __global__ void pmsm_rollout_random_kernel(PmsmConst k, uint2 key, int n, int n_steps,
                                            const float* __restrict__ i_sd0,
                                            const float* __restrict__ i_sq0,
@@ -68,20 +111,50 @@ __global__ void pmsm_rollout_random_kernel(PmsmConst k, uint2 key, int n, int n_
     reward += o.reward;
     terms += o.done;
   }
-  out_isd[e] = st.i_sd;
-  out_isq[e] = st.i_sq;
-  out_eps[e] = st.eps;
-  out_reward[e] = reward;
-  out_terms[e] = terms;
-  // final Wiener state, (2R, 128) planes: d rows first, then q rows
-  out_rv[e] = st.rv_d;
-  out_rv[n + e] = st.rv_q;
-  out_rk[e] = st.rk_d;
-  out_rk[n + e] = st.rk_q;
-  out_rl[e] = st.rl_d;
-  out_rl[n + e] = st.rl_q;
-  out_rs[e] = st.rs_d;
-  out_rs[n + e] = st.rs_q;
+  PmsmOut{out_isd, out_isq, out_eps, out_reward, out_terms, out_rv, out_rk, out_rl, out_rs}
+      .store(n, e, st, reward, terms);
+}
+
+// ---- the warp-specialised random rollout ------------------------------
+
+// The ring: 8 steps a slot, 2 producer warps per consumer warp, each
+// drawing 4 steps of a slot (the fastest of K in {4, 8} x P in {1, 2},
+// PERF.md, slice 20); ops/fused_sync.py's PMSM_RING mirrors it.  At 9 words
+// a step it holds 72 KB, above the default 48 KB of dynamic shared memory.
+using PmsmRing = RingShape<8, 2>;
+
+// Producer warps run pmsm_draws with the action code (9 words a step);
+// consumer warps pmsm_action_step and pmsm_advance_candidates, one thread
+// per env.
+__global__ void __launch_bounds__(PmsmRing::kThreads)
+    pmsm_rollout_ws_kernel(PmsmConst k, uint2 key, int n, int n_steps,
+                           const float* __restrict__ i_sd0, const float* __restrict__ i_sq0,
+                           const float* __restrict__ eps0, PmsmOut out) {
+  extern __shared__ uint32_t ring[];
+  const RingThread th = ring_thread(n);
+  const uint32_t env = (uint32_t)th.e;
+  const RingPipe<PmsmRing> pipe(n_steps);
+  const RingView<kPmsmActionWords> v{ring + th.le};
+  if (!th.consumer) {
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool, float&) {
+      return pmsm_action_draws_pack(pmsm_draws(k, key, env, t));
+    });
+    return;
+  }
+  PmsmEnv st;
+  st.i_sd = i_sd0[th.e];
+  st.i_sq = i_sq0[th.e];
+  st.eps = eps0[th.e];
+  pmsm_init(k, key, env, st);
+  float reward = 0.0f, terms = 0.0f;
+  ring_consume(pipe, v, n_steps, [&](const RingWords<kPmsmActionWords>& w) {
+    const PmsmDraws d = pmsm_action_draws_unpack(w);
+    const PmsmStepOut o = pmsm_action_step(k, (int)d.action, st);
+    pmsm_advance_candidates(k, d.c, o.done != 0.0f, st);
+    reward += o.reward;
+    terms += o.done;
+  });
+  if (th.live) out.store(n, th.e, st, reward, terms);
 }
 
 __global__ void pmsm_rollout_buffer_kernel(PmsmConst k, int n, int n_steps,
@@ -177,14 +250,28 @@ int pmsm_n_const() { return N_PMSM_CONST; }
 
 const char* gemx_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// The random rollout on its ring.
 int pmsm_rollout_random(const float* consts, unsigned long long seed, int n, int n_steps,
                         const float* i_sd0, const float* i_sq0, const float* eps0, float* out_isd,
                         float* out_isq, float* out_eps, float* out_reward, float* out_terms,
                         float* out_rv, float* out_rk, float* out_rl, float* out_rs, void* stream) {
-  pmsm_rollout_random_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-      load_const(consts), seed_key(seed), n, n_steps, i_sd0, i_sq0, eps0, out_isd, out_isq,
-      out_eps, out_reward, out_terms, out_rv, out_rk, out_rl, out_rs);
+  constexpr int bytes = ring_bytes<PmsmRing>(kPmsmActionWords);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pmsm_rollout_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  pmsm_rollout_ws_kernel<<<(n + kRingEnvs - 1) / kRingEnvs, PmsmRing::kThreads, bytes,
+                           (cudaStream_t)stream>>>(
+      load_const(consts), seed_key(seed), n, n_steps, i_sd0, i_sq0, eps0,
+      PmsmOut{out_isd, out_isq, out_eps, out_reward, out_terms, out_rv, out_rk, out_rl, out_rs});
   return (int)cudaGetLastError();
+}
+
+// The random rollout's ring (ring_pipe.cuh's RingLayout).
+int pmsm_ring_layout(int* out) {
+  ring_layout<PmsmRing>(kPmsmActionWords, out);
+  return 0;
 }
 
 int pmsm_rollout_buffer(const float* consts, int n, int n_steps, const float* i_sd0,

@@ -1,23 +1,24 @@
 // The PMSM step's draws on the shared-memory ring of ring_pipe.cuh: what
 // producer warps draw for a step of the Finite-CC-PMSM random step
 // (pmsm_step.cuh) whatever the state, and what the consumer warps take by
-// selects.  Two loops run on it with Wiener references: the policy
+// selects.  Three loops run on it with Wiener references: the policy
 // evaluation rollout (fused_policy.cu; with the action uniform where it
-// samples, without it where it is greedy) and the FOC closed loop
-// (fused_foc.cu, without it: the controller gives the voltages).  The main
-// path's pmsm_rollout_random (fused_pmsm.cu) draws the same words and could
-// take it too.
+// samples, without it where it is greedy), the FOC closed loop
+// (fused_foc.cu, without it: the controller gives the voltages) and the
+// main path's random rollout pmsm_rollout_random (fused_pmsm.cu, with the
+// action code in its place).
 //
 // The split.  A step draws through pmsm_draw(key, env, t, slot) alone:
-// SLOT_STEP gives the action uniform (w.x) and the Box-Muller pair (w.y,
-// w.z) that feeds both references, SLOT_PARAMS the sub-episode length and
-// sigma a regenerating reference takes, SLOT_RESET the value a reference
-// takes where the env reset.  None of it depends on the state, so the
-// producer computes all of it at every step, in the operand order of
-// wiener_advance_pair and wiener_advance: the action uniform, both draws
-// (rad cos theta, rad sin theta), each reference's candidate length and
-// sigma (wiener_params) and its candidate reset value, 9 words a step (8
-// where the action is greedy and draws no uniform).  The consumer keeps
+// SLOT_STEP gives the action word (w.x: its uniform for a policy, its low
+// three bits for the random action) and the Box-Muller pair (w.y, w.z) that
+// feeds both references, SLOT_PARAMS the sub-episode length and sigma a
+// regenerating reference takes, SLOT_RESET the value a reference takes
+// where the env reset.  None of it depends on the state, so the producer
+// computes all of it at every step, in the operand order of
+// wiener_advance_pair and wiener_advance: the action uniform or code, both
+// draws (rad cos theta, rad sin theta), each reference's candidate length
+// and sigma (wiener_params) and its candidate reset value, 9 words a step
+// (8 where the action is greedy and draws nothing).  The consumer keeps
 // what depends on the state: the regeneration test rk >= rl || violated,
 // the rk update, the clipped random walk and the reset, with the
 // candidates taken by selects.  The same functions on the same operands,
@@ -35,8 +36,14 @@ __host__ __device__ constexpr int pmsm_ring_words() {
   return (kUniform ? 1 : 0) + 2 * kRefWords;
 }
 
+// The words of the random rollout's step: the action code, then the
+// references' words, as pmsm_ring_words<true> with the code in place of
+// the uniform.
+constexpr int kPmsmActionWords = 1 + 2 * kRefWords;
+
 struct PmsmDraws {
   float u;                  // the action uniform, uniform24(w.x)
+  uint32_t action;          // the random action code, w.x & 7 (pmsm_random_step)
   RefCandidates<2> c;       // draw, candidate length, sigma and reset value of d and q
 };
 
@@ -46,6 +53,7 @@ __device__ __forceinline__ PmsmDraws pmsm_draws(const PmsmConst& k, uint2 key, u
   PmsmDraws d;
   const uint4 w = pmsm_draw(key, env, t, SLOT_STEP);
   d.u = uniform24(w.x);
+  d.action = w.x & 7u;
   const float u1 = uniform24(w.y);
   const float u2 = uniform24(w.z);
   const float rad = sqrtf(-2.0f * logf(fmaxf(u1, k.v[C_U_MIN])));
@@ -77,6 +85,23 @@ __device__ __forceinline__ PmsmDraws pmsm_draws_unpack(
   PmsmDraws d;
   d.u = kUniform ? __uint_as_float(x.w[0]) : 0.0f;
   d.c = unpack_refs<2>(x, kUniform ? 1 : 0);
+  return d;
+}
+
+// The random rollout's words: the action code as an integer word.
+__device__ __forceinline__ RingWords<kPmsmActionWords> pmsm_action_draws_pack(const PmsmDraws& d) {
+  RingWords<kPmsmActionWords> x;
+  x.w[0] = d.action;
+  pack_refs<2>(d.c, 1, x);
+  return x;
+}
+
+__device__ __forceinline__ PmsmDraws pmsm_action_draws_unpack(
+    const RingWords<kPmsmActionWords>& x) {
+  PmsmDraws d;
+  d.u = 0.0f;
+  d.action = x.w[0];
+  d.c = unpack_refs<2>(x, 1);
   return d;
 }
 

@@ -1,8 +1,10 @@
 // The shared-memory ring of the warp-specialised rollouts (draw_ring.cuh
-// for the universal families, pmsm_ring.cuh for the PMSM policy evaluation
-// rollout and the FOC closed loop, fused_dc_sc.cu, fused_eesm_cc.cu and
-// fused_dfim_cc.cu for the specialised Cont-SC DC, Finite-CC-EESM and
-// Cont-CC-DFIM rollouts, fused_dc_cascade.cu for the DC speed cascade):
+// for the universal families, pmsm_ring.cuh for the Finite-CC-PMSM random
+// rollout, the PMSM policy evaluation rollout and the FOC closed loop,
+// fused_permex.cu, fused_dc_sc.cu, fused_scim_tc.cu, fused_eesm_cc.cu and
+// fused_dfim_cc.cu for the specialised Finite-CC-PermExDc, Cont-SC DC,
+// Cont-TC-SCIM, Finite-CC-EESM and Cont-CC-DFIM rollouts,
+// fused_dc_cascade.cu for the DC speed cascade):
 // producer warps compute every value of a step that does not
 // depend on the state into a shared-memory ring, and consumer warps run
 // the step, one thread per env, reading those values.  This header holds

@@ -9,7 +9,9 @@ carry the work on the GPU:
 
 =========================  ===================================================
 ``permex_rollout_random``  T random 4QC steps of Finite-CC-PermExDc, reduced
-                           (``csrc/fused_permex.cu``)
+                           (``csrc/fused_permex.cu``; warp-specialised:
+                           producer warps draw each step's words into a
+                           shared-memory ring, consumer warps step the envs)
 ``permex_rollout_buffer``  T steps of a given action buffer, the final current
 ``permex_record_random``   the random step, every step recorded
 ``permex_record_buffer``   the buffer step, every step recorded
@@ -66,6 +68,12 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# the PermExDc random rollout's ring (PermexRing in csrc/fused_permex.cu): K
+# steps a slot, producer warps per consumer warp; and the words of a step
+PERMEX_RING = (8, 2)
+PERMEX_RING_WORDS = 5
 
 
 # the bit layouts of csrc/fused_permex.cu and csrc/fused_dc_sc.cu: role ->
@@ -396,10 +404,8 @@ def permex_rollout_random(c: PermexConsts, seed: int, i0, n_steps: int):
     device, R = check_planes(c, (i0,))
     if device.type == "cpu":
         return permex_rollout_random_plain(c, seed, i0, n_steps)
-    outs = _empty((R, LANE), device, 7)
-    _launch("permex", "permex_rollout_random", device, *_px_consts(c), seed_u64(seed),
-            R * LANE, int(n_steps), ptr_array([i0]), ptr_array(outs))
-    return tuple(outs)
+    outs = _permex_random_launch(c, seed, i0, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(R, LANE) for x in outs)
 
 
 def permex_record_random(c: PermexConsts, seed: int, i0, n_steps: int):
@@ -435,6 +441,30 @@ def permex_record_buffer(c: PermexConsts, i0, actions):
     _launch("permex", "permex_record_buffer", device, *_px_consts(c), R * LANE, T,
             ptr_array([i0]), actions.data_ptr(), ptr_array([out]))
     return out
+
+
+def _permex_random_launch(c: PermexConsts, seed: int, i0, n_steps: int, n_envs: int,
+                          launches=None):
+    """permex_rollout_random's kernel on the first ``n_envs`` envs of the
+    plane ``i0``: its 7 outputs, each ``(n_envs,)``; the launch counted in
+    ``launches`` (none: not counted)."""
+    device = i0.device
+    outs = _empty((n_envs,), device, 7)
+    launch_kernel(_library("permex"), "permex", "permex_rollout_random", device,
+                  {"permex_rollout_random": 0} if launches is None else launches,
+                  *_px_consts(c), seed_u64(seed), n_envs, int(n_steps), ptr_array([i0]),
+                  ptr_array(outs))
+    return outs
+
+
+def permex_ring_layout():
+    """The random rollout's ring (csrc/fused_permex.cu's PermexRing, in
+    csrc/ring_pipe.cuh's RingLayout): consumer and producer warps, K steps a
+    slot, slots, words a step, shared-memory bytes; computed here, without
+    the library."""
+    K, P = PERMEX_RING
+    return named_ring_layout((4, 4 * P, K, 2, PERMEX_RING_WORDS,
+                              2 * K * PERMEX_RING_WORDS * 128 * 4, 0))
 
 
 def dc_sc_rollout_random(c: DcScConsts, seed: int, state0, n_steps: int):

@@ -10,7 +10,9 @@ carry the work on the GPU:
 ==================== ==================================================
 ``pmsm_rollout_random``  T random-action steps, reduced to the final state,
                          reward sums, termination counts and the final
-                         Wiener state
+                         Wiener state (warp-specialised: producer warps
+                         draw each step's words into a shared-memory
+                         ring, consumer warps step the envs)
 ``pmsm_rollout_buffer``  T steps of a given action buffer, deterministic
 ``pmsm_record_random``   the random step, every step recorded
 ``pmsm_record_buffer``   the buffer step, every step recorded
@@ -60,6 +62,12 @@ CONTROL_KERNELS = ("foc_rollout",)
 
 # launches of each CUDA kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS + CONTROL_KERNELS, 0)
+
+# the random rollout's ring (PmsmRing in csrc/fused_pmsm.cu): K steps a
+# slot, producer warps per consumer warp; and the words of a step (the
+# action code, then four per reference: kPmsmActionWords)
+PMSM_RING = (8, 2)
+PMSM_RING_WORDS = 9
 
 
 def reset_launches():
@@ -388,14 +396,14 @@ def _planes(i_sd0, i_sq0, eps0):
     return device, i_sd0.shape[0]
 
 
-def _launch(name, device, *args):
+def _launch(name, device, *args, launches=LAUNCHES):
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: {lib.gemx_error_string(rc).decode()}")
-    LAUNCHES[name] += 1
+    launches[name] += 1
 
 
 def _ptrs(*xs):
@@ -407,12 +415,33 @@ def pmsm_rollout_random(consts: PmsmConsts, seed: int, i_sd0, i_sq0, eps0, n_ste
     device, R = _planes(i_sd0, i_sq0, eps0)
     if device.type == "cpu":
         return pmsm_rollout_random_plain(consts, seed, i_sd0, i_sq0, eps0, n_steps)
-    outs = [torch.empty((R, LANE), dtype=torch.float32, device=device) for _ in range(5)]
-    outs += [torch.empty((2 * R, LANE), dtype=torch.float32, device=device) for _ in range(4)]
+    outs = _pmsm_random_launch(consts, seed, (i_sd0, i_sq0, eps0), n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(-1, LANE) for x in outs)
+
+
+def _pmsm_random_launch(consts: PmsmConsts, seed: int, planes, n_steps: int, n_envs: int,
+                        launches=None):
+    """pmsm_rollout_random's kernel on the first ``n_envs`` envs of the
+    planes ``(i_sd0, i_sq0, eps0)``: its 9 outputs, five ``(n_envs,)`` and
+    the four Wiener planes ``(2 n_envs,)`` (the d envs first); the launch
+    counted in ``launches`` (none: not counted)."""
+    device = planes[0].device
+    outs = [torch.empty(((1 if j < 5 else 2) * n_envs,), dtype=torch.float32, device=device)
+            for j in range(9)]
     _launch("pmsm_rollout_random", device, consts.host.ctypes.data,
-            int(seed) & 0xFFFFFFFFFFFFFFFF, R * LANE, int(n_steps),
-            *_ptrs(i_sd0, i_sq0, eps0, *outs))
-    return tuple(outs)
+            int(seed) & 0xFFFFFFFFFFFFFFFF, n_envs, int(n_steps), *_ptrs(*planes, *outs),
+            launches={"pmsm_rollout_random": 0} if launches is None else launches)
+    return outs
+
+
+def pmsm_ring_layout():
+    """The random rollout's ring (csrc/fused_pmsm.cu's PmsmRing, in
+    csrc/ring_pipe.cuh's RingLayout): consumer and producer warps, K steps a
+    slot, slots, words a step, shared-memory bytes; computed here, without
+    the library."""
+    K, P = PMSM_RING
+    return named_ring_layout((4, 4 * P, K, 2, PMSM_RING_WORDS,
+                              2 * K * PMSM_RING_WORDS * 128 * 4, 0))
 
 
 def pmsm_rollout_buffer(consts: PmsmConsts, i_sd0, i_sq0, eps0, actions):

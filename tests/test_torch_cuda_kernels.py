@@ -1190,6 +1190,81 @@ def test_cuda_scim_rollout_random_equals_plain_version_bit_for_bit():
     assert not any(fi.LAUNCHES.values())
 
 
+@pytest.mark.cuda
+def test_cuda_pmsm_rollout_random_equals_plain_version_bit_for_bit():
+    """pmsm_rollout_random (csrc/fused_pmsm.cu: producer and consumer warps
+    over a shared-memory ring, 9 words a step) equals
+    pmsm_rollout_random_plain bit for bit in every env and every output (NaN
+    where the plain version has NaN), for 1, 37 and 2051 envs at 1, 3, 4,
+    5, 8, 9 and 64 steps and 131 envs at 1024: the ring stops at every place
+    in a slot, partial warps and blocks.  Env 0 starts at five times the
+    current limit and resets at its first step.  The wrapper's launch
+    counts once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    dev = torch.device("cuda")
+    consts = fs.PmsmConsts(gt.make_functional("Finite-CC-PMSM-v0", device=dev))
+    rng = np.random.default_rng(79)
+    fs.reset_launches()
+    for n, steps in RING_STOPS:
+        R = -(-n // 128)
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32)
+                 for lo, hi in ((-50, 50), (-50, 50), (0, 2 * np.pi))]
+        start[0].reshape(-1)[0] = 5.0 / float(consts.f["inv_i_lim"])
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        for T in steps:
+            got = fs._pmsm_random_launch(consts, 7, start, T, n)
+            torch.cuda.synchronize()
+            want = fs.pmsm_rollout_random_plain(consts, 7, *start, T)
+            for j, same in enumerate(_equal_bits(got, want, n, rows=2)):
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[4][0]) >= 1.0  # env 0 reset
+    assert not any(fs.LAUNCHES.values())
+    out = fs.pmsm_rollout_random(consts, 7, *start, 9)
+    want = fs.pmsm_rollout_random_plain(consts, 7, *start, 9)
+    assert all(bool(torch.equal(a, b)) for a, b in zip(out, want))
+    assert {k: v for k, v in fs.LAUNCHES.items() if v} == {"pmsm_rollout_random": 1}
+    assert fs.pmsm_ring_layout()["design"] == "warp-specialised"
+
+
+@pytest.mark.cuda
+def test_cuda_permex_rollout_random_equals_plain_version_bit_for_bit():
+    """permex_rollout_random (csrc/fused_permex.cu: producer and consumer
+    warps over a shared-memory ring, 5 words a step) equals
+    permex_rollout_random_plain bit for bit in every env and every output
+    (NaN where the plain version has NaN), for 1, 37 and 2051 envs at 1, 3,
+    4, 5, 8, 9 and 64 steps and 131 envs at 1024: the ring stops at every
+    place in a slot and across the odd step that takes the carried sine
+    half.  Env 0 starts at five times the current limit and resets at its
+    first step.  The wrapper's launch counts once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_dc as fd
+
+    dev = torch.device("cuda")
+    c = fd.PermexConsts(gt.make_functional("Finite-CC-PermExDc-v0", device=dev))
+    rng = np.random.default_rng(83)
+    fd.reset_launches()
+    for n, steps in RING_STOPS:
+        R = -(-n // 128)
+        i0 = rng.uniform(-100, 100, (R, 128)).astype(np.float32)
+        i0.reshape(-1)[0] = 5.0 / float(c.f["inv_i_lim"])
+        i0 = torch.as_tensor(i0, device=dev)
+        for T in steps:
+            got = fd._permex_random_launch(c, 7, i0, T, n)
+            torch.cuda.synchronize()
+            want = fd.permex_rollout_random_plain(c, 7, i0, T)
+            for j, same in enumerate(_equal_bits(got, want, n)):
+                assert bool(same.all()), f"n={n} T={T}: output {j} differs in {int((~same).sum())}"
+            assert float(got[2][0]) >= 1.0  # env 0 reset
+    assert not any(fd.LAUNCHES.values())
+    out = fd.permex_rollout_random(c, 7, i0, 9)
+    want = fd.permex_rollout_random_plain(c, 7, i0, 9)
+    assert all(bool(torch.equal(a, b)) for a, b in zip(out, want))
+    assert {k: v for k, v in fd.LAUNCHES.items() if v} == {"permex_rollout_random": 1}
+    assert fd.permex_ring_layout()["design"] == "warp-specialised"
+
+
 REINFORCE_CASES = [(h, s, r) for h in (8, 16, 32) for s in ("greedy", "categorical")
                    for r in ("const", "wiener")]
 

@@ -390,3 +390,21 @@ def test_buffer_matches_the_universal_buffer_kernels(env_id, n_state):
         got = fr.make_fused_dc_sc_rollout(tenv, T, N, action_mode="buffer")(*start, acts)
         for g, w in zip(got, universal):
             torch.testing.assert_close(g, w, **BUF)
+
+
+def test_permex_ring_layout_is_the_kernels_ring():
+    """permex_ring_layout, computed without the library, is the ring of
+    csrc/fused_permex.cu's random rollout (PermexRing, 5 words a step): 4
+    consumer warps, P producer warps per consumer warp, two slots of K
+    steps, each producer's steps pairing an even step with the odd one that
+    takes its sine half."""
+    from pathlib import Path
+
+    lay = fd.permex_ring_layout()
+    K, P = fd.PERMEX_RING
+    assert lay == {"consumer_warps": 4, "producer_warps": 4 * P, "K": K, "slots": 2, "words": 5,
+                   "smem_bytes": 2 * K * 5 * 128 * 4, "design": "warp-specialised"}
+    assert (K // P) % 2 == 0 and lay["smem_bytes"] <= 227 * 1024
+    source = (Path(fd.__file__).resolve().parent.parent / "csrc" / "fused_permex.cu").read_text()
+    assert f"using PermexRing = RingShape<{K}, {P}>;" in source
+    assert f"constexpr int kPermexWords = {fd.PERMEX_RING_WORDS};" in source

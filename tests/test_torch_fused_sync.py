@@ -228,3 +228,29 @@ def test_wrappers_take_plain_path_on_cpu_and_validate():
         fs.pmsm_rollout_buffer(consts, z, z, z, torch.zeros((5, 1, 256), dtype=torch.int32)[:, :, ::2])
     with pytest.raises(NotImplementedError):
         fs.PmsmConsts(gt.make_functional("Finite-CC-PMSM-v0", device="cpu", constraints=()))
+
+
+def test_pmsm_ring_layout_is_the_kernels_ring():
+    """pmsm_ring_layout, computed without the library, is the ring of
+    csrc/fused_pmsm.cu's random rollout (PmsmRing; 9 words a step, the
+    action code and four per reference, kPmsmActionWords of
+    csrc/pmsm_ring.cuh): 4 consumer warps, P producer warps per consumer
+    warp, two slots of K steps, above the default 48 KB of dynamic shared
+    memory (the launch raises the kernel's limit) and inside the card's
+    227 KB."""
+    from pathlib import Path
+
+    lay = fs.pmsm_ring_layout()
+    K, P = fs.PMSM_RING
+    assert lay == {"consumer_warps": 4, "producer_warps": 4 * P, "K": K, "slots": 2, "words": 9,
+                   "smem_bytes": 2 * K * 9 * 128 * 4, "design": "warp-specialised"}
+    assert K % P == 0 and 48 * 1024 < lay["smem_bytes"] <= 227 * 1024
+    csrc = Path(fs.__file__).resolve().parent.parent / "csrc"
+    source = (csrc / "fused_pmsm.cu").read_text()
+    assert f"using PmsmRing = RingShape<{K}, {P}>;" in source
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in source
+    ring = (csrc / "pmsm_ring.cuh").read_text()
+    pipe = (csrc / "ring_pipe.cuh").read_text()
+    assert "constexpr int kPmsmActionWords = 1 + 2 * kRefWords;" in ring
+    assert "constexpr int kRefWords = 4;" in pipe
+    assert fs.PMSM_RING_WORDS == 1 + 2 * 4

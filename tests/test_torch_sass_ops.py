@@ -233,9 +233,10 @@ def test_control_instances_pick_one_function_each():
 # the mangled names of the specialised builders' kernels, as cuobjdump lists
 # them (anonymous-namespace prefix and parameter types as nvcc mangles them)
 SPECIALISED_KERNELS = {
-    "fused_permex": [f"{k}_kernelE7DcConst{'11PermexConst5uint2' if 'random' in k else ''}ii"
+    "fused_permex": [f"{k}_kernelE7DcConst{'11PermexConst5uint2' if 'buffer' not in k else ''}ii"
                      for k in ("permex_rollout_random", "permex_rollout_buffer",
-                               "permex_record_random", "permex_record_buffer")],
+                               "permex_record_random", "permex_record_buffer",
+                               "permex_rollout_ws")],
     "fused_dc_sc": [f"dc_sc_rollout_{m}_kernelILi{n}EEv9DcScConst"
                     for m in ("random", "buffer", "ws") for n in (1, 2)],
     "fused_scim_tc": [f"scim_rollout_{m}_kernelE14InductionConst"
@@ -251,9 +252,9 @@ SPECIALISED_KERNELS = {
 def test_specialised_instances_pick_one_function_each(library):
     """Every specialised entry matches exactly one function of its library's
     listing, and each of the library's random and buffer kernels is counted
-    (the dc_sc random kernel on both motors and the scim_tc, eesm_cc and
-    dfim_cc ones, one thread per env and on its ring; a ring entry's
-    ``@wsK`` mark names no part of the function)."""
+    (the permex rollout's, the dc_sc random kernel on both motors and the
+    scim_tc, eesm_cc and dfim_cc ones, one thread per env and on its ring; a
+    ring entry's ``@wsK`` mark names no part of the function)."""
     listing = "\n".join(
         f"""        Function : _ZN45_GLOBAL__N__5c1e2d3f_12_x_cu_0f1e2d3c{len(k)}{k}
         /*0000*/                   S2R R0, SR_TID.X ;
@@ -464,7 +465,9 @@ def test_ws_counts_sum_the_consumer_step_and_the_producer_slot_over_its_steps():
 def test_ws_kernels_sit_beside_their_one_thread_instances():
     """The sync, DC, SCIM, EESM and DFIM random rollouts, the policy
     evaluation rollout, the specialised DC SC, Cont-TC-SCIM, Finite-CC-EESM
-    and Cont-CC-DFIM rollouts, the DC cascade and the FOC run warp-specialised
+    and Cont-CC-DFIM rollouts, the DC cascade, the FOC, the main path's
+    Finite-CC-PMSM random rollout and the specialised Finite-CC-PermExDc
+    rollout run warp-specialised
     with Wiener references: the DC and EESM ``_ws`` entries
     carry ``@ws2`` (two producer warps per consumer warp, two steps each of
     a four-step slot) or, under the EESM's speed ODE (MECH), ``@ws4`` (one),
@@ -472,7 +475,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     whose template arguments start with its own, the function's own work
     that the bounds count (the policy's one-thread kernel adds its Wiener
     and weight-order flags).  The SCIM, sync, DFIM, policy, DC SC, SCIM TC,
-    DFIM CC and FOC rings hold eight steps a slot for two producer warps, so their
+    DFIM CC, FOC, PMSM and PermExDc rings hold eight steps a slot for two
+    producer warps, so their
     mark is ``@ws4``, the steps a producer iteration fills; the EESM CC and
     DC cascade rings hold four for two, ``@ws2``."""
     seen = {}
@@ -482,7 +486,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                                        "sync_rollout_ws", "dfim_rollout_ws", "policy_rollout_ws",
                                        "dc_sc_rollout_ws", "eesm_cc_rollout_ws",
                                        "dc_cascade_rollout_ws", "dfim_cc_rollout_ws",
-                                       "foc_rollout_ws", "scim_rollout_ws")
+                                       "foc_rollout_ws", "scim_rollout_ws", "pmsm_rollout_ws",
+                                       "permex_rollout_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
@@ -505,7 +510,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                     "eesm_cc_rollout_ws": 2, "dc_cascade_rollout_ws": 2,
                     "dc_cascade_rollout_ws/Cont-SC-SeriesDc-v0": 2,
                     "dc_cascade_rollout_ws/Cont-SC-ShuntDc-v0": 2,
-                    "dfim_cc_rollout_ws": 4, "foc_rollout_ws": 4, "scim_rollout_ws": 4}
+                    "dfim_cc_rollout_ws": 4, "foc_rollout_ws": 4, "scim_rollout_ws": 4,
+                    "pmsm_rollout_ws": 4, "permex_rollout_ws": 4}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
@@ -657,3 +663,25 @@ def test_scim_tc_ring_and_reinforce_split_keep_their_one_thread_entries():
     assert [k for k, v in policy.items() if sass_ops.trace_warps_of(v)] == ["reinforce_split"]
     assert sass_ops.trace_warps_of(policy["reinforce_split"]) == fp.reinforce_layout(
         16, 128)["trace_warps"] == 2
+
+
+def test_pmsm_and_permex_rings_keep_their_one_thread_entries():
+    """pmsm_rollout_random and permex_rollout_random run on rings
+    (csrc/ring_pipe.cuh; ``@ws4``: K = 8, two producer warps), while the
+    one-thread entries stay the count of the function's own work, the
+    instances the bounds take, beside the buffer kernels and the recorders,
+    which keep one thread per env."""
+    pmsm = sass_ops.STEP_INSTANCES["fused_pmsm"]
+    assert pmsm == {"pmsm_rollout_random": "pmsm_rollout_random_kernel",
+                    "pmsm_rollout_buffer": "pmsm_rollout_buffer_kernel",
+                    "pmsm_record_random": "pmsm_record_random_kernel",
+                    "pmsm_record_buffer": "pmsm_record_buffer_kernel",
+                    "pmsm_rollout_ws": "pmsm_rollout_ws_kernel@ws4"}
+    permex = sass_ops.STEP_INSTANCES["fused_permex"]
+    assert permex == {"permex_rollout_random": "permex_rollout_random_kernel",
+                      "permex_rollout_buffer": "permex_rollout_buffer_kernel",
+                      "permex_record_random": "permex_record_random_kernel",
+                      "permex_record_buffer": "permex_record_buffer_kernel",
+                      "permex_rollout_ws": "permex_rollout_ws_kernel@ws4"}
+    for instance in list(pmsm.values()) + list(permex.values()):
+        assert sass_ops.ws_steps_of(instance) == (4 if "_ws_kernel" in instance else 0)

@@ -18,7 +18,10 @@ A path is ``family:env_id[:const]`` for a universal random rollout,
 (``eesm_cc_rollout_random``), ``dfim_cc:Cont-CC-DFIM-v0`` for the
 specialised Cont-CC-DFIM rollout (``dfim_cc_rollout_random``),
 ``scim_tc:Cont-TC-SCIM-v0`` for the specialised Cont-TC-SCIM rollout
-(``scim_rollout_random``), ``reinforce:<sample>:<refs>:<H>`` for the
+(``scim_rollout_random``), ``pmsm:Finite-CC-PMSM-v0`` for the main path's
+Finite-CC-PMSM random rollout (``pmsm_rollout_random``),
+``permex:Finite-CC-PermExDc-v0`` for the specialised Finite-CC-PermExDc
+rollout (``permex_rollout_random``), ``reinforce:<sample>:<refs>:<H>`` for the
 REINFORCE rollout (``reinforce_rollout`` on Finite-CC-PMSM-v0, sample, refs
 and H as for the policy; at the trainer's 1024 steps, gamma 0.99 and
 baseline -0.1, its per-env gradient sums compared too),
@@ -33,7 +36,7 @@ For each path (default: the synchronous and DFIM ids that ``chip_smoke.py``
 times, with Wiener and with constant references) it builds the path's
 source (``csrc/fused_<family>.cu``, ``csrc/fused_policy.cu``,
 ``csrc/fused_dc_sc.cu``, ``csrc/fused_eesm_cc.cu``, ``csrc/fused_dfim_cc.cu``,
-``csrc/fused_scim_tc.cu``,
+``csrc/fused_scim_tc.cu``, ``csrc/fused_pmsm.cu``, ``csrc/fused_permex.cu``,
 ``csrc/fused_dc_cascade.cu``, ``csrc/fused_foc.cu``) of both trees with the
 package's nvcc flags,
 runs the kernel of each on the same constants, seed and zero states
@@ -65,9 +68,9 @@ DEFAULT_PATHS = ("sync:Finite-CC-PMSM-v0", "sync:Cont-SC-PMSM-v0", "sync:Finite-
                  "dfim:Cont-SC-DFIM-v0:const")
 
 # (consts, flags, spec, seed, n, n_steps, in, out, stream): the C rollouts
-# of the specialised builders and the closed loops (eesm_cc_rollout_random,
-# dfim_cc_rollout_random, scim_rollout_random, dc_cascade_rollout,
-# foc_rollout)
+# of the specialised builders and the closed loops (permex_rollout_random,
+# eesm_cc_rollout_random, dfim_cc_rollout_random, scim_rollout_random,
+# dc_cascade_rollout, foc_rollout)
 C_ROLLOUT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int]
                       + [ctypes.c_void_p] * 3)
 
@@ -203,6 +206,42 @@ def main():
 
             def run_this():
                 return fi._scim_random_launch(c, SEED, z, T_STEPS, N_ENVS)
+        elif family == "pmsm":
+            (env_id,) = rest
+            pc = fs.PmsmConsts(gt.make_functional(env_id, device=dev))
+            z = [torch.zeros(N_ENVS, device=dev) for _ in range(3)]
+            fn = other_lib("fused_pmsm", "pmsm_rollout_random",
+                           fs._ARGTYPES["pmsm_rollout_random"])
+            r_idx = 3
+
+            def run_other():
+                outs = ([torch.empty(N_ENVS, device=dev) for _ in range(5)]
+                        + [torch.empty(2 * N_ENVS, device=dev) for _ in range(4)])
+                rc = fn(pc.host.ctypes.data, seed_u64(SEED), N_ENVS, T_STEPS,
+                        *[x.data_ptr() for x in z + outs], stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's pmsm_rollout_random returned {rc}")
+                return outs
+
+            def run_this():
+                return fs._pmsm_random_launch(pc, SEED, z, T_STEPS, N_ENVS)
+        elif family == "permex":
+            (env_id,) = rest
+            c = fd.PermexConsts(gt.make_functional(env_id, device=dev))
+            z = torch.zeros(N_ENVS, device=dev)
+            fn = other_lib("fused_permex", "permex_rollout_random", C_ROLLOUT_ARGTYPES)
+            r_idx = 1
+
+            def run_other():
+                outs = [torch.empty(N_ENVS, device=dev) for _ in range(7)]
+                rc = fn(*fd._px_consts(c), seed_u64(SEED), N_ENVS, T_STEPS, ptr_array([z]),
+                        ptr_array(outs), stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's permex_rollout_random returned {rc}")
+                return outs
+
+            def run_this():
+                return fd._permex_random_launch(c, SEED, z, T_STEPS, N_ENVS)
         elif family == "dc_sc":
             (env_id,) = rest
             c = fd.DcScConsts(gt.make_functional(env_id, device=dev))

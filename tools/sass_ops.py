@@ -632,8 +632,12 @@ def instance_counts(funcs, kernels, where="the listing") -> dict:
 # the template instance whose step each kernel's bound counts (a substring
 # of its mangled name), by library; chip_smoke.py takes its bounds from these
 STEP_INSTANCES = {
-    "fused_pmsm": {k: f"{k}_kernel" for k in ("pmsm_rollout_random", "pmsm_rollout_buffer",
-                                               "pmsm_record_random", "pmsm_record_buffer")},
+    # The Finite-CC-PMSM random rollout runs pmsm_rollout_ws_kernel (K = 8,
+    # two producer warps per consumer warp: @ws4); its one-thread kernel is
+    # built for the count of the function's own work and never launched
+    "fused_pmsm": {**{k: f"{k}_kernel" for k in ("pmsm_rollout_random", "pmsm_rollout_buffer",
+                                                  "pmsm_record_random", "pmsm_record_buffer")},
+                   "pmsm_rollout_ws": "pmsm_rollout_ws_kernel@ws4"},
     # policy_record runs on lane groups below a full card,
     # policy_record_lanes_kernel<H, G, LEAD>: four lanes an env, every lane
     # stepping (@lanes4: the count a step issues), and at PPO's width eight
@@ -863,8 +867,14 @@ STEP_INSTANCES = {
     # kernel, Cont-SC-SeriesDc-v0 for the random one), Cont-TC-SCIM,
     # Finite-CC-EESM and Cont-CC-DFIM.  chip_smoke.py times each random
     # kernel beside the universal kernel on the same id
-    "fused_permex": {k: f"{k}_kernel" for k in ("permex_rollout_random", "permex_rollout_buffer",
-                                                 "permex_record_random", "permex_record_buffer")},
+    # The PermExDc random rollout runs permex_rollout_ws_kernel (K = 8, two
+    # producer warps per consumer warp: @ws4); its one-thread kernel is built
+    # for the count of the function's own work and never launched
+    "fused_permex": {**{k: f"{k}_kernel" for k in ("permex_rollout_random",
+                                                    "permex_rollout_buffer",
+                                                    "permex_record_random",
+                                                    "permex_record_buffer")},
+                     "permex_rollout_ws": "permex_rollout_ws_kernel@ws4"},
     # The DC SC random rollout runs dc_sc_rollout_ws_kernel<NEL> (K = 8, two
     # producer warps per consumer warp: @ws4); its one-thread kernel is built
     # for the count of the function's own work and never launched
