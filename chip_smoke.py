@@ -233,7 +233,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
             model stays inside the explicit RK4's stability limit without
             resets, as in tests/test_srm.py:265-305); srm_rollout_random
             (lane groups at constant speed, one thread per env under the
-            speed ODE) bit for bit (error 0 in every env) on all eight
+            speed ODE) and srm_record_random (warp-specialised on the ring
+            on the continuous ids with Wiener references, one thread per env
+            on the finite ones) bit for bit (error 0 in every env) on
+            all eight
 35.-37. the slice-8 main path, counted from zero:
    35. srm_env  for each id, the port's env (VectorEnv's reset, the env's
             step without autoreset, constant references, an action buffer,
@@ -254,7 +257,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
             each with its share of env-steps that reset, and for the
             rollout its lanes per env (1 under the speed ODE) and, on lane
             groups, registers and the issue bound of four lanes' counts
-            beside the bound of the function's own work; the general
+            beside the bound of the function's own work, for the recorder
+            its design line (the ring's K, producer warps, words a step,
+            shared bytes, each role's registers and counts, the bound of
+            the function's own work, the issue bound of both roles' counts
+            and the issue-slot floor); the general
             path (VectorEnv.rollout, the random policy of the action space)
             on Cont-SC-SRM-v0 at 200 steps; the launches of phases 35-37
             must be exactly what they make
@@ -266,7 +273,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
             each family's row id); again at 16384 envs x 256 steps on one id
             per family; and on every id and the four joint heads at the
             main path's own shape and width (phase 41: 1024 envs x 32
-            steps, H 16), so that a kernel wrong at another H than 32 fails
+            steps, H 16), so that a kernel wrong at another H than 32 fails;
+            dc_policy_record (on lane groups at PPO's width) against its
+            one-thread design bit for bit (error 0 in every env and output)
+            at 2048 x 64 on Finite-CC-PermExDc-v0, Cont-CC-PermExDc-v0 and
+            Finite-CC-ExtExDc-v0 with joint heads, with its layout line
+            (lanes, lead lane, blocks, SMs)
 39. policy_universal_replay  the recorded actions (a continuous id's
             squashed duties) through the buffer recorder on Finite- and
             Cont-CC-{PermExDc,DFIM}-v0 (2048 envs x 32 steps, zero biases):
@@ -286,8 +298,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
 42. policy_universal_timings  the recorder at PPO's shape (2048 x 256) and
     at 16384 x 1024, H 32, on Finite-CC-PermExDc-v0, Cont-CC-PermExDc-v0,
     Finite-CC-DFIM-v0 (factorised and joint) and Cont-SC-SRM-v0, each with
-    its bound and reset share; on Finite-CC-PMSM-v0 beside policy_record
-    in the same call
+    its bound and reset share, the DC rows with their design (lanes, and on
+    lane groups registers, a lane's counts, the issue bound of G lanes'
+    counts and the issue-slot floor); on Finite-CC-PMSM-v0 beside
+    policy_record in the same call
 43. control_kernels  slice 10, the classical controllers in the loop
     (csrc/fused_foc.cu, csrc/fused_dc_cascade.cu, csrc/fused_srm_cascade.cu):
     each kernel against its plain version at 16384 envs x 64 steps, with
@@ -511,6 +525,10 @@ PU_TIMED = (("Finite-CC-PermExDc-v0", False, "dc_policy_record"),
             ("Finite-CC-DFIM-v0", True, "dfim_policy_record/joint"),
             ("Cont-SC-SRM-v0", False, "srm_policy_record"))
 PU_TIMED_SHAPES = ((2048, 256), (16384, 1024))
+# dc_policy_record's designs held against each other (phase 38): a finite,
+# a continuous and a joint-head id
+PU_DESIGN_IDS = (("Finite-CC-PermExDc-v0", False), ("Cont-CC-PermExDc-v0", False),
+                 ("Finite-CC-ExtExDc-v0", True))
 PU_MAIN = (1024, 32)          # the main path's per-id PPO shape (phase 41), also compared
 H_PU_MAIN = 16                # its hidden width: the trainer's default
 PU_ALL_IDS_PPO = dict(horizon=PU_MAIN[1], n_envs=PU_MAIN[0], n_minibatches=4,
@@ -2104,7 +2122,8 @@ def run_dc(dev, card, ops):
 
 
 def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids, record_ids,
-                     ops, others, dispatch_checks, annotate=None, const_timed=()):
+                     ops, others, dispatch_checks, annotate=None, const_timed=(),
+                     record_annotate=None):
     """The main path of a universal family (the induction, EESM, DFIM and
     SRM slices), its launches counted from zero: the env against both
     buffer kernels on every id of ``ids`` (constant references
@@ -2116,7 +2135,8 @@ def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids
     ``record_ids``, each with its share of env-steps that reset, and the
     general path on the last of ``timed_ids`` (the instance the bounds
     count); ``annotate(key, env_steps, nbytes, ms, c)`` adds fields to each
-    timed rollout's row; ``const_timed`` holds ``(id, references)`` whose
+    timed rollout's row, ``record_annotate`` (the same signature) to each
+    timed recorder's; ``const_timed`` holds ``(id, references)`` whose
     rollout is timed again with those constant references (key
     ``/<id>/const``).  Returns the family's launches on the path and the
     timings."""
@@ -2212,6 +2232,9 @@ def family_main_path(torch, gt, dev, card, fam, ids, const_refs, atol, timed_ids
                 "bound_ms": bound_ms(N * T_RECORD, ops[record + key],
                                      fam.nbytes(c, record, N, T_RECORD))[0],
                 "reset_share": float(rec_out["done"].double().mean())}
+            if record_annotate:
+                row[record].update(record_annotate(record + key, N * T_RECORD,
+                                                   fam.nbytes(c, record, N, T_RECORD), c_ms, c))
             del rec_out
         timings[env_id + ("" if refs is None else "/const")] = row
         del out
@@ -2547,11 +2570,13 @@ def run_srm(dev, card, ops):
     for name in srf.KERNELS:
         worst[name] = max(worst[name], w_sat[name])
         share[name] = min(share[name], s_sat[name])
-    # the random rollout, on lane groups or one thread per env, equals its
-    # plain version bit for bit, every env
-    if worst["srm_rollout_random"] != 0.0 or share["srm_rollout_random"] != 1.0:
-        raise AssertionError(f"srm_rollout_random: max abs err {worst['srm_rollout_random']}, "
-                             f"{share['srm_rollout_random']} of envs match (need 0 and 1)")
+    # the random rollout, on lane groups or one thread per env, and the
+    # random recorder, on its ring on the continuous ids, equal their plain
+    # versions bit for bit, every env
+    for name in ("srm_rollout_random", "srm_record_random"):
+        if worst[name] != 0.0 or share[name] != 1.0:
+            raise AssertionError(f"{name}: max abs err {worst[name]}, {share[name]} of envs "
+                                 "match (need 0 and 1)")
 
     # ---- 35.-37. the main path: counts from zero ---------------------------
     # 35. the env against the buffer kernels (rtol 1e-4 / atol 2e-3, angles
@@ -2568,10 +2593,21 @@ def run_srm(dev, card, ops):
             # [-pi, pi] in float32: the wrap's product can land on pi exactly
             "eps_in_range": bool(((eps >= -pi32) & (eps <= pi32)).all())}
 
+    def record_design(key, env_steps, nbytes, ms, c):
+        """The recorder's design line: its ring (srf.srm_record_ring_layout,
+        with P), each role's registers and counts, the issue bound of both
+        roles' counts and the issue-slot floor, beside the bound of the
+        one-thread step, the function's own work."""
+        layout = srf.srm_record_ring_layout(c)
+        layout["P"] = srf.SRM_RECORD_RING[1]
+        return ring_fields(layout, key.replace("_random", "_ws", 1), key, key, env_steps,
+                           nbytes, ms)
+
     launches, timings = family_main_path(
         torch, gt, dev, card, fam, gt.SRM_ENV_IDS, SRM_CONST_REFS, 2e-3,
         (SRM_BENCH, SRM_TC, SRM_TIMED), (SRM_BENCH, SRM_TIMED), ops,
-        (fs, fp, sf, dcf, indf, ef, dff), in_limits, lane_fields)
+        (fs, fp, sf, dcf, indf, ef, dff), in_limits, lane_fields,
+        record_annotate=record_design)
 
     # ---- kernels line rows ---------------------------------------------------
     replaces = {"srm_rollout_random": "gym_electric_motor_tpu/ops/pallas_srm.py:609",
@@ -2615,6 +2651,27 @@ def pu_ops(ops, key, hidden):
     return {k: v + hidden * inner[k] for k, v in ops[key].items()}
 
 
+def pu_design_fields(fp, kernel, key, n, env_steps, nbytes, ms):
+    """The design fields of a timed universal recorder at ``n`` envs (phase
+    42): the layout its launch takes (fp.policy_universal_layout) and, on
+    lane groups where tools/sass_ops.py counts that design
+    (``dc_policy_record_lanes[/8][/<id>]``), registers, a lane's counts, the
+    issue bound of G lanes' counts with its share and the issue-slot floor,
+    both without the hidden units the count takes as conditional (lower
+    bounds).  The row's bound_ms stays the one-thread step's, the function's
+    own work."""
+    lay = fp.policy_universal_layout(kernel, n)
+    out = {"design": lay["design"], "lanes": lay["lanes"], "blocks": lay["blocks"]}
+    wide = "/8" if lay["lanes"] == 8 else ""
+    info = LANE_KERNELS.get(key.replace(kernel, f"{kernel}_lanes{wide}", 1))
+    if lay["lanes"] > 1 and info is not None:
+        i_ms = bound_ms(env_steps, info["ops"], nbytes, list(info["ops"]))[0]
+        out.update(registers=info["registers"], ops_per_lane_step=info["per_lane"],
+                   issue_ops_per_step=info["ops"], issue_bound_ms=i_ms,
+                   issue_bound_share=i_ms / ms, **floor_fields(env_steps, info["insns"], ms))
+    return out
+
+
 def run_policy_universal(dev, card, ops):
     """Slice 9, the universal policy-in-the-loop recorder
     (csrc/fused_<family>_policy.cu, one kernel per family): each family's
@@ -2643,11 +2700,11 @@ def run_policy_universal(dev, card, ops):
     share = dict.fromkeys(names, 1.0)
     timed = {}
 
-    def build(env_id, n, steps, joint=False, env=None, hidden=H):
+    def build(env_id, n, steps, joint=False, env=None, hidden=H, draws=rng):
         env = env or gt.make_functional(env_id, device=dev)
         roll = fp.make_fused_policy_record_universal(env, steps, n, hidden=hidden,
                                                      joint_heads=joint)
-        w, ls = pu_weights(torch, rng, roll.policy, hidden, dev)
+        w, ls = pu_weights(torch, draws, roll.policy, hidden, dev)
         planes = fp.fused_policy_init_planes(env, n, device=dev)
         return env, roll, w, ls, planes
 
@@ -2705,6 +2762,31 @@ def run_policy_universal(dev, card, ops):
         main_rows[env_id + "/joint"] = compare(env_id, n, steps, joint=True, hidden=H_PU_MAIN)
     emit({"phase": "policy_universal_kernels_main_shape", "envs": n, "steps": steps,
           "hidden": H_PU_MAIN, "ids": main_rows})
+    # dc_policy_record in the design its width rule takes at PPO's width
+    # against its one-thread design (what a full card runs), bit for bit:
+    # the plain version rounds tanhf and expf otherwise, so the rule above
+    # holds it to the plain version and this to the one-thread kernel.  Its
+    # weights come from a generator of their own, so that the later phases
+    # draw the same weights as without this check
+    n, steps = PU_COMPARE
+    designs = {}
+    design_draws = np.random.default_rng(SEED)
+    for env_id, joint in PU_DESIGN_IDS:
+        _env, roll, w, ls, planes = build(env_id, n, steps, joint, draws=design_draws)
+        pol = roll.policy
+        got = fp._dc_policy_design_launch(pol, SEED, *w, ls, planes, steps, n)
+        one = fp._dc_policy_design_launch(pol, SEED, *w, ls, planes, steps, n, one_thread=True)
+        torch.cuda.synchronize()
+        m, err = bit_match(torch, got, one, n)
+        designs[env_id + ("/joint" if joint else "")] = {
+            "layout": fp.policy_universal_layout(pol.kernel, n), "max_abs_err": err,
+            "match_share": m}
+        if m != 1.0 or err != 0.0:
+            raise AssertionError(f"{env_id}: dc_policy_record's design differs from its "
+                                 f"one-thread design in {1.0 - m:.5f} of envs (max abs err {err})")
+        del got, one
+    emit({"phase": "policy_universal_dc_designs", "envs": n, "steps": steps, "hidden": H,
+          "ids": designs})
 
     # ---- 39. the recorded actions replayed through the buffer recorder ------
     # (tests/test_fused_policy_universal.py:89-125, :205-236): the states
@@ -2870,11 +2952,14 @@ def run_policy_universal(dev, card, ops):
                                                                         steps_t), reps=EVAL_REPS)
             b_ms, b_by = bound_ms(n_t * steps_t, pu_ops(ops, key, H),
                                   pu_bytes(pol, n_t, steps_t, H))
-            timings[f"{env_id}{'/joint' if joint else ''}/{n_t}x{steps_t}"] = {
+            row = timings[f"{env_id}{'/joint' if joint else ''}/{n_t}x{steps_t}"] = {
                 "ms": ms, "env_steps_per_s": n_t * steps_t / (ms / 1e3), "bound_ms": b_ms,
                 "bound_by": b_by, "bound_share": b_ms / ms,
                 "reset_share": float(out[-1].double().mean()),
                 "finite": all(bool(torch.isfinite(x.float()).all()) for x in out)}
+            if pol.kernel == "dc_policy_record":
+                row.update(pu_design_fields(fp, pol.kernel, key, n_t, n_t * steps_t,
+                                            pu_bytes(pol, n_t, steps_t, H), ms))
             del out
     n_t, steps_t = PU_TIMED_SHAPES[1]
     env_sf = gt.make_functional("Finite-CC-PMSM-v0", device=dev, state_filter=SF)
@@ -3600,8 +3685,8 @@ def run_specialised(dev, card, ops):
 
 
 # the kernels redesigned for Hopper after their port, by the redesign
-# (PERF.md, section 5, names when; the SRM cascade's lane groups were
-# slower and not kept)
+# (PERF.md, section 5, names when; the SRM cascade's lane groups and the
+# SRM recorder's ring on the finite ids were slower and not kept)
 REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "srm_cascade_rollout": "lane groups, tried and not kept",
               "dc_rollout_random": "ring", "eesm_rollout_random": "ring",
@@ -3613,7 +3698,10 @@ REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "foc_rollout": "ring with Wiener references", "dfim_cc_rollout_random": "ring",
               "scim_rollout_random": "ring",
               "reinforce_rollout": "role split, traces in registers",
-              "pmsm_rollout_random": "ring", "permex_rollout_random": "ring"}
+              "pmsm_rollout_random": "ring", "permex_rollout_random": "ring",
+              "dc_policy_record": "lane groups below a full card",
+              "srm_record_random": "ring on the continuous ids, on the finite ones tried and "
+                                   "not kept"}
 
 
 def redesign_order(line):

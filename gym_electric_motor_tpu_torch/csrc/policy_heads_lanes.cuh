@@ -1,0 +1,101 @@
+// The lane-group form of the universal policy recorders' MLP
+// (policy_heads.cuh's policy_mlp): G lanes of one warp serve one env.  Lane
+// l of a group computes the hidden units j = l, l + G, ... and the logits
+// a = l, l + G, ...; a logit gathers each hidden value from the lane that
+// holds it by __shfl_sync and sums them in index order, so every hidden
+// value and logit is the bit the one-thread policy_mlp computes (built with
+// -fmad=false).  H stays a run-time count (1 to kPolicyMaxHidden): a lane
+// holds ceil(kPolicyMaxHidden / G) hidden slots, unrolled and predicated on
+// j < H, and the gather runs over all kPolicyMaxHidden units, adding those
+// below H.  As policy_lanes.cuh does for the PMSM recorder, every lane of a
+// warp takes part in every shuffle (a group past the last env computes on a
+// clamped env), so each shuffle names the whole warp.
+//
+// The plain PyTorch version of the same arithmetic, in the same order, is
+// gym_electric_motor_tpu_torch/ops/fused_policy.py (mlp_forward).
+#pragma once
+
+#include <cstdint>
+
+#include "policy_heads.cuh"
+
+constexpr unsigned kPolicyWarpMask = 0xffffffffu;
+
+// logit[a] = b2[a] + sum_j w2[j*A + a] tanh(b1[j] + sum_f w1[f*H + j]
+// obs[f]) for the A <= AMAX logits (0 past A), every sum in index order, on
+// a group of G lanes (l: this lane's place in it); every lane of the group
+// returns all AMAX logits.
+template <int F, int AMAX, int G>
+__device__ __forceinline__ void policy_mlp_lanes(const float* sw, const float (&obs)[F], int H,
+                                                 int A, int l, float (&logit)[AMAX]) {
+  static_assert(32 % G == 0, "a lane group divides the warp");
+  constexpr int HL = (kPolicyMaxHidden + G - 1) / G;   // hidden slots of a lane
+  constexpr int AL = (AMAX + G - 1) / G;               // logit slots of a lane
+  const float* w1 = sw;
+  const float* b1 = w1 + F * H;
+  const float* w2 = b1 + H;
+  const float* b2 = w2 + H * A;
+  float h[HL];
+#pragma unroll
+  for (int m = 0; m < HL; ++m) {
+    const int j = l + G * m;
+    float v = 0.0f;
+    if (j < H) {
+      float acc = b1[j];
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc = acc + w1[f * H + j] * obs[f];
+      v = tanhf(acc);
+    }
+    h[m] = v;
+  }
+  float acc[AL];
+#pragma unroll
+  for (int i = 0; i < AL; ++i) {
+    const int a = l + G * i;
+    acc[i] = a < A ? b2[a] : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < kPolicyMaxHidden; ++j) {
+    const float hj = __shfl_sync(kPolicyWarpMask, h[j / G], j % G, G);
+    if (j < H) {
+#pragma unroll
+      for (int i = 0; i < AL; ++i) {
+        const int a = l + G * i;
+        if (a < A) acc[i] = acc[i] + w2[j * A + a] * hj;
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < AMAX; ++a) {
+    logit[a] = __shfl_sync(kPolicyWarpMask, acc[a / G], a % G, G);
+  }
+}
+
+// Lane 0's value of x to the whole group.
+__device__ __forceinline__ float lead_float(float x, int G) {
+  return __shfl_sync(kPolicyWarpMask, x, 0, G);
+}
+
+__device__ __forceinline__ int lead_int(int x, int G) {
+  return __shfl_sync(kPolicyWarpMask, x, 0, G);
+}
+
+// The value of recorded plane p among a step's NP, by selects, so that a
+// lane's plane index stays a register and the values never go through
+// local memory.
+template <int NP>
+__device__ __forceinline__ uint32_t lane_value(int p, const uint32_t (&v)[NP]) {
+  uint32_t x = v[0];
+#pragma unroll
+  for (int q = 1; q < NP; ++q) x = p == q ? v[q] : x;
+  return x;
+}
+
+// Recorded plane p's pointer among NP, by selects.
+template <int NP>
+__device__ __forceinline__ uint32_t* lane_plane(int p, uint32_t* const (&planes)[NP]) {
+  uint32_t* x = planes[0];
+#pragma unroll
+  for (int q = 1; q < NP; ++q) x = p == q ? planes[q] : x;
+  return x;
+}

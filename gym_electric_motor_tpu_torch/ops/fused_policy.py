@@ -38,7 +38,9 @@ and one kernel per family the universal recorder's (``UNIVERSAL_KERNELS``:
                            ``obs_spec``, the referenced quantities, the
                            references), factorised or joint categorical
                            heads or squashed-Gaussian duties, the family's
-                           step, every step recorded
+                           step, every step recorded (the DC family's at
+                           PPO's width on lane groups,
+                           ``policy_universal_layout``)
 ========================== ===========================================
 
 The PMSM kernels' policy is the 2-layer tanh MLP of ``parallel/sharded.py``
@@ -1019,15 +1021,70 @@ def policy_record_universal_plain(pol, seed, w1, b1, w2, b2, ls, states, n_steps
 
 _UNIVERSAL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_uint64] + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p] * 8
+# dc_policy_record_design: the recorder's arguments, then the design
+_DESIGN_ARGTYPES = _UNIVERSAL_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+
+# The lane designs of dc_policy_record's width rule (WideDesign and
+# NarrowDesign in csrc/fused_dc_policy.cu): lanes an env, and whether lane 0
+# of a group alone samples and steps the env.
+DC_POLICY_WIDE = (8, False)
+DC_POLICY_NARROW = (4, True)
 
 
-def _universal_launch(pol, device, *args):
+def _universal_library(pol):
     fs = pol.surface
     mod = _POLICY_FAMILIES[fs.family][0]
     prefix = f"{fs.family}_policy"
-    lib = family_library(f"fused_{prefix}", prefix, {pol.kernel: _UNIVERSAL_ARGTYPES},
+    lib = family_library(f"fused_{prefix}", prefix,
+                         {pol.kernel: _UNIVERSAL_ARGTYPES,
+                          "dc_policy_record_design": _DESIGN_ARGTYPES},
                          (len(mod.CONST_NAMES), len(mod.ROW_NAMES), len(mod.FLAG_NAMES)))
+    return lib, prefix
+
+
+def _universal_launch(pol, device, *args):
+    lib, prefix = _universal_library(pol)
     launch_kernel(lib, prefix, pol.kernel, device, LAUNCHES, *args)
+
+
+def policy_universal_lanes(kernel, n_envs, sms):
+    """The lanes an env and whether lane 0 alone steps, of the universal
+    recorder ``kernel``'s launch over ``n_envs`` envs on a card of ``sms``
+    SMs: the width rule of csrc/fused_dc_policy.cu (``policy_lanes``) for
+    ``dc_policy_record``, one thread per env for the other families'.
+    Computed here, without the library."""
+    if kernel != "dc_policy_record":
+        return 1, False
+    blocks = -(-int(n_envs) // LANE)
+    for (lanes, lead), per_sm in ((DC_POLICY_WIDE, 1), (DC_POLICY_NARROW, 3)):
+        if blocks * lanes <= per_sm * sms:
+            return lanes, lead
+    return 1, False
+
+
+def policy_universal_layout(kernel, n_envs):
+    """The launch of the universal recorder ``kernel`` over ``n_envs`` envs
+    on the current card: its lanes an env (``dc_policy_record``: 8, 4 or 1
+    by its width rule; the other families' kernels 1), whether lane 0 of a
+    group alone samples and steps, its blocks of 128 threads, the card's SMs
+    and a name for the design."""
+    if kernel not in UNIVERSAL_KERNELS:
+        raise ValueError(f"unknown universal recorder {kernel!r}")
+    if kernel == "dc_policy_record":
+        fn = cuda_build.load("fused_dc_policy").dc_policy_layout
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 4)()
+        fn(int(n_envs), out)
+        lanes, lead, blocks, sms = out
+    else:
+        lanes, lead = 1, 0
+        blocks = -(-int(n_envs) // LANE)
+        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    design = ("one thread per env" if lanes == 1 else
+              f"{lanes} lanes an env, " + ("lane 0 stepping" if lead else "every lane stepping"))
+    return {"design": design, "lanes": lanes, "lead_lane_steps": bool(lead), "blocks": blocks,
+            "sms": sms}
 
 
 def _universal_weights(pol, w1, b1, w2, b2, ls, device):
@@ -1051,7 +1108,17 @@ def policy_record_universal(pol, seed, w1, b1, w2, b2, ls, states, n_steps):
     if device.type == "cpu":
         return policy_record_universal_plain(pol, seed, w1, b1, w2, b2, ls, tuple(states),
                                              n_steps)
-    shape = (int(n_steps), R, LANE)
+    outs, args = _universal_args(pol, seed, w1, b1, w2, b2, ls, states, n_steps,
+                                 (int(n_steps), R, LANE))
+    _universal_launch(pol, device, *args)
+    return tuple(outs)
+
+
+def _universal_args(pol, seed, w1, b1, w2, b2, ls, states, n_steps, shape):
+    """The output tensors, each of ``shape`` (``(T, n)`` or ``(T, R,
+    128)``, n envs), and the C recorder's arguments before the stream."""
+    c = pol.consts
+    device = states[0].device
     outs = [torch.empty(shape, dtype=dt, device=device) for dt in pol.dtypes]
     n_act = len(c.act_names)
     it = iter(outs)
@@ -1063,10 +1130,31 @@ def policy_record_universal(pol, seed, w1, b1, w2, b2, ls, states, n_steps):
     ptrs = (pol.surface.planes(st) + refs + [None] * (3 - c.n_ref)
             + act_i + [None] * (MAX_HEADS - len(act_i))
             + act_f + [None] * (MAX_CHANNELS - len(act_f)) + list(it))
-    _universal_launch(pol, device, c.host.ctypes.data, c.flags.ctypes.data, pol.pk.ctypes.data,
-                      pol.pi.ctypes.data, seed_u64(seed), R * LANE, int(n_steps), pol.hidden,
-                      *_ptrs(w1, b1, w2, b2), _ptr(ls),
-                      ptr_array(pol.surface.planes(list(states))), ptr_array(ptrs))
+    n = int(np.prod(shape[1:]))
+    return outs, (c.host.ctypes.data, c.flags.ctypes.data, pol.pk.ctypes.data,
+                  pol.pi.ctypes.data, seed_u64(seed), n, int(n_steps), pol.hidden,
+                  *_ptrs(w1, b1, w2, b2), _ptr(ls),
+                  ptr_array(pol.surface.planes(list(states))), ptr_array(ptrs))
+
+
+def _dc_policy_design_launch(pol, seed, w1, b1, w2, b2, ls, states, n_steps, n_envs,
+                             one_thread=False):
+    """dc_policy_record's kernel on the first ``n_envs`` envs of the
+    planes, in the design its width rule takes at ``n_envs`` or
+    (``one_thread``) one thread per env: the recorded signals, each ``(T,
+    n_envs)``; for the tests and tools that hold the designs against each
+    other, not counted in ``LAUNCHES``."""
+    if pol.kernel != "dc_policy_record":
+        raise ValueError(f"{pol.kernel} has one design")
+    device, R = check_planes(pol.consts, states)
+    _universal_weights(pol, w1, b1, w2, b2, ls, device)
+    if device.type != "cuda" or not 0 < n_envs <= R * LANE:
+        raise ValueError("the designs run on CUDA planes of at least n_envs envs")
+    outs, args = _universal_args(pol, seed, w1, b1, w2, b2, ls, states, n_steps,
+                                 (int(n_steps), int(n_envs)))
+    lib, prefix = _universal_library(pol)
+    launch_kernel(lib, prefix, "dc_policy_record_design", device,
+                  {"dc_policy_record_design": 0}, *args, int(one_thread))
     return tuple(outs)
 
 

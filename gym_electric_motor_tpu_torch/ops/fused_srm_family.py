@@ -17,7 +17,9 @@ written in CUDA carry the work on the GPU, over the shared step of
 ``srm_rollout_buffer``   T steps of a given action buffer, deterministic
                          (``csrc/fused_srm.cu``)
 ``srm_record_random``    the random step, every step recorded
-                         (``csrc/fused_srm_record.cu``)
+                         (``csrc/fused_srm_record.cu``; on the continuous
+                         ids with Wiener references producer warps draw and
+                         consumer warps step, ``srm_record_ring_layout``)
 ``srm_record_buffer``    the buffer step, every state recorded
                          (``csrc/fused_srm_record.cu``)
 ======================= ================================================
@@ -82,6 +84,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    named_ring_layout,
     policy_obs_spec,
     poly_load_rhs,
     ptr_array,
@@ -121,6 +124,10 @@ LIBRARY = {"srm_rollout_random": "fused_srm", "srm_rollout_buffer": "fused_srm",
 
 # launches of each CUDA kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS + CONTROL_KERNELS, 0)
+
+# the random recorder's ring (SrmRecordRing in csrc/fused_srm_record.cu): K
+# steps a slot, producer warps per consumer warp
+SRM_RECORD_RING = (8, 2)
 
 
 def reset_launches():
@@ -527,10 +534,10 @@ _ARGTYPES = {
 }
 
 
-def _launch(name, device, *args):
+def _launch(name, device, *args, launches=LAUNCHES):
     lib = family_library(LIBRARY[name], "srm", _ARGTYPES,
                          (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)))
-    launch_kernel(lib, "srm", name, device, LAUNCHES, *args)
+    launch_kernel(lib, "srm", name, device, launches, *args)
 
 
 def _with_omega(c, planes):
@@ -575,8 +582,26 @@ def srm_record_random(c: SrmConsts, seed: int, states, n_steps: int):
     device, R = check_planes(c, states)
     if device.type == "cpu":
         return srm_record_random_plain(c, seed, tuple(states), n_steps)
-    shape = (int(n_steps), R, LANE)
-    outs = [torch.empty(shape, dtype=dt, device=device) for dt in record_dtypes(c)]
+    outs = _record_random_launch(c, seed, states, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(int(n_steps), R, LANE) for x in outs)
+
+
+def _record_random_launch(c: SrmConsts, seed: int, states, n_steps: int, n_envs: int,
+                          launches=None):
+    """srm_record_random's kernel on the first ``n_envs`` envs of the
+    planes: the recorded signals, each ``(T, n_envs)``; the launch counted
+    in ``launches`` (none: not counted)."""
+    outs, args = _record_random_args(c, seed, states, n_steps, n_envs)
+    _launch("srm_record_random", states[0].device, *args,
+            launches={"srm_record_random": 0} if launches is None else launches)
+    return outs
+
+
+def _record_random_args(c: SrmConsts, seed: int, states, n_steps: int, n_envs: int):
+    """The recorder's output tensors, each ``(T, n_envs)``, and its C
+    arguments before the stream."""
+    outs = [torch.empty((int(n_steps), n_envs), dtype=dt, device=states[0].device)
+            for dt in record_dtypes(c)]
     it = iter(outs)
     st = [next(it) for _ in range(c.n_state)]
     refs = [next(it) for _ in range(c.n_ref)]
@@ -584,10 +609,23 @@ def srm_record_random(c: SrmConsts, seed: int, states, n_steps: int):
     reward, done = next(it), next(it)
     ptr_list = (_with_omega(c, st) + refs + [None] * (N_ROWS - c.n_ref)
                 + (acts + [None] * 3 if c.finite else [None] * 3 + acts) + [reward, done])
-    _launch("srm_record_random", device, c.host.ctypes.data, c.flags.ctypes.data,
-            seed_u64(seed), R * LANE, int(n_steps), ptr_array(_with_omega(c, states)),
-            ptr_array(ptr_list))
-    return tuple(outs)
+    return outs, (c.host.ctypes.data, c.flags.ctypes.data, seed_u64(seed), n_envs,
+                  int(n_steps), ptr_array(_with_omega(c, states)), ptr_array(ptr_list))
+
+
+def srm_record_ring_layout(c: SrmConsts):
+    """The random recorder's ring for ``c``'s instance (csrc/fused_srm_record.cu's
+    SrmRecordRing, in csrc/ring_pipe.cuh's RingLayout): consumer and
+    producer warps, K steps a slot, slots, words a step (the three duties,
+    then four per reference row),
+    shared-memory bytes; one thread per env with constant references and on
+    the finite ids (``srm_record_on_ring``: only the continuous instances
+    take the ring).  Computed here, without the library."""
+    if c.all_const or c.finite:
+        return named_ring_layout((0,) * 6 + (1,))
+    K, P = SRM_RECORD_RING
+    words = 3 + 4 * c.n_ref
+    return named_ring_layout((4, 4 * P, K, 2, words, 2 * K * words * LANE * 4, 0))
 
 
 def srm_record_buffer(c: SrmConsts, states, actions):

@@ -1333,3 +1333,116 @@ def test_cuda_reinforce_rollout_every_instance_matches_plain_version(hidden, sam
     torch.cuda.synchronize()
     assert {k: v for k, v in fp.LAUNCHES.items() if v} == {"reinforce_rollout": 1,
                                                            "reinforce_reduce": 1}
+
+
+# dc_policy_record's widths: a partial lane group's block, PPO's 2048 envs
+# (eight lanes an env on an H100) and a partial block past it (four lanes);
+# a finite, a joint-head ExtExDc and a continuous id
+DC_POLICY_IDS = [("Finite-CC-PermExDc-v0", False), ("Finite-CC-ExtExDc-v0", True),
+                 ("Cont-CC-PermExDc-v0", False)]
+DC_POLICY_BIT_CASES = [(i, j, h, n) for i, j in DC_POLICY_IDS for h in (32, 16, 5)
+                       for n in (1, 37, 2048, 2051)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,joint,hidden,n", DC_POLICY_BIT_CASES,
+                         ids=[f"{i}{'-joint' if j else ''}-H{h}-n{n}"
+                              for i, j, h, n in DC_POLICY_BIT_CASES])
+def test_cuda_dc_policy_record_equals_one_thread_design_bit_for_bit(env_id, joint, hidden, n):
+    """dc_policy_record (eight lanes of a warp an env, every lane stepping,
+    four lanes with lane 0 stepping, or one thread per env, by the launch's
+    width rule, which the layout reports) equals its one-thread design bit for bit
+    in every env and every output (NaN where the other has NaN), for 1, 2
+    and 64 steps, at H 32, 16 and an odd 5 (H is a run-time count that
+    places the staged weights and the lanes' hidden slots).  The plain
+    version rounds tanhf and expf otherwise, so the rule against it stays
+    the universal recorder's (test_cuda_universal_policy_kernel_matches_plain_version).
+    Env 0 starts at ten times its current limit and resets at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+
+    dev = torch.device("cuda")
+    env = gt.make_functional(env_id, device=dev)
+    R = -(-n // 128)
+    roll = fp.make_fused_policy_record_universal(env, 64, R * 128, hidden=hidden,
+                                                 joint_heads=joint)
+    pol = roll.policy
+    c = pol.consts
+    layout = fp.policy_universal_layout(pol.kernel, n)
+    lanes, lead = fp.policy_universal_lanes(pol.kernel, n, layout["sms"])
+    assert (layout["lanes"], layout["lead_lane_steps"]) == (lanes, lead)
+    assert layout["blocks"] == -(-n * lanes // 128)
+    rng = np.random.default_rng(41)
+    scale = 0.3 if pol.cont else 0.5
+    w = [torch.as_tensor((rng.normal(size=k) * s).astype(np.float32), device=dev)
+         for k, s in ((pol.obs_dim * hidden, scale), (hidden, 0.1), (hidden * pol.n_out, scale),
+                      (pol.n_out, 0.1))]
+    ls = torch.full((len(roll.act_names),), -0.5, device=dev) if pol.cont else None
+    # omega (under a dynamic load) to 100 rad/s, the currents to their limits
+    lims = ([100.0] if c.mech else []) + [c.f["lim0"], c.f["lim1"]]
+    start = [rng.uniform(-lim, lim, (R, 128)).astype(np.float32)
+             for lim in lims[:c.n_state]]
+    start[1 if c.mech else 0][0, 0] = 10.0 * c.f["lim0"]
+    start = [torch.as_tensor(x, device=dev) for x in start]
+    fp.reset_launches()
+    for T in (1, 2, 64):
+        got = fp._dc_policy_design_launch(pol, 3, *w, ls, start, T, n)
+        want = fp._dc_policy_design_launch(pol, 3, *w, ls, start, T, n, one_thread=True)
+        torch.cuda.synchronize()
+        for name, g, x in zip(roll.signals, got, want):
+            assert g.shape == x.shape == (T, n) and g.dtype == x.dtype, (T, name)
+            same = (g == x) | (torch.isnan(g) & torch.isnan(x))
+            assert bool(same.all()), f"T={T}: {name} differs in {int((~same).sum())}"
+        assert float(got[-1][0, 0]) == 1.0  # env 0 reset at its first step
+    assert not any(fp.LAUNCHES.values())  # the design entry is not the counted path
+
+
+SRM_RECORD_CASES = [(i, None) for i in gt.SRM_ENV_IDS] + [("Finite-TC-SRM-v0", 1.2),
+                                                          ("Cont-SC-SRM-v0", 1.2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,psi_s", SRM_RECORD_CASES,
+                         ids=[f"{i}{'-sat' if p else ''}" for i, p in SRM_RECORD_CASES])
+def test_cuda_srm_record_random_equals_plain_version_bit_for_bit(env_id, psi_s):
+    """srm_record_random (producer and consumer warps over a ring on the
+    continuous ids with the catalog's Wiener references, one thread per env
+    on the finite ids, csrc/fused_srm_record.cu) equals srm_record_random_plain
+    bit for bit in every env and every output (NaN where the plain version
+    has NaN), linear and saturating, at 37 steps (no multiple of the ring's
+    K) and at 1 and 2, on one plane of 128 envs and on a partial block of 37
+    envs (the planes' first 37).  Env 5 starts with only phase b above the
+    20 A limit: its first step violates and draws the reset candidates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf
+
+    dev = torch.device("cuda")
+    kw = {"motor": {"motor_parameter": {"psi_s": psi_s}}} if psi_s else {}
+    c = srf.SrmConsts(gt.make_functional(env_id, device=dev, **kw))
+    assert c.sat == (psi_s is not None) and not c.all_const
+    assert srf.srm_record_ring_layout(c)["design"] == (
+        "one thread per env" if c.finite else "warp-specialised")
+    K, _P = srf.SRM_RECORD_RING
+    rng = np.random.default_rng(23)
+    bounds = ([(0, 100)] if c.mech else []) + [(0, 19)] * 3 + [(-np.pi, np.pi)]
+    start = [rng.uniform(lo, hi, (1, 128)).astype(np.float32) for lo, hi in bounds]
+    start[-3][0, 5] = 25.0  # i_b
+    start = [torch.as_tensor(x, device=dev) for x in start]
+    srf.reset_launches()
+    for T in (37, 1, 2):
+        assert T % K or T < K
+        got = srf.srm_record_random(c, 7, start, T)
+        part = srf._record_random_launch(c, 7, start, T, 37)
+        torch.cuda.synchronize()
+        want = srf.srm_record_random_plain(c, 7, start, T)
+        for j, (g, p, w) in enumerate(zip(got, part, want)):
+            assert g.shape == w.shape and g.dtype == w.dtype, (T, j)
+            w2 = w.reshape(T, 128)[:, :37]
+            assert p.shape == w2.shape and p.dtype == w2.dtype, (T, j)
+            for x, y in ((g, w), (p, w2)):
+                same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+                assert bool(same.all()), f"T={T}: output {j} differs in {int((~same).sum())}"
+        assert float(got[-1][0, 0, 5]) == 1.0  # env 5 reset at its first step
+    assert {k: v for k, v in srf.LAUNCHES.items() if v} == {"srm_record_random": 3}

@@ -136,3 +136,34 @@ def test_options_raise():
     wc = [torch.zeros(n) for n in (croll.obs_dim * H, H, H * croll.n_out, croll.n_out)]
     with pytest.raises(ValueError, match="ls"):
         croll(1, *wc, torch.zeros(3), *fp.fused_policy_init_planes(cont, N, device="cpu"))
+
+
+@pytest.mark.parametrize("n,sms,want", [(1, 132, (8, False)), (2048, 132, (8, False)),
+                                        (2051, 132, (4, True)), (4096, 132, (4, True)),
+                                        (12288, 132, (4, True)), (16384, 132, (1, False)),
+                                        (2048, 114, (4, True))])
+def test_dc_policy_width_rule_mirrors_the_kernels(n, sms, want):
+    """policy_universal_lanes, computed without the library, is the width
+    rule of csrc/fused_dc_policy.cu (policy_lanes): the wide design
+    (WideDesign, eight lanes an env, every lane stepping) while the
+    one-thread launch's blocks of 128 envs times its lanes fit the SMs once
+    (PPO's 2048 envs on an H100's 132), the narrow design (NarrowDesign,
+    four lanes, lane 0 stepping) while they fit three times, else one thread
+    per env; the other families' recorders take one thread per env."""
+    from pathlib import Path
+
+    assert fp.policy_universal_lanes("dc_policy_record", n, sms) == want
+    for kernel in fp.UNIVERSAL_KERNELS:
+        if kernel != "dc_policy_record":
+            assert fp.policy_universal_lanes(kernel, n, sms) == (1, False)
+    source = (Path(fp.__file__).resolve().parent.parent / "csrc"
+              / "fused_dc_policy.cu").read_text()
+    (gw, lw), (gn, ln) = fp.DC_POLICY_WIDE, fp.DC_POLICY_NARROW
+    assert f"using WideDesign = LaneDesign<{gw}, {str(lw).lower()}>;" in source
+    assert f"using NarrowDesign = LaneDesign<{gn}, {str(ln).lower()}>;" in source
+    assert "if ((long long)policy_blocks(n) * WideDesign::G <= sms) return WideDesign::G;" \
+        in source
+    assert ("if ((long long)policy_blocks(n) * NarrowDesign::G <= 3 * sms) "
+            "return NarrowDesign::G;") in source
+    assert "int policy_blocks(int n) { return (n + kPolicyThreads - 1) / kPolicyThreads; }" \
+        in source

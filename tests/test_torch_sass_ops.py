@@ -17,6 +17,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import sass_ops  # noqa: E402
 
 from gym_electric_motor_tpu_torch.ops import fused_policy as fp  # noqa: E402
+from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf  # noqa: E402
 
 SASS = """
         Function : _Z4stepPfi
@@ -309,11 +310,15 @@ def test_srm_lane_kernels_carry_their_lane_mark():
     """The SRM random rollout's lane-group kernel runs four lanes an env:
     its entries (the constant-speed ids Finite-CC and Finite-TC) carry
     ``@lanes4`` and, besides them, only the PPO recorder's lane kernels
-    (``test_policy_record_lane_instance_carries_its_lane_mark``) carry a
-    lane mark; each of those ids also has an unmarked one-thread entry of
-    srm_rollout_random with the same FINITE, NREF and SAT, the function's
-    own work that the bounds count."""
-    marks = {"srm_rollout_lanes": 4, "policy_record_lanes": 4, "policy_record_lanes/8": 8}
+    (``test_policy_record_lane_instance_carries_its_lane_mark``) and the
+    DC family's universal recorder's
+    (``test_dc_policy_lanes_and_srm_record_ring_keep_their_one_thread_entries``)
+    carry a lane mark; each of those ids also has an unmarked one-thread
+    entry of srm_rollout_random with the same FINITE, NREF and SAT, the
+    function's own work that the bounds count."""
+    marks = {"srm_rollout_lanes": 4, "policy_record_lanes": 4, "policy_record_lanes/8": 8,
+             "dc_policy_record_lanes": 4, "dc_policy_record_lanes/8": 8,
+             "dc_policy_record_lanes/8/Cont-CC-PermExDc-v0": 8}
     lanes = {}
     for library, instances in sass_ops.STEP_INSTANCES.items():
         for key, instance in instances.items():
@@ -466,8 +471,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     """The sync, DC, SCIM, EESM and DFIM random rollouts, the policy
     evaluation rollout, the specialised DC SC, Cont-TC-SCIM, Finite-CC-EESM
     and Cont-CC-DFIM rollouts, the DC cascade, the FOC, the main path's
-    Finite-CC-PMSM random rollout and the specialised Finite-CC-PermExDc
-    rollout run warp-specialised
+    Finite-CC-PMSM random rollout, the specialised Finite-CC-PermExDc
+    rollout and the SRM random recorder run warp-specialised
     with Wiener references: the DC and EESM ``_ws`` entries
     carry ``@ws2`` (two producer warps per consumer warp, two steps each of
     a four-step slot) or, under the EESM's speed ODE (MECH), ``@ws4`` (one),
@@ -475,7 +480,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     whose template arguments start with its own, the function's own work
     that the bounds count (the policy's one-thread kernel adds its Wiener
     and weight-order flags).  The SCIM, sync, DFIM, policy, DC SC, SCIM TC,
-    DFIM CC, FOC, PMSM and PermExDc rings hold eight steps a slot for two
+    DFIM CC, FOC, PMSM, PermExDc and SRM recorder rings hold eight steps a
+    slot for two
     producer warps, so their
     mark is ``@ws4``, the steps a producer iteration fills; the EESM CC and
     DC cascade rings hold four for two, ``@ws2``."""
@@ -487,7 +493,7 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                                        "dc_sc_rollout_ws", "eesm_cc_rollout_ws",
                                        "dc_cascade_rollout_ws", "dfim_cc_rollout_ws",
                                        "foc_rollout_ws", "scim_rollout_ws", "pmsm_rollout_ws",
-                                       "permex_rollout_ws")
+                                       "permex_rollout_ws", "srm_record_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
@@ -511,7 +517,7 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                     "dc_cascade_rollout_ws/Cont-SC-SeriesDc-v0": 2,
                     "dc_cascade_rollout_ws/Cont-SC-ShuntDc-v0": 2,
                     "dfim_cc_rollout_ws": 4, "foc_rollout_ws": 4, "scim_rollout_ws": 4,
-                    "pmsm_rollout_ws": 4, "permex_rollout_ws": 4}
+                    "pmsm_rollout_ws": 4, "permex_rollout_ws": 4, "srm_record_ws": 4}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
@@ -685,3 +691,40 @@ def test_pmsm_and_permex_rings_keep_their_one_thread_entries():
                       "permex_rollout_ws": "permex_rollout_ws_kernel@ws4"}
     for instance in list(pmsm.values()) + list(permex.values()):
         assert sass_ops.ws_steps_of(instance) == (4 if "_ws_kernel" in instance else 0)
+
+
+def test_dc_policy_lanes_and_srm_record_ring_keep_their_one_thread_entries():
+    """dc_policy_record runs on lane groups below a full card (eight lanes
+    an env at PPO's width, every lane stepping, ``@lanes8``, on
+    Finite-CC-PermExDc and Cont-CC-PermExDc; four lanes with lane 0 stepping,
+    ``@lanes4``) and srm_record_random's continuous instances on a ring with
+    Wiener references (``@ws4``: K = 8, two producer warps, on Cont-SC-SRM),
+    while the one-thread entries stay the count of the function's own work:
+    the DC recorder's hidden-unit loop apart (``@inner``), the SRM
+    recorder's Wiener loop, which its finite instances (Finite-CC-SRM) run.
+    Each new entry's template arguments start with its one-thread entry's,
+    followed by the lanes and the lead flag."""
+    dc = sass_ops.STEP_INSTANCES["fused_dc_policy"]
+    assert dc["dc_policy_record"] == "dc_policy_record_kernelILb1ELb0ELi0ELi1ELb0EE@inner"
+    assert dc["dc_policy_record/Cont-CC-PermExDc-v0"] == (
+        "dc_policy_record_kernelILb0ELb0ELi0ELi1ELb0EE@inner")
+    (gw, lw), (gn, ln) = fp.DC_POLICY_WIDE, fp.DC_POLICY_NARROW
+    for key, one, lanes, lead in (
+            ("dc_policy_record_lanes", "dc_policy_record", gn, ln),
+            ("dc_policy_record_lanes/8", "dc_policy_record", gw, lw),
+            ("dc_policy_record_lanes/8/Cont-CC-PermExDc-v0",
+             "dc_policy_record/Cont-CC-PermExDc-v0", gw, lw)):
+        args = dc[one].partition("@")[0][len("dc_policy_record_kernel"):-1]
+        assert dc[key] == (f"dc_policy_record_lanes_kernel{args}Li{lanes}ELb{int(lead)}EE"
+                           f"@lanes{lanes}"), key
+        assert sass_ops.lanes_of(dc[key]) == lanes and sass_ops.ws_steps_of(dc[key]) == 0
+    assert (gw, gn) == (8, 4)
+    srm = sass_ops.STEP_INSTANCES["fused_srm_record"]
+    assert srm["srm_record_random"] == "srm_record_random_kernelILb0ELb1ELi1ELb0E"
+    assert srm["srm_record_random/Finite-CC-SRM-v0"] == "srm_record_random_kernelILb1ELb0ELi3ELb0E"
+    K, P = srf.SRM_RECORD_RING
+    assert srm["srm_record_ws"] == (
+        srm["srm_record_random"].replace("_random_kernel", "_ws_kernel") + f"@ws{K // P}")
+    assert sass_ops.ws_steps_of(srm["srm_record_ws"]) == K // P
+    assert sass_ops.lanes_of(srm["srm_record_ws"]) == 1
+    assert [k for k in srm if "_ws" in k] == ["srm_record_ws"]

@@ -119,3 +119,41 @@ def test_record_signals_match_jax(env_id):
     if env_id.startswith("Cont"):
         for k in troll.consts.act_names:
             assert float(out[k].min()) >= -1.0 and float(out[k].max()) < 1.0
+
+
+@pytest.mark.parametrize("env_id,refs", [(i, "wiener") for i in gt.SRM_ENV_IDS]
+                         + [("Finite-CC-SRM-v0", "const"), ("Cont-SC-SRM-v0", "const")],
+                         ids=[f"{i}-wiener" for i in gt.SRM_ENV_IDS]
+                         + ["Finite-CC-SRM-v0-const", "Cont-SC-SRM-v0-const"])
+def test_record_ring_layout_is_the_kernels_ring(env_id, refs):
+    """srm_record_ring_layout, computed without the library, is the ring of
+    csrc/fused_srm_record.cu (SrmRecordRing; words a step: the three
+    duties, then four per reference row)
+    for the continuous instances (srm_record_on_ring): 4 consumer warps, P
+    producer warps per consumer warp, two slots of K steps, each producer's
+    steps pairing an even step with the odd one that takes its sine half; on
+    the finite ids and with constant references one thread per env."""
+    from pathlib import Path
+
+    tenv = const_envs(env_id)[1] if refs == "const" else gt.make_functional(env_id, device="cpu")
+    c = srf.SrmConsts(tenv)
+    assert c.all_const == (refs == "const") and c.mech == env_id.split("-")[1].startswith("SC")
+    lay = srf.srm_record_ring_layout(c)
+    source = (Path(srf.__file__).resolve().parent.parent / "csrc"
+              / "fused_srm_record.cu").read_text()
+    assert ("__host__ __device__ constexpr bool srm_record_on_ring() {\n  return !FINITE;\n}"
+            in source)
+    if refs == "const" or c.finite:
+        assert lay == {"consumer_warps": 0, "producer_warps": 0, "K": 0, "slots": 0, "words": 0,
+                       "smem_bytes": 0, "design": "one thread per env"}
+        return
+    K, P = srf.SRM_RECORD_RING
+    words = 3 + 4 * c.n_ref
+    assert not c.finite and words == {1: 7, 3: 15}[c.n_ref]
+    assert lay == {"consumer_warps": 4, "producer_warps": 4 * P, "K": K, "slots": 2,
+                   "words": words, "smem_bytes": 2 * K * words * 128 * 4,
+                   "design": "warp-specialised"}
+    assert (K // P) % 2 == 0 and lay["smem_bytes"] <= 227 * 1024
+    assert f"using SrmRecordRing = RingShape<{K}, {P}>;" in source
+    assert "return 3 + kRefWords * NREF;" in source
+    assert "ring_layout<SrmRecordRing>(3 + kRefWords * flags[SF_NREF], out);" in source

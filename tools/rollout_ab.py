@@ -30,23 +30,32 @@ baseline -0.1, its per-env gradient sums compared too),
 Cont-SC-ShuntDc-v0, the catalog's Wiener reference or
 ``ConstReference("omega", 0.5)``) or ``foc:Cont-CC-PMSM-v0[:const]`` for the
 FOC closed loop (``foc_rollout``, the catalog's Wiener references or
-constant zero ones); the closed loops take the tuned controller of
-``GemController.make``.
+constant zero ones), ``policy_universal:<id>[:joint]:<H>:<n>`` for the
+universal policy recorder of the id's family (``<family>_policy_record``,
+``dc_policy_record`` on the DC ids; joint heads, H hidden units, n envs,
+at 256 steps, or 1024 from 16384 envs on: the two shapes ``chip_smoke.py``
+times in phase 42; weights drawn from numpy as ``chip_smoke.pu_weights``
+draws them, zero states) or ``srm_record:<id>[:psi_s]`` for the SRM random
+recorder (``srm_record_random`` at 1024 steps, the catalog's Wiener
+references, linear or with that saturation flux ``psi_s``); the closed
+loops take the tuned controller of ``GemController.make``.
 For each path (default: the synchronous and DFIM ids that ``chip_smoke.py``
 times, with Wiener and with constant references) it builds the path's
 source (``csrc/fused_<family>.cu``, ``csrc/fused_policy.cu``,
 ``csrc/fused_dc_sc.cu``, ``csrc/fused_eesm_cc.cu``, ``csrc/fused_dfim_cc.cu``,
 ``csrc/fused_scim_tc.cu``, ``csrc/fused_pmsm.cu``, ``csrc/fused_permex.cu``,
-``csrc/fused_dc_cascade.cu``, ``csrc/fused_foc.cu``) of both trees with the
-package's nvcc flags,
+``csrc/fused_dc_cascade.cu``, ``csrc/fused_foc.cu``,
+``csrc/fused_<family>_policy.cu``, ``csrc/fused_srm_record.cu``) of both
+trees with the package's nvcc flags,
 runs the kernel of each on the same constants, seed and zero states
-(16384 envs x 65536 steps; the policy's weights drawn from numpy as
+(16384 envs x 65536 steps, the recorders as above; the policy's weights drawn from numpy as
 ``chip_smoke.py``'s evaluation rollout draws them, its constant references
 zero), in turns other, this, this, other, each a median of CUDA-event gaps
 (``chip_smoke.cuda_ms``), and prints one JSON line: both sides' times,
-other over this, whether the final outputs of the two sides are equal bit
-for bit (NaN where both are NaN), the mean reward and the share of
-env-steps that reset.  Families: ``sync``, ``induction`` and ``dfim`` (the
+other over this, whether the final outputs (a recorder's every step) of the
+two sides are equal bit for bit (NaN where both are NaN), the mean reward
+and the share of env-steps that reset; a recorder's line adds this tree's
+design (the lane layout or the ring).  Families: ``sync``, ``induction`` and ``dfim`` (the
 rollouts with a private ``_rollout_random_launch``); constant references
 are those of ``chip_smoke.SYNC_CONST_REFS``.
 """
@@ -62,6 +71,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 N_ENVS, T_STEPS, SEED, REPS = 16384, 65536, 7, 5
 T_REINFORCE = 1024   # the REINFORCE trainer's depth (chip_smoke.T_REINFORCE)
+T_RECORD = 1024      # the SRM recorder's depth (chip_smoke.T_RECORD)
 DEFAULT_PATHS = ("sync:Finite-CC-PMSM-v0", "sync:Cont-SC-PMSM-v0", "sync:Finite-CC-PMSM-v0:const",
                  "sync:Cont-SC-PMSM-v0:const", "dfim:Cont-CC-DFIM-v0", "dfim:Finite-CC-DFIM-v0",
                  "dfim:Cont-SC-DFIM-v0", "dfim:Cont-CC-DFIM-v0:const",
@@ -105,6 +115,7 @@ def main():
     from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
     from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
     from gym_electric_motor_tpu_torch.ops import fused_policy as fp
+    from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf
     from gym_electric_motor_tpu_torch.ops import fused_sync as fs
     from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
     from gym_electric_motor_tpu_torch.ops.fused_common import ptr_array, seed_u64
@@ -133,8 +144,53 @@ def main():
 
     for path in paths:
         family, *rest = path.split(":")
-        steps = T_STEPS
-        if family == "policy":
+        steps, envs, design = T_STEPS, N_ENVS, None
+        if family == "policy_universal":
+            env_id, *rest = rest
+            joint = rest[0] == "joint"
+            hidden, envs = (int(x) for x in rest[joint:])
+            steps = 1024 if envs >= 16384 else 256
+            env = gt.make_functional(env_id, device=dev)
+            pol = fp.make_fused_policy_record_universal(env, steps, envs, hidden=hidden,
+                                                        joint_heads=joint).policy
+            w, ls = cs.pu_weights(torch, np.random.default_rng(SEED), pol, hidden, dev)
+            planes = fp.fused_policy_init_planes(env, envs, device=dev)
+            fn = other_lib(f"fused_{pol.surface.family}_policy", pol.kernel,
+                           fp._UNIVERSAL_ARGTYPES)
+            r_idx = len(pol.dtypes) - 2
+            design = fp.policy_universal_layout(pol.kernel, envs)
+
+            def run_other():
+                outs, args = fp._universal_args(pol, SEED, *w, ls, planes, steps,
+                                                (steps, envs // 128, 128))
+                rc = fn(*args, stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's {pol.kernel} returned {rc}")
+                return outs
+
+            def run_this():
+                return fp.policy_record_universal(pol, SEED, *w, ls, planes, steps)
+        elif family == "srm_record":
+            env_id, *psi = rest
+            kw = {"motor": {"motor_parameter": {"psi_s": float(psi[0])}}} if psi else {}
+            c = srf.SrmConsts(gt.make_functional(env_id, device=dev, **kw))
+            steps = T_RECORD
+            z = [torch.zeros((N_ENVS // 128, 128), device=dev) for _ in range(c.n_state)]
+            fn = other_lib("fused_srm_record", "srm_record_random",
+                           srf._ARGTYPES["srm_record_random"])
+            r_idx = len(srf.record_dtypes(c)) - 2
+            design = srf.srm_record_ring_layout(c)
+
+            def run_other():
+                outs, args = srf._record_random_args(c, SEED, z, steps, N_ENVS)
+                rc = fn(*args, stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's srm_record_random returned {rc}")
+                return outs
+
+            def run_this():
+                return srf._record_random_launch(c, SEED, z, steps, N_ENVS)
+        elif family == "policy":
             sample, refs, hidden = rest
             greedy, wiener = sample == "greedy", refs == "wiener"
             env_id = "Finite-CC-PMSM-v0"
@@ -375,13 +431,14 @@ def main():
                     for a, b in zip(outs["this"], outs["other"]))
         o_ms, t_ms = float(np.median(times["other"])), float(np.median(times["this"]))
         ref = outs["this"]
-        print(json.dumps({"card": card, "path": path, "family": family, "env_id": env_id,
-                          "envs": N_ENVS,
-                          "steps": steps, "other_ms": times["other"], "this_ms": times["this"],
-                          "other_over_this": o_ms / t_ms, "equal": equal,
-                          "mean_reward": float(ref[r_idx].double().sum()) / (N_ENVS * steps),
-                          "reset_share": float(ref[r_idx + 1].double().sum())
-                          / (N_ENVS * steps)}), flush=True)
+        row = {"card": card, "path": path, "family": family, "env_id": env_id, "envs": envs,
+               "steps": steps, "other_ms": times["other"], "this_ms": times["this"],
+               "other_over_this": o_ms / t_ms, "equal": equal,
+               "mean_reward": float(ref[r_idx].double().sum()) / (envs * steps),
+               "reset_share": float(ref[r_idx + 1].double().sum()) / (envs * steps)}
+        if design is not None:
+            row["design"] = design
+        print(json.dumps(row), flush=True)
         if not equal:
             raise AssertionError(f"{path}: the two trees' outputs differ")
 

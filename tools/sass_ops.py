@@ -801,10 +801,15 @@ STEP_INSTANCES = {
         "srm_rollout_lanes/Finite-CC-SRM-v0": "srm_rollout_lanes_kernelILb1ELi3ELb0E@lanes4",
         "srm_rollout_lanes/Finite-TC-SRM-v0": "srm_rollout_lanes_kernelILb1ELi1ELb0E@lanes4",
     },
+    # With Wiener references the random recorder's continuous instances run
+    # srm_record_ws_kernel<FINITE, MECH, NREF, SAT> (K = 8, two producer
+    # warps per consumer warp: @ws4), the finite ones the one-thread kernel,
+    # whose Wiener loop counts the function's own work
     "fused_srm_record": {
         "srm_record_random": "srm_record_random_kernelILb0ELb1ELi1ELb0E",
         "srm_record_buffer": "srm_record_buffer_kernelILb0ELb1ELb0E",
         "srm_record_random/Finite-CC-SRM-v0": "srm_record_random_kernelILb1ELb0ELi3ELb0E",
+        "srm_record_ws": "srm_record_ws_kernelILb0ELb1ELi1ELb0E@ws4",
     },
     # The universal policy recorders, one instance per family (and the
     # other ids chip_smoke.py times), the hidden-unit loop counted apart
@@ -815,10 +820,25 @@ STEP_INSTANCES = {
     "fused_sync_policy": {  # Finite-CC-PMSM-v0
         "sync_policy_record": "sync_policy_record_kernelILb1ELb0ELi2EE@inner",
     },
+    # dc_policy_record runs on lane groups below a full card,
+    # dc_policy_record_lanes_kernel<FINITE, MECH, MC, NREF, JOINT, G, LEAD>:
+    # at PPO's width eight lanes, every lane stepping (@lanes8), then four
+    # lanes with lane 0 alone stepping (@lanes4, a branch on the lane that
+    # every warp issues).  A lane's hidden slots run under a predicate on the
+    # run-time H, which the count takes as a branch on data: the MLP's
+    # hidden units stay conditional, so these counts bound what a step
+    # issues from below.  The one-thread kernel counts the function's own
+    # work
     "fused_dc_policy": {
         "dc_policy_record": "dc_policy_record_kernelILb1ELb0ELi0ELi1ELb0EE@inner",
         "dc_policy_record/Cont-CC-PermExDc-v0":
             "dc_policy_record_kernelILb0ELb0ELi0ELi1ELb0EE@inner",
+        "dc_policy_record_lanes":
+            "dc_policy_record_lanes_kernelILb1ELb0ELi0ELi1ELb0ELi4ELb1EE@lanes4",
+        "dc_policy_record_lanes/8":
+            "dc_policy_record_lanes_kernelILb1ELb0ELi0ELi1ELb0ELi8ELb0EE@lanes8",
+        "dc_policy_record_lanes/8/Cont-CC-PermExDc-v0":
+            "dc_policy_record_lanes_kernelILb0ELb0ELi0ELi1ELb0ELi8ELb0EE@lanes8",
     },
     "fused_induction_policy": {  # Finite-CC-SCIM-v0
         "induction_policy_record": "induction_policy_record_kernelILb1ELb0ELi2EE@inner",
