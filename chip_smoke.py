@@ -107,8 +107,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
             steps (timed on Cont-SC-ShuntDc-v0, the instance the bounds
             count); the two random kernels again at 1024 steps on
             Finite-CC-PermExDc-v0 and Cont-SC-ShuntDc-v0; dc_rollout_random
-            (warp-specialised) bit for bit (error 0 in every env) in all of
-            those runs, and again on every id with constant references
+            and dc_record_random (warp-specialised with Wiener references)
+            bit for bit (error 0 in every env) in all of those runs, and
+            again on every id with constant references
 19.-21. the slice-4 main path, counted from zero:
    19. dc_env  for each id, the port's env (VectorEnv's reset, the env's
             step without autoreset, constant references, an action buffer,
@@ -125,12 +126,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
             Cont-SC-ShuntDc-v0; the random recorder at 1024 steps on both
             ids (GB/s); the general path (VectorEnv.rollout, the random
             policy of the action space) on Cont-SC-SeriesDc-v0 at 200 steps;
-            for each rollout its reset share, design (warp-specialised with
-            Wiener references, one thread per env with constant ones) and,
-            warp-specialised, roles, ring (K, slots, words, shared-memory
-            bytes), registers and both roles' counts, and its issue bound
-            beside the one-thread bound; the launches of phases 19-21 must
-            be exactly what they make
+            for each rollout and recorder its reset share, design
+            (warp-specialised with Wiener references, one thread per env
+            with constant ones) and, warp-specialised, roles, ring (K,
+            slots, words, shared-memory bytes), registers and both roles'
+            counts, and its issue bound beside the one-thread bound; the
+            launches of phases 19-21 must be exactly what they make
 22. induction_kernels  slice 5, the universal induction family
             (csrc/fused_induction.cu, csrc/fused_induction_record.cu): for
             each of the 6 {Finite, Cont} x {CC, TC, SC} SCIM ids, each of
@@ -168,9 +169,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
             the 4 kernels against its plain version at 16384 envs x 64
             steps (timed on Cont-SC-EESM-v0, the instance the bounds count);
             the two random kernels again at 1024 steps on Finite-CC-EESM-v0
-            and Cont-SC-EESM-v0; eesm_rollout_random (warp-specialised) bit
-            for bit (error 0 in every env) in all of those runs, and again
-            on every id with constant references
+            and Cont-SC-EESM-v0; eesm_rollout_random and eesm_record_random
+            (warp-specialised with Wiener references) bit for bit (error 0
+            in every env) in all of those runs, and again on every id with
+            constant references
 27.-29. the slice-6 main path, counted from zero:
    27. eesm_env  for each id, the port's env (VectorEnv's reset, the env's
             step without autoreset, constant references, an action buffer,
@@ -188,11 +190,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
             references; the random recorder at 1024 steps on
             Finite-CC-EESM-v0 and Cont-SC-EESM-v0 (11 and 12 planes, GB/s);
             each with its share of env-steps that reset, and for the rollout
-            its design, roles, ring, registers and issue bound as phase
-            21's; the
-            general path (VectorEnv.rollout, the random policy of the action
-            space) on Cont-SC-EESM-v0 at 200 steps; the launches of phases
-            27-29 must be exactly what they make
+            and the recorder their design, roles, ring, registers and issue
+            bound as phase 21's; the general path (VectorEnv.rollout, the
+            random policy of the action space) on Cont-SC-EESM-v0 at 200
+            steps; the launches of phases 27-29 must be exactly what they
+            make
 30. dfim_kernels  slice 7, the universal DFIM family (csrc/fused_dfim.cu,
             csrc/fused_dfim_record.cu): for each of the 6 {Finite, Cont} x
             {CC, TC, SC} DFIM ids, each of the 4 kernels against its plain
@@ -686,6 +688,22 @@ def design_fields(key, env_steps, nbytes, ms, c):
     loop = ahead if design == 2 and ahead in OPS else key
     return ring_fields(layout, key.replace("_rollout_random", "_rollout_ws", 1), loop, key,
                        env_steps, nbytes, ms)
+
+
+def record_design(mod, prefix):
+    """The design fields of a timed random recorder of ``mod`` that runs on
+    a ring with Wiener references (the DC, EESM and SRM ones; phases 21, 29
+    and 37), as a function of (key, env_steps, nbytes, ms, c): its ring
+    (``<prefix>_record_ring_layout``, with P), each role's registers and
+    counts, the issue bound of both roles' counts and the issue-slot floor,
+    beside the bound of the one-thread step, the function's own work; one
+    thread per env, the issue bound of the one-thread loop."""
+    def fields(key, env_steps, nbytes, ms, c):
+        layout = getattr(mod, f"{prefix}_record_ring_layout")(c)
+        layout["P"] = getattr(mod, f"{prefix.upper()}_RECORD_RING")[1]
+        return ring_fields(layout, key.replace("_random", "_ws", 1), key, key, env_steps,
+                           nbytes, ms)
+    return fields
 
 
 def card_line():
@@ -1533,19 +1551,20 @@ def held_random(torch, label, name, got, ref, angle, worst, share):
             "mean_reward_rel_err": rel}
 
 
-def hold_bit_equal(torch, gt, rg, dev, fam, ids, refs_of, worst, share):
-    """A warp-specialised random rollout (``<fam.prefix>_rollout_random``)
-    against its plain version bit for bit: compare_family_kernels' runs
+def hold_bit_equal(torch, gt, rg, dev, fam, ids, refs_of, worst, share, modes=("rollout",)):
+    """The random kernels ``<fam.prefix>_<mode>_random`` of ``modes`` (the
+    warp-specialised rollout; the recorder too where it runs on a ring)
+    against their plain versions bit for bit: compare_family_kernels' runs
     (the catalog's Wiener references on every id, and the deep runs) must
-    have found error 0 in every env, and the rollout runs again on every id
+    have found error 0 in every env, and each kernel runs again on every id
     with the constant references ``refs_of(env_id)`` (the loop without the
-    reference advance), every output equal, or NaN in both.  Emits one line;
-    raises otherwise."""
-    name = f"{fam.prefix}_rollout_random"
-    if worst[name] != 0.0 or share[name] != 1.0:
-        raise AssertionError(f"{name}: max abs err {worst[name]}, {share[name]} of envs match "
-                             "(need 0 and 1)")
-    kern, plain = getattr(fam.mod, name), getattr(fam.mod, name + "_plain")
+    reference advance), every output equal, or NaN in both.  Emits one line
+    per kernel; raises otherwise."""
+    names = [f"{fam.prefix}_{mode}_random" for mode in modes]
+    for name in names:
+        if worst[name] != 0.0 or share[name] != 1.0:
+            raise AssertionError(f"{name}: max abs err {worst[name]}, {share[name]} of envs "
+                                 "match (need 0 and 1)")
     for env_id in ids:
         env = gt.make_functional(env_id, device=dev, reference_generator=rg.ReferenceSpec(
             [rg.ConstReference(n, v) for n, v in refs_of(env_id)]))
@@ -1553,19 +1572,21 @@ def hold_bit_equal(torch, gt, rg, dev, fam, ids, refs_of, worst, share):
         if not c.all_const:
             raise AssertionError(f"{env_id}: the constant references did not make all_const")
         start = fam.planes(c)
-        got = kern(c, SEED, start, T_SYNC_COMPARE)
-        torch.cuda.synchronize()
-        ref = plain(c, SEED, start, T_SYNC_COMPARE)
-        for j, (x, y) in enumerate(zip(got, ref)):
-            same = (x == y) | (torch.isnan(x) & torch.isnan(y))
-            if not bool(same.all()):
-                raise AssertionError(f"{env_id} {name}, constant references: output {j} differs "
-                                     f"in {int((~same).sum())} elements")
-        del got, ref
-    emit({"phase": f"{fam.prefix}_kernels_bit_equal", "kernel": name, "ids": len(ids),
-          "wiener": {"max_abs_err": worst[name], "match_share": share[name]},
-          "const": {"envs": N_ENVS, "steps": T_SYNC_COMPARE, "max_abs_err": 0.0,
-                    "match_share": 1.0}})
+        for name in names:
+            got = getattr(fam.mod, name)(c, SEED, start, T_SYNC_COMPARE)
+            torch.cuda.synchronize()
+            ref = getattr(fam.mod, name + "_plain")(c, SEED, start, T_SYNC_COMPARE)
+            for j, (x, y) in enumerate(zip(got, ref)):
+                same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+                if not bool(same.all()):
+                    raise AssertionError(f"{env_id} {name}, constant references: output {j} "
+                                         f"differs in {int((~same).sum())} elements")
+            del got, ref
+    for name in names:
+        emit({"phase": f"{fam.prefix}_kernels_bit_equal", "kernel": name, "ids": len(ids),
+              "wiener": {"max_abs_err": worst[name], "match_share": share[name]},
+              "const": {"envs": N_ENVS, "steps": T_SYNC_COMPARE, "max_abs_err": 0.0,
+                        "match_share": 1.0}})
 
 
 def compare_family_kernels(torch, gt, dev, fam, ids, timed_id, deep_ids, ops, env_kw=None):
@@ -1978,8 +1999,9 @@ def run_dc(dev, card, ops):
         _a, task, motor, _v = env_id.split("-")
         return DC_CONST_REFS[task][motor] if task == "CC" else DC_CONST_REFS[task]
 
-    # the warp-specialised random rollout, bit for bit on every id
-    hold_bit_equal(torch, gt, rg, dev, fam, gt.DC_ENV_IDS, dc_const_refs, worst, share)
+    # the warp-specialised random rollout and recorder, bit for bit on every id
+    hold_bit_equal(torch, gt, rg, dev, fam, gt.DC_ENV_IDS, dc_const_refs, worst, share,
+                   ("rollout", "record"))
 
     # ---- 19.-21. the main path: counts from zero ---------------------------
     fs.reset_launches()
@@ -2072,7 +2094,10 @@ def run_dc(dev, card, ops):
                 "env_steps_per_s": N * T_RECORD / (c_ms / 1e3),
                 "GB_per_s": rec_bytes / (c_ms / 1e3) / 1e9,
                 "bound_ms": bound_ms(N * T_RECORD, ops["dc_record_random" + key],
-                                     dc_bytes(c, "dc_record_random", N, T_RECORD))[0]}
+                                     dc_bytes(c, "dc_record_random", N, T_RECORD))[0],
+                "reset_share": float(rec_out["done"].double().mean()),
+                **record_design(dcf, "dc")("dc_record_random" + key, N * T_RECORD,
+                                           dc_bytes(c, "dc_record_random", N, T_RECORD), c_ms, c)}
             del rec_out
         timings[label] = row
         del out
@@ -2393,9 +2418,10 @@ def run_eesm(dev, card, ops):
         env_action=lambda c, a: a.reshape(c.n_act, N).T.contiguous())
     worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.EESM_ENV_IDS, EESM_TIMED,
                                                  (EESM_BENCH, EESM_TIMED), ops)
-    # the warp-specialised random rollout, bit for bit on every id
+    # the warp-specialised random rollout and recorder, bit for bit on every id
     hold_bit_equal(torch, gt, rg, dev, fam, gt.EESM_ENV_IDS,
-                   lambda env_id: EESM_CONST_REFS[env_id.split("-")[1]], worst, share)
+                   lambda env_id: EESM_CONST_REFS[env_id.split("-")[1]], worst, share,
+                   ("rollout", "record"))
 
     # ---- 27.-29. the main path: counts from zero ---------------------------
     # 27. the env against the buffer kernels (rtol 1e-4 / atol 2e-3, angles
@@ -2415,7 +2441,7 @@ def run_eesm(dev, card, ops):
         torch, gt, dev, card, fam, gt.EESM_ENV_IDS, EESM_CONST_REFS, 2e-3,
         (EESM_BENCH, EESM_TC, EESM_TIMED), (EESM_BENCH, EESM_TIMED), ops,
         (fs, fp, sf, dcf, indf), in_limits, design_fields,
-        ((EESM_BENCH, EESM_CONST_REFS["CC"]),))
+        ((EESM_BENCH, EESM_CONST_REFS["CC"]),), record_design(ef, "eesm"))
 
     # ---- kernels line rows ---------------------------------------------------
     replaces = {"eesm_rollout_random": "gym_electric_motor_tpu/ops/pallas_eesm.py:902",
@@ -2593,21 +2619,11 @@ def run_srm(dev, card, ops):
             # [-pi, pi] in float32: the wrap's product can land on pi exactly
             "eps_in_range": bool(((eps >= -pi32) & (eps <= pi32)).all())}
 
-    def record_design(key, env_steps, nbytes, ms, c):
-        """The recorder's design line: its ring (srf.srm_record_ring_layout,
-        with P), each role's registers and counts, the issue bound of both
-        roles' counts and the issue-slot floor, beside the bound of the
-        one-thread step, the function's own work."""
-        layout = srf.srm_record_ring_layout(c)
-        layout["P"] = srf.SRM_RECORD_RING[1]
-        return ring_fields(layout, key.replace("_random", "_ws", 1), key, key, env_steps,
-                           nbytes, ms)
-
     launches, timings = family_main_path(
         torch, gt, dev, card, fam, gt.SRM_ENV_IDS, SRM_CONST_REFS, 2e-3,
         (SRM_BENCH, SRM_TC, SRM_TIMED), (SRM_BENCH, SRM_TIMED), ops,
         (fs, fp, sf, dcf, indf, ef, dff), in_limits, lane_fields,
-        record_annotate=record_design)
+        record_annotate=record_design(srf, "srm"))
 
     # ---- kernels line rows ---------------------------------------------------
     replaces = {"srm_rollout_random": "gym_electric_motor_tpu/ops/pallas_srm.py:609",
@@ -3428,6 +3444,7 @@ def run_specialised(dev, card, ops):
 
     import gym_electric_motor_tpu_torch as gt
     from gym_electric_motor_tpu_torch.ops import fused_dc as fd
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
     from gym_electric_motor_tpu_torch.ops import fused_dfim as ff
     from gym_electric_motor_tpu_torch.ops import fused_eesm as fe
     from gym_electric_motor_tpu_torch.ops import fused_induction as fi
@@ -3640,7 +3657,8 @@ def run_specialised(dev, card, ops):
                                  "reset_share": float(done.double().mean())},
         "dc_record_random": {"steps": T_RECORD, "ms": u_ms,
                              "ops_per_step": ops["dc_record_random/Finite-CC-PermExDc-v0"],
-                             "reset_share": float(u_out["done"].double().mean())},
+                             "reset_share": float(u_out["done"].double().mean()),
+                             "design": dcf.dc_record_ring_layout(u_rec.consts)["design"]},
         "specialised_over_universal": k_ms / u_ms, "checks": checks}
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -3701,7 +3719,9 @@ REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "pmsm_rollout_random": "ring", "permex_rollout_random": "ring",
               "dc_policy_record": "lane groups below a full card",
               "srm_record_random": "ring on the continuous ids, on the finite ones tried and "
-                                   "not kept"}
+                                   "not kept",
+              "dc_record_random": "ring with Wiener references",
+              "eesm_record_random": "ring with Wiener references"}
 
 
 def redesign_order(line):

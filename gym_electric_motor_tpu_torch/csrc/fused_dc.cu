@@ -34,7 +34,7 @@
 // them, at 33% all of them.  None of that work depends on the state.
 //
 // With Wiener references the random rollout is warp-specialised
-// (draw_ring.cuh): four consumer warps run the step, one thread per env,
+// (dc_ring.cuh): four consumer warps run the step, one thread per env,
 // and eight producer warps draw, in a double-buffered shared-memory ring of
 // K = 4 steps a slot, every value of a step that depends on the constants
 // alone: the sampled action (one word per converter channel) and per row
@@ -60,8 +60,7 @@
 // or two, in the count.
 #include <cuda_runtime.h>
 
-#include "dc_step.cuh"
-#include "draw_ring.cuh"
+#include "dc_ring.cuh"
 
 namespace {
 
@@ -115,73 +114,6 @@ __global__ void dc_rollout_random_kernel(DcConst k, uint2 key, int n, int n_step
 }
 
 // ---- the warp-specialised random rollout ------------------------------
-
-// The ring of every instance: K = 4 steps a slot, two producer warps per
-// consumer warp, each drawing two steps of a slot (PERF.md: one producer
-// warp per consumer warp left the consumers waiting on the producers).
-using DcRing = RingShape<4, 2>;
-
-// Ring words a step: the action (one word per converter channel: a finite
-// action or a continuous one's bits), then kRefWords per reference row
-// (draw_ring.cuh).
-template <int MC, int NREF>
-__host__ __device__ constexpr int dc_ring_words() {
-  return (MC == MC_EXTEX ? 2 : 1) + kRefWords * NREF;
-}
-
-// What step t draws, whatever the state: the action and the reference
-// rows' candidates.
-template <int NREF>
-struct DcDraws {
-  DcAction a;
-  RefCandidates<NREF> c;
-};
-
-template <bool FINITE, int MC, int NREF>
-__device__ __forceinline__ DcDraws<NREF> dc_draws(const DcConst& k, uint2 key, uint32_t env,
-                                                 uint32_t t, bool odd, float& zb) {
-  DcDraws<NREF> d;
-  const uint4 w = drive_draw(key, env, t, DRIVE_SLOT_STEP);
-  d.a = dc_sample<FINITE, MC>(k, w);
-  d.c = ref_candidates<NREF>(k.ref, key, env, t, w, odd, zb);
-  return d;
-}
-
-template <bool FINITE, int MC, int NREF>
-__device__ __forceinline__ RingWords<dc_ring_words<MC, NREF>()> dc_pack(const DcDraws<NREF>& d) {
-  RingWords<dc_ring_words<MC, NREF>()> x;
-  x.w[0] = FINITE ? (uint32_t)d.a.a0 : __float_as_uint(d.a.f0);
-  if (MC == MC_EXTEX) x.w[1] = FINITE ? (uint32_t)d.a.a1 : __float_as_uint(d.a.f1);
-  pack_refs<NREF>(d.c, MC == MC_EXTEX ? 2 : 1, x);
-  return x;
-}
-
-template <bool FINITE, int MC, int NREF>
-__device__ __forceinline__ DcDraws<NREF> dc_unpack(const RingWords<dc_ring_words<MC, NREF>()>& x) {
-  DcDraws<NREF> d;
-  d.a.a0 = d.a.a1 = 0;
-  d.a.f0 = d.a.f1 = 0.0f;
-  if (FINITE) {
-    d.a.a0 = (int)x.w[0];
-    if (MC == MC_EXTEX) d.a.a1 = (int)x.w[1];
-  } else {
-    d.a.f0 = __uint_as_float(x.w[0]);
-    if (MC == MC_EXTEX) d.a.f1 = __uint_as_float(x.w[1]);
-  }
-  d.c = unpack_refs<NREF>(x, MC == MC_EXTEX ? 2 : 1);
-  return d;
-}
-
-// What depends on the state: dc_random_step with the step's draws given.
-template <bool FINITE, bool MECH, int MC, int NREF>
-__device__ __forceinline__ void dc_draw_step(const DcConst& k, const DcDraws<NREF>& d,
-                                             DcState& x, RefRows<NREF>& refs, float& reward,
-                                             float& terms) {
-  const DcStepOut o = dc_action_step<FINITE, MECH, MC, NREF>(k, d.a, x, refs);
-  reward += o.reward;
-  terms += o.done;
-  ref_advance_candidates<NREF>(k.ref, d.c, o.done != 0.0f, refs);
-}
 
 // One role of the warp-specialised kernel over the launch's steps.
 template <bool FINITE, bool MECH, int MC, int NREF>

@@ -16,12 +16,15 @@ written in CUDA carry the work on the GPU, over the shared step of
                          reference rows (``csrc/fused_dc.cu``; with Wiener
                          references producer warps draw each step's
                          action and reference candidates into a
-                         shared-memory ring, ``csrc/draw_ring.cuh``, and
+                         shared-memory ring, ``csrc/dc_ring.cuh``, and
                          consumer warps run the step)
 ``dc_rollout_buffer``    T steps of a given action buffer, deterministic
                          (``csrc/fused_dc.cu``)
 ``dc_record_random``     the random step, every step recorded
-                         (``csrc/fused_dc_record.cu``)
+                         (``csrc/fused_dc_record.cu``; with Wiener
+                         references producer warps draw and consumer
+                         warps step, as in the rollout,
+                         ``dc_record_ring_layout``)
 ``dc_record_buffer``     the buffer step, every state recorded
                          (``csrc/fused_dc_record.cu``)
 ======================= ================================================
@@ -121,6 +124,10 @@ LIBRARY = {"dc_rollout_random": "fused_dc", "dc_rollout_buffer": "fused_dc",
 
 # launches of each CUDA kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS + CONTROL_KERNELS, 0)
+
+# the random recorder's ring (DcRecordRing in csrc/fused_dc_record.cu): K
+# steps a slot, producer warps per consumer warp
+DC_RECORD_RING = (8, 2)
 
 
 def reset_launches():
@@ -525,10 +532,10 @@ _ARGTYPES = {
 }
 
 
-def _launch(name, device, *args):
+def _launch(name, device, *args, launches=LAUNCHES):
     lib = family_library(LIBRARY[name], "dc", _ARGTYPES,
                          (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)))
-    launch_kernel(lib, "dc", name, device, LAUNCHES, *args)
+    launch_kernel(lib, "dc", name, device, launches, *args)
 
 
 def _check_actions(c: DcConsts, actions, R, device):
@@ -587,17 +594,47 @@ def dc_record_random(c: DcConsts, seed: int, states, n_steps: int):
     device, R = check_planes(c, states)
     if device.type == "cpu":
         return dc_record_random_plain(c, seed, tuple(states), n_steps)
-    shape = (int(n_steps), R, LANE)
-    outs = [torch.empty(shape, dtype=dt, device=device) for dt in record_dtypes(c)]
+    outs = _record_random_launch(c, seed, states, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(int(n_steps), R, LANE) for x in outs)
+
+
+def _record_random_launch(c: DcConsts, seed: int, states, n_steps: int, n_envs: int,
+                          launches=None):
+    """dc_record_random's kernel on the first ``n_envs`` envs of the
+    planes: the recorded signals, each ``(T, n_envs)``; the launch counted
+    in ``launches`` (none: not counted)."""
+    outs, args = _record_random_args(c, seed, states, n_steps, n_envs)
+    _launch("dc_record_random", states[0].device, *args,
+            launches={"dc_record_random": 0} if launches is None else launches)
+    return outs
+
+
+def _record_random_args(c: DcConsts, seed: int, states, n_steps: int, n_envs: int):
+    """The recorder's output tensors, each ``(T, n_envs)``, and its C
+    arguments before the stream."""
+    outs = [torch.empty((int(n_steps), n_envs), dtype=dt, device=states[0].device)
+            for dt in record_dtypes(c)]
     it = iter(outs)
     st = [next(it) for _ in range(c.n_state)]
     refs = [next(it) for _ in range(c.n_ref)]
     acts = [next(it) for _ in range(c.n_ch)]
     ptr_list = (_out_state(c, st) + refs + [None] * (2 - c.n_ref) + acts + [None] * (2 - c.n_ch)
                 + list(it))
-    _launch("dc_record_random", device, c.host.ctypes.data, c.flags.ctypes.data, seed_u64(seed),
-            R * LANE, int(n_steps), _in_ptrs(c, states), ptr_array(ptr_list))
-    return tuple(outs)
+    return outs, (c.host.ctypes.data, c.flags.ctypes.data, seed_u64(seed), n_envs,
+                  int(n_steps), _in_ptrs(c, states), ptr_array(ptr_list))
+
+
+def dc_record_ring_layout(c: DcConsts):
+    """The random recorder's ring for ``c``'s instance (csrc/fused_dc_record.cu's
+    DcRecordRing, in csrc/ring_pipe.cuh's RingLayout): consumer and producer
+    warps, K steps a slot, slots, words a step (one per converter channel,
+    then four per reference row), shared-memory bytes; one thread per env
+    with constant references.  Computed here, without the library."""
+    if c.all_const:
+        return named_ring_layout((0,) * 6 + (1,))
+    K, P = DC_RECORD_RING
+    words = c.n_ch + 4 * c.n_ref
+    return named_ring_layout((4, 4 * P, K, 2, words, 2 * K * words * LANE * 4, 0))
 
 
 def dc_record_buffer(c: DcConsts, states, actions):

@@ -15,12 +15,15 @@ written in CUDA carry the work on the GPU, over the shared step of
                          reference rows (``csrc/fused_eesm.cu``; with Wiener
                          references producer warps draw each step's
                          action and reference candidates into a
-                         shared-memory ring, ``csrc/draw_ring.cuh``, and
+                         shared-memory ring, ``csrc/eesm_ring.cuh``, and
                          consumer warps run the step)
 ``eesm_rollout_buffer``  T steps of a given action buffer, deterministic
                          (``csrc/fused_eesm.cu``)
 ``eesm_record_random``   the random step, every step recorded
-                         (``csrc/fused_eesm_record.cu``)
+                         (``csrc/fused_eesm_record.cu``; with Wiener
+                         references producer warps draw and consumer
+                         warps step, as in the rollout,
+                         ``eesm_record_ring_layout``)
 ``eesm_record_buffer``   the buffer step, every state recorded
                          (``csrc/fused_eesm_record.cu``)
 ======================= ================================================
@@ -78,6 +81,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    named_ring_layout,
     physics_rows,
     policy_obs_spec,
     poly_load_rhs,
@@ -119,6 +123,10 @@ LIBRARY = {"eesm_rollout_random": "fused_eesm", "eesm_rollout_buffer": "fused_ee
 
 # launches of each CUDA kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+# the random recorder's ring (EesmRecordRing in csrc/fused_eesm_record.cu):
+# K steps a slot, producer warps per consumer warp
+EESM_RECORD_RING = (8, 2)
 
 
 def reset_launches():
@@ -500,10 +508,10 @@ _ARGTYPES = {
 }
 
 
-def _launch(name, device, *args):
+def _launch(name, device, *args, launches=LAUNCHES):
     lib = family_library(LIBRARY[name], "eesm", _ARGTYPES,
                          (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)))
-    launch_kernel(lib, "eesm", name, device, LAUNCHES, *args)
+    launch_kernel(lib, "eesm", name, device, launches, *args)
 
 
 def _with_omega(c, planes):
@@ -548,8 +556,26 @@ def eesm_record_random(c: EesmConsts, seed: int, states, n_steps: int):
     device, R = check_planes(c, states)
     if device.type == "cpu":
         return eesm_record_random_plain(c, seed, tuple(states), n_steps)
-    shape = (int(n_steps), R, LANE)
-    outs = [torch.empty(shape, dtype=dt, device=device) for dt in record_dtypes(c)]
+    outs = _record_random_launch(c, seed, states, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(int(n_steps), R, LANE) for x in outs)
+
+
+def _record_random_launch(c: EesmConsts, seed: int, states, n_steps: int, n_envs: int,
+                          launches=None):
+    """eesm_record_random's kernel on the first ``n_envs`` envs of the
+    planes: the recorded signals, each ``(T, n_envs)``; the launch counted
+    in ``launches`` (none: not counted)."""
+    outs, args = _record_random_args(c, seed, states, n_steps, n_envs)
+    _launch("eesm_record_random", states[0].device, *args,
+            launches={"eesm_record_random": 0} if launches is None else launches)
+    return outs
+
+
+def _record_random_args(c: EesmConsts, seed: int, states, n_steps: int, n_envs: int):
+    """The recorder's output tensors, each ``(T, n_envs)``, and its C
+    arguments before the stream."""
+    outs = [torch.empty((int(n_steps), n_envs), dtype=dt, device=states[0].device)
+            for dt in record_dtypes(c)]
     it = iter(outs)
     st = [next(it) for _ in range(c.n_state)]
     refs = [next(it) for _ in range(c.n_ref)]
@@ -557,10 +583,22 @@ def eesm_record_random(c: EesmConsts, seed: int, states, n_steps: int):
     reward, done = next(it), next(it)
     ptr_list = (_with_omega(c, st) + refs + [None] * (N_ROWS - c.n_ref)
                 + (acts + [None] * 4 if c.finite else [None] * 2 + acts) + [reward, done])
-    _launch("eesm_record_random", device, c.host.ctypes.data, c.flags.ctypes.data,
-            seed_u64(seed), R * LANE, int(n_steps), ptr_array(_with_omega(c, states)),
-            ptr_array(ptr_list))
-    return tuple(outs)
+    return outs, (c.host.ctypes.data, c.flags.ctypes.data, seed_u64(seed), n_envs,
+                  int(n_steps), ptr_array(_with_omega(c, states)), ptr_array(ptr_list))
+
+
+def eesm_record_ring_layout(c: EesmConsts):
+    """The random recorder's ring for ``c``'s instance (csrc/fused_eesm_record.cu's
+    EesmRecordRing, in csrc/ring_pipe.cuh's RingLayout): consumer and
+    producer warps, K steps a slot, slots, words a step (finite: the B6 bits
+    and the 4QC action; continuous: the four duties; then four per
+    reference row), shared-memory bytes; one thread per env with constant
+    references.  Computed here, without the library."""
+    if c.all_const:
+        return named_ring_layout((0,) * 6 + (1,))
+    K, P = EESM_RECORD_RING
+    words = c.n_act + 4 * c.n_ref
+    return named_ring_layout((4, 4 * P, K, 2, words, 2 * K * words * LANE * 4, 0))
 
 
 def eesm_record_buffer(c: EesmConsts, states, actions):

@@ -1446,3 +1446,105 @@ def test_cuda_srm_record_random_equals_plain_version_bit_for_bit(env_id, psi_s):
                 assert bool(same.all()), f"T={T}: output {j} differs in {int((~same).sum())}"
         assert float(got[-1][0, 0, 5]) == 1.0  # env 5 reset at its first step
     assert {k: v for k, v in srf.LAUNCHES.items() if v} == {"srm_record_random": 3}
+
+
+# the universal DC and EESM random recorders: every built DC random
+# instance (<FINITE, MECH, MC, NREF>: PermExDc and ShuntDc on CC and SC,
+# ExtExDc on CC with its two rows, TC and SC, finite and continuous) and
+# the six EESM ids, each with its Wiener references and with constant ones
+DC_RECORD_IDS = [f"{conv}-{task}-{motor}-v0" for motor, tasks in (
+    ("PermExDc", ("CC", "SC")), ("ShuntDc", ("CC", "SC")), ("ExtExDc", ("CC", "TC", "SC")))
+    for conv in ("Finite", "Cont") for task in tasks]
+DC_RECORD_CASES = [(i, r) for i in DC_RECORD_IDS for r in ("wiener", "const")]
+EESM_RECORD_CASES = [(i, "wiener") for i in gt.EESM_ENV_IDS] + [("Finite-CC-EESM-v0", "const")]
+
+
+def _record_case(family, env_id, refs, dev):
+    """The family module, its constants for ``env_id`` (constant references
+    DC_EESM_CONST_REFS with ``refs`` "const") and one plane of 128 start
+    states: currents inside their limits, the speed under a dynamic load in
+    [0, 100), env 5's first current at five times its limit."""
+    from gym_electric_motor_tpu_torch import references as rg
+    from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef
+
+    _conv, task, motor, _v = env_id.split("-")
+    kw = {}
+    if refs == "const":
+        const = DC_EESM_CONST_REFS[task]
+        const = const[motor] if task == "CC" else const
+        kw["reference_generator"] = rg.ReferenceSpec([rg.ConstReference(n, v) for n, v in const])
+    env = gt.make_functional(env_id, device=dev, **kw)
+    mod = dcf if family == "dc" else ef
+    c = (dcf.DcConsts if family == "dc" else ef.EesmConsts)(env)
+    assert c.all_const == (refs == "const")
+    rng = np.random.default_rng(29)
+    if family == "dc":
+        lims = [c.f["lim0"], c.f["lim1"]][:c.n_el]
+        start = ([rng.uniform(0, 100, (1, 128))] if c.mech else []) + [
+            rng.uniform(-0.5 * lim, 0.5 * lim, (1, 128)) for lim in lims]
+        start[-c.n_el][0, 5] = 5.0 * lims[0]
+    else:
+        i_lim, ie_lim = 1.0 / c.f["inv_i_lim"], 1.0 / c.f["inv_ie_lim"]
+        start = ([rng.uniform(0, 100, (1, 128))] if c.mech else []) + [
+            rng.uniform(-0.4 * i_lim, 0.4 * i_lim, (1, 128)),
+            rng.uniform(-0.4 * i_lim, 0.4 * i_lim, (1, 128)),
+            rng.uniform(-0.5 * ie_lim, 0.5 * ie_lim, (1, 128)),
+            rng.uniform(0, 2 * np.pi, (1, 128))]
+        start[-4][0, 5] = 5.0 * i_lim  # i_sd
+    return mod, c, [torch.as_tensor(x.astype(np.float32), device=dev) for x in start]
+
+
+def _hold_record_bit_for_bit(family, env_id, refs):
+    """The random recorder of ``family`` on ``env_id`` against its plain
+    version, bit for bit in every plane, env and step (NaN where the plain
+    version has NaN), at 1, 2, 9 and 37 steps (the ring stops in every
+    place of a slot of four or eight steps), on one plane of 128 envs and on
+    a partial block of 37 envs (the planes' first 37); the launch takes the
+    design the ring layout names, and each call counts one launch.  Env 5
+    starts at five times its current limit: its first step violates and
+    draws the reset candidates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    dev = torch.device("cuda")
+    mod, c, start = _record_case(family, env_id, refs, dev)
+    name = f"{family}_record_random"
+    lay = getattr(mod, f"{family}_record_ring_layout")(c)
+    assert lay["design"] == ("one thread per env" if refs == "const" else "warp-specialised")
+    mod.reset_launches()
+    for T in (37, 1, 2, 9):
+        got = getattr(mod, name)(c, 7, start, T)
+        part = mod._record_random_launch(c, 7, start, T, 37)
+        torch.cuda.synchronize()
+        want = getattr(mod, name + "_plain")(c, 7, start, T)
+        for j, (g, p, w) in enumerate(zip(got, part, want)):
+            assert g.shape == w.shape and g.dtype == w.dtype, (T, j)
+            w2 = w.reshape(T, 128)[:, :37]
+            assert p.shape == w2.shape and p.dtype == w2.dtype, (T, j)
+            for x, y in ((g, w), (p, w2)):
+                same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+                assert bool(same.all()), f"T={T}: output {j} differs in {int((~same).sum())}"
+        assert float(got[-1][0, 0, 5]) == 1.0  # env 5 reset at its first step
+    assert {k: v for k, v in mod.LAUNCHES.items() if v} == {name: 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,refs", DC_RECORD_CASES,
+                         ids=[f"{i}-{r}" for i, r in DC_RECORD_CASES])
+def test_cuda_dc_record_random_equals_plain_version_bit_for_bit(env_id, refs):
+    """dc_record_random (producer and consumer warps over a ring with Wiener
+    references, one thread per env with constant ones,
+    csrc/fused_dc_record.cu) on every built random instance:
+    _hold_record_bit_for_bit."""
+    _hold_record_bit_for_bit("dc", env_id, refs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,refs", EESM_RECORD_CASES,
+                         ids=[f"{i}-{r}" for i, r in EESM_RECORD_CASES])
+def test_cuda_eesm_record_random_equals_plain_version_bit_for_bit(env_id, refs):
+    """eesm_record_random (producer and consumer warps over a ring with
+    Wiener references, one thread per env with constant ones,
+    csrc/fused_eesm_record.cu) on the six EESM ids, and with constant
+    references on Finite-CC-EESM: _hold_record_bit_for_bit."""
+    _hold_record_bit_for_bit("eesm", env_id, refs)

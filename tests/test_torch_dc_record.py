@@ -137,3 +137,42 @@ def test_const_references_recorded_exactly():
     ok = out["done"] < 0.5
     want = c.f["bias"] - c.rows[0]["coef"] * torch.abs(torque - 0.25)
     torch.testing.assert_close(out["reward"][ok], want[ok], rtol=1e-6, atol=1e-7)
+
+
+RING_CASES = [(i, "wiener") for i in gt.DC_ENV_IDS] + [("Finite-CC-PermExDc-v0", "const")]
+
+
+@pytest.mark.parametrize("env_id,refs", RING_CASES, ids=[f"{i}-{r}" for i, r in RING_CASES])
+def test_record_ring_layout_is_the_kernels_ring(env_id, refs):
+    """dc_record_ring_layout, computed without the library, is the ring of
+    csrc/fused_dc_record.cu (DcRecordRing; words a step: one per converter
+    channel, then four per reference row, dc_ring.cuh's dc_ring_words) with
+    Wiener references: 4 consumer warps, P producer warps per consumer warp,
+    two slots of K steps, each producer's steps pairing an even step with
+    the odd one that takes its sine half; with constant references one
+    thread per env."""
+    from pathlib import Path
+
+    tenv = const_envs(env_id)[1] if refs == "const" else gt.make_functional(env_id, device="cpu")
+    c = dcf.DcConsts(tenv)
+    assert c.all_const == (refs == "const")
+    lay = dcf.dc_record_ring_layout(c)
+    csrc = Path(dcf.__file__).resolve().parent.parent / "csrc"
+    source = (csrc / "fused_dc_record.cu").read_text()
+    if refs == "const":
+        assert lay == {"consumer_warps": 0, "producer_warps": 0, "K": 0, "slots": 0, "words": 0,
+                       "smem_bytes": 0, "design": "one thread per env"}
+        assert "  if (k.ref.all_const) {\n    dc_record_random_kernel<F, M, MC, NR>" in source
+        return
+    K, P = dcf.DC_RECORD_RING
+    words = c.n_ch + 4 * c.n_ref
+    assert words == {(1, 1): 5, (2, 1): 6, (2, 2): 10}[(c.n_ch, c.n_ref)]
+    assert lay == {"consumer_warps": 4, "producer_warps": 4 * P, "K": K, "slots": 2,
+                   "words": words, "smem_bytes": 2 * K * words * 128 * 4,
+                   "design": "warp-specialised"}
+    assert (K // P) % 2 == 0 and lay["smem_bytes"] <= 227 * 1024
+    assert f"using DcRecordRing = RingShape<{K}, {P}>;" in source
+    ring_header = (csrc / "dc_ring.cuh").read_text()
+    assert "return (MC == MC_EXTEX ? 2 : 1) + kRefWords * NREF;" in ring_header
+    assert ("ring_layout<DcRecordRing>((flags[DF_MCLASS] == MC_EXTEX ? 2 : 1) + kRefWords * "
+            "flags[DF_NREF],") in source

@@ -119,3 +119,42 @@ def test_record_signals_match_jax(env_id):
     if env_id.startswith("Cont"):
         for k in ("action_a", "action_b", "action_c", "action_e"):
             assert float(out[k].min()) >= -1.0 and float(out[k].max()) < 1.0
+
+
+RING_CASES = [(i, "wiener") for i in gt.EESM_ENV_IDS] + [("Finite-CC-EESM-v0", "const")]
+
+
+@pytest.mark.parametrize("env_id,refs", RING_CASES, ids=[f"{i}-{r}" for i, r in RING_CASES])
+def test_record_ring_layout_is_the_kernels_ring(env_id, refs):
+    """eesm_record_ring_layout, computed without the library, is the ring of
+    csrc/fused_eesm_record.cu (EesmRecordRing; words a step: the B6 bits and
+    the 4QC action, or the four duties, then four per reference row,
+    eesm_ring.cuh's eesm_ring_words) with Wiener references: 4 consumer
+    warps, P producer warps per consumer warp, two slots of K steps, each
+    producer's steps pairing an even step with the odd one that takes its
+    sine half; with constant references one thread per env."""
+    from pathlib import Path
+
+    tenv = const_envs(env_id)[1] if refs == "const" else gt.make_functional(env_id, device="cpu")
+    c = ef.EesmConsts(tenv)
+    assert c.all_const == (refs == "const") and c.mech == env_id.split("-")[1].startswith("SC")
+    lay = ef.eesm_record_ring_layout(c)
+    csrc = Path(ef.__file__).resolve().parent.parent / "csrc"
+    source = (csrc / "fused_eesm_record.cu").read_text()
+    if refs == "const":
+        assert lay == {"consumer_warps": 0, "producer_warps": 0, "K": 0, "slots": 0, "words": 0,
+                       "smem_bytes": 0, "design": "one thread per env"}
+        assert "  if (k.flag[EF_ALL_CONST]) {\n    eesm_record_random_kernel<F, M, NR>" in source
+        return
+    K, P = ef.EESM_RECORD_RING
+    words = (2 if c.finite else 4) + 4 * c.n_ref
+    assert words == {(True, 1): 6, (True, 3): 14, (False, 1): 8, (False, 3): 16}[
+        (c.finite, c.n_ref)]
+    assert lay == {"consumer_warps": 4, "producer_warps": 4 * P, "K": K, "slots": 2,
+                   "words": words, "smem_bytes": 2 * K * words * 128 * 4,
+                   "design": "warp-specialised"}
+    assert (K // P) % 2 == 0 and lay["smem_bytes"] <= 227 * 1024
+    assert f"using EesmRecordRing = RingShape<{K}, {P}>;" in source
+    assert "return (FINITE ? 2 : 4) + kRefWords * NREF;" in (csrc / "eesm_ring.cuh").read_text()
+    assert ("ring_layout<EesmRecordRing>((flags[EF_FINITE] ? 2 : 4) + kRefWords * "
+            "flags[EF_NREF], out);") in source

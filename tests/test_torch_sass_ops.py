@@ -16,6 +16,8 @@ import pytest
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import sass_ops  # noqa: E402
 
+from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf  # noqa: E402
+from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_policy as fp  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf  # noqa: E402
 
@@ -472,8 +474,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     evaluation rollout, the specialised DC SC, Cont-TC-SCIM, Finite-CC-EESM
     and Cont-CC-DFIM rollouts, the DC cascade, the FOC, the main path's
     Finite-CC-PMSM random rollout, the specialised Finite-CC-PermExDc
-    rollout and the SRM random recorder run warp-specialised
-    with Wiener references: the DC and EESM ``_ws`` entries
+    rollout and the SRM, DC and EESM random recorders run warp-specialised
+    with Wiener references: the DC and EESM rollouts' ``_ws`` entries
     carry ``@ws2`` (two producer warps per consumer warp, two steps each of
     a four-step slot) or, under the EESM's speed ODE (MECH), ``@ws4`` (one),
     and no other entry carries a ``@ws`` mark; each has a one-thread entry
@@ -484,7 +486,10 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     slot for two
     producer warps, so their
     mark is ``@ws4``, the steps a producer iteration fills; the EESM CC and
-    DC cascade rings hold four for two, ``@ws2``."""
+    DC cascade rings hold four for two, ``@ws2``; the DC and EESM recorders'
+    marks are K / P of their rings (``DC_RECORD_RING``,
+    ``EESM_RECORD_RING``)."""
+    (dk, dp), (ek, ep) = dcf.DC_RECORD_RING, ef.EESM_RECORD_RING
     seen = {}
     for instances in sass_ops.STEP_INSTANCES.values():
         for key, instance in instances.items():
@@ -493,7 +498,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                                        "dc_sc_rollout_ws", "eesm_cc_rollout_ws",
                                        "dc_cascade_rollout_ws", "dfim_cc_rollout_ws",
                                        "foc_rollout_ws", "scim_rollout_ws", "pmsm_rollout_ws",
-                                       "permex_rollout_ws", "srm_record_ws")
+                                       "permex_rollout_ws", "srm_record_ws",
+                                       "dc_record_ws", "eesm_record_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
@@ -517,7 +523,9 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                     "dc_cascade_rollout_ws/Cont-SC-SeriesDc-v0": 2,
                     "dc_cascade_rollout_ws/Cont-SC-ShuntDc-v0": 2,
                     "dfim_cc_rollout_ws": 4, "foc_rollout_ws": 4, "scim_rollout_ws": 4,
-                    "pmsm_rollout_ws": 4, "permex_rollout_ws": 4, "srm_record_ws": 4}
+                    "pmsm_rollout_ws": 4, "permex_rollout_ws": 4, "srm_record_ws": 4,
+                    **{k: dk // dp for k in ("dc_record_ws", "dc_record_ws/Finite-CC-PermExDc-v0")},
+                    **{k: ek // ep for k in ("eesm_record_ws", "eesm_record_ws/Finite-CC-EESM-v0")}}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
@@ -728,3 +736,23 @@ def test_dc_policy_lanes_and_srm_record_ring_keep_their_one_thread_entries():
     assert sass_ops.ws_steps_of(srm["srm_record_ws"]) == K // P
     assert sass_ops.lanes_of(srm["srm_record_ws"]) == 1
     assert [k for k in srm if "_ws" in k] == ["srm_record_ws"]
+
+
+@pytest.mark.parametrize("library,prefix,mod,ids", [
+    ("fused_dc_record", "dc_record", dcf, ("", "/Finite-CC-PermExDc-v0")),
+    ("fused_eesm_record", "eesm_record", ef, ("", "/Finite-CC-EESM-v0"))])
+def test_dc_and_eesm_record_rings_keep_their_one_thread_entries(library, prefix, mod, ids):
+    """dc_record_random and eesm_record_random run on a ring with Wiener
+    references (``@wsK``, K / P of ``DC_RECORD_RING`` and
+    ``EESM_RECORD_RING``) on the ids chip_smoke.py times (Cont-SC-ShuntDc
+    and Finite-CC-PermExDc, Cont-SC-EESM and Finite-CC-EESM), while each
+    one-thread entry stays the count of the function's own work: every ring
+    entry's template arguments are its one-thread entry's."""
+    instances = sass_ops.STEP_INSTANCES[library]
+    K, P = getattr(mod, f"{prefix.split('_')[0].upper()}_RECORD_RING")
+    for tail in ids:
+        one, ring = instances[f"{prefix}_random{tail}"], instances[f"{prefix}_ws{tail}"]
+        assert ring == one.replace("_random_kernel", "_ws_kernel") + f"@ws{K // P}"
+        assert sass_ops.ws_steps_of(ring) == K // P and sass_ops.lanes_of(ring) == 1
+        assert sass_ops.ws_steps_of(one) == 0
+    assert sorted(k for k in instances if "_ws" in k) == [f"{prefix}_ws{t}" for t in ids]

@@ -35,9 +35,13 @@ universal policy recorder of the id's family (``<family>_policy_record``,
 ``dc_policy_record`` on the DC ids; joint heads, H hidden units, n envs,
 at 256 steps, or 1024 from 16384 envs on: the two shapes ``chip_smoke.py``
 times in phase 42; weights drawn from numpy as ``chip_smoke.pu_weights``
-draws them, zero states) or ``srm_record:<id>[:psi_s]`` for the SRM random
+draws them, zero states), ``srm_record:<id>[:psi_s]`` for the SRM random
 recorder (``srm_record_random`` at 1024 steps, the catalog's Wiener
-references, linear or with that saturation flux ``psi_s``); the closed
+references, linear or with that saturation flux ``psi_s``),
+``dc_record:<id>`` for the universal DC random recorder (``dc_record_random``
+on any of the 24 DC ids, at 1024 steps, the catalog's Wiener references) or
+``eesm_record:<id>`` for the universal EESM random recorder
+(``eesm_record_random`` on any of the six EESM ids, likewise); the closed
 loops take the tuned controller of ``GemController.make``.
 For each path (default: the synchronous and DFIM ids that ``chip_smoke.py``
 times, with Wiener and with constant references) it builds the path's
@@ -45,7 +49,8 @@ source (``csrc/fused_<family>.cu``, ``csrc/fused_policy.cu``,
 ``csrc/fused_dc_sc.cu``, ``csrc/fused_eesm_cc.cu``, ``csrc/fused_dfim_cc.cu``,
 ``csrc/fused_scim_tc.cu``, ``csrc/fused_pmsm.cu``, ``csrc/fused_permex.cu``,
 ``csrc/fused_dc_cascade.cu``, ``csrc/fused_foc.cu``,
-``csrc/fused_<family>_policy.cu``, ``csrc/fused_srm_record.cu``) of both
+``csrc/fused_<family>_policy.cu``, ``csrc/fused_srm_record.cu``,
+``csrc/fused_dc_record.cu``, ``csrc/fused_eesm_record.cu``) of both
 trees with the package's nvcc flags,
 runs the kernel of each on the same constants, seed and zero states
 (16384 envs x 65536 steps, the recorders as above; the policy's weights drawn from numpy as
@@ -71,7 +76,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 N_ENVS, T_STEPS, SEED, REPS = 16384, 65536, 7, 5
 T_REINFORCE = 1024   # the REINFORCE trainer's depth (chip_smoke.T_REINFORCE)
-T_RECORD = 1024      # the SRM recorder's depth (chip_smoke.T_RECORD)
+T_RECORD = 1024      # the recorders' depth (chip_smoke.T_RECORD)
 DEFAULT_PATHS = ("sync:Finite-CC-PMSM-v0", "sync:Cont-SC-PMSM-v0", "sync:Finite-CC-PMSM-v0:const",
                  "sync:Cont-SC-PMSM-v0:const", "dfim:Cont-CC-DFIM-v0", "dfim:Finite-CC-DFIM-v0",
                  "dfim:Cont-SC-DFIM-v0", "dfim:Cont-CC-DFIM-v0:const",
@@ -87,14 +92,18 @@ C_ROLLOUT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_uint64, ctypes.c_int, ct
 
 def build_other(other: Path, library: str) -> ctypes.CDLL:
     """``csrc/<library>.cu`` of the other checkout, built with this
-    package's nvcc flags into ``<other>/_ab_build``."""
+    package's nvcc flags into ``<other>/_ab_build`` (kept there while no
+    source of that checkout is newer, so that several runs against one
+    checkout build it once)."""
     from gym_electric_motor_tpu_torch.ops import cuda_build
 
     csrc = other / "gym_electric_motor_tpu_torch" / "csrc"
     out = other / "_ab_build" / f"lib{library}.so"
     out.parent.mkdir(exist_ok=True)
-    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(csrc), "-o",
-                    str(out), str(csrc / f"{library}.cu")], check=True, capture_output=True)
+    newest = max(f.stat().st_mtime for f in csrc.iterdir())
+    if not out.exists() or out.stat().st_mtime < newest:
+        subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+                        str(out), str(csrc / f"{library}.cu")], check=True, capture_output=True)
     return ctypes.CDLL(str(out))
 
 
@@ -113,6 +122,7 @@ def main():
     from gym_electric_motor_tpu_torch.ops import fused_eesm as fe
     from gym_electric_motor_tpu_torch.ops import fused_induction as fi
     from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
+    from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef
     from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
     from gym_electric_motor_tpu_torch.ops import fused_policy as fp
     from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf
@@ -124,6 +134,10 @@ def main():
         sys.exit("rollout_ab.py: torch.cuda.is_available() is false")
     other = Path(sys.argv[1]).resolve()
     paths = sys.argv[2:] or DEFAULT_PATHS
+    # the random recorders on a ring: module, constants, library
+    RECORDERS = {"dc_record": (dcf, dcf.DcConsts, "fused_dc_record"),
+                 "eesm_record": (ef, ef.EesmConsts, "fused_eesm_record"),
+                 "srm_record": (srf, srf.SrmConsts, "fused_srm_record")}
     families = {"sync": (sf, sf.SyncConsts, "fused_sync"),
                 "induction": (indf, indf.InductionConsts, "fused_induction"),
                 "dfim": (dff, dff.DfimConsts, "fused_dfim")}
@@ -170,26 +184,27 @@ def main():
 
             def run_this():
                 return fp.policy_record_universal(pol, SEED, *w, ls, planes, steps)
-        elif family == "srm_record":
+        elif family in RECORDERS:
             env_id, *psi = rest
             kw = {"motor": {"motor_parameter": {"psi_s": float(psi[0])}}} if psi else {}
-            c = srf.SrmConsts(gt.make_functional(env_id, device=dev, **kw))
+            mod, consts, library = RECORDERS[family]
+            c = consts(gt.make_functional(env_id, device=dev, **kw))
             steps = T_RECORD
             z = [torch.zeros((N_ENVS // 128, 128), device=dev) for _ in range(c.n_state)]
-            fn = other_lib("fused_srm_record", "srm_record_random",
-                           srf._ARGTYPES["srm_record_random"])
-            r_idx = len(srf.record_dtypes(c)) - 2
-            design = srf.srm_record_ring_layout(c)
+            kernel = f"{family}_random"
+            fn = other_lib(library, kernel, mod._ARGTYPES[kernel])
+            r_idx = len(mod.record_dtypes(c)) - 2
+            design = getattr(mod, f"{family}_ring_layout")(c)
 
             def run_other():
-                outs, args = srf._record_random_args(c, SEED, z, steps, N_ENVS)
+                outs, args = mod._record_random_args(c, SEED, z, steps, N_ENVS)
                 rc = fn(*args, stream())
                 if rc:
-                    raise RuntimeError(f"the other tree's srm_record_random returned {rc}")
+                    raise RuntimeError(f"the other tree's {kernel} returned {rc}")
                 return outs
 
             def run_this():
-                return srf._record_random_launch(c, SEED, z, steps, N_ENVS)
+                return mod._record_random_launch(c, SEED, z, steps, N_ENVS)
         elif family == "policy":
             sample, refs, hidden = rest
             greedy, wiener = sample == "greedy", refs == "wiener"

@@ -76,7 +76,8 @@ included; the function's own work is the one-thread step's count.  A
 warp-specialised kernel (the sync, DC, SCIM, EESM and DFIM random rollouts,
 csrc/draw_ring.cuh; the policy evaluation rollout, the specialised DC SC,
 Cont-TC-SCIM, Finite-CC-EESM and Cont-CC-DFIM rollouts, the DC cascade and
-the FOC, csrc/ring_pipe.cuh) is marked ``@wsK``: its consumer warps run
+the FOC, the SRM, DC and EESM random recorders, csrc/ring_pipe.cuh) is
+marked ``@wsK``: its consumer warps run
 a step loop (one step an iteration, shared-memory loads) and its producer warps
 a loop whose iteration fills a ring slot of K steps (shared-memory
 stores, the K steps unrolled); an env-step issues the consumer's count
@@ -707,10 +708,15 @@ STEP_INSTANCES = {
         "dc_rollout_ws": "dc_rollout_ws_kernelILb0ELb1ELi1ELi1E@ws2",
         "dc_rollout_ws/Finite-CC-PermExDc-v0": "dc_rollout_ws_kernelILb1ELb0ELi0ELi1E@ws2",
     },
+    # With Wiener references the random recorder runs dc_record_ws_kernel
+    # (K = 8, two producer warps per consumer warp: @ws4); its one-thread
+    # Wiener loop is built for the count of the function's own work
     "fused_dc_record": {
         "dc_record_random": "dc_record_random_kernelILb0ELb1ELi1ELi1E",
         "dc_record_buffer": "dc_record_buffer_kernelILb0ELb1ELi1E",
         "dc_record_random/Finite-CC-PermExDc-v0": "dc_record_random_kernelILb1ELb0ELi0ELi1E",
+        "dc_record_ws": "dc_record_ws_kernelILb0ELb1ELi1ELi1E@ws4",
+        "dc_record_ws/Finite-CC-PermExDc-v0": "dc_record_ws_kernelILb1ELb0ELi0ELi1E@ws4",
     },
     # <FINITE, MECH, NREF>: Cont-SC-SCIM-v0 (0, 1, 1) for each kernel, and
     # Cont-TC-SCIM-v0 (0, 0, 1) and Finite-CC-SCIM-v0 (1, 0, 2) for the
@@ -758,10 +764,15 @@ STEP_INSTANCES = {
         "eesm_rollout_random/Finite-CC-EESM-v0/const": "eesm_rollout_random_kernelILb1ELb0ELi3E#2",
         "eesm_rollout_ahead/Finite-CC-EESM-v0/const": "eesm_rollout_ahead_kernelILb1ELb0ELi3E",
     },
+    # With Wiener references the random recorder runs eesm_record_ws_kernel
+    # (K = 8, two producer warps per consumer warp: @ws4); its one-thread
+    # Wiener loop is built for the count of the function's own work
     "fused_eesm_record": {
         "eesm_record_random": "eesm_record_random_kernelILb0ELb1ELi1E",
         "eesm_record_buffer": "eesm_record_buffer_kernelILb0ELb1E",
         "eesm_record_random/Finite-CC-EESM-v0": "eesm_record_random_kernelILb1ELb0ELi3E",
+        "eesm_record_ws": "eesm_record_ws_kernelILb0ELb1ELi1E@ws4",
+        "eesm_record_ws/Finite-CC-EESM-v0": "eesm_record_ws_kernelILb1ELb0ELi3E@ws4",
     },
     # <FINITE, MECH, NREF>: Cont-SC-DFIM-v0 (0, 1, 1) for each kernel, and
     # Cont-CC-DFIM-v0 (0, 0, 2) and Finite-CC-DFIM-v0 (1, 0, 2) for the
