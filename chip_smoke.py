@@ -72,9 +72,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
             Cont-SC-PMSM-v0, the instance the bounds count); the two
             random kernels again at the recorder's main-path 1024 steps
             on Finite-CC-PMSM-v0 and Cont-SC-PMSM-v0; sync_rollout_random
-            (warp-specialised with Wiener references) bit for bit (error 0
-            in every env) in all of those runs, and again on every id with
-            constant references
+            and sync_record_random (warp-specialised with Wiener references)
+            bit for bit (error 0 in every env) in all of those runs, and
+            again on every id with constant references
 14.-16. the slice-3 main path, counted from zero:
    14. sync_env  for each id, the port's env (VectorEnv's reset, the env's
             step without autoreset, constant references, an action buffer,
@@ -96,7 +96,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             and on Cont-SC-PMSM-v0, each with its share of env-steps that
             reset, its design, ring, registers, issue bound and issue-slot
             floor; the universal random recorder at 1024 steps on
-            Finite-CC-PMSM-v0 and Cont-SC-PMSM-v0 (GB/s); the general path
+            Finite-CC-PMSM-v0 and Cont-SC-PMSM-v0 (GB/s) with its reset
+            share and its design line as the rollout's; the general path
             (VectorEnv.rollout, random duty) on Cont-SC-PMSM-v0 at 200 steps;
             the launches of phases 14-16 must be exactly what they make
 17. (the rows of slices 1 to 3 of the kernels line, see 49)
@@ -138,10 +139,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
             the 4 kernels against its plain version at 16384 envs x 64
             steps (timed on Cont-SC-SCIM-v0, the instance the bounds count);
             the two random kernels again at 1024 steps on Finite-CC-SCIM-v0
-            and Cont-SC-SCIM-v0; induction_rollout_random (warp-specialised
-            with Wiener references) bit for bit (error 0 in every env) in
-            all of those runs, and again on every id with constant
-            references
+            and Cont-SC-SCIM-v0; induction_rollout_random and
+            induction_record_random (warp-specialised with Wiener
+            references) bit for bit (error 0 in every env) in all of those
+            runs, and again on every id with constant references
 23.-25. the slice-5 main path, counted from zero:
    23. induction_env  for each id, the port's env (VectorEnv's reset, the
             env's step without autoreset, constant references, an action
@@ -158,8 +159,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             Cont-SC-SCIM-v0, and on Cont-TC-SCIM-v0 with constant
             references; the random recorder at 1024 steps on Finite-CC- and
             Cont-SC-SCIM-v0 (GB/s); each with its share of env-steps that
-            reset, and for the rollout its design, roles, ring, registers
-            and issue bound as phase 21's; the general path
+            reset, and for the rollout and the recorder their design, roles,
+            ring, registers and issue bound as phase 21's; the general path
             (VectorEnv.rollout, the random policy of the action space) on
             Cont-SC-SCIM-v0 at 200 steps; the launches of phases 23-25 must
             be exactly what they make
@@ -692,15 +693,17 @@ def design_fields(key, env_steps, nbytes, ms, c):
 
 def record_design(mod, prefix):
     """The design fields of a timed random recorder of ``mod`` that runs on
-    a ring with Wiener references (the DC, EESM and SRM ones; phases 21, 29
-    and 37), as a function of (key, env_steps, nbytes, ms, c): its ring
-    (``<prefix>_record_ring_layout``, with P), each role's registers and
-    counts, the issue bound of both roles' counts and the issue-slot floor,
-    beside the bound of the one-thread step, the function's own work; one
-    thread per env, the issue bound of the one-thread loop."""
+    a ring with Wiener references (the sync, DC, SCIM, EESM and SRM ones;
+    phases 16, 21, 25, 29 and 37), as a function of (key, env_steps,
+    nbytes, ms, c): its ring (``<prefix>_record_ring_layout``, with P, the
+    producer warps per consumer warp), each role's registers and counts,
+    the issue bound of both roles' counts and the issue-slot floor, beside
+    the bound of the one-thread step, the function's own work; one thread
+    per env, the issue bound of the one-thread loop."""
     def fields(key, env_steps, nbytes, ms, c):
         layout = getattr(mod, f"{prefix}_record_ring_layout")(c)
-        layout["P"] = getattr(mod, f"{prefix.upper()}_RECORD_RING")[1]
+        if layout["consumer_warps"]:
+            layout["P"] = layout["producer_warps"] // layout["consumer_warps"]
         return ring_fields(layout, key.replace("_random", "_ws", 1), key, key, env_steps,
                            nbytes, ms)
     return fields
@@ -1771,9 +1774,10 @@ def run_sync(dev, card, ops):
         env_action=lambda c, a: a.reshape(N) if c.finite else a.reshape(3, N).T.contiguous())
     worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.SYNC_ENV_IDS, SYNC_TIMED,
                                                  (SYNC_SPECIALISED, SYNC_TIMED), ops)
-    # the warp-specialised random rollout, bit for bit on every id
+    # the warp-specialised random rollout and recorder, bit for bit on every id
     hold_bit_equal(torch, gt, rg, dev, fam, gt.SYNC_ENV_IDS,
-                   lambda env_id: SYNC_CONST_REFS[env_id.split("-")[1]], worst, share)
+                   lambda env_id: SYNC_CONST_REFS[env_id.split("-")[1]], worst, share,
+                   ("rollout", "record"))
 
     # ---- 14.-16. the main path: counts from zero ---------------------------
     fs.reset_launches()
@@ -1860,14 +1864,17 @@ def run_sync(dev, card, ops):
         rec = frec.make_fused_record_rollout(env, T_RECORD, N)
         c_ms, rec_out = cuda_ms(torch, lambda: rec(SEED, *z), reps=SYNC_REPS)
         rec_bytes = sum(x.numel() * x.element_size() for x in rec_out.values())
+        c_bytes = sync_bytes(c, "sync_record_random", N, T_RECORD)
         row = {
             "sync_rollout_random": r_row,
             "sync_record_random": {
                 "steps": T_RECORD, "ms": c_ms, "bytes_written": rec_bytes,
                 "env_steps_per_s": N * T_RECORD / (c_ms / 1e3),
                 "GB_per_s": rec_bytes / (c_ms / 1e3) / 1e9,
-                "bound_ms": bound_ms(N * T_RECORD, ops["sync_record_random" + key],
-                                     sync_bytes(c, "sync_record_random", N, T_RECORD))[0]},
+                "bound_ms": bound_ms(N * T_RECORD, ops["sync_record_random" + key], c_bytes)[0],
+                "reset_share": float(rec_out["done"].double().mean()),
+                **record_design(sf, "sync")("sync_record_random" + key, N * T_RECORD, c_bytes,
+                                            c_ms, c)},
         }
         if env_id == SYNC_SPECIALISED:
             pc = fs.PmsmConsts(env)
@@ -2341,9 +2348,10 @@ def run_induction(dev, card, ops):
         env_action=lambda c, a: a.reshape(N) if c.finite else a.reshape(3, N).T.contiguous())
     worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.SCIM_ENV_IDS, IND_TIMED,
                                                  (IND_CC, IND_TIMED), ops)
-    # the warp-specialised random rollout, bit for bit on every id
+    # the warp-specialised random rollout and recorder, bit for bit on every id
     hold_bit_equal(torch, gt, rg, dev, fam, gt.SCIM_ENV_IDS,
-                   lambda env_id: SYNC_CONST_REFS[env_id.split("-")[1]], worst, share)
+                   lambda env_id: SYNC_CONST_REFS[env_id.split("-")[1]], worst, share,
+                   ("rollout", "record"))
 
     # ---- 23.-25. the main path: counts from zero ---------------------------
     # 23. the env against the buffer kernels (rtol 1e-4 / atol 2e-3,
@@ -2357,7 +2365,7 @@ def run_induction(dev, card, ops):
     launches, timings = family_main_path(
         torch, gt, dev, card, fam, gt.SCIM_ENV_IDS, SYNC_CONST_REFS, 2e-3,
         (IND_BENCH, IND_CC, IND_TIMED), (IND_CC, IND_TIMED), ops, (fs, fp, sf, dcf), in_circle,
-        design_fields, ((IND_BENCH, SYNC_CONST_REFS["TC"]),))
+        design_fields, ((IND_BENCH, SYNC_CONST_REFS["TC"]),), record_design(indf, "induction"))
 
     # ---- kernels line rows ---------------------------------------------------
     replaces = {"induction_rollout_random": "gym_electric_motor_tpu/ops/pallas_induction.py:859",
@@ -3721,7 +3729,9 @@ REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "srm_record_random": "ring on the continuous ids, on the finite ones tried and "
                                    "not kept",
               "dc_record_random": "ring with Wiener references",
-              "eesm_record_random": "ring with Wiener references"}
+              "eesm_record_random": "ring with Wiener references",
+              "sync_record_random": "ring with Wiener references",
+              "induction_record_random": "ring with Wiener references"}
 
 
 def redesign_order(line):

@@ -1,8 +1,10 @@
 // The warp-specialised random rollouts of the DC, SCIM, EESM and synchronous
 // families (fused_dc.cu, fused_induction.cu, fused_eesm.cu, fused_sync.cu)
-// and the DC, EESM and SRM random recorders (fused_dc_record.cu,
-// fused_eesm_record.cu, fused_srm_record.cu; the DC and EESM draws in
-// dc_ring.cuh and eesm_ring.cuh): producer warps compute every value of a
+// and the DC, EESM, SRM, synchronous and SCIM random recorders
+// (fused_dc_record.cu, fused_eesm_record.cu, fused_srm_record.cu,
+// fused_sync.cu, fused_induction_record.cu; the DC and EESM draws in
+// dc_ring.cuh and eesm_ring.cuh, the SCIM's consumer step in
+// induction_ring.cuh): producer warps compute every value of a
 // step that does not depend on the state into a shared-memory ring, and
 // consumer warps run the step, one thread per env, reading those values.
 //

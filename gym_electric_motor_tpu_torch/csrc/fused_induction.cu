@@ -22,14 +22,15 @@
 // and add rounds as in the plain PyTorch version.
 //
 // With Wiener references the random rollout is warp-specialised
-// (draw_ring.cuh), as the DC and EESM ones: four consumer warps run the
-// step, one thread per env (the flux direction where a row refers to the
-// dq currents, the physics, the violation, the reward, the regeneration
-// test), and producer warps draw, in a double-buffered shared-memory ring
-// of K = 8 steps a slot, every value of a step that depends on the
-// constants alone: the B6 action (the bits, or three duties with the
-// ACTION_C call) and per row the Box-Muller draw, the candidate length and
-// sigma and the candidate reset value, 5 to 11 words a step.  The
+// (draw_ring.cuh; the consumer's step in induction_ring.cuh, shared with
+// the random recorder), as the DC and EESM ones: four consumer warps run
+// the step, one thread per env (the flux direction where a row refers to
+// the dq currents, the physics, the violation, the reward, the
+// regeneration test), and producer warps draw, in a double-buffered
+// shared-memory ring of K = 8 steps a slot, every value of a step that
+// depends on the constants alone: the B6 action (the bits, or three duties
+// with the ACTION_C call) and per row the Box-Muller draw, the candidate
+// length and sigma and the candidate reset value, 5 to 11 words a step.  The
 // continuous ids reset in 2.4% of env-steps, so one thread per env took the
 // divergent redraw in about 55% of warp-steps.  Two producer warps per
 // consumer warp, at constant speed and under the speed ODE (IndRing).  With
@@ -55,8 +56,7 @@
 // one step, or four, in the count.
 #include <cuda_runtime.h>
 
-#include "draw_ring.cuh"
-#include "induction_step.cuh"
+#include "induction_ring.cuh"
 
 namespace {
 
@@ -92,19 +92,6 @@ __device__ __forceinline__ void ind_store_out(const InductionState& x, float rew
 // alike (one producer warp left the consumers waiting on both, and K = 4
 // ran 2% to 3% slower, PERF.md).
 using IndRing = RingShape<8, 2>;
-
-// What depends on the state: ind_random_step with the step's draws given.
-template <bool FINITE, bool MECH, int NREF, bool WIENER>
-__device__ __forceinline__ void ind_draw_step(const InductionConst& k, const B6Draws<NREF>& d,
-                                              InductionState& x, RefRows<NREF>& refs,
-                                              float& reward, float& terms) {
-  float c = 1.0f, s = 0.0f;
-  if (k.flag[IF_NEEDS_DQ]) ind_flux_dir(k, x, c, s);
-  const InductionStepOut o = ind_action_step<FINITE, MECH, NREF>(k, d.a, x, c, s, refs);
-  reward += o.reward;
-  terms += o.done;
-  if constexpr (WIENER) ref_advance_candidates<NREF>(k.ref, d.c, o.done != 0.0f, refs);
-}
 
 // One thread per env.  With Wiener references (the loop the bound counts;
 // the launch takes the warp-specialised kernel) each step draws and steps

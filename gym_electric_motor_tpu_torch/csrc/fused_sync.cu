@@ -14,8 +14,8 @@
 //
 // Design: the drive state, the Park rotation and the reference rows in
 // registers across an in-kernel loop over T steps, one thread per env but
-// in the random rollout with Wiener references.  The TPU recorder's
-// sequential chunk grid and per-chunk reseed
+// in the random rollout and the random recorder with Wiener references.
+// The TPU recorder's sequential chunk grid and per-chunk reseed
 // (pallas_record.py:206-211) do not carry over: the recorders store
 // [t, env], so a warp writes 128 contiguous bytes per signal and step.
 // Random bits come from Philox4x32-10 keyed by the seed and counted by
@@ -40,6 +40,16 @@
 // (PERF.md, slice 15).  The one-thread kernel's Wiener loop, which the launch
 // does not take, counts the function's own work.  Every design equals the
 // plain version bit for bit.
+//
+// The random recorder on a ring.  One thread per env put every Philox call
+// of a step, the Box-Muller pair's logf, sqrtf, cosf and sinf and the
+// divergent reference redraw after a reset on the step's dependent chain,
+// as the rollout did before its ring.  With Wiener references the recorder
+// is warp-specialised over the rollout's draws: producer warps fill the
+// ring with b6_draws (5 to 11 words a step), consumer warps run
+// sync_ring_step, one thread per env, and store the recorded planes.
+// ref_wiener_init stays with the consumer.  With constant references a
+// step draws only its action, and the recorder keeps its one-thread loop.
 //
 // What bounds it on this card: the reducing kernels move only the initial
 // and final state (plus 4 or 12 bytes of action per env-step in buffer
@@ -133,6 +143,23 @@ __device__ __forceinline__ void sync_draw_step(const SyncConst& k, const B6Draws
   reward += o.reward;
   terms += o.done;
   if constexpr (WIENER) ref_advance_candidates<NREF>(k.ref, d.c, o.done != 0.0f, refs);
+}
+
+// sync_draw_step for the recorder: the same step with Wiener references,
+// returning what the recorder stores (the reducing step above keeps its
+// sums before the reference advance, the order the rollout's SASS was
+// counted in).
+template <bool FINITE, bool MECH, int NREF>
+__device__ __forceinline__ SyncStepOut sync_ring_step(const SyncConst& k, const B6Draws<NREF>& d,
+                                                      SyncState& x, float& c, float& s,
+                                                      RefRows<NREF>& refs) {
+  if (MECH) {
+    c = cosf(x.eps);
+    s = sinf(x.eps);
+  }
+  const SyncStepOut o = sync_action_step<FINITE, MECH, NREF>(k, d.a, x, c, s, refs);
+  ref_advance_candidates<NREF>(k.ref, d.c, o.done != 0.0f, refs);
+  return o;
 }
 
 // One thread per env.  With Wiener references (the loop the bound counts;
@@ -248,6 +275,24 @@ struct RecordOut {
   float *act_a, *act_b, *act_c, *reward, *done;
 };
 
+// Step t's recorded planes, at i = t n + e.
+template <bool FINITE, bool MECH, int NREF>
+__device__ __forceinline__ void store_step(const SyncStepOut& r, const SyncState& x,
+                                           const RecordOut& o, size_t i) {
+  store_state<MECH>(x, o.w, o.i_sd, o.i_sq, o.eps, i);
+  o.ref0[i] = r.ref[0];
+  if (NREF == 2) o.ref1[i] = r.ref[1];
+  if (FINITE) {
+    o.act_i[i] = r.act.bits;
+  } else {
+    o.act_a[i] = r.act.a;
+    o.act_b[i] = r.act.b;
+    o.act_c[i] = r.act.c;
+  }
+  o.reward[i] = r.reward;
+  o.done[i] = r.done;
+}
+
 template <bool FINITE, bool MECH, int NREF, bool WIENER>
 __device__ __forceinline__ void record_random_loop(const SyncConst& k, uint2 key, int e, int n,
                                                    int n_steps, SyncState& x, float& c, float& s,
@@ -256,19 +301,7 @@ __device__ __forceinline__ void record_random_loop(const SyncConst& k, uint2 key
   for (int t = 0; t < n_steps; ++t) {
     const SyncStepOut r =
         sync_random_step<FINITE, MECH, NREF, WIENER>(k, key, (uint32_t)e, (uint32_t)t, x, c, s, refs);
-    const size_t i = (size_t)t * n + e;
-    store_state<MECH>(x, o.w, o.i_sd, o.i_sq, o.eps, i);
-    o.ref0[i] = r.ref[0];
-    if (NREF == 2) o.ref1[i] = r.ref[1];
-    if (FINITE) {
-      o.act_i[i] = r.act.bits;
-    } else {
-      o.act_a[i] = r.act.a;
-      o.act_b[i] = r.act.b;
-      o.act_c[i] = r.act.c;
-    }
-    o.reward[i] = r.reward;
-    o.done[i] = r.done;
+    store_step<FINITE, MECH, NREF>(r, x, o, (size_t)t * n + e);
   }
 }
 
@@ -293,6 +326,53 @@ __global__ void sync_record_random_kernel(SyncConst k, uint2 key, int n, int n_s
   } else {
     record_random_loop<FINITE, MECH, NREF, true>(k, key, e, n, n_steps, x, c, s, refs, o);
   }
+}
+
+// The recorder's ring: K steps a slot, P producer warps per consumer warp;
+// of K in {4, 8} x P in {1, 2} the fastest or within 1.5% of it on every id
+// probed, and the only shape that ran faster than the one-thread recorder
+// on all of them (one producer warp ran 5% to 14% slower than that on the
+// CC ids, PERF.md, slice 23); ops/fused_sync_family.py's SYNC_RECORD_RING
+// mirrors it.
+using SyncRecordRing = RingShape<8, 2>;
+
+// The random recorder with Wiener references (with constant ones the
+// launch takes sync_record_random_kernel): producer warps run b6_draws,
+// consumer warps the step, one thread per env.
+template <bool FINITE, bool MECH, int NREF>
+__global__ void __launch_bounds__(SyncRecordRing::kThreads)
+    sync_record_ws_kernel(SyncConst k, uint2 key, int n, int n_steps,
+                          const float* __restrict__ w0, const float* __restrict__ i_sd0,
+                          const float* __restrict__ i_sq0, const float* __restrict__ eps0,
+                          RecordOut o) {
+  constexpr int W = b6_draw_words<FINITE, NREF>();
+  extern __shared__ uint32_t ring[];
+  const RingThread th = ring_thread(n);
+  const int e = th.e;
+  const RingPipe<SyncRecordRing> pipe(n_steps);
+  const RingView<W> v{ring + th.le};
+  if (!th.consumer) {
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool odd, float& zb) {
+      return b6_draws_pack<FINITE, NREF>(
+          b6_draws<FINITE, NREF, true>(k.ref, key, (uint32_t)e, t, odd, zb));
+    });
+    return;
+  }
+  SyncState x = load_state<MECH>(w0, i_sd0, i_sq0, eps0, e);
+  float c = 1.0f, s = 0.0f;
+  if (!MECH) {
+    c = cosf(x.eps);
+    s = sinf(x.eps);
+  }
+  RefRows<NREF> refs;
+  ref_wiener_init<NREF>(k.ref, key, (uint32_t)e, refs);
+  size_t i = (size_t)e;
+  ring_consume(pipe, v, n_steps, [&](const RingWords<W>& words) {
+    const SyncStepOut r = sync_ring_step<FINITE, MECH, NREF>(
+        k, b6_draws_unpack<FINITE, NREF>(words), x, c, s, refs);
+    if (th.live) store_step<FINITE, MECH, NREF>(r, x, o, i);
+    i += (size_t)n;
+  });
 }
 
 template <bool FINITE, bool MECH>
@@ -368,11 +448,27 @@ void launch_rollout_random(const SyncConst& k, uint2 key, int n, int n_steps, co
                                                                                  n_steps, io);
 }
 
+// Wiener references run the warp-specialised kernel; constant ones, which
+// draw only the action, the one-thread kernel.  Returns the error of
+// raising the kernel's shared-memory limit, or 0.
 template <bool F, bool M, int NR>
-void launch_record_random(const SyncConst& k, uint2 key, int n, int n_steps, const float* const* in,
-                          const RecordOut& o, cudaStream_t st) {
-  sync_record_random_kernel<F, M, NR><<<blocks(n), kThreads, 0, st>>>(k, key, n, n_steps, in[0],
-                                                                      in[1], in[2], in[3], o);
+int launch_record_random(const SyncConst& k, uint2 key, int n, int n_steps, const float* const* in,
+                         const RecordOut& o, cudaStream_t st) {
+  if (k.flag[F_ALL_CONST]) {
+    sync_record_random_kernel<F, M, NR><<<blocks(n), kThreads, 0, st>>>(k, key, n, n_steps, in[0],
+                                                                        in[1], in[2], in[3], o);
+    return 0;
+  }
+  constexpr int bytes = ring_bytes<SyncRecordRing>(b6_draw_words<F, NR>());
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sync_record_ws_kernel<F, M, NR>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  sync_record_ws_kernel<F, M, NR><<<(n + kRingEnvs - 1) / kRingEnvs, SyncRecordRing::kThreads,
+                                    bytes, st>>>(k, key, n, n_steps, in[0], in[1], in[2], in[3],
+                                                 o);
+  return 0;
 }
 
 template <bool F, bool M>
@@ -393,8 +489,8 @@ void launch_record_buffer(const SyncConst& k, int n, int n_steps, const float* c
 
 using RolloutRandomFn = void (*)(const SyncConst&, uint2, int, int, const float* const*,
                                  float* const*, cudaStream_t);
-using RecordRandomFn = void (*)(const SyncConst&, uint2, int, int, const float* const*,
-                                const RecordOut&, cudaStream_t);
+using RecordRandomFn = int (*)(const SyncConst&, uint2, int, int, const float* const*,
+                               const RecordOut&, cudaStream_t);
 using BufferFn = void (*)(const SyncConst&, int, int, const float* const*, const int*,
                           const float*, float* const*, cudaStream_t);
 
@@ -482,9 +578,23 @@ int sync_record_random(const float* consts, const int* flags, unsigned long long
   o.act_c = (float*)out[9];
   o.reward = (float*)out[10];
   o.done = (float*)out[11];
-  kRecordRandom[idx](sync_load_const(consts, flags), seed_key(seed), n, n_steps, in, o,
-                     (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  const int err = kRecordRandom[idx](sync_load_const(consts, flags), seed_key(seed), n, n_steps,
+                                     in, o, (cudaStream_t)stream);
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// The random recorder's ring for the instance and loop of these flags
+// (ring_pipe.cuh's RingLayout), or RL_DESIGN 1 and the rest zero where the
+// launch runs one thread per env (constant references);
+// cudaErrorInvalidValue for flags no instance serves.
+int sync_record_ring_layout(const int* flags, int* out) {
+  if (random_index(flags) < 0) return (int)cudaErrorInvalidValue;
+  if (flags[F_ALL_CONST]) {
+    ring_layout_one_thread(1, out);
+    return 0;
+  }
+  ring_layout<SyncRecordRing>((flags[F_FINITE] ? 1 : 3) + kRefWords * flags[F_NREF], out);
+  return 0;
 }
 
 // As sync_rollout_buffer, every step's state stored (T, N).

@@ -1,6 +1,7 @@
 // The shared-memory ring of the warp-specialised rollouts and recorders
 // (draw_ring.cuh for the universal families' random rollouts and the DC,
-// EESM and SRM random recorders, pmsm_ring.cuh for the Finite-CC-PMSM random
+// EESM, SRM, synchronous and SCIM random recorders, pmsm_ring.cuh for the
+// Finite-CC-PMSM random
 // rollout, the PMSM policy evaluation rollout and the FOC closed loop,
 // fused_permex.cu, fused_dc_sc.cu, fused_scim_tc.cu, fused_eesm_cc.cu and
 // fused_dfim_cc.cu for the specialised Finite-CC-PermExDc, Cont-SC DC,

@@ -18,7 +18,9 @@ step of ``csrc/induction_step.cuh``:
 ``induction_rollout_buffer``  T steps of a given action buffer,
                               deterministic (``csrc/fused_induction.cu``)
 ``induction_record_random``   the random step, every step recorded
-                              (``csrc/fused_induction_record.cu``)
+                              (``csrc/fused_induction_record.cu``;
+                              warp-specialised with Wiener references,
+                              ``induction_record_ring_layout``)
 ``induction_record_buffer``   the buffer step, every state recorded
                               (``csrc/fused_induction_record.cu``)
 ============================ ============================================
@@ -75,6 +77,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    named_ring_layout,
     physics_rows,
     policy_obs_spec,
     poly_load_rhs,
@@ -114,6 +117,11 @@ LIBRARY = {"induction_rollout_random": "fused_induction",
 
 # launches of each CUDA kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+# the random recorder's ring (IndRecordRing in
+# csrc/fused_induction_record.cu): K steps a slot, producer warps per
+# consumer warp
+IND_RECORD_RING = (8, 2)
 
 
 def reset_launches():
@@ -446,10 +454,10 @@ _ARGTYPES = {
 }
 
 
-def _launch(name, device, *args):
+def _launch(name, device, *args, launches=LAUNCHES):
     lib = family_library(LIBRARY[name], "induction", _ARGTYPES,
                          (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)))
-    launch_kernel(lib, "induction", name, device, LAUNCHES, *args)
+    launch_kernel(lib, "induction", name, device, launches, *args)
 
 
 def _with_omega(c, planes):
@@ -504,8 +512,26 @@ def induction_record_random(c: InductionConsts, seed: int, states, n_steps: int)
     device, R = check_planes(c, states)
     if device.type == "cpu":
         return induction_record_random_plain(c, seed, tuple(states), n_steps)
-    shape = (int(n_steps), R, LANE)
-    outs = [torch.empty(shape, dtype=dt, device=device) for dt in record_dtypes(c)]
+    outs = _record_random_launch(c, seed, states, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(int(n_steps), R, LANE) for x in outs)
+
+
+def _record_random_launch(c: InductionConsts, seed: int, states, n_steps: int, n_envs: int,
+                          launches=None):
+    """induction_record_random's kernel on the first ``n_envs`` envs of
+    the planes: the recorded signals, each ``(T, n_envs)``; the launch
+    counted in ``launches`` (none: not counted)."""
+    outs, args = _record_random_args(c, seed, states, n_steps, n_envs)
+    _launch("induction_record_random", states[0].device, *args,
+            launches={"induction_record_random": 0} if launches is None else launches)
+    return outs
+
+
+def _record_random_args(c: InductionConsts, seed: int, states, n_steps: int, n_envs: int):
+    """The recorder's output tensors, each ``(T, n_envs)``, and its C
+    arguments before the stream."""
+    outs = [torch.empty((int(n_steps), n_envs), dtype=dt, device=states[0].device)
+            for dt in record_dtypes(c)]
     it = iter(outs)
     st = [next(it) for _ in range(c.n_state)]
     refs = [next(it) for _ in range(c.n_ref)]
@@ -513,10 +539,23 @@ def induction_record_random(c: InductionConsts, seed: int, states, n_steps: int)
     reward, done = next(it), next(it)
     ptr_list = (_with_omega(c, st) + refs + [None] * (2 - c.n_ref)
                 + (acts + [None] * 3 if c.finite else [None] + acts) + [reward, done])
-    _launch("induction_record_random", device, c.host.ctypes.data, c.flags.ctypes.data,
-            seed_u64(seed), R * LANE, int(n_steps), ptr_array(_with_omega(c, states)),
-            ptr_array(ptr_list))
-    return tuple(outs)
+    return outs, (c.host.ctypes.data, c.flags.ctypes.data, seed_u64(seed), n_envs,
+                  int(n_steps), ptr_array(_with_omega(c, states)), ptr_array(ptr_list))
+
+
+def induction_record_ring_layout(c: InductionConsts):
+    """The random recorder's ring for ``c``'s instance
+    (csrc/fused_induction_record.cu's IndRecordRing, in
+    csrc/ring_pipe.cuh's RingLayout): consumer and producer warps, K steps
+    a slot, slots, words a step (finite: the B6 bits; continuous: the three
+    duties; then four per reference row), shared-memory bytes; one thread
+    per env with constant references.  Computed here, without the
+    library."""
+    if c.all_const:
+        return named_ring_layout((0,) * 6 + (1,))
+    K, P = IND_RECORD_RING
+    words = c.n_act + 4 * c.n_ref
+    return named_ring_layout((4, 4 * P, K, 2, words, 2 * K * words * LANE * 4, 0))
 
 
 def induction_record_buffer(c: InductionConsts, states, actions):

@@ -14,7 +14,11 @@ kernels written in CUDA (``csrc/fused_sync.cu``, over the shared step of
                          reward sums, termination counts and the final
                          reference rows
 ``sync_rollout_buffer``  T steps of a given action buffer, deterministic
-``sync_record_random``   the random step, every step recorded
+``sync_record_random``   the random step, every step recorded (with
+                         Wiener references producer warps draw each
+                         step's action and reference candidates into a
+                         shared-memory ring and consumer warps step,
+                         ``sync_record_ring_layout``)
 ``sync_record_buffer``   the buffer step, every state recorded
 ======================= ================================================
 
@@ -52,6 +56,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    named_ring_layout,
     policy_obs_spec,
     poly_load_rhs,
     ref_rows,
@@ -86,6 +91,10 @@ KERNELS = ("sync_rollout_random", "sync_rollout_buffer", "sync_record_random",
 
 # launches of each CUDA kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+# the random recorder's ring (SyncRecordRing in csrc/fused_sync.cu): K
+# steps a slot, producer warps per consumer warp
+SYNC_RECORD_RING = (8, 2)
 
 
 def reset_launches():
@@ -405,10 +414,10 @@ def _out_state(c, outs):
     return ([None] if not c.mech else []) + list(outs)
 
 
-def _launch(name, device, *args):
+def _launch(name, device, *args, launches=LAUNCHES):
     lib = family_library("fused_sync", "sync", _ARGTYPES,
                          (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)))
-    launch_kernel(lib, "sync", name, device, LAUNCHES, *args)
+    launch_kernel(lib, "sync", name, device, launches, *args)
 
 
 def sync_rollout_random(c: SyncConsts, seed: int, states, n_steps: int):
@@ -454,8 +463,26 @@ def sync_record_random(c: SyncConsts, seed: int, states, n_steps: int):
     device, R = check_planes(c, states)
     if device.type == "cpu":
         return sync_record_random_plain(c, seed, tuple(states), n_steps)
-    shape = (int(n_steps), R, LANE)
-    outs = [torch.empty(shape, dtype=dt, device=device) for dt in record_dtypes(c)]
+    outs = _record_random_launch(c, seed, states, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(int(n_steps), R, LANE) for x in outs)
+
+
+def _record_random_launch(c: SyncConsts, seed: int, states, n_steps: int, n_envs: int,
+                          launches=None):
+    """sync_record_random's kernel on the first ``n_envs`` envs of the
+    planes: the recorded signals, each ``(T, n_envs)``; the launch counted
+    in ``launches`` (none: not counted)."""
+    outs, args = _record_random_args(c, seed, states, n_steps, n_envs)
+    _launch("sync_record_random", states[0].device, *args,
+            launches={"sync_record_random": 0} if launches is None else launches)
+    return outs
+
+
+def _record_random_args(c: SyncConsts, seed: int, states, n_steps: int, n_envs: int):
+    """The recorder's output tensors, each ``(T, n_envs)``, and its C
+    arguments before the stream."""
+    outs = [torch.empty((int(n_steps), n_envs), dtype=dt, device=states[0].device)
+            for dt in record_dtypes(c)]
     it = iter(outs)
     st = [next(it) for _ in range(c.n_state)]
     refs = [next(it) for _ in range(c.n_ref)]
@@ -463,9 +490,22 @@ def sync_record_random(c: SyncConsts, seed: int, states, n_steps: int):
     reward, done = next(it), next(it)
     ptr_list = (_out_state(c, st) + refs + [None] * (2 - c.n_ref)
                 + (acts + [None] * 3 if c.finite else [None] + acts) + [reward, done])
-    _launch("sync_record_random", device, c.host.ctypes.data, c.flags.ctypes.data, _seed(seed),
-            R * LANE, int(n_steps), _in_ptrs(c, states), _ptrs(ptr_list))
-    return tuple(outs)
+    return outs, (c.host.ctypes.data, c.flags.ctypes.data, _seed(seed), n_envs, int(n_steps),
+                  _in_ptrs(c, states), _ptrs(ptr_list))
+
+
+def sync_record_ring_layout(c: SyncConsts):
+    """The random recorder's ring for ``c``'s instance (csrc/fused_sync.cu's
+    SyncRecordRing, in csrc/ring_pipe.cuh's RingLayout): consumer and
+    producer warps, K steps a slot, slots, words a step (finite: the B6
+    bits; continuous: the three duties; then four per reference row),
+    shared-memory bytes; one thread per env with constant references.
+    Computed here, without the library."""
+    if c.all_const:
+        return named_ring_layout((0,) * 6 + (1,))
+    K, P = SYNC_RECORD_RING
+    words = c.n_act + 4 * c.n_ref
+    return named_ring_layout((4, 4 * P, K, 2, words, 2 * K * words * LANE * 4, 0))
 
 
 def sync_record_buffer(c: SyncConsts, states, actions):

@@ -1461,25 +1461,44 @@ EESM_RECORD_CASES = [(i, "wiener") for i in gt.EESM_ENV_IDS] + [("Finite-CC-EESM
 
 def _record_case(family, env_id, refs, dev):
     """The family module, its constants for ``env_id`` (constant references
-    DC_EESM_CONST_REFS with ``refs`` "const") and one plane of 128 start
-    states: currents inside their limits, the speed under a dynamic load in
-    [0, 100), env 5's first current at five times its limit."""
+    DC_EESM_CONST_REFS, or SCIM_CONST_REFS for the sync and SCIM families,
+    with ``refs`` "const") and one plane of 128 start states: currents
+    inside their limits (the SCIM's as chip_smoke.run_induction's planes:
+    within 6 A against a 5.5 A limit, fluxes within 0.5 Wb), the speed under
+    a dynamic load in [0, 100), angles in [0, 2 pi), env 5's first current
+    at five times its limit."""
     from gym_electric_motor_tpu_torch import references as rg
     from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
     from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef
+    from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
+    from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
 
     _conv, task, motor, _v = env_id.split("-")
     kw = {}
     if refs == "const":
-        const = DC_EESM_CONST_REFS[task]
-        const = const[motor] if task == "CC" else const
+        const = (DC_EESM_CONST_REFS if family in ("dc", "eesm") else SCIM_CONST_REFS)[task]
+        const = const[motor] if isinstance(const, dict) else const
         kw["reference_generator"] = rg.ReferenceSpec([rg.ConstReference(n, v) for n, v in const])
     env = gt.make_functional(env_id, device=dev, **kw)
-    mod = dcf if family == "dc" else ef
-    c = (dcf.DcConsts if family == "dc" else ef.EesmConsts)(env)
+    mod, consts = {"dc": (dcf, dcf.DcConsts), "eesm": (ef, ef.EesmConsts),
+                   "sync": (sf, sf.SyncConsts),
+                   "induction": (indf, indf.InductionConsts)}[family]
+    c = consts(env)
     assert c.all_const == (refs == "const")
     rng = np.random.default_rng(29)
-    if family == "dc":
+    if family == "sync":
+        i_lim = 1.0 / c.f["inv_i_lim"]
+        start = ([rng.uniform(0, 100, (1, 128))] if c.mech else []) + [
+            rng.uniform(-0.5 * i_lim, 0.5 * i_lim, (1, 128)),
+            rng.uniform(-0.5 * i_lim, 0.5 * i_lim, (1, 128)),
+            rng.uniform(0, 2 * np.pi, (1, 128))]
+        start[-3][0, 5] = 5.0 * i_lim  # i_sd
+    elif family == "induction":
+        i_lim = float(c.f["inv_ilim2"]) ** -0.5
+        bounds = ([(0, 100)] if c.mech else []) + [(-6, 6)] * 2 + [(-0.5, 0.5)] * 2
+        start = [rng.uniform(lo, hi, (1, 128)) for lo, hi in bounds]
+        start[-4][0, 5] = 5.0 * i_lim  # i_salpha
+    elif family == "dc":
         lims = [c.f["lim0"], c.f["lim1"]][:c.n_el]
         start = ([rng.uniform(0, 100, (1, 128))] if c.mech else []) + [
             rng.uniform(-0.5 * lim, 0.5 * lim, (1, 128)) for lim in lims]
@@ -1548,3 +1567,31 @@ def test_cuda_eesm_record_random_equals_plain_version_bit_for_bit(env_id, refs):
     csrc/fused_eesm_record.cu) on the six EESM ids, and with constant
     references on Finite-CC-EESM: _hold_record_bit_for_bit."""
     _hold_record_bit_for_bit("eesm", env_id, refs)
+
+
+# the universal sync and SCIM random recorders: every id of both families
+# with its Wiener references, and one finite CC id with constant ones
+SYNC_RECORD_CASES = [(i, "wiener") for i in gt.SYNC_ENV_IDS] + [("Finite-CC-PMSM-v0", "const")]
+IND_RECORD_CASES = [(i, "wiener") for i in gt.SCIM_ENV_IDS] + [("Finite-CC-SCIM-v0", "const")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,refs", SYNC_RECORD_CASES,
+                         ids=[f"{i}-{r}" for i, r in SYNC_RECORD_CASES])
+def test_cuda_sync_record_random_equals_plain_version_bit_for_bit(env_id, refs):
+    """sync_record_random (producer and consumer warps over a ring with
+    Wiener references, one thread per env with constant ones,
+    csrc/fused_sync.cu) on the twelve sync ids, and with constant
+    references on Finite-CC-PMSM: _hold_record_bit_for_bit."""
+    _hold_record_bit_for_bit("sync", env_id, refs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,refs", IND_RECORD_CASES,
+                         ids=[f"{i}-{r}" for i, r in IND_RECORD_CASES])
+def test_cuda_induction_record_random_equals_plain_version_bit_for_bit(env_id, refs):
+    """induction_record_random (producer and consumer warps over a ring
+    with Wiener references, one thread per env with constant ones,
+    csrc/fused_induction_record.cu) on the six SCIM ids, and with constant
+    references on Finite-CC-SCIM: _hold_record_bit_for_bit."""
+    _hold_record_bit_for_bit("induction", env_id, refs)

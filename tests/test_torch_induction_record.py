@@ -13,6 +13,10 @@ package's ``ops/pallas_record.py`` (interpret mode, one chunk).
   signal names and types match the JAX recorder's for all six ids; the
   CC reward recomputes from the recorded currents and the flux of the step
   before (the stale field angle).
+* The random recorder's ring (csrc/fused_induction_record.cu's
+  ``induction_record_ws_kernel``, computed here without the library) and
+  the partial-width launcher's arguments; the kernel itself runs only on a
+  CUDA card (tests/test_torch_cuda_kernels.py).
 """
 
 import jax.numpy as jnp
@@ -136,3 +140,66 @@ def test_cc_reward_takes_the_stale_flux_angle():
     ok = (out["done"][1:] < 0.5) & (out["done"][:-1] < 0.5) & safe
     assert ok.mean() > 0.8
     np.testing.assert_allclose(out["reward"][1:][ok], expect[ok], rtol=1e-4, atol=1e-5)
+
+
+RING_CASES = [(i, "wiener") for i in gt.SCIM_ENV_IDS] + [("Finite-CC-SCIM-v0", "const")]
+
+
+@pytest.mark.parametrize("env_id,refs", RING_CASES, ids=[f"{i}-{r}" for i, r in RING_CASES])
+def test_record_ring_layout_is_the_kernels_ring(env_id, refs):
+    """induction_record_ring_layout is the ring of
+    csrc/fused_induction_record.cu (IndRecordRing; words a step: the B6 bits
+    or the three duties, then four per reference row, draw_ring.cuh's
+    b6_draw_words) with Wiener references: 4 consumer warps, P producer
+    warps per consumer warp, two slots of K steps, each producer's steps
+    pairing an even step with the odd one that takes its sine half; with
+    constant references one thread per env."""
+    from pathlib import Path
+
+    tenv = const_envs(env_id)[1] if refs == "const" else gt.make_functional(env_id, device="cpu")
+    c = indf.InductionConsts(tenv)
+    assert c.all_const == (refs == "const")
+    lay = indf.induction_record_ring_layout(c)
+    csrc = Path(indf.__file__).resolve().parent.parent / "csrc"
+    source = (csrc / "fused_induction_record.cu").read_text()
+    if refs == "const":
+        assert lay == {"consumer_warps": 0, "producer_warps": 0, "K": 0, "slots": 0, "words": 0,
+                       "smem_bytes": 0, "design": "one thread per env"}
+        assert ("  if (k.flag[IF_ALL_CONST]) {\n    induction_record_random_kernel<F, M, NR>"
+                in source)
+        return
+    K, P = indf.IND_RECORD_RING
+    words = c.n_act + 4 * c.n_ref
+    assert words == {(1, 1): 5, (3, 1): 7, (1, 2): 9, (3, 2): 11}[(c.n_act, c.n_ref)]
+    assert lay == {"consumer_warps": 4, "producer_warps": 4 * P, "K": K, "slots": 2,
+                   "words": words, "smem_bytes": 2 * K * words * 128 * 4,
+                   "design": "warp-specialised"}
+    assert (K // P) % 2 == 0 and lay["smem_bytes"] <= 227 * 1024
+    assert f"using IndRecordRing = RingShape<{K}, {P}>;" in source
+    ring_header = (csrc / "draw_ring.cuh").read_text()
+    assert "  return b6_ring_words<FINITE>() + kRefWords * NREF;" in ring_header
+    assert ("ring_layout<IndRecordRing>((flags[IF_FINITE] ? 1 : 3) + kRefWords * "
+            "flags[IF_NREF], out);") in source
+
+
+@pytest.mark.parametrize("env_id", ["Finite-CC-SCIM-v0", "Cont-SC-SCIM-v0"])
+def test_record_random_args_follow_the_record_out_order(env_id):
+    """The partial-width launcher's arguments: one ``(T, n_envs)`` tensor
+    per recorded signal, of the recorder's types, and the C entry's output
+    array (omega or NULL, the four electrical planes, ref row 0, ref row 1
+    or NULL, int32 action or NULL, action a, b, c or NULL, reward, done)
+    pointing at them; the envs and steps as given."""
+    c = indf.InductionConsts(gt.make_functional(env_id, device="cpu"))
+    T, n = 9, 37
+    states = [torch.zeros((1, 128)) for _ in range(c.n_state)]
+    outs, args = indf._record_random_args(c, 7, states, T, n)
+    assert [x.dtype for x in outs] == list(indf.record_dtypes(c))
+    assert all(x.shape == (T, n) for x in outs)
+    assert args[3:5] == (n, T) and args[2] == 7
+    it = iter(x.data_ptr() for x in outs)
+    st = [next(it) for _ in range(c.n_state)]
+    refs = [next(it) for _ in range(c.n_ref)]
+    acts = [next(it) for _ in range(c.n_act)]
+    want = (([] if c.mech else [None]) + st + refs + [None] * (2 - c.n_ref)
+            + (acts + [None] * 3 if c.finite else [None] + acts) + list(it))
+    assert list(args[6]) == want and len(want) == 13

@@ -18,8 +18,10 @@ import sass_ops  # noqa: E402
 
 from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef  # noqa: E402
+from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_policy as fp  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf  # noqa: E402
+from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf  # noqa: E402
 
 SASS = """
         Function : _Z4stepPfi
@@ -474,7 +476,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     evaluation rollout, the specialised DC SC, Cont-TC-SCIM, Finite-CC-EESM
     and Cont-CC-DFIM rollouts, the DC cascade, the FOC, the main path's
     Finite-CC-PMSM random rollout, the specialised Finite-CC-PermExDc
-    rollout and the SRM, DC and EESM random recorders run warp-specialised
+    rollout and the SRM, DC, EESM, synchronous and SCIM random recorders
+    run warp-specialised
     with Wiener references: the DC and EESM rollouts' ``_ws`` entries
     carry ``@ws2`` (two producer warps per consumer warp, two steps each of
     a four-step slot) or, under the EESM's speed ODE (MECH), ``@ws4`` (one),
@@ -486,10 +489,12 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     slot for two
     producer warps, so their
     mark is ``@ws4``, the steps a producer iteration fills; the EESM CC and
-    DC cascade rings hold four for two, ``@ws2``; the DC and EESM recorders'
-    marks are K / P of their rings (``DC_RECORD_RING``,
-    ``EESM_RECORD_RING``)."""
+    DC cascade rings hold four for two, ``@ws2``; the DC, EESM,
+    synchronous and SCIM recorders' marks are K / P of their rings
+    (``DC_RECORD_RING``, ``EESM_RECORD_RING``, ``SYNC_RECORD_RING``,
+    ``IND_RECORD_RING``)."""
     (dk, dp), (ek, ep) = dcf.DC_RECORD_RING, ef.EESM_RECORD_RING
+    (sk, sp), (ik, ip) = sf.SYNC_RECORD_RING, indf.IND_RECORD_RING
     seen = {}
     for instances in sass_ops.STEP_INSTANCES.values():
         for key, instance in instances.items():
@@ -499,7 +504,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                                        "dc_cascade_rollout_ws", "dfim_cc_rollout_ws",
                                        "foc_rollout_ws", "scim_rollout_ws", "pmsm_rollout_ws",
                                        "permex_rollout_ws", "srm_record_ws",
-                                       "dc_record_ws", "eesm_record_ws")
+                                       "dc_record_ws", "eesm_record_ws", "sync_record_ws",
+                                       "induction_record_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
@@ -525,7 +531,10 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                     "dfim_cc_rollout_ws": 4, "foc_rollout_ws": 4, "scim_rollout_ws": 4,
                     "pmsm_rollout_ws": 4, "permex_rollout_ws": 4, "srm_record_ws": 4,
                     **{k: dk // dp for k in ("dc_record_ws", "dc_record_ws/Finite-CC-PermExDc-v0")},
-                    **{k: ek // ep for k in ("eesm_record_ws", "eesm_record_ws/Finite-CC-EESM-v0")}}
+                    **{k: ek // ep for k in ("eesm_record_ws", "eesm_record_ws/Finite-CC-EESM-v0")},
+                    **{k: sk // sp for k in ("sync_record_ws", "sync_record_ws/Finite-CC-PMSM-v0")},
+                    **{k: ik // ip for k in ("induction_record_ws",
+                                             "induction_record_ws/Finite-CC-SCIM-v0")}}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
@@ -756,3 +765,41 @@ def test_dc_and_eesm_record_rings_keep_their_one_thread_entries(library, prefix,
         assert sass_ops.ws_steps_of(ring) == K // P and sass_ops.lanes_of(ring) == 1
         assert sass_ops.ws_steps_of(one) == 0
     assert sorted(k for k in instances if "_ws" in k) == [f"{prefix}_ws{t}" for t in ids]
+
+
+@pytest.mark.parametrize("library,prefix,ring,ids", [
+    ("fused_sync", "sync_record", sf.SYNC_RECORD_RING, ("", "/Finite-CC-PMSM-v0")),
+    ("fused_induction_record", "induction_record", indf.IND_RECORD_RING,
+     ("", "/Finite-CC-SCIM-v0"))])
+def test_sync_and_induction_record_rings_keep_their_one_thread_entries(library, prefix, ring,
+                                                                      ids):
+    """sync_record_random and induction_record_random run on a ring with
+    Wiener references (``@wsK``, K / P of ``SYNC_RECORD_RING`` and
+    ``IND_RECORD_RING``) on the ids chip_smoke.py times (Cont-SC-PMSM and
+    Finite-CC-PMSM, Cont-SC-SCIM and Finite-CC-SCIM), while each one-thread
+    entry stays the count of the function's own work: every ring entry's
+    template arguments are its one-thread entry's.  The sync rollout's ring
+    entries stay where they were."""
+    instances = sass_ops.STEP_INSTANCES[library]
+    K, P = ring
+    for tail in ids:
+        one, ring_key = instances[f"{prefix}_random{tail}"], instances[f"{prefix}_ws{tail}"]
+        assert ring_key == one.replace("_random_kernel", "_ws_kernel") + f"@ws{K // P}"
+        assert sass_ops.ws_steps_of(ring_key) == K // P and sass_ops.lanes_of(ring_key) == 1
+        assert sass_ops.ws_steps_of(one) == 0
+    assert sorted(k for k in instances if k.startswith(prefix) and "_ws" in k) == [
+        f"{prefix}_ws{t}" for t in ids]
+
+
+def test_against_names_functions_apart_from_the_source_path_hash():
+    """``--against`` holds two checkouts' listings function by function: the
+    anonymous namespace's mangled name carries a hash of the source's path,
+    so two builds of one kernel differ there alone and must match, while the
+    kernel's own name and template arguments still tell instances apart."""
+    a = ("_ZN46_GLOBAL__N__ba48b36c_13_fused_sync_cu_011d8fbd22sync_rollout_ws_kernelILb0ELb0ELi1E"
+         "9RingShapeILi8ELi2EEEEv9SyncConst5uint2iiNS_8RandomIoE")
+    b = a.replace("ba48b36c", "2c616fb8")
+    c = a.replace("ILb0ELb0ELi1E", "ILb0ELb1ELi1E")
+    norm = [sass_ops._ANON.sub("_ZN_anon_", x) for x in (a, b, c)]
+    assert norm[0] == norm[1] != norm[2]
+    assert norm[0].startswith("_ZN_anon_22sync_rollout_ws_kernelILb0ELb0ELi1E")

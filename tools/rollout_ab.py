@@ -39,9 +39,13 @@ draws them, zero states), ``srm_record:<id>[:psi_s]`` for the SRM random
 recorder (``srm_record_random`` at 1024 steps, the catalog's Wiener
 references, linear or with that saturation flux ``psi_s``),
 ``dc_record:<id>`` for the universal DC random recorder (``dc_record_random``
-on any of the 24 DC ids, at 1024 steps, the catalog's Wiener references) or
+on any of the 24 DC ids, at 1024 steps, the catalog's Wiener references),
 ``eesm_record:<id>`` for the universal EESM random recorder
-(``eesm_record_random`` on any of the six EESM ids, likewise); the closed
+(``eesm_record_random`` on any of the six EESM ids, likewise),
+``sync_record:<id>`` for the universal synchronous random recorder
+(``sync_record_random`` on any of the twelve sync ids, likewise) or
+``induction_record:<id>`` for the universal SCIM random recorder
+(``induction_record_random`` on any of the six SCIM ids, likewise); the closed
 loops take the tuned controller of ``GemController.make``.
 For each path (default: the synchronous and DFIM ids that ``chip_smoke.py``
 times, with Wiener and with constant references) it builds the path's
@@ -50,7 +54,8 @@ source (``csrc/fused_<family>.cu``, ``csrc/fused_policy.cu``,
 ``csrc/fused_scim_tc.cu``, ``csrc/fused_pmsm.cu``, ``csrc/fused_permex.cu``,
 ``csrc/fused_dc_cascade.cu``, ``csrc/fused_foc.cu``,
 ``csrc/fused_<family>_policy.cu``, ``csrc/fused_srm_record.cu``,
-``csrc/fused_dc_record.cu``, ``csrc/fused_eesm_record.cu``) of both
+``csrc/fused_dc_record.cu``, ``csrc/fused_eesm_record.cu``,
+``csrc/fused_induction_record.cu``) of both
 trees with the package's nvcc flags,
 runs the kernel of each on the same constants, seed and zero states
 (16384 envs x 65536 steps, the recorders as above; the policy's weights drawn from numpy as
@@ -137,7 +142,9 @@ def main():
     # the random recorders on a ring: module, constants, library
     RECORDERS = {"dc_record": (dcf, dcf.DcConsts, "fused_dc_record"),
                  "eesm_record": (ef, ef.EesmConsts, "fused_eesm_record"),
-                 "srm_record": (srf, srf.SrmConsts, "fused_srm_record")}
+                 "srm_record": (srf, srf.SrmConsts, "fused_srm_record"),
+                 "sync_record": (sf, sf.SyncConsts, "fused_sync"),
+                 "induction_record": (indf, indf.InductionConsts, "fused_induction_record")}
     families = {"sync": (sf, sf.SyncConsts, "fused_sync"),
                 "induction": (indf, indf.InductionConsts, "fused_induction"),
                 "dfim": (dff, dff.DfimConsts, "fused_dfim")}

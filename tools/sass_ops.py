@@ -17,6 +17,17 @@ at first use)
 and prints one JSON line per kernel; a template instance is named by a
 substring of its mangled name, e.g. ``policy_rollout_kernelILi16ELb0ELb1ELb0EE``
 for H = 16, categorical, Wiener, mlp_forward's order.
+    python3 tools/sass_ops.py --against OTHER LIBRARY [LIBRARY ...]
+
+builds ``csrc/<LIBRARY>.cu`` of this tree and of the checkout OTHER (a
+parent commit unpacked with ``git archive``) with the package's nvcc flags
+and prints one JSON line per library: how many functions both listings
+hold and how many of those are the same instruction for instruction (the
+names of those that differ, and of those only one listing holds), and the
+``STEP_INSTANCES`` entries that both listings hold with equal and with
+different counts.  A change that must leave a kernel's SASS alone is held
+to it that way.
+
 With no argument it counts the instances of ``STEP_INSTANCES``, whose
 counts ``chip_smoke.py`` takes for its bounds through :func:`step_ops`.
 
@@ -76,8 +87,8 @@ included; the function's own work is the one-thread step's count.  A
 warp-specialised kernel (the sync, DC, SCIM, EESM and DFIM random rollouts,
 csrc/draw_ring.cuh; the policy evaluation rollout, the specialised DC SC,
 Cont-TC-SCIM, Finite-CC-EESM and Cont-CC-DFIM rollouts, the DC cascade and
-the FOC, the SRM, DC and EESM random recorders, csrc/ring_pipe.cuh) is
-marked ``@wsK``: its consumer warps run
+the FOC, the SRM, DC, EESM, synchronous and SCIM random recorders,
+csrc/ring_pipe.cuh) is marked ``@wsK``: its consumer warps run
 a step loop (one step an iteration, shared-memory loads) and its producer warps
 a loop whose iteration fills a ring slot of K steps (shared-memory
 stores, the K steps unrolled); an env-step issues the consumer's count
@@ -101,6 +112,7 @@ import sys
 from pathlib import Path
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_ANON = re.compile(r"_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
 _SKIP = ("MOV", "CS2R", "S2R", "S2UR", "NOP", "BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET",
          "LD", "ST", "BAR", "WARPSYNC", "DEPBAR", "YIELD", "P2R", "R2P", "PLOP3", "RED", "ATOM",
          "MEMBAR", "ERRBAR", "CCTL", "BPT", "BMOV", "KILL", "NANOSLEEP", "VOTE", "PRMT")
@@ -688,6 +700,11 @@ STEP_INSTANCES = {
         "sync_rollout_ws/Cont-CC-PMSM-v0":
             "sync_rollout_ws_kernelILb0ELb0ELi2E9RingShapeILi8ELi2EE@ws4",
         "sync_rollout_random/Finite-CC-PMSM-v0/const": "sync_rollout_random_kernelILb1ELb0ELi2E#2",
+        # With Wiener references the random recorder runs sync_record_ws_kernel
+        # (K = 8, two producer warps per consumer warp: @ws4); its one-thread
+        # Wiener loop is built for the count of the function's own work
+        "sync_record_ws": "sync_record_ws_kernelILb0ELb1ELi1E@ws4",
+        "sync_record_ws/Finite-CC-PMSM-v0": "sync_record_ws_kernelILb1ELb0ELi2E@ws4",
     },
     # <FINITE, MECH, MC, NREF> (MC: 0 one current, 1 ShuntDc, 2 ExtExDc):
     # Cont-SC-ShuntDc-v0 (0, 1, 1, 1) for each kernel, and
@@ -743,6 +760,12 @@ STEP_INSTANCES = {
         "induction_record_random": "induction_record_random_kernelILb0ELb1ELi1E",
         "induction_record_buffer": "induction_record_buffer_kernelILb0ELb1E",
         "induction_record_random/Finite-CC-SCIM-v0": "induction_record_random_kernelILb1ELb0ELi2E",
+        # With Wiener references the random recorder runs
+        # induction_record_ws_kernel (K = 8, two producer warps per consumer
+        # warp: @ws4); its one-thread Wiener loop is built for the count of
+        # the function's own work
+        "induction_record_ws": "induction_record_ws_kernelILb0ELb1ELi1E@ws4",
+        "induction_record_ws/Finite-CC-SCIM-v0": "induction_record_ws_kernelILb1ELb0ELi2E@ws4",
     },
     # <FINITE, MECH, NREF>: Cont-SC-EESM-v0 (0, 1, 1) for each kernel, and
     # Cont-TC-EESM-v0 (0, 0, 1) and Finite-CC-EESM-v0 (1, 0, 3) for the
@@ -943,9 +966,62 @@ STEP_INSTANCES = {
 }
 
 
+def against(other: Path, libraries) -> list:
+    """This tree's ``csrc/<library>.cu`` against the checkout ``other``'s,
+    both built with the package's nvcc flags (the other's into
+    ``<other>/_ab_build``): per library, the functions both listings hold,
+    those equal instruction for instruction and those that differ, those only
+    one holds, and the ``STEP_INSTANCES`` entries both hold with equal and
+    with different counts."""
+    import concurrent.futures
+
+    from gym_electric_motor_tpu_torch.ops import cuda_build
+
+    csrc = other / "gym_electric_motor_tpu_torch" / "csrc"
+    (other / "_ab_build").mkdir(exist_ok=True)
+
+    def build_other(library):
+        out = other / "_ab_build" / f"lib{library}.so"
+        subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+                        str(out), str(csrc / f"{library}.cu")], check=True, capture_output=True)
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(len(libraries) + 1) as pool:
+        theirs = pool.map(build_other, libraries)
+        ours = cuda_build.build(list(libraries))
+        theirs = dict(zip(libraries, theirs))
+    def named(lib_path):
+        # the anonymous namespace's mangled name carries a hash of the
+        # source's path, so the two trees' names differ there alone
+        return {_ANON.sub("_ZN_anon_", f): body for f, body in lib_functions(lib_path).items()}
+
+    rows = []
+    for library in libraries:
+        mine, base = named(ours[library]), named(theirs[library])
+        both = sorted(set(mine) & set(base))
+        differ = [f for f in both if mine[f] != base[f]]
+        counts = {"equal": [], "differ": []}
+        for key, inst in STEP_INSTANCES.get(library, {}).items():
+            sub = inst.partition("@")[0].partition("#")[0]
+            if any(sub in f for f in mine) and any(sub in f for f in base):
+                same = instance_counts(mine, [inst]) == instance_counts(base, [inst])
+                counts["equal" if same else "differ"].append(key)
+        rows.append({"library": library, "functions_in_both": len(both),
+                     "functions_equal": len(both) - len(differ), "functions_differ": differ,
+                     "only_this": sorted(set(mine) - set(base)),
+                     "only_other": sorted(set(base) - set(mine)),
+                     "counts_equal": counts["equal"], "counts_differ": counts["differ"]})
+    return rows
+
+
 def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     from gym_electric_motor_tpu_torch.ops import cuda_build
+
+    if sys.argv[1:2] == ["--against"]:
+        for row in against(Path(sys.argv[2]).resolve(), sys.argv[3:]):
+            print(json.dumps(row), flush=True)
+        return
 
     libs = cuda_build.build(list(STEP_INSTANCES))
     for name, lib in libs.items():
