@@ -201,7 +201,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
             {CC, TC, SC} DFIM ids, each of the 4 kernels against its plain
             version at 16384 envs x 64 steps (timed on Cont-SC-DFIM-v0,
             the instance the bounds count); the two random kernels again at
-            1024 steps on Cont-CC-DFIM-v0 and Cont-SC-DFIM-v0
+            1024 steps on Cont-CC-DFIM-v0 and Cont-SC-DFIM-v0;
+            dfim_rollout_random and dfim_record_random (warp-specialised
+            with Wiener references) bit for bit (error 0 in every env) in
+            all of those runs, and again on every id with constant
+            references
 31.-33. the slice-7 main path, counted from zero:
    31. dfim_env  for each id, the port's env (VectorEnv's reset, the env's
             step without autoreset, constant references, an action buffer,
@@ -219,7 +223,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
             Cont-SC-DFIM-v0, each with its design, ring, registers, issue
             bound and issue-slot floor; the random recorder at 1024 steps on
             Cont-CC-DFIM-v0 and Cont-SC-DFIM-v0 (15 planes each, GB/s);
-            each with its share of env-steps that reset; the general path
+            each with its share of env-steps that reset, and for the
+            recorder its design, roles, ring, registers and issue bound as
+            the rollout's; the general path
             (VectorEnv.rollout, the random policy of the action space) on
             Cont-SC-DFIM-v0 at 200 steps; the launches of phases 31-33 must
             be exactly what they make
@@ -277,11 +283,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
             per family; and on every id and the four joint heads at the
             main path's own shape and width (phase 41: 1024 envs x 32
             steps, H 16), so that a kernel wrong at another H than 32 fails;
-            dc_policy_record (on lane groups at PPO's width) against its
-            one-thread design bit for bit (error 0 in every env and output)
-            at 2048 x 64 on Finite-CC-PermExDc-v0, Cont-CC-PermExDc-v0 and
-            Finite-CC-ExtExDc-v0 with joint heads, with its layout line
-            (lanes, lead lane, blocks, SMs)
+            dc_policy_record and sync_policy_record (on lane groups at
+            PPO's width) against their one-thread designs bit for bit
+            (error 0 in every env and output) at 2048 x 64 on
+            Finite-CC-PermExDc-v0, Cont-CC-PermExDc-v0, Finite-CC-ExtExDc-v0
+            with joint heads, Finite-CC-PMSM-v0, Cont-CC-PMSM-v0 and
+            Cont-SC-PMSM-v0, with the layout line (lanes, lead lane,
+            blocks, SMs)
 39. policy_universal_replay  the recorded actions (a continuous id's
             squashed duties) through the buffer recorder on Finite- and
             Cont-CC-{PermExDc,DFIM}-v0 (2048 envs x 32 steps, zero biases):
@@ -300,11 +308,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
     Finite-CC-PMSM-v0 with the RL state filter launches policy_record
 42. policy_universal_timings  the recorder at PPO's shape (2048 x 256) and
     at 16384 x 1024, H 32, on Finite-CC-PermExDc-v0, Cont-CC-PermExDc-v0,
-    Finite-CC-DFIM-v0 (factorised and joint) and Cont-SC-SRM-v0, each with
-    its bound and reset share, the DC rows with their design (lanes, and on
-    lane groups registers, a lane's counts, the issue bound of G lanes'
-    counts and the issue-slot floor); on Finite-CC-PMSM-v0 beside
-    policy_record in the same call
+    Finite-CC-DFIM-v0 (factorised and joint), Cont-SC-SRM-v0 and
+    Finite-CC-PMSM-v0, each with its bound and reset share, the DC and
+    sync rows with their design (lanes, and on lane groups registers, a
+    lane's counts, the issue bound of G lanes' counts and the issue-slot
+    floor); on Finite-CC-PMSM-v0 beside policy_record in the same call
 43. control_kernels  slice 10, the classical controllers in the loop
     (csrc/fused_foc.cu, csrc/fused_dc_cascade.cu, csrc/fused_srm_cascade.cu):
     each kernel against its plain version at 16384 envs x 64 steps, with
@@ -526,12 +534,15 @@ PU_TIMED = (("Finite-CC-PermExDc-v0", False, "dc_policy_record"),
             ("Cont-CC-PermExDc-v0", False, "dc_policy_record/Cont-CC-PermExDc-v0"),
             ("Finite-CC-DFIM-v0", False, "dfim_policy_record"),
             ("Finite-CC-DFIM-v0", True, "dfim_policy_record/joint"),
-            ("Cont-SC-SRM-v0", False, "srm_policy_record"))
+            ("Cont-SC-SRM-v0", False, "srm_policy_record"),
+            ("Finite-CC-PMSM-v0", False, "sync_policy_record"))
 PU_TIMED_SHAPES = ((2048, 256), (16384, 1024))
-# dc_policy_record's designs held against each other (phase 38): a finite,
-# a continuous and a joint-head id
+# the lane-group recorders' designs held against each other (phase 38):
+# dc_policy_record on a finite, a continuous and a joint-head id,
+# sync_policy_record on a finite id, the Gaussian head and the speed ODE
 PU_DESIGN_IDS = (("Finite-CC-PermExDc-v0", False), ("Cont-CC-PermExDc-v0", False),
-                 ("Finite-CC-ExtExDc-v0", True))
+                 ("Finite-CC-ExtExDc-v0", True), ("Finite-CC-PMSM-v0", False),
+                 ("Cont-CC-PMSM-v0", False), ("Cont-SC-PMSM-v0", False))
 PU_MAIN = (1024, 32)          # the main path's per-id PPO shape (phase 41), also compared
 H_PU_MAIN = 16                # its hidden width: the trainer's default
 PU_ALL_IDS_PPO = dict(horizon=PU_MAIN[1], n_envs=PU_MAIN[0], n_minibatches=4,
@@ -693,8 +704,8 @@ def design_fields(key, env_steps, nbytes, ms, c):
 
 def record_design(mod, prefix):
     """The design fields of a timed random recorder of ``mod`` that runs on
-    a ring with Wiener references (the sync, DC, SCIM, EESM and SRM ones;
-    phases 16, 21, 25, 29 and 37), as a function of (key, env_steps,
+    a ring with Wiener references (the sync, DC, SCIM, EESM, DFIM and SRM
+    ones; phases 16, 21, 25, 29, 33 and 37), as a function of (key, env_steps,
     nbytes, ms, c): its ring (``<prefix>_record_ring_layout``, with P, the
     producer warps per consumer warp), each role's registers and counts,
     the issue bound of both roles' counts and the issue-slot floor, beside
@@ -2510,9 +2521,10 @@ def run_dfim(dev, card, ops):
         env_action=lambda c, a: a.reshape(c.n_act, N).T.contiguous())
     worst, share, timed = compare_family_kernels(torch, gt, dev, fam, gt.DFIM_ENV_IDS, DFIM_TIMED,
                                                  (DFIM_BENCH, DFIM_TIMED), ops)
-    # the warp-specialised random rollout, bit for bit on every id
+    # the warp-specialised random rollout and recorder, bit for bit on every id
     hold_bit_equal(torch, gt, rg, dev, fam, gt.DFIM_ENV_IDS,
-                   lambda env_id: SYNC_CONST_REFS[env_id.split("-")[1]], worst, share)
+                   lambda env_id: SYNC_CONST_REFS[env_id.split("-")[1]], worst, share,
+                   ("rollout", "record"))
 
     # ---- 31.-33. the main path: counts from zero ---------------------------
     # 31. the env against the buffer kernels (rtol 1e-4 / atol 2e-3, angles
@@ -2530,7 +2542,8 @@ def run_dfim(dev, card, ops):
     launches, timings = family_main_path(
         torch, gt, dev, card, fam, gt.DFIM_ENV_IDS, SYNC_CONST_REFS, 2e-3,
         (DFIM_BENCH, DFIM_CC, DFIM_TIMED), (DFIM_BENCH, DFIM_TIMED), ops,
-        (fs, fp, sf, dcf, indf, ef), in_limits, design_fields)
+        (fs, fp, sf, dcf, indf, ef), in_limits, design_fields,
+        record_annotate=record_design(dff, "dfim"))
 
     # ---- kernels line rows ---------------------------------------------------
     replaces = {"dfim_rollout_random": "gym_electric_motor_tpu/ops/pallas_dfim.py:974",
@@ -2679,7 +2692,8 @@ def pu_design_fields(fp, kernel, key, n, env_steps, nbytes, ms):
     """The design fields of a timed universal recorder at ``n`` envs (phase
     42): the layout its launch takes (fp.policy_universal_layout) and, on
     lane groups where tools/sass_ops.py counts that design
-    (``dc_policy_record_lanes[/8][/<id>]``), registers, a lane's counts, the
+    (``<kernel>_lanes[/8][/<id>]``: dc_policy_record's and
+    sync_policy_record's, the wide design's key with /8), registers, a lane's counts, the
     issue bound of G lanes' counts with its share and the issue-slot floor,
     both without the hidden units the count takes as conditional (lower
     bounds).  The row's bound_ms stays the one-thread step's, the function's
@@ -2786,8 +2800,9 @@ def run_policy_universal(dev, card, ops):
         main_rows[env_id + "/joint"] = compare(env_id, n, steps, joint=True, hidden=H_PU_MAIN)
     emit({"phase": "policy_universal_kernels_main_shape", "envs": n, "steps": steps,
           "hidden": H_PU_MAIN, "ids": main_rows})
-    # dc_policy_record in the design its width rule takes at PPO's width
-    # against its one-thread design (what a full card runs), bit for bit:
+    # dc_policy_record and sync_policy_record in the design their width
+    # rule takes at PPO's width against their one-thread design (what a
+    # full card runs), bit for bit:
     # the plain version rounds tanhf and expf otherwise, so the rule above
     # holds it to the plain version and this to the one-thread kernel.  Its
     # weights come from a generator of their own, so that the later phases
@@ -2798,16 +2813,16 @@ def run_policy_universal(dev, card, ops):
     for env_id, joint in PU_DESIGN_IDS:
         _env, roll, w, ls, planes = build(env_id, n, steps, joint, draws=design_draws)
         pol = roll.policy
-        got = fp._dc_policy_design_launch(pol, SEED, *w, ls, planes, steps, n)
-        one = fp._dc_policy_design_launch(pol, SEED, *w, ls, planes, steps, n, one_thread=True)
+        got = fp._policy_design_launch(pol, SEED, *w, ls, planes, steps, n)
+        one = fp._policy_design_launch(pol, SEED, *w, ls, planes, steps, n, one_thread=True)
         torch.cuda.synchronize()
         m, err = bit_match(torch, got, one, n)
         designs[env_id + ("/joint" if joint else "")] = {
             "layout": fp.policy_universal_layout(pol.kernel, n), "max_abs_err": err,
             "match_share": m}
         if m != 1.0 or err != 0.0:
-            raise AssertionError(f"{env_id}: dc_policy_record's design differs from its "
-                                 f"one-thread design in {1.0 - m:.5f} of envs (max abs err {err})")
+            raise AssertionError(f"{env_id}: {pol.kernel}'s design differs from its one-thread "
+                                 f"design in {1.0 - m:.5f} of envs (max abs err {err})")
         del got, one
     emit({"phase": "policy_universal_dc_designs", "envs": n, "steps": steps, "hidden": H,
           "ids": designs})
@@ -2981,7 +2996,7 @@ def run_policy_universal(dev, card, ops):
                 "bound_by": b_by, "bound_share": b_ms / ms,
                 "reset_share": float(out[-1].double().mean()),
                 "finite": all(bool(torch.isfinite(x.float()).all()) for x in out)}
-            if pol.kernel == "dc_policy_record":
+            if pol.kernel in fp.POLICY_LANE_DESIGNS:
                 row.update(pu_design_fields(fp, pol.kernel, key, n_t, n_t * steps_t,
                                             pu_bytes(pol, n_t, steps_t, H), ms))
             del out
@@ -3731,7 +3746,9 @@ REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "dc_record_random": "ring with Wiener references",
               "eesm_record_random": "ring with Wiener references",
               "sync_record_random": "ring with Wiener references",
-              "induction_record_random": "ring with Wiener references"}
+              "induction_record_random": "ring with Wiener references",
+              "dfim_record_random": "ring with Wiener references",
+              "sync_policy_record": "lane groups at PPO's width"}
 
 
 def redesign_order(line):

@@ -28,15 +28,15 @@
 // (policy_heads_lanes.cuh) G lanes of a warp serve one env: a lane computes
 // the hidden units j = l, l + G, ... and its share of the logits, gathering
 // the hidden values by __shfl_sync in the one-thread kernel's order, and
-// lane p % G stores recorded plane p.  The width rule (policy_lanes) is
-// the PMSM recorder's (record_lanes, fused_policy.cu): the wide design
-// (WideDesign) while that launch puts at most one block on each SM, the
-// narrow one (NarrowDesign) while it puts at most three, else one thread
-// per env; a lane design either lets lane 0 alone sample and step the env
-// and pass the results on (lead) or has every lane do so on the same
-// operands.  Every design equals the one-thread kernel bit for bit; the
-// one-thread kernel stays tools/sass_ops.py's count of the function's own
-// work.
+// lane p % G stores recorded plane p.  The width rule
+// (policy_heads_lanes.cuh's policy_width) is the PMSM recorder's
+// (record_lanes, fused_policy.cu): the wide design (WideDesign) while that
+// launch puts at most one block on each SM, the narrow one (NarrowDesign)
+// while it puts at most three, else one thread per env; a lane design
+// either lets lane 0 alone sample and step the env and pass the results on
+// (lead) or has every lane do so on the same operands.  Every design
+// equals the one-thread kernel bit for bit; the one-thread kernel stays
+// tools/sass_ops.py's count of the function's own work.
 #include <cuda_runtime.h>
 
 #include "dc_step.cuh"
@@ -132,14 +132,6 @@ dc_policy_record_kernel(DcConst k, PolicyConst q, uint2 key, int n, int n_steps,
 }
 
 // ---- the lane-group recorder --------------------------------------------
-
-// A lane design: G lanes an env, and whether lane 0 alone samples and
-// steps it (LEAD) or every lane does.
-template <int G_, bool LEAD_>
-struct LaneDesign {
-  static constexpr int G = G_;
-  static constexpr bool LEAD = LEAD_;
-};
 
 // The designs of the width rule, the fastest of G in {4, 8} x lead or every
 // lane at 2048 and 4096 envs x 256 steps, H 32, on Finite-CC-PermExDc,
@@ -310,30 +302,6 @@ dc_policy_record_lanes_kernel(DcConst k, PolicyConst q, uint2 key, int n, int n_
 
 // ---- the launch --------------------------------------------------------
 
-int device_sms() {
-  static int sms[16] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 0;
-  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-  return sms[dev];
-}
-
-// blocks of the one-thread launch over n envs
-int policy_blocks(int n) { return (n + kPolicyThreads - 1) / kPolicyThreads; }
-
-// The lanes an env of dc_policy_record's launch over n envs, as record_lanes
-// of fused_policy.cu: the wide design while that launch puts at most one
-// block on each SM (PPO's 2048 envs), the narrow one while it puts at most
-// three, else one thread per env (at 16384 envs one thread per env already
-// puts a block on 128 of the SMs, and lane groups would issue the per-env
-// step G times over).
-int policy_lanes(int n) {
-  const long long sms = device_sms();
-  if ((long long)policy_blocks(n) * WideDesign::G <= sms) return WideDesign::G;
-  if ((long long)policy_blocks(n) * NarrowDesign::G <= 3 * sms) return NarrowDesign::G;
-  return 1;
-}
-
 // A host launcher of one instance; design: 0 the width rule at n, 1 one
 // thread per env.
 using LaunchFn = void (*)(const DcConst&, const PolicyConst&, uint2, int, int,
@@ -357,8 +325,9 @@ void launch(const DcConst& k, const PolicyConst& q, uint2 key, int n, int n_step
             const PolicyWeights& w, const float* const* in, void* const* out, const PolicyOut& o,
             cudaStream_t st, int design) {
   using S = Shape<F, MC, NR, J>;
-  const int g = design == 1 ? 1 : policy_lanes(n);
-  if (g == 1) {
+  const PolicyWidth d =
+      design == 1 ? kPolicyOneThread : policy_width<WideDesign, NarrowDesign>(n);
+  if (d == kPolicyOneThread) {
     policy_launch(dc_policy_record_kernel<F, M, MC, NR, J>, S::F, F ? 0 : S::NC, k, q, key, n,
                   n_steps, w, in, out, o, st);
     return;
@@ -369,7 +338,7 @@ void launch(const DcConst& k, const PolicyConst& q, uint2 key, int n, int n_step
     pin.p[j] = in[j];
     pout.p[j] = (float*)out[j];
   }
-  if (g == WideDesign::G) {
+  if (d == kPolicyWide) {
     launch_lanes<F, M, MC, NR, J, WideDesign>(k, q, key, n, n_steps, w, pin, pout, o, st);
   } else {
     launch_lanes<F, M, MC, NR, J, NarrowDesign>(k, q, key, n, n_steps, w, pin, pout, o, st);
@@ -433,7 +402,7 @@ int dc_policy_record_design(const float* consts, const int* flags, const float* 
 
 // As sync_policy_record; in: (omega or NULL, i0, i1 or NULL); out: those
 // three planes, then the PolicyOut planes, each (T, N).  Runs on lane
-// groups or one thread per env by the width rule (policy_lanes).
+// groups or one thread per env by the width rule (policy_width).
 int dc_policy_record(const float* consts, const int* flags, const float* pk, const int* pi,
                      unsigned long long seed, int n, int n_steps, int hidden, const float* w1,
                      const float* b1, const float* w2, const float* b2, const float* ls,
@@ -446,11 +415,7 @@ int dc_policy_record(const float* consts, const int* flags, const float* pk, con
 // (lanes an env, lane 0 alone stepping, blocks of kPolicyThreads, the
 // card's SMs).
 int dc_policy_layout(int n, int* out) {
-  const int g = policy_lanes(n);
-  out[0] = g;
-  out[1] = g == WideDesign::G ? WideDesign::LEAD : (g == NarrowDesign::G && NarrowDesign::LEAD);
-  out[2] = (int)(((long long)n * g + kPolicyThreads - 1) / kPolicyThreads);
-  out[3] = device_sms();
+  policy_layout<WideDesign, NarrowDesign>(n, out);
   return 0;
 }
 

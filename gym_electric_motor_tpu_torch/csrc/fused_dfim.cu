@@ -23,7 +23,8 @@
 // in the plain PyTorch version.
 //
 // With Wiener references the random rollout is warp-specialised
-// (draw_ring.cuh), as the DC, SCIM, EESM and synchronous ones: four consumer
+// (draw_ring.cuh; the draws in dfim_ring.cuh, shared with the random
+// recorder), as the DC, SCIM, EESM and synchronous ones: four consumer
 // warps run the step, one thread per env (the flux direction where a row
 // refers to the dq currents, cos and sin of the angle under the speed ODE,
 // the physics, the violation, the reward, the regeneration test), and two
@@ -59,8 +60,7 @@
 // that one loop iteration is one step, or four, in the count.
 #include <cuda_runtime.h>
 
-#include "dfim_step.cuh"
-#include "draw_ring.cuh"
+#include "dfim_ring.cuh"
 
 namespace {
 
@@ -105,62 +105,10 @@ __device__ __forceinline__ void dfim_store_out(const DfimState& x, float reward,
 }
 
 // The ring: K = 8 steps a slot, two producer warps per consumer warp
-// (SCIM's IndRing).  Words a step: the action (both bridges' bits in one
-// word, or six duties), then kRefWords per reference row.
+// (SCIM's IndRing).  Words a step (dfim_ring.cuh): the action (both
+// bridges' bits in one word, or six duties), then kRefWords per reference
+// row.
 using DfimRing = RingShape<8, 2>;
-
-template <bool FINITE, int NREF>
-__host__ __device__ constexpr int dfim_ring_words() {
-  return (FINITE ? 1 : 6) + kRefWords * NREF;
-}
-
-// What step t draws, whatever the state: the action and the reference
-// rows' candidates, in dfim_random_step's operand order.
-template <int NREF>
-struct DfimDraws {
-  DfimAction a;
-  RefCandidates<NREF> c;
-};
-
-template <bool FINITE, int NREF>
-__device__ __forceinline__ DfimDraws<NREF> dfim_draws(const DfimConst& k, uint2 key, uint32_t env,
-                                                     uint32_t t, bool odd, float& zb) {
-  DfimDraws<NREF> d;
-  const uint4 w = drive_draw(key, env, t, DRIVE_SLOT_STEP);
-  d.a = dfim_random_action<FINITE>(key, env, t, w);
-  d.c = ref_candidates<NREF>(k.ref, key, env, t, w, odd, zb);
-  return d;
-}
-
-template <bool FINITE, int NREF>
-__device__ __forceinline__ RingWords<dfim_ring_words<FINITE, NREF>()> dfim_draws_pack(
-    const DfimDraws<NREF>& d) {
-  RingWords<dfim_ring_words<FINITE, NREF>()> x;
-  if constexpr (FINITE) {
-    x.w[0] = (uint32_t)(d.a.s.bits | (d.a.r.bits << 3));
-  } else {
-    pack_b6<false>(d.a.s, 0, x);
-    pack_b6<false>(d.a.r, 3, x);
-  }
-  pack_refs<NREF>(d.c, FINITE ? 1 : 6, x);
-  return x;
-}
-
-template <bool FINITE, int NREF>
-__device__ __forceinline__ DfimDraws<NREF> dfim_draws_unpack(
-    const RingWords<dfim_ring_words<FINITE, NREF>()>& x) {
-  DfimDraws<NREF> d;
-  if constexpr (FINITE) {
-    d.a.s.bits = (int)(x.w[0] & 7u);
-    d.a.r.bits = (int)(x.w[0] >> 3);
-    d.a.s.a = d.a.s.b = d.a.s.c = d.a.r.a = d.a.r.b = d.a.r.c = 0.0f;
-  } else {
-    d.a.s = unpack_b6<false>(x, 0);
-    d.a.r = unpack_b6<false>(x, 3);
-  }
-  d.c = unpack_refs<NREF>(x, FINITE ? 1 : 6);
-  return d;
-}
 
 // What depends on the state: dfim_random_step with the step's draws given.
 template <bool FINITE, bool MECH, int NREF>

@@ -11,6 +11,15 @@
 // warp takes part in every shuffle (a group past the last env computes on a
 // clamped env), so each shuffle names the whole warp.
 //
+// The width rule the lane-group recorders share (policy_width): a family
+// names its (wide, narrow) pair of LaneDesigns in its own source, and its
+// launch takes the wide design while the one-thread launch would put at
+// most one block on each SM (PPO's 2048 envs), the narrow one while it
+// would put at most three, else one thread per env (at 16384 envs one
+// thread per env already puts a block on 128 of the SMs, and lane groups
+// would issue the per-env step G times over).  ops/fused_policy.py's
+// policy_universal_lanes computes the same rule without the library.
+//
 // The plain PyTorch version of the same arithmetic, in the same order, is
 // gym_electric_motor_tpu_torch/ops/fused_policy.py (mlp_forward).
 #pragma once
@@ -98,4 +107,50 @@ __device__ __forceinline__ uint32_t* lane_plane(int p, uint32_t* const (&planes)
 #pragma unroll
   for (int q = 1; q < NP; ++q) x = p == q ? planes[q] : x;
   return x;
+}
+
+// ---- the width rule (host side) ------------------------------------------
+
+// A lane design: G lanes an env, and whether lane 0 alone samples and
+// steps it (LEAD) or every lane does.
+template <int G_, bool LEAD_>
+struct LaneDesign {
+  static constexpr int G = G_;
+  static constexpr bool LEAD = LEAD_;
+};
+
+inline int device_sms() {
+  static int sms[16] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 0;
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
+
+// blocks of the one-thread launch over n envs
+inline int policy_blocks(int n) { return (n + kPolicyThreads - 1) / kPolicyThreads; }
+
+// The design a launch over n envs takes: the pair's wide one, its narrow
+// one or one thread per env.
+enum PolicyWidth { kPolicyOneThread, kPolicyNarrow, kPolicyWide };
+
+template <class Wide, class Narrow>
+PolicyWidth policy_width(int n) {
+  const long long sms = device_sms();
+  if ((long long)policy_blocks(n) * Wide::G <= sms) return kPolicyWide;
+  if ((long long)policy_blocks(n) * Narrow::G <= 3 * sms) return kPolicyNarrow;
+  return kPolicyOneThread;
+}
+
+// The launch over n envs on the current device, as <family>_policy_layout
+// reports it: out = (lanes an env, lane 0 alone stepping, blocks of
+// kPolicyThreads, the card's SMs).
+template <class Wide, class Narrow>
+void policy_layout(int n, int* out) {
+  const PolicyWidth d = policy_width<Wide, Narrow>(n);
+  const int g = d == kPolicyWide ? Wide::G : (d == kPolicyNarrow ? Narrow::G : 1);
+  out[0] = g;
+  out[1] = d == kPolicyWide ? Wide::LEAD : (d == kPolicyNarrow && Narrow::LEAD);
+  out[2] = (int)(((long long)n * g + kPolicyThreads - 1) / kPolicyThreads);
+  out[3] = device_sms();
 }

@@ -16,7 +16,9 @@ written in CUDA carry the work on the GPU, over the shared step of
 ``dfim_rollout_buffer``  T steps of a given action buffer, deterministic
                          (``csrc/fused_dfim.cu``)
 ``dfim_record_random``   the random step, every step recorded
-                         (``csrc/fused_dfim_record.cu``)
+                         (``csrc/fused_dfim_record.cu``; warp-specialised
+                         with Wiener references,
+                         ``dfim_record_ring_layout``)
 ``dfim_record_buffer``   the buffer step, every state recorded
                          (``csrc/fused_dfim_record.cu``)
 ======================= ================================================
@@ -78,6 +80,7 @@ from .fused_common import (
     fused_check_system,
     fused_constraint_mode,
     launch_kernel,
+    named_ring_layout,
     physics_rows,
     policy_obs_spec,
     poly_load_rhs,
@@ -119,6 +122,10 @@ LIBRARY = {"dfim_rollout_random": "fused_dfim", "dfim_rollout_buffer": "fused_df
 
 # launches of each CUDA kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+# the random recorder's ring (DfimRecordRing in csrc/fused_dfim_record.cu):
+# K steps a slot, producer warps per consumer warp
+DFIM_RECORD_RING = (8, 2)
 
 
 def reset_launches():
@@ -495,10 +502,10 @@ _ARGTYPES = {
 }
 
 
-def _launch(name, device, *args):
+def _launch(name, device, *args, launches=LAUNCHES):
     lib = family_library(LIBRARY[name], "dfim", _ARGTYPES,
                          (len(CONST_NAMES), len(ROW_NAMES), len(FLAG_NAMES)))
-    launch_kernel(lib, "dfim", name, device, LAUNCHES, *args)
+    launch_kernel(lib, "dfim", name, device, launches, *args)
 
 
 def _with_omega(c, planes):
@@ -553,8 +560,26 @@ def dfim_record_random(c: DfimConsts, seed: int, states, n_steps: int):
     device, R = check_planes(c, states)
     if device.type == "cpu":
         return dfim_record_random_plain(c, seed, tuple(states), n_steps)
-    shape = (int(n_steps), R, LANE)
-    outs = [torch.empty(shape, dtype=dt, device=device) for dt in record_dtypes(c)]
+    outs = _record_random_launch(c, seed, states, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(int(n_steps), R, LANE) for x in outs)
+
+
+def _record_random_launch(c: DfimConsts, seed: int, states, n_steps: int, n_envs: int,
+                          launches=None):
+    """dfim_record_random's kernel on the first ``n_envs`` envs of the
+    planes: the recorded signals, each ``(T, n_envs)``; the launch counted
+    in ``launches`` (none: not counted)."""
+    outs, args = _record_random_args(c, seed, states, n_steps, n_envs)
+    _launch("dfim_record_random", states[0].device, *args,
+            launches={"dfim_record_random": 0} if launches is None else launches)
+    return outs
+
+
+def _record_random_args(c: DfimConsts, seed: int, states, n_steps: int, n_envs: int):
+    """The recorder's output tensors, each ``(T, n_envs)``, and its C
+    arguments before the stream."""
+    outs = [torch.empty((int(n_steps), n_envs), dtype=dt, device=states[0].device)
+            for dt in record_dtypes(c)]
     it = iter(outs)
     st = [next(it) for _ in range(c.n_state)]
     refs = [next(it) for _ in range(c.n_ref)]
@@ -562,10 +587,23 @@ def dfim_record_random(c: DfimConsts, seed: int, states, n_steps: int):
     reward, done = next(it), next(it)
     ptr_list = (_with_omega(c, st) + refs + [None] * (2 - c.n_ref)
                 + (acts + [None] * 6 if c.finite else [None] * 2 + acts) + [reward, done])
-    _launch("dfim_record_random", device, c.host.ctypes.data, c.flags.ctypes.data,
-            seed_u64(seed), R * LANE, int(n_steps), ptr_array(_with_omega(c, states)),
-            ptr_array(ptr_list))
-    return tuple(outs)
+    return outs, (c.host.ctypes.data, c.flags.ctypes.data, seed_u64(seed), n_envs,
+                  int(n_steps), ptr_array(_with_omega(c, states)), ptr_array(ptr_list))
+
+
+def dfim_record_ring_layout(c: DfimConsts):
+    """The random recorder's ring for ``c``'s instance
+    (csrc/fused_dfim_record.cu's DfimRecordRing, in csrc/ring_pipe.cuh's
+    RingLayout): consumer and producer warps, K steps a slot, slots, words a
+    step (finite: both bridges' bits in one word; continuous: the six
+    duties; then four per reference row), shared-memory bytes; one thread
+    per env with constant references.  Computed here, without the
+    library."""
+    if c.all_const:
+        return named_ring_layout((0,) * 6 + (1,))
+    K, P = DFIM_RECORD_RING
+    words = c.n_words + 4 * c.n_ref
+    return named_ring_layout((4, 4 * P, K, 2, words, 2 * K * words * LANE * 4, 0))
 
 
 def dfim_record_buffer(c: DfimConsts, states, actions):

@@ -1021,23 +1021,30 @@ def policy_record_universal_plain(pol, seed, w1, b1, w2, b2, ls, states, n_steps
 
 _UNIVERSAL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_uint64] + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p] * 8
-# dc_policy_record_design: the recorder's arguments, then the design
+# <family>_policy_record_design: the recorder's arguments, then the design
 _DESIGN_ARGTYPES = _UNIVERSAL_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
 
-# The lane designs of dc_policy_record's width rule (WideDesign and
-# NarrowDesign in csrc/fused_dc_policy.cu): lanes an env, and whether lane 0
-# of a group alone samples and steps the env.
+# The lane designs of the width rule of the recorders on lane groups
+# (WideDesign and NarrowDesign in csrc/fused_dc_policy.cu and
+# csrc/fused_sync_policy.cu): lanes an env, and whether lane 0 of a group
+# alone samples and steps the env.
 DC_POLICY_WIDE = (8, False)
 DC_POLICY_NARROW = (4, True)
+SYNC_POLICY_WIDE = (8, False)
+SYNC_POLICY_NARROW = (8, False)
+# the universal recorders on lane groups: their (wide, narrow) designs
+POLICY_LANE_DESIGNS = {"dc_policy_record": (DC_POLICY_WIDE, DC_POLICY_NARROW),
+                       "sync_policy_record": (SYNC_POLICY_WIDE, SYNC_POLICY_NARROW)}
 
 
 def _universal_library(pol):
     fs = pol.surface
     mod = _POLICY_FAMILIES[fs.family][0]
     prefix = f"{fs.family}_policy"
-    lib = family_library(f"fused_{prefix}", prefix,
-                         {pol.kernel: _UNIVERSAL_ARGTYPES,
-                          "dc_policy_record_design": _DESIGN_ARGTYPES},
+    argtypes = {pol.kernel: _UNIVERSAL_ARGTYPES}
+    if pol.kernel in POLICY_LANE_DESIGNS:
+        argtypes[f"{pol.kernel}_design"] = _DESIGN_ARGTYPES
+    lib = family_library(f"fused_{prefix}", prefix, argtypes,
                          (len(mod.CONST_NAMES), len(mod.ROW_NAMES), len(mod.FLAG_NAMES)))
     return lib, prefix
 
@@ -1050,13 +1057,15 @@ def _universal_launch(pol, device, *args):
 def policy_universal_lanes(kernel, n_envs, sms):
     """The lanes an env and whether lane 0 alone steps, of the universal
     recorder ``kernel``'s launch over ``n_envs`` envs on a card of ``sms``
-    SMs: the width rule of csrc/fused_dc_policy.cu (``policy_lanes``) for
-    ``dc_policy_record``, one thread per env for the other families'.
-    Computed here, without the library."""
-    if kernel != "dc_policy_record":
+    SMs: the width rule of csrc/policy_heads_lanes.cuh (``policy_width``)
+    over the kernel's designs (``POLICY_LANE_DESIGNS``) for
+    ``dc_policy_record`` and ``sync_policy_record``, one thread per env for
+    the other families'.  Computed here, without the library."""
+    if kernel not in POLICY_LANE_DESIGNS:
         return 1, False
     blocks = -(-int(n_envs) // LANE)
-    for (lanes, lead), per_sm in ((DC_POLICY_WIDE, 1), (DC_POLICY_NARROW, 3)):
+    wide, narrow = POLICY_LANE_DESIGNS[kernel]
+    for (lanes, lead), per_sm in ((wide, 1), (narrow, 3)):
         if blocks * lanes <= per_sm * sms:
             return lanes, lead
     return 1, False
@@ -1064,14 +1073,15 @@ def policy_universal_lanes(kernel, n_envs, sms):
 
 def policy_universal_layout(kernel, n_envs):
     """The launch of the universal recorder ``kernel`` over ``n_envs`` envs
-    on the current card: its lanes an env (``dc_policy_record``: 8, 4 or 1
-    by its width rule; the other families' kernels 1), whether lane 0 of a
-    group alone samples and steps, its blocks of 128 threads, the card's SMs
-    and a name for the design."""
+    on the current card: its lanes an env (``dc_policy_record`` and
+    ``sync_policy_record``: by their width rule; the other families'
+    kernels 1), whether lane 0 of a group alone samples and steps, its
+    blocks of 128 threads, the card's SMs and a name for the design."""
     if kernel not in UNIVERSAL_KERNELS:
         raise ValueError(f"unknown universal recorder {kernel!r}")
-    if kernel == "dc_policy_record":
-        fn = cuda_build.load("fused_dc_policy").dc_policy_layout
+    if kernel in POLICY_LANE_DESIGNS:
+        family = kernel[:-len("_policy_record")]
+        fn = getattr(cuda_build.load(f"fused_{family}_policy"), f"{family}_policy_layout")
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         out = (ctypes.c_int * 4)()
@@ -1137,14 +1147,15 @@ def _universal_args(pol, seed, w1, b1, w2, b2, ls, states, n_steps, shape):
                   ptr_array(pol.surface.planes(list(states))), ptr_array(ptrs))
 
 
-def _dc_policy_design_launch(pol, seed, w1, b1, w2, b2, ls, states, n_steps, n_envs,
-                             one_thread=False):
-    """dc_policy_record's kernel on the first ``n_envs`` envs of the
-    planes, in the design its width rule takes at ``n_envs`` or
-    (``one_thread``) one thread per env: the recorded signals, each ``(T,
-    n_envs)``; for the tests and tools that hold the designs against each
-    other, not counted in ``LAUNCHES``."""
-    if pol.kernel != "dc_policy_record":
+def _policy_design_launch(pol, seed, w1, b1, w2, b2, ls, states, n_steps, n_envs,
+                          one_thread=False):
+    """A recorder on lane groups (``dc_policy_record``,
+    ``sync_policy_record``) on the first ``n_envs`` envs of the planes, in
+    the design its width rule takes at ``n_envs`` or (``one_thread``) one
+    thread per env, through its C entry ``<kernel>_design``: the recorded
+    signals, each ``(T, n_envs)``; for the tests and tools that hold the
+    designs against each other, not counted in ``LAUNCHES``."""
+    if pol.kernel not in POLICY_LANE_DESIGNS:
         raise ValueError(f"{pol.kernel} has one design")
     device, R = check_planes(pol.consts, states)
     _universal_weights(pol, w1, b1, w2, b2, ls, device)
@@ -1153,8 +1164,8 @@ def _dc_policy_design_launch(pol, seed, w1, b1, w2, b2, ls, states, n_steps, n_e
     outs, args = _universal_args(pol, seed, w1, b1, w2, b2, ls, states, n_steps,
                                  (int(n_steps), int(n_envs)))
     lib, prefix = _universal_library(pol)
-    launch_kernel(lib, prefix, "dc_policy_record_design", device,
-                  {"dc_policy_record_design": 0}, *args, int(one_thread))
+    name = f"{pol.kernel}_design"
+    launch_kernel(lib, prefix, name, device, {name: 0}, *args, int(one_thread))
     return tuple(outs)
 
 

@@ -1342,21 +1342,24 @@ DC_POLICY_IDS = [("Finite-CC-PermExDc-v0", False), ("Finite-CC-ExtExDc-v0", True
                  ("Cont-CC-PermExDc-v0", False)]
 DC_POLICY_BIT_CASES = [(i, j, h, n) for i, j in DC_POLICY_IDS for h in (32, 16, 5)
                        for n in (1, 37, 2048, 2051)]
+# sync_policy_record's: the same widths (PPO's 2048 envs take the wide
+# design, 2051 the narrow one) on a finite id, the Gaussian head and the
+# speed ODE
+SYNC_POLICY_IDS = ["Finite-CC-PMSM-v0", "Cont-CC-PMSM-v0", "Cont-SC-PMSM-v0"]
+SYNC_POLICY_BIT_CASES = [(i, h, n) for i in SYNC_POLICY_IDS for h in (32, 16, 5)
+                         for n in (1, 37, 2048, 2051)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("env_id,joint,hidden,n", DC_POLICY_BIT_CASES,
-                         ids=[f"{i}{'-joint' if j else ''}-H{h}-n{n}"
-                              for i, j, h, n in DC_POLICY_BIT_CASES])
-def test_cuda_dc_policy_record_equals_one_thread_design_bit_for_bit(env_id, joint, hidden, n):
-    """dc_policy_record (eight lanes of a warp an env, every lane stepping,
-    four lanes with lane 0 stepping, or one thread per env, by the launch's
-    width rule, which the layout reports) equals its one-thread design bit for bit
-    in every env and every output (NaN where the other has NaN), for 1, 2
-    and 64 steps, at H 32, 16 and an odd 5 (H is a run-time count that
-    places the staged weights and the lanes' hidden slots).  The plain
-    version rounds tanhf and expf otherwise, so the rule against it stays
-    the universal recorder's (test_cuda_universal_policy_kernel_matches_plain_version).
+def _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n):
+    """A universal recorder on lane groups (``dc_policy_record``,
+    ``sync_policy_record``: G lanes of a warp an env, lane 0 alone stepping
+    or every lane, or one thread per env, by the launch's width rule, which
+    the layout reports) against its one-thread design, bit for bit in
+    every env and every output (NaN where the other has NaN), for 1, 2 and
+    64 steps, at ``hidden`` units (H is a run-time count that places the
+    staged weights and the lanes' hidden slots).  The plain version rounds
+    tanhf and expf otherwise, so the rule against it stays the universal
+    recorder's (test_cuda_universal_policy_kernel_matches_plain_version).
     Env 0 starts at ten times its current limit and resets at once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
@@ -1379,16 +1382,25 @@ def test_cuda_dc_policy_record_equals_one_thread_design_bit_for_bit(env_id, join
          for k, s in ((pol.obs_dim * hidden, scale), (hidden, 0.1), (hidden * pol.n_out, scale),
                       (pol.n_out, 0.1))]
     ls = torch.full((len(roll.act_names),), -0.5, device=dev) if pol.cont else None
-    # omega (under a dynamic load) to 100 rad/s, the currents to their limits
-    lims = ([100.0] if c.mech else []) + [c.f["lim0"], c.f["lim1"]]
-    start = [rng.uniform(-lim, lim, (R, 128)).astype(np.float32)
-             for lim in lims[:c.n_state]]
-    start[1 if c.mech else 0][0, 0] = 10.0 * c.f["lim0"]
+    if pol.kernel == "sync_policy_record":
+        # omega (under a dynamic load) to 100 rad/s, the currents to half
+        # their limit, the angle in [0, 2 pi)
+        i_lim = 1.0 / c.f["inv_i_lim"]
+        bounds = ([(0.0, 100.0)] if c.mech else []) + [(-0.5 * i_lim, 0.5 * i_lim)] * 2 + [
+            (0.0, 2 * np.pi)]
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32) for lo, hi in bounds]
+        start[1 if c.mech else 0][0, 0] = 10.0 * i_lim
+    else:
+        # omega (under a dynamic load) to 100 rad/s, the currents to their limits
+        lims = ([100.0] if c.mech else []) + [c.f["lim0"], c.f["lim1"]]
+        start = [rng.uniform(-lim, lim, (R, 128)).astype(np.float32)
+                 for lim in lims[:c.n_state]]
+        start[1 if c.mech else 0][0, 0] = 10.0 * c.f["lim0"]
     start = [torch.as_tensor(x, device=dev) for x in start]
     fp.reset_launches()
     for T in (1, 2, 64):
-        got = fp._dc_policy_design_launch(pol, 3, *w, ls, start, T, n)
-        want = fp._dc_policy_design_launch(pol, 3, *w, ls, start, T, n, one_thread=True)
+        got = fp._policy_design_launch(pol, 3, *w, ls, start, T, n)
+        want = fp._policy_design_launch(pol, 3, *w, ls, start, T, n, one_thread=True)
         torch.cuda.synchronize()
         for name, g, x in zip(roll.signals, got, want):
             assert g.shape == x.shape == (T, n) and g.dtype == x.dtype, (T, name)
@@ -1396,6 +1408,28 @@ def test_cuda_dc_policy_record_equals_one_thread_design_bit_for_bit(env_id, join
             assert bool(same.all()), f"T={T}: {name} differs in {int((~same).sum())}"
         assert float(got[-1][0, 0]) == 1.0  # env 0 reset at its first step
     assert not any(fp.LAUNCHES.values())  # the design entry is not the counted path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,joint,hidden,n", DC_POLICY_BIT_CASES,
+                         ids=[f"{i}{'-joint' if j else ''}-H{h}-n{n}"
+                              for i, j, h, n in DC_POLICY_BIT_CASES])
+def test_cuda_dc_policy_record_equals_one_thread_design_bit_for_bit(env_id, joint, hidden, n):
+    """dc_policy_record (eight lanes of a warp an env, every lane stepping,
+    four lanes with lane 0 stepping, or one thread per env):
+    _hold_policy_designs_bit_for_bit."""
+    _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,hidden,n", SYNC_POLICY_BIT_CASES,
+                         ids=[f"{i}-H{h}-n{n}" for i, h, n in SYNC_POLICY_BIT_CASES])
+def test_cuda_sync_policy_record_equals_one_thread_design_bit_for_bit(env_id, hidden, n):
+    """sync_policy_record (its wide and narrow lane designs, or one thread
+    per env, csrc/fused_sync_policy.cu): _hold_policy_designs_bit_for_bit,
+    with the constant-speed rotation (the CC ids) and cos and sin of the
+    angle (Cont-SC-PMSM) in the observation."""
+    _hold_policy_designs_bit_for_bit(env_id, False, hidden, n)
 
 
 SRM_RECORD_CASES = [(i, None) for i in gt.SRM_ENV_IDS] + [("Finite-TC-SRM-v0", 1.2),
@@ -1461,14 +1495,16 @@ EESM_RECORD_CASES = [(i, "wiener") for i in gt.EESM_ENV_IDS] + [("Finite-CC-EESM
 
 def _record_case(family, env_id, refs, dev):
     """The family module, its constants for ``env_id`` (constant references
-    DC_EESM_CONST_REFS, or SCIM_CONST_REFS for the sync and SCIM families,
-    with ``refs`` "const") and one plane of 128 start states: currents
-    inside their limits (the SCIM's as chip_smoke.run_induction's planes:
-    within 6 A against a 5.5 A limit, fluxes within 0.5 Wb), the speed under
-    a dynamic load in [0, 100), angles in [0, 2 pi), env 5's first current
-    at five times its limit."""
+    DC_EESM_CONST_REFS, or SCIM_CONST_REFS for the sync, SCIM and DFIM
+    families, with ``refs`` "const") and one plane of 128 start states:
+    currents inside their limits (the SCIM's as chip_smoke.run_induction's
+    planes: within 6 A against a 5.5 A limit, fluxes within 0.5 Wb; the
+    DFIM's as chip_smoke.run_dfim's: within 10 A against a 9 A limit,
+    fluxes within 1.5 Wb), the speed under a dynamic load in [0, 100),
+    angles in [0, 2 pi), env 5's first current at five times its limit."""
     from gym_electric_motor_tpu_torch import references as rg
     from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf
+    from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff
     from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef
     from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf
     from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf
@@ -1482,7 +1518,8 @@ def _record_case(family, env_id, refs, dev):
     env = gt.make_functional(env_id, device=dev, **kw)
     mod, consts = {"dc": (dcf, dcf.DcConsts), "eesm": (ef, ef.EesmConsts),
                    "sync": (sf, sf.SyncConsts),
-                   "induction": (indf, indf.InductionConsts)}[family]
+                   "induction": (indf, indf.InductionConsts),
+                   "dfim": (dff, dff.DfimConsts)}[family]
     c = consts(env)
     assert c.all_const == (refs == "const")
     rng = np.random.default_rng(29)
@@ -1498,6 +1535,12 @@ def _record_case(family, env_id, refs, dev):
         bounds = ([(0, 100)] if c.mech else []) + [(-6, 6)] * 2 + [(-0.5, 0.5)] * 2
         start = [rng.uniform(lo, hi, (1, 128)) for lo, hi in bounds]
         start[-4][0, 5] = 5.0 * i_lim  # i_salpha
+    elif family == "dfim":
+        i_lim = float(c.f["inv_ilim2"]) ** -0.5
+        bounds = (([(0, 100)] if c.mech else []) + [(-10, 10)] * 2 + [(-1.5, 1.5)] * 2
+                  + [(0, 2 * np.pi)])
+        start = [rng.uniform(lo, hi, (1, 128)) for lo, hi in bounds]
+        start[-5][0, 5] = 5.0 * i_lim  # i_salpha
     elif family == "dc":
         lims = [c.f["lim0"], c.f["lim1"]][:c.n_el]
         start = ([rng.uniform(0, 100, (1, 128))] if c.mech else []) + [
@@ -1595,3 +1638,19 @@ def test_cuda_induction_record_random_equals_plain_version_bit_for_bit(env_id, r
     csrc/fused_induction_record.cu) on the six SCIM ids, and with constant
     references on Finite-CC-SCIM: _hold_record_bit_for_bit."""
     _hold_record_bit_for_bit("induction", env_id, refs)
+
+
+# the universal DFIM random recorder: the six DFIM ids with their Wiener
+# references, and Finite-CC-DFIM with constant ones
+DFIM_RECORD_CASES = [(i, "wiener") for i in gt.DFIM_ENV_IDS] + [("Finite-CC-DFIM-v0", "const")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,refs", DFIM_RECORD_CASES,
+                         ids=[f"{i}-{r}" for i, r in DFIM_RECORD_CASES])
+def test_cuda_dfim_record_random_equals_plain_version_bit_for_bit(env_id, refs):
+    """dfim_record_random (producer and consumer warps over a ring with
+    Wiener references, one thread per env with constant ones,
+    csrc/fused_dfim_record.cu) on the six DFIM ids, and with constant
+    references on Finite-CC-DFIM: _hold_record_bit_for_bit."""
+    _hold_record_bit_for_bit("dfim", env_id, refs)

@@ -14,6 +14,12 @@ package's ``ops/pallas_record.py`` (interpret mode, one chunk).
 * With one seed the recorder and the reducing rollout take the same steps;
   signal names and types match the JAX recorder's for all six ids; the
   finite actions are the stator's and the rotor's B6 bits of one word.
+* The random recorder's ring layout, computed without the library, is the
+  ring of csrc/fused_dfim_record.cu, and its partial-width launcher hands
+  the C entry the planes in the order of the recorder's RecordOut (the
+  kernel itself runs only on a CUDA card; its card test is
+  ``test_cuda_dfim_record_random_equals_plain_version_bit_for_bit`` in
+  tests/test_torch_cuda_kernels.py).
 """
 
 import jax.numpy as jnp
@@ -116,3 +122,66 @@ def test_record_signals_match_jax(env_id):
     if env_id.startswith("Cont"):
         for k in troll.consts.act_names:
             assert float(out[k].min()) >= -1.0 and float(out[k].max()) < 1.0
+
+
+RING_CASES = [(i, "wiener") for i in gt.DFIM_ENV_IDS] + [("Finite-CC-DFIM-v0", "const")]
+
+
+@pytest.mark.parametrize("env_id,refs", RING_CASES, ids=[f"{i}-{r}" for i, r in RING_CASES])
+def test_record_ring_layout_is_the_kernels_ring(env_id, refs):
+    """dfim_record_ring_layout is the ring of csrc/fused_dfim_record.cu
+    (DfimRecordRing; words a step: both bridges' bits in one word or the six
+    duties, then four per reference row, dfim_ring.cuh's dfim_ring_words)
+    with Wiener references: 4 consumer warps, P producer warps per consumer
+    warp, two slots of K steps, each producer's steps pairing an even step
+    with the odd one that takes its sine half; with constant references one
+    thread per env."""
+    from pathlib import Path
+
+    tenv = const_envs(env_id)[1] if refs == "const" else gt.make_functional(env_id, device="cpu")
+    c = dff.DfimConsts(tenv)
+    assert c.all_const == (refs == "const")
+    lay = dff.dfim_record_ring_layout(c)
+    csrc = Path(dff.__file__).resolve().parent.parent / "csrc"
+    source = (csrc / "fused_dfim_record.cu").read_text()
+    if refs == "const":
+        assert lay == {"consumer_warps": 0, "producer_warps": 0, "K": 0, "slots": 0, "words": 0,
+                       "smem_bytes": 0, "design": "one thread per env"}
+        assert ("  if (k.flag[DF_ALL_CONST]) {\n    dfim_record_random_kernel<F, M, NR>"
+                in source)
+        return
+    K, P = dff.DFIM_RECORD_RING
+    words = c.n_words + 4 * c.n_ref
+    assert words == {(1, 1): 5, (6, 1): 10, (1, 2): 9, (6, 2): 14}[(c.n_words, c.n_ref)]
+    assert lay == {"consumer_warps": 4, "producer_warps": 4 * P, "K": K, "slots": 2,
+                   "words": words, "smem_bytes": 2 * K * words * 128 * 4,
+                   "design": "warp-specialised"}
+    assert (K // P) % 2 == 0 and lay["smem_bytes"] <= 227 * 1024
+    assert f"using DfimRecordRing = RingShape<{K}, {P}>;" in source
+    ring_header = (csrc / "dfim_ring.cuh").read_text()
+    assert "  return (FINITE ? 1 : 6) + kRefWords * NREF;" in ring_header
+    assert ("ring_layout<DfimRecordRing>((flags[DF_FINITE] ? 1 : 6) + kRefWords * "
+            "flags[DF_NREF], out);") in source
+
+
+@pytest.mark.parametrize("env_id", ["Finite-CC-DFIM-v0", "Cont-SC-DFIM-v0"])
+def test_record_random_args_follow_the_record_out_order(env_id):
+    """The partial-width launcher's arguments: one ``(T, n_envs)`` tensor
+    per recorded signal, of the recorder's types, and the C entry's output
+    array (omega or NULL, the five other state planes, ref row 0, ref row 1
+    or NULL, int32 stator and rotor bits or NULL, the six duties or NULL,
+    reward, done) pointing at them; the envs and steps as given."""
+    c = dff.DfimConsts(gt.make_functional(env_id, device="cpu"))
+    T, n = 9, 37
+    states = [torch.zeros((1, 128)) for _ in range(c.n_state)]
+    outs, args = dff._record_random_args(c, 7, states, T, n)
+    assert [x.dtype for x in outs] == list(dff.record_dtypes(c))
+    assert all(x.shape == (T, n) for x in outs)
+    assert args[3:5] == (n, T) and args[2] == 7
+    it = iter(x.data_ptr() for x in outs)
+    st = [next(it) for _ in range(c.n_state)]
+    refs = [next(it) for _ in range(c.n_ref)]
+    acts = [next(it) for _ in range(c.n_act)]
+    want = (([] if c.mech else [None]) + st + refs + [None] * (2 - c.n_ref)
+            + (acts + [None] * 6 if c.finite else [None] * 2 + acts) + list(it))
+    assert list(args[6]) == want and len(want) == 18

@@ -144,26 +144,64 @@ def test_options_raise():
                                         (2048, 114, (4, True))])
 def test_dc_policy_width_rule_mirrors_the_kernels(n, sms, want):
     """policy_universal_lanes, computed without the library, is the width
-    rule of csrc/fused_dc_policy.cu (policy_lanes): the wide design
-    (WideDesign, eight lanes an env, every lane stepping) while the
-    one-thread launch's blocks of 128 envs times its lanes fit the SMs once
-    (PPO's 2048 envs on an H100's 132), the narrow design (NarrowDesign,
-    four lanes, lane 0 stepping) while they fit three times, else one thread
-    per env; the other families' recorders take one thread per env."""
-    from pathlib import Path
-
+    rule of csrc/policy_heads_lanes.cuh (policy_width) over
+    csrc/fused_dc_policy.cu's designs: the wide design (WideDesign, eight
+    lanes an env, every lane stepping) while the one-thread launch's blocks
+    of 128 envs times its lanes fit the SMs once (PPO's 2048 envs on an
+    H100's 132), the narrow design (NarrowDesign, four lanes, lane 0
+    stepping) while they fit three times, else one thread per env; the
+    other families' recorders but the synchronous one take one thread per
+    env."""
     assert fp.policy_universal_lanes("dc_policy_record", n, sms) == want
     for kernel in fp.UNIVERSAL_KERNELS:
-        if kernel != "dc_policy_record":
+        if kernel not in ("dc_policy_record", "sync_policy_record"):
             assert fp.policy_universal_lanes(kernel, n, sms) == (1, False)
-    source = (Path(fp.__file__).resolve().parent.parent / "csrc"
-              / "fused_dc_policy.cu").read_text()
-    (gw, lw), (gn, ln) = fp.DC_POLICY_WIDE, fp.DC_POLICY_NARROW
+    _hold_width_rule_source("fused_dc_policy.cu", fp.DC_POLICY_WIDE, fp.DC_POLICY_NARROW)
+    assert fp.POLICY_LANE_DESIGNS["dc_policy_record"] == (fp.DC_POLICY_WIDE, fp.DC_POLICY_NARROW)
+
+
+def _hold_width_rule_source(name, wide, narrow):
+    """The designs a family's source names (the Python mirror ``wide``,
+    ``narrow``), its launch and layout over the shared width rule, and the
+    rule itself in csrc/policy_heads_lanes.cuh."""
+    from pathlib import Path
+
+    csrc = Path(fp.__file__).resolve().parent.parent / "csrc"
+    source = (csrc / name).read_text()
+    (gw, lw), (gn, ln) = wide, narrow
     assert f"using WideDesign = LaneDesign<{gw}, {str(lw).lower()}>;" in source
     assert f"using NarrowDesign = LaneDesign<{gn}, {str(ln).lower()}>;" in source
-    assert "if ((long long)policy_blocks(n) * WideDesign::G <= sms) return WideDesign::G;" \
-        in source
-    assert ("if ((long long)policy_blocks(n) * NarrowDesign::G <= 3 * sms) "
-            "return NarrowDesign::G;") in source
-    assert "int policy_blocks(int n) { return (n + kPolicyThreads - 1) / kPolicyThreads; }" \
-        in source
+    assert "design == 1 ? kPolicyOneThread : policy_width<WideDesign, NarrowDesign>(n);" in source
+    assert "  policy_layout<WideDesign, NarrowDesign>(n, out);" in source
+    header = (csrc / "policy_heads_lanes.cuh").read_text()
+    assert "  if ((long long)policy_blocks(n) * Wide::G <= sms) return kPolicyWide;" in header
+    assert ("  if ((long long)policy_blocks(n) * Narrow::G <= 3 * sms) return kPolicyNarrow;"
+            in header)
+    assert ("inline int policy_blocks(int n) { return (n + kPolicyThreads - 1) / kPolicyThreads; }"
+            in header)
+
+
+SYNC_WIDTH_CASES = [(1, 132, 1), (2048, 132, 1), (2049, 132, 3), (4096, 132, 3),
+                    (6272, 132, 3), (13312, 132, None), (16384, 132, None), (2048, 114, 3)]
+
+
+@pytest.mark.parametrize("n,sms,per_sm", SYNC_WIDTH_CASES)
+def test_sync_policy_width_rule_mirrors_the_kernels(n, sms, per_sm):
+    """sync_policy_record takes the width rule of csrc/policy_heads_lanes.cuh
+    over csrc/fused_sync_policy.cu's own designs (SYNC_POLICY_WIDE, _NARROW):
+    the wide design while the one-thread launch's blocks times its lanes fit
+    the SMs once (PPO's 2048 envs on an H100's 132: one block an SM at
+    most), the narrow one while they fit three times (per_sm 3), else one
+    thread per env (per_sm None; 16384 envs, the bench width)."""
+    (gw, lw), (gn, ln) = fp.SYNC_POLICY_WIDE, fp.SYNC_POLICY_NARROW
+    blocks = -(-n // 128)
+    got = fp.policy_universal_lanes("sync_policy_record", n, sms)
+    if per_sm is None:
+        assert got == (1, False) and blocks * gn > 3 * sms
+    elif blocks * gw <= sms:
+        assert got == (gw, lw) and per_sm == 1
+    else:
+        assert got == (gn, ln) and per_sm == 3 and blocks * gn <= 3 * sms
+    _hold_width_rule_source("fused_sync_policy.cu", fp.SYNC_POLICY_WIDE, fp.SYNC_POLICY_NARROW)
+    assert fp.POLICY_LANE_DESIGNS["sync_policy_record"] == (fp.SYNC_POLICY_WIDE,
+                                                            fp.SYNC_POLICY_NARROW)

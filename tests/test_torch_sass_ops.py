@@ -17,6 +17,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import sass_ops  # noqa: E402
 
 from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf  # noqa: E402
+from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_policy as fp  # noqa: E402
@@ -315,14 +316,16 @@ def test_srm_lane_kernels_carry_their_lane_mark():
     its entries (the constant-speed ids Finite-CC and Finite-TC) carry
     ``@lanes4`` and, besides them, only the PPO recorder's lane kernels
     (``test_policy_record_lane_instance_carries_its_lane_mark``) and the
-    DC family's universal recorder's
-    (``test_dc_policy_lanes_and_srm_record_ring_keep_their_one_thread_entries``)
-    carry a lane mark; each of those ids also has an unmarked one-thread
+    DC and synchronous families' universal recorders'
+    (``test_dc_policy_lanes_and_srm_record_ring_keep_their_one_thread_entries``,
+    ``test_sync_policy_lanes_keep_their_one_thread_entry``) carry a lane
+    mark; each of those ids also has an unmarked one-thread
     entry of srm_rollout_random with the same FINITE, NREF and SAT, the
     function's own work that the bounds count."""
     marks = {"srm_rollout_lanes": 4, "policy_record_lanes": 4, "policy_record_lanes/8": 8,
              "dc_policy_record_lanes": 4, "dc_policy_record_lanes/8": 8,
-             "dc_policy_record_lanes/8/Cont-CC-PermExDc-v0": 8}
+             "dc_policy_record_lanes/8/Cont-CC-PermExDc-v0": 8,
+             "sync_policy_record_lanes/8": fp.SYNC_POLICY_WIDE[0]}
     lanes = {}
     for library, instances in sass_ops.STEP_INSTANCES.items():
         for key, instance in instances.items():
@@ -476,8 +479,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     evaluation rollout, the specialised DC SC, Cont-TC-SCIM, Finite-CC-EESM
     and Cont-CC-DFIM rollouts, the DC cascade, the FOC, the main path's
     Finite-CC-PMSM random rollout, the specialised Finite-CC-PermExDc
-    rollout and the SRM, DC, EESM, synchronous and SCIM random recorders
-    run warp-specialised
+    rollout and the SRM, DC, EESM, synchronous, SCIM and DFIM random
+    recorders run warp-specialised
     with Wiener references: the DC and EESM rollouts' ``_ws`` entries
     carry ``@ws2`` (two producer warps per consumer warp, two steps each of
     a four-step slot) or, under the EESM's speed ODE (MECH), ``@ws4`` (one),
@@ -490,11 +493,12 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     producer warps, so their
     mark is ``@ws4``, the steps a producer iteration fills; the EESM CC and
     DC cascade rings hold four for two, ``@ws2``; the DC, EESM,
-    synchronous and SCIM recorders' marks are K / P of their rings
+    synchronous, SCIM and DFIM recorders' marks are K / P of their rings
     (``DC_RECORD_RING``, ``EESM_RECORD_RING``, ``SYNC_RECORD_RING``,
-    ``IND_RECORD_RING``)."""
+    ``IND_RECORD_RING``, ``DFIM_RECORD_RING``)."""
     (dk, dp), (ek, ep) = dcf.DC_RECORD_RING, ef.EESM_RECORD_RING
     (sk, sp), (ik, ip) = sf.SYNC_RECORD_RING, indf.IND_RECORD_RING
+    fk, fp_ = dff.DFIM_RECORD_RING
     seen = {}
     for instances in sass_ops.STEP_INSTANCES.values():
         for key, instance in instances.items():
@@ -505,7 +509,7 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                                        "foc_rollout_ws", "scim_rollout_ws", "pmsm_rollout_ws",
                                        "permex_rollout_ws", "srm_record_ws",
                                        "dc_record_ws", "eesm_record_ws", "sync_record_ws",
-                                       "induction_record_ws")
+                                       "induction_record_ws", "dfim_record_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
@@ -534,7 +538,9 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                     **{k: ek // ep for k in ("eesm_record_ws", "eesm_record_ws/Finite-CC-EESM-v0")},
                     **{k: sk // sp for k in ("sync_record_ws", "sync_record_ws/Finite-CC-PMSM-v0")},
                     **{k: ik // ip for k in ("induction_record_ws",
-                                             "induction_record_ws/Finite-CC-SCIM-v0")}}
+                                             "induction_record_ws/Finite-CC-SCIM-v0")},
+                    **{k: fk // fp_ for k in ("dfim_record_ws",
+                                              "dfim_record_ws/Cont-CC-DFIM-v0")}}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
@@ -770,16 +776,18 @@ def test_dc_and_eesm_record_rings_keep_their_one_thread_entries(library, prefix,
 @pytest.mark.parametrize("library,prefix,ring,ids", [
     ("fused_sync", "sync_record", sf.SYNC_RECORD_RING, ("", "/Finite-CC-PMSM-v0")),
     ("fused_induction_record", "induction_record", indf.IND_RECORD_RING,
-     ("", "/Finite-CC-SCIM-v0"))])
+     ("", "/Finite-CC-SCIM-v0")),
+    ("fused_dfim_record", "dfim_record", dff.DFIM_RECORD_RING, ("", "/Cont-CC-DFIM-v0"))])
 def test_sync_and_induction_record_rings_keep_their_one_thread_entries(library, prefix, ring,
                                                                       ids):
-    """sync_record_random and induction_record_random run on a ring with
-    Wiener references (``@wsK``, K / P of ``SYNC_RECORD_RING`` and
-    ``IND_RECORD_RING``) on the ids chip_smoke.py times (Cont-SC-PMSM and
-    Finite-CC-PMSM, Cont-SC-SCIM and Finite-CC-SCIM), while each one-thread
-    entry stays the count of the function's own work: every ring entry's
-    template arguments are its one-thread entry's.  The sync rollout's ring
-    entries stay where they were."""
+    """sync_record_random, induction_record_random and dfim_record_random
+    run on a ring with Wiener references (``@wsK``, K / P of
+    ``SYNC_RECORD_RING``, ``IND_RECORD_RING`` and ``DFIM_RECORD_RING``) on
+    the ids chip_smoke.py times (Cont-SC-PMSM and Finite-CC-PMSM,
+    Cont-SC-SCIM and Finite-CC-SCIM, Cont-SC-DFIM and Cont-CC-DFIM), while
+    each one-thread entry stays the count of the function's own work: every
+    ring entry's template arguments are its one-thread entry's.  The sync
+    rollout's ring entries stay where they were."""
     instances = sass_ops.STEP_INSTANCES[library]
     K, P = ring
     for tail in ids:
@@ -803,3 +811,24 @@ def test_against_names_functions_apart_from_the_source_path_hash():
     norm = [sass_ops._ANON.sub("_ZN_anon_", x) for x in (a, b, c)]
     assert norm[0] == norm[1] != norm[2]
     assert norm[0].startswith("_ZN_anon_22sync_rollout_ws_kernelILb0ELb0ELi1E")
+
+
+def test_sync_policy_lanes_keep_their_one_thread_entry():
+    """sync_policy_record runs on lane groups below a full card, on
+    Finite-CC-PMSM in the one lane design its width rule names, wide and
+    narrow alike (``SYNC_POLICY_WIDE`` and ``SYNC_POLICY_NARROW``: eight
+    lanes, every lane stepping, the ``/8`` entry, ``@lanes8``), while the
+    one-thread entry stays the count of the function's own work, its
+    hidden-unit loop apart (``@inner``).  The lane entry's template
+    arguments start with the one-thread entry's, followed by the lanes and
+    the lead flag."""
+    sync = sass_ops.STEP_INSTANCES["fused_sync_policy"]
+    assert sync["sync_policy_record"] == "sync_policy_record_kernelILb1ELb0ELi2EE@inner"
+    assert fp.SYNC_POLICY_WIDE == fp.SYNC_POLICY_NARROW == (8, False)
+    lanes, lead = fp.SYNC_POLICY_WIDE
+    args = sync["sync_policy_record"].partition("@")[0][len("sync_policy_record_kernel"):-1]
+    key = "sync_policy_record_lanes/8"
+    assert sync[key] == (f"sync_policy_record_lanes_kernel{args}Li{lanes}ELb{int(lead)}EE"
+                         f"@lanes{lanes}")
+    assert sass_ops.lanes_of(sync[key]) == lanes and sass_ops.ws_steps_of(sync[key]) == 0
+    assert sorted(sync) == ["sync_policy_record", key]

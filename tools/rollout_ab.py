@@ -30,11 +30,11 @@ baseline -0.1, its per-env gradient sums compared too),
 Cont-SC-ShuntDc-v0, the catalog's Wiener reference or
 ``ConstReference("omega", 0.5)``) or ``foc:Cont-CC-PMSM-v0[:const]`` for the
 FOC closed loop (``foc_rollout``, the catalog's Wiener references or
-constant zero ones), ``policy_universal:<id>[:joint]:<H>:<n>`` for the
-universal policy recorder of the id's family (``<family>_policy_record``,
+constant zero ones), ``policy_universal:<id>[:joint]:<H>:<n>[:<T>]`` for
+the universal policy recorder of the id's family (``<family>_policy_record``,
 ``dc_policy_record`` on the DC ids; joint heads, H hidden units, n envs,
-at 256 steps, or 1024 from 16384 envs on: the two shapes ``chip_smoke.py``
-times in phase 42; weights drawn from numpy as ``chip_smoke.pu_weights``
+at T steps, by default 256, or 1024 from 16384 envs on: the two shapes
+``chip_smoke.py`` times in phase 42; weights drawn from numpy as ``chip_smoke.pu_weights``
 draws them, zero states), ``srm_record:<id>[:psi_s]`` for the SRM random
 recorder (``srm_record_random`` at 1024 steps, the catalog's Wiener
 references, linear or with that saturation flux ``psi_s``),
@@ -43,9 +43,11 @@ on any of the 24 DC ids, at 1024 steps, the catalog's Wiener references),
 ``eesm_record:<id>`` for the universal EESM random recorder
 (``eesm_record_random`` on any of the six EESM ids, likewise),
 ``sync_record:<id>`` for the universal synchronous random recorder
-(``sync_record_random`` on any of the twelve sync ids, likewise) or
+(``sync_record_random`` on any of the twelve sync ids, likewise),
 ``induction_record:<id>`` for the universal SCIM random recorder
-(``induction_record_random`` on any of the six SCIM ids, likewise); the closed
+(``induction_record_random`` on any of the six SCIM ids, likewise) or
+``dfim_record:<id>`` for the universal DFIM random recorder
+(``dfim_record_random`` on any of the six DFIM ids, likewise); the closed
 loops take the tuned controller of ``GemController.make``.
 For each path (default: the synchronous and DFIM ids that ``chip_smoke.py``
 times, with Wiener and with constant references) it builds the path's
@@ -55,7 +57,7 @@ source (``csrc/fused_<family>.cu``, ``csrc/fused_policy.cu``,
 ``csrc/fused_dc_cascade.cu``, ``csrc/fused_foc.cu``,
 ``csrc/fused_<family>_policy.cu``, ``csrc/fused_srm_record.cu``,
 ``csrc/fused_dc_record.cu``, ``csrc/fused_eesm_record.cu``,
-``csrc/fused_induction_record.cu``) of both
+``csrc/fused_induction_record.cu``, ``csrc/fused_dfim_record.cu``) of both
 trees with the package's nvcc flags,
 runs the kernel of each on the same constants, seed and zero states
 (16384 envs x 65536 steps, the recorders as above; the policy's weights drawn from numpy as
@@ -144,7 +146,8 @@ def main():
                  "eesm_record": (ef, ef.EesmConsts, "fused_eesm_record"),
                  "srm_record": (srf, srf.SrmConsts, "fused_srm_record"),
                  "sync_record": (sf, sf.SyncConsts, "fused_sync"),
-                 "induction_record": (indf, indf.InductionConsts, "fused_induction_record")}
+                 "induction_record": (indf, indf.InductionConsts, "fused_induction_record"),
+                 "dfim_record": (dff, dff.DfimConsts, "fused_dfim_record")}
     families = {"sync": (sf, sf.SyncConsts, "fused_sync"),
                 "induction": (indf, indf.InductionConsts, "fused_induction"),
                 "dfim": (dff, dff.DfimConsts, "fused_dfim")}
@@ -169,8 +172,8 @@ def main():
         if family == "policy_universal":
             env_id, *rest = rest
             joint = rest[0] == "joint"
-            hidden, envs = (int(x) for x in rest[joint:])
-            steps = 1024 if envs >= 16384 else 256
+            hidden, envs, *depth = (int(x) for x in rest[joint:])
+            steps = depth[0] if depth else (1024 if envs >= 16384 else 256)
             env = gt.make_functional(env_id, device=dev)
             pol = fp.make_fused_policy_record_universal(env, steps, envs, hidden=hidden,
                                                         joint_heads=joint).policy

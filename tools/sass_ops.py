@@ -87,7 +87,7 @@ included; the function's own work is the one-thread step's count.  A
 warp-specialised kernel (the sync, DC, SCIM, EESM and DFIM random rollouts,
 csrc/draw_ring.cuh; the policy evaluation rollout, the specialised DC SC,
 Cont-TC-SCIM, Finite-CC-EESM and Cont-CC-DFIM rollouts, the DC cascade and
-the FOC, the SRM, DC, EESM, synchronous and SCIM random recorders,
+the FOC, the SRM, DC, EESM, synchronous, SCIM and DFIM random recorders,
 csrc/ring_pipe.cuh) is marked ``@wsK``: its consumer warps run
 a step loop (one step an iteration, shared-memory loads) and its producer warps
 a loop whose iteration fills a ring slot of K steps (shared-memory
@@ -813,10 +813,15 @@ STEP_INSTANCES = {
         "dfim_rollout_ws/Cont-CC-DFIM-v0": "dfim_rollout_ws_kernelILb0ELb0ELi2E@ws4",
         "dfim_rollout_ws/Finite-CC-DFIM-v0": "dfim_rollout_ws_kernelILb1ELb0ELi2E@ws4",
     },
+    # With Wiener references the random recorder runs dfim_record_ws_kernel
+    # (K = 8, two producer warps per consumer warp: @ws4); its one-thread
+    # Wiener loop is built for the count of the function's own work
     "fused_dfim_record": {
         "dfim_record_random": "dfim_record_random_kernelILb0ELb1ELi1E",
         "dfim_record_buffer": "dfim_record_buffer_kernelILb0ELb1E",
         "dfim_record_random/Cont-CC-DFIM-v0": "dfim_record_random_kernelILb0ELb0ELi2E",
+        "dfim_record_ws": "dfim_record_ws_kernelILb0ELb1ELi1E@ws4",
+        "dfim_record_ws/Cont-CC-DFIM-v0": "dfim_record_ws_kernelILb0ELb0ELi2E@ws4",
     },
     # <FINITE, MECH, NREF, SAT> (<FINITE, MECH, SAT> for the buffer kernels),
     # linear: Cont-SC-SRM-v0 (0, 1, 1, 0) for each kernel, and
@@ -851,8 +856,14 @@ STEP_INSTANCES = {
     # and induction families, <FINITE, MECH, MC, NREF, JOINT> for the DC,
     # <FINITE, MECH, NREF, JOINT> for the EESM and DFIM, <FINITE, MECH,
     # NREF, SAT, JOINT> for the SRM family
+    # sync_policy_record runs on lane groups below a full card, as the DC
+    # family's: sync_policy_record_lanes_kernel<FINITE, MECH, NREF, G, LEAD>,
+    # eight lanes, every lane stepping, in its wide and its narrow design
+    # alike (@lanes8, the /8 entry)
     "fused_sync_policy": {  # Finite-CC-PMSM-v0
         "sync_policy_record": "sync_policy_record_kernelILb1ELb0ELi2EE@inner",
+        "sync_policy_record_lanes/8":
+            "sync_policy_record_lanes_kernelILb1ELb0ELi2ELi8ELb0EE@lanes8",
     },
     # dc_policy_record runs on lane groups below a full card,
     # dc_policy_record_lanes_kernel<FINITE, MECH, MC, NREF, JOINT, G, LEAD>:
