@@ -302,23 +302,7 @@ dc_policy_record_lanes_kernel(DcConst k, PolicyConst q, uint2 key, int n, int n_
 
 // ---- the launch --------------------------------------------------------
 
-// A host launcher of one instance; design: 0 the width rule at n, 1 one
-// thread per env.
-using LaunchFn = void (*)(const DcConst&, const PolicyConst&, uint2, int, int,
-                          const PolicyWeights&, const float* const*, void* const*,
-                          const PolicyOut&, cudaStream_t, int);
-
-template <bool F, bool M, int MC, int NR, bool J, class D>
-void launch_lanes(const DcConst& k, const PolicyConst& q, uint2 key, int n, int n_steps,
-                  const PolicyWeights& w, const PolicyInPlanes<kStateSlots>& in,
-                  const PolicyOutPlanes<kStateSlots>& so, const PolicyOut& o, cudaStream_t st) {
-  using S = Shape<F, MC, NR, J>;
-  const long long threads = (long long)n * D::G;
-  dc_policy_record_lanes_kernel<F, M, MC, NR, J, D::G, D::LEAD>
-      <<<(int)((threads + kPolicyThreads - 1) / kPolicyThreads), kPolicyThreads,
-         policy_smem_bytes(S::F, q.h, q.a, F ? 0 : S::NC), st>>>(k, q, key, n, n_steps, w, in,
-                                                                so, o);
-}
+using LaunchFn = PolicyDesignFn<DcConst>;
 
 template <bool F, bool M, int MC, int NR, bool J>
 void launch(const DcConst& k, const PolicyConst& q, uint2 key, int n, int n_steps,
@@ -327,21 +311,17 @@ void launch(const DcConst& k, const PolicyConst& q, uint2 key, int n, int n_step
   using S = Shape<F, MC, NR, J>;
   const PolicyWidth d =
       design == 1 ? kPolicyOneThread : policy_width<WideDesign, NarrowDesign>(n);
-  if (d == kPolicyOneThread) {
+  if (d == kPolicyWide) {
+    policy_launch(
+        dc_policy_record_lanes_kernel<F, M, MC, NR, J, WideDesign::G, WideDesign::LEAD>, S::F,
+        F ? 0 : S::NC, k, q, key, n, n_steps, w, in, out, o, st, WideDesign::G);
+  } else if (d == kPolicyNarrow) {
+    policy_launch(
+        dc_policy_record_lanes_kernel<F, M, MC, NR, J, NarrowDesign::G, NarrowDesign::LEAD>,
+        S::F, F ? 0 : S::NC, k, q, key, n, n_steps, w, in, out, o, st, NarrowDesign::G);
+  } else {
     policy_launch(dc_policy_record_kernel<F, M, MC, NR, J>, S::F, F ? 0 : S::NC, k, q, key, n,
                   n_steps, w, in, out, o, st);
-    return;
-  }
-  PolicyInPlanes<kStateSlots> pin;
-  PolicyOutPlanes<kStateSlots> pout;
-  for (int j = 0; j < kStateSlots; ++j) {
-    pin.p[j] = in[j];
-    pout.p[j] = (float*)out[j];
-  }
-  if (d == kPolicyWide) {
-    launch_lanes<F, M, MC, NR, J, WideDesign>(k, q, key, n, n_steps, w, pin, pout, o, st);
-  } else {
-    launch_lanes<F, M, MC, NR, J, NarrowDesign>(k, q, key, n, n_steps, w, pin, pout, o, st);
   }
 }
 
@@ -390,14 +370,9 @@ int dc_policy_record_design(const float* consts, const int* flags, const float* 
   const bool ok = idx >= 0 && pi[0] == (finite ? n_ch : 0)
                   && !(finite && n_ch == 1 && (pi[1] < 2 || pi[1] > 4));
   const LaunchFn fn = ok ? (joint ? kLaunchJoint : kLaunch)[idx] : nullptr;
-  if (fn == nullptr || hidden < 1 || hidden > kPolicyMaxHidden || design < 0 || design > 1) {
-    return (int)cudaErrorInvalidValue;
-  }
   const int n_out = !finite ? n_ch : (n_ch == 2 ? (joint ? 16 : 8) : pi[1]);
-  fn(dc_load_const(consts, flags), policy_load_const(pk, pi, hidden, n_out),
-     policy_seed_key(seed), n, n_steps, {w1, b1, w2, b2, ls}, in, out,
-     policy_out(out, kStateSlots), (cudaStream_t)stream, design);
-  return (int)cudaGetLastError();
+  return policy_design_call(fn, dc_load_const(consts, flags), pk, pi, seed, n, n_steps, hidden,
+                            n_out, {w1, b1, w2, b2, ls}, in, out, kStateSlots, design, stream);
 }
 
 // As sync_policy_record; in: (omega or NULL, i0, i1 or NULL); out: those

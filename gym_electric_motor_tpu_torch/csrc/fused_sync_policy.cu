@@ -342,29 +342,7 @@ sync_policy_record_lanes_kernel(SyncConst k, PolicyConst q, uint2 key, int n, in
 
 // ---- the launch --------------------------------------------------------
 
-// A host launcher of one instance; design: 0 the width rule at n, 1 one
-// thread per env.
-using LaunchFn = void (*)(const SyncConst&, const PolicyConst&, uint2, int, int,
-                          const PolicyWeights&, const float* const*, void* const*,
-                          const PolicyOut&, cudaStream_t, int);
-
-template <bool F, bool M, int NR, class D>
-void launch_lanes(const SyncConst& k, const PolicyConst& q, uint2 key, int n, int n_steps,
-                  const PolicyWeights& w, const float* const* in, void* const* out,
-                  const PolicyOut& o, cudaStream_t st) {
-  using S = Shape<F, NR>;
-  PolicyInPlanes<kStateSlots> pin;
-  PolicyOutPlanes<kStateSlots> pout;
-  for (int j = 0; j < kStateSlots; ++j) {
-    pin.p[j] = in[j];
-    pout.p[j] = (float*)out[j];
-  }
-  const long long threads = (long long)n * D::G;
-  sync_policy_record_lanes_kernel<F, M, NR, D::G, D::LEAD>
-      <<<(int)((threads + kPolicyThreads - 1) / kPolicyThreads), kPolicyThreads,
-         policy_smem_bytes(S::F, q.h, S::A, F ? 0 : S::NC), st>>>(k, q, key, n, n_steps, w, pin,
-                                                                 pout, o);
-}
+using LaunchFn = PolicyDesignFn<SyncConst>;
 
 template <bool F, bool M, int NR>
 void launch(const SyncConst& k, const PolicyConst& q, uint2 key, int n, int n_steps,
@@ -374,9 +352,12 @@ void launch(const SyncConst& k, const PolicyConst& q, uint2 key, int n, int n_st
   const PolicyWidth d =
       design == 1 ? kPolicyOneThread : policy_width<WideDesign, NarrowDesign>(n);
   if (d == kPolicyWide) {
-    launch_lanes<F, M, NR, WideDesign>(k, q, key, n, n_steps, w, in, out, o, st);
+    policy_launch(sync_policy_record_lanes_kernel<F, M, NR, WideDesign::G, WideDesign::LEAD>,
+                  S::F, F ? 0 : S::NC, k, q, key, n, n_steps, w, in, out, o, st, WideDesign::G);
   } else if (d == kPolicyNarrow) {
-    launch_lanes<F, M, NR, NarrowDesign>(k, q, key, n, n_steps, w, in, out, o, st);
+    policy_launch(sync_policy_record_lanes_kernel<F, M, NR, NarrowDesign::G, NarrowDesign::LEAD>,
+                  S::F, F ? 0 : S::NC, k, q, key, n, n_steps, w, in, out, o, st,
+                  NarrowDesign::G);
   } else {
     policy_launch(sync_policy_record_kernel<F, M, NR>, S::F, F ? 0 : S::NC, k, q, key, n,
                   n_steps, w, in, out, o, st);
@@ -406,14 +387,11 @@ int sync_policy_record_design(const float* consts, const int* flags, const float
   const int finite = flags[F_FINITE] != 0;
   const bool ok = (flags[F_NREF] == 1 || flags[F_NREF] == 2) && pi[0] == finite
                   && pi[1 + kPolicyMaxHeads] == 0;
-  if (!ok || hidden < 1 || hidden > kPolicyMaxHidden || design < 0 || design > 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  kLaunch[4 * finite + 2 * (flags[F_MECH] != 0) + flags[F_NREF] - 1](
-      sync_load_const(consts, flags), policy_load_const(pk, pi, hidden, finite ? 8 : 3),
-      policy_seed_key(seed), n, n_steps, {w1, b1, w2, b2, ls}, in, out,
-      policy_out(out, kStateSlots), (cudaStream_t)stream, design);
-  return (int)cudaGetLastError();
+  const LaunchFn fn =
+      ok ? kLaunch[4 * finite + 2 * (flags[F_MECH] != 0) + flags[F_NREF] - 1] : nullptr;
+  return policy_design_call(fn, sync_load_const(consts, flags), pk, pi, seed, n, n_steps, hidden,
+                            finite ? 8 : 3, {w1, b1, w2, b2, ls}, in, out, kStateSlots, design,
+                            stream);
 }
 
 // pk, pi: the policy constants (PolicyConst); w1, b1, w2, b2, ls: the flat

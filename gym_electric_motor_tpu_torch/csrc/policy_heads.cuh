@@ -307,21 +307,23 @@ using PolicyLaunchFn = void (*)(const Const&, const PolicyConst&, uint2, int, in
                                 const PolicyWeights&, const float* const*, void* const*,
                                 const PolicyOut&, cudaStream_t);
 
-// Launch a policy kernel, one thread per env, with the staged weights'
-// bytes of shared memory (f features, nc log-stds); In and Out are plane
-// structs of a `p` pointer array, filled from in and out.
+// Launch a policy kernel, `lanes` threads per env (one, or a lane group of
+// policy_heads_lanes.cuh), with the staged weights' bytes of shared memory
+// (f features, nc log-stds); In and Out are plane structs of a `p` pointer
+// array, filled from in and out.
 template <typename Const, typename In, typename Out>
 void policy_launch(void (*kernel)(Const, PolicyConst, uint2, int, int, PolicyWeights, In, Out,
                                   PolicyOut),
                    int f, int nc, const Const& k, const PolicyConst& q, uint2 key, int n,
                    int n_steps, const PolicyWeights& w, const float* const* in,
-                   void* const* out, const PolicyOut& o, cudaStream_t st) {
+                   void* const* out, const PolicyOut& o, cudaStream_t st, int lanes = 1) {
   In pin;
   Out pout;
   constexpr int kIn = sizeof(pin.p) / sizeof(pin.p[0]), kOut = sizeof(pout.p) / sizeof(pout.p[0]);
   for (int j = 0; j < kIn; ++j) pin.p[j] = in[j];
   for (int j = 0; j < kOut; ++j) pout.p[j] = (float*)out[j];
-  kernel<<<(n + kPolicyThreads - 1) / kPolicyThreads, kPolicyThreads,
+  const long long threads = (long long)n * lanes;
+  kernel<<<(int)((threads + kPolicyThreads - 1) / kPolicyThreads), kPolicyThreads,
            policy_smem_bytes(f, q.h, q.a, nc), st>>>(k, q, key, n, n_steps, w, pin, pout, o);
 }
 

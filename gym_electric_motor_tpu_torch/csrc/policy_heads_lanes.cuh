@@ -111,6 +111,14 @@ __device__ __forceinline__ uint32_t* lane_plane(int p, uint32_t* const (&planes)
 
 // ---- the width rule (host side) ------------------------------------------
 
+// The most blocks a lane-group launch of the width rule puts on an SM (the
+// narrow design's bound in policy_width), for a lane kernel's
+// __launch_bounds__: ptxas then allocates registers for that occupancy and
+// no tighter (the EESM and SRM lane kernels; under the default bound the
+// saturating continuous SRM lane instance with the speed ODE and three
+// rows spilled 12 B where its one-thread instance spills none).
+constexpr int kPolicyLaneBlocksPerSm = 3;
+
 // A lane design: G lanes an env, and whether lane 0 alone samples and
 // steps it (LEAD) or every lane does.
 template <int G_, bool LEAD_>
@@ -153,4 +161,27 @@ void policy_layout(int n, int* out) {
   out[1] = d == kPolicyWide ? Wide::LEAD : (d == kPolicyNarrow && Narrow::LEAD);
   out[2] = (int)(((long long)n * g + kPolicyThreads - 1) / kPolicyThreads);
   out[3] = device_sms();
+}
+
+// A family's host launcher of one instance in a design (0: the width rule
+// at n, 1: one thread per env), as its instance tables hold them.
+template <typename Const>
+using PolicyDesignFn = void (*)(const Const&, const PolicyConst&, uint2, int, int,
+                                const PolicyWeights&, const float* const*, void* const*,
+                                const PolicyOut&, cudaStream_t, int);
+
+// The body of every <family>_policy_record_design of a recorder on lane
+// groups: policy_call's, the picked launcher run in `design`, and
+// cudaErrorInvalidValue also for a design other than 0 and 1.
+template <typename Const>
+int policy_design_call(PolicyDesignFn<Const> fn, const Const& k, const float* pk, const int* pi,
+                       unsigned long long seed, int n, int n_steps, int hidden, int n_out,
+                       const PolicyWeights& w, const float* const* in, void* const* out,
+                       int n_state_slots, int design, void* stream) {
+  if (fn == nullptr || hidden < 1 || hidden > kPolicyMaxHidden || design < 0 || design > 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  fn(k, policy_load_const(pk, pi, hidden, n_out), policy_seed_key(seed), n, n_steps, w, in, out,
+     policy_out(out, n_state_slots), (cudaStream_t)stream, design);
+  return (int)cudaGetLastError();
 }

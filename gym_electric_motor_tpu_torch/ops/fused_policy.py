@@ -1025,16 +1025,21 @@ _UNIVERSAL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_uint64] + [ctypes.c_int]
 _DESIGN_ARGTYPES = _UNIVERSAL_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
 
 # The lane designs of the width rule of the recorders on lane groups
-# (WideDesign and NarrowDesign in csrc/fused_dc_policy.cu and
-# csrc/fused_sync_policy.cu): lanes an env, and whether lane 0 of a group
-# alone samples and steps the env.
+# (WideDesign and NarrowDesign in csrc/fused_<family>_policy.cu): lanes an
+# env, and whether lane 0 of a group alone samples and steps the env.
 DC_POLICY_WIDE = (8, False)
 DC_POLICY_NARROW = (4, True)
 SYNC_POLICY_WIDE = (8, False)
 SYNC_POLICY_NARROW = (8, False)
+EESM_POLICY_WIDE = (8, False)
+EESM_POLICY_NARROW = (8, False)
+SRM_POLICY_WIDE = (8, False)
+SRM_POLICY_NARROW = (8, False)
 # the universal recorders on lane groups: their (wide, narrow) designs
 POLICY_LANE_DESIGNS = {"dc_policy_record": (DC_POLICY_WIDE, DC_POLICY_NARROW),
-                       "sync_policy_record": (SYNC_POLICY_WIDE, SYNC_POLICY_NARROW)}
+                       "sync_policy_record": (SYNC_POLICY_WIDE, SYNC_POLICY_NARROW),
+                       "eesm_policy_record": (EESM_POLICY_WIDE, EESM_POLICY_NARROW),
+                       "srm_policy_record": (SRM_POLICY_WIDE, SRM_POLICY_NARROW)}
 
 
 def _universal_library(pol):
@@ -1058,9 +1063,9 @@ def policy_universal_lanes(kernel, n_envs, sms):
     """The lanes an env and whether lane 0 alone steps, of the universal
     recorder ``kernel``'s launch over ``n_envs`` envs on a card of ``sms``
     SMs: the width rule of csrc/policy_heads_lanes.cuh (``policy_width``)
-    over the kernel's designs (``POLICY_LANE_DESIGNS``) for
-    ``dc_policy_record`` and ``sync_policy_record``, one thread per env for
-    the other families'.  Computed here, without the library."""
+    over the kernel's designs (``POLICY_LANE_DESIGNS``: the DC, sync, EESM
+    and SRM recorders), one thread per env for the other families'.
+    Computed here, without the library."""
     if kernel not in POLICY_LANE_DESIGNS:
         return 1, False
     blocks = -(-int(n_envs) // LANE)
@@ -1073,8 +1078,8 @@ def policy_universal_lanes(kernel, n_envs, sms):
 
 def policy_universal_layout(kernel, n_envs):
     """The launch of the universal recorder ``kernel`` over ``n_envs`` envs
-    on the current card: its lanes an env (``dc_policy_record`` and
-    ``sync_policy_record``: by their width rule; the other families'
+    on the current card: its lanes an env (the kernels of
+    ``POLICY_LANE_DESIGNS``: by their width rule; the other families'
     kernels 1), whether lane 0 of a group alone samples and steps, its
     blocks of 128 threads, the card's SMs and a name for the design."""
     if kernel not in UNIVERSAL_KERNELS:
@@ -1149,8 +1154,8 @@ def _universal_args(pol, seed, w1, b1, w2, b2, ls, states, n_steps, shape):
 
 def _policy_design_launch(pol, seed, w1, b1, w2, b2, ls, states, n_steps, n_envs,
                           one_thread=False):
-    """A recorder on lane groups (``dc_policy_record``,
-    ``sync_policy_record``) on the first ``n_envs`` envs of the planes, in
+    """A recorder on lane groups (a kernel of ``POLICY_LANE_DESIGNS``) on
+    the first ``n_envs`` envs of the planes, in
     the design its width rule takes at ``n_envs`` or (``one_thread``) one
     thread per env, through its C entry ``<kernel>_design``: the recorded
     signals, each ``(T, n_envs)``; for the tests and tools that hold the

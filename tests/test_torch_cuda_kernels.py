@@ -1348,11 +1348,24 @@ DC_POLICY_BIT_CASES = [(i, j, h, n) for i, j in DC_POLICY_IDS for h in (32, 16, 
 SYNC_POLICY_IDS = ["Finite-CC-PMSM-v0", "Cont-CC-PMSM-v0", "Cont-SC-PMSM-v0"]
 SYNC_POLICY_BIT_CASES = [(i, h, n) for i in SYNC_POLICY_IDS for h in (32, 16, 5)
                          for n in (1, 37, 2048, 2051)]
+# eesm_policy_record's: the same widths on the three-row finite id, its
+# 32-way joint head, and the Gaussian head with the speed ODE
+EESM_POLICY_IDS = [("Finite-CC-EESM-v0", False), ("Finite-CC-EESM-v0", True),
+                   ("Cont-SC-EESM-v0", False)]
+EESM_POLICY_BIT_CASES = [(i, j, h, n) for i, j in EESM_POLICY_IDS for h in (32, 16, 5)
+                         for n in (1, 37, 2048, 2051)]
+# srm_policy_record's: the three-row finite id, its 27-way joint head, the
+# Gaussian head with the speed ODE, and the saturating finite TC id (the
+# torque in the observation and the reward)
+SRM_POLICY_IDS = [("Finite-CC-SRM-v0", False, None), ("Finite-CC-SRM-v0", True, None),
+                  ("Cont-SC-SRM-v0", False, None), ("Finite-TC-SRM-v0", False, 1.2)]
+SRM_POLICY_BIT_CASES = [(i, j, p, h, n) for i, j, p in SRM_POLICY_IDS for h in (32, 16, 5)
+                        for n in (1, 37, 2048, 2051)]
 
 
-def _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n):
-    """A universal recorder on lane groups (``dc_policy_record``,
-    ``sync_policy_record``: G lanes of a warp an env, lane 0 alone stepping
+def _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n, psi_s=None):
+    """A universal recorder on lane groups (a kernel of
+    ``fp.POLICY_LANE_DESIGNS``: G lanes of a warp an env, lane 0 alone stepping
     or every lane, or one thread per env, by the launch's width rule, which
     the layout reports) against its one-thread design, bit for bit in
     every env and every output (NaN where the other has NaN), for 1, 2 and
@@ -1360,13 +1373,15 @@ def _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n):
     staged weights and the lanes' hidden slots).  The plain version rounds
     tanhf and expf otherwise, so the rule against it stays the universal
     recorder's (test_cuda_universal_policy_kernel_matches_plain_version).
-    Env 0 starts at ten times its current limit and resets at once."""
+    Env 0 starts at ten times its current limit and resets at once;
+    ``psi_s`` builds a saturating SRM."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
     from gym_electric_motor_tpu_torch.ops import fused_policy as fp
 
     dev = torch.device("cuda")
-    env = gt.make_functional(env_id, device=dev)
+    kw = {"motor": {"motor_parameter": {"psi_s": psi_s}}} if psi_s else {}
+    env = gt.make_functional(env_id, device=dev, **kw)
     R = -(-n // 128)
     roll = fp.make_fused_policy_record_universal(env, 64, R * 128, hidden=hidden,
                                                  joint_heads=joint)
@@ -1390,6 +1405,25 @@ def _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n):
             (0.0, 2 * np.pi)]
         start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32) for lo, hi in bounds]
         start[1 if c.mech else 0][0, 0] = 10.0 * i_lim
+    elif pol.kernel == "eesm_policy_record":
+        # omega (under a dynamic load) to 100 rad/s, i_sd, i_sq and i_e to
+        # half their limits, the angle in [0, 2 pi)
+        i_lim, ie_lim = 1.0 / c.f["inv_i_lim"], 1.0 / c.f["inv_ie_lim"]
+        bounds = ([(0.0, 100.0)] if c.mech else []) + [(-0.5 * i_lim, 0.5 * i_lim)] * 2 + [
+            (-0.5 * ie_lim, 0.5 * ie_lim), (0.0, 2 * np.pi)]
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32) for lo, hi in bounds]
+        start[1 if c.mech else 0][0, 0] = 10.0 * i_lim
+    elif pol.kernel == "srm_policy_record":
+        # omega (under a dynamic load) to 100 rad/s, the phase currents in
+        # [0, 22) A against the 20 A limit, the angle in [0, 2 pi); env 0's
+        # three phases at ten times the limit (a saturating phase that its
+        # command drives down can fall below the limit in one step)
+        assert c.sat == (psi_s is not None)
+        i_lim = 1.0 / c.f["inv_ilim"]
+        bounds = ([(0.0, 100.0)] if c.mech else []) + [(0.0, 22.0)] * 3 + [(0.0, 2 * np.pi)]
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32) for lo, hi in bounds]
+        for j in range(3):
+            start[j + c.mech][0, 0] = 10.0 * i_lim
     else:
         # omega (under a dynamic load) to 100 rad/s, the currents to their limits
         lims = ([100.0] if c.mech else []) + [c.f["lim0"], c.f["lim1"]]
@@ -1430,6 +1464,33 @@ def test_cuda_sync_policy_record_equals_one_thread_design_bit_for_bit(env_id, hi
     with the constant-speed rotation (the CC ids) and cos and sin of the
     angle (Cont-SC-PMSM) in the observation."""
     _hold_policy_designs_bit_for_bit(env_id, False, hidden, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,joint,hidden,n", EESM_POLICY_BIT_CASES,
+                         ids=[f"{i}{'-joint' if j else ''}-H{h}-n{n}"
+                              for i, j, h, n in EESM_POLICY_BIT_CASES])
+def test_cuda_eesm_policy_record_equals_one_thread_design_bit_for_bit(env_id, joint, hidden, n):
+    """eesm_policy_record (its wide and narrow lane designs, or one thread
+    per env, csrc/fused_eesm_policy.cu): _hold_policy_designs_bit_for_bit,
+    with the constant-speed rotation and three reference rows (Finite-CC),
+    the 32-way joint head, and the four Gaussian channels under the speed
+    ODE (Cont-SC)."""
+    _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,joint,psi_s,hidden,n", SRM_POLICY_BIT_CASES,
+                         ids=[f"{i}{'-joint' if j else ''}{'-sat' if p else ''}-H{h}-n{n}"
+                              for i, j, p, h, n in SRM_POLICY_BIT_CASES])
+def test_cuda_srm_policy_record_equals_one_thread_design_bit_for_bit(env_id, joint, psi_s,
+                                                                     hidden, n):
+    """srm_policy_record (its wide and narrow lane designs, or one thread per
+    env, csrc/fused_srm_policy.cu): _hold_policy_designs_bit_for_bit, with
+    three reference rows (Finite-CC) and the 27-way joint head, the three
+    Gaussian channels under the speed ODE (Cont-SC), and the saturating
+    torque in the observation and the reward (Finite-TC, psi_s 1.2)."""
+    _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n, psi_s)
 
 
 SRM_RECORD_CASES = [(i, None) for i in gt.SRM_ENV_IDS] + [("Finite-TC-SRM-v0", 1.2),

@@ -150,11 +150,12 @@ def test_dc_policy_width_rule_mirrors_the_kernels(n, sms, want):
     of 128 envs times its lanes fit the SMs once (PPO's 2048 envs on an
     H100's 132), the narrow design (NarrowDesign, four lanes, lane 0
     stepping) while they fit three times, else one thread per env; the
-    other families' recorders but the synchronous one take one thread per
-    env."""
+    other families' recorders but the synchronous, EESM and SRM ones take
+    one thread per env."""
     assert fp.policy_universal_lanes("dc_policy_record", n, sms) == want
     for kernel in fp.UNIVERSAL_KERNELS:
-        if kernel not in ("dc_policy_record", "sync_policy_record"):
+        if kernel not in ("dc_policy_record", "sync_policy_record", "eesm_policy_record",
+                          "srm_policy_record"):
             assert fp.policy_universal_lanes(kernel, n, sms) == (1, False)
     _hold_width_rule_source("fused_dc_policy.cu", fp.DC_POLICY_WIDE, fp.DC_POLICY_NARROW)
     assert fp.POLICY_LANE_DESIGNS["dc_policy_record"] == (fp.DC_POLICY_WIDE, fp.DC_POLICY_NARROW)
@@ -181,6 +182,22 @@ def _hold_width_rule_source(name, wide, narrow):
             in header)
 
 
+def _hold_width_rule(kernel, wide, narrow, n, sms, per_sm):
+    """policy_universal_lanes at n envs on sms SMs against the rule over the
+    pair (wide, narrow): the wide design while the one-thread launch's
+    blocks times its lanes fit the SMs once (per_sm 1), the narrow one while
+    they fit three times (per_sm 3), else one thread per env (None)."""
+    (gw, lw), (gn, ln) = wide, narrow
+    blocks = -(-n // 128)
+    got = fp.policy_universal_lanes(kernel, n, sms)
+    if per_sm is None:
+        assert got == (1, False) and blocks * gn > 3 * sms
+    elif blocks * gw <= sms:
+        assert got == (gw, lw) and per_sm == 1
+    else:
+        assert got == (gn, ln) and per_sm == 3 and blocks * gn <= 3 * sms
+
+
 SYNC_WIDTH_CASES = [(1, 132, 1), (2048, 132, 1), (2049, 132, 3), (4096, 132, 3),
                     (6272, 132, 3), (13312, 132, None), (16384, 132, None), (2048, 114, 3)]
 
@@ -193,15 +210,34 @@ def test_sync_policy_width_rule_mirrors_the_kernels(n, sms, per_sm):
     the SMs once (PPO's 2048 envs on an H100's 132: one block an SM at
     most), the narrow one while they fit three times (per_sm 3), else one
     thread per env (per_sm None; 16384 envs, the bench width)."""
-    (gw, lw), (gn, ln) = fp.SYNC_POLICY_WIDE, fp.SYNC_POLICY_NARROW
-    blocks = -(-n // 128)
-    got = fp.policy_universal_lanes("sync_policy_record", n, sms)
-    if per_sm is None:
-        assert got == (1, False) and blocks * gn > 3 * sms
-    elif blocks * gw <= sms:
-        assert got == (gw, lw) and per_sm == 1
-    else:
-        assert got == (gn, ln) and per_sm == 3 and blocks * gn <= 3 * sms
+    _hold_width_rule("sync_policy_record", fp.SYNC_POLICY_WIDE, fp.SYNC_POLICY_NARROW, n, sms,
+                     per_sm)
     _hold_width_rule_source("fused_sync_policy.cu", fp.SYNC_POLICY_WIDE, fp.SYNC_POLICY_NARROW)
     assert fp.POLICY_LANE_DESIGNS["sync_policy_record"] == (fp.SYNC_POLICY_WIDE,
                                                             fp.SYNC_POLICY_NARROW)
+
+
+@pytest.mark.parametrize("n,sms,per_sm", SYNC_WIDTH_CASES)
+def test_eesm_policy_width_rule_mirrors_the_kernels(n, sms, per_sm):
+    """eesm_policy_record takes the width rule of csrc/policy_heads_lanes.cuh
+    over csrc/fused_eesm_policy.cu's own designs (EESM_POLICY_WIDE,
+    _NARROW), as the synchronous recorder does over its own: the wide
+    design at PPO's 2048 envs on an H100's 132 SMs, one thread per env at
+    the bench's 16384."""
+    _hold_width_rule("eesm_policy_record", fp.EESM_POLICY_WIDE, fp.EESM_POLICY_NARROW, n, sms,
+                     per_sm)
+    _hold_width_rule_source("fused_eesm_policy.cu", fp.EESM_POLICY_WIDE, fp.EESM_POLICY_NARROW)
+    assert fp.POLICY_LANE_DESIGNS["eesm_policy_record"] == (fp.EESM_POLICY_WIDE,
+                                                            fp.EESM_POLICY_NARROW)
+
+
+@pytest.mark.parametrize("n,sms,per_sm", SYNC_WIDTH_CASES)
+def test_srm_policy_width_rule_mirrors_the_kernels(n, sms, per_sm):
+    """srm_policy_record takes the width rule of csrc/policy_heads_lanes.cuh
+    over csrc/fused_srm_policy.cu's own designs (SRM_POLICY_WIDE, _NARROW),
+    as the synchronous recorder does over its own."""
+    _hold_width_rule("srm_policy_record", fp.SRM_POLICY_WIDE, fp.SRM_POLICY_NARROW, n, sms,
+                     per_sm)
+    _hold_width_rule_source("fused_srm_policy.cu", fp.SRM_POLICY_WIDE, fp.SRM_POLICY_NARROW)
+    assert fp.POLICY_LANE_DESIGNS["srm_policy_record"] == (fp.SRM_POLICY_WIDE,
+                                                           fp.SRM_POLICY_NARROW)

@@ -318,14 +318,17 @@ def test_srm_lane_kernels_carry_their_lane_mark():
     (``test_policy_record_lane_instance_carries_its_lane_mark``) and the
     DC and synchronous families' universal recorders'
     (``test_dc_policy_lanes_and_srm_record_ring_keep_their_one_thread_entries``,
-    ``test_sync_policy_lanes_keep_their_one_thread_entry``) carry a lane
-    mark; each of those ids also has an unmarked one-thread
+    ``test_sync_policy_lanes_keep_their_one_thread_entry``) and the EESM and
+    SRM families' (``test_eesm_and_srm_policy_lanes_keep_their_one_thread_entries``)
+    carry a lane mark; each of those ids also has an unmarked one-thread
     entry of srm_rollout_random with the same FINITE, NREF and SAT, the
     function's own work that the bounds count."""
     marks = {"srm_rollout_lanes": 4, "policy_record_lanes": 4, "policy_record_lanes/8": 8,
              "dc_policy_record_lanes": 4, "dc_policy_record_lanes/8": 8,
              "dc_policy_record_lanes/8/Cont-CC-PermExDc-v0": 8,
-             "sync_policy_record_lanes/8": fp.SYNC_POLICY_WIDE[0]}
+             "sync_policy_record_lanes/8": fp.SYNC_POLICY_WIDE[0],
+             "eesm_policy_record_lanes/8": fp.EESM_POLICY_WIDE[0],
+             "srm_policy_record_lanes/8": fp.SRM_POLICY_WIDE[0]}
     lanes = {}
     for library, instances in sass_ops.STEP_INSTANCES.items():
         for key, instance in instances.items():
@@ -832,3 +835,30 @@ def test_sync_policy_lanes_keep_their_one_thread_entry():
                          f"@lanes{lanes}")
     assert sass_ops.lanes_of(sync[key]) == lanes and sass_ops.ws_steps_of(sync[key]) == 0
     assert sorted(sync) == ["sync_policy_record", key]
+
+
+@pytest.mark.parametrize("library,kernel,one_thread,design", [
+    ("fused_eesm_policy", "eesm_policy_record", "eesm_policy_record_kernelILb1ELb0ELi3ELb0EE@inner",
+     fp.EESM_POLICY_WIDE),
+    ("fused_srm_policy", "srm_policy_record",
+     "srm_policy_record_kernelILb0ELb1ELi1ELb0ELb0EE@inner", fp.SRM_POLICY_WIDE)])
+def test_eesm_and_srm_policy_lanes_keep_their_one_thread_entries(library, kernel, one_thread,
+                                                                 design):
+    """eesm_policy_record and srm_policy_record run on lane groups below a
+    full card, on the ids chip_smoke.py times (Finite-CC-EESM, Cont-SC-SRM)
+    in the one lane design their width rules name, wide and narrow alike
+    (``EESM_POLICY_WIDE``/``_NARROW``, ``SRM_POLICY_WIDE``/``_NARROW``: the
+    ``/8`` entry, ``@lanes8``), while each one-thread entry stays the count
+    of the function's own work, its hidden-unit loop apart (``@inner``).
+    The lane entry's template arguments start with the one-thread entry's,
+    followed by the lanes and the lead flag."""
+    instances = sass_ops.STEP_INSTANCES[library]
+    assert instances[kernel] == one_thread
+    assert fp.POLICY_LANE_DESIGNS[kernel] == (design, design)
+    lanes, lead = design
+    args = one_thread.partition("@")[0][len(f"{kernel}_kernel"):-1]
+    key = f"{kernel}_lanes/{lanes}"
+    assert instances[key] == (f"{kernel}_lanes_kernel{args}Li{lanes}ELb{int(lead)}EE"
+                              f"@lanes{lanes}")
+    assert sass_ops.lanes_of(instances[key]) == lanes and sass_ops.ws_steps_of(instances[key]) == 0
+    assert sorted(instances) == [kernel, key]

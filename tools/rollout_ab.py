@@ -30,9 +30,10 @@ baseline -0.1, its per-env gradient sums compared too),
 Cont-SC-ShuntDc-v0, the catalog's Wiener reference or
 ``ConstReference("omega", 0.5)``) or ``foc:Cont-CC-PMSM-v0[:const]`` for the
 FOC closed loop (``foc_rollout``, the catalog's Wiener references or
-constant zero ones), ``policy_universal:<id>[:joint]:<H>:<n>[:<T>]`` for
-the universal policy recorder of the id's family (``<family>_policy_record``,
-``dc_policy_record`` on the DC ids; joint heads, H hidden units, n envs,
+constant zero ones), ``policy_universal:<id>[:joint][:psi_s=<x>]:<H>:<n>[:<T>]``
+for the universal policy recorder of the id's family (``<family>_policy_record``,
+``dc_policy_record`` on the DC ids; joint heads, an SRM's saturation flux
+``psi_s``, H hidden units, n envs,
 at T steps, by default 256, or 1024 from 16384 envs on: the two shapes
 ``chip_smoke.py`` times in phase 42; weights drawn from numpy as ``chip_smoke.pu_weights``
 draws them, zero states), ``srm_record:<id>[:psi_s]`` for the SRM random
@@ -172,9 +173,12 @@ def main():
         if family == "policy_universal":
             env_id, *rest = rest
             joint = rest[0] == "joint"
-            hidden, envs, *depth = (int(x) for x in rest[joint:])
+            rest = rest[joint:]
+            psi = rest[0].startswith("psi_s=")
+            kw = {"motor": {"motor_parameter": {"psi_s": float(rest[0][6:])}}} if psi else {}
+            hidden, envs, *depth = (int(x) for x in rest[psi:])
             steps = depth[0] if depth else (1024 if envs >= 16384 else 256)
-            env = gt.make_functional(env_id, device=dev)
+            env = gt.make_functional(env_id, device=dev, **kw)
             pol = fp.make_fused_policy_record_universal(env, steps, envs, hidden=hidden,
                                                         joint_heads=joint).policy
             w, ls = cs.pu_weights(torch, np.random.default_rng(SEED), pol, hidden, dev)
