@@ -11,10 +11,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
 3. kernels  each of the 4 fused PMSM kernels against its plain PyTorch
             version on the card, 16384 envs x 256 steps (the random
             recorder at its main-path 1024 steps), same inputs/seed;
-            pmsm_rollout_random (warp-specialised on the ring) bit for bit
-            (error 0 in every env, equal mean rewards), with its design
-            line (ring, registers, both roles' issue bound and the
-            issue-slot floor)
+            pmsm_rollout_random and pmsm_record_random (each
+            warp-specialised on its ring) bit for bit (error 0 in every
+            env and step, equal mean rewards), each with its design line
+            (ring, registers, both roles' issue bound and the issue-slot
+            floor)
 4. env      the main path: the port's VectorEnv (Finite-CC-PMSM-v0, const
             references, an action buffer, 16384 envs x 40 steps) against
             the buffer rollout and the buffer recorder
@@ -22,7 +23,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
             16384 envs x 1000 steps), the random rollout kernel
             (16384 envs x 65536 steps, with its bound and design line) and
             the random recorder (16384 envs x 1024 steps, ~0.54 GB
-            written), with output checks
+            written, with its bound and design line) beside the universal
+            sync_record_random on the same id (the ratio of their times),
+            with output checks
 6. (slice 1's rows of the kernels line: launches on its main path,
    phases 4-5, errors, times)
 7. policy    each of the 4 policy kernels (csrc/fused_policy.cu) against
@@ -361,11 +364,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
     catalog id (the DC SC kernels on Cont-SC-SeriesDc-v0 and
     Cont-SC-ShuntDc-v0, timed on the latter, with the design lines of the
     PermExDc, DC SC, Cont-TC-SCIM, Finite-CC-EESM and Cont-CC-DFIM random
-    rollouts:
-    ring, registers, issue bound and issue-slot floor), the PermExDc recorder
-    again at its main-path
-    1024 steps; bit
-    for bit in both modes (error 0 in every env)
+    rollouts and of the PermExDc recorder: ring, registers, issue bound and
+    issue-slot floor), the PermExDc recorder again at its main-path 1024
+    steps; bit for bit in both modes (error 0 in every env)
 47.-48. the slice-11 main path, counted from zero (the six builders of
     ops/fused_rollout.py, no plain version):
    47. specialised_buffer  each builder's buffer mode (and the PermExDc
@@ -378,7 +379,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             the ratio of their times, its SASS bound and reset share (the
             DC SC rollout's design line on both ids, the PermExDc, SCIM TC,
             EESM CC and DFIM CC rollouts' on their ids); the
-            PermExDc recorder at 1024 steps beside the universal recorder;
+            PermExDc recorder at 1024 steps beside the universal recorder,
+            with its design line;
             output checks (finite, references inside their windows, the
             sub-episode lengths and sigmas, the mean reward within 0.08 of
             the universal kernel's); the launches of phases 47-48 must be
@@ -407,9 +409,10 @@ least 99.9% of envs must match (a constraint-threshold flip sends an env
 down another branch) and the mean reward must agree to 1e-4 relative.
 Angles are compared modulo 2 pi.  The specialised kernels (phase 46) must
 equal their plain versions bit for bit in every env, both modes, and so
-must pmsm_rollout_random (phase 3), the sync, DC, SCIM, EESM, DFIM and SRM
-random rollouts (phases 13, 18, 22, 26, 30 and 34), policy_record and
-policy_rollout (phase 7) and the SRM cascade (phase 43).
+must pmsm_rollout_random and pmsm_record_random (phase 3), the sync, DC,
+SCIM, EESM, DFIM and SRM random rollouts (phases 13, 18, 22, 26, 30 and
+34), policy_record and policy_rollout (phase 7) and the SRM cascade
+(phase 43).
 
 Bounds (bound_ms): the larger of the bytes moved (each input read once,
 each output written once) over 3.35 TB/s and, for each issue pipe, the
@@ -426,12 +429,12 @@ PPO's width, lane 0 alone stepping (@lanes8: the step is a branch on the
 lane, which every warp issues), and on four lanes, each stepping, up to
 three blocks an SM (@lanes4); its bound counts the one-thread step, and
 phase 7 prints the issue bound of G lanes' counts beside it.
-pmsm_rollout_random, the sync, DC, SCIM, EESM and DFIM random rollouts,
-policy_rollout and the specialised random rollouts run warp-specialised
-with Wiener references (tools/sass_ops.py's @ws2 and @ws4); their bound
-counts the one-thread step of the same instance (built for the count, not
-taken by the launch), and phases 3, 5, 7, 10, 16, 21, 25, 29, 33, 46 and
-48 print the issue bound of both roles' counts per env-step beside it.  Beside an issue bound stands the
+pmsm_rollout_random, pmsm_record_random, the sync, DC, SCIM, EESM and
+DFIM random rollouts, policy_rollout, the specialised random rollouts and
+the PermExDc recorder run warp-specialised with Wiener references
+(tools/sass_ops.py's @ws2 and @ws4); their bound counts the one-thread
+step of the same instance (built for the count, not taken by the launch),
+and phases 3, 5, 7, 10, 16, 21, 25, 29, 33, 46 and 48 print the issue bound of both roles' counts per env-step beside it.  Beside an issue bound stands the
 issue-slot floor: every counted instruction the launch issues (an FFMA
 is one) at one warp-instruction per scheduler and clock, 4 x 32
 thread-instructions per SM and clock.  Shared-memory accesses and barriers (the smem and bar
@@ -666,6 +669,12 @@ def ring_layout(lib, prefix, c):
 DESIGNS = {0: "warp-specialised", 1: "one thread per env",
            2: "one thread per env, the next step's draws ahead"}
 
+# slice 1's random kernels on rings: their layout function in
+# ops/fused_sync.py and their ring's entry in tools/sass_ops.py's
+# STEP_INSTANCES
+RING_OF = {"pmsm_rollout_random": ("pmsm_ring_layout", "pmsm_rollout_ws"),
+           "pmsm_record_random": ("pmsm_record_ring_layout", "pmsm_record_ws")}
+
 
 def ring_fields(layout, ws_key, loop_key, one_key, env_steps, nbytes, ms, registers=None):
     """The design fields of a timed random rollout: the design its launch
@@ -833,6 +842,7 @@ def run(dev, card):
     from gym_electric_motor_tpu_torch import references as rg
     from gym_electric_motor_tpu_torch.ops import cuda_build
     from gym_electric_motor_tpu_torch.ops import fused_sync as fs
+    from gym_electric_motor_tpu_torch.ops.fused_record import make_fused_record_rollout
 
     # ---- 2. build --------------------------------------------------------
     # one nvcc per source, all started together
@@ -934,29 +944,22 @@ def run(dev, card):
         if "buffer" in name:
             row["max_abs_err"] = check_buffer(torch, name, got, ref, is_angle)
             row["match_share"] = 1.0
-        elif name == "pmsm_rollout_random":
-            # the ring: bit for bit in every env and output
+        elif name in RING_OF:
+            # the rings: bit for bit in every env and output (the
+            # recorder's every step)
             share, worst = bit_match(torch, got, ref, N_ENVS)
-            mean_k, mean_p = float(got[3].double().mean()), float(ref[3].double().mean())
+            r_idx = 3 if name == "pmsm_rollout_random" else 6
+            mean_k, mean_p = float(got[r_idx].double().mean()), float(ref[r_idx].double().mean())
+            layout, ws_key = RING_OF[name]
             row.update(max_abs_err=worst, match_share=share, mean_reward=mean_k,
                        mean_reward_plain=mean_p,
-                       **ring_fields(fs.pmsm_ring_layout(), "pmsm_rollout_ws", name, name,
+                       **ring_fields(getattr(fs, layout)(), ws_key, name, name,
                                      N_ENVS * steps, nbytes, ms))
             if share < 1.0 or worst != 0.0 or mean_k != mean_p:
                 emit({"phase": "kernels", **row})
                 raise AssertionError(f"{name}: {share:.5f} of envs equal, max abs err "
                                      f"{worst:.3e} (the ring equals its plain version bit for "
                                      "bit)")
-        else:
-            share, worst = env_match(torch, got, ref, is_angle, N_ENVS)
-            mean_k, mean_p = float(got[6].double().mean()), float(ref[6].double().mean())
-            rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-12)
-            row.update(max_abs_err=worst, match_share=share, mean_reward=mean_k,
-                       mean_reward_plain=mean_p, mean_reward_rel_err=rel)
-            if share < 0.999 or rel > 1e-4:
-                emit({"phase": "kernels", **row})
-                raise AssertionError(f"{name}: {share:.5f} of envs match (need 0.999), "
-                                     f"mean reward rel err {rel:.2e} (need 1e-4)")
         results[name] = row
         emit({"phase": "kernels", **row})
         del got, ref
@@ -1023,6 +1026,14 @@ def run(dev, card):
     rec = fs.make_fused_pmsm_record_rollout(env_w, T_RECORD, N_ENVS)
     rec_ms, rec_out = cuda_ms(torch, lambda: rec(SEED, z, z, z), reps=5)
     rec_bytes = sum(x.numel() * x.element_size() for x in rec_out)
+    # the universal synchronous recorder on the same id, in the same process
+    u_rec = make_fused_record_rollout(env_w, T_RECORD, N_ENVS)
+    u_rec_ms, u_rec_out = cuda_ms(torch, lambda: u_rec(SEED, z, z, z), reps=5)
+    u_rec_reset = float(u_rec_out["done"].double().mean())
+    del u_rec_out
+    rec_nbytes = state_bytes + 32 * N_ENVS * T_RECORD
+    rec_design = ring_fields(fs.pmsm_record_ring_layout(), "pmsm_record_ws", "pmsm_record_random",
+                             "pmsm_record_random", N_ENVS * T_RECORD, rec_nbytes, rec_ms)
     short = fs.make_fused_pmsm_rollout(env_w, T_RECORD, N_ENVS)(SEED, z, z, z)
     checks["record_equals_rollout"] = bool(
         torch.allclose(rec_out[6].sum(0), short[3], rtol=1e-4, atol=1e-3)
@@ -1031,6 +1042,7 @@ def run(dev, card):
     # of tests/test_pallas_rollout.py:202-204)
     short_r = float(short[3].double().sum()) / (N_ENVS * T_RECORD)
     checks["general_vs_kernel_reward"] = abs(gen_mean_r - short_r) < 0.05
+    rec_reset = float(rec_out[7].double().mean())
     del rec_out, short
 
     launches = {name: fs.LAUNCHES[name] for name in fs.KERNELS}
@@ -1051,7 +1063,14 @@ def run(dev, card):
                                  "bytes_written": rec_bytes,
                                  "env_steps_per_s": N_ENVS * T_RECORD / (rec_ms / 1e3),
                                  "GB_per_s": rec_bytes / (rec_ms / 1e3) / 1e9,
-                                 "mean_reward_1024": short_r},
+                                 "bound_ms": bound_ms(N_ENVS * T_RECORD, ops["pmsm_record_random"],
+                                                      rec_nbytes)[0],
+                                 "mean_reward_1024": short_r, "reset_share": rec_reset,
+                                 **rec_design},
+          "sync_record_random": {"envs": N_ENVS, "steps": T_RECORD, "ms": u_rec_ms,
+                                 "ops_per_step": ops["sync_record_random/Finite-CC-PMSM-v0"],
+                                 "reset_share": u_rec_reset},
+          "specialised_over_universal": rec_ms / u_rec_ms,
           "checks": checks, "launches": launches})
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -1062,7 +1081,8 @@ def run(dev, card):
 
     # ---- 6. kernels line -------------------------------------------------
     main_shape = {"pmsm_rollout_random": (T_ROLLOUT, roll_ms, roll_bytes),
-                  "pmsm_record_random": (T_RECORD, rec_ms, state_bytes + 32 * N_ENVS * T_RECORD)}
+                  "pmsm_record_random": (T_RECORD, rec_ms, rec_nbytes)}
+    main_design = {"pmsm_rollout_random": roll_design, "pmsm_record_random": rec_design}
     line = []
     for name in fs.KERNELS:
         r = results[name]
@@ -1079,9 +1099,13 @@ def run(dev, card):
             steps, ms, nbytes = main_shape[name]
             row["main_steps"], row["main_ms"] = steps, ms
             row["main_bound_ms"] = bound_ms(N_ENVS * steps, ops[name], nbytes)[0]
-        if name == "pmsm_rollout_random":
-            row.update({"main_" + k: roll_design[k] for k in ("design", "ring", "registers",
-                                                               "issue_bound_ms", "issue_floor_ms")})
+        if name in main_design:
+            row.update({"main_" + k: main_design[name][k] for k in (
+                "design", "ring", "registers", "issue_bound_ms", "issue_floor_ms")
+                if k in main_design[name]})
+        if name == "pmsm_record_random":
+            row.update(universal="sync_record_random", universal_ms=u_rec_ms,
+                       specialised_over_universal=rec_ms / u_rec_ms)
         line.append(row)
     return line, ops
 
@@ -3437,10 +3461,11 @@ SPEC_UNIVERSAL = {
     "Cont-CC-DFIM-v0": ("dfim_cc_rollout_random", "dfim_rollout_random",
                         "dfim_rollout_random/Cont-CC-DFIM-v0")}
 
-# the specialised random rollouts that run on a ring (ring_pipe.cuh), by
-# the module of gym_electric_motor_tpu_torch.ops and its function that
-# gives the ring's layout
+# the specialised random rollouts and the PermExDc recorder, which run on a
+# ring (ring_pipe.cuh), by the module of gym_electric_motor_tpu_torch.ops
+# and its function that gives the ring's layout
 SPEC_RINGS = {"permex_rollout_random": ("fused_dc", "permex_ring_layout"),
+              "permex_record_random": ("fused_dc", "permex_record_ring_layout"),
               "dc_sc_rollout_random": ("fused_dc", "dc_sc_ring_layout"),
               "eesm_cc_rollout_random": ("fused_eesm", "eesm_cc_ring_layout"),
               "dfim_cc_rollout_random": ("fused_dfim", "dfim_cc_ring_layout"),
@@ -3448,17 +3473,16 @@ SPEC_RINGS = {"permex_rollout_random": ("fused_dc", "permex_ring_layout"),
 
 
 def spec_ring_fields(name, key, env_steps, nbytes, ms):
-    """``ring_fields`` of a specialised random rollout on a ring (phases 46
-    and 48): ``key`` is its one-thread entry in tools/sass_ops.py's
-    STEP_INSTANCES (the function's own work), and the ``_ws`` entry beside it
-    counts both roles."""
+    """``ring_fields`` of a specialised random rollout or recorder on a
+    ring (phases 46 and 48): ``key`` is its one-thread entry in
+    tools/sass_ops.py's STEP_INSTANCES (the function's own work), and the
+    ``_ws`` entry beside it counts both roles."""
     import importlib
 
     module, layout_fn = SPEC_RINGS[name]
     mod = importlib.import_module(f"gym_electric_motor_tpu_torch.ops.{module}")
     layout = getattr(mod, layout_fn)()
-    return ring_fields(layout, key.replace("_rollout_random", "_rollout_ws", 1), key, key,
-                       env_steps, nbytes, ms)
+    return ring_fields(layout, key.replace("_random", "_ws", 1), key, key, env_steps, nbytes, ms)
 
 
 def tensor_bytes(xs):
@@ -3691,7 +3715,9 @@ def run_specialised(dev, card, ops):
                                  "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
                                  "ops_per_step": ops["permex_record_random"],
                                  "mean_reward": float(reward.double().mean()),
-                                 "reset_share": float(done.double().mean())},
+                                 "reset_share": float(done.double().mean()),
+                                 **spec_ring_fields("permex_record_random", "permex_record_random",
+                                                    N * T_RECORD, nbytes, k_ms)},
         "dc_record_random": {"steps": T_RECORD, "ms": u_ms,
                              "ops_per_step": ops["dc_record_random/Finite-CC-PermExDc-v0"],
                              "reset_share": float(u_out["done"].double().mean()),
@@ -3754,6 +3780,8 @@ REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "scim_rollout_random": "ring",
               "reinforce_rollout": "role split, traces in registers",
               "pmsm_rollout_random": "ring", "permex_rollout_random": "ring",
+              "pmsm_record_random": "ring with Wiener references",
+              "permex_record_random": "ring with Wiener references",
               "dc_policy_record": "lane groups below a full card",
               "srm_record_random": "ring on the continuous ids, on the finite ones tried and "
                                    "not kept",

@@ -28,12 +28,16 @@
 // step that depends on the constants alone (px_draws: the action code, the
 // row's normal draw, its candidate length and sigma and its candidate reset
 // value, 5 words); consumer warps run the step, one thread per env, and
-// take the candidates by selects (px_ring_step).  The one-thread random
-// kernel had the Philox call and, at every second step, the Box-Muller pair
+// take the candidates by selects (px_ring_advance).  The random recorder
+// runs on a ring of its own (PermexRecordRing): its producers draw the same
+// 5 words with the recorder's fresh pair each step (px_record_draws), its
+// consumers run the rollout's px_ring_advance and store each step's signals
+// [t, env].  The one-thread random kernels had the
+// Philox call and the Box-Muller pair (the rollout's at every second step)
 // on every step's chain, and the PARAMS slot in a branch that most warps
-// took at some lane (3.6% of env-steps reset); it is built for
+// took at some lane (3.6% of env-steps reset); they are built for
 // tools/sass_ops.py's count of the function's own work and never launched.
-// The recorders and the buffer kernels run one thread per env.  Random bits
+// The buffer kernels run one thread per env.  Random bits
 // from Philox4x32-10 keyed by the seed, counter (env, step, slot): slot
 // SPEC_SLOT_STEP gives (action, Box-Muller u1, u2, -) every step, slot
 // SPEC_SLOT_PARAMS (length, sigma, reset value, -) where the row
@@ -44,8 +48,9 @@
 // (:335-340).  The producers draw PARAMS at every step, which changes no
 // bit of what a step uses, and each producer's steps pair an even step with
 // the odd one after it, so the sine half reaches the odd step in the
-// producer's registers.  The recorder needs no chunk grid: the state stays
-// in registers and each step's signals are stored [t, env], coalesced.
+// producer's registers; the recorder's producers carry nothing between
+// steps.  The recorder needs no chunk grid: the state stays in registers
+// and each step's signals are stored [t, env], coalesced.
 // Built with -fmad=false (ops/cuda_build.py), so each multiply and add
 // rounds as in the plain PyTorch version (ops/fused_dc.py), and the
 // producers compute each candidate with the one-thread kernel's functions
@@ -59,8 +64,9 @@
 // non-fast-math logf, cosf and sinf.  tools/sass_ops.py counts the
 // instructions a step always issues, per pipe.  On the ring the producers
 // issue two Philox calls a step (PARAMS too) and the Box-Muller pair every
-// second step, the consumers 5 shared-memory loads; tools/sass_ops.py
-// counts both roles beside the one-thread step.
+// second step (the recorder's every step), the consumers 5 shared-memory
+// loads and the recorder's its 5 stores; tools/sass_ops.py counts both
+// roles beside the one-thread step.
 #include "dc_step.cuh"
 #include "ring_pipe.cuh"
 #include "specialised_step.cuh"
@@ -186,11 +192,26 @@ __global__ void permex_rollout_random_kernel(DcConst dc, PermexConst k, uint2 ke
 // reset value.
 constexpr int kPermexWords = 5;
 
+// The words of a step from the action word w.x of SPEC_SLOT_STEP, the row's
+// normal draw and the SPEC_SLOT_PARAMS words p: the code w.x & 3, the draw,
+// the length and sigma a regeneration takes and the value a reset takes.
+__device__ __forceinline__ RingWords<kPermexWords> px_pack(const PermexConst& k, uint32_t wx,
+                                                           float draw, uint4 p) {
+  float rl, rs;
+  spec_params(px_params(k), p.x, p.y, rl, rs);
+  RingWords<kPermexWords> x;
+  x.w[0] = wx & 3u;
+  x.w[1] = __float_as_uint(draw);
+  x.w[2] = __float_as_uint(rl);
+  x.w[3] = __float_as_uint(rs);
+  x.w[4] = __float_as_uint((2.0f * uniform24(p.z) - 1.0f) * k.v[PX_MARGIN]);
+  return x;
+}
+
 // Producer side: what step t draws whatever the state, in the operand
-// order of permex_rollout_random_kernel's step: the action code w.x & 3 of
-// SPEC_SLOT_STEP, the Box-Muller pair at even steps (odd false) with its
-// sine left in zb for the odd step after it, and of SPEC_SLOT_PARAMS the
-// length and sigma a regeneration takes and the value a reset takes.
+// order of permex_rollout_random_kernel's step: SPEC_SLOT_STEP's action
+// word, the Box-Muller pair at even steps (odd false) with its sine left in
+// zb for the odd step after it, and SPEC_SLOT_PARAMS.
 __device__ __forceinline__ RingWords<kPermexWords> px_draws(const PermexConst& k, uint2 key,
                                                             uint32_t env, uint32_t t, bool odd,
                                                             float& zb) {
@@ -201,23 +222,27 @@ __device__ __forceinline__ RingWords<kPermexWords> px_draws(const PermexConst& k
   } else {
     spec_box_muller(k.v[PX_U_MIN], k.v[PX_TWO_PI], w.y, w.z, draw, zb);
   }
-  const uint4 p = spec_draw(key, env, t, SPEC_SLOT_PARAMS);
-  float rl, rs;
-  spec_params(px_params(k), p.x, p.y, rl, rs);
-  RingWords<kPermexWords> x;
-  x.w[0] = w.x & 3u;
-  x.w[1] = __float_as_uint(draw);
-  x.w[2] = __float_as_uint(rl);
-  x.w[3] = __float_as_uint(rs);
-  x.w[4] = __float_as_uint((2.0f * uniform24(p.z) - 1.0f) * k.v[PX_MARGIN]);
-  return x;
+  return px_pack(k, w.x, draw, spec_draw(key, env, t, SPEC_SLOT_PARAMS));
+}
+
+// The recorder's producer side: a fresh pair at every step, its cosine
+// alone, in permex_record_random_kernel's expression and operand order
+// (not spec_box_muller's), then the words of px_draws.
+__device__ __forceinline__ RingWords<kPermexWords> px_record_draws(const PermexConst& k,
+                                                                   uint2 key, uint32_t env,
+                                                                   uint32_t t) {
+  const uint4 w = spec_draw(key, env, t, SPEC_SLOT_STEP);
+  const float rad = sqrtf(-2.0f * logf(fmaxf(uniform24(w.y), k.v[PX_U_MIN])));
+  const float draw = rad * cosf(k.v[PX_TWO_PI] * uniform24(w.z));
+  return px_pack(k, w.x, draw, spec_draw(key, env, t, SPEC_SLOT_PARAMS));
 }
 
 // Consumer side: the one-thread step with the step's words given, the
-// candidates taken by selects.
-__device__ __forceinline__ void px_ring_step(const DcConst& dc, const PermexConst& k,
-                                             const RingWords<kPermexWords>& x, float& i,
-                                             SpecRow& r, float& reward, float& terms) {
+// candidates taken by selects; returns the step's reward, done and
+// pre-advance reference.
+__device__ __forceinline__ PxStepOut px_ring_advance(const DcConst& dc, const PermexConst& k,
+                                                     const RingWords<kPermexWords>& x, float& i,
+                                                     SpecRow& r) {
   const PxStepOut o = px_action_step(dc, k, (int)x.w[0], i, r);
   const bool violated = o.done != 0.0f;
   const bool regen = (r.rk >= r.rl) || violated;
@@ -225,8 +250,7 @@ __device__ __forceinline__ void px_ring_step(const DcConst& dc, const PermexCons
   spec_row_walk(r, regen, __uint_as_float(x.w[2]), __uint_as_float(x.w[3]),
                 __uint_as_float(x.w[1]), -m, m);
   r.rv = violated ? __uint_as_float(x.w[4]) : r.rv;
-  reward += o.reward;
-  terms += o.done;
+  return o;
 }
 
 // The ring: 8 steps a slot, 2 producer warps per consumer warp, each
@@ -236,7 +260,7 @@ __device__ __forceinline__ void px_ring_step(const DcConst& dc, const PermexCons
 using PermexRing = RingShape<8, 2>;
 
 // The random rollout warp-specialised: producer warps run px_draws,
-// consumer warps px_ring_step, one thread per env.
+// consumer warps px_ring_advance, one thread per env.
 __global__ void __launch_bounds__(PermexRing::kThreads)
     permex_rollout_ws_kernel(DcConst dc, PermexConst k, uint2 key, int n, int n_steps,
                              SpecIn in, SpecOut out) {
@@ -256,11 +280,15 @@ __global__ void __launch_bounds__(PermexRing::kThreads)
   px_ref_init(k, key, (uint32_t)e, r);
   float reward = 0.0f, terms = 0.0f;
   ring_consume(pipe, v, n_steps, [&](const RingWords<kPermexWords>& x) {
-    px_ring_step(dc, k, x, i, r, reward, terms);
+    const PxStepOut o = px_ring_advance(dc, k, x, i, r);
+    reward += o.reward;
+    terms += o.done;
   });
   if (th.live) px_store(out, e, i, reward, terms, r);
 }
 
+// The one-thread random recorder: built, never launched; tools/sass_ops.py
+// counts its step, the function's own work, for the bound.
 __global__ void permex_record_random_kernel(DcConst dc, PermexConst k, uint2 key, int n,
                                             int n_steps, SpecIn in, SpecOut out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -284,6 +312,56 @@ __global__ void permex_record_random_kernel(DcConst dc, PermexConst k, uint2 key
     const float draw = rad * cosf(k.v[PX_TWO_PI] * uniform24(w.z));
     px_ref_advance(k, key, (uint32_t)e, (uint32_t)t, o.done != 0.0f, draw, r);
   }
+}
+
+// ---- the warp-specialised random recorder ------------------------------
+
+// The recorder's ring: 8 steps a slot, 2 producer warps per consumer warp,
+// of K in {4, 8} x P in {1, 2} at 16384 envs x 1024 steps on
+// Finite-CC-PermExDc (PERF.md, slice 26; each shape against the one-thread
+// recorder in its own process, 0.3752 to 0.3783 ms): K = 8, P = 2 0.2619 ms
+// (1.445 of the one-thread time); K = 4, P = 2 0.2606 (1.441); K = 4,
+// P = 1 0.3603 (1.042); K = 8, P = 1 0.3675 (1.022).  The two shapes with
+// two producer warps lie within 0.5%, and K = 8 gained the most against
+// the parent in its own process.  ops/fused_dc.py's PERMEX_RECORD_RING
+// mirrors it.  No sine half is carried, so a producer's steps need not
+// pair.  At 5 words a step it holds 40 KB.
+using PermexRecordRing = RingShape<8, 2>;
+
+// The random recorder warp-specialised: producer warps run
+// px_record_draws, consumer warps px_ring_advance, one thread per env, and
+// store what permex_record_random_kernel stores: the post-step current, the
+// pre-advance reference, the action (int32), the reward and done.
+__global__ void __launch_bounds__(PermexRecordRing::kThreads)
+    permex_record_ws_kernel(DcConst dc, PermexConst k, uint2 key, int n, int n_steps,
+                            SpecIn in, SpecOut out) {
+  extern __shared__ uint32_t ring[];
+  const RingThread th = ring_thread(n);
+  const int e = th.e;
+  const RingPipe<PermexRecordRing> pipe(n_steps);
+  const RingView<kPermexWords> v{ring + th.le};
+  if (!th.consumer) {
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool, float&) {
+      return px_record_draws(k, key, (uint32_t)e, t);
+    });
+    return;
+  }
+  float i = in.p[0][e];
+  SpecRow r;
+  px_ref_init(k, key, (uint32_t)e, r);
+  int* out_act = reinterpret_cast<int*>(out.p[2]);
+  size_t at = (size_t)e;   // t n + e at step t
+  ring_consume(pipe, v, n_steps, [&](const RingWords<kPermexWords>& x) {
+    const PxStepOut o = px_ring_advance(dc, k, x, i, r);
+    if (th.live) {
+      out.p[0][at] = i;
+      out.p[1][at] = o.ref;
+      out_act[at] = (int)x.w[0];
+      out.p[3][at] = o.reward;
+      out.p[4][at] = o.done;
+    }
+    at += (size_t)n;
+  });
 }
 
 __global__ void permex_rollout_buffer_kernel(DcConst dc, int n, int n_steps, SpecIn in,
@@ -344,14 +422,24 @@ int permex_ring_layout(int* out) {
   return 0;
 }
 
-// out: (i, ref, action (int32), reward, done), each (T, R, 128).
+// out: (i, ref, action (int32), reward, done), each (T, R, 128).  The
+// random recorder runs on its ring.
 int permex_record_random(const float* consts, const int* flags, const float* spec,
                          unsigned long long seed, int n, int n_steps, const float* const* in,
                          float* const* out, void* stream) {
-  permex_record_random_kernel<<<spec_blocks(n), kSpecThreads, 0, (cudaStream_t)stream>>>(
+  constexpr int bytes = ring_bytes<PermexRecordRing>(kPermexWords);
+  static_assert(bytes <= 48 * 1024, "the ring fits the default dynamic shared memory");
+  permex_record_ws_kernel<<<(n + kRingEnvs - 1) / kRingEnvs, PermexRecordRing::kThreads, bytes,
+                            (cudaStream_t)stream>>>(
       dc_load_const(consts, flags), px_consts(spec), spec_seed_key(seed), n, n_steps,
       spec_in(in, 1), spec_out(out, 5));
   return (int)cudaGetLastError();
+}
+
+// The random recorder's ring (ring_pipe.cuh's RingLayout).
+int permex_record_ring_layout(int* out) {
+  ring_layout<PermexRecordRing>(kPermexWords, out);
+  return 0;
 }
 
 // actions: int32 (T, R, 128); out: (i), (R, 128).

@@ -18,12 +18,14 @@
 // code: the code w.x & 7, both normal draws of the step's Box-Muller pair,
 // each reference's candidate length and sigma and its candidate reset
 // value, 9 words); consumer warps run the step, one thread per env, and
-// take the candidates by selects (pmsm_advance_candidates).  The one-thread
-// random kernel had the Philox calls, the pair's non-fast-math logf, sqrtf,
-// cosf and sinf and the PARAMS and RESET redraws on every step's chain; it
-// is built for tools/sass_ops.py's count of the function's own work and
-// never launched.  The buffer kernels and the recorders run one thread per
-// env.  Random bits come from Philox4x32-10 keyed by the seed and counted
+// take the candidates by selects (pmsm_advance_candidates).  The random
+// recorder runs the same producers and consumer step on a ring of its own
+// (PmsmRecordRing) and stores each step's signals [t, env].  The one-thread
+// random kernels had the Philox calls, the pair's non-fast-math logf,
+// sqrtf, cosf and sinf and the PARAMS and RESET redraws on every step's
+// chain; they are built for tools/sass_ops.py's count of the function's own
+// work and never launched.  The buffer kernels run one thread per env.
+// Random bits come from Philox4x32-10 keyed by the seed and counted
 // by (env, step, slot), so the result does not depend on the launch
 // geometry, and the producers compute each candidate with the one-thread
 // step's functions on the same operands, so the two designs are equal bit
@@ -53,7 +55,8 @@
 // so that one loop iteration is one step in the SASS count.  On the ring
 // the producers issue three Philox calls a step (PARAMS and RESET too) and
 // the Box-Muller pair, the consumers 9 shared-memory loads; tools/sass_ops.py
-// counts both roles beside the one-thread step.
+// counts both roles beside the one-thread step; the recorder's consumers
+// add its 8 stores.
 #include <cuda_runtime.h>
 
 #include "pmsm_ring.cuh"
@@ -180,6 +183,8 @@ __global__ void pmsm_rollout_buffer_kernel(PmsmConst k, int n, int n_steps,
   out_terms[e] = 0.0f;
 }
 
+// The one-thread random recorder: built, never launched; tools/sass_ops.py
+// counts its step, the function's own work, for the bound.
 __global__ void pmsm_record_random_kernel(PmsmConst k, uint2 key, int n, int n_steps,
                                           const float* __restrict__ i_sd0,
                                           const float* __restrict__ i_sq0,
@@ -208,6 +213,72 @@ __global__ void pmsm_record_random_kernel(PmsmConst k, uint2 key, int n, int n_s
     out_reward[i] = o.reward;
     out_done[i] = o.done;
   }
+}
+
+// ---- the warp-specialised random recorder ------------------------------
+
+// The recorder's planes, each (T, N) stored [t, env].
+struct PmsmRecordOut {
+  float *isd, *isq, *eps, *refd, *refq;
+  int* act;
+  float *reward, *done;
+
+  __device__ __forceinline__ void store(size_t i, const PmsmEnv& st,
+                                        const PmsmStepOut& o) const {
+    isd[i] = st.i_sd;
+    isq[i] = st.i_sq;
+    eps[i] = st.eps;
+    refd[i] = o.ref_d;
+    refq[i] = o.ref_q;
+    act[i] = o.action;
+    reward[i] = o.reward;
+    done[i] = o.done;
+  }
+};
+
+// The recorder's ring: 8 steps a slot, 2 producer warps per consumer warp,
+// the fastest of K in {4, 8} x P in {1, 2} at 16384 envs x 1024 steps on
+// Finite-CC-PMSM (PERF.md, slice 26; the one-thread recorder 0.4460 ms):
+// K = 8, P = 2 0.3586 ms; K = 4, P = 2 0.3759; K = 4, P = 1 0.5136; K = 8,
+// P = 1 0.5581 (one producer warp cannot draw three Philox calls and the
+// pair for 32 envs as fast as a consumer warp steps and stores them).
+// ops/fused_sync.py's PMSM_RECORD_RING mirrors it.  At 9 words a step it
+// holds 72 KB, above the default 48 KB of dynamic shared memory.
+using PmsmRecordRing = RingShape<8, 2>;
+
+// The random recorder warp-specialised: the rollout's producers
+// (pmsm_draws with the action code, 9 words a step); consumer warps run
+// pmsm_action_step and pmsm_advance_candidates, one thread per env, and
+// store what pmsm_record_random_kernel stores: the post-step state, the
+// pre-advance references, the action, the reward and done.
+__global__ void __launch_bounds__(PmsmRecordRing::kThreads)
+    pmsm_record_ws_kernel(PmsmConst k, uint2 key, int n, int n_steps,
+                          const float* __restrict__ i_sd0, const float* __restrict__ i_sq0,
+                          const float* __restrict__ eps0, PmsmRecordOut out) {
+  extern __shared__ uint32_t ring[];
+  const RingThread th = ring_thread(n);
+  const uint32_t env = (uint32_t)th.e;
+  const RingPipe<PmsmRecordRing> pipe(n_steps);
+  const RingView<kPmsmActionWords> v{ring + th.le};
+  if (!th.consumer) {
+    ring_produce(pipe, v, th.part, [&](uint32_t t, bool, float&) {
+      return pmsm_action_draws_pack(pmsm_draws(k, key, env, t));
+    });
+    return;
+  }
+  PmsmEnv st;
+  st.i_sd = i_sd0[th.e];
+  st.i_sq = i_sq0[th.e];
+  st.eps = eps0[th.e];
+  pmsm_init(k, key, env, st);
+  size_t at = (size_t)th.e;   // t n + e at step t
+  ring_consume(pipe, v, n_steps, [&](const RingWords<kPmsmActionWords>& w) {
+    const PmsmDraws d = pmsm_action_draws_unpack(w);
+    const PmsmStepOut o = pmsm_action_step(k, (int)d.action, st);
+    pmsm_advance_candidates(k, d.c, o.done != 0.0f, st);
+    if (th.live) out.store(at, st, o);
+    at += (size_t)n;
+  });
 }
 
 __global__ void pmsm_record_buffer_kernel(PmsmConst k, int n, int n_steps,
@@ -284,14 +355,29 @@ int pmsm_rollout_buffer(const float* consts, int n, int n_steps, const float* i_
   return (int)cudaGetLastError();
 }
 
+// The random recorder on its ring.
 int pmsm_record_random(const float* consts, unsigned long long seed, int n, int n_steps,
                        const float* i_sd0, const float* i_sq0, const float* eps0, float* out_isd,
                        float* out_isq, float* out_eps, float* out_refd, float* out_refq,
                        int* out_act, float* out_reward, float* out_done, void* stream) {
-  pmsm_record_random_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-      load_const(consts), seed_key(seed), n, n_steps, i_sd0, i_sq0, eps0, out_isd, out_isq,
-      out_eps, out_refd, out_refq, out_act, out_reward, out_done);
+  constexpr int bytes = ring_bytes<PmsmRecordRing>(kPmsmActionWords);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pmsm_record_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  pmsm_record_ws_kernel<<<(n + kRingEnvs - 1) / kRingEnvs, PmsmRecordRing::kThreads, bytes,
+                          (cudaStream_t)stream>>>(
+      load_const(consts), seed_key(seed), n, n_steps, i_sd0, i_sq0, eps0,
+      PmsmRecordOut{out_isd, out_isq, out_eps, out_refd, out_refq, out_act, out_reward,
+                    out_done});
   return (int)cudaGetLastError();
+}
+
+// The random recorder's ring (ring_pipe.cuh's RingLayout).
+int pmsm_record_ring_layout(int* out) {
+  ring_layout<PmsmRecordRing>(kPmsmActionWords, out);
+  return 0;
 }
 
 int pmsm_record_buffer(const float* consts, int n, int n_steps, const float* i_sd0,

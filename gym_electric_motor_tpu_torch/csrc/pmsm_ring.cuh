@@ -1,12 +1,12 @@
 // The PMSM step's draws on the shared-memory ring of ring_pipe.cuh: what
 // producer warps draw for a step of the Finite-CC-PMSM random step
 // (pmsm_step.cuh) whatever the state, and what the consumer warps take by
-// selects.  Three loops run on it with Wiener references: the policy
+// selects.  Four loops run on it with Wiener references: the policy
 // evaluation rollout (fused_policy.cu; with the action uniform where it
 // samples, without it where it is greedy), the FOC closed loop
-// (fused_foc.cu, without it: the controller gives the voltages) and the
-// main path's random rollout pmsm_rollout_random (fused_pmsm.cu, with the
-// action code in its place).
+// (fused_foc.cu, without it: the controller gives the voltages), and the
+// main path's random rollout pmsm_rollout_random and random recorder
+// pmsm_record_random (fused_pmsm.cu, with the action code in its place).
 //
 // The split.  A step draws through pmsm_draw(key, env, t, slot) alone:
 // SLOT_STEP gives the action word (w.x: its uniform for a policy, its low

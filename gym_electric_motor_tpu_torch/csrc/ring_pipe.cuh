@@ -1,10 +1,10 @@
 // The shared-memory ring of the warp-specialised rollouts and recorders
 // (draw_ring.cuh for the universal families' random rollouts and the DC,
 // EESM, SRM, synchronous and SCIM random recorders, pmsm_ring.cuh for the
-// Finite-CC-PMSM random
-// rollout, the PMSM policy evaluation rollout and the FOC closed loop,
-// fused_permex.cu, fused_dc_sc.cu, fused_scim_tc.cu, fused_eesm_cc.cu and
-// fused_dfim_cc.cu for the specialised Finite-CC-PermExDc, Cont-SC DC,
+// Finite-CC-PMSM random rollout and recorder, the PMSM policy evaluation
+// rollout and the FOC closed loop, fused_permex.cu, fused_dc_sc.cu,
+// fused_scim_tc.cu, fused_eesm_cc.cu and fused_dfim_cc.cu for the
+// specialised Finite-CC-PermExDc rollout and recorder and the Cont-SC DC,
 // Cont-TC-SCIM, Finite-CC-EESM and Cont-CC-DFIM rollouts,
 // fused_dc_cascade.cu for the DC speed cascade):
 // producer warps compute every value of a step that does not

@@ -13,7 +13,8 @@ carry the work on the GPU:
                            producer warps draw each step's words into a
                            shared-memory ring, consumer warps step the envs)
 ``permex_rollout_buffer``  T steps of a given action buffer, the final current
-``permex_record_random``   the random step, every step recorded
+``permex_record_random``   the random step, every step recorded (on a ring
+                           of its own, 5 words a step)
 ``permex_record_buffer``   the buffer step, every step recorded
 ``dc_sc_rollout_random``   T random duty steps of Cont-SC-SeriesDc or
                            Cont-SC-ShuntDc, reduced (``csrc/fused_dc_sc.cu``)
@@ -74,6 +75,9 @@ def reset_launches():
 # steps a slot, producer warps per consumer warp; and the words of a step
 PERMEX_RING = (8, 2)
 PERMEX_RING_WORDS = 5
+# the random recorder's ring (PermexRecordRing in csrc/fused_permex.cu), with
+# the rollout's 5 words a step
+PERMEX_RECORD_RING = (8, 2)
 
 
 # the bit layouts of csrc/fused_permex.cu and csrc/fused_dc_sc.cu: role ->
@@ -413,10 +417,8 @@ def permex_record_random(c: PermexConsts, seed: int, i0, n_steps: int):
     device, R = check_planes(c, (i0,))
     if device.type == "cpu":
         return permex_record_random_plain(c, seed, i0, n_steps)
-    outs = _empty((int(n_steps), R, LANE), device, 5, int_at=(2,))
-    _launch("permex", "permex_record_random", device, *_px_consts(c), seed_u64(seed),
-            R * LANE, int(n_steps), ptr_array([i0]), ptr_array(outs))
-    return tuple(outs)
+    outs = _permex_record_random_launch(c, seed, i0, n_steps, R * LANE, LAUNCHES)
+    return tuple(x.view(int(n_steps), R, LANE) for x in outs)
 
 
 def permex_rollout_buffer(c: PermexConsts, i0, actions):
@@ -457,14 +459,38 @@ def _permex_random_launch(c: PermexConsts, seed: int, i0, n_steps: int, n_envs: 
     return outs
 
 
+def _permex_record_random_launch(c: PermexConsts, seed: int, i0, n_steps: int, n_envs: int,
+                                 launches=None):
+    """permex_record_random's kernel on the first ``n_envs`` envs of the
+    plane ``i0``: its 5 outputs, each ``(T, n_envs)`` (the action int32);
+    the launch counted in ``launches`` (none: not counted)."""
+    device = i0.device
+    outs = _empty((int(n_steps), n_envs), device, 5, int_at=(2,))
+    launch_kernel(_library("permex"), "permex", "permex_record_random", device,
+                  {"permex_record_random": 0} if launches is None else launches,
+                  *_px_consts(c), seed_u64(seed), n_envs, int(n_steps), ptr_array([i0]),
+                  ptr_array(outs))
+    return outs
+
+
+def _permex_ring_layout(shape):
+    K, P = shape
+    return named_ring_layout((4, 4 * P, K, 2, PERMEX_RING_WORDS,
+                              2 * K * PERMEX_RING_WORDS * 128 * 4, 0))
+
+
 def permex_ring_layout():
     """The random rollout's ring (csrc/fused_permex.cu's PermexRing, in
     csrc/ring_pipe.cuh's RingLayout): consumer and producer warps, K steps a
     slot, slots, words a step, shared-memory bytes; computed here, without
     the library."""
-    K, P = PERMEX_RING
-    return named_ring_layout((4, 4 * P, K, 2, PERMEX_RING_WORDS,
-                              2 * K * PERMEX_RING_WORDS * 128 * 4, 0))
+    return _permex_ring_layout(PERMEX_RING)
+
+
+def permex_record_ring_layout():
+    """The random recorder's ring (csrc/fused_permex.cu's
+    PermexRecordRing), as ``permex_ring_layout``."""
+    return _permex_ring_layout(PERMEX_RECORD_RING)
 
 
 def dc_sc_rollout_random(c: DcScConsts, seed: int, state0, n_steps: int):
@@ -555,7 +581,8 @@ def make_fused_permex_record_rollout(env, n_steps, n_envs, chunk=None, action_mo
     ``ref`` the reference the step's reward used.  ``action_mode='buffer'``:
     ``rollout(i0, actions) -> i`` per step.  ``chunk`` is checked as the
     JAX builder checks it (a divisor of ``n_steps``) and changes nothing
-    else: one thread per env records the whole trajectory."""
+    else: each env's consumer thread of the recorder's ring records the
+    whole trajectory."""
     require_specialised_defaults(env)
     R = require_lanes(n_envs)
     if chunk is None:

@@ -14,7 +14,8 @@ carry the work on the GPU:
                          draw each step's words into a shared-memory
                          ring, consumer warps step the envs)
 ``pmsm_rollout_buffer``  T steps of a given action buffer, deterministic
-``pmsm_record_random``   the random step, every step recorded
+``pmsm_record_random``   the random step, every step recorded (on a ring
+                         of its own, as the random rollout)
 ``pmsm_record_buffer``   the buffer step, every step recorded
 ==================== ==================================================
 
@@ -68,6 +69,9 @@ LAUNCHES = dict.fromkeys(KERNELS + CONTROL_KERNELS, 0)
 # action code, then four per reference: kPmsmActionWords)
 PMSM_RING = (8, 2)
 PMSM_RING_WORDS = 9
+# the random recorder's ring (PmsmRecordRing in csrc/fused_pmsm.cu), with
+# the rollout's 9 words a step
+PMSM_RECORD_RING = (8, 2)
 
 
 def reset_launches():
@@ -434,14 +438,24 @@ def _pmsm_random_launch(consts: PmsmConsts, seed: int, planes, n_steps: int, n_e
     return outs
 
 
+def _pmsm_ring_layout(shape):
+    K, P = shape
+    return named_ring_layout((4, 4 * P, K, 2, PMSM_RING_WORDS,
+                              2 * K * PMSM_RING_WORDS * 128 * 4, 0))
+
+
 def pmsm_ring_layout():
     """The random rollout's ring (csrc/fused_pmsm.cu's PmsmRing, in
     csrc/ring_pipe.cuh's RingLayout): consumer and producer warps, K steps a
     slot, slots, words a step, shared-memory bytes; computed here, without
     the library."""
-    K, P = PMSM_RING
-    return named_ring_layout((4, 4 * P, K, 2, PMSM_RING_WORDS,
-                              2 * K * PMSM_RING_WORDS * 128 * 4, 0))
+    return _pmsm_ring_layout(PMSM_RING)
+
+
+def pmsm_record_ring_layout():
+    """The random recorder's ring (csrc/fused_pmsm.cu's PmsmRecordRing),
+    as ``pmsm_ring_layout``."""
+    return _pmsm_ring_layout(PMSM_RECORD_RING)
 
 
 def pmsm_rollout_buffer(consts: PmsmConsts, i_sd0, i_sq0, eps0, actions):
@@ -463,13 +477,24 @@ def pmsm_record_random(consts: PmsmConsts, seed: int, i_sd0, i_sq0, eps0, n_step
     device, R = _planes(i_sd0, i_sq0, eps0)
     if device.type == "cpu":
         return pmsm_record_random_plain(consts, seed, i_sd0, i_sq0, eps0, n_steps)
-    shape = (int(n_steps), R, LANE)
-    outs = [torch.empty(shape, dtype=torch.int32 if j == 5 else torch.float32, device=device)
-            for j in range(8)]
+    outs = _pmsm_record_random_launch(consts, seed, (i_sd0, i_sq0, eps0), n_steps, R * LANE,
+                                      LAUNCHES)
+    return tuple(x.view(int(n_steps), R, LANE) for x in outs)
+
+
+def _pmsm_record_random_launch(consts: PmsmConsts, seed: int, planes, n_steps: int,
+                               n_envs: int, launches=None):
+    """pmsm_record_random's kernel on the first ``n_envs`` envs of the
+    planes ``(i_sd0, i_sq0, eps0)``: its 8 outputs, each ``(T, n_envs)``
+    (the action int32); the launch counted in ``launches`` (none: not
+    counted)."""
+    device = planes[0].device
+    outs = [torch.empty((int(n_steps), n_envs), dtype=torch.int32 if j == 5 else torch.float32,
+                        device=device) for j in range(8)]
     _launch("pmsm_record_random", device, consts.host.ctypes.data,
-            int(seed) & 0xFFFFFFFFFFFFFFFF, R * LANE, int(n_steps),
-            *_ptrs(i_sd0, i_sq0, eps0, *outs))
-    return tuple(outs)
+            int(seed) & 0xFFFFFFFFFFFFFFFF, n_envs, int(n_steps), *_ptrs(*planes, *outs),
+            launches={"pmsm_record_random": 0} if launches is None else launches)
+    return outs
 
 
 def pmsm_record_buffer(consts: PmsmConsts, i_sd0, i_sq0, eps0, actions):

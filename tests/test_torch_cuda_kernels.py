@@ -1265,6 +1265,93 @@ def test_cuda_permex_rollout_random_equals_plain_version_bit_for_bit():
     assert fd.permex_ring_layout()["design"] == "warp-specialised"
 
 
+def _equal_record_bits(got, want, n, T):
+    """Per recorded plane, the steps and envs where the kernel's ``(T, n)``
+    plane equals the plain version's ``(T, R, 128)`` plane on its first
+    ``n`` envs bit for bit (NaN where it has NaN)."""
+    out = []
+    for g, x in zip(got, want):
+        x = x.reshape(T, -1)[:, :n]
+        assert g.shape == x.shape and g.dtype == x.dtype
+        out.append((g == x) | (torch.isnan(g) & torch.isnan(x)))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_pmsm_record_random_equals_plain_version_bit_for_bit():
+    """pmsm_record_random (csrc/fused_pmsm.cu: producer and consumer warps
+    over a shared-memory ring of its own, the random rollout's 9 words a
+    step) equals pmsm_record_random_plain bit for bit in every plane, env
+    and step (NaN where the plain version has NaN), for 1, 37 and 2051 envs
+    at 1, 3, 4, 5, 8, 9 and 64 steps and 131 envs at 1024: the ring stops
+    at every place in a slot, partial warps and blocks.  Env 0 starts at
+    five times the current limit and resets at its first step.  The
+    wrapper's launch counts once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    dev = torch.device("cuda")
+    consts = fs.PmsmConsts(gt.make_functional("Finite-CC-PMSM-v0", device=dev))
+    rng = np.random.default_rng(89)
+    fs.reset_launches()
+    for n, steps in RING_STOPS:
+        R = -(-n // 128)
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32)
+                 for lo, hi in ((-50, 50), (-50, 50), (0, 2 * np.pi))]
+        start[0].reshape(-1)[0] = 5.0 / float(consts.f["inv_i_lim"])
+        start = [torch.as_tensor(x, device=dev) for x in start]
+        for T in steps:
+            got = fs._pmsm_record_random_launch(consts, 7, start, T, n)
+            torch.cuda.synchronize()
+            want = fs.pmsm_record_random_plain(consts, 7, *start, T)
+            for j, same in enumerate(_equal_record_bits(got, want, n, T)):
+                assert bool(same.all()), f"n={n} T={T}: plane {j} differs in {int((~same).sum())}"
+            assert float(got[7][0, 0]) == 1.0  # env 0 reset at its first step
+    assert not any(fs.LAUNCHES.values())
+    out = fs.pmsm_record_random(consts, 7, *start, 9)
+    want = fs.pmsm_record_random_plain(consts, 7, *start, 9)
+    assert all(bool(torch.equal(a, b)) for a, b in zip(out, want))
+    assert {k: v for k, v in fs.LAUNCHES.items() if v} == {"pmsm_record_random": 1}
+    assert fs.pmsm_record_ring_layout()["design"] == "warp-specialised"
+
+
+@pytest.mark.cuda
+def test_cuda_permex_record_random_equals_plain_version_bit_for_bit():
+    """permex_record_random (csrc/fused_permex.cu: producer and consumer
+    warps over a shared-memory ring of its own, 5 words a step, a fresh
+    Box-Muller pair each step) equals permex_record_random_plain bit for bit
+    in every plane, env and step (NaN where the plain version has NaN), for
+    1, 37 and 2051 envs at 1, 3, 4, 5, 8, 9 and 64 steps and 131 envs at
+    1024: the ring stops at every place in a slot, partial warps and
+    blocks.  Env 0 starts at five times the current limit and resets at its
+    first step.  The wrapper's launch counts once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are CUDA C++ without a CPU mode")
+    from gym_electric_motor_tpu_torch.ops import fused_dc as fd
+
+    dev = torch.device("cuda")
+    c = fd.PermexConsts(gt.make_functional("Finite-CC-PermExDc-v0", device=dev))
+    rng = np.random.default_rng(97)
+    fd.reset_launches()
+    for n, steps in RING_STOPS:
+        R = -(-n // 128)
+        i0 = rng.uniform(-100, 100, (R, 128)).astype(np.float32)
+        i0.reshape(-1)[0] = 5.0 / float(c.f["inv_i_lim"])
+        i0 = torch.as_tensor(i0, device=dev)
+        for T in steps:
+            got = fd._permex_record_random_launch(c, 7, i0, T, n)
+            torch.cuda.synchronize()
+            want = fd.permex_record_random_plain(c, 7, i0, T)
+            for j, same in enumerate(_equal_record_bits(got, want, n, T)):
+                assert bool(same.all()), f"n={n} T={T}: plane {j} differs in {int((~same).sum())}"
+            assert float(got[4][0, 0]) == 1.0  # env 0 reset at its first step
+    assert not any(fd.LAUNCHES.values())
+    out = fd.permex_record_random(c, 7, i0, 9)
+    want = fd.permex_record_random_plain(c, 7, i0, 9)
+    assert all(bool(torch.equal(a, b)) for a, b in zip(out, want))
+    assert {k: v for k, v in fd.LAUNCHES.items() if v} == {"permex_record_random": 1}
+    assert fd.permex_record_ring_layout()["design"] == "warp-specialised"
+
+
 REINFORCE_CASES = [(h, s, r) for h in (8, 16, 32) for s in ("greedy", "categorical")
                    for r in ("const", "wiener")]
 

@@ -408,3 +408,29 @@ def test_permex_ring_layout_is_the_kernels_ring():
     source = (Path(fd.__file__).resolve().parent.parent / "csrc" / "fused_permex.cu").read_text()
     assert f"using PermexRing = RingShape<{K}, {P}>;" in source
     assert f"constexpr int kPermexWords = {fd.PERMEX_RING_WORDS};" in source
+
+
+def test_permex_record_ring_layout_is_the_kernels_ring():
+    """permex_record_ring_layout, computed without the library, is the ring
+    of csrc/fused_permex.cu's random recorder (PermexRecordRing, one of K in
+    {4, 8} x P in {1, 2}), with the rollout's 5 words a step: 4 consumer
+    warps, P producer warps per consumer warp, two slots of K steps, inside
+    the default 48 KB of dynamic shared memory; the launch takes the ring
+    kernel and the recorder's own draws, a fresh pair each step."""
+    from pathlib import Path
+
+    lay = fd.permex_record_ring_layout()
+    K, P = fd.PERMEX_RECORD_RING
+    assert (K, P) in {(4, 1), (4, 2), (8, 1), (8, 2)}
+    assert lay == {"consumer_warps": 4, "producer_warps": 4 * P, "K": K, "slots": 2, "words": 5,
+                   "smem_bytes": 2 * K * 5 * 128 * 4, "design": "warp-specialised"}
+    assert lay["smem_bytes"] <= 48 * 1024
+    source = (Path(fd.__file__).resolve().parent.parent / "csrc" / "fused_permex.cu").read_text()
+    assert f"using PermexRecordRing = RingShape<{K}, {P}>;" in source
+    assert f"constexpr int kPermexWords = {fd.PERMEX_RING_WORDS};" in source
+    launch = source[source.index("int permex_record_random("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "ring_bytes<PermexRecordRing>(kPermexWords)" in launch
+    assert "permex_record_ws_kernel<<<" in launch and "permex_record_random_kernel<<<" not in launch
+    kernel = source[source.index("permex_record_ws_kernel(DcConst"):]
+    assert "px_record_draws(" in kernel[:kernel.index("\n}\n")]

@@ -254,3 +254,29 @@ def test_pmsm_ring_layout_is_the_kernels_ring():
     assert "constexpr int kPmsmActionWords = 1 + 2 * kRefWords;" in ring
     assert "constexpr int kRefWords = 4;" in pipe
     assert fs.PMSM_RING_WORDS == 1 + 2 * 4
+
+
+def test_pmsm_record_ring_layout_is_the_kernels_ring():
+    """pmsm_record_ring_layout, computed without the library, is the ring
+    of csrc/fused_pmsm.cu's random recorder (PmsmRecordRing, one of K in
+    {4, 8} x P in {1, 2}), with the random rollout's 9 words a step: 4
+    consumer warps, P producer warps per consumer warp, two slots of K
+    steps, inside the card's 227 KB; the launch raises the kernel's dynamic
+    shared-memory limit where the ring holds more than the default 48 KB."""
+    from pathlib import Path
+
+    lay = fs.pmsm_record_ring_layout()
+    K, P = fs.PMSM_RECORD_RING
+    assert (K, P) in {(4, 1), (4, 2), (8, 1), (8, 2)}
+    assert lay == {"consumer_warps": 4, "producer_warps": 4 * P, "K": K, "slots": 2, "words": 9,
+                   "smem_bytes": 2 * K * 9 * 128 * 4, "design": "warp-specialised"}
+    assert lay["smem_bytes"] <= 227 * 1024
+    source = (Path(fs.__file__).resolve().parent.parent / "csrc" / "fused_pmsm.cu").read_text()
+    assert f"using PmsmRecordRing = RingShape<{K}, {P}>;" in source
+    launch = source[source.index("int pmsm_record_random("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "ring_bytes<PmsmRecordRing>(kPmsmActionWords)" in launch
+    assert "pmsm_record_ws_kernel<<<" in launch and "pmsm_record_random_kernel<<<" not in launch
+    if lay["smem_bytes"] > 48 * 1024:
+        assert "cudaFuncSetAttribute" in launch
+    assert fs.pmsm_ring_layout()["words"] == lay["words"] == fs.PMSM_RING_WORDS

@@ -16,12 +16,14 @@ import pytest
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import sass_ops  # noqa: E402
 
+from gym_electric_motor_tpu_torch.ops import fused_dc as fd  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_dc_family as dcf  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_dfim_family as dff  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_eesm_family as ef  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_induction_family as indf  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_policy as fp  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_srm_family as srf  # noqa: E402
+from gym_electric_motor_tpu_torch.ops import fused_sync as fs  # noqa: E402
 from gym_electric_motor_tpu_torch.ops import fused_sync_family as sf  # noqa: E402
 
 SASS = """
@@ -242,7 +244,7 @@ SPECIALISED_KERNELS = {
     "fused_permex": [f"{k}_kernelE7DcConst{'11PermexConst5uint2' if 'buffer' not in k else ''}ii"
                      for k in ("permex_rollout_random", "permex_rollout_buffer",
                                "permex_record_random", "permex_record_buffer",
-                               "permex_rollout_ws")],
+                               "permex_rollout_ws", "permex_record_ws")],
     "fused_dc_sc": [f"dc_sc_rollout_{m}_kernelILi{n}EEv9DcScConst"
                     for m in ("random", "buffer", "ws") for n in (1, 2)],
     "fused_scim_tc": [f"scim_rollout_{m}_kernelE14InductionConst"
@@ -481,9 +483,9 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     """The sync, DC, SCIM, EESM and DFIM random rollouts, the policy
     evaluation rollout, the specialised DC SC, Cont-TC-SCIM, Finite-CC-EESM
     and Cont-CC-DFIM rollouts, the DC cascade, the FOC, the main path's
-    Finite-CC-PMSM random rollout, the specialised Finite-CC-PermExDc
-    rollout and the SRM, DC, EESM, synchronous, SCIM and DFIM random
-    recorders run warp-specialised
+    Finite-CC-PMSM random rollout and recorder, the specialised
+    Finite-CC-PermExDc rollout and recorder and the SRM, DC, EESM,
+    synchronous, SCIM and DFIM random recorders run warp-specialised
     with Wiener references: the DC and EESM rollouts' ``_ws`` entries
     carry ``@ws2`` (two producer warps per consumer warp, two steps each of
     a four-step slot) or, under the EESM's speed ODE (MECH), ``@ws4`` (one),
@@ -496,12 +498,14 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
     producer warps, so their
     mark is ``@ws4``, the steps a producer iteration fills; the EESM CC and
     DC cascade rings hold four for two, ``@ws2``; the DC, EESM,
-    synchronous, SCIM and DFIM recorders' marks are K / P of their rings
-    (``DC_RECORD_RING``, ``EESM_RECORD_RING``, ``SYNC_RECORD_RING``,
-    ``IND_RECORD_RING``, ``DFIM_RECORD_RING``)."""
+    synchronous, SCIM, DFIM, PMSM and PermExDc recorders' marks are K / P
+    of their rings (``DC_RECORD_RING``, ``EESM_RECORD_RING``,
+    ``SYNC_RECORD_RING``, ``IND_RECORD_RING``, ``DFIM_RECORD_RING``,
+    ``PMSM_RECORD_RING``, ``PERMEX_RECORD_RING``)."""
     (dk, dp), (ek, ep) = dcf.DC_RECORD_RING, ef.EESM_RECORD_RING
     (sk, sp), (ik, ip) = sf.SYNC_RECORD_RING, indf.IND_RECORD_RING
     fk, fp_ = dff.DFIM_RECORD_RING
+    (pk, pp), (xk, xp) = fs.PMSM_RECORD_RING, fd.PERMEX_RECORD_RING
     seen = {}
     for instances in sass_ops.STEP_INSTANCES.values():
         for key, instance in instances.items():
@@ -512,7 +516,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                                        "foc_rollout_ws", "scim_rollout_ws", "pmsm_rollout_ws",
                                        "permex_rollout_ws", "srm_record_ws",
                                        "dc_record_ws", "eesm_record_ws", "sync_record_ws",
-                                       "induction_record_ws", "dfim_record_ws")
+                                       "induction_record_ws", "dfim_record_ws",
+                                       "pmsm_record_ws", "permex_record_ws")
             assert (sass_ops.ws_steps_of(instance) > 0) == ws, key
             if ws:
                 seen[key] = sass_ops.ws_steps_of(instance)
@@ -543,7 +548,8 @@ def test_ws_kernels_sit_beside_their_one_thread_instances():
                     **{k: ik // ip for k in ("induction_record_ws",
                                              "induction_record_ws/Finite-CC-SCIM-v0")},
                     **{k: fk // fp_ for k in ("dfim_record_ws",
-                                              "dfim_record_ws/Cont-CC-DFIM-v0")}}
+                                              "dfim_record_ws/Cont-CC-DFIM-v0")},
+                    "pmsm_record_ws": pk // pp, "permex_record_ws": xk // xp}
     # under the speed ODE (the second template argument) one producer warp
     assert sass_ops.STEP_INSTANCES["fused_eesm"]["eesm_rollout_ws"].startswith(
         "eesm_rollout_ws_kernelILb0ELb1E")
@@ -699,24 +705,31 @@ def test_scim_tc_ring_and_reinforce_split_keep_their_one_thread_entries():
 
 def test_pmsm_and_permex_rings_keep_their_one_thread_entries():
     """pmsm_rollout_random and permex_rollout_random run on rings
-    (csrc/ring_pipe.cuh; ``@ws4``: K = 8, two producer warps), while the
+    (csrc/ring_pipe.cuh; ``@ws4``: K = 8, two producer warps), and so do
+    the random recorders pmsm_record_random and permex_record_random (``@ws``
+    K / P of ``PMSM_RECORD_RING`` and ``PERMEX_RECORD_RING``), while the
     one-thread entries stay the count of the function's own work, the
-    instances the bounds take, beside the buffer kernels and the recorders,
-    which keep one thread per env."""
+    instances the bounds take, beside the buffer kernels, which keep one
+    thread per env."""
+    (pk, pp), (xk, xp) = fs.PMSM_RECORD_RING, fd.PERMEX_RECORD_RING
     pmsm = sass_ops.STEP_INSTANCES["fused_pmsm"]
     assert pmsm == {"pmsm_rollout_random": "pmsm_rollout_random_kernel",
                     "pmsm_rollout_buffer": "pmsm_rollout_buffer_kernel",
                     "pmsm_record_random": "pmsm_record_random_kernel",
                     "pmsm_record_buffer": "pmsm_record_buffer_kernel",
-                    "pmsm_rollout_ws": "pmsm_rollout_ws_kernel@ws4"}
+                    "pmsm_rollout_ws": "pmsm_rollout_ws_kernel@ws4",
+                    "pmsm_record_ws": f"pmsm_record_ws_kernel@ws{pk // pp}"}
     permex = sass_ops.STEP_INSTANCES["fused_permex"]
     assert permex == {"permex_rollout_random": "permex_rollout_random_kernel",
                       "permex_rollout_buffer": "permex_rollout_buffer_kernel",
                       "permex_record_random": "permex_record_random_kernel",
                       "permex_record_buffer": "permex_record_buffer_kernel",
-                      "permex_rollout_ws": "permex_rollout_ws_kernel@ws4"}
-    for instance in list(pmsm.values()) + list(permex.values()):
-        assert sass_ops.ws_steps_of(instance) == (4 if "_ws_kernel" in instance else 0)
+                      "permex_rollout_ws": "permex_rollout_ws_kernel@ws4",
+                      "permex_record_ws": f"permex_record_ws_kernel@ws{xk // xp}"}
+    ws = {"pmsm_rollout_ws": 4, "permex_rollout_ws": 4, "pmsm_record_ws": pk // pp,
+          "permex_record_ws": xk // xp}
+    for key, instance in list(pmsm.items()) + list(permex.items()):
+        assert sass_ops.ws_steps_of(instance) == ws.get(key, 0)
 
 
 def test_dc_policy_lanes_and_srm_record_ring_keep_their_one_thread_entries():

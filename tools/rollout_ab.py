@@ -46,10 +46,14 @@ on any of the 24 DC ids, at 1024 steps, the catalog's Wiener references),
 ``sync_record:<id>`` for the universal synchronous random recorder
 (``sync_record_random`` on any of the twelve sync ids, likewise),
 ``induction_record:<id>`` for the universal SCIM random recorder
-(``induction_record_random`` on any of the six SCIM ids, likewise) or
+(``induction_record_random`` on any of the six SCIM ids, likewise),
 ``dfim_record:<id>`` for the universal DFIM random recorder
-(``dfim_record_random`` on any of the six DFIM ids, likewise); the closed
-loops take the tuned controller of ``GemController.make``.
+(``dfim_record_random`` on any of the six DFIM ids, likewise),
+``pmsm_record:Finite-CC-PMSM-v0`` for the specialised Finite-CC-PMSM random
+recorder (``pmsm_record_random``, likewise) or
+``permex_record:Finite-CC-PermExDc-v0`` for the specialised
+Finite-CC-PermExDc random recorder (``permex_record_random``, likewise);
+the closed loops take the tuned controller of ``GemController.make``.
 For each path (default: the synchronous and DFIM ids that ``chip_smoke.py``
 times, with Wiener and with constant references) it builds the path's
 source (``csrc/fused_<family>.cu``, ``csrc/fused_policy.cu``,
@@ -92,8 +96,8 @@ DEFAULT_PATHS = ("sync:Finite-CC-PMSM-v0", "sync:Cont-SC-PMSM-v0", "sync:Finite-
 
 # (consts, flags, spec, seed, n, n_steps, in, out, stream): the C rollouts
 # of the specialised builders and the closed loops (permex_rollout_random,
-# eesm_cc_rollout_random, dfim_cc_rollout_random, scim_rollout_random,
-# dc_cascade_rollout, foc_rollout)
+# permex_record_random, eesm_cc_rollout_random, dfim_cc_rollout_random,
+# scim_rollout_random, dc_cascade_rollout, foc_rollout)
 C_ROLLOUT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int]
                       + [ctypes.c_void_p] * 3)
 
@@ -310,6 +314,49 @@ def main():
 
             def run_this():
                 return fs._pmsm_random_launch(pc, SEED, z, T_STEPS, N_ENVS)
+        elif family == "pmsm_record":
+            (env_id,) = rest
+            pc = fs.PmsmConsts(gt.make_functional(env_id, device=dev))
+            steps = T_RECORD
+            z = [torch.zeros(N_ENVS, device=dev) for _ in range(3)]
+            fn = other_lib("fused_pmsm", "pmsm_record_random",
+                           fs._ARGTYPES["pmsm_record_random"])
+            r_idx = 6
+            design = fs.pmsm_record_ring_layout()
+
+            def run_other():
+                outs = [torch.empty((steps, N_ENVS), device=dev,
+                                    dtype=torch.int32 if j == 5 else torch.float32)
+                        for j in range(8)]
+                rc = fn(pc.host.ctypes.data, seed_u64(SEED), N_ENVS, steps,
+                        *[x.data_ptr() for x in z + outs], stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's pmsm_record_random returned {rc}")
+                return outs
+
+            def run_this():
+                return fs._pmsm_record_random_launch(pc, SEED, z, steps, N_ENVS)
+        elif family == "permex_record":
+            (env_id,) = rest
+            c = fd.PermexConsts(gt.make_functional(env_id, device=dev))
+            steps = T_RECORD
+            z = torch.zeros(N_ENVS, device=dev)
+            fn = other_lib("fused_permex", "permex_record_random", C_ROLLOUT_ARGTYPES)
+            r_idx = 3
+            design = fd.permex_record_ring_layout()
+
+            def run_other():
+                outs = [torch.empty((steps, N_ENVS), device=dev,
+                                    dtype=torch.int32 if j == 2 else torch.float32)
+                        for j in range(5)]
+                rc = fn(*fd._px_consts(c), seed_u64(SEED), N_ENVS, steps, ptr_array([z]),
+                        ptr_array(outs), stream())
+                if rc:
+                    raise RuntimeError(f"the other tree's permex_record_random returned {rc}")
+                return outs
+
+            def run_this():
+                return fd._permex_record_random_launch(c, SEED, z, steps, N_ENVS)
         elif family == "permex":
             (env_id,) = rest
             c = fd.PermexConsts(gt.make_functional(env_id, device=dev))

@@ -646,11 +646,14 @@ def instance_counts(funcs, kernels, where="the listing") -> dict:
 # of its mangled name), by library; chip_smoke.py takes its bounds from these
 STEP_INSTANCES = {
     # The Finite-CC-PMSM random rollout runs pmsm_rollout_ws_kernel (K = 8,
-    # two producer warps per consumer warp: @ws4); its one-thread kernel is
-    # built for the count of the function's own work and never launched
+    # two producer warps per consumer warp: @ws4) and the random recorder
+    # pmsm_record_ws_kernel (@ws K / P of PMSM_RECORD_RING); their one-thread
+    # kernels are built for the count of the function's own work and never
+    # launched
     "fused_pmsm": {**{k: f"{k}_kernel" for k in ("pmsm_rollout_random", "pmsm_rollout_buffer",
                                                   "pmsm_record_random", "pmsm_record_buffer")},
-                   "pmsm_rollout_ws": "pmsm_rollout_ws_kernel@ws4"},
+                   "pmsm_rollout_ws": "pmsm_rollout_ws_kernel@ws4",
+                   "pmsm_record_ws": "pmsm_record_ws_kernel@ws4"},
     # policy_record runs on lane groups below a full card,
     # policy_record_lanes_kernel<H, G, LEAD>: four lanes an env, every lane
     # stepping (@lanes4: the count a step issues), and at PPO's width eight
@@ -943,13 +946,16 @@ STEP_INSTANCES = {
     # Finite-CC-EESM and Cont-CC-DFIM.  chip_smoke.py times each random
     # kernel beside the universal kernel on the same id
     # The PermExDc random rollout runs permex_rollout_ws_kernel (K = 8, two
-    # producer warps per consumer warp: @ws4); its one-thread kernel is built
-    # for the count of the function's own work and never launched
+    # producer warps per consumer warp: @ws4) and the random recorder
+    # permex_record_ws_kernel (@ws K / P of PERMEX_RECORD_RING); their
+    # one-thread kernels are built for the count of the function's own work
+    # and never launched
     "fused_permex": {**{k: f"{k}_kernel" for k in ("permex_rollout_random",
                                                     "permex_rollout_buffer",
                                                     "permex_record_random",
                                                     "permex_record_buffer")},
-                     "permex_rollout_ws": "permex_rollout_ws_kernel@ws4"},
+                     "permex_rollout_ws": "permex_rollout_ws_kernel@ws4",
+                     "permex_record_ws": "permex_record_ws_kernel@ws4"},
     # The DC SC random rollout runs dc_sc_rollout_ws_kernel<NEL> (K = 8, two
     # producer warps per consumer warp: @ws4); its one-thread kernel is built
     # for the count of the function's own work and never launched
