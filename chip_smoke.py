@@ -286,16 +286,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
             per family; and on every id and the four joint heads at the
             main path's own shape and width (phase 41: 1024 envs x 32
             steps, H 16), so that a kernel wrong at another H than 32 fails;
-            dc_policy_record, sync_policy_record, eesm_policy_record and
-            srm_policy_record (on lane groups at PPO's width) against
-            their one-thread designs bit for bit (error 0 in every env and
-            output) at 2048 x 64 on Finite-CC-PermExDc-v0,
-            Cont-CC-PermExDc-v0, Finite-CC-ExtExDc-v0 with joint heads,
-            Finite-CC-PMSM-v0, Cont-CC-PMSM-v0, Cont-SC-PMSM-v0,
-            Finite-CC-EESM-v0 (and its joint head), Cont-SC-EESM-v0,
-            Finite-CC-SRM-v0 (and its joint head), Cont-SC-SRM-v0 and
-            Finite-TC-SRM-v0 with psi_s = 1.2, with the layout line (lanes,
-            lead lane, blocks, SMs)
+            the six families' recorders (dc_, sync_, eesm_, srm_,
+            dfim_ and induction_policy_record, on lane groups at PPO's
+            width) against their one-thread designs bit for bit (error 0
+            in every env and output) at 2048 x 64 on
+            Finite-CC-PermExDc-v0, Cont-CC-PermExDc-v0,
+            Finite-CC-ExtExDc-v0 with joint heads, Finite-CC-PMSM-v0,
+            Cont-CC-PMSM-v0, Cont-SC-PMSM-v0, Finite-CC-EESM-v0 (and its
+            joint head), Cont-SC-EESM-v0, Finite-CC-SRM-v0 (and its joint
+            head), Cont-SC-SRM-v0, Finite-TC-SRM-v0 with psi_s = 1.2,
+            Finite-CC-DFIM-v0 (and its joint head), Cont-SC-DFIM-v0,
+            Finite-CC-SCIM-v0 and Cont-SC-SCIM-v0, with the layout line
+            (lanes, lead lane, blocks, SMs)
 39. policy_universal_replay  the recorded actions (a continuous id's
             squashed duties) through the buffer recorder on Finite- and
             Cont-CC-{PermExDc,DFIM}-v0 (2048 envs x 32 steps, zero biases):
@@ -315,11 +317,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
 42. policy_universal_timings  the recorder at PPO's shape (2048 x 256) and
     at 16384 x 1024, H 32, on Finite-CC-PermExDc-v0, Cont-CC-PermExDc-v0,
     Finite-CC-DFIM-v0 (factorised and joint), Cont-SC-SRM-v0,
-    Finite-CC-PMSM-v0 and Finite-CC-EESM-v0, each with its bound and reset
-    share, the DC, sync, SRM and EESM rows with their design (lanes, and
-    on lane groups registers, a lane's counts, the issue bound of G lanes'
-    counts and the issue-slot floor); on Finite-CC-PMSM-v0 beside
-    policy_record in the same call
+    Finite-CC-PMSM-v0, Finite-CC-EESM-v0 and Finite-CC-SCIM-v0, each with
+    its bound, reset share and design (lanes, and on lane groups
+    registers, a lane's counts, the issue bound of G lanes' counts and the
+    issue-slot floor); on Finite-CC-PMSM-v0 beside policy_record in the
+    same call
 43. control_kernels  slice 10, the classical controllers in the loop
     (csrc/fused_foc.cu, csrc/fused_dc_cascade.cu, csrc/fused_srm_cascade.cu):
     each kernel against its plain version at 16384 envs x 64 steps, with
@@ -543,21 +545,27 @@ PU_TIMED = (("Finite-CC-PermExDc-v0", False, "dc_policy_record"),
             ("Finite-CC-DFIM-v0", True, "dfim_policy_record/joint"),
             ("Cont-SC-SRM-v0", False, "srm_policy_record"),
             ("Finite-CC-PMSM-v0", False, "sync_policy_record"),
-            ("Finite-CC-EESM-v0", False, "eesm_policy_record"))
+            ("Finite-CC-EESM-v0", False, "eesm_policy_record"),
+            ("Finite-CC-SCIM-v0", False, "induction_policy_record"))
 PU_TIMED_SHAPES = ((2048, 256), (16384, 1024))
 # the lane-group recorders' designs held against each other (phase 38),
 # (id, joint heads, the env's keywords): dc_policy_record on a finite, a
 # continuous and a joint-head id, sync_policy_record on a finite id, the
 # Gaussian head and the speed ODE, eesm_policy_record on the three-row
 # finite id, its joint head and the Gaussian head under the speed ODE,
-# srm_policy_record likewise and on the saturating finite TC id
+# srm_policy_record likewise and on the saturating finite TC id,
+# dfim_policy_record on the finite dq id, its 64-way joint head and the
+# Gaussian head under the speed ODE, induction_policy_record on the finite
+# dq id and the Gaussian head under the speed ODE
 PU_DESIGN_IDS = (("Finite-CC-PermExDc-v0", False, {}), ("Cont-CC-PermExDc-v0", False, {}),
                  ("Finite-CC-ExtExDc-v0", True, {}), ("Finite-CC-PMSM-v0", False, {}),
                  ("Cont-CC-PMSM-v0", False, {}), ("Cont-SC-PMSM-v0", False, {}),
                  ("Finite-CC-EESM-v0", False, {}), ("Finite-CC-EESM-v0", True, {}),
                  ("Cont-SC-EESM-v0", False, {}), ("Finite-CC-SRM-v0", False, {}),
                  ("Finite-CC-SRM-v0", True, {}), ("Cont-SC-SRM-v0", False, {}),
-                 ("Finite-TC-SRM-v0", False, SRM_SAT))
+                 ("Finite-TC-SRM-v0", False, SRM_SAT), ("Finite-CC-DFIM-v0", False, {}),
+                 ("Finite-CC-DFIM-v0", True, {}), ("Cont-SC-DFIM-v0", False, {}),
+                 ("Finite-CC-SCIM-v0", False, {}), ("Cont-SC-SCIM-v0", False, {}))
 PU_MAIN = (1024, 32)          # the main path's per-id PPO shape (phase 41), also compared
 H_PU_MAIN = 16                # its hidden width: the trainer's default
 PU_ALL_IDS_PPO = dict(horizon=PU_MAIN[1], n_envs=PU_MAIN[0], n_minibatches=4,
@@ -2728,8 +2736,7 @@ def pu_design_fields(fp, kernel, key, n, env_steps, nbytes, ms):
     """The design fields of a timed universal recorder at ``n`` envs (phase
     42): the layout its launch takes (fp.policy_universal_layout) and, on
     lane groups where tools/sass_ops.py counts that design
-    (``<kernel>_lanes[/8][/<id>]`` of the kernels of
-    fp.POLICY_LANE_DESIGNS, an eight-lane design's key with /8),
+    (``<kernel>_lanes[/8][/<id>]``, an eight-lane design's key with /8),
     registers, a lane's counts, the
     issue bound of G lanes' counts with its share and the issue-slot floor,
     both without the hidden units the count takes as conditional (lower
@@ -2837,8 +2844,8 @@ def run_policy_universal(dev, card, ops):
         main_rows[env_id + "/joint"] = compare(env_id, n, steps, joint=True, hidden=H_PU_MAIN)
     emit({"phase": "policy_universal_kernels_main_shape", "envs": n, "steps": steps,
           "hidden": H_PU_MAIN, "ids": main_rows})
-    # the recorders on lane groups (fp.POLICY_LANE_DESIGNS) in the design
-    # their width rule takes at PPO's width against their one-thread design
+    # the recorders on lane groups in the design their width rule takes at
+    # PPO's width against their one-thread design
     # (what a full card runs), bit for bit:
     # the plain version rounds tanhf and expf otherwise, so the rule above
     # holds it to the plain version and this to the one-thread kernel.  Its
@@ -3034,9 +3041,8 @@ def run_policy_universal(dev, card, ops):
                 "bound_by": b_by, "bound_share": b_ms / ms,
                 "reset_share": float(out[-1].double().mean()),
                 "finite": all(bool(torch.isfinite(x.float()).all()) for x in out)}
-            if pol.kernel in fp.POLICY_LANE_DESIGNS:
-                row.update(pu_design_fields(fp, pol.kernel, key, n_t, n_t * steps_t,
-                                            pu_bytes(pol, n_t, steps_t, H), ms))
+            row.update(pu_design_fields(fp, pol.kernel, key, n_t, n_t * steps_t,
+                                        pu_bytes(pol, n_t, steps_t, H), ms))
             del out
     n_t, steps_t = PU_TIMED_SHAPES[1]
     env_sf = gt.make_functional("Finite-CC-PMSM-v0", device=dev, state_filter=SF)
@@ -3792,7 +3798,9 @@ REDESIGNED = {"srm_rollout_random": "lane groups at constant speed",
               "dfim_record_random": "ring with Wiener references",
               "sync_policy_record": "lane groups at PPO's width",
               "eesm_policy_record": "lane groups at PPO's width",
-              "srm_policy_record": "lane groups at PPO's width"}
+              "srm_policy_record": "lane groups at PPO's width",
+              "dfim_policy_record": "lane groups at PPO's width",
+              "induction_policy_record": "lane groups at PPO's width"}
 
 
 def redesign_order(line):

@@ -299,14 +299,6 @@ __device__ __forceinline__ void policy_store_actions(const PolicyOut& o, size_t 
 
 constexpr int kPolicyThreads = 128;
 
-// A family's host launcher of one instance, as its instance tables hold
-// them: in are the n_state input planes, out the wrapper's output pointers
-// (the state planes first).
-template <typename Const>
-using PolicyLaunchFn = void (*)(const Const&, const PolicyConst&, uint2, int, int,
-                                const PolicyWeights&, const float* const*, void* const*,
-                                const PolicyOut&, cudaStream_t);
-
 // Launch a policy kernel, `lanes` threads per env (one, or a lane group of
 // policy_heads_lanes.cuh), with the staged weights' bytes of shared memory
 // (f features, nc log-stds); In and Out are plane structs of a `p` pointer
@@ -325,23 +317,6 @@ void policy_launch(void (*kernel)(Const, PolicyConst, uint2, int, int, PolicyWei
   const long long threads = (long long)n * lanes;
   kernel<<<(int)((threads + kPolicyThreads - 1) / kPolicyThreads), kPolicyThreads,
            policy_smem_bytes(f, q.h, q.a, nc), st>>>(k, q, key, n, n_steps, w, pin, pout, o);
-}
-
-// The body of every <family>_policy_record: run the picked launcher
-// (nullptr where no instance serves the flags) at `hidden` units and
-// n_out logits, and return cudaGetLastError(), or cudaErrorInvalidValue
-// for a hidden width out of 1 to kPolicyMaxHidden or a missing instance.
-template <typename Const>
-int policy_call(PolicyLaunchFn<Const> fn, const Const& k, const float* pk, const int* pi,
-                unsigned long long seed, int n, int n_steps, int hidden, int n_out,
-                const PolicyWeights& w, const float* const* in, void* const* out,
-                int n_state_slots, void* stream) {
-  if (fn == nullptr || hidden < 1 || hidden > kPolicyMaxHidden) {
-    return (int)cudaErrorInvalidValue;
-  }
-  fn(k, policy_load_const(pk, pi, hidden, n_out), policy_seed_key(seed), n, n_steps, w, in, out,
-     policy_out(out, n_state_slots), (cudaStream_t)stream);
-  return (int)cudaGetLastError();
 }
 
 // A policy library's size queries and error string, for ctypes.

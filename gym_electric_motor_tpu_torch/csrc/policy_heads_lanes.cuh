@@ -170,9 +170,11 @@ using PolicyDesignFn = void (*)(const Const&, const PolicyConst&, uint2, int, in
                                 const PolicyWeights&, const float* const*, void* const*,
                                 const PolicyOut&, cudaStream_t, int);
 
-// The body of every <family>_policy_record_design of a recorder on lane
-// groups: policy_call's, the picked launcher run in `design`, and
-// cudaErrorInvalidValue also for a design other than 0 and 1.
+// The body of every <family>_policy_record_design: run the picked launcher
+// (nullptr where no instance serves the flags) at `hidden` units and n_out
+// logits in `design`, and return cudaGetLastError(), or
+// cudaErrorInvalidValue for a hidden width out of 1 to kPolicyMaxHidden, a
+// missing instance or a design other than 0 and 1.
 template <typename Const>
 int policy_design_call(PolicyDesignFn<Const> fn, const Const& k, const float* pk, const int* pi,
                        unsigned long long seed, int n, int n_steps, int hidden, int n_out,

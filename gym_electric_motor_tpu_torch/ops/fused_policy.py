@@ -1024,9 +1024,10 @@ _UNIVERSAL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_uint64] + [ctypes.c_int]
 # <family>_policy_record_design: the recorder's arguments, then the design
 _DESIGN_ARGTYPES = _UNIVERSAL_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
 
-# The lane designs of the width rule of the recorders on lane groups
-# (WideDesign and NarrowDesign in csrc/fused_<family>_policy.cu): lanes an
-# env, and whether lane 0 of a group alone samples and steps the env.
+# The lane designs of the width rule of the recorders, every family's on
+# lane groups (WideDesign and NarrowDesign in csrc/fused_<family>_policy.cu):
+# lanes an env, and whether lane 0 of a group alone samples and steps the
+# env.
 DC_POLICY_WIDE = (8, False)
 DC_POLICY_NARROW = (4, True)
 SYNC_POLICY_WIDE = (8, False)
@@ -1035,20 +1036,25 @@ EESM_POLICY_WIDE = (8, False)
 EESM_POLICY_NARROW = (8, False)
 SRM_POLICY_WIDE = (8, False)
 SRM_POLICY_NARROW = (8, False)
-# the universal recorders on lane groups: their (wide, narrow) designs
+DFIM_POLICY_WIDE = (8, False)
+DFIM_POLICY_NARROW = (8, False)
+INDUCTION_POLICY_WIDE = (8, False)
+INDUCTION_POLICY_NARROW = (8, False)
+# the universal recorders' (wide, narrow) designs
 POLICY_LANE_DESIGNS = {"dc_policy_record": (DC_POLICY_WIDE, DC_POLICY_NARROW),
                        "sync_policy_record": (SYNC_POLICY_WIDE, SYNC_POLICY_NARROW),
                        "eesm_policy_record": (EESM_POLICY_WIDE, EESM_POLICY_NARROW),
-                       "srm_policy_record": (SRM_POLICY_WIDE, SRM_POLICY_NARROW)}
+                       "srm_policy_record": (SRM_POLICY_WIDE, SRM_POLICY_NARROW),
+                       "dfim_policy_record": (DFIM_POLICY_WIDE, DFIM_POLICY_NARROW),
+                       "induction_policy_record": (INDUCTION_POLICY_WIDE,
+                                                   INDUCTION_POLICY_NARROW)}
 
 
 def _universal_library(pol):
     fs = pol.surface
     mod = _POLICY_FAMILIES[fs.family][0]
     prefix = f"{fs.family}_policy"
-    argtypes = {pol.kernel: _UNIVERSAL_ARGTYPES}
-    if pol.kernel in POLICY_LANE_DESIGNS:
-        argtypes[f"{pol.kernel}_design"] = _DESIGN_ARGTYPES
+    argtypes = {pol.kernel: _UNIVERSAL_ARGTYPES, f"{pol.kernel}_design": _DESIGN_ARGTYPES}
     lib = family_library(f"fused_{prefix}", prefix, argtypes,
                          (len(mod.CONST_NAMES), len(mod.ROW_NAMES), len(mod.FLAG_NAMES)))
     return lib, prefix
@@ -1063,11 +1069,8 @@ def policy_universal_lanes(kernel, n_envs, sms):
     """The lanes an env and whether lane 0 alone steps, of the universal
     recorder ``kernel``'s launch over ``n_envs`` envs on a card of ``sms``
     SMs: the width rule of csrc/policy_heads_lanes.cuh (``policy_width``)
-    over the kernel's designs (``POLICY_LANE_DESIGNS``: the DC, sync, EESM
-    and SRM recorders), one thread per env for the other families'.
-    Computed here, without the library."""
-    if kernel not in POLICY_LANE_DESIGNS:
-        return 1, False
+    over the kernel's designs (``POLICY_LANE_DESIGNS``).  Computed here,
+    without the library."""
     blocks = -(-int(n_envs) // LANE)
     wide, narrow = POLICY_LANE_DESIGNS[kernel]
     for (lanes, lead), per_sm in ((wide, 1), (narrow, 3)):
@@ -1078,24 +1081,18 @@ def policy_universal_lanes(kernel, n_envs, sms):
 
 def policy_universal_layout(kernel, n_envs):
     """The launch of the universal recorder ``kernel`` over ``n_envs`` envs
-    on the current card: its lanes an env (the kernels of
-    ``POLICY_LANE_DESIGNS``: by their width rule; the other families'
-    kernels 1), whether lane 0 of a group alone samples and steps, its
-    blocks of 128 threads, the card's SMs and a name for the design."""
+    on the current card: its lanes an env (by its width rule), whether lane
+    0 of a group alone samples and steps, its blocks of 128 threads, the
+    card's SMs and a name for the design."""
     if kernel not in UNIVERSAL_KERNELS:
         raise ValueError(f"unknown universal recorder {kernel!r}")
-    if kernel in POLICY_LANE_DESIGNS:
-        family = kernel[:-len("_policy_record")]
-        fn = getattr(cuda_build.load(f"fused_{family}_policy"), f"{family}_policy_layout")
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        out = (ctypes.c_int * 4)()
-        fn(int(n_envs), out)
-        lanes, lead, blocks, sms = out
-    else:
-        lanes, lead = 1, 0
-        blocks = -(-int(n_envs) // LANE)
-        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    family = kernel[:-len("_policy_record")]
+    fn = getattr(cuda_build.load(f"fused_{family}_policy"), f"{family}_policy_layout")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    fn(int(n_envs), out)
+    lanes, lead, blocks, sms = out
     design = ("one thread per env" if lanes == 1 else
               f"{lanes} lanes an env, " + ("lane 0 stepping" if lead else "every lane stepping"))
     return {"design": design, "lanes": lanes, "lead_lane_steps": bool(lead), "blocks": blocks,
@@ -1154,14 +1151,11 @@ def _universal_args(pol, seed, w1, b1, w2, b2, ls, states, n_steps, shape):
 
 def _policy_design_launch(pol, seed, w1, b1, w2, b2, ls, states, n_steps, n_envs,
                           one_thread=False):
-    """A recorder on lane groups (a kernel of ``POLICY_LANE_DESIGNS``) on
-    the first ``n_envs`` envs of the planes, in
+    """A universal recorder on the first ``n_envs`` envs of the planes, in
     the design its width rule takes at ``n_envs`` or (``one_thread``) one
     thread per env, through its C entry ``<kernel>_design``: the recorded
     signals, each ``(T, n_envs)``; for the tests and tools that hold the
     designs against each other, not counted in ``LAUNCHES``."""
-    if pol.kernel not in POLICY_LANE_DESIGNS:
-        raise ValueError(f"{pol.kernel} has one design")
     device, R = check_planes(pol.consts, states)
     _universal_weights(pol, w1, b1, w2, b2, ls, device)
     if device.type != "cuda" or not 0 < n_envs <= R * LANE:

@@ -1448,6 +1448,17 @@ SRM_POLICY_IDS = [("Finite-CC-SRM-v0", False, None), ("Finite-CC-SRM-v0", True, 
                   ("Cont-SC-SRM-v0", False, None), ("Finite-TC-SRM-v0", False, 1.2)]
 SRM_POLICY_BIT_CASES = [(i, j, p, h, n) for i, j, p in SRM_POLICY_IDS for h in (32, 16, 5)
                         for n in (1, 37, 2048, 2051)]
+# dfim_policy_record's: the finite dq id, its 64-way joint head, and the six
+# Gaussian channels under the speed ODE
+DFIM_POLICY_IDS = [("Finite-CC-DFIM-v0", False), ("Finite-CC-DFIM-v0", True),
+                   ("Cont-SC-DFIM-v0", False)]
+DFIM_POLICY_BIT_CASES = [(i, j, h, n) for i, j in DFIM_POLICY_IDS for h in (32, 16, 5)
+                         for n in (1, 37, 2048, 2051)]
+# induction_policy_record's: the finite and the continuous dq ids, and the
+# three Gaussian channels under the speed ODE
+INDUCTION_POLICY_IDS = ["Finite-CC-SCIM-v0", "Cont-CC-SCIM-v0", "Cont-SC-SCIM-v0"]
+INDUCTION_POLICY_BIT_CASES = [(i, h, n) for i in INDUCTION_POLICY_IDS for h in (32, 16, 5)
+                              for n in (1, 37, 2048, 2051)]
 
 
 def _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n, psi_s=None):
@@ -1511,6 +1522,17 @@ def _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n, psi_s=None):
         start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32) for lo, hi in bounds]
         for j in range(3):
             start[j + c.mech][0, 0] = 10.0 * i_lim
+    elif pol.kernel in ("dfim_policy_record", "induction_policy_record"):
+        # omega (under a dynamic load) to 100 rad/s, the stator currents to
+        # half their limit, the rotor fluxes to half of l_m times it and, on
+        # the DFIM, the angle in [0, 2 pi)
+        i_lim = 1.0 / np.sqrt(c.f["inv_ilim2"])
+        psi_lim = c.f["l_m"] * i_lim
+        bounds = ([(0.0, 100.0)] if c.mech else []) + [(-0.5 * i_lim, 0.5 * i_lim)] * 2 + [
+            (-0.5 * psi_lim, 0.5 * psi_lim)] * 2 + (
+            [(0.0, 2 * np.pi)] if pol.kernel == "dfim_policy_record" else [])
+        start = [rng.uniform(lo, hi, (R, 128)).astype(np.float32) for lo, hi in bounds]
+        start[1 if c.mech else 0][0, 0] = 10.0 * i_lim
     else:
         # omega (under a dynamic load) to 100 rad/s, the currents to their limits
         lims = ([100.0] if c.mech else []) + [c.f["lim0"], c.f["lim1"]]
@@ -1578,6 +1600,31 @@ def test_cuda_srm_policy_record_equals_one_thread_design_bit_for_bit(env_id, joi
     Gaussian channels under the speed ODE (Cont-SC), and the saturating
     torque in the observation and the reward (Finite-TC, psi_s 1.2)."""
     _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n, psi_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,joint,hidden,n", DFIM_POLICY_BIT_CASES,
+                         ids=[f"{i}{'-joint' if j else ''}-H{h}-n{n}"
+                              for i, j, h, n in DFIM_POLICY_BIT_CASES])
+def test_cuda_dfim_policy_record_equals_one_thread_design_bit_for_bit(env_id, joint, hidden, n):
+    """dfim_policy_record (its wide and narrow lane designs, or one thread
+    per env, csrc/fused_dfim_policy.cu): _hold_policy_designs_bit_for_bit,
+    with the constant-speed rotation and the pre-step flux direction
+    (Finite-CC), the 64-way joint head sampled across the lanes, and the six
+    Gaussian channels under the speed ODE (Cont-SC)."""
+    _hold_policy_designs_bit_for_bit(env_id, joint, hidden, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,hidden,n", INDUCTION_POLICY_BIT_CASES,
+                         ids=[f"{i}-H{h}-n{n}" for i, h, n in INDUCTION_POLICY_BIT_CASES])
+def test_cuda_induction_policy_record_equals_one_thread_design_bit_for_bit(env_id, hidden, n):
+    """induction_policy_record (its wide and narrow lane designs, or one
+    thread per env, csrc/fused_induction_policy.cu):
+    _hold_policy_designs_bit_for_bit, with the pre-step flux direction on
+    the dq ids (Finite-CC, Cont-CC) and the three Gaussian channels under
+    the speed ODE (Cont-SC)."""
+    _hold_policy_designs_bit_for_bit(env_id, False, hidden, n)
 
 
 SRM_RECORD_CASES = [(i, None) for i in gt.SRM_ENV_IDS] + [("Finite-TC-SRM-v0", 1.2),

@@ -149,14 +149,10 @@ def test_dc_policy_width_rule_mirrors_the_kernels(n, sms, want):
     lanes an env, every lane stepping) while the one-thread launch's blocks
     of 128 envs times its lanes fit the SMs once (PPO's 2048 envs on an
     H100's 132), the narrow design (NarrowDesign, four lanes, lane 0
-    stepping) while they fit three times, else one thread per env; the
-    other families' recorders but the synchronous, EESM and SRM ones take
-    one thread per env."""
+    stepping) while they fit three times, else one thread per env; every
+    family's recorder has lane designs of its own."""
     assert fp.policy_universal_lanes("dc_policy_record", n, sms) == want
-    for kernel in fp.UNIVERSAL_KERNELS:
-        if kernel not in ("dc_policy_record", "sync_policy_record", "eesm_policy_record",
-                          "srm_policy_record"):
-            assert fp.policy_universal_lanes(kernel, n, sms) == (1, False)
+    assert sorted(fp.POLICY_LANE_DESIGNS) == sorted(fp.UNIVERSAL_KERNELS)
     _hold_width_rule_source("fused_dc_policy.cu", fp.DC_POLICY_WIDE, fp.DC_POLICY_NARROW)
     assert fp.POLICY_LANE_DESIGNS["dc_policy_record"] == (fp.DC_POLICY_WIDE, fp.DC_POLICY_NARROW)
 
@@ -241,3 +237,31 @@ def test_srm_policy_width_rule_mirrors_the_kernels(n, sms, per_sm):
     _hold_width_rule_source("fused_srm_policy.cu", fp.SRM_POLICY_WIDE, fp.SRM_POLICY_NARROW)
     assert fp.POLICY_LANE_DESIGNS["srm_policy_record"] == (fp.SRM_POLICY_WIDE,
                                                            fp.SRM_POLICY_NARROW)
+
+
+@pytest.mark.parametrize("n,sms,per_sm", SYNC_WIDTH_CASES)
+def test_dfim_policy_width_rule_mirrors_the_kernels(n, sms, per_sm):
+    """dfim_policy_record takes the width rule of csrc/policy_heads_lanes.cuh
+    over csrc/fused_dfim_policy.cu's own designs (DFIM_POLICY_WIDE,
+    _NARROW), for its factorised and its joint heads alike, as the
+    synchronous recorder does over its own: the wide design at PPO's 2048
+    envs on an H100's 132 SMs, one thread per env at the bench's 16384."""
+    _hold_width_rule("dfim_policy_record", fp.DFIM_POLICY_WIDE, fp.DFIM_POLICY_NARROW, n, sms,
+                     per_sm)
+    _hold_width_rule_source("fused_dfim_policy.cu", fp.DFIM_POLICY_WIDE, fp.DFIM_POLICY_NARROW)
+    assert fp.POLICY_LANE_DESIGNS["dfim_policy_record"] == (fp.DFIM_POLICY_WIDE,
+                                                            fp.DFIM_POLICY_NARROW)
+
+
+@pytest.mark.parametrize("n,sms,per_sm", SYNC_WIDTH_CASES)
+def test_induction_policy_width_rule_mirrors_the_kernels(n, sms, per_sm):
+    """induction_policy_record takes the width rule of
+    csrc/policy_heads_lanes.cuh over csrc/fused_induction_policy.cu's own
+    designs (INDUCTION_POLICY_WIDE, _NARROW), as the synchronous recorder
+    does over its own."""
+    _hold_width_rule("induction_policy_record", fp.INDUCTION_POLICY_WIDE,
+                     fp.INDUCTION_POLICY_NARROW, n, sms, per_sm)
+    _hold_width_rule_source("fused_induction_policy.cu", fp.INDUCTION_POLICY_WIDE,
+                            fp.INDUCTION_POLICY_NARROW)
+    assert fp.POLICY_LANE_DESIGNS["induction_policy_record"] == (fp.INDUCTION_POLICY_WIDE,
+                                                                 fp.INDUCTION_POLICY_NARROW)

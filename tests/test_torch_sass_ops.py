@@ -320,8 +320,9 @@ def test_srm_lane_kernels_carry_their_lane_mark():
     (``test_policy_record_lane_instance_carries_its_lane_mark``) and the
     DC and synchronous families' universal recorders'
     (``test_dc_policy_lanes_and_srm_record_ring_keep_their_one_thread_entries``,
-    ``test_sync_policy_lanes_keep_their_one_thread_entry``) and the EESM and
-    SRM families' (``test_eesm_and_srm_policy_lanes_keep_their_one_thread_entries``)
+    ``test_sync_policy_lanes_keep_their_one_thread_entry``), the EESM, SRM
+    and SCIM families' (``test_eesm_and_srm_policy_lanes_keep_their_one_thread_entries``)
+    and the DFIM family's (``test_dfim_policy_lanes_keep_their_one_thread_entries``)
     carry a lane mark; each of those ids also has an unmarked one-thread
     entry of srm_rollout_random with the same FINITE, NREF and SAT, the
     function's own work that the bounds count."""
@@ -330,7 +331,10 @@ def test_srm_lane_kernels_carry_their_lane_mark():
              "dc_policy_record_lanes/8/Cont-CC-PermExDc-v0": 8,
              "sync_policy_record_lanes/8": fp.SYNC_POLICY_WIDE[0],
              "eesm_policy_record_lanes/8": fp.EESM_POLICY_WIDE[0],
-             "srm_policy_record_lanes/8": fp.SRM_POLICY_WIDE[0]}
+             "srm_policy_record_lanes/8": fp.SRM_POLICY_WIDE[0],
+             "dfim_policy_record_lanes/8": fp.DFIM_POLICY_WIDE[0],
+             "dfim_policy_record_lanes/8/joint": fp.DFIM_POLICY_WIDE[0],
+             "induction_policy_record_lanes/8": fp.INDUCTION_POLICY_WIDE[0]}
     lanes = {}
     for library, instances in sass_ops.STEP_INSTANCES.items():
         for key, instance in instances.items():
@@ -854,14 +858,18 @@ def test_sync_policy_lanes_keep_their_one_thread_entry():
     ("fused_eesm_policy", "eesm_policy_record", "eesm_policy_record_kernelILb1ELb0ELi3ELb0EE@inner",
      fp.EESM_POLICY_WIDE),
     ("fused_srm_policy", "srm_policy_record",
-     "srm_policy_record_kernelILb0ELb1ELi1ELb0ELb0EE@inner", fp.SRM_POLICY_WIDE)])
+     "srm_policy_record_kernelILb0ELb1ELi1ELb0ELb0EE@inner", fp.SRM_POLICY_WIDE),
+    ("fused_induction_policy", "induction_policy_record",
+     "induction_policy_record_kernelILb1ELb0ELi2EE@inner", fp.INDUCTION_POLICY_WIDE)])
 def test_eesm_and_srm_policy_lanes_keep_their_one_thread_entries(library, kernel, one_thread,
                                                                  design):
-    """eesm_policy_record and srm_policy_record run on lane groups below a
-    full card, on the ids chip_smoke.py times (Finite-CC-EESM, Cont-SC-SRM)
-    in the one lane design their width rules name, wide and narrow alike
-    (``EESM_POLICY_WIDE``/``_NARROW``, ``SRM_POLICY_WIDE``/``_NARROW``: the
-    ``/8`` entry, ``@lanes8``), while each one-thread entry stays the count
+    """eesm_policy_record, srm_policy_record and induction_policy_record run
+    on lane groups below a full card, on the ids chip_smoke.py times
+    (Finite-CC-EESM, Cont-SC-SRM, Finite-CC-SCIM) in the one lane design
+    their width rules name, wide and narrow alike (``EESM_POLICY_WIDE``/
+    ``_NARROW``, ``SRM_POLICY_WIDE``/``_NARROW``,
+    ``INDUCTION_POLICY_WIDE``/``_NARROW``: the ``/8`` entry, ``@lanes8``),
+    while each one-thread entry stays the count
     of the function's own work, its hidden-unit loop apart (``@inner``).
     The lane entry's template arguments start with the one-thread entry's,
     followed by the lanes and the lead flag."""
@@ -875,3 +883,30 @@ def test_eesm_and_srm_policy_lanes_keep_their_one_thread_entries(library, kernel
                               f"@lanes{lanes}")
     assert sass_ops.lanes_of(instances[key]) == lanes and sass_ops.ws_steps_of(instances[key]) == 0
     assert sorted(instances) == [kernel, key]
+
+
+def test_dfim_policy_lanes_keep_their_one_thread_entries():
+    """dfim_policy_record runs on lane groups below a full card, its
+    factorised and its joint heads alike, on the id chip_smoke.py times
+    (Finite-CC-DFIM) in the one lane design its width rule names, wide and
+    narrow alike (``DFIM_POLICY_WIDE``/``_NARROW``: the ``/8`` entries,
+    ``@lanes8``), while each one-thread entry stays the count of the
+    function's own work, its hidden-unit loop apart (``@inner``).  Each lane
+    entry's template arguments start with its one-thread entry's, followed
+    by the lanes and the lead flag."""
+    instances = sass_ops.STEP_INSTANCES["fused_dfim_policy"]
+    design = fp.DFIM_POLICY_WIDE
+    assert fp.POLICY_LANE_DESIGNS["dfim_policy_record"] == (design, design)
+    lanes, lead = design
+    keys = []
+    for head, joint in (("", "0"), ("/joint", "1")):
+        one_thread = instances["dfim_policy_record" + head]
+        assert one_thread == f"dfim_policy_record_kernelILb1ELb0ELi2ELb{joint}EE@inner"
+        args = one_thread.partition("@")[0][len("dfim_policy_record_kernel"):-1]
+        key = f"dfim_policy_record_lanes/{lanes}{head}"
+        assert instances[key] == (f"dfim_policy_record_lanes_kernel{args}Li{lanes}"
+                                  f"ELb{int(lead)}EE@lanes{lanes}")
+        assert sass_ops.lanes_of(instances[key]) == lanes
+        assert sass_ops.ws_steps_of(instances[key]) == 0
+        keys += ["dfim_policy_record" + head, key]
+    assert sorted(instances) == sorted(keys)

@@ -888,15 +888,20 @@ STEP_INSTANCES = {
         "dc_policy_record_lanes/8/Cont-CC-PermExDc-v0":
             "dc_policy_record_lanes_kernelILb0ELb0ELi0ELi1ELb0ELi8ELb0EE@lanes8",
     },
-    "fused_induction_policy": {  # Finite-CC-SCIM-v0
-        "induction_policy_record": "induction_policy_record_kernelILb1ELb0ELi2EE@inner",
-    },
-    # eesm_policy_record and srm_policy_record run on lane groups below a
-    # full card, as the sync family's:
-    # eesm_policy_record_lanes_kernel<FINITE, MECH, NREF, JOINT, G, LEAD> and
+    # eesm_policy_record, srm_policy_record, dfim_policy_record and
+    # induction_policy_record run on lane groups below a full card, as the
+    # sync family's:
+    # eesm_policy_record_lanes_kernel<FINITE, MECH, NREF, JOINT, G, LEAD>,
     # srm_policy_record_lanes_kernel<FINITE, MECH, NREF, SAT, JOINT, G, LEAD>,
+    # dfim_policy_record_lanes_kernel<FINITE, MECH, NREF, JOINT, G, LEAD> and
+    # induction_policy_record_lanes_kernel<FINITE, MECH, NREF, G, LEAD>,
     # eight lanes in the wide and the narrow design alike (@lanes8, the /8
     # entries), on the ids chip_smoke.py times
+    "fused_induction_policy": {  # Finite-CC-SCIM-v0
+        "induction_policy_record": "induction_policy_record_kernelILb1ELb0ELi2EE@inner",
+        "induction_policy_record_lanes/8":
+            "induction_policy_record_lanes_kernelILb1ELb0ELi2ELi8ELb0EE@lanes8",
+    },
     "fused_eesm_policy": {  # Finite-CC-EESM-v0
         "eesm_policy_record": "eesm_policy_record_kernelILb1ELb0ELi3ELb0EE@inner",
         "eesm_policy_record_lanes/8":
@@ -905,6 +910,10 @@ STEP_INSTANCES = {
     "fused_dfim_policy": {  # Finite-CC-DFIM-v0, factorised and joint heads
         "dfim_policy_record": "dfim_policy_record_kernelILb1ELb0ELi2ELb0EE@inner",
         "dfim_policy_record/joint": "dfim_policy_record_kernelILb1ELb0ELi2ELb1EE@inner",
+        "dfim_policy_record_lanes/8":
+            "dfim_policy_record_lanes_kernelILb1ELb0ELi2ELb0ELi8ELb0EE@lanes8",
+        "dfim_policy_record_lanes/8/joint":
+            "dfim_policy_record_lanes_kernelILb1ELb0ELi2ELb1ELi8ELb0EE@lanes8",
     },
     "fused_srm_policy": {  # Cont-SC-SRM-v0
         "srm_policy_record": "srm_policy_record_kernelILb0ELb1ELi1ELb0ELb0EE@inner",
